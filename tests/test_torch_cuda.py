@@ -1,0 +1,116 @@
+"""The port's CUDA kernels on the card (marker ``cuda``; they skip
+without a device). This file imports no JAX, so it runs on a machine
+that has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerance of kernel vs plain version, both float32 with TF32 off: atol
+1e-4, rtol 1e-3 — the kernel sums the GEMMs in another order and merges
+the global-norm moments per tile."""
+
+import numpy as np
+import pytest
+import torch
+
+from brever_tpu_torch.models import ModelRegistry
+from brever_tpu_torch.ops import build
+from brever_tpu_torch.ops import tcn_block as tcn
+
+pytestmark = pytest.mark.cuda
+
+SMALL = dict(filters=64, filter_length=16, bottleneck_channels=32,
+             hidden_channels=64, skip_channels=32, layers=2, repeats=2)
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device('cuda', 0)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _inputs(device, batch, t_total, c=128, h=256, cs=128, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def arr(*s, scale=0.1, center=0.0):
+        return torch.from_numpy(
+            (center + scale * rng.randn(*s)).astype(np.float32)).to(device)
+
+    x = arr(batch, t_total, c, scale=1.0)
+    params = (arr(h, c), arr(h), arr(1, center=0.25), arr(h, center=1.0),
+              arr(h), arr(3, h, scale=0.5), arr(h), arr(1, center=0.25),
+              arr(h, center=1.0), arr(h), arr(c, h), arr(c), arr(cs, h),
+              arr(cs))
+    return x, params
+
+
+@pytest.mark.parametrize('t_total,dilation', [(49, 64), (49, 128),
+                                               (520, 600), (3999, 1),
+                                               (3999, 128), (1, 1)])
+@pytest.mark.parametrize('last', [False, True])
+def test_kernel_matches_plain(device, t_total, dilation, last):
+    x, params = _inputs(device, 2, t_total)
+    before = tcn.tcn_block.launches
+    res, skip = tcn.tcn_block(x, params, dilation, last)
+    ref_res, ref_skip = tcn.tcn_block_plain(x, params, dilation, last)
+    torch.cuda.synchronize()
+    assert tcn.tcn_block.launches == before + 1
+    torch.testing.assert_close(skip, ref_skip, atol=1e-4, rtol=1e-3)
+    if last:
+        assert res is None
+    else:
+        torch.testing.assert_close(res, ref_res, atol=1e-4, rtol=1e-3)
+
+
+def test_kernel_rejects_what_it_does_not_take(device):
+    x, params = _inputs(device, 1, 64)
+    before = tcn.tcn_block.launches
+    with pytest.raises(TypeError, match='float32'):
+        tcn.tcn_block(x.double(), params, 1, False)
+    with pytest.raises(ValueError, match='contiguous'):
+        tcn.tcn_block(x[:, ::2], params, 1, False)
+    with pytest.raises(ValueError, match='on cpu'):
+        tcn.tcn_block(x, (params[0].cpu(),) + params[1:], 1, False)
+    taps = torch.zeros(5, params[5].shape[1], device=device)
+    with pytest.raises(NotImplementedError, match='kernel_size 3'):
+        tcn.tcn_block(x, params[:5] + (taps,) + params[6:], 1, False)
+    with pytest.raises(ValueError, match='must be'):
+        tcn.tcn_block(x, params[:10] + (params[10][:, :8],) + params[11:],
+                      1, False)
+    w_in = params[0].t().contiguous().t()   # (H, C) but column-major
+    with pytest.raises(ValueError, match='contiguous'):
+        tcn.tcn_block(x, (w_in,) + params[1:], 1, False)
+    assert tcn.tcn_block.launches == before
+
+
+def test_launch_error_raises(device):
+    """A grid the card refuses (batch above the 65535 grid-z limit)
+    raises from the wrapper instead of failing silently."""
+    x, params = _inputs(device, 65536, 1)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        tcn.tcn_block(x, params, 1, False)
+
+
+def test_build_failure_raises(device, tmp_path, monkeypatch):
+    (tmp_path / 'bad.cu').write_text('this is not C++\n')
+    monkeypatch.setattr(build, 'CSRC_DIR', str(tmp_path))
+    monkeypatch.setattr(build, 'BUILD_DIR', str(tmp_path / 'out'))
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        build.build()
+
+
+def test_model_runs_every_block_through_the_kernel(device):
+    cpu = ModelRegistry.get('convtasnet')(**SMALL, device='cpu')
+    gpu = ModelRegistry.get('convtasnet')(**SMALL, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    x = np.random.RandomState(3).randn(2, 2, 4000).astype(np.float32)
+    before = tcn.tcn_block.launches
+    out = gpu.enhance(x).cpu()
+    assert tcn.tcn_block.launches - before == len(gpu.tcn.blocks) == 4
+    torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
