@@ -1,5 +1,6 @@
 """RIFF/WAV codec over numpy (counterpart of the WAV half of
-``brever_tpu/audio.py``): what the HTTP service reads and writes.
+``brever_tpu/audio.py``): what the HTTP service reads and writes and the
+datasets are read from.
 
 Reads PCM16/PCM24/PCM32 and 32-bit float WAV (also WAVE_FORMAT_EXTENSIBLE)
 as float32; writes 32-bit float WAV, lossless for float32 pipelines.
@@ -68,6 +69,12 @@ def _decode(raw, fmt):
     else:
         raise ValueError(f'unsupported WAV format: tag={tag} bits={bits}')
     return data.reshape(-1, fmt['channels'])
+
+
+def wav_frames(f):
+    """Number of frames of a WAV file object, read from its header."""
+    fmt, size = _parse_header(f)
+    return size // fmt['block_align']
 
 
 def read_wav(f, always_2d=False):

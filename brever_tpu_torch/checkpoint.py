@@ -1,17 +1,22 @@
-"""Read the JAX package's msgpack checkpoints without flax or msgpack.
+"""Read and write the JAX package's msgpack checkpoints without flax or
+msgpack.
 
 ``brever_tpu.checkpoint.save_checkpoint`` writes
-``flax.serialization.msgpack_serialize`` output: nested msgpack maps
-whose array leaves are msgpack extension types. Code 1 is an ndarray,
-code 3 a numpy scalar (both carry ``packb((shape, dtype_name,
+``flax.serialization.msgpack_serialize`` output: nested msgpack maps and
+arrays whose array leaves are msgpack extension types. Code 1 is an
+ndarray, code 3 a numpy scalar (both carry ``packb((shape, dtype_name,
 raw_C_bytes))``), code 2 a complex number (``packb((real, imag))``).
 Arrays above 1 GiB are split into ``__msgpack_chunked_array__`` maps.
-This module decodes that subset of msgpack in pure Python.
+This module decodes that subset of msgpack in pure Python
+(:func:`load_checkpoint`) and encodes it (:func:`save_checkpoint`), so
+that a checkpoint the port writes is read by
+``brever_tpu.checkpoint.load_checkpoint`` as one of its own.
 
 numpy has no bfloat16, so bfloat16 leaves are widened to float32, which
 is exact.
 """
 
+import os
 import struct
 
 import numpy as np
@@ -138,3 +143,123 @@ def load_checkpoint(path):
     returns, with numpy leaves (bfloat16 widened to float32)."""
     with open(path, 'rb') as f:
         return _unchunk(unpackb(f.read()))
+
+
+# ---------------------------------------------------------------------------
+# writing
+
+_MAX_LEAF_BYTES = 2 ** 30   # flax chunks leaves above this; the port's
+                            # checkpoints stay far below it
+
+
+def _pack_len(out, n, fix_base, fix_max, codes):
+    """Append a length header: fix form below ``fix_max``, else the
+    smallest of ``codes`` = ((byte, struct format, limit), ...)."""
+    if fix_base is not None and n < fix_max:
+        out.append(struct.pack('B', fix_base | n))
+        return
+    for byte, fmt, limit in codes:
+        if n < limit:
+            out.append(struct.pack('>B' + fmt, byte, n))
+            return
+    raise ValueError(f'msgpack object too long: {n}')
+
+
+def _pack_ext(out, code, payload):
+    n = len(payload)
+    fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if n in fixext:
+        out.append(struct.pack('>Bb', fixext[n], code))
+    else:
+        _pack_len(out, n, None, 0, ((0xc7, 'B', 2 ** 8), (0xc8, 'H', 2 ** 16),
+                                    (0xc9, 'I', 2 ** 32)))
+        out.append(struct.pack('>b', code))
+    out.append(payload)
+
+
+def _ndarray_payload(arr):
+    if arr.dtype.hasobject or arr.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError(f'cannot write an array of {arr.dtype} and '
+                         f'{arr.nbytes} bytes')
+    return packb((list(arr.shape), arr.dtype.name, arr.tobytes('C')))
+
+
+def _pack(out, obj):
+    if obj is None:
+        out.append(b'\xc0')
+    elif obj is True or obj is False:
+        out.append(b'\xc3' if obj else b'\xc2')
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_payload(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)))
+    elif isinstance(obj, int):
+        if 0 <= obj < 2 ** 64:
+            if obj < 128:
+                out.append(struct.pack('B', obj))
+            else:
+                for byte, fmt, limit in ((0xcc, 'B', 2 ** 8),
+                                         (0xcd, 'H', 2 ** 16),
+                                         (0xce, 'I', 2 ** 32),
+                                         (0xcf, 'Q', 2 ** 64)):
+                    if obj < limit:
+                        out.append(struct.pack('>B' + fmt, byte, obj))
+                        break
+        elif -32 <= obj < 0:
+            out.append(struct.pack('b', obj))
+        else:
+            for byte, fmt, limit in ((0xd0, 'b', 2 ** 7), (0xd1, 'h', 2 ** 15),
+                                     (0xd2, 'i', 2 ** 31),
+                                     (0xd3, 'q', 2 ** 63)):
+                if obj >= -limit:
+                    out.append(struct.pack('>B' + fmt, byte, obj))
+                    break
+            else:
+                raise ValueError(f'integer out of msgpack range: {obj}')
+    elif isinstance(obj, float):
+        out.append(struct.pack('>Bd', 0xcb, obj))
+    elif isinstance(obj, str):
+        data = obj.encode('utf-8')
+        _pack_len(out, len(data), 0xa0, 32, ((0xd9, 'B', 2 ** 8),
+                                             (0xda, 'H', 2 ** 16),
+                                             (0xdb, 'I', 2 ** 32)))
+        out.append(data)
+    elif isinstance(obj, bytes):
+        _pack_len(out, len(obj), None, 0, ((0xc4, 'B', 2 ** 8),
+                                           (0xc5, 'H', 2 ** 16),
+                                           (0xc6, 'I', 2 ** 32)))
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, ((0xdc, 'H', 2 ** 16),
+                                            (0xdd, 'I', 2 ** 32)))
+        for item in obj:
+            _pack(out, item)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 16, ((0xde, 'H', 2 ** 16),
+                                            (0xdf, 'I', 2 ** 32)))
+        if not all(isinstance(key, str) for key in obj):
+            raise TypeError(f'checkpoint keys must be str, got {list(obj)}')
+        for key in sorted(obj):   # flax writes maps in sorted key order
+            _pack(out, key)
+            _pack(out, obj[key])
+    else:
+        raise TypeError(f'cannot write {type(obj).__name__} to a checkpoint')
+
+
+def packb(obj):
+    """Encode nested dicts (str keys), lists, str, bytes, bool, None,
+    int, float and numpy arrays/scalars byte for byte as
+    ``flax.serialization.msgpack_serialize`` does."""
+    out = []
+    _pack(out, obj)
+    return b''.join(out)
+
+
+def save_checkpoint(path, state):
+    """Write ``state`` (numpy leaves) in the layout of
+    ``brever_tpu.checkpoint.save_checkpoint``, atomically."""
+    data = packb(state)
+    tmp = f'{path}.tmp'
+    with open(tmp, 'wb') as f:
+        f.write(data)
+    os.replace(tmp, path)

@@ -14,56 +14,45 @@
 // The TPU kernel keeps a whole (T, H) time row of every intermediate in
 // 128 MB of VMEM. An H100 block has at most 227 KB of shared memory and
 // blocks run in no order, so the block is split at its two global-norm
-// reduction barriers into three launches:
+// reduction barriers into three launches and two small merges:
 //
 //   1. in_gemm_prelu_stats: tiled GEMM x @ W_in, bias + PReLU epilogue,
 //      writes raw h1 and per-tile (count, mean, M2) partial moments.
-//   2. dw_prelu_stats: merges row b's partials (Chan's formula, fixed
-//      order, so deterministic), normalizes h1 on load (zero outside
-//      [0, T): the padding comes after the norm), dilated 3-tap depthwise
-//      conv + PReLU, writes h2 and its partial moments.
-//   3. out_gemm: merges the h2 partials, normalizes h2 on the A-tile load
-//      and runs one GEMM against [W_res | W_skip]; the epilogue adds the
-//      biases and the residual.
+//   2. row_stats: one block per batch row merges the row's partials
+//      (Chan's formula in double, fixed order, so deterministic) and writes
+//      (mean1, rstd1) into stats (B, 4).
+//   3. dw_prelu_stats: normalizes h1 on load (zero outside [0, T): the
+//      padding comes after the norm), dilated 3-tap depthwise conv + PReLU,
+//      writes h2 and its partial moments; row_stats then writes
+//      (mean2, rstd2).
+//   4. out_gemm: normalizes h2 on the A-tile load and runs one GEMM against
+//      [W_res | W_skip]; the epilogue adds the biases and the residual.
+//
+// stats (B, 4) = (mean1, rstd1, mean2, rstd2) is what the backward
+// (tcn_block_bwd.cu) recomputes the block from.
 //
 // Bound: bytes. h1 and h2 each make one round trip through device memory
 // (B*T*H*4 bytes written and read about once more; 2 x 8 MB per batch row
 // of 4 s at H=512), against 2*T*H*(C + C + Cs) flops per row. The design
 // keeps every other intermediate (z1, z2, y1, y2) out of device memory by
 // fusing it into a load or an epilogue, and carries only 3 floats per tile
-// across the barriers. Folding the gLN affines into the weights, bf16 and
-// wgmma/TMA tiles are left for later work: this is the simple, right one.
+// across the barriers, merged once per row. Folding the gLN affines into
+// the weights, bf16 and wgmma/TMA tiles are left for later work: this is
+// the simple, right one.
 //
 // Every pointer is a dense float32 buffer. 2-D weights are in the storage
 // of a torch Linear weight, (N, K) = (out, in) row-major, which the model
 // passes as it is; a B-tile load then reads K-contiguous runs.
 
-#include <cuda_runtime.h>
+#include "tcn_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;       // GEMM tile rows (time)
-constexpr int kBN = 64;       // GEMM tile columns (channels)
-constexpr int kBK = 16;       // GEMM tile depth
+using namespace tcn;
+
 constexpr int kDwRows = 32;   // depthwise tile: time rows
 constexpr int kDwCols = 128;  // depthwise tile: channels
 constexpr int kDwPer = kDwRows / (kThreads / kDwCols);  // rows per thread
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// Sum over the block; every thread gets the same value, summed in a fixed
-// order. `red` holds kThreads / 32 floats of shared memory.
-__device__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
-  return s;
-}
 
 // Write the tile's (count, mean, M2) from the values this thread holds:
 // two passes over registers, so M2 carries no cancellation.
@@ -88,75 +77,25 @@ __device__ void tile_moments(const float (&v)[N], const bool (&ok)[N], float cou
   }
 }
 
-__device__ inline void merge(double& n, double& mean, double& m2, double nb, double mb,
-                             double m2b) {
-  if (nb == 0.0) return;
-  if (n == 0.0) {
-    n = nb;
-    mean = mb;
-    m2 = m2b;
-    return;
+// One block (one warp) per batch row: merge the row's partial moments in a
+// fixed order and write (mean, 1/sqrt(var + eps)) to stats[b][2 slot ..].
+// grid (B), 32 threads
+__global__ void row_stats(const float* __restrict__ part, int n_part, float eps,
+                          float* __restrict__ stats, int slot) {
+  const float* p = part + 3 * static_cast<size_t>(blockIdx.x) * n_part;
+  double n = 0.0, mean = 0.0, m2 = 0.0;
+  for (int i = threadIdx.x; i < n_part; i += 32)
+    merge(n, mean, m2, p[3 * i], p[3 * i + 1], p[3 * i + 2]);
+  for (int off = 16; off > 0; off >>= 1) {
+    const double nb = __shfl_down_sync(0xffffffffu, n, off);
+    const double mb = __shfl_down_sync(0xffffffffu, mean, off);
+    const double m2b = __shfl_down_sync(0xffffffffu, m2, off);
+    merge(n, mean, m2, nb, mb, m2b);
   }
-  const double tot = n + nb;
-  const double delta = mb - mean;
-  const double w = nb / tot;
-  mean += delta * w;
-  m2 += m2b + delta * delta * n * w;
-  n = tot;
-}
-
-// Merge one batch row's partial moments in a fixed order (warp 0) and
-// publish (mean, 1/sqrt(var + eps)) to every thread of the block.
-__device__ void row_stats(const float* part, int n_part, float eps, float* stats) {
-  if (threadIdx.x < 32) {
-    double n = 0.0, mean = 0.0, m2 = 0.0;
-    for (int i = threadIdx.x; i < n_part; i += 32)
-      merge(n, mean, m2, part[3 * i], part[3 * i + 1], part[3 * i + 2]);
-    for (int off = 16; off > 0; off >>= 1) {
-      const double nb = __shfl_down_sync(0xffffffffu, n, off);
-      const double mb = __shfl_down_sync(0xffffffffu, mean, off);
-      const double m2b = __shfl_down_sync(0xffffffffu, m2, off);
-      merge(n, mean, m2, nb, mb, m2b);
-    }
-    if (threadIdx.x == 0) {
-      stats[0] = static_cast<float>(mean);
-      stats[1] = static_cast<float>(1.0 / sqrt(m2 / n + static_cast<double>(eps)));
-    }
-  }
-  __syncthreads();
-}
-
-// One kBM x kBN output tile of A (kBM x K) @ B (K x kBN) in float32.
-// Thread (tx, ty) owns rows ty + 16 i and columns tx + 16 j, i, j < 4;
-// every output sums its products in ascending k.
-template <class LoadA, class LoadB>
-__device__ void gemm_tile(float (&acc)[4][4], int K, LoadA load_a, LoadB load_b) {
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Bs[kBK][kBN + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-      const int m = i / kBK, kk = i % kBK;
-      As[kk][m] = load_a(m, k0 + kk);
-    }
-    for (int i = threadIdx.x; i < kBN * kBK; i += kThreads) {
-      const int n = i / kBK, kk = i % kBK;
-      Bs[kk][n] = load_b(k0 + kk, n);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    float* out = stats + 4 * blockIdx.x + 2 * slot;
+    out[0] = static_cast<float>(mean);
+    out[1] = static_cast<float>(1.0 / sqrt(m2 / n + static_cast<double>(eps)));
   }
 }
 
@@ -170,7 +109,7 @@ in_gemm_prelu_stats(const float* __restrict__ x, const float* __restrict__ w,
   const int b = blockIdx.z, t0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   const float* xb = x + static_cast<size_t>(b) * T * C;
   float acc[4][4] = {};
-  gemm_tile(
+  gemm_tile<true, true>(
       acc, C,
       [&](int m, int k) {
         const int t = t0 + m;
@@ -207,16 +146,14 @@ in_gemm_prelu_stats(const float* __restrict__ x, const float* __restrict__ w,
 
 // grid (cdiv(T, kDwRows), cdiv(H, kDwCols), B)
 __global__ void __launch_bounds__(kThreads)
-dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ part1, int n_part1,
+dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ stats,
                const float* __restrict__ g1, const float* __restrict__ be1,
                const float* __restrict__ w_dw, const float* __restrict__ b_dw,
                const float* __restrict__ alpha, float* __restrict__ h2,
-               float* __restrict__ part2, int T, int H, int d, float eps) {
+               float* __restrict__ part2, int T, int H, int d) {
   __shared__ float red[kThreads / 32];
-  __shared__ float stats[2];
   const int b = blockIdx.z;
-  row_stats(part1 + 3 * static_cast<size_t>(b) * n_part1, n_part1, eps, stats);
-  const float mean = stats[0], rstd = stats[1];
+  const float mean = stats[4 * b], rstd = stats[4 * b + 1];
 
   const int c0 = blockIdx.y * kDwCols, c = c0 + threadIdx.x % kDwCols;
   const int r = threadIdx.x / kDwCols, t0 = blockIdx.x * kDwRows;
@@ -261,21 +198,19 @@ dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ part1, in
 // grid (cdiv(T, kBM), cdiv(n_res + Cs, kBN), B); n_res is C, or 0 on the
 // last block (no residual output).
 __global__ void __launch_bounds__(kThreads)
-out_gemm(const float* __restrict__ h2, const float* __restrict__ part2, int n_part2,
+out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
          const float* __restrict__ g2, const float* __restrict__ be2,
          const float* __restrict__ w_res, const float* __restrict__ b_res,
          const float* __restrict__ w_skip, const float* __restrict__ b_skip,
          const float* __restrict__ x,
          float* __restrict__ res, float* __restrict__ skip, int T, int H, int C, int Cs,
-         int n_res, float eps) {
-  __shared__ float stats[2];
+         int n_res) {
   const int b = blockIdx.z, t0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  row_stats(part2 + 3 * static_cast<size_t>(b) * n_part2, n_part2, eps, stats);
-  const float mean = stats[0], rstd = stats[1];
+  const float mean = stats[4 * b + 2], rstd = stats[4 * b + 3];
   const int n_out = n_res + Cs;
   const float* hb = h2 + static_cast<size_t>(b) * T * H;
   float acc[4][4] = {};
-  gemm_tile(
+  gemm_tile<true, true>(
       acc, H,
       [&](int m, int k) {
         const int t = t0 + m;
@@ -332,26 +267,29 @@ int tcn_in_gemm_prelu_stats(const float* x, const float* w, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-int tcn_dw_prelu_stats(const float* h1, const float* part1, const float* g1, const float* be1,
-                       const float* w_dw, const float* b_dw, const float* alpha, float* h2,
-                       float* part2, int B, int T, int H, int dilation, float eps,
-                       void* stream) {
-  const dim3 grid(cdiv(T, kDwRows), cdiv(H, kDwCols), B);
-  dw_prelu_stats<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      h1, part1, tcn_in_partials(T, H), g1, be1, w_dw, b_dw, alpha, h2, part2, T, H, dilation,
-      eps);
+int tcn_row_stats(const float* part, int n_part, float* stats, int slot, int B, float eps,
+                  void* stream) {
+  row_stats<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(part, n_part, eps, stats, slot);
   return static_cast<int>(cudaGetLastError());
 }
 
-int tcn_out_gemm(const float* h2, const float* part2, const float* g2, const float* be2,
+int tcn_dw_prelu_stats(const float* h1, const float* stats, const float* g1, const float* be1,
+                       const float* w_dw, const float* b_dw, const float* alpha, float* h2,
+                       float* part2, int B, int T, int H, int dilation, void* stream) {
+  const dim3 grid(cdiv(T, kDwRows), cdiv(H, kDwCols), B);
+  dw_prelu_stats<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      h1, stats, g1, be1, w_dw, b_dw, alpha, h2, part2, T, H, dilation);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tcn_out_gemm(const float* h2, const float* stats, const float* g2, const float* be2,
                  const float* w_res, const float* b_res, const float* w_skip,
                  const float* b_skip, const float* x, float* res, float* skip, int B, int T,
-                 int H, int C, int Cs, int last, float eps, void* stream) {
+                 int H, int C, int Cs, int last, void* stream) {
   const int n_res = last ? 0 : C;
   const dim3 grid(cdiv(T, kBM), cdiv(n_res + Cs, kBN), B);
   out_gemm<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      h2, part2, tcn_dw_partials(T, H), g2, be2, w_res, b_res, w_skip, b_skip, x, res, skip, T,
-      H, C, Cs, n_res, eps);
+      h2, stats, g2, be2, w_res, b_res, w_skip, b_skip, x, res, skip, T, H, C, Cs, n_res);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,15 +4,18 @@
 Luo & Mesgarani, IEEE/ACM TASLP 2019; the default geometry has
 4,935,217 parameters. Channels-last inside the TCN, like the JAX
 package. Every TCN block goes through :func:`..ops.tcn_block.tcn_block`:
-the hand-written kernel on CUDA, its plain version on the CPU. Encoder,
-bottleneck, mask and decoder are plain torch, as the JAX package leaves
-them to XLA.
+the hand-written kernels on CUDA (forward, and backward when training),
+their plain versions on the CPU. Encoder, bottleneck, mask and decoder
+are plain torch, as the JAX package leaves them to XLA.
 """
 
 import torch
 from torch import nn
 
+from ..convert import flax_to_state_dict, state_dict_to_flax
+from ..criterion import init_criterion
 from ..ops.tcn_block import tcn_block
+from ..optim import Adam
 from .base import BreverBaseModel, ModelRegistry
 from .common import DepthwiseConv1D, GlobalLayerNorm, PReLU
 
@@ -88,8 +91,8 @@ class TCN(nn.Module):
 class ConvTasNet(BreverBaseModel):
     """Non-causal Conv-TasNet. ``criterion``, ``optimizer``,
     ``learning_rate`` and ``grad_clip`` are the training settings of the
-    model's config, accepted so that a config loads; serving does not use
-    them."""
+    model's config: :meth:`loss` and the trainer use them, serving does
+    not."""
 
     def __init__(
         self,
@@ -115,8 +118,20 @@ class ConvTasNet(BreverBaseModel):
             raise NotImplementedError(
                 'causal Conv-TasNet needs the cumulative layer norm, which '
                 'the PyTorch port does not have yet')
+        self.hparams = dict(
+            filters=filters, filter_length=filter_length,
+            bottleneck_channels=bottleneck_channels,
+            hidden_channels=hidden_channels, skip_channels=skip_channels,
+            kernel_size=kernel_size, layers=layers, repeats=repeats,
+            output_sources=output_sources, causal=causal,
+            criterion=criterion, optimizer=optimizer,
+            learning_rate=learning_rate, grad_clip=grad_clip)
         self.filter_length = filter_length
         self.output_sources = output_sources
+        self.criterion = init_criterion(criterion)
+        self.optimizer_name = optimizer
+        self.learning_rate = learning_rate
+        self.grad_clip = grad_clip
         stride = filter_length // 2
         self.encoder = nn.Conv1d(1, filters, filter_length, stride,
                                  bias=False)
@@ -145,6 +160,25 @@ class ConvTasNet(BreverBaseModel):
     def transform(self, sources):
         """Binaural -> monaural (mean over channels)."""
         return sources.mean(dim=-2)
+
+    def to_flax(self, state_dict):
+        return state_dict_to_flax(state_dict, self.hparams['layers'])
+
+    def from_flax(self, params):
+        return flax_to_state_dict(params)
+
+    def loss(self, batch, lengths):
+        """Per-item loss of a padded batch ``(B, sources, channels,
+        samples)``: the mixture in, the other sources as labels."""
+        mono = self.transform(batch)      # (B, sources, samples)
+        return self.criterion(self(mono[:, 0]), mono[:, 1:], lengths)
+
+    def optimizer(self):
+        if self.optimizer_name != 'adam':
+            raise NotImplementedError(
+                f'optimizer {self.optimizer_name!r}: the port trains with '
+                'adam only')
+        return Adam(self.learning_rate)
 
     def _enhance(self, x):
         out = self(self.transform(x))

@@ -9,15 +9,22 @@ def prelu(x, alpha):
     return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
 
 
-def global_layer_norm(x, scale, bias, eps=1e-8):
-    """Normalize over every axis but the batch, with f32 statistics and
-    a two-pass variance; per-channel affine on the last axis."""
-    x32 = x.float()
+def gln_stats(x, eps=1e-8):
+    """Global-norm statistics over every axis but the batch, at least in
+    f32 and with a two-pass variance: ``(mean, 1/sqrt(var + eps))``, each
+    shaped to broadcast against x."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     axes = tuple(range(1, x.ndim))
     mean = x32.mean(dim=axes, keepdim=True)
     var = ((x32 - mean) ** 2).mean(dim=axes, keepdim=True)
-    normed = (x32 - mean) / torch.sqrt(var + eps)
-    return (normed * scale + bias).to(x.dtype)
+    return mean, torch.rsqrt(var + eps)
+
+
+def global_layer_norm(x, scale, bias, eps=1e-8):
+    """Normalize over every axis but the batch (:func:`gln_stats`);
+    per-channel affine on the last axis."""
+    mean, rstd = gln_stats(x, eps)
+    return ((x - mean) * rstd * scale + bias).to(x.dtype)
 
 
 def depthwise_conv1d(x, weight, bias, dilation, padding):

@@ -4,9 +4,13 @@ that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerance of kernel vs plain version, both float32 with TF32 off: atol
-1e-4, rtol 1e-3 — the kernel sums the GEMMs in another order and merges
-the global-norm moments per tile."""
+Tolerance of the forward kernel vs its plain version, both float32 with
+TF32 off: atol 1e-4, rtol 1e-3 — the kernel sums the GEMMs in another
+order and merges the global-norm moments per tile. The backward kernel
+is held against its plain version in float64 (float32 rounding can flip
+a PReLU branch at a pre-activation near 0, and the slopes' gradients are
+sums that cancel): atol 1e-4 of the tensor's largest value, rtol 1e-3,
+at sizes where a flip is unlikely (about 0.5M pre-activations)."""
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 from brever_tpu_torch.models import ModelRegistry
 from brever_tpu_torch.ops import build
 from brever_tpu_torch.ops import tcn_block as tcn
+from brever_tpu_torch.profile_train import make_trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +119,89 @@ def test_model_runs_every_block_through_the_kernel(device):
     out = gpu.enhance(x).cpu()
     assert tcn.tcn_block.launches - before == len(gpu.tcn.blocks) == 4
     torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
+
+
+def _cotangents(device, x, seed=1):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.randn(*x.shape).astype(np.float32))
+                 .to(device) for _ in range(2))
+
+
+@pytest.mark.parametrize('t_total,dilation', [(49, 64), (49, 128), (520, 1),
+                                               (520, 600), (1, 1)])
+@pytest.mark.parametrize('last', [False, True])
+def test_backward_kernel_matches_plain(device, t_total, dilation, last):
+    x, params = _inputs(device, 2, t_total)
+    if last:
+        params = params[:10] + (None, None) + params[12:]
+    g_res, g_skip = _cotangents(device, x)
+    g_res = None if last else g_res
+    with torch.no_grad():
+        _, _, stats = tcn.tcn_block_fwd(x, params, dilation, last)
+    before = tcn.tcn_block_bwd.launches
+    dx, dparams = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip,
+                                    dilation, last)
+    assert tcn.tcn_block_bwd.launches == before + 1
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    ref_dx, ref_params = tcn.tcn_block_bwd_plain(
+        f64(x), [f64(p) for p in params], f64(g_res), f64(g_skip), dilation,
+        last)
+    torch.cuda.synchronize()
+    for got, ref in zip((dx,) + dparams, (ref_dx,) + ref_params):
+        if ref is None:
+            assert got is None
+            continue
+        torch.testing.assert_close(got.double().reshape(ref.shape), ref,
+                                   atol=1e-4 * ref.abs().max().item(),
+                                   rtol=1e-3)
+
+
+def test_backward_kernel_is_bitwise_repeatable(device):
+    x, params = _inputs(device, 2, 3999)
+    g_res, g_skip = _cotangents(device, x)
+    with torch.no_grad():
+        _, _, stats = tcn.tcn_block_fwd(x, params, 4, False)
+    first = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, 4, False)
+    second = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, 4, False)
+    for a, b in zip((first[0],) + first[1], (second[0],) + second[1]):
+        assert torch.equal(a, b)
+
+
+def test_backward_kernel_rejects_what_it_does_not_take(device):
+    x, params = _inputs(device, 1, 64)
+    g_res, g_skip = _cotangents(device, x)
+    with torch.no_grad():
+        _, _, stats = tcn.tcn_block_fwd(x, params, 1, False)
+    before = tcn.tcn_block_bwd.launches
+    with pytest.raises(TypeError, match='float32'):
+        tcn.tcn_block_bwd(x, params, stats, g_res, g_skip.double(), 1, False)
+    with pytest.raises(ValueError, match='contiguous'):
+        tcn.tcn_block_bwd(x, params, stats, g_res, g_skip[:, :32], 1, False)
+    with pytest.raises(ValueError, match='on cpu'):
+        tcn.tcn_block_bwd(x, params, stats.cpu(), g_res, g_skip, 1, False)
+    w_skip = params[12].t().contiguous().t()   # (Cs, H) but column-major
+    with pytest.raises(ValueError, match='contiguous'):
+        tcn.tcn_block_bwd(x, params[:12] + (w_skip,) + params[13:], stats,
+                          g_res, g_skip, 1, False)
+    assert tcn.tcn_block_bwd.launches == before
+
+
+def test_full_width_train_step(device, tmp_path):
+    """One step of BreverTrainer on default Conv-TasNet at 2 x 1 s: a
+    finite loss, every parameter moved, every block's backward on the
+    kernel."""
+    trainer, data, lengths = make_trainer(device, str(tmp_path), batch=2,
+                                          seconds=1.0)
+    before = trainer.flat.clone()
+    launches = tcn.tcn_block_bwd.launches
+    loss = trainer.train_step(data, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert tcn.tcn_block_bwd.launches - launches == 24
+    moved = [not torch.equal(p, before[o:o + p.numel()].view_as(p))
+             for p, o in zip(trainer._param_list, np.cumsum(
+                 [0] + [q.numel() for q in trainer._param_list])[:-1])]
+    assert all(moved)

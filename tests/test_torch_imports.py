@@ -1,7 +1,8 @@
 """The port imports no JAX: every module of brever_tpu_torch loads in a
 fresh interpreter without jax, flax, optax or the JAX package itself
-(only ``EnhanceService`` on a model directory reads its config through
-``brever_tpu.config``, at call time), and without nvcc or triton."""
+(only ``EnhanceService`` on a model directory and the training command
+line read a config through ``brever_tpu.config``, at call time), and
+without nvcc or triton."""
 
 import os
 import pkgutil
@@ -27,8 +28,10 @@ def test_port_imports_no_jax():
     modules = ['brever_tpu_torch'] + [
         m.name for m in pkgutil.walk_packages(brever_tpu_torch.__path__,
                                               'brever_tpu_torch.')]
-    assert 'brever_tpu_torch.serve' in modules
-    assert 'brever_tpu_torch.ops.tcn_block' in modules
+    for name in ('serve', 'ops.tcn_block', 'criterion', 'metrics',
+                 'batching', 'data', 'optim', 'training', 'train',
+                 'profile_train'):
+        assert f'brever_tpu_torch.{name}' in modules
     env = dict(os.environ, PATH='/usr/bin:/bin', CUDA_HOME='')
     proc = subprocess.run([sys.executable, '-c', _SCRIPT, *modules],
                           cwd=ROOT, env=env, capture_output=True, text=True,
