@@ -1,5 +1,5 @@
 """Weight bridge between the JAX package's flax parameter trees and the
-port's ``state_dict`` (Conv-TasNet layout).
+port's ``state_dict``, for Conv-TasNet and TF-GridNet.
 
 A flax ``params`` tree is a nested dict of numpy arrays, as
 ``brever_tpu.checkpoint.load_checkpoint`` returns it. The rules:
@@ -16,6 +16,18 @@ A flax ``params`` tree is a nested dict of numpy arrays, as
   ``res``;
 * gLN scopes are ``GlobalLayerNorm_0``/``_1`` inside a block and
   ``tcn/GlobalLayerNorm_0`` before the bottleneck.
+
+TF-GridNet (``tfgridnet_*``):
+
+* ``Conv`` kernels ``(kh, kw, in, out)`` -> ``conv2d`` weights
+  ``(out, in, kh, kw)``; the ``deconv`` is flax's stride-1
+  ``ConvTranspose`` with ``transpose_kernel=False`` and padding 1, which is
+  that same correlation, so its kernel maps unflipped (a torch
+  ``conv_transpose2d`` would need it flipped in both axes);
+* the grid blocks live under one scanned scope ``blocks/block`` with a
+  leading axis of ``n_layers``: block ``i`` is ``blocks.{i}``;
+* Dense scopes map as above; every other scope (norms, BLSTMs, PReLUs)
+  keeps its leaf names and shapes.
 """
 
 import numpy as np
@@ -143,4 +155,66 @@ def state_dict_to_flax(state_dict, layers):
         'decoder': {'kernel': sd['decoder.weight'][:, :, ::-1]
                     .transpose(2, 0, 1)},
         'tcn': tcn,
+    }
+
+
+# ---------------------------------------------------------------------------
+# TF-GridNet
+
+def _conv2d_to_torch(prefix, tree):
+    return {f'{prefix}.weight': _f32(tree['kernel']).transpose(3, 2, 0, 1),
+            f'{prefix}.bias': _f32(tree['bias'])}
+
+
+def _conv2d_to_flax(sd, prefix):
+    return {'kernel': sd[f'{prefix}.weight'].transpose(2, 3, 1, 0),
+            'bias': sd[f'{prefix}.bias']}
+
+
+def _scope_to_torch(prefix, tree):
+    if 'kernel' in tree:
+        return _dense_to_torch(prefix, tree)
+    return {f'{prefix}.{k}': _f32(v) for k, v in tree.items()}
+
+
+def tfgridnet_flax_to_state_dict(params):
+    """Flax ``params`` tree of ``TFGridNet`` -> the port's ``state_dict``
+    (float32 CPU tensors)."""
+    sd = {**_conv2d_to_torch('embed', params['embed']),
+          **_norm_to_torch('embed_norm', params['embed_norm']),
+          **_conv2d_to_torch('deconv', params['deconv'])}
+    block = params['blocks']['block']
+    n_layers = _f32(block['intra_norm']['scale']).shape[0]
+    for i in range(n_layers):
+        for scope, tree in block.items():
+            sd.update(_scope_to_torch(
+                f'blocks.{i}.{scope}',
+                {k: _f32(v)[i] for k, v in tree.items()}))
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def tfgridnet_state_dict_to_flax(state_dict):
+    """The port's TF-GridNet ``state_dict`` -> flax ``params`` tree
+    (numpy)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    n_layers = 1 + max(int(k.split('.')[1]) for k in sd
+                       if k.startswith('blocks.'))
+    scopes = {}
+    for key, value in sd.items():
+        if key.startswith('blocks.0.'):
+            scope, leaf = key.split('.')[2:]
+            scopes.setdefault(scope, []).append(leaf)
+    block = {}
+    for scope, leaves in scopes.items():
+        trees = []
+        for i in range(n_layers):
+            prefix = f'blocks.{i}.{scope}'
+            trees.append(_dense_to_flax(sd, prefix) if 'weight' in leaves
+                         else {leaf: sd[f'{prefix}.{leaf}'] for leaf in leaves})
+        block[scope] = _stack(trees)
+    return {
+        'embed': _conv2d_to_flax(sd, 'embed'),
+        'embed_norm': _norm_to_flax(sd, 'embed_norm'),
+        'blocks': {'block': block},
+        'deconv': _conv2d_to_flax(sd, 'deconv'),
     }

@@ -12,6 +12,7 @@ from itertools import permutations
 import numpy as np
 import torch
 
+from .ops.stft import STFT
 from .registry import Registry
 
 eps = float(np.finfo(np.float32).eps)
@@ -103,13 +104,41 @@ def mse(x, y, lengths, weight=None):
 
 @CriterionRegistry.register('multiresyu')
 class MultiResYuLoss:
-    """Multi-resolution STFT loss: needs the port of the STFT, which the
-    port does not have yet (ROADMAP.md, Queue 1). A model configured
-    with it still loads and serves; computing the loss raises."""
+    """Multi-resolution STFT magnitude L1 + time-domain L1 loss (the
+    ESPnet-SE L3DAS22 loss), with optional scale invariance: boxcar
+    windows, ``normalized=False``, hop ``f // 2`` by default; the sum is
+    divided by ``max(lengths, 1)``."""
 
-    def __init__(self, **kwargs):
-        self.kwargs = kwargs
+    def __init__(self, frame_lengths=(512,), hop_lengths=None,
+                 time_domain_weight=0.5, spectral_weight=0.5,
+                 scale_invariant=False):
+        if hop_lengths is None:
+            hop_lengths = [f // 2 for f in frame_lengths]
+        self.stfts = [
+            STFT(frame_length=f, hop_length=h, window=None, normalized=False)
+            for f, h in zip(frame_lengths, hop_lengths)
+        ]
+        self.time_domain_weight = time_domain_weight
+        self.spectral_weight = spectral_weight
+        self.scale_invariant = scale_invariant
 
     def __call__(self, x, y, lengths):
-        raise NotImplementedError(
-            'criterion multiresyu needs the STFT port (ROADMAP.md, Queue 1)')
+        if x.shape != y.shape:
+            raise ValueError(f'multiresyu takes two equal tensors, got '
+                             f'{tuple(x.shape)} and {tuple(y.shape)}')
+        x, y = apply_mask(x, y, lengths)
+        if self.scale_invariant:
+            scaling = (x * y).sum(dim=-1, keepdim=True) \
+                / ((x ** 2).sum(dim=-1, keepdim=True) + eps)
+        else:
+            scaling = 1.0
+        out = self.time_domain_weight * (scaling * x - y).abs().sum(dim=-1)
+        for stft in self.stfts:
+            y_mag = stft(y).abs()
+            x_mag = stft(scaling * x).abs()
+            spectral = (x_mag - y_mag).abs().sum(dim=(-2, -1))
+            out = out + self.spectral_weight * spectral / len(self.stfts)
+        shape = (-1,) + (1,) * (x.ndim - 2)
+        out = out / lengths.clamp_min(1).reshape(shape).to(out.dtype)
+        return out.mean(dim=tuple(range(1, x.ndim - 1))) if x.ndim > 2 \
+            else out

@@ -254,10 +254,6 @@ extern "C" {
 int tcn_in_partials(int T, int H) { return cdiv(T, kBM) * cdiv(H, kBN); }
 int tcn_dw_partials(int T, int H) { return cdiv(T, kDwRows) * cdiv(H, kDwCols); }
 
-const char* tcn_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 int tcn_in_gemm_prelu_stats(const float* x, const float* w, const float* bias,
                             const float* alpha, float* h1, float* part, int B, int T, int C,
                             int H, void* stream) {

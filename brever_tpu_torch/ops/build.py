@@ -42,13 +42,18 @@ class TcnBwdArgs(ctypes.Structure):
 SIGNATURES = {
     'tcn_in_partials': (_I, [_I, _I]),
     'tcn_dw_partials': (_I, [_I, _I]),
-    'tcn_error_string': (ctypes.c_char_p, [_I]),
+    'brever_error_string': (ctypes.c_char_p, [_I]),
     'tcn_in_gemm_prelu_stats': (_I, [_P] * 6 + [_I] * 4 + [_P]),
     'tcn_row_stats': (_I, [_P, _I, _P, _I, _I, _F, _P]),
     'tcn_dw_prelu_stats': (_I, [_P] * 9 + [_I] * 4 + [_P]),
     'tcn_out_gemm': (_I, [_P] * 11 + [_I] * 6 + [_P]),
     'tcn_bwd_workspace': (ctypes.c_size_t, [_I] * 6),
     'tcn_block_bwd': (_I, [ctypes.POINTER(TcnBwdArgs), _P]),
+    'lstm_fwd_smem': (ctypes.c_size_t, [_I, _I]),
+    'lstm_bwd_smem': (ctypes.c_size_t, [_I, _I]),
+    'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
+    'lstm_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    'lstm_bwd': (_I, [_P] * 12 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -143,8 +148,9 @@ def load_library():
 
 
 def check(lib, code, what):
-    """Raise if a C entry point returned a CUDA error code."""
+    """Raise if a C entry point returned a CUDA error code (named by the
+    library's one error-string entry point)."""
     if code != 0:
         raise RuntimeError(
             f'{what} failed: CUDA error {code} '
-            f'({lib.tcn_error_string(code).decode()})')
+            f'({lib.brever_error_string(code).decode()})')

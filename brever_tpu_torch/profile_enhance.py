@@ -1,8 +1,9 @@
 """Where the time of the port's serving path goes, on one CUDA device.
 
-Builds full-width default Conv-TasNet (4,935,217 parameters, random
-weights from ``--seed``) on the device, float32 with TF32 off (as
-``chip_smoke.py`` runs it), and measures:
+Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
+parameters, or TF-GridNet, 3,735,344; random weights from ``--seed``) on
+the device, float32 with TF32 off (as ``chip_smoke.py`` runs it), and
+measures:
 
 * request latency: ``EnhanceService.enhance`` of one mono request of
   0.05, 4 and 10 s, host clock around the synchronous call, median of
@@ -17,8 +18,8 @@ weights from ``--seed``) on the device, float32 with TF32 off (as
 Prints the card (``nvidia-smi`` name and power limit) and one JSON
 object; ``--trace`` also writes the Chrome trace.
 
-    python -m brever_tpu_torch.profile_enhance [--device cuda]
-        [--calls 5] [--repeats 10] [--trace PATH]
+    python -m brever_tpu_torch.profile_enhance [--arch convtasnet]
+        [--device cuda] [--calls 5] [--repeats 10] [--trace PATH]
 """
 
 import argparse
@@ -31,7 +32,6 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from .convert import state_dict_to_flax
 from .models import ModelRegistry
 from .serve import EnhanceService
 
@@ -55,13 +55,14 @@ def _cuda_ms(fn, calls):
     return start.elapsed_time(end) / calls
 
 
-def profile(device, calls=5, repeats=10, seed=0, trace=None):
+def profile(device, calls=5, repeats=10, seed=0, trace=None,
+            arch='convtasnet'):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(seed)
-    model = ModelRegistry.get('convtasnet')(device='cpu')
+    model = ModelRegistry.get(arch)(device='cpu')
     service = EnhanceService.from_params(
-        'convtasnet', {}, state_dict_to_flax(model.state_dict(), 8), device)
+        arch, {}, model.to_flax(model.state_dict()), device)
 
     latency = {}
     rng = np.random.RandomState(seed)
@@ -105,6 +106,7 @@ def profile(device, calls=5, repeats=10, seed=0, trace=None):
                 for name, (us, n) in sorted(kernels.items(),
                                             key=lambda kv: -kv[1][0])}
     return {
+        'arch': arch,
         'request_ms': latency,
         'enhance_16x4s_ms': ms_off,
         'enhance_16x4s_ms_profiled': ms_on,
@@ -116,6 +118,8 @@ def profile(device, calls=5, repeats=10, seed=0, trace=None):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('--arch', default='convtasnet',
+                        choices=('convtasnet', 'tfgridnet'))
     parser.add_argument('--device', default='cuda')
     parser.add_argument('--calls', type=int, default=5)
     parser.add_argument('--repeats', type=int, default=10)
@@ -130,7 +134,7 @@ def main():
          '--format=csv,noheader'], check=True, capture_output=True,
         text=True).stdout.strip(), flush=True)
     print(json.dumps(profile(device, args.calls, args.repeats, args.seed,
-                             args.trace)), flush=True)
+                             args.trace, args.arch)), flush=True)
 
 
 if __name__ == '__main__':

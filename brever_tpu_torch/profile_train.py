@@ -1,10 +1,12 @@
 """Where the time of the port's train step goes, on one CUDA device.
 
-Builds full-width default Conv-TasNet (4,935,217 parameters, drawn from
-``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32
-off (as ``chip_smoke.py`` runs it), and times ``train_step`` (forward,
-the TCN kernels' backward, global-norm clip, Adam) on a batch of 16 x 4 s
-(random mixture and target, ``snr`` criterion):
+Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
+parameters, or TF-GridNet, 3,735,344; drawn from ``--seed``) and its
+``BreverTrainer`` on the device, float32 with TF32 off (as
+``chip_smoke.py`` runs it), and times ``train_step`` (forward, the
+kernels' backward, global-norm clip, Adam) on a batch of 16 x 4 s (random
+mixture and target, the family's own criterion: ``snr`` and
+``multiresyu``):
 
 * ms per step over ``--steps`` steps (CUDA events) with the profiler off
   and on, and the peak device memory of a step;
@@ -15,8 +17,8 @@ the TCN kernels' backward, global-norm clip, Adam) on a batch of 16 x 4 s
 Prints the card (``nvidia-smi`` name and power limit) and one JSON
 object; ``--trace`` also writes the Chrome trace.
 
-    python -m brever_tpu_torch.profile_train [--device cuda] [--steps 5]
-        [--trace PATH]
+    python -m brever_tpu_torch.profile_train [--arch convtasnet]
+        [--device cuda] [--steps 5] [--trace PATH]
 """
 
 import argparse
@@ -56,10 +58,12 @@ class _Items:
         pass
 
 
-def make_trainer(device, model_dir, seed=0, batch=16, seconds=4.0):
-    """A trainer of default Conv-TasNet on ``device`` (state drawn from
-    ``seed``) and one padded batch ``(batch, lengths)`` on the device."""
-    model = ModelRegistry.get('convtasnet')(device='cpu')
+def make_trainer(device, model_dir, seed=0, batch=16, seconds=4.0,
+                 arch='convtasnet'):
+    """A trainer of the default model of ``arch`` on ``device`` (state
+    drawn from ``seed``) and one padded batch ``(batch, lengths)`` on the
+    device."""
+    model = ModelRegistry.get(arch)(device='cpu')
     items = _Items(batch, seconds)
     trainer = BreverTrainer(model, items, items, model_dir, device=device,
                             val_metrics={'snr'}, seed=seed)
@@ -75,11 +79,12 @@ def make_trainer(device, model_dir, seed=0, batch=16, seconds=4.0):
     return trainer, data, lengths
 
 
-def profile(device, steps=5, seed=0, trace=None):
+def profile(device, steps=5, seed=0, trace=None, arch='convtasnet'):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     with tempfile.TemporaryDirectory() as model_dir:
-        trainer, data, lengths = make_trainer(device, model_dir, seed)
+        trainer, data, lengths = make_trainer(device, model_dir, seed,
+                                              arch=arch)
 
         def step():
             return trainer.train_step(data, lengths)
@@ -112,6 +117,7 @@ def profile(device, steps=5, seed=0, trace=None):
                 for name, (us, n) in sorted(kernels.items(),
                                             key=lambda kv: -kv[1][0])}
     return {
+        'arch': arch,
         'train_step_16x4s_ms': ms_off,
         'train_step_16x4s_ms_profiled': ms_on,
         'peak_memory_mib': peak / 2 ** 20,
@@ -123,6 +129,8 @@ def profile(device, steps=5, seed=0, trace=None):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('--arch', default='convtasnet',
+                        choices=('convtasnet', 'tfgridnet'))
     parser.add_argument('--device', default='cuda')
     parser.add_argument('--steps', type=int, default=5)
     parser.add_argument('--seed', type=int, default=0)
@@ -135,8 +143,8 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], check=True, capture_output=True,
         text=True).stdout.strip(), flush=True)
-    print(json.dumps(profile(device, args.steps, args.seed, args.trace)),
-          flush=True)
+    print(json.dumps(profile(device, args.steps, args.seed, args.trace,
+                             args.arch)), flush=True)
 
 
 if __name__ == '__main__':

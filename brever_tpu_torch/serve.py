@@ -29,7 +29,6 @@ import numpy as np
 
 from .audio import read_wav, write_wav
 from .checkpoint import load_checkpoint
-from .convert import flax_to_state_dict
 from .models import ModelRegistry, count_params
 
 
@@ -52,7 +51,7 @@ def find_best_checkpoint(checkpoints_dir, metric):
 def build_model(arch, model_kwargs, flax_params, device):
     """A registered model on ``device`` holding a flax parameter tree."""
     model = ModelRegistry.get(arch)(**model_kwargs, device=device)
-    model.load_state_dict(flax_to_state_dict(flax_params))
+    model.load_state_dict(model.from_flax(flax_params))
     return model.eval()
 
 

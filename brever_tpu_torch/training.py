@@ -12,10 +12,18 @@ the EMA. Batches are padded to a multiple of 8 rows with rows of length 0,
 which the loss mean drops, as the JAX trainer pads to its mesh.
 
 Checkpoints are the JAX trainer's msgpack layout (``training.py``
-``save_checkpoint``): flax parameter trees, optimizer state ``[clip,
-[adam (count, mu, nu), lr]]``, step, losses, timer and best-checkpoint
-records, so ``brever_tpu.checkpoint.load_checkpoint`` and both packages'
-servers read them.
+``save_checkpoint``): flax parameter trees, optax's optimizer state (below),
+step, losses, timer and best-checkpoint records, so
+``brever_tpu.checkpoint.load_checkpoint`` and both packages' servers read
+them. The optimizer state is ``chain(clip_by_global_norm, adam)``'s,
+``[clip, [adam (count, mu, nu), lr]]``, or, for a family that declares
+``injects_hyperparams`` (the JAX package wraps its Adam in
+``optax.inject_hyperparams``), ``[clip, [count, hyperparams, {}, [adam,
+lr]]]`` with the learning rate in ``hyperparams``; without clipping the
+outer ``[clip, ...]`` is absent. A hyperparameter update that
+``on_validate`` returns (TF-GridNet's plateau halving) sets the learning
+rate in place and keeps Adam's moments, as the JAX trainer's
+``_apply_hyper_update`` does, and a checkpoint resumes with it.
 
 Not ported yet, and refused when the trainer is built (ROADMAP.md):
 ``use_amp`` (bf16 kernels), ``ddp``, ``profile``, ``use_wandb`` and the
@@ -40,6 +48,11 @@ from .metrics import MetricRegistry, check_metrics
 from .models import count_params
 from .models.base import sample_weighted_mean
 from .optim import clip_by_global_norm, flatten_parameters
+
+
+#: Adam's hyperparameters as optax.inject_hyperparams names them (its
+#: ``eps_root`` is 0 and not one of the port's)
+_HYPERPARAMS = ('learning_rate', 'b1', 'b2', 'eps')
 
 
 def resolve_device(device):
@@ -164,6 +177,10 @@ class BreverTrainer:
 
         model.prepare_optimizer(len(self.train_batch_sampler), epochs)
         self.optimizer = model.optimizer()
+        if getattr(model, 'injects_hyperparams', False):
+            # optax.inject_hyperparams holds them as float32 arrays
+            self._apply_hyper_update({key: getattr(self.optimizer, key)
+                                      for key in _HYPERPARAMS})
         self.grad_clip = model.grad_clip
         self.use_ema = ema
         self.ema_decay = ema_decay
@@ -272,10 +289,10 @@ class BreverTrainer:
             if validate:
                 self.val_dataloader.set_epoch(epoch)
                 val_loss, metrics = self.routine(epoch, train=False)
-                if self.model.on_validate(val_loss) is not None:
-                    raise NotImplementedError(
-                        'hyperparameter updates from on_validate are not '
-                        'ported yet (ROADMAP.md, Queue 1)')
+                update = self.model.on_validate(val_loss)
+                if update is not None:
+                    self._apply_hyper_update(update)
+                    logging.info(f'Applied hyperparameter update: {update}')
             else:
                 val_loss, metrics = None, None
 
@@ -365,6 +382,18 @@ class BreverTrainer:
                                    lengths.dtype)])
         return batch, lengths, n_real
 
+    def _apply_hyper_update(self, update):
+        """Set the optimizer's hyperparameters that ``update`` names, in
+        place: Adam's moments stay. As in the JAX trainer, only a family
+        whose optimizer injects its hyperparameters takes updates, each
+        value rounded to float32, and other names are ignored."""
+        if not isinstance(update, dict) \
+                or not getattr(self.model, 'injects_hyperparams', False):
+            return
+        for key, value in update.items():
+            if key in _HYPERPARAMS:
+                setattr(self.optimizer, key, float(np.float32(value)))
+
     def _update_memory_stats(self):
         if self.device.type == 'cuda':
             self.max_memory_allocated = max(
@@ -387,15 +416,37 @@ class BreverTrainer:
         return torch.cat([torch.as_tensor(sd[name]).reshape(-1)
                           for name in self._names]).to(self.device)
 
-    def save_checkpoint(self, path):
+    def _opt_state_tree(self):
+        """The optimizer state in optax's layout (module docstring)."""
         opt = self.optimizer.state_dict()
+        count = np.asarray(opt['count'].cpu())
+        inner = [[count, self._flax(opt['mu']), self._flax(opt['nu'])], []]
+        if getattr(self.model, 'injects_hyperparams', False):
+            hyper = {key: np.asarray(getattr(self.optimizer, key), np.float32)
+                     for key in _HYPERPARAMS}
+            hyper['eps_root'] = np.asarray(0.0, np.float32)
+            inner = [count, hyper, {}, inner]
+        return [[], inner] if self.grad_clip else inner
+
+    def _load_opt_state_tree(self, tree):
+        """Adam's state and, where the layout has it, the learning rate."""
+        inner = tree[1] if self.grad_clip else tree
+        if getattr(self.model, 'injects_hyperparams', False):
+            _, hyper, _, inner = inner
+            for key in _HYPERPARAMS:
+                setattr(self.optimizer, key, float(hyper[key]))
+        count, mu, nu = inner[0]
+        self.optimizer.load_state_dict({
+            'count': torch.from_numpy(np.array(count)),
+            'mu': self._flat_from_flax(mu),
+            'nu': self._flat_from_flax(nu)})
+
+    def save_checkpoint(self, path):
         state = {
             'epochs': self.epochs_ran,
             'params': self._flax(self.flat),
             'aux': {},
-            'opt_state': [[], [[np.asarray(opt['count'].cpu()),
-                                self._flax(opt['mu']),
-                                self._flax(opt['nu'])], []]],
+            'opt_state': self._opt_state_tree(),
             'step': np.asarray(self.step, np.int32),
             'rng': np.array([0, self.seed], np.uint32),
             'losses': self.loss_logger.state_dict(),
@@ -415,11 +466,7 @@ class BreverTrainer:
         self.epochs_ran = int(state['epochs'])
         with torch.no_grad():
             self.flat.copy_(self._flat_from_flax(state['params']))
-            count, mu, nu = state['opt_state'][1][0]
-            self.optimizer.load_state_dict({
-                'count': torch.from_numpy(np.array(count)),
-                'mu': self._flat_from_flax(mu),
-                'nu': self._flat_from_flax(nu)})
+            self._load_opt_state_tree(state['opt_state'])
             if self.use_ema:
                 self.ema = self._flat_from_flax(state['ema'])
         self.step = int(state['step'])

@@ -2,8 +2,10 @@
 
 Drives the port's serving and training paths for full-width non-causal
 Conv-TasNet (filters 512, bottleneck 128, hidden 512, skip 128, 8 layers
-x 3 repeats; 4,935,217 random parameters from a numpy seed) on the card,
-in phases that each print one line:
+x 3 repeats; 4,935,217 random parameters from a numpy seed) and
+full-width TF-GridNet (n_fft 256, stride 128, 6 layers, LSTM hidden 128,
+4 heads, qk 512, emb 32, ks = hs = 4; 3,735,344 random parameters from a
+seed) on the card, in phases that each print one line:
 
 0. the card (nvidia-smi name and power limit), versions, optional deps;
 1. build the CUDA kernels from brever_tpu_torch/csrc with nvcc;
@@ -18,7 +20,18 @@ in phases that each print one line:
 8. training through BreverTrainer on a WAV dataset written here: the
    loss falls, last.ckpt resumes, the checkpoint serves;
 9. timings: per-block backward kernel vs plain version, the full train
-   step with kernel and with plain blocks, peak memory.
+   step with kernel and with plain blocks, peak memory;
+10. the LSTM kernels (K3 forward, K4 backward) against their plain
+    versions at TF-GridNet's intra and inter shapes and ragged ones, the
+    backward in float64, and twice on the same inputs (bitwise equal);
+11. TF-GridNet's enhance on the card against the plain path in float64;
+12. TF-GridNet's full-model gradients (multiresyu) against the plain
+    path in float64, beside the plain float32 path's;
+13. TF-GridNet trained through BreverTrainer on a WAV dataset written
+    here: the loss falls, last.ckpt resumes bitwise, the checkpoint serves;
+14. the HTTP service over that model directory's checkpoint;
+15. timings: K3 and K4 per BLSTM vs plain, enhance and the train step
+    with kernel and with plain LSTMs, peak memory.
 
 Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
 comparisons hold the kernels to float32. Any failure raises (non-zero
@@ -28,6 +41,7 @@ last line ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py
 """
 
+import contextlib
 import http.client
 import io
 import json
@@ -58,6 +72,15 @@ MIN_SNR_DB, MAX_REL_ERR = 60.0, 1e-3
 #: the tensors of a block's VJP, in the order tcn_block_bwd returns them
 GRAD_NAMES = ('dx', 'w_in', 'b_in', 'a1', 'g1', 'be1', 'w_dw', 'b_dw', 'a2',
               'g2', 'be2', 'w_res', 'b_res', 'w_skip', 'b_skip')
+
+#: TF-GridNet's full-model gradient bounds against float64 (phase 12),
+#: whole gradient and worst tensor, in dB: 60 dB whole as for the served
+#: output; 50 dB per tensor, 25 dB under the 75 dB the plain float32 path
+#: reaches at its worst tensor (a PReLU slope of the attention norms: a
+#: cancelling sum) on 2 x 2 s (its figures are printed beside). A short
+#: training run's loss must end at most at this fraction of its first
+#: epoch's (phase 13)
+GRID_WHOLE_DB, GRID_TENSOR_DB, GRID_LOSS_RATIO = 60.0, 50.0, 0.95
 
 DEFAULT = dict(filters=512, filter_length=32, bottleneck=128, hidden=512,
                skip=128, layers=8, repeats=3)
@@ -218,6 +241,51 @@ def write_tone_dataset(path, n_items, seconds, seed):
                 tar.addfile(info, buf)
 
 
+def tone_trainers(tmp, arch, device, seed, val_period):
+    """Writes train (24 items) and val (4) tone datasets of 1 s under
+    ``tmp``; returns a factory of ``BreverTrainer``s of the default
+    ``arch`` over them, batch 8, into ``tmp/model``."""
+    from brever_tpu_torch.data import BreverDataset
+    from brever_tpu_torch.models import ModelRegistry
+    from brever_tpu_torch.training import BreverTrainer
+    for split, n_items, data_seed in (('train', 24, seed), ('val', 4,
+                                                             seed + 1)):
+        write_tone_dataset(os.path.join(tmp, split), n_items, 1.0, data_seed)
+
+    def trainer(n_epochs):
+        return BreverTrainer(
+            ModelRegistry.get(arch)(device='cpu'),
+            BreverDataset(os.path.join(tmp, 'train')),
+            BreverDataset(os.path.join(tmp, 'val')),
+            os.path.join(tmp, 'model'), epochs=n_epochs, device=str(device),
+            batch_sampler='random', batch_size=8, dynamic_batch_size=False,
+            val_metrics={'snr', 'sisnr'}, val_period=val_period, seed=0)
+    return trainer
+
+
+@contextlib.contextmanager
+def http_service(service):
+    """The service's HTTP server on a free local port in a thread; yields
+    the port and ``GET /health``'s answer, and stops the server."""
+    from brever_tpu_torch.serve import make_http_server
+    server = make_http_server(service, '127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        conn = http.client.HTTPConnection('127.0.0.1', port, timeout=60)
+        conn.request('GET', '/health')
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        yield port, health
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError('server thread did not stop')
+
+
 def block_f64(x, params, dilation, last, act=None, record=None):
     """The plain TCN block in float64 (x and params already float64),
     the oracle of phases 6 and 7. With ``act = (h1, h2)``, PReLU's branch
@@ -309,21 +377,364 @@ def in_turns(fns, iters, warmup):
     return {k: sum(v) / len(v) for k, v in runs.items()}, peak
 
 
+GRID_PARAMS = 3_735_344
+#: TF-GridNet's BLSTM scans at 16 x 4 s: (T, D, R, E, H)
+LSTM_INTRA = (33, 2, 16 * 504, 128, 128)
+LSTM_INTER = (126, 2, 16 * 132, 128, 128)
+LSTM_NAMES = ('dx', 'dw_ih', 'db', 'dw_hh')
+
+
+@contextlib.contextmanager
+def plain_lstms():
+    """Every BLSTM of the port runs the plain scan (forward and its
+    memory-lean backward) instead of K3 and K4."""
+    from brever_tpu_torch.models import rnn
+    from brever_tpu_torch.ops import lstm_scan
+    rnn.lstm_scan_x = lstm_scan.lstm_scan_x_plain
+    try:
+        yield
+    finally:
+        rnn.lstm_scan_x = lstm_scan.lstm_scan_x
+
+
+def lstm_inputs(rng, steps, n_dir, rows, feat, hidden, device='cuda'):
+    def arr(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*s)).astype(np.float32)) \
+            .to(device)
+
+    return (arr(steps, n_dir, rows, feat),
+            arr(n_dir, feat, 4 * hidden, scale=hidden ** -0.5),
+            arr(n_dir, 4 * hidden, scale=0.1),
+            arr(n_dir, hidden, 4 * hidden, scale=hidden ** -0.5),
+            arr(steps, n_dir, rows, hidden))
+
+
+def offset_view(t):
+    """A copy of ``t`` one float into a larger buffer: contiguous, but not
+    16-byte aligned, like a parameter in the trainer's flat buffer."""
+    buf = t.new_empty(t.numel() + 1)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+def check_tensors(name, labels, refs, gots):
+    """SNR and max-error bounds of each tensor against its reference (an
+    all-zero reference wants an all-zero result); returns (worst SNR, max
+    abs err)."""
+    worst, max_err = float('inf'), 0.0
+    for label, want, have in zip(labels, refs, gots):
+        want = want.detach().double().cpu()
+        have = have.detach().double().cpu().reshape(want.shape)
+        if not torch.isfinite(have).all():
+            raise AssertionError(f'{name} {label}: not finite')
+        err = (have - want).abs().max().item()
+        if not want.any():
+            if err:
+                raise AssertionError(f'{name} {label}: {err:.3e} off 0')
+            continue
+        snr = snr_db(want.numpy(), have.numpy())
+        bound = MAX_REL_ERR * want.abs().max().item()
+        if snr < MIN_SNR_DB or err > bound:
+            raise AssertionError(f'{name} {label}: SNR {snr:.2f} dB (>= '
+                                 f'{MIN_SNR_DB}), max err {err:.3e} (<= '
+                                 f'{bound:.3e})')
+        worst, max_err = min(worst, snr), max(max_err, err)
+    return worst, max_err
+
+
+def grid_model(params, device, dtype=torch.float32):
+    from brever_tpu_torch.serve import build_model
+    return build_model('tfgridnet', {}, params, device).to(dtype)
+
+
+def grid_grads(model, batch, lengths):
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    loss = sample_weighted_mean(model.loss(batch, lengths), lengths)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return {k: g.double().cpu().numpy()
+            for (k, _), g in zip(model.named_parameters(), grads)}
+
+
+def grad_report(ref, got):
+    """(whole-gradient SNR, worst per-tensor SNR, its name, max error of
+    the tensors whose reference is zero up to rounding) against float64."""
+    top = max(float(np.abs(v).max()) for v in ref.values())
+    live = {k for k in ref if np.abs(ref[k]).max() > 1e-6 * top}
+    per = {k: snr_db(ref[k], got[k]) for k in live}
+    worst = min(per, key=per.get)
+    whole = snr_db(np.concatenate([ref[k].ravel() for k in ref]),
+                   np.concatenate([got[k].ravel() for k in ref]))
+    dead = max([float(np.abs(got[k] - ref[k]).max()) for k in ref
+                if k not in live] + [0.0])
+    return whole, per[worst], worst, dead / top
+
+
+def tfgridnet_phases(device, card):
+    """Phases 10-15; returns the numbers of the kernels' JSON records."""
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.models import ModelRegistry, count_params
+    from brever_tpu_torch.ops import lstm_scan as lstm
+    from brever_tpu_torch.profile_train import make_trainer
+    from brever_tpu_torch.serve import EnhanceService
+    out = {}
+    # cuFFT makes its plans with its own device allocations, which fail
+    # (CUFFT_INTERNAL_ERROR) when PyTorch's allocator holds the card's
+    # memory in its cache: hand the cache back between the large phases
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: K3 and K4 vs their plain versions on the card
+    rng = np.random.RandomState(10)
+    cases = [LSTM_INTRA, LSTM_INTER, (7, 2, 1000, 72, 128), (1, 1, 33, 128, 128)]
+    fwd_err, bwd_worst, bwd_err = 0.0, float('inf'), 0.0
+    for n, case in enumerate(cases):
+        name = 'T={} D={} R={} E={} H={}'.format(*case)
+        x, w_ih, bias, w_hh, dh = lstm_inputs(rng, *case)
+        if n == 2:  # weights at an unaligned offset, as in a flat buffer
+            w_ih, w_hh = offset_view(w_ih), offset_view(w_hh)
+        h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+        ref = lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)
+        torch.cuda.synchronize()
+        fwd_err = max(fwd_err, check_tensors(f'K3 {name}', ('h', 'c'), ref,
+                                             (h, c))[1])
+        del ref
+        grads = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+        again = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+        f64 = [t.double() for t in (x, w_ih, bias, w_hh)]
+        h64, c64 = lstm.lstm_scan_x_reference(*f64)
+        ref = lstm.lstm_scan_x_bwd_plain(*f64, h64, c64, dh.double())
+        del f64, h64, c64
+        torch.cuda.synchronize()
+        worst, err = check_tensors(f'K4 {name}', LSTM_NAMES, ref, grads)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f'K4 {name}: two runs differ')
+        bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
+        del ref, grads, again
+    out['k3_err'], out['k4_err'] = fwd_err, bwd_err
+    torch.cuda.empty_cache()
+    phase(10, f'{len(cases)} scan cases (intra {LSTM_INTRA}, inter '
+          f'{LSTM_INTER}, R=1000 E=72 with unaligned weights, T=1 D=1): '
+          f'K3 h and c agree with the plain version (max abs err '
+          f'{fwd_err:.3e}); K4 dx, dW_ih, db, '
+          f'dW_hh with the plain backward in float64 (worst SNR '
+          f'{bwd_worst:.1f} dB >= {MIN_SNR_DB}, max abs err {bwd_err:.3e}, '
+          f'each <= {MAX_REL_ERR} x max|ref|); two runs bitwise equal')
+
+    # ---- phase 11: enhance on the card vs the plain path in float64
+    grid = ModelRegistry.get('tfgridnet')(device='cpu')
+    grid.init_parameters(11)
+    params = grid.to_flax(grid.state_dict())
+    del grid
+    gpu = EnhanceService.from_params('tfgridnet', {}, params, device)
+    if count_params(gpu.model) != GRID_PARAMS:
+        raise AssertionError(f'{count_params(gpu.model)} parameters')
+    mix = (0.1 * np.random.RandomState(12).randn(4, 2, 4 * FS)) \
+        .astype(np.float32)
+    lstm.lstm_scan_x.launches = 0
+    enhanced = gpu.model.enhance(mix)
+    torch.cuda.synchronize()
+    launches = lstm.lstm_scan_x.launches
+    with plain_lstms():
+        ref = grid_model(params, device, torch.float64).enhance(mix)
+    snr, err = check_output('TF-GridNet enhance (4, 2, 64000)',
+                            ref.cpu().numpy(), enhanced.cpu().numpy())
+    if launches != 12:
+        raise AssertionError(f'{launches} K3 launches, not 12')
+    out['launches_serve'] = launches
+    phase(11, f'TF-GridNet enhance (4, 2, 64000) on the card: SNR {snr:.2f} '
+          f'dB, max abs err {err:.3e} vs the plain path in float64; '
+          f'{launches} K3 launches')
+
+    # ---- phase 12: full-model gradients vs the plain path in float64
+    rng = np.random.RandomState(13)
+    target = 0.1 * rng.randn(2, 1, 2, 2 * FS)
+    batch = torch.from_numpy(np.concatenate(
+        [target + 0.1 * rng.randn(2, 1, 2, 2 * FS), target], axis=1)
+        .astype(np.float32)).to(device)
+    lengths = torch.tensor([2 * FS, 3 * FS // 2], device=device)
+    with plain_lstms():
+        ref = grid_grads(grid_model(params, device, torch.float64),
+                         batch.double(), lengths)
+        plain = grid_grads(grid_model(params, device), batch, lengths)
+    lstm.lstm_scan_x_bwd.launches = 0
+    got = grid_grads(grid_model(params, device), batch, lengths)
+    launches_bwd = lstm.lstm_scan_x_bwd.launches
+    if launches_bwd != 12:
+        raise AssertionError(f'{launches_bwd} K4 launches, not 12')
+    k_whole, k_worst, k_name, k_dead = grad_report(ref, got)
+    p_whole, p_worst, p_name, p_dead = grad_report(ref, plain)
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    torch.cuda.empty_cache()
+    if k_whole < GRID_WHOLE_DB or k_worst < GRID_TENSOR_DB \
+            or k_dead > 1e-6:
+        raise AssertionError(f'TF-GridNet gradients: whole {k_whole:.2f} '
+                             f'dB, worst {k_name} {k_worst:.2f} dB, '
+                             f'zero tensors {k_dead:.1e}')
+    phase(12, f'TF-GridNet gradients (2 x 2 s, multiresyu) on the card vs '
+          f'the plain path in float64: whole {k_whole:.1f} dB (>= '
+          f'{GRID_WHOLE_DB}), worst tensor {k_worst:.1f} dB ({k_name}; >= '
+          f'{GRID_TENSOR_DB}), zero-gradient tensors within {k_dead:.1e} '
+          f'of the largest gradient; the plain float32 path: whole '
+          f'{p_whole:.1f} dB, worst {p_worst:.1f} dB ({p_name}), zero '
+          f'{p_dead:.1e}; {launches_bwd} K4 launches; {reserved:.1f} GiB '
+          'reserved by the allocator before emptying its cache')
+
+    # ---- phase 13: training through BreverTrainer on the card
+    epochs = 12
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = tone_trainers(tmp, 'tfgridnet', device, 20, 4)
+        first = trainer(epochs)
+        lstm.lstm_scan_x.launches = lstm.lstm_scan_x_bwd.launches = 0
+        t0 = time.perf_counter()
+        first.run()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        out['launches_train'] = lstm.lstm_scan_x.launches
+        out['launches_train_bwd'] = lstm.lstm_scan_x_bwd.launches
+        if not out['launches_train'] or not out['launches_train_bwd']:
+            raise AssertionError('training launched K3 {} and K4 {} times'
+                                 .format(out['launches_train'],
+                                         out['launches_train_bwd']))
+        losses = first.loss_logger.train_loss
+        last = float(np.mean(losses[-3:]))
+        if not np.isfinite(losses).all() or last > GRID_LOSS_RATIO * losses[0]:
+            raise AssertionError(f'training loss {losses[0]:.4f} -> '
+                                 f'{last:.4f}')
+        second = trainer(epochs + 2)
+        second.init_state()
+        second.load_checkpoint()
+        if not torch.equal(second.flat, first.flat) \
+                or not torch.equal(second.optimizer.nu, first.optimizer.nu) \
+                or second.optimizer.learning_rate \
+                != first.optimizer.learning_rate \
+                or second.epochs_ran != epochs:
+            raise AssertionError('resume did not restore the state')
+        second.run()
+        if second.epochs_ran != epochs + 2:
+            raise AssertionError(f'resumed run ended at epoch '
+                                 f'{second.epochs_ran}')
+        trained = load_checkpoint(first.last_ckpt_path)['params']
+        served = grid_model(trained, device)
+        item = second.val_dataset[0][0][None]
+        torch.testing.assert_close(served.enhance(item),
+                                   second.model.enhance(item), atol=1e-6,
+                                   rtol=1e-5)
+        metrics = [m for m in first.loss_logger.metrics if m][-1]
+        phase(13, f'TF-GridNet BreverTrainer, 24 x 1 s tone-in-noise WAV '
+              f'items, batch 8, {epochs} epochs in {train_s:.1f} s: train '
+              f'loss {losses[0]:.4f} -> {last:.4f} (multiresyu; <= '
+              f'{GRID_LOSS_RATIO} x the first), val snr {metrics["snr"]:.2f}'
+              f' sisnr {metrics["sisnr"]:.2f} dB; K3 '
+              f'{out["launches_train"]} / K4 {out["launches_train_bwd"]} '
+              f'launches; resumed bitwise (lr '
+              f'{second.optimizer.learning_rate:g}) from last.ckpt to epoch '
+              f'{second.epochs_ran}; the checkpoint serves')
+
+        # ---- phase 14: the HTTP service over the model directory
+        service = EnhanceService.from_params('tfgridnet', {}, trained,
+                                             device)
+        results = []
+        lstm.lstm_scan_x.launches = 0
+        with http_service(service) as (port, health):
+            if health['params'] != GRID_PARAMS \
+                    or health['arch'] != 'tfgridnet':
+                raise AssertionError(f'/health: {health}')
+            with plain_lstms():
+                ref_model = grid_model(trained, device, torch.float64)
+            for seconds in (0.05, 4):
+                audio = (0.1 * np.random.RandomState(14).randn(
+                    int(seconds * FS))).astype(np.float32)
+                before = lstm.lstm_scan_x.launches
+                got = post_wav(port, audio)
+                launched = lstm.lstm_scan_x.launches - before
+                with plain_lstms():
+                    want = ref_model.enhance(np.stack([audio, audio]))
+                snr, _ = check_output(f'TF-GridNet /enhance {seconds} s',
+                                      want.cpu().numpy(), got)
+                if launched != 12:
+                    raise AssertionError(f'/enhance {seconds} s: {launched}'
+                                         ' K3 launches, not 12')
+                results.append(f'{seconds} s {snr:.1f} dB')
+        out['launches_http'] = lstm.lstm_scan_x.launches
+        phase(14, f'TF-GridNet /health ok, /enhance {", ".join(results)} '
+              f'from the trained last.ckpt vs the plain path in float64; '
+              f'{out["launches_http"]} K3 launches')
+        del first, second, served, service, ref_model
+
+    # ---- phase 15: timings (plain, kernel, kernel, plain in turns)
+    torch.cuda.empty_cache()
+    timing = {}
+    for label, case in (('intra', LSTM_INTRA), ('inter', LSTM_INTER)):
+        x, w_ih, bias, w_hh, dh = lstm_inputs(np.random.RandomState(15),
+                                              *case)
+        with torch.no_grad():
+            h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+            fwd = in_turns({
+                'kernel': lambda: lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh),
+                'plain': lambda: lstm.lstm_scan_x_reference(x, w_ih, bias,
+                                                            w_hh)}, 5, 2)[0]
+            bwd = in_turns({
+                'kernel': lambda: lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh,
+                                                       h, c, dh),
+                'plain': lambda: lstm.lstm_scan_x_bwd_plain(
+                    x, w_ih, bias, w_hh, h, c, dh)}, 3, 1)[0]
+        timing[label] = {'fwd': fwd, 'bwd': bwd}
+        del x, w_ih, bias, w_hh, dh, h, c
+    batch = torch.from_numpy((0.1 * np.random.RandomState(16).randn(
+        16, 2, 4 * FS)).astype(np.float32)).to(device)
+
+    def plain_enhance():
+        with plain_lstms():
+            gpu.model.enhance(batch)
+
+    enhance_ms, enhance_peak = in_turns(
+        {'kernel': lambda: gpu.model.enhance(batch), 'plain': plain_enhance},
+        3, 1)
+    del gpu, batch
+    with tempfile.TemporaryDirectory() as tmp:
+        step_trainer, data, n = make_trainer(device, tmp, arch='tfgridnet')
+
+        def kernel_step():
+            step_trainer.train_step(data, n)
+
+        def plain_step():
+            with plain_lstms():
+                step_trainer.train_step(data, n)
+
+        step_ms, step_peak = in_turns({'kernel': kernel_step,
+                                       'plain': plain_step}, 2, 1)
+        del step_trainer, data
+    out.update(timing=timing, enhance_ms=enhance_ms, step_ms=step_ms)
+    mib = 2 ** 20
+    phase(15, f'[{card}] BLSTM 16x4 s kernel/plain ms: intra K3 '
+          f'{timing["intra"]["fwd"]["kernel"]:.3f}/'
+          f'{timing["intra"]["fwd"]["plain"]:.3f} K4 '
+          f'{timing["intra"]["bwd"]["kernel"]:.3f}/'
+          f'{timing["intra"]["bwd"]["plain"]:.3f}, inter K3 '
+          f'{timing["inter"]["fwd"]["kernel"]:.3f}/'
+          f'{timing["inter"]["fwd"]["plain"]:.3f} K4 '
+          f'{timing["inter"]["bwd"]["kernel"]:.3f}/'
+          f'{timing["inter"]["bwd"]["plain"]:.3f}; TF-GridNet enhance 16x4 s '
+          f'{enhance_ms["kernel"]:.2f} ms, peak '
+          f'{enhance_peak["kernel"] / mib:.1f} MiB (plain LSTMs '
+          f'{enhance_ms["plain"]:.2f} ms, {enhance_peak["plain"] / mib:.1f} '
+          f'MiB); train step 16x4 s f32 {step_ms["kernel"]:.2f} ms, peak '
+          f'{step_peak["kernel"] / mib:.1f} MiB (plain LSTMs '
+          f'{step_ms["plain"]:.2f} ms, {step_peak["plain"] / mib:.1f} MiB)')
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this script needs a CUDA device')
     from brever_tpu_torch.checkpoint import load_checkpoint
-    from brever_tpu_torch.data import BreverDataset
-    from brever_tpu_torch.models import ModelRegistry, count_params
+    from brever_tpu_torch.models import count_params
     from brever_tpu_torch.models.base import sample_weighted_mean
     import brever_tpu_torch.models.convtasnet as convtasnet
     from brever_tpu_torch.ops import build
     from brever_tpu_torch.ops import tcn_block as tcn
     from brever_tpu_torch.profile_train import make_trainer
-    from brever_tpu_torch.serve import (EnhanceService, build_model,
-                                        make_http_server)
-    from brever_tpu_torch.training import BreverTrainer
+    from brever_tpu_torch.serve import EnhanceService, build_model
 
     # ---- phase 0: the card and the installation
     smi = subprocess.run(
@@ -402,16 +813,8 @@ def main():
           f'abs err {err:.3e} vs CPU plain; {launches_model} block launches')
 
     # ---- phase 4: the HTTP service on the card
-    server = make_http_server(gpu, '127.0.0.1', 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     results = []
-    try:
-        port = server.server_address[1]
-        conn = http.client.HTTPConnection('127.0.0.1', port, timeout=60)
-        conn.request('GET', '/health')
-        health = json.loads(conn.getresponse().read())
-        conn.close()
+    with http_service(gpu) as (port, health):
         if health['params'] != N_PARAMS or health['device'] != str(device):
             raise AssertionError(f'/health: {health}')
         for seconds in (0.05, 4, 10):
@@ -426,12 +829,6 @@ def main():
                 raise AssertionError(f'/enhance {seconds} s: {launched} '
                                      'block launches, not 24')
             results.append(f'{seconds} s {snr:.1f} dB')
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    if thread.is_alive():
-        raise AssertionError('server thread did not stop')
     launches = tcn.tcn_block.launches
     phase(4, f'/health ok, /enhance {", ".join(results)} vs CPU plain; '
           f'{launches} block launches in phases 3-4')
@@ -570,20 +967,7 @@ def main():
     # ---- phase 8: training through BreverTrainer on the card
     epochs = 24
     with tempfile.TemporaryDirectory() as tmp:
-        for split, n_items, seed in (('train', 24, 10), ('val', 4, 11)):
-            write_tone_dataset(os.path.join(tmp, split), n_items, 1.0, seed)
-        model_dir = os.path.join(tmp, 'model')
-        options = dict(device=str(device), batch_sampler='random',
-                       batch_size=8, dynamic_batch_size=False,
-                       val_metrics={'snr', 'sisnr'}, val_period=6, seed=0)
-
-        def trainer(n_epochs):
-            return BreverTrainer(
-                ModelRegistry.get('convtasnet')(device='cpu'),
-                BreverDataset(os.path.join(tmp, 'train')),
-                BreverDataset(os.path.join(tmp, 'val')), model_dir,
-                epochs=n_epochs, **options)
-
+        trainer = tone_trainers(tmp, 'convtasnet', device, 10, 6)
         first = trainer(epochs)
         tcn.tcn_block.launches = tcn.tcn_block_bwd.launches = 0
         t0 = time.perf_counter()
@@ -600,7 +984,7 @@ def main():
         if not np.isfinite(losses).all() or drop <= 1.0:
             raise AssertionError(f'training loss {losses[0]:.2f} -> '
                                  f'{np.mean(losses[-3:]):.2f} dB')
-        ckpt = os.path.join(model_dir, 'checkpoints', 'last.ckpt')
+        ckpt = first.last_ckpt_path
         if not os.path.exists(ckpt):
             raise AssertionError('no last.ckpt')
         second = trainer(epochs + 2)
@@ -670,6 +1054,8 @@ def main():
           f'{step_ms["plain"]:.2f} ms, peak '
           f'{step_peak["plain"] / 2 ** 20:.1f} MiB)')
 
+    grid = tfgridnet_phases(device, card)
+
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
         raise AssertionError('the port pulled in JAX or the JAX package')
@@ -702,6 +1088,37 @@ def main():
         'shape': shape,
         'train_step_ms': step_ms['kernel'],
         'train_step_plain_ms': step_ms['plain'],
+    }, {
+        'name': 'lstm_scan_x_fwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:401',
+        'launches': grid['launches_serve'] + grid['launches_train']
+        + grid['launches_http'],
+        'launches_serve': grid['launches_serve'] + grid['launches_http'],
+        'launches_train': grid['launches_train'],
+        'max_abs_err': grid['k3_err'],
+        'ms': grid['timing']['intra']['fwd']['kernel'],
+        'plain_ms': grid['timing']['intra']['fwd']['plain'],
+        'ms_inter': grid['timing']['inter']['fwd']['kernel'],
+        'plain_ms_inter': grid['timing']['inter']['fwd']['plain'],
+        'shape': 'intra T=33 D=2 R=8064 E=H=128; inter T=126 R=2112',
+        'enhance_16x4s_ms': grid['enhance_ms']['kernel'],
+        'enhance_16x4s_plain_ms': grid['enhance_ms']['plain'],
+    }, {
+        'name': 'lstm_scan_x_bwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:503',
+        'launches': grid['launches_train_bwd'],
+        'max_abs_err': grid['k4_err'],
+        'ms': grid['timing']['intra']['bwd']['kernel'],
+        'plain_ms': grid['timing']['intra']['bwd']['plain'],
+        'ms_inter': grid['timing']['inter']['bwd']['kernel'],
+        'plain_ms_inter': grid['timing']['inter']['bwd']['plain'],
+        'shape': 'intra T=33 D=2 R=8064 E=H=128; inter T=126 R=2112',
+        'train_step_ms': grid['step_ms']['kernel'],
+        'train_step_plain_ms': grid['step_ms']['plain'],
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

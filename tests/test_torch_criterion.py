@@ -1,7 +1,9 @@
 """The port's criteria and validation metrics (brever_tpu_torch.criterion,
 .metrics, .models.base.sample_weighted_mean) against the JAX package's on
-the same ragged numpy batches, one row of length 0 included."""
+the same ragged numpy batches, one row of length 0 included; multiresyu
+with its gradient."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +99,46 @@ def test_unported_names_raise():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         metrics.check_metrics({'snr', 'pesq'})
     metrics.check_metrics({'snr', 'sisnr'})
+    # multiresyu was refused until the STFT was ported; it computes now
     loss = criterion.init_criterion('multiresyu', frame_lengths=[512])
-    with pytest.raises(NotImplementedError, match='STFT'):
-        loss(torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), torch.tensor([8]))
+    out = loss(torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), torch.tensor([8]))
+    assert out.shape == (1,) and float(out) == 0.0
+
+
+MULTIRES = [dict(), dict(frame_lengths=[256, 512], scale_invariant=True),
+            dict(frame_lengths=[128], hop_lengths=[32],
+                 time_domain_weight=0.2, spectral_weight=0.8)]
+
+
+@pytest.mark.parametrize('kwargs', MULTIRES, ids=['default', 'two-res-si',
+                                                  'weighted'])
+@pytest.mark.parametrize('shape', [(4, 1200), (4, 2, 1200)])
+def test_multiresyu_matches_jax(kwargs, shape):
+    """Boxcar STFT magnitudes (normalized=False, hop f/2 by default) plus
+    time-domain L1, over max(lengths, 1); a row of length 0 scores 0."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(*shape).astype(np.float32)
+    y = (0.5 * x + rng.randn(*shape)).astype(np.float32)
+    lengths = np.array([1200, 911, 0, 517], np.int32)
+    want = np.asarray(jax_criterion.init_criterion('multiresyu', **kwargs)(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(lengths)))
+    got = criterion.init_criterion('multiresyu', **kwargs)(
+        torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(lengths))
+    assert got.shape == (4,) and float(got[2]) == 0.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_multiresyu_gradient_matches_jax():
+    rng = np.random.RandomState(6)
+    x = rng.randn(3, 1, 1000).astype(np.float32)
+    y = rng.randn(3, 1, 1000).astype(np.float32)
+    lengths = np.array([1000, 0, 640], np.int32)
+    loss = jax_criterion.init_criterion('multiresyu')
+    want = np.asarray(jax.grad(lambda v: loss(
+        v, jnp.asarray(y), jnp.asarray(lengths)).sum())(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    criterion.init_criterion('multiresyu')(
+        xt, torch.from_numpy(y), torch.from_numpy(lengths)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    assert not xt.grad[1].any()

@@ -10,7 +10,13 @@ order and merges the global-norm moments per tile. The backward kernel
 is held against its plain version in float64 (float32 rounding can flip
 a PReLU branch at a pre-activation near 0, and the slopes' gradients are
 sums that cancel): atol 1e-4 of the tensor's largest value, rtol 1e-3,
-at sizes where a flip is unlikely (about 0.5M pre-activations)."""
+at sizes where a flip is unlikely (about 0.5M pre-activations).
+
+The LSTM kernels (K3, K4) against their plain versions: the forward in
+float32 at atol 1e-5, rtol 1e-4 (values of order 1; the kernel sums the
+gate products in another order), the backward against the plain float32
+backward run in float64 at atol 1e-4 of the tensor's largest value, rtol
+1e-3; two backward runs are bitwise equal."""
 
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ import torch
 
 from brever_tpu_torch.models import ModelRegistry
 from brever_tpu_torch.ops import build
+from brever_tpu_torch.ops import lstm_scan as lstm
 from brever_tpu_torch.ops import tcn_block as tcn
 from brever_tpu_torch.profile_train import make_trainer
 
@@ -205,3 +212,109 @@ def test_full_width_train_step(device, tmp_path):
              for p, o in zip(trainer._param_list, np.cumsum(
                  [0] + [q.numel() for q in trainer._param_list])[:-1])]
     assert all(moved)
+
+
+# (T, D, R, E, H): R not a multiple of the 32-row tile, E = 72 (padded to
+# a multiple of 4 inside the wrapper) and 12, T = 1, D = 1, H 32..256
+LSTM_CASES = [(5, 2, 40, 72, 32), (1, 1, 33, 128, 128), (7, 2, 100, 128, 64),
+              (3, 1, 17, 12, 256), (9, 2, 70, 128, 128)]
+
+
+def _lstm_inputs(device, t_steps, n_dir, rows, feat, hidden, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def arr(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*s)).astype(np.float32)) \
+            .to(device)
+
+    return (arr(t_steps, n_dir, rows, feat),
+            arr(n_dir, feat, 4 * hidden, scale=hidden ** -0.5),
+            arr(n_dir, 4 * hidden, scale=0.1),
+            arr(n_dir, hidden, 4 * hidden, scale=hidden ** -0.5),
+            arr(t_steps, n_dir, rows, hidden))
+
+
+@pytest.mark.parametrize('case', LSTM_CASES)
+def test_lstm_kernels_match_plain(device, case):
+    x, w_ih, bias, w_hh, dh = _lstm_inputs(device, *case)
+    before = lstm.lstm_scan_x.launches, lstm.lstm_scan_x_bwd.launches
+    h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+    ref_h, ref_c = lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)
+    torch.testing.assert_close(h, ref_h, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(c, ref_c, atol=1e-5, rtol=1e-4)
+    grads = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    again = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    assert (lstm.lstm_scan_x.launches, lstm.lstm_scan_x_bwd.launches) == \
+        (before[0] + 1, before[1] + 2)
+    f64 = [t.double() for t in (x, w_ih, bias, w_hh)]
+    h64, c64 = lstm.lstm_scan_x_reference(*f64)
+    ref = lstm.lstm_scan_x_bwd_plain(*f64, h64, c64, dh.double())
+    torch.cuda.synchronize()
+    for got, rerun, want in zip(grads, again, ref):
+        assert got.shape == want.shape
+        assert torch.equal(got, rerun)
+        torch.testing.assert_close(got.double(), want,
+                                   atol=1e-4 * want.abs().max().item(),
+                                   rtol=1e-3)
+
+
+def test_lstm_kernels_reject_what_they_do_not_take(device):
+    x, w_ih, bias, w_hh, _ = _lstm_inputs(device, 3, 2, 8, 16, 64)
+    before = lstm.lstm_scan_x.launches
+    with pytest.raises(TypeError, match='float32'):
+        lstm.lstm_scan_x(x.double(), w_ih, bias, w_hh)
+    with pytest.raises(ValueError, match='contiguous'):
+        lstm.lstm_scan_x(x, w_ih.transpose(1, 2).contiguous()
+                         .transpose(1, 2), bias, w_hh)
+    with pytest.raises(ValueError, match='must be a contiguous'):
+        lstm.lstm_scan_x(x, w_ih[:, :8], bias, w_hh)
+    with pytest.raises(ValueError, match='on cpu'):
+        lstm.lstm_scan_x(x, w_ih, bias.cpu(), w_hh)
+    x48, w48, b48, h48, _ = _lstm_inputs(device, 3, 2, 8, 16, 48)
+    with pytest.raises(NotImplementedError, match='multiple of 32'):
+        lstm.lstm_scan_x(x48, w48, b48, h48)
+    assert lstm.lstm_scan_x.launches == before
+
+
+def test_tfgridnet_runs_every_blstm_through_the_kernels(device):
+    """A small TF-GridNet (H = 32) on the card: enhance matches the CPU
+    plain path with two K3 launches a grid block; a loss gradient takes
+    two K4 launches a block."""
+    small = dict(n_layers=2, lstm_hidden_units=32, emb_dim=8, attn_n_head=2,
+                 attn_approx_qk_dim=32)
+    cpu = ModelRegistry.get('tfgridnet')(**small, device='cpu')
+    gpu = ModelRegistry.get('tfgridnet')(**small, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    x = (0.3 * np.random.RandomState(4).randn(2, 2, 5000)).astype(np.float32)
+    before = lstm.lstm_scan_x.launches
+    out = gpu.enhance(x).cpu()
+    assert lstm.lstm_scan_x.launches - before == 4
+    torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
+    batch = torch.from_numpy(np.stack([x, x], axis=1)).to(device)
+    before = lstm.lstm_scan_x_bwd.launches
+    gpu.loss(batch, torch.tensor([5000, 4000], device=device)).sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert lstm.lstm_scan_x_bwd.launches - before == 4
+    assert all(torch.isfinite(p.grad).all() for p in gpu.parameters())
+
+
+def test_lstm_kernels_take_unaligned_views(device):
+    """Weights and dh at an offset that is not 16-byte aligned, as a
+    parameter in the trainer's flat buffer is, give the aligned inputs'
+    bits."""
+    x, w_ih, bias, w_hh, dh = _lstm_inputs(device, 4, 2, 40, 72, 64)
+
+    def shifted(t):
+        buf = t.new_empty(t.numel() + 1)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    moved = [shifted(t) for t in (w_ih, bias, w_hh, dh)]
+    assert all(t.data_ptr() % 16 for t in moved)
+    h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+    h2, c2 = lstm.lstm_scan_x_fwd(x, *moved[:3])
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    want = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    got = lstm.lstm_scan_x_bwd(x, *moved[:3], h, c, moved[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -1,7 +1,9 @@
 """The port's trainer (brever_tpu_torch.training, .optim, .train) on the
 CPU: the optimizer step against optax, runs on tests/utils.DummyDataset
 (finite, deterministic, resumable, EMA), checkpoints the JAX package
-reads and serves, and the command line on a small model directory."""
+reads and serves, and the command line on a small model directory; for
+TF-GridNet the plateau scheduler, learning-rate drops from on_validate
+and the inject_hyperparams checkpoint layout."""
 
 import importlib.util
 import inspect
@@ -18,9 +20,11 @@ import yaml
 from brever_tpu.checkpoint import load_checkpoint as jax_load_checkpoint
 from brever_tpu.models import ModelRegistry as JaxModels
 from brever_tpu.training import BreverTrainer as JaxTrainer
+from brever_tpu.training import _restore_opt_state
 from brever_tpu_torch import train as train_cli
 from brever_tpu_torch.checkpoint import load_checkpoint
 from brever_tpu_torch.models import ModelRegistry
+from brever_tpu_torch.models.schedulers import ReduceLROnPlateau
 from brever_tpu_torch.optim import Adam, clip_by_global_norm
 from brever_tpu_torch.serve import EnhanceService
 from brever_tpu_torch.training import BreverTrainer, resolve_device
@@ -30,9 +34,21 @@ from utils import DummyDataset
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(filters=16, filter_length=16, bottleneck_channels=8,
              hidden_channels=16, skip_channels=8, layers=2, repeats=2)
+GRID = dict(n_layers=1, lstm_hidden_units=16, emb_dim=8, attn_n_head=2,
+            attn_approx_qk_dim=32)
 
 
-def make_trainer(model_dir, **kwargs):
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these tiny shapes: parallel test workers
+    with a full thread pool each oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def make_trainer(model_dir, arch='convtasnet', **kwargs):
     options = dict(
         train_dataset=DummyDataset(n_items=6, min_length=0.2,
                                    max_length=0.4),
@@ -41,8 +57,8 @@ def make_trainer(model_dir, **kwargs):
         model_dirpath=str(model_dir), epochs=2, device='cpu',
         batch_size=0.8, val_metrics={'snr', 'sisnr'}, val_period=1, seed=0)
     options.update(kwargs)
-    return BreverTrainer(ModelRegistry.get('convtasnet')(**SMALL,
-                                                         device='cpu'),
+    small = SMALL if arch == 'convtasnet' else GRID
+    return BreverTrainer(ModelRegistry.get(arch)(**small, device='cpu'),
                          **options)
 
 
@@ -199,12 +215,12 @@ def test_refusals(tmp_path):
                 resolve_device(device)
 
 
-def _model_dir(tmp_path):
+def _model_dir(tmp_path, arch='convtasnet'):
     """A model directory as the JAX package's initializer writes one: the
-    default Conv-TasNet config cut to a small model and WAV datasets."""
-    with open(os.path.join(ROOT, 'config', 'models', 'convtasnet.yaml')) as f:
+    default config of ``arch`` cut to a small model and WAV datasets."""
+    with open(os.path.join(ROOT, 'config', 'models', f'{arch}.yaml')) as f:
         config = yaml.load(f, Loader=yaml.Loader)
-    config['model'].update(SMALL)
+    config['model'].update(SMALL if arch == 'convtasnet' else GRID)
     config['train_path'] = write_wav_dataset(str(tmp_path / 'train'),
                                              [4000, 5000, 6000, 3000])
     config['val_path'] = write_wav_dataset(str(tmp_path / 'val'),
@@ -253,3 +269,105 @@ def test_cli_options_follow_the_signature():
     assert options['use_amp']('false') is False
     assert options['device']('0') == '0'
     assert options['pad_quantum']('0.25') == 0.25
+
+
+def test_reduce_lr_on_plateau_sequence():
+    """The sequence tests/test_training.py pins for the JAX scheduler."""
+    sched = ReduceLROnPlateau(init_lr=1.0, factor=0.5, patience=2)
+    assert sched.step(1.0) is None   # first -> best
+    assert sched.step(1.1) is None   # bad 1
+    assert sched.step(1.2) is None   # bad 2
+    assert sched.step(1.3) == 0.5    # bad 3 -> drop
+    assert sched.step(0.5) is None   # improvement resets
+    assert sched.state_dict() == {'lr': 0.5, 'best': 0.5, 'num_bad': 0}
+
+
+def _plateaued(trainer):
+    """Make the next validation a plateau: the scheduler drops the
+    learning rate at once."""
+    trainer.model.scheduler.best = -float('inf')
+    trainer.model.scheduler.patience = 0
+
+
+def test_on_validate_drop_keeps_the_moments(tmp_path):
+    trainer = make_trainer(tmp_path, arch='tfgridnet')
+    # inject_hyperparams holds the hyperparameters as float32 from the start
+    assert trainer.optimizer.learning_rate == float(np.float32(1e-3))
+    assert trainer.optimizer.b2 == float(np.float32(0.999))
+    trainer.init_state()
+    item = trainer.train_dataset[0][..., :3200]
+    trainer.train_step(torch.from_numpy(np.stack([item, item])),
+                       torch.tensor([3200, 2000]))
+    mu, nu = trainer.optimizer.mu.clone(), trainer.optimizer.nu.clone()
+    _plateaued(trainer)
+    update = trainer.model.on_validate(1.0)
+    assert update == {'learning_rate': 5e-4}
+    trainer._apply_hyper_update(update)
+    assert trainer.optimizer.learning_rate == float(np.float32(5e-4))
+    assert torch.equal(trainer.optimizer.mu, mu)
+    assert torch.equal(trainer.optimizer.nu, nu)
+    # a family without injected hyperparameters ignores updates, as optax
+    # state without hyperparams does in the JAX trainer
+    plain = make_trainer(tmp_path / 'c')
+    plain._apply_hyper_update({'learning_rate': 1.0})
+    assert plain.optimizer.learning_rate == 1e-3
+
+
+def test_tfgridnet_checkpoint_carries_the_learning_rate(tmp_path):
+    """A drop on validation goes into last.ckpt in optax's
+    inject_hyperparams layout; the JAX package reads the checkpoint and
+    restores its optimizer state from it; a resumed port trainer trains on
+    at the dropped rate."""
+    first = make_trainer(tmp_path, arch='tfgridnet', epochs=1)
+    _plateaued(first)
+    first.run()
+    lr = float(np.float32(5e-4))
+    assert first.optimizer.learning_rate == lr
+    path = tmp_path / 'checkpoints' / 'last.ckpt'
+    state = jax_load_checkpoint(path)
+    clip, (count, hyper, hyper_states, (adam, empty)) = state['opt_state']
+    assert clip == [] and hyper_states == {} and empty == []
+    assert float(hyper['learning_rate']) == lr
+    assert int(count) == int(adam[0]) == first.step > 0
+
+    jax_model = JaxModels.get('tfgridnet')(**GRID)
+    params = jax_model.init_variables(jax.random.PRNGKey(0))['params']
+    tx = optax.chain(optax.clip_by_global_norm(jax_model.grad_clip),
+                     jax_model.optimizer())
+    restored = _restore_opt_state(tx.init(params), state['opt_state'])
+    assert float(restored[1].hyperparams['learning_rate']) == lr
+    np.testing.assert_array_equal(
+        np.asarray(restored[1].inner_state[0].mu['embed']['kernel']),
+        state['opt_state'][1][3][0][1]['embed']['kernel'])
+
+    resumed = make_trainer(tmp_path, arch='tfgridnet', epochs=2)
+    resumed.run()
+    assert resumed.epochs_ran == 2
+    assert resumed.optimizer.learning_rate == lr
+    assert resumed.model.scheduler.lr == 5e-4
+
+
+def test_tfgridnet_train_cli_and_serving(tmp_path):
+    """python -m brever_tpu_torch.train on a small TF-GridNet model
+    directory (its config's multiresyu criterion); both packages' servers
+    serve what it wrote."""
+    model_dir = _model_dir(tmp_path, 'tfgridnet')
+    train_cli.main([model_dir, '--device', 'cpu', '--epochs', '1',
+                    '--use_amp', 'false', '--val_metrics', 'snr',
+                    '--batch_size', '2', '--dynamic_batch_size', 'false',
+                    '--batch_sampler', 'random', '--val_period', '1'])
+    state = load_checkpoint(os.path.join(model_dir, 'checkpoints',
+                                         'last.ckpt'))
+    assert 'learning_rate' in state['opt_state'][1][1]
+    assert np.isfinite(np.load(os.path.join(model_dir, 'losses.npz'),
+                               allow_pickle=True)['train'][0])
+    audio = np.random.RandomState(3).randn(3000).astype(np.float32) * 0.1
+    port = EnhanceService(model_dir, 'cpu')
+    assert port.health()['arch'] == 'tfgridnet'
+    spec = importlib.util.spec_from_file_location(
+        'serve_model', os.path.join(ROOT, 'scripts', 'serve_model.py'))
+    serve_model = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_model)
+    ref = serve_model.EnhanceService(model_dir)
+    np.testing.assert_allclose(port.enhance(audio), ref.enhance(audio),
+                               atol=1e-4, rtol=1e-4)
