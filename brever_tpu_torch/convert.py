@@ -218,3 +218,66 @@ def tfgridnet_state_dict_to_flax(state_dict):
         'blocks': {'block': block},
         'deconv': _conv2d_to_flax(sd, 'deconv'),
     }
+
+
+# ---------------------------------------------------------------------------
+# SGMSE+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _nest(items):
+    out = {}
+    for path, value in items:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return out
+
+
+def sgmse_flax_to_state_dict(params, aux=None):
+    """Flax ``params`` tree of the diffusion U-Net, and its ``buffers``
+    collection (``aux = {'buffers': ...}``, the Fourier frequencies of the
+    noise embedding), -> the port's SGMSE+ ``state_dict`` (float32 CPU
+    tensors, under ``net.``). Every scope keeps its name (a GroupNorm's
+    affine under ``GroupNorm_0``); ``Conv`` kernels ``(kh, kw, in, out)``
+    become ``conv2d`` weights ``(out, in, kh, kw)``, ``Dense`` kernels
+    ``(in, out)`` ``Linear`` weights ``(out, in)``."""
+    sd = {}
+    for (*scope, leaf), value in _flatten(params):
+        prefix, a = 'net.' + '.'.join(scope), _f32(value)
+        if leaf == 'kernel':
+            sd[f'{prefix}.weight'] = a.T if a.ndim == 2 \
+                else a.transpose(3, 2, 0, 1)
+        else:
+            sd[f'{prefix}.{leaf}'] = a
+    for path, value in _flatten((aux or {}).get('buffers', {})):
+        sd['net.' + '.'.join(path)] = _f32(value)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+#: the SGMSE+ state_dict's entries that are flax ``buffers``, not ``params``
+_SGMSE_BUFFERS = ('net.emb.fourier_freqs',)
+
+
+def sgmse_state_dict_to_flax(state_dict):
+    """The port's SGMSE+ ``state_dict`` -> ``(params, aux)``, the flax
+    ``params`` tree and ``{'buffers': ...}`` (numpy)."""
+    params, aux = [], []
+    for key, value in state_dict.items():
+        a = value.detach().cpu().numpy()
+        *scope, leaf = key.split('.')[1:]
+        if key in _SGMSE_BUFFERS:
+            aux.append((tuple(scope) + (leaf,), a))
+        elif leaf == 'weight':
+            params.append((tuple(scope) + ('kernel',), a.T if a.ndim == 2
+                           else a.transpose(2, 3, 1, 0)))
+        else:
+            params.append((tuple(scope) + (leaf,), a))
+    return _nest(params), {'buffers': _nest(aux)}

@@ -36,8 +36,8 @@ def length_mask(shape, lengths, dtype=torch.float32):
 
 
 def apply_mask(x, y, lengths):
-    """Zero the padded tail of both tensors."""
-    mask = length_mask(x.shape, lengths, x.dtype)
+    """Zero the padded tail of both tensors (real or complex)."""
+    mask = length_mask(x.shape, lengths, x.real.dtype)
     return x * mask, y * mask
 
 
@@ -88,12 +88,17 @@ def snr(x, y, lengths):
 
 @CriterionRegistry.register('mse')
 def mse(x, y, lengths, weight=None):
-    """Length-normalised MSE with an optional per-sample weight."""
+    """Length-normalised MSE with an optional per-sample weight. For
+    complex tensors ``|x - y|^2`` is ``real^2 + imag^2``: ``abs`` has no
+    derivative at 0, where the masked tail of every padded item is."""
     if x.shape != y.shape or x.ndim < 2:
         raise ValueError(f'mse takes two equal (B, ..., L) tensors, got '
                          f'{tuple(x.shape)} and {tuple(y.shape)}')
     x, y = apply_mask(x, y, lengths)
-    loss = ((x - y).abs() ** 2).sum(dim=-1)
+    diff = x - y
+    square = diff.real ** 2 + diff.imag ** 2 if diff.is_complex() \
+        else diff.abs() ** 2
+    loss = square.sum(dim=-1)
     shape = (-1,) + (1,) * (x.ndim - 2)
     loss = loss / lengths.clamp_min(1).reshape(shape).to(loss.dtype)
     if weight is not None:

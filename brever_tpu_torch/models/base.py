@@ -3,7 +3,9 @@
 
 A family is an ``nn.Module`` that implements ``transform`` (raw sources
 to model inputs), ``_enhance`` (batched enhancement) and, to be trained,
-``loss(batch, lengths)`` -> a ``(batch,)`` vector; ``enhance`` wraps
+``loss(batch, lengths, generator)`` -> a ``(batch,)`` vector (a family
+whose loss draws random numbers, SGMSE+'s, draws them from the trainer's
+``torch.Generator``; the others ignore it); ``enhance`` wraps
 ``_enhance`` for batched and unbatched input. The trainer reads
 ``optimizer()`` and ``grad_clip``, and calls the hooks
 ``prepare_optimizer``, ``pre_train``, ``on_validate``, ``extra_state`` and
@@ -47,25 +49,33 @@ class BreverBaseModel(nn.Module):
         return next(self.parameters()).device
 
     def init_parameters(self, seed):
-        """Draw every parameter anew from ``seed``, on the CPU generator,
-        so that every device gets the same values."""
+        """Draw every parameter and buffer anew from ``seed``, on the CPU
+        generator, so that every device gets the same values."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             fresh = type(self)(**self.hparams, device='cpu')
         with torch.no_grad():
             for p, q in zip(self.parameters(), fresh.parameters()):
                 p.copy_(q)
+            for p, q in zip(self.buffers(), fresh.buffers()):
+                p.copy_(q)
 
     def to_flax(self, state_dict):
         """The JAX package's flax ``params`` tree of a ``state_dict``."""
         raise NotImplementedError
 
-    def from_flax(self, params):
-        """A ``state_dict`` (numpy or tensors) of a flax ``params``
-        tree."""
+    def from_flax(self, params, aux=None):
+        """A ``state_dict`` (numpy or tensors) of a flax ``params`` tree
+        and, for a family with buffers, the checkpoint's ``aux``
+        collections."""
         raise NotImplementedError
 
-    def loss(self, batch, lengths):
+    def flax_aux(self, state_dict):
+        """The JAX package's ``aux`` collections (a checkpoint's ``aux``)
+        of a ``state_dict``: none here."""
+        return {}
+
+    def loss(self, batch, lengths, generator=None):
         """Per-item loss ``(batch,)`` of a padded batch."""
         raise NotImplementedError
 
@@ -102,10 +112,10 @@ class BreverBaseModel(nn.Module):
         raise NotImplementedError
 
     @torch.inference_mode()
-    def enhance(self, x):
+    def enhance(self, x, **kwargs):
         """Unbatched ``(2, n)`` or batched ``(B, 2, n)`` enhancement of
         an array or tensor; returns a float32 tensor on the model's
-        device."""
+        device. Keyword arguments go to ``_enhance``."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         unbatched = x.ndim == 2
         if unbatched:
@@ -113,5 +123,5 @@ class BreverBaseModel(nn.Module):
         elif x.ndim != 3:
             raise ValueError(
                 f'input must be 2 or 3 dimensional, got {x.ndim}')
-        out = self._enhance(x)
+        out = self._enhance(x, **kwargs)
         return out[0] if unbatched else out

@@ -164,10 +164,10 @@ class ConvTasNet(BreverBaseModel):
     def to_flax(self, state_dict):
         return state_dict_to_flax(state_dict, self.hparams['layers'])
 
-    def from_flax(self, params):
+    def from_flax(self, params, aux=None):
         return flax_to_state_dict(params)
 
-    def loss(self, batch, lengths):
+    def loss(self, batch, lengths, generator=None):
         """Per-item loss of a padded batch ``(B, sources, channels,
         samples)``: the mixture in, the other sources as labels."""
         mono = self.transform(batch)      # (B, sources, samples)

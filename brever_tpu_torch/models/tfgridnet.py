@@ -282,10 +282,10 @@ class TFGridNet(BreverBaseModel):
     def to_flax(self, state_dict):
         return tfgridnet_state_dict_to_flax(state_dict)
 
-    def from_flax(self, params):
+    def from_flax(self, params, aux=None):
         return tfgridnet_flax_to_state_dict(params)
 
-    def loss(self, batch, lengths):
+    def loss(self, batch, lengths, generator=None):
         """Per-item loss of a padded batch ``(B, sources, 2, samples)``:
         the mixture in, the channel mean of the other sources as labels."""
         labels = batch[:, 1:].mean(dim=-2)

@@ -54,6 +54,9 @@ SIGNATURES = {
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
     'lstm_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P]),
     'lstm_bwd': (_I, [_P] * 12 + [_I] * 5 + [_P]),
+    'gn_workspace': (ctypes.c_size_t, [_I] * 4),
+    'gn_fwd': (_I, [_P] * 7 + [_I] * 4 + [_F, _I, _P]),
+    'gn_bwd': (_I, [_P] * 10 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

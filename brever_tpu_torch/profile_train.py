@@ -1,37 +1,43 @@
 """Where the time of the port's train step goes, on one CUDA device.
 
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
-parameters, or TF-GridNet, 3,735,344; drawn from ``--seed``) and its
-``BreverTrainer`` on the device, float32 with TF32 off (as
-``chip_smoke.py`` runs it), and times ``train_step`` (forward, the
-kernels' backward, global-norm clip, Adam) on a batch of 16 x 4 s (random
-mixture and target, the family's own criterion: ``snr`` and
-``multiresyu``):
+parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
+``sgmsepm``, 27,756,186; drawn from ``--seed``) and its ``BreverTrainer``
+on the device, float32 with TF32 off (as ``chip_smoke.py`` runs it), and
+times ``train_step`` (forward, the kernels' backward, global-norm clip
+where the family clips, Adam) on a batch of ``--batch`` x 4 s (default
+16; random mixture and target, the family's own criterion: ``snr``,
+``multiresyu`` and SGMSE+'s weighted ``mse``):
 
 * ms per step over ``--steps`` steps (CUDA events) with the profiler off
   and on, and the peak device memory of a step;
 * from a ``torch.profiler`` trace of those steps: device time per kernel
-  per step, and the device's idle share, one minus the summed device
-  activity over the steps' wall time (one stream, so nothing overlaps).
+  per step, and the device's idle share, one minus the device's busy time
+  (the union of its activity) over the steps' wall time.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON
 object; ``--trace`` also writes the Chrome trace.
 
     python -m brever_tpu_torch.profile_train [--arch convtasnet]
-        [--device cuda] [--steps 5] [--trace PATH]
+        [--device cuda] [--batch 16] [--steps 5] [--cudnn-benchmark]
+        [--trace PATH]
+
+SGMSE+ is profiled at its reference batch, ``--arch sgmsep --batch 4``.
+``--cudnn-benchmark`` lets cuDNN time its convolution algorithms for each
+new shape and keep the fastest (``torch.backends.cudnn.benchmark``); the
+port's entry points leave it off.
 """
 
 import argparse
 import json
 import subprocess
 import tempfile
-from collections import defaultdict
 
 import numpy as np
 import torch
 
 from .models import ModelRegistry
-from .profile_enhance import _cuda_ms, _kernel_name
+from .profile_enhance import ARCHS, _cuda_ms, _device_time, _setup
 from .training import BreverTrainer
 
 FS = 16000
@@ -79,12 +85,12 @@ def make_trainer(device, model_dir, seed=0, batch=16, seconds=4.0,
     return trainer, data, lengths
 
 
-def profile(device, steps=5, seed=0, trace=None, arch='convtasnet'):
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+def profile(device, steps=5, seed=0, trace=None, arch='convtasnet',
+            batch=16, cudnn_benchmark=False):
+    _setup(cudnn_benchmark)
     with tempfile.TemporaryDirectory() as model_dir:
         trainer, data, lengths = make_trainer(device, model_dir, seed,
-                                              arch=arch)
+                                              batch=batch, arch=arch)
 
         def step():
             return trainer.train_step(data, lengths)
@@ -101,25 +107,16 @@ def profile(device, steps=5, seed=0, trace=None, arch='convtasnet'):
     if trace:
         prof.export_chrome_trace(trace)
 
-    busy_us = 0.0
-    kernels = defaultdict(lambda: [0.0, 0])
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.time_range.elapsed_us()
-        busy_us += us
-        entry = kernels[_kernel_name(evt.name)]
-        entry[0] += us
-        entry[1] += 1
-    if busy_us == 0:
-        raise RuntimeError('the profiler recorded no device activity')
+    busy_us, kernels = _device_time(prof)
     per_step = {name: {'ms': us / 1e3 / steps, 'count': n / steps}
                 for name, (us, n) in sorted(kernels.items(),
                                             key=lambda kv: -kv[1][0])}
     return {
         'arch': arch,
-        'train_step_16x4s_ms': ms_off,
-        'train_step_16x4s_ms_profiled': ms_on,
+        'batch': batch,
+        'cudnn_benchmark': cudnn_benchmark,
+        'train_step_batch_x4s_ms': ms_off,
+        'train_step_batch_x4s_ms_profiled': ms_on,
         'peak_memory_mib': peak / 2 ** 20,
         'device_busy_ms_per_step': busy_us / 1e3 / steps,
         'device_idle_share': 1 - busy_us / 1e3 / (ms_on * steps),
@@ -129,11 +126,12 @@ def profile(device, steps=5, seed=0, trace=None, arch='convtasnet'):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument('--arch', default='convtasnet',
-                        choices=('convtasnet', 'tfgridnet'))
+    parser.add_argument('--arch', default='convtasnet', choices=ARCHS)
     parser.add_argument('--device', default='cuda')
+    parser.add_argument('--batch', type=int, default=16)
     parser.add_argument('--steps', type=int, default=5)
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--cudnn-benchmark', action='store_true')
     parser.add_argument('--trace', default=None)
     args = parser.parse_args()
     device = torch.device(args.device)
@@ -144,7 +142,8 @@ def main():
          '--format=csv,noheader'], check=True, capture_output=True,
         text=True).stdout.strip(), flush=True)
     print(json.dumps(profile(device, args.steps, args.seed, args.trace,
-                             args.arch)), flush=True)
+                             args.arch, args.batch, args.cudnn_benchmark)),
+          flush=True)
 
 
 if __name__ == '__main__':

@@ -29,6 +29,7 @@ import numpy as np
 
 from .audio import read_wav, write_wav
 from .checkpoint import load_checkpoint
+from .config import get_config
 from .models import ModelRegistry, count_params
 
 
@@ -48,27 +49,28 @@ def find_best_checkpoint(checkpoints_dir, metric):
     return max(candidates, key=lambda x: x[1])[0]
 
 
-def build_model(arch, model_kwargs, flax_params, device):
-    """A registered model on ``device`` holding a flax parameter tree."""
+def build_model(arch, model_kwargs, flax_params, device, aux=None):
+    """A registered model on ``device`` holding a flax parameter tree and,
+    for a family with buffers (SGMSE+'s Fourier frequencies), a
+    checkpoint's ``aux`` collections."""
     model = ModelRegistry.get(arch)(**model_kwargs, device=device)
-    model.load_state_dict(model.from_flax(flax_params))
+    model.load_state_dict(model.from_flax(flax_params, aux))
     return model.eval()
 
 
 def load_model(model_dir, checkpoint_path, cfg, device):
     """The model of a JAX-package model directory, with the checkpoint's
-    EMA parameters where it has them."""
+    EMA parameters where it has them, and its ``aux`` collections."""
     state = load_checkpoint(checkpoint_path)
     params = state['ema'] if 'ema' in state else state['params']
-    return build_model(cfg.arch, cfg.model.to_dict(), params, device)
+    return build_model(cfg.arch, cfg.model.to_dict(), params, device,
+                       state.get('aux') or None)
 
 
 class EnhanceService:
     """Owns the model and serializes enhance calls."""
 
-    def __init__(self, model_dir, device, best=None):
-        from brever_tpu.config import get_config  # needs yaml
-
+    def __init__(self, model_dir, device='cuda', best=None):
         cfg = get_config(os.path.join(model_dir, 'config.yaml'))
         ckpt_dir = os.path.join(model_dir, 'checkpoints')
         if best:
@@ -79,11 +81,12 @@ class EnhanceService:
                     os.path.basename(ckpt))
 
     @classmethod
-    def from_params(cls, arch, model_kwargs, flax_params, device):
-        """A service over an in-memory flax-layout parameter tree."""
+    def from_params(cls, arch, model_kwargs, flax_params, device, aux=None):
+        """A service over an in-memory flax-layout parameter tree (and
+        ``aux`` collections)."""
         service = cls.__new__(cls)
         service._setup(arch, build_model(arch, model_kwargs, flax_params,
-                                         device), None)
+                                         device, aux), None)
         return service
 
     def _setup(self, arch, model, checkpoint):

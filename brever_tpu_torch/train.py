@@ -24,6 +24,7 @@ import typing
 import numpy as np
 import torch
 
+from .config import get_config
 from .data import BreverDataset
 from .models import ModelRegistry
 from .training import BreverTrainer
@@ -64,7 +65,9 @@ def trainer_options():
     return options
 
 
-def main(argv=None):
+def build_trainer(argv=None):
+    """The trainer that :func:`main` runs, built from a model directory
+    and the command line's options (nothing is trained)."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('input', help='model directory')
     parser.add_argument('--force', action='store_true',
@@ -80,8 +83,6 @@ def main(argv=None):
     if os.path.exists(losses_path) and not args.force:
         raise FileExistsError(
             f'training already done: {losses_path}; use --force to retrain')
-
-    from brever_tpu.config import get_config  # yaml only, no JAX
 
     config = get_config(os.path.join(model_dir, 'config.yaml'))
     for name in options:
@@ -116,10 +117,16 @@ def main(argv=None):
 
     trainer_kwargs = config.trainer.to_dict()
     trainer_kwargs['seed'] = config.seed
-    trainer = BreverTrainer(model=model, train_dataset=train_dataset,
-                            val_dataset=val_dataset, model_dirpath=model_dir,
-                            **trainer_kwargs)
+    return BreverTrainer(model=model, train_dataset=train_dataset,
+                         val_dataset=val_dataset, model_dirpath=model_dir,
+                         **trainer_kwargs)
+
+
+def main(argv=None):
+    """Train (or resume) the model directory; returns the trainer."""
+    trainer = build_trainer(argv)
     trainer.run()
+    return trainer
 
 
 if __name__ == '__main__':

@@ -25,6 +25,20 @@ outer ``[clip, ...]`` is absent. A hyperparameter update that
 rate in place and keeps Adam's moments, as the JAX trainer's
 ``_apply_hyper_update`` does, and a checkpoint resumes with it.
 
+Randomness in the loss (SGMSE+ draws t and its noise) comes from a
+``torch.Generator`` on the trainer's device, seeded from ``seed`` and
+handed to ``loss``; its state goes into the checkpoint under
+``torch_generator``, so a resumed run continues bitwise. The checkpoint's
+``rng`` stays the JAX trainer's threefry key ``[0, seed]``, which the port
+cannot continue, so that the JAX loader reads the file. Validation draws
+from a generator of its own, reseeded to ``VAL_SEED`` before every
+validation batch, so a fixed model has a fixed validation loss whatever
+the order of the batches; the JAX trainer validates
+with its running key, so the two packages' validation losses are other
+draws. A family's buffers (SGMSE+'s Fourier frequencies) are saved in the
+checkpoint's ``aux``, as the JAX trainer saves its ``buffers`` collection,
+and restored on resume.
+
 Not ported yet, and refused when the trainer is built (ROADMAP.md):
 ``use_amp`` (bf16 kernels), ``ddp``, ``profile``, ``use_wandb`` and the
 validation metrics other than ``snr``/``sisnr``. ``compile`` is accepted
@@ -53,6 +67,10 @@ from .optim import clip_by_global_norm, flatten_parameters
 #: Adam's hyperparameters as optax.inject_hyperparams names them (its
 #: ``eps_root`` is 0 and not one of the port's)
 _HYPERPARAMS = ('learning_rate', 'b1', 'b2', 'eps')
+
+#: the seed of the validation generator, set anew for every validation
+#: batch
+VAL_SEED = 0
 
 
 def resolve_device(device):
@@ -191,6 +209,8 @@ class BreverTrainer:
         self.flat = flatten_parameters(model)
         self.ema = None
         self.step = 0
+        self.generator = torch.Generator(device=self.device)
+        self.val_generator = torch.Generator(device=self.device)
 
         self.loss_logger = LossLogger(model_dirpath)
         self.checkpoint_saver = CheckpointSaver(
@@ -201,18 +221,21 @@ class BreverTrainer:
     # state
 
     def init_state(self):
-        """Parameters drawn from ``seed``, fresh Adam moments, step 0, the
-        EMA a copy of the parameters."""
+        """Parameters and buffers drawn from ``seed``, fresh Adam moments,
+        step 0, the EMA a copy of the parameters, the loss's generator
+        seeded with ``seed``."""
         self.model.init_parameters(self.seed)
         self.optimizer.init(self.flat)
         self.step = 0
         self.ema = self.flat.clone() if self.use_ema else None
+        self.generator.manual_seed(self.seed)
 
     def train_step(self, batch, lengths):
         """One optimizer step on a padded device batch; returns the loss
         (a device scalar)."""
         self.model.train()
-        loss = sample_weighted_mean(self.model.loss(batch, lengths), lengths)
+        loss = sample_weighted_mean(
+            self.model.loss(batch, lengths, self.generator), lengths)
         grads = torch.autograd.grad(loss, self._param_list)
         grads = torch.cat([g.reshape(-1) for g in grads])
         if self.grad_clip:
@@ -225,10 +248,14 @@ class BreverTrainer:
 
     @torch.no_grad()
     def val_step(self, batch, lengths):
+        """The validation loss of a padded device batch, drawn from
+        ``val_generator`` reseeded to ``VAL_SEED``: the loss of a batch
+        does not depend on the order the sampler gives the batches."""
+        self.val_generator.manual_seed(VAL_SEED)
         self.model.eval()
         with self._eval_params():
-            return sample_weighted_mean(self.model.loss(batch, lengths),
-                                        lengths)
+            return sample_weighted_mean(
+                self.model.loss(batch, lengths, self.val_generator), lengths)
 
     @contextlib.contextmanager
     def _eval_params(self):
@@ -445,10 +472,11 @@ class BreverTrainer:
         state = {
             'epochs': self.epochs_ran,
             'params': self._flax(self.flat),
-            'aux': {},
+            'aux': self.model.flax_aux(self.model.state_dict()),
             'opt_state': self._opt_state_tree(),
             'step': np.asarray(self.step, np.int32),
             'rng': np.array([0, self.seed], np.uint32),
+            'torch_generator': self.generator.get_state().numpy(),
             'losses': self.loss_logger.state_dict(),
             'max_memory_allocated': int(self.max_memory_allocated),
             'timer': self.timer.state_dict(),
@@ -469,6 +497,12 @@ class BreverTrainer:
             self._load_opt_state_tree(state['opt_state'])
             if self.use_ema:
                 self.ema = self._flat_from_flax(state['ema'])
+            if state.get('aux'):   # the family's buffers
+                self.model.load_state_dict(
+                    self.model.from_flax({}, state['aux']), strict=False)
+        if 'torch_generator' in state:
+            self.generator.set_state(torch.from_numpy(
+                np.array(state['torch_generator'], np.uint8)))
         self.step = int(state['step'])
         if 'model_extra' in state:
             self.model.load_extra_state(json.loads(state['model_extra']))

@@ -2,10 +2,16 @@
 
 Drives the port's serving and training paths for full-width non-causal
 Conv-TasNet (filters 512, bottleneck 128, hidden 512, skip 128, 8 layers
-x 3 repeats; 4,935,217 random parameters from a numpy seed) and
-full-width TF-GridNet (n_fft 256, stride 128, 6 layers, LSTM hidden 128,
-4 heads, qk 512, emb 32, ks = hs = 4; 3,735,344 random parameters from a
-seed) on the card, in phases that each print one line:
+x 3 repeats; 4,935,217 random parameters from a numpy seed), full-width
+TF-GridNet (n_fft 256, stride 128, 6 layers, LSTM hidden 128, 4 heads,
+qk 512, emb 32, ks = hs = 4; 3,735,344 random parameters from a seed) and
+full-width SGMSE+ (``sgmsep``, the NCSN++ U-Net: 128 base channels, mults
+1, 1, 2, 2, 2, 2, 2, two blocks a level, attention at 16 frequencies and
+the bottleneck; 65,590,694 random parameters from a seed) on the card.
+Every family is served through ``EnhanceService(model_dir)`` and trained
+through ``train.main([...])`` on a model directory written here, the
+entry points of ``python -m brever_tpu_torch.serve`` and ``.train``. The
+phases each print one line:
 
 0. the card (nvidia-smi name and power limit), versions, optional deps;
 1. build the CUDA kernels from brever_tpu_torch/csrc with nvcc;
@@ -17,8 +23,8 @@ seed) on the card, in phases that each print one line:
 6. the TCN block backward kernel (K2) against its plain version, and
    twice on the same inputs (bitwise equal);
 7. full-model gradients on the card against the plain CPU path;
-8. training through BreverTrainer on a WAV dataset written here: the
-   loss falls, last.ckpt resumes, the checkpoint serves;
+8. training through train.main on a WAV dataset written here: the loss
+   falls, last.ckpt resumes, the checkpoint serves;
 9. timings: per-block backward kernel vs plain version, the full train
    step with kernel and with plain blocks, peak memory;
 10. the LSTM kernels (K3 forward, K4 backward) against their plain
@@ -27,16 +33,37 @@ seed) on the card, in phases that each print one line:
 11. TF-GridNet's enhance on the card against the plain path in float64;
 12. TF-GridNet's full-model gradients (multiresyu) against the plain
     path in float64, beside the plain float32 path's;
-13. TF-GridNet trained through BreverTrainer on a WAV dataset written
-    here: the loss falls, last.ckpt resumes bitwise, the checkpoint serves;
+13. TF-GridNet trained through train.main on a WAV dataset written here:
+    the loss falls, last.ckpt resumes bitwise, the checkpoint serves;
 14. the HTTP service over that model directory's checkpoint;
-15. timings: K3 and K4 per BLSTM vs plain, enhance and the train step
-    with kernel and with plain LSTMs, peak memory.
+15. timings: K3 and K4 per BLSTM vs plain and cuDNN's LSTM, enhance and
+    the train step with kernel and with plain LSTMs, peak memory;
+16. the GroupNorm kernels (K7 forward, K8 backward) against their plain
+    versions at the U-Net's shapes and ragged ones (odd N, C = 384, B = 1,
+    G = C), SiLU, none and ReLU; the backward in float64, twice bitwise;
+17. SGMSE+'s denoiser (2 x 4 s) and ``enhance`` (1 x 2 s, 32 U-Net
+    evaluations, one generator seed) against the plain path in float64,
+    beside the plain float32 path's; K7 launches per evaluation;
+18. SGMSE+'s full-model gradients (2 x 2 s, t and noise fixed) against the
+    plain path in float64, beside the plain float32 path's;
+19. SGMSE+ trained through train.main on a WAV dataset written here: the
+    fixed-generator validation loss falls, last.ckpt (with ``aux``, the
+    Fourier frequencies, and the generator's state) resumes bitwise;
+20. the HTTP service over that model directory's checkpoint;
+21. timings: K7 and K8 at the largest shape and summed over one U-Net
+    evaluation at 4 x 4 s, beside their plain versions and
+    ``F.group_norm`` + ``F.silu``; the denoiser at 4 x 4 s, ``enhance``
+    of 1 x 4 s, the train step at 4 x 4 s (kernel and plain GroupNorms)
+    and at 16 x 4 s, peak memory.
 
 Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
 comparisons hold the kernels to float32. Any failure raises (non-zero
-exit). The line before the last is a JSON record of each kernel, the
-last line ``{"ok": true, "device": {...}}``.
+exit). The line before the last is a JSON record of each kernel: its
+launches on the main paths, error, time, plain time, the bound (the
+least time of its bytes at 3.35 TB/s or its flops at the f32 rate of 67
+TFLOP/s, whichever is larger, from this run's shapes) and the time of
+one PyTorch call of the same function where there is one. The last line
+is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py
 """
@@ -86,6 +113,13 @@ DEFAULT = dict(filters=512, filter_length=32, bottleneck=128, hidden=512,
                skip=128, layers=8, repeats=3)
 N_PARAMS = 4_935_217
 FS = 16000
+#: the default model configs that the model directories written here use
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'config', 'models')
+#: the card's published rates (H100 SXM, NVIDIA's data sheet): device
+#: memory bytes/s and float32 flops/s outside the tensor cores, which the
+#: kernels use
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
 
 def phase(n, text):
@@ -241,26 +275,125 @@ def write_tone_dataset(path, n_items, seconds, seed):
                 tar.addfile(info, buf)
 
 
-def tone_trainers(tmp, arch, device, seed, val_period):
-    """Writes train (24 items) and val (4) tone datasets of 1 s under
-    ``tmp``; returns a factory of ``BreverTrainer``s of the default
-    ``arch`` over them, batch 8, into ``tmp/model``."""
-    from brever_tpu_torch.data import BreverDataset
-    from brever_tpu_torch.models import ModelRegistry
-    from brever_tpu_torch.training import BreverTrainer
-    for split, n_items, data_seed in (('train', 24, seed), ('val', 4,
-                                                             seed + 1)):
-        write_tone_dataset(os.path.join(tmp, split), n_items, 1.0, data_seed)
+def bound(flops, nbytes):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    for ``flops`` float32 operations that must move ``nbytes`` bytes."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS * 1e3
+    return (by_bytes, 'bytes') if by_bytes >= by_ops else (by_ops,
+                                                            'operations')
 
-    def trainer(n_epochs):
-        return BreverTrainer(
-            ModelRegistry.get(arch)(device='cpu'),
-            BreverDataset(os.path.join(tmp, 'train')),
-            BreverDataset(os.path.join(tmp, 'val')),
-            os.path.join(tmp, 'model'), epochs=n_epochs, device=str(device),
-            batch_sampler='random', batch_size=8, dynamic_batch_size=False,
-            val_metrics={'snr', 'sisnr'}, val_period=val_period, seed=0)
-    return trainer
+
+def write_model_dir(path, arch, train_path='none', val_path='none',
+                    params=None, aux=None):
+    """A model directory as the JAX package's initializer writes one: the
+    default ``config.yaml`` of ``arch`` with the dataset paths and, with
+    ``params``, ``checkpoints/last.ckpt`` holding them (and ``aux``)."""
+    import yaml
+    from brever_tpu_torch.checkpoint import save_checkpoint
+    with open(os.path.join(CONFIG_DIR, f'{arch}.yaml')) as f:
+        config = yaml.load(f, Loader=yaml.Loader)
+    config['train_path'], config['val_path'] = train_path, val_path
+    os.makedirs(path)
+    with open(os.path.join(path, 'config.yaml'), 'w') as f:
+        yaml.dump(config, f)
+    if params is not None:
+        os.makedirs(os.path.join(path, 'checkpoints'))
+        save_checkpoint(os.path.join(path, 'checkpoints', 'last.ckpt'),
+                        {'params': params, 'aux': aux or {}})
+    return path
+
+
+def tone_model_dir(tmp, arch, seed):
+    """Writes train (24 items) and val (4) tone datasets of 1 s under
+    ``tmp`` and a model directory of the default ``arch`` over them;
+    returns its path."""
+    paths = []
+    for split, n_items, data_seed in (('train', 24, seed),
+                                      ('val', 4, seed + 1)):
+        paths.append(os.path.join(tmp, split))
+        write_tone_dataset(paths[-1], n_items, 1.0, data_seed)
+    return write_model_dir(os.path.join(tmp, 'model'), arch, *paths)
+
+
+def train_args(model_dir, epochs, val_period, metrics='snr,sisnr'):
+    """The command line of ``python -m brever_tpu_torch.train``: batch 8
+    of the 1 s items, float32."""
+    return [model_dir, '--device', 'cuda', '--epochs', str(epochs),
+            '--batch_sampler', 'random', '--batch_size', '8',
+            '--dynamic_batch_size', 'false', '--val_metrics', metrics,
+            '--val_period', str(val_period), '--use_amp', 'false']
+
+
+def train_and_resume(args, epochs, counters):
+    """``train.main(args(epochs))`` with every launch counter of
+    ``counters`` set to 0 just before and read just after; then a trainer
+    built from the same command line restores last.ckpt and is held
+    bitwise against the first run's state (parameters, Adam's moments,
+    learning rate, the loss's generator, the buffers), and
+    ``train.main`` resumes to ``epochs + 2``. Returns the first and the
+    resumed trainer, the first run's seconds and launch counts."""
+    from brever_tpu_torch import train
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    first = train.main(args(epochs))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = [getattr(fn, attr) for fn, attr in counters]
+    probe = train.build_trainer(args(epochs + 2) + ['--force'])
+    probe.init_state()
+    probe.load_checkpoint()
+    buffers = [(a, b) for a, b in zip(probe.model.buffers(),
+                                      first.model.buffers())]
+    if not torch.equal(probe.flat, first.flat) \
+            or not torch.equal(probe.optimizer.mu, first.optimizer.mu) \
+            or not torch.equal(probe.optimizer.nu, first.optimizer.nu) \
+            or probe.optimizer.learning_rate \
+            != first.optimizer.learning_rate \
+            or not torch.equal(probe.generator.get_state(),
+                               first.generator.get_state()) \
+            or not all(torch.equal(a, b) for a, b in buffers) \
+            or probe.epochs_ran != epochs:
+        raise AssertionError('resume did not restore the state')
+    del probe
+    second = train.main(args(epochs + 2) + ['--force'])
+    if second.epochs_ran != epochs + 2 \
+            or len(second.loss_logger.train_loss) != epochs + 2:
+        raise AssertionError(f'resumed run ended at epoch '
+                             f'{second.epochs_ran}')
+    return first, second, seconds, launches
+
+
+def check_close(name, labels, refs, gots, min_db=MIN_SNR_DB,
+                max_rel=MAX_REL_ERR):
+    """SNR >= ``min_db`` and max abs error <= ``max_rel`` max|ref| (None:
+    no such bound) of each tensor against its reference, on its device (an
+    all-zero reference wants an all-zero result); returns (worst SNR, max
+    abs err)."""
+    worst, max_err = float('inf'), 0.0
+    for label, want, have in zip(labels, refs, gots):
+        want = want.detach().double()
+        have = have.detach().double().reshape(want.shape)
+        if not torch.isfinite(have).all():
+            raise AssertionError(f'{name} {label}: not finite')
+        diff = have - want
+        if not want.any():
+            if diff.any():
+                raise AssertionError(f'{name} {label}: '
+                                     f'{diff.abs().max().item():.3e} off 0')
+            continue
+        snr = 10 * np.log10(want.square().sum().item()
+                            / max(diff.square().sum().item(), 1e-300))
+        err = diff.abs().max().item()
+        bound_err = float('inf') if max_rel is None \
+            else max_rel * want.abs().max().item()
+        if snr < min_db or err > bound_err:
+            raise AssertionError(f'{name} {label}: SNR {snr:.2f} dB (>= '
+                                 f'{min_db}), max err {err:.3e} (<= '
+                                 f'{bound_err:.3e})')
+        worst, max_err = min(worst, snr), max(max_err, err)
+    return worst, max_err
 
 
 @contextlib.contextmanager
@@ -417,31 +550,6 @@ def offset_view(t):
     return buf[1:].view(t.shape)
 
 
-def check_tensors(name, labels, refs, gots):
-    """SNR and max-error bounds of each tensor against its reference (an
-    all-zero reference wants an all-zero result); returns (worst SNR, max
-    abs err)."""
-    worst, max_err = float('inf'), 0.0
-    for label, want, have in zip(labels, refs, gots):
-        want = want.detach().double().cpu()
-        have = have.detach().double().cpu().reshape(want.shape)
-        if not torch.isfinite(have).all():
-            raise AssertionError(f'{name} {label}: not finite')
-        err = (have - want).abs().max().item()
-        if not want.any():
-            if err:
-                raise AssertionError(f'{name} {label}: {err:.3e} off 0')
-            continue
-        snr = snr_db(want.numpy(), have.numpy())
-        bound = MAX_REL_ERR * want.abs().max().item()
-        if snr < MIN_SNR_DB or err > bound:
-            raise AssertionError(f'{name} {label}: SNR {snr:.2f} dB (>= '
-                                 f'{MIN_SNR_DB}), max err {err:.3e} (<= '
-                                 f'{bound:.3e})')
-        worst, max_err = min(worst, snr), max(max_err, err)
-    return worst, max_err
-
-
 def grid_model(params, device, dtype=torch.float32):
     from brever_tpu_torch.serve import build_model
     return build_model('tfgridnet', {}, params, device).to(dtype)
@@ -494,7 +602,7 @@ def tfgridnet_phases(device, card):
         h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
         ref = lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)
         torch.cuda.synchronize()
-        fwd_err = max(fwd_err, check_tensors(f'K3 {name}', ('h', 'c'), ref,
+        fwd_err = max(fwd_err, check_close(f'K3 {name}', ('h', 'c'), ref,
                                              (h, c))[1])
         del ref
         grads = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
@@ -504,7 +612,7 @@ def tfgridnet_phases(device, card):
         ref = lstm.lstm_scan_x_bwd_plain(*f64, h64, c64, dh.double())
         del f64, h64, c64
         torch.cuda.synchronize()
-        worst, err = check_tensors(f'K4 {name}', LSTM_NAMES, ref, grads)
+        worst, err = check_close(f'K4 {name}', LSTM_NAMES, ref, grads)
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f'K4 {name}: two runs differ')
         bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
@@ -524,7 +632,10 @@ def tfgridnet_phases(device, card):
     grid.init_parameters(11)
     params = grid.to_flax(grid.state_dict())
     del grid
-    gpu = EnhanceService.from_params('tfgridnet', {}, params, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu = EnhanceService(write_model_dir(os.path.join(tmp, 'model'),
+                                             'tfgridnet', params=params),
+                             device)
     if count_params(gpu.model) != GRID_PARAMS:
         raise AssertionError(f'{count_params(gpu.model)} parameters')
     mix = (0.1 * np.random.RandomState(12).randn(4, 2, 4 * FS)) \
@@ -578,18 +689,15 @@ def tfgridnet_phases(device, card):
           f'{p_dead:.1e}; {launches_bwd} K4 launches; {reserved:.1f} GiB '
           'reserved by the allocator before emptying its cache')
 
-    # ---- phase 13: training through BreverTrainer on the card
+    # ---- phase 13: training through train.main on the card
     epochs = 12
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = tone_trainers(tmp, 'tfgridnet', device, 20, 4)
-        first = trainer(epochs)
-        lstm.lstm_scan_x.launches = lstm.lstm_scan_x_bwd.launches = 0
-        t0 = time.perf_counter()
-        first.run()
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        out['launches_train'] = lstm.lstm_scan_x.launches
-        out['launches_train_bwd'] = lstm.lstm_scan_x_bwd.launches
+        model_dir = tone_model_dir(tmp, 'tfgridnet', 20)
+        first, second, train_s, (out['launches_train'],
+                                 out['launches_train_bwd']) = \
+            train_and_resume(lambda n: train_args(model_dir, n, 4), epochs,
+                             [(lstm.lstm_scan_x, 'launches'),
+                              (lstm.lstm_scan_x_bwd, 'launches')])
         if not out['launches_train'] or not out['launches_train_bwd']:
             raise AssertionError('training launched K3 {} and K4 {} times'
                                  .format(out['launches_train'],
@@ -599,19 +707,6 @@ def tfgridnet_phases(device, card):
         if not np.isfinite(losses).all() or last > GRID_LOSS_RATIO * losses[0]:
             raise AssertionError(f'training loss {losses[0]:.4f} -> '
                                  f'{last:.4f}')
-        second = trainer(epochs + 2)
-        second.init_state()
-        second.load_checkpoint()
-        if not torch.equal(second.flat, first.flat) \
-                or not torch.equal(second.optimizer.nu, first.optimizer.nu) \
-                or second.optimizer.learning_rate \
-                != first.optimizer.learning_rate \
-                or second.epochs_ran != epochs:
-            raise AssertionError('resume did not restore the state')
-        second.run()
-        if second.epochs_ran != epochs + 2:
-            raise AssertionError(f'resumed run ended at epoch '
-                                 f'{second.epochs_ran}')
         trained = load_checkpoint(first.last_ckpt_path)['params']
         served = grid_model(trained, device)
         item = second.val_dataset[0][0][None]
@@ -619,7 +714,7 @@ def tfgridnet_phases(device, card):
                                    second.model.enhance(item), atol=1e-6,
                                    rtol=1e-5)
         metrics = [m for m in first.loss_logger.metrics if m][-1]
-        phase(13, f'TF-GridNet BreverTrainer, 24 x 1 s tone-in-noise WAV '
+        phase(13, f'TF-GridNet train.main, 24 x 1 s tone-in-noise WAV '
               f'items, batch 8, {epochs} epochs in {train_s:.1f} s: train '
               f'loss {losses[0]:.4f} -> {last:.4f} (multiresyu; <= '
               f'{GRID_LOSS_RATIO} x the first), val snr {metrics["snr"]:.2f}'
@@ -630,8 +725,7 @@ def tfgridnet_phases(device, card):
               f'{second.epochs_ran}; the checkpoint serves')
 
         # ---- phase 14: the HTTP service over the model directory
-        service = EnhanceService.from_params('tfgridnet', {}, trained,
-                                             device)
+        service = EnhanceService(model_dir, device)
         results = []
         lstm.lstm_scan_x.launches = 0
         with http_service(service) as (port, health):
@@ -656,7 +750,8 @@ def tfgridnet_phases(device, card):
                 results.append(f'{seconds} s {snr:.1f} dB')
         out['launches_http'] = lstm.lstm_scan_x.launches
         phase(14, f'TF-GridNet /health ok, /enhance {", ".join(results)} '
-              f'from the trained last.ckpt vs the plain path in float64; '
+              f'from EnhanceService(model_dir) on the trained last.ckpt vs '
+              f'the plain path in float64; '
               f'{out["launches_http"]} K3 launches')
         del first, second, served, service, ref_model
 
@@ -677,8 +772,30 @@ def tfgridnet_phases(device, card):
                                                        h, c, dh),
                 'plain': lambda: lstm.lstm_scan_x_bwd_plain(
                     x, w_ih, bias, w_hh, h, c, dh)}, 3, 1)[0]
-        timing[label] = {'fwd': fwd, 'bwd': bwd}
-        del x, w_ih, bias, w_hh, dh, h, c
+        # the library's yardstick: cuDNN's LSTM, both directions over the
+        # same (T, R, E) input, forward and backward (data and weights)
+        steps, n_dir, rows, feat, hidden = case
+        cudnn = torch.nn.LSTM(feat, hidden, bidirectional=n_dir == 2) \
+            .to(device)
+        xl = x[:, 0].clone().requires_grad_()
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: cudnn(xl), 5, 2)
+        out_l, _ = cudnn(xl)
+        dout = torch.randn_like(out_l)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out_l, [xl, *cudnn.parameters()], dout, retain_graph=True), 3, 1)
+        # bounds: gate products of every step (the backward recomputes
+        # them, then dh W_hh^T, dx and dW); bytes of inputs and outputs
+        flops = 2 * n_dir * steps * rows * 4 * hidden * (feat + hidden)
+        weights = n_dir * 4 * hidden * (feat + hidden + 1)
+        seq = steps * n_dir * rows
+        seq_x, seq_h = seq * feat, seq * hidden
+        timing[label] = {
+            'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd, 'lib_bwd': lib_bwd,
+            'bound_fwd': bound(flops, 4 * (seq_x + weights + 2 * seq_h)),
+            'bound_bwd': bound(3 * flops, 4 * (2 * seq_x + 2 * weights
+                                               + 3 * seq_h))}
+        del x, w_ih, bias, w_hh, dh, h, c, cudnn, xl, out_l, dout
     batch = torch.from_numpy((0.1 * np.random.RandomState(16).randn(
         16, 2, 4 * FS)).astype(np.float32)).to(device)
 
@@ -713,13 +830,496 @@ def tfgridnet_phases(device, card):
           f'{timing["inter"]["fwd"]["kernel"]:.3f}/'
           f'{timing["inter"]["fwd"]["plain"]:.3f} K4 '
           f'{timing["inter"]["bwd"]["kernel"]:.3f}/'
-          f'{timing["inter"]["bwd"]["plain"]:.3f}; TF-GridNet enhance 16x4 s '
+          f'{timing["inter"]["bwd"]["plain"]:.3f}; cuDNN LSTM fwd/bwd intra '
+          f'{timing["intra"]["lib_fwd"]:.3f}/{timing["intra"]["lib_bwd"]:.3f}'
+          f', inter {timing["inter"]["lib_fwd"]:.3f}/'
+          f'{timing["inter"]["lib_bwd"]:.3f}; TF-GridNet enhance 16x4 s '
           f'{enhance_ms["kernel"]:.2f} ms, peak '
           f'{enhance_peak["kernel"] / mib:.1f} MiB (plain LSTMs '
           f'{enhance_ms["plain"]:.2f} ms, {enhance_peak["plain"] / mib:.1f} '
           f'MiB); train step 16x4 s f32 {step_ms["kernel"]:.2f} ms, peak '
           f'{step_peak["kernel"] / mib:.1f} MiB (plain LSTMs '
           f'{step_ms["plain"]:.2f} ms, {step_peak["plain"] / mib:.1f} MiB)')
+    return out
+
+
+SGMSE_PARAMS = 65_590_694
+#: K7 launches of one U-Net evaluation: sgmsep has 109 GroupNorms (105
+#: with SiLU, the 4 of the attention blocks without), each one launch
+SGMSE_EVAL_LAUNCHES = 109
+#: K7/K8 cases (B, C, F, T) channels first, groups: the U-Net's largest
+#: shapes at 4 x 4 s, then ragged ones (odd N, C = 384 with B = 1, G = C,
+#: a rank-3 odd length)
+GN_CASES = [((4, 128, 256, 501), 32), ((4, 256, 256, 501), 32),
+            ((4, 384, 128, 251), 32), ((4, 512, 64, 126), 32),
+            ((4, 512, 4, 8), 32), ((1, 384, 7, 13), 32),
+            ((2, 64, 33, 17), 64), ((3, 96, 1001), 24)]
+#: SGMSE+'s bounds against float64 (phases 17-20) are 60 dB for the
+#: denoiser, enhance, /enhance, the whole gradient and each gradient
+#: tensor: the plain float32 path, printed beside, reaches 121 dB on the
+#: denoiser, 125 dB on enhance (32 evaluations of the reverse SDE, one
+#: generator seed on both paths) and 103 dB on its worst gradient tensor
+#: (an H100 run of this script), so 60 dB keeps ~40 dB of margin above
+#: float32's own drift and far below a wrong kernel. A short training
+#: run's fixed-generator validation loss must end at most at
+#: SGMSE_VAL_RATIO of the untrained model's: six epochs of 3 steps took it
+#: to 0.70 on that run; the validation loss of fixed parameters is
+#: deterministic, so only a training that does not learn misses the bound
+SGMSE_VAL_RATIO = 0.9
+
+
+@contextlib.contextmanager
+def plain_groupnorms():
+    """Every GroupNorm of the U-Net runs the plain forward and its
+    memory-lean backward instead of K7 and K8."""
+    from brever_tpu_torch.models.sgmse import net
+    from brever_tpu_torch.ops import groupnorm
+    net.group_norm_silu = groupnorm.group_norm_silu_plain
+    try:
+        yield
+    finally:
+        net.group_norm_silu = groupnorm.group_norm_silu
+
+
+def gn_inputs(rng, shape, device='cuda'):
+    def arr(*s, scale=1.0, center=0.0):
+        return torch.from_numpy((center + scale * rng.randn(*s))
+                                .astype(np.float32)).to(device)
+
+    return (arr(*shape, scale=2.0, center=0.3), arr(shape[1], scale=0.1,
+                                                    center=1.0),
+            arr(shape[1], scale=0.1), arr(*shape))
+
+
+def gn_bounds(shape, groups):
+    """(K7, K8) bounds: bytes of x in and y out, of x and dy in and dx
+    out (scale, bias, statistics and the affine's gradients are a few KB);
+    ~10 flops an element (SiLU's exp counted as one) is far below them."""
+    n = int(np.prod(shape))
+    return bound(10 * n, 4 * 2 * n), bound(20 * n, 4 * 3 * n)
+
+
+def library(x, scale, bias, groups, silu):
+    """The PyTorch call of the same function: ``F.group_norm`` (+
+    ``F.silu``), the library yardstick, never called by the port."""
+    import torch.nn.functional as F
+    y = F.group_norm(x, groups, scale, bias, 1e-6)
+    return F.silu(y) if silu else y
+
+
+def sgmse_model(state, device, dtype=torch.float32):
+    """``sgmsep`` on ``device`` in ``dtype`` holding a state_dict."""
+    from brever_tpu_torch.models import ModelRegistry
+    model = ModelRegistry.get('sgmsep')(device='cpu')
+    model.load_state_dict(state)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def complex_input(rng, shape, device, scale=0.3):
+    return torch.complex(*(torch.from_numpy((scale * rng.randn(*shape))
+                                            .astype(np.float32))
+                           for _ in range(2))).to(device)
+
+
+def sgmse_grads(model, batch, lengths, t, noise):
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    model.train()
+    dtype = model.net.input_conv.weight.dtype
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    loss = sample_weighted_mean(model.loss_at(
+        batch.to(dtype), lengths, t.to(dtype), noise.to(cdtype)), lengths)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    model.eval()
+    return {k: g.double().cpu().numpy()
+            for (k, _), g in zip(model.named_parameters(), grads)}
+
+
+def sgmse_phases(device, card):
+    """Phases 16-21; returns the numbers of the K7/K8 JSON records."""
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.models import ModelRegistry, count_params
+    from brever_tpu_torch.models.sgmse import net
+    from brever_tpu_torch.ops import groupnorm as gn
+    from brever_tpu_torch.profile_train import make_trainer
+    from brever_tpu_torch.serve import EnhanceService
+    out = {}
+    torch.cuda.empty_cache()
+    k7, k8 = gn.group_norm_act_fwd, gn.group_norm_act_bwd
+
+    # ---- phase 16: K7 and K8 vs their plain versions on the card
+    rng = np.random.RandomState(16)
+    fwd_worst, fwd_err, bwd_worst, bwd_err, n_cases = (float('inf'), 0.0,
+                                                       float('inf'), 0.0, 0)
+    for shape, groups in GN_CASES:
+        acts = ('silu', 'none') + (('relu',) if groups == shape[1] else ())
+        for act in acts:
+            name = f'{shape} G={groups} {act}'
+            x, scale, bias, dy = gn_inputs(rng, shape)
+            y, mean, rstd = k7(x, scale, bias, groups, 1e-6, act)
+            ref = gn.group_norm_act_reference(x, scale, bias, groups, 1e-6,
+                                              act)
+            worst, err = check_close(f'K7 {name}', ('y', 'mean', 'rstd'),
+                                     ref, (y, mean, rstd))
+            fwd_worst, fwd_err = min(fwd_worst, worst), max(fwd_err, err)
+            del ref
+            grads = k8(x, dy, scale, bias, mean, rstd, groups, act)
+            again = k8(x, dy, scale, bias, mean, rstd, groups, act)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f'K8 {name}: two runs differ')
+            del again
+            # ReLU's branch at a z within rounding of 0 is the kernel's
+            dy64, act64 = ((dy * (y > 0)).double(), 'none') \
+                if act == 'relu' else (dy.double(), act)
+            want = gn.group_norm_act_bwd_plain(
+                x.double(), dy64, scale.double(), bias.double(),
+                mean.double(), rstd.double(), groups, act64)
+            worst, err = check_close(f'K8 {name}', ('dx', 'dscale', 'dbias'),
+                                     want, grads)
+            bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
+            n_cases += 1
+            del x, y, dy, dy64, grads, want
+    torch.cuda.empty_cache()
+    out['k7_err'], out['k8_err'] = fwd_err, bwd_err
+    phase(16, f'{n_cases} GroupNorm cases (the U-Net\'s (4, C, F, T) shapes '
+          f'at 4 x 4 s, odd N, C=384 B=1, G=C with ReLU): K7 y, mean, rstd '
+          f'vs the plain version worst {fwd_worst:.1f} dB, max abs err '
+          f'{fwd_err:.3e}; K8 dx, dscale, dbias vs the plain backward in '
+          f'float64 worst {bwd_worst:.1f} dB (>= {MIN_SNR_DB}), max abs err '
+          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two K8 runs '
+          'bitwise equal')
+
+    # ---- phase 17: the denoiser and enhance vs the plain path in float64
+    model = ModelRegistry.get('sgmsep')(device='cpu')
+    model.init_parameters(17)
+    state = model.state_dict()
+    params, aux = model.to_flax(state), model.flax_aux(state)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu = EnhanceService(write_model_dir(os.path.join(tmp, 'model'),
+                                             'sgmsep', params=params,
+                                             aux=aux), device)
+    if count_params(gpu.model) != SGMSE_PARAMS:
+        raise AssertionError(f'{count_params(gpu.model)} parameters')
+    rng = np.random.RandomState(17)
+    xs, ys = (complex_input(rng, (2, 1, 256, 501), device) for _ in range(2))
+    t = torch.tensor([0.35, 0.8], device=device).reshape(2, 1, 1, 1)
+    sigma = gpu.model.sde.sigma(t)
+    ref64 = sgmse_model(state, device, torch.float64)
+    plain32 = sgmse_model(state, device)
+    with torch.no_grad():
+        k7.launches = 0
+        got = gpu.model.model(xs, ys, sigma, t)
+        torch.cuda.synchronize()
+        per_eval = k7.launches   # one evaluation of a batch of 2
+        with plain_groupnorms():
+            want = ref64.model(xs.to(torch.complex128),
+                               ys.to(torch.complex128), sigma.double(),
+                               t.double())
+            plain = plain32.model(xs, ys, sigma, t)
+    if per_eval != SGMSE_EVAL_LAUNCHES:
+        raise AssertionError(f'{per_eval} K7 launches an evaluation, not '
+                             f'{SGMSE_EVAL_LAUNCHES}')
+    den_db, den_err = check_close('denoiser (2, 1, 256, 501)', ('d',),
+                                  (torch.view_as_real(want),),
+                                  (torch.view_as_real(got),))
+    den_plain_db = check_close('plain denoiser', ('d',),
+                               (torch.view_as_real(want),),
+                               (torch.view_as_real(plain),), 0.0, None)[0]
+    del got, want, plain
+    mix = (0.3 * np.random.RandomState(18).randn(1, 2, 2 * FS)) \
+        .astype(np.float32)
+
+    def enhance(model):
+        return model.enhance(mix, generator=torch.Generator(device=device)
+                             .manual_seed(0))
+
+    k7.launches = 0
+    got = enhance(gpu.model)
+    torch.cuda.synchronize()
+    enh_launches = k7.launches
+    with plain_groupnorms():
+        want, plain = enhance(ref64), enhance(plain32)
+    enh_plain_db = check_close('plain enhance', ('wav',), (want,), (plain,),
+                               0.0, None)[0]
+    enh_db, enh_err = check_close('enhance (1, 2, 32000)', ('wav',),
+                                  (want,), (got,))
+    evals = gpu.model.solver.evaluations   # U-Net evaluations a call
+    if enh_launches != evals * SGMSE_EVAL_LAUNCHES:
+        raise AssertionError(f'enhance: {enh_launches} K7 launches, not '
+                             f'{evals} x {SGMSE_EVAL_LAUNCHES}')
+    out['launches_eval'] = SGMSE_EVAL_LAUNCHES
+    del ref64, plain32, got, want, plain
+    torch.cuda.empty_cache()
+    phase(17, f'SGMSE+ ({SGMSE_PARAMS:,} parameters) from '
+          f'EnhanceService(model_dir): denoiser (2 x 4 s) {den_db:.1f} dB, '
+          f'max abs err {den_err:.3e} vs the plain path in float64 (plain '
+          f'float32 {den_plain_db:.1f} dB), {per_eval:.0f} K7 launches an '
+          f'evaluation; enhance (1 x 2 s, {evals} evaluations, generator '
+          f'seed 0 on both paths) {enh_db:.1f} dB (plain float32 '
+          f'{enh_plain_db:.1f} dB; >= {MIN_SNR_DB}), {enh_launches} K7 '
+          'launches')
+
+    # ---- phase 18: full-model gradients vs the plain path in float64
+    rng = np.random.RandomState(19)
+    target = 0.1 * rng.randn(2, 1, 2, 2 * FS)
+    batch = torch.from_numpy(np.concatenate(
+        [target + 0.1 * rng.randn(2, 1, 2, 2 * FS), target], axis=1)
+        .astype(np.float32)).to(device)
+    lengths = torch.tensor([2 * FS, 3 * FS // 2], device=device)
+    t = torch.tensor([0.3, 0.9], device=device).reshape(2, 1, 1, 1)
+    frames = gpu.model.transform(batch).shape[-1]
+    noise = complex_input(rng, (2, 1, 256, frames), device, 1.0)
+    with plain_groupnorms():
+        ref = sgmse_grads(sgmse_model(state, device, torch.float64), batch,
+                          lengths, t, noise)
+        plain = sgmse_grads(sgmse_model(state, device), batch, lengths, t,
+                            noise)
+    k8.launches = k7.recompute_launches = 0
+    got = sgmse_grads(gpu.model, batch, lengths, t, noise)
+    launches_bwd, recomputes = k8.launches, k7.recompute_launches
+    if launches_bwd != SGMSE_EVAL_LAUNCHES:
+        raise AssertionError(f'{launches_bwd} K8 launches, not '
+                             f'{SGMSE_EVAL_LAUNCHES}')
+    k_whole, k_worst, k_name, k_dead = grad_report(ref, got)
+    p_whole, p_worst, p_name, p_dead = grad_report(ref, plain)
+    del ref, plain, got
+    torch.cuda.empty_cache()
+    if k_whole < MIN_SNR_DB or k_worst < MIN_SNR_DB or k_dead > 1e-6:
+        raise AssertionError(f'SGMSE+ gradients: whole {k_whole:.2f} dB, '
+                             f'worst {k_name} {k_worst:.2f} dB, zero '
+                             f'tensors {k_dead:.1e}')
+    phase(18, f'SGMSE+ gradients (2 x 2 s, t and noise fixed, remat) vs the '
+          f'plain path in float64: whole {k_whole:.1f} dB (>= {MIN_SNR_DB}),'
+          f' worst tensor {k_worst:.1f} dB ({k_name}; >= {MIN_SNR_DB}), '
+          f'zero-gradient tensors within {k_dead:.1e} of the largest; the '
+          f'plain float32 path: whole {p_whole:.1f} dB, worst '
+          f'{p_worst:.1f} dB ({p_name}), zero {p_dead:.1e}; {launches_bwd} '
+          f'K8 launches, {recomputes} K7 recomputes of rematerialised '
+          'blocks')
+
+    # ---- phase 19: training through train.main on the card
+    from brever_tpu_torch import train
+    epochs = 6
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = tone_model_dir(tmp, 'sgmsep', 30)
+
+        def args(n):   # validation scores the loss alone: SGMSE+'s
+            return train_args(model_dir, n, 1, '')   # enhance is 32 evals
+
+        untrained = train.build_trainer(args(epochs))
+        untrained.init_state()
+        untrained.val_dataloader.set_epoch(0)
+        val_0, _ = untrained.routine(0, train=False)
+        del untrained
+        first, second, train_s, (out['launches_train'],
+                                 out['launches_train_bwd'],
+                                 out['recompute_train']) = \
+            train_and_resume(args, epochs, [(k7, 'launches'),
+                                            (k8, 'launches'),
+                                            (k7, 'recompute_launches')])
+        if not out['launches_train'] or not out['launches_train_bwd']:
+            raise AssertionError('training launched K7 {} and K8 {} times'
+                                 .format(out['launches_train'],
+                                         out['launches_train_bwd']))
+        val = [v for v in first.loss_logger.val_loss if v is not None]
+        losses = first.loss_logger.train_loss
+        if not np.isfinite(val + losses).all() \
+                or val[-1] > SGMSE_VAL_RATIO * val_0:
+            raise AssertionError(f'validation loss {val_0:.4f} -> {val}')
+        state_ckpt = load_checkpoint(second.last_ckpt_path)
+        if not np.array_equal(
+                state_ckpt['aux']['buffers']['emb']['fourier_freqs'],
+                second.model.net.emb.fourier_freqs.cpu().numpy()) \
+                or 'torch_generator' not in state_ckpt:
+            raise AssertionError('last.ckpt lacks aux or the generator')
+        phase(19, f'SGMSE+ train.main, 24 x 1 s tone-in-noise WAV items, '
+              f'batch 8, {epochs} epochs in {train_s:.1f} s: fixed-generator'
+              f' validation loss {val_0:.4f} (untrained) -> '
+              f'{", ".join(f"{v:.4f}" for v in val)} (last <= '
+              f'{SGMSE_VAL_RATIO} x untrained); train loss (t drawn anew '
+              f'each step) {", ".join(f"{v:.3f}" for v in losses)}; K7 '
+              f'{out["launches_train"]} (of them '
+              f'{out["recompute_train"]} recomputes) / K8 '
+              f'{out["launches_train_bwd"]} launches; resumed bitwise from '
+              f'last.ckpt (aux, generator state) to epoch '
+              f'{second.epochs_ran}')
+
+        # ---- phase 20: the HTTP service over the model directory
+        service = EnhanceService(model_dir, device)
+        ref_model = sgmse_model(service.model.state_dict(), device,
+                                torch.float64)
+        results = []
+        k7.launches = 0
+        with http_service(service) as (port, health):
+            if health['params'] != SGMSE_PARAMS or health['arch'] != 'sgmsep':
+                raise AssertionError(f'/health: {health}')
+            for seconds in (0.05, 1):
+                audio = (0.1 * np.random.RandomState(20).randn(
+                    int(seconds * FS))).astype(np.float32)
+                before = k7.launches
+                got = post_wav(port, audio)
+                launched = k7.launches - before
+                with plain_groupnorms():
+                    want = ref_model.enhance(
+                        np.stack([audio, audio]),
+                        generator=torch.Generator(device=device)
+                        .manual_seed(0))
+                db, _ = check_close(f'SGMSE+ /enhance {seconds} s', ('wav',),
+                                    (want,), (torch.from_numpy(got)
+                                              .to(device),))
+                if launched != evals * SGMSE_EVAL_LAUNCHES:
+                    raise AssertionError(f'/enhance {seconds} s: {launched} '
+                                         'K7 launches')
+                results.append(f'{seconds} s {db:.1f} dB')
+        out['launches_http'] = k7.launches
+        phase(20, f'SGMSE+ /health ok, /enhance {", ".join(results)} from '
+              f'EnhanceService(model_dir) on the trained last.ckpt (aux '
+              f'included) vs the plain path in float64 (generator seed 0); '
+              f'{out["launches_http"]} K7 launches')
+        del first, second, service, ref_model
+    torch.cuda.empty_cache()
+
+    # ---- phase 21: timings (plain, kernel, kernel, plain in turns)
+    x, scale, bias, dy = gn_inputs(np.random.RandomState(21),
+                                   GN_CASES[1][0])
+    with torch.no_grad():
+        _, mean, rstd = k7(x, scale, bias, 32, 1e-6, 'silu')
+        fwd = in_turns({
+            'kernel': lambda: k7(x, scale, bias, 32, 1e-6, 'silu'),
+            'plain': lambda: gn.group_norm_act_reference(
+                x, scale, bias, 32, 1e-6, 'silu')}, 10, 2)[0]
+        bwd = in_turns({
+            'kernel': lambda: k8(x, dy, scale, bias, mean, rstd, 32, 'silu'),
+            'plain': lambda: gn.group_norm_act_bwd_plain(
+                x, dy, scale, bias, mean, rstd, 32, 'silu')}, 10, 2)[0]
+        fwd['library'] = cuda_ms(lambda: library(x, scale, bias, 32, True),
+                                 10, 2)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    y_lib = library(*leaves, 32, True)
+    bwd['library'] = cuda_ms(lambda: torch.autograd.grad(
+        y_lib, leaves, dy, retain_graph=True), 10, 2)
+    del x, dy, mean, rstd, leaves, y_lib
+    out['largest'] = {'fwd': fwd, 'bwd': bwd,
+                      'bound': gn_bounds(GN_CASES[1][0], 32)}
+    # one U-Net evaluation at 4 x 4 s: its GroupNorm calls, each timed
+    rng = np.random.RandomState(22)
+    xs, ys = (complex_input(rng, (4, 1, 256, 501), device) for _ in range(2))
+    t = torch.full((4, 1, 1, 1), 0.5, device=device)
+    sigma = gpu.model.sde.sigma(t)
+    calls = {}
+
+    def record(x, scale, bias, groups, eps=1e-6, apply_silu=True, **kw):
+        key = (tuple(x.shape), groups, apply_silu)
+        calls[key] = calls.get(key, 0) + 1
+        return gn.group_norm_silu(x, scale, bias, groups, eps, apply_silu)
+
+    net.group_norm_silu = record
+    try:
+        with torch.no_grad():
+            gpu.model.model(xs, ys, sigma, t)
+    finally:
+        net.group_norm_silu = gn.group_norm_silu
+    per_eval = {k: 0.0 for k in ('k7', 'plain', 'library', 'k8',
+                                 'plain_bwd', 'library_bwd', 'bound_k7',
+                                 'bound_k8')}
+    for (shape, groups, silu), count in calls.items():
+        act = 'silu' if silu else 'none'
+        x, scale, bias, dy = gn_inputs(rng, shape)
+        with torch.no_grad():
+            _, mean, rstd = k7(x, scale, bias, groups, 1e-6, act)
+            times = {
+                'k7': lambda: k7(x, scale, bias, groups, 1e-6, act),
+                'plain': lambda: gn.group_norm_act_reference(
+                    x, scale, bias, groups, 1e-6, act),
+                'library': lambda: library(x, scale, bias, groups, silu),
+                'k8': lambda: k8(x, dy, scale, bias, mean, rstd, groups,
+                                 act),
+                'plain_bwd': lambda: gn.group_norm_act_bwd_plain(
+                    x, dy, scale, bias, mean, rstd, groups, act)}
+            for key, fn in times.items():
+                per_eval[key] += count * cuda_ms(fn, 5, 1)
+        leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+        y_lib = library(*leaves, groups, silu)
+        per_eval['library_bwd'] += count * cuda_ms(
+            lambda: torch.autograd.grad(y_lib, leaves, dy,
+                                        retain_graph=True), 5, 1)
+        b7, b8 = gn_bounds(shape, groups)
+        per_eval['bound_k7'] += count * b7[0]
+        per_eval['bound_k8'] += count * b8[0]
+        del x, dy, mean, rstd, leaves, y_lib
+    n_calls = sum(calls.values())
+    if n_calls != SGMSE_EVAL_LAUNCHES:
+        raise AssertionError(f'{n_calls} GroupNorm calls an evaluation')
+    out['eval'] = per_eval
+
+    def plain(fn):
+        def run():
+            with plain_groupnorms():
+                fn()
+        return run
+
+    def denoise():
+        with torch.no_grad():
+            gpu.model.model(xs, ys, sigma, t)
+
+    den_ms, den_peak = in_turns({'kernel': denoise, 'plain': plain(denoise)},
+                                3, 1)
+    mix = torch.from_numpy((0.1 * rng.randn(1, 2, 4 * FS))
+                           .astype(np.float32)).to(device)
+
+    def enhance_4s():
+        gpu.model.enhance(mix)
+
+    enh_ms, enh_peak = in_turns({'kernel': enhance_4s,
+                                 'plain': plain(enhance_4s)}, 1, 0)
+    del gpu, xs, ys, mix
+    torch.cuda.empty_cache()
+    steps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        step_trainer, data, n = make_trainer(device, tmp, batch=4,
+                                             arch='sgmsep')
+
+        def step():
+            step_trainer.train_step(data, n)
+
+        steps['4'] = in_turns({'kernel': step, 'plain': plain(step)}, 2, 1)
+        del step_trainer, data, n
+        torch.cuda.empty_cache()
+        try:
+            step_trainer, data, n = make_trainer(device, tmp, batch=16,
+                                                 arch='sgmsep')
+            torch.cuda.reset_peak_memory_stats()
+            ms16 = cuda_ms(step, 2, 1)
+            steps['16'] = (ms16, torch.cuda.max_memory_allocated())
+        except torch.cuda.OutOfMemoryError as e:
+            steps['16'] = (None, str(e).splitlines()[0])
+        step_trainer = data = n = None
+    torch.cuda.empty_cache()
+    out.update(den_ms=den_ms, enh_ms=enh_ms, steps=steps)
+    mib = 2 ** 20
+    (s4_ms, s4_peak), (s16_ms, s16_peak) = steps['4'], steps['16']
+    big = (f'{s16_ms:.1f} ms, peak {s16_peak / mib:.1f} MiB'
+           if s16_ms is not None else f'did not fit ({s16_peak})')
+    phase(21, f'[{card}] K7/K8 at (4, 256, 256, 501) kernel/plain/'
+          f'F.group_norm+F.silu ms: fwd {fwd["kernel"]:.3f}/'
+          f'{fwd["plain"]:.3f}/{fwd["library"]:.3f} (bound '
+          f'{out["largest"]["bound"][0][0]:.3f}), bwd {bwd["kernel"]:.3f}/'
+          f'{bwd["plain"]:.3f}/{bwd["library"]:.3f} (bound '
+          f'{out["largest"]["bound"][1][0]:.3f}); summed over the '
+          f'{n_calls} GroupNorms of one evaluation at 4 x 4 s: K7 '
+          f'{per_eval["k7"]:.2f}/{per_eval["plain"]:.2f}/'
+          f'{per_eval["library"]:.2f} (bound {per_eval["bound_k7"]:.2f}), K8 '
+          f'{per_eval["k8"]:.2f}/{per_eval["plain_bwd"]:.2f}/'
+          f'{per_eval["library_bwd"]:.2f} (bound {per_eval["bound_k8"]:.2f});'
+          f' denoiser 4 x 4 s {den_ms["kernel"]:.2f} ms, peak '
+          f'{den_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
+          f'{den_ms["plain"]:.2f} ms, {den_peak["plain"] / mib:.1f} MiB); '
+          f'enhance 1 x 4 s {enh_ms["kernel"]:.1f} ms, peak '
+          f'{enh_peak["kernel"] / mib:.1f} MiB (plain {enh_ms["plain"]:.1f} '
+          f'ms); train step 4 x 4 s f32 {s4_ms["kernel"]:.1f} ms, peak '
+          f'{s4_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
+          f'{s4_ms["plain"]:.1f} ms, {s4_peak["plain"] / mib:.1f} MiB); '
+          f'train step 16 x 4 s {big}')
     return out
 
 
@@ -795,8 +1395,11 @@ def main():
 
     # ---- phase 3: the full model on the card vs the plain CPU path
     flax_params = random_flax_params(np.random.RandomState(1), **DEFAULT)
-    gpu = EnhanceService.from_params('convtasnet', {}, flax_params, device)
-    cpu = EnhanceService.from_params('convtasnet', {}, flax_params, 'cpu')
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, 'model'), 'convtasnet',
+                                    params=flax_params)
+        gpu = EnhanceService(model_dir, device)
+        cpu = EnhanceService(model_dir, 'cpu')
     if count_params(gpu.model) != N_PARAMS:
         raise AssertionError(f'{count_params(gpu.model)} parameters')
     mix = (0.1 * np.random.RandomState(2).randn(4, 2, 4 * FS)) \
@@ -964,18 +1567,14 @@ def main():
           f'{len(scale)} PReLU slopes within {slope:.1e} of their terms\' '
           f'magnitude (<= 1e-5); {launches_bwd} backward launches')
 
-    # ---- phase 8: training through BreverTrainer on the card
+    # ---- phase 8: training through train.main on the card
     epochs = 24
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = tone_trainers(tmp, 'convtasnet', device, 10, 6)
-        first = trainer(epochs)
-        tcn.tcn_block.launches = tcn.tcn_block_bwd.launches = 0
-        t0 = time.perf_counter()
-        first.run()
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches_train = tcn.tcn_block.launches
-        launches_train_bwd = tcn.tcn_block_bwd.launches
+        model_dir = tone_model_dir(tmp, 'convtasnet', 10)
+        first, second, train_s, (launches_train, launches_train_bwd) = \
+            train_and_resume(lambda n: train_args(model_dir, n, 6), epochs,
+                             [(tcn.tcn_block, 'launches'),
+                              (tcn.tcn_block_bwd, 'launches')])
         if launches_train == 0 or launches_train_bwd == 0:
             raise AssertionError(f'training launched K1 {launches_train} '
                                  f'and K2 {launches_train_bwd} times')
@@ -984,20 +1583,7 @@ def main():
         if not np.isfinite(losses).all() or drop <= 1.0:
             raise AssertionError(f'training loss {losses[0]:.2f} -> '
                                  f'{np.mean(losses[-3:]):.2f} dB')
-        ckpt = first.last_ckpt_path
-        if not os.path.exists(ckpt):
-            raise AssertionError('no last.ckpt')
-        second = trainer(epochs + 2)
-        second.init_state()
-        second.load_checkpoint()
-        if not torch.equal(second.flat, first.flat) \
-                or second.epochs_ran != epochs:
-            raise AssertionError('resume did not restore the parameters')
-        second.run()
-        if second.epochs_ran != epochs + 2 \
-                or len(second.loss_logger.train_loss) != epochs + 2:
-            raise AssertionError(f'resumed run ended at epoch '
-                                 f'{second.epochs_ran}')
+        ckpt = second.last_ckpt_path
         served = build_model('convtasnet', {},
                              load_checkpoint(ckpt)['params'], device)
         mix = second.val_dataset[0][0][None]
@@ -1008,7 +1594,7 @@ def main():
                                  'output')
         torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
         metrics = [m for m in first.loss_logger.metrics if m][-1]
-    phase(8, f'BreverTrainer, 24 x 1 s tone-in-noise WAV items, batch 8, '
+    phase(8, f'train.main, 24 x 1 s tone-in-noise WAV items, batch 8, '
           f'{epochs} epochs in {train_s:.1f} s: train loss {losses[0]:.2f} '
           f'-> {np.mean(losses[-3:]):.2f} dB, val snr {metrics["snr"]:.2f} '
           f'sisnr {metrics["sisnr"]:.2f} dB; K1 {launches_train} / K2 '
@@ -1055,11 +1641,23 @@ def main():
           f'{step_peak["plain"] / 2 ** 20:.1f} MiB)')
 
     grid = tfgridnet_phases(device, card)
+    sgm = sgmse_phases(device, card)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
         raise AssertionError('the port pulled in JAX or the JAX package')
     shape = 'B=16 T=3999 C=128 H=512 Cs=128'
+    # K1's bound: its three GEMMs (C->H, H->C and H->Cs) and the depthwise
+    # taps; bytes of x in, the residual and skip out and the parameters.
+    # K2 recomputes the forward's products and takes dX and dW of each
+    rows, c, h, cs = 16 * 3999, 128, 512, 128
+    tcn_flops = 2 * rows * (c * h + h * (c + cs) + 3 * h)
+    tcn_weights = c * h + h * (c + cs) + 12 * h + c + cs
+    k1_bound = bound(tcn_flops, 4 * (rows * (2 * c + cs) + tcn_weights))
+    k2_bound = bound(3 * tcn_flops, 4 * (rows * (3 * c + cs)
+                                         + 2 * tcn_weights))
+    lstm_t = grid['timing']['intra']
+    gn_big = sgm['largest']
     print(json.dumps({'kernels': [{
         'name': 'tcn_block_fwd',
         'route': 'cuda',
@@ -1073,6 +1671,9 @@ def main():
         'plain_ms': timing[1]['plain'],
         'ms_d128': timing[128]['kernel'],
         'plain_ms_d128': timing[128]['plain'],
+        'bound_ms': k1_bound[0],
+        'bound_by': k1_bound[1],
+        'library_ms': None,
         'shape': shape,
     }, {
         'name': 'tcn_block_bwd',
@@ -1085,6 +1686,9 @@ def main():
         'plain_ms': timing[1]['bwd_plain'],
         'ms_d128': timing[128]['bwd_kernel'],
         'plain_ms_d128': timing[128]['bwd_plain'],
+        'bound_ms': k2_bound[0],
+        'bound_by': k2_bound[1],
+        'library_ms': None,
         'shape': shape,
         'train_step_ms': step_ms['kernel'],
         'train_step_plain_ms': step_ms['plain'],
@@ -1102,6 +1706,10 @@ def main():
         'plain_ms': grid['timing']['intra']['fwd']['plain'],
         'ms_inter': grid['timing']['inter']['fwd']['kernel'],
         'plain_ms_inter': grid['timing']['inter']['fwd']['plain'],
+        'bound_ms': lstm_t['bound_fwd'][0],
+        'bound_by': lstm_t['bound_fwd'][1],
+        'library_ms': lstm_t['lib_fwd'],
+        'library_ms_inter': grid['timing']['inter']['lib_fwd'],
         'shape': 'intra T=33 D=2 R=8064 E=H=128; inter T=126 R=2112',
         'enhance_16x4s_ms': grid['enhance_ms']['kernel'],
         'enhance_16x4s_plain_ms': grid['enhance_ms']['plain'],
@@ -1116,9 +1724,58 @@ def main():
         'plain_ms': grid['timing']['intra']['bwd']['plain'],
         'ms_inter': grid['timing']['inter']['bwd']['kernel'],
         'plain_ms_inter': grid['timing']['inter']['bwd']['plain'],
+        'bound_ms': lstm_t['bound_bwd'][0],
+        'bound_by': lstm_t['bound_bwd'][1],
+        'library_ms': lstm_t['lib_bwd'],
+        'library_ms_inter': grid['timing']['inter']['lib_bwd'],
         'shape': 'intra T=33 D=2 R=8064 E=H=128; inter T=126 R=2112',
         'train_step_ms': grid['step_ms']['kernel'],
         'train_step_plain_ms': grid['step_ms']['plain'],
+    }, {
+        'name': 'group_norm_act_fwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/groupnorm.cu',
+        'replaces': 'brever_tpu/ops/pallas/groupnorm.py:134',
+        'launches': sgm['launches_train'] + sgm['launches_http'],
+        'launches_serve': sgm['launches_http'],
+        'launches_train': sgm['launches_train'],
+        'launches_recompute': sgm['recompute_train'],
+        'launches_per_eval': sgm['launches_eval'],
+        'max_abs_err': sgm['k7_err'],
+        'ms': gn_big['fwd']['kernel'],
+        'plain_ms': gn_big['fwd']['plain'],
+        'bound_ms': gn_big['bound'][0][0],
+        'bound_by': gn_big['bound'][0][1],
+        'library_ms': gn_big['fwd']['library'],
+        'shape': 'B=4 C=256 F=256 T=501 G=32 SiLU',
+        'eval_4x4s_ms': sgm['eval']['k7'],
+        'eval_4x4s_plain_ms': sgm['eval']['plain'],
+        'eval_4x4s_bound_ms': sgm['eval']['bound_k7'],
+        'eval_4x4s_library_ms': sgm['eval']['library'],
+        'denoiser_4x4s_ms': sgm['den_ms']['kernel'],
+        'denoiser_4x4s_plain_ms': sgm['den_ms']['plain'],
+        'enhance_1x4s_ms': sgm['enh_ms']['kernel'],
+        'enhance_1x4s_plain_ms': sgm['enh_ms']['plain'],
+    }, {
+        'name': 'group_norm_act_bwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/groupnorm.cu',
+        'replaces': 'brever_tpu/ops/pallas/groupnorm.py:263',
+        'launches': sgm['launches_train_bwd'],
+        'max_abs_err': sgm['k8_err'],
+        'ms': gn_big['bwd']['kernel'],
+        'plain_ms': gn_big['bwd']['plain'],
+        'bound_ms': gn_big['bound'][1][0],
+        'bound_by': gn_big['bound'][1][1],
+        'library_ms': gn_big['bwd']['library'],
+        'shape': 'B=4 C=256 F=256 T=501 G=32 SiLU',
+        'eval_4x4s_ms': sgm['eval']['k8'],
+        'eval_4x4s_plain_ms': sgm['eval']['plain_bwd'],
+        'eval_4x4s_bound_ms': sgm['eval']['bound_k8'],
+        'eval_4x4s_library_ms': sgm['eval']['library_bwd'],
+        'train_step_4x4s_ms': sgm['steps']['4'][0]['kernel'],
+        'train_step_4x4s_plain_ms': sgm['steps']['4'][0]['plain'],
+        'train_step_16x4s_ms': sgm['steps']['16'][0],
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

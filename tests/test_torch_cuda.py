@@ -16,7 +16,13 @@ The LSTM kernels (K3, K4) against their plain versions: the forward in
 float32 at atol 1e-5, rtol 1e-4 (values of order 1; the kernel sums the
 gate products in another order), the backward against the plain float32
 backward run in float64 at atol 1e-4 of the tensor's largest value, rtol
-1e-3; two backward runs are bitwise equal."""
+1e-3; two backward runs are bitwise equal.
+
+The GroupNorm kernels (K7, K8) against their plain versions: the forward
+in float32 at atol 1e-5, rtol 1e-4 (normalised values of order 1; the
+kernel sums the statistics in double in another order), the backward
+against the plain backward run in float64 at atol 1e-4 of the tensor's
+largest value, rtol 1e-3; two backward runs are bitwise equal."""
 
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ import torch
 
 from brever_tpu_torch.models import ModelRegistry
 from brever_tpu_torch.ops import build
+from brever_tpu_torch.ops import groupnorm as gn
 from brever_tpu_torch.ops import lstm_scan as lstm
 from brever_tpu_torch.ops import tcn_block as tcn
 from brever_tpu_torch.profile_train import make_trainer
@@ -318,3 +325,104 @@ def test_lstm_kernels_take_unaligned_views(device):
     want = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
     got = lstm.lstm_scan_x_bwd(x, *moved[:3], h, c, moved[3])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+GN_CASES = [((2, 128, 33, 41), 32, 'silu'), ((2, 256, 8, 16), 32, 'none'),
+            ((1, 384, 7, 13), 32, 'silu'), ((3, 96, 17), 24, 'silu'),
+            ((2, 64, 5, 3), 64, 'relu')]
+
+
+def _gn_inputs(device, shape, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def arr(*s, scale=1.0, center=0.0):
+        return torch.from_numpy(
+            (center + scale * rng.randn(*s)).astype(np.float32)).to(device)
+
+    c = shape[1]
+    return (arr(*shape, scale=2.0, center=0.5), arr(c, scale=0.1, center=1.0),
+            arr(c, scale=0.1), arr(*shape))
+
+
+@pytest.mark.parametrize('shape,groups,act', GN_CASES,
+                         ids=lambda v: str(v))
+def test_groupnorm_kernels_match_plain(device, shape, groups, act):
+    x, scale, bias, dy = _gn_inputs(device, shape)
+    y, mean, rstd = gn.group_norm_act_fwd(x, scale, bias, groups, 1e-6, act)
+    ref, ref_mean, ref_rstd = gn.group_norm_act_reference(
+        x, scale, bias, groups, 1e-6, act)
+    torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(mean, ref_mean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, ref_rstd, atol=1e-6, rtol=1e-5)
+    grads = gn.group_norm_act_bwd(x, dy, scale, bias, mean, rstd, groups,
+                                  act)
+    again = gn.group_norm_act_bwd(x, dy, scale, bias, mean, rstd, groups,
+                                  act)
+    if act == 'relu':   # the kernel's branches: z near 0 may flip
+        dy, act = dy * (y > 0), 'none'
+    want = gn.group_norm_act_bwd_plain(
+        *(t.double() for t in (x, dy, scale, bias, mean, rstd)), groups, act)
+    for got, ref, rerun in zip(grads, want, again):
+        assert torch.equal(got, rerun)
+        torch.testing.assert_close(got.double(), ref, rtol=1e-3,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+def test_groupnorm_kernels_reject_what_they_do_not_take(device):
+    x, scale, bias, _ = _gn_inputs(device, (2, 64, 5, 7))
+    with pytest.raises(ValueError, match='contiguous'):
+        gn.group_norm_act_fwd(x.transpose(2, 3), scale, bias, 8, 1e-6,
+                              'silu')
+    with pytest.raises(TypeError, match='float32'):
+        gn.group_norm_act_fwd(x.double(), scale.double(), bias.double(), 8,
+                              1e-6, 'silu')
+    with pytest.raises(ValueError, match='groups'):
+        gn.group_norm_act_fwd(x, scale, bias, 7, 1e-6, 'silu')
+    with pytest.raises(ValueError, match='on cpu'):
+        gn.group_norm_act_fwd(x, scale.cpu(), bias, 8, 1e-6, 'silu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        gn.group_norm_silu(x, scale, bias, 8, ext_scale=scale[None],
+                           ext_shift=bias[None])
+
+
+def test_sgmse_runs_every_groupnorm_through_the_kernels(device):
+    """A small sgmsepm's loss and gradients on the card: every GroupNorm
+    launches K7 (again in the recompute of a rematerialised block) and
+    K8 once; the gradients agree with the plain path in float64."""
+    kwargs = dict(net_base_channels=32, net_channel_mult=[1, 2],
+                  net_num_blocks_per_res=1, stft_frame_length=128,
+                  stft_hop_length=64, net_attn_resolutions=[32])
+    model = ModelRegistry.get('sgmsepm')(**kwargs, device='cpu')
+    model.init_parameters(0)
+    ref = ModelRegistry.get('sgmsepm')(**kwargs, device='cpu').double()
+    ref.load_state_dict(model.state_dict())
+    model, ref = model.to(device).train(), ref.to(device).train()
+    rng = np.random.RandomState(1)
+    batch = torch.from_numpy(0.3 * rng.randn(2, 2, 2, 4000)).to(device)
+    lengths = torch.tensor([4000, 2500], device=device)
+    t = torch.tensor([0.3, 0.8], device=device).reshape(2, 1, 1, 1)
+    spec = model.transform(batch.float())
+    noise = torch.complex(*(torch.from_numpy(rng.randn(
+        2, 1, *spec.shape[2:]).astype(np.float32)) for _ in range(2))) \
+        .to(device)
+    fwd, bwd = gn.group_norm_act_fwd, gn.group_norm_act_bwd
+    fwd.launches = fwd.recompute_launches = bwd.launches = 0
+    loss = model.loss_at(batch.float(), lengths, t, noise).mean()
+    got = torch.autograd.grad(loss, list(model.parameters()))
+    n_norms = sum(type(m).__name__ == 'GroupNorm' for m in model.modules())
+    assert bwd.launches == n_norms
+    assert fwd.launches - fwd.recompute_launches == n_norms
+    assert 0 < fwd.recompute_launches < n_norms
+    from brever_tpu_torch.models.sgmse import net
+    try:
+        net.group_norm_silu = gn.group_norm_silu_plain
+        want = torch.autograd.grad(
+            ref.loss_at(batch, lengths, t.double(),
+                        noise.to(torch.complex128)).mean(),
+            list(ref.parameters()))
+    finally:
+        net.group_norm_silu = gn.group_norm_silu
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.double(), w, rtol=1e-3,
+                                   atol=1e-4 * top)

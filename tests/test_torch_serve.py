@@ -1,10 +1,13 @@
 """The port's HTTP service (brever_tpu_torch.serve) on a model directory
-that the JAX package wrote, and its checkpoint reader against the JAX
-package's."""
+that the JAX package wrote, its checkpoint reader against the JAX
+package's, and its config reader (brever_tpu_torch.config) against
+``brever_tpu.config``."""
 
+import glob
 import http.client
 import io
 import json
+import os
 import threading
 
 import jax
@@ -16,11 +19,14 @@ import yaml
 from brever_tpu.audio import read_wav, write_wav
 from brever_tpu.checkpoint import load_checkpoint as jax_load_checkpoint
 from brever_tpu.checkpoint import save_checkpoint
+from brever_tpu.config import get_config as jax_get_config
 from brever_tpu.models import ModelRegistry, count_params
 from brever_tpu_torch import audio
+from brever_tpu_torch.config import get_config
 from brever_tpu_torch.checkpoint import load_checkpoint
 from brever_tpu_torch.serve import EnhanceService, make_server
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(filters=32, filter_length=16, bottleneck_channels=16,
             hidden_channels=32, skip_channels=16, layers=2, repeats=2)
 
@@ -164,3 +170,22 @@ def test_wav_codec_matches_jax_package(subtype, channels):
 def test_wav_codec_rejects_bad_payloads(payload):
     with pytest.raises(ValueError):
         audio.read_wav(io.BytesIO(payload))
+
+
+@pytest.mark.parametrize('path', sorted(glob.glob(
+    os.path.join(ROOT, 'config', 'models', '*.yaml'))),
+    ids=lambda p: os.path.basename(p))
+def test_config_reads_as_the_jax_packages(path):
+    """Every default model config, the ``!!set`` of val_metrics included,
+    loads to the same dict and the same hash; a field keeps its type."""
+    got, want = get_config(path), jax_get_config(path)
+    assert got.to_dict() == want.to_dict()
+    assert got.get_hash() == want.get_hash()
+    assert isinstance(got.trainer.val_metrics, set)
+    assert got.get_field(['trainer', 'epochs']) == want.trainer.epochs
+    got.set_field(['trainer', 'epochs'], 3)
+    assert got.trainer.epochs == 3
+    with pytest.raises(TypeError):
+        got.set_field(['trainer', 'epochs'], 'three')
+    with pytest.raises(AttributeError):
+        got.arch = 'other'

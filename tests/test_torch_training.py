@@ -3,7 +3,10 @@ CPU: the optimizer step against optax, runs on tests/utils.DummyDataset
 (finite, deterministic, resumable, EMA), checkpoints the JAX package
 reads and serves, and the command line on a small model directory; for
 TF-GridNet the plateau scheduler, learning-rate drops from on_validate
-and the inject_hyperparams checkpoint layout."""
+and the inject_hyperparams checkpoint layout; for SGMSE+ (a tiny
+sgmsepm) the loss's generator (its state resumes bitwise from the
+checkpoint, validation reseeds its own), the ``aux`` buffers in the
+checkpoint, and both packages' servers on what the command line wrote."""
 
 import importlib.util
 import inspect
@@ -17,6 +20,8 @@ import pytest
 import torch
 import yaml
 
+import brever_tpu.models.sgmse.sdes as jax_sdes
+import brever_tpu.models.sgmse.solvers as jax_solvers
 from brever_tpu.checkpoint import load_checkpoint as jax_load_checkpoint
 from brever_tpu.models import ModelRegistry as JaxModels
 from brever_tpu.training import BreverTrainer as JaxTrainer
@@ -24,6 +29,7 @@ from brever_tpu.training import _restore_opt_state
 from brever_tpu_torch import train as train_cli
 from brever_tpu_torch.checkpoint import load_checkpoint
 from brever_tpu_torch.models import ModelRegistry
+from brever_tpu_torch.models.sgmse import sdes
 from brever_tpu_torch.models.schedulers import ReduceLROnPlateau
 from brever_tpu_torch.optim import Adam, clip_by_global_norm
 from brever_tpu_torch.serve import EnhanceService
@@ -36,6 +42,11 @@ SMALL = dict(filters=16, filter_length=16, bottleneck_channels=8,
              hidden_channels=16, skip_channels=8, layers=2, repeats=2)
 GRID = dict(n_layers=1, lstm_hidden_units=16, emb_dim=8, attn_n_head=2,
             attn_approx_qk_dim=32)
+SGM = dict(net_base_channels=16, net_channel_mult=[1, 2],
+           net_num_blocks_per_res=1, solver_num_steps=2,
+           net_attn_bottleneck=False, stft_frame_length=128,
+           stft_hop_length=64, net_attn_resolutions=[])
+SMALLS = {'convtasnet': SMALL, 'tfgridnet': GRID, 'sgmsepm': SGM}
 
 
 @pytest.fixture(autouse=True)
@@ -57,9 +68,8 @@ def make_trainer(model_dir, arch='convtasnet', **kwargs):
         model_dirpath=str(model_dir), epochs=2, device='cpu',
         batch_size=0.8, val_metrics={'snr', 'sisnr'}, val_period=1, seed=0)
     options.update(kwargs)
-    small = SMALL if arch == 'convtasnet' else GRID
-    return BreverTrainer(ModelRegistry.get(arch)(**small, device='cpu'),
-                         **options)
+    return BreverTrainer(ModelRegistry.get(arch)(**SMALLS[arch],
+                                                 device='cpu'), **options)
 
 
 @pytest.mark.parametrize('grad_scale', [0.1, 10.0], ids=['below', 'above'])
@@ -220,7 +230,7 @@ def _model_dir(tmp_path, arch='convtasnet'):
     default config of ``arch`` cut to a small model and WAV datasets."""
     with open(os.path.join(ROOT, 'config', 'models', f'{arch}.yaml')) as f:
         config = yaml.load(f, Loader=yaml.Loader)
-    config['model'].update(SMALL if arch == 'convtasnet' else GRID)
+    config['model'].update(SMALLS[arch])
     config['train_path'] = write_wav_dataset(str(tmp_path / 'train'),
                                              [4000, 5000, 6000, 3000])
     config['val_path'] = write_wav_dataset(str(tmp_path / 'val'),
@@ -371,3 +381,104 @@ def test_tfgridnet_train_cli_and_serving(tmp_path):
     ref = serve_model.EnhanceService(model_dir)
     np.testing.assert_allclose(port.enhance(audio), ref.enhance(audio),
                                atol=1e-4, rtol=1e-4)
+
+
+def test_sgmse_resume_continues_the_generator(tmp_path):
+    """The loss draws t and its noise from the trainer's generator: a run
+    resumed from last.ckpt (generator state included) equals the
+    uninterrupted one bitwise."""
+    whole = make_trainer(tmp_path / 'whole', arch='sgmsepm', epochs=2)
+    whole.run()
+    make_trainer(tmp_path / 'split', arch='sgmsepm', epochs=1).run()
+    resumed = make_trainer(tmp_path / 'split', arch='sgmsepm', epochs=2)
+    resumed.run()
+    assert torch.equal(resumed.flat, whole.flat)
+    assert torch.equal(resumed.optimizer.nu, whole.optimizer.nu)
+    assert torch.equal(resumed.generator.get_state(),
+                       whole.generator.get_state())
+    assert resumed.loss_logger.train_loss == whole.loss_logger.train_loss
+    assert resumed.loss_logger.val_loss == whole.loss_logger.val_loss
+    # another seed draws other t and noise
+    other = make_trainer(tmp_path / 'other', arch='sgmsepm', epochs=1,
+                         seed=1)
+    other.init_state()
+    other.flat.copy_(whole.flat)
+    batch = torch.from_numpy(other.train_dataset[0][None, ..., :4000])
+    n = torch.tensor([4000])
+    assert not torch.equal(other.train_step(batch, n),
+                           whole.train_step(batch, n))
+
+
+def test_sgmse_validation_loss_is_fixed(tmp_path):
+    """Validation reseeds its own generator for every batch: the same
+    parameters give the same validation loss twice, whatever the training
+    generator drew in between and in whatever order the sampler gives the
+    batches."""
+    trainer = make_trainer(tmp_path, arch='sgmsepm', val_metrics=set(),
+                           val_dataset=DummyDataset(
+                               n_items=4, min_length=0.2, max_length=0.4,
+                               seed=7))
+    trainer.init_state()
+    trainer.val_dataloader.set_epoch(0)
+    first, _ = trainer.routine(0, train=False)
+    saved = trainer.flat.clone()
+    batch = torch.from_numpy(trainer.train_dataset[0][None, ..., :4000])
+    trainer.train_step(batch, torch.tensor([4000]))
+    assert not torch.equal(trainer.flat, saved)
+    trainer.flat.copy_(saved)
+    trainer.val_dataloader.set_epoch(1)
+    again, _ = trainer.routine(1, train=False)
+    assert np.isfinite(first) and again == first
+
+
+def _constant_noise(monkeypatch):
+    """The same constant in place of every draw of both packages'
+    solvers."""
+    def jax_noise(key, x):
+        return jnp.full(x.shape, 0.1 + 0.05j if jnp.iscomplexobj(x) else 0.1,
+                        x.dtype)
+
+    def torch_noise(x, generator=None):
+        return torch.full(x.shape, 0.1 + 0.05j if x.is_complex() else 0.1,
+                          dtype=x.dtype)
+
+    monkeypatch.setattr(jax_sdes, '_randn_like', jax_noise)
+    monkeypatch.setattr(jax_solvers, '_randn_like', jax_noise)
+    monkeypatch.setattr(sdes, 'randn_like', torch_noise)
+
+
+def test_sgmse_train_cli_and_serving(tmp_path, monkeypatch):
+    """python -m brever_tpu_torch.train on a tiny sgmsepm model directory
+    (its config's mse criterion and Adam): last.ckpt holds the Fourier
+    frequencies in ``aux['buffers']``, the JAX package reads it, and both
+    packages' servers serve it (with the solvers' noise replaced by one
+    constant in both, they agree within 1e-4)."""
+    model_dir = _model_dir(tmp_path, 'sgmsepm')
+    train_cli.main([model_dir, '--device', 'cpu', '--epochs', '2',
+                    '--use_amp', 'false', '--val_metrics', 'snr',
+                    '--batch_size', '2', '--dynamic_batch_size', 'false',
+                    '--batch_sampler', 'random', '--val_period', '1'])
+    path = os.path.join(model_dir, 'checkpoints', 'last.ckpt')
+    state = jax_load_checkpoint(path)
+    freqs = state['aux']['buffers']['emb']['fourier_freqs']
+    port = EnhanceService(model_dir, 'cpu')
+    assert port.health()['arch'] == 'sgmsepm'
+    np.testing.assert_array_equal(
+        freqs, port.model.net.emb.fourier_freqs.numpy())
+    assert 'torch_generator' in state and state['rng'].tolist() == [0, 0]
+    losses = np.load(os.path.join(model_dir, 'losses.npz'),
+                     allow_pickle=True)
+    assert np.isfinite(list(losses['train'])).all()
+    assert np.isfinite(list(losses['val'])).all()
+
+    _constant_noise(monkeypatch)
+    audio = np.random.RandomState(4).randn(3000).astype(np.float32) * 0.1
+    spec = importlib.util.spec_from_file_location(
+        'serve_model', os.path.join(ROOT, 'scripts', 'serve_model.py'))
+    serve_model = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_model)
+    ref = serve_model.EnhanceService(model_dir)
+    got = port.enhance(audio)
+    assert got.shape == (3000,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref.enhance(audio), atol=1e-4,
+                               rtol=1e-4)
