@@ -3,7 +3,9 @@
 import).
 
 ``get_config`` loads the file with PyYAML's full ``Loader``, so that the
-``!!set`` tag the JAX package writes for ``val_metrics`` loads as a set.
+``!!set`` tag the JAX package writes for ``val_metrics`` loads as a set and
+DCCRN's ``!!python/tuple`` entries (``kernel_size``, ``stride``,
+``padding``, ``output_padding``) as tuples.
 ``BreverConfig`` is the same immutable nested attribute config: ``to_dict``,
 ``get_field``, the typed ``set_field`` and the content hash ``get_hash``
 that names a model directory.

@@ -1,5 +1,5 @@
 """Weight bridge between the JAX package's flax parameter trees and the
-port's ``state_dict``, for Conv-TasNet and TF-GridNet.
+port's ``state_dict``, for Conv-TasNet, TF-GridNet, SGMSE+ and DCCRN.
 
 A flax ``params`` tree is a nested dict of numpy arrays, as
 ``brever_tpu.checkpoint.load_checkpoint`` returns it. The rules:
@@ -28,6 +28,16 @@ TF-GridNet (``tfgridnet_*``):
   leading axis of ``n_layers``: block ``i`` is ``blocks.{i}``;
 * Dense scopes map as above; every other scope (norms, BLSTMs, PReLUs)
   keeps its leaf names and shapes.
+
+DCCRN (``dccrn_*``): every scope keeps its name (``enc_conv_i/real``,
+``lstm_i/imag``, ``lstm_proj_real``, ``dec_norm_j``, ...). The complex
+convolutions' ``Conv`` kernels ``(kh, kw, in, out)`` become ``weight (out,
+in, kh, kw)`` (the transposed decoder's too: the model flips them), Dense
+kernels ``Linear`` weights; the LSTMs' ``w_ih``/``w_hh``/``b_ih``/``b_hh``,
+the PReLU slopes and the norms' ``scale``/``bias`` (a complex norm's
+``weight (3, C)``/``bias (2, C)``) keep their names and shapes. The
+``batch_stats`` collection (``mean``/``var``, or ``mean``/``cov``) maps to
+and from the norms' buffers of the same names.
 """
 
 import numpy as np
@@ -281,3 +291,45 @@ def sgmse_state_dict_to_flax(state_dict):
         else:
             params.append((tuple(scope) + (leaf,), a))
     return _nest(params), {'buffers': _nest(aux)}
+
+
+# ---------------------------------------------------------------------------
+# DCCRN
+
+#: the leaf names of DCCRN's ``batch_stats`` collection
+_DCCRN_STATS = ('mean', 'var', 'cov')
+
+
+def dccrn_flax_to_state_dict(params, aux=None):
+    """Flax ``params`` tree of ``DCCRN`` and its ``batch_stats`` collection
+    (``aux = {'batch_stats': ...}``) -> the port's ``state_dict`` (float32
+    CPU tensors); either may be empty, for a partial ``load_state_dict``."""
+    sd = {}
+    for (*scope, leaf), value in _flatten(params):
+        prefix, a = '.'.join(scope), _f32(value)
+        if leaf == 'kernel':
+            sd[f'{prefix}.weight'] = a.T if a.ndim == 2 \
+                else a.transpose(3, 2, 0, 1)
+        else:
+            sd[f'{prefix}.{leaf}'] = a
+    for path, value in _flatten((aux or {}).get('batch_stats', {})):
+        sd['.'.join(path)] = _f32(value)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def dccrn_state_dict_to_flax(state_dict):
+    """The port's DCCRN ``state_dict`` -> ``(params, aux)``, the flax
+    ``params`` tree and ``{'batch_stats': ...}`` (numpy)."""
+    params, stats = [], []
+    for key, value in state_dict.items():
+        a = value.detach().cpu().numpy()
+        *scope, leaf = key.split('.')
+        is_norm = 'norm' in scope[0]
+        if is_norm and leaf in _DCCRN_STATS:
+            stats.append((tuple(scope) + (leaf,), a))
+        elif leaf == 'weight' and not is_norm:
+            params.append((tuple(scope) + ('kernel',), a.T if a.ndim == 2
+                           else a.transpose(2, 3, 1, 0)))
+        else:
+            params.append((tuple(scope) + (leaf,), a))
+    return _nest(params), {'batch_stats': _nest(stats)}

@@ -1,9 +1,10 @@
-// LSTM recurrence with the input projection fused in (flash-LSTM-x), forward
-// (K3) and backward (K4), for NVIDIA Hopper, float32.
+// LSTM recurrence for NVIDIA Hopper, float32: with the input projection
+// fused in (flash-LSTM-x), forward (K3) and backward (K4), and over
+// precomputed input gates, forward (K5) and backward (K6).
 //
-// Replaces the Pallas TPU kernels brever_tpu/ops/pallas/lstm_scan.py
-// _fwd_x_kernel (launched by _fwd_x_pallas) and _bwd_x_kernel (launched by
-// _bwd_x_pallas). Over x (T, D, R, E), with D directions stacked (the
+// K3 and K4 replace the Pallas TPU kernels brever_tpu/ops/pallas/
+// lstm_scan.py _fwd_x_kernel (launched by _fwd_x_pallas) and _bwd_x_kernel
+// (launched by _bwd_x_pallas). Over x (T, D, R, E), with D directions stacked (the
 // backward direction's input already flipped in time), R rows, and the
 // weights w_ih (D, E, 4H), bias (D, 4H) = b_ih + b_hh, w_hh (D, H, 4H):
 //
@@ -37,6 +38,21 @@
 // [x | h_prev]^T dgates split into chunks of 4096 (t, r) pairs whose
 // partials, like db's per-tile partials, are summed in a fixed order. No
 // float atomics: two runs give bitwise-equal gradients.
+//
+// K5 and K6 replace _fwd_kernel (launched by _fwd_pallas) and _bwd_kernel
+// (launched by _bwd_pallas): the same recurrence over gates_x (T, D, R, 4H),
+// the input projection x w_ih + bias done before the call (one cuBLAS GEMM,
+// as the JAX package's _dispatch_scan_x does it outside the scan):
+//
+//   gates[t] = gates_x[t] + h[t-1] w_hh
+//
+// They are K3 and K4 with the projection off (the scan kernels take a
+// template flag): each step of a tile reads its gates_x rows from device
+// memory where K3 multiplies x by w_ih. K6 recomputes each step's gates from
+// gates_x and the saved h, writes dgates (= d gates_x, T, D, R, 4H) as its
+// output, and forms dW_hh = sum over t of h[t-1]^T dgates[t] with K4's weight
+// GEMM over fixed-order partials: bitwise repeatable. dx, dW_ih and db are
+// then the projection's own backward.
 //
 // SIMT float32 throughout; wgmma, TMA, clusters and bf16 are later work.
 // Every pointer is a dense float32 buffer in the layouts above; w_hh_t is
@@ -109,33 +125,57 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[kRowsPer][4][2], const fl
   }
 }
 
-// The gate pre-activations of the thread's rows and units: (x w_ih + bias)
-// + h_prev w_hh, the h term skipped at t = 0. The forward and the
-// backward's recompute both call this, so they get the same bits.
+// The gate pre-activations of the thread's rows and units, the h_prev w_hh
+// term skipped at t = 0. kProj: (x w_ih + bias) + h_prev w_hh, x in shared
+// memory. Otherwise gates_x[t] + h_prev w_hh, gx pointing at the tile's
+// first row of gates_x[t] and rows_left = R - r0 (rows past R read as 0).
+// The forward and the backward's recompute both call this, so they get the
+// same bits.
+template <bool kProj>
 __device__ __forceinline__ void gates_tile(float (&acc)[kRowsPer][4][2], const float* xs,
-                                           const float* hs, const float* __restrict__ wi,
+                                           const float* hs, const float* __restrict__ gx,
+                                           const float* __restrict__ wi,
                                            const float* __restrict__ bias,
                                            const float* __restrict__ wh, int E, int H, int rg,
-                                           int ug, bool has_h) {
+                                           int ug, int rows_left, bool has_h) {
+  if constexpr (kProj) {
 #pragma unroll
-  for (int i = 0; i < kRowsPer; ++i)
+    for (int i = 0; i < kRowsPer; ++i)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) acc[i][g][0] = acc[i][g][1] = 0.f;
-  gemm_rows(acc, xs, wi, E, H, rg, ug);
+      for (int g = 0; g < 4; ++g) acc[i][g][0] = acc[i][g][1] = 0.f;
+    gemm_rows(acc, xs, wi, E, H, rg, ug);
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + g * H + 2 * ug);
+    for (int g = 0; g < 4; ++g) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + g * H + 2 * ug);
+#pragma unroll
+      for (int i = 0; i < kRowsPer; ++i) {
+        acc[i][g][0] += b.x;
+        acc[i][g][1] += b.y;
+      }
+    }
+  } else {
+    const int G = 4 * H;
 #pragma unroll
     for (int i = 0; i < kRowsPer; ++i) {
-      acc[i][g][0] += b.x;
-      acc[i][g][1] += b.y;
+      const int row = rg * kRowsPer + i;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float2 v = make_float2(0.f, 0.f);
+        if (row < rows_left)
+          v = __ldg(reinterpret_cast<const float2*>(gx + static_cast<size_t>(row) * G + g * H +
+                                                    2 * ug));
+        acc[i][g][0] = v.x;
+        acc[i][g][1] = v.y;
+      }
     }
   }
   if (has_h) gemm_rows(acc, hs, wh, H, H, rg, ug);
 }
 
-// K3. grid (cdiv(R, kRows), D), 2 H threads, kRows (E + H) floats of
-// dynamic shared memory.
+// K3 (kProj, x (T, D, R, E) in) and K5 (gates_x (T, D, R, 4H) in, E = 0).
+// grid (cdiv(R, kRows), D), 2 H threads, kRows (E + H) floats of dynamic
+// shared memory.
+template <bool kProj>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
               const float* __restrict__ bias, const float* __restrict__ w_hh,
@@ -146,15 +186,16 @@ lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
   float* hs = smem + kRows * E;   // (kRows, H)
   const int d = blockIdx.y, r0 = blockIdx.x * kRows, G = 4 * H;
   const int rg = threadIdx.x / (H / 2), ug = threadIdx.x % (H / 2);
-  const float* wi = w_ih + static_cast<size_t>(d) * E * G;
+  const float* wi = kProj ? w_ih + static_cast<size_t>(d) * E * G : nullptr;
   const float* wh = w_hh + static_cast<size_t>(d) * H * G;
-  const float* bd = bias + d * G;
+  const float* bd = kProj ? bias + d * G : nullptr;
   float c[kRowsPer][2] = {};
   for (int t = 0; t < T; ++t) {
-    load_rows(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
+    if constexpr (kProj) load_rows(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
     __syncthreads();  // x[t] and h[t-1] of the tile in shared memory
     float acc[kRowsPer][4][2];
-    gates_tile(acc, xs, hs, wi, bd, wh, E, H, rg, ug, t > 0);
+    gates_tile<kProj>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
+                      H, rg, ug, R - r0, t > 0);
     __syncthreads();  // every thread is done reading xs and hs
 #pragma unroll
     for (int i = 0; i < kRowsPer; ++i) {
@@ -178,13 +219,15 @@ lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
   }
 }
 
-// K4, the recurrence. Reverse time over the tile: recompute the gates, form
-// dgates (written to device memory), carry dc in registers and dh_rec =
+// K4's and K6's recurrence. Reverse time over the tile: recompute the gates,
+// form dgates (written to device memory), carry dc in registers and dh_rec =
 // dgates w_hh^T in shared memory slots that only their own thread reads
-// (registers would pass the 128 a thread has at 512 threads); per-tile
-// partials of db into db_part[d][tile][4H].
+// (registers would pass the 128 a thread has at 512 threads); with kProj,
+// per-tile partials of db into db_part[d][tile][4H]. Without it x is gates_x
+// (T, D, R, 4H), E = 0 and w_ih, bias and db_part are not read.
 // grid (cdiv(R, kRows), D), 2 H threads, kRows (E + 6 H) floats of
 // dynamic shared memory.
+template <bool kProj>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
               const float* __restrict__ bias, const float* __restrict__ w_hh,
@@ -200,20 +243,21 @@ lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
   float* dhs = gs + kRows * G;        // (kRows, H): dh_rec
   const int d = blockIdx.y, r0 = blockIdx.x * kRows;
   const int rg = threadIdx.x / (H / 2), ug = threadIdx.x % (H / 2);
-  const float* wi = w_ih + static_cast<size_t>(d) * E * G;
+  const float* wi = kProj ? w_ih + static_cast<size_t>(d) * E * G : nullptr;
   const float* wh = w_hh + static_cast<size_t>(d) * H * G;
   const float* wht = w_hh_t + static_cast<size_t>(d) * G * H;
-  const float* bd = bias + d * G;
+  const float* bd = kProj ? bias + d * G : nullptr;
   float dc[kRowsPer][2] = {}, dbs[4][2] = {};
 #pragma unroll
   for (int i = 0; i < kRowsPer; ++i)
     *reinterpret_cast<float2*>(dhs + (rg * kRowsPer + i) * H + 2 * ug) = make_float2(0.f, 0.f);
   for (int t = T - 1; t >= 0; --t) {
-    load_rows(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
+    if constexpr (kProj) load_rows(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
     if (t > 0) load_rows(hs, h_seq + at(t - 1, d, 0, D, R) * H, r0, R, H);
     __syncthreads();  // x[t], h[t-1] in; the previous step's gs reads done
     float acc[kRowsPer][4][2];
-    gates_tile(acc, xs, hs, wi, bd, wh, E, H, rg, ug, t > 0);
+    gates_tile<kProj>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
+                      H, rg, ug, R - r0, t > 0);
 #pragma unroll
     for (int i = 0; i < kRowsPer; ++i) {
       const int row = rg * kRowsPer + i;
@@ -272,6 +316,7 @@ lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
       *reinterpret_cast<float2*>(dhs + (rg * kRowsPer + i) * H + 2 * ug) =
           make_float2(dh_rec[i][0], dh_rec[i][1]);
   }
+  if constexpr (!kProj) return;
   // db partial of the tile: the row groups add in a fixed order
   __syncthreads();
 #pragma unroll
@@ -369,9 +414,12 @@ sum_partials(const float* __restrict__ part, int n_part, int n, float* __restric
   out[i] = s;
 }
 
-bool shape_ok(int E, int H) { return E > 0 && E % 4 == 0 && H >= 32 && H % 32 == 0 && H <= 256; }
+bool hidden_ok(int H) { return H >= 32 && H % 32 == 0 && H <= 256; }
+bool shape_ok(int E, int H) { return E > 0 && E % 4 == 0 && hidden_ok(H); }
 
-// Workspace layout (float offsets), shared by lstm_bwd_workspace and lstm_bwd.
+// Workspace layout (float offsets), shared by lstm_bwd_workspace and
+// lstm_bwd, and with E = 0 by lstm_scan_bwd_workspace and lstm_scan_bwd
+// (whose dgates is its output and which has no db: only wg_part is used).
 struct Layout {
   size_t dgates, db_part, wg_part, total;
   int tiles, chunks;
@@ -386,8 +434,9 @@ struct Layout {
       off += (n + 31) / 32 * 32;  // 128-byte aligned buffers
       return start;
     };
-    dgates = take(static_cast<size_t>(T) * D * R * G);
-    db_part = take(static_cast<size_t>(D) * tiles * G);
+    const bool proj = E > 0;
+    dgates = take(proj ? static_cast<size_t>(T) * D * R * G : 0);
+    db_part = take(proj ? static_cast<size_t>(D) * tiles * G : 0);
     wg_part = take(static_cast<size_t>(D) * chunks * (E + H) * G);
     total = off;
   }
@@ -418,9 +467,9 @@ int lstm_fwd(const float* x, const float* w_ih, const float* bias, const float* 
              float* h_seq, float* c_seq, int T, int D, int R, int E, int H, void* stream) {
   if (!shape_ok(E, H)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = lstm_fwd_smem(E, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan), smem);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<true>), smem);
   if (err) return err;
-  lstm_fwd_scan<<<dim3(cdiv(R, kRows), D), 2 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+  lstm_fwd_scan<true><<<dim3(cdiv(R, kRows), D), 2 * H, smem, static_cast<cudaStream_t>(stream)>>>(
       x, w_ih, bias, w_hh, h_seq, c_seq, T, D, R, E, H);
   return static_cast<int>(cudaGetLastError());
 }
@@ -438,11 +487,11 @@ int lstm_bwd(const float* x, const float* w_ih, const float* bias, const float* 
   const Layout L(T, D, R, E, H);
   const int G = 4 * H;
   const size_t smem = lstm_bwd_smem(E, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan), smem);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<true>), smem);
   if (err) return err;
-  lstm_bwd_scan<<<dim3(L.tiles, D), 2 * H, smem, s>>>(x, w_ih, bias, w_hh, w_hh_t, h_seq, c_seq,
-                                                     dh_seq, work + L.dgates, work + L.db_part,
-                                                     T, D, R, E, H);
+  lstm_bwd_scan<true><<<dim3(L.tiles, D), 2 * H, smem, s>>>(
+      x, w_ih, bias, w_hh, w_hh_t, h_seq, c_seq, dh_seq, work + L.dgates, work + L.db_part, T, D,
+      R, E, H);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   lstm_bwd_dx<<<dim3(cdiv(T * R, kBM), cdiv(E, kBN), D), kThreads, 0, s>>>(
       work + L.dgates, w_ih, dx, T, D, R, E, H);
@@ -457,6 +506,55 @@ int lstm_bwd(const float* x, const float* w_ih, const float* bias, const float* 
     if ((err = static_cast<int>(cudaGetLastError()))) return err;
     sum_partials<<<cdiv(G, kThreads), kThreads, 0, s>>>(
         work + L.db_part + static_cast<size_t>(d) * L.tiles * G, L.tiles, G, db + d * G);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  }
+  return 0;
+}
+
+// Shared memory of K5 and K6, in bytes.
+size_t lstm_scan_fwd_smem(int H) { return lstm_fwd_smem(0, H); }
+size_t lstm_scan_bwd_smem(int H) { return lstm_bwd_smem(0, H); }
+
+size_t lstm_scan_bwd_workspace(int T, int D, int R, int H) { return Layout(T, D, R, 0, H).total; }
+
+// K5: h_seq and c_seq (T, D, R, H) from gates_x (T, D, R, 4H) and w_hh
+// (D, H, 4H). Returns a CUDA error code, or 0.
+int lstm_scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
+                  int D, int R, int H, void* stream) {
+  if (!hidden_ok(H)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = lstm_scan_fwd_smem(H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false>), smem);
+  if (err) return err;
+  lstm_fwd_scan<false><<<dim3(cdiv(R, kRows), D), 2 * H, smem,
+                         static_cast<cudaStream_t>(stream)>>>(gates_x, nullptr, nullptr, w_hh,
+                                                              h_seq, c_seq, T, D, R, 0, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: dgates (T, D, R, 4H) and dw_hh (D, H, 4H) from the forward's inputs,
+// its h and c, and dh; work holds lstm_scan_bwd_workspace floats. Every
+// output is written whole. Returns the first launch's CUDA error code, or 0.
+int lstm_scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t,
+                  const float* h_seq, const float* c_seq, const float* dh_seq, float* dgates,
+                  float* dw_hh, float* work, int T, int D, int R, int H, void* stream) {
+  if (!hidden_ok(H)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout L(T, D, R, 0, H);
+  const int G = 4 * H;
+  const size_t smem = lstm_scan_bwd_smem(H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<false>), smem);
+  if (err) return err;
+  lstm_bwd_scan<false><<<dim3(L.tiles, D), 2 * H, smem, s>>>(
+      gates_x, nullptr, nullptr, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, nullptr, T, D, R, 0,
+      H);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  lstm_bwd_wgrad<<<dim3(cdiv(H, kBM), cdiv(G, kBN), D * L.chunks), kThreads, 0, s>>>(
+      nullptr, h_seq, dgates, work + L.wg_part, T, D, R, 0, H, L.chunks);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  const size_t n_w = static_cast<size_t>(H) * G;
+  for (int d = 0; d < D; ++d) {
+    sum_partials<<<cdiv(static_cast<int>(n_w), kThreads), kThreads, 0, s>>>(
+        work + L.wg_part + d * L.chunks * n_w, L.chunks, static_cast<int>(n_w), dw_hh + d * n_w);
     if ((err = static_cast<int>(cudaGetLastError()))) return err;
   }
   return 0;

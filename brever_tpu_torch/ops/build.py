@@ -54,6 +54,9 @@ SIGNATURES = {
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
     'lstm_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P]),
     'lstm_bwd': (_I, [_P] * 12 + [_I] * 5 + [_P]),
+    'lstm_scan_bwd_workspace': (ctypes.c_size_t, [_I] * 4),
+    'lstm_scan_fwd': (_I, [_P] * 4 + [_I] * 4 + [_P]),
+    'lstm_scan_bwd': (_I, [_P] * 9 + [_I] * 4 + [_P]),
     'gn_workspace': (ctypes.c_size_t, [_I] * 4),
     'gn_fwd': (_I, [_P] * 7 + [_I] * 4 + [_F, _I, _P]),
     'gn_bwd': (_I, [_P] * 10 + [_I] * 5 + [_P]),

@@ -14,11 +14,12 @@ The contract is the JAX package's:
   the overlap-added squared window where that exceeds 1e-11, and trimmed.
 
 The FFT runs outside any kernel here, as the JAX package leaves it to
-XLA. Only what the port's callers set is ported (TF-GridNet, the
+XLA. Only what the port's callers set is ported (TF-GridNet, SGMSE+ with
+its compression and scale, DCCRN with the normalised window, and the
 multiresyu loss): the onesided complex spectrum, constant center padding
 and a named window; the other options of the JAX ``STFT``, its opt-in
-Pallas backend (``backend='pallas'``) and ``ConvSTFT`` are not ported
-yet. Every operation is differentiable.
+Pallas backend (``backend='pallas'``, the TPU kernel K9) and ``ConvSTFT``
+are not ported yet. Every operation is differentiable.
 """
 
 import math

@@ -2,8 +2,9 @@
 
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
-``sgmsepm``, 27,756,186; random weights from ``--seed``) on the device,
-float32 with TF32 off (as ``chip_smoke.py`` runs it), and measures:
+``sgmsepm``, 27,756,186; DCCRN, 3,671,053; random weights from ``--seed``)
+on the device, float32 with TF32 off (as ``chip_smoke.py`` runs it), and
+measures:
 
 * request latency: ``EnhanceService.enhance`` of one mono request of each
   length of ``--requests`` (default 0.05, 4 and 10 s), host clock around
@@ -45,7 +46,7 @@ from .models import ModelRegistry
 from .serve import EnhanceService
 
 FS = 16000
-ARCHS = ('convtasnet', 'tfgridnet', 'sgmsep', 'sgmsepm')
+ARCHS = ('convtasnet', 'tfgridnet', 'sgmsep', 'sgmsepm', 'dccrn')
 
 
 def _kernel_name(name):

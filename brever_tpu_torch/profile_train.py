@@ -2,12 +2,13 @@
 
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
-``sgmsepm``, 27,756,186; drawn from ``--seed``) and its ``BreverTrainer``
-on the device, float32 with TF32 off (as ``chip_smoke.py`` runs it), and
-times ``train_step`` (forward, the kernels' backward, global-norm clip
+``sgmsepm``, 27,756,186; DCCRN, 3,671,053; drawn from ``--seed``) and its
+``BreverTrainer`` on the device, float32 with TF32 off (as
+``chip_smoke.py`` runs it), and times ``train_step`` (forward, the kernels' backward, global-norm clip
 where the family clips, Adam) on a batch of ``--batch`` x 4 s (default
 16; random mixture and target, the family's own criterion: ``snr``,
-``multiresyu`` and SGMSE+'s weighted ``mse``):
+``multiresyu`` and SGMSE+'s weighted ``mse``; DCCRN's batch norms in train
+mode):
 
 * ms per step over ``--steps`` steps (CUDA events) with the profiler off
   and on, and the peak device memory of a step;

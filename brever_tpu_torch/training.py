@@ -35,9 +35,13 @@ from a generator of its own, reseeded to ``VAL_SEED`` before every
 validation batch, so a fixed model has a fixed validation loss whatever
 the order of the batches; the JAX trainer validates
 with its running key, so the two packages' validation losses are other
-draws. A family's buffers (SGMSE+'s Fourier frequencies) are saved in the
-checkpoint's ``aux``, as the JAX trainer saves its ``buffers`` collection,
-and restored on resume.
+draws. A family's buffers are saved in the checkpoint's ``aux``, as the
+JAX trainer saves its ``buffers`` and ``batch_stats`` collections, and
+restored on resume: SGMSE+'s Fourier frequencies, and DCCRN's running
+statistics, which its batch norms update in the forward of each train step
+(the padding rows of a batch enter them, as in the JAX trainer) and which
+validation reads in eval mode. The EMA covers the parameters only, as the
+JAX trainer's does.
 
 Not ported yet, and refused when the trainer is built (ROADMAP.md):
 ``use_amp`` (bf16 kernels), ``ddp``, ``profile``, ``use_wandb`` and the

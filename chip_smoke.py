@@ -4,14 +4,16 @@ Drives the port's serving and training paths for full-width non-causal
 Conv-TasNet (filters 512, bottleneck 128, hidden 512, skip 128, 8 layers
 x 3 repeats; 4,935,217 random parameters from a numpy seed), full-width
 TF-GridNet (n_fft 256, stride 128, 6 layers, LSTM hidden 128, 4 heads,
-qk 512, emb 32, ks = hs = 4; 3,735,344 random parameters from a seed) and
+qk 512, emb 32, ks = hs = 4; 3,735,344 random parameters from a seed),
 full-width SGMSE+ (``sgmsep``, the NCSN++ U-Net: 128 base channels, mults
 1, 1, 2, 2, 2, 2, 2, two blocks a level, attention at 16 frequencies and
-the bottleneck; 65,590,694 random parameters from a seed) on the card.
-Every family is served through ``EnhanceService(model_dir)`` and trained
-through ``train.main([...])`` on a model directory written here, the
-entry points of ``python -m brever_tpu_torch.serve`` and ``.train``. The
-phases each print one line:
+the bottleneck; 65,590,694 random parameters from a seed) and full-width
+DCCRN (STFT 512/128, channels 16-32-64-128-128-128, kernel (5, 2), stride
+(2, 1), two complex LSTM layers of 128, batch norm; 3,671,053 random
+parameters from a seed) on the card. Every family is served through
+``EnhanceService(model_dir)`` and trained through ``train.main([...])`` on
+a model directory written here, the entry points of ``python -m
+brever_tpu_torch.serve`` and ``.train``. The phases each print one line:
 
 0. the card (nvidia-smi name and power limit), versions, optional deps;
 1. build the CUDA kernels from brever_tpu_torch/csrc with nvcc;
@@ -54,7 +56,25 @@ phases each print one line:
     evaluation at 4 x 4 s, beside their plain versions and
     ``F.group_norm`` + ``F.silu``; the denoiser at 4 x 4 s, ``enhance``
     of 1 x 4 s, the train step at 4 x 4 s (kernel and plain GroupNorms)
-    and at 16 x 4 s, peak memory.
+    and at 16 x 4 s, peak memory;
+22. the gates-in LSTM scan kernels (K5 forward, K6 backward) against
+    their plain versions at DCCRN's two complex-LSTM shapes at 16 x 4 s
+    and at B = 1, TF-GridNet's short-request intra shape, H 32..256 at
+    T = 1 and unaligned inputs; the backward in float64, twice bitwise;
+23. DCCRN's enhance from ``EnhanceService(model_dir)`` (running statistics
+    moved by train-mode passes) against the plain path in float64 and the
+    plain CPU service; K5 launches per evaluation;
+24. DCCRN's gradients (2 x 2 s, train mode) and its running-statistics
+    update against the plain path in float64, beside the plain float32
+    path's;
+25. DCCRN trained through train.main on a WAV dataset written here: the
+    snr loss falls, last.ckpt (with ``aux['batch_stats']``) resumes
+    bitwise, the checkpoint serves;
+26. the HTTP service over that model directory's checkpoint;
+27. timings at 16 x 4 s: K5 and K6 per complex-LSTM layer vs their plain
+    versions, the projection + K5 route vs K3 (projection inside) and K6
+    vs K4 at the same shape, cuDNN's LSTM, enhance and the train step with
+    kernel and with plain LSTMs, peak memory.
 
 Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
 comparisons hold the kernels to float32. Any failure raises (non-zero
@@ -519,15 +539,17 @@ LSTM_NAMES = ('dx', 'dw_ih', 'db', 'dw_hh')
 
 @contextlib.contextmanager
 def plain_lstms():
-    """Every BLSTM of the port runs the plain scan (forward and its
-    memory-lean backward) instead of K3 and K4."""
+    """Every LSTM scan of the port runs the plain scan (forward and its
+    memory-lean backward) instead of K3 and K4 or K5 and K6."""
     from brever_tpu_torch.models import rnn
     from brever_tpu_torch.ops import lstm_scan
     rnn.lstm_scan_x = lstm_scan.lstm_scan_x_plain
+    rnn.lstm_scan = lstm_scan.lstm_scan_plain
     try:
         yield
     finally:
         rnn.lstm_scan_x = lstm_scan.lstm_scan_x
+        rnn.lstm_scan = lstm_scan.lstm_scan
 
 
 def lstm_inputs(rng, steps, n_dir, rows, feat, hidden, device='cuda'):
@@ -727,28 +749,36 @@ def tfgridnet_phases(device, card):
         # ---- phase 14: the HTTP service over the model directory
         service = EnhanceService(model_dir, device)
         results = []
-        lstm.lstm_scan_x.launches = 0
+        lstm.lstm_scan_x.launches = lstm.lstm_scan.launches = 0
         with http_service(service) as (port, health):
             if health['params'] != GRID_PARAMS \
                     or health['arch'] != 'tfgridnet':
                 raise AssertionError(f'/health: {health}')
             with plain_lstms():
                 ref_model = grid_model(trained, device, torch.float64)
-            for seconds in (0.05, 4):
+            # a 0.05 s request's intra scans have 8 rows, under the
+            # 128-row floor: they take K5 (projection outside), as the JAX
+            # package routes them; its inter scans (132 rows) take K3
+            for seconds, want_k3, want_k5 in ((0.05, 6, 6), (4, 12, 0)):
                 audio = (0.1 * np.random.RandomState(14).randn(
                     int(seconds * FS))).astype(np.float32)
-                before = lstm.lstm_scan_x.launches
+                before = lstm.lstm_scan_x.launches, lstm.lstm_scan.launches
                 got = post_wav(port, audio)
-                launched = lstm.lstm_scan_x.launches - before
+                launched = (lstm.lstm_scan_x.launches - before[0],
+                            lstm.lstm_scan.launches - before[1])
                 with plain_lstms():
                     want = ref_model.enhance(np.stack([audio, audio]))
                 snr, _ = check_output(f'TF-GridNet /enhance {seconds} s',
                                       want.cpu().numpy(), got)
-                if launched != 12:
-                    raise AssertionError(f'/enhance {seconds} s: {launched}'
-                                         ' K3 launches, not 12')
-                results.append(f'{seconds} s {snr:.1f} dB')
+                if launched != (want_k3, want_k5):
+                    raise AssertionError(
+                        f'/enhance {seconds} s: K3 {launched[0]} and K5 '
+                        f'{launched[1]} launches, not {want_k3} and '
+                        f'{want_k5}')
+                results.append(f'{seconds} s {snr:.1f} dB (K3 {launched[0]}'
+                               f', K5 {launched[1]})')
         out['launches_http'] = lstm.lstm_scan_x.launches
+        out['k5_launches_http'] = lstm.lstm_scan.launches
         phase(14, f'TF-GridNet /health ok, /enhance {", ".join(results)} '
               f'from EnhanceService(model_dir) on the trained last.ckpt vs '
               f'the plain path in float64; '
@@ -803,6 +833,14 @@ def tfgridnet_phases(device, card):
         with plain_lstms():
             gpu.model.enhance(batch)
 
+    # at 16 x 4 s every scan has 128 rows or more: 12 K3 launches, no K5
+    lstm.lstm_scan_x.launches = lstm.lstm_scan.launches = 0
+    gpu.model.enhance(batch)
+    out['launches_16x4s'] = (lstm.lstm_scan_x.launches,
+                             lstm.lstm_scan.launches)
+    if out['launches_16x4s'] != (12, 0):
+        raise AssertionError('TF-GridNet enhance 16 x 4 s: K3 {} and K5 {} '
+                             'launches'.format(*out['launches_16x4s']))
     enhance_ms, enhance_peak = in_turns(
         {'kernel': lambda: gpu.model.enhance(batch), 'plain': plain_enhance},
         3, 1)
@@ -834,7 +872,8 @@ def tfgridnet_phases(device, card):
           f'{timing["intra"]["lib_fwd"]:.3f}/{timing["intra"]["lib_bwd"]:.3f}'
           f', inter {timing["inter"]["lib_fwd"]:.3f}/'
           f'{timing["inter"]["lib_bwd"]:.3f}; TF-GridNet enhance 16x4 s '
-          f'{enhance_ms["kernel"]:.2f} ms, peak '
+          f'({out["launches_16x4s"][0]} K3, {out["launches_16x4s"][1]} K5 '
+          f'launches) {enhance_ms["kernel"]:.2f} ms, peak '
           f'{enhance_peak["kernel"] / mib:.1f} MiB (plain LSTMs '
           f'{enhance_ms["plain"]:.2f} ms, {enhance_peak["plain"] / mib:.1f} '
           f'MiB); train step 16x4 s f32 {step_ms["kernel"]:.2f} ms, peak '
@@ -1323,6 +1362,381 @@ def sgmse_phases(device, card):
     return out
 
 
+DCCRN_PARAMS = 3_671_053
+#: DCCRN's complex-LSTM scans at 16 x 4 s, (T, D, R, E, H) of its two
+#: layers: 495 frames, the real and imaginary weight sets, 2B rows
+DCCRN_LSTM = ((495, 2, 32, 512, 128), (495, 2, 32, 128, 128))
+#: K5/K6 cases (T, D, R, E, H), gates_x = x w_ih + bias: DCCRN's two
+#: complex-LSTM layers at 16 x 4 s (R = 2B = 32) and its first at B = 1,
+#: TF-GridNet's intra scan of a 0.05 s request (T = 33 bands, R = 8 frames),
+#: then H 32..256 with T = 1 and D = 1 and 2; SCAN_UNALIGNED takes its w_hh
+#: and gates_x at an offset that is not 16-byte aligned
+SCAN_CASES = [*DCCRN_LSTM, (495, 2, 2, 512, 128), (33, 2, 8, 128, 128),
+              (1, 1, 5, 64, 32), (1, 2, 7, 64, 64), (1, 1, 33, 32, 128),
+              (1, 2, 3, 16, 256), (9, 2, 40, 72, 64)]
+SCAN_UNALIGNED = 8
+#: a short DCCRN training run's train loss (negated SNR, dB) must fall by
+#: more than this from its first epoch to the mean of its last three
+DCCRN_LOSS_DROP = 0.5
+
+
+def dccrn_model(state, device, dtype=torch.float32):
+    """The default ``dccrn`` on ``device`` in ``dtype`` holding a
+    state_dict (running statistics included), in eval mode."""
+    from brever_tpu_torch.models import ModelRegistry
+    model = ModelRegistry.get('dccrn')(device='cpu')
+    model.load_state_dict(state)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def dccrn_grads(model, batch, lengths):
+    """Gradients of the train-mode loss (a float64 model gets a float64
+    batch), and the running statistics that loss left."""
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    model.train()
+    dtype = model.lstm_proj_real.weight.dtype
+    loss = sample_weighted_mean(model.loss(batch.to(dtype), lengths),
+                                lengths)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    model.eval()
+    return ({k: g.double().cpu().numpy()
+             for (k, _), g in zip(model.named_parameters(), grads)},
+            {k: b.detach().clone() for k, b in model.named_buffers()})
+
+
+def dccrn_phases(device, card):
+    """Phases 22-27; returns the numbers of the K5/K6 JSON records."""
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.models import ModelRegistry, count_params
+    from brever_tpu_torch.ops import lstm_scan as lstm
+    from brever_tpu_torch.profile_train import make_trainer
+    from brever_tpu_torch.serve import EnhanceService, build_model
+    out = {}
+    torch.cuda.empty_cache()
+    k5, k6 = lstm.lstm_scan, lstm.lstm_scan_bwd
+
+    # ---- phase 22: K5 and K6 vs their plain versions on the card
+    rng = np.random.RandomState(22)
+    fwd_worst, fwd_err, bwd_worst, bwd_err = (float('inf'), 0.0,
+                                              float('inf'), 0.0)
+    for n, case in enumerate(SCAN_CASES):
+        name = 'T={} D={} R={} E={} H={}'.format(*case)
+        x, w_ih, bias, w_hh, dh = lstm_inputs(rng, *case)
+        gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
+                   + bias[None, :, None]).contiguous()
+        del x, w_ih, bias
+        if n == SCAN_UNALIGNED:   # at an unaligned offset, as in a flat
+            gates_x, w_hh = offset_view(gates_x), offset_view(w_hh)  # buffer
+        h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+        ref = lstm.lstm_scan_reference(gates_x, w_hh)
+        torch.cuda.synchronize()
+        worst, err = check_close(f'K5 {name}', ('h', 'c'), ref, (h, c))
+        fwd_worst, fwd_err = min(fwd_worst, worst), max(fwd_err, err)
+        del ref
+        grads = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+        again = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f'K6 {name}: two runs differ')
+        f64 = [t.double() for t in (gates_x, w_hh)]
+        h64, c64 = lstm.lstm_scan_reference(*f64)
+        want = lstm.lstm_scan_bwd_plain(*f64, h64, c64, dh.double())
+        torch.cuda.synchronize()
+        worst, err = check_close(f'K6 {name}', ('dgates', 'dw_hh'), want,
+                                 grads)
+        bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
+        del gates_x, w_hh, dh, h, c, grads, again, f64, h64, c64, want
+    torch.cuda.empty_cache()
+    out['k5_err'], out['k6_err'] = fwd_err, bwd_err
+    phase(22, f'{len(SCAN_CASES)} gates-in scan cases (DCCRN\'s two layers '
+          f'at 16 x 4 s and at B=1, TF-GridNet\'s 0.05 s intra scan, H '
+          f'32..256 at T=1, unaligned gates_x and w_hh): K5 h and c vs the '
+          f'plain version worst {fwd_worst:.1f} dB, max abs err '
+          f'{fwd_err:.3e}; K6 dgates and dW_hh vs the plain backward in '
+          f'float64 worst {bwd_worst:.1f} dB (>= {MIN_SNR_DB}), max abs err '
+          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two K6 runs '
+          'bitwise equal')
+
+    # ---- phase 23: enhance from EnhanceService(model_dir) vs the plain
+    # path in float64 on the card and in float32 on the CPU; the running
+    # statistics moved off their initial values by train-mode passes
+    model = ModelRegistry.get('dccrn')(device='cpu')
+    model.init_parameters(23)
+    model.to(device)
+    rng = np.random.RandomState(23)
+    with torch.no_grad():
+        model.train()
+        for _ in range(3):
+            data = torch.from_numpy((0.1 * rng.randn(4, 2, 2, 2 * FS))
+                                    .astype(np.float32)).to(device)
+            model.loss(data, torch.full((4,), 2 * FS, device=device))
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    params, aux = model.to_flax(state), model.flax_aux(state)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, 'model'), 'dccrn',
+                                    params=params, aux=aux)
+        gpu = EnhanceService(model_dir, device)
+        cpu = EnhanceService(model_dir, 'cpu')
+    if count_params(gpu.model) != DCCRN_PARAMS:
+        raise AssertionError(f'{count_params(gpu.model)} parameters')
+    mix = (0.1 * np.random.RandomState(24).randn(4, 2, 4 * FS)) \
+        .astype(np.float32)
+    lstm.lstm_scan_x.launches = k5.launches = 0
+    enhanced = gpu.model.enhance(mix)
+    torch.cuda.synchronize()
+    launches = (k5.launches, lstm.lstm_scan_x.launches)
+    with plain_lstms():
+        ref = dccrn_model(state, device, torch.float64).enhance(mix)
+    snr, err = check_output('DCCRN enhance (4, 2, 64000)',
+                            ref.cpu().numpy(), enhanced.cpu().numpy())
+    cpu_snr, cpu_err = check_output('DCCRN enhance (4, 2, 64000) vs CPU',
+                                     cpu.model.enhance(mix).numpy(),
+                                     enhanced.cpu().numpy())
+    if launches != (2, 0):
+        raise AssertionError('DCCRN enhance: K5 {} and K3 {} launches'
+                             .format(*launches))
+    out['launches_serve'] = launches[0]
+    del cpu
+    phase(23, f'DCCRN ({DCCRN_PARAMS:,} parameters) from '
+          f'EnhanceService(model_dir): enhance (4, 2, 64000) SNR {snr:.2f} dB'
+          f', max abs err {err:.3e} vs the plain path in float64; '
+          f'{cpu_snr:.2f} dB, {cpu_err:.3e} vs the plain CPU service; '
+          f'{launches[0]} K5 launches (the complex LSTM\'s 2 layers, 2B = 8 '
+          'rows), no K3')
+
+    # ---- phase 24: gradients (2 x 2 s) and the running-statistics update
+    # vs the plain path in float64
+    rng = np.random.RandomState(25)
+    target = 0.1 * rng.randn(2, 1, 2, 2 * FS)
+    batch = torch.from_numpy(np.concatenate(
+        [target + 0.1 * rng.randn(2, 1, 2, 2 * FS), target], axis=1)
+        .astype(np.float32)).to(device)
+    lengths = torch.tensor([2 * FS, 3 * FS // 2], device=device)
+    with plain_lstms():
+        ref, ref_stats = dccrn_grads(dccrn_model(state, device,
+                                                 torch.float64),
+                                     batch, lengths)
+        plain, _ = dccrn_grads(dccrn_model(state, device), batch, lengths)
+    k5.launches = k6.launches = 0
+    got, got_stats = dccrn_grads(dccrn_model(state, device), batch, lengths)
+    launches_grad = (k5.launches, k6.launches)
+    if launches_grad != (2, 2):
+        raise AssertionError('DCCRN gradients: K5 {} and K6 {} launches'
+                             .format(*launches_grad))
+    k_whole, k_worst, k_name, k_dead = grad_report(ref, got)
+    p_whole, p_worst, p_name, p_dead = grad_report(ref, plain)
+    # per tensor: 20 dB under the plain float32 path's worst tensor (at
+    # most 60); a convolution bias that feeds a train-mode batch norm has a
+    # zero gradient (the norm subtracts the batch mean), held within 10 x
+    # the plain float32 path's rounding of it (at least 1e-5 of the
+    # largest gradient)
+    tensor_db = min(MIN_SNR_DB, p_worst - 20)
+    dead_bound = max(1e-5, 10 * p_dead)
+    if k_whole < MIN_SNR_DB or k_worst < tensor_db or k_dead > dead_bound:
+        raise AssertionError(f'DCCRN gradients: whole {k_whole:.2f} dB, '
+                             f'worst {k_name} {k_worst:.2f} dB (>= '
+                             f'{tensor_db:.1f}), zero tensors {k_dead:.1e} '
+                             f'(<= {dead_bound:.1e})')
+    stats_db, stats_err = check_close(
+        'DCCRN running statistics', list(ref_stats), ref_stats.values(),
+        [got_stats[k] for k in ref_stats])
+    n_stats = len(ref_stats)
+    del ref, plain, got, ref_stats, got_stats
+    torch.cuda.empty_cache()
+    phase(24, f'DCCRN gradients (2 x 2 s, snr, train mode) vs the plain path'
+          f' in float64: whole {k_whole:.1f} dB (>= {MIN_SNR_DB}), worst '
+          f'tensor {k_worst:.1f} dB ({k_name}; >= {tensor_db:.1f}), '
+          f'zero-gradient tensors within {k_dead:.1e} of the largest (<= '
+          f'{dead_bound:.1e}); the plain float32 path: whole {p_whole:.1f} '
+          f'dB, worst {p_worst:.1f} dB ({p_name}), zero {p_dead:.1e}; the '
+          f'{n_stats} running statistics after the loss '
+          f'{stats_db:.1f} dB, max abs err {stats_err:.3e}; '
+          f'{launches_grad[0]} K5 and {launches_grad[1]} K6 launches')
+
+    # ---- phase 25: training through train.main on the card
+    epochs = 12
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = tone_model_dir(tmp, 'dccrn', 40)
+        first, second, train_s, (out['launches_train'],
+                                 out['launches_train_bwd']) = \
+            train_and_resume(lambda n: train_args(model_dir, n, 4), epochs,
+                             [(k5, 'launches'), (k6, 'launches')])
+        if not out['launches_train'] or not out['launches_train_bwd']:
+            raise AssertionError('training launched K5 {} and K6 {} times'
+                                 .format(out['launches_train'],
+                                         out['launches_train_bwd']))
+        losses = first.loss_logger.train_loss
+        last = float(np.mean(losses[-3:]))
+        if not np.isfinite(losses).all() \
+                or losses[0] - last <= DCCRN_LOSS_DROP:
+            raise AssertionError(f'training loss {losses[0]:.3f} -> '
+                                 f'{last:.3f} dB')
+        state_ckpt = load_checkpoint(second.last_ckpt_path)
+        stats = state_ckpt['aux']['batch_stats']
+        if not np.array_equal(stats['enc_norm_0']['var'],
+                              second.model.enc_norm_0.var.cpu().numpy()):
+            raise AssertionError('last.ckpt lacks the running statistics')
+        served = build_model('dccrn', {}, state_ckpt['params'], device,
+                             state_ckpt['aux'])
+        item = second.val_dataset[0][0][None]
+        torch.testing.assert_close(served.enhance(item),
+                                   second.model.enhance(item), atol=1e-6,
+                                   rtol=1e-5)
+        metrics = [m for m in first.loss_logger.metrics if m][-1]
+        phase(25, f'DCCRN train.main, 24 x 1 s tone-in-noise WAV items, '
+              f'batch 8, {epochs} epochs in {train_s:.1f} s: train loss '
+              f'{losses[0]:.3f} -> {last:.3f} dB (snr; a drop > '
+              f'{DCCRN_LOSS_DROP}), val snr {metrics["snr"]:.2f} sisnr '
+              f'{metrics["sisnr"]:.2f} dB; K5 {out["launches_train"]} / K6 '
+              f'{out["launches_train_bwd"]} launches; resumed bitwise (the '
+              f'running statistics from aux[\'batch_stats\']) from last.ckpt '
+              f'to epoch {second.epochs_ran}; the checkpoint serves')
+
+        # ---- phase 26: the HTTP service over the model directory
+        service = EnhanceService(model_dir, device)
+        ref_model = dccrn_model(service.model.state_dict(), device,
+                                torch.float64)
+        results = []
+        k5.launches = 0
+        with http_service(service) as (port, health):
+            if health['params'] != DCCRN_PARAMS or health['arch'] != 'dccrn':
+                raise AssertionError(f'/health: {health}')
+            for seconds in (0.05, 4):
+                audio = (0.1 * np.random.RandomState(26).randn(
+                    int(seconds * FS))).astype(np.float32)
+                before = k5.launches
+                got = post_wav(port, audio)
+                launched = k5.launches - before
+                with plain_lstms():
+                    want = ref_model.enhance(np.stack([audio, audio]))
+                snr, _ = check_output(f'DCCRN /enhance {seconds} s',
+                                      want.cpu().numpy(), got)
+                if launched != 2:
+                    raise AssertionError(f'/enhance {seconds} s: {launched} '
+                                         'K5 launches, not 2')
+                results.append(f'{seconds} s {snr:.1f} dB')
+        out['launches_http'] = k5.launches
+        phase(26, f'DCCRN /health ok, /enhance {", ".join(results)} from '
+              f'EnhanceService(model_dir) on the trained last.ckpt (its '
+              f'running statistics) vs the plain path in float64; '
+              f'{out["launches_http"]} K5 launches')
+        del first, second, served, service, ref_model
+
+    # ---- phase 27: timings at 16 x 4 s (plain, kernel, kernel, plain)
+    torch.cuda.empty_cache()
+    timing = {}
+    for label, case in (('layer0', DCCRN_LSTM[0]), ('layer1', DCCRN_LSTM[1])):
+        steps, n_dir, rows, feat, hidden = case
+        x, w_ih, bias, w_hh, dh = lstm_inputs(np.random.RandomState(27),
+                                              *case)
+        gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
+                   + bias[None, :, None]).contiguous()
+        with torch.no_grad():
+            h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+            fwd = in_turns({
+                'kernel': lambda: lstm.lstm_scan_fwd(gates_x, w_hh),
+                'plain': lambda: lstm.lstm_scan_reference(gates_x, w_hh)},
+                5, 2)[0]
+            bwd = in_turns({
+                'kernel': lambda: lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh),
+                'plain': lambda: lstm.lstm_scan_bwd_plain(gates_x, w_hh, h,
+                                                          c, dh)}, 3, 1)[0]
+            # the route the port takes below the row floor (the projection
+            # in cuBLAS, then K5) against K3 with the projection inside
+            fwd['route'] = cuda_ms(lambda: lstm.lstm_scan_fwd(
+                (torch.einsum('tdre,dek->tdrk', x, w_ih)
+                 + bias[None, :, None]).contiguous(), w_hh), 5, 2)
+            fwd['k3'] = cuda_ms(
+                lambda: lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh), 5, 2)
+            hx, cx = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+            bwd['k4'] = cuda_ms(lambda: lstm.lstm_scan_x_bwd(
+                x, w_ih, bias, w_hh, hx, cx, dh), 3, 1)
+        # the library's yardstick: cuDNN's LSTM over the same (T, R, E)
+        # input, one direction, the input projection inside: no PyTorch
+        # call takes precomputed gates
+        cudnn = torch.nn.LSTM(feat, hidden).to(device)
+        xl = x[:, 0].clone().requires_grad_()
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: cudnn(xl), 5, 2)
+        out_l, _ = cudnn(xl)
+        dout = torch.randn_like(out_l)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out_l, [xl, *cudnn.parameters()], dout, retain_graph=True), 3, 1)
+        # bounds: the gate products h w_hh of every step (the backward
+        # recomputes them, then dh w_hh^T and dW_hh); bytes of gates_x,
+        # h, c (dh, dgates) and the weights
+        flops = 2 * n_dir * steps * rows * hidden * 4 * hidden
+        seq_g = steps * n_dir * rows * 4 * hidden
+        seq_h = steps * n_dir * rows * hidden
+        weights = n_dir * hidden * 4 * hidden
+        timing[label] = {
+            'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd, 'lib_bwd': lib_bwd,
+            'bound_fwd': bound(flops, 4 * (seq_g + weights + 2 * seq_h)),
+            'bound_bwd': bound(3 * flops, 4 * (2 * seq_g + 2 * weights
+                                               + 3 * seq_h))}
+        del x, w_ih, bias, w_hh, dh, gates_x, h, c, hx, cx, cudnn, xl, \
+            out_l, dout
+    batch = torch.from_numpy((0.1 * np.random.RandomState(28).randn(
+        16, 2, 4 * FS)).astype(np.float32)).to(device)
+
+    def plain_enhance():
+        with plain_lstms():
+            gpu.model.enhance(batch)
+
+    k5.launches = 0
+    gpu.model.enhance(batch)
+    out['launches_eval'] = k5.launches
+    enhance_ms, enhance_peak = in_turns(
+        {'kernel': lambda: gpu.model.enhance(batch), 'plain': plain_enhance},
+        3, 1)
+    del gpu, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        step_trainer, data, n = make_trainer(device, tmp, arch='dccrn')
+        k6.launches = 0
+        step_trainer.train_step(data, n)
+        out['launches_bwd_step'] = k6.launches
+
+        def kernel_step():
+            step_trainer.train_step(data, n)
+
+        def plain_step():
+            with plain_lstms():
+                step_trainer.train_step(data, n)
+
+        step_ms, step_peak = in_turns({'kernel': kernel_step,
+                                       'plain': plain_step}, 3, 1)
+        del step_trainer, data
+    if (out['launches_eval'], out['launches_bwd_step']) != (2, 2):
+        raise AssertionError('DCCRN 16 x 4 s: {} K5 launches an evaluation,'
+                             ' {} K6 a backward'.format(
+                                 out['launches_eval'],
+                                 out['launches_bwd_step']))
+    out.update(timing=timing, enhance_ms=enhance_ms, step_ms=step_ms,
+               enhance_peak=enhance_peak, step_peak=step_peak)
+    mib = 2 ** 20
+    t0, t1 = timing['layer0'], timing['layer1']
+    phase(27, f'[{card}] DCCRN complex LSTM at 16x4 s (T=495 D=2 R=32 '
+          f'H=128) kernel/plain ms: K5 {t0["fwd"]["kernel"]:.3f}/'
+          f'{t0["fwd"]["plain"]:.3f} ({1e3 * t0["fwd"]["kernel"] / 495:.1f} '
+          f'us a step; bound {t0["bound_fwd"][0]:.3f}), K6 '
+          f'{t0["bwd"]["kernel"]:.3f}/{t0["bwd"]["plain"]:.3f} (bound '
+          f'{t0["bound_bwd"][0]:.3f}); projection + K5 vs K3 (projection '
+          f'inside): E=512 {t0["fwd"]["route"]:.3f} vs {t0["fwd"]["k3"]:.3f}'
+          f', E=128 {t1["fwd"]["route"]:.3f} vs {t1["fwd"]["k3"]:.3f}; K4 '
+          f'E=512 {t0["bwd"]["k4"]:.3f}, E=128 {t1["bwd"]["k4"]:.3f}; cuDNN '
+          f'LSTM fwd/bwd E=512 {t0["lib_fwd"]:.3f}/{t0["lib_bwd"]:.3f}, '
+          f'E=128 {t1["lib_fwd"]:.3f}/{t1["lib_bwd"]:.3f}; enhance 16x4 s '
+          f'{enhance_ms["kernel"]:.2f} ms, peak '
+          f'{enhance_peak["kernel"] / mib:.1f} MiB (plain LSTMs '
+          f'{enhance_ms["plain"]:.2f} ms); train step 16x4 s f32 '
+          f'{step_ms["kernel"]:.2f} ms, peak {step_peak["kernel"] / mib:.1f} '
+          f'MiB (plain LSTMs {step_ms["plain"]:.2f} ms, '
+          f'{step_peak["plain"] / mib:.1f} MiB); {out["launches_eval"]} K5 '
+          f'launches an evaluation, {out["launches_bwd_step"]} K6 a backward')
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -1642,6 +2056,7 @@ def main():
 
     grid = tfgridnet_phases(device, card)
     sgm = sgmse_phases(device, card)
+    dcc = dccrn_phases(device, card)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
@@ -1658,6 +2073,7 @@ def main():
                                          + 2 * tcn_weights))
     lstm_t = grid['timing']['intra']
     gn_big = sgm['largest']
+    scan_t, scan_t1 = dcc['timing']['layer0'], dcc['timing']['layer1']
     print(json.dumps({'kernels': [{
         'name': 'tcn_block_fwd',
         'route': 'cuda',
@@ -1776,6 +2192,54 @@ def main():
         'train_step_4x4s_ms': sgm['steps']['4'][0]['kernel'],
         'train_step_4x4s_plain_ms': sgm['steps']['4'][0]['plain'],
         'train_step_16x4s_ms': sgm['steps']['16'][0],
+    }, {
+        'name': 'lstm_scan_fwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:155',
+        'launches': dcc['launches_serve'] + dcc['launches_train']
+        + dcc['launches_http'] + grid['k5_launches_http'],
+        'launches_serve': dcc['launches_serve'] + dcc['launches_http']
+        + grid['k5_launches_http'],
+        'launches_train': dcc['launches_train'],
+        'launches_per_eval': dcc['launches_eval'],
+        'max_abs_err': dcc['k5_err'],
+        'ms': scan_t['fwd']['kernel'],
+        'plain_ms': scan_t['fwd']['plain'],
+        'us_per_step': 1e3 * scan_t['fwd']['kernel'] / DCCRN_LSTM[0][0],
+        'bound_ms': scan_t['bound_fwd'][0],
+        'bound_by': scan_t['bound_fwd'][1],
+        'library_ms': scan_t['lib_fwd'],
+        'library_note': 'nn.LSTM (cuDNN), one direction over (T=495, 32, '
+                        'E=512): the input projection inside; no PyTorch '
+                        'call takes precomputed gates',
+        'projection_then_k5_ms': scan_t['fwd']['route'],
+        'k3_same_shape_ms': scan_t['fwd']['k3'],
+        'projection_then_k5_ms_e128': scan_t1['fwd']['route'],
+        'k3_same_shape_ms_e128': scan_t1['fwd']['k3'],
+        'shape': 'T=495 D=2 R=32 H=128 (DCCRN at 16 x 4 s, gates from '
+                 'E=512)',
+        'enhance_16x4s_ms': dcc['enhance_ms']['kernel'],
+        'enhance_16x4s_plain_ms': dcc['enhance_ms']['plain'],
+    }, {
+        'name': 'lstm_scan_bwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:235',
+        'launches': dcc['launches_train_bwd'],
+        'launches_per_backward': dcc['launches_bwd_step'],
+        'max_abs_err': dcc['k6_err'],
+        'ms': scan_t['bwd']['kernel'],
+        'plain_ms': scan_t['bwd']['plain'],
+        'bound_ms': scan_t['bound_bwd'][0],
+        'bound_by': scan_t['bound_bwd'][1],
+        'library_ms': scan_t['lib_bwd'],
+        'library_note': 'the backward of that nn.LSTM (data and weights)',
+        'k4_same_shape_ms': scan_t['bwd']['k4'],
+        'k4_same_shape_ms_e128': scan_t1['bwd']['k4'],
+        'shape': 'T=495 D=2 R=32 H=128 (DCCRN at 16 x 4 s)',
+        'train_step_ms': dcc['step_ms']['kernel'],
+        'train_step_plain_ms': dcc['step_ms']['plain'],
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

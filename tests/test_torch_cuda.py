@@ -18,6 +18,11 @@ gate products in another order), the backward against the plain float32
 backward run in float64 at atol 1e-4 of the tensor's largest value, rtol
 1e-3; two backward runs are bitwise equal.
 
+The gates-in LSTM scan kernels (K5, K6) the same way as K3 and K4: the
+forward in float32 at atol 1e-5, rtol 1e-4, the backward against the plain
+backward run in float64 at atol 1e-4 of the tensor's largest value, rtol
+1e-3, two backward runs bitwise equal.
+
 The GroupNorm kernels (K7, K8) against their plain versions: the forward
 in float32 at atol 1e-5, rtol 1e-4 (normalised values of order 1; the
 kernel sums the statistics in double in another order), the backward
@@ -285,24 +290,28 @@ def test_lstm_kernels_reject_what_they_do_not_take(device):
 
 def test_tfgridnet_runs_every_blstm_through_the_kernels(device):
     """A small TF-GridNet (H = 32) on the card: enhance matches the CPU
-    plain path with two K3 launches a grid block; a loss gradient takes
-    two K4 launches a block."""
+    plain path with one K3 launch a grid block for the inter BLSTM (264
+    rows) and one K5 launch for the intra BLSTM (80 rows, under the
+    128-row floor); a loss gradient takes one K4 and one K6 launch a
+    block."""
     small = dict(n_layers=2, lstm_hidden_units=32, emb_dim=8, attn_n_head=2,
                  attn_approx_qk_dim=32)
     cpu = ModelRegistry.get('tfgridnet')(**small, device='cpu')
     gpu = ModelRegistry.get('tfgridnet')(**small, device=device)
     gpu.load_state_dict(cpu.state_dict())
     x = (0.3 * np.random.RandomState(4).randn(2, 2, 5000)).astype(np.float32)
-    before = lstm.lstm_scan_x.launches
+    before = lstm.lstm_scan_x.launches, lstm.lstm_scan.launches
     out = gpu.enhance(x).cpu()
-    assert lstm.lstm_scan_x.launches - before == 4
+    assert (lstm.lstm_scan_x.launches - before[0],
+            lstm.lstm_scan.launches - before[1]) == (2, 2)
     torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
     batch = torch.from_numpy(np.stack([x, x], axis=1)).to(device)
-    before = lstm.lstm_scan_x_bwd.launches
+    before = lstm.lstm_scan_x_bwd.launches, lstm.lstm_scan_bwd.launches
     gpu.loss(batch, torch.tensor([5000, 4000], device=device)).sum() \
         .backward()
     torch.cuda.synchronize()
-    assert lstm.lstm_scan_x_bwd.launches - before == 4
+    assert (lstm.lstm_scan_x_bwd.launches - before[0],
+            lstm.lstm_scan_bwd.launches - before[1]) == (2, 2)
     assert all(torch.isfinite(p.grad).all() for p in gpu.parameters())
 
 
@@ -325,6 +334,120 @@ def test_lstm_kernels_take_unaligned_views(device):
     want = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
     got = lstm.lstm_scan_x_bwd(x, *moved[:3], h, c, moved[3])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# (T, D, R, H) of the gates-in scan: DCCRN's complex LSTM at B = 16 and at
+# B = 1, R not a multiple of the 32-row tile, T = 1, D = 1, H 32..256
+SCAN_CASES = [(495, 2, 32, 128), (40, 2, 2, 128), (7, 2, 100, 64),
+              (1, 1, 33, 32), (3, 1, 17, 256)]
+
+
+def _scan_inputs(device, t_steps, n_dir, rows, hidden):
+    """gates_x (T, D, R, 4H), w_hh and dh of the gates-in scan."""
+    gates_x, _, _, w_hh, dh = _lstm_inputs(device, t_steps, n_dir, rows,
+                                           4 * hidden, hidden)
+    return gates_x, w_hh, dh
+
+
+@pytest.mark.parametrize('case', SCAN_CASES)
+def test_scan_kernels_match_plain(device, case):
+    gates_x, w_hh, dh = _scan_inputs(device, *case)
+    before = lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches
+    h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+    ref_h, ref_c = lstm.lstm_scan_reference(gates_x, w_hh)
+    torch.testing.assert_close(h, ref_h, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(c, ref_c, atol=1e-5, rtol=1e-4)
+    grads = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+    again = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+    assert (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 2)
+    h64, c64 = lstm.lstm_scan_reference(gates_x.double(), w_hh.double())
+    ref = lstm.lstm_scan_bwd_plain(gates_x.double(), w_hh.double(), h64, c64,
+                                   dh.double())
+    torch.cuda.synchronize()
+    for got, rerun, want in zip(grads, again, ref):
+        assert got.shape == want.shape
+        assert torch.equal(got, rerun)
+        torch.testing.assert_close(got.double(), want,
+                                   atol=1e-4 * want.abs().max().item(),
+                                   rtol=1e-3)
+
+
+def test_scan_kernels_reject_what_they_do_not_take(device):
+    gates_x, w_hh, _ = _scan_inputs(device, 3, 2, 8, 64)
+    before = lstm.lstm_scan.launches
+    with pytest.raises(TypeError, match='float32'):
+        lstm.lstm_scan(gates_x.double(), w_hh)
+    with pytest.raises(ValueError, match='contiguous'):
+        lstm.lstm_scan(gates_x, w_hh.transpose(1, 2).contiguous()
+                       .transpose(1, 2))
+    with pytest.raises(ValueError, match='gate columns'):
+        lstm.lstm_scan(gates_x[..., :128].contiguous(), w_hh)
+    with pytest.raises(ValueError, match='on cpu'):
+        lstm.lstm_scan(gates_x, w_hh.cpu())
+    g48, w48, _ = _scan_inputs(device, 3, 2, 8, 48)
+    with pytest.raises(NotImplementedError, match='multiple of 32'):
+        lstm.lstm_scan(g48, w48)
+    assert lstm.lstm_scan.launches == before
+
+
+def test_scan_kernels_take_unaligned_views(device):
+    """gates_x, w_hh and dh at an offset that is not 16-byte aligned give
+    the aligned inputs' bits."""
+    gates_x, w_hh, dh = _scan_inputs(device, 6, 2, 40, 64)
+
+    def shifted(t):
+        buf = t.new_empty(t.numel() + 1)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    moved = [shifted(t) for t in (gates_x, w_hh, dh)]
+    assert all(t.data_ptr() % 16 for t in moved)
+    h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+    h2, c2 = lstm.lstm_scan_fwd(*moved[:2])
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    want = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+    got = lstm.lstm_scan_bwd(*moved[:2], h, c, moved[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_dccrn_runs_its_complex_lstm_through_the_scan_kernels(device,
+                                                          monkeypatch):
+    """A small DCCRN (H = 32) on the card: enhance matches the CPU plain
+    path with one K5 launch a complex LSTM layer; a loss gradient takes one
+    K6 launch a layer and agrees with the plain path in float64; the
+    running statistics move in train mode."""
+    small = dict(channels=[8, 16], lstm_channels=32, lstm_layers=2)
+    cpu = ModelRegistry.get('dccrn')(**small, device='cpu')
+    cpu.init_parameters(0)
+    gpu = ModelRegistry.get('dccrn')(**small, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    x = (0.3 * np.random.RandomState(5).randn(2, 2, 8000)).astype(np.float32)
+    before = lstm.lstm_scan.launches, lstm.lstm_scan_x.launches
+    out = gpu.enhance(x).cpu()
+    assert (lstm.lstm_scan.launches - before[0],
+            lstm.lstm_scan_x.launches - before[1]) == (2, 0)
+    torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
+    ref = ModelRegistry.get('dccrn')(**small, device='cpu').double()
+    ref.load_state_dict(cpu.state_dict())
+    batch = torch.from_numpy(np.stack([x, x], axis=1)).to(device)
+    lengths = torch.tensor([8000, 6000], device=device)
+    gpu.train()
+    before = lstm.lstm_scan_bwd.launches
+    got = torch.autograd.grad(gpu.loss(batch, lengths).mean(),
+                              list(gpu.parameters()))
+    torch.cuda.synchronize()
+    assert lstm.lstm_scan_bwd.launches - before == 2
+    assert not torch.equal(gpu.enc_norm_0.mean.cpu(), cpu.enc_norm_0.mean)
+    ref = ref.to(device).train()
+    from brever_tpu_torch.models import rnn
+    monkeypatch.setattr(rnn, 'lstm_scan', lstm.lstm_scan_plain)
+    want = torch.autograd.grad(ref.loss(batch.double(), lengths).mean(),
+                               list(ref.parameters()))
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.double(), w, rtol=1e-3,
+                                   atol=1e-4 * top)
 
 
 GN_CASES = [((2, 128, 33, 41), 32, 'silu'), ((2, 256, 8, 16), 32, 'none'),

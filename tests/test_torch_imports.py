@@ -4,7 +4,8 @@ without nvcc or triton; and the two entry points that read a model
 directory's ``config.yaml`` (``python -m brever_tpu_torch.train`` and
 ``EnhanceService(model_dir)``) run in a fresh interpreter without loading
 any module of the JAX package, at import time or at call time: the port
-reads configs through its own ``brever_tpu_torch.config``."""
+reads configs through its own ``brever_tpu_torch.config``. The entry
+points are run on a Conv-TasNet and on a DCCRN model directory."""
 
 import os
 import pkgutil
@@ -34,7 +35,7 @@ def test_port_imports_no_jax():
                                               'brever_tpu_torch.')]
     for name in ('serve', 'ops.tcn_block', 'criterion', 'metrics',
                  'batching', 'data', 'optim', 'training', 'train',
-                 'profile_train'):
+                 'profile_train', 'models.dccrn', 'ops.lstm_scan'):
         assert f'brever_tpu_torch.{name}' in modules
     env = dict(os.environ, PATH='/usr/bin:/bin', CUDA_HOME='')
     proc = subprocess.run([sys.executable, '-c', _SCRIPT, *modules],
@@ -88,3 +89,20 @@ def test_enhance_service_loads_no_jax_package(tmp_path):
             'assert out.shape == (1600,), out.shape\n'
             'print(service.health()["checkpoint"])\n' + _NO_JAX_PACKAGE)
     assert _fresh(code, model_dir) == ['last.ckpt', 'ok']
+
+
+def test_dccrn_entry_points_load_no_jax_package(tmp_path):
+    """``train.main`` trains a small DCCRN model directory and
+    ``EnhanceService`` serves it, each in a fresh interpreter that loads
+    nothing of the JAX package."""
+    model_dir = _model_dir(tmp_path, 'dccrn')
+    code = ('import sys\n'
+            'import numpy as np\n'
+            'from brever_tpu_torch import train\n'
+            'from brever_tpu_torch.serve import EnhanceService\n'
+            'train.main(sys.argv[1:])\n'
+            'service = EnhanceService(sys.argv[1], "cpu")\n'
+            'out = service.enhance(np.zeros(1600, np.float32))\n'
+            'assert out.shape == (1600,), out.shape\n'
+            'print(service.health()["arch"])\n' + _NO_JAX_PACKAGE)
+    assert _fresh(code, model_dir, *_TRAIN_ARGS) == ['dccrn', 'ok']

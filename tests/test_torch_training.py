@@ -6,7 +6,11 @@ TF-GridNet the plateau scheduler, learning-rate drops from on_validate
 and the inject_hyperparams checkpoint layout; for SGMSE+ (a tiny
 sgmsepm) the loss's generator (its state resumes bitwise from the
 checkpoint, validation reseeds its own), the ``aux`` buffers in the
-checkpoint, and both packages' servers on what the command line wrote."""
+checkpoint, and both packages' servers on what the command line wrote; for
+DCCRN (a small one) the running statistics of its batch norms: updated by
+the train steps, read by validation, saved in the checkpoint's
+``aux['batch_stats']`` and restored bitwise on resume, outside the EMA,
+and read by the JAX package's loader and server."""
 
 import importlib.util
 import inspect
@@ -46,7 +50,9 @@ SGM = dict(net_base_channels=16, net_channel_mult=[1, 2],
            net_num_blocks_per_res=1, solver_num_steps=2,
            net_attn_bottleneck=False, stft_frame_length=128,
            stft_hop_length=64, net_attn_resolutions=[])
-SMALLS = {'convtasnet': SMALL, 'tfgridnet': GRID, 'sgmsepm': SGM}
+DCC = dict(channels=[4, 8], lstm_channels=16, lstm_layers=1)
+SMALLS = {'convtasnet': SMALL, 'tfgridnet': GRID, 'sgmsepm': SGM,
+          'dccrn': DCC}
 
 
 @pytest.fixture(autouse=True)
@@ -482,3 +488,77 @@ def test_sgmse_train_cli_and_serving(tmp_path, monkeypatch):
     assert got.shape == (3000,) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref.enhance(audio), atol=1e-4,
                                rtol=1e-4)
+
+
+def test_dccrn_resume_restores_the_running_statistics(tmp_path):
+    """The batch norms' running statistics move in the train steps, go into
+    last.ckpt's ``aux['batch_stats']`` and come back bitwise: a resumed run
+    equals the uninterrupted one, statistics included."""
+    whole = make_trainer(tmp_path / 'whole', arch='dccrn', epochs=2)
+    whole.init_state()
+    start = [b.clone() for b in whole.model.buffers()]
+    whole.run()
+    assert not any(torch.equal(a, b) for a, b in
+                   zip(start, whole.model.buffers()))
+    make_trainer(tmp_path / 'split', arch='dccrn', epochs=1).run()
+    resumed = make_trainer(tmp_path / 'split', arch='dccrn', epochs=2)
+    resumed.run()
+    assert torch.equal(resumed.flat, whole.flat)
+    assert torch.equal(resumed.optimizer.nu, whole.optimizer.nu)
+    assert all(torch.equal(a, b) for a, b in
+               zip(resumed.model.buffers(), whole.model.buffers()))
+    assert resumed.loss_logger.val_loss == whole.loss_logger.val_loss
+    state = jax_load_checkpoint(tmp_path / 'split' / 'checkpoints'
+                                / 'last.ckpt')
+    np.testing.assert_array_equal(
+        state['aux']['batch_stats']['enc_norm_0']['var'],
+        resumed.model.enc_norm_0.var.numpy())
+
+
+def test_dccrn_validation_reads_the_running_statistics(tmp_path):
+    """A validation step leaves the statistics as they are and scores with
+    them (eval mode); the EMA covers the parameters only."""
+    trainer = make_trainer(tmp_path, arch='dccrn', ema=True, ema_decay=0.5)
+    trainer.init_state()
+    item = trainer.train_dataset[0][..., :3200]
+    batch = torch.from_numpy(np.stack([item, item]))
+    lengths = torch.tensor([3200, 2400])
+    trainer.train_step(batch, lengths)
+    assert trainer.ema.shape == trainer.flat.shape
+    stats = [b.clone() for b in trainer.model.buffers()]
+    val = trainer.val_step(batch, lengths)
+    assert all(torch.equal(a, b) for a, b in
+               zip(stats, trainer.model.buffers()))
+    trainer.flat.copy_(trainer.ema)
+    trainer.model.eval()
+    with torch.no_grad():
+        want = trainer.model.loss(batch, lengths).mean()
+    torch.testing.assert_close(val, want)
+
+
+def test_dccrn_train_cli_and_serving(tmp_path):
+    """python -m brever_tpu_torch.train on a small DCCRN model directory
+    (its config's snr criterion, the tuples of its yaml); the JAX package
+    reads the running statistics from last.ckpt, and both packages' servers
+    serve it alike."""
+    model_dir = _model_dir(tmp_path, 'dccrn')
+    train_cli.main([model_dir, '--device', 'cpu', '--epochs', '2',
+                    '--use_amp', 'false', '--val_metrics', 'snr',
+                    '--batch_size', '2', '--dynamic_batch_size', 'false',
+                    '--batch_sampler', 'random', '--val_period', '1'])
+    state = jax_load_checkpoint(os.path.join(model_dir, 'checkpoints',
+                                             'last.ckpt'))
+    port = EnhanceService(model_dir, 'cpu')
+    assert port.health()['arch'] == 'dccrn'
+    np.testing.assert_array_equal(
+        state['aux']['batch_stats']['dec_norm_0']['mean'],
+        port.model.dec_norm_0.mean.numpy())
+    audio = np.random.RandomState(5).randn(3000).astype(np.float32) * 0.1
+    spec = importlib.util.spec_from_file_location(
+        'serve_model', os.path.join(ROOT, 'scripts', 'serve_model.py'))
+    serve_model = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_model)
+    ref = serve_model.EnhanceService(model_dir)
+    got = port.enhance(audio)
+    assert got.shape == (3000,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref.enhance(audio), atol=1e-4, rtol=1e-4)
