@@ -38,6 +38,16 @@ the PReLU slopes and the norms' ``scale``/``bias`` (a complex norm's
 ``weight (3, C)``/``bias (2, C)``) keep their names and shapes. The
 ``batch_stats`` collection (``mean``/``var``, or ``mean``/``cov``) maps to
 and from the norms' buffers of the same names.
+
+MANNER (``manner_*``): every scope keeps its name, under ``net.`` in the
+model's ``state_dict`` (``global`` included). 3-D ``Conv`` kernels ``(k,
+in, out)`` (depthwise ones ``(k, 1, C)``) become ``conv1d`` weights ``(out,
+in, k)``; the decoder's ``ConvTranspose`` kernels ``dec_*_up`` ``(k, in,
+out)`` (``transpose_kernel=False``) become ``conv_transpose1d`` weights
+``(in, out, k)`` flipped in time, as Conv-TasNet's decoder; ``Dense``
+kernels ``Linear`` weights. The BatchNorms' ``scale``/``bias`` keep their
+names, and the ``batch_stats`` collection (``mean``/``var``) maps to and
+from their buffers.
 """
 
 import numpy as np
@@ -330,6 +340,60 @@ def dccrn_state_dict_to_flax(state_dict):
         elif leaf == 'weight' and not is_norm:
             params.append((tuple(scope) + ('kernel',), a.T if a.ndim == 2
                            else a.transpose(2, 3, 1, 0)))
+        else:
+            params.append((tuple(scope) + (leaf,), a))
+    return _nest(params), {'batch_stats': _nest(stats)}
+
+
+# ---------------------------------------------------------------------------
+# MANNER
+
+def _manner_kernel_to_torch(scope, a):
+    if a.ndim == 2:
+        return a.T
+    if scope[-1].endswith('_up'):          # flax ConvTranspose, unflipped
+        return a.transpose(1, 2, 0)[:, :, ::-1]
+    return a.transpose(2, 1, 0)
+
+
+def _manner_kernel_to_flax(scope, a):
+    if a.ndim == 2:
+        return a.T
+    if scope[-1].endswith('_up'):
+        return a[:, :, ::-1].transpose(2, 0, 1)
+    return a.transpose(2, 1, 0)
+
+
+def manner_flax_to_state_dict(params, aux=None):
+    """Flax ``params`` tree of ``_MannerModule`` and its ``batch_stats``
+    collection (``aux = {'batch_stats': ...}``) -> the port's ``MANNER``
+    ``state_dict`` (float32 CPU tensors, keys under ``net.``); either may be
+    empty, for a partial ``load_state_dict``."""
+    sd = {}
+    for (*scope, leaf), value in _flatten(params):
+        key, a = 'net.' + '.'.join(scope), _f32(value)
+        if leaf == 'kernel':
+            sd[f'{key}.weight'] = _manner_kernel_to_torch(scope, a)
+        else:
+            sd[f'{key}.{leaf}'] = a
+    for path, value in _flatten((aux or {}).get('batch_stats', {})):
+        sd['net.' + '.'.join(path)] = _f32(value)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def manner_state_dict_to_flax(state_dict):
+    """The port's MANNER ``state_dict`` -> ``(params, aux)``, the flax
+    ``params`` tree and ``{'batch_stats': ...}`` (numpy)."""
+    params, stats = [], []
+    for key, value in state_dict.items():
+        a = value.detach().cpu().numpy()
+        *scope, leaf = key.split('.')[1:]
+        if leaf in ('mean', 'var'):
+            stats.append((tuple(scope) + (leaf,), a))
+        elif leaf == 'weight':
+            params.append((tuple(scope) + ('kernel',),
+                           np.ascontiguousarray(
+                               _manner_kernel_to_flax(scope, a))))
         else:
             params.append((tuple(scope) + (leaf,), a))
     return _nest(params), {'batch_stats': _nest(stats)}

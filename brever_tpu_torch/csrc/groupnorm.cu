@@ -21,8 +21,26 @@
 //        sum_i dz xhat / n                                     per (b, g)
 //   dx = rstd (dz scale[c] - m1 - xhat m2)
 //
-// G = C with ReLU is flash-BN's case (one channel a group); it needs nothing
-// more.
+// flash-BN, forward (K7-BN) and backward (K8-BN), replaces the same Pallas
+// kernels as gn_act_stats_pallas launches them for a BatchNorm (num_groups =
+// C over a (1, N, C) view). Here the statistics of channel c span all B rows
+// of x (B, C, N): the (b, c) slabs are B contiguous runs of N floats, so the
+// same passes serve with merges that span the batch rows, and no copy to
+// (C, B N):
+//
+//   mean, var, rstd per c over the B N elements of the channel
+//   y = act(x a + b),  a = scale[c] rstd,  b = bias[c] - mean a
+//   m1 = scale[c] sum_{b, i} dz / (B N),  m2 = scale[c] sum_{b, i} dz xhat
+//        / (B N),  dscale[c] and dbias[c] the same sums
+//   dx = rstd (dz scale[c] - m1 - xhat m2)
+//
+// bn_fwd: gn_stats, bn_merge (one warp a channel, B x segs partials in
+// order, writes mean, var and rstd and the folded affine of every (b, c)
+// row), gn_apply. bn_bwd: gn_bwd_partials with the channel's statistics,
+// bn_bwd_channels (one warp a channel: dscale, dbias and m1, m2 from B x segs
+// partials in order), gn_bwd_dx. No channel cap and no byte floor (the Pallas
+// path's are Mosaic's). Bound: bytes, as K7/K8's: 8 bytes an element forward
+// (x read, y written) and 12 backward (x, dy read, dx written) at the least.
 //
 // Bound: bytes. The forward must read x twice (the statistics come before
 // the first output) and write y once, 12 bytes an element; the backward reads
@@ -228,11 +246,20 @@ struct RowConst {
   float mean, rstd, scale;
 };
 
+// The index of a row's statistics: its (b, g), or with kBatch (flash-BN)
+// its channel.
+template <bool kBatch>
+__device__ __forceinline__ long long stat_index(long long row, int C, int G) {
+  const int c = static_cast<int>(row % C);
+  return kBatch ? c : (row / C) * G + c / (C / G);
+}
+
+template <bool kBatch>
 __device__ __forceinline__ RowConst row_const(
     long long row, int C, int G, const float* scale, const float* bias,
     const float* mean, const float* rstd) {
   const int c = static_cast<int>(row % C);
-  const long long bg = (row / C) * G + c / (C / G);
+  const long long bg = stat_index<kBatch>(row, C, G);
   RowConst k;
   k.mean = mean[bg];
   k.rstd = rstd[bg];
@@ -241,7 +268,7 @@ __device__ __forceinline__ RowConst row_const(
   return k;
 }
 
-template <bool kVec>
+template <bool kVec, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 gn_bwd_partials(const float* __restrict__ x, const float* __restrict__ dy,
                 const float* __restrict__ scale,
@@ -254,7 +281,7 @@ gn_bwd_partials(const float* __restrict__ x, const float* __restrict__ dy,
   if (!my_task(N, segs, tasks, t)) return;
   constexpr int kW = kVec ? 4 : 1;
   const int lane = threadIdx.x & 31;
-  const RowConst k = row_const(t.row, C, G, scale, bias, mean, rstd);
+  const RowConst k = row_const<kBatch>(t.row, C, G, scale, bias, mean, rstd);
   double s1 = 0.0, s2 = 0.0;
   for (int j = lane * kW; j < t.len; j += 32 * kW) {
     float v[kW], d[kW];
@@ -323,7 +350,7 @@ gn_bwd_channels(const double2* __restrict__ rowsum, int B, int C,
   dscale[c] = static_cast<float>(s2);
 }
 
-template <bool kVec>
+template <bool kVec, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
           const float* __restrict__ scale, const float* __restrict__ bias,
@@ -333,8 +360,8 @@ gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
   Task t;
   if (!my_task(N, segs, tasks, t)) return;
   constexpr int kW = kVec ? 4 : 1;
-  const RowConst k = row_const(t.row, C, G, scale, bias, mean, rstd);
-  const float2 mg = m[(t.row / C) * G + static_cast<int>(t.row % C) / (C / G)];
+  const RowConst k = row_const<kBatch>(t.row, C, G, scale, bias, mean, rstd);
+  const float2 mg = m[stat_index<kBatch>(t.row, C, G)];
   for (int j = (threadIdx.x & 31) * kW; j < t.len; j += 32 * kW) {
     float v[kW], d[kW];
     load<kVec>(x, t.start + j, v);
@@ -346,6 +373,75 @@ gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
       v[i] = k.rstd * (dz * k.scale - mg.x - xhat * mg.y);
     }
     store<kVec>(dx, t.start + j, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7-BN and K8-BN's merges
+
+// One warp a channel c: the partials of its B rows, row by row and segment
+// by segment in a fixed order; the channel's mean, var and rstd, and the
+// folded affine of each of its B rows.
+__global__ void __launch_bounds__(kThreads)
+bn_merge(const double2* __restrict__ part, const float* __restrict__ scale,
+         const float* __restrict__ bias, int B, int C, int segs, double n,
+         float eps, float* __restrict__ mean, float* __restrict__ var,
+         float* __restrict__ rstd, float2* __restrict__ coef) {
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= C) return;
+  const int lane = threadIdx.x & 31;
+  double s = 0.0, q = 0.0;
+  for (int b = 0; b < B; ++b) {
+    const double2* row = part + (static_cast<long long>(b) * C + c) * segs;
+    for (int i = lane; i < segs; i += 32) {
+      s += row[i].x;
+      q += row[i].y;
+    }
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  float m = 0.f, r = 0.f;
+  if (lane == 0) {
+    const double md = s / n, vd = q / n - md * md;
+    m = static_cast<float>(md);
+    r = static_cast<float>(1.0 / sqrt(vd + eps));
+    mean[c] = m;
+    var[c] = static_cast<float>(vd);
+    rstd[c] = r;
+  }
+  m = __shfl_sync(kFull, m, 0);
+  r = __shfl_sync(kFull, r, 0);
+  const float2 ab = fold(scale[c], bias[c], m, r);
+  for (int b = lane; b < B; b += 32) coef[static_cast<long long>(b) * C + c] =
+      ab;
+}
+
+// One warp a channel c: sum dz and sum dz xhat over its B rows in a fixed
+// order, as dbias and dscale, and m1, m2 for dx.
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_channels(const double2* __restrict__ part,
+                const float* __restrict__ scale, int B, int C, int segs,
+                double n, float* __restrict__ dscale,
+                float* __restrict__ dbias, float2* __restrict__ m) {
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= C) return;
+  const int lane = threadIdx.x & 31;
+  double s1 = 0.0, s2 = 0.0;
+  for (int b = 0; b < B; ++b) {
+    const double2* row = part + (static_cast<long long>(b) * C + c) * segs;
+    for (int i = lane; i < segs; i += 32) {
+      s1 += row[i].x;
+      s2 += row[i].y;
+    }
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    dbias[c] = static_cast<float>(s1);
+    dscale[c] = static_cast<float>(s2);
+    const double sc = scale[c];
+    m[c] = make_float2(static_cast<float>(sc * s1 / n),
+                       static_cast<float>(sc * s2 / n));
   }
 }
 
@@ -439,10 +535,10 @@ extern "C" int gn_bwd(const float* x, const float* dy, const float* scale,
       + static_cast<size_t>(B) * C * sizeof(double2));
   const bool vec = N % 4 == 0 && aligned(x) && aligned(dy) && aligned(dx);
   if (vec) {
-    gn_bwd_partials<true><<<p.blocks, kThreads, 0, stream>>>(
+    gn_bwd_partials<true, false><<<p.blocks, kThreads, 0, stream>>>(
         x, dy, scale, bias, mean, rstd, C, G, N, p.segs, p.tasks, act, part);
   } else {
-    gn_bwd_partials<false><<<p.blocks, kThreads, 0, stream>>>(
+    gn_bwd_partials<false, false><<<p.blocks, kThreads, 0, stream>>>(
         x, dy, scale, bias, mean, rstd, C, G, N, p.segs, p.tasks, act, part);
   }
   const unsigned groups = static_cast<unsigned>(cdiv(
@@ -453,11 +549,82 @@ extern "C" int gn_bwd(const float* x, const float* dy, const float* scale,
   gn_bwd_channels<<<static_cast<unsigned>(cdiv(C, kThreads)), kThreads, 0,
                     stream>>>(rowsum, B, C, dscale, dbias);
   if (vec) {
-    gn_bwd_dx<true><<<p.blocks, kThreads, 0, stream>>>(
+    gn_bwd_dx<true, false><<<p.blocks, kThreads, 0, stream>>>(
         x, dy, scale, bias, mean, rstd, m, C, G, N, p.segs, p.tasks, act, dx);
   } else {
-    gn_bwd_dx<false><<<p.blocks, kThreads, 0, stream>>>(
+    gn_bwd_dx<false, false><<<p.blocks, kThreads, 0, stream>>>(
         x, dy, scale, bias, mean, rstd, m, C, G, N, p.segs, p.tasks, act, dx);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of the `work` buffer bn_fwd and bn_bwd take.
+extern "C" size_t bn_workspace(int B, int C, int N) {
+  const Plan p = plan(B, C, N);
+  const size_t fwd = static_cast<size_t>(B) * C * sizeof(float2);
+  const size_t bwd = static_cast<size_t>(C) * sizeof(float2);
+  return p.part_bytes + (fwd > bwd ? fwd : bwd);
+}
+
+// K7-BN: y (B, C, N), mean, var and rstd (C): 3 launches.
+extern "C" int bn_fwd(const float* x, const float* scale, const float* bias,
+                      float* y, float* mean, float* var, float* rstd,
+                      void* work, int B, int C, int N, float eps, int act,
+                      cudaStream_t stream) {
+  if (bad_shape(B, C, N, C, act)) return cudaErrorInvalidValue;
+  const Plan p = plan(B, C, N);
+  auto* part = static_cast<double2*>(work);
+  auto* coef = reinterpret_cast<float2*>(static_cast<char*>(work)
+                                         + p.part_bytes);
+  const bool vec = N % 4 == 0 && aligned(x) && aligned(y);
+  if (vec) {
+    gn_stats<true><<<p.blocks, kThreads, 0, stream>>>(x, N, p.segs, p.tasks,
+                                                      part);
+  } else {
+    gn_stats<false><<<p.blocks, kThreads, 0, stream>>>(x, N, p.segs,
+                                                       p.tasks, part);
+  }
+  bn_merge<<<static_cast<unsigned>(cdiv(C, kWarps)), kThreads, 0, stream>>>(
+      part, scale, bias, B, C, p.segs, static_cast<double>(B) * N, eps, mean,
+      var, rstd, coef);
+  if (vec) {
+    gn_apply<true><<<p.blocks, kThreads, 0, stream>>>(x, coef, N, p.segs,
+                                                      p.tasks, act, y);
+  } else {
+    gn_apply<false><<<p.blocks, kThreads, 0, stream>>>(x, coef, N, p.segs,
+                                                       p.tasks, act, y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8-BN: dx (B, C, N), dscale and dbias (C) from x, dy and the forward's
+// per-channel mean and rstd: 3 launches.
+extern "C" int bn_bwd(const float* x, const float* dy, const float* scale,
+                      const float* bias, const float* mean, const float* rstd,
+                      float* dx, float* dscale, float* dbias, void* work,
+                      int B, int C, int N, int act, cudaStream_t stream) {
+  if (bad_shape(B, C, N, C, act)) return cudaErrorInvalidValue;
+  const Plan p = plan(B, C, N);
+  auto* part = static_cast<double2*>(work);
+  auto* m = reinterpret_cast<float2*>(static_cast<char*>(work)
+                                      + p.part_bytes);
+  const bool vec = N % 4 == 0 && aligned(x) && aligned(dy) && aligned(dx);
+  if (vec) {
+    gn_bwd_partials<true, true><<<p.blocks, kThreads, 0, stream>>>(
+        x, dy, scale, bias, mean, rstd, C, C, N, p.segs, p.tasks, act, part);
+  } else {
+    gn_bwd_partials<false, true><<<p.blocks, kThreads, 0, stream>>>(
+        x, dy, scale, bias, mean, rstd, C, C, N, p.segs, p.tasks, act, part);
+  }
+  bn_bwd_channels<<<static_cast<unsigned>(cdiv(C, kWarps)), kThreads, 0,
+                    stream>>>(part, scale, B, C, p.segs,
+                              static_cast<double>(B) * N, dscale, dbias, m);
+  if (vec) {
+    gn_bwd_dx<true, true><<<p.blocks, kThreads, 0, stream>>>(
+        x, dy, scale, bias, mean, rstd, m, C, C, N, p.segs, p.tasks, act, dx);
+  } else {
+    gn_bwd_dx<false, true><<<p.blocks, kThreads, 0, stream>>>(
+        x, dy, scale, bias, mean, rstd, m, C, C, N, p.segs, p.tasks, act, dx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,13 +6,18 @@ tensors as ``(batch, time, channels)``. The math lives in
 ``ops/functional.py``, which the plain versions of the kernels share. The
 batch norms (DCCRN's) take channels first, ``(batch, channels, ...)``, the
 layout of the port's 2-D convolutions, and keep their running statistics
-as buffers, the JAX package's ``batch_stats`` collection.
+as buffers, the JAX package's ``batch_stats`` collection. MANNER's
+:class:`BatchNormAct` (flash-BN) runs its train-mode statistics through
+``ops/batchnorm.py``: the CUDA kernels K7-BN and K8-BN on the card.
 """
 
 import torch
 from torch import nn
 
 from ..ops.functional import depthwise_conv1d, global_layer_norm, prelu
+from ..ops.groupnorm import _act
+# looked up at call time: a run may put batch_norm_act_plain in its place
+from ..ops.batchnorm import batch_norm_act
 
 
 class PReLU(nn.Module):
@@ -80,17 +85,51 @@ class BatchNorm(nn.Module):
             dims = (0,) + tuple(range(2, x.ndim))
             mean = x.mean(dim=dims)
             var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0)
-            with torch.no_grad():
-                self.mean.copy_(self.momentum * self.mean
-                                + (1 - self.momentum) * mean)
-                self.var.copy_(self.momentum * self.var
-                               + (1 - self.momentum) * var)
+            self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
+        return self.affine(x, mean, var)
+
+    def update_running(self, mean, var):
+        """flax's running update from a batch's statistics."""
+        with torch.no_grad():
+            self.mean.copy_(self.momentum * self.mean
+                            + (1 - self.momentum) * mean)
+            self.var.copy_(self.momentum * self.var
+                           + (1 - self.momentum) * var)
+
+    def affine(self, x, mean, var):
+        """``(x - mean) rsqrt(var + eps) scale + bias`` over the channels."""
         shape = (1, -1) + (1,) * (x.ndim - 2)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean.reshape(shape)) * mul.reshape(shape) \
             + self.bias.reshape(shape)
+
+
+class BatchNormAct(BatchNorm):
+    """BatchNorm fused with its activation (``none``, ``relu`` or ``silu``),
+    the JAX package's ``batch_norm_act``, over a channels-first contiguous
+    tensor: :class:`BatchNorm`'s parameters, buffers, running update and
+    eval mode, with the activation after. In train mode the batch
+    statistics over every axis but the channels, in float32 in the
+    fast-variance form ``E[x^2] - E[x]^2`` (not clipped at 0, as the JAX
+    package's XLA branch has it), go through ``ops.batchnorm``'s
+    ``batch_norm_act`` (K7-BN and K8-BN on CUDA), and the running update
+    takes the detached statistics; in eval mode the running statistics'
+    affine in plain torch, as the JAX package never takes the kernel in
+    eval."""
+
+    def __init__(self, channels, act='none', momentum=0.99, eps=1e-5):
+        super().__init__(channels, momentum, eps)
+        self.act = act
+
+    def forward(self, x):
+        if self.training:
+            y, mean, var = batch_norm_act(x, self.scale, self.bias, self.eps,
+                                          self.act)
+            self.update_running(mean, var)
+            return y
+        return _act(self.affine(x, self.mean, self.var), self.act)
 
 
 class ComplexBatchNorm(nn.Module):

@@ -13,8 +13,11 @@ every step in one product (cuBLAS on CUDA) and scans it with
 :func:`..ops.lstm_scan.lstm_scan` (K5/K6 on CUDA) through
 :func:`_dispatch_scan`. On the CPU both take the plain versions. The JAX
 package also gates its fused kernels on the hidden size being a multiple of
-the TPU's 128 lanes; the CUDA kernels take any multiple of 32 up to 256, so
-that condition is dropped.
+the TPU's 128 lanes; the CUDA kernels take any hidden size up to 256 (one
+off their grid of multiples of 32 is zero-padded to it), so that condition
+is dropped. In its place, an (E, H) whose projection-fused kernels would
+pass the card's shared memory takes the projection outside the scan, decided
+from the shape before any launch (``ops.lstm_scan.fused_x_fits``).
 """
 
 import torch
@@ -22,7 +25,8 @@ from torch import nn
 
 # looked up at call time: a run may put lstm_scan_x_plain and
 # lstm_scan_plain in their places
-from ..ops.lstm_scan import lstm_scan, lstm_scan_x
+from ..ops.lstm_scan import (fused_x_fits, kernel_hidden, lstm_scan,
+                              lstm_scan_x)
 
 #: the scan's row floor for the projection-fused kernel, the JAX package's
 #: default (``BREVER_LSTM_MIN_ROWS``): DCCRN's complex LSTM (2B rows) and
@@ -30,9 +34,12 @@ from ..ops.lstm_scan import lstm_scan, lstm_scan_x
 _MIN_FUSED_ROWS = 128
 
 
-def _use_fused_scan_x(n_rows):
-    """Whether a scan of ``n_rows`` rows takes the projection-fused K3."""
-    return n_rows >= _MIN_FUSED_ROWS
+def _use_fused_scan_x(n_rows, feat, hidden):
+    """Whether a scan of ``n_rows`` rows over ``feat`` inputs with ``hidden``
+    units takes the projection-fused K3: from the row floor up, where its
+    shared memory fits."""
+    return n_rows >= _MIN_FUSED_ROWS \
+        and fused_x_fits(feat, kernel_hidden(hidden))
 
 
 def _dispatch_scan(gates_x, w_hh):
@@ -45,9 +52,9 @@ def _dispatch_scan(gates_x, w_hh):
 
 def _dispatch_scan_x(x_seq, w_ih, bias, w_hh):
     """The scan over ``x_seq (T, D, R, E)`` with direction-stacked weights:
-    K3 from the row floor up, else the projection outside the scan, then
-    :func:`_dispatch_scan`."""
-    if _use_fused_scan_x(x_seq.shape[-2]):
+    K3 from the row floor up where it fits, else the projection outside the
+    scan, then :func:`_dispatch_scan`."""
+    if _use_fused_scan_x(x_seq.shape[-2], x_seq.shape[-1], w_hh.shape[-2]):
         return lstm_scan_x(x_seq.contiguous(), w_ih, bias, w_hh)
     gates_x = torch.einsum('tdrf,dfk->tdrk', x_seq, w_ih) \
         + bias[None, :, None, :]

@@ -201,7 +201,7 @@ class DiffusionUNet(nn.Module):
             raise NotImplementedError(
                 f'block_type {block_type!r}: the adm blocks (idmse, '
                 'idmselarge) need the external GroupNorm affine, which is not '
-                'ported yet (ROADMAP.md, Queue 1 item 9)')
+                'ported yet (ROADMAP.md, Queue 1, the idmse item)')
         self.encoder_type, self.decoder_type = encoder_type, decoder_type
         self.fir_kernel, self.remat = tuple(fir_kernel), remat
         self.channel_mult = tuple(channel_mult)

@@ -250,7 +250,8 @@ class _NotPorted(BreverBaseModel):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             f'{self.arch}: the ADM blocks need the external GroupNorm affine, '
-            'which is not ported yet (ROADMAP.md, Queue 1 item 9)')
+            'which is not ported yet (ROADMAP.md, Queue 1, the idmse '
+            'item)')
 
 
 @ModelRegistry.register('idmse')

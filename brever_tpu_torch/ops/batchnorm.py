@@ -1,0 +1,246 @@
+"""Train-mode BatchNorm with an optional ReLU or SiLU (flash-BN), forward
+and backward: the plain versions and the CUDA kernels.
+
+Counterpart of the train-mode branch of ``batch_norm_act`` in
+``brever_tpu/models/common.py``, and of ``gn_act_stats_pallas``
+(``ops/pallas/groupnorm.py``), the Pallas kernels it reaches as a GroupNorm
+with ``num_groups = C`` over a ``(1, N, C)`` view. The layout here is
+channels first: ``x (B, C, *spatial)``, contiguous, so that channel c of
+batch row b is one contiguous slab of ``N`` floats (``N`` the spatial size)
+and the channel's statistics span the B slabs. ``scale`` and ``bias`` are
+``(C,)``; the statistics are per channel over the batch and spatial axes,
+in float32 in the fast-variance form ``E[x^2] - mean^2``, not clipped at 0,
+as the JAX package's XLA branch computes them:
+
+    y = act((x - mean) (scale rsqrt(var + eps)) + bias)
+
+:func:`batch_norm_act` is what the models call. Under grad mode with an input
+that requires grad it goes through :class:`BatchNormActFunction`, whose
+forward saves only x and the ``(C,)`` mean and rstd and whose backward
+returns dx, dscale and dbias; the statistics it returns for the running
+update are detached (``gn_act_stats_pallas`` drops their cotangents without
+saying so). A tensor on the CPU takes the plain versions; a CUDA tensor
+launches the kernels (``csrc/groupnorm.cu`` ``bn_fwd``: K7-BN, replacing
+``_fwd_kernel``; ``bn_bwd``: K8-BN, replacing ``_bwd_kernel``) or raises.
+There is no channel cap and no byte floor: the JAX package's
+``_FUSED_BN_MAX_C`` and ``_FUSED_BN_MIN_BYTES`` are Mosaic's.
+
+The plain versions: :func:`batch_norm_act_reference`, the XLA branch's
+arithmetic, and :func:`batch_norm_act_bwd_plain`, its memory-lean backward,
+which recomputes the normalised tensor and the activation's derivative from
+x and the statistics.
+"""
+
+import torch
+
+from . import build
+from .groupnorm import ACTS, _act, _act_grad
+
+
+def _channel(v, x):
+    """A ``(C,)`` vector as ``(1, C, 1, ...)`` for broadcasting."""
+    return v.reshape(1, -1, *([1] * (x.ndim - 2)))
+
+
+def _dims(x):
+    return (0,) + tuple(range(2, x.ndim))
+
+
+def _pre_activation(x, scale, bias, mean, rstd):
+    """``(xhat, z)``: ``z = (x - mean) (scale rstd) + bias``, the XLA
+    branch's order."""
+    centred = x - _channel(mean, x)
+    return (centred * _channel(rstd, x),
+            centred * _channel(scale * rstd, x) + _channel(bias, x))
+
+
+def batch_norm_act_reference(x, scale, bias, eps, act):
+    """Plain forward: ``(y, mean, var, rstd)``, the statistics ``(C,)``."""
+    dims = _dims(x)
+    mean = x.mean(dim=dims)
+    var = (x * x).mean(dim=dims) - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    _, z = _pre_activation(x, scale, bias, mean, rstd)
+    return _act(z, act), mean, var, rstd
+
+
+def batch_norm_act_bwd_plain(x, dy, scale, bias, mean, rstd, act):
+    """Plain backward from x and the statistics: ``(dx, dscale, dbias)``."""
+    xhat, z = _pre_activation(x, scale, bias, mean, rstd)
+    dz = _act_grad(z, dy, act)
+    dims = _dims(x)
+    dbias = dz.sum(dim=dims)
+    dscale = (dz * xhat).sum(dim=dims)
+    n = x.numel() // x.shape[1]
+    dx = _channel(rstd, x) * (dz * _channel(scale, x)
+                              - _channel(scale * dbias / n, x)
+                              - xhat * _channel(scale * dscale / n, x))
+    return dx, dscale, dbias
+
+
+def batch_norm_act_fwd(x, scale, bias, eps, act):
+    """``(y, mean, var, rstd)``: the plain version on the CPU, else K7-BN
+    (counted in ``batch_norm_act_fwd.launches``)."""
+    if x.device.type == 'cpu':
+        return batch_norm_act_reference(x, scale, bias, eps, act)
+    out = _launch_fwd(x, scale, bias, eps, act)
+    batch_norm_act_fwd.launches += 1
+    return out
+
+
+batch_norm_act_fwd.launches = 0
+
+
+def batch_norm_act_bwd(x, dy, scale, bias, mean, rstd, act):
+    """The VJP ``(dx, dscale, dbias)``: the plain version on the CPU, else
+    K8-BN (counted in ``batch_norm_act_bwd.launches``)."""
+    if x.device.type == 'cpu':
+        return batch_norm_act_bwd_plain(x, dy, scale, bias, mean, rstd, act)
+    out = _launch_bwd(x, dy, scale, bias, mean, rstd, act)
+    batch_norm_act_bwd.launches += 1
+    return out
+
+
+batch_norm_act_bwd.launches = 0
+
+
+class BatchNormActFunction(torch.autograd.Function):
+    """Train-mode BatchNorm + activation with its memory-lean VJP: saves x
+    and the ``(C,)`` mean and rstd. ``apply(x, scale, bias, eps, act,
+    plain)`` returns ``(y, mean, var)``, the statistics without gradient;
+    with ``plain`` the plain versions on every device, else the kernels on
+    CUDA."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, act, plain):
+        fwd = batch_norm_act_reference if plain else batch_norm_act_fwd
+        y, mean, var, rstd = fwd(x, scale, bias, eps, act)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        ctx.act, ctx.plain = act, plain
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        bwd = batch_norm_act_bwd_plain if ctx.plain else batch_norm_act_bwd
+        dx, dscale, dbias = bwd(x, dy.contiguous(), scale, bias, mean, rstd,
+                                ctx.act)
+        return dx, dscale, dbias, None, None, None
+
+
+def _batch_norm_act(x, scale, bias, eps, act, plain):
+    if act not in ACTS:
+        raise ValueError(f'batch_norm_act: activation {act!r}, not one of '
+                         f'{sorted(ACTS)}')
+    if x.ndim < 2 or not x.is_contiguous():
+        raise ValueError(f'batch_norm_act: x {tuple(x.shape)} must be '
+                         'contiguous channels first (B, C, *spatial), got '
+                         f'strides {x.stride()}')
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, scale, bias)):
+        y, mean, var = BatchNormActFunction.apply(x, scale, bias, float(eps),
+                                                  act, plain)
+        return y, mean, var
+    fwd = batch_norm_act_reference if plain else batch_norm_act_fwd
+    y, mean, var, _ = fwd(x, scale, bias, float(eps), act)
+    return y, mean.detach(), var.detach()
+
+
+def batch_norm_act(x, scale, bias, eps=1e-5, act='none'):
+    """Train-mode BatchNorm of ``x (B, C, *spatial)``, contiguous (any other
+    layout raises, on every device), with the affine ``scale, bias (C,)``,
+    then ``act`` (``none``, ``relu`` or ``silu``): ``(y, mean, var)``, the
+    batch statistics ``(C,)`` detached, for the running update.
+    Differentiable in y through :class:`BatchNormActFunction` when grad mode
+    is on and an input requires grad. A tensor on the CPU takes the plain
+    versions; a CUDA tensor launches K7-BN (and K8-BN in the backward) or
+    raises."""
+    return _batch_norm_act(x, scale, bias, eps, act, False)
+
+
+def batch_norm_act_plain(x, scale, bias, eps=1e-5, act='none'):
+    """:func:`batch_norm_act` through the plain versions on any device."""
+    return _batch_norm_act(x, scale, bias, eps, act, True)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+
+def _tensor(t, name, device, shape):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f'batch_norm_act: {name} must be a tensor')
+    if t.device != device:
+        raise ValueError(f'batch_norm_act: {name} is on {t.device}, x on '
+                         f'{device}')
+    if t.dtype != torch.float32:
+        raise TypeError(f'batch_norm_act: {name} must be float32, got '
+                        f'{t.dtype}')
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f'batch_norm_act: {name} must be a contiguous '
+                         f'{shape} tensor (channels first), got '
+                         f'{tuple(t.shape)} with strides {t.stride()}')
+    return t
+
+
+def _check(x, scale, bias, act):
+    """Check what the kernels take; returns ``(B, C, N)``."""
+    device = x.device
+    if device.type != 'cuda':
+        raise ValueError(f'batch_norm_act: no kernel for device {device}')
+    if x.ndim < 2 or 0 in x.shape:
+        raise ValueError('batch_norm_act: x must be a non-empty (B, C, ...) '
+                         f'tensor, got {tuple(x.shape)}')
+    _tensor(x, 'x', device, tuple(x.shape))
+    batch, channels = x.shape[:2]
+    n = x.numel() // (batch * channels)
+    _tensor(scale, 'scale', device, (channels,))
+    _tensor(bias, 'bias', device, (channels,))
+    if act not in ACTS:
+        raise ValueError(f'batch_norm_act: activation {act!r}, not one of '
+                         f'{sorted(ACTS)}')
+    if max(batch, channels, n) >= 2 ** 31:
+        raise ValueError(f'batch_norm_act: {tuple(x.shape)} passes the '
+                         'kernels\' int range')
+    return batch, channels, n
+
+
+def _launch_fwd(x, scale, bias, eps, act):
+    lib = build.load_library()
+    batch, channels, n = _check(x, scale, bias, act)
+    device = x.device
+    with torch.cuda.device(device):
+        y = torch.empty_like(x)
+        mean = torch.empty(channels, dtype=torch.float32, device=device)
+        var = torch.empty_like(mean)
+        rstd = torch.empty_like(mean)
+        work = torch.empty(lib.bn_workspace(batch, channels, n),
+                           dtype=torch.uint8, device=device)
+        build.check(lib, lib.bn_fwd(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), rstd.data_ptr(),
+            work.data_ptr(), batch, channels, n, eps, ACTS[act],
+            torch.cuda.current_stream(device).cuda_stream), 'bn_fwd')
+    return y, mean, var, rstd
+
+
+def _launch_bwd(x, dy, scale, bias, mean, rstd, act):
+    lib = build.load_library()
+    batch, channels, n = _check(x, scale, bias, act)
+    device = x.device
+    _tensor(dy, 'dy', device, tuple(x.shape))
+    _tensor(mean, 'mean', device, (channels,))
+    _tensor(rstd, 'rstd', device, (channels,))
+    with torch.cuda.device(device):
+        dx = torch.empty_like(x)
+        dscale = torch.empty(channels, dtype=torch.float32, device=device)
+        dbias = torch.empty_like(dscale)
+        work = torch.empty(lib.bn_workspace(batch, channels, n),
+                           dtype=torch.uint8, device=device)
+        build.check(lib, lib.bn_bwd(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), work.data_ptr(), batch,
+            channels, n, ACTS[act],
+            torch.cuda.current_stream(device).cuda_stream), 'bn_bwd')
+    return dx, dscale, dbias

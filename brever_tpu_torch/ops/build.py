@@ -60,6 +60,10 @@ SIGNATURES = {
     'gn_workspace': (ctypes.c_size_t, [_I] * 4),
     'gn_fwd': (_I, [_P] * 7 + [_I] * 4 + [_F, _I, _P]),
     'gn_bwd': (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    'bn_workspace': (ctypes.c_size_t, [_I] * 3),
+    'bn_fwd': (_I, [_P] * 8 + [_I] * 3 + [_F, _I, _P]),
+    'bn_bwd': (_I, [_P] * 10 + [_I] * 4 + [_P]),
+    'stft_basis': (_I, [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

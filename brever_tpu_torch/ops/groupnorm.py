@@ -181,8 +181,8 @@ def _group_norm(x, scale, bias, num_groups, eps, apply_silu, ext_scale,
     if ext_scale is not None or ext_shift is not None:
         raise NotImplementedError(
             'group_norm_silu with ext_scale/ext_shift (the ADM blocks of '
-            'idmse and idmselarge) is not ported yet (ROADMAP.md, Queue 1 '
-            'item 9)')
+            'idmse and idmselarge) is not ported yet (ROADMAP.md, Queue 1, '
+            'the idmse item)')
     if x.ndim < 2 or x.shape[1] % num_groups:
         raise ValueError(f'group_norm_silu: channels of {tuple(x.shape)} '
                          f'not divisible by {num_groups} groups')

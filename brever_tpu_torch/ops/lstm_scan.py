@@ -30,11 +30,92 @@ in one product. Autograd through the time loop would keep about six
 gate-sized tensors a step, more than the card holds for TF-GridNet at
 16 x 4 s. :func:`lstm_scan_x_plain` is the whole plain path, with that
 backward, on any device.
+
+The kernels take every shape the JAX package's XLA scan runs, up to
+H = 256 (``_check_hidden``):
+
+* a hidden size off the kernels' grid of multiples of 32 is zero-padded
+  up to it by :func:`pad_hidden` in :func:`lstm_scan_x` and
+  :func:`lstm_scan`, and h is sliced back: padded units see zero
+  pre-activations, so their c and h stay 0 and the real units' outputs
+  and gradients are those of the unpadded scan (H = 200 runs as 224);
+* a scan whose ``T D R max(4H, E)`` reaches the kernels' int range is cut
+  into row chunks below it (:func:`row_chunks`), launched in order; the
+  rows are independent, and the weight-gradient partials are summed in
+  chunk order, so the result is deterministic;
+* an (E, H) whose projection-fused kernels pass the card's shared memory
+  is routed by ``models/rnn.py`` to the projection and K5/K6 before any
+  launch (:func:`fused_x_fits`); K5/K6's shared memory does not grow with
+  E.
 """
 
 import torch
+import torch.nn.functional as F
 
 from . import build
+
+#: the kernels' int range: no tensor of a launch may hold this many floats
+_INT_RANGE = 2 ** 31
+#: the largest hidden size the kernels take, and their grid of sizes
+_MAX_HIDDEN, _HIDDEN_STEP = 256, 32
+#: rows of one scan tile (``kRows`` of csrc/lstm_scan.cu), and the floats
+#: of shared memory a tile row takes in K3/K4 (``lstm_fwd_smem`` and
+#: ``lstm_bwd_smem``): E + H forward, E + 6 H backward
+_TILE_ROWS = 32
+#: shared memory a block may take on the H100 (bytes)
+_MAX_SMEM = 227 * 1024
+
+
+def kernel_hidden(hidden):
+    """The hidden size the kernels run a scan of ``hidden`` units at: the
+    next multiple of 32."""
+    return -(-hidden // _HIDDEN_STEP) * _HIDDEN_STEP
+
+
+def pad_hidden(hidden_to, w_hh, *gated):
+    """Zero-pad a scan's hidden size H to ``hidden_to``: ``w_hh (D, H, 4H)``
+    to ``(D, hidden_to, 4 hidden_to)`` and each tensor of ``gated`` (``w_ih``,
+    ``bias``, ``gates_x``: last axis 4H, gates i|f|g|o) to ``4 hidden_to``,
+    gate by gate. Returns ``(w_hh, *gated)``, contiguous. The padded units'
+    pre-activations are 0, so their c = 0.5 c_prev + 0.5 tanh(0) stays 0 and
+    their h 0: the first H units of the padded scan are the scan itself, and
+    so are their gradients (differentiable: ``F.pad``)."""
+    hidden = w_hh.shape[-2]
+    extra = hidden_to - hidden
+
+    def gates(t):
+        t = t.reshape(*t.shape[:-1], 4, hidden)
+        return F.pad(t, (0, extra)).reshape(*t.shape[:-2], 4 * hidden_to)
+
+    return (F.pad(gates(w_hh), (0, 0, 0, extra)),
+            *(gates(t) for t in gated))
+
+
+def row_chunks(steps, n_dir, rows, width):
+    """``[(start, stop), ...]``: the rows of a scan over ``(T, D, R, width)``
+    tensors cut, in order, into the fewest equal chunks whose tensors each
+    hold fewer than 2**31 floats; each row in exactly one chunk."""
+    per_row = steps * n_dir * width
+    most = (_INT_RANGE - 1) // per_row
+    if most < 1:
+        raise ValueError(f'lstm_scan: one row of T={steps} D={n_dir} x '
+                         f'{width} passes the kernels\' int range')
+    n_chunks = -(-rows // most)
+    size = -(-rows // n_chunks)
+    return [(lo, min(lo + size, rows)) for lo in range(0, rows, size)]
+
+
+def fused_x_fits(feat, hidden):
+    """Whether K3 and K4 (the projection inside the scan) fit a block's
+    shared memory at input width ``feat`` and hidden size ``hidden`` (the
+    kernels pad E to a multiple of 4); else the projection goes outside and
+    K5/K6 run the scan, whose shared memory does not depend on E. The
+    formula is ``lstm_bwd_smem`` of csrc/lstm_scan.cu (K4's, the larger),
+    the one place it is defined: this copy decides the route without
+    building the library, and every launch checks the library's own figure
+    (``_check``)."""
+    e_pad = feat + (-feat % 4)
+    return 4 * _TILE_ROWS * (e_pad + 6 * hidden) <= _MAX_SMEM
 
 
 def _cell(gates, c_prev):
@@ -114,14 +195,53 @@ def _on_kernel_device(x):
     return x.device.type != 'cpu'
 
 
+def _chunks(seq, w_hh):
+    """The row chunks of a launch over ``seq (T, D, R, width)``
+    (:func:`row_chunks`); ``[None]``, one launch of the whole, for a shape
+    the launch will refuse anyway."""
+    if seq.ndim != 4 or 0 in seq.shape or w_hh.ndim != 3:
+        return [None]
+    steps, n_dir, rows, width = seq.shape
+    width = max(width + (-width % 4), 4 * w_hh.shape[-2])
+    return row_chunks(steps, n_dir, rows, width)
+
+
+def _rows(t, rows):
+    """Rows ``[start, stop)`` of a ``(T, D, R, ...)`` tensor, contiguous;
+    the tensor itself for all of them."""
+    if rows is None or rows == (0, t.shape[2]):
+        return t
+    return t[:, :, rows[0]:rows[1]].contiguous()
+
+
+def _join(parts, n_row_outputs):
+    """The outputs of the chunks' launches as one launch's: the first
+    ``n_row_outputs`` (per-row tensors) concatenated on the row axis, the
+    rest (weight gradients) summed in chunk order."""
+    if len(parts) == 1:
+        return parts[0]
+    out = []
+    for i, chunk_outs in enumerate(zip(*parts)):
+        if i < n_row_outputs:
+            out.append(torch.cat(chunk_outs, dim=2))
+        else:
+            total = chunk_outs[0]
+            for t in chunk_outs[1:]:
+                total = total + t
+            out.append(total)
+    return tuple(out)
+
+
 def lstm_scan_x_fwd(x_seq, w_ih, bias, w_hh):
     """The forward with its cell states, ``(h_seq, c_seq)``: the plain
     version on the CPU, else K3 (counted in ``lstm_scan_x.launches``)."""
     if not _on_kernel_device(x_seq):
         return lstm_scan_x_reference(x_seq, w_ih, bias, w_hh)
-    out = _launch_fwd(x_seq, w_ih, bias, w_hh)
-    lstm_scan_x.launches += 1
-    return out
+    parts = []
+    for rows in _chunks(x_seq, w_hh):
+        parts.append(_launch_fwd(_rows(x_seq, rows), w_ih, bias, w_hh))
+        lstm_scan_x.launches += 1
+    return _join(parts, 2)
 
 
 def lstm_scan_x_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
@@ -130,9 +250,13 @@ def lstm_scan_x_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
     if not _on_kernel_device(x_seq):
         return lstm_scan_x_bwd_plain(x_seq, w_ih, bias, w_hh, h_seq, c_seq,
                                      dh_seq)
-    out = _launch_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq)
-    lstm_scan_x_bwd.launches += 1
-    return out
+    parts = []
+    for rows in _chunks(x_seq, w_hh):
+        parts.append(_launch_bwd(_rows(x_seq, rows), w_ih, bias, w_hh,
+                                 *(_rows(t, rows)
+                                   for t in (h_seq, c_seq, dh_seq))))
+        lstm_scan_x_bwd.launches += 1
+    return _join(parts, 1)
 
 
 lstm_scan_x_bwd.launches = 0
@@ -168,7 +292,12 @@ def lstm_scan_x(x_seq, w_ih, bias, w_hh):
     :class:`LSTMScanXFunction` when grad mode is on and an input requires
     grad, else the forward alone. A tensor on the CPU takes the plain
     versions; a CUDA tensor launches K3 (and K4 in the backward) or
-    raises. ``lstm_scan_x.launches`` counts K3's calls."""
+    raises. ``lstm_scan_x.launches`` counts K3's calls. On CUDA a hidden
+    size off the kernels' grid is zero-padded to it (:func:`pad_hidden`)."""
+    hidden = w_hh.shape[-2]
+    if _on_kernel_device(x_seq) and hidden % _HIDDEN_STEP:
+        w_hh, w_ih, bias = pad_hidden(kernel_hidden(hidden), w_hh, w_ih, bias)
+        return lstm_scan_x(x_seq, w_ih, bias, w_hh)[..., :hidden]
     if _needs_grad(x_seq, w_ih, bias, w_hh):
         return LSTMScanXFunction.apply(x_seq, w_ih, bias, w_hh, False)
     return lstm_scan_x_fwd(x_seq, w_ih, bias, w_hh)[0]
@@ -190,9 +319,11 @@ def lstm_scan_fwd(gates_x, w_hh):
     plain version on the CPU, else K5 (counted in ``lstm_scan.launches``)."""
     if not _on_kernel_device(gates_x):
         return lstm_scan_reference(gates_x, w_hh)
-    out = _launch_scan_fwd(gates_x, w_hh)
-    lstm_scan.launches += 1
-    return out
+    parts = []
+    for rows in _chunks(gates_x, w_hh):
+        parts.append(_launch_scan_fwd(_rows(gates_x, rows), w_hh))
+        lstm_scan.launches += 1
+    return _join(parts, 2)
 
 
 def lstm_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
@@ -200,9 +331,13 @@ def lstm_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
     else K6 (counted in ``lstm_scan_bwd.launches``)."""
     if not _on_kernel_device(gates_x):
         return lstm_scan_bwd_plain(gates_x, w_hh, h_seq, c_seq, dh_seq)
-    out = _launch_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq)
-    lstm_scan_bwd.launches += 1
-    return out
+    parts = []
+    for rows in _chunks(gates_x, w_hh):
+        parts.append(_launch_scan_bwd(
+            _rows(gates_x, rows), w_hh,
+            *(_rows(t, rows) for t in (h_seq, c_seq, dh_seq))))
+        lstm_scan_bwd.launches += 1
+    return _join(parts, 1)
 
 
 lstm_scan_bwd.launches = 0
@@ -234,7 +369,12 @@ def lstm_scan(gates_x, w_hh):
     through :class:`LSTMScanFunction` when grad mode is on and an input
     requires grad, else the forward alone. A tensor on the CPU takes the
     plain versions; a CUDA tensor launches K5 (and K6 in the backward) or
-    raises. ``lstm_scan.launches`` counts K5's calls."""
+    raises. ``lstm_scan.launches`` counts K5's calls. On CUDA a hidden size
+    off the kernels' grid is zero-padded to it (:func:`pad_hidden`)."""
+    hidden = w_hh.shape[-2]
+    if _on_kernel_device(gates_x) and hidden % _HIDDEN_STEP:
+        w_hh, gates_x = pad_hidden(kernel_hidden(hidden), w_hh, gates_x)
+        return lstm_scan(gates_x, w_hh)[..., :hidden]
     if _needs_grad(gates_x, w_hh):
         return LSTMScanFunction.apply(gates_x, w_hh, False)
     return lstm_scan_fwd(gates_x, w_hh)[0]
@@ -254,9 +394,6 @@ def lstm_scan_plain(gates_x, w_hh):
 # ---------------------------------------------------------------------------
 # the kernels
 
-#: shared memory a block may take on the H100 (bytes)
-_MAX_SMEM = 227 * 1024
-
 
 def _tensor(t, name, device, shape, what='lstm_scan_x'):
     if not isinstance(t, torch.Tensor):
@@ -274,10 +411,11 @@ def _tensor(t, name, device, shape, what='lstm_scan_x'):
 
 
 def _check_hidden(hidden, what):
-    if hidden % 32 or not 32 <= hidden <= 256:
+    if hidden % _HIDDEN_STEP or not _HIDDEN_STEP <= hidden <= _MAX_HIDDEN:
         raise NotImplementedError(
             f'{what}: the CUDA kernels take a hidden size that is a '
-            f'multiple of 32 up to 256, got {hidden}')
+            f'multiple of 32 up to 256 ({what} pads a smaller one to the '
+            f'grid), got {hidden}')
 
 
 def _check(x_seq, w_ih, bias, w_hh, lib, backward):
@@ -305,7 +443,7 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
         raise NotImplementedError(
             f'lstm_scan_x: E={feat} with H={hidden} needs {smem} bytes of '
             f'shared memory a block, more than {_MAX_SMEM}')
-    if steps * n_dir * rows * 4 * hidden >= 2 ** 31:
+    if steps * n_dir * rows * max(e_pad, 4 * hidden) >= _INT_RANGE:
         raise ValueError(f'lstm_scan_x: {tuple(x_seq.shape)} with H={hidden}'
                          ' passes the kernels\' int range')
     return steps, n_dir, rows, feat, hidden
@@ -395,7 +533,7 @@ def _check_scan(gates_x, w_hh):
         raise ValueError(f'lstm_scan: gates_x has {gdim} gate columns, w_hh '
                          f'{4 * hidden}')
     _check_hidden(hidden, 'lstm_scan')
-    if steps * n_dir * rows * 4 * hidden >= 2 ** 31:
+    if steps * n_dir * rows * 4 * hidden >= _INT_RANGE:
         raise ValueError(f'lstm_scan: {tuple(gates_x.shape)} passes the '
                          'kernels\' int range')
     return steps, n_dir, rows, hidden

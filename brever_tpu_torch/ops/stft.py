@@ -5,21 +5,25 @@ The contract is the JAX package's:
 
 * the input is right-padded to whole frames,
   ``frames = ceil(max(n - frame_length, 0) / hop) + 1``, then padded by
-  ``frame_length // 2`` zeros on both sides when ``center``;
-* frames are windowed (``scipy.signal.get_window``, periodic) and go
-  through ``torch.fft.rfft``;
+  ``n_fft // 2`` on both sides when ``center``, with zeros or, with
+  ``pad_mode='reflect'``, the signal's reflection;
+* the window (``scipy.signal.get_window``, periodic) has ``frame_length``
+  taps, centred in an FFT frame of ``n_fft`` (default ``frame_length``)
+  samples; frames of ``n_fft`` samples are windowed and go through
+  ``torch.fft.rfft``;
 * ``normalized`` divides by ``sqrt(sum(window ** 2))``, then magnitude
   compression ``|X| ** c * exp(j angle(X))`` and ``scale_factor``;
 * the inverse is the overlap-add of the windowed inverse FFT, divided by
   the overlap-added squared window where that exceeds 1e-11, and trimmed.
 
-The FFT runs outside any kernel here, as the JAX package leaves it to
-XLA. Only what the port's callers set is ported (TF-GridNet, SGMSE+ with
-its compression and scale, DCCRN with the normalised window, and the
-multiresyu loss): the onesided complex spectrum, constant center padding
-and a named window; the other options of the JAX ``STFT``, its opt-in
-Pallas backend (``backend='pallas'``, the TPU kernel K9) and ``ConvSTFT``
-are not ported yet. Every operation is differentiable.
+The FFT runs outside any kernel (cuFFT on the card), as the JAX package
+leaves it to XLA: that is ``backend='auto'``, differentiable. With
+``backend='pallas'`` and ``hop_length`` dividing ``n_fft`` (the JAX
+package's eligibility), the forward is the fused STFT kernel K9
+(``ops/stft_kernel.py``: framing, window and DFT as one product against the
+windowed basis; its plain version on the CPU), which has no backward, as in
+the JAX package: it raises if the input requires grad. The onesided complex
+spectrum only; ``ConvSTFT`` is not ported.
 """
 
 import math
@@ -28,6 +32,8 @@ import numpy as np
 import scipy.signal
 import torch
 import torch.nn.functional as F
+
+from .stft_kernel import stft_basis, stft_fused
 
 
 def overlap_add(frames, hop_length, out_length):
@@ -60,31 +66,57 @@ class STFT:
     is a ``scipy.signal.get_window`` name, ``None`` for boxcar."""
 
     def __init__(self, frame_length=512, hop_length=256, window='hann',
-                 center=True, normalized=True, compression_factor=1,
-                 scale_factor=1):
+                 center=True, pad_mode='constant', normalized=True,
+                 compression_factor=1, scale_factor=1, n_fft=None,
+                 backend='auto'):
+        if pad_mode not in ('constant', 'reflect'):
+            raise ValueError(f'pad_mode {pad_mode!r}: constant or reflect')
         self.frame_length = frame_length
         self.hop_length = hop_length
         self.center = center
+        self.pad_mode = pad_mode
         self.normalized = normalized
         self.compression_factor = compression_factor
         self.scale_factor = scale_factor
-        window = scipy.signal.get_window(window or 'boxcar', frame_length)
-        self._np_window = window.astype(np.float32)
+        self.n_fft = frame_length if n_fft is None else n_fft
+        self.backend = backend
+        window = scipy.signal.get_window(window or 'boxcar', frame_length) \
+            .astype(np.float32)
+        if self.n_fft > frame_length:
+            # the analysis window centred in the FFT frame
+            left = (self.n_fft - frame_length) // 2
+            window = np.pad(window, (left, self.n_fft - frame_length - left))
+        self._np_window = window
         self._win_norm = float(np.sqrt(np.sum(
             self._np_window.astype(np.float64) ** 2)))
         self._windows = {}
+        self._bases = {}
 
-    def window(self, like):
-        """The window as a tensor of ``like``'s real dtype and device."""
+    def _cached(self, cache, make, like):
+        """The array ``make()`` returns, as a tensor of ``like``'s real dtype
+        and device; ``make`` runs only when the cache lacks that pair."""
         dtype = like.real.dtype if like.is_complex() else like.dtype
         key = (dtype, like.device)
-        if key not in self._windows:
+        if key not in cache:
             # a normal tensor even when first made under inference mode,
             # so that a later autograd pass may save it
             with torch.inference_mode(False):
-                self._windows[key] = torch.as_tensor(self._np_window).to(
-                    dtype=dtype, device=like.device)
-        return self._windows[key]
+                cache[key] = torch.as_tensor(make()).to(dtype=dtype,
+                                                        device=like.device)
+        return cache[key]
+
+    def window(self, like):
+        """The window (``n_fft`` taps) as a tensor of ``like``'s real dtype
+        and device."""
+        return self._cached(self._windows, lambda: self._np_window, like)
+
+    @property
+    def fused(self):
+        """Whether the forward runs K9: ``backend='pallas'`` with ``hop``
+        dividing ``n_fft`` (the JAX package's eligibility; otherwise the
+        cuFFT path)."""
+        return self.backend == 'pallas' \
+            and self.n_fft % self.hop_length == 0
 
     def __call__(self, x):
         return self.forward(x)
@@ -92,16 +124,40 @@ class STFT:
     def forward(self, x):
         x = self.pad(x)
         if self.center:
-            half = self.frame_length // 2
-            x = F.pad(x, (half, half))
-        frames = x.unfold(-1, self.frame_length, self.hop_length) \
-            * self.window(x)
-        spec = torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
+            half = self.n_fft // 2
+            if self.pad_mode == 'reflect':
+                lead = x.shape[:-1]
+                x = F.pad(x.reshape(-1, 1, x.shape[-1]), (half, half),
+                          mode='reflect').reshape(*lead, -1)
+            else:
+                x = F.pad(x, (half, half))
+        if self.fused and not x.is_complex():
+            spec = self._fused_forward(x)
+        else:
+            frames = x.unfold(-1, self.n_fft, self.hop_length) \
+                * self.window(x)
+            spec = torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
         if self.normalized:
             spec = spec / self._win_norm
         if self.compression_factor != 1:
             spec = compress(spec, self.compression_factor)
         return spec * self.scale_factor
+
+    def _fused_forward(self, x):
+        """K9 over the padded signal: ``(..., bins, frames)`` complex."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                'STFT(backend=\'pallas\'): the fused STFT kernel has no '
+                'backward (nor has the JAX package\'s); use backend=\'auto\''
+                ' under autograd')
+        lead, n = x.shape[:-1], x.shape[-1]
+        basis = self._cached(
+            self._bases, lambda: stft_basis(self.n_fft, self._np_window), x)
+        out = stft_fused(x.reshape(-1, n).contiguous(), basis,
+                         self.hop_length)
+        bins = self.n_fft // 2 + 1
+        spec = torch.complex(out[..., :bins], out[..., bins:])
+        return spec.transpose(-1, -2).reshape(*lead, bins, out.shape[1])
 
     def backward(self, x):
         x = x / self.scale_factor
@@ -112,16 +168,16 @@ class STFT:
         # (..., frames, bins), contiguous: cuFFT's C2R transform takes the
         # transformed axis dense
         frames = torch.fft.irfft(x.transpose(-1, -2).contiguous(),
-                                 n=self.frame_length, dim=-1)
+                                 n=self.n_fft, dim=-1)
         window = self.window(frames)
         n_frames = frames.shape[-2]
-        out_length = (n_frames - 1) * self.hop_length + self.frame_length
+        out_length = (n_frames - 1) * self.hop_length + self.n_fft
         num = overlap_add(frames * window, self.hop_length, out_length)
         den = overlap_add((window ** 2).expand(n_frames, -1),
                           self.hop_length, out_length)
         y = num / torch.where(den > 1e-11, den, torch.ones_like(den))
         if self.center:
-            half = self.frame_length // 2
+            half = self.n_fft // 2
             y = y[..., half:out_length - half]
         return y
 

@@ -2,8 +2,9 @@
 
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
-``sgmsepm``, 27,756,186; DCCRN, 3,671,053; random weights from ``--seed``)
-on the device, float32 with TF32 off (as ``chip_smoke.py`` runs it), and
+``sgmsepm``, 27,756,186; DCCRN, 3,671,053; MANNER, 21,253,921; random
+weights from the family's ``init_parameters(--seed)``) on the device,
+float32 with TF32 off (as ``chip_smoke.py`` runs it), and
 measures:
 
 * request latency: ``EnhanceService.enhance`` of one mono request of each
@@ -43,10 +44,11 @@ import numpy as np
 import torch
 
 from .models import ModelRegistry
+from .numerics import disable_tf32
 from .serve import EnhanceService
 
 FS = 16000
-ARCHS = ('convtasnet', 'tfgridnet', 'sgmsep', 'sgmsepm', 'dccrn')
+ARCHS = ('convtasnet', 'tfgridnet', 'sgmsep', 'sgmsepm', 'dccrn', 'manner')
 
 
 def _kernel_name(name):
@@ -73,8 +75,7 @@ def _kernel_name(name):
 def _setup(cudnn_benchmark):
     """float32 with TF32 off, as ``chip_smoke.py`` runs; cuDNN's
     algorithm search (``torch.backends.cudnn.benchmark``) as asked."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    disable_tf32()
     torch.backends.cudnn.benchmark = cudnn_benchmark
 
 
@@ -115,8 +116,8 @@ def profile(device, calls=5, repeats=10, seed=0, trace=None,
             arch='convtasnet', batch=16, requests=(0.05, 4, 10),
             cudnn_benchmark=False):
     _setup(cudnn_benchmark)
-    torch.manual_seed(seed)
     model = ModelRegistry.get(arch)(device='cpu')
+    model.init_parameters(seed)
     state = model.state_dict()
     service = EnhanceService.from_params(
         arch, {}, model.to_flax(state), device, model.flax_aux(state))

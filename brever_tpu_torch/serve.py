@@ -11,7 +11,8 @@ answers
   (mono float32 at the model sample rate).
 
 ``POST /enhance_stream`` (causal streaming) answers 400: the port has no
-streaming pipeline yet. Requests are serialized through one model.
+streaming pipeline yet. Requests are serialized through one model, in
+float32 with TF32 off (``numerics.disable_tf32``).
 
     python -m brever_tpu_torch.serve <model_dir> [--device cuda]
         [--host 127.0.0.1] [--port 8000] [--best <metric>]
@@ -31,6 +32,7 @@ from .audio import read_wav, write_wav
 from .checkpoint import load_checkpoint
 from .config import get_config
 from .models import ModelRegistry, count_params
+from .numerics import disable_tf32
 
 
 def find_best_checkpoint(checkpoints_dir, metric):
@@ -90,6 +92,7 @@ class EnhanceService:
         return service
 
     def _setup(self, arch, model, checkpoint):
+        disable_tf32()
         self.model = model
         self.arch = arch
         self.fs = getattr(model, 'fs', 16000)

@@ -4,7 +4,8 @@ validation every ``val_period`` epochs, last/best/pinned checkpoints with
 resume, ``TrainingTimer``, ``LossLogger``, ``CheckpointSaver`` and
 ``EarlyStopping``.
 
-One process, one device, float32. The parameters live in one flat buffer
+One process, one device, float32 with TF32 off
+(``numerics.disable_tf32``). The parameters live in one flat buffer
 (``optim.flatten_parameters``): a step is the model's loss, one
 ``torch.autograd.grad`` (the TCN blocks' backward is the hand-written
 kernel on CUDA), optax's global-norm clip and Adam over that buffer, and
@@ -16,7 +17,9 @@ Checkpoints are the JAX trainer's msgpack layout (``training.py``
 step, losses, timer and best-checkpoint records, so
 ``brever_tpu.checkpoint.load_checkpoint`` and both packages' servers read
 them. The optimizer state is ``chain(clip_by_global_norm, adam)``'s,
-``[clip, [adam (count, mu, nu), lr]]``, or, for a family that declares
+``[clip, [adam (count, mu, nu), lr]]`` (``lr`` empty for a constant rate,
+``[count]`` for a schedule's own count, MANNER's one-cycle schedule), or,
+for a family that declares
 ``injects_hyperparams`` (the JAX package wraps its Adam in
 ``optax.inject_hyperparams``), ``[clip, [count, hyperparams, {}, [adam,
 lr]]]`` with the learning rate in ``hyperparams``; without clipping the
@@ -65,6 +68,7 @@ from .data import BreverDataLoader
 from .metrics import MetricRegistry, check_metrics
 from .models import count_params
 from .models.base import sample_weighted_mean
+from .numerics import disable_tf32
 from .optim import clip_by_global_norm, flatten_parameters
 
 
@@ -156,6 +160,7 @@ class BreverTrainer:
                             'Forcing workers=0.')
             workers = 0
 
+        disable_tf32()
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.train_dataset = train_dataset
@@ -451,7 +456,12 @@ class BreverTrainer:
         """The optimizer state in optax's layout (module docstring)."""
         opt = self.optimizer.state_dict()
         count = np.asarray(opt['count'].cpu())
-        inner = [[count, self._flax(opt['mu']), self._flax(opt['nu'])], []]
+        # optax.adam's second transform: scale_by_learning_rate's state, a
+        # schedule's own count (none for a constant rate)
+        rate_state = [np.asarray(opt['schedule_count'], np.int32)] \
+            if 'schedule_count' in opt else []
+        inner = [[count, self._flax(opt['mu']), self._flax(opt['nu'])],
+                 rate_state]
         if getattr(self.model, 'injects_hyperparams', False):
             hyper = {key: np.asarray(getattr(self.optimizer, key), np.float32)
                      for key in _HYPERPARAMS}
@@ -467,10 +477,12 @@ class BreverTrainer:
             for key in _HYPERPARAMS:
                 setattr(self.optimizer, key, float(hyper[key]))
         count, mu, nu = inner[0]
-        self.optimizer.load_state_dict({
-            'count': torch.from_numpy(np.array(count)),
-            'mu': self._flat_from_flax(mu),
-            'nu': self._flat_from_flax(nu)})
+        state = {'count': torch.from_numpy(np.array(count)),
+                 'mu': self._flat_from_flax(mu),
+                 'nu': self._flat_from_flax(nu)}
+        if inner[1]:
+            state['schedule_count'] = int(np.asarray(inner[1][0]))
+        self.optimizer.load_state_dict(state)
 
     def save_checkpoint(self, path):
         state = {

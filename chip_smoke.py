@@ -7,13 +7,15 @@ TF-GridNet (n_fft 256, stride 128, 6 layers, LSTM hidden 128, 4 heads,
 qk 512, emb 32, ks = hs = 4; 3,735,344 random parameters from a seed),
 full-width SGMSE+ (``sgmsep``, the NCSN++ U-Net: 128 base channels, mults
 1, 1, 2, 2, 2, 2, 2, two blocks a level, attention at 16 frequencies and
-the bottleneck; 65,590,694 random parameters from a seed) and full-width
+the bottleneck; 65,590,694 random parameters from a seed), full-width
 DCCRN (STFT 512/128, channels 16-32-64-128-128-128, kernel (5, 2), stride
 (2, 1), two complex LSTM layers of 128, batch norm; 3,671,053 random
-parameters from a seed) on the card. Every family is served through
-``EnhanceService(model_dir)`` and trained through ``train.main([...])`` on
-a model directory written here, the entry points of ``python -m
-brever_tpu_torch.serve`` and ``.train``. The phases each print one line:
+parameters from a seed) and MANNER (its only width: hidden 60, depth 4,
+69 BatchNorms; 21,253,921 random parameters from a seed) on the card.
+Every family is served through ``EnhanceService(model_dir)`` and trained
+through ``train.main([...])`` on a model directory written here, the entry
+points of ``python -m brever_tpu_torch.serve`` and ``.train``. The phases
+each print one line, with the seconds since the start:
 
 0. the card (nvidia-smi name and power limit), versions, optional deps;
 1. build the CUDA kernels from brever_tpu_torch/csrc with nvcc;
@@ -75,6 +77,31 @@ brever_tpu_torch.serve`` and ``.train``. The phases each print one line:
     versions, the projection + K5 route vs K3 (projection inside) and K6
     vs K4 at the same shape, cuDNN's LSTM, enhance and the train step with
     kernel and with plain LSTMs, peak memory.
+28. the flash-BN kernels (K7-BN forward, K8-BN backward) against their
+    plain versions at MANNER's shape classes at 16 x 4 s (C = 60 at full
+    length, 120, 1920, and C = 1 over the attention chunks), none, ReLU
+    and SiLU; the backward in float64, twice bitwise;
+29. MANNER from ``EnhanceService(model_dir)`` (running statistics moved by
+    train-mode passes): enhance against the plain path in float64, HTTP
+    requests of 0.05 and 4 s, no K7-BN launch in eval mode;
+30. MANNER's gradients (2 x 2 s, train mode) and running statistics
+    against the plain-BatchNorm path in float64; 69 K7-BN and 69 K8-BN
+    launches;
+31. MANNER trained through train.main on a WAV dataset written here: the
+    loss falls, the one-cycle learning rate follows optax's schedule,
+    last.ckpt (running statistics, Adam and the schedule's count) resumes
+    bitwise, the checkpoint serves;
+32. timings at 16 x 4 s: K7-BN and K8-BN at the largest shape and summed
+    over a step's 69 BatchNorms, beside their plain versions and
+    ``F.batch_norm`` + the activation; enhance; the train step with kernel
+    and with plain BatchNorms, peak memory;
+33. the fused STFT (K9) against its plain version and ``torch.stft`` at
+    256/128 and 512/128 over 16 x 4 s, timed; one DCCRN enhance with
+    ``STFT(backend='pallas')`` against the cuFFT route;
+34. the LSTM kernels on shapes they refused before: H = 200 at TF-GridNet's
+    intra shape (padded to 224) through autograd, an (E, H) past the shared
+    memory routed to the projection and K5, and a row count past the int
+    range in row chunks.
 
 Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
 comparisons hold the kernels to float32. Any failure raises (non-zero
@@ -92,6 +119,7 @@ import contextlib
 import http.client
 import io
 import json
+import math
 import os
 import platform
 import subprocess
@@ -142,8 +170,13 @@ CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
 
+#: the run's start on the host clock, for each phase's elapsed time
+START = time.perf_counter()
+
+
 def phase(n, text):
-    print(f'phase {n}: {text}', flush=True)
+    print(f'phase {n} [{time.perf_counter() - START:.0f} s]: {text}',
+          flush=True)
 
 
 def random_flax_params(rng, filters, filter_length, bottleneck, hidden,
@@ -350,7 +383,8 @@ def train_and_resume(args, epochs, counters):
     ``counters`` set to 0 just before and read just after; then a trainer
     built from the same command line restores last.ckpt and is held
     bitwise against the first run's state (parameters, Adam's moments,
-    learning rate, the loss's generator, the buffers), and
+    learning rate or a schedule's count, the loss's generator, the
+    buffers), and
     ``train.main`` resumes to ``epochs + 2``. Returns the first and the
     resumed trainer, the first run's seconds and launch counts."""
     from brever_tpu_torch import train
@@ -366,11 +400,13 @@ def train_and_resume(args, epochs, counters):
     probe.load_checkpoint()
     buffers = [(a, b) for a, b in zip(probe.model.buffers(),
                                       first.model.buffers())]
+    def rate(opt):   # a schedule's own count, or the constant rate
+        return opt.schedule_count if opt.scheduled else opt.learning_rate
+
     if not torch.equal(probe.flat, first.flat) \
             or not torch.equal(probe.optimizer.mu, first.optimizer.mu) \
             or not torch.equal(probe.optimizer.nu, first.optimizer.nu) \
-            or probe.optimizer.learning_rate \
-            != first.optimizer.learning_rate \
+            or rate(probe.optimizer) != rate(first.optimizer) \
             or not torch.equal(probe.generator.get_state(),
                                first.generator.get_state()) \
             or not all(torch.equal(a, b) for a, b in buffers) \
@@ -1737,6 +1773,627 @@ def dccrn_phases(device, card):
     return out
 
 
+MANNER_PARAMS = 21_253_921
+#: MANNER's BatchNorm shape classes at 16 x 4 s (padded length 64,084):
+#: the full-resolution level (in_bn, dec_0_up_bn), level 0's ResCon, the
+#: widest (dec_3_rescon pw1_bn, C = 1920 at 249) and the local attention's
+#: C = 1 gate over 160 chunks of 64
+BN_CASES = [(16, 60, 64084), (16, 120, 16020), (16, 1920, 249),
+            (160, 1, 64)]
+#: a short MANNER training run's train loss must end at most at this
+#: fraction of its first epoch's (phase 31)
+MANNER_LOSS_RATIO = 0.95
+#: the least SNR against float64 of any live MANNER gradient tensor
+#: (phase 30): a zero gradient reads 0 dB, a sign-flipped one -6 dB
+TENSOR_FLOOR_DB = 6.0
+#: the fused STFT's cases at 16 x 4 s: TF-GridNet's, and DCCRN's and
+#: SGMSE+'s (n_fft, hop)
+STFT_CASES = [(256, 128), (512, 128)]
+
+
+@contextlib.contextmanager
+def plain_batchnorms():
+    """Every train-mode MANNER BatchNorm runs the plain forward and its
+    memory-lean backward instead of K7-BN and K8-BN."""
+    from brever_tpu_torch.models import common
+    from brever_tpu_torch.ops import batchnorm
+    common.batch_norm_act = batchnorm.batch_norm_act_plain
+    try:
+        yield
+    finally:
+        common.batch_norm_act = batchnorm.batch_norm_act
+
+
+def bn_library(x, scale, bias, act):
+    """``F.batch_norm(training=True)`` + the activation: the library
+    yardstick, never called by the port."""
+    import torch.nn.functional as F
+    y = F.batch_norm(x, None, None, scale, bias, True, 0.0, 1e-5)
+    if act == 'relu':
+        return F.relu(y)
+    return F.silu(y) if act == 'silu' else y
+
+
+def bn_bounds(shape):
+    """(K7-BN, K8-BN) bounds: x read and y written; x and dy read and dx
+    written (the (C,) vectors are a few KB; a few flops an element is far
+    below the bytes)."""
+    n = int(np.prod(shape))
+    return bound(10 * n, 4 * 2 * n), bound(20 * n, 4 * 3 * n)
+
+
+def manner_model(state, device, dtype=torch.float32):
+    """The default ``manner`` on ``device`` in ``dtype`` holding a state_dict
+    (running statistics included), in eval mode."""
+    from brever_tpu_torch.models import ModelRegistry
+    model = ModelRegistry.get('manner')(device='cpu')
+    model.load_state_dict(state)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def manner_grads(model, batch, lengths):
+    """Gradients of the train-mode loss, and the running statistics that
+    loss left (a float64 model gets a float64 batch)."""
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    model.train()
+    dtype = model.net.in_conv.weight.dtype
+    loss = sample_weighted_mean(model.loss(batch.to(dtype), lengths),
+                                lengths)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    model.eval()
+    return ({k: g.double().cpu().numpy()
+             for (k, _), g in zip(model.named_parameters(), grads)},
+            {k: b.detach().clone() for k, b in model.named_buffers()})
+
+
+def onecycle_f64(count, total, peak=1e-3):
+    """optax's cosine one-cycle value in float64, for the schedule check."""
+    bounds = (0, int(0.3 * total), total)
+    values = (peak / 25, peak, peak / 25 / 1e4)
+    for i in range(2):
+        if bounds[i] <= count < bounds[i + 1]:
+            pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+            return values[i + 1] + (values[i] - values[i + 1]) / 2 \
+                * (np.cos(np.pi * pct) + 1)
+    return values[2]
+
+
+def manner_phases(device, card):
+    """Phases 28-32 (MANNER and flash-BN); returns the numbers of the
+    K7-BN/K8-BN JSON records."""
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.models import ModelRegistry, common, count_params
+    from brever_tpu_torch.models import manner
+    from brever_tpu_torch.ops import batchnorm as bn
+    from brever_tpu_torch.profile_train import make_trainer
+    from brever_tpu_torch.serve import EnhanceService, build_model
+    out = {}
+    torch.cuda.empty_cache()
+    kf, kb = bn.batch_norm_act_fwd, bn.batch_norm_act_bwd
+
+    # ---- phase 28: K7-BN and K8-BN vs their plain versions on the card
+    rng = np.random.RandomState(28)
+    fwd_worst, fwd_err, bwd_worst, bwd_err, n_cases = (float('inf'), 0.0,
+                                                       float('inf'), 0.0, 0)
+    for shape in BN_CASES:
+        for act in ('none', 'relu', 'silu'):
+            name = f'{shape} {act}'
+            x, scale, bias, dy = gn_inputs(rng, shape, device)
+            y, mean, var, rstd = kf(x, scale, bias, 1e-5, act)
+            ref = bn.batch_norm_act_reference(x, scale, bias, 1e-5, act)
+            worst, err = check_close(f'K7-BN {name}',
+                                     ('y', 'mean', 'var', 'rstd'), ref,
+                                     (y, mean, var, rstd))
+            fwd_worst, fwd_err = min(fwd_worst, worst), max(fwd_err, err)
+            del ref
+            grads = kb(x, dy, scale, bias, mean, rstd, act)
+            again = kb(x, dy, scale, bias, mean, rstd, act)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f'K8-BN {name}: two runs differ')
+            del again
+            # ReLU's branch at a z within rounding of 0 is the kernel's
+            dy64, act64 = ((dy * (y > 0)).double(), 'none') \
+                if act == 'relu' else (dy.double(), act)
+            want = bn.batch_norm_act_bwd_plain(
+                x.double(), dy64, scale.double(), bias.double(),
+                mean.double(), rstd.double(), act64)
+            worst, err = check_close(f'K8-BN {name}',
+                                     ('dx', 'dscale', 'dbias'), want, grads)
+            bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
+            n_cases += 1
+            del x, y, dy, dy64, grads, want
+    torch.cuda.empty_cache()
+    out['fwd_err'], out['bwd_err'] = fwd_err, bwd_err
+    phase(28, f'{n_cases} BatchNorm cases (MANNER\'s shape classes at '
+          f'16 x 4 s: {", ".join(str(s) for s in BN_CASES)}; none, ReLU, '
+          f'SiLU): K7-BN y, mean, var, rstd vs the plain version worst '
+          f'{fwd_worst:.1f} dB, max abs err {fwd_err:.3e}; K8-BN dx, '
+          f'dscale, dbias vs the plain backward in float64 worst '
+          f'{bwd_worst:.1f} dB (>= {MIN_SNR_DB}), max abs err '
+          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two K8-BN '
+          'runs bitwise equal')
+
+    # ---- phase 29: serving: enhance from EnhanceService(model_dir) and
+    # HTTP, the running statistics moved off their initial values by
+    # train-mode passes; eval mode launches no kernel
+    model = ModelRegistry.get('manner')(device='cpu')
+    model.init_parameters(29)
+    model.to(device).train()
+    rng = np.random.RandomState(29)
+    with torch.no_grad():
+        for _ in range(2):
+            data = torch.from_numpy((0.1 * rng.randn(4, 2, 2, 2 * FS))
+                                    .astype(np.float32)).to(device)
+            model.loss(data, torch.full((4,), 2 * FS, device=device))
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    params, aux = model.to_flax(state), model.flax_aux(state)
+    del model, data
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, 'model'), 'manner',
+                                    params=params, aux=aux)
+        gpu = EnhanceService(model_dir, device)
+    n_bn = manner.count_batch_norms(gpu.model)
+    if count_params(gpu.model) != MANNER_PARAMS \
+            or n_bn != manner.N_BATCH_NORMS:
+        raise AssertionError(f'{count_params(gpu.model)} parameters, '
+                             f'{n_bn} BatchNorms')
+    ref_model = manner_model(state, device, torch.float64)
+    mix = (0.1 * np.random.RandomState(30).randn(4, 2, 4 * FS)) \
+        .astype(np.float32)
+    kf.launches = 0
+    enhanced = gpu.model.enhance(mix)
+    torch.cuda.synchronize()
+    eval_launches = kf.launches
+    snr, err = check_output('MANNER enhance (4, 2, 64000)',
+                            ref_model.enhance(mix).cpu().numpy(),
+                            enhanced.cpu().numpy())
+    results = []
+    with http_service(gpu) as (port, health):
+        if health['params'] != MANNER_PARAMS or health['arch'] != 'manner':
+            raise AssertionError(f'/health: {health}')
+        for seconds in (0.05, 4):
+            audio = (0.1 * np.random.RandomState(31).randn(
+                int(seconds * FS))).astype(np.float32)
+            got = post_wav(port, audio)
+            want = ref_model.enhance(np.stack([audio, audio]))
+            h_snr, _ = check_output(f'MANNER /enhance {seconds} s',
+                                    want.cpu().numpy(), got)
+            results.append(f'{seconds} s {h_snr:.1f} dB')
+    out['launches_serve'] = kf.launches
+    if out['launches_serve']:
+        raise AssertionError(f'eval launched K7-BN {kf.launches} times')
+    del ref_model
+    phase(29, f'MANNER ({MANNER_PARAMS:,} parameters, {n_bn} BatchNorms) '
+          f'from EnhanceService(model_dir): enhance (4, 2, 64000) SNR '
+          f'{snr:.2f} dB, max abs err {err:.3e} vs the plain path in '
+          f'float64; /health ok, /enhance {", ".join(results)}; '
+          f'{eval_launches} K7-BN launches in eval mode (running statistics)')
+
+    # ---- phase 30: gradients (2 x 2 s) and the running-statistics update
+    # vs the plain path in float64
+    rng = np.random.RandomState(32)
+    target = 0.1 * rng.randn(2, 1, 2, 2 * FS)
+    batch = torch.from_numpy(np.concatenate(
+        [target + 0.1 * rng.randn(2, 1, 2, 2 * FS), target], axis=1)
+        .astype(np.float32)).to(device)
+    lengths = torch.tensor([2 * FS, 3 * FS // 2], device=device)
+    with plain_batchnorms():
+        ref, ref_stats = manner_grads(manner_model(state, device,
+                                                   torch.float64),
+                                      batch, lengths)
+        plain, _ = manner_grads(manner_model(state, device), batch, lengths)
+    kf.launches = kb.launches = 0
+    got, got_stats = manner_grads(manner_model(state, device), batch,
+                                  lengths)
+    launches_grad = (kf.launches, kb.launches)
+    if launches_grad != (n_bn, n_bn):
+        raise AssertionError('MANNER gradients: K7-BN {} and K8-BN {} '
+                             'launches'.format(*launches_grad))
+    k_whole, k_worst, k_name, k_dead = grad_report(ref, got)
+    p_whole, p_worst, p_name, p_dead = grad_report(ref, plain)
+    # the whole gradient and each live tensor within 10 dB of the plain
+    # float32 path's SNR on it (at 60 dB where that path is higher), and
+    # each tensor at 6 dB at least, which a zero or sign-flipped gradient
+    # (0 and -6 dB) fails: float32 through 69 stacked train-mode
+    # BatchNorms keeps about 45 dB whole, and a BatchNorm's scale gradient
+    # over a cancelling sum less (the C = 1 gates'); a conv bias that
+    # feeds a train-mode BatchNorm has a zero gradient, held within 10 x
+    # the plain float32 path's rounding
+    top = max(float(np.abs(v).max()) for v in ref.values())
+    live = [k for k in ref if np.abs(ref[k]).max() > 1e-6 * top]
+    margin = {k: snr_db(ref[k], got[k]) - snr_db(ref[k], plain[k])
+              for k in live}
+    short = [k for k in live if snr_db(ref[k], got[k]) < max(
+        TENSOR_FLOOR_DB, min(MIN_SNR_DB, snr_db(ref[k], plain[k]) - 10))]
+    k_margin = min(margin, key=margin.get)
+    whole_db = min(MIN_SNR_DB, p_whole - 10)
+    dead_bound = max(1e-5, 10 * p_dead)
+    if k_whole < whole_db or short or k_dead > dead_bound:
+        raise AssertionError(f'MANNER gradients: whole {k_whole:.2f} dB (>= '
+                             f'{whole_db:.1f}), tensors under their floor '
+                             f'{short}, zero tensors '
+                             f'{k_dead:.1e} (<= {dead_bound:.1e})')
+    stats_db, stats_err = check_close(
+        'MANNER running statistics', list(ref_stats), ref_stats.values(),
+        [got_stats[k] for k in ref_stats])
+    out['grad'] = dict(whole=k_whole, worst=k_worst, plain_whole=p_whole)
+    del ref, plain, got, ref_stats, got_stats, batch
+    torch.cuda.empty_cache()
+    phase(30, f'MANNER gradients (2 x 2 s, train mode) vs the plain-BN path '
+          f'in float64: whole {k_whole:.1f} dB (>= {whole_db:.1f}), worst '
+          f'tensor {k_worst:.1f} dB ({k_name}), each within 10 dB of the '
+          f'plain float32 path\'s SNR on it and >= {TENSOR_FLOOR_DB} dB '
+          f'(least margin {margin[k_margin]:+.1f} dB, {k_margin}), '
+          f'zero-gradient tensors within '
+          f'{k_dead:.1e} of the largest (<= {dead_bound:.1e}); the plain '
+          f'float32 path: whole {p_whole:.1f} dB, worst {p_worst:.1f} dB '
+          f'({p_name}), zero {p_dead:.1e}; the '
+          f'running statistics after the loss {stats_db:.1f} dB, max abs err '
+          f'{stats_err:.3e}; {launches_grad[0]} K7-BN and {launches_grad[1]} '
+          'K8-BN launches')
+
+    # ---- phase 31: training through train.main on the card
+    epochs = 6
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = tone_model_dir(tmp, 'manner', 50)
+        first, second, train_s, (out['launches_train'],
+                                 out['launches_train_bwd']) = \
+            train_and_resume(lambda n: train_args(model_dir, n, 3), epochs,
+                             [(kf, 'launches'), (kb, 'launches')])
+        if not out['launches_train'] or not out['launches_train_bwd']:
+            raise AssertionError('training launched K7-BN {} and K8-BN {} '
+                                 'times'.format(out['launches_train'],
+                                                out['launches_train_bwd']))
+        losses = first.loss_logger.train_loss
+        last = float(np.mean(losses[-2:]))
+        if not np.isfinite(losses).all() \
+                or last > MANNER_LOSS_RATIO * losses[0]:
+            raise AssertionError(f'training loss {losses[0]:.4f} -> '
+                                 f'{last:.4f}')
+        # the one-cycle schedule over the run's updates, as optax's
+        total = len(first.train_batch_sampler) * epochs
+        opt = first.optimizer
+        rates = [opt.learning_rate(i) for i in range(total + 1)]
+        want = [onecycle_f64(i, total) for i in range(total + 1)]
+        if not opt.schedule_count == first.step == total \
+                or not np.allclose(rates, want, rtol=1e-5, atol=0) \
+                or not max(rates) == rates[int(0.3 * total)]:
+            raise AssertionError(f'schedule count {opt.schedule_count}, '
+                                 f'step {first.step}, rates {rates}')
+        state_ckpt = load_checkpoint(second.last_ckpt_path)
+        stats = state_ckpt['aux']['batch_stats']
+        if not np.array_equal(stats['in_bn']['var'],
+                              second.model.net.in_bn.var.cpu().numpy()):
+            raise AssertionError('last.ckpt lacks the running statistics')
+        served = build_model('manner', {}, state_ckpt['params'], device,
+                             state_ckpt['aux'])
+        item = second.val_dataset[0][0][None]
+        torch.testing.assert_close(served.enhance(item),
+                                   second.model.enhance(item), atol=1e-6,
+                                   rtol=1e-5)
+        val = [v for v in first.loss_logger.val_loss if v is not None]
+        phase(31, f'MANNER train.main, 24 x 1 s tone-in-noise WAV items, '
+              f'batch 8, {epochs} epochs in {train_s:.1f} s: train loss '
+              f'{losses[0]:.4f} -> {last:.4f} (<= {MANNER_LOSS_RATIO} x), '
+              f'val loss {val[0]:.4f} -> {val[-1]:.4f}; one-cycle rate '
+              f'{rates[0]:.3g} -> {max(rates):.3g} at update '
+              f'{int(0.3 * total)} -> {rates[total]:.3g} at {total}, as '
+              f'optax\'s schedule; K7-BN {out["launches_train"]} / K8-BN '
+              f'{out["launches_train_bwd"]} launches; resumed bitwise (the '
+              f'running statistics, Adam and the schedule\'s count) from '
+              f'last.ckpt to epoch {second.epochs_ran}; the checkpoint serves')
+        del first, second, served
+
+    # ---- phase 32: timings at 16 x 4 s (plain, kernel, kernel, plain)
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(33)
+    x, scale, bias, dy = gn_inputs(rng, BN_CASES[0], device)
+    with torch.no_grad():
+        _, mean, _, rstd = kf(x, scale, bias, 1e-5, 'relu')
+        fwd = in_turns({
+            'kernel': lambda: kf(x, scale, bias, 1e-5, 'relu'),
+            'plain': lambda: bn.batch_norm_act_reference(x, scale, bias,
+                                                         1e-5, 'relu')},
+            10, 2)[0]
+        bwd = in_turns({
+            'kernel': lambda: kb(x, dy, scale, bias, mean, rstd, 'relu'),
+            'plain': lambda: bn.batch_norm_act_bwd_plain(
+                x, dy, scale, bias, mean, rstd, 'relu')}, 10, 2)[0]
+        fwd['library'] = cuda_ms(lambda: bn_library(x, scale, bias, 'relu'),
+                                 10, 2)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    y_lib = bn_library(*leaves, 'relu')
+    bwd['library'] = cuda_ms(lambda: torch.autograd.grad(
+        y_lib, leaves, dy, retain_graph=True), 10, 2)
+    del x, dy, mean, rstd, leaves, y_lib
+    out['largest'] = {'fwd': fwd, 'bwd': bwd,
+                      'bound': bn_bounds(BN_CASES[0])}
+    torch.cuda.empty_cache()
+    batch = torch.from_numpy((0.1 * rng.randn(16, 2, 4 * FS))
+                             .astype(np.float32)).to(device)
+    enhance_ms = cuda_ms(lambda: gpu.model.enhance(batch), 3, 1)
+    del gpu, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        step_trainer, data, n = make_trainer(device, tmp, arch='manner')
+        kf.launches = kb.launches = 0
+        step_trainer.train_step(data, n)
+        out['launches_step'] = (kf.launches, kb.launches)
+        # every BatchNorm call of a step: its shape and activation
+        calls = {}
+        kernel_bn = common.batch_norm_act
+
+        def record(x, scale, bias, eps=1e-5, act='none'):
+            key = (tuple(x.shape), act)
+            calls[key] = calls.get(key, 0) + 1
+            return kernel_bn(x, scale, bias, eps, act)
+
+        common.batch_norm_act = record
+        try:
+            step_trainer.train_step(data, n)
+        finally:
+            common.batch_norm_act = kernel_bn
+
+        def kernel_step():
+            step_trainer.train_step(data, n)
+
+        def plain_step():
+            with plain_batchnorms():
+                step_trainer.train_step(data, n)
+
+        step_ms, step_peak = in_turns({'kernel': kernel_step,
+                                       'plain': plain_step}, 2, 1)
+        del step_trainer, data
+    torch.cuda.empty_cache()
+    if out['launches_step'] != (n_bn, n_bn) or sum(calls.values()) != n_bn:
+        raise AssertionError('MANNER 16 x 4 s step: K7-BN {}, K8-BN {} '
+                             'launches, {} BatchNorm calls'.format(
+                                 *out['launches_step'], sum(calls.values())))
+    # the step's BatchNorms, each timed at its shape: kernel, plain, library
+    per_step = dict.fromkeys(('k7', 'plain', 'library', 'k8', 'plain_bwd',
+                              'library_bwd', 'bound_k7', 'bound_k8'), 0.0)
+    for (shape, act), count in calls.items():
+        x, scale, bias, dy = gn_inputs(rng, shape, device)
+        with torch.no_grad():
+            _, mean, _, rstd = kf(x, scale, bias, 1e-5, act)
+            times = {
+                'k7': lambda: kf(x, scale, bias, 1e-5, act),
+                'plain': lambda: bn.batch_norm_act_reference(
+                    x, scale, bias, 1e-5, act),
+                'library': lambda: bn_library(x, scale, bias, act),
+                'k8': lambda: kb(x, dy, scale, bias, mean, rstd, act),
+                'plain_bwd': lambda: bn.batch_norm_act_bwd_plain(
+                    x, dy, scale, bias, mean, rstd, act)}
+            for key, fn in times.items():
+                per_step[key] += count * cuda_ms(fn, 3, 1)
+        leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+        y_lib = bn_library(*leaves, act)
+        per_step['library_bwd'] += count * cuda_ms(
+            lambda: torch.autograd.grad(y_lib, leaves, dy,
+                                        retain_graph=True), 3, 1)
+        b7, b8 = bn_bounds(shape)
+        per_step['bound_k7'] += count * b7[0]
+        per_step['bound_k8'] += count * b8[0]
+        del x, dy, mean, rstd, leaves, y_lib
+    torch.cuda.empty_cache()
+    out.update(step_ms=step_ms, step_peak=step_peak, enhance_ms=enhance_ms,
+               per_step=per_step, n_bn=n_bn)
+    mib = 2 ** 20
+    b = out['largest']['bound']
+    phase(32, f'[{card}] K7-BN/K8-BN at {BN_CASES[0]} ReLU kernel/plain/'
+          f'F.batch_norm+act ms: fwd {fwd["kernel"]:.3f}/{fwd["plain"]:.3f}/'
+          f'{fwd["library"]:.3f} (bound {b[0][0]:.3f}), bwd '
+          f'{bwd["kernel"]:.3f}/{bwd["plain"]:.3f}/{bwd["library"]:.3f} '
+          f'(bound {b[1][0]:.3f}); summed over the {n_bn} BatchNorms of a '
+          f'16 x 4 s step ({len(calls)} shapes): K7-BN '
+          f'{per_step["k7"]:.2f}/{per_step["plain"]:.2f}/'
+          f'{per_step["library"]:.2f} (bound {per_step["bound_k7"]:.2f}), '
+          f'K8-BN {per_step["k8"]:.2f}/{per_step["plain_bwd"]:.2f}/'
+          f'{per_step["library_bwd"]:.2f} (bound '
+          f'{per_step["bound_k8"]:.2f}); enhance 16 x 4 s '
+          f'{enhance_ms:.2f} ms; train step 16 x 4 s f32 '
+          f'{step_ms["kernel"]:.1f} ms, peak '
+          f'{step_peak["kernel"] / mib:.1f} MiB (plain BatchNorms '
+          f'{step_ms["plain"]:.1f} ms, {step_peak["plain"] / mib:.1f} MiB); '
+          f'{out["launches_step"][0]} K7-BN and {out["launches_step"][1]} '
+          'K8-BN launches a step')
+    return out
+
+
+def stft_phase(device, card):
+    """Phase 33 (the fused STFT, K9); returns the numbers of its JSON
+    record."""
+    import torch.nn.functional as F
+    from brever_tpu_torch.models import ModelRegistry
+    from brever_tpu_torch.ops import stft_kernel
+    from brever_tpu_torch.ops.stft import STFT
+    torch.cuda.empty_cache()
+    k9 = stft_kernel.stft_fused
+    rng = np.random.RandomState(34)
+    signal = torch.from_numpy((0.1 * rng.randn(16, 4 * FS))
+                              .astype(np.float32)).to(device)
+    out, worst, max_err = {}, float('inf'), 0.0
+    for n_fft, hop in STFT_CASES:
+        stft = STFT(frame_length=n_fft, hop_length=hop, normalized=False,
+                    backend='pallas')
+        x = F.pad(stft.pad(signal), (n_fft // 2, n_fft // 2)).contiguous()
+        basis = torch.from_numpy(stft_kernel.stft_basis(
+            n_fft, stft._np_window)).to(device)
+        window = torch.from_numpy(stft._np_window).to(device)
+        with torch.no_grad():
+            got = k9(x, basis, hop)
+            plain = stft_kernel.stft_basis_plain(x, basis, hop)
+            lib = torch.stft(x, n_fft, hop, window=window, center=False,
+                             return_complex=True)     # (rows, bins, frames)
+            bins = n_fft // 2 + 1
+            lib_ri = torch.cat([lib.real, lib.imag], dim=1).transpose(1, 2)
+            torch.cuda.synchronize()
+            w1, e1 = check_close(f'K9 {n_fft}/{hop} vs plain', ('spec',),
+                                 (plain,), (got,))
+            w2, e2 = check_close(f'K9 {n_fft}/{hop} vs torch.stft',
+                                 ('spec',), (lib_ri,), (got,))
+            worst, max_err = min(worst, w1, w2), max(max_err, e1, e2)
+            times, _ = in_turns({
+                'kernel': lambda: k9(x, basis, hop),
+                'plain': lambda: stft_kernel.stft_basis_plain(x, basis,
+                                                              hop)}, 10, 2)
+            times['library'] = cuda_ms(lambda: torch.stft(
+                x, n_fft, hop, window=window, center=False,
+                return_complex=True), 10, 2)
+            # the module's forward end to end: padding, K9 and the complex
+            # view, the basis cached after the first call
+            times['module'] = cuda_ms(lambda: stft(signal), 10, 2)
+        rows, n = x.shape
+        frames = got.shape[1]
+        # the function needs a real FFT a frame (2.5 n log2 n operations,
+        # half a complex FFT's 5 n log2 n), not the dense product K9 does;
+        # the signal read once and the spectrum written once
+        fft_flops = 2.5 * rows * frames * n_fft * math.log2(n_fft)
+        nbytes = 4 * (rows * n + rows * frames * 2 * bins)
+        times['bound'] = bound(fft_flops, nbytes)
+        times['dense_bound'] = bound(
+            2 * rows * frames * n_fft * 2 * bins,
+            nbytes + 4 * n_fft * 2 * bins)
+        out[f'{n_fft}/{hop}'] = times
+        del x, basis, got, plain, lib, lib_ri
+    out['module_ms'] = out['512/128']['module']
+    # one DCCRN enhance with its STFT on K9 against the cuFFT route
+    model = ModelRegistry.get('dccrn')(device='cpu')
+    model.init_parameters(35)
+    model.to(device).eval()
+    mix = (0.1 * rng.randn(4, 2, 4 * FS)).astype(np.float32)
+    want = model.enhance(mix)
+    model.stft.backend = 'pallas'
+    k9.launches = 0
+    got = model.enhance(mix)
+    torch.cuda.synchronize()
+    out['launches'] = k9.launches
+    if out['launches'] != 1:
+        raise AssertionError(f'DCCRN enhance: {k9.launches} K9 launches')
+    snr, err = check_output('DCCRN enhance on K9',
+                            want.cpu().numpy(), got.cpu().numpy())
+    out['err'] = max_err
+    del model
+    torch.cuda.empty_cache()
+    t1, t2 = out['256/128'], out['512/128']
+    phase(33, f'[{card}] K9 (fused STFT) at 16 x 4 s vs stft_basis_plain and '
+          f'torch.stft (cuFFT), same window and centre: worst '
+          f'{worst:.1f} dB, max abs err {max_err:.3e}; kernel/plain/'
+          f'torch.stft ms: 256/128 {t1["kernel"]:.3f}/{t1["plain"]:.3f}/'
+          f'{t1["library"]:.3f} (bound {t1["bound"][0]:.4f} by '
+          f'{t1["bound"][1]}, dense product {t1["dense_bound"][0]:.4f}), '
+          f'512/128 {t2["kernel"]:.3f}/{t2["plain"]:.3f}/'
+          f'{t2["library"]:.3f} (bound {t2["bound"][0]:.4f} by '
+          f'{t2["bound"][1]}, dense product {t2["dense_bound"][0]:.4f}); '
+          f'STFT(backend=\'pallas\') forward end to end at 512/128 '
+          f'{out["module_ms"]:.3f} ms; DCCRN enhance (4, 2, 64000) with '
+          f'STFT(backend=\'pallas\') vs the cuFFT route {snr:.1f} dB, max abs '
+          f'err {err:.3e}, {out["launches"]} K9 launch')
+    return out
+
+
+def lstm_repair_phase(device, card):
+    """Phase 34: the LSTM kernels on the shapes they refused before."""
+    from brever_tpu_torch.models import rnn
+    from brever_tpu_torch.ops import lstm_scan as lstm
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(36)
+    notes = []
+    # H = 200 (padded to 224) at TF-GridNet's intra shape, through autograd
+    steps, n_dir, rows, feat, _ = LSTM_INTRA
+    x, w_ih, bias, w_hh, dh = lstm_inputs(rng, steps, n_dir, rows, feat, 200,
+                                        device)
+    leaves = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
+    before = (lstm.lstm_scan_x.launches, lstm.lstm_scan_x_bwd.launches)
+    h = lstm.lstm_scan_x(*leaves)
+    grads = torch.autograd.grad(h, leaves, dh)
+    launches = (lstm.lstm_scan_x.launches - before[0],
+                lstm.lstm_scan_x_bwd.launches - before[1])
+    if launches != (1, 1):
+        raise AssertionError(f'H=200: K3/K4 launches {launches}')
+    f64 = [t.double() for t in (x, w_ih, bias, w_hh)]
+    h64, c64 = lstm.lstm_scan_x_reference(*f64)
+    want = lstm.lstm_scan_x_bwd_plain(*f64, h64, c64, dh.double())
+    torch.cuda.synchronize()
+    w_h, e_h = check_close('H=200 h', ('h',), (h64,), (h,))
+    w_g, e_g = check_close('H=200 grads', LSTM_NAMES, want, grads)
+    notes.append(f'H=200 on K3/K4 (as 224) at {LSTM_INTRA[:4]}: h '
+                 f'{w_h:.1f} dB, gradients worst {w_g:.1f} dB vs the plain '
+                 'path in float64')
+    del x, w_ih, bias, w_hh, dh, leaves, h, grads, f64, h64, c64, want
+    torch.cuda.empty_cache()
+    # an (E, H) past the shared memory: the projection, then K5/K6
+    case = (20, 2, 256, 1024, 256)
+    x, w_ih, bias, w_hh, _ = lstm_inputs(rng, *case, device)
+    if lstm.fused_x_fits(1024, 256):
+        raise AssertionError('E=1024 H=256 fits the fused kernels')
+    before = (lstm.lstm_scan_x.launches, lstm.lstm_scan.launches)
+    with torch.no_grad():
+        h = rnn._dispatch_scan_x(x, w_ih, bias, w_hh)
+    launches = (lstm.lstm_scan_x.launches - before[0],
+                lstm.lstm_scan.launches - before[1])
+    if launches != (0, 1):
+        raise AssertionError(f'E=1024 H=256: K3/K5 launches {launches}')
+    ref = lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)[0]
+    w_s, _ = check_close('E=1024 H=256', ('h',), (ref,), (h,))
+    notes.append(f'T=20 R=256 E=1024 H=256 (K3/K4 would need '
+                 f'{4 * 32 * (1024 + 6 * 256)} B of shared memory) on the '
+                 f'projection + K5: {w_s:.1f} dB')
+    del x, w_ih, bias, w_hh, h, ref
+    torch.cuda.empty_cache()
+    # rows past the int range: T D R 4H >= 2**31 in two chunks
+    steps, n_dir, feat, hidden = 126, 2, 128, 128
+    rows = lstm._INT_RANGE // (steps * n_dir * 4 * hidden) + 64
+    chunks = lstm.row_chunks(steps, n_dir, rows, 4 * hidden)
+    # the weights from numpy, the 2 GB x and dh drawn on the card (numpy
+    # would take tens of seconds on the host)
+    _, w_ih, bias, w_hh, _ = lstm_inputs(rng, 1, n_dir, 1, feat, hidden,
+                                         device)
+    gen = torch.Generator(device=device).manual_seed(37)
+    x, dh = (torch.randn(steps, n_dir, rows, width, generator=gen,
+                         device=device) for width in (feat, hidden))
+    before = (lstm.lstm_scan_x.launches, lstm.lstm_scan_x_bwd.launches)
+    h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+    grads = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    launches = (lstm.lstm_scan_x.launches - before[0],
+                lstm.lstm_scan_x_bwd.launches - before[1])
+    if launches != (len(chunks), len(chunks)) or len(chunks) < 2:
+        raise AssertionError(f'{rows} rows: {chunks}, launches {launches}')
+    worst = float('inf')
+    for lo, hi in ((0, 64), (chunks[0][1] - 32, chunks[0][1] + 32),
+                   (rows - 64, rows)):
+        part = [t[:, :, lo:hi].contiguous() for t in (x, dh)]
+        ref_h, ref_c = lstm.lstm_scan_x_reference(part[0], w_ih, bias, w_hh)
+        ref_dx = lstm.lstm_scan_x_bwd_plain(part[0], w_ih, bias, w_hh, ref_h,
+                                            ref_c, part[1])[0]
+        worst = min(worst, check_close(
+            f'{rows} rows [{lo}, {hi})', ('h', 'c', 'dx'),
+            (ref_h, ref_c, ref_dx),
+            (h[:, :, lo:hi], c[:, :, lo:hi], grads[0][:, :, lo:hi]))[0])
+    # the weight gradients are the chunks' launches summed in order
+    parts = [lstm.lstm_scan_x_bwd(*(t[:, :, lo:hi].contiguous()
+                                    for t in (x,)), w_ih, bias, w_hh,
+                                  *(t[:, :, lo:hi].contiguous()
+                                    for t in (h, c, dh)))
+             for lo, hi in chunks]
+    for i in (1, 2, 3):
+        total = parts[0][i]
+        for p in parts[1:]:
+            total = total + p[i]
+        if not torch.equal(total, grads[i]):
+            raise AssertionError(f'{rows} rows: weight gradient {i} is not '
+                                 'the chunks\' sum')
+    notes.append(f'T=126 D=2 R={rows} E=H=128 (T D R 4H = '
+                 f'{steps * n_dir * rows * 4 * hidden:,} >= 2**31) in '
+                 f'{len(chunks)} row chunks on K3/K4: h, c, dx on three row '
+                 f'slices (the chunk edge included) vs the plain path worst '
+                 f'{worst:.1f} dB; the weight gradients the chunks\' sum '
+                 'bitwise')
+    del x, w_ih, bias, w_hh, dh, h, c, grads, parts
+    torch.cuda.empty_cache()
+    phase(34, 'LSTM kernels on the shapes they refused: ' + '; '.join(notes))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -1745,6 +2402,7 @@ def main():
     from brever_tpu_torch.models import count_params
     from brever_tpu_torch.models.base import sample_weighted_mean
     import brever_tpu_torch.models.convtasnet as convtasnet
+    from brever_tpu_torch.numerics import disable_tf32
     from brever_tpu_torch.ops import build
     from brever_tpu_torch.ops import tcn_block as tcn
     from brever_tpu_torch.profile_train import make_trainer
@@ -1766,8 +2424,7 @@ def main():
             optional.append(f'{name} importable')
         except ImportError:
             optional.append(f'{name} missing')
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    disable_tf32()
     phase(0, f'{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}'
           f' | python {platform.python_version()} torch {torch.__version__}'
           f' cuda {torch.version.cuda} nvcc '
@@ -2057,6 +2714,9 @@ def main():
     grid = tfgridnet_phases(device, card)
     sgm = sgmse_phases(device, card)
     dcc = dccrn_phases(device, card)
+    mnr = manner_phases(device, card)
+    stf = stft_phase(device, card)
+    lstm_repair_phase(device, card)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
@@ -2240,6 +2900,72 @@ def main():
         'shape': 'T=495 D=2 R=32 H=128 (DCCRN at 16 x 4 s)',
         'train_step_ms': dcc['step_ms']['kernel'],
         'train_step_plain_ms': dcc['step_ms']['plain'],
+    }, {
+        'name': 'bn_act_fwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/groupnorm.cu',
+        'replaces': 'brever_tpu/ops/pallas/groupnorm.py:134',
+        'launches': mnr['launches_train'],
+        'launches_train': mnr['launches_train'],
+        'launches_serve': mnr['launches_serve'],
+        'launches_per_step': mnr['launches_step'][0],
+        'max_abs_err': mnr['fwd_err'],
+        'ms': mnr['largest']['fwd']['kernel'],
+        'plain_ms': mnr['largest']['fwd']['plain'],
+        'bound_ms': mnr['largest']['bound'][0][0],
+        'bound_by': mnr['largest']['bound'][0][1],
+        'library_ms': mnr['largest']['fwd']['library'],
+        'library_note': 'F.batch_norm(training=True) + F.relu',
+        'shape': 'B=16 C=60 T=64084 ReLU (MANNER in_bn at 16 x 4 s)',
+        'step_16x4s_sum_ms': mnr['per_step']['k7'],
+        'step_16x4s_sum_plain_ms': mnr['per_step']['plain'],
+        'step_16x4s_sum_library_ms': mnr['per_step']['library'],
+        'step_16x4s_sum_bound_ms': mnr['per_step']['bound_k7'],
+        'enhance_16x4s_ms': mnr['enhance_ms'],
+    }, {
+        'name': 'bn_act_bwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/groupnorm.cu',
+        'replaces': 'brever_tpu/ops/pallas/groupnorm.py:263',
+        'launches': mnr['launches_train_bwd'],
+        'launches_per_step': mnr['launches_step'][1],
+        'max_abs_err': mnr['bwd_err'],
+        'ms': mnr['largest']['bwd']['kernel'],
+        'plain_ms': mnr['largest']['bwd']['plain'],
+        'bound_ms': mnr['largest']['bound'][1][0],
+        'bound_by': mnr['largest']['bound'][1][1],
+        'library_ms': mnr['largest']['bwd']['library'],
+        'library_note': 'the backward of F.batch_norm(training=True) + '
+                        'F.relu (data, scale and bias)',
+        'shape': 'B=16 C=60 T=64084 ReLU (MANNER in_bn at 16 x 4 s)',
+        'step_16x4s_sum_ms': mnr['per_step']['k8'],
+        'step_16x4s_sum_plain_ms': mnr['per_step']['plain_bwd'],
+        'step_16x4s_sum_library_ms': mnr['per_step']['library_bwd'],
+        'step_16x4s_sum_bound_ms': mnr['per_step']['bound_k8'],
+        'train_step_ms': mnr['step_ms']['kernel'],
+        'train_step_plain_ms': mnr['step_ms']['plain'],
+        'train_step_peak_mib': mnr['step_peak']['kernel'] / 2 ** 20,
+    }, {
+        'name': 'stft_fwd',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/stft.cu',
+        'replaces': 'brever_tpu/ops/pallas/stft_kernel.py:37',
+        'launches': stf['launches'],
+        'max_abs_err': stf['err'],
+        'ms': stf['512/128']['kernel'],
+        'plain_ms': stf['512/128']['plain'],
+        'bound_ms': stf['512/128']['bound'][0],
+        'bound_by': stf['512/128']['bound'][1],
+        'library_ms': stf['512/128']['library'],
+        'library_note': 'torch.stft (cuFFT), same window and frames',
+        'shape': 'rows=16 n_fft=512 hop=128 over 4 s (DCCRN, SGMSE+)',
+        'ms_256': stf['256/128']['kernel'],
+        'plain_ms_256': stf['256/128']['plain'],
+        'bound_ms_256': stf['256/128']['bound'][0],
+        'dense_product_bound_ms': stf['512/128']['dense_bound'][0],
+        'module_forward_ms': stf['module_ms'],
+        'dense_product_bound_ms_256': stf['256/128']['dense_bound'][0],
+        'library_ms_256': stf['256/128']['library'],
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -27,17 +27,27 @@ The GroupNorm kernels (K7, K8) against their plain versions: the forward
 in float32 at atol 1e-5, rtol 1e-4 (normalised values of order 1; the
 kernel sums the statistics in double in another order), the backward
 against the plain backward run in float64 at atol 1e-4 of the tensor's
-largest value, rtol 1e-3; two backward runs are bitwise equal."""
+largest value, rtol 1e-3; two backward runs are bitwise equal.
+
+The flash-BN kernels (K7-BN, K8-BN) the same way as K7 and K8, with the
+running statistics' mean and variance at atol 1e-6, rtol 1e-5. The fused
+STFT kernel (K9) against its plain version at atol 1e-4 of the spectrum's
+largest value (a 512-term float32 product)."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from brever_tpu_torch.models import ModelRegistry
+from brever_tpu_torch.ops import batchnorm as bn
 from brever_tpu_torch.ops import build
 from brever_tpu_torch.ops import groupnorm as gn
 from brever_tpu_torch.ops import lstm_scan as lstm
+from brever_tpu_torch.ops import stft_kernel
 from brever_tpu_torch.ops import tcn_block as tcn
+from brever_tpu_torch.ops.stft import STFT
 from brever_tpu_torch.profile_train import make_trainer
 
 pytestmark = pytest.mark.cuda
@@ -284,7 +294,10 @@ def test_lstm_kernels_reject_what_they_do_not_take(device):
         lstm.lstm_scan_x(x, w_ih, bias.cpu(), w_hh)
     x48, w48, b48, h48, _ = _lstm_inputs(device, 3, 2, 8, 16, 48)
     with pytest.raises(NotImplementedError, match='multiple of 32'):
-        lstm.lstm_scan_x(x48, w48, b48, h48)
+        lstm.lstm_scan_x_fwd(x48, w48, b48, h48)
+    x288, w288, b288, h288, _ = _lstm_inputs(device, 2, 1, 8, 16, 288)
+    with pytest.raises(NotImplementedError, match='up to 256'):
+        lstm.lstm_scan_x(x288, w288, b288, h288)
     assert lstm.lstm_scan_x.launches == before
 
 
@@ -387,8 +400,82 @@ def test_scan_kernels_reject_what_they_do_not_take(device):
         lstm.lstm_scan(gates_x, w_hh.cpu())
     g48, w48, _ = _scan_inputs(device, 3, 2, 8, 48)
     with pytest.raises(NotImplementedError, match='multiple of 32'):
-        lstm.lstm_scan(g48, w48)
+        lstm.lstm_scan_fwd(g48, w48)
+    g288, w288, _ = _scan_inputs(device, 2, 1, 8, 288)
+    with pytest.raises(NotImplementedError, match='up to 256'):
+        lstm.lstm_scan(g288, w288)
     assert lstm.lstm_scan.launches == before
+
+
+@pytest.mark.parametrize('fused', [True, False], ids=['K3K4', 'K5K6'])
+def test_lstm_kernels_pad_a_hidden_size_off_the_grid(device, fused):
+    """H = 200 (MetricGAN's) runs on the kernels as 224: h and every
+    gradient against the plain path at H = 200."""
+    x, w_ih, bias, w_hh, dh = _lstm_inputs(device, 5, 2, 40, 24, 200)
+    if fused:
+        inputs = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
+        run, plain = lstm.lstm_scan_x, lstm.lstm_scan_x_plain
+        counters = (lstm.lstm_scan_x, lstm.lstm_scan_x_bwd)
+    else:
+        gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
+                   + bias[None, :, None]).contiguous()
+        inputs = [t.clone().requires_grad_() for t in (gates_x, w_hh)]
+        run, plain = lstm.lstm_scan, lstm.lstm_scan_plain
+        counters = (lstm.lstm_scan, lstm.lstm_scan_bwd)
+    before = [c.launches for c in counters]
+    h = run(*inputs)
+    grads = torch.autograd.grad(h, inputs, dh)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
+    h_ref = plain(*inputs)
+    ref = torch.autograd.grad(h_ref, inputs, dh)
+    torch.cuda.synchronize()
+    assert h.shape == h_ref.shape
+    torch.testing.assert_close(h, h_ref, atol=1e-5, rtol=1e-4)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want,
+                                   atol=1e-4 * want.abs().max().item(),
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize('fused', [True, False], ids=['K3K4', 'K5K6'])
+def test_lstm_kernels_chunk_rows_past_the_int_range(device, fused,
+                                                    monkeypatch):
+    """With the int range lowered to force three row chunks, the chunked
+    launches give the one launch's h, c, dx and weight gradients."""
+    x, w_ih, bias, w_hh, dh = _lstm_inputs(device, 6, 2, 90, 24, 64)
+    if fused:
+        args = (x, w_ih, bias, w_hh)
+        fwd, bwd, counter = (lstm.lstm_scan_x_fwd, lstm.lstm_scan_x_bwd,
+                             lstm.lstm_scan_x)
+    else:
+        args = ((torch.einsum('tdre,dek->tdrk', x, w_ih)
+                 + bias[None, :, None]).contiguous(), w_hh)
+        fwd, bwd, counter = (lstm.lstm_scan_fwd, lstm.lstm_scan_bwd,
+                             lstm.lstm_scan)
+    h, c = fwd(*args)
+    want = bwd(*args, h, c, dh)
+    monkeypatch.setattr(lstm, '_INT_RANGE', 6 * 2 * 30 * 256 + 1)
+    assert len(lstm.row_chunks(6, 2, 90, 256)) == 3
+    before = counter.launches
+    h3, c3 = fwd(*args)
+    got = bwd(*args, h3, c3, dh)
+    assert counter.launches - before == 3
+    torch.testing.assert_close(h3, h, atol=1e-6, rtol=0)
+    torch.testing.assert_close(c3, c, atol=1e-6, rtol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5 * w.abs().max().item(),
+                                   rtol=1e-5)
+
+
+def test_fused_x_fits_is_the_kernels_shared_memory(device):
+    """The Python routing rule reads the same shared memory as the C entry
+    points."""
+    lib = build.load_library()
+    for feat, hidden in ((128, 128), (280, 256), (284, 256), (1700, 32)):
+        e_pad = feat + (-feat % 4)
+        fits = max(lib.lstm_fwd_smem(e_pad, hidden),
+                   lib.lstm_bwd_smem(e_pad, hidden)) <= lstm._MAX_SMEM
+        assert lstm.fused_x_fits(feat, hidden) is fits
 
 
 def test_scan_kernels_take_unaligned_views(device):
@@ -549,3 +636,113 @@ def test_sgmse_runs_every_groupnorm_through_the_kernels(device):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.double(), w, rtol=1e-3,
                                    atol=1e-4 * top)
+
+
+# (B, C, T) of MANNER's BatchNorms, cut in length: its full-resolution
+# level, a wide one at an odd length (scalar loads), the local attention's
+# C = 1 gate over 160 chunks, one row
+BN_CASES = [((4, 60, 4004), 'relu'), ((3, 1920, 63), 'none'),
+            ((160, 1, 64), 'none'), ((1, 120, 1000), 'silu'),
+            ((5, 7, 9), 'silu')]
+
+
+@pytest.mark.parametrize('shape,act', BN_CASES, ids=lambda v: str(v))
+def test_batchnorm_kernels_match_plain(device, shape, act):
+    x, scale, bias, dy = _gn_inputs(device, shape, seed=shape[1])
+    before = bn.batch_norm_act_fwd.launches, bn.batch_norm_act_bwd.launches
+    y, mean, var, rstd = bn.batch_norm_act_fwd(x, scale, bias, 1e-5, act)
+    ref = bn.batch_norm_act_reference(x, scale, bias, 1e-5, act)
+    torch.testing.assert_close(y, ref[0], atol=1e-5, rtol=1e-4)
+    for got, want in zip((mean, var, rstd), ref[1:]):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    grads = bn.batch_norm_act_bwd(x, dy, scale, bias, mean, rstd, act)
+    again = bn.batch_norm_act_bwd(x, dy, scale, bias, mean, rstd, act)
+    assert (bn.batch_norm_act_fwd.launches - before[0],
+            bn.batch_norm_act_bwd.launches - before[1]) == (1, 2)
+    f64 = [t.double() for t in (x, dy, scale, bias)]
+    _, m64, _, r64 = bn.batch_norm_act_reference(f64[0], f64[2], f64[3],
+                                                 1e-5, act)
+    want = bn.batch_norm_act_bwd_plain(*f64, m64, r64, act)
+    torch.cuda.synchronize()
+    for got, rerun, w in zip(grads, again, want):
+        assert torch.equal(got, rerun)
+        torch.testing.assert_close(got.double(), w,
+                                   atol=1e-4 * w.abs().max().item(),
+                                   rtol=1e-3)
+
+
+def test_batchnorm_kernels_reject_what_they_do_not_take(device):
+    x, scale, bias, _ = _gn_inputs(device, (2, 8, 16))
+    before = bn.batch_norm_act_fwd.launches
+    with pytest.raises(TypeError, match='float32'):
+        bn.batch_norm_act_fwd(x.double(), scale, bias, 1e-5, 'relu')
+    with pytest.raises(ValueError, match='contiguous'):
+        bn.batch_norm_act_fwd(x.transpose(1, 2).contiguous().transpose(1, 2),
+                              scale, bias, 1e-5, 'relu')
+    with pytest.raises(ValueError, match='on cpu'):
+        bn.batch_norm_act_fwd(x, scale.cpu(), bias, 1e-5, 'relu')
+    assert bn.batch_norm_act_fwd.launches == before
+
+
+@pytest.mark.parametrize('n_fft,hop', [(256, 128), (512, 128), (64, 16)])
+def test_stft_kernel_matches_plain(device, n_fft, hop):
+    rng = np.random.RandomState(n_fft)
+    x = torch.from_numpy(rng.randn(5, 9001).astype(np.float32)).to(device)
+    stft = STFT(frame_length=n_fft, hop_length=hop, backend='pallas')
+    basis = torch.from_numpy(stft_kernel.stft_basis(
+        n_fft, stft._np_window)).to(device)
+    before = stft_kernel.stft_fused.launches
+    got = stft_kernel.stft_fused(x, basis, hop)
+    want = stft_kernel.stft_basis_plain(x, basis, hop)
+    assert stft_kernel.stft_fused.launches - before == 1
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+    with torch.no_grad():
+        spec = stft(x)
+    ref = STFT(frame_length=n_fft, hop_length=hop)(x)
+    torch.testing.assert_close(spec, ref, rtol=0,
+                               atol=1e-4 * ref.abs().max().item())
+    with pytest.raises(NotImplementedError, match='no backward'):
+        stft(x.clone().requires_grad_())
+
+
+def test_manner_runs_every_batch_norm_through_the_kernels(device,
+                                                          monkeypatch):
+    """A narrow MANNER on the card: a train-mode loss launches K7-BN once a
+    BatchNorm and K8-BN once a BatchNorm in its backward, and its gradients
+    and running statistics agree with the plain path in float64; enhance
+    (eval mode) launches neither and matches the CPU."""
+    from brever_tpu_torch.models import common, manner
+    monkeypatch.setattr(manner, '_MannerModule', functools.partial(
+        manner._MannerModule, hidden=12, depth=2, segment_len=8))
+    cpu = manner.MANNER(device='cpu')
+    cpu.init_parameters(0)
+    gpu = manner.MANNER(device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    n_bn = manner.count_batch_norms(gpu)
+    x = (0.3 * np.random.RandomState(6).randn(2, 2, 6000)).astype(np.float32)
+    before = bn.batch_norm_act_fwd.launches
+    out = gpu.enhance(x).cpu()
+    assert bn.batch_norm_act_fwd.launches == before
+    torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
+    batch = torch.from_numpy(np.stack([x, x], axis=1)).to(device)
+    lengths = torch.tensor([6000, 5000], device=device)
+    gpu.train()
+    before = bn.batch_norm_act_fwd.launches, bn.batch_norm_act_bwd.launches
+    got = torch.autograd.grad(gpu.loss(batch, lengths).mean(),
+                              list(gpu.parameters()))
+    torch.cuda.synchronize()
+    assert (bn.batch_norm_act_fwd.launches - before[0],
+            bn.batch_norm_act_bwd.launches - before[1]) == (n_bn, n_bn)
+    ref = manner.MANNER(device='cpu').double()
+    ref.load_state_dict(cpu.state_dict())
+    ref = ref.to(device).train()
+    monkeypatch.setattr(common, 'batch_norm_act', bn.batch_norm_act_plain)
+    want = torch.autograd.grad(ref.loss(batch.double(), lengths).mean(),
+                               list(ref.parameters()))
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.double(), w, rtol=2e-3,
+                                   atol=2e-3 * top)
+    for a, b in zip(gpu.buffers(), ref.buffers()):
+        torch.testing.assert_close(a.double(), b, atol=1e-5, rtol=1e-4)

@@ -5,7 +5,8 @@ directory's ``config.yaml`` (``python -m brever_tpu_torch.train`` and
 ``EnhanceService(model_dir)``) run in a fresh interpreter without loading
 any module of the JAX package, at import time or at call time: the port
 reads configs through its own ``brever_tpu_torch.config``. The entry
-points are run on a Conv-TasNet and on a DCCRN model directory."""
+points are run on a Conv-TasNet, a DCCRN and a (narrowed) MANNER model
+directory."""
 
 import os
 import pkgutil
@@ -35,7 +36,9 @@ def test_port_imports_no_jax():
                                               'brever_tpu_torch.')]
     for name in ('serve', 'ops.tcn_block', 'criterion', 'metrics',
                  'batching', 'data', 'optim', 'training', 'train',
-                 'profile_train', 'models.dccrn', 'ops.lstm_scan'):
+                 'profile_train', 'models.dccrn', 'ops.lstm_scan',
+                 'models.manner', 'ops.batchnorm', 'ops.stft_kernel',
+                 'numerics'):
         assert f'brever_tpu_torch.{name}' in modules
     env = dict(os.environ, PATH='/usr/bin:/bin', CUDA_HOME='')
     proc = subprocess.run([sys.executable, '-c', _SCRIPT, *modules],
@@ -106,3 +109,23 @@ def test_dccrn_entry_points_load_no_jax_package(tmp_path):
             'assert out.shape == (1600,), out.shape\n'
             'print(service.health()["arch"])\n' + _NO_JAX_PACKAGE)
     assert _fresh(code, model_dir, *_TRAIN_ARGS) == ['dccrn', 'ok']
+
+
+def test_manner_entry_points_load_no_jax_package(tmp_path):
+    """``train.main`` trains a MANNER model directory (its network narrowed:
+    the family has no size options) and ``EnhanceService`` serves it, in a
+    fresh interpreter that loads nothing of the JAX package."""
+    model_dir = _model_dir(tmp_path, 'manner')
+    code = ('import sys, functools\n'
+            'import numpy as np\n'
+            'from brever_tpu_torch import train\n'
+            'from brever_tpu_torch.models import manner\n'
+            'from brever_tpu_torch.serve import EnhanceService\n'
+            'manner._MannerModule = functools.partial(\n'
+            '    manner._MannerModule, hidden=12, depth=2, segment_len=8)\n'
+            'train.main(sys.argv[1:])\n'
+            'service = EnhanceService(sys.argv[1], "cpu")\n'
+            'out = service.enhance(np.zeros(1600, np.float32))\n'
+            'assert out.shape == (1600,), out.shape\n'
+            'print(service.health()["arch"])\n' + _NO_JAX_PACKAGE)
+    assert _fresh(code, model_dir, *_TRAIN_ARGS) == ['manner', 'ok']

@@ -166,3 +166,116 @@ def test_dispatch_scan_unidirectional():
     assert got.shape == (4, 6, 16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the shapes the kernels take since the repairs: H off the grid is padded,
+# rows past the int range are chunked, a wide E routes to the gates-in scan
+
+
+@pytest.mark.parametrize('fused', [True, False], ids=['x', 'gates'])
+def test_pad_hidden_keeps_the_scan(fused):
+    """H = 200 zero-padded to the kernels' 224 by ``pad_hidden``: the first
+    200 units of the padded plain scan are the unpadded scan, and so are the
+    gradients of x and every weight (to 1e-6)."""
+    rng = np.random.RandomState(200)
+    steps, n_dir, rows, feat, hidden = 3, 2, 4, 8, 200
+    assert L.kernel_hidden(hidden) == 224
+    x = torch.from_numpy(rng.randn(steps, n_dir, rows, feat)
+                         .astype(np.float32)).requires_grad_()
+    w_ih = torch.from_numpy((rng.randn(n_dir, feat, 4 * hidden) / 3)
+                            .astype(np.float32)).requires_grad_()
+    bias = torch.from_numpy((0.1 * rng.randn(n_dir, 4 * hidden))
+                            .astype(np.float32)).requires_grad_()
+    w_hh = torch.from_numpy((rng.randn(n_dir, hidden, 4 * hidden) / 15)
+                            .astype(np.float32)).requires_grad_()
+    dh = torch.from_numpy(rng.randn(steps, n_dir, rows, hidden)
+                          .astype(np.float32))
+    inputs = (x, w_ih, bias, w_hh)
+
+    def run(pad):
+        if fused:
+            w_hh_p, w_ih_p, bias_p = (L.pad_hidden(224, w_hh, w_ih, bias)
+                                      if pad else (w_hh, w_ih, bias))
+            h = L.lstm_scan_x_plain(x, w_ih_p, bias_p, w_hh_p)
+        else:
+            gates_x = torch.einsum('tdre,dek->tdrk', x, w_ih) \
+                + bias[None, :, None]
+            w_hh_p, gates_p = (L.pad_hidden(224, w_hh, gates_x) if pad
+                               else (w_hh, gates_x))
+            h = L.lstm_scan_plain(gates_p, w_hh_p)
+        if pad:
+            assert h.shape[-1] == 224
+            assert not h[..., hidden:].any()
+            h = h[..., :hidden]
+        return h, torch.autograd.grad(h, inputs, dh)
+
+    h_want, g_want = run(False)
+    h_got, g_got = run(True)
+    torch.testing.assert_close(h_got, h_want, atol=1e-6, rtol=0)
+    for got, want in zip(g_got, g_want):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize('steps,n_dir,rows,width', [
+    (33, 2, 8064, 512),          # TF-GridNet's intra scan at 16 x 4 s
+    (495, 2, 32, 512),
+    (1, 1, 1, 4),
+    (4000, 2, 2113, 512),        # a request of about 504 s: 2 chunks
+    (126, 2, 2 ** 20, 512),      # many chunks
+    (2 ** 20 - 1, 2, 3, 1024),   # one row a chunk, just under the bound
+])
+def test_row_chunks_cover_every_row_once(steps, n_dir, rows, width):
+    chunks = L.row_chunks(steps, n_dir, rows, width)
+    assert chunks[0][0] == 0 and chunks[-1][1] == rows
+    for (lo, hi), (nxt, _) in zip(chunks, chunks[1:] + [(rows, None)]):
+        assert lo < hi == nxt
+        assert steps * n_dir * (hi - lo) * width < 2 ** 31
+    if steps * n_dir * rows * width < 2 ** 31:
+        assert chunks == [(0, rows)]
+    else:
+        assert len(chunks) == -(-steps * n_dir * rows * width // (2 ** 31 - 1))
+
+
+def test_row_chunks_refuse_a_row_past_the_range():
+    with pytest.raises(ValueError, match='int range'):
+        L.row_chunks(2 ** 21, 2, 4, 1024)
+
+
+def test_joined_chunks_are_one_launch():
+    """``_join`` concatenates the per-row outputs on the row axis and sums
+    the weight gradients in chunk order."""
+    a = (torch.ones(2, 1, 3, 4), torch.full((2, 4), 1.0))
+    b = (torch.zeros(2, 1, 2, 4), torch.full((2, 4), 2.0))
+    rows, total = L._join([a, b], 1)
+    assert rows.shape == (2, 1, 5, 4) and rows[:, :, :3].eq(1).all() \
+        and rows[:, :, 3:].eq(0).all()
+    assert total.eq(3).all()
+
+
+@pytest.mark.parametrize('feat,hidden,fits', [
+    (128, 128, True), (512, 128, True), (1816 - 6 * 256, 256, True),
+    (1816 - 6 * 256 + 1, 256, False), (1700, 32, False), (2048, 200, False)])
+def test_fused_x_fits_the_shared_memory(feat, hidden, fits):
+    """K3/K4 take 32 rows x (E + 6H) floats of shared memory, E padded to a
+    multiple of 4, against the H100's 227 KB a block."""
+    assert L.fused_x_fits(feat, hidden) is fits
+
+
+def test_dispatch_routes_a_wide_input_to_the_gates_scan(monkeypatch):
+    """128 rows, but an (E, H) whose fused kernels pass the shared memory:
+    the projection goes outside and the gates-in scan runs (K5/K6 on
+    CUDA), as the JAX package's XLA scan gives."""
+    taken = _routes(monkeypatch)
+    rng = np.random.RandomState(7)
+    feat, hidden = 1700, 32
+    x = rng.randn(2, 2, 128, feat).astype(np.float32)
+    w_ih = (rng.randn(2, feat, 4 * hidden) / 40).astype(np.float32)
+    bias = (0.1 * rng.randn(2, 4 * hidden)).astype(np.float32)
+    w_hh = (rng.randn(2, hidden, 4 * hidden) / 6).astype(np.float32)
+    got = rnn._dispatch_scan_x(*map(torch.from_numpy, (x, w_ih, bias, w_hh)))
+    assert taken == ['gates']
+    want = jax_rnn._dispatch_scan_x(*map(jnp.asarray, (x, w_ih, bias, w_hh)),
+                                    jax_rnn.DEFAULT_UNROLL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)

@@ -71,3 +71,68 @@ def test_gradient_flows():
     assert torch.autograd.gradcheck(
         lambda v: stft(v).abs().sum(dim=(-2, -1)), (x,), eps=1e-6,
         atol=1e-5)
+
+
+# MANNER's loss resolutions (n_fft, hop, frame_length): the window centred
+# in a longer FFT frame, reflect padding, no normalisation
+MANNER = [(1024, 120, 600), (2048, 240, 1200), (512, 50, 240)]
+
+
+@pytest.mark.parametrize('n_fft,hop,win', MANNER,
+                         ids=[f'{r[0]}-{r[1]}-{r[2]}' for r in MANNER])
+def test_manner_resolutions_match_jax(n_fft, hop, win):
+    config = dict(frame_length=win, hop_length=hop, n_fft=n_fft,
+                  window='hann', center=True, pad_mode='reflect',
+                  normalized=False)
+    x = np.random.RandomState(n_fft).randn(3, 4000).astype(np.float32)
+    want = np.asarray(JaxSTFT(**config)(jnp.asarray(x)))
+    stft = STFT(**config)
+    got = stft(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max(),
+                               rtol=0)
+    # the inverse of the JAX spectrum
+    want_y = np.asarray(JaxSTFT(**config).backward(jnp.asarray(want)))
+    got_y = stft.backward(torch.from_numpy(np.array(want))).numpy()
+    np.testing.assert_allclose(got_y, want_y, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('n_fft,hop', [(256, 128), (512, 128)])
+def test_fused_backend_plain_version_matches_jax(n_fft, hop):
+    """``backend='pallas'`` on the CPU runs ``stft_basis_plain`` (framing,
+    then the product against the windowed basis): TF-GridNet's 256/128 and
+    DCCRN's and SGMSE+'s 512/128 against the JAX ``STFT(backend='auto')``
+    (its rFFT), atol 1e-4 of the spectrum's largest magnitude."""
+    from brever_tpu_torch.ops import stft_kernel
+    x = np.random.RandomState(hop).randn(2, 2, 5000).astype(np.float32)
+    want = np.asarray(JaxSTFT(frame_length=n_fft, hop_length=hop,
+                              backend='auto')(jnp.asarray(x)))
+    stft = STFT(frame_length=n_fft, hop_length=hop, backend='pallas')
+    assert stft.fused
+    got = stft(torch.from_numpy(x)).numpy()
+    bound = 1e-4 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=bound, rtol=0)
+    padded = torch.nn.functional.pad(stft.pad(torch.from_numpy(x[0])),
+                                     (n_fft // 2, n_fft // 2))
+    basis = torch.from_numpy(stft_kernel.stft_basis(n_fft,
+                                                    stft._np_window))
+    direct = stft_kernel.stft_basis_plain(padded, basis, hop).numpy()
+    bins = n_fft // 2 + 1
+    direct = (direct[..., :bins] + 1j * direct[..., bins:]) \
+        .transpose(0, 2, 1) / stft._win_norm
+    np.testing.assert_allclose(direct, want[0], atol=bound, rtol=0)
+
+
+def test_fused_backend_refuses_grad_and_keeps_eligibility():
+    """K9 has no backward: an input that requires grad raises. With hop not
+    dividing n_fft the JAX package's ``backend='pallas'`` takes its FFT
+    path, and so does the port."""
+    x = torch.randn(2, 3000, requires_grad=True)
+    with pytest.raises(NotImplementedError, match='no backward'):
+        STFT(frame_length=512, hop_length=128, backend='pallas')(x)
+    with torch.no_grad():
+        STFT(frame_length=512, hop_length=128, backend='pallas')(x)
+    odd = STFT(frame_length=512, hop_length=120, backend='pallas')
+    assert not odd.fused
+    torch.testing.assert_close(
+        odd(x), STFT(frame_length=512, hop_length=120)(x))

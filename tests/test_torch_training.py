@@ -12,6 +12,7 @@ the train steps, read by validation, saved in the checkpoint's
 ``aux['batch_stats']`` and restored bitwise on resume, outside the EMA,
 and read by the JAX package's loader and server."""
 
+import functools
 import importlib.util
 import inspect
 import os
@@ -52,7 +53,10 @@ SGM = dict(net_base_channels=16, net_channel_mult=[1, 2],
            stft_hop_length=64, net_attn_resolutions=[])
 DCC = dict(channels=[4, 8], lstm_channels=16, lstm_layers=1)
 SMALLS = {'convtasnet': SMALL, 'tfgridnet': GRID, 'sgmsepm': SGM,
-          'dccrn': DCC}
+          'dccrn': DCC, 'manner': {}}
+#: MANNER has no size options: the tests narrow its network
+#: (``narrow_manner``)
+NARROW_MANNER = dict(hidden=12, depth=2, segment_len=8)
 
 
 @pytest.fixture(autouse=True)
@@ -562,3 +566,81 @@ def test_dccrn_train_cli_and_serving(tmp_path):
     got = port.enhance(audio)
     assert got.shape == (3000,) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref.enhance(audio), atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture
+def narrow_manner(monkeypatch):
+    from brever_tpu_torch.models import manner
+    monkeypatch.setattr(manner, '_MannerModule', functools.partial(
+        manner._MannerModule, **NARROW_MANNER))
+
+
+def test_manner_resume_is_bitwise(tmp_path, narrow_manner):
+    """A narrow MANNER: the running statistics and the one-cycle schedule's
+    count go into last.ckpt (``aux['batch_stats']``, and optax's
+    ``adam(schedule)`` state, which the JAX package's ``_restore_opt_state``
+    takes) and come back bitwise: a resumed run equals the uninterrupted
+    one."""
+    whole = make_trainer(tmp_path / 'whole', arch='manner', epochs=2)
+    whole.init_state()
+    start = [b.clone() for b in whole.model.buffers()]
+    whole.run()
+    assert not any(torch.equal(a, b) for a, b in
+                   zip(start, whole.model.buffers()))
+    steps = whole.step
+    assert whole.optimizer.schedule_count == steps > 0
+    # the schedule spans the run's 2 epochs: the first half stops after 1
+    first = make_trainer(tmp_path / 'split', arch='manner', epochs=2)
+    first.epochs = 1
+    first.run()
+    resumed = make_trainer(tmp_path / 'split', arch='manner', epochs=2)
+    resumed.run()
+    assert torch.equal(resumed.flat, whole.flat)
+    assert torch.equal(resumed.optimizer.mu, whole.optimizer.mu)
+    assert torch.equal(resumed.optimizer.nu, whole.optimizer.nu)
+    assert resumed.optimizer.schedule_count == steps
+    assert all(torch.equal(a, b) for a, b in
+               zip(resumed.model.buffers(), whole.model.buffers()))
+    assert resumed.loss_logger.val_loss == whole.loss_logger.val_loss
+    state = jax_load_checkpoint(tmp_path / 'split' / 'checkpoints'
+                                / 'last.ckpt')
+    np.testing.assert_array_equal(
+        state['aux']['batch_stats']['in_bn']['var'],
+        resumed.model.net.in_bn.var.numpy())
+    schedule = optax.cosine_onecycle_schedule(
+        len(resumed.train_batch_sampler) * 2, 1e-3)
+    template = optax.adam(schedule).init(
+        jax.tree.map(jnp.asarray, state['params']))
+    adam_state, sched_state = _restore_opt_state(template,
+                                                 state['opt_state'])
+    assert int(adam_state.count) == int(sched_state.count) == steps
+    np.testing.assert_array_equal(
+        np.asarray(adam_state.nu['in_conv']['kernel']),
+        resumed._flax(resumed.optimizer.nu)['in_conv']['kernel'])
+
+
+def test_entry_points_turn_tf32_off(tmp_path):
+    """The trainer the command line builds and ``EnhanceService`` run
+    float32 with TF32 off, the configuration of the parity bounds."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    model_dir = _model_dir(tmp_path)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        trainer = train_cli.build_trainer(
+            [model_dir, '--device', 'cpu', '--epochs', '1', '--use_amp',
+             'false', '--val_metrics', 'snr'])
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        trainer.init_state()
+        os.makedirs(trainer.checkpoints_dir)
+        trainer.save_checkpoint(trainer.last_ckpt_path)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        EnhanceService(model_dir, 'cpu')
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
