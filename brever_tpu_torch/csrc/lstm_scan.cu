@@ -54,10 +54,19 @@
 // GEMM over fixed-order partials: bitwise repeatable. dx, dW_ih and db are
 // then the projection's own backward.
 //
+// Tile rows. Each thread owns 8 rows and 2 hidden units, so a tile of
+// kRows rows runs kRows / 8 x H / 2 threads. K3/K4 and, up to H = 256,
+// K5/K6 take 32-row tiles (2H threads); K5/K6 take 16-row tiles (H
+// threads) for 256 < H <= 512, where 2H threads would pass the 512 a block
+// is built for and K6's shared memory, 16 x 6H floats, is 196,608 B at
+// H = 512 (32 rows would need twice that, past the 227 KB a block may
+// have). Half the rows a block doubles the blocks and the weight reads per
+// row; the weight GEMM and the dgates layout do not change.
+//
 // SIMT float32 throughout; wgmma, TMA, clusters and bf16 are later work.
 // Every pointer is a dense float32 buffer in the layouts above; w_hh_t is
 // w_hh transposed to (D, 4H, H). E is a multiple of 4 (the wrapper pads),
-// H a multiple of 32 and at most 256 (2H threads a block).
+// H a multiple of 32, at most 256 for K3/K4 and 512 for K5/K6.
 
 #include "tcn_common.cuh"
 
@@ -69,10 +78,10 @@ using tcn::kBM;
 using tcn::kBN;
 using tcn::kThreads;
 
-constexpr int kRows = 32;                    // rows of a scan tile
 constexpr int kRowsPer = 8;                  // rows a thread owns
-constexpr int kGroups = kRows / kRowsPer;    // row groups of a tile
-constexpr int kMaxThreads = 512;             // 2 H threads, H <= 256
+constexpr int kMaxThreads = 512;             // 2H threads at 32 rows, H at 16
+constexpr int kMaxHiddenWide = 256;          // largest H of a 32-row tile
+constexpr int kMaxHidden = 512;              // largest H of a 16-row tile
 constexpr int kWgChunk = 4096;               // (t, r) pairs per wgrad partial
 
 __device__ __forceinline__ float sigm(float z) { return 1.f / (1.f + expf(-z)); }
@@ -83,6 +92,7 @@ __device__ __forceinline__ size_t at(int t, int d, int r, int D, int R) {
 
 // rows r0 .. r0 + kRows - 1 of a (R, n) slab into dst (kRows, n), zero past
 // R; n is a multiple of 4.
+template <int kRows>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
                                           int R, int n) {
   const int q = n / 4;
@@ -173,9 +183,9 @@ __device__ __forceinline__ void gates_tile(float (&acc)[kRowsPer][4][2], const f
 }
 
 // K3 (kProj, x (T, D, R, E) in) and K5 (gates_x (T, D, R, 4H) in, E = 0).
-// grid (cdiv(R, kRows), D), 2 H threads, kRows (E + H) floats of dynamic
-// shared memory.
-template <bool kProj>
+// grid (cdiv(R, kRows), D), kRows / 8 x H / 2 threads, kRows (E + H) floats
+// of dynamic shared memory.
+template <bool kProj, int kRows>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
               const float* __restrict__ bias, const float* __restrict__ w_hh,
@@ -191,7 +201,7 @@ lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
   const float* bd = kProj ? bias + d * G : nullptr;
   float c[kRowsPer][2] = {};
   for (int t = 0; t < T; ++t) {
-    if constexpr (kProj) load_rows(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
+    if constexpr (kProj) load_rows<kRows>(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
     __syncthreads();  // x[t] and h[t-1] of the tile in shared memory
     float acc[kRowsPer][4][2];
     gates_tile<kProj>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
@@ -225,9 +235,9 @@ lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
 // (registers would pass the 128 a thread has at 512 threads); with kProj,
 // per-tile partials of db into db_part[d][tile][4H]. Without it x is gates_x
 // (T, D, R, 4H), E = 0 and w_ih, bias and db_part are not read.
-// grid (cdiv(R, kRows), D), 2 H threads, kRows (E + 6 H) floats of
-// dynamic shared memory.
-template <bool kProj>
+// grid (cdiv(R, kRows), D), kRows / 8 x H / 2 threads, kRows (E + 6 H)
+// floats of dynamic shared memory.
+template <bool kProj, int kRows>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
               const float* __restrict__ bias, const float* __restrict__ w_hh,
@@ -252,8 +262,8 @@ lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
   for (int i = 0; i < kRowsPer; ++i)
     *reinterpret_cast<float2*>(dhs + (rg * kRowsPer + i) * H + 2 * ug) = make_float2(0.f, 0.f);
   for (int t = T - 1; t >= 0; --t) {
-    if constexpr (kProj) load_rows(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
-    if (t > 0) load_rows(hs, h_seq + at(t - 1, d, 0, D, R) * H, r0, R, H);
+    if constexpr (kProj) load_rows<kRows>(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
+    if (t > 0) load_rows<kRows>(hs, h_seq + at(t - 1, d, 0, D, R) * H, r0, R, H);
     __syncthreads();  // x[t], h[t-1] in; the previous step's gs reads done
     float acc[kRowsPer][4][2];
     gates_tile<kProj>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
@@ -318,6 +328,7 @@ lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
   }
   if constexpr (!kProj) return;
   // db partial of the tile: the row groups add in a fixed order
+  constexpr int kGroups = kRows / kRowsPer;
   __syncthreads();
 #pragma unroll
   for (int g = 0; g < 4; ++g)
@@ -414,8 +425,11 @@ sum_partials(const float* __restrict__ part, int n_part, int n, float* __restric
   out[i] = s;
 }
 
-bool hidden_ok(int H) { return H >= 32 && H % 32 == 0 && H <= 256; }
-bool shape_ok(int E, int H) { return E > 0 && E % 4 == 0 && hidden_ok(H); }
+bool hidden_ok(int H, int most) { return H >= 32 && H % 32 == 0 && H <= most; }
+bool shape_ok(int E, int H) { return E > 0 && E % 4 == 0 && hidden_ok(H, kMaxHiddenWide); }
+
+// rows of a K5/K6 tile at hidden size H (K3/K4 always take 32)
+int scan_rows(int H) { return H <= kMaxHiddenWide ? 32 : 16; }
 
 // Workspace layout (float offsets), shared by lstm_bwd_workspace and
 // lstm_bwd, and with E = 0 by lstm_scan_bwd_workspace and lstm_scan_bwd
@@ -424,8 +438,8 @@ struct Layout {
   size_t dgates, db_part, wg_part, total;
   int tiles, chunks;
 
-  Layout(int T, int D, int R, int E, int H) {
-    tiles = cdiv(R, kRows);
+  Layout(int T, int D, int R, int E, int H, int rows) {
+    tiles = cdiv(R, rows);
     chunks = cdiv(T * R, kWgChunk);
     const size_t G = 4 * static_cast<size_t>(H);
     size_t off = 0;
@@ -448,17 +462,46 @@ int set_smem(const void* kernel, size_t bytes) {
                            static_cast<int>(bytes)));
 }
 
+size_t fwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + H); }
+size_t bwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + 6 * H); }
+
+// K5 at kRows rows a tile
+template <int kRows>
+int scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T, int D,
+             int R, int H, cudaStream_t s) {
+  const size_t smem = fwd_smem(kRows, 0, H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false, kRows>), smem);
+  if (err) return err;
+  lstm_fwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), kRows / kRowsPer * (H / 2), smem, s>>>(
+      gates_x, nullptr, nullptr, w_hh, h_seq, c_seq, T, D, R, 0, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's recurrence at kRows rows a tile
+template <int kRows>
+int scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t, const float* h_seq,
+             const float* c_seq, const float* dh_seq, float* dgates, int T, int D, int R, int H,
+             cudaStream_t s) {
+  const size_t smem = bwd_smem(kRows, 0, H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<false, kRows>), smem);
+  if (err) return err;
+  lstm_bwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), kRows / kRowsPer * (H / 2), smem, s>>>(
+      gates_x, nullptr, nullptr, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, nullptr, T, D, R, 0,
+      H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory of the two scan kernels, in bytes (the wrapper checks it
 // against the card's limit).
-size_t lstm_fwd_smem(int E, int H) { return sizeof(float) * kRows * (E + H); }
-size_t lstm_bwd_smem(int E, int H) { return sizeof(float) * kRows * (E + 6 * H); }
+size_t lstm_fwd_smem(int E, int H) { return fwd_smem(32, E, H); }
+size_t lstm_bwd_smem(int E, int H) { return bwd_smem(32, E, H); }
 
 size_t lstm_bwd_workspace(int T, int D, int R, int E, int H) {
-  return Layout(T, D, R, E, H).total;
+  return Layout(T, D, R, E, H, 32).total;
 }
 
 // K3: h_seq and c_seq (T, D, R, H) from x (T, D, R, E). Returns a CUDA
@@ -467,9 +510,9 @@ int lstm_fwd(const float* x, const float* w_ih, const float* bias, const float* 
              float* h_seq, float* c_seq, int T, int D, int R, int E, int H, void* stream) {
   if (!shape_ok(E, H)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = lstm_fwd_smem(E, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<true>), smem);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<true, 32>), smem);
   if (err) return err;
-  lstm_fwd_scan<true><<<dim3(cdiv(R, kRows), D), 2 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+  lstm_fwd_scan<true, 32><<<dim3(cdiv(R, 32), D), 2 * H, smem, static_cast<cudaStream_t>(stream)>>>(
       x, w_ih, bias, w_hh, h_seq, c_seq, T, D, R, E, H);
   return static_cast<int>(cudaGetLastError());
 }
@@ -484,12 +527,12 @@ int lstm_bwd(const float* x, const float* w_ih, const float* bias, const float* 
              void* stream) {
   if (!shape_ok(E, H)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout L(T, D, R, E, H);
+  const Layout L(T, D, R, E, H, 32);
   const int G = 4 * H;
   const size_t smem = lstm_bwd_smem(E, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<true>), smem);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<true, 32>), smem);
   if (err) return err;
-  lstm_bwd_scan<true><<<dim3(L.tiles, D), 2 * H, smem, s>>>(
+  lstm_bwd_scan<true, 32><<<dim3(L.tiles, D), 2 * H, smem, s>>>(
       x, w_ih, bias, w_hh, w_hh_t, h_seq, c_seq, dh_seq, work + L.dgates, work + L.db_part, T, D,
       R, E, H);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
@@ -512,23 +555,21 @@ int lstm_bwd(const float* x, const float* w_ih, const float* bias, const float* 
 }
 
 // Shared memory of K5 and K6, in bytes.
-size_t lstm_scan_fwd_smem(int H) { return lstm_fwd_smem(0, H); }
-size_t lstm_scan_bwd_smem(int H) { return lstm_bwd_smem(0, H); }
+size_t lstm_scan_fwd_smem(int H) { return fwd_smem(scan_rows(H), 0, H); }
+size_t lstm_scan_bwd_smem(int H) { return bwd_smem(scan_rows(H), 0, H); }
 
-size_t lstm_scan_bwd_workspace(int T, int D, int R, int H) { return Layout(T, D, R, 0, H).total; }
+size_t lstm_scan_bwd_workspace(int T, int D, int R, int H) {
+  return Layout(T, D, R, 0, H, scan_rows(H)).total;
+}
 
 // K5: h_seq and c_seq (T, D, R, H) from gates_x (T, D, R, 4H) and w_hh
 // (D, H, 4H). Returns a CUDA error code, or 0.
 int lstm_scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
                   int D, int R, int H, void* stream) {
-  if (!hidden_ok(H)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = lstm_scan_fwd_smem(H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false>), smem);
-  if (err) return err;
-  lstm_fwd_scan<false><<<dim3(cdiv(R, kRows), D), 2 * H, smem,
-                         static_cast<cudaStream_t>(stream)>>>(gates_x, nullptr, nullptr, w_hh,
-                                                              h_seq, c_seq, T, D, R, 0, H);
-  return static_cast<int>(cudaGetLastError());
+  if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return scan_rows(H) == 32 ? scan_fwd<32>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s)
+                            : scan_fwd<16>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
 }
 
 // K6: dgates (T, D, R, 4H) and dw_hh (D, H, 4H) from the forward's inputs,
@@ -537,17 +578,14 @@ int lstm_scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* 
 int lstm_scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t,
                   const float* h_seq, const float* c_seq, const float* dh_seq, float* dgates,
                   float* dw_hh, float* work, int T, int D, int R, int H, void* stream) {
-  if (!hidden_ok(H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout L(T, D, R, 0, H);
+  const Layout L(T, D, R, 0, H, scan_rows(H));
   const int G = 4 * H;
-  const size_t smem = lstm_scan_bwd_smem(H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<false>), smem);
+  int err = scan_rows(H) == 32
+                ? scan_bwd<32>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s)
+                : scan_bwd<16>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s);
   if (err) return err;
-  lstm_bwd_scan<false><<<dim3(L.tiles, D), 2 * H, smem, s>>>(
-      gates_x, nullptr, nullptr, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, nullptr, T, D, R, 0,
-      H);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
   lstm_bwd_wgrad<<<dim3(cdiv(H, kBM), cdiv(G, kBN), D * L.chunks), kThreads, 0, s>>>(
       nullptr, h_seq, dgates, work + L.wg_part, T, D, R, 0, H, L.chunks);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;

@@ -16,8 +16,13 @@ Modules carry the flax scope names (``enc_0_0``, ``norm_1``, ``conv_1``,
 the flax tree, so that ``convert.py`` maps a parameter by its name. The
 Fourier frequencies of the noise embedding are a buffer (the flax
 ``buffers`` collection). ``encoder_type``/``decoder_type`` may be
-``standard``, ``residual`` or ``skip``; the block type is ``ncsn`` (``adm``
-needs the external GroupNorm affine, which is not ported).
+``standard``, ``residual`` or ``skip``; ``block_type`` ``ncsn`` adds the
+noise embedding to the second GroupNorm's input, ``adm`` (IDMSE) projects
+it to a per-(batch, channel) ``scale + 1`` and ``shift`` that the second
+GroupNorm applies after its own affine (the external affine of
+:func:`...ops.groupnorm.group_norm_silu`, its plain route on every device;
+the block's other GroupNorms run K7/K8), and puts attention in every
+decoder block of an attention level.
 
 Training rematerialises every block that does not resample, as the JAX
 package's ``remat=True`` does (``torch.utils.checkpoint``, non-reentrant);
@@ -66,10 +71,11 @@ class GroupNorm(nn.Module):
         self.eps, self.silu = eps, silu
         self.GroupNorm_0 = _GNParams(channels)
 
-    def forward(self, x):
+    def forward(self, x, ext_scale=None, ext_shift=None):
         return group_norm_silu(x, self.GroupNorm_0.scale,
                                self.GroupNorm_0.bias, self.groups, self.eps,
-                               apply_silu=self.silu)
+                               apply_silu=self.silu, ext_scale=ext_scale,
+                               ext_shift=ext_shift)
 
 
 class NoiseEmbedding(nn.Module):
@@ -122,17 +128,20 @@ class UNetBlock(nn.Module):
     attention."""
 
     def __init__(self, in_channels, out_channels, skip_scale, dropout,
-                 emb_channels, attention=False, up_or_down='none'):
+                 emb_channels, block_type='ncsn', attention=False,
+                 up_or_down='none'):
         super().__init__()
         self.skip_scale, self.dropout = skip_scale, dropout
-        self.up_or_down = up_or_down
+        self.up_or_down, self.adm = up_or_down, block_type == 'adm'
         self.norm_1 = GroupNorm(in_channels, silu=True)
         self.conv_1 = _conv3(in_channels, out_channels)
-        self.linear = nn.Linear(emb_channels, out_channels)
+        self.linear = nn.Linear(emb_channels,
+                                out_channels * (2 if self.adm else 1))
         self.norm_2 = GroupNorm(out_channels, silu=True)
         self.conv_2 = _conv3(out_channels, out_channels)
         # ncsn blocks that resample project the skip path as well
-        if in_channels != out_channels or up_or_down != 'none':
+        if in_channels != out_channels \
+                or (not self.adm and up_or_down != 'none'):
             self.skip_conv = nn.Linear(in_channels, out_channels)
         self.attn = AttentionBlock(out_channels) if attention else None
 
@@ -142,7 +151,12 @@ class UNetBlock(nn.Module):
             h = resampler(h, self.up_or_down)
             x = resampler(x, self.up_or_down)
         h = self.conv_1(h)
-        h = self.norm_2(h + self.linear(emb)[:, :, None, None])
+        e = self.linear(emb)
+        if self.adm:
+            scale, shift = e.chunk(2, dim=-1)
+            h = self.norm_2(h, ext_scale=scale + 1, ext_shift=shift)
+        else:
+            h = self.norm_2(h + e[:, :, None, None])
         if self.dropout and self.training:
             keep = torch.rand(h.shape, generator=generator,
                               device=h.device) >= self.dropout
@@ -197,11 +211,8 @@ class DiffusionUNet(nn.Module):
                 or decoder_type not in ('standard', 'residual', 'skip'):
             raise ValueError(f'encoder_type {encoder_type!r}, decoder_type '
                              f'{decoder_type!r}')
-        if block_type != 'ncsn':
-            raise NotImplementedError(
-                f'block_type {block_type!r}: the adm blocks (idmse, '
-                'idmselarge) need the external GroupNorm affine, which is not '
-                'ported yet (ROADMAP.md, Queue 1, the idmse item)')
+        if block_type not in ('ncsn', 'adm'):
+            raise ValueError(f'block_type {block_type!r}')
         self.encoder_type, self.decoder_type = encoder_type, decoder_type
         self.fir_kernel, self.remat = tuple(fir_kernel), remat
         self.channel_mult = tuple(channel_mult)
@@ -210,7 +221,7 @@ class DiffusionUNet(nn.Module):
         channels = [base_channels * m for m in channel_mult]
         emb_ch = base_channels * emb_channel_mult
         block = dict(skip_scale=skip_scale, dropout=dropout,
-                     emb_channels=emb_ch)
+                     emb_channels=emb_ch, block_type=block_type)
         self.emb = NoiseEmbedding(base_channels * noise_channel_mult, emb_ch)
         self.input_conv = _conv3(in_channels, base_channels)
 
@@ -254,7 +265,8 @@ class DiffusionUNet(nn.Module):
             for b in range(n_blocks):
                 self._add('dec', f'dec_{i}_{b}', UNetBlock(
                     skip_channels.pop() + (in_ch if b == 0 else channels[i]),
-                    channels[i], attention=attention and b == n_blocks - 1,
+                    channels[i], attention=attention and (
+                        block_type == 'adm' or b == n_blocks - 1),
                     **block))
             if decoder_type != 'standard':
                 if decoder_type == 'skip' or i == num_res - 1:

@@ -8,8 +8,8 @@ preconditioning's weight: t and complex noise are drawn from the trainer's
 ``mse`` criterion compares its output with ``x_0 - y`` over each item's
 frames. Inference runs the reverse-SDE solver (PC or EDM-Heun) from the
 prior around the mixture. The default NCSN++ geometry (``sgmsep``) has
-65,590,694 parameters, ``sgmsepm`` 27,756,186. ``idmse`` and
-``idmselarge`` (the ADM blocks) raise: they are not ported yet.
+65,590,694 parameters, ``sgmsepm`` 27,756,186; ``idmse`` (the ADM
+U-Net) 16,613,378 and ``idmselarge`` 70,995,586.
 """
 
 import torch
@@ -245,20 +245,44 @@ class SGMSEpMHeun(SGMSEpM):
         super().__init__(device=device, **{**_HEUN, **kwargs})
 
 
-class _NotPorted(BreverBaseModel):
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f'{self.arch}: the ADM blocks need the external GroupNorm affine, '
-            'which is not ported yet (ROADMAP.md, Queue 1, the idmse '
-            'item)')
-
-
 @ModelRegistry.register('idmse')
-class IDMSE(_NotPorted):
-    arch = 'idmse'
+class IDMSE(SGMSEp):
+    """Interpolation diffusion with the ADM backbone: the cosine SDE, EDM
+    preconditioning and Heun solver over a U-Net of ``adm`` blocks with
+    ``standard`` encoder and decoder (16,613,378 parameters)."""
+
+    def __init__(self, net_base_channels: int = 64,
+                 net_channel_mult: list[int] = [1, 2, 3, 4],
+                 net_num_blocks_per_res: int = 1,
+                 net_noise_channel_mult: int = 1,
+                 net_fir_kernel: list[int] = [1, 1],
+                 net_attn_resolutions: list[int] = [], *, device, **kwargs):
+        super().__init__(device=device, **{
+            **_HEUN, 'net_base_channels': net_base_channels,
+            'net_channel_mult': net_channel_mult,
+            'net_num_blocks_per_res': net_num_blocks_per_res,
+            'net_noise_channel_mult': net_noise_channel_mult,
+            'net_fir_kernel': net_fir_kernel,
+            'net_attn_resolutions': net_attn_resolutions,
+            'net_encoder_type': 'standard', 'net_decoder_type': 'standard',
+            'net_block_type': 'adm', **kwargs})
 
 
 @ModelRegistry.register('idmselarge')
-class IDMSELarge(_NotPorted):
-    arch = 'idmselarge'
+class IDMSELarge(IDMSE):
+    """IDMSE with the NCSN++-sized backbone (70,995,586 parameters)."""
+
+    def __init__(self, net_base_channels: int = 128,
+                 net_channel_mult: list[int] = [1, 1, 2, 2, 2, 2, 2],
+                 net_num_blocks_per_res: int = 2,
+                 net_noise_channel_mult: int = 2,
+                 net_fir_kernel: list[int] = [1, 3, 3, 1],
+                 net_attn_resolutions: list[int] = [16], *, device,
+                 **kwargs):
+        super().__init__(net_base_channels=net_base_channels,
+                         net_channel_mult=net_channel_mult,
+                         net_num_blocks_per_res=net_num_blocks_per_res,
+                         net_noise_channel_mult=net_noise_channel_mult,
+                         net_fir_kernel=net_fir_kernel,
+                         net_attn_resolutions=net_attn_resolutions,
+                         device=device, **kwargs)

@@ -64,6 +64,7 @@ SIGNATURES = {
     'bn_fwd': (_I, [_P] * 8 + [_I] * 3 + [_F, _I, _P]),
     'bn_bwd': (_I, [_P] * 10 + [_I] * 4 + [_P]),
     'stft_basis': (_I, [_P] * 3 + [_I] * 5 + [_P]),
+    'fma_chain': (_I, [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -25,9 +25,16 @@ The plain versions: :func:`group_norm_act_reference`, the twin of
 ``_make_gn_silu`` without the external affine (f32 statistics, then the
 affine, then the activation), and :func:`group_norm_act_bwd_plain`, its
 memory-lean backward, which recomputes the normalised tensor and the
-activation's derivative from x. The external per-(batch, channel) affine of
-the ADM blocks (``ext_scale``/``ext_shift``) is not ported: it raises on
-every device.
+activation's derivative from x.
+
+With the external per-(batch, channel) affine of the ADM blocks
+(``ext_scale``/``ext_shift`` ``(B, C)``, ``z = (xhat scale + bias)
+ext_scale + ext_shift``, then the activation) every device takes
+:class:`GroupNormExtFunction`, the twin of ``_make_gn_silu(..., has_ext=
+True)``: the JAX package never sends that case to its Pallas kernel, so
+there is no TPU kernel to port for it. Its forward saves x, the ``(B, G)``
+statistics and the affine terms; its backward recomputes ``xhat`` and ``z``
+and returns the five gradients.
 """
 
 import contextlib
@@ -75,12 +82,17 @@ def _normalized(x, scale, bias, mean, rstd):
     return xhat, xhat * _param(scale, x) + _param(bias, x)
 
 
-def group_norm_act_reference(x, scale, bias, num_groups, eps, act):
-    """Plain forward: ``(y, mean, rstd)``, the statistics ``(B, G)``."""
+def _statistics(x, num_groups, eps):
+    """``(mean, rstd)`` per ``(B, G)``, the fast-variance form."""
     xg = x.reshape(x.shape[0], num_groups, -1)
     mean = xg.mean(dim=-1)
     var = (xg * xg).mean(dim=-1) - mean * mean
-    rstd = torch.rsqrt(var + eps)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_act_reference(x, scale, bias, num_groups, eps, act):
+    """Plain forward: ``(y, mean, rstd)``, the statistics ``(B, G)``."""
+    mean, rstd = _statistics(x, num_groups, eps)
     _, z = _normalized(x, scale, bias, mean, rstd)
     return _act(z, act), mean, rstd
 
@@ -89,7 +101,13 @@ def group_norm_act_bwd_plain(x, dy, scale, bias, mean, rstd, num_groups,
                              act):
     """Plain backward from x and the statistics: ``(dx, dscale, dbias)``."""
     xhat, z = _normalized(x, scale, bias, mean, rstd)
-    dz = _act_grad(z, dy, act)
+    return _affine_bwd(x, xhat, _act_grad(z, dy, act), scale, rstd,
+                       num_groups)
+
+
+def _affine_bwd(x, xhat, dz, scale, rstd, num_groups):
+    """``(dx, dscale, dbias)`` from ``dz``, the gradient of ``z = xhat scale
+    + bias``."""
     dims = (0,) + tuple(range(2, x.ndim))
     dscale = (dz * xhat).sum(dim=dims)
     dbias = dz.sum(dim=dims)
@@ -102,6 +120,63 @@ def group_norm_act_bwd_plain(x, dy, scale, bias, mean, rstd, num_groups,
     dx = _per_channel(rstd, x) * (dxhat - group_mean(dxhat)
                                   - xhat * group_mean(dxhat * xhat))
     return dx, dscale, dbias
+
+
+def _per_item(t, x):
+    """``(B, C)`` terms as ``(B, C, 1, ...)`` for broadcasting."""
+    return t.reshape(*t.shape, *([1] * (x.ndim - 2)))
+
+
+def group_norm_ext_reference(x, scale, bias, ext_scale, ext_shift,
+                             num_groups, eps, act):
+    """Plain forward with the external affine ``ext_scale, ext_shift (B,
+    C)``: ``(y, mean, rstd)``, the statistics ``(B, G)``."""
+    mean, rstd = _statistics(x, num_groups, eps)
+    _, z = _normalized(x, scale, bias, mean, rstd)
+    z = z * _per_item(ext_scale, x) + _per_item(ext_shift, x)
+    return _act(z, act), mean, rstd
+
+
+def group_norm_ext_bwd_plain(x, dy, scale, bias, ext_scale, ext_shift, mean,
+                             rstd, num_groups, act):
+    """Plain backward with the external affine, from x and the
+    statistics: ``(dx, dscale, dbias, d_ext_scale, d_ext_shift)``, the last
+    two ``(B, C)`` sums over the spatial axes of ``dz z0`` and ``dz`` (``z0 =
+    xhat scale + bias``, ``dz`` the gradient of the activation's input)."""
+    xhat, z0 = _normalized(x, scale, bias, mean, rstd)
+    gain = _per_item(ext_scale, x)
+    dz = _act_grad(z0 * gain + _per_item(ext_shift, x), dy, act)
+    spatial = tuple(range(2, x.ndim))
+    d_ext_scale = (dz * z0).sum(dim=spatial)
+    d_ext_shift = dz.sum(dim=spatial)
+    return (*_affine_bwd(x, xhat, dz * gain, scale, rstd, num_groups),
+            d_ext_scale, d_ext_shift)
+
+
+class GroupNormExtFunction(torch.autograd.Function):
+    """GroupNorm + external affine + activation with its memory-lean VJP
+    (``_make_gn_silu(..., has_ext=True)``'s custom VJP): saves x, the ``(B,
+    G)`` statistics, the affine terms and ``ext_scale``/``ext_shift``; the
+    plain versions on every device. ``apply(x, scale, bias, ext_scale,
+    ext_shift, num_groups, eps, act)``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, ext_scale, ext_shift, num_groups, eps,
+                act):
+        y, mean, rstd = group_norm_ext_reference(
+            x, scale, bias, ext_scale, ext_shift, num_groups, eps, act)
+        ctx.save_for_backward(x, scale, bias, ext_scale, ext_shift, mean,
+                              rstd)
+        ctx.num_groups, ctx.act = num_groups, act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, ext_scale, ext_shift, mean, rstd = ctx.saved_tensors
+        grads = group_norm_ext_bwd_plain(x, dy, scale, bias, ext_scale,
+                                         ext_shift, mean, rstd,
+                                         ctx.num_groups, ctx.act)
+        return (*grads, None, None, None)
 
 
 #: set while torch.utils.checkpoint recomputes a block (:func:`recomputing`)
@@ -178,11 +253,9 @@ class GroupNormActFunction(torch.autograd.Function):
 
 def _group_norm(x, scale, bias, num_groups, eps, apply_silu, ext_scale,
                 ext_shift, plain):
-    if ext_scale is not None or ext_shift is not None:
-        raise NotImplementedError(
-            'group_norm_silu with ext_scale/ext_shift (the ADM blocks of '
-            'idmse and idmselarge) is not ported yet (ROADMAP.md, Queue 1, '
-            'the idmse item)')
+    if (ext_scale is None) != (ext_shift is None):
+        raise ValueError('group_norm_silu: ext_scale and ext_shift must be '
+                         'given together')
     if x.ndim < 2 or x.shape[1] % num_groups:
         raise ValueError(f'group_norm_silu: channels of {tuple(x.shape)} '
                          f'not divisible by {num_groups} groups')
@@ -191,6 +264,19 @@ def _group_norm(x, scale, bias, num_groups, eps, apply_silu, ext_scale,
                          'contiguous channels first (B, C, *spatial), got '
                          f'strides {x.stride()}')
     act = 'silu' if apply_silu else 'none'
+    if ext_scale is not None:
+        # the plain route on every device, as the JAX package's; a (1, C)
+        # term (the solver's one noise level for a batch) is broadcast
+        ext_scale = ext_scale.reshape(-1, x.shape[1]).expand(x.shape[:2])
+        ext_shift = ext_shift.reshape(-1, x.shape[1]).expand(x.shape[:2])
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, scale, bias, ext_scale,
+                                          ext_shift)):
+            return GroupNormExtFunction.apply(x, scale, bias, ext_scale,
+                                              ext_shift, num_groups,
+                                              float(eps), act)
+        return group_norm_ext_reference(x, scale, bias, ext_scale, ext_shift,
+                                        num_groups, float(eps), act)[0]
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, scale, bias)):
         return GroupNormActFunction.apply(x, scale, bias, num_groups,
@@ -203,10 +289,12 @@ def group_norm_silu(x, scale, bias, num_groups, eps=1e-6, apply_silu=True,
                     ext_scale=None, ext_shift=None):
     """GroupNorm of ``x (B, C, *spatial)``, contiguous (any other layout
     raises, on every device), with the affine ``scale, bias (C,)``, then
-    SiLU if ``apply_silu``; differentiable through
-    :class:`GroupNormActFunction` when grad mode is on and an input
-    requires grad. A tensor on the CPU takes the plain versions; a CUDA
-    tensor launches K7 (and K8 in the backward) or raises."""
+    the external affine ``ext_scale, ext_shift (B, C)`` or ``(1, C)`` if
+    given (both or neither), then SiLU if ``apply_silu``; differentiable
+    when grad mode is on and an input requires grad. Without the external
+    affine a tensor on the CPU takes the plain versions and a CUDA tensor
+    launches K7 (and K8 in the backward, :class:`GroupNormActFunction`) or
+    raises; with it every device takes :class:`GroupNormExtFunction`."""
     return _group_norm(x, scale, bias, num_groups, eps, apply_silu,
                        ext_scale, ext_shift, False)
 

@@ -31,8 +31,8 @@ gate-sized tensors a step, more than the card holds for TF-GridNet at
 16 x 4 s. :func:`lstm_scan_x_plain` is the whole plain path, with that
 backward, on any device.
 
-The kernels take every shape the JAX package's XLA scan runs, up to
-H = 256 (``_check_hidden``):
+The kernels take every shape the JAX package's scans run, up to H = 512
+(``_check_hidden``; K3/K4 up to 256, K5/K6 up to 512):
 
 * a hidden size off the kernels' grid of multiples of 32 is zero-padded
   up to it by :func:`pad_hidden` in :func:`lstm_scan_x` and
@@ -43,10 +43,11 @@ H = 256 (``_check_hidden``):
   into row chunks below it (:func:`row_chunks`), launched in order; the
   rows are independent, and the weight-gradient partials are summed in
   chunk order, so the result is deterministic;
-* an (E, H) whose projection-fused kernels pass the card's shared memory
-  is routed by ``models/rnn.py`` to the projection and K5/K6 before any
-  launch (:func:`fused_x_fits`); K5/K6's shared memory does not grow with
-  E.
+* an (E, H) whose projection-fused kernels pass the card's shared memory,
+  and every H above 256, is routed by ``models/rnn.py`` to the projection
+  and K5/K6 before any launch (:func:`fused_x_fits`); K5/K6's shared
+  memory does not grow with E, and above H = 256 they scan 16-row tiles
+  (H threads a block) where they scan 32-row ones (2H threads) below.
 """
 
 import torch
@@ -56,11 +57,12 @@ from . import build
 
 #: the kernels' int range: no tensor of a launch may hold this many floats
 _INT_RANGE = 2 ** 31
-#: the largest hidden size the kernels take, and their grid of sizes
-_MAX_HIDDEN, _HIDDEN_STEP = 256, 32
-#: rows of one scan tile (``kRows`` of csrc/lstm_scan.cu), and the floats
-#: of shared memory a tile row takes in K3/K4 (``lstm_fwd_smem`` and
-#: ``lstm_bwd_smem``): E + H forward, E + 6 H backward
+#: the largest hidden size the kernels take (K5/K6), the largest K3/K4
+#: take (``kMaxHiddenWide`` of csrc/lstm_scan.cu), and their grid of sizes
+_MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 512, 256, 32
+#: rows of one K3/K4 scan tile, and the floats of shared memory a tile row
+#: takes in K3/K4 (``lstm_fwd_smem`` and ``lstm_bwd_smem``): E + H
+#: forward, E + 6 H backward
 _TILE_ROWS = 32
 #: shared memory a block may take on the H100 (bytes)
 _MAX_SMEM = 227 * 1024
@@ -106,16 +108,18 @@ def row_chunks(steps, n_dir, rows, width):
 
 
 def fused_x_fits(feat, hidden):
-    """Whether K3 and K4 (the projection inside the scan) fit a block's
-    shared memory at input width ``feat`` and hidden size ``hidden`` (the
-    kernels pad E to a multiple of 4); else the projection goes outside and
-    K5/K6 run the scan, whose shared memory does not depend on E. The
-    formula is ``lstm_bwd_smem`` of csrc/lstm_scan.cu (K4's, the larger),
-    the one place it is defined: this copy decides the route without
-    building the library, and every launch checks the library's own figure
+    """Whether K3 and K4 (the projection inside the scan) take input width
+    ``feat`` and hidden size ``hidden``: H at most 256, and their shared
+    memory within a block's (the kernels pad E to a multiple of 4); else
+    the projection goes outside and K5/K6 run the scan, which take H up to
+    512 and whose shared memory does not depend on E. The formula is
+    ``lstm_bwd_smem`` of csrc/lstm_scan.cu (K4's, the larger), the one
+    place it is defined: this copy decides the route without building the
+    library, and every launch checks the library's own figure
     (``_check``)."""
     e_pad = feat + (-feat % 4)
-    return 4 * _TILE_ROWS * (e_pad + 6 * hidden) <= _MAX_SMEM
+    return hidden <= _MAX_HIDDEN_X \
+        and 4 * _TILE_ROWS * (e_pad + 6 * hidden) <= _MAX_SMEM
 
 
 def _cell(gates, c_prev):
@@ -410,12 +414,16 @@ def _tensor(t, name, device, shape, what='lstm_scan_x'):
     return t
 
 
-def _check_hidden(hidden, what):
-    if hidden % _HIDDEN_STEP or not _HIDDEN_STEP <= hidden <= _MAX_HIDDEN:
+def _check_hidden(hidden, what, most=_MAX_HIDDEN):
+    """Raise unless the kernels take ``hidden``: a multiple of 32 up to
+    ``most`` (512 for K5/K6, 256 for K3/K4)."""
+    if hidden % _HIDDEN_STEP or not _HIDDEN_STEP <= hidden <= most:
+        beyond = ('; a hidden size past 512 is still to be ported '
+                  '(ROADMAP.md, Queue 3)' if hidden > _MAX_HIDDEN else '')
         raise NotImplementedError(
             f'{what}: the CUDA kernels take a hidden size that is a '
-            f'multiple of 32 up to 256 ({what} pads a smaller one to the '
-            f'grid), got {hidden}')
+            f'multiple of 32 up to {most} ({what} pads a smaller one to the '
+            f'grid), got {hidden}{beyond}')
 
 
 def _check(x_seq, w_ih, bias, w_hh, lib, backward):
@@ -435,7 +443,7 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
     _tensor(w_hh, 'w_hh', device, (n_dir, hidden, 4 * hidden))
     _tensor(w_ih, 'w_ih', device, (n_dir, feat, 4 * hidden))
     _tensor(bias, 'bias', device, (n_dir, 4 * hidden))
-    _check_hidden(hidden, 'lstm_scan_x')
+    _check_hidden(hidden, 'lstm_scan_x', _MAX_HIDDEN_X)
     e_pad = feat + (-feat % 4)
     smem = (lib.lstm_bwd_smem if backward else lib.lstm_fwd_smem)(e_pad,
                                                                  hidden)

@@ -2,7 +2,8 @@
 
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
-``sgmsepm``, 27,756,186; DCCRN, 3,671,053; MANNER, 21,253,921; random
+``sgmsepm``, 27,756,186; IDMSE ``idmse``, 16,613,378, or ``idmselarge``,
+70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; random
 weights from the family's ``init_parameters(--seed)``) on the device,
 float32 with TF32 off (as ``chip_smoke.py`` runs it), and
 measures:
@@ -28,9 +29,9 @@ object; ``--trace`` also writes the Chrome trace.
         [--device cuda] [--batch 16] [--calls 5] [--repeats 10]
         [--requests 0.05,4,10] [--cudnn-benchmark] [--trace PATH]
 
-SGMSE+'s enhance runs its solver's 32 U-Net evaluations: ask for
-``--batch 1 --calls 1 --repeats 1 --requests 0.05,4`` to keep the run to
-a few minutes.
+SGMSE+'s enhance runs its solver's 32 U-Net evaluations (IDMSE's Heun
+solver 31): ask for ``--batch 1 --calls 1 --repeats 1 --requests 0.05,4``
+to keep the run to a few minutes.
 """
 
 import argparse
@@ -48,7 +49,8 @@ from .numerics import disable_tf32
 from .serve import EnhanceService
 
 FS = 16000
-ARCHS = ('convtasnet', 'tfgridnet', 'sgmsep', 'sgmsepm', 'dccrn', 'manner')
+ARCHS = ('convtasnet', 'tfgridnet', 'sgmsep', 'sgmsepm', 'idmse',
+         'idmselarge', 'dccrn', 'manner')
 
 
 def _kernel_name(name):

@@ -2,7 +2,8 @@
 
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
-``sgmsepm``, 27,756,186; DCCRN, 3,671,053; MANNER, 21,253,921; drawn from
+``sgmsepm``, 27,756,186; IDMSE ``idmse``, 16,613,378, or ``idmselarge``,
+70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; drawn from
 ``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32 off
 (as ``chip_smoke.py`` runs it), and times ``train_step`` (forward, the
 kernels' backward, global-norm clip where the family clips, Adam) on a
@@ -24,7 +25,8 @@ object; ``--trace`` also writes the Chrome trace.
         [--device cuda] [--batch 16] [--steps 5] [--cudnn-benchmark]
         [--trace PATH]
 
-SGMSE+ is profiled at its reference batch, ``--arch sgmsep --batch 4``.
+SGMSE+ and IDMSE are profiled at SGMSE+'s reference batch, ``--arch
+sgmsep --batch 4`` (``idmse``, ``idmselarge``).
 ``--cudnn-benchmark`` lets cuDNN time its convolution algorithms for each
 new shape and keep the fastest (``torch.backends.cudnn.benchmark``); the
 port's entry points leave it off.

@@ -10,8 +10,12 @@ full-width SGMSE+ (``sgmsep``, the NCSN++ U-Net: 128 base channels, mults
 the bottleneck; 65,590,694 random parameters from a seed), full-width
 DCCRN (STFT 512/128, channels 16-32-64-128-128-128, kernel (5, 2), stride
 (2, 1), two complex LSTM layers of 128, batch norm; 3,671,053 random
-parameters from a seed) and MANNER (its only width: hidden 60, depth 4,
-69 BatchNorms; 21,253,921 random parameters from a seed) on the card.
+parameters from a seed), MANNER (its only width: hidden 60, depth 4,
+69 BatchNorms; 21,253,921 random parameters from a seed), and IDMSE
+(``idmse``, the ADM U-Net: 64 base channels, mults 1, 2, 3, 4, one block
+a level; 16,613,378 random parameters from a seed) and ``idmselarge``
+(SGMSE+'s U-Net geometry with ADM blocks; 70,995,586) on the card, and the
+elementwise-rate probe (K10) in float32 and bfloat16.
 Every family is served through ``EnhanceService(model_dir)`` and trained
 through ``train.main([...])`` on a model directory written here, the entry
 points of ``python -m brever_tpu_torch.serve`` and ``.train``. The phases
@@ -101,16 +105,41 @@ each print one line, with the seconds since the start:
 34. the LSTM kernels on shapes they refused before: H = 200 at TF-GridNet's
     intra shape (padded to 224) through autograd, an (E, H) past the shared
     memory routed to the projection and K5, and a row count past the int
-    range in row chunks.
+    range in row chunks;
+35. the elementwise-rate probe (K10) through ``bench_alu_dtype.bench``:
+    the built library's SASS (FFMA in float32, HFMA2.BF16 and no
+    conversion in bfloat16), both dtypes on the benchmark's input and a
+    wider one against the plain chain, and at other k and passes on inputs
+    whose chains have not converged, within ``fma_chain_limit`` at every
+    element; times against the bound (a time under it fails), the bf16:f32
+    ratio;
+36. K5/K6 at H = 384 and 512 (16-row tiles) against their plain versions,
+    the backward in float64, twice bitwise; a 128-row BLSTM at H = 384
+    routed to the projection + K5; times at H = 512;
+37. IDMSE from ``EnhanceService(model_dir)``: the denoiser (2 x 4 s) and
+    ``enhance`` (1 x 4 s, one generator seed) against the plain path in
+    float64, K7 launches per evaluation, HTTP requests of 0.05 and 4 s;
+38. IDMSE's gradients (2 x 2 s) against the plain path in float64, beside
+    the plain float32 path's;
+39. IDMSE trained through train.main on a WAV dataset written here: the
+    fixed-generator validation loss falls, last.ckpt (``aux`` and the
+    generator's state) resumes bitwise, the checkpoint serves;
+40. IDMSE timings: the denoiser and the train step at 4 x 4 s with kernel
+    and with plain GroupNorms, ``enhance`` of 1 x 4 s, and the external-
+    affine GroupNorms of an evaluation on their plain route;
+41. IDMSE-large: the denoiser (2 x 4 s) against the plain path in float64,
+    ``enhance`` of 1 x 2 s against the plain float32 path, one timed train
+    step at 4 x 4 s with its peak memory.
 
 Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
 comparisons hold the kernels to float32. Any failure raises (non-zero
 exit). The line before the last is a JSON record of each kernel: its
 launches on the main paths, error, time, plain time, the bound (the
 least time of its bytes at 3.35 TB/s or its flops at the f32 rate of 67
-TFLOP/s, whichever is larger, from this run's shapes) and the time of
-one PyTorch call of the same function where there is one. The last line
-is ``{"ok": true, "device": {...}}``.
+TFLOP/s, K10's bfloat16 at the probe's 133.8 TFLOP/s, whichever is larger,
+from this run's shapes) and the time of one PyTorch call of the same
+function where there is one. The last line is ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py
 """
@@ -166,7 +195,8 @@ CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           'config', 'models')
 #: the card's published rates (H100 SXM, NVIDIA's data sheet): device
 #: memory bytes/s and float32 flops/s outside the tensor cores, which the
-#: kernels use
+#: kernels use (K10's bound, bfloat16 included, is the probe's own:
+#: ``bench_alu_dtype.bound``)
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
 
@@ -328,11 +358,12 @@ def write_tone_dataset(path, n_items, seconds, seed):
                 tar.addfile(info, buf)
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, flops_per_s=F32_FLOPS):
     """(ms, 'bytes' or 'operations'): the least time the card could take
-    for ``flops`` float32 operations that must move ``nbytes`` bytes."""
+    for ``flops`` operations (float32 unless ``flops_per_s`` says another
+    rate) that must move ``nbytes`` bytes."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, 'bytes') if by_bytes >= by_ops else (by_ops,
                                                             'operations')
 
@@ -982,10 +1013,11 @@ def library(x, scale, bias, groups, silu):
     return F.silu(y) if silu else y
 
 
-def sgmse_model(state, device, dtype=torch.float32):
-    """``sgmsep`` on ``device`` in ``dtype`` holding a state_dict."""
+def sgmse_model(state, device, dtype=torch.float32, arch='sgmsep'):
+    """``arch`` (an SGMSE+ or IDMSE key) on ``device`` in ``dtype`` holding
+    a state_dict."""
     from brever_tpu_torch.models import ModelRegistry
-    model = ModelRegistry.get('sgmsep')(device='cpu')
+    model = ModelRegistry.get(arch)(device='cpu')
     model.load_state_dict(state)
     return model.to(device=device, dtype=dtype).eval()
 
@@ -2394,6 +2426,591 @@ def lstm_repair_phase(device, card):
     phase(34, 'LSTM kernels on the shapes they refused: ' + '; '.join(notes))
 
 
+#: K10 against its plain version (phase 35): float32 within 1e-5 of the
+#: largest value (the kernel's fused multiply-add rounds once a step where
+#: the plain chain rounds twice: 256 steps of float32 rounding stay far
+#: below it), bfloat16 within 2**-6 of the largest value, 4 bfloat16 ulps
+#: at its top binade (the same double rounding in 8 significant bits)
+FMA_F32_REL, FMA_BF16_REL = 1e-5, 2.0 ** -6
+#: the most of K10's bound that a time may show: past it the kernel did
+#: less work than the chain asks (5 % for the clock and timer's spread)
+FMA_MAX_BOUND_SHARE = 1.05
+#: the gates-in scan at the hidden sizes past 256 (phase 36): (T, D, R, E,
+#: H), DCCRN's scan shape at 16 x 4 s at H = 512 and 384, rows off the
+#: 16-row tile with D = 1, and a short scan at B = 1
+WIDE_SCAN_CASES = [(495, 2, 32, 256, 512), (495, 2, 32, 256, 384),
+                   (7, 1, 17, 16, 512), (40, 2, 2, 64, 384)]
+IDMSE_PARAMS = {'idmse': 16_613_378, 'idmselarge': 70_995_586}
+#: K7 launches of one U-Net evaluation: every GroupNorm without the external
+#: affine (norm_1 of each block, the attention norms, output_norm); each
+#: adm block's norm_2 takes the external affine on the plain route
+IDMSE_EVAL_LAUNCHES = {'idmse': 22, 'idmselarge': 56}
+
+
+def fma_phase(device, card):
+    """Phase 35: the elementwise-rate probe (K10); returns its record."""
+    from brever_tpu_torch import bench_alu_dtype as probe
+    from brever_tpu_torch.ops import build
+    from brever_tpu_torch.ops import fma_chain as fc
+    torch.cuda.empty_cache()
+    sass = probe.sass_report(build.library_path())
+    # the main path: the probe's own timing of each dtype
+    fc.fma_chain.launches = 0
+    rows = {r['dtype']: r for r in (probe.bench(d, device)
+                                    for d in probe.DTYPES)}
+    launches = fc.fma_chain.launches
+    if launches < len(probe.DTYPES) * (1 + probe.REPS):
+        raise AssertionError(f'the probe launched K10 {launches} times')
+    rec = {'name': 'fma_chain', 'route': 'cuda',
+           'source': 'brever_tpu_torch/csrc/fma_chain.cu',
+           'replaces': 'benchmarks/bench_vpu_dtype.py:35',
+           'launches': launches, 'library_ms': None,
+           'library_note': 'no PyTorch call computes the chain',
+           'shape': f'({probe.ROWS}, {probe.T}, {probe.H}), k={probe.K}, '
+                    f'passes={probe.PASSES}'}
+    notes, max_err = [], 0.0
+
+    def held(dtype, kind, k, passes, rel=None):
+        """K10 against the plain chain within ``fma_chain_limit`` at every
+        element (and ``rel`` of the largest value); returns the largest
+        error and the case's margin over a chain one step short."""
+        x = probe.probe_input(dtype, device, kind=kind)
+        got, want = fc.fma_chain(x, k, passes), \
+            fc.fma_chain_reference(x, k, passes)
+        limit, margin = fc.fma_chain_limit(x, k, passes)
+        case = f'K10 {dtype} {kind} input k={k} passes={passes}'
+        if got.shape != x.shape or got.dtype != dtype \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f'{case}: {got.shape} {got.dtype}')
+        err = (got.double() - want.double()).abs()
+        if (err > limit).any():
+            i = int((err - limit).argmax())
+            raise AssertionError(f'{case}: error {err.flatten()[i]:.3e} > '
+                                 f'limit {limit.flatten()[i]:.3e} at {i}')
+        top = want.double().abs().max().item()
+        if rel is not None and err.max().item() > rel * top:
+            raise AssertionError(f'{case}: max err {err.max():.3e} > '
+                                 f'{rel:.1e} x {top:.4f}')
+        return err.max().item(), margin.max().item()
+
+    for dtype in probe.DTYPES:
+        key = str(dtype).replace('torch.', '')
+        rel = FMA_F32_REL if dtype == torch.float32 else FMA_BF16_REL
+        for kind in ('bench', 'wide'):
+            err, _ = held(dtype, kind, probe.K, probe.PASSES, rel)
+            max_err = max(max_err, err)
+            notes.append(f'{key} {kind} input {err:.2e} (<= {rel:.1e} x '
+                         f'max|ref| and the limit)')
+        x = probe.probe_input(dtype, device)
+        rec.update({f'plain_ms{"" if dtype == torch.float32 else "_bf16"}':
+                    cuda_ms(lambda: fc.fma_chain_reference(x), 3, 1)})
+        del x
+    steps = []
+    for kind, k, passes, dtypes in probe.STEP_CASES:
+        for dtype in dtypes:
+            err, margin = held(dtype, kind, k, passes)
+            if margin <= 0:
+                raise AssertionError(f'K10 {dtype} {kind} k={k} passes='
+                                     f'{passes}: the case cannot tell '
+                                     f'{passes * (k // 2)} steps from one '
+                                     f'fewer')
+            steps.append(f'{str(dtype)[6:]} {kind} {k}/{passes} {err:.1e}')
+    notes.append('within the limit and one step apart at k/passes ' +
+                 ', '.join(steps))
+    for dtype in probe.DTYPES:
+        key = str(dtype).replace('torch.', '')
+        row, suffix = rows[key], '' if dtype == torch.float32 else '_bf16'
+        if row['bound_ms'] / row['ms'] > FMA_MAX_BOUND_SHARE:
+            raise AssertionError(f'K10 {key}: {row["ms"]:.4f} ms is under '
+                                 f'its bound {row["bound_ms"]:.4f} ms')
+        rec.update({f'ms{suffix}': row['ms'],
+                    f'host_ms{suffix}': row['host_ms'],
+                    f'bound_ms{suffix}': row['bound_ms'],
+                    f'bound_by{suffix}': row['bound_by'],
+                    f'tops{suffix}': row['tops']})
+    rec['max_abs_err'] = max_err
+    rec['bf16_f32_time_ratio'] = rec['ms_bf16'] / rec['ms']
+    print('K10 SASS: ' + '; '.join(
+        f'{k}: {v["instructions"]} instructions, {v["ffma"]} FFMA, '
+        f'{v["hfma2_bf16"]} HFMA2.BF16, {v["f32_arithmetic"]} float32 '
+        f'arithmetic, conversions {v["conversions"] or "none"}'
+        for k, v in sass.items()), flush=True)
+    phase(35, f'[{card}] K10 (the elementwise-rate probe) from '
+          f'bench_alu_dtype.bench: {launches} launches; SASS float32 chains '
+          f'FFMA, bfloat16 HFMA2.BF16 with no conversion; vs the plain '
+          f'chain: {"; ".join(notes)}; float32 {rec["ms"]:.4f} ms '
+          f'({rec["tops"]:.2f} Top/s, host issue {rec["host_ms"]:.4f} ms, '
+          f'plain {rec["plain_ms"]:.3f}, bound {rec["bound_ms"]:.4f} by '
+          f'{rec["bound_by"]}: {100 * rec["bound_ms"] / rec["ms"]:.1f} %), '
+          f'bfloat16 {rec["ms_bf16"]:.4f} ms ({rec["tops_bf16"]:.2f} Top/s, '
+          f'host issue {rec["host_ms_bf16"]:.4f} ms, plain '
+          f'{rec["plain_ms_bf16"]:.3f}, bound {rec["bound_ms_bf16"]:.4f} by '
+          f'{rec["bound_by_bf16"]}: '
+          f'{100 * rec["bound_ms_bf16"] / rec["ms_bf16"]:.1f} %); '
+          f'bf16:f32 time ratio {rec["bf16_f32_time_ratio"]:.3f}')
+    return rec
+
+
+def wide_scan_phase(device, card):
+    """Phase 36: K5/K6 at H = 384 and 512 (16-row tiles); returns the
+    H = 512 times for the K5/K6 records."""
+    from brever_tpu_torch.models import rnn
+    from brever_tpu_torch.ops import lstm_scan as lstm
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(38)
+    bwd_worst, bwd_err, fwd_err = float('inf'), 0.0, 0.0
+    for case in WIDE_SCAN_CASES:
+        name = 'T={} D={} R={} E={} H={}'.format(*case)
+        x, w_ih, bias, w_hh, dh = lstm_inputs(rng, *case, device)
+        gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
+                   + bias[None, :, None]).contiguous()
+        del x, w_ih, bias
+        before = (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches)
+        h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+        grads = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+        again = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+        if (lstm.lstm_scan.launches - before[0],
+                lstm.lstm_scan_bwd.launches - before[1]) != (1, 2):
+            raise AssertionError(f'K5/K6 {name}: launches')
+        ref = lstm.lstm_scan_reference(gates_x, w_hh)
+        torch.cuda.synchronize()
+        for got, want in zip((h, c), ref):
+            torch.testing.assert_close(got, want, atol=KERNEL_ATOL,
+                                       rtol=KERNEL_RTOL)
+            fwd_err = max(fwd_err, (got - want).abs().max().item())
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f'K6 {name}: two runs differ')
+        f64 = [t.double() for t in (gates_x, w_hh)]
+        h64, c64 = lstm.lstm_scan_reference(*f64)
+        want = lstm.lstm_scan_bwd_plain(*f64, h64, c64, dh.double())
+        torch.cuda.synchronize()
+        worst, err = check_close(f'K6 {name}', ('dgates', 'dw_hh'), want,
+                                 grads)
+        bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
+        del gates_x, w_hh, dh, h, c, grads, again, ref, f64, h64, c64, want
+    torch.cuda.empty_cache()
+    # a BLSTM of 128 rows at H = 384 is routed to the projection and K5
+    x, w_ih, bias, w_hh, _ = lstm_inputs(rng, 10, 2, 128, 64, 384, device)
+    before = (lstm.lstm_scan_x.launches, lstm.lstm_scan.launches)
+    with torch.no_grad():
+        h = rnn._dispatch_scan_x(x, w_ih, bias, w_hh)
+    routed = (lstm.lstm_scan_x.launches - before[0],
+              lstm.lstm_scan.launches - before[1])
+    if routed != (0, 1):
+        raise AssertionError(f'H=384 at 128 rows: K3/K5 launches {routed}')
+    torch.testing.assert_close(
+        h, lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)[0],
+        atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    del x, w_ih, bias, w_hh, h
+    # times at H = 512 on DCCRN's scan shape (plain, kernel in turns)
+    steps, n_dir, rows, feat, hidden = WIDE_SCAN_CASES[0]
+    x, w_ih, bias, w_hh, dh = lstm_inputs(rng, steps, n_dir, rows, feat,
+                                          hidden, device)
+    gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
+               + bias[None, :, None]).contiguous()
+    with torch.no_grad():
+        h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+        fwd = in_turns({
+            'kernel': lambda: lstm.lstm_scan_fwd(gates_x, w_hh),
+            'plain': lambda: lstm.lstm_scan_reference(gates_x, w_hh)},
+            3, 1)[0]
+        bwd = in_turns({
+            'kernel': lambda: lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh),
+            'plain': lambda: lstm.lstm_scan_bwd_plain(gates_x, w_hh, h, c,
+                                                      dh)}, 3, 1)[0]
+    flops = 2 * n_dir * steps * rows * hidden * 4 * hidden
+    seq_g = steps * n_dir * rows * 4 * hidden
+    seq_h = steps * n_dir * rows * hidden
+    weights = n_dir * hidden * 4 * hidden
+    out = {'fwd': fwd, 'bwd': bwd,
+           'bound_fwd': bound(flops, 4 * (seq_g + weights + 2 * seq_h)),
+           'bound_bwd': bound(3 * flops, 4 * (2 * seq_g + 2 * weights
+                                              + 3 * seq_h))}
+    del x, w_ih, bias, w_hh, dh, gates_x, h, c
+    torch.cuda.empty_cache()
+    phase(36, f'[{card}] {len(WIDE_SCAN_CASES)} gates-in scan cases at H = '
+          f'384 and 512 (16-row tiles): K5 h and c vs the plain version max '
+          f'abs err {fwd_err:.3e} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}); '
+          f'K6 vs the plain backward in float64 worst {bwd_worst:.1f} dB '
+          f'(>= {MIN_SNR_DB}), max abs err {bwd_err:.3e} (<= {MAX_REL_ERR} x '
+          f'max|ref|), two runs bitwise equal; a 128-row BLSTM at H=384 '
+          f'routed to the projection + K5; T={steps} D={n_dir} R={rows} '
+          f'H={hidden} kernel/plain ms: K5 {fwd["kernel"]:.3f}/'
+          f'{fwd["plain"]:.3f} ({1e3 * fwd["kernel"] / steps:.1f} us a '
+          f'step; bound {out["bound_fwd"][0]:.3f}), K6 {bwd["kernel"]:.3f}/'
+          f'{bwd["plain"]:.3f} (bound {out["bound_bwd"][0]:.3f})')
+    return out
+
+
+def idmse_service(arch, seed, device):
+    """``EnhanceService(model_dir)`` over a model directory of the full-width
+    ``arch`` with random weights from ``seed``, and its state_dict."""
+    from brever_tpu_torch.models import ModelRegistry, count_params
+    from brever_tpu_torch.serve import EnhanceService
+    model = ModelRegistry.get(arch)(device='cpu')
+    model.init_parameters(seed)
+    state = model.state_dict()
+    params, aux = model.to_flax(state), model.flax_aux(state)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        service = EnhanceService(write_model_dir(
+            os.path.join(tmp, 'model'), arch, params=params, aux=aux),
+            device)
+    if count_params(service.model) != IDMSE_PARAMS[arch]:
+        raise AssertionError(f'{arch}: {count_params(service.model)} '
+                             'parameters')
+    return service, state
+
+
+def denoiser_check(arch, gpu, state, device, seed):
+    """The denoiser at 2 x 4 s against the plain path in float64 (and the
+    plain float32 path's figure); checks one evaluation's K7 launches.
+    Returns (dB, max abs err, plain float32 dB)."""
+    from brever_tpu_torch.ops import groupnorm as gn
+    rng = np.random.RandomState(seed)
+    xs, ys = (complex_input(rng, (2, 1, 256, 501), device) for _ in range(2))
+    t = torch.tensor([0.35, 0.8], device=device).reshape(2, 1, 1, 1)
+    sigma = gpu.model.sde.sigma(t)
+    with torch.no_grad():
+        gn.group_norm_act_fwd.launches = 0
+        got = gpu.model.model(xs, ys, sigma, t)
+        torch.cuda.synchronize()
+        per_eval = gn.group_norm_act_fwd.launches
+        with plain_groupnorms():
+            want = sgmse_model(state, device, torch.float64, arch).model(
+                xs.to(torch.complex128), ys.to(torch.complex128),
+                sigma.double(), t.double())
+            plain = sgmse_model(state, device, arch=arch).model(xs, ys,
+                                                                 sigma, t)
+    if per_eval != IDMSE_EVAL_LAUNCHES[arch]:
+        raise AssertionError(f'{arch}: {per_eval} K7 launches an '
+                             f'evaluation, not {IDMSE_EVAL_LAUNCHES[arch]}')
+    db, err = check_close(f'{arch} denoiser (2, 1, 256, 501)', ('d',),
+                          (torch.view_as_real(want),),
+                          (torch.view_as_real(got),))
+    plain_db = check_close(f'{arch} plain denoiser', ('d',),
+                           (torch.view_as_real(want),),
+                           (torch.view_as_real(plain),), 0.0, None)[0]
+    torch.cuda.empty_cache()
+    return db, err, plain_db
+
+
+def idmse_phases(device, card):
+    """Phases 37-41: IDMSE (``idmse``, the ADM U-Net: the external-affine
+    GroupNorms on the plain route, every other GroupNorm on K7/K8) served,
+    differentiated, trained and timed, and ``idmselarge``'s denoiser,
+    enhance and train step; returns the numbers of the records."""
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.ops import groupnorm as gn
+    from brever_tpu_torch.profile_train import make_trainer
+    from brever_tpu_torch.serve import EnhanceService
+    out = {}
+    torch.cuda.empty_cache()
+    k7, k8 = gn.group_norm_act_fwd, gn.group_norm_act_bwd
+    per_eval = IDMSE_EVAL_LAUNCHES['idmse']
+
+    # ---- phase 37: denoiser, enhance and HTTP vs the plain path in float64
+    gpu, state = idmse_service('idmse', 37, device)
+    den_db, den_err, den_plain_db = denoiser_check('idmse', gpu, state,
+                                                   device, 37)
+    ref64 = sgmse_model(state, device, torch.float64, 'idmse')
+    mix = (0.3 * np.random.RandomState(38).randn(1, 2, 4 * FS)) \
+        .astype(np.float32)
+
+    def enhance(model, audio=mix):
+        return model.enhance(audio, generator=torch.Generator(
+            device=device).manual_seed(0))
+
+    k7.launches = 0
+    got = enhance(gpu.model)
+    torch.cuda.synchronize()
+    enh_launches = k7.launches
+    with plain_groupnorms():
+        want = enhance(ref64)
+    enh_db, enh_err = check_close('idmse enhance (1, 2, 64000)', ('wav',),
+                                  (want,), (got,))
+    evals = gpu.model.solver.evaluations
+    if enh_launches != evals * per_eval:
+        raise AssertionError(f'idmse enhance: {enh_launches} K7 launches, '
+                             f'not {evals} x {per_eval}')
+    del got, want
+    results = []
+    k7.launches = 0
+    with http_service(gpu) as (port, health):
+        if health['params'] != IDMSE_PARAMS['idmse'] \
+                or health['arch'] != 'idmse':
+            raise AssertionError(f'/health: {health}')
+        for seconds in (0.05, 4):
+            audio = (0.1 * np.random.RandomState(39).randn(
+                int(seconds * FS))).astype(np.float32)
+            before = k7.launches
+            got = post_wav(port, audio)
+            launched = k7.launches - before
+            with plain_groupnorms():
+                want = enhance(ref64, np.stack([audio, audio]))
+            db, _ = check_close(f'idmse /enhance {seconds} s', ('wav',),
+                                (want,), (torch.from_numpy(got)
+                                          .to(device),))
+            if launched != evals * per_eval:
+                raise AssertionError(f'idmse /enhance {seconds} s: '
+                                     f'{launched} K7 launches')
+            results.append(f'{seconds} s {db:.1f} dB')
+    out['launches_http'] = k7.launches
+    del ref64
+    torch.cuda.empty_cache()
+    phase(37, f'IDMSE ({IDMSE_PARAMS["idmse"]:,} parameters) from '
+          f'EnhanceService(model_dir): denoiser (2 x 4 s) {den_db:.1f} dB, '
+          f'max abs err {den_err:.3e} vs the plain path in float64 (plain '
+          f'float32 {den_plain_db:.1f} dB), {per_eval} K7 launches an '
+          f'evaluation (its 20 external-affine GroupNorms on the plain '
+          f'route); enhance (1 x 4 s, {evals} evaluations, generator seed 0 '
+          f'on both paths) {enh_db:.1f} dB (>= {MIN_SNR_DB}), max abs err '
+          f'{enh_err:.3e}, {enh_launches} K7 '
+          f'launches; /health ok, /enhance {", ".join(results)} vs the '
+          f'plain path in float64; {out["launches_http"]} K7 launches')
+
+    # ---- phase 38: full-model gradients vs the plain path in float64
+    rng = np.random.RandomState(40)
+    target = 0.1 * rng.randn(2, 1, 2, 2 * FS)
+    batch = torch.from_numpy(np.concatenate(
+        [target + 0.1 * rng.randn(2, 1, 2, 2 * FS), target], axis=1)
+        .astype(np.float32)).to(device)
+    lengths = torch.tensor([2 * FS, 3 * FS // 2], device=device)
+    t = torch.tensor([0.3, 0.9], device=device).reshape(2, 1, 1, 1)
+    frames = gpu.model.transform(batch).shape[-1]
+    noise = complex_input(rng, (2, 1, 256, frames), device, 1.0)
+    with plain_groupnorms():
+        ref = sgmse_grads(sgmse_model(state, device, torch.float64,
+                                      'idmse'), batch, lengths, t,
+                          noise)
+        plain = sgmse_grads(sgmse_model(state, device, arch='idmse'), batch,
+                            lengths, t, noise)
+    k8.launches = k7.recompute_launches = 0
+    got = sgmse_grads(gpu.model, batch, lengths, t, noise)
+    launches_bwd, recomputes = k8.launches, k7.recompute_launches
+    if launches_bwd != per_eval:
+        raise AssertionError(f'idmse: {launches_bwd} K8 launches, not '
+                             f'{per_eval}')
+    k_whole, k_worst, k_name, k_dead = grad_report(ref, got)
+    p_whole, p_worst, p_name, p_dead = grad_report(ref, plain)
+    del ref, plain, got
+    torch.cuda.empty_cache()
+    if k_whole < MIN_SNR_DB or k_worst < MIN_SNR_DB or k_dead > 1e-6:
+        raise AssertionError(f'idmse gradients: whole {k_whole:.2f} dB, '
+                             f'worst {k_name} {k_worst:.2f} dB, zero '
+                             f'tensors {k_dead:.1e}')
+    phase(38, f'IDMSE gradients (2 x 2 s, t and noise fixed, remat) vs the '
+          f'plain path in float64: whole {k_whole:.1f} dB (>= {MIN_SNR_DB}),'
+          f' worst tensor {k_worst:.1f} dB ({k_name}; >= {MIN_SNR_DB}), '
+          f'zero-gradient tensors within {k_dead:.1e} of the largest; the '
+          f'plain float32 path: whole {p_whole:.1f} dB, worst '
+          f'{p_worst:.1f} dB ({p_name}), zero {p_dead:.1e}; {launches_bwd} '
+          f'K8 launches, {recomputes} K7 recomputes of rematerialised '
+          'blocks')
+
+    # ---- phase 39: training through train.main on the card
+    from brever_tpu_torch import train
+    epochs = 6
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = tone_model_dir(tmp, 'idmse', 41)
+
+        def args(n):   # validation scores the loss alone
+            return train_args(model_dir, n, 1, '')
+
+        untrained = train.build_trainer(args(epochs))
+        untrained.init_state()
+        untrained.val_dataloader.set_epoch(0)
+        val_0, _ = untrained.routine(0, train=False)
+        del untrained
+        first, second, train_s, (out['launches_train'],
+                                 out['launches_train_bwd'],
+                                 out['recompute_train']) = \
+            train_and_resume(args, epochs, [(k7, 'launches'),
+                                            (k8, 'launches'),
+                                            (k7, 'recompute_launches')])
+        if not out['launches_train'] or not out['launches_train_bwd']:
+            raise AssertionError('idmse training launched K7 {} and K8 {} '
+                                 'times'.format(out['launches_train'],
+                                                out['launches_train_bwd']))
+        val = [v for v in first.loss_logger.val_loss if v is not None]
+        losses = first.loss_logger.train_loss
+        if not np.isfinite(val + losses).all() \
+                or val[-1] > SGMSE_VAL_RATIO * val_0:
+            raise AssertionError(f'idmse validation loss {val_0:.4f} -> '
+                                 f'{val}')
+        state_ckpt = load_checkpoint(second.last_ckpt_path)
+        if not np.array_equal(
+                state_ckpt['aux']['buffers']['emb']['fourier_freqs'],
+                second.model.net.emb.fourier_freqs.cpu().numpy()) \
+                or 'torch_generator' not in state_ckpt:
+            raise AssertionError('last.ckpt lacks aux or the generator')
+        served = EnhanceService(model_dir, device)
+        audio = (0.1 * np.random.RandomState(42).randn(FS)) \
+            .astype(np.float32)
+        if not np.isfinite(served.enhance(audio)).all():
+            raise AssertionError('the trained checkpoint serves non-finite '
+                                 'audio')
+        del first, second, served
+    torch.cuda.empty_cache()
+    phase(39, f'IDMSE train.main, 24 x 1 s tone-in-noise WAV items, batch '
+          f'8, {epochs} epochs in {train_s:.1f} s: fixed-generator '
+          f'validation loss {val_0:.4f} (untrained) -> '
+          f'{", ".join(f"{v:.4f}" for v in val)} (last <= '
+          f'{SGMSE_VAL_RATIO} x untrained); train loss '
+          f'{", ".join(f"{v:.3f}" for v in losses)}; K7 '
+          f'{out["launches_train"]} (of them {out["recompute_train"]} '
+          f'recomputes) / K8 {out["launches_train_bwd"]} launches; resumed '
+          f'bitwise from last.ckpt (aux, the generator\'s state) to epoch '
+          f'{epochs + 2}; the checkpoint serves')
+
+    # ---- phase 40: timings (plain, kernel, kernel, plain in turns)
+    rng = np.random.RandomState(43)
+    xs, ys = (complex_input(rng, (4, 1, 256, 501), device) for _ in range(2))
+    t = torch.full((4, 1, 1, 1), 0.5, device=device)
+    sigma = gpu.model.sde.sigma(t)
+
+    def plain_gn(fn):
+        def run():
+            with plain_groupnorms():
+                fn()
+        return run
+
+    def denoise():
+        with torch.no_grad():
+            gpu.model.model(xs, ys, sigma, t)
+
+    den_ms, den_peak = in_turns({'kernel': denoise,
+                                 'plain': plain_gn(denoise)}, 1, 1)
+    # the external-affine GroupNorms of one evaluation, each timed on its
+    # plain route, forward and backward
+    from brever_tpu_torch.models.sgmse import net
+    calls = {}
+
+    def record(x, scale, bias, groups, eps=1e-6, apply_silu=True,
+               ext_scale=None, ext_shift=None):
+        if ext_scale is not None:
+            key = (tuple(x.shape), groups, apply_silu)
+            calls[key] = calls.get(key, 0) + 1
+        return gn.group_norm_silu(x, scale, bias, groups, eps, apply_silu,
+                                  ext_scale, ext_shift)
+
+    net.group_norm_silu = record
+    try:
+        denoise()
+    finally:
+        net.group_norm_silu = gn.group_norm_silu
+    ext = {'fwd': 0.0, 'bwd': 0.0, 'calls': sum(calls.values())}
+    for (shape, groups, silu), count in calls.items():
+        act = 'silu' if silu else 'none'
+        x, scale, bias, dy = gn_inputs(rng, shape, device)
+        gain, shift = (torch.from_numpy((1 + 0.1 * rng.randn(*shape[:2]))
+                                        .astype(np.float32)).to(device)
+                       for _ in range(2))
+        args = (x, scale, bias, gain, shift, groups, 1e-6, act)
+        with torch.no_grad():
+            _, mean, rstd = gn.group_norm_ext_reference(*args)
+            ext['fwd'] += count * cuda_ms(
+                lambda: gn.group_norm_ext_reference(*args), 5, 1)
+            ext['bwd'] += count * cuda_ms(
+                lambda: gn.group_norm_ext_bwd_plain(
+                    x, dy, scale, bias, gain, shift, mean, rstd, groups,
+                    act), 5, 1)
+        del x, dy, gain, shift, args, mean, rstd
+    if ext['calls'] != 20:
+        raise AssertionError(f'idmse: {ext["calls"]} external-affine '
+                             'GroupNorms an evaluation')
+    mix4 = torch.from_numpy((0.1 * rng.randn(1, 2, 4 * FS))
+                            .astype(np.float32)).to(device)
+
+    # 31 evaluations at cuDNN's default algorithm choice: one call
+    torch.cuda.reset_peak_memory_stats()
+    enh_ms = cuda_ms(lambda: gpu.model.enhance(mix4), 1, 0)
+    enh_peak = torch.cuda.max_memory_allocated()
+    del gpu, xs, ys, mix4
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, data, n = make_trainer(device, tmp, batch=4, arch='idmse')
+
+        def step():
+            trainer.train_step(data, n)
+
+        step_ms, step_peak = in_turns({'kernel': step,
+                                       'plain': plain_gn(step)}, 1, 1)
+        del trainer, data, n
+    torch.cuda.empty_cache()
+    out.update(den_ms=den_ms, enh_ms=enh_ms, step_ms=step_ms,
+               step_peak=step_peak, ext=ext)
+    mib = 2 ** 20
+    phase(40, f'[{card}] IDMSE denoiser 4 x 4 s {den_ms["kernel"]:.2f} ms, '
+          f'peak {den_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
+          f'{den_ms["plain"]:.2f} ms); enhance 1 x 4 s '
+          f'{enh_ms:.1f} ms, peak {enh_peak / mib:.1f} MiB; train step 4 x 4 '
+          f's f32 '
+          f'{step_ms["kernel"]:.1f} ms, peak {step_peak["kernel"] / mib:.1f} '
+          f'MiB (plain GroupNorms {step_ms["plain"]:.1f} ms, '
+          f'{step_peak["plain"] / mib:.1f} MiB); cuDNN\'s default algorithm '
+          f'choice (benchmark mode off); the {ext["calls"]} external-affine '
+          f'GroupNorms of an evaluation at 4 x 4 s on their plain route: '
+          f'forward {ext["fwd"]:.2f} ms '
+          f'({100 * ext["fwd"] / den_ms["kernel"]:.1f} % of the denoiser), '
+          f'backward {ext["bwd"]:.2f} ms; forward twice (remat) and backward '
+          f'{100 * (2 * ext["fwd"] + ext["bwd"]) / step_ms["kernel"]:.1f} % '
+          'of the train step')
+
+    # ---- phase 41: idmselarge: denoiser, enhance 1 x 2 s, one train step
+    gpu, state = idmse_service('idmselarge', 44, device)
+    big_db, big_err, big_plain_db = denoiser_check('idmselarge', gpu, state,
+                                                   device, 44)
+    mix2 = (0.3 * np.random.RandomState(45).randn(1, 2, 2 * FS)) \
+        .astype(np.float32)
+    plain32 = sgmse_model(state, device, arch='idmselarge')
+    k7.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = enhance(gpu.model, mix2)
+    torch.cuda.synchronize()
+    big_enh_s = time.perf_counter() - t0
+    big_enh_launches = k7.launches
+    with plain_groupnorms():
+        want = enhance(plain32, mix2)
+    big_enh_db, _ = check_close('idmselarge enhance (1, 2, 32000)',
+                                ('wav',), (want,), (got,))
+    big_per_eval = IDMSE_EVAL_LAUNCHES['idmselarge']
+    if big_enh_launches != gpu.model.solver.evaluations * big_per_eval:
+        raise AssertionError(f'idmselarge enhance: {big_enh_launches} K7 '
+                             'launches')
+    del gpu, plain32, got, want
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, data, n = make_trainer(device, tmp, batch=4,
+                                        arch='idmselarge')
+        trainer.train_step(data, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k7.launches = k8.launches = 0
+        big_step_ms = cuda_ms(lambda: trainer.train_step(data, n), 1, 0)
+        big_step_peak = torch.cuda.max_memory_allocated()
+        big_step_launches = (k7.launches, k8.launches)
+        del trainer, data, n
+    torch.cuda.empty_cache()
+    if big_step_launches[1] != big_per_eval:
+        raise AssertionError(f'idmselarge step: launches {big_step_launches}')
+    out.update(launches_large=big_enh_launches + sum(big_step_launches),
+               large={'enhance_s': big_enh_s, 'step_ms': big_step_ms,
+                      'step_peak': big_step_peak})
+    phase(41, f'[{card}] IDMSE-large ({IDMSE_PARAMS["idmselarge"]:,} '
+          f'parameters) from EnhanceService(model_dir): denoiser (2 x 4 s) '
+          f'{big_db:.1f} dB, max abs err {big_err:.3e} vs the plain path in '
+          f'float64 (plain float32 {big_plain_db:.1f} dB), {big_per_eval} '
+          f'K7 launches an evaluation; enhance 1 x 2 s {big_enh_s:.2f} s '
+          f'(cuDNN\'s default algorithms), {big_enh_db:.1f} dB vs the plain '
+          f'float32 path on the same generator, {big_enh_launches} K7 '
+          f'launches; one train step 4 x 4 s f32 {big_step_ms:.1f} ms, peak '
+          f'{big_step_peak / mib:.1f} MiB, K7 {big_step_launches[0]} (with '
+          f'recomputes) / K8 {big_step_launches[1]} launches')
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -2717,6 +3334,9 @@ def main():
     mnr = manner_phases(device, card)
     stf = stft_phase(device, card)
     lstm_repair_phase(device, card)
+    fma = fma_phase(device, card)
+    wide = wide_scan_phase(device, card)
+    idm = idmse_phases(device, card)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
@@ -2812,9 +3432,12 @@ def main():
         'route': 'cuda',
         'source': 'brever_tpu_torch/csrc/groupnorm.cu',
         'replaces': 'brever_tpu/ops/pallas/groupnorm.py:134',
-        'launches': sgm['launches_train'] + sgm['launches_http'],
+        'launches': sgm['launches_train'] + sgm['launches_http']
+        + idm['launches_train'] + idm['launches_http'],
         'launches_serve': sgm['launches_http'],
         'launches_train': sgm['launches_train'],
+        'launches_idmse_serve': idm['launches_http'],
+        'launches_idmse_train': idm['launches_train'],
         'launches_recompute': sgm['recompute_train'],
         'launches_per_eval': sgm['launches_eval'],
         'max_abs_err': sgm['k7_err'],
@@ -2832,12 +3455,18 @@ def main():
         'denoiser_4x4s_plain_ms': sgm['den_ms']['plain'],
         'enhance_1x4s_ms': sgm['enh_ms']['kernel'],
         'enhance_1x4s_plain_ms': sgm['enh_ms']['plain'],
+        'idmse_denoiser_4x4s_ms': idm['den_ms']['kernel'],
+        'idmse_denoiser_4x4s_plain_ms': idm['den_ms']['plain'],
+        'idmse_enhance_1x4s_ms': idm['enh_ms'],
+        'idmselarge_enhance_1x2s_s': idm['large']['enhance_s'],
+        'launches_idmselarge': idm['launches_large'],
     }, {
         'name': 'group_norm_act_bwd',
         'route': 'cuda',
         'source': 'brever_tpu_torch/csrc/groupnorm.cu',
         'replaces': 'brever_tpu/ops/pallas/groupnorm.py:263',
-        'launches': sgm['launches_train_bwd'],
+        'launches': sgm['launches_train_bwd'] + idm['launches_train_bwd'],
+        'launches_idmse_train': idm['launches_train_bwd'],
         'max_abs_err': sgm['k8_err'],
         'ms': gn_big['bwd']['kernel'],
         'plain_ms': gn_big['bwd']['plain'],
@@ -2852,6 +3481,11 @@ def main():
         'train_step_4x4s_ms': sgm['steps']['4'][0]['kernel'],
         'train_step_4x4s_plain_ms': sgm['steps']['4'][0]['plain'],
         'train_step_16x4s_ms': sgm['steps']['16'][0],
+        'idmse_train_step_4x4s_ms': idm['step_ms']['kernel'],
+        'idmse_train_step_4x4s_plain_ms': idm['step_ms']['plain'],
+        'idmselarge_train_step_4x4s_ms': idm['large']['step_ms'],
+        'idmselarge_train_step_4x4s_peak_mib':
+            idm['large']['step_peak'] / 2 ** 20,
     }, {
         'name': 'lstm_scan_fwd',
         'route': 'cuda',
@@ -2881,6 +3515,10 @@ def main():
                  'E=512)',
         'enhance_16x4s_ms': dcc['enhance_ms']['kernel'],
         'enhance_16x4s_plain_ms': dcc['enhance_ms']['plain'],
+        'ms_h512': wide['fwd']['kernel'],
+        'plain_ms_h512': wide['fwd']['plain'],
+        'bound_ms_h512': wide['bound_fwd'][0],
+        'shape_h512': 'T=495 D=2 R=32 H=512 (16-row tiles)',
     }, {
         'name': 'lstm_scan_bwd',
         'route': 'cuda',
@@ -2900,6 +3538,10 @@ def main():
         'shape': 'T=495 D=2 R=32 H=128 (DCCRN at 16 x 4 s)',
         'train_step_ms': dcc['step_ms']['kernel'],
         'train_step_plain_ms': dcc['step_ms']['plain'],
+        'ms_h512': wide['bwd']['kernel'],
+        'plain_ms_h512': wide['bwd']['plain'],
+        'bound_ms_h512': wide['bound_bwd'][0],
+        'shape_h512': 'T=495 D=2 R=32 H=512 (16-row tiles)',
     }, {
         'name': 'bn_act_fwd',
         'route': 'cuda',
@@ -2966,7 +3608,7 @@ def main():
         'module_forward_ms': stf['module_ms'],
         'dense_product_bound_ms_256': stf['256/128']['dense_bound'][0],
         'library_ms_256': stf['256/128']['library'],
-    }]}), flush=True)
+    }, fma]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

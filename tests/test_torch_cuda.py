@@ -32,7 +32,11 @@ largest value, rtol 1e-3; two backward runs are bitwise equal.
 The flash-BN kernels (K7-BN, K8-BN) the same way as K7 and K8, with the
 running statistics' mean and variance at atol 1e-6, rtol 1e-5. The fused
 STFT kernel (K9) against its plain version at atol 1e-4 of the spectrum's
-largest value (a 512-term float32 product)."""
+largest value (a 512-term float32 product). The elementwise-rate probe
+(K10) against its plain chain: float32 within 1e-5 and bfloat16 within
+2**-6 of the largest value (the kernel's fused multiply-add rounds once a
+step where the plain chain rounds twice), and, also at k and passes off the
+benchmark's, within ``fma_chain_limit`` at every element."""
 
 import functools
 
@@ -350,9 +354,11 @@ def test_lstm_kernels_take_unaligned_views(device):
 
 
 # (T, D, R, H) of the gates-in scan: DCCRN's complex LSTM at B = 16 and at
-# B = 1, R not a multiple of the 32-row tile, T = 1, D = 1, H 32..256
+# B = 1, R not a multiple of the 32-row tile, T = 1, D = 1, H 32..256; H =
+# 384 and 512 on 16-row tiles, R off the tile
 SCAN_CASES = [(495, 2, 32, 128), (40, 2, 2, 128), (7, 2, 100, 64),
-              (1, 1, 33, 32), (3, 1, 17, 256)]
+              (1, 1, 33, 32), (3, 1, 17, 256), (9, 2, 40, 384),
+              (5, 1, 17, 512)]
 
 
 def _scan_inputs(device, t_steps, n_dir, rows, hidden):
@@ -401,9 +407,9 @@ def test_scan_kernels_reject_what_they_do_not_take(device):
     g48, w48, _ = _scan_inputs(device, 3, 2, 8, 48)
     with pytest.raises(NotImplementedError, match='multiple of 32'):
         lstm.lstm_scan_fwd(g48, w48)
-    g288, w288, _ = _scan_inputs(device, 2, 1, 8, 288)
-    with pytest.raises(NotImplementedError, match='up to 256'):
-        lstm.lstm_scan(g288, w288)
+    g544, w544, _ = _scan_inputs(device, 2, 1, 8, 544)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 3'):
+        lstm.lstm_scan(g544, w544)
     assert lstm.lstm_scan.launches == before
 
 
@@ -590,9 +596,8 @@ def test_groupnorm_kernels_reject_what_they_do_not_take(device):
         gn.group_norm_act_fwd(x, scale, bias, 7, 1e-6, 'silu')
     with pytest.raises(ValueError, match='on cpu'):
         gn.group_norm_act_fwd(x, scale.cpu(), bias, 8, 1e-6, 'silu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        gn.group_norm_silu(x, scale, bias, 8, ext_scale=scale[None],
-                           ext_shift=bias[None])
+    with pytest.raises(ValueError, match='together'):
+        gn.group_norm_silu(x, scale, bias, 8, ext_scale=scale[None])
 
 
 def test_sgmse_runs_every_groupnorm_through_the_kernels(device):
@@ -636,6 +641,101 @@ def test_sgmse_runs_every_groupnorm_through_the_kernels(device):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.double(), w, rtol=1e-3,
                                    atol=1e-4 * top)
+
+
+def test_idmse_runs_its_groupnorms_through_the_kernels(device):
+    """A small idmse's loss and gradients on the card: every GroupNorm
+    without the external affine launches K7 (again in a recompute) and K8
+    once, the adm blocks' norm_2 none; the gradients agree with the plain
+    path in float64."""
+    kwargs = dict(net_base_channels=32, net_channel_mult=[1, 2, 2],
+                  stft_frame_length=128, stft_hop_length=64,
+                  net_attn_resolutions=[32])
+    model = ModelRegistry.get('idmse')(**kwargs, device='cpu')
+    model.init_parameters(0)
+    ref = ModelRegistry.get('idmse')(**kwargs, device='cpu').double()
+    ref.load_state_dict(model.state_dict())
+    model, ref = model.to(device).train(), ref.to(device).train()
+    rng = np.random.RandomState(2)
+    batch = torch.from_numpy(0.3 * rng.randn(2, 2, 2, 4000)).to(device)
+    lengths = torch.tensor([4000, 2500], device=device)
+    t = torch.tensor([0.3, 0.8], device=device).reshape(2, 1, 1, 1)
+    spec = model.transform(batch.float())
+    noise = torch.complex(*(torch.from_numpy(rng.randn(
+        2, 1, *spec.shape[2:]).astype(np.float32)) for _ in range(2))) \
+        .to(device)
+    fwd, bwd = gn.group_norm_act_fwd, gn.group_norm_act_bwd
+    fwd.launches = fwd.recompute_launches = bwd.launches = 0
+    loss = model.loss_at(batch.float(), lengths, t, noise).mean()
+    got = torch.autograd.grad(loss, list(model.parameters()))
+    n_norms = sum(type(m).__name__ == 'GroupNorm' for m in model.modules()) \
+        - sum(type(m).__name__ == 'UNetBlock' for m in model.modules())
+    assert bwd.launches == n_norms
+    assert fwd.launches - fwd.recompute_launches == n_norms
+    from brever_tpu_torch.models.sgmse import net
+    try:
+        net.group_norm_silu = gn.group_norm_silu_plain
+        want = torch.autograd.grad(
+            ref.loss_at(batch, lengths, t.double(),
+                        noise.to(torch.complex128)).mean(),
+            list(ref.parameters()))
+    finally:
+        net.group_norm_silu = gn.group_norm_silu
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.double(), w, rtol=1e-3,
+                                   atol=1e-4 * top)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('kind', ['bench', 'wide'])
+def test_fma_chain_matches_plain(device, dtype, kind):
+    """K10 against the plain chain, on the benchmark's input and a wider
+    one: float32 within 1e-5, bfloat16 within 2**-6 of the largest value
+    (the kernel rounds once a step, the plain chain twice), and within
+    ``fma_chain_limit`` at every element."""
+    from brever_tpu_torch.bench_alu_dtype import probe_input
+    from brever_tpu_torch.ops import fma_chain as fc
+    for shape in ((2, 16, 128), (8, 1024, 512)):
+        x = probe_input(dtype, device, shape, kind)
+        before = fc.fma_chain.launches
+        got = fc.fma_chain(x)
+        assert fc.fma_chain.launches == before + 1
+        want = fc.fma_chain_reference(x)
+        assert got.dtype == dtype and got.shape == x.shape
+        rel = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+        top = want.double().abs().max().item()
+        err = (got.double() - want.double()).abs()
+        assert err.max().item() <= rel * top
+        assert (err <= fc.fma_chain_limit(x)[0]).all()
+    if kind == 'bench' and dtype == torch.bfloat16:
+        assert bool((got == 1).all())
+    with pytest.raises(ValueError, match='multiple of'):
+        fc.fma_chain(x.reshape(-1)[:6])
+
+
+def _step_cases():
+    from brever_tpu_torch.bench_alu_dtype import STEP_CASES
+    return [(kind, k, passes, dtype) for kind, k, passes, dtypes
+            in STEP_CASES for dtype in dtypes]
+
+
+@pytest.mark.parametrize('kind,k,passes,dtype', _step_cases())
+def test_fma_chain_honours_k_and_passes(device, kind, k, passes, dtype):
+    """K10 at k and passes off the benchmark's, on inputs whose chains have
+    not converged: within ``fma_chain_limit`` at every element, where a
+    chain one step short is not."""
+    from brever_tpu_torch.bench_alu_dtype import probe_input
+    from brever_tpu_torch.ops import fma_chain as fc
+    x = probe_input(dtype, device, (2, 16, 128), kind)
+    got = fc.fma_chain(x, k, passes)
+    want = fc.fma_chain_reference(x, k, passes)
+    short = fc.fma_chain_reference(x, 2, passes * (k // 2) - 1)
+    limit, margin = fc.fma_chain_limit(x, k, passes)
+    assert margin.max() > 0
+    assert ((short.double() - want.double()).abs() > limit).any()
+    assert ((got.double() - want.double()).abs() <= limit).all()
 
 
 # (B, C, T) of MANNER's BatchNorms, cut in length: its full-resolution

@@ -137,10 +137,9 @@ def test_cpu_takes_the_plain_version_and_counts_no_launch():
 
 def test_refusals():
     x, scale, bias = torch.randn(2, 8, 4), torch.ones(8), torch.zeros(8)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='together'):
         groupnorm.group_norm_silu(x, scale, bias, 2,
-                                  ext_scale=torch.ones(2, 8),
-                                  ext_shift=torch.zeros(2, 8))
+                                  ext_scale=torch.ones(2, 8))
     with pytest.raises(ValueError, match='divisible'):
         groupnorm.group_norm_silu(x, scale, bias, 3)
     # the kernels' wrapper takes CUDA tensors only, and never falls back

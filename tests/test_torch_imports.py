@@ -38,7 +38,7 @@ def test_port_imports_no_jax():
                  'batching', 'data', 'optim', 'training', 'train',
                  'profile_train', 'models.dccrn', 'ops.lstm_scan',
                  'models.manner', 'ops.batchnorm', 'ops.stft_kernel',
-                 'numerics'):
+                 'numerics', 'ops.fma_chain', 'bench_alu_dtype'):
         assert f'brever_tpu_torch.{name}' in modules
     env = dict(os.environ, PATH='/usr/bin:/bin', CUDA_HOME='')
     proc = subprocess.run([sys.executable, '-c', _SCRIPT, *modules],
@@ -129,3 +129,20 @@ def test_manner_entry_points_load_no_jax_package(tmp_path):
             'assert out.shape == (1600,), out.shape\n'
             'print(service.health()["arch"])\n' + _NO_JAX_PACKAGE)
     assert _fresh(code, model_dir, *_TRAIN_ARGS) == ['manner', 'ok']
+
+
+def test_idmse_entry_points_load_no_jax_package(tmp_path):
+    """``train.main`` trains a small idmse model directory (ADM blocks) and
+    ``EnhanceService`` serves it, in a fresh interpreter that loads nothing
+    of the JAX package."""
+    model_dir = _model_dir(tmp_path, 'idmse')
+    code = ('import sys\n'
+            'import numpy as np\n'
+            'from brever_tpu_torch import train\n'
+            'from brever_tpu_torch.serve import EnhanceService\n'
+            'train.main(sys.argv[1:])\n'
+            'service = EnhanceService(sys.argv[1], "cpu")\n'
+            'out = service.enhance(np.zeros(1600, np.float32))\n'
+            'assert out.shape == (1600,), out.shape\n'
+            'print(service.health()["arch"])\n' + _NO_JAX_PACKAGE)
+    assert _fresh(code, model_dir, *_TRAIN_ARGS) == ['idmse', 'ok']

@@ -279,3 +279,45 @@ def test_dispatch_routes_a_wide_input_to_the_gates_scan(monkeypatch):
                                     jax_rnn.DEFAULT_UNROLL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize('hidden', [288, 384, 512])
+def test_fused_x_fits_refuses_a_hidden_size_past_256(hidden):
+    """K3/K4 take H up to 256 whatever E: a larger H takes the projection
+    and K5/K6."""
+    assert not L.fused_x_fits(4, hidden)
+    assert L.fused_x_fits(4, 256)
+
+
+@pytest.mark.parametrize('hidden', range(288, 513, 32))
+def test_scan_kernels_take_a_hidden_size_up_to_512(hidden):
+    """K5/K6 take every multiple of 32 up to 512 (16-row tiles above 256);
+    K3/K4 still stop at 256."""
+    L._check_hidden(hidden, 'lstm_scan')
+    with pytest.raises(NotImplementedError, match='up to 256'):
+        L._check_hidden(hidden, 'lstm_scan_x', L._MAX_HIDDEN_X)
+
+
+def test_scan_kernels_refuse_a_hidden_size_past_512():
+    with pytest.raises(NotImplementedError, match=r'ROADMAP.md, Queue 3'):
+        L._check_hidden(544, 'lstm_scan')
+    with pytest.raises(NotImplementedError, match='multiple of 32'):
+        L._check_hidden(400, 'lstm_scan')
+
+
+def test_dispatch_routes_a_wide_hidden_size_to_the_gates_scan(monkeypatch):
+    """128 rows at H = 384: the projection goes outside and the gates-in
+    scan runs (K5/K6 on CUDA), as the JAX package's scan gives."""
+    taken = _routes(monkeypatch)
+    rng = np.random.RandomState(8)
+    feat, hidden = 12, 384
+    x = rng.randn(2, 2, 128, feat).astype(np.float32)
+    w_ih = (rng.randn(2, feat, 4 * hidden) / 4).astype(np.float32)
+    bias = (0.1 * rng.randn(2, 4 * hidden)).astype(np.float32)
+    w_hh = (rng.randn(2, hidden, 4 * hidden) / 20).astype(np.float32)
+    got = rnn._dispatch_scan_x(*map(torch.from_numpy, (x, w_ih, bias, w_hh)))
+    assert taken == ['gates']
+    want = jax_rnn._dispatch_scan_x(*map(jnp.asarray, (x, w_ih, bias, w_hh)),
+                                    jax_rnn.DEFAULT_UNROLL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)

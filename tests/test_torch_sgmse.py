@@ -98,12 +98,6 @@ def test_convert_round_trip(twins):
         v.size for v in flatten_dict(variables['params']).values())
 
 
-def test_adm_blocks_raise():
-    for arch in ('idmse', 'idmselarge'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ModelRegistry.get(arch)(device='cpu')
-
-
 def _complex(rng, shape):
     return (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
 

@@ -52,8 +52,11 @@ SGM = dict(net_base_channels=16, net_channel_mult=[1, 2],
            net_attn_bottleneck=False, stft_frame_length=128,
            stft_hop_length=64, net_attn_resolutions=[])
 DCC = dict(channels=[4, 8], lstm_channels=16, lstm_layers=1)
+IDM = dict(net_base_channels=16, net_channel_mult=[1, 2],
+           net_num_blocks_per_res=1, solver_num_steps=2,
+           stft_frame_length=128, stft_hop_length=64)
 SMALLS = {'convtasnet': SMALL, 'tfgridnet': GRID, 'sgmsepm': SGM,
-          'dccrn': DCC, 'manner': {}}
+          'dccrn': DCC, 'manner': {}, 'idmse': IDM}
 #: MANNER has no size options: the tests narrow its network
 #: (``narrow_manner``)
 NARROW_MANNER = dict(hidden=12, depth=2, segment_len=8)
@@ -492,6 +495,54 @@ def test_sgmse_train_cli_and_serving(tmp_path, monkeypatch):
     assert got.shape == (3000,) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref.enhance(audio), atol=1e-4,
                                rtol=1e-4)
+
+
+def test_idmse_resume_is_bitwise(tmp_path):
+    """A tiny idmse (ADM blocks, the GroupNorm's external affine) trains
+    on the CPU, and a run resumed from last.ckpt (the generator's state
+    included) equals the uninterrupted one bitwise."""
+    whole = make_trainer(tmp_path / 'whole', arch='idmse', epochs=2,
+                         val_metrics=set())
+    whole.run()
+    make_trainer(tmp_path / 'split', arch='idmse', epochs=1,
+                 val_metrics=set()).run()
+    resumed = make_trainer(tmp_path / 'split', arch='idmse', epochs=2,
+                           val_metrics=set())
+    resumed.run()
+    assert np.isfinite(whole.loss_logger.train_loss).all()
+    fresh = make_trainer(tmp_path / 'fresh', arch='idmse')
+    fresh.init_state()
+    assert not torch.equal(fresh.flat, whole.flat)
+    assert torch.equal(resumed.flat, whole.flat)
+    assert torch.equal(resumed.optimizer.mu, whole.optimizer.mu)
+    assert torch.equal(resumed.optimizer.nu, whole.optimizer.nu)
+    assert torch.equal(resumed.generator.get_state(),
+                       whole.generator.get_state())
+    assert resumed.loss_logger.train_loss == whole.loss_logger.train_loss
+    assert resumed.loss_logger.val_loss == whole.loss_logger.val_loss
+
+
+def test_idmse_train_cli_and_serving(tmp_path, monkeypatch):
+    """python -m brever_tpu_torch.train on a tiny idmse model directory;
+    both packages' servers serve its last.ckpt (the solvers' noise replaced
+    by one constant in both) within 1e-4."""
+    model_dir = _model_dir(tmp_path, 'idmse')
+    train_cli.main([model_dir, '--device', 'cpu', '--epochs', '1',
+                    '--use_amp', 'false', '--val_metrics', 'snr',
+                    '--batch_size', '2', '--dynamic_batch_size', 'false',
+                    '--batch_sampler', 'random', '--val_period', '1'])
+    port = EnhanceService(model_dir, 'cpu')
+    assert port.health()['arch'] == 'idmse'
+    _constant_noise(monkeypatch)
+    audio = np.random.RandomState(5).randn(3000).astype(np.float32) * 0.1
+    spec = importlib.util.spec_from_file_location(
+        'serve_model', os.path.join(ROOT, 'scripts', 'serve_model.py'))
+    serve_model = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_model)
+    got = port.enhance(audio)
+    assert got.shape == (3000,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, serve_model.EnhanceService(
+        model_dir).enhance(audio), atol=1e-4, rtol=1e-4)
 
 
 def test_dccrn_resume_restores_the_running_statistics(tmp_path):
