@@ -39,34 +39,71 @@
 // partials, like db's per-tile partials, are summed in a fixed order. No
 // float atomics: two runs give bitwise-equal gradients.
 //
-// K5 and K6 replace _fwd_kernel (launched by _fwd_pallas) and _bwd_kernel
-// (launched by _bwd_pallas): the same recurrence over gates_x (T, D, R, 4H),
-// the input projection x w_ih + bias done before the call (one cuBLAS GEMM,
-// as the JAX package's _dispatch_scan_x does it outside the scan):
+// K5 and K6 replace _fwd_kernel (launched by _fwd_pallas, brever_tpu/ops/
+// pallas/lstm_scan.py:155) and _bwd_kernel (launched by _bwd_pallas, :235):
+// the same recurrence over gates_x (T, D, R, 4H), the input projection
+// x w_ih + bias done before the call (one cuBLAS GEMM, as the JAX package's
+// _dispatch_scan_x does it outside the scan):
 //
 //   gates[t] = gates_x[t] + h[t-1] w_hh
 //
-// They are K3 and K4 with the projection off (the scan kernels take a
-// template flag): each step of a tile reads its gates_x rows from device
-// memory where K3 multiplies x by w_ih. K6 recomputes each step's gates from
-// gates_x and the saved h, writes dgates (= d gates_x, T, D, R, 4H) as its
-// output, and forms dW_hh = sum over t of h[t-1]^T dgates[t] with K4's weight
-// GEMM over fixed-order partials: bitwise repeatable. dx, dW_ih and db are
-// then the projection's own backward.
+// K6 recomputes each step's gates from gates_x and the saved h, writes
+// dgates (= d gates_x, T, D, R, 4H) as its output, and forms dW_hh = sum
+// over t of h[t-1]^T dgates[t] with K4's weight GEMM over fixed-order
+// partials: bitwise repeatable. dx, dW_ih and db are then the projection's
+// own backward.
 //
-// Tile rows. Each thread owns 8 rows and 2 hidden units, so a tile of
-// kRows rows runs kRows / 8 x H / 2 threads. K3/K4 and, up to H = 256,
-// K5/K6 take 32-row tiles (2H threads); K5/K6 take 16-row tiles (H
-// threads) for 256 < H <= 512, where 2H threads would pass the 512 a block
-// is built for and K6's shared memory, 16 x 6H floats, is 196,608 B at
-// H = 512 (32 rows would need twice that, past the 227 KB a block may
-// have). Half the rows a block doubles the blocks and the weight reads per
-// row; the weight GEMM and the dgates layout do not change.
+// Bound. A gates-in scan is a chain of T dependent steps, each a small
+// product: at DCCRN's shape (T = 495, D = 2, R = 32, H = 128) one step of
+// one direction is 32 x 128 x 512 multiply-adds over a 256 KB w_hh. The
+// flops (67 TFLOP/s) and bytes give a few microseconds for the whole scan;
+// what bounds it is the latency of one step once the weights stay on chip:
+// the step's FMAs on the columns one SM owns, plus one exchange of h.
 //
-// SIMT float32 throughout; wgmma, TMA, clusters and bf16 are later work.
-// Every pointer is a dense float32 buffer in the layouts above; w_hh_t is
-// w_hh transposed to (D, 4H, H). E is a multiple of 4 (the wrapper pads),
-// H a multiple of 32, at most 256 for K3/K4 and 512 for K5/K6.
+// Design for H <= 256 (the persistent-RNN layout of Diamos et al., ICML
+// 2016, on Hopper's thread-block clusters): one cluster of N blocks
+// (kClusterBlocks: 16 SMs) scans one 32-row tile of one direction
+// over all T steps in one launch. Block b owns hidden units [b U, (b+1) U),
+// U = H / N, with all four gates: 4U columns of w_hh, which it copies into
+// its shared memory once, transposed, before the time loop. A K5 step:
+// each block forms its columns' gates for the 32 rows from h[t-1], whole in
+// its shared memory (k ascending), adds gates_x[t] (prefetched by cp.async
+// one step ahead), updates c in registers and h, and stores its (32, U)
+// slice of h[t] into every block's h buffer through distributed shared
+// memory (DSMEM); one cluster barrier (arrive.release / wait.acquire) a
+// step, the h buffer double-buffered so that a peer's stores of h[t] never
+// meet a read of h[t-1]; h and c go to device memory between the arrive
+// and the wait, off the release's path. A K6 step in reverse time:
+// recompute the own columns' gates with K5's function from h[t-1] and
+// gates_x[t] (both prefetched a step ahead: the forward's bits), form
+// dgates (written to device memory for the weight GEMM) with dc in
+// registers, then this block's partial dh_rec = dgates_own w_hh[:, own]^T
+// for all H units from the slice it holds; the partial for block b's units
+// goes to slot [own rank] of block b (DSMEM, double-buffered), and each
+// block sums its N slots in rank order: no atomics, bitwise repeatable.
+// The last step's barrier keeps every block alive until no peer can still
+// store into its shared memory. What bounds a step at DCCRN's shape (N =
+// 16, U = 8; PERF.md): the product, ~2 us, is bound by shared-memory
+// loads: the 32 x 4U x H tile of a block is too small for register tiling
+// at 128 threads, so neighbouring threads load the same h and w_hh values
+// (4 wavefronts a float4 load); the DSMEM stores, whose release the
+// barrier waits for, and the barrier take most of the rest. wgmma (3 x
+// TF32 or bf16) on that tile is the next step.
+//
+// For 256 < H <= 512 a float32 w_hh (up to 4 MB a direction) does not fit
+// 16 SMs' shared memory: K5/K6 keep K3/K4's scan kernels with the
+// projection off (a template flag) on 16-row tiles (H threads), reading
+// w_hh through L1/L2 every step; K6's shared memory there is 16 x 6H
+// floats, 196,608 B at H = 512.
+//
+// SIMT float32 FFMA throughout (no TF32, no bf16: the parity bounds are
+// float32's); wgmma, TMA and bf16 are later work. Every pointer is a dense
+// float32 buffer in the layouts above; w_hh_t is w_hh transposed to
+// (D, 4H, H) (the 16-row K6 and K4 only). E is a multiple of 4 (the
+// wrapper pads), H a multiple of 32, at most 256 for K3/K4 and 512 for
+// K5/K6.
+
+#include <cooperative_groups.h>
 
 #include "tcn_common.cuh"
 
@@ -83,6 +120,14 @@ constexpr int kMaxThreads = 512;             // 2H threads at 32 rows, H at 16
 constexpr int kMaxHiddenWide = 256;          // largest H of a 32-row tile
 constexpr int kMaxHidden = 512;              // largest H of a 16-row tile
 constexpr int kWgChunk = 4096;               // (t, r) pairs per wgrad partial
+constexpr int kClusterThreads = 256;         // threads of a K5/K6 cluster block
+constexpr int kClusterRows = 32;             // rows of a K5/K6 cluster tile
+constexpr int kPad = 4;                      // floats padding a shared row of H
+// blocks of a K5/K6 cluster at every H <= 256: at DCCRN's shape 16 ran K5
+// and K6 faster than 8 (PERF.md), and at H = 256 K6's shared memory needs 16
+constexpr int kClusterBlocks = 16;
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float sigm(float z) { return 1.f / (1.f + expf(-z)); }
 
@@ -425,11 +470,401 @@ sum_partials(const float* __restrict__ part, int n_part, int n, float* __restric
   out[i] = s;
 }
 
+// ---------------------------------------------------------------------------
+// K5 and K6 for H <= 256: a cluster of n blocks per (row tile, direction)
+
+// rows a thread owns in the gate phase: the fewest of 1, 2 and 4 that keep
+// the 32 U / rows gate items within half the block's threads (U <= 16).
+// Shared-memory loads bound the step's product, and a thread with more
+// rows loads each w_hh value for more of them (at U = 8, two rows a thread
+// ran faster than one).
+__host__ __device__ inline int gate_rows(int U) { return U <= 4 ? 1 : U <= 8 ? 2 : 4; }
+
+// shared memory (floats) of K5 and K6; U = H / kClusterBlocks, rows of H
+// padded by kPad floats
+size_t cluster_fwd_floats(int H) {
+  const size_t U = H / kClusterBlocks, ld = H + kPad, rows = kClusterRows;
+  return 4 * U * ld + 2 * rows * ld + 2 * rows * 4 * U;  // w_hh slice, h x 2, gates_x x 2
+}
+size_t cluster_bwd_floats(int H) {
+  const size_t U = H / kClusterBlocks, ld = H + kPad, rows = kClusterRows;
+  // w_hh slice, h[t-1], gates_x, c[t], c[t-1], dh, dgates, 2 x N dh_rec slots
+  return 4 * U * ld + rows * ld + rows * 4 * U + 3 * rows * U + rows * 4 * U +
+         2 * static_cast<size_t>(kClusterBlocks) * rows * U;
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? kBytes : 0;  // 0: fill the destination with zeros
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+                 "n"(kBytes), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The cluster barrier, every thread of every block of the cluster: what
+// each stored before its arrive (to its own or a peer's shared memory) is
+// seen by all after their wait. Work between the two (a step's stores to
+// device memory, which no peer reads) leaves the release's path.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_barrier() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// ws (4U, H + kPad) <- the block's columns of w (H, 4H), transposed: row
+// j = g U + u of ws is column g H + b U + u of w
+__device__ __forceinline__ void load_w_slice(float* ws, const float* __restrict__ w, int H,
+                                             int U, int b) {
+  const int cols = 4 * U, ld = H + kPad;
+  for (int i = threadIdx.x; i < H * cols; i += blockDim.x) {
+    const int k = i / cols, j = i % cols;
+    ws[j * ld + k] = w[static_cast<size_t>(k) * 4 * H + (j / U) * H + b * U + j % U];
+  }
+}
+
+// The cp.async copies one thread issues at each step from one (R, width)
+// slab of a step to shared memory: up to kMax pieces of kBytes, their
+// offsets fixed over the steps and worked out once (a negative source
+// offset is a row past R, filled with zeros).
+template <int kMax, int kBytes>
+struct StepCopies {
+  int src[kMax], dst[kMax];
+
+  // piece i of n: f(i, src, dst) gives its offsets
+  template <class F>
+  __device__ __forceinline__ StepCopies(int n, F f) {
+#pragma unroll
+    for (int m = 0; m < kMax; ++m) {
+      const int i = threadIdx.x + m * blockDim.x;
+      src[m] = dst[m] = -1;
+      if (i < n) f(i, src[m], dst[m]);
+    }
+  }
+
+  __device__ __forceinline__ void issue(float* to, const float* __restrict__ slab) const {
+#pragma unroll
+    for (int m = 0; m < kMax; ++m)
+      if (dst[m] >= 0) cp_async<kBytes>(to + dst[m], slab + max(src[m], 0), src[m] >= 0);
+  }
+};
+
+// the block's gate columns of the tile's rows of gates_x[t] (R, 4H) into
+// (32, 4U), as float2 pieces (U is even); at most 4 a thread for U <= 16
+__device__ __forceinline__ StepCopies<4, 8> gates_own_copies(int r0, int R, int H, int U,
+                                                             int b) {
+  const int pairs = 2 * U;
+  return StepCopies<4, 8>(kClusterRows * pairs, [=](int i, int& src, int& dst) {
+    const int row = i / pairs, j = 2 * (i % pairs);
+    if (r0 + row < R) src = (r0 + row) * 4 * H + j / U * H + b * U + j % U;
+    dst = row * 4 * U + j;
+  });
+}
+
+// the block's units of the tile's rows of an (R, H) slab into (32, U)
+__device__ __forceinline__ StepCopies<1, 8> units_own_copies(int r0, int R, int H, int U,
+                                                             int b) {
+  const int pairs = U / 2;
+  return StepCopies<1, 8>(kClusterRows * pairs, [=](int i, int& src, int& dst) {
+    const int row = i / pairs, u = 2 * (i % pairs);
+    if (r0 + row < R) src = (r0 + row) * H + b * U + u;
+    dst = row * U + u;
+  });
+}
+
+// the tile's rows of an (R, H) slab, whole, into (32, H + kPad), as float4
+__device__ __forceinline__ StepCopies<8, 16> rows_whole_copies(int r0, int R, int H) {
+  const int quads = H / 4;
+  return StepCopies<8, 16>(kClusterRows * quads, [=](int i, int& src, int& dst) {
+    const int row = i / quads, q = 4 * (i % quads);
+    if (r0 + row < R) src = (r0 + row) * H + q;
+    dst = row * (H + kPad) + q;
+  });
+}
+
+// The gate pre-activations of rows rs .. rs + kRpt - 1 and unit u of the
+// block, gates i|f|g|o: gxs (32, 4U) plus, when has_h, h (32, H + kPad)
+// times the block's w_hh slice ws, k ascending. K5 and K6's recompute both
+// call this, so they get the same bits.
+template <int kRpt>
+__device__ __forceinline__ void cluster_gates(float (&acc)[kRpt][4], const float* gxs,
+                                              const float* hs, const float* ws, int H, int U,
+                                              int rs, int u, bool has_h) {
+  const int ld = H + kPad;
+#pragma unroll
+  for (int i = 0; i < kRpt; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) acc[i][g] = gxs[(rs + i) * 4 * U + g * U + u];
+  if (!has_h) return;
+#pragma unroll 2
+  for (int k = 0; k < H; k += 4) {
+    float4 w[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) w[g] = *reinterpret_cast<const float4*>(ws + (g * U + u) * ld + k);
+#pragma unroll
+    for (int i = 0; i < kRpt; ++i) {
+      const float4 h = *reinterpret_cast<const float4*>(hs + (rs + i) * ld + k);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        acc[i][g] = fmaf(h.x, w[g].x, acc[i][g]);
+        acc[i][g] = fmaf(h.y, w[g].y, acc[i][g]);
+        acc[i][g] = fmaf(h.z, w[g].z, acc[i][g]);
+        acc[i][g] = fmaf(h.w, w[g].w, acc[i][g]);
+      }
+    }
+  }
+}
+
+// K5 for H <= 256. grid (n cdiv(R, 32), D) in clusters of (n, 1, 1), n =
+// kClusterBlocks, kClusterThreads threads, cluster_fwd_floats(H) floats of dynamic
+// shared memory; thread x < 32 U / kRpt owns unit x % U of rows
+// (x / U) kRpt .. + kRpt - 1 in the gate phase (kRpt = gate_rows(U)); all
+// threads copy.
+template <int kRpt>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+lstm_scan_fwd_cluster(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
+                      float* __restrict__ h_seq, float* __restrict__ c_seq, int T, int D, int R,
+                      int H) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = static_cast<int>(cluster.num_blocks()), b = static_cast<int>(cluster.block_rank());
+  const int U = H / n, G = 4 * H, ld = H + kPad, tile = kClusterRows * ld;
+  const int d = blockIdx.y, r0 = blockIdx.x / n * kClusterRows;
+  float* ws = smem;                     // (4U, ld): the block's columns of w_hh, transposed
+  float* hs = ws + 4 * U * ld;          // 2 x (32, ld): h of the tile, whole, by step parity
+  float* gxs = hs + 2 * tile;           // 2 x (32, 4U): the block's columns of gates_x
+  const int gtile = kClusterRows * 4 * U;
+  const auto gx_copies = gates_own_copies(r0, R, H, U, b);
+  load_w_slice(ws, w_hh + static_cast<size_t>(d) * H * G, H, U, b);
+  gx_copies.issue(gxs, gates_x + at(0, d, 0, D, R) * G);
+  cp_async_commit();
+  const bool owner = static_cast<int>(threadIdx.x) < kClusterRows / kRpt * U;
+  const int u = threadIdx.x % U, rs = threadIdx.x / U * kRpt;
+  float c[kRpt] = {}, h[kRpt];
+  cluster_barrier();  // every block of the cluster runs before any DSMEM store
+  for (int t = 0; t < T; ++t) {
+    float* hcur = hs + (t & 1) * tile;
+    const float* hprev = hs + ((t + 1) & 1) * tile;
+    if (t + 1 < T) gx_copies.issue(gxs + ((t + 1) & 1) * gtile, gates_x + at(t + 1, d, 0, D, R) * G);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // gates_x[t] in, from every thread's copies
+    if (owner) {
+      float acc[kRpt][4];
+      cluster_gates<kRpt>(acc, gxs + (t & 1) * gtile, hprev, ws, H, U, rs, u, t > 0);
+#pragma unroll
+      for (int i = 0; i < kRpt; ++i) {
+        const int row = rs + i;
+        const float cn = sigm(acc[i][1]) * c[i] + sigm(acc[i][0]) * tanhf(acc[i][2]);
+        h[i] = sigm(acc[i][3]) * tanhf(cn);
+        c[i] = cn;
+        // h[t] of the row and unit into every block's buffer, its own too
+        for (int q = 0; q < n; ++q) cluster.map_shared_rank(hcur, q)[row * ld + b * U + u] = h[i];
+      }
+    }
+    // h[t] whole in every block, and every block done reading h[t-1]; after
+    // the last step, no peer stores into this block's shared memory
+    cluster_arrive();
+    if (owner)
+#pragma unroll
+      for (int i = 0; i < kRpt; ++i)
+        if (r0 + rs + i < R) {
+          const size_t o = at(t, d, r0 + rs + i, D, R) * H + b * U + u;
+          h_seq[o] = h[i];
+          c_seq[o] = c[i];
+        }
+    cluster_wait();
+  }
+}
+
+// K6's recurrence for H <= 256: dgates (T, D, R, 4H). Launched as K5.
+template <int kRpt>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+lstm_scan_bwd_cluster(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
+                      const float* __restrict__ h_seq, const float* __restrict__ c_seq,
+                      const float* __restrict__ dh_seq, float* __restrict__ dgates, int T, int D,
+                      int R, int H) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = static_cast<int>(cluster.num_blocks()), b = static_cast<int>(cluster.block_rank());
+  const int U = H / n, G = 4 * H, ld = H + kPad, rows = kClusterRows;
+  const int d = blockIdx.y, r0 = blockIdx.x / n * kClusterRows;
+  float* ws = smem;                   // (4U, ld): the block's columns of w_hh, transposed
+  float* hs = ws + 4 * U * ld;        // (32, ld): h[t-1] of the tile, whole
+  float* gxs = hs + rows * ld;        // (32, 4U): the block's columns of gates_x[t]
+  float* cts = gxs + rows * 4 * U;    // (32, U): c[t] of the block's units
+  float* cps = cts + rows * U;        // (32, U): c[t-1]
+  float* dhs = cps + rows * U;        // (32, U): dh[t]
+  float* dgs = dhs + rows * U;        // (32, 4U): dgates of the step, the block's columns
+  float* recv = dgs + rows * 4 * U;   // 2 x (n, 32, U): dh_rec partials by source rank
+  const int slots = n * rows * U;
+  const auto gx_copies = gates_own_copies(r0, R, H, U, b);
+  const auto unit_copies = units_own_copies(r0, R, H, U, b);
+  const auto h_copies = rows_whole_copies(r0, R, H);
+  auto prefetch = [&](int t) {
+    gx_copies.issue(gxs, gates_x + at(t, d, 0, D, R) * G);
+    unit_copies.issue(cts, c_seq + at(t, d, 0, D, R) * H);
+    unit_copies.issue(dhs, dh_seq + at(t, d, 0, D, R) * H);
+    if (t > 0) {
+      unit_copies.issue(cps, c_seq + at(t - 1, d, 0, D, R) * H);
+      h_copies.issue(hs, h_seq + at(t - 1, d, 0, D, R) * H);
+    }
+    cp_async_commit();
+  };
+  load_w_slice(ws, w_hh + static_cast<size_t>(d) * H * G, H, U, b);
+  prefetch(T - 1);
+  const bool owner = static_cast<int>(threadIdx.x) < kClusterRows / kRpt * U;
+  const int u = threadIdx.x % U, rs = threadIdx.x / U * kRpt;
+  float dc[kRpt] = {}, dg[kRpt][4];
+  cluster_barrier();  // every block of the cluster runs before any DSMEM store
+  for (int t = T - 1; t >= 0; --t) {
+    cp_async_wait<0>();
+    __syncthreads();  // the step's h[t-1], gates_x, c and dh in
+    if (owner) {
+      float acc[kRpt][4];
+      cluster_gates<kRpt>(acc, gxs, hs, ws, H, U, rs, u, t > 0);
+      const float* rb = recv + ((t + 1) & 1) * slots;  // stored in step t + 1
+#pragma unroll
+      for (int i = 0; i < kRpt; ++i) {
+        const int row = rs + i;
+        float rec = 0.f;
+        if (t < T - 1)
+          for (int s = 0; s < n; ++s) rec += rb[(s * rows + row) * U + u];  // rank order
+        const float ct = cts[row * U + u], cp = t > 0 ? cps[row * U + u] : 0.f;
+        const float ig = sigm(acc[i][0]), fg = sigm(acc[i][1]);
+        const float gg = tanhf(acc[i][2]), og = sigm(acc[i][3]);
+        const float tc = tanhf(ct);
+        const float dh = dhs[row * U + u] + rec;
+        const float dcc = dh * og * (1.f - tc * tc) + dc[i];
+        dg[i][0] = dcc * gg * ig * (1.f - ig);
+        dg[i][1] = dcc * cp * fg * (1.f - fg);
+        dg[i][2] = dcc * ig * (1.f - gg * gg);
+        dg[i][3] = dh * tc * og * (1.f - og);
+        dc[i] = dcc * fg;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) dgs[row * 4 * U + g * U + u] = dg[i][g];
+      }
+    }
+    __syncthreads();  // dgs whole; the step's prefetched buffers read
+    if (t > 0) {
+      prefetch(t - 1);
+      // the partial dh_rec = dgs (32, 4U) times ws (4U, H), j ascending, for
+      // 8 rows and 2 units an item; units [b' U, (b'+1) U) go to block b',
+      // slot b, of the buffer of step t
+      float* slot = recv + (t & 1) * slots + b * rows * U;
+      const int half = H / 2;
+      for (int item = threadIdx.x; item < 4 * half; item += blockDim.x) {
+        const int k = 2 * (item % half), rg = item / half * 8;
+        float a[8][2] = {};
+        for (int j = 0; j < 4 * U; j += 4) {
+          float2 w[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w[q] = *reinterpret_cast<const float2*>(ws + (j + q) * ld + k);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 gv = *reinterpret_cast<const float4*>(dgs + (rg + i) * 4 * U + j);
+            a[i][0] = fmaf(gv.x, w[0].x, a[i][0]);
+            a[i][1] = fmaf(gv.x, w[0].y, a[i][1]);
+            a[i][0] = fmaf(gv.y, w[1].x, a[i][0]);
+            a[i][1] = fmaf(gv.y, w[1].y, a[i][1]);
+            a[i][0] = fmaf(gv.z, w[2].x, a[i][0]);
+            a[i][1] = fmaf(gv.z, w[2].y, a[i][1]);
+            a[i][0] = fmaf(gv.w, w[3].x, a[i][0]);
+            a[i][1] = fmaf(gv.w, w[3].y, a[i][1]);
+          }
+        }
+        float* dst = cluster.map_shared_rank(slot, k / U) + k % U;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          *reinterpret_cast<float2*>(dst + (rg + i) * U) = make_float2(a[i][0], a[i][1]);
+      }
+    }
+    // the partials of step t in every block, and every block done reading
+    // those of step t + 1; after the last step, no peer stores into this
+    // block's shared memory
+    cluster_arrive();
+    if (owner)
+#pragma unroll
+      for (int i = 0; i < kRpt; ++i)
+        if (r0 + rs + i < R)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            dgates[at(t, d, r0 + rs + i, D, R) * G + g * H + b * U + u] = dg[i][g];
+    cluster_wait();
+  }
+}
+
+using ClusterFwd = void (*)(const float*, const float*, float*, float*, int, int, int, int);
+using ClusterBwd = void (*)(const float*, const float*, const float*, const float*, const float*,
+                            float*, int, int, int, int);
+
+ClusterFwd cluster_fwd_kernel(int rpt) {
+  return rpt == 1 ? lstm_scan_fwd_cluster<1>
+                  : rpt == 2 ? lstm_scan_fwd_cluster<2> : lstm_scan_fwd_cluster<4>;
+}
+ClusterBwd cluster_bwd_kernel(int rpt) {
+  return rpt == 1 ? lstm_scan_bwd_cluster<1>
+                  : rpt == 2 ? lstm_scan_bwd_cluster<2> : lstm_scan_bwd_cluster<4>;
+}
+
+// The launch configuration of a cluster kernel (kClusterBlocks blocks a
+// cluster); sets the kernel's shared memory and cluster-size attributes.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  int err = 0;
+
+  ClusterLaunch(const void* kernel, int tiles, int D, size_t smem, cudaStream_t s) {
+    constexpr int n = kClusterBlocks;
+    err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    if (!err)
+      err = static_cast<int>(
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+    cfg.gridDim = dim3(n * tiles, D);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// whether the cluster takes H: U = H / kClusterBlocks even and at most 16
+// (a thread's copies and items are sized for that), both kernels' shared
+// memory within the block's 232,448 bytes
+bool cluster_fits(int H) {
+  constexpr int n = kClusterBlocks;
+  if (H % n || (H / n) % 2 || H / n > 16) return false;
+  const size_t most = 232448;
+  return sizeof(float) * cluster_bwd_floats(H) <= most &&
+         sizeof(float) * cluster_fwd_floats(H) <= most;
+}
+
 bool hidden_ok(int H, int most) { return H >= 32 && H % 32 == 0 && H <= most; }
 bool shape_ok(int E, int H) { return E > 0 && E % 4 == 0 && hidden_ok(H, kMaxHiddenWide); }
-
-// rows of a K5/K6 tile at hidden size H (K3/K4 always take 32)
-int scan_rows(int H) { return H <= kMaxHiddenWide ? 32 : 16; }
 
 // Workspace layout (float offsets), shared by lstm_bwd_workspace and
 // lstm_bwd, and with E = 0 by lstm_scan_bwd_workspace and lstm_scan_bwd
@@ -465,27 +900,25 @@ int set_smem(const void* kernel, size_t bytes) {
 size_t fwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + H); }
 size_t bwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + 6 * H); }
 
-// K5 at kRows rows a tile
-template <int kRows>
-int scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T, int D,
-             int R, int H, cudaStream_t s) {
-  const size_t smem = fwd_smem(kRows, 0, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false, kRows>), smem);
+// K5 for 256 < H <= 512 on 16-row tiles (H threads a block)
+int scan_fwd_tiles(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
+                   int D, int R, int H, cudaStream_t s) {
+  const size_t smem = fwd_smem(16, 0, H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false, 16>), smem);
   if (err) return err;
-  lstm_fwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), kRows / kRowsPer * (H / 2), smem, s>>>(
+  lstm_fwd_scan<false, 16><<<dim3(cdiv(R, 16), D), H, smem, s>>>(
       gates_x, nullptr, nullptr, w_hh, h_seq, c_seq, T, D, R, 0, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6's recurrence at kRows rows a tile
-template <int kRows>
-int scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t, const float* h_seq,
-             const float* c_seq, const float* dh_seq, float* dgates, int T, int D, int R, int H,
-             cudaStream_t s) {
-  const size_t smem = bwd_smem(kRows, 0, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<false, kRows>), smem);
+// K6's recurrence for 256 < H <= 512 on 16-row tiles
+int scan_bwd_tiles(const float* gates_x, const float* w_hh, const float* w_hh_t,
+                   const float* h_seq, const float* c_seq, const float* dh_seq, float* dgates,
+                   int T, int D, int R, int H, cudaStream_t s) {
+  const size_t smem = bwd_smem(16, 0, H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<false, 16>), smem);
   if (err) return err;
-  lstm_bwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), kRows / kRowsPer * (H / 2), smem, s>>>(
+  lstm_bwd_scan<false, 16><<<dim3(cdiv(R, 16), D), H, smem, s>>>(
       gates_x, nullptr, nullptr, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, nullptr, T, D, R, 0,
       H);
   return static_cast<int>(cudaGetLastError());
@@ -554,37 +987,78 @@ int lstm_bwd(const float* x, const float* w_ih, const float* bias, const float* 
   return 0;
 }
 
-// Shared memory of K5 and K6, in bytes.
-size_t lstm_scan_fwd_smem(int H) { return fwd_smem(scan_rows(H), 0, H); }
-size_t lstm_scan_bwd_smem(int H) { return bwd_smem(scan_rows(H), 0, H); }
+// The cluster of K5/K6 at hidden size H <= 256: info[0..5] = blocks a
+// cluster (kClusterBlocks), K5's and K6's shared memory a block in bytes,
+// threads a block, and the clusters of K5 and of K6 the card can hold at
+// once (cudaOccupancyMaxActiveClusters). Returns a CUDA error code, or 0;
+// cudaErrorInvalidValue where the cluster cannot take H.
+int lstm_scan_cluster_info(int H, int* info) {
+  if (!hidden_ok(H, kMaxHiddenWide) || !cluster_fits(H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rpt = gate_rows(H / kClusterBlocks);
+  const size_t fwd = sizeof(float) * cluster_fwd_floats(H);
+  const size_t bwd = sizeof(float) * cluster_bwd_floats(H);
+  info[0] = kClusterBlocks;
+  info[1] = static_cast<int>(fwd);
+  info[2] = static_cast<int>(bwd);
+  info[3] = kClusterThreads;
+  const ClusterLaunch lf(reinterpret_cast<const void*>(cluster_fwd_kernel(rpt)), 1, 1, fwd, 0);
+  if (lf.err) return lf.err;
+  int err = static_cast<int>(cudaOccupancyMaxActiveClusters(
+      &info[4], reinterpret_cast<const void*>(cluster_fwd_kernel(rpt)), &lf.cfg));
+  if (err) return err;
+  const ClusterLaunch lb(reinterpret_cast<const void*>(cluster_bwd_kernel(rpt)), 1, 1, bwd, 0);
+  if (lb.err) return lb.err;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      &info[5], reinterpret_cast<const void*>(cluster_bwd_kernel(rpt)), &lb.cfg));
+}
 
+// the workspace's db tiles are unused without the projection: any row count
 size_t lstm_scan_bwd_workspace(int T, int D, int R, int H) {
-  return Layout(T, D, R, 0, H, scan_rows(H)).total;
+  return Layout(T, D, R, 0, H, kClusterRows).total;
 }
 
 // K5: h_seq and c_seq (T, D, R, H) from gates_x (T, D, R, 4H) and w_hh
-// (D, H, 4H). Returns a CUDA error code, or 0.
+// (D, H, 4H); H <= 256 on clusters, above on 16-row tiles. Returns a CUDA
+// error code, or 0.
 int lstm_scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
                   int D, int R, int H, void* stream) {
   if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return scan_rows(H) == 32 ? scan_fwd<32>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s)
-                            : scan_fwd<16>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
+  if (H > kMaxHiddenWide) return scan_fwd_tiles(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
+  if (!cluster_fits(H)) return static_cast<int>(cudaErrorInvalidValue);
+  const ClusterFwd kernel = cluster_fwd_kernel(gate_rows(H / kClusterBlocks));
+  const ClusterLaunch l(reinterpret_cast<const void*>(kernel), cdiv(R, kClusterRows), D,
+                        sizeof(float) * cluster_fwd_floats(H), s);
+  if (l.err) return l.err;
+  return static_cast<int>(cudaLaunchKernelEx(&l.cfg, kernel, gates_x, w_hh, h_seq, c_seq, T, D,
+                                             R, H));
 }
 
 // K6: dgates (T, D, R, 4H) and dw_hh (D, H, 4H) from the forward's inputs,
-// its h and c, and dh; work holds lstm_scan_bwd_workspace floats. Every
-// output is written whole. Returns the first launch's CUDA error code, or 0.
+// its h and c, and dh; work holds lstm_scan_bwd_workspace floats; w_hh_t is
+// read above H = 256 only (may be null below). Every output is written
+// whole. Returns the first launch's CUDA error code, or 0.
 int lstm_scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t,
                   const float* h_seq, const float* c_seq, const float* dh_seq, float* dgates,
                   float* dw_hh, float* work, int T, int D, int R, int H, void* stream) {
   if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout L(T, D, R, 0, H, scan_rows(H));
+  const Layout L(T, D, R, 0, H, kClusterRows);
   const int G = 4 * H;
-  int err = scan_rows(H) == 32
-                ? scan_bwd<32>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s)
-                : scan_bwd<16>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s);
+  int err = 0;
+  if (H > kMaxHiddenWide) {
+    if (!w_hh_t) return static_cast<int>(cudaErrorInvalidValue);
+    err = scan_bwd_tiles(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s);
+  } else {
+    if (!cluster_fits(H)) return static_cast<int>(cudaErrorInvalidValue);
+    const ClusterBwd kernel = cluster_bwd_kernel(gate_rows(H / kClusterBlocks));
+    const ClusterLaunch l(reinterpret_cast<const void*>(kernel), cdiv(R, kClusterRows), D,
+                          sizeof(float) * cluster_bwd_floats(H), s);
+    err = l.err ? l.err
+                : static_cast<int>(cudaLaunchKernelEx(&l.cfg, kernel, gates_x, w_hh, h_seq,
+                                                      c_seq, dh_seq, dgates, T, D, R, H));
+  }
   if (err) return err;
   lstm_bwd_wgrad<<<dim3(cdiv(H, kBM), cdiv(G, kBN), D * L.chunks), kThreads, 0, s>>>(
       nullptr, h_seq, dgates, work + L.wg_part, T, D, R, 0, H, L.chunks);

@@ -55,6 +55,7 @@ SIGNATURES = {
     'lstm_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P]),
     'lstm_bwd': (_I, [_P] * 12 + [_I] * 5 + [_P]),
     'lstm_scan_bwd_workspace': (ctypes.c_size_t, [_I] * 4),
+    'lstm_scan_cluster_info': (_I, [_I, ctypes.POINTER(_I)]),
     'lstm_scan_fwd': (_I, [_P] * 4 + [_I] * 4 + [_P]),
     'lstm_scan_bwd': (_I, [_P] * 9 + [_I] * 4 + [_P]),
     'gn_workspace': (ctypes.c_size_t, [_I] * 4),

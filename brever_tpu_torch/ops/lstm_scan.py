@@ -45,10 +45,17 @@ The kernels take every shape the JAX package's scans run, up to H = 512
   chunk order, so the result is deterministic;
 * an (E, H) whose projection-fused kernels pass the card's shared memory,
   and every H above 256, is routed by ``models/rnn.py`` to the projection
-  and K5/K6 before any launch (:func:`fused_x_fits`); K5/K6's shared
-  memory does not grow with E, and above H = 256 they scan 16-row tiles
-  (H threads a block) where they scan 32-row ones (2H threads) below.
+  and K5/K6 before any launch (:func:`fused_x_fits`).
+
+K5/K6 run up to H = 256 on a thread-block cluster of :data:`CLUSTER_BLOCKS`
+blocks per 32-row tile and direction, each block holding its slice of
+``w_hh`` in shared memory (:func:`cluster_smem`, checked against the
+library's own figure and the card's cluster occupancy before a shape's first
+launch); above 256 they scan 16-row tiles with ``w_hh`` read through the
+caches.
 """
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +73,11 @@ _MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 512, 256, 32
 _TILE_ROWS = 32
 #: shared memory a block may take on the H100 (bytes)
 _MAX_SMEM = 227 * 1024
+#: K5/K6 up to H = 256 (csrc/lstm_scan.cu): rows of a cluster's tile, and
+#: the floats that pad a shared row of H
+_CLUSTER_ROWS, _CLUSTER_PAD = 32, 4
+#: blocks of a K5/K6 cluster at every H <= 256 (``kClusterBlocks``)
+CLUSTER_BLOCKS = 16
 
 
 def kernel_hidden(hidden):
@@ -120,6 +132,23 @@ def fused_x_fits(feat, hidden):
     e_pad = feat + (-feat % 4)
     return hidden <= _MAX_HIDDEN_X \
         and 4 * _TILE_ROWS * (e_pad + 6 * hidden) <= _MAX_SMEM
+
+
+def cluster_smem(hidden):
+    """``(K5's, K6's)`` shared memory a block, in bytes, at ``hidden`` <= 256:
+    the formulas ``cluster_fwd_floats`` and ``cluster_bwd_floats`` of
+    csrc/lstm_scan.cu. Block b of a cluster holds its ``(H, 4U)`` slice of
+    w_hh (U = H / :data:`CLUSTER_BLOCKS` units, rows of H padded by 4
+    floats); K5 h of the 32-row tile twice (by step parity) and its gates_x
+    columns twice; K6 h[t-1], its gates_x columns, c[t], c[t-1], dh and
+    dgates of its units, and two sets of :data:`CLUSTER_BLOCKS` dh_rec
+    slots."""
+    blocks = CLUSTER_BLOCKS
+    units, ld, rows = hidden // blocks, hidden + _CLUSTER_PAD, _CLUSTER_ROWS
+    fwd = 4 * units * ld + 2 * rows * ld + 2 * rows * 4 * units
+    bwd = (4 * units * ld + rows * ld + rows * 4 * units + 3 * rows * units
+           + rows * 4 * units + 2 * blocks * rows * units)
+    return 4 * fwd, 4 * bwd
 
 
 def _cell(gates, c_prev):
@@ -547,9 +576,47 @@ def _check_scan(gates_x, w_hh):
     return steps, n_dir, rows, hidden
 
 
+#: the cluster of K5/K6 at each H checked so far:
+#: ``lstm_scan_cluster_info``'s numbers
+_clusters = {}
+
+
+def cluster_info(hidden):
+    """The library's K5/K6 cluster at ``hidden`` <= 256: ``{'blocks',
+    'smem_fwd', 'smem_bwd', 'threads', 'active_fwd', 'active_bwd'}``, the
+    last two the clusters the card can hold at once. Raises where the
+    cluster cannot be placed, or where the library's blocks or shared
+    memory are not :data:`CLUSTER_BLOCKS` and :func:`cluster_smem`'s."""
+    if hidden not in _clusters:
+        lib = build.load_library()
+        info = (ctypes.c_int * 6)()
+        build.check(lib, lib.lstm_scan_cluster_info(hidden, info),
+                    f'lstm_scan_cluster_info(H={hidden})')
+        out = dict(zip(('blocks', 'smem_fwd', 'smem_bwd', 'threads',
+                        'active_fwd', 'active_bwd'), info))
+        if (out['blocks'], out['smem_fwd'], out['smem_bwd']) != (
+                CLUSTER_BLOCKS, *cluster_smem(hidden)):
+            raise RuntimeError(f'lstm_scan: the library\'s K5/K6 cluster at '
+                               f'H={hidden} is {out}, the wrapper\'s '
+                               f'{CLUSTER_BLOCKS} blocks and '
+                               f'{cluster_smem(hidden)} bytes')
+        if min(out['active_fwd'], out['active_bwd']) < 1 \
+                or max(out['smem_fwd'], out['smem_bwd']) > _MAX_SMEM:
+            raise RuntimeError(
+                f'lstm_scan: the card cannot place a K5/K6 cluster at '
+                f'H={hidden}: {out["blocks"]} blocks of {out["threads"]} '
+                f'threads and {out["smem_fwd"]} / {out["smem_bwd"]} bytes '
+                f'of shared memory; clusters at once: K5 '
+                f'{out["active_fwd"]}, K6 {out["active_bwd"]}')
+        _clusters[hidden] = out
+    return _clusters[hidden]
+
+
 def _launch_scan_fwd(gates_x, w_hh):
     lib = build.load_library()
     steps, n_dir, rows, hidden = _check_scan(gates_x, w_hh)
+    if hidden <= _MAX_HIDDEN_X:
+        cluster_info(hidden)
     gates_x, w_hh = _aligned(gates_x, w_hh)
     device = gates_x.device
     with torch.cuda.device(device):
@@ -566,6 +633,8 @@ def _launch_scan_fwd(gates_x, w_hh):
 def _launch_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
     lib = build.load_library()
     steps, n_dir, rows, hidden = _check_scan(gates_x, w_hh)
+    if hidden <= _MAX_HIDDEN_X:
+        cluster_info(hidden)
     device = gates_x.device
     for name, t in (('h_seq', h_seq), ('c_seq', c_seq), ('dh', dh_seq)):
         _tensor(t, name, device, (steps, n_dir, rows, hidden), 'lstm_scan')
@@ -573,13 +642,17 @@ def _launch_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
                                                    c_seq, dh_seq)
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
-        w_hh_t = w_hh.transpose(1, 2).contiguous()   # (D, 4H, H)
+        # the 16-row tiles read w_hh transposed (D, 4H, H); the clusters
+        # hold their slices of w_hh itself
+        w_hh_t = (w_hh.transpose(1, 2).contiguous() if hidden > _MAX_HIDDEN_X
+                  else None)
         dgates = torch.empty(steps, n_dir, rows, 4 * hidden, **f32)
         dw_hh = torch.empty(n_dir, hidden, 4 * hidden, **f32)
         work = torch.empty(lib.lstm_scan_bwd_workspace(steps, n_dir, rows,
                                                        hidden), **f32)
         build.check(lib, lib.lstm_scan_bwd(
-            gates_x.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(),
+            gates_x.data_ptr(), w_hh.data_ptr(),
+            None if w_hh_t is None else w_hh_t.data_ptr(),
             h_seq.data_ptr(), c_seq.data_ptr(), dh_seq.data_ptr(),
             dgates.data_ptr(), dw_hh.data_ptr(), work.data_ptr(), steps,
             n_dir, rows, hidden,

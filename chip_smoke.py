@@ -66,7 +66,8 @@ each print one line, with the seconds since the start:
 22. the gates-in LSTM scan kernels (K5 forward, K6 backward) against
     their plain versions at DCCRN's two complex-LSTM shapes at 16 x 4 s
     and at B = 1, TF-GridNet's short-request intra shape, H 32..256 at
-    T = 1 and unaligned inputs; the backward in float64, twice bitwise;
+    T = 1 and unaligned inputs; the forward also against float64, the
+    backward in float64; both twice bitwise;
 23. DCCRN's enhance from ``EnhanceService(model_dir)`` (running statistics
     moved by train-mode passes) against the plain path in float64 and the
     plain CPU service; K5 launches per evaluation;
@@ -78,9 +79,11 @@ each print one line, with the seconds since the start:
     bitwise, the checkpoint serves;
 26. the HTTP service over that model directory's checkpoint;
 27. timings at 16 x 4 s: K5 and K6 per complex-LSTM layer vs their plain
-    versions, the projection + K5 route vs K3 (projection inside) and K6
-    vs K4 at the same shape, cuDNN's LSTM, enhance and the train step with
-    kernel and with plain LSTMs, peak memory.
+    versions (the cluster's blocks, us a step and shared memory a block),
+    the projection + K5 route vs K3 (projection
+    inside) and K6 vs K4 at the same shape, cuDNN's LSTM over both weight
+    sets and over one, enhance and the train step with kernel and with
+    plain LSTMs, peak memory.
 28. the flash-BN kernels (K7-BN forward, K8-BN backward) against their
     plain versions at MANNER's shape classes at 16 x 4 s (C = 60 at full
     length, 120, 1920, and C = 1 over the attention chunks), none, ReLU
@@ -104,8 +107,9 @@ each print one line, with the seconds since the start:
     ``STFT(backend='pallas')`` against the cuFFT route;
 34. the LSTM kernels on shapes they refused before: H = 200 at TF-GridNet's
     intra shape (padded to 224) through autograd, an (E, H) past the shared
-    memory routed to the projection and K5, and a row count past the int
-    range in row chunks;
+    memory routed to the projection and K5, a row count past the int
+    range in row chunks, and H = 640, past K5/K6, raising before any
+    launch;
 35. the elementwise-rate probe (K10) through ``bench_alu_dtype.bench``:
     the built library's SASS (FFMA in float32, HFMA2.BF16 and no
     conversion in bfloat16), both dtypes on the benchmark's input and a
@@ -1472,6 +1476,17 @@ def dccrn_grads(model, batch, lengths):
             {k: b.detach().clone() for k, b in model.named_buffers()})
 
 
+def scan_cluster_record(timing, which='fwd'):
+    """The ``cluster`` entry of K5's (``fwd``) or K6's (``bwd``) record at
+    DCCRN's shape (T = 495, H = 128): blocks a cluster, threads and shared
+    memory a block, and us a step of phase 27's kernel time."""
+    from brever_tpu_torch.ops.lstm_scan import cluster_info
+    info = cluster_info(128)
+    return {'blocks': info['blocks'], 'threads_per_block': info['threads'],
+            'smem_bytes': info[f'smem_{which}'],
+            'us_per_step': 1e3 * timing['layer0'][which]['kernel'] / 495}
+
+
 def dccrn_phases(device, card):
     """Phases 22-27; returns the numbers of the K5/K6 JSON records."""
     from brever_tpu_torch.checkpoint import load_checkpoint
@@ -1487,6 +1502,7 @@ def dccrn_phases(device, card):
     rng = np.random.RandomState(22)
     fwd_worst, fwd_err, bwd_worst, bwd_err = (float('inf'), 0.0,
                                               float('inf'), 0.0)
+    fwd64 = float('inf')
     for n, case in enumerate(SCAN_CASES):
         name = 'T={} D={} R={} E={} H={}'.format(*case)
         x, w_ih, bias, w_hh, dh = lstm_inputs(rng, *case)
@@ -1496,11 +1512,14 @@ def dccrn_phases(device, card):
         if n == SCAN_UNALIGNED:   # at an unaligned offset, as in a flat
             gates_x, w_hh = offset_view(gates_x), offset_view(w_hh)  # buffer
         h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+        h2, c2 = lstm.lstm_scan_fwd(gates_x, w_hh)
         ref = lstm.lstm_scan_reference(gates_x, w_hh)
         torch.cuda.synchronize()
+        if not (torch.equal(h, h2) and torch.equal(c, c2)):
+            raise AssertionError(f'K5 {name}: two runs differ')
         worst, err = check_close(f'K5 {name}', ('h', 'c'), ref, (h, c))
         fwd_worst, fwd_err = min(fwd_worst, worst), max(fwd_err, err)
-        del ref
+        del ref, h2, c2
         grads = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
         again = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
@@ -1509,6 +1528,8 @@ def dccrn_phases(device, card):
         h64, c64 = lstm.lstm_scan_reference(*f64)
         want = lstm.lstm_scan_bwd_plain(*f64, h64, c64, dh.double())
         torch.cuda.synchronize()
+        fwd64 = min(fwd64, check_close(f'K5 {name} vs float64', ('h', 'c'),
+                                       (h64, c64), (h, c))[0])
         worst, err = check_close(f'K6 {name}', ('dgates', 'dw_hh'), want,
                                  grads)
         bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
@@ -1519,10 +1540,11 @@ def dccrn_phases(device, card):
           f'at 16 x 4 s and at B=1, TF-GridNet\'s 0.05 s intra scan, H '
           f'32..256 at T=1, unaligned gates_x and w_hh): K5 h and c vs the '
           f'plain version worst {fwd_worst:.1f} dB, max abs err '
-          f'{fwd_err:.3e}; K6 dgates and dW_hh vs the plain backward in '
+          f'{fwd_err:.3e}, vs float64 worst {fwd64:.1f} dB; K6 dgates and '
+          f'dW_hh vs the plain backward in '
           f'float64 worst {bwd_worst:.1f} dB (>= {MIN_SNR_DB}), max abs err '
-          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two K6 runs '
-          'bitwise equal')
+          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two K5 and two '
+          'K6 runs bitwise equal')
 
     # ---- phase 23: enhance from EnhanceService(model_dir) vs the plain
     # path in float64 on the card and in float32 on the CPU; the running
@@ -1720,16 +1742,22 @@ def dccrn_phases(device, card):
             bwd['k4'] = cuda_ms(lambda: lstm.lstm_scan_x_bwd(
                 x, w_ih, bias, w_hh, hx, cx, dh), 3, 1)
         # the library's yardstick: cuDNN's LSTM over the same (T, R, E)
-        # input, one direction, the input projection inside: no PyTorch
-        # call takes precomputed gates
-        cudnn = torch.nn.LSTM(feat, hidden).to(device)
+        # input, the input projection inside (no PyTorch call takes
+        # precomputed gates): over both weight sets (a bidirectional LSTM,
+        # the work of one K5/K6 launch over D = 2) and over one
         xl = x[:, 0].clone().requires_grad_()
-        with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: cudnn(xl), 5, 2)
-        out_l, _ = cudnn(xl)
-        dout = torch.randn_like(out_l)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-            out_l, [xl, *cudnn.parameters()], dout, retain_graph=True), 3, 1)
+        lib = {}
+        for dirs in ('both', 'one'):
+            cudnn = torch.nn.LSTM(feat, hidden, bidirectional=dirs == 'both'
+                                  ).to(device)
+            with torch.no_grad():
+                lib[f'fwd_{dirs}'] = cuda_ms(lambda: cudnn(xl), 5, 2)
+            out_l, _ = cudnn(xl)
+            dout = torch.randn_like(out_l)
+            lib[f'bwd_{dirs}'] = cuda_ms(lambda: torch.autograd.grad(
+                out_l, [xl, *cudnn.parameters()], dout, retain_graph=True),
+                3, 1)
+            del cudnn, out_l, dout
         # bounds: the gate products h w_hh of every step (the backward
         # recomputes them, then dh w_hh^T and dW_hh); bytes of gates_x,
         # h, c (dh, dgates) and the weights
@@ -1738,12 +1766,13 @@ def dccrn_phases(device, card):
         seq_h = steps * n_dir * rows * hidden
         weights = n_dir * hidden * 4 * hidden
         timing[label] = {
-            'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd, 'lib_bwd': lib_bwd,
+            'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib['fwd_both'],
+            'lib_bwd': lib['bwd_both'], 'lib_fwd_one': lib['fwd_one'],
+            'lib_bwd_one': lib['bwd_one'],
             'bound_fwd': bound(flops, 4 * (seq_g + weights + 2 * seq_h)),
             'bound_bwd': bound(3 * flops, 4 * (2 * seq_g + 2 * weights
                                                + 3 * seq_h))}
-        del x, w_ih, bias, w_hh, dh, gates_x, h, c, hx, cx, cudnn, xl, \
-            out_l, dout
+        del x, w_ih, bias, w_hh, dh, gates_x, h, c, hx, cx, xl
     batch = torch.from_numpy((0.1 * np.random.RandomState(28).randn(
         16, 2, 4 * FS)).astype(np.float32)).to(device)
 
@@ -1784,17 +1813,26 @@ def dccrn_phases(device, card):
                enhance_peak=enhance_peak, step_peak=step_peak)
     mib = 2 ** 20
     t0, t1 = timing['layer0'], timing['layer1']
+    cfwd, cbwd = (scan_cluster_record(timing, w) for w in ('fwd', 'bwd'))
+    clusters = (f'N={cfwd["blocks"]} blocks of {cfwd["threads_per_block"]} '
+                f'threads, K5 {cfwd["us_per_step"]:.2f} us a step and '
+                f'{cfwd["smem_bytes"]} B a block, K6 '
+                f'{cbwd["us_per_step"]:.2f} us a step and '
+                f'{cbwd["smem_bytes"]} B')
     phase(27, f'[{card}] DCCRN complex LSTM at 16x4 s (T=495 D=2 R=32 '
           f'H=128) kernel/plain ms: K5 {t0["fwd"]["kernel"]:.3f}/'
-          f'{t0["fwd"]["plain"]:.3f} ({1e3 * t0["fwd"]["kernel"] / 495:.1f} '
+          f'{t0["fwd"]["plain"]:.3f} ({1e3 * t0["fwd"]["kernel"] / 495:.2f} '
           f'us a step; bound {t0["bound_fwd"][0]:.3f}), K6 '
           f'{t0["bwd"]["kernel"]:.3f}/{t0["bwd"]["plain"]:.3f} (bound '
-          f'{t0["bound_bwd"][0]:.3f}); projection + K5 vs K3 (projection '
+          f'{t0["bound_bwd"][0]:.3f}); cluster {clusters}; projection + K5 '
+          f'vs K3 (projection '
           f'inside): E=512 {t0["fwd"]["route"]:.3f} vs {t0["fwd"]["k3"]:.3f}'
           f', E=128 {t1["fwd"]["route"]:.3f} vs {t1["fwd"]["k3"]:.3f}; K4 '
           f'E=512 {t0["bwd"]["k4"]:.3f}, E=128 {t1["bwd"]["k4"]:.3f}; cuDNN '
-          f'LSTM fwd/bwd E=512 {t0["lib_fwd"]:.3f}/{t0["lib_bwd"]:.3f}, '
-          f'E=128 {t1["lib_fwd"]:.3f}/{t1["lib_bwd"]:.3f}; enhance 16x4 s '
+          f'LSTM fwd/bwd over both weight sets E=512 {t0["lib_fwd"]:.3f}/'
+          f'{t0["lib_bwd"]:.3f}, E=128 {t1["lib_fwd"]:.3f}/'
+          f'{t1["lib_bwd"]:.3f} (one: E=512 {t0["lib_fwd_one"]:.3f}/'
+          f'{t0["lib_bwd_one"]:.3f}); enhance 16x4 s '
           f'{enhance_ms["kernel"]:.2f} ms, peak '
           f'{enhance_peak["kernel"] / mib:.1f} MiB (plain LSTMs '
           f'{enhance_ms["plain"]:.2f} ms); train step 16x4 s f32 '
@@ -2373,6 +2411,26 @@ def lstm_repair_phase(device, card):
                  f'projection + K5: {w_s:.1f} dB')
     del x, w_ih, bias, w_hh, h, ref
     torch.cuda.empty_cache()
+    # H past K5/K6's 512: the gates-in scan raises before any launch
+    case = WIDE_CASE
+    x, w_ih, bias, w_hh, _ = lstm_inputs(rng, *case, device)
+    leaves = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
+    before = (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches)
+    try:
+        rnn._dispatch_scan_x(*leaves)
+    except NotImplementedError as exc:
+        if 'ROADMAP.md, Queue 3' not in str(exc):
+            raise
+    else:
+        raise AssertionError(f'H={case[4]}: the gates-in scan ran past 512')
+    launched = (lstm.lstm_scan.launches - before[0],
+                lstm.lstm_scan_bwd.launches - before[1])
+    if launched != (0, 0):
+        raise AssertionError(f'H={case[4]}: K5, K6 launches {launched}')
+    notes.append('T={} D={} R={} E={} H={} (past K5/K6) raises '
+                 'NotImplementedError before any K5/K6 launch'.format(*case))
+    del x, w_ih, bias, w_hh, leaves
+    torch.cuda.empty_cache()
     # rows past the int range: T D R 4H >= 2**31 in two chunks
     steps, n_dir, feat, hidden = 126, 2, 128, 128
     rows = lstm._INT_RANGE // (steps * n_dir * 4 * hidden) + 64
@@ -2426,6 +2484,9 @@ def lstm_repair_phase(device, card):
     phase(34, 'LSTM kernels on the shapes they refused: ' + '; '.join(notes))
 
 
+#: a scan past K5/K6's largest hidden size (phase 34), (T, D, R, E, H):
+#: it raises before any launch
+WIDE_CASE = (40, 2, 32, 64, 640)
 #: K10 against its plain version (phase 35): float32 within 1e-5 of the
 #: largest value (the kernel's fused multiply-add rounds once a step where
 #: the plain chain rounds twice: 256 steps of float32 rounding stay far
@@ -3504,9 +3565,13 @@ def main():
         'bound_ms': scan_t['bound_fwd'][0],
         'bound_by': scan_t['bound_fwd'][1],
         'library_ms': scan_t['lib_fwd'],
-        'library_note': 'nn.LSTM (cuDNN), one direction over (T=495, 32, '
-                        'E=512): the input projection inside; no PyTorch '
-                        'call takes precomputed gates',
+        'library_ms_one_dir': scan_t['lib_fwd_one'],
+        'library_note': 'nn.LSTM (cuDNN) over (T=495, 32, E=512), '
+                        'bidirectional: both weight sets, the work of one K5 '
+                        'launch over D=2, the input projection inside (no '
+                        'PyTorch call takes precomputed gates); one_dir: one '
+                        'weight set',
+        'cluster': scan_cluster_record(dcc['timing']),
         'projection_then_k5_ms': scan_t['fwd']['route'],
         'k3_same_shape_ms': scan_t['fwd']['k3'],
         'projection_then_k5_ms_e128': scan_t1['fwd']['route'],
@@ -3532,7 +3597,9 @@ def main():
         'bound_ms': scan_t['bound_bwd'][0],
         'bound_by': scan_t['bound_bwd'][1],
         'library_ms': scan_t['lib_bwd'],
+        'library_ms_one_dir': scan_t['lib_bwd_one'],
         'library_note': 'the backward of that nn.LSTM (data and weights)',
+        'cluster': scan_cluster_record(dcc['timing'], 'bwd'),
         'k4_same_shape_ms': scan_t['bwd']['k4'],
         'k4_same_shape_ms_e128': scan_t1['bwd']['k4'],
         'shape': 'T=495 D=2 R=32 H=128 (DCCRN at 16 x 4 s)',

@@ -354,10 +354,13 @@ def test_lstm_kernels_take_unaligned_views(device):
 
 
 # (T, D, R, H) of the gates-in scan: DCCRN's complex LSTM at B = 16 and at
-# B = 1, R not a multiple of the 32-row tile, T = 1, D = 1, H 32..256; H =
-# 384 and 512 on 16-row tiles, R off the tile
+# B = 1, R not a multiple of the 32-row tile, T = 1, D = 1, H 32..256; two
+# clusters a direction at DCCRN's length, MetricGAN's padded width at one
+# row, one step of a full tile; H = 384 and 512 on 16-row tiles, R off the
+# tile
 SCAN_CASES = [(495, 2, 32, 128), (40, 2, 2, 128), (7, 2, 100, 64),
-              (1, 1, 33, 32), (3, 1, 17, 256), (9, 2, 40, 384),
+              (1, 1, 33, 32), (3, 1, 17, 256), (495, 2, 64, 128),
+              (33, 1, 1, 224), (1, 2, 32, 32), (9, 2, 40, 384),
               (5, 1, 17, 512)]
 
 
@@ -373,13 +376,15 @@ def test_scan_kernels_match_plain(device, case):
     gates_x, w_hh, dh = _scan_inputs(device, *case)
     before = lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches
     h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+    h2, c2 = lstm.lstm_scan_fwd(gates_x, w_hh)
     ref_h, ref_c = lstm.lstm_scan_reference(gates_x, w_hh)
     torch.testing.assert_close(h, ref_h, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(c, ref_c, atol=1e-5, rtol=1e-4)
+    assert torch.equal(h, h2) and torch.equal(c, c2)
     grads = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
     again = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
     assert (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches) == \
-        (before[0] + 1, before[1] + 2)
+        (before[0] + 2, before[1] + 2)
     h64, c64 = lstm.lstm_scan_reference(gates_x.double(), w_hh.double())
     ref = lstm.lstm_scan_bwd_plain(gates_x.double(), w_hh.double(), h64, c64,
                                    dh.double())
@@ -482,6 +487,31 @@ def test_fused_x_fits_is_the_kernels_shared_memory(device):
         fits = max(lib.lstm_fwd_smem(e_pad, hidden),
                    lib.lstm_bwd_smem(e_pad, hidden)) <= lstm._MAX_SMEM
         assert lstm.fused_x_fits(feat, hidden) is fits
+
+
+def test_scan_cluster_is_the_wrappers(device):
+    """K5/K6's cluster at every H up to 256: the library's blocks are
+    ``CLUSTER_BLOCKS``, its shared memory ``cluster_smem``'s, and the card
+    holds at least one cluster of each kernel at once."""
+    for hidden in range(32, 257, 32):
+        info = lstm.cluster_info(hidden)
+        assert info['blocks'] == lstm.CLUSTER_BLOCKS
+        assert (info['smem_fwd'], info['smem_bwd']) == \
+            lstm.cluster_smem(hidden)
+        assert min(info['active_fwd'], info['active_bwd']) >= 1
+
+
+def test_wide_hidden_scan_raises_before_any_launch(device):
+    """H = 640, past K5/K6, through ``models/rnn.py`` on the card: the
+    gates-in scan raises with its message, and neither kernel is
+    launched."""
+    from brever_tpu_torch.models import rnn
+    x, w_ih, bias, w_hh, _ = _lstm_inputs(device, 4, 2, 6, 24, 640)
+    leaves = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
+    before = lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 3'):
+        rnn._dispatch_scan_x(*leaves)
+    assert (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches) == before
 
 
 def test_scan_kernels_take_unaligned_views(device):

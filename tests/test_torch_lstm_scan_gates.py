@@ -321,3 +321,143 @@ def test_dispatch_routes_a_wide_hidden_size_to_the_gates_scan(monkeypatch):
                                     jax_rnn.DEFAULT_UNROLL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K5/K6's cluster (H <= 256): the shared-memory plan and the split algebra
+
+
+@pytest.mark.parametrize('hidden', range(32, 257, 32))
+def test_cluster_plan_fits_every_hidden_size(hidden):
+    """The wrapper's mirror of the cluster plan: the cluster's blocks divide
+    H into an even number of units, at most 16 a block, and both kernels'
+    shared memory fits a block's 232,448 bytes."""
+    blocks = L.CLUSTER_BLOCKS
+    assert blocks in (8, 16) and hidden % blocks == 0
+    units = hidden // blocks
+    assert units % 2 == 0 and units <= 16
+    fwd, bwd = L.cluster_smem(hidden)
+    assert 0 < fwd <= 232448 and 0 < bwd <= 232448
+    assert L._MAX_SMEM == 232448
+
+
+def _cluster_twin(gates_x, w_hh, dh_seq, blocks):
+    """K5 and K6 as the cluster splits them, in float64 numpy: block b owns
+    units [b U, (b+1) U) with their four gates (columns ``cols[b]`` of
+    w_hh) and forms their gates from its column slice; K6's dh_rec is the
+    rank-ordered sum of the blocks' partials dgates[:, cols_b] w_hh[:,
+    cols_b]^T. Returns (h, c, dgates, dw_hh)."""
+    steps, n_dir, rows, width = gates_x.shape
+    hidden = width // 4
+    units = hidden // blocks
+    own = [b * units + np.arange(units) for b in range(blocks)]
+    cols = [np.concatenate([g * hidden + u for g in range(4)]) for u in own]
+
+    def sig(z):
+        return 1 / (1 + np.exp(-z))
+
+    def gates(t, h_prev, b):
+        pre = gates_x[t][..., cols[b]] + h_prev @ w_hh[..., cols[b]]
+        return np.split(pre, 4, axis=-1)
+
+    h_seq = np.zeros((steps, n_dir, rows, hidden))
+    c_seq = np.zeros_like(h_seq)
+    h, c = h_seq[0].copy(), h_seq[0].copy()
+    for t in range(steps):
+        h_new, c_new = np.empty_like(h), np.empty_like(c)
+        for b, u in enumerate(own):
+            i, f, g, o = gates(t, h, b)
+            c_new[..., u] = sig(f) * c[..., u] + sig(i) * np.tanh(g)
+            h_new[..., u] = sig(o) * np.tanh(c_new[..., u])
+        h, c = h_seq[t], c_seq[t] = h_new, c_new
+    dgates = np.zeros(gates_x.shape)
+    dh_rec, dc = np.zeros_like(h), np.zeros_like(h)
+    for t in range(steps - 1, -1, -1):
+        h_prev = h_seq[t - 1] if t else np.zeros_like(h)
+        c_prev = c_seq[t - 1] if t else np.zeros_like(h)
+        partials = []
+        for b, u in enumerate(own):
+            i, f, g, o = gates(t, h_prev, b)
+            i, f, g, o = sig(i), sig(f), np.tanh(g), sig(o)
+            tc = np.tanh(c_seq[t][..., u])
+            dh = dh_seq[t][..., u] + dh_rec[..., u]
+            dcc = dh * o * (1 - tc * tc) + dc[..., u]
+            dg_b = np.concatenate([dcc * g * i * (1 - i),
+                                   dcc * c_prev[..., u] * f * (1 - f),
+                                   dcc * i * (1 - g * g),
+                                   dh * tc * o * (1 - o)], axis=-1)
+            dc[..., u] = dcc * f
+            dgates[t][..., cols[b]] = dg_b
+            partials.append(dg_b @ np.swapaxes(w_hh[..., cols[b]], -1, -2))
+        dh_rec = partials[0]
+        for part in partials[1:]:        # rank order
+            dh_rec = dh_rec + part
+    h_prev = np.concatenate([np.zeros_like(h_seq[:1]), h_seq[:-1]])
+    return h_seq, c_seq, dgates, np.einsum('tdrh,tdrk->dhk', h_prev, dgates)
+
+
+@pytest.mark.parametrize('blocks', [8, 16])
+def test_cluster_split_is_the_scan(blocks):
+    """The cluster's split by columns gives the plain scan's h, c, dgates
+    and dW_hh in float64 (to 1e-12), and the JAX package's
+    ``_lstm_scan_impl`` and ``_lstm_scan_bwd`` on the same numpy inputs at
+    this file's tolerances."""
+    gates_x, w_hh, dh = _inputs(6, 2, 5, 32, seed=9)
+    twin = _cluster_twin(*(a.astype(np.float64) for a in (gates_x, w_hh,
+                                                          dh)), blocks)
+    g64, w64, dh64 = (torch.from_numpy(a).double() for a in (gates_x, w_hh,
+                                                             dh))
+    h64, c64 = L.lstm_scan_reference(g64, w64)
+    plain = (h64, c64, *L.lstm_scan_bwd_plain(g64, w64, h64, c64, dh64))
+    for name, got, want in zip(('h', 'c', 'dgates', 'dw_hh'), twin, plain):
+        np.testing.assert_allclose(got, want.numpy(), atol=1e-12, rtol=0,
+                                   err_msg=name)
+    h_jax, c_jax = jax_rnn._lstm_scan_impl(jnp.asarray(gates_x),
+                                           jnp.asarray(w_hh), 1)
+    jax_grads = jax_rnn._lstm_scan_bwd(
+        1, (jnp.asarray(gates_x), jnp.asarray(w_hh), h_jax, c_jax),
+        jnp.asarray(dh))
+    for name, got, want in zip(('h', 'c'), twin, (h_jax, c_jax)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    for name, got, want in zip(('dgates', 'dw_hh'), twin[2:], jax_grads):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max(),
+                                   err_msg=name)
+
+
+def test_dispatch_routes_a_hidden_size_past_512_to_the_plain_scan(
+        monkeypatch):
+    """H = 640, past K5/K6, on the CPU: ``_dispatch_scan_x`` projects
+    outside the scan and the gates-in scan runs its plain version, with the
+    JAX package's forward and gradients. (On CUDA the scan raises before
+    any launch: the kernels stop at 512.)"""
+    taken = _routes(monkeypatch)
+    rng = np.random.RandomState(640)
+    feat, hidden = 12, 640
+    x = rng.randn(3, 2, 4, feat).astype(np.float32)
+    w_ih = (rng.randn(2, feat, 4 * hidden) / 4).astype(np.float32)
+    bias = (0.1 * rng.randn(2, 4 * hidden)).astype(np.float32)
+    w_hh = (rng.randn(2, hidden, 4 * hidden) / 25).astype(np.float32)
+    cot = rng.randn(3, 2, 4, hidden).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in (x, w_ih, bias, w_hh)]
+    got = rnn._dispatch_scan_x(*args)
+    assert taken == ['gates']
+    (got * torch.from_numpy(cot)).sum().backward()
+
+    def loss(*a):
+        return jnp.sum(jax_rnn._dispatch_scan_x(*a, jax_rnn.DEFAULT_UNROLL)
+                       * cot)
+
+    jargs = [jnp.asarray(a) for a in (x, w_ih, bias, w_hh)]
+    want = jax_rnn._dispatch_scan_x(*jargs, jax_rnn.DEFAULT_UNROLL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+    grads = jax.grad(loss, argnums=(0, 1, 2, 3))(*jargs)
+    for name, arg, ref in zip(('x', 'w_ih', 'bias', 'w_hh'), args, grads):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(arg.grad.numpy(), ref, rtol=1e-4,
+                                   atol=1e-4 * np.abs(ref).max(),
+                                   err_msg=name)
