@@ -29,15 +29,37 @@
 // * The gates are never written (a gates_x buffer would be 1.09 GB per
 //   intra BLSTM at 16 x 4 s, what the Pallas kernel exists to avoid).
 //
-// The backward runs the same tile in reverse time and recomputes each
-// step's gates from x and the saved h with the forward's code and order
-// (the same bits), keeps dc in registers and dh_rec = dgates w_hh^T in
-// registers, and writes dgates (T, D, R, 4H) to device memory once (the
-// same 1.09 GB at 16 x 4 s for the intra BLSTM; read back twice). Then two
-// parallel GEMM launches: dx = dgates w_ih^T, and [dW_ih; dW_hh] =
-// [x | h_prev]^T dgates split into chunks of 4096 (t, r) pairs whose
-// partials, like db's per-tile partials, are summed in a fixed order. No
-// float atomics: two runs give bitwise-equal gradients.
+// K4, the backward, takes h and c and dh and needs, per BLSTM at 16 x 4 s,
+// the gates again (x w_ih + bias + h[t-1] w_hh: 139.5 GFLOP), dh_rec =
+// dgates w_hh^T (69.8), dx = dgates w_ih^T (69.8) and [dW_ih; dW_hh; db] =
+// [x | h[t-1] | 1]^T dgates (139.5): 418.5 GFLOP, 6.2 ms at the f32 rate.
+// Only dh_rec is serial in t: the gates are recomputed from the saved h,
+// so they leave the scan. Five launches:
+//
+// 1. the gates, all T steps at once, as one GEMM (lstm_bwd_gates_gemm),
+//    each sum in gates_tile<true>'s order (k ascending over x, + bias, k
+//    ascending over h[t-1]): K3's bits. They go to the dgates workspace;
+// 2. the reverse scan (lstm_bwd_rscan): a block owns a 64- or 32-row tile
+//    of one direction over all T steps and its threads own (row, unit)
+//    pairs in both of a step's phases, so dc and dh_rec stay in registers:
+//    dgates[t] from the gates, c, dh and dh_rec, written over the gates in
+//    place; then dh_rec = dgates[t] w_hh^T with dgates[t] in shared
+//    memory and w_hh^T streamed through a cp.async ring of 32-row chunks
+//    (256 KB a direction at H = 128 is more than a block's shared memory);
+// 3. dx = dgates w_ih^T (lstm_bwd_dx_gemm);
+// 4. [dW_ih; dW_hh] = [x | h[t-1]]^T dgates over chunks of (t, r) pairs,
+//    the first row tile's blocks also summing dgates' columns (db, the
+//    row of ones) (lstm_bwd_wgrad_gemm);
+// 5. the chunks' partials summed in chunk order (sum_partials, one launch
+//    for dW and one for db).
+//
+// The GEMMs are one register-tiled SIMT float32 kernel body (gemm_loop):
+// 128 x 128 block tiles, 8 x 8 outputs a thread, 16-deep k slices in a
+// two-stage shared-memory ring, rows addressed per time step. No float
+// atomics anywhere: two runs give bitwise-equal gradients. The dgates
+// workspace (1.09 GB for the intra BLSTM at 16 x 4 s) holds the gates and
+// then dgates: K4 needs no more device memory than one gates tensor and
+// the weight partials.
 //
 // K5 and K6 replace _fwd_kernel (launched by _fwd_pallas, brever_tpu/ops/
 // pallas/lstm_scan.py:155) and _bwd_kernel (launched by _bwd_pallas, :235):
@@ -49,8 +71,8 @@
 //
 // K6 recomputes each step's gates from gates_x and the saved h, writes
 // dgates (= d gates_x, T, D, R, 4H) as its output, and forms dW_hh = sum
-// over t of h[t-1]^T dgates[t] with K4's weight GEMM over fixed-order
-// partials: bitwise repeatable. dx, dW_ih and db are then the projection's
+// over t of h[t-1]^T dgates[t] with K4's weight GEMM (launches 4 and 5
+// with E = 0 and no db): bitwise repeatable. dx, dW_ih and db are then the projection's
 // own backward.
 //
 // Bound. A gates-in scan is a chain of T dependent steps, each a small
@@ -90,36 +112,36 @@
 // barrier waits for, and the barrier take most of the rest. wgmma (3 x
 // TF32 or bf16) on that tile is the next step.
 //
-// For 256 < H <= 512 a float32 w_hh (up to 4 MB a direction) does not fit
-// 16 SMs' shared memory: K5/K6 keep K3/K4's scan kernels with the
-// projection off (a template flag) on 16-row tiles (H threads), reading
-// w_hh through L1/L2 every step; K6's shared memory there is 16 x 6H
-// floats, 196,608 B at H = 512.
+// For 256 < H <= 1024 a float32 w_hh (up to 16 MB a direction) does not
+// fit 16 SMs' shared memory: K5 keeps K3's scan kernel with the projection
+// off (a template flag) and K6 a scan of the same layout, on 16-row tiles
+// (H threads) up to H = 512 and 8-row tiles (H / 2 threads) above, reading
+// w_hh through L1/L2 every step; K6's shared memory there is rows x 6H
+// floats, 196,608 B at H = 512 and at H = 1024.
 //
 // SIMT float32 FFMA throughout (no TF32, no bf16: the parity bounds are
 // float32's); wgmma, TMA and bf16 are later work. Every pointer is a dense
 // float32 buffer in the layouts above; w_hh_t is w_hh transposed to
-// (D, 4H, H) (the 16-row K6 and K4 only). E is a multiple of 4 (the
-// wrapper pads), H a multiple of 32, at most 256 for K3/K4 and 512 for
-// K5/K6.
+// (D, 4H, H) (the tiled K6 and K4 only), w_ih_t w_ih transposed to (D, 4H,
+// E) (K4 only). E is a multiple of 4 (the wrapper pads), H a multiple of
+// 32, at most 256 for K3/K4 and 1024 for K5/K6.
 
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "tcn_common.cuh"
 
 namespace {
 
 using tcn::cdiv;
-using tcn::gemm_tile;
-using tcn::kBM;
-using tcn::kBN;
 using tcn::kThreads;
 
 constexpr int kRowsPer = 8;                  // rows a thread owns
-constexpr int kMaxThreads = 512;             // 2H threads at 32 rows, H at 16
-constexpr int kMaxHiddenWide = 256;          // largest H of a 32-row tile
-constexpr int kMaxHidden = 512;              // largest H of a 16-row tile
-constexpr int kWgChunk = 4096;               // (t, r) pairs per wgrad partial
+constexpr int kMaxThreads = 512;             // 2H threads at 32 rows, H at 16, H / 2 at 8
+constexpr int kMaxHiddenWide = 256;          // largest H of a 32-row tile (K3, clusters)
+constexpr int kMaxHiddenMid = 512;           // largest H of a 16-row tile (K5/K6)
+constexpr int kMaxHidden = 1024;             // largest H of an 8-row tile (K5/K6)
 constexpr int kClusterThreads = 256;         // threads of a K5/K6 cluster block
 constexpr int kClusterRows = 32;             // rows of a K5/K6 cluster tile
 constexpr int kPad = 4;                      // floats padding a shared row of H
@@ -274,45 +296,38 @@ lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
   }
 }
 
-// K4's and K6's recurrence. Reverse time over the tile: recompute the gates,
-// form dgates (written to device memory), carry dc in registers and dh_rec =
-// dgates w_hh^T in shared memory slots that only their own thread reads
-// (registers would pass the 128 a thread has at 512 threads); with kProj,
-// per-tile partials of db into db_part[d][tile][4H]. Without it x is gates_x
-// (T, D, R, 4H), E = 0 and w_ih, bias and db_part are not read.
-// grid (cdiv(R, kRows), D), kRows / 8 x H / 2 threads, kRows (E + 6 H)
-// floats of dynamic shared memory.
-template <bool kProj, int kRows>
+// K6's recurrence for 256 < H <= 1024. Reverse time over the tile:
+// recompute the gates from gates_x and the saved h with K5's code (the same
+// bits), form dgates (written to device memory), carry dc in registers and
+// dh_rec = dgates w_hh^T in shared memory slots that only their own thread
+// reads (registers would pass the 128 a thread has at 512 threads).
+// grid (cdiv(R, kRows), D), kRows / 8 x H / 2 threads, kRows 6H floats of
+// dynamic shared memory.
+template <int kRows>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
-              const float* __restrict__ bias, const float* __restrict__ w_hh,
+lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
               const float* __restrict__ w_hh_t, const float* __restrict__ h_seq,
               const float* __restrict__ c_seq, const float* __restrict__ dh_seq,
-              float* __restrict__ dgates, float* __restrict__ db_part, int T, int D, int R,
-              int E, int H) {
+              float* __restrict__ dgates, int T, int D, int R, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
-  float* xs = smem;                   // (kRows, E)
-  float* hs = xs + kRows * E;         // (kRows, H)
+  float* hs = smem;                   // (kRows, H)
   float* gs = hs + kRows * H;         // (kRows, 4H): dgates of the step
   float* dhs = gs + kRows * G;        // (kRows, H): dh_rec
   const int d = blockIdx.y, r0 = blockIdx.x * kRows;
   const int rg = threadIdx.x / (H / 2), ug = threadIdx.x % (H / 2);
-  const float* wi = kProj ? w_ih + static_cast<size_t>(d) * E * G : nullptr;
   const float* wh = w_hh + static_cast<size_t>(d) * H * G;
   const float* wht = w_hh_t + static_cast<size_t>(d) * G * H;
-  const float* bd = kProj ? bias + d * G : nullptr;
-  float dc[kRowsPer][2] = {}, dbs[4][2] = {};
+  float dc[kRowsPer][2] = {};
 #pragma unroll
   for (int i = 0; i < kRowsPer; ++i)
     *reinterpret_cast<float2*>(dhs + (rg * kRowsPer + i) * H + 2 * ug) = make_float2(0.f, 0.f);
   for (int t = T - 1; t >= 0; --t) {
-    if constexpr (kProj) load_rows<kRows>(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
     if (t > 0) load_rows<kRows>(hs, h_seq + at(t - 1, d, 0, D, R) * H, r0, R, H);
-    __syncthreads();  // x[t], h[t-1] in; the previous step's gs reads done
+    __syncthreads();  // h[t-1] in; the previous step's gs reads done
     float acc[kRowsPer][4][2];
-    gates_tile<kProj>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
-                      H, rg, ug, R - r0, t > 0);
+    gates_tile<false>(acc, nullptr, hs, gates_x + at(t, d, r0, D, R) * G, nullptr, nullptr, wh,
+                      0, H, rg, ug, R - r0, t > 0);
 #pragma unroll
     for (int i = 0; i < kRowsPer; ++i) {
       const int row = rg * kRowsPer + i;
@@ -343,13 +358,11 @@ lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
       for (int g = 0; g < 4; ++g) {
         const float2 v = make_float2(dgt[g][0], dgt[g][1]);
         *reinterpret_cast<float2*>(gs + row * G + g * H + 2 * ug) = v;
-        dbs[g][0] += v.x;
-        dbs[g][1] += v.y;
         if (live)
           *reinterpret_cast<float2*>(dgates + at(t, d, r0 + row, D, R) * G + g * H + 2 * ug) = v;
       }
     }
-    __syncthreads();  // gs whole; xs and hs reads done
+    __syncthreads();  // gs whole; hs reads done
     // dh_rec = dgates w_hh^T for the thread's rows and units, j ascending
     float dh_rec[kRowsPer][2] = {};
     const float* grow = gs + rg * kRowsPer * G;
@@ -371,103 +384,542 @@ lstm_bwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
       *reinterpret_cast<float2*>(dhs + (rg * kRowsPer + i) * H + 2 * ug) =
           make_float2(dh_rec[i][0], dh_rec[i][1]);
   }
-  if constexpr (!kProj) return;
-  // db partial of the tile: the row groups add in a fixed order
-  constexpr int kGroups = kRows / kRowsPer;
-  __syncthreads();
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? kBytes : 0;  // 0: fill the destination with zeros
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+                 "n"(kBytes), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// K4's products and K6's weight gradient: one float32 SIMT GEMM body.
+//
+// A block computes a 128 x 128 tile of C = A B with 256 threads, 8 x 8
+// outputs a thread: warp w owns rows (w / 4) 64 .. + 63 and columns (w % 4)
+// 32 .. + 31 of the tile; lane l rows l / 4 * 4 + {0..3} and 32 + that,
+// columns l % 4 * 4 + {0..3} and 16 + that, so each of a warp's four float4
+// fragment loads a k is one 128-byte (or broadcast 64-byte) wavefront. Both
+// operands are staged as 16-deep k slices, (k, 128) with a padded row, in
+// two stages: while the block multiplies one, the next arrives, by
+// cp.async for an operand whose rows are k (w_ih, w_hh, w_ih^T, and the
+// weight gradient's x, h and dgates), through registers for one stored
+// with k contiguous (the rows of x, h and dgates), which the staging
+// transposes. Every output sums its products over k ascending with fmaf.
+// (3xTF32 mma.sync on the tensor cores for dx and the weight GEMM was
+// timed: a small gain, and weight gradients less accurate than the plain
+// float32 path's; PERF.md.)
+
+constexpr int kGemmThreads = 256;
+constexpr int kGM = 128;              // block tile rows and columns
+constexpr int kGK = 16;               // k slice
+constexpr int kGLd = kGM + 4;         // floats a staged k row
+constexpr int kGSlice = kGK * kGLd;   // floats of one operand's slice
+
+// acc += As (kGK, kGLd) Bs (kGK, kGLd) for the thread's 8 x 8 outputs
+__device__ __forceinline__ void slice_fma(float (&acc)[8][8], const float* As, const float* Bs) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const float* a = As + (w / 4) * 64 + (l / 4) * 4;
+  const float* b = Bs + (w % 4) * 32 + (l % 4) * 4;
 #pragma unroll
-  for (int g = 0; g < 4; ++g)
-    *reinterpret_cast<float2*>(gs + rg * G + g * H + 2 * ug) = make_float2(dbs[g][0], dbs[g][1]);
-  __syncthreads();
-  for (int n = threadIdx.x; n < G; n += blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < kGroups; ++q) s += gs[q * G + n];
-    db_part[(static_cast<size_t>(d) * gridDim.x + blockIdx.x) * G + n] = s;
+  for (int k = 0; k < kGK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + k * kGLd);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + k * kGLd + 32);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + k * kGLd);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + k * kGLd + 16);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-// K4, dx = dgates w_ih^T: rows m = t R + r of direction d.
-// grid (cdiv(T R, kBM), cdiv(E, kBN), D)
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_dx(const float* __restrict__ dgates, const float* __restrict__ w_ih,
-            float* __restrict__ dx, int T, int D, int R, int E, int H) {
-  const int d = blockIdx.z, m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int M = T * R, G = 4 * H;
-  const float* wi = w_ih + static_cast<size_t>(d) * E * G;
-  float acc[4][4] = {};
-  gemm_tile<true, true>(
-      acc, G,
-      [&](int m, int k) {
-        m += m0;
-        if (m >= M || k >= G) return 0.f;
-        return dgates[at(m / R, d, m % R, D, R) * G + k];
-      },
-      [&](int k, int n) {
-        n += n0;
-        return (k < G && n < E) ? wi[static_cast<size_t>(n) * G + k] : 0.f;
-      });
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// the tile row of the thread's output row i < 8, the tile column of its
+// column j < 8 (j = 0 and j = 4 start its two float4 groups)
+__device__ __forceinline__ int frag_row(int i) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  return (w / 4) * 64 + (i / 4) * 32 + (l / 4) * 4 + i % 4;
+}
+__device__ __forceinline__ int frag_col(int j) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  return (w % 4) * 32 + (j / 4) * 16 + (l % 4) * 4 + j % 4;
+}
+
+// The thread's two float4 pieces of a (kGK, 128) slice whose rows are k:
+// piece q is row (tid + 256 q) / 32, columns 4 ((tid + 256 q) % 32) .. + 3;
+// src(k, c) is the source of slice row k, column c, or null for zeros
+// (any: a valid address that is not read).
+template <class Src>
+__device__ __forceinline__ void stage_direct(float* S, Src src, const float* any) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    float* out = dx + at(m / R, d, m % R, D, R) * E;
+  for (int q = 0; q < 2; ++q) {
+    const int i = threadIdx.x + q * kGemmThreads, k = i / 32, c = i % 32 * 4;
+    const float* p = src(k, c);
+    cp_async<16>(S + k * kGLd + c, p ? p : any, p != nullptr);
+  }
+}
+
+// A (128, kGK) slice of 128 rows stored with k contiguous, through
+// registers: the thread stages row tid % 128 at k groups 4 (tid / 128) and
+// 8 + that, loading them before the block multiplies the previous slice
+// and storing them transposed after.
+struct RowStage {
+  float4 v[2];
+
+  // from row (null: zeros) at k0; columns k >= kmax are zeros (kmax % 4 == 0)
+  __device__ __forceinline__ void load(const float* row, int k0, int kmax) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < E) out[n] = acc[i][j];
+    for (int q = 0; q < 2; ++q) {
+      const int k = k0 + (threadIdx.x / kGM) * 4 + 8 * q;
+      v[q] = row && k < kmax ? __ldg(reinterpret_cast<const float4*>(row + k))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* S) const {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float* s = S + ((threadIdx.x / kGM) * 4 + 8 * q) * kGLd + threadIdx.x % kGM;
+      s[0] = v[q].x;
+      s[kGLd] = v[q].y;
+      s[2 * kGLd] = v[q].z;
+      s[3 * kGLd] = v[q].w;
+    }
+  }
+};
+
+// The block's k loop over n slices, two stages in sm (4 kGSlice floats):
+// op.fetch(s, As, Bs) issues slice s's cp.async copies and register loads,
+// op.store(As) writes the registers' part, op.after(s, acc, Bs) runs once
+// slice s is in acc.
+template <class Op>
+__device__ __forceinline__ void gemm_loop(Op& op, float (&acc)[8][8], int n, float* sm) {
+  op.fetch(0, sm, sm + kGSlice);
+  cp_async_commit();
+  op.store(sm);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int s = 0; s < n; ++s) {
+    float* cur = sm + (s & 1) * 2 * kGSlice;
+    float* nxt = sm + ((s + 1) & 1) * 2 * kGSlice;
+    if (s + 1 < n) op.fetch(s + 1, nxt, nxt + kGSlice);
+    cp_async_commit();
+    slice_fma(acc, cur, cur + kGSlice);
+    op.after(s, acc, cur + kGSlice);
+    if (s + 1 < n) op.store(nxt);
+    cp_async_wait<0>();
+    __syncthreads();  // slice s + 1 whole; every thread done with slice s
+  }
+}
+
+// acc's rows into out: the output row of tile row m (null: none), float4
+// column groups at column n0 + frag_col(0) and n0 + frag_col(4), those at
+// or past n_max left out (n_max % 4 == 0)
+template <class RowOf>
+__device__ __forceinline__ void store_tile(const float (&acc)[8][8], RowOf row_of, int n0,
+                                           int n_max) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* out = row_of(frag_row(i));
+    if (!out) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + frag_col(4 * h);
+      if (n < n_max)
+        *reinterpret_cast<float4*>(out + n) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
     }
   }
 }
 
-// K4, weight-gradient partials: part[d][chunk][m][n] = sum over the chunk's
-// pairs p = t R + r of a[p][m] dgates[p][n], a = [x[t] | h[t-1]] (h[-1] =
-// 0), m < E + H, n < 4H. grid (cdiv(E + H, kBM), cdiv(4H, kBN), D chunks)
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_wgrad(const float* __restrict__ x, const float* __restrict__ h_seq,
-               const float* __restrict__ dgates, float* __restrict__ part, int T, int D, int R,
-               int E, int H, int chunks) {
-  const int d = blockIdx.z / chunks, p0 = (blockIdx.z % chunks) * kWgChunk;
-  const int kc = min(kWgChunk, T * R - p0), M = E + H, G = 4 * H;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  float acc[4][4] = {};
-  gemm_tile<false, false>(
-      acc, kc,
-      [&](int m, int k) {
-        m += m0;
-        if (m >= M || k >= kc) return 0.f;
-        const int p = p0 + k, t = p / R, r = p % R;
-        if (m < E) return x[at(t, d, r, D, R) * E + m];
-        return t > 0 ? h_seq[at(t - 1, d, r, D, R) * H + (m - E)] : 0.f;
-      },
-      [&](int k, int n) {
-        n += n0;
-        if (n >= G || k >= kc) return 0.f;
-        const int p = p0 + k;
-        return dgates[at(p / R, d, p % R, D, R) * G + n];
-      });
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* out = part + static_cast<size_t>(blockIdx.z) * M * G;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < G) out[static_cast<size_t>(m) * G + n] = acc[i][j];
+// K4's gate pre-activations out of the serial chain: pre[t, d, r] =
+// (x[t, d, r] w_ih[d] + bias[d]) + h[t-1, d, r] w_hh[d] (h[-1] = 0) into
+// pre (T, D, R, 4H), over k ascending: x's slices, the bias, then h's, as
+// gates_tile<true> sums them, so that these are K3's bits.
+struct GatesOp {
+  const float *xrow, *hrow, *wi, *wh, *bias;
+  int E, H, nx;
+  RowStage a;
+
+  __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
+    const int G = 4 * H, n0 = blockIdx.y * kGM;
+    if (s < nx) {
+      const int k0 = s * kGK;
+      a.load(xrow, k0, E);
+      stage_direct(Bs, [&](int k, int c) -> const float* {
+        return k0 + k < E ? wi + static_cast<size_t>(k0 + k) * G + n0 + c : nullptr;
+      }, wi);
+    } else {
+      const int k0 = (s - nx) * kGK;
+      a.load(hrow, k0, H);
+      stage_direct(Bs, [&](int k, int c) -> const float* {
+        return wh + static_cast<size_t>(k0 + k) * G + n0 + c;
+      }, wh);
     }
   }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
+  __device__ __forceinline__ void after(int s, float (&acc)[8][8], const float*) {
+    if (s != nx - 1) return;
+    const int n0 = blockIdx.y * kGM;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float b = bias[n0 + frag_col(j)];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] += b;
+    }
+  }
+};
+
+// grid (cdiv(T R, 128), 4H / 128, D): rows m = t R + r of direction d
+__global__ void __launch_bounds__(kGemmThreads, 2)
+lstm_bwd_gates_gemm(const float* __restrict__ x, const float* __restrict__ w_ih,
+                    const float* __restrict__ bias, const float* __restrict__ w_hh,
+                    const float* __restrict__ h_seq, float* __restrict__ pre, int T, int D, int R,
+                    int E, int H) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int d = blockIdx.z, G = 4 * H, M = T * R, m0 = blockIdx.x * kGM;
+  GatesOp op;
+  op.xrow = op.hrow = nullptr;
+  const int m = m0 + threadIdx.x % kGM;  // the row this thread stages
+  if (m < M) {
+    const int t = m / R, r = m % R;
+    op.xrow = x + at(t, d, r, D, R) * E;
+    if (t > 0) op.hrow = h_seq + at(t - 1, d, r, D, R) * H;
+  }
+  op.wi = w_ih + static_cast<size_t>(d) * E * G;
+  op.wh = w_hh + static_cast<size_t>(d) * H * G;
+  op.bias = bias + d * G;
+  op.E = E;
+  op.H = H;
+  op.nx = cdiv(E, kGK);
+  float acc[8][8] = {};
+  gemm_loop(op, acc, op.nx + H / kGK, sm);
+  store_tile(acc, [&](int i) -> float* {
+    const int mm = m0 + i;
+    return mm < M ? pre + at(mm / R, d, mm % R, D, R) * G : nullptr;
+  }, blockIdx.y * kGM, G);
 }
 
-// out[i] = sum over p < n_part of part[p][i], i < n, in ascending p: each
-// thread owns one i. grid (cdiv(n, kThreads))
+// dx = dgates w_ih^T with w_ih^T (4H, E) stored: its rows are the k slices
+struct DxOp {
+  const float *grow, *wt;
+  int G, E;
+  RowStage a;
+
+  __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
+    const int k0 = s * kGK, n0 = blockIdx.y * kGM;
+    a.load(grow, k0, G);
+    stage_direct(Bs, [&](int k, int c) -> const float* {
+      return n0 + c < E ? wt + static_cast<size_t>(k0 + k) * E + n0 + c : nullptr;
+    }, wt);
+  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+// grid (cdiv(T R, 128), cdiv(E, 128), D)
+__global__ void __launch_bounds__(kGemmThreads, 2)
+lstm_bwd_dx_gemm(const float* __restrict__ dgates, const float* __restrict__ w_ih_t,
+                 float* __restrict__ dx, int T, int D, int R, int E, int H) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int d = blockIdx.z, G = 4 * H, M = T * R, m0 = blockIdx.x * kGM;
+  DxOp op;
+  const int m = m0 + threadIdx.x % kGM;
+  op.grow = m < M ? dgates + at(m / R, d, m % R, D, R) * G : nullptr;
+  op.wt = w_ih_t + static_cast<size_t>(d) * G * E;
+  op.G = G;
+  op.E = E;
+  float acc[8][8] = {};
+  gemm_loop(op, acc, G / kGK, sm);
+  store_tile(acc, [&](int i) -> float* {
+    const int mm = m0 + i;
+    return mm < M ? dx + at(mm / R, d, mm % R, D, R) * E : nullptr;
+  }, blockIdx.y * kGM, E);
+}
+
+// Weight-gradient partials over the pairs p in [p0, p1) of a chunk, p =
+// t R + r: rows m < E + H of a = [x[t] | h[t-1]] (h[-1] = 0) and columns
+// n of dgates[p], k ascending; with kDb the first row tile's threads
+// tid < 128 also sum dgates' column n0 + tid (the row of ones) in the
+// same order.
+template <bool kDb>
+struct WgradOp {
+  const float *x, *h_seq, *dg;
+  int D, R, E, H, d, p0, p1;
+  float db = 0.f;
+
+  __device__ __forceinline__ void fetch(int s, float* As, float* Bs) {
+    const int k0 = p0 + s * kGK, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM, G = 4 * H;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = threadIdx.x + q * kGemmThreads, k = i / 32, c = i % 32 * 4;
+      const int p = k0 + k, m = m0 + c;
+      const float *pa = nullptr, *pb = nullptr;
+      if (p < p1) {
+        const int t = p / R;
+        const size_t row = at(t, d, p % R, D, R);
+        if (m < E)
+          pa = x + row * E + m;
+        else if (m < E + H && t > 0)
+          pa = h_seq + (row - static_cast<size_t>(D) * R) * H + (m - E);
+        pb = dg + row * G + n0 + c;
+      }
+      cp_async<16>(As + k * kGLd + c, pa ? pa : dg, pa != nullptr);
+      cp_async<16>(Bs + k * kGLd + c, pb ? pb : dg, pb != nullptr);
+    }
+  }
+  __device__ __forceinline__ void store(float*) {}
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float* Bs) {
+    if constexpr (kDb) {
+      if (blockIdx.x != 0 || threadIdx.x >= kGM) return;
+#pragma unroll
+      for (int k = 0; k < kGK; ++k) db += Bs[k * kGLd + threadIdx.x];
+    }
+  }
+};
+
+// part[d][c] (E + H + kDb, 4H) of chunk c of `chunk` pairs; grid
+// (cdiv(E + H, 128), 4H / 128, D chunks). x is not read when E = 0 (K6).
+template <bool kDb>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+lstm_bwd_wgrad_gemm(const float* __restrict__ x, const float* __restrict__ h_seq,
+                    const float* __restrict__ dgates, float* __restrict__ part, int T, int D,
+                    int R, int E, int H, int chunks, int chunk) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int G = 4 * H, rows = E + H + (kDb ? 1 : 0);
+  WgradOp<kDb> op;
+  op.x = x;
+  op.h_seq = h_seq;
+  op.dg = dgates;
+  op.D = D;
+  op.R = R;
+  op.E = E;
+  op.H = H;
+  op.d = blockIdx.z / chunks;
+  op.p0 = (blockIdx.z % chunks) * chunk;
+  op.p1 = min(op.p0 + chunk, T * R);
+  float acc[8][8] = {};
+  gemm_loop(op, acc, cdiv(op.p1 - op.p0, kGK), sm);
+  float* out = part + static_cast<size_t>(blockIdx.z) * rows * G;
+  const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
+  store_tile(acc, [&](int i) -> float* {
+    return m0 + i < E + H ? out + static_cast<size_t>(m0 + i) * G : nullptr;
+  }, n0, G);
+  if (kDb && blockIdx.x == 0 && threadIdx.x < kGM)
+    out[static_cast<size_t>(E + H) * G + n0 + threadIdx.x] = op.db;
+}
+
+// out[d][i] = sum over c < n_part of part[d][c][i] in ascending c, i < n,
+// stride floats from one partial to the next (part[d] starts n_part
+// strides after part[d - 1]); each thread owns one i. grid (cdiv(n,
+// kThreads), D)
 __global__ void __launch_bounds__(kThreads)
-sum_partials(const float* __restrict__ part, int n_part, int n, float* __restrict__ out) {
+sum_partials(const float* __restrict__ part, int n_part, size_t stride, int n,
+             float* __restrict__ out, size_t out_stride) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
+  const float* p = part + static_cast<size_t>(blockIdx.y) * n_part * stride + i;
   float s = 0.f;
-  for (int p = 0; p < n_part; ++p) s += part[static_cast<size_t>(p) * n + i];
-  out[i] = s;
+  for (int c = 0; c < n_part; ++c) s += p[static_cast<size_t>(c) * stride];
+  out[blockIdx.y * out_stride + i] = s;
+}
+
+// ---------------------------------------------------------------------------
+// K4's reverse scan over the gate pre-activations
+
+// The scan's ring: kRing chunks of w_hh^T rows, 64 KB in all: chunks of
+// 32 rows at H <= 128 (half the block barriers a step of 16-row chunks),
+// of 16 above
+constexpr int kRing = 4;
+__host__ __device__ constexpr int chunk_rows(int H) { return H <= 128 ? 32 : 16; }
+
+// shared memory (floats) of the scan at a tile of `rows` rows: dgates of a
+// step, transposed (4H, rows + 4), and the ring (kRing, chunk_rows(H), H)
+size_t rscan_floats(int rows, int H) {
+  return static_cast<size_t>(4) * H * (rows + 4) +
+         static_cast<size_t>(kRing) * chunk_rows(H) * H;
+}
+
+template <int n>
+__device__ __forceinline__ void load_vec(float (&v)[n], const float* p) {
+  if constexpr (n == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  }
+}
+
+template <int n>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[n]) {
+  if constexpr (n == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+__device__ __forceinline__ float lane(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The thread's row group ry and unit group ux, tx = H / 8 unit groups: a
+// warp's lanes are 4 row groups x 8 unit groups where tx is a multiple of
+// 8 (so that its w_hh^T loads are one 128-byte wavefront and its dgates^T
+// loads 4 addresses), else unit groups fastest.
+__device__ __forceinline__ void scan_owner(int tx, int& ry, int& ux) {
+  if (tx % 8 == 0) {
+    const int w = threadIdx.x / 32, l = threadIdx.x % 32, wx = tx / 8;
+    ux = (w % wx) * 8 + l % 8;
+    ry = (w / wx) * 4 + l / 8;
+  } else {
+    ux = threadIdx.x % tx;
+    ry = threadIdx.x / tx;
+  }
+}
+
+// g: the gates (T, D, R, 4H) in, dgates out, in place. grid (cdiv(R,
+// kRows), D), (kRows / kRt) (H / 8) threads, rscan_floats(kRows, H) floats
+// of dynamic shared memory. Thread (ry, ux) owns rows ry kRt .. + kRt - 1
+// of the tile and units ux 4 .. + 3 and H / 2 + that, in the step's
+// elementwise phase and as its outputs of dh_rec = dgates w_hh^T (k
+// ascending over the 4H columns), so dc and dh_rec stay in its registers.
+// The product streams w_hh^T from L2 every step (256 KB a direction at
+// H = 128), three chunks ahead.
+template <int kRows, int kRt>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+lstm_bwd_rscan(float* __restrict__ g, const float* __restrict__ w_hh_t,
+               const float* __restrict__ c_seq, const float* __restrict__ dh_seq, int T, int D,
+               int R, int H) {
+  constexpr int ld = kRows + 4;
+  // the instantiations: (64, 4) and (32, 2) at H <= 128, (32, 4) above
+  constexpr int kChunk = kRows == 64 || kRt == 2 ? chunk_rows(128) : chunk_rows(256);
+  extern __shared__ float smem[];
+  const int G = 4 * H, half = H / 2, tx = H / 8;
+  float* dgs = smem;                                 // (4H, ld): dgates[t]^T
+  float* ring = smem + static_cast<size_t>(G) * ld;  // (kRing, kChunk, H)
+  const int d = blockIdx.y, r0 = blockIdx.x * kRows;
+  int ry, ux;
+  scan_owner(tx, ry, ux);
+  const float* wt = w_hh_t + static_cast<size_t>(d) * G * H;
+  const int per_step = G / kChunk, total = (T - 1) * per_step;
+  // chunk s of the product's sequence (step T - 1 - s / per_step, rows
+  // s % per_step of w_hh^T) into its ring slot; one commit group each
+  auto issue = [&](int s) {
+    if (s < total) {
+      const float* src = wt + static_cast<size_t>(s % per_step) * kChunk * H;
+      float* dst = ring + (s % kRing) * kChunk * H;
+      for (int i = threadIdx.x; i < kChunk * H / 4; i += blockDim.x)
+        cp_async<16>(dst + 4 * i, src + 4 * i, true);
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < kRing - 1; ++s) issue(s);
+  float dc[kRt][8], rec[kRt][8];
+#pragma unroll
+  for (int i = 0; i < kRt; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dc[i][j] = rec[i][j] = 0.f;
+  int s = 0;  // chunks consumed
+  for (int t = T - 1; t >= 0; --t) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int u = q * half + ux * 4;
+      float dg[4][4][kRt];  // [gate][unit][row]
+#pragma unroll
+      for (int i = 0; i < kRt; ++i) {
+        const int row = r0 + ry * kRt + i;
+        const bool live = row < R;
+        const size_t o = live ? at(t, d, row, D, R) : 0;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 pre[4], ct = zero, cp = zero, dhv = zero;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) pre[k] = zero;
+        if (live) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            pre[k] = *reinterpret_cast<const float4*>(g + o * G + k * H + u);
+          ct = __ldg(reinterpret_cast<const float4*>(c_seq + o * H + u));
+          dhv = __ldg(reinterpret_cast<const float4*>(dh_seq + o * H + u));
+          if (t > 0)
+            cp = __ldg(reinterpret_cast<const float4*>(
+                c_seq + (o - static_cast<size_t>(D) * R) * H + u));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float ig = sigm(lane(pre[0], j)), fg = sigm(lane(pre[1], j));
+          const float gg = tanhf(lane(pre[2], j)), og = sigm(lane(pre[3], j));
+          const float tc = tanhf(lane(ct, j));
+          const float dh = lane(dhv, j) + rec[i][4 * q + j];
+          const float dcc = dh * og * (1.f - tc * tc) + dc[i][4 * q + j];
+          dg[0][j][i] = live ? dcc * gg * ig * (1.f - ig) : 0.f;
+          dg[1][j][i] = live ? dcc * lane(cp, j) * fg * (1.f - fg) : 0.f;
+          dg[2][j][i] = live ? dcc * ig * (1.f - gg * gg) : 0.f;
+          dg[3][j][i] = live ? dh * tc * og * (1.f - og) : 0.f;
+          dc[i][4 * q + j] = dcc * fg;
+        }
+        if (live)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            *reinterpret_cast<float4*>(g + o * G + k * H + u) =
+                make_float4(dg[k][0][i], dg[k][1][i], dg[k][2][i], dg[k][3][i]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          store_vec<kRt>(dgs + static_cast<size_t>(k * H + u + j) * ld + ry * kRt, dg[k][j]);
+    }
+    if (t == 0) break;
+    // dh_rec of step t - 1: dgates[t] w_hh^T, chunk by chunk of w_hh^T rows
+    float acc[kRt][8];
+#pragma unroll
+    for (int i = 0; i < kRt; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < per_step; ++c, ++s) {
+      cp_async_wait<kRing - 2>();
+      __syncthreads();  // chunk s in; dgs whole; every thread done with chunk s - 1
+      issue(s + kRing - 1);
+      const float* w = ring + (s % kRing) * kChunk * H + ux * 4;
+      const float* a = dgs + static_cast<size_t>(c) * kChunk * ld + ry * kRt;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        float av[kRt];
+        load_vec<kRt>(av, a + k * ld);
+        const float4 b0 = *reinterpret_cast<const float4*>(w + k * H);
+        const float4 b1 = *reinterpret_cast<const float4*>(w + k * H + half);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < kRt; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();  // every thread done reading dgs before the next step writes it
+#pragma unroll
+    for (int i = 0; i < kRt; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) rec[i][j] = acc[i][j];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -491,28 +943,6 @@ size_t cluster_bwd_floats(int H) {
   // w_hh slice, h[t-1], gates_x, c[t], c[t-1], dh, dgates, 2 x N dh_rec slots
   return 4 * U * ld + rows * ld + rows * 4 * U + 3 * rows * U + rows * 4 * U +
          2 * static_cast<size_t>(kClusterBlocks) * rows * U;
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? kBytes : 0;  // 0: fill the destination with zeros
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
-                 "n"(kBytes), "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // The cluster barrier, every thread of every block of the cluster: what
@@ -866,16 +1296,51 @@ bool cluster_fits(int H) {
 bool hidden_ok(int H, int most) { return H >= 32 && H % 32 == 0 && H <= most; }
 bool shape_ok(int E, int H) { return E > 0 && E % 4 == 0 && hidden_ok(H, kMaxHiddenWide); }
 
-// Workspace layout (float offsets), shared by lstm_bwd_workspace and
-// lstm_bwd, and with E = 0 by lstm_scan_bwd_workspace and lstm_scan_bwd
-// (whose dgates is its output and which has no db: only wg_part is used).
-struct Layout {
-  size_t dgates, db_part, wg_part, total;
-  int tiles, chunks;
+// K4's launch plan. The reverse scan takes 64-row tiles (4 rows x 8 units
+// a thread) where H <= 128 and they give each of the H100's 132 SMs a
+// block, else 32-row tiles (2 rows a thread at H <= 128, 4 above); one
+// block an SM. The weight GEMM cuts the T R pairs into the fewest chunks
+// that give its tiles about 4 x 132 blocks, each chunk at least 1024 pairs
+// and a multiple of the k slice. ops/lstm_scan.py ``bwd_plan`` mirrors
+// this.
+constexpr int kSMs = 132;          // SMs of the H100 SXM
+constexpr int kWgBlocks = 4 * kSMs;
+constexpr int kWgMinChunk = 1024;
 
-  Layout(int T, int D, int R, int E, int H, int rows) {
+struct WgSplit {
+  int chunks, chunk;
+
+  WgSplit(int pairs, int tiles) {
+    chunks = std::max(1, std::min(cdiv(kWgBlocks, tiles), cdiv(pairs, kWgMinChunk)));
+    chunk = cdiv(cdiv(pairs, chunks), kGK) * kGK;
+    chunks = cdiv(pairs, chunk);
+  }
+};
+
+// the weight GEMM's row and column tiles over the rows of [x | h] and 4H
+int wgrad_tiles(int E, int H, int D) { return cdiv(E + H, kGM) * (4 * H / kGM) * D; }
+
+struct BwdPlan {
+  int rows, rt, threads, tiles, smem;
+  WgSplit wg;
+
+  BwdPlan(int T, int D, int R, int E, int H) : wg(T * R, wgrad_tiles(E, H, D)) {
+    rows = H <= 128 && D * cdiv(R, 64) >= kSMs ? 64 : 32;
+    rt = rows == 64 || H > 128 ? 4 : 2;
+    threads = rows / rt * (H / 8);
     tiles = cdiv(R, rows);
-    chunks = cdiv(T * R, kWgChunk);
+    smem = static_cast<int>(sizeof(float) * rscan_floats(rows, H));
+  }
+};
+
+// Workspace layout (float offsets): K4's (lstm_bwd_workspace, lstm_bwd) holds
+// the gates, then dgates, and the weight partials with db's row; K6's
+// (lstm_scan_bwd_workspace, lstm_scan_bwd, E = 0, whose dgates is its
+// output) the dW_hh partials only.
+struct Layout {
+  size_t dgates, wg_part, total;
+
+  Layout(int T, int D, int R, int E, int H, const WgSplit& wg) {
     const size_t G = 4 * static_cast<size_t>(H);
     size_t off = 0;
     auto take = [&](size_t n) {
@@ -885,8 +1350,7 @@ struct Layout {
     };
     const bool proj = E > 0;
     dgates = take(proj ? static_cast<size_t>(T) * D * R * G : 0);
-    db_part = take(proj ? static_cast<size_t>(D) * tiles * G : 0);
-    wg_part = take(static_cast<size_t>(D) * chunks * (E + H) * G);
+    wg_part = take(static_cast<size_t>(D) * wg.chunks * (E + H + (proj ? 1 : 0)) * G);
     total = off;
   }
 };
@@ -897,44 +1361,99 @@ int set_smem(const void* kernel, size_t bytes) {
                            static_cast<int>(bytes)));
 }
 
-size_t fwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + H); }
-size_t bwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + 6 * H); }
+int last_error() { return static_cast<int>(cudaGetLastError()); }
 
-// K5 for 256 < H <= 512 on 16-row tiles (H threads a block)
+size_t fwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + H); }
+size_t bwd_smem(int rows, int H) { return sizeof(float) * rows * 6 * H; }
+
+// the rows of a K5/K6 tile for 256 < H <= 1024: 16 up to 512, else 8
+int tile_rows(int H) { return H <= kMaxHiddenMid ? 16 : 8; }
+
+// K5 for 256 < H <= 1024 on kRows-row tiles (kRows / 8 x H / 2 threads)
+template <int kRows>
 int scan_fwd_tiles(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
                    int D, int R, int H, cudaStream_t s) {
-  const size_t smem = fwd_smem(16, 0, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false, 16>), smem);
+  const size_t smem = fwd_smem(kRows, 0, H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false, kRows>), smem);
   if (err) return err;
-  lstm_fwd_scan<false, 16><<<dim3(cdiv(R, 16), D), H, smem, s>>>(
+  lstm_fwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), kRows / 8 * H / 2, smem, s>>>(
       gates_x, nullptr, nullptr, w_hh, h_seq, c_seq, T, D, R, 0, H);
-  return static_cast<int>(cudaGetLastError());
+  return last_error();
 }
 
-// K6's recurrence for 256 < H <= 512 on 16-row tiles
+// K6's recurrence for 256 < H <= 1024 on kRows-row tiles
+template <int kRows>
 int scan_bwd_tiles(const float* gates_x, const float* w_hh, const float* w_hh_t,
                    const float* h_seq, const float* c_seq, const float* dh_seq, float* dgates,
                    int T, int D, int R, int H, cudaStream_t s) {
-  const size_t smem = bwd_smem(16, 0, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<false, 16>), smem);
+  const size_t smem = bwd_smem(kRows, H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<kRows>), smem);
   if (err) return err;
-  lstm_bwd_scan<false, 16><<<dim3(cdiv(R, 16), D), H, smem, s>>>(
-      gates_x, nullptr, nullptr, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, nullptr, T, D, R, 0,
-      H);
-  return static_cast<int>(cudaGetLastError());
+  lstm_bwd_scan<kRows><<<dim3(cdiv(R, kRows), D), kRows / 8 * H / 2, smem, s>>>(
+      gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H);
+  return last_error();
+}
+
+// K4's reverse scan on the plan's tile
+template <int kRows, int kRt>
+int rscan(const BwdPlan& P, float* g, const float* w_hh_t, const float* c_seq,
+          const float* dh_seq, int T, int D, int R, int H, cudaStream_t s) {
+  const int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_rscan<kRows, kRt>), P.smem);
+  if (err) return err;
+  lstm_bwd_rscan<kRows, kRt><<<dim3(P.tiles, D), P.threads, P.smem, s>>>(g, w_hh_t, c_seq,
+                                                                        dh_seq, T, D, R, H);
+  return last_error();
+}
+
+int launch_rscan(const BwdPlan& P, float* g, const float* w_hh_t, const float* c_seq,
+                 const float* dh_seq, int T, int D, int R, int H, cudaStream_t s) {
+  if (P.rows == 64) return rscan<64, 4>(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s);
+  if (P.rt == 2) return rscan<32, 2>(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s);
+  return rscan<32, 4>(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s);
+}
+
+// dW (and, with kDb, db) from dgates by the weight GEMM and its sums: dw
+// (D, E + H, 4H), db (D, 4H)
+template <bool kDb>
+int weight_grads(const float* x, const float* h_seq, const float* dgates, float* part,
+                 float* dw, float* db, const WgSplit& wg, int T, int D, int R, int E, int H,
+                 cudaStream_t s) {
+  const int G = 4 * H, n_w = (E + H) * G;
+  const size_t stride = static_cast<size_t>(E + H + (kDb ? 1 : 0)) * G;
+  lstm_bwd_wgrad_gemm<kDb><<<dim3(cdiv(E + H, kGM), G / kGM, D * wg.chunks), kGemmThreads, 0,
+                             s>>>(x, h_seq, dgates, part, T, D, R, E, H, wg.chunks, wg.chunk);
+  int err = last_error();
+  if (err) return err;
+  sum_partials<<<dim3(cdiv(n_w, kThreads), D), kThreads, 0, s>>>(part, wg.chunks, stride, n_w,
+                                                                  dw, n_w);
+  if ((err = last_error()) || !kDb) return err;
+  sum_partials<<<dim3(cdiv(G, kThreads), D), kThreads, 0, s>>>(part + n_w, wg.chunks, stride, G,
+                                                                db, G);
+  return last_error();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of the two scan kernels, in bytes (the wrapper checks it
-// against the card's limit).
+// Shared memory of K3's scan, in bytes (the wrapper checks it against the
+// card's limit).
 size_t lstm_fwd_smem(int E, int H) { return fwd_smem(32, E, H); }
-size_t lstm_bwd_smem(int E, int H) { return bwd_smem(32, E, H); }
+
+// K4's plan at a shape: info[0..6] = the scan's tile rows, rows a thread,
+// threads a block, tiles a direction and shared memory a block (bytes),
+// the weight GEMM's chunks a direction and pairs a chunk. Returns
+// cudaErrorInvalidValue for a shape K4 does not take, else 0.
+int lstm_bwd_plan(int T, int D, int R, int E, int H, int* info) {
+  if (!shape_ok(E, H) || T < 1 || D < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdPlan P(T, D, R, E, H);
+  const int out[7] = {P.rows, P.rt, P.threads, P.tiles, P.smem, P.wg.chunks, P.wg.chunk};
+  for (int i = 0; i < 7; ++i) info[i] = out[i];
+  return 0;
+}
 
 size_t lstm_bwd_workspace(int T, int D, int R, int E, int H) {
-  return Layout(T, D, R, E, H, 32).total;
+  return Layout(T, D, R, E, H, WgSplit(T * R, wgrad_tiles(E, H, D))).total;
 }
 
 // K3: h_seq and c_seq (T, D, R, H) from x (T, D, R, E). Returns a CUDA
@@ -951,40 +1470,28 @@ int lstm_fwd(const float* x, const float* w_ih, const float* bias, const float* 
 }
 
 // K4: dx (T, D, R, E), dw = [dW_ih; dW_hh] (D, E + H, 4H) and db (D, 4H)
-// from the forward's inputs, its h and c, and dh; work holds
+// from the forward's inputs (w_ih and its transpose w_ih_t (D, 4H, E),
+// w_hh and w_hh_t (D, 4H, H)), its h and c, and dh; work holds
 // lstm_bwd_workspace floats. Every output is written whole. Returns the
 // first launch's CUDA error code, or 0.
-int lstm_bwd(const float* x, const float* w_ih, const float* bias, const float* w_hh,
-             const float* w_hh_t, const float* h_seq, const float* c_seq, const float* dh_seq,
-             float* dx, float* dw, float* db, float* work, int T, int D, int R, int E, int H,
-             void* stream) {
+int lstm_bwd(const float* x, const float* w_ih, const float* w_ih_t, const float* bias,
+             const float* w_hh, const float* w_hh_t, const float* h_seq, const float* c_seq,
+             const float* dh_seq, float* dx, float* dw, float* db, float* work, int T, int D,
+             int R, int E, int H, void* stream) {
   if (!shape_ok(E, H)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout L(T, D, R, E, H, 32);
-  const int G = 4 * H;
-  const size_t smem = lstm_bwd_smem(E, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<true, 32>), smem);
-  if (err) return err;
-  lstm_bwd_scan<true, 32><<<dim3(L.tiles, D), 2 * H, smem, s>>>(
-      x, w_ih, bias, w_hh, w_hh_t, h_seq, c_seq, dh_seq, work + L.dgates, work + L.db_part, T, D,
-      R, E, H);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  lstm_bwd_dx<<<dim3(cdiv(T * R, kBM), cdiv(E, kBN), D), kThreads, 0, s>>>(
-      work + L.dgates, w_ih, dx, T, D, R, E, H);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  lstm_bwd_wgrad<<<dim3(cdiv(E + H, kBM), cdiv(G, kBN), D * L.chunks), kThreads, 0, s>>>(
-      x, h_seq, work + L.dgates, work + L.wg_part, T, D, R, E, H, L.chunks);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  for (int d = 0; d < D; ++d) {
-    const size_t n_w = static_cast<size_t>(E + H) * G;
-    sum_partials<<<cdiv(static_cast<int>(n_w), kThreads), kThreads, 0, s>>>(
-        work + L.wg_part + d * L.chunks * n_w, L.chunks, static_cast<int>(n_w), dw + d * n_w);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-    sum_partials<<<cdiv(G, kThreads), kThreads, 0, s>>>(
-        work + L.db_part + static_cast<size_t>(d) * L.tiles * G, L.tiles, G, db + d * G);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  }
-  return 0;
+  const BwdPlan P(T, D, R, E, H);
+  const Layout L(T, D, R, E, H, P.wg);
+  const int G = 4 * H, m_tiles = cdiv(T * R, kGM);
+  float* g = work + L.dgates;
+  lstm_bwd_gates_gemm<<<dim3(m_tiles, G / kGM, D), kGemmThreads, 0, s>>>(x, w_ih, bias, w_hh,
+                                                                         h_seq, g, T, D, R, E, H);
+  int err = last_error();
+  if (err || (err = launch_rscan(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s))) return err;
+  lstm_bwd_dx_gemm<<<dim3(m_tiles, cdiv(E, kGM), D), kGemmThreads, 0, s>>>(g, w_ih_t, dx, T, D,
+                                                                           R, E, H);
+  if ((err = last_error())) return err;
+  return weight_grads<true>(x, h_seq, g, work + L.wg_part, dw, db, P.wg, T, D, R, E, H, s);
 }
 
 // The cluster of K5/K6 at hidden size H <= 256: info[0..5] = blocks a
@@ -1013,19 +1520,26 @@ int lstm_scan_cluster_info(int H, int* info) {
       &info[5], reinterpret_cast<const void*>(cluster_bwd_kernel(rpt)), &lb.cfg));
 }
 
-// the workspace's db tiles are unused without the projection: any row count
 size_t lstm_scan_bwd_workspace(int T, int D, int R, int H) {
-  return Layout(T, D, R, 0, H, kClusterRows).total;
+  return Layout(T, D, R, 0, H, WgSplit(T * R, wgrad_tiles(0, H, D))).total;
+}
+
+// K6's shared memory a block at 256 < H <= 1024 (its tile's rows x 6H
+// floats), in bytes; 0 for another H
+size_t lstm_scan_tile_smem(int H) {
+  return H > kMaxHiddenWide && hidden_ok(H, kMaxHidden) ? bwd_smem(tile_rows(H), H) : 0;
 }
 
 // K5: h_seq and c_seq (T, D, R, H) from gates_x (T, D, R, 4H) and w_hh
-// (D, H, 4H); H <= 256 on clusters, above on 16-row tiles. Returns a CUDA
-// error code, or 0.
+// (D, H, 4H); H <= 256 on clusters, above on 16-row tiles up to 512 and
+// 8-row tiles up to 1024. Returns a CUDA error code, or 0.
 int lstm_scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
                   int D, int R, int H, void* stream) {
   if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H > kMaxHiddenWide) return scan_fwd_tiles(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
+  if (H > kMaxHiddenWide)
+    return tile_rows(H) == 16 ? scan_fwd_tiles<16>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s)
+                              : scan_fwd_tiles<8>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
   if (!cluster_fits(H)) return static_cast<int>(cudaErrorInvalidValue);
   const ClusterFwd kernel = cluster_fwd_kernel(gate_rows(H / kClusterBlocks));
   const ClusterLaunch l(reinterpret_cast<const void*>(kernel), cdiv(R, kClusterRows), D,
@@ -1044,12 +1558,15 @@ int lstm_scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t,
                   float* dw_hh, float* work, int T, int D, int R, int H, void* stream) {
   if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout L(T, D, R, 0, H, kClusterRows);
-  const int G = 4 * H;
+  const WgSplit wg(T * R, wgrad_tiles(0, H, D));
+  const Layout L(T, D, R, 0, H, wg);
   int err = 0;
   if (H > kMaxHiddenWide) {
     if (!w_hh_t) return static_cast<int>(cudaErrorInvalidValue);
-    err = scan_bwd_tiles(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s);
+    err = tile_rows(H) == 16 ? scan_bwd_tiles<16>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq,
+                                                  dgates, T, D, R, H, s)
+                             : scan_bwd_tiles<8>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq,
+                                                 dgates, T, D, R, H, s);
   } else {
     if (!cluster_fits(H)) return static_cast<int>(cudaErrorInvalidValue);
     const ClusterBwd kernel = cluster_bwd_kernel(gate_rows(H / kClusterBlocks));
@@ -1060,16 +1577,8 @@ int lstm_scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t,
                                                       c_seq, dh_seq, dgates, T, D, R, H));
   }
   if (err) return err;
-  lstm_bwd_wgrad<<<dim3(cdiv(H, kBM), cdiv(G, kBN), D * L.chunks), kThreads, 0, s>>>(
-      nullptr, h_seq, dgates, work + L.wg_part, T, D, R, 0, H, L.chunks);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  const size_t n_w = static_cast<size_t>(H) * G;
-  for (int d = 0; d < D; ++d) {
-    sum_partials<<<cdiv(static_cast<int>(n_w), kThreads), kThreads, 0, s>>>(
-        work + L.wg_part + d * L.chunks * n_w, L.chunks, static_cast<int>(n_w), dw_hh + d * n_w);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  }
-  return 0;
+  return weight_grads<false>(nullptr, h_seq, dgates, work + L.wg_part, dw_hh, nullptr, wg, T, D,
+                             R, 0, H, s);
 }
 
 }  // extern "C"

@@ -50,11 +50,12 @@ SIGNATURES = {
     'tcn_bwd_workspace': (ctypes.c_size_t, [_I] * 6),
     'tcn_block_bwd': (_I, [ctypes.POINTER(TcnBwdArgs), _P]),
     'lstm_fwd_smem': (ctypes.c_size_t, [_I, _I]),
-    'lstm_bwd_smem': (ctypes.c_size_t, [_I, _I]),
+    'lstm_bwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
     'lstm_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    'lstm_bwd': (_I, [_P] * 12 + [_I] * 5 + [_P]),
+    'lstm_bwd': (_I, [_P] * 13 + [_I] * 5 + [_P]),
     'lstm_scan_bwd_workspace': (ctypes.c_size_t, [_I] * 4),
+    'lstm_scan_tile_smem': (ctypes.c_size_t, [_I]),
     'lstm_scan_cluster_info': (_I, [_I, ctypes.POINTER(_I)]),
     'lstm_scan_fwd': (_I, [_P] * 4 + [_I] * 4 + [_P]),
     'lstm_scan_bwd': (_I, [_P] * 9 + [_I] * 4 + [_P]),

@@ -20,7 +20,13 @@ forward saves x, h and c (as ``_fused_x_fwd`` does) and whose backward
 returns dx, dW_ih, db and dW_hh; otherwise (serving) it is the forward
 alone. A tensor on the CPU takes the plain versions; a CUDA tensor
 launches the kernels (``csrc/lstm_scan.cu``: K3, the forward, replaces
-``_fwd_x_kernel``; K4, the backward, ``_bwd_x_kernel``) or raises.
+``_fwd_x_kernel``; K4, the backward, ``_bwd_x_kernel``) or raises. K4 is
+five launches: the gates of every step as one GEMM (the saved h makes them
+independent of the scan), the reverse scan that forms dgates and dh_rec =
+dgates w_hh^T, the dx GEMM, the weight GEMM over fixed-order chunks of the
+(t, r) pairs (db as its row of ones), and the chunks' sums; its tiles and
+chunks are :func:`bwd_plan`'s, checked against the library's before a
+shape's first launch.
 
 The plain versions: :func:`lstm_scan_x_reference`, a time loop in the JAX
 package's order of operations (``rnn._lstm_scan_impl`` after the einsum
@@ -31,8 +37,8 @@ gate-sized tensors a step, more than the card holds for TF-GridNet at
 16 x 4 s. :func:`lstm_scan_x_plain` is the whole plain path, with that
 backward, on any device.
 
-The kernels take every shape the JAX package's scans run, up to H = 512
-(``_check_hidden``; K3/K4 up to 256, K5/K6 up to 512):
+The kernels take every shape the JAX package's scans run, up to H = 1024
+(``_check_hidden``; K3/K4 up to 256, K5/K6 up to 1024):
 
 * a hidden size off the kernels' grid of multiples of 32 is zero-padded
   up to it by :func:`pad_hidden` in :func:`lstm_scan_x` and
@@ -51,8 +57,8 @@ K5/K6 run up to H = 256 on a thread-block cluster of :data:`CLUSTER_BLOCKS`
 blocks per 32-row tile and direction, each block holding its slice of
 ``w_hh`` in shared memory (:func:`cluster_smem`, checked against the
 library's own figure and the card's cluster occupancy before a shape's first
-launch); above 256 they scan 16-row tiles with ``w_hh`` read through the
-caches.
+launch); above 256 they scan 16-row tiles (8-row tiles above 512) with
+``w_hh`` read through the caches (:func:`scan_tile_smem`).
 """
 
 import ctypes
@@ -64,12 +70,11 @@ from . import build
 
 #: the kernels' int range: no tensor of a launch may hold this many floats
 _INT_RANGE = 2 ** 31
-#: the largest hidden size the kernels take (K5/K6), the largest K3/K4
-#: take (``kMaxHiddenWide`` of csrc/lstm_scan.cu), and their grid of sizes
-_MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 512, 256, 32
-#: rows of one K3/K4 scan tile, and the floats of shared memory a tile row
-#: takes in K3/K4 (``lstm_fwd_smem`` and ``lstm_bwd_smem``): E + H
-#: forward, E + 6 H backward
+#: the largest hidden size the kernels take (K5/K6, ``kMaxHidden`` of
+#: csrc/lstm_scan.cu), the largest K3/K4 take (``kMaxHiddenWide``), and
+#: their grid of sizes
+_MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 1024, 256, 32
+#: rows of one K3 scan tile
 _TILE_ROWS = 32
 #: shared memory a block may take on the H100 (bytes)
 _MAX_SMEM = 227 * 1024
@@ -78,6 +83,11 @@ _MAX_SMEM = 227 * 1024
 _CLUSTER_ROWS, _CLUSTER_PAD = 32, 4
 #: blocks of a K5/K6 cluster at every H <= 256 (``kClusterBlocks``)
 CLUSTER_BLOCKS = 16
+#: K4's plan (``BwdPlan`` of csrc/lstm_scan.cu): the H100 SXM's SMs, the
+#: weight GEMM's least chunk of (t, r) pairs, the GEMMs' block tile and k
+#: slice, and the chunks of w_hh^T in the reverse scan's ring
+_SMS, _WG_MIN_CHUNK, _GEMM_TILE, _GEMM_SLICE = 132, 1024, 128, 16
+_RING = 4
 
 
 def kernel_hidden(hidden):
@@ -121,14 +131,15 @@ def row_chunks(steps, n_dir, rows, width):
 
 def fused_x_fits(feat, hidden):
     """Whether K3 and K4 (the projection inside the scan) take input width
-    ``feat`` and hidden size ``hidden``: H at most 256, and their shared
-    memory within a block's (the kernels pad E to a multiple of 4); else
-    the projection goes outside and K5/K6 run the scan, which take H up to
-    512 and whose shared memory does not depend on E. The formula is
-    ``lstm_bwd_smem`` of csrc/lstm_scan.cu (K4's, the larger), the one
-    place it is defined: this copy decides the route without building the
-    library, and every launch checks the library's own figure
-    (``_check``)."""
+    ``feat`` and hidden size ``hidden``: the route's rule. H at most 256,
+    and 32 rows x (E + 6H) floats within a block's shared memory (E padded
+    to a multiple of 4): the first K4's scan tile, kept as the rule so that
+    every shape keeps its route; else the projection goes outside and
+    K5/K6 run the scan, which take H up to 1024 and whose shared memory
+    does not depend on E. What the kernels need is less and within it: K3
+    32 (E + H) floats (``lstm_fwd_smem``), K4 a plan whose shared memory
+    does not depend on E (:func:`bwd_plan`); every launch checks the
+    library's own figures (``_check``)."""
     e_pad = feat + (-feat % 4)
     return hidden <= _MAX_HIDDEN_X \
         and 4 * _TILE_ROWS * (e_pad + 6 * hidden) <= _MAX_SMEM
@@ -149,6 +160,48 @@ def cluster_smem(hidden):
     bwd = (4 * units * ld + rows * ld + rows * 4 * units + 3 * rows * units
            + rows * 4 * units + 2 * blocks * rows * units)
     return 4 * fwd, 4 * bwd
+
+
+def scan_tile_smem(hidden):
+    """``(K5's, K6's)`` shared memory a block, in bytes, at 256 < ``hidden``
+    <= 1024, where they scan row tiles (``lstm_scan_tile_smem`` of
+    csrc/lstm_scan.cu for K6): 16 rows up to 512 and 8 above; K5 holds h of
+    the tile, K6 h, dgates and dh_rec (6H floats a row)."""
+    rows = 16 if hidden <= 512 else 8
+    return 4 * rows * hidden, 4 * rows * 6 * hidden
+
+
+def wgrad_split(pairs, tiles):
+    """``(chunks, pairs a chunk)`` of the weight GEMM over ``pairs`` (t, r)
+    pairs at ``tiles`` output tiles (all directions): the fewest chunks
+    that give about 4 x 132 blocks, each at least 1024 pairs, a chunk a
+    multiple of the k slice; the partials are summed in chunk order."""
+    chunks = max(1, min(-(-4 * _SMS // tiles), -(-pairs // _WG_MIN_CHUNK)))
+    chunk = -(-pairs // chunks)
+    chunk = -(-chunk // _GEMM_SLICE) * _GEMM_SLICE
+    return -(-pairs // chunk), chunk
+
+
+def bwd_plan(steps, n_dir, rows, feat, hidden):
+    """K4's plan at ``(T, D, R, E, H)`` (E padded to a multiple of 4), as
+    ``lstm_bwd_plan`` of csrc/lstm_scan.cu gives it: the reverse scan's
+    tile rows (64 where H <= 128 and 64-row tiles give the 132 SMs a block
+    each, else 32), rows a thread (4, or 2 on 32-row tiles at H <= 128),
+    threads a block (8 units a thread), tiles a direction and shared
+    memory a block (dgates of a step, transposed, with 4 floats of padding
+    a column, and the ring of 4 w_hh^T chunks of 32 rows at H <= 128,
+    else 16), and the weight GEMM's chunks and pairs a chunk."""
+    tile = 64 if hidden <= 128 and n_dir * -(-rows // 64) >= _SMS else 32
+    per_thread = 4 if tile == 64 or hidden > 128 else 2
+    ring_rows = _RING * (32 if hidden <= 128 else 16)
+    gemm_tiles = (-(-(feat + hidden) // _GEMM_TILE) * (4 * hidden // _GEMM_TILE)
+                  * n_dir)
+    chunks, chunk = wgrad_split(steps * rows, gemm_tiles)
+    return {'rows': tile, 'rows_a_thread': per_thread,
+            'threads': tile // per_thread * (hidden // 8),
+            'tiles': -(-rows // tile),
+            'smem': 4 * (4 * hidden * (tile + 4) + ring_rows * hidden),
+            'chunks': chunks, 'chunk': chunk}
 
 
 def _cell(gates, c_prev):
@@ -445,9 +498,9 @@ def _tensor(t, name, device, shape, what='lstm_scan_x'):
 
 def _check_hidden(hidden, what, most=_MAX_HIDDEN):
     """Raise unless the kernels take ``hidden``: a multiple of 32 up to
-    ``most`` (512 for K5/K6, 256 for K3/K4)."""
+    ``most`` (1024 for K5/K6, 256 for K3/K4)."""
     if hidden % _HIDDEN_STEP or not _HIDDEN_STEP <= hidden <= most:
-        beyond = ('; a hidden size past 512 is still to be ported '
+        beyond = ('; a hidden size past 1024 is still to be ported '
                   '(ROADMAP.md, Queue 3)' if hidden > _MAX_HIDDEN else '')
         raise NotImplementedError(
             f'{what}: the CUDA kernels take a hidden size that is a '
@@ -474,8 +527,10 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
     _tensor(bias, 'bias', device, (n_dir, 4 * hidden))
     _check_hidden(hidden, 'lstm_scan_x', _MAX_HIDDEN_X)
     e_pad = feat + (-feat % 4)
-    smem = (lib.lstm_bwd_smem if backward else lib.lstm_fwd_smem)(e_pad,
-                                                                 hidden)
+    if backward:
+        smem = plan_info(steps, n_dir, rows, e_pad, hidden)['smem']
+    else:
+        smem = lib.lstm_fwd_smem(e_pad, hidden)
     if smem > _MAX_SMEM:
         raise NotImplementedError(
             f'lstm_scan_x: E={feat} with H={hidden} needs {smem} bytes of '
@@ -484,6 +539,30 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
         raise ValueError(f'lstm_scan_x: {tuple(x_seq.shape)} with H={hidden}'
                          ' passes the kernels\' int range')
     return steps, n_dir, rows, feat, hidden
+
+
+#: K4's plan at each (T, D, R, E, H) checked so far: ``lstm_bwd_plan``'s
+_plans = {}
+
+
+def plan_info(steps, n_dir, rows, feat, hidden):
+    """The library's K4 plan at ``(T, D, R, E, H)`` (E padded to a multiple
+    of 4), keyed as :func:`bwd_plan`'s; raises where it is not the
+    wrapper's mirror."""
+    key = (steps, n_dir, rows, feat, hidden)
+    if key not in _plans:
+        lib = build.load_library()
+        info = (ctypes.c_int * 7)()
+        build.check(lib, lib.lstm_bwd_plan(*key, info),
+                    f'lstm_bwd_plan{key}')
+        out = dict(zip(('rows', 'rows_a_thread', 'threads', 'tiles', 'smem',
+                        'chunks', 'chunk'), info))
+        if out != bwd_plan(*key):
+            raise RuntimeError(f'lstm_scan_x: the library\'s K4 plan at '
+                               f'{key} is {out}, the wrapper\'s '
+                               f'{bwd_plan(*key)}')
+        _plans[key] = out
+    return _plans[key]
 
 
 def _aligned(*tensors):
@@ -535,6 +614,7 @@ def _launch_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
     e_pad = x_seq.shape[-1]
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
+        w_ih_t = w_ih.transpose(1, 2).contiguous()   # (D, 4H, E)
         w_hh_t = w_hh.transpose(1, 2).contiguous()   # (D, 4H, H)
         dx = torch.empty(steps, n_dir, rows, e_pad, **f32)
         dw = torch.empty(n_dir, e_pad + hidden, 4 * hidden, **f32)
@@ -542,8 +622,9 @@ def _launch_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
         work = torch.empty(lib.lstm_bwd_workspace(steps, n_dir, rows, e_pad,
                                                   hidden), **f32)
         build.check(lib, lib.lstm_bwd(
-            x_seq.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
-            w_hh.data_ptr(), w_hh_t.data_ptr(), h_seq.data_ptr(),
+            x_seq.data_ptr(), w_ih.data_ptr(), w_ih_t.data_ptr(),
+            bias.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(),
+            h_seq.data_ptr(),
             c_seq.data_ptr(), dh_seq.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), db.data_ptr(), work.data_ptr(), steps, n_dir,
             rows, e_pad, hidden,
@@ -573,6 +654,13 @@ def _check_scan(gates_x, w_hh):
     if steps * n_dir * rows * 4 * hidden >= _INT_RANGE:
         raise ValueError(f'lstm_scan: {tuple(gates_x.shape)} passes the '
                          'kernels\' int range')
+    if hidden > _MAX_HIDDEN_X:
+        smem = build.load_library().lstm_scan_tile_smem(hidden)
+        if smem != scan_tile_smem(hidden)[1] or smem > _MAX_SMEM:
+            raise RuntimeError(
+                f'lstm_scan: K6\'s shared memory at H={hidden} is {smem} '
+                f'bytes in the library, {scan_tile_smem(hidden)[1]} in the '
+                f'wrapper, against {_MAX_SMEM} a block')
     return steps, n_dir, rows, hidden
 
 

@@ -36,16 +36,19 @@ each print one line, with the seconds since the start:
 9. timings: per-block backward kernel vs plain version, the full train
    step with kernel and with plain blocks, peak memory;
 10. the LSTM kernels (K3 forward, K4 backward) against their plain
-    versions at TF-GridNet's intra and inter shapes and ragged ones, the
-    backward in float64, and twice on the same inputs (bitwise equal);
+    versions at TF-GridNet's intra and inter shapes and ragged ones (H = 32
+    and 256 at R off the tile), the backward in float64, and twice on the
+    same inputs (bitwise equal);
 11. TF-GridNet's enhance on the card against the plain path in float64;
 12. TF-GridNet's full-model gradients (multiresyu) against the plain
     path in float64, beside the plain float32 path's;
 13. TF-GridNet trained through train.main on a WAV dataset written here:
     the loss falls, last.ckpt resumes bitwise, the checkpoint serves;
 14. the HTTP service over that model directory's checkpoint;
-15. timings: K3 and K4 per BLSTM vs plain and cuDNN's LSTM, enhance and
-    the train step with kernel and with plain LSTMs, peak memory;
+15. timings: K3 and K4 per BLSTM vs plain and cuDNN's LSTM, K4's five
+    launches (gates GEMM, reverse scan, dx GEMM, weight GEMM, sums) from a
+    trace and its plan (blocks, shared memory, chunks), enhance and the
+    train step with kernel and with plain LSTMs, peak memory;
 16. the GroupNorm kernels (K7 forward, K8 backward) against their plain
     versions at the U-Net's shapes and ragged ones (odd N, C = 384, B = 1,
     G = C), SiLU, none and ReLU; the backward in float64, twice bitwise;
@@ -107,9 +110,10 @@ each print one line, with the seconds since the start:
     ``STFT(backend='pallas')`` against the cuFFT route;
 34. the LSTM kernels on shapes they refused before: H = 200 at TF-GridNet's
     intra shape (padded to 224) through autograd, an (E, H) past the shared
-    memory routed to the projection and K5, a row count past the int
-    range in row chunks, and H = 640, past K5/K6, raising before any
-    launch;
+    memory routed to the projection and K5, K5/K6 at H = 640 and 1024 (8-row
+    tiles) against the plain path in float64 and twice bitwise, a row
+    count past the int range in row chunks, and H = 1056, past K5/K6,
+    raising before any launch;
 35. the elementwise-rate probe (K10) through ``bench_alu_dtype.bench``:
     the built library's SASS (FFMA in float32, HFMA2.BF16 and no
     conversion in bfloat16), both dtypes on the benchmark's input and a
@@ -606,6 +610,36 @@ GRID_PARAMS = 3_735_344
 LSTM_INTRA = (33, 2, 16 * 504, 128, 128)
 LSTM_INTER = (126, 2, 16 * 132, 128, 128)
 LSTM_NAMES = ('dx', 'dw_ih', 'db', 'dw_hh')
+#: K3/K4 at the ends of K4's hidden sizes, R off the 32-row tile: (T, D, R,
+#: E, H)
+LSTM_EDGE_CASES = [(6, 2, 45, 36, 32), (4, 2, 300, 128, 256)]
+#: K4's launches, by kernel name, in the order they run
+K4_PARTS = (('gates', 'lstm_bwd_gates_gemm'), ('scan', 'lstm_bwd_rscan'),
+            ('dx', 'lstm_bwd_dx_gemm'), ('weights', 'lstm_bwd_wgrad_gemm'),
+            ('sums', 'sum_partials'))
+
+
+def k4_parts(fn, calls=3):
+    """Device ms a call of each of K4's launches (``K4_PARTS``; ``other``:
+    the wrapper's weight transposes), from a ``torch.profiler`` trace of
+    ``calls`` calls of ``fn``."""
+    from brever_tpu_torch.profile_enhance import _device_time
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {part: 0.0 for part, _ in K4_PARTS}
+    parts['other'] = 0.0
+    for name, (us, _) in _device_time(prof)[1].items():
+        part = next((p for p, kernel in K4_PARTS if kernel in name), 'other')
+        parts[part] += us / 1e3 / calls
+    if not all(parts[p] > 0 for p, _ in K4_PARTS):
+        raise AssertionError(f'K4\'s trace misses a launch: {parts}')
+    return parts
 
 
 @contextlib.contextmanager
@@ -685,7 +719,8 @@ def tfgridnet_phases(device, card):
 
     # ---- phase 10: K3 and K4 vs their plain versions on the card
     rng = np.random.RandomState(10)
-    cases = [LSTM_INTRA, LSTM_INTER, (7, 2, 1000, 72, 128), (1, 1, 33, 128, 128)]
+    cases = [LSTM_INTRA, LSTM_INTER, (7, 2, 1000, 72, 128),
+             (1, 1, 33, 128, 128), *LSTM_EDGE_CASES]
     fwd_err, bwd_worst, bwd_err = 0.0, float('inf'), 0.0
     for n, case in enumerate(cases):
         name = 'T={} D={} R={} E={} H={}'.format(*case)
@@ -713,7 +748,8 @@ def tfgridnet_phases(device, card):
     out['k3_err'], out['k4_err'] = fwd_err, bwd_err
     torch.cuda.empty_cache()
     phase(10, f'{len(cases)} scan cases (intra {LSTM_INTRA}, inter '
-          f'{LSTM_INTER}, R=1000 E=72 with unaligned weights, T=1 D=1): '
+          f'{LSTM_INTER}, R=1000 E=72 with unaligned weights, T=1 D=1, '
+          f'H=32 and H=256 at ragged R {[c[2] for c in LSTM_EDGE_CASES]}): '
           f'K3 h and c agree with the plain version (max abs err '
           f'{fwd_err:.3e}); K4 dx, dW_ih, db, '
           f'dW_hh with the plain backward in float64 (worst SNR '
@@ -873,6 +909,8 @@ def tfgridnet_phases(device, card):
                                                        h, c, dh),
                 'plain': lambda: lstm.lstm_scan_x_bwd_plain(
                     x, w_ih, bias, w_hh, h, c, dh)}, 3, 1)[0]
+            parts = k4_parts(lambda: lstm.lstm_scan_x_bwd(
+                x, w_ih, bias, w_hh, h, c, dh))
         # the library's yardstick: cuDNN's LSTM, both directions over the
         # same (T, R, E) input, forward and backward (data and weights)
         steps, n_dir, rows, feat, hidden = case
@@ -893,6 +931,8 @@ def tfgridnet_phases(device, card):
         seq_x, seq_h = seq * feat, seq * hidden
         timing[label] = {
             'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd, 'lib_bwd': lib_bwd,
+            'parts': parts,
+            'plan': lstm.plan_info(steps, n_dir, rows, feat, hidden),
             'bound_fwd': bound(flops, 4 * (seq_x + weights + 2 * seq_h)),
             'bound_bwd': bound(3 * flops, 4 * (2 * seq_x + 2 * weights
                                                + 3 * seq_h))}
@@ -931,6 +971,16 @@ def tfgridnet_phases(device, card):
         del step_trainer, data
     out.update(timing=timing, enhance_ms=enhance_ms, step_ms=step_ms)
     mib = 2 ** 20
+    k4 = []
+    for label in ('intra', 'inter'):
+        parts, plan = timing[label]['parts'], timing[label]['plan']
+        k4.append(f'{label} ' + ' '.join(f'{p} {parts[p]:.3f}'
+                                         for p, _ in K4_PARTS)
+                  + f' (cuDNN {timing[label]["lib_bwd"]:.3f}); scan '
+                  f'{2 * plan["tiles"]} blocks of {plan["threads"]} threads, '
+                  f'{plan["rows"]} rows, {plan["smem"]} B; weight GEMM '
+                  f'{plan["chunks"]} chunks of {plan["chunk"]} pairs')
+    phase(15, f'[{card}] K4 launches ms: {"; ".join(k4)}')
     phase(15, f'[{card}] BLSTM 16x4 s kernel/plain ms: intra K3 '
           f'{timing["intra"]["fwd"]["kernel"]:.3f}/'
           f'{timing["intra"]["fwd"]["plain"]:.3f} K4 '
@@ -2411,7 +2461,36 @@ def lstm_repair_phase(device, card):
                  f'projection + K5: {w_s:.1f} dB')
     del x, w_ih, bias, w_hh, h, ref
     torch.cuda.empty_cache()
-    # H past K5/K6's 512: the gates-in scan raises before any launch
+    # K5/K6 on 8-row tiles (512 < H <= 1024) against the plain version in
+    # float64, two runs bitwise
+    for case in EIGHT_ROW_CASES:
+        name = 'T={} D={} R={} E={} H={}'.format(*case)
+        x, w_ih, bias, w_hh, dh = lstm_inputs(rng, *case, device)
+        gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
+                   + bias[None, :, None]).contiguous()
+        del x, w_ih, bias
+        before = (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches)
+        runs = [(*lstm.lstm_scan_fwd(gates_x, w_hh),) for _ in range(2)]
+        runs = [(h, c, *lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh))
+                for h, c in runs]
+        if (lstm.lstm_scan.launches - before[0],
+                lstm.lstm_scan_bwd.launches - before[1]) != (2, 2):
+            raise AssertionError(f'K5/K6 {name}: launches')
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f'K5/K6 {name}: two runs differ')
+        f64 = [t.double() for t in (gates_x, w_hh)]
+        h64, c64 = lstm.lstm_scan_reference(*f64)
+        want = (h64, c64, *lstm.lstm_scan_bwd_plain(*f64, h64, c64,
+                                                    dh.double()))
+        torch.cuda.synchronize()
+        w_e, _ = check_close(f'K5/K6 {name}', ('h', 'c', 'dgates', 'dw_hh'),
+                             want, runs[0])
+        notes.append(f'K5/K6 at {name} (8-row tiles): h, c, dgates, dW_hh '
+                     f'worst {w_e:.1f} dB vs the plain path in float64, two '
+                     'runs bitwise')
+        del gates_x, w_hh, dh, runs, f64, h64, c64, want
+        torch.cuda.empty_cache()
+    # H past K5/K6's 1024: the gates-in scan raises before any launch
     case = WIDE_CASE
     x, w_ih, bias, w_hh, _ = lstm_inputs(rng, *case, device)
     leaves = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
@@ -2422,7 +2501,7 @@ def lstm_repair_phase(device, card):
         if 'ROADMAP.md, Queue 3' not in str(exc):
             raise
     else:
-        raise AssertionError(f'H={case[4]}: the gates-in scan ran past 512')
+        raise AssertionError(f'H={case[4]}: the gates-in scan ran past 1024')
     launched = (lstm.lstm_scan.launches - before[0],
                 lstm.lstm_scan_bwd.launches - before[1])
     if launched != (0, 0):
@@ -2486,7 +2565,10 @@ def lstm_repair_phase(device, card):
 
 #: a scan past K5/K6's largest hidden size (phase 34), (T, D, R, E, H):
 #: it raises before any launch
-WIDE_CASE = (40, 2, 32, 64, 640)
+WIDE_CASE = (40, 2, 32, 64, 1056)
+#: K5/K6 on 8-row tiles (phase 34), (T, D, R, E, H): H = 640 at DCCRN's
+#: rows, H = 1024 at R off the tile
+EIGHT_ROW_CASES = [(40, 2, 32, 64, 640), (20, 2, 33, 64, 1024)]
 #: K10 against its plain version (phase 35): float32 within 1e-5 of the
 #: largest value (the kernel's fused multiply-add rounds once a step where
 #: the plain chain rounds twice: 256 steps of float32 rounding stay far
@@ -3485,6 +3567,13 @@ def main():
         'bound_by': lstm_t['bound_bwd'][1],
         'library_ms': lstm_t['lib_bwd'],
         'library_ms_inter': grid['timing']['inter']['lib_bwd'],
+        'library_note': 'the backward of nn.LSTM (cuDNN), bidirectional, '
+                        'over the same (T, R, E) input: data and both '
+                        'weight sets',
+        'parts_ms': lstm_t['parts'],
+        'parts_ms_inter': grid['timing']['inter']['parts'],
+        'plan': lstm_t['plan'],
+        'plan_inter': grid['timing']['inter']['plan'],
         'shape': 'intra T=33 D=2 R=8064 E=H=128; inter T=126 R=2112',
         'train_step_ms': grid['step_ms']['kernel'],
         'train_step_plain_ms': grid['step_ms']['plain'],

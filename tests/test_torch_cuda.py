@@ -15,8 +15,10 @@ at sizes where a flip is unlikely (about 0.5M pre-activations).
 The LSTM kernels (K3, K4) against their plain versions: the forward in
 float32 at atol 1e-5, rtol 1e-4 (values of order 1; the kernel sums the
 gate products in another order), the backward against the plain float32
-backward run in float64 at atol 1e-4 of the tensor's largest value, rtol
-1e-3; two backward runs are bitwise equal.
+backward run in float64 and against the plain float32 backward itself, at
+atol 1e-4 of the float64 tensor's largest value, rtol 1e-3; two backward
+runs are bitwise equal. One K4 call launches no cuBLAS or cuDNN kernel
+(a ``torch.profiler`` trace).
 
 The gates-in LSTM scan kernels (K5, K6) the same way as K3 and K4: the
 forward in float32 at atol 1e-5, rtol 1e-4, the backward against the plain
@@ -241,9 +243,13 @@ def test_full_width_train_step(device, tmp_path):
 
 
 # (T, D, R, E, H): R not a multiple of the 32-row tile, E = 72 (padded to
-# a multiple of 4 inside the wrapper) and 12, T = 1, D = 1, H 32..256
+# a multiple of 4 inside the wrapper), 12 and 22, T = 1, D = 1, H 32..256
+# (96 and 224 off the powers of two), K4's 64-row scan tile (D ceil(R / 64)
+# >= 132)
 LSTM_CASES = [(5, 2, 40, 72, 32), (1, 1, 33, 128, 128), (7, 2, 100, 128, 64),
-              (3, 1, 17, 12, 256), (9, 2, 70, 128, 128)]
+              (3, 1, 17, 12, 256), (9, 2, 70, 128, 128), (4, 2, 45, 32, 32),
+              (3, 2, 70, 22, 96), (3, 1, 130, 64, 224), (4, 2, 300, 128, 256),
+              (2, 2, 4300, 16, 64)]
 
 
 def _lstm_inputs(device, t_steps, n_dir, rows, feat, hidden, seed=0):
@@ -275,13 +281,99 @@ def test_lstm_kernels_match_plain(device, case):
     f64 = [t.double() for t in (x, w_ih, bias, w_hh)]
     h64, c64 = lstm.lstm_scan_x_reference(*f64)
     ref = lstm.lstm_scan_x_bwd_plain(*f64, h64, c64, dh.double())
+    plain = lstm.lstm_scan_x_bwd_plain(x, w_ih, bias, w_hh, h, c, dh)
     torch.cuda.synchronize()
-    for got, rerun, want in zip(grads, again, ref):
+    for got, rerun, want, p32 in zip(grads, again, ref, plain):
         assert got.shape == want.shape
         assert torch.equal(got, rerun)
-        torch.testing.assert_close(got.double(), want,
-                                   atol=1e-4 * want.abs().max().item(),
-                                   rtol=1e-3)
+        for other in (want, p32.double()):
+            torch.testing.assert_close(got.double(), other,
+                                       atol=1e-4 * want.abs().max().item(),
+                                       rtol=1e-3)
+
+
+# K4 with weights at an unaligned offset, and with its rows cut into three
+# chunks: (T, D, R, E, H, how)
+K4_CASES = [(5, 2, 40, 72, 64, 'unaligned'), (6, 2, 90, 24, 128, 'chunked')]
+
+
+@pytest.mark.parametrize('case', K4_CASES,
+                         ids=['T{}-D{}-R{}-E{}-H{}-{}'.format(*c)
+                              for c in K4_CASES])
+def test_lstm_backward_kernel_matches_float64(device, case, monkeypatch):
+    """K4 (the gates GEMM, the reverse scan, the dx and weight GEMMs and
+    their sums) on an unaligned weight view and over row chunks against
+    the plain backward in float64 and in float32, and two runs bitwise
+    equal."""
+    *shape, how = case
+    x, w_ih, bias, w_hh, dh = _lstm_inputs(device, *shape, seed=3)
+    h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+    weights = (w_ih, bias, w_hh)
+    if how == 'unaligned':
+        weights = tuple(_shifted(t) for t in weights)
+        assert all(t.data_ptr() % 16 for t in weights)
+    if how == 'chunked':
+        monkeypatch.setattr(lstm, '_INT_RANGE', 6 * 2 * 30 * 512 + 1)
+        assert len(lstm.row_chunks(6, 2, 90, 512)) == 3
+    before = lstm.lstm_scan_x_bwd.launches
+    grads = lstm.lstm_scan_x_bwd(x, *weights, h, c, dh)
+    again = lstm.lstm_scan_x_bwd(x, *weights, h, c, dh)
+    assert lstm.lstm_scan_x_bwd.launches - before == \
+        (6 if how == 'chunked' else 2)
+    f64 = [t.double() for t in (x, w_ih, bias, w_hh)]
+    h64, c64 = lstm.lstm_scan_x_reference(*f64)
+    ref = lstm.lstm_scan_x_bwd_plain(*f64, h64, c64, dh.double())
+    plain = lstm.lstm_scan_x_bwd_plain(x, w_ih, bias, w_hh, h, c, dh)
+    torch.cuda.synchronize()
+    for got, rerun, want, p32 in zip(grads, again, ref, plain):
+        assert got.shape == want.shape
+        assert torch.equal(got, rerun)
+        for other in (want, p32.double()):
+            torch.testing.assert_close(got.double(), other,
+                                       atol=1e-4 * want.abs().max().item(),
+                                       rtol=1e-3)
+
+
+def _shifted(t):
+    """A copy of ``t`` one float into a larger buffer: contiguous, not
+    16-byte aligned."""
+    buf = t.new_empty(t.numel() + 1)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+def test_lstm_backward_plan_is_the_wrappers(device):
+    """K4's plan in the library (``lstm_bwd_plan``) is the wrapper's mirror
+    (``bwd_plan``) at every H K4 takes, on TF-GridNet's row counts and
+    ragged ones; ``plan_info`` raises where they differ."""
+    for hidden in range(32, 257, 32):
+        for shape in ((33, 2, 8064, 128), (126, 2, 2112, 128),
+                      (2, 2, 4300, 16), (5, 1, 45, 24)):
+            plan = lstm.plan_info(*shape, hidden)
+            assert plan == lstm.bwd_plan(*shape, hidden)
+            assert plan['smem'] <= lstm._MAX_SMEM
+
+
+def test_lstm_backward_launches_no_library_kernel(device):
+    """One K4 call on the card launches the library's own kernels (the
+    gates, dx and weight GEMMs, the reverse scan, the sums) and PyTorch's
+    copies of the transposed weights, and no cuBLAS or cuDNN kernel."""
+    x, w_ih, bias, w_hh, dh = _lstm_inputs(device, 6, 2, 300, 128, 128)
+    h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+    lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = ('lstm_bwd_gates_gemm', 'lstm_bwd_rscan', 'lstm_bwd_dx_gemm',
+            'lstm_bwd_wgrad_gemm', 'sum_partials')
+    for part in ours:
+        assert any(part in n for n in names), (part, names)
+    for n in names:   # a cuBLAS or cuDNN kernel is neither
+        assert any(o in n for o in ours) or 'at::native' in n, n
 
 
 def test_lstm_kernels_reject_what_they_do_not_take(device):
@@ -356,12 +448,12 @@ def test_lstm_kernels_take_unaligned_views(device):
 # (T, D, R, H) of the gates-in scan: DCCRN's complex LSTM at B = 16 and at
 # B = 1, R not a multiple of the 32-row tile, T = 1, D = 1, H 32..256; two
 # clusters a direction at DCCRN's length, MetricGAN's padded width at one
-# row, one step of a full tile; H = 384 and 512 on 16-row tiles, R off the
-# tile
+# row, one step of a full tile; H = 384 and 512 on 16-row tiles and 640 and
+# 1024 on 8-row tiles, R off the tile
 SCAN_CASES = [(495, 2, 32, 128), (40, 2, 2, 128), (7, 2, 100, 64),
               (1, 1, 33, 32), (3, 1, 17, 256), (495, 2, 64, 128),
               (33, 1, 1, 224), (1, 2, 32, 32), (9, 2, 40, 384),
-              (5, 1, 17, 512)]
+              (5, 1, 17, 512), (6, 2, 9, 640), (4, 1, 17, 1024)]
 
 
 def _scan_inputs(device, t_steps, n_dir, rows, hidden):
@@ -412,9 +504,9 @@ def test_scan_kernels_reject_what_they_do_not_take(device):
     g48, w48, _ = _scan_inputs(device, 3, 2, 8, 48)
     with pytest.raises(NotImplementedError, match='multiple of 32'):
         lstm.lstm_scan_fwd(g48, w48)
-    g544, w544, _ = _scan_inputs(device, 2, 1, 8, 544)
+    g1056, w1056, _ = _scan_inputs(device, 2, 1, 8, 1056)
     with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 3'):
-        lstm.lstm_scan(g544, w544)
+        lstm.lstm_scan(g1056, w1056)
     assert lstm.lstm_scan.launches == before
 
 
@@ -479,14 +571,28 @@ def test_lstm_kernels_chunk_rows_past_the_int_range(device, fused,
 
 
 def test_fused_x_fits_is_the_kernels_shared_memory(device):
-    """The Python routing rule reads the same shared memory as the C entry
-    points."""
+    """The Python routing rule admits only shapes whose K3 shared memory
+    (``lstm_fwd_smem``) and K4 plan (``lstm_bwd_plan``) fit a block, and
+    refuses the shapes it refused before K4's redesign (32 rows x (E + 6H)
+    floats past a block's)."""
     lib = build.load_library()
     for feat, hidden in ((128, 128), (280, 256), (284, 256), (1700, 32)):
         e_pad = feat + (-feat % 4)
-        fits = max(lib.lstm_fwd_smem(e_pad, hidden),
-                   lib.lstm_bwd_smem(e_pad, hidden)) <= lstm._MAX_SMEM
+        fits = 4 * 32 * (e_pad + 6 * hidden) <= lstm._MAX_SMEM
         assert lstm.fused_x_fits(feat, hidden) is fits
+        if fits:
+            assert lib.lstm_fwd_smem(e_pad, hidden) <= lstm._MAX_SMEM
+            assert lstm.plan_info(33, 2, 8064, e_pad, hidden)['smem'] \
+                <= lstm._MAX_SMEM
+
+
+def test_scan_tile_smem_is_the_wrappers(device):
+    """K6's shared memory on row tiles (256 < H <= 1024) in the library is
+    the wrapper's ``scan_tile_smem``, within a block's."""
+    lib = build.load_library()
+    for hidden in range(288, 1025, 32):
+        bwd = lstm.scan_tile_smem(hidden)[1]
+        assert lib.lstm_scan_tile_smem(hidden) == bwd <= lstm._MAX_SMEM
 
 
 def test_scan_cluster_is_the_wrappers(device):
@@ -502,11 +608,11 @@ def test_scan_cluster_is_the_wrappers(device):
 
 
 def test_wide_hidden_scan_raises_before_any_launch(device):
-    """H = 640, past K5/K6, through ``models/rnn.py`` on the card: the
-    gates-in scan raises with its message, and neither kernel is
+    """H = 1056, past K5/K6's 1024, through ``models/rnn.py`` on the card:
+    the gates-in scan raises with its message, and neither kernel is
     launched."""
     from brever_tpu_torch.models import rnn
-    x, w_ih, bias, w_hh, _ = _lstm_inputs(device, 4, 2, 6, 24, 640)
+    x, w_ih, bias, w_hh, _ = _lstm_inputs(device, 4, 2, 6, 24, 1056)
     leaves = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
     before = lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches
     with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 3'):

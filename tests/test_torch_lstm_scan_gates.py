@@ -289,18 +289,20 @@ def test_fused_x_fits_refuses_a_hidden_size_past_256(hidden):
     assert L.fused_x_fits(4, 256)
 
 
-@pytest.mark.parametrize('hidden', range(288, 513, 32))
+@pytest.mark.parametrize('hidden', range(288, 1025, 32))
 def test_scan_kernels_take_a_hidden_size_up_to_512(hidden):
-    """K5/K6 take every multiple of 32 up to 512 (16-row tiles above 256);
-    K3/K4 still stop at 256."""
+    """K5/K6 take every multiple of 32 up to 1024 (16-row tiles above 256,
+    8-row tiles above 512); K3/K4 still stop at 256."""
     L._check_hidden(hidden, 'lstm_scan')
     with pytest.raises(NotImplementedError, match='up to 256'):
         L._check_hidden(hidden, 'lstm_scan_x', L._MAX_HIDDEN_X)
 
 
 def test_scan_kernels_refuse_a_hidden_size_past_512():
+    """Past 1024 (H = 1056) the gates-in scan still raises, naming the
+    queue that holds the rest of the repair."""
     with pytest.raises(NotImplementedError, match=r'ROADMAP.md, Queue 3'):
-        L._check_hidden(544, 'lstm_scan')
+        L._check_hidden(1056, 'lstm_scan')
     with pytest.raises(NotImplementedError, match='multiple of 32'):
         L._check_hidden(400, 'lstm_scan')
 
@@ -339,6 +341,21 @@ def test_cluster_plan_fits_every_hidden_size(hidden):
     fwd, bwd = L.cluster_smem(hidden)
     assert 0 < fwd <= 232448 and 0 < bwd <= 232448
     assert L._MAX_SMEM == 232448
+
+
+@pytest.mark.parametrize('hidden', range(288, 1025, 32))
+def test_scan_tile_plan_fits_every_wide_hidden_size(hidden):
+    """Above H = 256 K5/K6 scan row tiles: 16 rows (H threads) up to 512, 8
+    rows (H / 2 threads) above, and both kernels' shared memory (h, and
+    K6's dgates and dh_rec: 6H floats a row) fits a block's 232,448 bytes:
+    196,608 for K6 at H = 512 and at 1024."""
+    rows = 16 if hidden <= 512 else 8
+    assert rows // 8 * hidden // 2 <= 512
+    fwd, bwd = L.scan_tile_smem(hidden)
+    assert (fwd, bwd) == (4 * rows * hidden, 4 * rows * 6 * hidden)
+    assert bwd <= L._MAX_SMEM
+    if hidden in (512, 1024):
+        assert bwd == 196608
 
 
 def _cluster_twin(gates_x, w_hh, dh_seq, blocks):
@@ -429,10 +446,10 @@ def test_cluster_split_is_the_scan(blocks):
 
 def test_dispatch_routes_a_hidden_size_past_512_to_the_plain_scan(
         monkeypatch):
-    """H = 640, past K5/K6, on the CPU: ``_dispatch_scan_x`` projects
+    """H = 640, past K3/K4's 256, on the CPU: ``_dispatch_scan_x`` projects
     outside the scan and the gates-in scan runs its plain version, with the
-    JAX package's forward and gradients. (On CUDA the scan raises before
-    any launch: the kernels stop at 512.)"""
+    JAX package's forward and gradients. (On CUDA the same route runs K5/K6
+    on 8-row tiles; past H = 1024 the scan raises before any launch.)"""
     taken = _routes(monkeypatch)
     rng = np.random.RandomState(640)
     feat, hidden = 12, 640
