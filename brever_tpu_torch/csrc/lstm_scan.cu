@@ -112,36 +112,41 @@
 // barrier waits for, and the barrier take most of the rest. wgmma (3 x
 // TF32 or bf16) on that tile is the next step.
 //
-// For 256 < H <= 1024 a float32 w_hh (up to 16 MB a direction) does not
+// For 256 < H <= 8192 a float32 w_hh (up to 1 GB a direction) does not
 // fit 16 SMs' shared memory: K5 keeps K3's scan kernel with the projection
-// off (a template flag) and K6 a scan of the same layout, on 16-row tiles
-// (H threads) up to H = 512 and 8-row tiles (H / 2 threads) above, reading
-// w_hh through L1/L2 every step; K6's shared memory there is rows x 6H
-// floats, 196,608 B at H = 512 and at H = 1024.
+// off (a template flag) and K6 a scan of the same layout, on row tiles
+// whose rows halve as H doubles: 16 rows up to H = 512, 8 up to 1024, 4 up
+// to 2048, 2 up to 4096 and 1 up to 8192, reading w_hh through L1/L2 every
+// step. A thread owns 8 rows (fewer on a smaller tile) and 2 units, 4, 8
+// or 16 units where the tile has 4, 2 or 1 rows, so a block has at most
+// 512 threads and a thread 64 gate sums. K6's shared memory is rows x 6H
+// floats, 196,608 B at H = 512, 1024, 2048, 4096 and 8192: past 8192 a
+// one-row tile is the smallest there is, and its threads would own more
+// than 16 units each.
 //
 // SIMT float32 FFMA throughout (no TF32, no bf16: the parity bounds are
 // float32's); wgmma, TMA and bf16 are later work. Every pointer is a dense
 // float32 buffer in the layouts above; w_hh_t is w_hh transposed to
 // (D, 4H, H) (the tiled K6 and K4 only), w_ih_t w_ih transposed to (D, 4H,
 // E) (K4 only). E is a multiple of 4 (the wrapper pads), H a multiple of
-// 32, at most 256 for K3/K4 and 1024 for K5/K6.
+// 32, at most 256 for K3/K4 and 8192 for K5/K6.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
+#include "simt_gemm.cuh"
 #include "tcn_common.cuh"
 
 namespace {
 
+using namespace simt;
 using tcn::cdiv;
 using tcn::kThreads;
 
-constexpr int kRowsPer = 8;                  // rows a thread owns
-constexpr int kMaxThreads = 512;             // 2H threads at 32 rows, H at 16, H / 2 at 8
+constexpr int kMaxThreads = 512;             // threads of a scan tile's block, at most
 constexpr int kMaxHiddenWide = 256;          // largest H of a 32-row tile (K3, clusters)
-constexpr int kMaxHiddenMid = 512;           // largest H of a 16-row tile (K5/K6)
-constexpr int kMaxHidden = 1024;             // largest H of an 8-row tile (K5/K6)
+constexpr int kMaxHidden = 8192;             // largest H of a row tile (K5/K6)
 constexpr int kClusterThreads = 256;         // threads of a K5/K6 cluster block
 constexpr int kClusterRows = 32;             // rows of a K5/K6 cluster tile
 constexpr int kPad = 4;                      // floats padding a shared row of H
@@ -172,31 +177,52 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
+// How a scan's row tile of kRows rows splits over its threads: a thread
+// owns kRt rows and kP pairs of neighbouring units, with all four gates;
+// pair p of thread unit group ug is units 2 (ug + p H / (2 kP)) and the
+// next, so a warp's loads of a pair are neighbouring float2s. 8 rows and 1
+// pair a thread on tiles of 8 rows or more ((kRows / 8) x H / 2 threads);
+// on smaller tiles all the rows and 16 units (H / 16 threads at 1 row):
+// 64 gate sums a thread in every case.
+template <int kRows>
+struct Split {
+  static constexpr int kRt = kRows < 8 ? kRows : 8;     // rows a thread
+  static constexpr int kP = kRows < 8 ? 8 / kRows : 1;  // unit pairs a thread
+  static int threads(int H) { return kRows / kRt * (H / (2 * kP)); }
+};
+
 // acc += a (kRows, K) in shared memory times w (K, 4H) in device memory,
-// for the thread's rows rg * 8 + i and columns g H + 2 ug + u, k ascending.
-__device__ __forceinline__ void gemm_rows(float (&acc)[kRowsPer][4][2], const float* a,
+// for the thread's rows rg * kRt + i and columns g H + 2 (ug + p H / 2kP) +
+// u, k ascending.
+template <int kRt, int kU>
+__device__ __forceinline__ void gemm_rows(float (&acc)[kRt][4][kU], const float* a,
                                           const float* __restrict__ w, int K, int H, int rg,
                                           int ug) {
-  const int G = 4 * H;
-  const float* arow = a + rg * kRowsPer * K;
-  const float* wcol = w + 2 * ug;
+  constexpr int kP = kU / 2;
+  const int G = 4 * H, np = H / kU;
+  const float* arow = a + rg * kRt * K;
   for (int k = 0; k < K; k += 2) {
-    float2 w0[4], w1[4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      w0[g] = __ldg(reinterpret_cast<const float2*>(wcol + static_cast<size_t>(k) * G + g * H));
-      w1[g] = __ldg(
-          reinterpret_cast<const float2*>(wcol + static_cast<size_t>(k + 1) * G + g * H));
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i) {
-      const float2 av = *reinterpret_cast<const float2*>(arow + i * K + k);
+    for (int p = 0; p < kP; ++p) {
+      const float* wcol = w + 2 * (ug + p * np);
+      float2 w0[4], w1[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        acc[i][g][0] = fmaf(av.x, w0[g].x, acc[i][g][0]);
-        acc[i][g][1] = fmaf(av.x, w0[g].y, acc[i][g][1]);
-        acc[i][g][0] = fmaf(av.y, w1[g].x, acc[i][g][0]);
-        acc[i][g][1] = fmaf(av.y, w1[g].y, acc[i][g][1]);
+        w0[g] = __ldg(reinterpret_cast<const float2*>(wcol + static_cast<size_t>(k) * G + g * H));
+        w1[g] = __ldg(
+            reinterpret_cast<const float2*>(wcol + static_cast<size_t>(k + 1) * G + g * H));
+      }
+#pragma unroll
+      for (int i = 0; i < kRt; ++i) {
+        const float2 av = *reinterpret_cast<const float2*>(arow + i * K + k);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float* o = acc[i][g] + 2 * p;
+          o[0] = fmaf(av.x, w0[g].x, o[0]);
+          o[1] = fmaf(av.x, w0[g].y, o[1]);
+          o[0] = fmaf(av.y, w1[g].x, o[0]);
+          o[1] = fmaf(av.y, w1[g].y, o[1]);
+        }
       }
     }
   }
@@ -208,347 +234,220 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[kRowsPer][4][2], const fl
 // first row of gates_x[t] and rows_left = R - r0 (rows past R read as 0).
 // The forward and the backward's recompute both call this, so they get the
 // same bits.
-template <bool kProj>
-__device__ __forceinline__ void gates_tile(float (&acc)[kRowsPer][4][2], const float* xs,
+template <bool kProj, int kRt, int kU>
+__device__ __forceinline__ void gates_tile(float (&acc)[kRt][4][kU], const float* xs,
                                            const float* hs, const float* __restrict__ gx,
                                            const float* __restrict__ wi,
                                            const float* __restrict__ bias,
                                            const float* __restrict__ wh, int E, int H, int rg,
                                            int ug, int rows_left, bool has_h) {
+  constexpr int kP = kU / 2;
+  const int np = H / kU;
   if constexpr (kProj) {
 #pragma unroll
-    for (int i = 0; i < kRowsPer; ++i)
+    for (int i = 0; i < kRt; ++i)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[i][g][0] = acc[i][g][1] = 0.f;
-    gemm_rows(acc, xs, wi, E, H, rg, ug);
+      for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float2 b = *reinterpret_cast<const float2*>(bias + g * H + 2 * ug);
+        for (int u = 0; u < kU; ++u) acc[i][g][u] = 0.f;
+    gemm_rows<kRt, kU>(acc, xs, wi, E, H, rg, ug);
 #pragma unroll
-      for (int i = 0; i < kRowsPer; ++i) {
-        acc[i][g][0] += b.x;
-        acc[i][g][1] += b.y;
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + g * H + 2 * (ug + p * np));
+#pragma unroll
+        for (int i = 0; i < kRt; ++i) {
+          acc[i][g][2 * p] += b.x;
+          acc[i][g][2 * p + 1] += b.y;
+        }
       }
-    }
   } else {
     const int G = 4 * H;
 #pragma unroll
-    for (int i = 0; i < kRowsPer; ++i) {
-      const int row = rg * kRowsPer + i;
+    for (int i = 0; i < kRt; ++i) {
+      const int row = rg * kRt + i;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float2 v = make_float2(0.f, 0.f);
-        if (row < rows_left)
-          v = __ldg(reinterpret_cast<const float2*>(gx + static_cast<size_t>(row) * G + g * H +
-                                                    2 * ug));
-        acc[i][g][0] = v.x;
-        acc[i][g][1] = v.y;
-      }
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          float2 v = make_float2(0.f, 0.f);
+          if (row < rows_left)
+            v = __ldg(reinterpret_cast<const float2*>(gx + static_cast<size_t>(row) * G + g * H +
+                                                      2 * (ug + p * np)));
+          acc[i][g][2 * p] = v.x;
+          acc[i][g][2 * p + 1] = v.y;
+        }
     }
   }
-  if (has_h) gemm_rows(acc, hs, wh, H, H, rg, ug);
+  if (has_h) gemm_rows<kRt, kU>(acc, hs, wh, H, H, rg, ug);
 }
 
 // K3 (kProj, x (T, D, R, E) in) and K5 (gates_x (T, D, R, 4H) in, E = 0).
-// grid (cdiv(R, kRows), D), kRows / 8 x H / 2 threads, kRows (E + H) floats
-// of dynamic shared memory.
+// grid (cdiv(R, kRows), D), Split<kRows>::threads(H) threads, kRows (E + H)
+// floats of dynamic shared memory.
 template <bool kProj, int kRows>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
               const float* __restrict__ bias, const float* __restrict__ w_hh,
               float* __restrict__ h_seq, float* __restrict__ c_seq, int T, int D, int R, int E,
               int H) {
+  constexpr int kRt = Split<kRows>::kRt, kP = Split<kRows>::kP;
   extern __shared__ float smem[];
   float* xs = smem;               // (kRows, E)
   float* hs = smem + kRows * E;   // (kRows, H)
-  const int d = blockIdx.y, r0 = blockIdx.x * kRows, G = 4 * H;
-  const int rg = threadIdx.x / (H / 2), ug = threadIdx.x % (H / 2);
+  const int d = blockIdx.y, r0 = blockIdx.x * kRows, G = 4 * H, np = H / (2 * kP);
+  const int rg = threadIdx.x / np, ug = threadIdx.x % np;
   const float* wi = kProj ? w_ih + static_cast<size_t>(d) * E * G : nullptr;
   const float* wh = w_hh + static_cast<size_t>(d) * H * G;
   const float* bd = kProj ? bias + d * G : nullptr;
-  float c[kRowsPer][2] = {};
+  float c[kRt][2 * kP] = {};
   for (int t = 0; t < T; ++t) {
     if constexpr (kProj) load_rows<kRows>(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
     __syncthreads();  // x[t] and h[t-1] of the tile in shared memory
-    float acc[kRowsPer][4][2];
-    gates_tile<kProj>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
+    float acc[kRt][4][2 * kP];
+    gates_tile<kProj, kRt, 2 * kP>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
                       H, rg, ug, R - r0, t > 0);
     __syncthreads();  // every thread is done reading xs and hs
 #pragma unroll
-    for (int i = 0; i < kRowsPer; ++i) {
-      const int row = rg * kRowsPer + i;
-      float2 hv, cv;
+    for (int i = 0; i < kRt; ++i) {
+      const int row = rg * kRt + i;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float cn = sigm(acc[i][1][u]) * c[i][u] + sigm(acc[i][0][u]) * tanhf(acc[i][2][u]);
-        const float hn = sigm(acc[i][3][u]) * tanhf(cn);
-        c[i][u] = cn;
-        (u ? hv.y : hv.x) = hn;
-        (u ? cv.y : cv.x) = cn;
-      }
-      *reinterpret_cast<float2*>(hs + row * H + 2 * ug) = hv;
-      if (r0 + row < R) {
-        const size_t o = at(t, d, r0 + row, D, R) * H + 2 * ug;
-        *reinterpret_cast<float2*>(h_seq + o) = hv;
-        *reinterpret_cast<float2*>(c_seq + o) = cv;
+      for (int p = 0; p < kP; ++p) {
+        float2 hv, cv;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int q = 2 * p + u;
+          const float cn =
+              sigm(acc[i][1][q]) * c[i][q] + sigm(acc[i][0][q]) * tanhf(acc[i][2][q]);
+          const float hn = sigm(acc[i][3][q]) * tanhf(cn);
+          c[i][q] = cn;
+          (u ? hv.y : hv.x) = hn;
+          (u ? cv.y : cv.x) = cn;
+        }
+        const int unit = 2 * (ug + p * np);
+        *reinterpret_cast<float2*>(hs + row * H + unit) = hv;
+        if (r0 + row < R) {
+          const size_t o = at(t, d, r0 + row, D, R) * H + unit;
+          *reinterpret_cast<float2*>(h_seq + o) = hv;
+          *reinterpret_cast<float2*>(c_seq + o) = cv;
+        }
       }
     }
   }
 }
 
-// K6's recurrence for 256 < H <= 1024. Reverse time over the tile:
+// K6's recurrence for 256 < H <= 8192. Reverse time over the tile:
 // recompute the gates from gates_x and the saved h with K5's code (the same
 // bits), form dgates (written to device memory), carry dc in registers and
 // dh_rec = dgates w_hh^T in shared memory slots that only their own thread
 // reads (registers would pass the 128 a thread has at 512 threads).
-// grid (cdiv(R, kRows), D), kRows / 8 x H / 2 threads, kRows 6H floats of
-// dynamic shared memory.
+// grid (cdiv(R, kRows), D), Split<kRows>::threads(H) threads, kRows 6H
+// floats of dynamic shared memory.
 template <int kRows>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
               const float* __restrict__ w_hh_t, const float* __restrict__ h_seq,
               const float* __restrict__ c_seq, const float* __restrict__ dh_seq,
               float* __restrict__ dgates, int T, int D, int R, int H) {
+  constexpr int kRt = Split<kRows>::kRt, kP = Split<kRows>::kP;
   extern __shared__ float smem[];
-  const int G = 4 * H;
+  const int G = 4 * H, np = H / (2 * kP);
   float* hs = smem;                   // (kRows, H)
   float* gs = hs + kRows * H;         // (kRows, 4H): dgates of the step
   float* dhs = gs + kRows * G;        // (kRows, H): dh_rec
   const int d = blockIdx.y, r0 = blockIdx.x * kRows;
-  const int rg = threadIdx.x / (H / 2), ug = threadIdx.x % (H / 2);
+  const int rg = threadIdx.x / np, ug = threadIdx.x % np;
   const float* wh = w_hh + static_cast<size_t>(d) * H * G;
   const float* wht = w_hh_t + static_cast<size_t>(d) * G * H;
-  float dc[kRowsPer][2] = {};
+  float dc[kRt][2 * kP] = {};
 #pragma unroll
-  for (int i = 0; i < kRowsPer; ++i)
-    *reinterpret_cast<float2*>(dhs + (rg * kRowsPer + i) * H + 2 * ug) = make_float2(0.f, 0.f);
+  for (int i = 0; i < kRt; ++i)
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      *reinterpret_cast<float2*>(dhs + (rg * kRt + i) * H + 2 * (ug + p * np)) =
+          make_float2(0.f, 0.f);
   for (int t = T - 1; t >= 0; --t) {
     if (t > 0) load_rows<kRows>(hs, h_seq + at(t - 1, d, 0, D, R) * H, r0, R, H);
     __syncthreads();  // h[t-1] in; the previous step's gs reads done
-    float acc[kRowsPer][4][2];
-    gates_tile<false>(acc, nullptr, hs, gates_x + at(t, d, r0, D, R) * G, nullptr, nullptr, wh,
+    float acc[kRt][4][2 * kP];
+    gates_tile<false, kRt, 2 * kP>(acc, nullptr, hs, gates_x + at(t, d, r0, D, R) * G, nullptr, nullptr, wh,
                       0, H, rg, ug, R - r0, t > 0);
 #pragma unroll
-    for (int i = 0; i < kRowsPer; ++i) {
-      const int row = rg * kRowsPer + i;
+    for (int i = 0; i < kRt; ++i) {
+      const int row = rg * kRt + i;
       const bool live = r0 + row < R;
-      const size_t o = at(t, d, r0 + row, D, R) * H + 2 * ug;
-      float2 ct = make_float2(0.f, 0.f), cp = ct, dhv = ct;
-      if (live) {
-        ct = *reinterpret_cast<const float2*>(c_seq + o);
-        dhv = *reinterpret_cast<const float2*>(dh_seq + o);
-        if (t > 0) cp = *reinterpret_cast<const float2*>(c_seq + o - static_cast<size_t>(D) * R * H);
-      }
-      const float2 rec = *reinterpret_cast<const float2*>(dhs + row * H + 2 * ug);
-      float dgt[4][2];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float ig = sigm(acc[i][0][u]), fg = sigm(acc[i][1][u]);
-        const float gg = tanhf(acc[i][2][u]), og = sigm(acc[i][3][u]);
-        const float tc = tanhf(u ? ct.y : ct.x);
-        const float dh = (u ? dhv.y : dhv.x) + (u ? rec.y : rec.x);
-        const float dcc = dh * og * (1.f - tc * tc) + dc[i][u];
-        dgt[0][u] = dcc * gg * ig * (1.f - ig);
-        dgt[1][u] = dcc * (u ? cp.y : cp.x) * fg * (1.f - fg);
-        dgt[2][u] = dcc * ig * (1.f - gg * gg);
-        dgt[3][u] = dh * tc * og * (1.f - og);
-        dc[i][u] = dcc * fg;
-      }
+      for (int p = 0; p < kP; ++p) {
+        const int unit = 2 * (ug + p * np);
+        const size_t o = at(t, d, r0 + row, D, R) * H + unit;
+        float2 ct = make_float2(0.f, 0.f), cp = ct, dhv = ct;
+        if (live) {
+          ct = *reinterpret_cast<const float2*>(c_seq + o);
+          dhv = *reinterpret_cast<const float2*>(dh_seq + o);
+          if (t > 0)
+            cp = *reinterpret_cast<const float2*>(c_seq + o - static_cast<size_t>(D) * R * H);
+        }
+        const float2 rec = *reinterpret_cast<const float2*>(dhs + row * H + unit);
+        float dgt[4][2];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float2 v = make_float2(dgt[g][0], dgt[g][1]);
-        *reinterpret_cast<float2*>(gs + row * G + g * H + 2 * ug) = v;
-        if (live)
-          *reinterpret_cast<float2*>(dgates + at(t, d, r0 + row, D, R) * G + g * H + 2 * ug) = v;
+        for (int u = 0; u < 2; ++u) {
+          const int q = 2 * p + u;
+          const float ig = sigm(acc[i][0][q]), fg = sigm(acc[i][1][q]);
+          const float gg = tanhf(acc[i][2][q]), og = sigm(acc[i][3][q]);
+          const float tc = tanhf(u ? ct.y : ct.x);
+          const float dh = (u ? dhv.y : dhv.x) + (u ? rec.y : rec.x);
+          const float dcc = dh * og * (1.f - tc * tc) + dc[i][q];
+          dgt[0][u] = dcc * gg * ig * (1.f - ig);
+          dgt[1][u] = dcc * (u ? cp.y : cp.x) * fg * (1.f - fg);
+          dgt[2][u] = dcc * ig * (1.f - gg * gg);
+          dgt[3][u] = dh * tc * og * (1.f - og);
+          dc[i][q] = dcc * fg;
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float2 v = make_float2(dgt[g][0], dgt[g][1]);
+          *reinterpret_cast<float2*>(gs + row * G + g * H + unit) = v;
+          if (live)
+            *reinterpret_cast<float2*>(dgates + at(t, d, r0 + row, D, R) * G + g * H + unit) = v;
+        }
       }
     }
     __syncthreads();  // gs whole; hs reads done
     // dh_rec = dgates w_hh^T for the thread's rows and units, j ascending
-    float dh_rec[kRowsPer][2] = {};
-    const float* grow = gs + rg * kRowsPer * G;
+    float dh_rec[kRt][2 * kP] = {};
+    const float* grow = gs + rg * kRt * G;
     for (int j = 0; j < G; j += 2) {
-      const float2 w0 = __ldg(reinterpret_cast<const float2*>(wht + static_cast<size_t>(j) * H) + ug);
-      const float2 w1 =
-          __ldg(reinterpret_cast<const float2*>(wht + static_cast<size_t>(j + 1) * H) + ug);
 #pragma unroll
-      for (int i = 0; i < kRowsPer; ++i) {
-        const float2 gv = *reinterpret_cast<const float2*>(grow + i * G + j);
-        dh_rec[i][0] = fmaf(gv.x, w0.x, dh_rec[i][0]);
-        dh_rec[i][1] = fmaf(gv.x, w0.y, dh_rec[i][1]);
-        dh_rec[i][0] = fmaf(gv.y, w1.x, dh_rec[i][0]);
-        dh_rec[i][1] = fmaf(gv.y, w1.y, dh_rec[i][1]);
+      for (int p = 0; p < kP; ++p) {
+        const int unit = 2 * (ug + p * np);
+        const float2 w0 =
+            __ldg(reinterpret_cast<const float2*>(wht + static_cast<size_t>(j) * H + unit));
+        const float2 w1 =
+            __ldg(reinterpret_cast<const float2*>(wht + static_cast<size_t>(j + 1) * H + unit));
+#pragma unroll
+        for (int i = 0; i < kRt; ++i) {
+          const float2 gv = *reinterpret_cast<const float2*>(grow + i * G + j);
+          float* r = dh_rec[i] + 2 * p;
+          r[0] = fmaf(gv.x, w0.x, r[0]);
+          r[1] = fmaf(gv.x, w0.y, r[1]);
+          r[0] = fmaf(gv.y, w1.x, r[0]);
+          r[1] = fmaf(gv.y, w1.y, r[1]);
+        }
       }
     }
 #pragma unroll
-    for (int i = 0; i < kRowsPer; ++i)
-      *reinterpret_cast<float2*>(dhs + (rg * kRowsPer + i) * H + 2 * ug) =
-          make_float2(dh_rec[i][0], dh_rec[i][1]);
+    for (int i = 0; i < kRt; ++i)
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        *reinterpret_cast<float2*>(dhs + (rg * kRt + i) * H + 2 * (ug + p * np)) =
+            make_float2(dh_rec[i][2 * p], dh_rec[i][2 * p + 1]);
   }
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? kBytes : 0;  // 0: fill the destination with zeros
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
-                 "n"(kBytes), "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // ---------------------------------------------------------------------------
-// K4's products and K6's weight gradient: one float32 SIMT GEMM body.
-//
-// A block computes a 128 x 128 tile of C = A B with 256 threads, 8 x 8
-// outputs a thread: warp w owns rows (w / 4) 64 .. + 63 and columns (w % 4)
-// 32 .. + 31 of the tile; lane l rows l / 4 * 4 + {0..3} and 32 + that,
-// columns l % 4 * 4 + {0..3} and 16 + that, so each of a warp's four float4
-// fragment loads a k is one 128-byte (or broadcast 64-byte) wavefront. Both
-// operands are staged as 16-deep k slices, (k, 128) with a padded row, in
-// two stages: while the block multiplies one, the next arrives, by
-// cp.async for an operand whose rows are k (w_ih, w_hh, w_ih^T, and the
-// weight gradient's x, h and dgates), through registers for one stored
-// with k contiguous (the rows of x, h and dgates), which the staging
-// transposes. Every output sums its products over k ascending with fmaf.
-// (3xTF32 mma.sync on the tensor cores for dx and the weight GEMM was
-// timed: a small gain, and weight gradients less accurate than the plain
-// float32 path's; PERF.md.)
-
-constexpr int kGemmThreads = 256;
-constexpr int kGM = 128;              // block tile rows and columns
-constexpr int kGK = 16;               // k slice
-constexpr int kGLd = kGM + 4;         // floats a staged k row
-constexpr int kGSlice = kGK * kGLd;   // floats of one operand's slice
-
-// acc += As (kGK, kGLd) Bs (kGK, kGLd) for the thread's 8 x 8 outputs
-__device__ __forceinline__ void slice_fma(float (&acc)[8][8], const float* As, const float* Bs) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  const float* a = As + (w / 4) * 64 + (l / 4) * 4;
-  const float* b = Bs + (w % 4) * 32 + (l % 4) * 4;
-#pragma unroll
-  for (int k = 0; k < kGK; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + k * kGLd);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + k * kGLd + 32);
-    const float4 b0 = *reinterpret_cast<const float4*>(b + k * kGLd);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + k * kGLd + 16);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// the tile row of the thread's output row i < 8, the tile column of its
-// column j < 8 (j = 0 and j = 4 start its two float4 groups)
-__device__ __forceinline__ int frag_row(int i) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  return (w / 4) * 64 + (i / 4) * 32 + (l / 4) * 4 + i % 4;
-}
-__device__ __forceinline__ int frag_col(int j) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  return (w % 4) * 32 + (j / 4) * 16 + (l % 4) * 4 + j % 4;
-}
-
-// The thread's two float4 pieces of a (kGK, 128) slice whose rows are k:
-// piece q is row (tid + 256 q) / 32, columns 4 ((tid + 256 q) % 32) .. + 3;
-// src(k, c) is the source of slice row k, column c, or null for zeros
-// (any: a valid address that is not read).
-template <class Src>
-__device__ __forceinline__ void stage_direct(float* S, Src src, const float* any) {
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int i = threadIdx.x + q * kGemmThreads, k = i / 32, c = i % 32 * 4;
-    const float* p = src(k, c);
-    cp_async<16>(S + k * kGLd + c, p ? p : any, p != nullptr);
-  }
-}
-
-// A (128, kGK) slice of 128 rows stored with k contiguous, through
-// registers: the thread stages row tid % 128 at k groups 4 (tid / 128) and
-// 8 + that, loading them before the block multiplies the previous slice
-// and storing them transposed after.
-struct RowStage {
-  float4 v[2];
-
-  // from row (null: zeros) at k0; columns k >= kmax are zeros (kmax % 4 == 0)
-  __device__ __forceinline__ void load(const float* row, int k0, int kmax) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int k = k0 + (threadIdx.x / kGM) * 4 + 8 * q;
-      v[q] = row && k < kmax ? __ldg(reinterpret_cast<const float4*>(row + k))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* S) const {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      float* s = S + ((threadIdx.x / kGM) * 4 + 8 * q) * kGLd + threadIdx.x % kGM;
-      s[0] = v[q].x;
-      s[kGLd] = v[q].y;
-      s[2 * kGLd] = v[q].z;
-      s[3 * kGLd] = v[q].w;
-    }
-  }
-};
-
-// The block's k loop over n slices, two stages in sm (4 kGSlice floats):
-// op.fetch(s, As, Bs) issues slice s's cp.async copies and register loads,
-// op.store(As) writes the registers' part, op.after(s, acc, Bs) runs once
-// slice s is in acc.
-template <class Op>
-__device__ __forceinline__ void gemm_loop(Op& op, float (&acc)[8][8], int n, float* sm) {
-  op.fetch(0, sm, sm + kGSlice);
-  cp_async_commit();
-  op.store(sm);
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int s = 0; s < n; ++s) {
-    float* cur = sm + (s & 1) * 2 * kGSlice;
-    float* nxt = sm + ((s + 1) & 1) * 2 * kGSlice;
-    if (s + 1 < n) op.fetch(s + 1, nxt, nxt + kGSlice);
-    cp_async_commit();
-    slice_fma(acc, cur, cur + kGSlice);
-    op.after(s, acc, cur + kGSlice);
-    if (s + 1 < n) op.store(nxt);
-    cp_async_wait<0>();
-    __syncthreads();  // slice s + 1 whole; every thread done with slice s
-  }
-}
-
-// acc's rows into out: the output row of tile row m (null: none), float4
-// column groups at column n0 + frag_col(0) and n0 + frag_col(4), those at
-// or past n_max left out (n_max % 4 == 0)
-template <class RowOf>
-__device__ __forceinline__ void store_tile(const float (&acc)[8][8], RowOf row_of, int n0,
-                                           int n_max) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* out = row_of(frag_row(i));
-    if (!out) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + frag_col(4 * h);
-      if (n < n_max)
-        *reinterpret_cast<float4*>(out + n) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-    }
-  }
-}
+// K4's products and K6's weight gradient run on the float32 SIMT GEMM body
+// of simt_gemm.cuh (gemm_loop: 128 x 128 tiles, 8 x 8 outputs a thread).
 
 // K4's gate pre-activations out of the serial chain: pre[t, d, r] =
 // (x[t, d, r] w_ih[d] + bias[d]) + h[t-1, d, r] w_hh[d] (h[-1] = 0) into
@@ -557,7 +456,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][8], RowOf row_o
 struct GatesOp {
   const float *xrow, *hrow, *wi, *wh, *bias;
   int E, H, nx;
-  RowStage a;
+  RowStage<> a;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int G = 4 * H, n0 = blockIdx.y * kGM;
@@ -622,7 +521,7 @@ lstm_bwd_gates_gemm(const float* __restrict__ x, const float* __restrict__ w_ih,
 struct DxOp {
   const float *grow, *wt;
   int G, E;
-  RowStage a;
+  RowStage<> a;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int k0 = s * kGK, n0 = blockIdx.y * kGM;
@@ -1366,22 +1265,23 @@ int last_error() { return static_cast<int>(cudaGetLastError()); }
 size_t fwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + H); }
 size_t bwd_smem(int rows, int H) { return sizeof(float) * rows * 6 * H; }
 
-// the rows of a K5/K6 tile for 256 < H <= 1024: 16 up to 512, else 8
-int tile_rows(int H) { return H <= kMaxHiddenMid ? 16 : 8; }
+// the rows of a K5/K6 tile for 256 < H <= 8192: 16 up to 512, then half
+// as many each time H doubles, down to 1 row past 4096
+int tile_rows(int H) { return H <= 512 ? 16 : H <= 1024 ? 8 : H <= 2048 ? 4 : H <= 4096 ? 2 : 1; }
 
-// K5 for 256 < H <= 1024 on kRows-row tiles (kRows / 8 x H / 2 threads)
+// K5 for 256 < H <= 8192 on kRows-row tiles (Split<kRows>::threads(H))
 template <int kRows>
 int scan_fwd_tiles(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
                    int D, int R, int H, cudaStream_t s) {
   const size_t smem = fwd_smem(kRows, 0, H);
   int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false, kRows>), smem);
   if (err) return err;
-  lstm_fwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), kRows / 8 * H / 2, smem, s>>>(
+  lstm_fwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
       gates_x, nullptr, nullptr, w_hh, h_seq, c_seq, T, D, R, 0, H);
   return last_error();
 }
 
-// K6's recurrence for 256 < H <= 1024 on kRows-row tiles
+// K6's recurrence for 256 < H <= 8192 on kRows-row tiles
 template <int kRows>
 int scan_bwd_tiles(const float* gates_x, const float* w_hh, const float* w_hh_t,
                    const float* h_seq, const float* c_seq, const float* dh_seq, float* dgates,
@@ -1389,7 +1289,7 @@ int scan_bwd_tiles(const float* gates_x, const float* w_hh, const float* w_hh_t,
   const size_t smem = bwd_smem(kRows, H);
   int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<kRows>), smem);
   if (err) return err;
-  lstm_bwd_scan<kRows><<<dim3(cdiv(R, kRows), D), kRows / 8 * H / 2, smem, s>>>(
+  lstm_bwd_scan<kRows><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
       gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H);
   return last_error();
 }
@@ -1524,22 +1424,27 @@ size_t lstm_scan_bwd_workspace(int T, int D, int R, int H) {
   return Layout(T, D, R, 0, H, WgSplit(T * R, wgrad_tiles(0, H, D))).total;
 }
 
-// K6's shared memory a block at 256 < H <= 1024 (its tile's rows x 6H
+// K6's shared memory a block at 256 < H <= 8192 (its tile's rows x 6H
 // floats), in bytes; 0 for another H
 size_t lstm_scan_tile_smem(int H) {
   return H > kMaxHiddenWide && hidden_ok(H, kMaxHidden) ? bwd_smem(tile_rows(H), H) : 0;
 }
 
 // K5: h_seq and c_seq (T, D, R, H) from gates_x (T, D, R, 4H) and w_hh
-// (D, H, 4H); H <= 256 on clusters, above on 16-row tiles up to 512 and
-// 8-row tiles up to 1024. Returns a CUDA error code, or 0.
+// (D, H, 4H); H <= 256 on clusters, above on row tiles (tile_rows) up to
+// 8192. Returns a CUDA error code, or 0.
 int lstm_scan_fwd(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
                   int D, int R, int H, void* stream) {
   if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H > kMaxHiddenWide)
-    return tile_rows(H) == 16 ? scan_fwd_tiles<16>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s)
-                              : scan_fwd_tiles<8>(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
+  if (H > kMaxHiddenWide) {
+    const auto tiles = tile_rows(H) == 16  ? scan_fwd_tiles<16>
+                       : tile_rows(H) == 8 ? scan_fwd_tiles<8>
+                       : tile_rows(H) == 4 ? scan_fwd_tiles<4>
+                       : tile_rows(H) == 2 ? scan_fwd_tiles<2>
+                                           : scan_fwd_tiles<1>;
+    return tiles(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
+  }
   if (!cluster_fits(H)) return static_cast<int>(cudaErrorInvalidValue);
   const ClusterFwd kernel = cluster_fwd_kernel(gate_rows(H / kClusterBlocks));
   const ClusterLaunch l(reinterpret_cast<const void*>(kernel), cdiv(R, kClusterRows), D,
@@ -1563,10 +1468,12 @@ int lstm_scan_bwd(const float* gates_x, const float* w_hh, const float* w_hh_t,
   int err = 0;
   if (H > kMaxHiddenWide) {
     if (!w_hh_t) return static_cast<int>(cudaErrorInvalidValue);
-    err = tile_rows(H) == 16 ? scan_bwd_tiles<16>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq,
-                                                  dgates, T, D, R, H, s)
-                             : scan_bwd_tiles<8>(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq,
-                                                 dgates, T, D, R, H, s);
+    const auto tiles = tile_rows(H) == 16  ? scan_bwd_tiles<16>
+                       : tile_rows(H) == 8 ? scan_bwd_tiles<8>
+                       : tile_rows(H) == 4 ? scan_bwd_tiles<4>
+                       : tile_rows(H) == 2 ? scan_bwd_tiles<2>
+                                           : scan_bwd_tiles<1>;
+    err = tiles(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s);
   } else {
     if (!cluster_fits(H)) return static_cast<int>(cudaErrorInvalidValue);
     const ClusterBwd kernel = cluster_bwd_kernel(gate_rows(H / kClusterBlocks));

@@ -12,38 +12,51 @@
 //   z2 = depthwise_k3(y1, d) + b_dw,  h2 = PReLU(z2),  y2 = gLN(h2) g2 + be2
 //   res = x + y2 W_res^T + b_res,  skip = y2 W_skip^T + b_skip.
 //
-// Bound: GEMM work, about 58.7 GFLOP at B=16, T=3999, C=Cs=128, H=512
-// (gy2 = g [W_res; W_skip], dx = gz1 W_in, dW_in, dW_res, dW_skip and the
-// recompute of z1: 2 B T H (C + 2 (C + Cs) + 2 C) flops), plus a few
-// (B, T, H) f32 round trips through device memory of 131 MB each. The
-// Pallas kernel keeps four (T, H) f32 rows in VMEM; an SM has 227 KB and
-// blocks run in no order, so the backward splits at the two gLN-backward
-// reduction barriers, as the forward splits at its two:
+// Bound: GEMM work, 58.7 GFLOP at B=16, T=3999, C=Cs=128, H=512 (the
+// recompute of z1, gy2 = g [W_res; W_skip], dx = gz1 W_in, dW_in and
+// [dW_res; dW_skip]: 2 B T H (C + 2 (C + Cs) + 2 C) flops), 0.88 ms at the
+// card's 67 TFLOP/s in float32, plus (B, T, H) float32 passes through
+// device memory of 131 MB each. The Pallas kernel keeps four (T, H) f32 rows
+// in VMEM; an SM has 227 KB and blocks run in no order, so the backward
+// splits at the two gLN-backward reduction barriers, as the forward splits
+// at its two. Eleven launches:
 //
-//   1. z1:        GEMM x W_in^T + b_in -> z1 (h1 = PReLU(z1) is recomputed
-//                 where it is read, from the same bits the forward made).
-//   2. z2:        depthwise over y1 normalised on load with the saved stats
-//                 (zero outside [0, T), which also covers d >= T) -> z2.
-//   3. gy2:       GEMM [g_res | g_skip] [W_res; W_skip] (K = C + Cs) -> gy2;
-//                 the epilogue writes per-tile column sums of gy2 h2 and gy2.
-//   4. merge2:    per row: dg2, dbe2 and the gLN2-backward scalars
-//                 A2 = rstd2 s2a / N, B2 = rstd2^2 s2b / N (N = T H).
-//   5. gz2:       gz2 = PReLU'(z2) (hs2 gy2 - A2 - B2 (h2 - mean2)), in
-//                 place of gy2; partials of da2 and of dw_dw, db_dw (y1
-//                 normalised on load).
-//   6. wgrad_out: [dW_res; dW_skip] = g^T y2, y2 normalised on load, split
-//                 over (row, 1024-step chunk); run before z2 is overwritten.
-//   7. gy1:       transposed depthwise gy1[t] = w0 gz2[t+d] + w1 gz2[t]
-//                 + w2 gz2[t-d], into z2's buffer; partials of gy1 h1, gy1.
-//   8. merge1:    per row: dg1, dbe1, A1, B1.
-//   9. gz1:       gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), in
-//                 place of z1; partials of da1 and db_in.
-//  10. dx:        GEMM gz1 W_in (+ g_res).
-//  11. wgrad_in:  dW_in = gz1^T x, split like 6.
-//  12. colsum:    partials of db_res, db_skip = column sums of g.
-//  13. reduce:    every parameter gradient sums its partials in a fixed
-//                 order (no float atomics): two runs on the same inputs give
-//                 bitwise-equal gradients.
+//   1. z1 GEMM:    x W_in^T + b_in -> z1 (h1 = PReLU(z1) is recomputed where
+//                  it is read). Each output sums its products over k
+//                  ascending with fmaf from 0, then adds the bias, as the
+//                  forward's GEMM does: z1 is bitwise the forward's, and so
+//                  are the PReLU branches and the gLN statistics.
+//   2. z2:         depthwise over y1 normalised on load with the saved stats
+//                  (zero outside [0, T), which also covers d >= T) -> z2.
+//   3. gy2 GEMM:   [g_res | g_skip] [W_res; W_skip] (K = C + Cs) -> gy2;
+//                  the epilogue writes the tile's column sums of gy2 h2 and
+//                  gy2.
+//   4. merge2:     per row: dg2, dbe2 and the gLN2-backward scalars
+//                  A2 = rstd2 s2a / N, B2 = rstd2^2 s2b / N (N = T H).
+//   5. wout GEMM:  [dW_res; dW_skip] = g^T y2, y2 normalised from z2 on
+//                  load, split over (row, time chunk); the first column
+//                  tile's blocks also sum g's columns (db_res, db_skip).
+//   6. gz2 + gy1:  gz2 = PReLU'(z2) (hs2 gy2 - A2 - B2 (h2 - mean2)) where
+//                  the transposed depthwise reads it, at t - d, t and t + d,
+//                  so it is never stored: gy1[t] = w0 gz2[t+d] + w1 gz2[t]
+//                  + w2 gz2[t-d] -> gy1; partials of da2, dw_dw, db_dw
+//                  (y1 normalised on load) and of gy1 h1, gy1.
+//   7. merge1:     per row: dg1, dbe1, A1, B1.
+//   8. gz1:        gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), in
+//                  place of z1; partials of da1 and db_in.
+//   9. dx GEMM:    gz1 W_in (+ g_res).
+//  10. win GEMM:   dW_in = gz1^T x, split like 5.
+//  11. sums:       every parameter gradient sums its partials in a fixed
+//                  order (no float atomics): two runs on the same inputs give
+//                  bitwise-equal gradients.
+//
+// The GEMMs run simt_gemm.cuh's body (K4's): 128 x 128 block tiles, 8 x 8
+// outputs a thread, 16-deep k slices in a cp.async double buffer; an
+// operand stored with k contiguous is staged through registers, y2 is
+// normalised on its load. The weight gradients' split fills two waves of
+// the 132 SMs (Split). SIMT float32 FFMA: a 3xTF32 mma.sync
+// GEMM lost weight-gradient accuracy against float64 in K4 (PERF.md);
+// wgmma/TMA in an f32-accurate form is later work.
 //
 // The PReLU slopes' gradients da = sum gh min(z, 0) add ~8M terms at
 // B=16 that cancel: by up to 7e5 times in the sum of their magnitudes on
@@ -54,24 +67,34 @@
 // rounding, the same on every element, adds up in that sum.
 //
 // Scratch is one float32 workspace (tcn_bwd_workspace floats) that the
-// caller allocates: z1, z2 and gy2 of (B, T, H) each and the partials.
-// SIMT f32 tiles, like the forward; wgmma, TMA and bf16 are later work.
-//
-// Every pointer is a dense float32 buffer; 2-D weights are in the torch
-// Linear storage (out, in): W_in (H, C), W_res (C, H), W_skip (Cs, H).
+// caller allocates: z1, z2, gy2 and gy1 of (B, T, H) each and the partials.
+// Every pointer is a dense float32 buffer, 16-byte aligned; 2-D weights are
+// in the torch Linear storage (out, in): W_in (H, C), W_res (C, H), W_skip
+// (Cs, H), and W_in^T (C, H) besides. Where C, H and Cs are multiples of 4
+// every stage moves float4s (kVec); at any other width the same kernels
+// instantiated with kVec = false move single floats, with the same sums in
+// the same order (the last channels of a width off the float4 grid are
+// masked, not padded).
 
+#include <algorithm>
+
+#include "simt_gemm.cuh"
 #include "tcn_common.cuh"
 
 namespace {
 
-using namespace tcn;
+using namespace simt;
+using tcn::block_sum;
+using tcn::cdiv;
+using tcn::kThreads;
+using tcn::prelu;
 
-constexpr int kEwRows = 64;    // elementwise tile: time rows (= kBM, one
-                               // partial per 64 rows in every stage)
-constexpr int kEwCols = 128;   // elementwise tile: channels
-constexpr int kEwGroups = kThreads / kEwCols;  // row groups per tile
-constexpr int kChunk = 1024;   // weight-gradient split: time steps a block
-constexpr int kColRows = 256;  // column-sum split: time steps a block
+constexpr int kEwRows = 64;    // elementwise tile: time rows
+constexpr int kEwCols = 128;   // elementwise tile: channels, 4 a thread
+constexpr int kEwGroups = kThreads / (kEwCols / 4);  // row groups per tile
+constexpr int kSMs = 132;      // SMs of the H100 SXM
+constexpr int kWgBlocks = 4 * kSMs;
+constexpr int kWgMinChunk = 256;
 
 }  // namespace
 
@@ -81,7 +104,8 @@ extern "C" {
 // workspace are written whole; nothing needs zeroing.
 struct TcnBwdArgs {
   const float *x, *g_res, *g_skip, *stats;
-  const float *w_in, *b_in, *a1, *g1, *be1, *w_dw, *b_dw, *a2, *g2, *be2, *w_res, *w_skip;
+  const float *w_in, *w_in_t, *b_in, *a1, *g1, *be1, *w_dw, *b_dw, *a2, *g2, *be2, *w_res,
+      *w_skip;
   float* dx;      // (B, T, C)
   float* dw_in;   // (H, C)
   float* db_in;   // (H)
@@ -99,140 +123,280 @@ struct TcnBwdArgs {
 
 namespace {
 
-// z1 = x W_in^T + b_in. grid (cdiv(T, kBM), cdiv(H, kBN), B)
-__global__ void __launch_bounds__(kThreads)
-bwd_z1(const float* __restrict__ x, const float* __restrict__ w,
-       const float* __restrict__ bias, float* __restrict__ z1, int T, int C, int H) {
-  const int b = blockIdx.z, t0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const float* xb = x + static_cast<size_t>(b) * T * C;
-  float acc[4][4] = {};
-  gemm_tile<true, true>(
-      acc, C,
-      [&](int m, int k) {
-        const int t = t0 + m;
-        return (t < T && k < C) ? xb[static_cast<size_t>(t) * C + k] : 0.f;
-      },
-      [&](int k, int n) {
-        n += n0;
-        return (k < C && n < H) ? w[n * C + k] : 0.f;
-      });
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      // the same sum, then bias, as the forward's epilogue: z1 is bitwise
-      // the forward's
-      if (t < T && n < H) z1[(static_cast<size_t>(b) * T + t) * H + n] = acc[i][j] + bias[n];
-    }
-  }
-}
+// A weight GEMM's split of each batch row's T steps: the most chunks whose
+// blocks (its `tiles` output tiles over the B rows and the chunks) fill no
+// more than two waves of 2 blocks on each of the 132 SMs, a third wave
+// mostly idle costing more than longer chunks, and no more chunks than T
+// has pieces of 256 steps; a chunk is a multiple of the k slice.
+// ops/tcn_block.py ``bwd_plan`` mirrors it.
+struct Split {
+  int chunks, chunk;
 
-// The normalised input of a gLN, zero outside [0, T) (the depthwise conv
-// pads after the norm).
-struct NormOnLoad {
-  const float* z;  // (T, H) pre-activation of one batch row
-  int T, H;
-  float alpha, mean, rstd;
-  __device__ float operator()(int t, int c, float g, float be) const {
-    if (t < 0 || t >= T) return 0.f;
-    return (prelu(z[static_cast<size_t>(t) * H + c], alpha) - mean) * rstd * g + be;
+  Split(int B, int T, int tiles) {
+    chunks = std::max(1, std::min(kWgBlocks / (tiles * B), cdiv(T, kWgMinChunk)));
+    chunk = cdiv(cdiv(T, chunks), kGK) * kGK;
+    chunks = cdiv(T, chunk);
   }
 };
 
-// z2 = depthwise(y1) + b_dw, with y1 normalised from z1 on load.
-// grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
-__global__ void __launch_bounds__(kThreads)
-bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats,
-       const float* __restrict__ a1, const float* __restrict__ g1,
-       const float* __restrict__ be1, const float* __restrict__ w_dw,
-       const float* __restrict__ b_dw, float* __restrict__ z2, int T, int H, int d) {
-  const int b = blockIdx.z, c = blockIdx.y * kEwCols + threadIdx.x % kEwCols;
-  if (c >= H) return;  // no barrier in this kernel
-  const NormOnLoad y1{z1 + static_cast<size_t>(b) * T * H, T, H, *a1, stats[4 * b],
-                      stats[4 * b + 1]};
-  const float g = g1[c], be = be1[c], w0 = w_dw[c], w1 = w_dw[H + c], w2 = w_dw[2 * H + c],
-              bd = b_dw[c];
-  const int t0 = blockIdx.x * kEwRows, t_end = min(T, t0 + kEwRows);
-  for (int t = t0 + threadIdx.x / kEwCols; t < t_end; t += kEwGroups) {
-    // the forward's expression and order: z2 is bitwise the forward's
-    z2[(static_cast<size_t>(b) * T + t) * H + c] =
-        y1(t - d, c, g, be) * w0 + y1(t, c, g, be) * w1 + y1(t + d, c, g, be) * w2 + bd;
+// ---------------------------------------------------------------------------
+// 1. z1 = x W_in^T + b_in. grid (cdiv(T, 128), cdiv(H, 128), B)
+
+template <bool kVec>
+struct Z1Op {
+  const float *xrow, *wt;  // the staged row of x (null past T); W_in^T (C, H)
+  int C, H;
+  RowStage<kVec> a;
+
+  __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
+    const int k0 = s * kGK, n0 = blockIdx.y * kGM;
+    a.load(xrow, k0, C);
+    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
+      return k0 + k < C && n0 + c < H ? wt + static_cast<size_t>(k0 + k) * H + n0 + c : nullptr;
+    }, wt);
+  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+tcn_bwd_z1_gemm(const float* __restrict__ x, const float* __restrict__ w_in_t,
+                const float* __restrict__ bias, float* __restrict__ z1, int T, int C, int H) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
+  const size_t row0 = static_cast<size_t>(b) * T;
+  Z1Op<kVec> op;
+  const int m = m0 + threadIdx.x % kGM;
+  op.xrow = m < T ? x + (row0 + m) * C : nullptr;
+  op.wt = w_in_t;
+  op.C = C;
+  op.H = H;
+  float acc[8][8] = {};
+  gemm_loop(op, acc, cdiv(C, kGK), sm);
+  // the same sum, then the bias, as the forward's epilogue
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + frag_col(j);
+    const float bn = n < H ? bias[n] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][j] = acc[i][j] + bn;
+  }
+  store_tile<kVec>(acc, [&](int i) -> float* {
+    return m0 + i < T ? z1 + (row0 + m0 + i) * H : nullptr;
+  }, n0, H);
+}
+
+// ---------------------------------------------------------------------------
+// 2. z2 = depthwise(y1) + b_dw, y1 normalised from z1 on load.
+
+// Four neighbouring channels of an elementwise tile, of which the first n
+// exist (n >= 4 but for the last channels of a width off the float4 grid).
+// kVec: one float4 load or store (the width a multiple of 4, the buffers
+// 16-byte aligned); else one float each, channels past n read as 0 and not
+// written.
+struct F4 {
+  float v[4];
+};
+
+template <bool kVec>
+__device__ __forceinline__ F4 ld4(const float* p, int n) {
+  if constexpr (kVec) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    return {{q.x, q.y, q.z, q.w}};
+  } else {
+    F4 a = {};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) a.v[e] = p[e];
+    return a;
   }
 }
 
-// gy2 = [g_res | g_skip] [W_res; W_skip]; per-tile column sums of gy2 h2
-// and gy2 into part[b][tile][2][H]. grid (cdiv(T, kBM), cdiv(H, kBN), B)
-__global__ void __launch_bounds__(kThreads)
-bwd_gy2(const float* __restrict__ g_res, const float* __restrict__ g_skip,
-        const float* __restrict__ w_res, const float* __restrict__ w_skip,
-        const float* __restrict__ z2, const float* __restrict__ a2,
-        float* __restrict__ gy2, float* __restrict__ part, int T, int H, int C, int Cs,
-        int n_res) {
-  __shared__ float red[2][16][kBN];
-  const int b = blockIdx.z, t0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int K = n_res + Cs;
-  const float* grb = n_res ? g_res + static_cast<size_t>(b) * T * C : nullptr;
-  const float* gsb = g_skip + static_cast<size_t>(b) * T * Cs;
-  float acc[4][4] = {};
-  gemm_tile<true, false>(
-      acc, K,
-      [&](int m, int k) {
-        const int t = t0 + m;
-        if (t >= T || k >= K) return 0.f;
-        const float* p = k < n_res ? grb + static_cast<size_t>(t) * C + k
-                                   : gsb + static_cast<size_t>(t) * Cs + (k - n_res);
-        return *p;
-      },
-      [&](int k, int n) {
-        n += n0;
-        if (k >= K || n >= H) return 0.f;
-        const float* w = k < n_res ? w_res + static_cast<size_t>(k) * H
-                                   : w_skip + static_cast<size_t>(k - n_res) * H;
-        return w[n];
-      });
+template <bool kVec>
+__device__ __forceinline__ void st4(float* p, const F4& a, int n) {
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) p[e] = a.v[e];
+  }
+}
 
+// the channels of the four at c that exist (4 on the float4 grid)
+template <bool kVec>
+__device__ __forceinline__ int ew_width(int c, int H) {
+  return kVec ? 4 : min(4, H - c);
+}
+
+// An elementwise tile's thread: channels c .. c + 3 of its 128, rows grp,
+// grp + kEwGroups, ... of its kEwRows.
+__device__ __forceinline__ int ew_channel() { return blockIdx.y * kEwCols + 4 * (threadIdx.x % 32); }
+__device__ __forceinline__ int ew_group() { return threadIdx.x / 32; }
+
+// The normalised input of a gLN at step t of four channels (ne of them
+// exist), zero outside [0, T) (the depthwise conv pads after the norm): z
+// points at the row's channel c, g and be are the affine's.
+template <bool kVec>
+struct NormOnLoad {
+  const float* z;
+  int T, H, ne;
+  float alpha, mean, rstd;
+  F4 g, be;
+  __device__ F4 operator()(int t) const {
+    F4 y = {};
+    if (t < 0 || t >= T) return y;
+    const F4 v = ld4<kVec>(z + static_cast<size_t>(t) * H, ne);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y.v[e] = (prelu(v.v[e], alpha) - mean) * rstd * g.v[e] + be.v[e];
+    return y;
+  }
+};
+
+// Column sums of an elementwise tile's N quantities: each thread's four
+// channels go to red[q][group][channel], then the kEwGroups groups of a
+// channel are added in order; out(q, channel) takes the tile's sum.
+template <int N, class Out>
+__device__ void tile_sums(const float (&s)[N][4], float* red, Out out) {
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(q * kEwGroups + ew_group()) * kEwCols + 4 * (threadIdx.x % 32) + e] = s[q][e];
+  __syncthreads();
+  for (int i = threadIdx.x; i < N * kEwCols; i += kThreads) {
+    const int q = i / kEwCols, col = i % kEwCols;
+    float sum = 0.f;
+    for (int g = 0; g < kEwGroups; ++g) sum += red[(q * kEwGroups + g) * kEwCols + col];
+    out(q, col, sum);
+  }
+}
+
+// grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats,
+           const float* __restrict__ a1, const float* __restrict__ g1,
+           const float* __restrict__ be1, const float* __restrict__ w_dw,
+           const float* __restrict__ b_dw, float* __restrict__ z2, int T, int H, int d) {
+  const int b = blockIdx.z, c = ew_channel();
+  if (c >= H) return;  // no barrier in this kernel
+  const size_t base = static_cast<size_t>(b) * T * H + c;
+  const int ne = ew_width<kVec>(c, H);
+  const NormOnLoad<kVec> y1{z1 + base, T, H, ne, *a1, stats[4 * b], stats[4 * b + 1],
+                            ld4<kVec>(g1 + c, ne), ld4<kVec>(be1 + c, ne)};
+  const F4 w0 = ld4<kVec>(w_dw + c, ne), w1 = ld4<kVec>(w_dw + H + c, ne),
+           w2 = ld4<kVec>(w_dw + 2 * H + c, ne), bd = ld4<kVec>(b_dw + c, ne);
+  const int t0 = blockIdx.x * kEwRows, t_end = min(T, t0 + kEwRows);
+  for (int t = t0 + ew_group(); t < t_end; t += kEwGroups) {
+    const F4 ym = y1(t - d), y0 = y1(t), yp = y1(t + d);
+    F4 z;
+    // the forward's expression and order: z2 is bitwise the forward's
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      z.v[e] = ym.v[e] * w0.v[e] + y0.v[e] * w1.v[e] + yp.v[e] * w2.v[e] + bd.v[e];
+    st4<kVec>(z2 + base + static_cast<size_t>(t) * H, z, ne);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. gy2 = [g_res | g_skip] [W_res; W_skip]: the k slices of g_res (zero
+// past C) then those of g_skip. Column sums of gy2 h2 and gy2 over the
+// tile's rows into part[b][tile][2][H]. grid (cdiv(T, 128), cdiv(H, 128), B)
+
+template <bool kVec>
+struct Gy2Op {
+  const float *rrow, *srow, *w_res, *w_skip;  // staged rows of g_res, g_skip
+  int n_res, Cs, H, nr;                       // nr: slices of g_res
+  RowStage<kVec> a;
+
+  __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
+    const int n0 = blockIdx.y * kGM;
+    const bool res = s < nr;
+    const int k0 = (res ? s : s - nr) * kGK, K = res ? n_res : Cs;
+    const float* w = res ? w_res : w_skip;
+    a.load(res ? rrow : srow, k0, K);
+    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
+      return k0 + k < K && n0 + c < H ? w + static_cast<size_t>(k0 + k) * H + n0 + c : nullptr;
+    }, w_skip);
+  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+tcn_bwd_gy2_gemm(const float* __restrict__ g_res, const float* __restrict__ g_skip,
+                 const float* __restrict__ w_res, const float* __restrict__ w_skip,
+                 const float* __restrict__ z2, const float* __restrict__ a2,
+                 float* __restrict__ gy2, float* __restrict__ part, int T, int H, int C, int Cs,
+                 int n_res) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
+  const size_t row0 = static_cast<size_t>(b) * T;
+  Gy2Op<kVec> op;
+  const int m = m0 + threadIdx.x % kGM;
+  op.rrow = n_res && m < T ? g_res + (row0 + m) * C : nullptr;
+  op.srow = m < T ? g_skip + (row0 + m) * Cs : nullptr;
+  op.w_res = w_res;
+  op.w_skip = w_skip;
+  op.n_res = n_res;
+  op.Cs = Cs;
+  op.H = H;
+  op.nr = cdiv(n_res, kGK);
+  float acc[8][8] = {};
+  gemm_loop(op, acc, op.nr + cdiv(Cs, kGK), sm);
+  store_tile<kVec>(acc, [&](int i) -> float* {
+    return m0 + i < T ? gy2 + (row0 + m0 + i) * H : nullptr;
+  }, n0, H);
+  // the column sums: the thread's 8 rows, then the 16 threads that share
+  // its columns in a fixed order (sm is free after the loop's last barrier)
   const float alpha = *a2;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s_gh[4] = {}, s_g[4] = {};
+  float s_gh[8] = {}, s_g[8] = {};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int t = m0 + frag_row(i);
+    if (t >= T) continue;
+    const float* zr = z2 + (row0 + t) * H + n0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (t < T && n < H) {
-        const size_t o = (static_cast<size_t>(b) * T + t) * H + n;
-        const float g = acc[i][j];
-        gy2[o] = g;
-        s_gh[j] += g * prelu(z2[o], alpha);
-        s_g[j] += g;
+    for (int h = 0; h < 2; ++h) {
+      const int c = frag_col(4 * h);
+      if (n0 + c >= H) continue;
+      const int ne = ew_width<kVec>(n0 + c, H);
+      const F4 z = ld4<kVec>(zr + c, ne);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e >= ne) break;
+        const float g = acc[i][4 * h + e];
+        s_gh[4 * h + e] += g * prelu(z.v[e], alpha);
+        s_g[4 * h + e] += g;
       }
     }
   }
+  float* red = sm;  // [2][16 sharers][128 columns]
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, sharer = (w / 4) * 8 + l / 4;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[0][ty][tx + 16 * j] = s_gh[j];
-    red[1][ty][tx + 16 * j] = s_g[j];
+  for (int j = 0; j < 8; ++j) {
+    red[sharer * kGM + frag_col(j)] = s_gh[j];
+    red[(16 + sharer) * kGM + frag_col(j)] = s_g[j];
   }
   __syncthreads();
-  if (threadIdx.x < 2 * kBN) {
-    const int q = threadIdx.x / kBN, col = threadIdx.x % kBN, n = n0 + col;
-    float s = 0.f;
-    for (int y = 0; y < 16; ++y) s += red[q][y][col];
-    if (n < H) part[((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * 2 + q) * H + n] = s;
-  }
+  const int q = threadIdx.x / kGM, col = threadIdx.x % kGM;
+  float sum = 0.f;
+  for (int y = 0; y < 16; ++y) sum += red[(16 * q + y) * kGM + col];
+  if (n0 + col < H)
+    part[((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * 2 + q) * H + n0 + col] = sum;
 }
 
-// Per batch row: merge the tile partials (sum gy h, sum gy) of a gLN
-// backward into dgb[b] = (dg, dbe) (H each) and the scalars fold[b] =
+// ---------------------------------------------------------------------------
+// 4 and 7. Per batch row: merge the tile partials (sum gy h, sum gy) of a
+// gLN backward into dgb[b] = (dg, dbe) (H each) and the scalars fold[b] =
 // (A, B) of gh = hs gy - A - B (h - mean). grid (B)
 __global__ void __launch_bounds__(kThreads)
-bwd_row_merge(const float* __restrict__ part, int n_tiles, const float* __restrict__ stats,
-              int slot, const float* __restrict__ gamma, float* __restrict__ dgb,
-              float* __restrict__ fold, int H, float inv_n) {
+tcn_bwd_row_merge(const float* __restrict__ part, int n_tiles, const float* __restrict__ stats,
+                  int slot, const float* __restrict__ gamma, float* __restrict__ dgb,
+                  float* __restrict__ fold, int H, float inv_n) {
   __shared__ float red[kThreads / 32];
   const int b = blockIdx.x;
   const float mean = stats[4 * b + 2 * slot], rstd = stats[4 * b + 2 * slot + 1];
@@ -258,316 +422,429 @@ bwd_row_merge(const float* __restrict__ part, int n_tiles, const float* __restri
   }
 }
 
-// Column partials of one elementwise tile: the kEwGroups row groups of a
-// column combine in a fixed order; returns on row group 0 only.
-template <int N>
-__device__ bool combine_groups(float (&s)[N], float (*red)[kEwCols]) {
-  const int col = threadIdx.x % kEwCols, grp = threadIdx.x / kEwCols;
-  for (int g = 1; g < kEwGroups; ++g) {
-    __syncthreads();
-    if (grp == g)
-      for (int q = 0; q < N; ++q) red[q][col] = s[q];
-    __syncthreads();
-    if (grp == 0)
-      for (int q = 0; q < N; ++q) s[q] += red[q][col];
+// ---------------------------------------------------------------------------
+// 5. [dW_res; dW_skip] partials: part[z][m][n] = sum_t g[t][m] y2[t][n] over
+// one (row, chunk) of time z, y2 normalised from z2 on load; the row tiles
+// of g_res come first, then those of g_skip. Blocks of column tile 0 also
+// write db[z][m] = sum_t g[t][m]. grid (cdiv(n_res, 128) + cdiv(Cs, 128),
+// cdiv(H, 128), B chunks)
+
+// The thread's two float4 pieces of y2's (kGK, 128) slice (stage_direct's
+// pieces), normalised from z2 through registers; rows past the chunk and
+// columns past H are 0.
+template <bool kVec>
+struct Y2Stage {
+  float4 v[2];
+  F4 g, be;  // g2 and be2 of the thread's four columns
+
+  __device__ __forceinline__ void load(const float* zrow0, int k0, int kc, int H, int n0,
+                                       float alpha, float mean, float rstd) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = threadIdx.x + q * kGemmThreads, k = k0 + i / 32, c = n0 + i % 32 * 4;
+      F4 y = {};
+      if (k < kc && c < H) {
+        const float* p = zrow0 + static_cast<size_t>(k) * H + c;
+        const int ne = ew_width<kVec>(c, H);
+        F4 z = {};
+        if constexpr (kVec) {
+          const float4 q4 = __ldg(reinterpret_cast<const float4*>(p));
+          z = {{q4.x, q4.y, q4.z, q4.w}};
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (e < ne) z.v[e] = __ldg(p + e);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < ne) y.v[e] = (prelu(z.v[e], alpha) - mean) * rstd * g.v[e] + be.v[e];
+      }
+      v[q] = make_float4(y.v[0], y.v[1], y.v[2], y.v[3]);
+    }
   }
-  return grp == 0;
+
+  __device__ __forceinline__ void store(float* S) const {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = threadIdx.x + q * kGemmThreads;
+      *reinterpret_cast<float4*>(S + (i / 32) * kGLd + i % 32 * 4) = v[q];
+    }
+  }
+};
+
+template <bool kVec>
+struct WoutOp {
+  const float *g, *zrow0;  // g_res or g_skip and z2 at the chunk's first step
+  int ld, m_max, kc, H;    // g's row stride and columns; the chunk's steps
+  float alpha, mean, rstd, db = 0.f;
+  Y2Stage<kVec> y;
+
+  __device__ __forceinline__ void fetch(int s, float* As, float*) {
+    const int k0 = s * kGK, n0 = blockIdx.y * kGM;
+    stage_direct<kVec>(As, [&](int k, int c) -> const float* {
+      return k0 + k < kc && c < m_max ? g + static_cast<size_t>(k0 + k) * ld + c : nullptr;
+    }, g);
+    y.load(zrow0, k0, kc, H, n0, alpha, mean, rstd);
+  }
+  __device__ __forceinline__ void store(float* As) { y.store(As + kGSlice); }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float* Bs) {
+    if (blockIdx.y != 0 || threadIdx.x >= kGM) return;
+    const float* As = Bs - kGSlice;
+#pragma unroll
+    for (int k = 0; k < kGK; ++k) db += As[k * kGLd + threadIdx.x];
+  }
+};
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+tcn_bwd_wout_gemm(const float* __restrict__ g_res, const float* __restrict__ g_skip,
+                  const float* __restrict__ z2, const float* __restrict__ stats,
+                  const float* __restrict__ a2, const float* __restrict__ g2,
+                  const float* __restrict__ be2, float* __restrict__ part,
+                  float* __restrict__ part_db, int T, int H, int C, int Cs, int n_res,
+                  int chunks, int chunk) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * chunk;
+  const int mr = cdiv(n_res, kGM), M = n_res + Cs;
+  const bool res = static_cast<int>(blockIdx.x) < mr;
+  const int m0 = (res ? blockIdx.x : blockIdx.x - mr) * kGM, n0 = blockIdx.y * kGM;
+  const int row_off = res ? 0 : n_res;  // the output rows of this source
+  const size_t row0 = static_cast<size_t>(b) * T + tc;
+  WoutOp<kVec> op;
+  op.ld = res ? C : Cs;
+  op.m_max = (res ? n_res : Cs) - m0;
+  op.g = (res ? g_res : g_skip) + row0 * op.ld + m0;
+  op.zrow0 = z2 + row0 * H;
+  op.kc = min(chunk, T - tc);
+  op.H = H;
+  op.alpha = *a2;
+  op.mean = stats[4 * b + 2];
+  op.rstd = stats[4 * b + 3];
+  const int c = n0 + threadIdx.x % 32 * 4;
+  op.y.g = c < H ? ld4<kVec>(g2 + c, H - c) : F4{};
+  op.y.be = c < H ? ld4<kVec>(be2 + c, H - c) : F4{};
+  float acc[8][8] = {};
+  gemm_loop(op, acc, cdiv(op.kc, kGK), sm);
+  float* out = part + (static_cast<size_t>(blockIdx.z) * M + row_off + m0) * H;
+  store_tile<kVec>(acc, [&](int i) -> float* {
+    return i < op.m_max ? out + static_cast<size_t>(i) * H : nullptr;
+  }, n0, H);
+  if (blockIdx.y == 0 && threadIdx.x < kGM && static_cast<int>(threadIdx.x) < op.m_max)
+    part_db[static_cast<size_t>(blockIdx.z) * M + row_off + m0 + threadIdx.x] = op.db;
 }
 
-// gz2 = PReLU'(z2) (hs2 gy2 - A2 - B2 (h2 - mean2)), written over gy2.
-// Partials:
-// part[b][tile][4][H] = sum gz2 y1[t-d], sum gz2 y1[t], sum gz2 y1[t+d],
-// sum gz2; part_a[b][tile][ctile] = sum gh2 min(z2, 0), in double.
+// ---------------------------------------------------------------------------
+// 6. gz2 at t - d, t and t + d from gy2 and z2 (zero outside [0, T)), gy1[t]
+// = w0 gz2[t+d] + w1 gz2[t] + w2 gz2[t-d] into gy1. Partials:
+// part2[b][tile][4][H] = sum gz2 y1[t-d], sum gz2 y1[t], sum gz2 y1[t+d],
+// sum gz2; part_a[b][tile][ctile] = sum gh2 min(z2, 0), in double;
+// part1[b][tile][2][H] = sum gy1 h1, sum gy1.
 // grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-bwd_gz2(const float* __restrict__ z1, const float* __restrict__ z2, float* __restrict__ gy,
-        const float* __restrict__ stats, const float* __restrict__ fold2,
-        const float* __restrict__ a1, const float* __restrict__ g1,
-        const float* __restrict__ be1, const float* __restrict__ a2,
-        const float* __restrict__ g2, float* __restrict__ part,
-        double* __restrict__ part_a, int T, int H, int d) {
+tcn_bwd_gz2_gy1(const float* __restrict__ z1, const float* __restrict__ z2,
+                const float* __restrict__ gy2, float* __restrict__ gy1,
+                const float* __restrict__ stats, const float* __restrict__ fold2,
+                const float* __restrict__ a1, const float* __restrict__ g1,
+                const float* __restrict__ be1, const float* __restrict__ w_dw,
+                const float* __restrict__ a2, const float* __restrict__ g2,
+                float* __restrict__ part2, double* __restrict__ part_a,
+                float* __restrict__ part1, int T, int H, int d) {
   __shared__ double red[kThreads / 32];
-  __shared__ float cred[4][kEwCols];
-  const int b = blockIdx.z, c = blockIdx.y * kEwCols + threadIdx.x % kEwCols;
+  __shared__ float cred[6 * kEwGroups * kEwCols];
+  const int b = blockIdx.z, c = ew_channel();
   const bool c_ok = c < H;
-  const NormOnLoad y1{z1 + static_cast<size_t>(b) * T * H, T, H, *a1, stats[4 * b],
-                      stats[4 * b + 1]};
-  const float alpha = *a2, fa = fold2[2 * b], fb = fold2[2 * b + 1], mean2 = stats[4 * b + 2];
-  float g = 0.f, be = 0.f, hs2 = 0.f;
+  const int ne = c_ok ? ew_width<kVec>(c, H) : 0;
+  const size_t base = static_cast<size_t>(b) * T * H + c;
+  const float alpha1 = *a1, alpha = *a2, fa = fold2[2 * b], fb = fold2[2 * b + 1],
+              mean2 = stats[4 * b + 2], rstd2 = stats[4 * b + 3];
+  F4 g = {}, be = {}, hs2 = {}, w0 = {}, w1 = {}, w2 = {};
   if (c_ok) {
-    g = g1[c];
-    be = be1[c];
-    hs2 = g2[c] * stats[4 * b + 3];
+    g = ld4<kVec>(g1 + c, ne);
+    be = ld4<kVec>(be1 + c, ne);
+    hs2 = ld4<kVec>(g2 + c, ne);
+    w0 = ld4<kVec>(w_dw + c, ne);
+    w1 = ld4<kVec>(w_dw + H + c, ne);
+    w2 = ld4<kVec>(w_dw + 2 * H + c, ne);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hs2.v[e] *= rstd2;
   }
-  float s[4] = {};
+  const NormOnLoad<kVec> y1{z1 + base, T, H, ne, alpha1, stats[4 * b], stats[4 * b + 1], g, be};
+  // gh2 at step t of the four channels (t in [0, T)), and z2 there
+  auto gh_at = [&](int t, F4& z) {
+    const size_t o = base + static_cast<size_t>(t) * H;
+    z = ld4<kVec>(z2 + o, ne);
+    const F4 gy = ld4<kVec>(gy2 + o, ne);
+    F4 gh;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      gh.v[e] = hs2.v[e] * gy.v[e] - fa - fb * (prelu(z.v[e], alpha) - mean2);
+    return gh;
+  };
+  // gz2 at step t, zero outside [0, T)
+  auto gz_at = [&](int t) {
+    F4 gz = {};
+    if (t < 0 || t >= T) return gz;
+    F4 z;
+    const F4 gh = gh_at(t, z);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gz.v[e] = z.v[e] >= 0.f ? gh.v[e] : alpha * gh.v[e];
+    return gz;
+  };
+  float s[6][4] = {};
   double sa = 0.0;
   const int t0 = blockIdx.x * kEwRows, t_end = min(T, t0 + kEwRows);
   if (c_ok) {
-    for (int t = t0 + threadIdx.x / kEwCols; t < t_end; t += kEwGroups) {
-      const size_t o = (static_cast<size_t>(b) * T + t) * H + c;
-      const float z = z2[o];
-      const float gh = hs2 * gy[o] - fa - fb * (prelu(z, alpha) - mean2);
-      const float gz = z >= 0.f ? gh : alpha * gh;
-      gy[o] = gz;
-      sa += gh * fminf(z, 0.f);
-      s[0] += gz * y1(t - d, c, g, be);
-      s[1] += gz * y1(t, c, g, be);
-      s[2] += gz * y1(t + d, c, g, be);
-      s[3] += gz;
+    for (int t = t0 + ew_group(); t < t_end; t += kEwGroups) {
+      const size_t o = base + static_cast<size_t>(t) * H;
+      F4 z;
+      const F4 gh = gh_at(t, z);
+      const F4 ym = y1(t - d), y0 = y1(t), yp = y1(t + d), gzp = gz_at(t + d),
+               gzm = gz_at(t - d), zt = ld4<kVec>(z1 + o, ne);
+      F4 gy = {};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e >= ne) break;
+        const float gz = z.v[e] >= 0.f ? gh.v[e] : alpha * gh.v[e];
+        sa += gh.v[e] * fminf(z.v[e], 0.f);
+        s[0][e] += gz * ym.v[e];
+        s[1][e] += gz * y0.v[e];
+        s[2][e] += gz * yp.v[e];
+        s[3][e] += gz;
+        gy.v[e] = w0.v[e] * gzp.v[e] + w1.v[e] * gz + w2.v[e] * gzm.v[e];
+        s[4][e] += gy.v[e] * prelu(zt.v[e], alpha1);
+        s[5][e] += gy.v[e];
+      }
+      st4<kVec>(gy1 + o, gy, ne);
     }
   }
-  if (combine_groups(s, cred) && c_ok) {
-    for (int q = 0; q < 4; ++q)
-      part[((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * 4 + q) * H + c] = s[q];
-  }
+  const size_t tile = static_cast<size_t>(b) * gridDim.x + blockIdx.x;
+  tile_sums(s, cred, [&](int q, int col, float sum) {
+    const int ch = blockIdx.y * kEwCols + col;
+    if (ch >= H) return;
+    if (q < 4)
+      part2[(tile * 4 + q) * H + ch] = sum;
+    else
+      part1[(tile * 2 + q - 4) * H + ch] = sum;
+  });
   sa = block_sum(sa, red);
-  if (threadIdx.x == 0)
-    part_a[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * gridDim.y + blockIdx.y] = sa;
+  if (threadIdx.x == 0) part_a[tile * gridDim.y + blockIdx.y] = sa;
 }
 
-// Weight gradient of the output projections, one (row, chunk) of time per
-// block in z: part[z][m][n] = sum_t g[t][m] y2[t][n] over the chunk, with
-// g = [g_res | g_skip] and y2 normalised from z2 on load.
-// grid (cdiv(n_res + Cs, kBM), cdiv(H, kBN), B * chunks)
-__global__ void __launch_bounds__(kThreads)
-bwd_wgrad_out(const float* __restrict__ g_res, const float* __restrict__ g_skip,
-              const float* __restrict__ z2, const float* __restrict__ stats,
-              const float* __restrict__ a2, const float* __restrict__ g2,
-              const float* __restrict__ be2, float* __restrict__ part, int T, int H, int C,
-              int Cs, int n_res, int chunks) {
-  const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * kChunk;
-  const int kc = min(kChunk, T - tc), M = n_res + Cs;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const float* grb = n_res ? g_res + (static_cast<size_t>(b) * T + tc) * C : nullptr;
-  const float* gsb = g_skip + (static_cast<size_t>(b) * T + tc) * Cs;
-  const float* zb = z2 + (static_cast<size_t>(b) * T + tc) * H;
-  const float alpha = *a2, mean = stats[4 * b + 2], rstd = stats[4 * b + 3];
-  float acc[4][4] = {};
-  gemm_tile<false, false>(
-      acc, kc,
-      [&](int m, int k) {
-        m += m0;
-        if (m >= M || k >= kc) return 0.f;
-        const float* p = m < n_res ? grb + static_cast<size_t>(k) * C + m
-                                   : gsb + static_cast<size_t>(k) * Cs + (m - n_res);
-        return *p;
-      },
-      [&](int k, int n) {
-        n += n0;
-        if (k >= kc || n >= H) return 0.f;
-        return (prelu(zb[static_cast<size_t>(k) * H + n], alpha) - mean) * rstd * g2[n] + be2[n];
-      });
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* out = part + static_cast<size_t>(blockIdx.z) * M * H;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < H) out[static_cast<size_t>(m) * H + n] = acc[i][j];
-    }
-  }
-}
-
-// gy1[t] = w0 gz2[t+d] + w1 gz2[t] + w2 gz2[t-d] (gz2 zero outside [0, T)),
-// written into gy1; partials part[b][tile][2][H] = sum gy1 h1, sum gy1.
-// grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
-__global__ void __launch_bounds__(kThreads)
-bwd_gy1(const float* __restrict__ gz2, const float* __restrict__ z1,
-        const float* __restrict__ a1, const float* __restrict__ w_dw,
-        float* __restrict__ gy1, float* __restrict__ part, int T, int H, int d) {
-  __shared__ float cred[2][kEwCols];
-  const int b = blockIdx.z, c = blockIdx.y * kEwCols + threadIdx.x % kEwCols;
-  const bool c_ok = c < H;
-  const float alpha = *a1;
-  float w0 = 0.f, w1 = 0.f, w2 = 0.f;
-  if (c_ok) {
-    w0 = w_dw[c];
-    w1 = w_dw[H + c];
-    w2 = w_dw[2 * H + c];
-  }
-  const float* gb = gz2 + static_cast<size_t>(b) * T * H;
-  auto gz = [&](int t) { return (t >= 0 && t < T) ? gb[static_cast<size_t>(t) * H + c] : 0.f; };
-  float s[2] = {};
-  const int t0 = blockIdx.x * kEwRows, t_end = min(T, t0 + kEwRows);
-  if (c_ok) {
-    for (int t = t0 + threadIdx.x / kEwCols; t < t_end; t += kEwGroups) {
-      const size_t o = (static_cast<size_t>(b) * T + t) * H + c;
-      const float g = w0 * gz(t + d) + w1 * gz(t) + w2 * gz(t - d);
-      gy1[o] = g;
-      s[0] += g * prelu(z1[o], alpha);
-      s[1] += g;
-    }
-  }
-  if (combine_groups(s, cred) && c_ok) {
-    for (int q = 0; q < 2; ++q)
-      part[((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * 2 + q) * H + c] = s[q];
-  }
-}
-
-// gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), written over z1.
-// Partials:
-// part[b][tile][H] = sum gz1 (db_in); part_a[b][tile][ctile] =
+// ---------------------------------------------------------------------------
+// 8. gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), written over z1.
+// Partials: part[b][tile][H] = sum gz1 (db_in); part_a[b][tile][ctile] =
 // sum gh1 min(z1, 0) in double. grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1, const float* __restrict__ stats,
-        const float* __restrict__ fold1, const float* __restrict__ a1,
-        const float* __restrict__ g1, float* __restrict__ part, double* __restrict__ part_a,
-        int T, int H) {
+tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
+            const float* __restrict__ stats, const float* __restrict__ fold1,
+            const float* __restrict__ a1, const float* __restrict__ g1, float* __restrict__ part,
+            double* __restrict__ part_a, int T, int H) {
   __shared__ double red[kThreads / 32];
-  __shared__ float cred[1][kEwCols];
-  const int b = blockIdx.z, c = blockIdx.y * kEwCols + threadIdx.x % kEwCols;
+  __shared__ float cred[kEwGroups * kEwCols];
+  const int b = blockIdx.z, c = ew_channel();
   const bool c_ok = c < H;
+  const int ne = c_ok ? ew_width<kVec>(c, H) : 0;
+  const size_t base = static_cast<size_t>(b) * T * H + c;
   const float alpha = *a1, fa = fold1[2 * b], fb = fold1[2 * b + 1], mean1 = stats[4 * b];
-  const float hs1 = c_ok ? g1[c] * stats[4 * b + 1] : 0.f;
-  float s[1] = {};
+  F4 hs1 = {};
+  if (c_ok) {
+    hs1 = ld4<kVec>(g1 + c, ne);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hs1.v[e] *= stats[4 * b + 1];
+  }
+  float s[1][4] = {};
   double sa = 0.0;
   const int t0 = blockIdx.x * kEwRows, t_end = min(T, t0 + kEwRows);
   if (c_ok) {
-    for (int t = t0 + threadIdx.x / kEwCols; t < t_end; t += kEwGroups) {
-      const size_t o = (static_cast<size_t>(b) * T + t) * H + c;
-      const float z = z1[o];
-      const float gh = hs1 * gy1[o] - fa - fb * (prelu(z, alpha) - mean1);
-      const float g = z >= 0.f ? gh : alpha * gh;
-      z1[o] = g;
-      sa += gh * fminf(z, 0.f);
-      s[0] += g;
+    for (int t = t0 + ew_group(); t < t_end; t += kEwGroups) {
+      const size_t o = base + static_cast<size_t>(t) * H;
+      const F4 z = ld4<kVec>(z1 + o, ne), gy = ld4<kVec>(gy1 + o, ne);
+      F4 gz = {};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e >= ne) break;
+        const float gh = hs1.v[e] * gy.v[e] - fa - fb * (prelu(z.v[e], alpha) - mean1);
+        gz.v[e] = z.v[e] >= 0.f ? gh : alpha * gh;
+        sa += gh * fminf(z.v[e], 0.f);
+        s[0][e] += gz.v[e];
+      }
+      st4<kVec>(z1 + o, gz, ne);
     }
   }
-  if (combine_groups(s, cred) && c_ok)
-    part[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * H + c] = s[0];
+  const size_t tile = static_cast<size_t>(b) * gridDim.x + blockIdx.x;
+  tile_sums(s, cred, [&](int, int col, float sum) {
+    const int ch = blockIdx.y * kEwCols + col;
+    if (ch < H) part[tile * H + ch] = sum;
+  });
   sa = block_sum(sa, red);
-  if (threadIdx.x == 0)
-    part_a[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * gridDim.y + blockIdx.y] = sa;
+  if (threadIdx.x == 0) part_a[tile * gridDim.y + blockIdx.y] = sa;
 }
 
-// dx = gz1 W_in (+ g_res). grid (cdiv(T, kBM), cdiv(C, kBN), B)
-__global__ void __launch_bounds__(kThreads)
-bwd_dx(const float* __restrict__ gz1, const float* __restrict__ w_in,
-       const float* __restrict__ g_res, float* __restrict__ dx, int T, int H, int C) {
-  const int b = blockIdx.z, t0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const float* gb = gz1 + static_cast<size_t>(b) * T * H;
-  float acc[4][4] = {};
-  gemm_tile<true, false>(
-      acc, H,
-      [&](int m, int k) {
-        const int t = t0 + m;
-        return (t < T && k < H) ? gb[static_cast<size_t>(t) * H + k] : 0.f;
-      },
-      [&](int k, int n) {
-        n += n0;
-        return (k < H && n < C) ? w_in[k * C + n] : 0.f;
-      });
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// ---------------------------------------------------------------------------
+// 9. dx = gz1 W_in (+ g_res). grid (cdiv(T, 128), cdiv(C, 128), B)
+
+template <bool kVec>
+struct DxOp {
+  const float *grow, *w;  // the staged row of gz1; W_in (H, C), rows k
+  int H, C;
+  RowStage<kVec> a;
+
+  __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
+    const int k0 = s * kGK, n0 = blockIdx.y * kGM;
+    a.load(grow, k0, H);
+    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
+      return k0 + k < H && n0 + c < C ? w + static_cast<size_t>(k0 + k) * C + n0 + c : nullptr;
+    }, w);
+  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+tcn_bwd_dx_gemm(const float* __restrict__ gz1, const float* __restrict__ w_in,
+                const float* __restrict__ g_res, float* __restrict__ dx, int T, int H, int C) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
+  const size_t row0 = static_cast<size_t>(b) * T;
+  DxOp<kVec> op;
+  const int m = m0 + threadIdx.x % kGM;
+  op.grow = m < T ? gz1 + (row0 + m) * H : nullptr;
+  op.w = w_in;
+  op.H = H;
+  op.C = C;
+  float acc[8][8] = {};
+  gemm_loop(op, acc, cdiv(H, kGK), sm);
+  if (g_res) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+    for (int i = 0; i < 8; ++i) {
+      const int t = m0 + frag_row(i);
+      if (t >= T) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (t < T && n < C) {
-        const size_t o = (static_cast<size_t>(b) * T + t) * C + n;
-        dx[o] = g_res ? acc[i][j] + g_res[o] : acc[i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + frag_col(4 * h);
+        if (n >= C) continue;
+        const F4 r = ld4<kVec>(g_res + (row0 + t) * C + n, C - n);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][4 * h + e] += r.v[e];
       }
     }
   }
+  store_tile<kVec>(acc, [&](int i) -> float* {
+    return m0 + i < T ? dx + (row0 + m0 + i) * C : nullptr;
+  }, n0, C);
 }
 
-// dW_in partials: part[z][h][c] = sum_t gz1[t][h] x[t][c] over one (row,
-// chunk). grid (cdiv(H, kBM), cdiv(C, kBN), B * chunks)
-__global__ void __launch_bounds__(kThreads)
-bwd_wgrad_in(const float* __restrict__ gz1, const float* __restrict__ x,
-             float* __restrict__ part, int T, int H, int C, int chunks) {
-  const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * kChunk;
-  const int kc = min(kChunk, T - tc);
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const float* gb = gz1 + (static_cast<size_t>(b) * T + tc) * H;
-  const float* xb = x + (static_cast<size_t>(b) * T + tc) * C;
-  float acc[4][4] = {};
-  gemm_tile<false, false>(
-      acc, kc,
-      [&](int m, int k) {
-        m += m0;
-        return (m < H && k < kc) ? gb[static_cast<size_t>(k) * H + m] : 0.f;
-      },
-      [&](int k, int n) {
-        n += n0;
-        return (k < kc && n < C) ? xb[static_cast<size_t>(k) * C + n] : 0.f;
-      });
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* out = part + static_cast<size_t>(blockIdx.z) * H * C;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < H && n < C) out[static_cast<size_t>(m) * C + n] = acc[i][j];
-    }
+// ---------------------------------------------------------------------------
+// 10. dW_in partials: part[z][h][c] = sum_t gz1[t][h] x[t][c] over one (row,
+// chunk) z. grid (cdiv(H, 128), cdiv(C, 128), B chunks)
+
+template <bool kVec>
+struct WinOp {
+  const float *g, *x;  // gz1 and x at the chunk's first step
+  int H, C, kc;
+
+  __device__ __forceinline__ void fetch(int s, float* As, float* Bs) {
+    const int k0 = s * kGK, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
+    stage_direct<kVec>(As, [&](int k, int c) -> const float* {
+      return k0 + k < kc && m0 + c < H ? g + static_cast<size_t>(k0 + k) * H + m0 + c : nullptr;
+    }, g);
+    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
+      return k0 + k < kc && n0 + c < C ? x + static_cast<size_t>(k0 + k) * C + n0 + c : nullptr;
+    }, x);
   }
+  __device__ __forceinline__ void store(float*) {}
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+tcn_bwd_win_gemm(const float* __restrict__ gz1, const float* __restrict__ x,
+                 float* __restrict__ part, int T, int H, int C, int chunks, int chunk) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * chunk;
+  const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
+  const size_t row0 = static_cast<size_t>(b) * T + tc;
+  WinOp<kVec> op;
+  op.g = gz1 + row0 * H;
+  op.x = x + row0 * C;
+  op.H = H;
+  op.C = C;
+  op.kc = min(chunk, T - tc);
+  float acc[8][8] = {};
+  gemm_loop(op, acc, cdiv(op.kc, kGK), sm);
+  float* out = part + static_cast<size_t>(blockIdx.z) * H * C;
+  store_tile<kVec>(acc, [&](int i) -> float* {
+    return m0 + i < H ? out + static_cast<size_t>(m0 + i) * C : nullptr;
+  }, n0, C);
 }
 
-// Column sums of [g_res | g_skip] over kColRows time steps:
-// part[b][tile][m]. grid (cdiv(T, kColRows), cdiv(n_res + Cs, kThreads), B)
-__global__ void __launch_bounds__(kThreads)
-bwd_colsum(const float* __restrict__ g_res, const float* __restrict__ g_skip,
-           float* __restrict__ part, int T, int C, int Cs, int n_res) {
-  const int b = blockIdx.z, m = blockIdx.y * kThreads + threadIdx.x, M = n_res + Cs;
-  if (m >= M) return;
-  const int stride = m < n_res ? C : Cs;
-  const float* p = m < n_res ? g_res + static_cast<size_t>(b) * T * C + m
-                             : g_skip + static_cast<size_t>(b) * T * Cs + (m - n_res);
-  const int t0 = blockIdx.x * kColRows, t1 = min(T, t0 + kColRows);
-  float s = 0.f;
-  for (int t = t0; t < t1; ++t) s += p[static_cast<size_t>(t) * stride];
-  part[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * M + m] = s;
-}
+// ---------------------------------------------------------------------------
+// 11. Every parameter gradient from its partials, one task a grid row:
+// out[i] = sum over p < n_part of part[p][i], i < n, in float (each of the
+// groups of threads of a column sums every groups-th partial, then one
+// thread adds the groups in order), or a sum of n_part doubles into out[0].
 
-// out[i] = sum over p < n_part of part[p][i], i < n: each of `groups`
-// threads of a column sums every groups-th partial, then one thread adds
-// the groups in order. grid (cdiv(n, cols)); cols is 32, or 1 for n < 32.
+struct SumTask {
+  const void* part;
+  float* out;
+  int n_part, n, f64;
+};
+
+constexpr int kMaxSums = 9;
+
+struct SumTasks {
+  SumTask task[kMaxSums];
+};
+
+// grid (the most blocks a task needs, tasks)
 __global__ void __launch_bounds__(kThreads)
-sum_partials(const float* __restrict__ part, int n_part, int n, int cols,
-             float* __restrict__ out) {
+tcn_bwd_sums(const SumTasks tasks) {
   __shared__ float red[kThreads];
+  __shared__ double dred[kThreads / 32];
+  const SumTask& task = tasks.task[blockIdx.y];
+  if (task.f64) {
+    if (blockIdx.x != 0) return;
+    const double* part = static_cast<const double*>(task.part);
+    double s = 0.0;
+    for (int p = threadIdx.x; p < task.n_part; p += kThreads) s += part[p];
+    s = block_sum(s, dred);
+    if (threadIdx.x == 0) task.out[0] = static_cast<float>(s);
+    return;
+  }
+  const int cols = task.n >= 32 ? 32 : 1;
+  if (static_cast<int>(blockIdx.x) * cols >= task.n) return;
+  const float* part = static_cast<const float*>(task.part);
   const int groups = kThreads / cols, col = threadIdx.x % cols, grp = threadIdx.x / cols;
   const int i = blockIdx.x * cols + col;
   float s = 0.f;
-  if (i < n)
-    for (int p = grp; p < n_part; p += groups) s += part[static_cast<size_t>(p) * n + i];
+  if (i < task.n)
+    for (int p = grp; p < task.n_part; p += groups) s += part[static_cast<size_t>(p) * task.n + i];
   red[threadIdx.x] = s;
   __syncthreads();
-  if (grp == 0 && i < n) {
+  if (grp == 0 && i < task.n) {
     float tot = 0.f;
     for (int g = 0; g < groups; ++g) tot += red[g * cols + col];
-    out[i] = tot;
+    task.out[i] = tot;
   }
 }
 
-// out[0] = sum of n_part doubles: each thread sums every kThreads-th,
-// then the block adds them in a fixed order. grid (1)
-__global__ void __launch_bounds__(kThreads)
-sum_partials_f64(const double* __restrict__ part, int n_part, float* __restrict__ out) {
-  __shared__ double red[kThreads / 32];
-  double s = 0.0;
-  for (int p = threadIdx.x; p < n_part; p += kThreads) s += part[p];
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) out[0] = static_cast<float>(s);
-}
-
-// Workspace layout (float offsets), shared by tcn_bwd_workspace and the
-// launches.
+// The launch plan and workspace layout (float offsets), shared by
+// tcn_bwd_plan, tcn_bwd_workspace and the launches.
 struct Layout {
-  size_t z1, z2, gy2, p_gy2, fold2, dgb2_rows, p_gz2, pa2, p_wout, p_gy1, fold1, dgb1_rows,
-      p_gz1, pa1, p_win, p_col, total;
-  int tiles, ctiles, chunks, coltiles, M;
+  size_t z1, z2, gy2, gy1, p_gy2, fold2, dgb2_rows, p_gz2, pa2, p_wout, p_dbout, p_gy1, fold1,
+      dgb1_rows, p_gz1, pa1, p_win, total;
+  int gtiles, tiles, ctiles, M;
+  Split wout, win;
 
-  Layout(int B, int T, int C, int H, int Cs, int last) {
-    tiles = cdiv(T, kEwRows);  // = cdiv(T, kBM): one partial per 64 rows
+  Layout(int B, int T, int C, int H, int Cs, int last)
+      : wout(B, T, (cdiv(last ? 0 : C, kGM) + cdiv(Cs, kGM)) * cdiv(H, kGM)),
+        win(B, T, cdiv(H, kGM) * cdiv(C, kGM)) {
+    gtiles = cdiv(T, kGM);
+    tiles = cdiv(T, kEwRows);
     ctiles = cdiv(H, kEwCols);
-    chunks = cdiv(T, kChunk);
-    coltiles = cdiv(T, kColRows);
     M = (last ? 0 : C) + Cs;
     const size_t bth = static_cast<size_t>(B) * T * H, bt = static_cast<size_t>(B) * tiles;
     size_t at = 0;
@@ -579,28 +856,108 @@ struct Layout {
     z1 = take(bth);
     z2 = take(bth);
     gy2 = take(bth);
-    p_gy2 = take(bt * 2 * H);
+    gy1 = take(bth);
+    p_gy2 = take(static_cast<size_t>(B) * gtiles * 2 * H);
     fold2 = take(2 * static_cast<size_t>(B));
     dgb2_rows = take(static_cast<size_t>(B) * 2 * H);
     p_gz2 = take(bt * 4 * H);
     pa2 = take(2 * bt * ctiles);  // doubles
-    p_wout = take(static_cast<size_t>(B) * chunks * M * H);
+    p_wout = take(static_cast<size_t>(B) * wout.chunks * M * H);
+    p_dbout = take(static_cast<size_t>(B) * wout.chunks * M);
     p_gy1 = take(bt * 2 * H);
     fold1 = take(2 * static_cast<size_t>(B));
     dgb1_rows = take(static_cast<size_t>(B) * 2 * H);
     p_gz1 = take(bt * H);
     pa1 = take(2 * bt * ctiles);  // doubles
-    p_win = take(static_cast<size_t>(B) * chunks * H * C);
-    p_col = take(static_cast<size_t>(B) * coltiles * M);
+    p_win = take(static_cast<size_t>(B) * win.chunks * H * C);
     total = at;
   }
 };
 
-int reduce(const float* part, int n_part, int n, float* out, cudaStream_t s) {
-  const int cols = n >= 32 ? 32 : 1;
-  sum_partials<<<cdiv(n, cols), kThreads, 0, s>>>(part, n_part, n, cols, out);
-  return static_cast<int>(cudaGetLastError());
+bool shape_ok(int B, int T, int C, int H, int Cs) {
+  return B > 0 && T > 0 && C > 0 && H > 0 && Cs > 0;
 }
+
+// every width on the float4 grid: the kVec kernels
+bool vec_widths(int C, int H, int Cs) { return C % 4 == 0 && H % 4 == 0 && Cs % 4 == 0; }
+
+#define TCN_LAUNCHED()                                \
+  if ((err = static_cast<int>(cudaGetLastError()))) { \
+    return err;                                       \
+  }
+
+// The whole backward on s; the first launch's CUDA error code, or 0.
+template <bool kVec>
+int launch_bwd(const TcnBwdArgs* a, cudaStream_t s) {
+  const int B = a->B, T = a->T, C = a->C, H = a->H, Cs = a->Cs, d = a->dilation;
+  const int n_res = a->last ? 0 : C;
+  const Layout L(B, T, C, H, Cs, a->last);
+  float* w = a->work;
+  const float inv_n = 1.f / (static_cast<float>(T) * static_cast<float>(H));
+  const float* g_res = a->last ? nullptr : a->g_res;
+  const dim3 ew(L.tiles, L.ctiles, B);
+  double* pa1 = reinterpret_cast<double*>(w + L.pa1);  // 128-byte aligned
+  double* pa2 = reinterpret_cast<double*>(w + L.pa2);
+  int err = 0;
+
+  tcn_bwd_z1_gemm<kVec><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
+      a->x, a->w_in_t, a->b_in, w + L.z1, T, C, H);
+  TCN_LAUNCHED();
+  tcn_bwd_z2<kVec><<<ew, kThreads, 0, s>>>(w + L.z1, a->stats, a->a1, a->g1, a->be1, a->w_dw,
+                                           a->b_dw, w + L.z2, T, H, d);
+  TCN_LAUNCHED();
+  tcn_bwd_gy2_gemm<kVec><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
+      g_res, a->g_skip, a->w_res, a->w_skip, w + L.z2, a->a2, w + L.gy2, w + L.p_gy2, T, H, C,
+      Cs, n_res);
+  TCN_LAUNCHED();
+  tcn_bwd_row_merge<<<B, kThreads, 0, s>>>(w + L.p_gy2, L.gtiles, a->stats, 1, a->g2,
+                                           w + L.dgb2_rows, w + L.fold2, H, inv_n);
+  TCN_LAUNCHED();
+  tcn_bwd_wout_gemm<kVec>
+      <<<dim3(cdiv(n_res, kGM) + cdiv(Cs, kGM), cdiv(H, kGM), B * L.wout.chunks), kGemmThreads,
+         0, s>>>(g_res, a->g_skip, w + L.z2, a->stats, a->a2, a->g2, a->be2, w + L.p_wout,
+                 w + L.p_dbout, T, H, C, Cs, n_res, L.wout.chunks, L.wout.chunk);
+  TCN_LAUNCHED();
+  tcn_bwd_gz2_gy1<kVec><<<ew, kThreads, 0, s>>>(
+      w + L.z1, w + L.z2, w + L.gy2, w + L.gy1, a->stats, w + L.fold2, a->a1, a->g1, a->be1,
+      a->w_dw, a->a2, a->g2, w + L.p_gz2, pa2, w + L.p_gy1, T, H, d);
+  TCN_LAUNCHED();
+  tcn_bwd_row_merge<<<B, kThreads, 0, s>>>(w + L.p_gy1, L.tiles, a->stats, 0, a->g1,
+                                           w + L.dgb1_rows, w + L.fold1, H, inv_n);
+  TCN_LAUNCHED();
+  // z1 becomes gz1
+  tcn_bwd_gz1<kVec><<<ew, kThreads, 0, s>>>(w + L.gy1, w + L.z1, a->stats, w + L.fold1, a->a1,
+                                            a->g1, w + L.p_gz1, pa1, T, H);
+  TCN_LAUNCHED();
+  tcn_bwd_dx_gemm<kVec><<<dim3(L.gtiles, cdiv(C, kGM), B), kGemmThreads, 0, s>>>(
+      w + L.z1, a->w_in, g_res, a->dx, T, H, C);
+  TCN_LAUNCHED();
+  tcn_bwd_win_gemm<kVec><<<dim3(cdiv(H, kGM), cdiv(C, kGM), B * L.win.chunks), kGemmThreads, 0,
+                           s>>>(w + L.z1, a->x, w + L.p_win, T, H, C, L.win.chunks,
+                                L.win.chunk);
+  TCN_LAUNCHED();
+
+  const int bt = B * L.tiles, bta = B * L.tiles * L.ctiles;
+  const SumTasks tasks = {{
+      {w + L.p_win, a->dw_in, B * L.win.chunks, H * C, 0},
+      {w + L.p_gz1, a->db_in, bt, H, 0},
+      {w + L.dgb1_rows, a->dgb1, B, 2 * H, 0},
+      {w + L.p_gz2, a->dwb_dw, bt, 4 * H, 0},
+      {w + L.dgb2_rows, a->dgb2, B, 2 * H, 0},
+      {w + L.p_wout, a->dw_out, B * L.wout.chunks, L.M * H, 0},
+      {w + L.p_dbout, a->db_out, B * L.wout.chunks, L.M, 0},
+      {pa1, a->da, bta, 1, 1},
+      {pa2, a->da + 1, bta, 1, 1},
+  }};
+  int blocks = 1;
+  for (const SumTask& t : tasks.task)
+    if (!t.f64) blocks = std::max(blocks, cdiv(t.n, t.n >= 32 ? 32 : 1));
+  tcn_bwd_sums<<<dim3(blocks, kMaxSums), kThreads, 0, s>>>(tasks);
+  TCN_LAUNCHED();
+  return 0;
+}
+
+#undef TCN_LAUNCHED
 
 }  // namespace
 
@@ -610,88 +967,40 @@ size_t tcn_bwd_workspace(int B, int T, int C, int H, int Cs, int last) {
   return Layout(B, T, C, H, Cs, last).total;
 }
 
+// K2's plan at a shape: info[0..6] = the GEMMs' row tiles a batch row, the
+// elementwise tiles a batch row, the elementwise column tiles, the output
+// weight GEMM's chunks and steps a chunk, and the input weight GEMM's.
+// Returns cudaErrorInvalidValue for a shape K2 does not take, else 0.
+int tcn_bwd_plan(int B, int T, int C, int H, int Cs, int last, int* info) {
+  if (!shape_ok(B, T, C, H, Cs)) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L(B, T, C, H, Cs, last);
+  const int out[7] = {L.gtiles, L.tiles, L.ctiles, L.wout.chunks, L.wout.chunk, L.win.chunks,
+                      L.win.chunk};
+  for (int i = 0; i < 7; ++i) info[i] = out[i];
+  return 0;
+}
+
 // Launches the whole backward on `stream`; returns the first launch's
 // CUDA error code (each launch is checked with cudaGetLastError), or 0.
 int tcn_block_bwd(const TcnBwdArgs* a, void* stream) {
+  if (!shape_ok(a->B, a->T, a->C, a->H, a->Cs)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int B = a->B, T = a->T, C = a->C, H = a->H, Cs = a->Cs, d = a->dilation;
-  const int n_res = a->last ? 0 : C;
-  const Layout L(B, T, C, H, Cs, a->last);
-  float* w = a->work;
-  const float inv_n = 1.f / (static_cast<float>(T) * static_cast<float>(H));
-  const float* g_res = a->last ? nullptr : a->g_res;
-  const dim3 ew(L.tiles, L.ctiles, B);
-  int err = 0;
-#define TCN_LAUNCHED()                                \
-  if ((err = static_cast<int>(cudaGetLastError()))) { \
-    return err;                                       \
-  }
+  return vec_widths(a->C, a->H, a->Cs) ? launch_bwd<true>(a, s) : launch_bwd<false>(a, s);
+}
 
-  bwd_z1<<<dim3(cdiv(T, kBM), cdiv(H, kBN), B), kThreads, 0, s>>>(a->x, a->w_in, a->b_in,
-                                                                   w + L.z1, T, C, H);
-  TCN_LAUNCHED();
-  bwd_z2<<<ew, kThreads, 0, s>>>(w + L.z1, a->stats, a->a1, a->g1, a->be1, a->w_dw, a->b_dw,
-                                 w + L.z2, T, H, d);
-  TCN_LAUNCHED();
-  bwd_gy2<<<dim3(cdiv(T, kBM), cdiv(H, kBN), B), kThreads, 0, s>>>(
-      g_res, a->g_skip, a->w_res, a->w_skip, w + L.z2, a->a2, w + L.gy2, w + L.p_gy2, T, H, C,
-      Cs, n_res);
-  TCN_LAUNCHED();
-  bwd_row_merge<<<B, kThreads, 0, s>>>(w + L.p_gy2, L.tiles, a->stats, 1, a->g2,
-                                       w + L.dgb2_rows, w + L.fold2, H, inv_n);
-  TCN_LAUNCHED();
-  double* pa1 = reinterpret_cast<double*>(w + L.pa1);  // 128-byte aligned
-  double* pa2 = reinterpret_cast<double*>(w + L.pa2);
-  bwd_gz2<<<ew, kThreads, 0, s>>>(w + L.z1, w + L.z2, w + L.gy2, a->stats, w + L.fold2, a->a1,
-                                  a->g1, a->be1, a->a2, a->g2, w + L.p_gz2, pa2, T, H, d);
-  TCN_LAUNCHED();
-  bwd_wgrad_out<<<dim3(cdiv(L.M, kBM), cdiv(H, kBN), B * L.chunks), kThreads, 0, s>>>(
-      g_res, a->g_skip, w + L.z2, a->stats, a->a2, a->g2, a->be2, w + L.p_wout, T, H, C, Cs,
-      n_res, L.chunks);
-  TCN_LAUNCHED();
-  // z2 is dead from here: gy1 takes its buffer
-  bwd_gy1<<<ew, kThreads, 0, s>>>(w + L.gy2, w + L.z1, a->a1, a->w_dw, w + L.z2, w + L.p_gy1,
-                                  T, H, d);
-  TCN_LAUNCHED();
-  bwd_row_merge<<<B, kThreads, 0, s>>>(w + L.p_gy1, L.tiles, a->stats, 0, a->g1,
-                                       w + L.dgb1_rows, w + L.fold1, H, inv_n);
-  TCN_LAUNCHED();
-  // z1 becomes gz1
-  bwd_gz1<<<ew, kThreads, 0, s>>>(w + L.z2, w + L.z1, a->stats, w + L.fold1, a->a1, a->g1,
-                                  w + L.p_gz1, pa1, T, H);
-  TCN_LAUNCHED();
-  bwd_dx<<<dim3(cdiv(T, kBM), cdiv(C, kBN), B), kThreads, 0, s>>>(w + L.z1, a->w_in, g_res,
-                                                                  a->dx, T, H, C);
-  TCN_LAUNCHED();
-  bwd_wgrad_in<<<dim3(cdiv(H, kBM), cdiv(C, kBN), B * L.chunks), kThreads, 0, s>>>(
-      w + L.z1, a->x, w + L.p_win, T, H, C, L.chunks);
-  TCN_LAUNCHED();
-  bwd_colsum<<<dim3(L.coltiles, cdiv(L.M, kThreads), B), kThreads, 0, s>>>(
-      g_res, a->g_skip, w + L.p_col, T, C, Cs, n_res);
-  TCN_LAUNCHED();
-#undef TCN_LAUNCHED
-
-  const int bt = B * L.tiles, bta = B * L.tiles * L.ctiles;
-  for (int i = 0; i < 2; ++i) {
-    sum_partials_f64<<<1, kThreads, 0, s>>>(i ? pa2 : pa1, bta, a->da + i);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  }
-  const struct {
-    const float* part;
-    int n_part, n;
-    float* out;
-  } sums[] = {
-      {w + L.p_win, B * L.chunks, H * C, a->dw_in},
-      {w + L.p_gz1, bt, H, a->db_in},
-      {w + L.dgb1_rows, B, 2 * H, a->dgb1},
-      {w + L.p_gz2, bt, 4 * H, a->dwb_dw},
-      {w + L.dgb2_rows, B, 2 * H, a->dgb2},
-      {w + L.p_wout, B * L.chunks, L.M * H, a->dw_out},
-      {w + L.p_col, B * L.coltiles, L.M, a->db_out},
-  };
-  for (const auto& r : sums)
-    if ((err = reduce(r.part, r.n_part, r.n, r.out, s))) return err;
-  return 0;
+// K2's first launch alone: z1 (B, T, H) = x W_in^T + b_in, the bits K2
+// recomputes (for the check that they are the forward's). Returns a CUDA
+// error code, or 0.
+int tcn_bwd_z1(const float* x, const float* w_in_t, const float* b_in, float* z1, int B, int T,
+               int C, int H, void* stream) {
+  if (!shape_ok(B, T, C, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_widths(C, H, 4))
+    tcn_bwd_z1_gemm<true><<<grid, kGemmThreads, 0, s>>>(x, w_in_t, b_in, z1, T, C, H);
+  else
+    tcn_bwd_z1_gemm<false><<<grid, kGemmThreads, 0, s>>>(x, w_in_t, b_in, z1, T, C, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

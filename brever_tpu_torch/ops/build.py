@@ -31,7 +31,8 @@ _F = ctypes.c_float
 class TcnBwdArgs(ctypes.Structure):
     """``struct TcnBwdArgs`` of csrc/tcn_block_bwd.cu, field for field."""
     _fields_ = [(name, _P) for name in (
-        'x', 'g_res', 'g_skip', 'stats', 'w_in', 'b_in', 'a1', 'g1', 'be1',
+        'x', 'g_res', 'g_skip', 'stats', 'w_in', 'w_in_t', 'b_in', 'a1', 'g1',
+        'be1',
         'w_dw', 'b_dw', 'a2', 'g2', 'be2', 'w_res', 'w_skip', 'dx', 'dw_in',
         'db_in', 'da', 'dgb1', 'dwb_dw', 'dgb2', 'dw_out', 'db_out',
         'work')] + [(name, _I) for name in (
@@ -48,7 +49,9 @@ SIGNATURES = {
     'tcn_dw_prelu_stats': (_I, [_P] * 9 + [_I] * 4 + [_P]),
     'tcn_out_gemm': (_I, [_P] * 11 + [_I] * 6 + [_P]),
     'tcn_bwd_workspace': (ctypes.c_size_t, [_I] * 6),
+    'tcn_bwd_plan': (_I, [_I] * 6 + [ctypes.POINTER(_I)]),
     'tcn_block_bwd': (_I, [ctypes.POINTER(TcnBwdArgs), _P]),
+    'tcn_bwd_z1': (_I, [_P] * 4 + [_I] * 4 + [_P]),
     'lstm_fwd_smem': (ctypes.c_size_t, [_I, _I]),
     'lstm_bwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
@@ -66,6 +69,7 @@ SIGNATURES = {
     'bn_fwd': (_I, [_P] * 8 + [_I] * 3 + [_F, _I, _P]),
     'bn_bwd': (_I, [_P] * 10 + [_I] * 4 + [_P]),
     'stft_basis': (_I, [_P] * 3 + [_I] * 5 + [_P]),
+    'stft_fft': (_I, [_P] * 4 + [_I] * 4 + [_P]),
     'fma_chain': (_I, [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]),
 }
 

@@ -37,8 +37,8 @@ gate-sized tensors a step, more than the card holds for TF-GridNet at
 16 x 4 s. :func:`lstm_scan_x_plain` is the whole plain path, with that
 backward, on any device.
 
-The kernels take every shape the JAX package's scans run, up to H = 1024
-(``_check_hidden``; K3/K4 up to 256, K5/K6 up to 1024):
+The kernels take every shape the JAX package's scans run, up to H = 8192
+(``_check_hidden``; K3/K4 up to 256, K5/K6 up to 8192):
 
 * a hidden size off the kernels' grid of multiples of 32 is zero-padded
   up to it by :func:`pad_hidden` in :func:`lstm_scan_x` and
@@ -57,8 +57,9 @@ K5/K6 run up to H = 256 on a thread-block cluster of :data:`CLUSTER_BLOCKS`
 blocks per 32-row tile and direction, each block holding its slice of
 ``w_hh`` in shared memory (:func:`cluster_smem`, checked against the
 library's own figure and the card's cluster occupancy before a shape's first
-launch); above 256 they scan 16-row tiles (8-row tiles above 512) with
-``w_hh`` read through the caches (:func:`scan_tile_smem`).
+launch); above 256 they scan row tiles with ``w_hh`` read through the caches:
+16 rows up to H = 512, then half as many each time H doubles, one row past
+4096 (:func:`scan_tile_rows`, :func:`scan_tile_smem`).
 """
 
 import ctypes
@@ -73,7 +74,7 @@ _INT_RANGE = 2 ** 31
 #: the largest hidden size the kernels take (K5/K6, ``kMaxHidden`` of
 #: csrc/lstm_scan.cu), the largest K3/K4 take (``kMaxHiddenWide``), and
 #: their grid of sizes
-_MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 1024, 256, 32
+_MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 8192, 256, 32
 #: rows of one K3 scan tile
 _TILE_ROWS = 32
 #: shared memory a block may take on the H100 (bytes)
@@ -135,7 +136,7 @@ def fused_x_fits(feat, hidden):
     and 32 rows x (E + 6H) floats within a block's shared memory (E padded
     to a multiple of 4): the first K4's scan tile, kept as the rule so that
     every shape keeps its route; else the projection goes outside and
-    K5/K6 run the scan, which take H up to 1024 and whose shared memory
+    K5/K6 run the scan, which take H up to 8192 and whose shared memory
     does not depend on E. What the kernels need is less and within it: K3
     32 (E + H) floats (``lstm_fwd_smem``), K4 a plan whose shared memory
     does not depend on E (:func:`bwd_plan`); every launch checks the
@@ -162,12 +163,26 @@ def cluster_smem(hidden):
     return 4 * fwd, 4 * bwd
 
 
+def scan_tile_rows(hidden):
+    """``(rows, threads)`` of a K5/K6 row tile at 256 < ``hidden`` <= 8192
+    (``tile_rows`` and ``Split`` of csrc/lstm_scan.cu): 16 rows up to 512,
+    then half as many each time H doubles, down to 1 row past 4096; a
+    thread owns 8 rows and 2 units on tiles of 8 rows or more, else all
+    the rows and 16 / rows units, so a block has at most 512 threads."""
+    rows = next(r for r, top in ((16, 512), (8, 1024), (4, 2048), (2, 4096),
+                                 (1, _MAX_HIDDEN)) if hidden <= top)
+    if rows >= 8:
+        return rows, rows // 8 * hidden // 2
+    return rows, hidden * rows // 16
+
+
 def scan_tile_smem(hidden):
     """``(K5's, K6's)`` shared memory a block, in bytes, at 256 < ``hidden``
-    <= 1024, where they scan row tiles (``lstm_scan_tile_smem`` of
-    csrc/lstm_scan.cu for K6): 16 rows up to 512 and 8 above; K5 holds h of
-    the tile, K6 h, dgates and dh_rec (6H floats a row)."""
-    rows = 16 if hidden <= 512 else 8
+    <= 8192, where they scan row tiles (``lstm_scan_tile_smem`` of
+    csrc/lstm_scan.cu for K6): K5 holds h of the tile, K6 h, dgates and
+    dh_rec (6H floats a row), 196,608 bytes at H = 512, 1024, 2048, 4096
+    and 8192."""
+    rows = scan_tile_rows(hidden)[0]
     return 4 * rows * hidden, 4 * rows * 6 * hidden
 
 
@@ -498,10 +513,14 @@ def _tensor(t, name, device, shape, what='lstm_scan_x'):
 
 def _check_hidden(hidden, what, most=_MAX_HIDDEN):
     """Raise unless the kernels take ``hidden``: a multiple of 32 up to
-    ``most`` (1024 for K5/K6, 256 for K3/K4)."""
+    ``most`` (8192 for K5/K6, 256 for K3/K4)."""
     if hidden % _HIDDEN_STEP or not _HIDDEN_STEP <= hidden <= most:
-        beyond = ('; a hidden size past 1024 is still to be ported '
-                  '(ROADMAP.md, Queue 3)' if hidden > _MAX_HIDDEN else '')
+        beyond = (
+            f'; at {_MAX_HIDDEN} K6\'s tile is one row, whose 6H floats of '
+            f'state take {4 * 6 * _MAX_HIDDEN:,} bytes of shared memory '
+            f'(a block has {_MAX_SMEM:,}), and its 512 threads own 16 units '
+            'each: there is no smaller tile to go to'
+            if hidden > _MAX_HIDDEN else '')
         raise NotImplementedError(
             f'{what}: the CUDA kernels take a hidden size that is a '
             f'multiple of 32 up to {most} ({what} pads a smaller one to the '
@@ -730,7 +749,7 @@ def _launch_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
                                                    c_seq, dh_seq)
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
-        # the 16-row tiles read w_hh transposed (D, 4H, H); the clusters
+        # the row tiles read w_hh transposed (D, 4H, H); the clusters
         # hold their slices of w_hh itself
         w_hh_t = (w_hh.transpose(1, 2).contiguous() if hidden > _MAX_HIDDEN_X
                   else None)

@@ -33,7 +33,12 @@ device memory by normalizing on load and fusing the biases, activations
 and residual into the epilogues, and it carries only three floats per
 tile across each barrier (merged once per row in a fixed order, so the
 result is deterministic). The backward (its source says how) is bound
-by GEMM work and splits at its own two barriers the same way.
+by GEMM work and splits at its own two barriers the same way: eleven
+launches, five of them GEMMs on 128 x 128 tiles (the plan:
+:func:`bwd_plan`, checked against the library's by :func:`plan_info`
+before a shape's first launch). It moves float4s where C, H and Cs are
+multiples of 4, and single floats through the same kernels at any other
+width.
 """
 
 import ctypes
@@ -45,6 +50,58 @@ from . import build
 from .functional import depthwise_conv1d, gln_stats, prelu
 
 _EPS = 1e-8
+#: K2's plan (csrc/tcn_block_bwd.cu): the GEMMs' block tile and k slice,
+#: the elementwise stages' tile, the H100 SXM's SMs, and the weight GEMMs'
+#: least chunk of time steps
+_GEMM_TILE, _GEMM_SLICE, _EW_ROWS, _EW_COLS = 128, 16, 64, 128
+_SMS, _WG_MIN_CHUNK = 132, 256
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _split(batch, t_total, tiles):
+    """``(chunks, steps a chunk)`` of a K2 weight GEMM over each batch row's
+    T steps: the most chunks whose blocks (``tiles`` output tiles over the
+    batch and the chunks) fill no more than two waves of 2 blocks on each
+    of the 132 SMs, and no more than T has pieces of 256 steps; a chunk is
+    a multiple of the k slice. The partials are summed in (row, chunk)
+    order."""
+    chunks = max(1, min(4 * _SMS // (tiles * batch),
+                        _cdiv(t_total, _WG_MIN_CHUNK)))
+    chunk = _cdiv(_cdiv(t_total, chunks), _GEMM_SLICE) * _GEMM_SLICE
+    return _cdiv(t_total, chunk), chunk
+
+
+def bwd_plan(batch, t_total, c_in, hidden, c_skip, last):
+    """K2's plan at ``(B, T, C, H, Cs, last)``, as ``tcn_bwd_plan`` and
+    ``tcn_bwd_workspace`` of csrc/tcn_block_bwd.cu give it: the GEMMs' row
+    tiles a batch row (128 steps), the elementwise stages' tiles a batch row
+    (64 steps) and column tiles (128 channels), the output weight GEMM's
+    ([dW_res; dW_skip]) and the input weight GEMM's (dW_in) chunks and
+    steps a chunk, and the workspace in floats (z1, z2, gy2 and gy1 of
+    (B, T, H) and the partials, each buffer rounded up to 32 floats)."""
+    n_res = 0 if last else c_in
+    m_out = n_res + c_skip
+    h_tiles = _cdiv(hidden, _GEMM_TILE)
+    out = _split(batch, t_total,
+                 (_cdiv(n_res, _GEMM_TILE) + _cdiv(c_skip, _GEMM_TILE))
+                 * h_tiles)
+    inp = _split(batch, t_total, h_tiles * _cdiv(c_in, _GEMM_TILE))
+    gtiles, tiles = _cdiv(t_total, _GEMM_TILE), _cdiv(t_total, _EW_ROWS)
+    ctiles = _cdiv(hidden, _EW_COLS)
+    bt = batch * tiles
+    buffers = [batch * t_total * hidden] * 4 + [
+        batch * gtiles * 2 * hidden, 2 * batch, batch * 2 * hidden,
+        bt * 4 * hidden, 2 * bt * ctiles, batch * out[0] * m_out * hidden,
+        batch * out[0] * m_out, bt * 2 * hidden, 2 * batch,
+        batch * 2 * hidden, bt * hidden, 2 * bt * ctiles,
+        batch * inp[0] * hidden * c_in]
+    return {'gemm_tiles': gtiles, 'tiles': tiles, 'ctiles': ctiles,
+            'out_chunks': out[0], 'out_chunk': out[1],
+            'in_chunks': inp[0], 'in_chunk': inp[1],
+            'workspace': sum(_cdiv(n, 32) * 32 for n in buffers)}
 
 
 def tcn_block_fwd_plain(x, params, dilation, last):
@@ -290,10 +347,68 @@ def _launch(x, params, dilation, last):
     return (res, skip, stats), (h1, h2)
 
 
+#: K2's plan at each (B, T, C, H, Cs, last) checked so far
+_plans = {}
+
+
+def plan_info(batch, t_total, c_in, hidden, c_skip, last):
+    """The library's K2 plan at a shape, keyed as :func:`bwd_plan`'s;
+    raises where it is not the wrapper's mirror."""
+    key = (batch, t_total, c_in, hidden, c_skip, bool(last))
+    if key not in _plans:
+        lib = build.load_library()
+        info = (ctypes.c_int * 7)()
+        build.check(lib, lib.tcn_bwd_plan(*key[:5], int(last), info),
+                    f'tcn_bwd_plan{key}')
+        out = dict(zip(('gemm_tiles', 'tiles', 'ctiles', 'out_chunks',
+                        'out_chunk', 'in_chunks', 'in_chunk'), info))
+        out['workspace'] = lib.tcn_bwd_workspace(*key[:5], int(last))
+        if out != bwd_plan(*key):
+            raise RuntimeError(f'tcn_block_bwd: the library\'s plan at {key} '
+                               f'is {out}, the wrapper\'s {bwd_plan(*key)}')
+        _plans[key] = out
+    return _plans[key]
+
+
+def _aligned(t):
+    """t, or a copy of it where its storage is not 16-byte aligned (K2
+    stages float4s; a parameter may be a view at any float of the
+    trainer's flat buffer)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def recompute_z1(x, params):
+    """K2's first launch alone on a CUDA tensor: z1 = x W_in^T + b_in
+    ``(B, T, H)``, the bits K2 recomputes (PReLU of it is the forward's
+    h1, bitwise). Not counted as a K2 launch."""
+    w_in, b_in = params[0], params[1]
+    device = x.device
+    _check_tensor(x, 'x', device)
+    batch, t_total, c_in = x.shape
+    hidden = w_in.shape[0]
+    _matrix(w_in, hidden, c_in, 'w_in', device)
+    _vector(b_in, hidden, 'b_in', device)
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        x = _aligned(x.contiguous())
+        w_in_t = w_in.t().contiguous()
+        z1 = torch.empty(batch, t_total, hidden, dtype=torch.float32,
+                         device=device)
+        build.check(lib, lib.tcn_bwd_z1(
+            x.data_ptr(), w_in_t.data_ptr(), b_in.data_ptr(), z1.data_ptr(),
+            batch, t_total, c_in, hidden,
+            torch.cuda.current_stream(device).cuda_stream), 'tcn_bwd_z1')
+    return z1
+
+
 def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
     """The backward kernel: ``(dx, dparams)``."""
-    (batch, t_total, c_in, hidden, c_skip), p = _block_pointers(
+    (batch, t_total, c_in, hidden, c_skip), _ = _block_pointers(
         x, params, dilation, last)
+    plan = plan_info(batch, t_total, c_in, hidden, c_skip, last)
+    x, g_res, g_skip, *params = (_aligned(t) for t in (x, g_res, g_skip,
+                                                       *params))
+    p = _block_pointers(x, params, dilation, last)[1]
     device = x.device
 
     def dense(t, shape, name):
@@ -316,6 +431,8 @@ def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
     lib = build.load_library()
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
+        w_in_t = params[0].t().contiguous()
+        args.w_in_t = w_in_t.data_ptr()
         dx = torch.empty(batch, t_total, c_in, **f32)
         dw_in = torch.empty(hidden, c_in, **f32)
         db_in = torch.empty(hidden, **f32)
@@ -325,8 +442,7 @@ def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
         dgb2 = torch.empty(2, hidden, **f32)
         dw_out = torch.empty(n_out, hidden, **f32)
         db_out = torch.empty(n_out, **f32)
-        work = torch.empty(lib.tcn_bwd_workspace(
-            batch, t_total, c_in, hidden, c_skip, int(last)), **f32)
+        work = torch.empty(plan['workspace'], **f32)
         for name, t in (('dx', dx), ('dw_in', dw_in), ('db_in', db_in),
                         ('da', da), ('dgb1', dgb1), ('dwb_dw', dwb_dw),
                         ('dgb2', dgb2), ('dw_out', dw_out),

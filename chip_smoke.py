@@ -29,12 +29,15 @@ each print one line, with the seconds since the start:
 4. the HTTP service (/health, three /enhance requests) on the card;
 5. timings: per-block forward kernel vs plain version, full enhance;
 6. the TCN block backward kernel (K2) against its plain version, and
-   twice on the same inputs (bitwise equal);
+   twice on the same inputs (bitwise equal); its recomputed z1 bitwise the
+   forward's (PReLU of it is K1's h1); its launches' device times at d = 1
+   and d = 128 from a trace;
 7. full-model gradients on the card against the plain CPU path;
 8. training through train.main on a WAV dataset written here: the loss
    falls, last.ckpt resumes, the checkpoint serves;
 9. timings: per-block backward kernel vs plain version, the full train
-   step with kernel and with plain blocks, peak memory;
+   step with kernel and with plain blocks, peak memory (beside PR 9's
+   step);
 10. the LSTM kernels (K3 forward, K4 backward) against their plain
     versions at TF-GridNet's intra and inter shapes and ragged ones (H = 32
     and 256 at R off the tile), the backward in float64, and twice on the
@@ -105,15 +108,17 @@ each print one line, with the seconds since the start:
     over a step's 69 BatchNorms, beside their plain versions and
     ``F.batch_norm`` + the activation; enhance; the train step with kernel
     and with plain BatchNorms, peak memory;
-33. the fused STFT (K9) against its plain version and ``torch.stft`` at
-    256/128 and 512/128 over 16 x 4 s, timed; one DCCRN enhance with
-    ``STFT(backend='pallas')`` against the cuFFT route;
+33. the fused STFT (K9) against its plain version and ``torch.stft`` over
+    16 x 4 s on both routes, the shared-memory FFT at 256/128, 512/128 and
+    4096/1024 and the dense product at 400/100, timed; one DCCRN enhance
+    with ``STFT(backend='pallas')`` (the FFT route) against the cuFFT
+    route;
 34. the LSTM kernels on shapes they refused before: H = 200 at TF-GridNet's
     intra shape (padded to 224) through autograd, an (E, H) past the shared
-    memory routed to the projection and K5, K5/K6 at H = 640 and 1024 (8-row
-    tiles) against the plain path in float64 and twice bitwise, a row
-    count past the int range in row chunks, and H = 1056, past K5/K6,
-    raising before any launch;
+    memory routed to the projection and K5, K5/K6 at H = 640, 1024, 2048
+    and 8192 (8-, 4- and 1-row tiles) against the plain path in float64 and
+    twice bitwise, a row count past the int range in row chunks, and H =
+    8224, past K5/K6, raising before any launch;
 35. the elementwise-rate probe (K10) through ``bench_alu_dtype.bench``:
     the built library's SASS (FFMA in float32, HFMA2.BF16 and no
     conversion in bfloat16), both dtypes on the benchmark's input and a
@@ -666,6 +671,23 @@ def lstm_inputs(rng, steps, n_dir, rows, feat, hidden, device='cuda'):
             arr(n_dir, feat, 4 * hidden, scale=hidden ** -0.5),
             arr(n_dir, 4 * hidden, scale=0.1),
             arr(n_dir, hidden, 4 * hidden, scale=hidden ** -0.5),
+            arr(steps, n_dir, rows, hidden))
+
+
+def wide_lstm_inputs(rng, steps, n_dir, rows, feat, hidden, device):
+    """``lstm_inputs``' tensors with w_hh (D, H, 4H) drawn on the card from
+    a generator seeded from ``rng`` (a numpy draw of 1 GB takes tens of
+    seconds on the host)."""
+    def arr(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*s)).astype(np.float32)) \
+            .to(device)
+
+    gen = torch.Generator(device=device).manual_seed(int(rng.randint(2 ** 31)))
+    w_hh = torch.randn(n_dir, hidden, 4 * hidden, generator=gen,
+                       device=device) * hidden ** -0.5
+    return (arr(steps, n_dir, rows, feat),
+            arr(n_dir, feat, 4 * hidden, scale=hidden ** -0.5),
+            arr(n_dir, 4 * hidden, scale=0.1), w_hh,
             arr(steps, n_dir, rows, hidden))
 
 
@@ -1908,7 +1930,10 @@ MANNER_LOSS_RATIO = 0.95
 TENSOR_FLOOR_DB = 6.0
 #: the fused STFT's cases at 16 x 4 s: TF-GridNet's, and DCCRN's and
 #: SGMSE+'s (n_fft, hop)
-STFT_CASES = [(256, 128), (512, 128)]
+#: K9's cases at 16 x 4 s (phase 33), (n_fft, hop): the FFT route at
+#: TF-GridNet's, DCCRN's and SGMSE+'s sizes and its largest, the dense
+#: route at an n_fft that is no power of two
+STFT_CASES = [(256, 128), (512, 128), (4096, 1024), (400, 100)]
 
 
 @contextlib.contextmanager
@@ -2321,9 +2346,10 @@ def manner_phases(device, card):
 
 
 def stft_phase(device, card):
-    """Phase 33 (the fused STFT, K9); returns the numbers of its JSON
-    record."""
+    """Phase 33 (the fused STFT, K9, on both routes); returns the numbers
+    of its JSON record."""
     import torch.nn.functional as F
+    from brever_tpu_torch.bench_alu_dtype import time_calls
     from brever_tpu_torch.models import ModelRegistry
     from brever_tpu_torch.ops import stft_kernel
     from brever_tpu_torch.ops.stft import STFT
@@ -2340,8 +2366,14 @@ def stft_phase(device, card):
         basis = torch.from_numpy(stft_kernel.stft_basis(
             n_fft, stft._np_window)).to(device)
         window = torch.from_numpy(stft._np_window).to(device)
+        route = stft_kernel.fft_route(n_fft)
         with torch.no_grad():
+            before = (k9.launches, k9.dense_launches)
             got = k9(x, basis, hop)
+            ran = (k9.launches - before[0], k9.dense_launches - before[1])
+            if ran != ((1, 0) if route == 'fft' else (0, 1)):
+                raise AssertionError(f'K9 {n_fft}/{hop}: route {route}, '
+                                     f'launches (fft, dense) {ran}')
             plain = stft_kernel.stft_basis_plain(x, basis, hop)
             lib = torch.stft(x, n_fft, hop, window=window, center=False,
                              return_complex=True)     # (rows, bins, frames)
@@ -2353,62 +2385,83 @@ def stft_phase(device, card):
             w2, e2 = check_close(f'K9 {n_fft}/{hop} vs torch.stft',
                                  ('spec',), (lib_ri,), (got,))
             worst, max_err = min(worst, w1, w2), max(max_err, e1, e2)
-            times, _ = in_turns({
+            calls = {
                 'kernel': lambda: k9(x, basis, hop),
-                'plain': lambda: stft_kernel.stft_basis_plain(x, basis,
-                                                              hop)}, 10, 2)
-            times['library'] = cuda_ms(lambda: torch.stft(
-                x, n_fft, hop, window=window, center=False,
-                return_complex=True), 10, 2)
+                'plain': lambda: stft_kernel.stft_basis_plain(x, basis, hop),
+                'library': lambda: torch.stft(
+                    x, n_fft, hop, window=window, center=False,
+                    return_complex=True)}
+            # the host issues a call in about as long as the card runs the
+            # FFT route's kernel: CUDA events around calls queued behind a
+            # sleep kernel give the card's time, the host's time to issue a
+            # call beside it; then the calls one after another as a caller
+            # makes them (CUDA events, the host's pace included)
+            queued = {name: time_calls(fn, device, 20)
+                      for name, fn in calls.items()}
+            times = {name: ms for name, (ms, _) in queued.items()}
+            times['host'] = {name: h for name, (_, h) in queued.items()}
+            times['paced'], _ = in_turns(
+                {k: calls[k] for k in ('plain', 'kernel')}, 10, 2)
+            times['paced']['library'] = cuda_ms(calls['library'], 10, 2)
             # the module's forward end to end: padding, K9 and the complex
             # view, the basis cached after the first call
             times['module'] = cuda_ms(lambda: stft(signal), 10, 2)
         rows, n = x.shape
         frames = got.shape[1]
         # the function needs a real FFT a frame (2.5 n log2 n operations,
-        # half a complex FFT's 5 n log2 n), not the dense product K9 does;
-        # the signal read once and the spectrum written once
+        # half a complex FFT's 5 n log2 n), not the dense product the dense
+        # route does; the signal read once and the spectrum written once
         fft_flops = 2.5 * rows * frames * n_fft * math.log2(n_fft)
         nbytes = 4 * (rows * n + rows * frames * 2 * bins)
         times['bound'] = bound(fft_flops, nbytes)
         times['dense_bound'] = bound(
             2 * rows * frames * n_fft * 2 * bins,
             nbytes + 4 * n_fft * 2 * bins)
+        times['route'] = route
+        times['snr'] = min(w1, w2)
         out[f'{n_fft}/{hop}'] = times
         del x, basis, got, plain, lib, lib_ri
     out['module_ms'] = out['512/128']['module']
-    # one DCCRN enhance with its STFT on K9 against the cuFFT route
+    # one DCCRN enhance with its STFT on K9 (512/128: the FFT route)
+    # against the cuFFT route
     model = ModelRegistry.get('dccrn')(device='cpu')
     model.init_parameters(35)
     model.to(device).eval()
     mix = (0.1 * rng.randn(4, 2, 4 * FS)).astype(np.float32)
     want = model.enhance(mix)
     model.stft.backend = 'pallas'
-    k9.launches = 0
+    k9.launches = k9.dense_launches = 0
     got = model.enhance(mix)
     torch.cuda.synchronize()
-    out['launches'] = k9.launches
-    if out['launches'] != 1:
-        raise AssertionError(f'DCCRN enhance: {k9.launches} K9 launches')
+    out['launches'], out['launches_dense'] = k9.launches, k9.dense_launches
+    if (out['launches'], out['launches_dense']) != (1, 0):
+        raise AssertionError(f'DCCRN enhance: {k9.launches} K9 FFT-route '
+                             f'and {k9.dense_launches} dense-route launches')
     snr, err = check_output('DCCRN enhance on K9',
                             want.cpu().numpy(), got.cpu().numpy())
     out['err'] = max_err
     del model
     torch.cuda.empty_cache()
-    t1, t2 = out['256/128'], out['512/128']
+
+    def line(key):
+        t, p = out[key], out[key]['paced']
+        return (f'{key} {t["route"]} {t["kernel"]:.4f}/{t["plain"]:.4f}/'
+                f'{t["library"]:.4f} (paced {p["kernel"]:.4f}/'
+                f'{p["plain"]:.4f}/{p["library"]:.4f}, host '
+                f'{t["host"]["kernel"]:.4f}; bound {t["bound"][0]:.4f} by '
+                f'{t["bound"][1]}, {t["snr"]:.1f} dB)')
+
     phase(33, f'[{card}] K9 (fused STFT) at 16 x 4 s vs stft_basis_plain and '
           f'torch.stft (cuFFT), same window and centre: worst '
-          f'{worst:.1f} dB, max abs err {max_err:.3e}; kernel/plain/'
-          f'torch.stft ms: 256/128 {t1["kernel"]:.3f}/{t1["plain"]:.3f}/'
-          f'{t1["library"]:.3f} (bound {t1["bound"][0]:.4f} by '
-          f'{t1["bound"][1]}, dense product {t1["dense_bound"][0]:.4f}), '
-          f'512/128 {t2["kernel"]:.3f}/{t2["plain"]:.3f}/'
-          f'{t2["library"]:.3f} (bound {t2["bound"][0]:.4f} by '
-          f'{t2["bound"][1]}, dense product {t2["dense_bound"][0]:.4f}); '
-          f'STFT(backend=\'pallas\') forward end to end at 512/128 '
+          f'{worst:.1f} dB, max abs err {max_err:.3e}; route kernel/plain/'
+          f'torch.stft ms on the card (calls queued; paced: one after '
+          f'another as issued; host: ms to issue a kernel call): '
+          + '; '.join(line(f'{n}/{h}') for n, h in STFT_CASES)
+          + f'; STFT(backend=\'pallas\') forward end to end at 512/128 '
           f'{out["module_ms"]:.3f} ms; DCCRN enhance (4, 2, 64000) with '
           f'STFT(backend=\'pallas\') vs the cuFFT route {snr:.1f} dB, max abs '
-          f'err {err:.3e}, {out["launches"]} K9 launch')
+          f'err {err:.3e}, {out["launches"]} K9 FFT-route launch, '
+          f'{out["launches_dense"]} dense')
     return out
 
 
@@ -2461,11 +2514,11 @@ def lstm_repair_phase(device, card):
                  f'projection + K5: {w_s:.1f} dB')
     del x, w_ih, bias, w_hh, h, ref
     torch.cuda.empty_cache()
-    # K5/K6 on 8-row tiles (512 < H <= 1024) against the plain version in
-    # float64, two runs bitwise
-    for case in EIGHT_ROW_CASES:
+    # K5/K6 on row tiles past H = 512 against the plain version in float64,
+    # two runs bitwise
+    for case in ROW_TILE_CASES:
         name = 'T={} D={} R={} E={} H={}'.format(*case)
-        x, w_ih, bias, w_hh, dh = lstm_inputs(rng, *case, device)
+        x, w_ih, bias, w_hh, dh = wide_lstm_inputs(rng, *case, device)
         gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
                    + bias[None, :, None]).contiguous()
         del x, w_ih, bias
@@ -2484,24 +2537,25 @@ def lstm_repair_phase(device, card):
                                                     dh.double()))
         torch.cuda.synchronize()
         w_e, _ = check_close(f'K5/K6 {name}', ('h', 'c', 'dgates', 'dw_hh'),
-                             want, runs[0])
-        notes.append(f'K5/K6 at {name} (8-row tiles): h, c, dgates, dW_hh '
-                     f'worst {w_e:.1f} dB vs the plain path in float64, two '
-                     'runs bitwise')
+                             want, runs[0], min_db=WIDE_SCAN_DB)
+        rows = lstm.scan_tile_rows(case[4])[0]
+        notes.append(f'K5/K6 at {name} ({rows}-row tiles): h, c, dgates, '
+                     f'dW_hh worst {w_e:.1f} dB (>= {WIDE_SCAN_DB}) vs the '
+                     'plain path in float64, two runs bitwise')
         del gates_x, w_hh, dh, runs, f64, h64, c64, want
         torch.cuda.empty_cache()
-    # H past K5/K6's 1024: the gates-in scan raises before any launch
+    # H past K5/K6's 8192: the gates-in scan raises before any launch
     case = WIDE_CASE
-    x, w_ih, bias, w_hh, _ = lstm_inputs(rng, *case, device)
+    x, w_ih, bias, w_hh, _ = wide_lstm_inputs(rng, *case, device)
     leaves = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
     before = (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches)
     try:
         rnn._dispatch_scan_x(*leaves)
     except NotImplementedError as exc:
-        if 'ROADMAP.md, Queue 3' not in str(exc):
+        if 'shared memory' not in str(exc):
             raise
     else:
-        raise AssertionError(f'H={case[4]}: the gates-in scan ran past 1024')
+        raise AssertionError(f'H={case[4]}: the gates-in scan ran past 8192')
     launched = (lstm.lstm_scan.launches - before[0],
                 lstm.lstm_scan_bwd.launches - before[1])
     if launched != (0, 0):
@@ -2563,12 +2617,19 @@ def lstm_repair_phase(device, card):
     phase(34, 'LSTM kernels on the shapes they refused: ' + '; '.join(notes))
 
 
+#: K5/K6 against float64 on the row tiles past H = 512 (phase 34): the
+#: gates, c, dgates and dW_hh sum up to 4H = 32768 float32 products in
+#: another order than the float64 path, ~120 dB in PR 9's run at H <= 1024
+WIDE_SCAN_DB = 100.0
 #: a scan past K5/K6's largest hidden size (phase 34), (T, D, R, E, H):
 #: it raises before any launch
-WIDE_CASE = (40, 2, 32, 64, 1056)
-#: K5/K6 on 8-row tiles (phase 34), (T, D, R, E, H): H = 640 at DCCRN's
-#: rows, H = 1024 at R off the tile
-EIGHT_ROW_CASES = [(40, 2, 32, 64, 640), (20, 2, 33, 64, 1024)]
+WIDE_CASE = (40, 1, 32, 64, 8224)
+#: K5/K6 on row tiles past H = 512 (phase 34), (T, D, R, E, H): 8-row tiles
+#: at H = 640 at DCCRN's rows and H = 1024 at R off the tile, 4-row tiles
+#: at 1056 and 2048, 2-row at 4096 and 1-row at 8192 (w_hh of 1 GB)
+ROW_TILE_CASES = [(40, 2, 32, 64, 640), (20, 2, 33, 64, 1024),
+                  (6, 2, 5, 64, 1056), (6, 2, 5, 64, 2048),
+                  (3, 1, 3, 16, 4096), (3, 1, 2, 16, 8192)]
 #: K10 against its plain version (phase 35): float32 within 1e-5 of the
 #: largest value (the kernel's fused multiply-add rounds once a step where
 #: the plain chain rounds twice: 256 steps of float32 rounding stay far
@@ -3301,16 +3362,24 @@ def main():
           f'{peak / 2 ** 20:.1f} MiB')
 
     # ---- phase 6: backward kernel vs plain version on the card
+    from brever_tpu_torch import profile_tcn_bwd
     rng = np.random.RandomState(6)
     bwd_worst, bwd_err, stats_err = float('inf'), 0.0, 0.0
-    for batch, t_total, dilation, last in cases:
-        x, params = block_inputs(rng, batch, t_total)
+    # phase 2's cases at C = Cs = 128, H = 512, then widths that leave
+    # partial GEMM tiles (36/100/20, SMALL's 32/64/32) and widths off the
+    # float4 grid, which take K2's single-float kernels (H 102; 130/257/21)
+    widths = [(2, 300, 1, False, 36, 100, 20), (2, 129, 2, True, 32, 64, 32),
+              (2, 300, 128, False, 36, 102, 20),
+              (2, 77, 4, True, 130, 257, 21)]
+    for batch, t_total, dilation, last, c, h, cs in \
+            [case + (128, 512, 128) for case in cases] + widths:
+        x, params = block_inputs(rng, batch, t_total, c=c, h=h, cs=cs)
         if last:
             params = params[:10] + (None, None) + params[12:]
         g_res = None if last else torch.from_numpy(
-            rng.randn(batch, t_total, 128).astype(np.float32)).to(device)
+            rng.randn(batch, t_total, c).astype(np.float32)).to(device)
         g_skip = torch.from_numpy(
-            rng.randn(batch, t_total, 128).astype(np.float32)).to(device)
+            rng.randn(batch, t_total, cs).astype(np.float32)).to(device)
         with torch.no_grad():
             (_, _, stats), act = tcn._launch(x, params, dilation, last)
             _, _, ref_stats = tcn.tcn_block_fwd_plain(x, params, dilation,
@@ -3318,12 +3387,20 @@ def main():
         torch.testing.assert_close(stats, ref_stats, atol=1e-6, rtol=1e-5)
         stats_err = max(stats_err, ((stats - ref_stats).abs()
                                     / ref_stats.abs()).max().item())
+        # K2's recomputed z1 is the forward's: PReLU of it is K1's h1
+        with torch.no_grad():
+            z1 = tcn.recompute_z1(x, params)
+        if not torch.equal(torch.where(z1 >= 0, z1, params[2] * z1), act[0]):
+            raise AssertionError(f'K2 B={batch} T={t_total}: the recomputed '
+                                 'z1 is not the forward\'s')
+        del z1
         dx, dparams = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip,
                                         dilation, last)
         ref = block_vjp_f64(x, params, g_res, g_skip, dilation, last, act)
         del act
         torch.cuda.synchronize()
-        name = f'K2 B={batch} T={t_total} d={dilation} last={last}'
+        name = (f'K2 B={batch} T={t_total} C={c} H={h} Cs={cs} d={dilation} '
+                f'last={last}')
         worst, err = check_grads(name, ref, (dx,) + dparams)
         again = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation,
                                   last)
@@ -3331,12 +3408,24 @@ def main():
             if got is not None and not torch.equal(got, rerun):
                 raise AssertionError(f'{name}: two runs differ')
         bwd_worst, bwd_err = min(bwd_worst, worst), max(bwd_err, err)
-    phase(6, f'{len(cases)} block cases: K2 dx and every parameter gradient '
-          f'agree with the plain block in float64 on K1\'s PReLU branches '
+    # K2's launches at B=16 T=3999, device ms a call from a trace
+    k2 = {d: profile_tcn_bwd.profile(d, calls=3) for d in (1, 128)}
+
+    def k2_line(d):
+        parts = sorted(k2[d]['parts'].items(), key=lambda kv: -kv[1])
+        return (f'd={d} {k2[d]["ms"]:.3f} ms, {k2[d]["launches"]:g} launches: '
+                + ', '.join(f'{name} {ms:.3f}' for name, ms in parts))
+
+    phase(6, f'{len(cases)} block cases at C/H/Cs 128/512/128 and '
+          f'{len(widths)} at ' + ', '.join(f'{c}/{h}/{cs}' for *_, c, h, cs
+                                           in widths)
+          + ': K2 dx and every parameter gradient agree with the plain block in float64 on K1\'s PReLU branches '
           f'(worst SNR {bwd_worst:.1f} dB >= {MIN_SNR_DB}, max abs err '
           f'{bwd_err:.3e}, each <= {MAX_REL_ERR} x max|ref|); two runs '
-          f'bitwise equal; K1 stats within {stats_err:.1e} relative of the '
-          f'plain ones (rtol 1e-5, atol 1e-6)')
+          f'bitwise equal; K2\'s recomputed z1 bitwise K1\'s in every case; '
+          f'K1 stats within {stats_err:.1e} relative of the plain ones (rtol '
+          f'1e-5, atol 1e-6); [{card}] K2 launches at B=16 T=3999, device ms '
+          f'a call: {k2_line(1)}; {k2_line(128)}')
 
     # ---- phase 7: full-model gradients on the card vs the plain CPU path
     # in float64, which keeps each PReLU's input and output gradient
@@ -3466,7 +3555,8 @@ def main():
           f'{timing[1]["bwd_kernel"]:.3f}/{timing[1]["bwd_plain"]:.3f}, '
           f'd=128 {timing[128]["bwd_kernel"]:.3f}/'
           f'{timing[128]["bwd_plain"]:.3f}; train step 16x4 s f32 (fwd, bwd, '
-          f'clip, Adam) {step_ms["kernel"]:.2f} ms, peak '
+          f'clip, Adam) {step_ms["kernel"]:.2f} ms (PR 9\'s run on the same '
+          f'card model and limit: 158.77 ms), peak '
           f'{step_peak["kernel"] / 2 ** 20:.1f} MiB (plain blocks '
           f'{step_ms["plain"]:.2f} ms, peak '
           f'{step_peak["plain"] / 2 ** 20:.1f} MiB)')
@@ -3531,6 +3621,9 @@ def main():
         'shape': shape,
         'train_step_ms': step_ms['kernel'],
         'train_step_plain_ms': step_ms['plain'],
+        'parts_ms': k2[1]['parts'],
+        'parts_ms_d128': k2[128]['parts'],
+        'launches_a_call': k2[1]['launches'],
     }, {
         'name': 'lstm_scan_x_fwd',
         'route': 'cuda',
@@ -3748,8 +3841,11 @@ def main():
         'route': 'cuda',
         'source': 'brever_tpu_torch/csrc/stft.cu',
         'replaces': 'brever_tpu/ops/pallas/stft_kernel.py:37',
-        'launches': stf['launches'],
+        'launches': stf['launches'] + stf['launches_dense'],
+        'launches_fft_route': stf['launches'],
+        'launches_dense_route': stf['launches_dense'],
         'max_abs_err': stf['err'],
+        'k9_route': stf['512/128']['route'],
         'ms': stf['512/128']['kernel'],
         'plain_ms': stf['512/128']['plain'],
         'bound_ms': stf['512/128']['bound'][0],
@@ -3760,10 +3856,23 @@ def main():
         'ms_256': stf['256/128']['kernel'],
         'plain_ms_256': stf['256/128']['plain'],
         'bound_ms_256': stf['256/128']['bound'][0],
+        'library_ms_256': stf['256/128']['library'],
+        'ms_4096': stf['4096/1024']['kernel'],
+        'plain_ms_4096': stf['4096/1024']['plain'],
+        'bound_ms_4096': stf['4096/1024']['bound'][0],
+        'library_ms_4096': stf['4096/1024']['library'],
+        'call_ms': stf['512/128']['paced']['kernel'],
+        'call_library_ms': stf['512/128']['paced']['library'],
+        'host_ms': stf['512/128']['host']['kernel'],
+        'timing_note': 'ms, plain_ms, library_ms: CUDA events around calls '
+                       'queued behind a sleep kernel (the card\'s time); '
+                       'call_ms: calls as the host issues them',
+        'dense_route_ms_400': stf['400/100']['kernel'],
+        'dense_route_plain_ms_400': stf['400/100']['plain'],
+        'dense_route_bound_ms_400': stf['400/100']['bound'][0],
+        'dense_route_library_ms_400': stf['400/100']['library'],
         'dense_product_bound_ms': stf['512/128']['dense_bound'][0],
         'module_forward_ms': stf['module_ms'],
-        'dense_product_bound_ms_256': stf['256/128']['dense_bound'][0],
-        'library_ms_256': stf['256/128']['library'],
     }, fma]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

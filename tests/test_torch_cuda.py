@@ -41,6 +41,10 @@ step where the plain chain rounds twice), and, also at k and passes off the
 benchmark's, within ``fma_chain_limit`` at every element."""
 
 import functools
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -222,6 +226,120 @@ def test_backward_kernel_rejects_what_it_does_not_take(device):
         tcn.tcn_block_bwd(x, params[:12] + (w_skip,) + params[13:], stats,
                           g_res, g_skip, 1, False)
     assert tcn.tcn_block_bwd.launches == before
+
+
+def test_backward_plan_is_the_wrappers(device):
+    """K2's plan in the library (``tcn_bwd_plan``, ``tcn_bwd_workspace``) is
+    the wrapper's mirror (``bwd_plan``) on the Conv-TasNet shape and ragged
+    ones, widths off the float4 grid among them."""
+    for shape in ((16, 3999, 128, 512, 128), (2, 49, 128, 256, 128),
+                  (1, 1, 32, 64, 32), (3, 4001, 36, 100, 20),
+                  (2, 300, 36, 102, 20), (2, 77, 130, 257, 21)):
+        for last in (False, True):
+            assert tcn.plan_info(*shape, last) == tcn.bwd_plan(*shape, last)
+
+
+@pytest.mark.parametrize('t_total,dilation,last', [
+    (3999, 1, False), (520, 600, True), (777, 128, False), (1, 1, True)])
+def test_backward_recomputes_the_forward_z1_bitwise(device, t_total,
+                                                     dilation, last):
+    """K2's recomputed z1 (its first launch alone) is bitwise the forward's:
+    PReLU of it is K1's saved h1, so the backward takes the forward's PReLU
+    branches and gLN statistics."""
+    x, params = _inputs(device, 4, t_total, h=512)
+    with torch.no_grad():
+        _, (h1, _) = tcn._launch(x, params, dilation, last)
+        z1 = tcn.recompute_z1(x, params)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.where(z1 >= 0, z1, params[2] * z1), h1)
+
+
+@pytest.mark.parametrize('dilation', [1, 2, 128])
+@pytest.mark.parametrize('last', [False, True])
+def test_backward_kernel_matches_float64_at_full_width(device, dilation,
+                                                       last):
+    """K2 at Conv-TasNet's widths (C = Cs = 128, H = 512) on a T off both
+    tiles (777 steps) against the plain backward in float64 (atol 1e-4 of
+    the tensor's largest value, rtol 1e-3); two runs bitwise equal."""
+    x, params = _inputs(device, 1, 777, h=512, seed=dilation)
+    if last:
+        params = params[:10] + (None, None) + params[12:]
+    g_res, g_skip = _cotangents(device, x, seed=dilation + 1)
+    g_res = None if last else g_res
+    with torch.no_grad():
+        _, _, stats = tcn.tcn_block_fwd(x, params, dilation, last)
+    first = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation, last)
+    second = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation,
+                               last)
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    ref_dx, ref_params = tcn.tcn_block_bwd_plain(
+        f64(x), [f64(p) for p in params], f64(g_res), f64(g_skip), dilation,
+        last)
+    torch.cuda.synchronize()
+    for got, again, ref in zip((first[0],) + first[1],
+                               (second[0],) + second[1],
+                               (ref_dx,) + ref_params):
+        if ref is None:
+            assert got is None and again is None
+            continue
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.double().reshape(ref.shape), ref,
+                                   atol=1e-4 * ref.abs().max().item(),
+                                   rtol=1e-3)
+
+
+# (C, H, Cs, T, dilation): partial 128-wide GEMM tiles in C, H and Cs on
+# the float4 kernels (36/100/20, and SMALL's 32/64/32), and widths off the
+# float4 grid on the single-float kernels (H = 102; C = 130, H = 257, Cs =
+# 21), at a T off both tiles
+@pytest.mark.parametrize('c,h,cs,t_total,dilation', [
+    (36, 100, 20, 300, 1), (32, 64, 32, 129, 2), (36, 102, 20, 300, 128),
+    (130, 257, 21, 77, 4)])
+@pytest.mark.parametrize('last', [False, True])
+def test_backward_kernel_matches_float64_at_ragged_widths(
+        device, c, h, cs, t_total, dilation, last):
+    """K2 at widths that leave partial tiles, or lie off the float4 grid,
+    against the plain backward in float64 (atol 1e-4 of the tensor's
+    largest value, rtol 1e-3); two runs bitwise equal, one launch each, and
+    the recomputed z1 bitwise K1's."""
+    x, params = _inputs(device, 2, t_total, c=c, h=h, cs=cs, seed=c + h)
+    if last:
+        params = params[:10] + (None, None) + params[12:]
+    rng = np.random.RandomState(cs)
+    g_res, g_skip = (torch.from_numpy(rng.randn(2, t_total, n).astype(
+        np.float32)).to(device) for n in (c, cs))
+    g_res = None if last else g_res
+    with torch.no_grad():
+        _, _, stats = tcn.tcn_block_fwd(x, params, dilation, last)
+        _, (h1, _) = tcn._launch(x, params, dilation, last)
+        z1 = tcn.recompute_z1(x, params)
+    before = tcn.tcn_block_bwd.launches
+    first = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation, last)
+    second = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation,
+                               last)
+    assert tcn.tcn_block_bwd.launches == before + 2
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    ref_dx, ref_params = tcn.tcn_block_bwd_plain(
+        f64(x), [f64(p) for p in params], f64(g_res), f64(g_skip), dilation,
+        last)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.where(z1 >= 0, z1, params[2] * z1), h1)
+    for got, again, ref in zip((first[0],) + first[1],
+                               (second[0],) + second[1],
+                               (ref_dx,) + ref_params):
+        if ref is None:
+            assert got is None and again is None
+            continue
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.double().reshape(ref.shape), ref,
+                                   atol=1e-4 * ref.abs().max().item(),
+                                   rtol=1e-3)
 
 
 def test_full_width_train_step(device, tmp_path):
@@ -504,10 +622,55 @@ def test_scan_kernels_reject_what_they_do_not_take(device):
     g48, w48, _ = _scan_inputs(device, 3, 2, 8, 48)
     with pytest.raises(NotImplementedError, match='multiple of 32'):
         lstm.lstm_scan_fwd(g48, w48)
-    g1056, w1056, _ = _scan_inputs(device, 2, 1, 8, 1056)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 3'):
-        lstm.lstm_scan(g1056, w1056)
+    g8224, w8224, _ = _wide_scan_inputs(device, 2, 1, 8, 8224)
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        lstm.lstm_scan(g8224, w8224)
     assert lstm.lstm_scan.launches == before
+
+
+def _wide_scan_inputs(device, t_steps, n_dir, rows, hidden, seed=0):
+    """gates_x, w_hh and dh of the gates-in scan at a wide H: w_hh drawn on
+    the card (a (D, H, 4H) numpy draw takes tens of seconds at H = 8192),
+    the rest from numpy."""
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w_hh = torch.randn(n_dir, hidden, 4 * hidden, generator=gen,
+                       device=device) * hidden ** -0.5
+    gates_x, dh = (torch.from_numpy(rng.randn(t_steps, n_dir, rows, width)
+                                    .astype(np.float32)).to(device)
+                   for width in (4 * hidden, hidden))
+    return gates_x, w_hh, dh
+
+
+#: K5/K6 past H = 1024 (T, D, R, H): 4-, 2- and 1-row tiles, the first H
+#: of the 4-row tiles, R off the tile
+WIDE_SCAN_CASES = [(4, 1, 3, 1056), (3, 2, 5, 2048), (3, 1, 3, 4096),
+                   (2, 1, 2, 8192)]
+
+
+@pytest.mark.parametrize('case', WIDE_SCAN_CASES, ids=lambda c: f'H{c[3]}')
+def test_wide_scan_kernels_match_float64(device, case):
+    """K5/K6 on the 4-, 2- and 1-row tiles against the plain scan and its
+    backward in float64 (atol 1e-5 and 1e-4 of the tensor's largest value,
+    rtol 1e-4 and 1e-3: float32 sums of up to 8192 products in another
+    order); two runs of each bitwise equal."""
+    gates_x, w_hh, dh = _wide_scan_inputs(device, *case)
+    before = lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches
+    runs = [lstm.lstm_scan_fwd(gates_x, w_hh) for _ in range(2)]
+    runs = [(h, c, *lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh))
+            for h, c in runs]
+    assert (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    f64 = gates_x.double(), w_hh.double()
+    h64, c64 = lstm.lstm_scan_reference(*f64)
+    want = (h64, c64, *lstm.lstm_scan_bwd_plain(*f64, h64, c64, dh.double()))
+    torch.cuda.synchronize()
+    for i, (got, rerun, ref) in enumerate(zip(*runs, want)):
+        assert torch.equal(got, rerun)
+        tol = (1e-5, 1e-4) if i < 2 else (1e-4, 1e-3)
+        torch.testing.assert_close(got.double(), ref,
+                                   atol=tol[0] * ref.abs().max().item(),
+                                   rtol=tol[1])
 
 
 @pytest.mark.parametrize('fused', [True, False], ids=['K3K4', 'K5K6'])
@@ -587,10 +750,10 @@ def test_fused_x_fits_is_the_kernels_shared_memory(device):
 
 
 def test_scan_tile_smem_is_the_wrappers(device):
-    """K6's shared memory on row tiles (256 < H <= 1024) in the library is
+    """K6's shared memory on row tiles (256 < H <= 8192) in the library is
     the wrapper's ``scan_tile_smem``, within a block's."""
     lib = build.load_library()
-    for hidden in range(288, 1025, 32):
+    for hidden in range(288, 8193, 32):
         bwd = lstm.scan_tile_smem(hidden)[1]
         assert lib.lstm_scan_tile_smem(hidden) == bwd <= lstm._MAX_SMEM
 
@@ -608,14 +771,18 @@ def test_scan_cluster_is_the_wrappers(device):
 
 
 def test_wide_hidden_scan_raises_before_any_launch(device):
-    """H = 1056, past K5/K6's 1024, through ``models/rnn.py`` on the card:
+    """H = 8224, past K5/K6's 8192, through ``models/rnn.py`` on the card:
     the gates-in scan raises with its message, and neither kernel is
     launched."""
     from brever_tpu_torch.models import rnn
-    x, w_ih, bias, w_hh, _ = _lstm_inputs(device, 4, 2, 6, 24, 1056)
+    x, w_ih, bias, _, _ = _lstm_inputs(device, 4, 2, 6, 24, 32)
+    hidden = 8224
+    w_ih, bias = (t.repeat_interleave(hidden // 32, dim=-1)
+                  for t in (w_ih, bias))
+    w_hh = _wide_scan_inputs(device, 1, 2, 1, hidden)[1]
     leaves = [t.clone().requires_grad_() for t in (x, w_ih, bias, w_hh)]
     before = lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 3'):
+    with pytest.raises(NotImplementedError, match='shared memory'):
         rnn._dispatch_scan_x(*leaves)
     assert (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches) == before
 
@@ -920,17 +1087,34 @@ def test_batchnorm_kernels_reject_what_they_do_not_take(device):
     assert bn.batch_norm_act_fwd.launches == before
 
 
-@pytest.mark.parametrize('n_fft,hop', [(256, 128), (512, 128), (64, 16)])
+#: K9's cases (n_fft, hop): the FFT route at every power of two from 16 to
+#: 4096, and the dense route at 400/100
+STFT_CASES = [(16, 4), (32, 8), (64, 16), (128, 32), (256, 128), (512, 128),
+              (1024, 256), (2048, 512), (4096, 1024), (400, 100)]
+
+
+@pytest.mark.parametrize('n_fft,hop', STFT_CASES)
 def test_stft_kernel_matches_plain(device, n_fft, hop):
+    """K9 on the route ``fft_route`` picks against its plain version: at
+    least 60 dB and within 1e-4 of the spectrum's largest value (float32
+    sums of n_fft products on the dense route, an FFT's rounding on the
+    other); the module's forward against the cuFFT route."""
     rng = np.random.RandomState(n_fft)
     x = torch.from_numpy(rng.randn(5, 9001).astype(np.float32)).to(device)
     stft = STFT(frame_length=n_fft, hop_length=hop, backend='pallas')
     basis = torch.from_numpy(stft_kernel.stft_basis(
         n_fft, stft._np_window)).to(device)
-    before = stft_kernel.stft_fused.launches
+    fft = stft_kernel.fft_route(n_fft) == 'fft'
+    before = (stft_kernel.stft_fused.launches,
+              stft_kernel.stft_fused.dense_launches)
     got = stft_kernel.stft_fused(x, basis, hop)
     want = stft_kernel.stft_basis_plain(x, basis, hop)
-    assert stft_kernel.stft_fused.launches - before == 1
+    assert (stft_kernel.stft_fused.launches - before[0],
+            stft_kernel.stft_fused.dense_launches - before[1]) == \
+        ((1, 0) if fft else (0, 1))
+    err = (got - want).double()
+    snr = 10 * torch.log10(want.double().pow(2).sum() / err.pow(2).sum())
+    assert snr.item() >= 60
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * want.abs().max().item())
     with torch.no_grad():
@@ -940,6 +1124,85 @@ def test_stft_kernel_matches_plain(device, n_fft, hop):
                                atol=1e-4 * ref.abs().max().item())
     with pytest.raises(NotImplementedError, match='no backward'):
         stft(x.clone().requires_grad_())
+
+
+#: Run in a fresh interpreter: the device kernels that three calls of K9
+#: (both routes) and of K2 launch, from one ``torch.profiler`` trace each.
+#: (A trace taken after others in one process lost device events on the
+#: card.)
+_TRACE_KERNELS = """
+import json
+import torch
+from brever_tpu_torch.numerics import disable_tf32
+from brever_tpu_torch.ops import stft_kernel, tcn_block as tcn
+from brever_tpu_torch.ops.stft import STFT
+
+disable_tf32()
+dev = torch.device('cuda', 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+out = {}
+x = torch.randn(4, 9001, generator=gen, device=dev)
+for n_fft, hop in ((512, 128), (400, 100)):
+    stft = STFT(frame_length=n_fft, hop_length=hop)
+    basis = torch.from_numpy(stft_kernel.stft_basis(
+        n_fft, stft._np_window)).to(dev)
+    out[n_fft] = names(lambda: stft_kernel.stft_fused(x, basis, hop))
+
+
+def arr(*shape, scale=0.1):
+    return scale * torch.randn(*shape, generator=gen, device=dev)
+
+
+c, h, cs = 128, 512, 128
+xb = arr(2, 520, c, scale=1.0)
+params = (arr(h, c), arr(h), arr(1) + 0.25, arr(h) + 1, arr(h), arr(3, h),
+          arr(h), arr(1) + 0.25, arr(h) + 1, arr(h), arr(c, h), arr(c),
+          arr(cs, h), arr(cs))
+g_res, g_skip = arr(2, 520, c, scale=1.0), arr(2, 520, cs, scale=1.0)
+with torch.no_grad():
+    _, _, stats = tcn.tcn_block_fwd(xb, params, 2, False)
+out['k2'] = names(lambda: tcn.tcn_block_bwd(xb, params, stats, g_res,
+                                            g_skip, 2, False))
+print(json.dumps(out))
+"""
+
+
+def test_stft_and_tcn_backward_launch_no_library_kernel(device):
+    """A K9 call on either route and a K2 call launch their own kernels and
+    no cuFFT, cuBLAS or cuDNN kernel, traced in a fresh interpreter: three
+    K2 calls are 33 launches of K2's kernels and three of PyTorch's copy
+    of the transposed input weight, nothing else (the trace's tensors are
+    16-byte aligned, so the wrapper copies no other)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    run = subprocess.run([sys.executable, '-c', _TRACE_KERNELS], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    for n_fft, kernel in (('512', 'stft_fft_kernel'),
+                          ('400', 'stft_basis_kernel')):
+        assert names[n_fft] and all(kernel in n for n in names[n_fft]), \
+            names[n_fft]
+    own = [n for n in names['k2'] if 'tcn_bwd_' in n]
+    other = [n for n in names['k2'] if 'tcn_bwd_' not in n]
+    assert len(own) == 3 * 11, names['k2']
+    assert len(other) == 3 and all('direct_copy_kernel_cuda' in n
+                                   for n in other), other
 
 
 def test_manner_runs_every_batch_norm_through_the_kernels(device,

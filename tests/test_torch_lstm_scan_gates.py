@@ -289,20 +289,21 @@ def test_fused_x_fits_refuses_a_hidden_size_past_256(hidden):
     assert L.fused_x_fits(4, 256)
 
 
-@pytest.mark.parametrize('hidden', range(288, 1025, 32))
+@pytest.mark.parametrize('hidden', range(288, 8193, 32))
 def test_scan_kernels_take_a_hidden_size_up_to_512(hidden):
-    """K5/K6 take every multiple of 32 up to 1024 (16-row tiles above 256,
-    8-row tiles above 512); K3/K4 still stop at 256."""
+    """K5/K6 take every multiple of 32 up to 8192 (row tiles above 256), and
+    every such H is routed to them whatever E; K3/K4 still stop at 256."""
     L._check_hidden(hidden, 'lstm_scan')
+    assert not L.fused_x_fits(4, hidden)
     with pytest.raises(NotImplementedError, match='up to 256'):
         L._check_hidden(hidden, 'lstm_scan_x', L._MAX_HIDDEN_X)
 
 
 def test_scan_kernels_refuse_a_hidden_size_past_512():
-    """Past 1024 (H = 1056) the gates-in scan still raises, naming the
-    queue that holds the rest of the repair."""
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md, Queue 3'):
-        L._check_hidden(1056, 'lstm_scan')
+    """Past 8192 (H = 8224) the gates-in scan raises, and says why: the
+    one-row tile's state in shared memory is the smallest tile there is."""
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        L._check_hidden(8224, 'lstm_scan')
     with pytest.raises(NotImplementedError, match='multiple of 32'):
         L._check_hidden(400, 'lstm_scan')
 
@@ -343,18 +344,24 @@ def test_cluster_plan_fits_every_hidden_size(hidden):
     assert L._MAX_SMEM == 232448
 
 
-@pytest.mark.parametrize('hidden', range(288, 1025, 32))
+@pytest.mark.parametrize('hidden', range(288, 8193, 32))
 def test_scan_tile_plan_fits_every_wide_hidden_size(hidden):
     """Above H = 256 K5/K6 scan row tiles: 16 rows (H threads) up to 512, 8
-    rows (H / 2 threads) above, and both kernels' shared memory (h, and
-    K6's dgates and dh_rec: 6H floats a row) fits a block's 232,448 bytes:
-    196,608 for K6 at H = 512 and at 1024."""
-    rows = 16 if hidden <= 512 else 8
-    assert rows // 8 * hidden // 2 <= 512
+    rows (H / 2 threads) up to 1024, then 4, 2 and 1 rows (H / 4, H / 8 and
+    H / 16 threads: a thread owns 4, 8 and 16 units) up to 2048, 4096 and
+    8192, and both kernels' shared memory (h, and K6's dgates and dh_rec:
+    6H floats a row) fits a block's 232,448 bytes: 196,608 for K6 wherever
+    H doubles the last tile's."""
+    rows = next(r for r, top in ((16, 512), (8, 1024), (4, 2048),
+                                 (2, 4096), (1, 8192)) if hidden <= top)
+    threads = {16: hidden, 8: hidden // 2, 4: hidden // 4, 2: hidden // 8,
+               1: hidden // 16}[rows]
+    assert L.scan_tile_rows(hidden) == (rows, threads)
+    assert 0 < threads <= 512
     fwd, bwd = L.scan_tile_smem(hidden)
     assert (fwd, bwd) == (4 * rows * hidden, 4 * rows * 6 * hidden)
     assert bwd <= L._MAX_SMEM
-    if hidden in (512, 1024):
+    if hidden in (512, 1024, 2048, 4096, 8192):
         assert bwd == 196608
 
 
@@ -449,7 +456,7 @@ def test_dispatch_routes_a_hidden_size_past_512_to_the_plain_scan(
     """H = 640, past K3/K4's 256, on the CPU: ``_dispatch_scan_x`` projects
     outside the scan and the gates-in scan runs its plain version, with the
     JAX package's forward and gradients. (On CUDA the same route runs K5/K6
-    on 8-row tiles; past H = 1024 the scan raises before any launch.)"""
+    on 8-row tiles; past H = 8192 the scan raises before any launch.)"""
     taken = _routes(monkeypatch)
     rng = np.random.RandomState(640)
     feat, hidden = 12, 640

@@ -97,12 +97,13 @@ def test_manner_resolutions_match_jax(n_fft, hop, win):
     np.testing.assert_allclose(got_y, want_y, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize('n_fft,hop', [(256, 128), (512, 128)])
+@pytest.mark.parametrize('n_fft,hop', [(256, 128), (512, 128), (400, 100)])
 def test_fused_backend_plain_version_matches_jax(n_fft, hop):
     """``backend='pallas'`` on the CPU runs ``stft_basis_plain`` (framing,
-    then the product against the windowed basis): TF-GridNet's 256/128 and
-    DCCRN's and SGMSE+'s 512/128 against the JAX ``STFT(backend='auto')``
-    (its rFFT), atol 1e-4 of the spectrum's largest magnitude."""
+    then the product against the windowed basis): TF-GridNet's 256/128,
+    DCCRN's and SGMSE+'s 512/128 and 400/100 (an n_fft that K9 takes on its
+    dense route) against the JAX ``STFT(backend='auto')`` (its rFFT), atol
+    1e-4 of the spectrum's largest magnitude."""
     from brever_tpu_torch.ops import stft_kernel
     x = np.random.RandomState(hop).randn(2, 2, 5000).astype(np.float32)
     want = np.asarray(JaxSTFT(frame_length=n_fft, hop_length=hop,
@@ -136,3 +137,95 @@ def test_fused_backend_refuses_grad_and_keeps_eligibility():
     assert not odd.fused
     torch.testing.assert_close(
         odd(x), STFT(frame_length=512, hop_length=120)(x))
+
+
+# ---------------------------------------------------------------------------
+# K9's FFT route: its route rule, twiddles and pass schedule
+
+
+@pytest.mark.parametrize('n_fft', [8, 16, 32, 64, 128, 256, 400, 512, 1000,
+                                   1024, 2048, 4096, 6000, 8192])
+def test_fft_route_takes_the_powers_of_two_from_16_to_4096(n_fft):
+    """The FFT route takes a power of two from 16 to 4096 and every other
+    n_fft the dense route; its passes multiply to n_fft / 2, radix 8 first
+    (8, 8, 4 at 512)."""
+    from brever_tpu_torch.ops import stft_kernel
+    power = n_fft & (n_fft - 1) == 0
+    want = 'fft' if power and 16 <= n_fft <= 4096 else 'dense'
+    assert stft_kernel.fft_route(n_fft) == want
+    if want == 'fft':
+        radices = stft_kernel.fft_radices(n_fft)
+        assert int(np.prod(radices)) == n_fft // 2
+        assert radices == sorted(radices, reverse=True) and radices[0] == 8
+        assert radices.count(4) + radices.count(2) <= 1
+    assert stft_kernel.fft_radices(512) == [8, 8, 4]
+
+
+@pytest.mark.parametrize('n_fft', [16, 256, 512, 4096])
+def test_fft_twiddles_are_the_roots_of_unity(n_fft):
+    """The host-built float32 table holds exp(-2 pi i m / n_fft) to 1e-7."""
+    from brever_tpu_torch.ops import stft_kernel
+    table = stft_kernel.fft_twiddles(n_fft)
+    assert table.shape == (n_fft, 2) and table.dtype == np.float32
+    want = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
+    np.testing.assert_allclose(table[:, 0], want.real, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(table[:, 1], want.imag, rtol=0, atol=1e-7)
+
+
+def _fft_schedule(x, window, hop):
+    """The FFT route's arithmetic in plain torch, stage for stage as
+    ``stft_fft_kernel`` runs it: frames windowed and packed as n_fft / 2
+    complex values (even samples real, odd imaginary), the Stockham passes
+    of ``fft_radices`` with the twiddles of ``fft_twiddles`` (pass of
+    radix R after sub-transforms of length ns: value r of butterfly j is
+    read at j + r N / R, twiddled by W^(r (j mod ns)), and output s of its
+    DFT written at (j - j mod ns) R + j mod ns + s ns), then the real
+    split of bins 0 .. N. Returns ``(rows, frames, 2 bins)``."""
+    from brever_tpu_torch.ops import stft_kernel
+    n_fft = window.shape[0]
+    half = n_fft // 2
+    table = torch.from_numpy(stft_kernel.fft_twiddles(n_fft))
+    tw = torch.complex(table[:, 0], table[:, 1])
+    frames = x.unfold(-1, n_fft, hop) * window
+    z = torch.complex(frames[..., 0::2], frames[..., 1::2])
+    ns = 1
+    for radix in stft_kernel.fft_radices(n_fft):
+        j = torch.arange(half // radix)
+        k = j % ns
+        r = torch.arange(radix)
+        vals = z[..., j[:, None] + r * (half // radix)]
+        vals = vals * tw[(r * k[:, None]) * (n_fft // (ns * radix))]
+        dft = tw[(r[:, None] * r) % radix * (n_fft // radix)]
+        out = vals @ dft
+        z = torch.empty_like(z)
+        z[..., ((j - k) * radix + k)[:, None] + r * ns] = out
+        ns *= radix
+    k = torch.arange(half + 1)
+    a, b = z[..., k % half], z[..., (half - k) % half].conj()
+    spec = (a + b) / 2 - 0.5j * tw[k] * (a - b)
+    return torch.cat([spec.real, spec.imag], dim=-1)
+
+
+@pytest.mark.parametrize('n_fft', [16, 256, 512, 4096])
+def test_fft_schedule_matches_rfft_and_the_plain_version(n_fft):
+    """The FFT route's schedule (the mirror above, in float32) against
+    ``np.fft.rfft`` of the windowed frames in float64 and against
+    ``stft_basis_plain``, atol 1e-5 of the spectrum's largest magnitude."""
+    from brever_tpu_torch.ops import stft_kernel
+    hop = n_fft // 4
+    rng = np.random.RandomState(n_fft)
+    x = rng.randn(2, n_fft + 7 * hop).astype(np.float32)
+    window = STFT(frame_length=n_fft, hop_length=hop)._np_window
+    got = _fft_schedule(torch.from_numpy(x), torch.from_numpy(window),
+                        hop).numpy()
+    frames = np.lib.stride_tricks.sliding_window_view(x, n_fft, axis=-1)
+    ref = np.fft.rfft(frames[:, ::hop].astype(np.float64) * window, axis=-1)
+    ref = np.concatenate([ref.real, ref.imag], axis=-1)
+    bound = 1e-5 * np.abs(ref).max()
+    assert got.shape == ref.shape == (2, 8, n_fft + 2)
+    np.testing.assert_allclose(got, ref, atol=bound, rtol=0)
+    basis = torch.from_numpy(stft_kernel.stft_basis(n_fft, window))
+    assert torch.equal(basis[:, 0], torch.from_numpy(window))
+    plain = stft_kernel.stft_basis_plain(torch.from_numpy(x), basis,
+                                         hop).numpy()
+    np.testing.assert_allclose(got, plain, atol=bound, rtol=0)

@@ -177,3 +177,55 @@ def test_forward_stats_match_pallas(dilation, last):
     assert stats.shape == (2, 4) and stats.dtype == torch.float32
     np.testing.assert_allclose(stats.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K2's launch plan (csrc/tcn_block_bwd.cu ``Layout``/``Split``), mirrored by
+# ``bwd_plan``; the card tests hold the library's own figures to it
+
+
+def test_backward_plan_at_the_convtasnet_shape():
+    """B=16, T=3999, C=Cs=128, H=512: 32 GEMM row tiles and 63 elementwise
+    tiles a row, 4 column tiles; the output weight GEMM (8 tiles, 4 on the
+    last block) in 4 chunks of 1008 steps (8 of 512), the input weight GEMM
+    (4 tiles) in 8 of 512, so each gives its tiles 512 blocks, two waves of
+    2 blocks on 132 SMs; the workspace is four (B, T, H) buffers and the
+    partials."""
+    plan = port.bwd_plan(16, 3999, 128, 512, 128, False)
+    assert plan == {'gemm_tiles': 32, 'tiles': 63, 'ctiles': 4,
+                    'out_chunks': 4, 'out_chunk': 1008, 'in_chunks': 8,
+                    'in_chunk': 512, 'workspace': 152_018_752}
+    bth = 16 * 3999 * 512
+    partials = (16 * 32 * 1024 + 32 + 16 * 1024 + 16 * 63 * 2048 + 8064
+                + 16 * 4 * 256 * 512 + 16 * 4 * 256 + 16 * 63 * 1024 + 32
+                + 16 * 1024 + 16 * 63 * 512 + 8064 + 16 * 8 * 512 * 128)
+    assert plan['workspace'] == 4 * bth + partials
+    last = port.bwd_plan(16, 3999, 128, 512, 128, True)
+    assert (last['out_chunks'], last['out_chunk']) == (8, 512)
+    assert last['workspace'] == plan['workspace']
+
+
+@pytest.mark.parametrize('t_total', [1, 15, 16, 49, 255, 257, 520, 1023,
+                                     4001, 20000])
+@pytest.mark.parametrize('batch,c,h,cs,last', [
+    (2, 128, 256, 128, False), (1, 32, 64, 32, True),
+    (16, 128, 512, 128, False), (3, 36, 100, 20, False),
+    (2, 130, 257, 21, True)])
+def test_backward_plan_at_ragged_lengths(t_total, batch, c, h, cs, last):
+    """At any T: the tiles cover T, each weight GEMM's chunks cover T with
+    whole k slices, none empty, no more chunks than T has pieces of 256
+    steps, and, past one chunk, no more blocks than two waves of 2 on 132
+    SMs; the workspace holds the four (B, T, H) buffers."""
+    plan = port.bwd_plan(batch, t_total, c, h, cs, last)
+    assert (plan['gemm_tiles'] - 1) * 128 < t_total <= plan['gemm_tiles'] * 128
+    assert (plan['tiles'] - 1) * 64 < t_total <= plan['tiles'] * 64
+    assert plan['ctiles'] == -(-h // 128)
+    m_tiles = (0 if last else -(-c // 128)) + -(-cs // 128)
+    for key, tiles in (('out', m_tiles * -(-h // 128)),
+                       ('in', -(-h // 128) * -(-c // 128))):
+        chunks, chunk = plan[f'{key}_chunks'], plan[f'{key}_chunk']
+        assert chunk % 16 == 0 and chunk > 0
+        assert (chunks - 1) * chunk < t_total <= chunks * chunk
+        assert chunks <= -(-t_total // 256)
+        assert chunks == 1 or tiles * batch * chunks <= 4 * 132
+    assert plan['workspace'] >= 4 * batch * t_total * h
