@@ -15,19 +15,35 @@
 // backward takes them and dh (T, D, R, H) and returns dx, dW_ih, db, dW_hh.
 //
 // Bound. At TF-GridNet's width (E = H = 128) the forward does 2 (E + H) 4H =
-// 262,144 flops a row and step (139.5 GFLOP per BLSTM at 16 x 4 s) and moves
-// only x, h and c; the weights (512 KB) do not fit one block's shared memory
-// as they fit the TPU's VMEM. The design:
+// 262,144 flops a row and step (139.5 GFLOP per BLSTM at 16 x 4 s, 2.08 ms
+// at the H100's 67 TFLOP/s in float32) and moves only x, h and c: it is
+// bound by operations. The weights (512 KB a direction) do not fit one
+// block's shared memory as they fit the TPU's VMEM. The design (K3, the
+// ring scan, lstm_fwd_ring):
 //
-// * One block scans a tile of 32 rows of one direction over all T steps in
-//   one launch: no launch and no host work per step. h[t-1] and x[t] of the
-//   tile sit in shared memory; c stays in registers, each thread owning
-//   8 rows x 2 hidden units x all 4 gates, so the cell update needs no
-//   exchange. The weights are read through L1/L2 every step (the 8 or more
-//   warps of a block read the same rows in step): 512 KB a step and block,
-//   16 flops a weight byte at 32 rows.
+// * One block scans a tile of 64 rows (where 64-row tiles still give each
+//   of the 132 SMs a block: TF-GridNet's intra BLSTM) or 32 rows of one
+//   direction over all T steps in one launch: no launch and no host work
+//   per step. h[t-1] of the tile sits in shared memory, transposed; c
+//   stays in registers, each thread owning 4 rows x 4 units x all 4 gates,
+//   so the cell update needs no exchange.
+// * The rows of [w_ih; w_hh] are streamed through shared memory every step
+//   in 16-row k slices (8 above H = 128), by cp.async through a ring of 4
+//   stages that runs 3 slices ahead, across steps: no slice depends on h,
+//   so the copies never wait on the recurrence. Each stage is read by
+//   every warp (one L2 read of 512 KB a step and block, 32 flops a weight
+//   byte at 64 rows), and multiplied on a 4 x 16 register tile a thread
+//   with one shared-memory wavefront per float4 load. The first K3 read
+//   the weights per thread through L1/L2 as float2s at each k (8 warps,
+//   8 rows x 2 units a thread) and reached 41 % of the bound; this one
+//   reaches about 55 % at the intra shape, the rate of the SIMT GEMMs
+//   (more stages, 32-row slices or 2 units a thread did not move it).
 // * The gates are never written (a gates_x buffer would be 1.09 GB per
-//   intra BLSTM at 16 x 4 s, what the Pallas kernel exists to avoid).
+//   intra BLSTM at 16 x 4 s, what the Pallas kernel exists to avoid). A
+//   split design, which wrote them with one GEMM (K4's gates GEMM without
+//   h) and scanned h w_hh alone over them, was timed against it: slower
+//   at the intra shape, a little faster at the inter one, slower over a
+//   TF-GridNet forward and 1 GB larger (PERF.md), and was deleted.
 //
 // K4, the backward, takes h and c and dh and needs, per BLSTM at 16 x 4 s,
 // the gates again (x w_ih + bias + h[t-1] w_hh: 139.5 GFLOP), dh_rec =
@@ -37,8 +53,8 @@
 // so they leave the scan. Five launches:
 //
 // 1. the gates, all T steps at once, as one GEMM (lstm_bwd_gates_gemm),
-//    each sum in gates_tile<true>'s order (k ascending over x, + bias, k
-//    ascending over h[t-1]): K3's bits. They go to the dgates workspace;
+//    each sum in K3's order (k ascending over x, + bias, k ascending over
+//    h[t-1]): K3's bits. They go to the dgates workspace;
 // 2. the reverse scan (lstm_bwd_rscan): a block owns a 64- or 32-row tile
 //    of one direction over all T steps and its threads own (row, unit)
 //    pairs in both of a step's phases, so dc and dh_rec stay in registers:
@@ -113,8 +129,9 @@
 // TF32 or bf16) on that tile is the next step.
 //
 // For 256 < H <= 8192 a float32 w_hh (up to 1 GB a direction) does not
-// fit 16 SMs' shared memory: K5 keeps K3's scan kernel with the projection
-// off (a template flag) and K6 a scan of the same layout, on row tiles
+// fit 16 SMs' shared memory: K5 keeps the first K3's scan kernel without
+// the projection (lstm_fwd_scan) and K6 a scan of the same layout, on row
+// tiles
 // whose rows halve as H doubles: 16 rows up to H = 512, 8 up to 1024, 4 up
 // to 2048, 2 up to 4096 and 1 up to 8192, reading w_hh through L1/L2 every
 // step. A thread owns 8 rows (fewer on a smaller tile) and 2 units, 4, 8
@@ -228,87 +245,55 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[kRt][4][kU], const float*
   }
 }
 
-// The gate pre-activations of the thread's rows and units, the h_prev w_hh
-// term skipped at t = 0. kProj: (x w_ih + bias) + h_prev w_hh, x in shared
-// memory. Otherwise gates_x[t] + h_prev w_hh, gx pointing at the tile's
-// first row of gates_x[t] and rows_left = R - r0 (rows past R read as 0).
-// The forward and the backward's recompute both call this, so they get the
-// same bits.
-template <bool kProj, int kRt, int kU>
-__device__ __forceinline__ void gates_tile(float (&acc)[kRt][4][kU], const float* xs,
-                                           const float* hs, const float* __restrict__ gx,
-                                           const float* __restrict__ wi,
-                                           const float* __restrict__ bias,
-                                           const float* __restrict__ wh, int E, int H, int rg,
-                                           int ug, int rows_left, bool has_h) {
+// The gate pre-activations of the thread's rows and units, gates_x[t] +
+// h_prev w_hh, the h_prev w_hh term skipped at t = 0: gx points at the
+// tile's first row of gates_x[t] and rows_left = R - r0 (rows past R read
+// as 0). K5's and K6's row tiles both call this, so they get the same bits.
+template <int kRt, int kU>
+__device__ __forceinline__ void gates_tile(float (&acc)[kRt][4][kU], const float* hs,
+                                           const float* __restrict__ gx,
+                                           const float* __restrict__ wh, int H, int rg, int ug,
+                                           int rows_left, bool has_h) {
   constexpr int kP = kU / 2;
-  const int np = H / kU;
-  if constexpr (kProj) {
+  const int np = H / kU, G = 4 * H;
 #pragma unroll
-    for (int i = 0; i < kRt; ++i)
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int u = 0; u < kU; ++u) acc[i][g][u] = 0.f;
-    gemm_rows<kRt, kU>(acc, xs, wi, E, H, rg, ug);
+  for (int i = 0; i < kRt; ++i) {
+    const int row = rg * kRt + i;
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
-        const float2 b = *reinterpret_cast<const float2*>(bias + g * H + 2 * (ug + p * np));
-#pragma unroll
-        for (int i = 0; i < kRt; ++i) {
-          acc[i][g][2 * p] += b.x;
-          acc[i][g][2 * p + 1] += b.y;
-        }
+        float2 v = make_float2(0.f, 0.f);
+        if (row < rows_left)
+          v = __ldg(reinterpret_cast<const float2*>(gx + static_cast<size_t>(row) * G + g * H +
+                                                    2 * (ug + p * np)));
+        acc[i][g][2 * p] = v.x;
+        acc[i][g][2 * p + 1] = v.y;
       }
-  } else {
-    const int G = 4 * H;
-#pragma unroll
-    for (int i = 0; i < kRt; ++i) {
-      const int row = rg * kRt + i;
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          float2 v = make_float2(0.f, 0.f);
-          if (row < rows_left)
-            v = __ldg(reinterpret_cast<const float2*>(gx + static_cast<size_t>(row) * G + g * H +
-                                                      2 * (ug + p * np)));
-          acc[i][g][2 * p] = v.x;
-          acc[i][g][2 * p + 1] = v.y;
-        }
-    }
   }
   if (has_h) gemm_rows<kRt, kU>(acc, hs, wh, H, H, rg, ug);
 }
 
-// K3 (kProj, x (T, D, R, E) in) and K5 (gates_x (T, D, R, 4H) in, E = 0).
-// grid (cdiv(R, kRows), D), Split<kRows>::threads(H) threads, kRows (E + H)
-// floats of dynamic shared memory.
-template <bool kProj, int kRows>
+// K5 for 256 < H <= 8192 over gates_x (T, D, R, 4H). grid (cdiv(R, kRows),
+// D), Split<kRows>::threads(H) threads, kRows H floats of dynamic shared
+// memory.
+template <int kRows>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_fwd_scan(const float* __restrict__ x, const float* __restrict__ w_ih,
-              const float* __restrict__ bias, const float* __restrict__ w_hh,
-              float* __restrict__ h_seq, float* __restrict__ c_seq, int T, int D, int R, int E,
-              int H) {
+lstm_fwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
+              float* __restrict__ h_seq, float* __restrict__ c_seq, int T, int D, int R, int H) {
   constexpr int kRt = Split<kRows>::kRt, kP = Split<kRows>::kP;
   extern __shared__ float smem[];
-  float* xs = smem;               // (kRows, E)
-  float* hs = smem + kRows * E;   // (kRows, H)
+  float* hs = smem;  // (kRows, H)
   const int d = blockIdx.y, r0 = blockIdx.x * kRows, G = 4 * H, np = H / (2 * kP);
   const int rg = threadIdx.x / np, ug = threadIdx.x % np;
-  const float* wi = kProj ? w_ih + static_cast<size_t>(d) * E * G : nullptr;
   const float* wh = w_hh + static_cast<size_t>(d) * H * G;
-  const float* bd = kProj ? bias + d * G : nullptr;
   float c[kRt][2 * kP] = {};
   for (int t = 0; t < T; ++t) {
-    if constexpr (kProj) load_rows<kRows>(xs, x + at(t, d, 0, D, R) * E, r0, R, E);
-    __syncthreads();  // x[t] and h[t-1] of the tile in shared memory
+    __syncthreads();  // h[t-1] of the tile in shared memory
     float acc[kRt][4][2 * kP];
-    gates_tile<kProj, kRt, 2 * kP>(acc, xs, hs, kProj ? nullptr : x + at(t, d, r0, D, R) * G, wi, bd, wh, E,
-                      H, rg, ug, R - r0, t > 0);
-    __syncthreads();  // every thread is done reading xs and hs
+    gates_tile<kRt, 2 * kP>(acc, hs, gates_x + at(t, d, r0, D, R) * G, wh, H, rg, ug, R - r0,
+                            t > 0);
+    __syncthreads();  // every thread is done reading hs
 #pragma unroll
     for (int i = 0; i < kRt; ++i) {
       const int row = rg * kRt + i;
@@ -371,8 +356,8 @@ lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
     if (t > 0) load_rows<kRows>(hs, h_seq + at(t - 1, d, 0, D, R) * H, r0, R, H);
     __syncthreads();  // h[t-1] in; the previous step's gs reads done
     float acc[kRt][4][2 * kP];
-    gates_tile<false, kRt, 2 * kP>(acc, nullptr, hs, gates_x + at(t, d, r0, D, R) * G, nullptr, nullptr, wh,
-                      0, H, rg, ug, R - r0, t > 0);
+    gates_tile<kRt, 2 * kP>(acc, hs, gates_x + at(t, d, r0, D, R) * G, wh, H, rg, ug, R - r0,
+                            t > 0);
 #pragma unroll
     for (int i = 0; i < kRt; ++i) {
       const int row = rg * kRt + i;
@@ -452,7 +437,7 @@ lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
 // K4's gate pre-activations out of the serial chain: pre[t, d, r] =
 // (x[t, d, r] w_ih[d] + bias[d]) + h[t-1, d, r] w_hh[d] (h[-1] = 0) into
 // pre (T, D, R, 4H), over k ascending: x's slices, the bias, then h's, as
-// gates_tile<true> sums them, so that these are K3's bits.
+// K3 (lstm_fwd_ring) sums them, so that these are K3's bits.
 struct GatesOp {
   const float *xrow, *hrow, *wi, *wh, *bias;
   int E, H, nx;
@@ -818,6 +803,160 @@ lstm_bwd_rscan(float* __restrict__ g, const float* __restrict__ w_hh_t,
     for (int i = 0; i < kRt; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) rec[i][j] = acc[i][j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: the forward scan with the projection inside, [w_ih; w_hh] streamed
+// through a shared-memory ring
+
+// stages of K3's ring; its k slice (rows of [w_ih; w_hh] a stage): 16 at
+// H <= 128, 8 above, so that a slice of the 4H columns is at most 32 KB
+constexpr int kFwdRing = 4;
+__host__ __device__ constexpr int fwd_slice(int H) { return H <= 128 ? 16 : 8; }
+constexpr int kFwdUnits = 4;  // units a K3 thread owns, with 4 rows and all 4 gates
+
+// shared memory (floats) of K3 at a tile of `rows` rows: h[t-1] of the tile,
+// transposed (H, rows + 4), and kFwdRing stages of a slice: the x[t] columns
+// of its k, transposed (slice, rows + 4), and its rows of [w_ih; w_hh]
+// (slice, 4H)
+size_t fwd_floats(int rows, int H) {
+  const size_t ld = rows + 4, k = fwd_slice(H);
+  return H * ld + kFwdRing * k * (ld + 4 * static_cast<size_t>(H));
+}
+
+// K3: h_seq and c_seq (T, D, R, H) from x (T, D, R, E), the projection
+// inside. grid (cdiv(R, kRows), D), kRows H / 16
+// threads, fwd_floats(kRows, H) floats of dynamic shared memory. Thread
+// (rg, ug) (a warp is 4 row groups x 8 unit groups, so each of its shared
+// loads is one wavefront) owns rows 4 rg .. + 3 of the tile and units 4 ug
+// .. + 3 with all four gates: 64 sums, and the cell update in its
+// registers. A step is the product [x[t] | h[t-1]] [w_ih; w_hh] over k
+// slices in the ring's order, x's slices (k ascending, zero past E), the
+// bias, then h's: each sum an fmaf chain in K4's gates GEMM's order
+// (lstm_bwd_gates_gemm), so K4 recomputes these bits. Every
+// stage is filled by cp.async kFwdRing - 1 slices ahead, across steps (no
+// slice depends on h), and read by every warp; h[t-1] is the block's own.
+// kKeep: the gate pre-activations go to gates_out (T, D, R, 4H) too (the
+// check that they are K4's).
+template <int kRows, int kK, bool kKeep>
+__global__ void __launch_bounds__(kRows * (kK == 16 ? 128 : 256) / (4 * kFwdUnits), 1)
+lstm_fwd_ring(const float* __restrict__ x, const float* __restrict__ w_ih,
+              const float* __restrict__ bias, const float* __restrict__ w_hh,
+              float* __restrict__ h_seq, float* __restrict__ c_seq,
+              float* __restrict__ gates_out, int T, int D, int R, int E, int H) {
+  extern __shared__ float smem[];
+  constexpr int ld = kRows + 4;
+  const int G = 4 * H, d = blockIdx.y, r0 = blockIdx.x * kRows, nthr = blockDim.x;
+  const int stage = kK * (ld + G);
+  float* hs = smem;              // (H, ld): h[t-1]^T
+  float* ring = smem + H * ld;   // kFwdRing x [(kK, ld) x slice^T | (kK, 4H) weights]
+  const int ugs = H / kFwdUnits, wx = ugs / 8, w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int ug = (w % wx) * 8 + l % 8, rg = (w / wx) * 4 + l / 8;
+  const int nx = cdiv(E, kK), n_step = nx + H / kK;
+  const float* wi = w_ih + static_cast<size_t>(d) * E * G;
+  const float* wh = w_hh + static_cast<size_t>(d) * H * G;
+  // the next slice to issue: step it, slice isl, stage iq % kFwdRing; one
+  // commit group each (empty past the last step). A slice's rows of the
+  // (K, 4H) weights are one contiguous run, 4 kK kFwdUnits / kRows float4 pieces
+  // a thread; x[t]'s columns k0 .. k0 + kK - 1 of the tile are copied as
+  // single floats into their transposed places.
+  int it = 0, isl = 0, iq = 0;
+  auto issue = [&]() {
+    if (it < T) {
+      float* st = ring + (iq % kFwdRing) * stage;
+      const bool xs = isl < nx;
+      const int k0 = (xs ? isl : isl - nx) * kK, K = xs ? E : H;
+      const float* src = (xs ? wi : wh) + static_cast<size_t>(k0) * G;
+      const int n_ok = (K - k0) * H;  // pieces of the rows k < K
+#pragma unroll
+      for (int m = 0; m < 4 * kK * kFwdUnits / kRows; ++m) {
+        const int i = threadIdx.x + m * nthr;
+        cp_async<16>(st + kK * ld + 4 * i, i < n_ok ? src + 4 * i : wh, i < n_ok);
+      }
+      if (xs) {
+        const float* xt = x + at(it, d, 0, D, R) * E;
+        for (int i = threadIdx.x; i < kRows * kK; i += nthr) {
+          const int row = i / kK, k = i % kK;
+          const bool ok = r0 + row < R && k0 + k < E;
+          cp_async<4>(st + k * ld + row,
+                      ok ? xt + static_cast<size_t>(r0 + row) * E + k0 + k : x, ok);
+        }
+      }
+      if (++isl == n_step) isl = 0, ++it;
+    }
+    ++iq;
+    cp_async_commit();
+  };
+  for (int i = threadIdx.x; i < H * ld; i += nthr) hs[i] = 0.f;  // h[-1]
+  for (int q = 0; q < kFwdRing - 1; ++q) issue();
+  float c[4][kFwdUnits] = {};
+  int q = 0;  // slices consumed
+  for (int t = 0; t < T; ++t) {
+    float acc[4][4][kFwdUnits];  // [row][gate][unit]
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int u = 0; u < kFwdUnits; ++u) acc[i][g][u] = 0.f;
+    for (int sl = 0; sl < n_step; ++sl, ++q) {
+      cp_async_wait<kFwdRing - 2>();
+      __syncthreads();  // slice q in; every thread done with slice q - 1 (and, at
+                        // the step's first slice, h[t-1] whole in hs)
+      issue();  // slice q + kFwdRing - 1, into the stage of slice q - 1
+      const float* st = ring + (q % kFwdRing) * stage;
+      const bool xs = sl < nx;
+      const float* a = (xs ? st : hs + (sl - nx) * kK * ld) + rg * 4;
+      const float* b = st + kK * ld + ug * kFwdUnits;
+#pragma unroll
+      for (int k = 0; k < kK; ++k) {
+        const float4 av = *reinterpret_cast<const float4*>(a + k * ld);
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float bv[kFwdUnits];
+          load_vec<kFwdUnits>(bv, b + k * G + g * H);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int u = 0; u < kFwdUnits; ++u) acc[i][g][u] = fmaf(ar[i], bv[u], acc[i][g][u]);
+        }
+      }
+      if (sl == nx - 1) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float bv[kFwdUnits];
+          load_vec<kFwdUnits>(bv, bias + d * G + g * H + ug * kFwdUnits);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int u = 0; u < kFwdUnits; ++u) acc[i][g][u] += bv[u];
+        }
+      }
+    }
+    __syncthreads();  // every thread done reading h[t-1]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rg * 4 + i;
+      const bool live = r0 + row < R;
+      const size_t o = live ? at(t, d, r0 + row, D, R) : 0;
+      float hv[kFwdUnits], cv[kFwdUnits];
+#pragma unroll
+      for (int u = 0; u < kFwdUnits; ++u) {
+        cv[u] = sigm(acc[i][1][u]) * c[i][u] + sigm(acc[i][0][u]) * tanhf(acc[i][2][u]);
+        hv[u] = sigm(acc[i][3][u]) * tanhf(cv[u]);
+        c[i][u] = cv[u];
+        hs[(ug * kFwdUnits + u) * ld + row] = hv[u];
+      }
+      if (live) {
+        store_vec<kFwdUnits>(h_seq + o * H + ug * kFwdUnits, hv);
+        store_vec<kFwdUnits>(c_seq + o * H + ug * kFwdUnits, cv);
+        if constexpr (kKeep)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) store_vec<kFwdUnits>(gates_out + o * G + g * H + ug * kFwdUnits, acc[i][g]);
+      }
+    }
   }
 }
 
@@ -1232,6 +1371,57 @@ struct BwdPlan {
   }
 };
 
+int set_smem(const void* kernel, size_t bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes)));
+}
+
+int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// K3's launch plan: 64-row tiles where H <= 128 and they give each of the
+// H100's 132 SMs a block, else 32-row tiles; a thread owns 4 rows x 4
+// units, so a block has rows H / 16 threads (at most 512); one block an
+// SM. ops/lstm_scan.py ``fwd_plan`` mirrors this.
+struct FwdPlan {
+  int rows, slice, threads, tiles, smem;
+
+  FwdPlan(int D, int R, int H) {
+    rows = H <= 128 && D * cdiv(R, 64) >= kSMs ? 64 : 32;
+    slice = fwd_slice(H);
+    threads = rows / 4 * (H / kFwdUnits);
+    tiles = cdiv(R, rows);
+    smem = static_cast<int>(sizeof(float) * fwd_floats(rows, H));
+  }
+};
+
+// K3's ring scan on the plan's tile; kKeep: the gates also to gates_out
+template <int kRows, int kK, bool kKeep>
+int ring(const FwdPlan& P, const float* x, const float* w_ih, const float* bias,
+         const float* w_hh, float* h_seq, float* c_seq, float* gates_out, int T, int D, int R,
+         int E, int H, cudaStream_t s) {
+  const auto kernel = lstm_fwd_ring<kRows, kK, kKeep>;
+  const int err = set_smem(reinterpret_cast<const void*>(kernel), P.smem);
+  if (err) return err;
+  kernel<<<dim3(P.tiles, D), P.threads, P.smem, s>>>(x, w_ih, bias, w_hh, h_seq, c_seq,
+                                                     gates_out, T, D, R, E, H);
+  return last_error();
+}
+
+template <bool kKeep>
+int launch_ring(const FwdPlan& P, const float* x, const float* w_ih, const float* bias,
+                const float* w_hh, float* h_seq, float* c_seq, float* gates_out, int T, int D,
+                int R, int E, int H, cudaStream_t s) {
+  if (P.rows == 64)
+    return ring<64, 16, kKeep>(P, x, w_ih, bias, w_hh, h_seq, c_seq, gates_out, T, D, R,
+                                      E, H, s);
+  if (P.slice == 16)
+    return ring<32, 16, kKeep>(P, x, w_ih, bias, w_hh, h_seq, c_seq, gates_out, T, D, R,
+                                      E, H, s);
+  return ring<32, 8, kKeep>(P, x, w_ih, bias, w_hh, h_seq, c_seq, gates_out, T, D, R, E,
+                                   H, s);
+}
+
 // Workspace layout (float offsets): K4's (lstm_bwd_workspace, lstm_bwd) holds
 // the gates, then dgates, and the weight partials with db's row; K6's
 // (lstm_scan_bwd_workspace, lstm_scan_bwd, E = 0, whose dgates is its
@@ -1254,15 +1444,7 @@ struct Layout {
   }
 };
 
-int set_smem(const void* kernel, size_t bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes)));
-}
-
-int last_error() { return static_cast<int>(cudaGetLastError()); }
-
-size_t fwd_smem(int rows, int E, int H) { return sizeof(float) * rows * (E + H); }
+size_t fwd_smem(int rows, int H) { return sizeof(float) * rows * H; }
 size_t bwd_smem(int rows, int H) { return sizeof(float) * rows * 6 * H; }
 
 // the rows of a K5/K6 tile for 256 < H <= 8192: 16 up to 512, then half
@@ -1273,11 +1455,11 @@ int tile_rows(int H) { return H <= 512 ? 16 : H <= 1024 ? 8 : H <= 2048 ? 4 : H 
 template <int kRows>
 int scan_fwd_tiles(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
                    int D, int R, int H, cudaStream_t s) {
-  const size_t smem = fwd_smem(kRows, 0, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<false, kRows>), smem);
+  const size_t smem = fwd_smem(kRows, H);
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<kRows>), smem);
   if (err) return err;
-  lstm_fwd_scan<false, kRows><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
-      gates_x, nullptr, nullptr, w_hh, h_seq, c_seq, T, D, R, 0, H);
+  lstm_fwd_scan<kRows><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
+      gates_x, w_hh, h_seq, c_seq, T, D, R, H);
   return last_error();
 }
 
@@ -1336,9 +1518,16 @@ int weight_grads(const float* x, const float* h_seq, const float* dgates, float*
 
 extern "C" {
 
-// Shared memory of K3's scan, in bytes (the wrapper checks it against the
-// card's limit).
-size_t lstm_fwd_smem(int E, int H) { return fwd_smem(32, E, H); }
+// K3's plan at a shape: info[0..4] = tile rows, k slice, threads a block,
+// tiles a direction and shared memory a block (bytes). Returns
+// cudaErrorInvalidValue for a shape K3 does not take, else 0.
+int lstm_fwd_plan(int T, int D, int R, int E, int H, int* info) {
+  if (!shape_ok(E, H) || T < 1 || D < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdPlan P(D, R, H);
+  const int out[5] = {P.rows, P.slice, P.threads, P.tiles, P.smem};
+  for (int i = 0; i < 5; ++i) info[i] = out[i];
+  return 0;
+}
 
 // K4's plan at a shape: info[0..6] = the scan's tile rows, rows a thread,
 // threads a block, tiles a direction and shared memory a block (bytes),
@@ -1361,12 +1550,30 @@ size_t lstm_bwd_workspace(int T, int D, int R, int E, int H) {
 int lstm_fwd(const float* x, const float* w_ih, const float* bias, const float* w_hh,
              float* h_seq, float* c_seq, int T, int D, int R, int E, int H, void* stream) {
   if (!shape_ok(E, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = lstm_fwd_smem(E, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<true, 32>), smem);
-  if (err) return err;
-  lstm_fwd_scan<true, 32><<<dim3(cdiv(R, 32), D), 2 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w_ih, bias, w_hh, h_seq, c_seq, T, D, R, E, H);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ring<false>(FwdPlan(D, R, H), x, w_ih, bias, w_hh, h_seq, c_seq, nullptr,
+                                  T, D, R, E, H, static_cast<cudaStream_t>(stream));
+}
+
+// K3 writing, besides h and c, the gate pre-activations it formed (T, D,
+// R, 4H), and K4's first launch alone (its recomputed gates, from the
+// saved h): the pair the check that K4 recomputes K3's bits compares.
+// Return a CUDA error code, or 0.
+int lstm_fwd_gates(const float* x, const float* w_ih, const float* bias, const float* w_hh,
+                   float* h_seq, float* c_seq, float* gates, int T, int D, int R, int E, int H,
+                   void* stream) {
+  if (!shape_ok(E, H)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ring<true>(FwdPlan(D, R, H), x, w_ih, bias, w_hh, h_seq, c_seq, gates, T,
+                                 D, R, E, H, static_cast<cudaStream_t>(stream));
+}
+
+int lstm_bwd_gates(const float* x, const float* w_ih, const float* bias, const float* w_hh,
+                   const float* h_seq, float* gates, int T, int D, int R, int E, int H,
+                   void* stream) {
+  if (!shape_ok(E, H)) return static_cast<int>(cudaErrorInvalidValue);
+  lstm_bwd_gates_gemm<<<dim3(cdiv(T * R, kGM), 4 * H / kGM, D), kGemmThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, w_ih, bias, w_hh, h_seq, gates,
+                                                             T, D, R, E, H);
+  return last_error();
 }
 
 // K4: dx (T, D, R, E), dw = [dW_ih; dW_hh] (D, E + H, 4H) and db (D, 4H)
@@ -1384,8 +1591,8 @@ int lstm_bwd(const float* x, const float* w_ih, const float* w_ih_t, const float
   const Layout L(T, D, R, E, H, P.wg);
   const int G = 4 * H, m_tiles = cdiv(T * R, kGM);
   float* g = work + L.dgates;
-  lstm_bwd_gates_gemm<<<dim3(m_tiles, G / kGM, D), kGemmThreads, 0, s>>>(x, w_ih, bias, w_hh,
-                                                                         h_seq, g, T, D, R, E, H);
+  lstm_bwd_gates_gemm<<<dim3(m_tiles, G / kGM, D), kGemmThreads, 0, s>>>(
+      x, w_ih, bias, w_hh, h_seq, g, T, D, R, E, H);
   int err = last_error();
   if (err || (err = launch_rscan(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s))) return err;
   lstm_bwd_dx_gemm<<<dim3(m_tiles, cdiv(E, kGM), D), kGemmThreads, 0, s>>>(g, w_ih_t, dx, T, D,

@@ -1,6 +1,11 @@
-// A float32 SIMT GEMM body for NVIDIA Hopper, shared by K4's and K6's
-// products (lstm_scan.cu) and K2's (tcn_block_bwd.cu), and the cp.async
-// copies it stages its operands with.
+// A float32 SIMT GEMM body for NVIDIA Hopper, shared by K1's two products
+// (tcn_block.cu), K2's five (tcn_block_bwd.cu) and K4's and K6's
+// (lstm_scan.cu), and the cp.async copies it and K3's ring stage their
+// operands with. Bound on this card: float32 FFMA at 67 TFLOP/s, against
+// which these products reach about 30-36 TFLOP/s (PERF.md); the block tile
+// of 8 x 8 outputs a thread keeps four shared-memory wavefronts to 64
+// FFMAs a k, and the two-stage ring hides the loads of slice s + 1 behind
+// the multiply of slice s.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,8 +45,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // two stages: while the block multiplies one, the next arrives, by
 // cp.async for an operand whose rows are k (stage_direct: K4's w_ih, w_hh,
 // w_ih^T and its weight gradient's x, h and dgates), through registers for
-// one stored with k contiguous (RowStage: the rows of K4's x, h and dgates),
-// which the staging transposes, or for one transformed on load. Every
+// one stored with k contiguous (RowStage: the rows of K4's x, h and dgates,
+// of x and h2 and of the torch Linear weights in K1 and K2), which the
+// staging transposes, or for one transformed on load (K1's y2, K2's y2). Every
 // output sums its products over k ascending with fmaf, from 0. (3xTF32
 // mma.sync on the tensor cores for K4's dx and weight GEMM was timed: a
 // small gain, and weight gradients less accurate than the plain float32

@@ -16,8 +16,10 @@
 // blocks run in no order, so the block is split at its two global-norm
 // reduction barriers into three launches and two small merges:
 //
-//   1. in_gemm_prelu_stats: tiled GEMM x @ W_in, bias + PReLU epilogue,
-//      writes raw h1 and per-tile (count, mean, M2) partial moments.
+//   1. tcn_in_gemm: z1 = x W_in^T + b_in on simt_gemm.cuh's body
+//      (tcn_common.cuh's z1_tile, the product K2 recomputes, so K2's z1 is
+//      this z1 bit for bit); the epilogue applies the PReLU, writes h1 and
+//      the 128 x 128 tile's (count, mean, M2) partial moments.
 //   2. row_stats: one block per batch row merges the row's partials
 //      (Chan's formula in double, fixed order, so deterministic) and writes
 //      (mean1, rstd1) into stats (B, 4).
@@ -25,49 +27,62 @@
 //      padding comes after the norm), dilated 3-tap depthwise conv + PReLU,
 //      writes h2 and its partial moments; row_stats then writes
 //      (mean2, rstd2).
-//   4. out_gemm: normalizes h2 on the A-tile load and runs one GEMM against
-//      [W_res | W_skip]; the epilogue adds the biases and the residual.
+//   4. tcn_out_gemm: [res | skip] = y2 [W_res; W_skip]^T on the same body,
+//      y2 normalised from h2 with its row's statistics and g2, be2 in
+//      registers on the way to shared memory; the epilogue adds the biases
+//      and the residual. Column tiles of res come first, then those of skip.
 //
 // stats (B, 4) = (mean1, rstd1, mean2, rstd2) is what the backward
 // (tcn_block_bwd.cu) recomputes the block from.
 //
-// Bound: bytes. h1 and h2 each make one round trip through device memory
-// (B*T*H*4 bytes written and read about once more; 2 x 8 MB per batch row
-// of 4 s at H=512), against 2*T*H*(C + C + Cs) flops per row. The design
-// keeps every other intermediate (z1, z2, y1, y2) out of device memory by
-// fusing it into a load or an epilogue, and carries only 3 floats per tile
-// across the barriers, merged once per row. Folding the gLN affines into
-// the weights, bf16 and wgmma/TMA tiles are left for later work: this is
-// the simple, right one.
+// Bound on the H100: 2 T H (2C + Cs) flops a batch row (25.2 GFLOP at
+// B=16, T=3999, C=Cs=128, H=512: 0.378 ms at 67 TFLOP/s in float32), which
+// is more than the bytes (h1 and h2 make one round trip through device
+// memory each, 2 x 8 MB a row). The first design ran both products on a
+// 64 x 64 tile with 4 x 4 outputs a thread and synchronous scalar staging
+// (16-19 TFLOP/s); both now run on the 128 x 128 tile with 8 x 8 outputs a
+// thread and a two-stage ring that loads slice s + 1 while slice s is
+// multiplied, K2's and K4's body. Both operands of both products are stored
+// with k contiguous (x and h2 rows, and the torch Linear weights), so both
+// are staged through registers and transposed into the k slices: no copy
+// of a transposed weight is made. The design keeps z1, z2, y1 and y2 out
+// of device memory by fusing them into a load or an epilogue, and carries
+// only 3 floats per tile across the barriers, merged once per row. Folding
+// the gLN affines into the weights, bf16 and wgmma/TMA tiles are later
+// work.
 //
-// Every pointer is a dense float32 buffer. 2-D weights are in the storage
-// of a torch Linear weight, (N, K) = (out, in) row-major, which the model
-// passes as it is; a B-tile load then reads K-contiguous runs.
+// Every pointer is a dense float32 buffer, 16-byte aligned (the wrapper
+// copies one that is not). 2-D weights are in the storage of a torch Linear
+// weight, (N, K) = (out, in) row-major, which the model passes as it is.
+// Where C, H and Cs are multiples of 4 the GEMMs move float4s (kVec); at
+// any other width the same kernels with kVec = false move single floats,
+// with the same sums in the same order.
 
 #include "tcn_common.cuh"
 
 namespace {
 
 using namespace tcn;
+using namespace simt;
 
 constexpr int kDwRows = 32;   // depthwise tile: time rows
 constexpr int kDwCols = 128;  // depthwise tile: channels
 constexpr int kDwPer = kDwRows / (kThreads / kDwCols);  // rows per thread
 
-// Write the tile's (count, mean, M2) from the values this thread holds:
-// two passes over registers, so M2 carries no cancellation.
-template <int N>
-__device__ void tile_moments(const float (&v)[N], const bool (&ok)[N], float count,
-                             float* red, float* out) {
+// Write the tile's (count, mean, M2) from the N values this thread holds,
+// val(i) where ok(i): two passes over registers, so M2 carries no
+// cancellation.
+template <int N, class Val, class Ok>
+__device__ void tile_moments(Val val, Ok ok, float count, float* red, float* out) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < N; ++i) s += ok[i] ? v[i] : 0.f;
+  for (int i = 0; i < N; ++i) s += ok(i) ? val(i) : 0.f;
   const float mean = block_sum(s, red) / count;
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const float e = v[i] - mean;
-    q += ok[i] ? e * e : 0.f;
+    const float e = val(i) - mean;
+    q += ok(i) ? e * e : 0.f;
   }
   const float m2 = block_sum(q, red);
   if (threadIdx.x == 0) {
@@ -99,49 +114,33 @@ __global__ void row_stats(const float* __restrict__ part, int n_part, float eps,
   }
 }
 
-// grid (cdiv(T, kBM), cdiv(H, kBN), B)
-__global__ void __launch_bounds__(kThreads)
-in_gemm_prelu_stats(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ alpha, float* __restrict__ h1,
-                    float* __restrict__ part, int T, int C, int H) {
+// grid (cdiv(T, 128), cdiv(H, 128), B)
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+tcn_in_gemm(const float* __restrict__ x, const float* __restrict__ w_in,
+            const float* __restrict__ bias, const float* __restrict__ alpha,
+            float* __restrict__ h1, float* __restrict__ part, int T, int C, int H) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
   __shared__ float red[kThreads / 32];
-  const int b = blockIdx.z, t0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const float* xb = x + static_cast<size_t>(b) * T * C;
-  float acc[4][4] = {};
-  gemm_tile<true, true>(
-      acc, C,
-      [&](int m, int k) {
-        const int t = t0 + m;
-        return (t < T && k < C) ? xb[static_cast<size_t>(t) * C + k] : 0.f;
-      },
-      [&](int k, int n) {
-        n += n0;
-        return (k < C && n < H) ? w[n * C + k] : 0.f;  // H * C < 2^31
-      });
-
+  const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
+  const size_t row0 = static_cast<size_t>(blockIdx.z) * T;
+  float acc[8][8];
+  z1_tile<kVec>(acc, x, w_in, bias, T, C, H, sm);
   const float a1 = *alpha;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float v[16];
-  bool ok[16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      const bool in = t < T && n < H;
-      float z = acc[i][j] + (in ? bias[n] : 0.f);
-      z = z >= 0.f ? z : a1 * z;
-      if (in) h1[(static_cast<size_t>(b) * T + t) * H + n] = z;
-      v[4 * i + j] = z;
-      ok[4 * i + j] = in;
-    }
-  }
+    for (int j = 0; j < 8; ++j) acc[i][j] = prelu(acc[i][j], a1);
+  store_tile<kVec>(acc, [&](int i) -> float* {
+    return m0 + i < T ? h1 + (row0 + m0 + i) * H : nullptr;
+  }, n0, H);
   const int n_part = gridDim.x * gridDim.y;
-  const float count = static_cast<float>(min(kBM, T - t0) * min(kBN, H - n0));
-  tile_moments(v, ok, count, red,
-               part + 3 * (static_cast<size_t>(b) * n_part + blockIdx.x * gridDim.y + blockIdx.y));
+  const float count = static_cast<float>(min(kGM, T - m0) * min(kGM, H - n0));
+  tile_moments<64>([&](int i) { return acc[i / 8][i % 8]; },
+                   [&](int i) { return m0 + frag_row(i / 8) < T && n0 + frag_col(i % 8) < H; },
+                   count, red,
+                   part + 3 * (static_cast<size_t>(blockIdx.z) * n_part +
+                               blockIdx.x * gridDim.y + blockIdx.y));
 }
 
 // grid (cdiv(T, kDwRows), cdiv(H, kDwCols), B)
@@ -191,75 +190,130 @@ dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ stats,
   }
   const int n_part = gridDim.x * gridDim.y;
   const float count = static_cast<float>(min(kDwRows, T - t0) * min(kDwCols, H - c0));
-  tile_moments(v, ok, count, red,
-               part2 + 3 * (static_cast<size_t>(b) * n_part + blockIdx.x * gridDim.y + blockIdx.y));
+  tile_moments<kDwPer>([&](int i) { return v[i]; }, [&](int i) { return ok[i]; }, count, red,
+                       part2 + 3 * (static_cast<size_t>(b) * n_part + blockIdx.x * gridDim.y +
+                                    blockIdx.y));
 }
 
-// grid (cdiv(T, kBM), cdiv(n_res + Cs, kBN), B); n_res is C, or 0 on the
-// last block (no residual output).
-__global__ void __launch_bounds__(kThreads)
-out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
-         const float* __restrict__ g2, const float* __restrict__ be2,
-         const float* __restrict__ w_res, const float* __restrict__ b_res,
-         const float* __restrict__ w_skip, const float* __restrict__ b_skip,
-         const float* __restrict__ x,
-         float* __restrict__ res, float* __restrict__ skip, int T, int H, int C, int Cs,
-         int n_res) {
-  const int b = blockIdx.z, t0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const float mean = stats[4 * b + 2], rstd = stats[4 * b + 3];
-  const int n_out = n_res + Cs;
-  const float* hb = h2 + static_cast<size_t>(b) * T * H;
-  float acc[4][4] = {};
-  gemm_tile<true, true>(
-      acc, H,
-      [&](int m, int k) {
-        const int t = t0 + m;
-        return (t < T && k < H) ? (hb[static_cast<size_t>(t) * H + k] - mean) * rstd * g2[k] + be2[k]
-                                : 0.f;
-      },
-      [&](int k, int n) {
-        n += n0;
-        if (k >= H || n >= n_out) return 0.f;
-        // select the row pointer, then index it: indexing either matrix
-        // inside the ?: took 99 registers against 64 and ran 1.5x slower
-        // on an H100
-        const float* w = n < n_res ? w_res + static_cast<size_t>(n) * H
-                                   : w_skip + static_cast<size_t>(n - n_res) * H;
-        return w[k];
-      });
+// The output product's k loop: A is y2 = (h2 - mean2) rstd2 g2 + be2 of the
+// staged row of h2 (k = H contiguous), normalised in registers after the
+// block has multiplied the previous slice; B the staged row of W_res or
+// W_skip ((out, H), k contiguous). Past H, and for rows past T, A is 0.
+template <bool kVec>
+struct OutOp {
+  const float *hrow, *wrow, *g2, *be2;
+  float mean, rstd;
+  int H, k0 = 0;
+  RowStage<kVec> a, b;
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  __device__ __forceinline__ void fetch(int s, float*, float*) {
+    k0 = s * kGK;
+    a.load(hrow, k0, H);
+    b.load(wrow, k0, H);
+  }
+  __device__ __forceinline__ void store(float* As) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= T) continue;
-    const size_t row = static_cast<size_t>(b) * T + t;
+    for (int q = 0; q < 2; ++q) {
+      const int k = k0 + (threadIdx.x / kGM) * 4 + 8 * q;
+      float e[4] = {a.v[q].x, a.v[q].y, a.v[q].z, a.v[q].w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < n_res) {
-        res[row * C + n] = x[row * C + n] + (acc[i][j] + b_res[n]);
-      } else if (n < n_out) {
-        skip[row * Cs + (n - n_res)] = acc[i][j] + b_skip[n - n_res];
+      for (int j = 0; j < 4; ++j)
+        e[j] = hrow && k + j < H ? (e[j] - mean) * rstd * __ldg(g2 + k + j) + __ldg(be2 + k + j)
+                                 : 0.f;
+      a.v[q] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    a.store(As);
+    b.store(As + kGSlice);
+  }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+// grid (cdiv(T, 128), cdiv(n_res, 128) + cdiv(Cs, 128), B); n_res is C,
+// or 0 on the last block (no residual output).
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+tcn_out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
+             const float* __restrict__ g2, const float* __restrict__ be2,
+             const float* __restrict__ w_res, const float* __restrict__ b_res,
+             const float* __restrict__ w_skip, const float* __restrict__ b_skip,
+             const float* __restrict__ x, float* __restrict__ res, float* __restrict__ skip,
+             int T, int H, int C, int Cs, int n_res) {
+  __shared__ __align__(16) float sm[4 * kGSlice];
+  const int b = blockIdx.z, m0 = blockIdx.x * kGM, mr = cdiv(n_res, kGM);
+  const bool is_res = static_cast<int>(blockIdx.y) < mr;
+  const int n0 = (is_res ? blockIdx.y : blockIdx.y - mr) * kGM, N = is_res ? n_res : Cs;
+  const float* w = is_res ? w_res : w_skip;
+  const float* bias = is_res ? b_res : b_skip;
+  float* out = is_res ? res : skip;
+  const size_t row0 = static_cast<size_t>(b) * T;
+  OutOp<kVec> op;
+  const int m = m0 + threadIdx.x % kGM, n = n0 + threadIdx.x % kGM;
+  op.hrow = m < T ? h2 + (row0 + m) * H : nullptr;
+  op.wrow = n < N ? w + static_cast<size_t>(n) * H : nullptr;
+  op.g2 = g2;
+  op.be2 = be2;
+  op.mean = stats[4 * b + 2];
+  op.rstd = stats[4 * b + 3];
+  op.H = H;
+  float acc[8][8] = {};
+  gemm_loop(op, acc, cdiv(H, kGK), sm);
+  // the sum, then the bias, then (res) x + that
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = n0 + frag_col(j);
+    const float bn = col < N ? bias[col] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][j] = acc[i][j] + bn;
+  }
+  if (is_res) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = m0 + frag_row(i);
+      if (t >= T) continue;
+      const float* xr = x + (row0 + t) * C;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + frag_col(4 * h);
+        if (col >= N) continue;
+        float e[4] = {};
+        if constexpr (kVec) {
+          const float4 q = *reinterpret_cast<const float4*>(xr + col);
+          e[0] = q.x, e[1] = q.y, e[2] = q.z, e[3] = q.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (col + j < N) e[j] = xr[col + j];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][4 * h + j] = e[j] + acc[i][4 * h + j];
       }
     }
   }
+  store_tile<kVec>(acc, [&](int i) -> float* {
+    return m0 + i < T ? out + (row0 + m0 + i) * N : nullptr;
+  }, n0, N);
 }
+
+// every width on the float4 grid: the kVec GEMMs
+bool vec_widths(int C, int H, int Cs) { return C % 4 == 0 && H % 4 == 0 && Cs % 4 == 0; }
 
 }  // namespace
 
 extern "C" {
 
 // Number of (count, mean, M2) partials per batch row written by each stage.
-int tcn_in_partials(int T, int H) { return cdiv(T, kBM) * cdiv(H, kBN); }
+int tcn_in_partials(int T, int H) { return cdiv(T, kGM) * cdiv(H, kGM); }
 int tcn_dw_partials(int T, int H) { return cdiv(T, kDwRows) * cdiv(H, kDwCols); }
 
 int tcn_in_gemm_prelu_stats(const float* x, const float* w, const float* bias,
                             const float* alpha, float* h1, float* part, int B, int T, int C,
                             int H, void* stream) {
-  const dim3 grid(cdiv(T, kBM), cdiv(H, kBN), B);
-  in_gemm_prelu_stats<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, alpha, h1, part, T, C, H);
+  const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_widths(C, H, 4))
+    tcn_in_gemm<true><<<grid, kGemmThreads, 0, s>>>(x, w, bias, alpha, h1, part, T, C, H);
+  else
+    tcn_in_gemm<false><<<grid, kGemmThreads, 0, s>>>(x, w, bias, alpha, h1, part, T, C, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -283,9 +337,14 @@ int tcn_out_gemm(const float* h2, const float* stats, const float* g2, const flo
                  const float* b_skip, const float* x, float* res, float* skip, int B, int T,
                  int H, int C, int Cs, int last, void* stream) {
   const int n_res = last ? 0 : C;
-  const dim3 grid(cdiv(T, kBM), cdiv(n_res + Cs, kBN), B);
-  out_gemm<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      h2, stats, g2, be2, w_res, b_res, w_skip, b_skip, x, res, skip, T, H, C, Cs, n_res);
+  const dim3 grid(cdiv(T, kGM), cdiv(n_res, kGM) + cdiv(Cs, kGM), B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_widths(C, H, Cs))
+    tcn_out_gemm<true><<<grid, kGemmThreads, 0, s>>>(h2, stats, g2, be2, w_res, b_res, w_skip,
+                                                     b_skip, x, res, skip, T, H, C, Cs, n_res);
+  else
+    tcn_out_gemm<false><<<grid, kGemmThreads, 0, s>>>(h2, stats, g2, be2, w_res, b_res, w_skip,
+                                                      b_skip, x, res, skip, T, H, C, Cs, n_res);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,10 +22,11 @@
 // at its two. Eleven launches:
 //
 //   1. z1 GEMM:    x W_in^T + b_in -> z1 (h1 = PReLU(z1) is recomputed where
-//                  it is read). Each output sums its products over k
-//                  ascending with fmaf from 0, then adds the bias, as the
-//                  forward's GEMM does: z1 is bitwise the forward's, and so
-//                  are the PReLU branches and the gLN statistics.
+//                  it is read). The forward's own product (z1_tile of
+//                  tcn_common.cuh: each output an fmaf chain from 0 over k
+//                  ascending, then + the bias): z1 is bitwise the
+//                  forward's, and so are the PReLU branches and the gLN
+//                  statistics.
 //   2. z2:         depthwise over y1 normalised on load with the saved stats
 //                  (zero outside [0, T), which also covers d >= T) -> z2.
 //   3. gy2 GEMM:   [g_res | g_skip] [W_res; W_skip] (K = C + Cs) -> gy2;
@@ -70,7 +71,7 @@
 // caller allocates: z1, z2, gy2 and gy1 of (B, T, H) each and the partials.
 // Every pointer is a dense float32 buffer, 16-byte aligned; 2-D weights are
 // in the torch Linear storage (out, in): W_in (H, C), W_res (C, H), W_skip
-// (Cs, H), and W_in^T (C, H) besides. Where C, H and Cs are multiples of 4
+// (Cs, H). Where C, H and Cs are multiples of 4
 // every stage moves float4s (kVec); at any other width the same kernels
 // instantiated with kVec = false move single floats, with the same sums in
 // the same order (the last channels of a width off the float4 grid are
@@ -104,7 +105,7 @@ extern "C" {
 // workspace are written whole; nothing needs zeroing.
 struct TcnBwdArgs {
   const float *x, *g_res, *g_skip, *stats;
-  const float *w_in, *w_in_t, *b_in, *a1, *g1, *be1, *w_dw, *b_dw, *a2, *g2, *be2, *w_res,
+  const float *w_in, *b_in, *a1, *g1, *be1, *w_dw, *b_dw, *a2, *g2, *be2, *w_res,
       *w_skip;
   float* dx;      // (B, T, C)
   float* dw_in;   // (H, C)
@@ -140,51 +141,21 @@ struct Split {
 };
 
 // ---------------------------------------------------------------------------
-// 1. z1 = x W_in^T + b_in. grid (cdiv(T, 128), cdiv(H, 128), B)
-
-template <bool kVec>
-struct Z1Op {
-  const float *xrow, *wt;  // the staged row of x (null past T); W_in^T (C, H)
-  int C, H;
-  RowStage<kVec> a;
-
-  __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
-    const int k0 = s * kGK, n0 = blockIdx.y * kGM;
-    a.load(xrow, k0, C);
-    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
-      return k0 + k < C && n0 + c < H ? wt + static_cast<size_t>(k0 + k) * H + n0 + c : nullptr;
-    }, wt);
-  }
-  __device__ __forceinline__ void store(float* As) { a.store(As); }
-  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
-};
+// 1. z1 = x W_in^T + b_in (tcn_common.cuh's z1_tile, which K1 runs too).
+// grid (cdiv(T, 128), cdiv(H, 128), B)
 
 template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_z1_gemm(const float* __restrict__ x, const float* __restrict__ w_in_t,
+tcn_bwd_z1_gemm(const float* __restrict__ x, const float* __restrict__ w_in,
                 const float* __restrict__ bias, float* __restrict__ z1, int T, int C, int H) {
   __shared__ __align__(16) float sm[4 * kGSlice];
-  const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
-  const size_t row0 = static_cast<size_t>(b) * T;
-  Z1Op<kVec> op;
-  const int m = m0 + threadIdx.x % kGM;
-  op.xrow = m < T ? x + (row0 + m) * C : nullptr;
-  op.wt = w_in_t;
-  op.C = C;
-  op.H = H;
-  float acc[8][8] = {};
-  gemm_loop(op, acc, cdiv(C, kGK), sm);
-  // the same sum, then the bias, as the forward's epilogue
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + frag_col(j);
-    const float bn = n < H ? bias[n] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i][j] = acc[i][j] + bn;
-  }
+  const int m0 = blockIdx.x * kGM;
+  const size_t row0 = static_cast<size_t>(blockIdx.z) * T;
+  float acc[8][8];
+  tcn::z1_tile<kVec>(acc, x, w_in, bias, T, C, H, sm);
   store_tile<kVec>(acc, [&](int i) -> float* {
     return m0 + i < T ? z1 + (row0 + m0 + i) * H : nullptr;
-  }, n0, H);
+  }, blockIdx.y * kGM, H);
 }
 
 // ---------------------------------------------------------------------------
@@ -901,7 +872,7 @@ int launch_bwd(const TcnBwdArgs* a, cudaStream_t s) {
   int err = 0;
 
   tcn_bwd_z1_gemm<kVec><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
-      a->x, a->w_in_t, a->b_in, w + L.z1, T, C, H);
+      a->x, a->w_in, a->b_in, w + L.z1, T, C, H);
   TCN_LAUNCHED();
   tcn_bwd_z2<kVec><<<ew, kThreads, 0, s>>>(w + L.z1, a->stats, a->a1, a->g1, a->be1, a->w_dw,
                                            a->b_dw, w + L.z2, T, H, d);
@@ -991,15 +962,15 @@ int tcn_block_bwd(const TcnBwdArgs* a, void* stream) {
 // K2's first launch alone: z1 (B, T, H) = x W_in^T + b_in, the bits K2
 // recomputes (for the check that they are the forward's). Returns a CUDA
 // error code, or 0.
-int tcn_bwd_z1(const float* x, const float* w_in_t, const float* b_in, float* z1, int B, int T,
+int tcn_bwd_z1(const float* x, const float* w_in, const float* b_in, float* z1, int B, int T,
                int C, int H, void* stream) {
   if (!shape_ok(B, T, C, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_widths(C, H, 4))
-    tcn_bwd_z1_gemm<true><<<grid, kGemmThreads, 0, s>>>(x, w_in_t, b_in, z1, T, C, H);
+    tcn_bwd_z1_gemm<true><<<grid, kGemmThreads, 0, s>>>(x, w_in, b_in, z1, T, C, H);
   else
-    tcn_bwd_z1_gemm<false><<<grid, kGemmThreads, 0, s>>>(x, w_in_t, b_in, z1, T, C, H);
+    tcn_bwd_z1_gemm<false><<<grid, kGemmThreads, 0, s>>>(x, w_in, b_in, z1, T, C, H);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,19 @@
 // Device helpers shared by the TCN block forward (tcn_block.cu) and
-// backward (tcn_block_bwd.cu): tile sizes, a fixed-order block sum, Chan's
-// merge of partial moments and a float32 SIMT GEMM tile.
+// backward (tcn_block_bwd.cu): a fixed-order block sum, Chan's merge of
+// partial moments, and the product z1 = x W_in^T + b_in that both form on
+// simt_gemm.cuh's body, so that the backward's z1 is the forward's, bit
+// for bit.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+
+#include "simt_gemm.cuh"
+
 namespace tcn {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 64;  // GEMM tile rows
-constexpr int kBN = 64;  // GEMM tile columns
-constexpr int kBK = 16;  // GEMM tile depth
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -46,44 +49,55 @@ __device__ inline void merge(double& n, double& mean, double& m2, double nb, dou
   n = tot;
 }
 
-// One kBM x kBN output tile of A (kBM x K) @ B (K x kBN) in float32, for a
-// block of kThreads threads. Thread (tx, ty) owns rows ty + 16 i and columns
-// tx + 16 j, i, j < 4; every output sums its products in ascending k.
-// kAlongKA: neighbouring threads load neighbouring k of A (A is stored with k
-// contiguous); otherwise neighbouring m. kAlongKB likewise for B and n.
-template <bool kAlongKA, bool kAlongKB, class LoadA, class LoadB>
-__device__ void gemm_tile(float (&acc)[4][4], int K, LoadA load_a, LoadB load_b) {
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Bs[kBK][kBN + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-      const int m = kAlongKA ? i / kBK : i % kBM;
-      const int kk = kAlongKA ? i % kBK : i / kBM;
-      As[kk][m] = load_a(m, k0 + kk);
-    }
-    for (int i = threadIdx.x; i < kBN * kBK; i += kThreads) {
-      const int n = kAlongKB ? i / kBK : i % kBN;
-      const int kk = kAlongKB ? i % kBK : i / kBN;
-      Bs[kk][n] = load_b(k0 + kk, n);
-    }
-    __syncthreads();
+__device__ inline float prelu(float z, float a) { return z >= 0.f ? z : a * z; }
+
+// z1's k loop: both operands are stored with k contiguous (x (T, C) and the
+// torch Linear weight W_in (H, C)), so both are staged through registers
+// and transposed into the (k, 128) slices; no copy of W_in^T is needed.
+template <bool kVec>
+struct Z1Op {
+  const float *xrow, *wrow;  // the staged rows of x (null past T) and W_in (null past H)
+  int C;
+  simt::RowStage<kVec> a, b;
+
+  __device__ __forceinline__ void fetch(int s, float*, float*) {
+    a.load(xrow, s * simt::kGK, C);
+    b.load(wrow, s * simt::kGK, C);
+  }
+  __device__ __forceinline__ void store(float* As) {
+    a.store(As);
+    b.store(As + simt::kGSlice);
+  }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+// The block's 128 x 128 tile of z1 = x W_in^T + b_in for batch row b (grid
+// (cdiv(T, 128), cdiv(H, 128), B), 256 threads, sm: 4 kGSlice floats):
+// every output an fmaf chain from 0 over k ascending, then + the bias.
+// K1 and K2 both call this, so their z1 are the same bits.
+template <bool kVec>
+__device__ __forceinline__ void z1_tile(float (&acc)[8][8], const float* __restrict__ x,
+                                        const float* __restrict__ w_in,
+                                        const float* __restrict__ bias, int T, int C, int H,
+                                        float* sm) {
+  using namespace simt;
+  const int m = blockIdx.x * kGM + threadIdx.x % kGM, n = blockIdx.y * kGM + threadIdx.x % kGM;
+  Z1Op<kVec> op;
+  op.xrow = m < T ? x + (static_cast<size_t>(blockIdx.z) * T + m) * C : nullptr;
+  op.wrow = n < H ? w_in + static_cast<size_t>(n) * C : nullptr;
+  op.C = C;
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  gemm_loop(op, acc, cdiv(C, kGK), sm);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+  for (int j = 0; j < 8; ++j) {
+    const int col = blockIdx.y * kGM + frag_col(j);
+    const float bn = col < H ? bias[col] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < 8; ++i) acc[i][j] = acc[i][j] + bn;
   }
 }
-
-__device__ inline float prelu(float z, float a) { return z >= 0.f ? z : a * z; }
 
 }  // namespace tcn

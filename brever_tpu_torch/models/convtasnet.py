@@ -3,10 +3,14 @@
 
 Luo & Mesgarani, IEEE/ACM TASLP 2019; the default geometry has
 4,935,217 parameters. Channels-last inside the TCN, like the JAX
-package. Every TCN block goes through :func:`..ops.tcn_block.tcn_block`:
-the hand-written kernels on CUDA (forward, and backward when training),
-their plain versions on the CPU. Encoder, bottleneck, mask and decoder
-are plain torch, as the JAX package leaves them to XLA.
+package. A TCN block whose depthwise conv has 3 taps goes through
+:func:`..ops.tcn_block.tcn_block`: the hand-written kernels on CUDA
+(forward, and backward when training), their plain versions on the CPU.
+A block of any other kernel size runs :func:`..ops.tcn_block.
+tcn_block_plain` under autograd on every device, as the JAX package
+engages its fused kernel for kernel_size 3 only and leaves the others to
+XLA. Encoder, bottleneck, mask and decoder are plain torch, as the JAX
+package leaves them to XLA.
 """
 
 import torch
@@ -14,7 +18,7 @@ from torch import nn
 
 from ..convert import flax_to_state_dict, state_dict_to_flax
 from ..criterion import init_criterion
-from ..ops.tcn_block import tcn_block
+from ..ops.tcn_block import tcn_block, tcn_block_plain
 from ..optim import Adam
 from .base import BreverBaseModel, ModelRegistry
 from .common import DepthwiseConv1D, GlobalLayerNorm, PReLU
@@ -27,6 +31,7 @@ class ConvBlock(nn.Module):
     def __init__(self, input_channels, hidden_channels, skip_channels,
                  kernel_size, dilation, last):
         super().__init__()
+        self.kernel_size = kernel_size
         self.dilation = dilation
         self.last = last
         padding = (kernel_size - 1) * dilation
@@ -53,9 +58,11 @@ class ConvBlock(nn.Module):
                 *res, self.skip.weight, self.skip.bias)
 
     def forward(self, x):
-        # x: (batch, time, bottleneck) -> (res or None, skip)
-        return tcn_block(x.contiguous(), self.block_params(), self.dilation,
-                         self.last)
+        # x: (batch, time, bottleneck) -> (res or None, skip); the kernels
+        # take 3 taps, every other kernel size runs the plain block
+        block = tcn_block if self.kernel_size == 3 else tcn_block_plain
+        return block(x.contiguous(), self.block_params(), self.dilation,
+                     self.last)
 
 
 class TCN(nn.Module):

@@ -31,8 +31,7 @@ _F = ctypes.c_float
 class TcnBwdArgs(ctypes.Structure):
     """``struct TcnBwdArgs`` of csrc/tcn_block_bwd.cu, field for field."""
     _fields_ = [(name, _P) for name in (
-        'x', 'g_res', 'g_skip', 'stats', 'w_in', 'w_in_t', 'b_in', 'a1', 'g1',
-        'be1',
+        'x', 'g_res', 'g_skip', 'stats', 'w_in', 'b_in', 'a1', 'g1', 'be1',
         'w_dw', 'b_dw', 'a2', 'g2', 'be2', 'w_res', 'w_skip', 'dx', 'dw_in',
         'db_in', 'da', 'dgb1', 'dwb_dw', 'dgb2', 'dw_out', 'db_out',
         'work')] + [(name, _I) for name in (
@@ -52,10 +51,12 @@ SIGNATURES = {
     'tcn_bwd_plan': (_I, [_I] * 6 + [ctypes.POINTER(_I)]),
     'tcn_block_bwd': (_I, [ctypes.POINTER(TcnBwdArgs), _P]),
     'tcn_bwd_z1': (_I, [_P] * 4 + [_I] * 4 + [_P]),
-    'lstm_fwd_smem': (ctypes.c_size_t, [_I, _I]),
+    'lstm_fwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
     'lstm_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    'lstm_fwd_gates': (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    'lstm_bwd_gates': (_I, [_P] * 6 + [_I] * 5 + [_P]),
     'lstm_bwd': (_I, [_P] * 13 + [_I] * 5 + [_P]),
     'lstm_scan_bwd_workspace': (ctypes.c_size_t, [_I] * 4),
     'lstm_scan_tile_smem': (ctypes.c_size_t, [_I]),

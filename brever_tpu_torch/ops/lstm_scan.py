@@ -20,7 +20,10 @@ forward saves x, h and c (as ``_fused_x_fwd`` does) and whose backward
 returns dx, dW_ih, db and dW_hh; otherwise (serving) it is the forward
 alone. A tensor on the CPU takes the plain versions; a CUDA tensor
 launches the kernels (``csrc/lstm_scan.cu``: K3, the forward, replaces
-``_fwd_x_kernel``; K4, the backward, ``_bwd_x_kernel``) or raises. K4 is
+``_fwd_x_kernel``; K4, the backward, ``_bwd_x_kernel``) or raises. K3 is
+one launch: a block scans a row tile over all steps, streaming the rows of
+``[w_ih; w_hh]`` through a shared-memory ring (its plan: :func:`fwd_plan`,
+checked against the library's before a shape's first launch). K4 is
 five launches: the gates of every step as one GEMM (the saved h makes them
 independent of the scan), the reverse scan that forms dgates and dh_rec =
 dgates w_hh^T, the dx GEMM, the weight GEMM over fixed-order chunks of the
@@ -75,8 +78,10 @@ _INT_RANGE = 2 ** 31
 #: csrc/lstm_scan.cu), the largest K3/K4 take (``kMaxHiddenWide``), and
 #: their grid of sizes
 _MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 8192, 256, 32
-#: rows of one K3 scan tile
+#: rows of a 32-row scan tile (the routing rule's, :func:`fused_x_fits`)
 _TILE_ROWS = 32
+#: K3's ring (``kFwdRing`` of csrc/lstm_scan.cu): its stages
+_FWD_RING = 4
 #: shared memory a block may take on the H100 (bytes)
 _MAX_SMEM = 227 * 1024
 #: K5/K6 up to H = 256 (csrc/lstm_scan.cu): rows of a cluster's tile, and
@@ -138,8 +143,8 @@ def fused_x_fits(feat, hidden):
     every shape keeps its route; else the projection goes outside and
     K5/K6 run the scan, which take H up to 8192 and whose shared memory
     does not depend on E. What the kernels need is less and within it: K3
-    32 (E + H) floats (``lstm_fwd_smem``), K4 a plan whose shared memory
-    does not depend on E (:func:`bwd_plan`); every launch checks the
+    and K4 have plans whose shared memory does not depend on E
+    (:func:`fwd_plan`, :func:`bwd_plan`); every launch checks the
     library's own figures (``_check``)."""
     e_pad = feat + (-feat % 4)
     return hidden <= _MAX_HIDDEN_X \
@@ -195,6 +200,23 @@ def wgrad_split(pairs, tiles):
     chunk = -(-pairs // chunks)
     chunk = -(-chunk // _GEMM_SLICE) * _GEMM_SLICE
     return -(-pairs // chunk), chunk
+
+
+def fwd_plan(steps, n_dir, rows, feat, hidden):
+    """K3's plan at ``(T, D, R, E, H)`` (E padded to a multiple of 4), as
+    ``lstm_fwd_plan`` of csrc/lstm_scan.cu gives it: the tile rows (64
+    where H <= 128 and 64-row tiles give the 132 SMs a block each, else
+    32), the ring's k slice (16 rows of ``[w_ih; w_hh]`` at H <= 128, 8
+    above), threads a block (4 rows x 4 units a thread), tiles a direction
+    and shared memory a block: h of the tile transposed, ``(H, rows + 4)``
+    floats, and the ring's 4 stages of ``(slice, rows + 4)`` x columns and
+    ``(slice, 4H)`` weights. ``steps`` and ``feat`` do not change it."""
+    tile = 64 if hidden <= 128 and n_dir * -(-rows // 64) >= _SMS else 32
+    k = 16 if hidden <= 128 else 8
+    ld = tile + 4
+    return {'rows': tile, 'slice': k, 'threads': tile * hidden // 16,
+            'tiles': -(-rows // tile),
+            'smem': 4 * (hidden * ld + _FWD_RING * k * (ld + 4 * hidden))}
 
 
 def bwd_plan(steps, n_dir, rows, feat, hidden):
@@ -546,10 +568,8 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
     _tensor(bias, 'bias', device, (n_dir, 4 * hidden))
     _check_hidden(hidden, 'lstm_scan_x', _MAX_HIDDEN_X)
     e_pad = feat + (-feat % 4)
-    if backward:
-        smem = plan_info(steps, n_dir, rows, e_pad, hidden)['smem']
-    else:
-        smem = lib.lstm_fwd_smem(e_pad, hidden)
+    info = plan_info if backward else fwd_plan_info
+    smem = info(steps, n_dir, rows, e_pad, hidden)['smem']
     if smem > _MAX_SMEM:
         raise NotImplementedError(
             f'lstm_scan_x: E={feat} with H={hidden} needs {smem} bytes of '
@@ -558,6 +578,31 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
         raise ValueError(f'lstm_scan_x: {tuple(x_seq.shape)} with H={hidden}'
                          ' passes the kernels\' int range')
     return steps, n_dir, rows, feat, hidden
+
+
+#: K3's plan at each (D, R, H) checked so far: ``lstm_fwd_plan``'s
+_fwd_plans = {}
+
+
+def fwd_plan_info(steps, n_dir, rows, feat, hidden):
+    """The library's K3 plan at ``(T, D, R, E, H)`` (E padded to a multiple
+    of 4), keyed as :func:`fwd_plan`'s; raises where it is not the
+    wrapper's mirror."""
+    key = (n_dir, rows, hidden)
+    if key not in _fwd_plans:
+        lib = build.load_library()
+        info = (ctypes.c_int * 5)()
+        build.check(lib, lib.lstm_fwd_plan(steps, n_dir, rows, feat, hidden,
+                                           info),
+                    f'lstm_fwd_plan{(steps, n_dir, rows, feat, hidden)}')
+        out = dict(zip(('rows', 'slice', 'threads', 'tiles', 'smem'), info))
+        want = fwd_plan(steps, n_dir, rows, feat, hidden)
+        if out != want:
+            raise RuntimeError(f'lstm_scan_x: the library\'s K3 plan at '
+                               f'D={n_dir} R={rows} H={hidden} is {out}, the '
+                               f'wrapper\'s {want}')
+        _fwd_plans[key] = out
+    return _fwd_plans[key]
 
 
 #: K4's plan at each (T, D, R, E, H) checked so far: ``lstm_bwd_plan``'s
@@ -601,23 +646,59 @@ def _pad_feature(x_seq, w_ih):
     return x_seq, w_ih
 
 
-def _launch_fwd(x_seq, w_ih, bias, w_hh):
+def _launch_fwd(x_seq, w_ih, bias, w_hh, keep_gates=False):
+    """K3 on one row chunk: ``(h_seq, c_seq)``; with ``keep_gates`` also
+    the gate pre-activations K3 formed ``(T, D, R, 4H)``."""
     lib = build.load_library()
     steps, n_dir, rows, _, hidden = _check(x_seq, w_ih, bias, w_hh, lib,
                                            False)
     x_seq, w_ih = _pad_feature(x_seq, w_ih)
     x_seq, w_ih, bias, w_hh = _aligned(x_seq, w_ih, bias, w_hh)
     device = x_seq.device
+    entry = 'lstm_fwd_gates' if keep_gates else 'lstm_fwd'
     with torch.cuda.device(device):
         h_seq = torch.empty(steps, n_dir, rows, hidden, dtype=torch.float32,
                             device=device)
         c_seq = torch.empty_like(h_seq)
-        build.check(lib, lib.lstm_fwd(
+        args = [x_seq.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                w_hh.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr()]
+        if keep_gates:
+            gates = torch.empty(steps, n_dir, rows, 4 * hidden,
+                                dtype=torch.float32, device=device)
+            args.append(gates.data_ptr())
+        build.check(lib, getattr(lib, entry)(
+            *args, steps, n_dir, rows, x_seq.shape[-1], hidden,
+            torch.cuda.current_stream(device).cuda_stream), entry)
+    return (h_seq, c_seq, gates) if keep_gates else (h_seq, c_seq)
+
+
+def forward_gates(x_seq, w_ih, bias, w_hh):
+    """K3 on a CUDA tensor, keeping what it formed: ``(h_seq, c_seq,
+    gates)``, gates the pre-activations ``(T, D, R, 4H)`` of every step (a
+    check's entry; not counted as a K3 launch)."""
+    return _launch_fwd(x_seq, w_ih, bias, w_hh, keep_gates=True)
+
+
+def recompute_gates(x_seq, w_ih, bias, w_hh, h_seq):
+    """K4's first launch alone on a CUDA tensor: the gate pre-activations
+    ``(T, D, R, 4H)`` it recomputes from the saved h, which are K3's bits
+    (:func:`forward_gates`). Not counted as a K4 launch."""
+    lib = build.load_library()
+    steps, n_dir, rows, _, hidden = _check(x_seq, w_ih, bias, w_hh, lib,
+                                           True)
+    device = x_seq.device
+    _tensor(h_seq, 'h_seq', device, (steps, n_dir, rows, hidden))
+    x_seq, w_ih = _pad_feature(x_seq, w_ih)
+    x_seq, w_ih, bias, w_hh, h_seq = _aligned(x_seq, w_ih, bias, w_hh, h_seq)
+    with torch.cuda.device(device):
+        gates = torch.empty(steps, n_dir, rows, 4 * hidden,
+                            dtype=torch.float32, device=device)
+        build.check(lib, lib.lstm_bwd_gates(
             x_seq.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
-            w_hh.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(), steps,
+            w_hh.data_ptr(), h_seq.data_ptr(), gates.data_ptr(), steps,
             n_dir, rows, x_seq.shape[-1], hidden,
-            torch.cuda.current_stream(device).cuda_stream), 'lstm_fwd')
-    return h_seq, c_seq
+            torch.cuda.current_stream(device).cuda_stream), 'lstm_bwd_gates')
+    return gates
 
 
 def _launch_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):

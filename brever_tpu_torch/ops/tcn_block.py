@@ -25,20 +25,21 @@ CUDA tensor launches the kernels or raises.
 
 On the H100 the forward is three hand-written launches and two per-row
 merges, split at the two global-norm barriers because a (T, H) row of
-intermediates no longer fits on chip as it does in the TPU's VMEM. It
-is bound by bytes: h1 and h2 make one round trip through device memory
-each (about 16 MB a batch row of 4 s at H=512 in f32), against
-2*T*H*(2C + Cs) flops a row. The design keeps z1, z2, y1 and y2 out of
-device memory by normalizing on load and fusing the biases, activations
-and residual into the epilogues, and it carries only three floats per
-tile across each barrier (merged once per row in a fixed order, so the
-result is deterministic). The backward (its source says how) is bound
-by GEMM work and splits at its own two barriers the same way: eleven
-launches, five of them GEMMs on 128 x 128 tiles (the plan:
-:func:`bwd_plan`, checked against the library's by :func:`plan_info`
-before a shape's first launch). It moves float4s where C, H and Cs are
-multiples of 4, and single floats through the same kernels at any other
-width.
+intermediates no longer fits on chip as it does in the TPU's VMEM. Its
+two products (x W_in^T, and y2 [W_res; W_skip]^T) run on the 128 x 128
+SIMT tiles of the backward's GEMMs, and the first is the very product
+the backward recomputes, so the backward's z1 is the forward's bit for
+bit. The design keeps z1, z2, y1 and y2 out of device memory by
+normalizing on load and fusing the biases, activations and residual into
+the epilogues, and it carries only three floats per tile across each
+barrier (merged once per row in a fixed order, so the result is
+deterministic; the tiles a row: :func:`fwd_partials`). The backward (its
+source says how) is bound by GEMM work and splits at its own two
+barriers the same way: eleven launches, five of them GEMMs on 128 x 128
+tiles (the plan: :func:`bwd_plan`, checked against the library's by
+:func:`plan_info` before a shape's first launch). Both move float4s where
+C, H and Cs are multiples of 4, and single floats through the same
+kernels at any other width.
 """
 
 import ctypes
@@ -55,6 +56,8 @@ _EPS = 1e-8
 #: least chunk of time steps
 _GEMM_TILE, _GEMM_SLICE, _EW_ROWS, _EW_COLS = 128, 16, 64, 128
 _SMS, _WG_MIN_CHUNK = 132, 256
+#: K1's depthwise tile (``kDwRows``, ``kDwCols`` of csrc/tcn_block.cu)
+_DW_ROWS, _DW_COLS = 32, 128
 
 
 def _cdiv(a, b):
@@ -102,6 +105,15 @@ def bwd_plan(batch, t_total, c_in, hidden, c_skip, last):
             'out_chunks': out[0], 'out_chunk': out[1],
             'in_chunks': inp[0], 'in_chunk': inp[1],
             'workspace': sum(_cdiv(n, 32) * 32 for n in buffers)}
+
+
+def fwd_partials(t_total, hidden):
+    """``(in, dw)``: the (count, mean, M2) partials a batch row that K1's
+    input GEMM (one a 128 x 128 tile of (T, H)) and its depthwise stage
+    (one a 32 x 128 tile) write, as ``tcn_in_partials`` and
+    ``tcn_dw_partials`` of csrc/tcn_block.cu count them."""
+    return (_cdiv(t_total, _GEMM_TILE) * _cdiv(hidden, _GEMM_TILE),
+            _cdiv(t_total, _DW_ROWS) * _cdiv(hidden, _DW_COLS))
 
 
 def tcn_block_fwd_plain(x, params, dilation, last):
@@ -304,21 +316,42 @@ def _block_pointers(x, params, dilation, last):
     return (batch, t_total, c_in, hidden, c_skip), ptr
 
 
+#: K1's partial counts at each (T, H) checked so far
+_partials = {}
+
+
+def partials_info(t_total, hidden):
+    """The library's K1 partial counts a batch row at ``(T, H)``; raises
+    where they are not :func:`fwd_partials`."""
+    key = (t_total, hidden)
+    if key not in _partials:
+        lib = build.load_library()
+        out = (lib.tcn_in_partials(t_total, hidden),
+               lib.tcn_dw_partials(t_total, hidden))
+        if out != fwd_partials(t_total, hidden):
+            raise RuntimeError(
+                f'tcn_block: the library\'s partials at T={t_total} '
+                f'H={hidden} are {out}, the wrapper\'s '
+                f'{fwd_partials(t_total, hidden)}')
+        _partials[key] = out
+    return _partials[key]
+
+
 def _launch(x, params, dilation, last):
     """The forward kernel: ``(res or None, skip, stats (B, 4))`` and the
     activations ``(h1, h2)`` it kept in device memory between its
     launches."""
+    x, *params = (_aligned(t) for t in (x, *params))
     (batch, t_total, c_in, hidden, c_skip), p = _block_pointers(
         x, params, dilation, last)
     device = x.device
     lib = build.load_library()
+    n_part1, n_part2 = partials_info(t_total, hidden)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         f32 = dict(dtype=torch.float32, device=device)
         h1 = torch.empty(batch, t_total, hidden, **f32)
         h2 = torch.empty(batch, t_total, hidden, **f32)
-        n_part1 = lib.tcn_in_partials(t_total, hidden)
-        n_part2 = lib.tcn_dw_partials(t_total, hidden)
         part1 = torch.empty(batch, n_part1, 3, **f32)
         part2 = torch.empty(batch, n_part2, 3, **f32)
         stats = torch.empty(batch, 4, **f32)
@@ -371,10 +404,12 @@ def plan_info(batch, t_total, c_in, hidden, c_skip, last):
 
 
 def _aligned(t):
-    """t, or a copy of it where its storage is not 16-byte aligned (K2
-    stages float4s; a parameter may be a view at any float of the
-    trainer's flat buffer)."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+    """t, or a copy of it where its storage is not 16-byte aligned (K1 and
+    K2 stage float4s; a parameter may be a view at any float of the
+    trainer's flat buffer). Anything but a tensor is returned for the
+    checks to refuse."""
+    return t if not isinstance(t, torch.Tensor) or t.data_ptr() % 16 == 0 \
+        else t.clone()
 
 
 def recompute_z1(x, params):
@@ -390,12 +425,11 @@ def recompute_z1(x, params):
     _vector(b_in, hidden, 'b_in', device)
     lib = build.load_library()
     with torch.cuda.device(device):
-        x = _aligned(x.contiguous())
-        w_in_t = w_in.t().contiguous()
+        x, w_in, b_in = (_aligned(t) for t in (x.contiguous(), w_in, b_in))
         z1 = torch.empty(batch, t_total, hidden, dtype=torch.float32,
                          device=device)
         build.check(lib, lib.tcn_bwd_z1(
-            x.data_ptr(), w_in_t.data_ptr(), b_in.data_ptr(), z1.data_ptr(),
+            x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(), z1.data_ptr(),
             batch, t_total, c_in, hidden,
             torch.cuda.current_stream(device).cuda_stream), 'tcn_bwd_z1')
     return z1
@@ -403,12 +437,11 @@ def recompute_z1(x, params):
 
 def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
     """The backward kernel: ``(dx, dparams)``."""
-    (batch, t_total, c_in, hidden, c_skip), _ = _block_pointers(
-        x, params, dilation, last)
-    plan = plan_info(batch, t_total, c_in, hidden, c_skip, last)
     x, g_res, g_skip, *params = (_aligned(t) for t in (x, g_res, g_skip,
                                                        *params))
-    p = _block_pointers(x, params, dilation, last)[1]
+    (batch, t_total, c_in, hidden, c_skip), p = _block_pointers(
+        x, params, dilation, last)
+    plan = plan_info(batch, t_total, c_in, hidden, c_skip, last)
     device = x.device
 
     def dense(t, shape, name):
@@ -431,8 +464,6 @@ def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
     lib = build.load_library()
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
-        w_in_t = params[0].t().contiguous()
-        args.w_in_t = w_in_t.data_ptr()
         dx = torch.empty(batch, t_total, c_in, **f32)
         dw_in = torch.empty(hidden, c_in, **f32)
         db_in = torch.empty(hidden, **f32)

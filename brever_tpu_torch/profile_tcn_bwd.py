@@ -1,10 +1,11 @@
-"""The TCN block backward (K2) launch by launch, on one CUDA device.
+"""The TCN block backward (K2), or with ``--forward`` its forward (K1),
+launch by launch, on one CUDA device.
 
 At Conv-TasNet's block shape (B=16, T=3999, C=Cs=128, H=512; ``--batch``
 and ``--steps`` change B and T), for each dilation of ``--dilations``
 (default 1 and 128), float32 with TF32 off:
 
-* the backward's time a call: CUDA events around ``--calls`` calls after
+* the kernel's time a call: CUDA events around ``--calls`` calls after
   two warm-up calls, the mean;
 * each of its launches' device time a call, grouped by kernel name, from a
   ``torch.profiler`` trace of ``--calls`` calls, and the launches a call.
@@ -14,7 +15,7 @@ makes them. Prints the card (``nvidia-smi`` name and power limit), a table
 and one JSON object.
 
     python -m brever_tpu_torch.profile_tcn_bwd [--dilations 1,128]
-        [--batch 16] [--steps 3999] [--calls 5]
+        [--batch 16] [--steps 3999] [--calls 5] [--forward]
 
 It calls only ``ops.tcn_block.tcn_block_fwd`` and ``tcn_block_bwd``, so it
 runs unchanged in a checkout of an earlier commit of the port: copy it into
@@ -50,16 +51,23 @@ def block_inputs(rng, batch, t_total, device, c=128, h=512, cs=128):
         arr(batch, t_total, cs, scale=1.0)
 
 
-def profile(dilation, batch=16, t_total=3999, calls=5, device='cuda'):
-    """``{'ms', 'launches', 'parts'}`` of K2 at one dilation: the mean ms a
-    call, the device launches a call, and ``{kernel: ms a call}``."""
+def profile(dilation, batch=16, t_total=3999, calls=5, device='cuda',
+            forward=False):
+    """``{'ms', 'launches', 'parts'}`` of K2 (with ``forward``, K1) at one
+    dilation: the mean ms a call, the device launches a call, and
+    ``{kernel: ms a call}``."""
     x, params, g_res, g_skip = block_inputs(
         np.random.RandomState(dilation), batch, t_total, device)
     with torch.no_grad():
         _, _, stats = tcn.tcn_block_fwd(x, params, dilation, False)
 
+    @torch.no_grad()
     def call():
-        tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation, False)
+        if forward:
+            tcn.tcn_block_fwd(x, params, dilation, False)
+        else:
+            tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation,
+                              False)
 
     for _ in range(2):
         call()
@@ -90,6 +98,8 @@ def main():
     parser.add_argument('--batch', type=int, default=16)
     parser.add_argument('--steps', type=int, default=3999)
     parser.add_argument('--calls', type=int, default=5)
+    parser.add_argument('--forward', action='store_true',
+                        help='profile K1, the forward, instead')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_tcn_bwd: needs a CUDA device')
@@ -99,9 +109,11 @@ def main():
          '--format=csv,noheader'],
         check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    out = {'card': card, 'batch': args.batch, 'steps': args.steps}
+    out = {'card': card, 'batch': args.batch, 'steps': args.steps,
+           'kernel': 'K1' if args.forward else 'K2'}
     for dilation in map(int, args.dilations.split(',')):
-        run = profile(dilation, args.batch, args.steps, args.calls)
+        run = profile(dilation, args.batch, args.steps, args.calls,
+                      forward=args.forward)
         out[f'd{dilation}'] = run
         print(f'd={dilation}: {run["ms"]:.3f} ms a call (CUDA events), '
               f'{run["launches"]:g} launches a call; device ms a call:',

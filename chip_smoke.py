@@ -382,15 +382,17 @@ def bound(flops, nbytes, flops_per_s=F32_FLOPS):
 
 
 def write_model_dir(path, arch, train_path='none', val_path='none',
-                    params=None, aux=None):
+                    params=None, aux=None, model=None):
     """A model directory as the JAX package's initializer writes one: the
-    default ``config.yaml`` of ``arch`` with the dataset paths and, with
-    ``params``, ``checkpoints/last.ckpt`` holding them (and ``aux``)."""
+    default ``config.yaml`` of ``arch`` with the dataset paths (and the
+    ``model`` settings updated from ``model``) and, with ``params``,
+    ``checkpoints/last.ckpt`` holding them (and ``aux``)."""
     import yaml
     from brever_tpu_torch.checkpoint import save_checkpoint
     with open(os.path.join(CONFIG_DIR, f'{arch}.yaml')) as f:
         config = yaml.load(f, Loader=yaml.Loader)
     config['train_path'], config['val_path'] = train_path, val_path
+    config['model'].update(model or {})
     os.makedirs(path)
     with open(os.path.join(path, 'config.yaml'), 'w') as f:
         yaml.dump(config, f)
@@ -401,16 +403,17 @@ def write_model_dir(path, arch, train_path='none', val_path='none',
     return path
 
 
-def tone_model_dir(tmp, arch, seed):
+def tone_model_dir(tmp, arch, seed, model=None):
     """Writes train (24 items) and val (4) tone datasets of 1 s under
-    ``tmp`` and a model directory of the default ``arch`` over them;
-    returns its path."""
+    ``tmp`` and a model directory of the default ``arch`` (its model
+    settings updated from ``model``) over them; returns its path."""
     paths = []
     for split, n_items, data_seed in (('train', 24, seed),
                                       ('val', 4, seed + 1)):
         paths.append(os.path.join(tmp, split))
         write_tone_dataset(paths[-1], n_items, 1.0, data_seed)
-    return write_model_dir(os.path.join(tmp, 'model'), arch, *paths)
+    return write_model_dir(os.path.join(tmp, 'model'), arch, *paths,
+                           model=model)
 
 
 def train_args(model_dir, epochs, val_period, metrics='snr,sisnr'):
@@ -751,10 +754,18 @@ def tfgridnet_phases(device, card):
             w_ih, w_hh = offset_view(w_ih), offset_view(w_hh)
         h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
         ref = lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)
+        with torch.no_grad():
+            h2, c2, gates = lstm.forward_gates(x, w_ih, bias, w_hh)
+            gates4 = lstm.recompute_gates(x, w_ih, bias, w_hh, h)
         torch.cuda.synchronize()
         fwd_err = max(fwd_err, check_close(f'K3 {name}', ('h', 'c'), ref,
                                              (h, c))[1])
-        del ref
+        if not (torch.equal(h, h2) and torch.equal(c, c2)):
+            raise AssertionError(f'K3 {name}: two runs differ')
+        if not torch.equal(gates, gates4):
+            raise AssertionError(f'K3 {name}: K4\'s recomputed gates are '
+                                 'not K3\'s')
+        del ref, h2, c2, gates, gates4
         grads = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
         again = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
         f64 = [t.double() for t in (x, w_ih, bias, w_hh)]
@@ -773,7 +784,8 @@ def tfgridnet_phases(device, card):
           f'{LSTM_INTER}, R=1000 E=72 with unaligned weights, T=1 D=1, '
           f'H=32 and H=256 at ragged R {[c[2] for c in LSTM_EDGE_CASES]}): '
           f'K3 h and c agree with the plain version (max abs err '
-          f'{fwd_err:.3e}); K4 dx, dW_ih, db, '
+          f'{fwd_err:.3e}), two runs bitwise equal, and K4\'s recomputed '
+          f'gates are bitwise K3\'s; K4 dx, dW_ih, db, '
           f'dW_hh with the plain backward in float64 (worst SNR '
           f'{bwd_worst:.1f} dB >= {MIN_SNR_DB}, max abs err {bwd_err:.3e}, '
           f'each <= {MAX_REL_ERR} x max|ref|); two runs bitwise equal')
@@ -954,6 +966,7 @@ def tfgridnet_phases(device, card):
         timing[label] = {
             'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd, 'lib_bwd': lib_bwd,
             'parts': parts,
+            'fwd_plan': lstm.fwd_plan_info(steps, n_dir, rows, feat, hidden),
             'plan': lstm.plan_info(steps, n_dir, rows, feat, hidden),
             'bound_fwd': bound(flops, 4 * (seq_x + weights + 2 * seq_h)),
             'bound_bwd': bound(3 * flops, 4 * (2 * seq_x + 2 * weights
@@ -1003,6 +1016,13 @@ def tfgridnet_phases(device, card):
                   f'{plan["rows"]} rows, {plan["smem"]} B; weight GEMM '
                   f'{plan["chunks"]} chunks of {plan["chunk"]} pairs')
     phase(15, f'[{card}] K4 launches ms: {"; ".join(k4)}')
+    k3 = []
+    for label in ('intra', 'inter'):
+        plan = timing[label]['fwd_plan']
+        k3.append(f'{label} {2 * plan["tiles"]} blocks of '
+                  f'{plan["threads"]} threads, {plan["rows"]} rows, '
+                  f'{plan["slice"]}-row slices, {plan["smem"]} B')
+    phase(15, f'[{card}] K3 plan: ' + '; '.join(k3))
     phase(15, f'[{card}] BLSTM 16x4 s kernel/plain ms: intra K3 '
           f'{timing["intra"]["fwd"]["kernel"]:.3f}/'
           f'{timing["intra"]["fwd"]["plain"]:.3f} K4 '
@@ -3215,6 +3235,104 @@ def idmse_phases(device, card):
     return out
 
 
+#: the model settings of the Conv-TasNet whose blocks take the plain block
+#: (phase 42): the default widths with 5 taps
+OFF_KERNEL_MODEL = {'kernel_size': 5}
+
+
+def kernel_size_phase(device, card):
+    """Phase 42: a full-width Conv-TasNet whose depthwise convs have 5 taps
+    serves through ``EnhanceService(model_dir)`` and trains through
+    ``train.main`` on the card on plain blocks (no K1 or K2 launch, as the
+    JAX package runs such blocks on XLA), against the CPU path."""
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.models import ModelRegistry
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    from brever_tpu_torch.ops import tcn_block as tcn
+    from brever_tpu_torch.serve import EnhanceService, build_model
+    taps = dict(OFF_KERNEL_MODEL)
+    model = ModelRegistry.get('convtasnet')(**taps, device='cpu')
+    model.init_parameters(42)
+    params = model.to_flax(model.state_dict())
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, 'model'), 'convtasnet',
+                                    params=params, model=taps)
+        gpu = EnhanceService(model_dir, device)
+        cpu = EnhanceService(model_dir, 'cpu')
+    if gpu.model.tcn.blocks[0].depthwise.weight.shape[0] != taps['kernel_size']:
+        raise AssertionError('the served model does not have 5 taps')
+    mix = (0.1 * np.random.RandomState(42).randn(2, 2, 4 * FS)) \
+        .astype(np.float32)
+    tcn.tcn_block.launches = tcn.tcn_block_bwd.launches = 0
+    out = gpu.model.enhance(mix)
+    results = []
+    with http_service(gpu) as (port, health):
+        if health['device'] != str(device):
+            raise AssertionError(f'/health: {health}')
+        audio = (0.1 * np.random.RandomState(43).randn(2 * FS)) \
+            .astype(np.float32)
+        got = post_wav(port, audio)
+        snr_http, _ = check_output('/enhance 2 s, 5 taps', cpu.enhance(audio),
+                                   got)
+    torch.cuda.synchronize()
+    serve_launches = tcn.tcn_block.launches
+    snr, err = check_output('enhance (2, 2, 64000), 5 taps',
+                            cpu.model.enhance(mix).numpy(),
+                            out.cpu().numpy())
+    results.append(f'enhance (2, 2, 64000) {snr:.1f} dB, /enhance 2 s '
+                   f'{snr_http:.1f} dB')
+    del gpu
+    # one loss gradient on the card against the CPU path, both float32
+    rng = np.random.RandomState(44)
+    target = 0.1 * rng.randn(2, 1, 2, 2 * FS)
+    batch = np.concatenate([target + 0.1 * rng.randn(2, 1, 2, 2 * FS),
+                            target], axis=1).astype(np.float32)
+    lengths = np.array([2 * FS, 3 * FS // 2], np.int32)
+    grads = []
+    for dev in ('cpu', device):
+        model = build_model('convtasnet', taps, params, dev)
+        n = torch.from_numpy(lengths).to(dev)
+        loss = sample_weighted_mean(model.loss(torch.from_numpy(batch)
+                                               .to(dev), n), n)
+        grads.append(np.concatenate([g.double().cpu().numpy().ravel() for g in
+                                     torch.autograd.grad(
+                                         loss, list(model.parameters()))]))
+        del model
+    grad_snr = snr_db(*grads)
+    if grad_snr < MIN_SNR_DB:
+        raise AssertionError(f'5-tap gradients on the card: {grad_snr:.1f} '
+                             f'dB against the CPU path (>= {MIN_SNR_DB})')
+    epochs = 6
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = tone_model_dir(tmp, 'convtasnet', 45, model=taps)
+        first, second, train_s, (k1, k2) = train_and_resume(
+            lambda n: train_args(model_dir, n, 3), epochs,
+            [(tcn.tcn_block, 'launches'), (tcn.tcn_block_bwd, 'launches')])
+        losses = first.loss_logger.train_loss
+        if not np.isfinite(losses).all():
+            raise AssertionError(f'5-tap training losses {losses}')
+        served = build_model('convtasnet', taps,
+                             load_checkpoint(second.last_ckpt_path)['params'],
+                             device)
+        mix1 = second.val_dataset[0][0][None]
+        torch.testing.assert_close(served.enhance(mix1),
+                                   second.model.enhance(mix1), atol=1e-6,
+                                   rtol=1e-5)
+        del first, second, served
+    if (serve_launches, k1, k2) != (0, 0, 0):
+        raise AssertionError(f'5-tap model launched K1 {serve_launches} + '
+                             f'{k1} and K2 {k2} times')
+    phase(42, f'Conv-TasNet at kernel_size {taps["kernel_size"]} (plain blocks) '
+          f'on the card: {", ".join(results)} vs the CPU path; loss gradient '
+          f'{grad_snr:.1f} dB (>= {MIN_SNR_DB}) vs the CPU path; train.main '
+          f'{epochs} epochs in {train_s:.1f} s, train loss {losses[0]:.2f} -> '
+          f'{losses[-1]:.2f} dB, resumed bitwise, the checkpoint serves; K1 '
+          f'{serve_launches + k1} and K2 {k2} launches (the kernels take 3 '
+          'taps)')
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -3265,25 +3383,40 @@ def main():
     cases = [(4, 3999, 2 ** i, last)
              for i in range(8) for last in (False, True)]
     cases += [(4, 49, 64, False), (4, 49, 128, True), (2, 520, 600, False)]
+    # widths that leave partial 128 x 128 tiles and widths off the float4
+    # grid (K1's single-float GEMMs): (B, T, d, last, C, H, Cs)
+    k1_widths = [(2, 300, 1, False, 36, 100, 20),
+                 (2, 129, 128, True, 32, 64, 32),
+                 (2, 300, 128, False, 36, 102, 20),
+                 (2, 77, 1, True, 130, 257, 21)]
     max_err = 0.0
     with torch.inference_mode():
-        for batch, t_total, dilation, last in cases:
-            x, params = block_inputs(rng, batch, t_total)
+        for batch, t_total, dilation, last, *widths in \
+                [case + (128, 512, 128) for case in cases] + k1_widths:
+            c, h, cs = widths
+            x, params = block_inputs(rng, batch, t_total, c=c, h=h, cs=cs)
             res, skip = tcn.tcn_block(x, params, dilation, last)
+            again = tcn.tcn_block(x, params, dilation, last)
             ref_res, ref_skip = tcn.tcn_block_plain(x, params, dilation,
                                                     last)
             torch.cuda.synchronize()
-            pairs = [(skip, ref_skip)] + ([] if last else [(res, ref_res)])
+            pairs = [(skip, ref_skip, again[1])] + (
+                [] if last else [(res, ref_res, again[0])])
             if last and res is not None:
                 raise AssertionError('last block returned a residual')
-            for got, want in pairs:
+            for got, want, rerun in pairs:
                 torch.testing.assert_close(got, want, atol=KERNEL_ATOL,
                                            rtol=KERNEL_RTOL)
                 max_err = max(max_err, (got - want).abs().max().item())
+                if not torch.equal(got, rerun):
+                    raise AssertionError(f'K1 B={batch} T={t_total} C/H/Cs '
+                                         f'{widths}: two runs differ')
     phase(2, f'{len(cases)} block cases (T 3999 d 1..128 last both ways, '
-          f'T 49 d 64/128, T 520 d 600) agree with the plain version: max '
-          f'abs err {max_err:.3e} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}: '
-          'f32 both, other summation order over ~2M elements a row)')
+          f'T 49 d 64/128, T 520 d 600) and {len(k1_widths)} at C/H/Cs '
+          + ', '.join('{}/{}/{}'.format(*w[4:]) for w in k1_widths)
+          + f' agree with the plain version: max abs err {max_err:.3e} '
+          f'(atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}: f32 both, other '
+          'summation order over ~2M elements a row); two runs bitwise equal')
 
     # ---- phase 3: the full model on the card vs the plain CPU path
     flax_params = random_flax_params(np.random.RandomState(1), **DEFAULT)
@@ -3354,15 +3487,20 @@ def main():
         convtasnet.tcn_block = tcn.tcn_block
         model_ms = {k: sum(v) / len(v) for k, v in runs.items()}
     audio_rate = 16 * 4 / (model_ms['kernel'] / 1000)
+    # K1's launches at B=16 T=3999 d=1, device ms a call from a trace
+    from brever_tpu_torch import profile_tcn_bwd
+    k1 = profile_tcn_bwd.profile(1, calls=3, forward=True)
+    k1_parts = ', '.join(f'{name} {ms:.3f}' for name, ms in sorted(
+        k1['parts'].items(), key=lambda kv: -kv[1]))
     phase(5, f'[{card}] block B=16 T=3999 kernel/plain ms: d=1 '
           f'{timing[1]["kernel"]:.3f}/{timing[1]["plain"]:.3f}, d=128 '
           f'{timing[128]["kernel"]:.3f}/{timing[128]["plain"]:.3f}; enhance '
           f'16x4 s {model_ms["kernel"]:.2f} ms (plain blocks '
           f'{model_ms["plain"]:.2f} ms), {audio_rate:.1f} audio s/s, peak '
-          f'{peak / 2 ** 20:.1f} MiB')
+          f'{peak / 2 ** 20:.1f} MiB; K1 launches at d=1, device ms a call: '
+          f'{k1["ms"]:.3f} ms, {k1["launches"]:g} launches: {k1_parts}')
 
     # ---- phase 6: backward kernel vs plain version on the card
-    from brever_tpu_torch import profile_tcn_bwd
     rng = np.random.RandomState(6)
     bwd_worst, bwd_err, stats_err = float('inf'), 0.0, 0.0
     # phase 2's cases at C = Cs = 128, H = 512, then widths that leave
@@ -3570,6 +3708,7 @@ def main():
     fma = fma_phase(device, card)
     wide = wide_scan_phase(device, card)
     idm = idmse_phases(device, card)
+    kernel_size_phase(device, card)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
@@ -3600,6 +3739,7 @@ def main():
         'plain_ms': timing[1]['plain'],
         'ms_d128': timing[128]['kernel'],
         'plain_ms_d128': timing[128]['plain'],
+        'parts_ms': k1['parts'],
         'bound_ms': k1_bound[0],
         'bound_by': k1_bound[1],
         'library_ms': None,
@@ -3642,6 +3782,8 @@ def main():
         'bound_by': lstm_t['bound_fwd'][1],
         'library_ms': lstm_t['lib_fwd'],
         'library_ms_inter': grid['timing']['inter']['lib_fwd'],
+        'plan': grid['timing']['intra']['fwd_plan'],
+        'plan_inter': grid['timing']['inter']['fwd_plan'],
         'shape': 'intra T=33 D=2 R=8064 E=H=128; inter T=126 R=2112',
         'enhance_16x4s_ms': grid['enhance_ms']['kernel'],
         'enhance_16x4s_plain_ms': grid['enhance_ms']['plain'],

@@ -6,7 +6,11 @@ that has only PyTorch:
 
 Tolerance of the forward kernel vs its plain version, both float32 with
 TF32 off: atol 1e-4, rtol 1e-3 — the kernel sums the GEMMs in another
-order and merges the global-norm moments per tile. The backward kernel
+order and merges the global-norm moments per tile; its statistics at atol
+1e-6, rtol 1e-5. Two forward runs are bitwise equal, and the backward's
+recomputed z1 is bitwise the forward's. A Conv-TasNet whose kernel size is
+not 3 runs plain blocks on the card and matches the CPU path at atol 1e-4,
+rtol 1e-3 (gradients at atol 1e-4 of the tensor's largest value). The backward kernel
 is held against its plain version in float64 (float32 rounding can flip
 a PReLU branch at a pre-activation near 0, and the slopes' gradients are
 sums that cancel): atol 1e-4 of the tensor's largest value, rtol 1e-3,
@@ -14,7 +18,8 @@ at sizes where a flip is unlikely (about 0.5M pre-activations).
 
 The LSTM kernels (K3, K4) against their plain versions: the forward in
 float32 at atol 1e-5, rtol 1e-4 (values of order 1; the kernel sums the
-gate products in another order), the backward against the plain float32
+gate products in another order), two forward runs bitwise equal and the
+gates K4 recomputes bitwise K3's, the backward against the plain float32
 backward run in float64 and against the plain float32 backward itself, at
 atol 1e-4 of the float64 tensor's largest value, rtol 1e-3; two backward
 runs are bitwise equal. One K4 call launches no cuBLAS or cuDNN kernel
@@ -158,6 +163,99 @@ def test_model_runs_every_block_through_the_kernel(device):
     out = gpu.enhance(x).cpu()
     assert tcn.tcn_block.launches - before == len(gpu.tcn.blocks) == 4
     torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
+
+
+# K1 at the TCN widths on the float4 and 128 grids and off them (C/H/Cs
+# 36/100/20 leave partial tiles; 36/102/20 and 130/257/21 take the
+# single-float kernels), T off the 128-step tile, d = 1 and 128
+@pytest.mark.parametrize('c,h,cs,t_total', [
+    (128, 512, 128, 3999), (128, 512, 128, 130), (36, 100, 20, 300),
+    (36, 102, 20, 300), (130, 257, 21, 77), (32, 64, 32, 129)])
+@pytest.mark.parametrize('dilation', [1, 128])
+@pytest.mark.parametrize('last', [False, True])
+def test_forward_kernel_matches_plain_at_every_width(device, c, h, cs, t_total,
+                                                     dilation, last):
+    """K1 (both products on the 128 x 128 SIMT tiles) against the plain
+    block: res, skip and the gLN statistics; two runs bitwise equal; K2's
+    recomputed z1 bitwise K1's."""
+    x, params = _inputs(device, 2, t_total, c=c, h=h, cs=cs, seed=c + h + cs)
+    with torch.no_grad():
+        (res, skip, stats), (h1, _) = tcn._launch(x, params, dilation, last)
+        again = tcn._launch(x, params, dilation, last)[0]
+        ref_res, ref_skip, ref_stats = tcn.tcn_block_fwd_plain(
+            x, params, dilation, last)
+        z1 = tcn.recompute_z1(x, params)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(skip, ref_skip, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(stats, ref_stats, atol=1e-6, rtol=1e-5)
+    assert torch.equal(skip, again[1]) and torch.equal(stats, again[2])
+    if last:
+        assert res is None and again[0] is None
+    else:
+        torch.testing.assert_close(res, ref_res, atol=1e-4, rtol=1e-3)
+        assert torch.equal(res, again[0])
+    assert torch.equal(torch.where(z1 >= 0, z1, params[2] * z1), h1)
+
+
+def test_forward_partials_are_the_wrappers(device):
+    """K1's partials a batch row in the library (``tcn_in_partials``,
+    ``tcn_dw_partials``) are the wrapper's ``fwd_partials``."""
+    lib = build.load_library()
+    for t_total in (1, 127, 128, 129, 3999):
+        for hidden in (64, 100, 257, 512):
+            assert (lib.tcn_in_partials(t_total, hidden),
+                    lib.tcn_dw_partials(t_total, hidden)) == \
+                tcn.fwd_partials(t_total, hidden)
+
+
+@pytest.mark.parametrize('kernel_size', [5, 2])
+def test_kernel_size_off_three_serves_and_trains_on_the_card(device,
+                                                              kernel_size,
+                                                              tmp_path):
+    """A Conv-TasNet whose depthwise convs have 5 (or 2) taps runs plain
+    blocks on the card (no K1 or K2 launch): enhance and the loss's
+    gradients match the CPU path, and a trainer step on the card gives a
+    finite loss and moves every parameter. ``tcn_block`` itself still
+    refuses such a block on CUDA."""
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    from brever_tpu_torch.profile_train import _Items
+    from brever_tpu_torch.training import BreverTrainer
+    kwargs = dict(SMALL, kernel_size=kernel_size)
+    cpu = ModelRegistry.get('convtasnet')(**kwargs, device='cpu')
+    gpu = ModelRegistry.get('convtasnet')(**kwargs, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(kernel_size)
+    x = rng.randn(2, 2, 4000).astype(np.float32)
+    before = tcn.tcn_block.launches, tcn.tcn_block_bwd.launches
+    out = gpu.enhance(x).cpu()
+    torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
+    target = 0.3 * rng.randn(2, 1, 2, 2400)
+    batch = np.concatenate([target + 0.3 * rng.randn(2, 1, 2, 2400), target],
+                           axis=1).astype(np.float32)
+    lengths = np.array([2400, 1700], np.int32)
+    for model, dev in ((cpu, 'cpu'), (gpu, device)):
+        n = torch.from_numpy(lengths).to(dev)
+        sample_weighted_mean(model.loss(torch.from_numpy(batch).to(dev), n),
+                             n).backward()
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = p.grad.abs().max().item()
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-3,
+                                   atol=1e-4 * scale, msg=name)
+    items = _Items(2, 0.15)
+    trainer = BreverTrainer(ModelRegistry.get('convtasnet')(
+        **kwargs, device='cpu'), items, items, str(tmp_path), device=device,
+        val_metrics={'snr'}, seed=0)
+    trainer.init_state()
+    flat = trainer.flat.clone()
+    loss = trainer.train_step(torch.from_numpy(batch).to(device),
+                              torch.from_numpy(lengths).to(device))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and not torch.equal(flat, trainer.flat)
+    assert (tcn.tcn_block.launches, tcn.tcn_block_bwd.launches) == before
+    x_blk, params = _inputs(device, 1, 64)
+    taps = torch.zeros(kernel_size, params[5].shape[1], device=device)
+    with pytest.raises(NotImplementedError, match='kernel_size 3'):
+        tcn.tcn_block(x_blk, params[:5] + (taps,) + params[6:], 1, False)
 
 
 def _cotangents(device, x, seed=1):
@@ -408,6 +506,35 @@ def test_lstm_kernels_match_plain(device, case):
             torch.testing.assert_close(got.double(), other,
                                        atol=1e-4 * want.abs().max().item(),
                                        rtol=1e-3)
+
+
+#: TF-GridNet's BLSTMs at 16 x 4 s, (T, D, R, E, H): intra, inter
+GRID_LSTMS = [(33, 2, 8064, 128, 128), (126, 2, 2112, 128, 128)]
+
+
+@pytest.mark.parametrize('case', LSTM_CASES + GRID_LSTMS)
+def test_forward_lstm_kernel_matches_plain_and_k4_recomputes_its_gates(
+        device, case):
+    """K3 (the ring scan) against the plain forward, two runs bitwise
+    equal, its plan the wrapper's; the gate pre-activations it formed are
+    the bits K4's gates GEMM recomputes from the saved h."""
+    x, w_ih, bias, w_hh, _ = _lstm_inputs(device, *case, seed=5)
+    steps, n_dir, rows, feat, hidden = case
+    assert lstm.fwd_plan_info(steps, n_dir, rows, feat + (-feat % 4),
+                              hidden) == lstm.fwd_plan(*case)
+    before = lstm.lstm_scan_x.launches
+    with torch.no_grad():
+        h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+        h2, c2 = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+        h3, c3, gates = lstm.forward_gates(x, w_ih, bias, w_hh)
+        again = lstm.recompute_gates(x, w_ih, bias, w_hh, h)
+        ref_h, ref_c = lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)
+    torch.cuda.synchronize()
+    assert lstm.lstm_scan_x.launches == before + 2
+    torch.testing.assert_close(h, ref_h, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(c, ref_c, atol=1e-5, rtol=1e-4)
+    for a, b in ((h, h2), (c, c2), (h, h3), (c, c3), (gates, again)):
+        assert torch.equal(a, b)
 
 
 # K4 with weights at an unaligned offset, and with its rows cut into three
@@ -734,17 +861,17 @@ def test_lstm_kernels_chunk_rows_past_the_int_range(device, fused,
 
 
 def test_fused_x_fits_is_the_kernels_shared_memory(device):
-    """The Python routing rule admits only shapes whose K3 shared memory
-    (``lstm_fwd_smem``) and K4 plan (``lstm_bwd_plan``) fit a block, and
+    """The Python routing rule admits only shapes whose K3 plan
+    (``lstm_fwd_plan``) and K4 plan (``lstm_bwd_plan``) fit a block, and
     refuses the shapes it refused before K4's redesign (32 rows x (E + 6H)
     floats past a block's)."""
-    lib = build.load_library()
     for feat, hidden in ((128, 128), (280, 256), (284, 256), (1700, 32)):
         e_pad = feat + (-feat % 4)
         fits = 4 * 32 * (e_pad + 6 * hidden) <= lstm._MAX_SMEM
         assert lstm.fused_x_fits(feat, hidden) is fits
         if fits:
-            assert lib.lstm_fwd_smem(e_pad, hidden) <= lstm._MAX_SMEM
+            assert lstm.fwd_plan_info(33, 2, 8064, e_pad, hidden)['smem'] \
+                <= lstm._MAX_SMEM
             assert lstm.plan_info(33, 2, 8064, e_pad, hidden)['smem'] \
                 <= lstm._MAX_SMEM
 
@@ -1134,7 +1261,8 @@ _TRACE_KERNELS = """
 import json
 import torch
 from brever_tpu_torch.numerics import disable_tf32
-from brever_tpu_torch.ops import stft_kernel, tcn_block as tcn
+from brever_tpu_torch.ops import lstm_scan as lstm, stft_kernel
+from brever_tpu_torch.ops import tcn_block as tcn
 from brever_tpu_torch.ops.stft import STFT
 
 disable_tf32()
@@ -1178,16 +1306,24 @@ with torch.no_grad():
     _, _, stats = tcn.tcn_block_fwd(xb, params, 2, False)
 out['k2'] = names(lambda: tcn.tcn_block_bwd(xb, params, stats, g_res,
                                             g_skip, 2, False))
+with torch.no_grad():
+    out['k1'] = names(lambda: tcn.tcn_block(xb, params, 2, False))
+    x3 = arr(6, 2, 300, 128, scale=1.0)
+    w_ih, w_hh = arr(2, 128, 512), arr(2, 128, 512)
+    b3 = arr(2, 512)
+    out['k3'] = names(lambda: lstm.lstm_scan_x_fwd(x3, w_ih, b3, w_hh))
 print(json.dumps(out))
 """
 
 
 def test_stft_and_tcn_backward_launch_no_library_kernel(device):
-    """A K9 call on either route and a K2 call launch their own kernels and
-    no cuFFT, cuBLAS or cuDNN kernel, traced in a fresh interpreter: three
-    K2 calls are 33 launches of K2's kernels and three of PyTorch's copy
-    of the transposed input weight, nothing else (the trace's tensors are
-    16-byte aligned, so the wrapper copies no other)."""
+    """A K9 call on either route, a K2 call, a K1 call and a K3 call launch
+    their own kernels and no cuFFT, cuBLAS or cuDNN kernel, traced in a
+    fresh interpreter: three K2 calls are 33 launches of K2's kernels,
+    three K1 calls 15 of K1's (neither copies a transposed weight: both
+    stage W_in's rows through registers), three K3 calls 3 of the ring
+    scan, nothing else (the trace's tensors are 16-byte aligned, so the
+    wrappers copy no other)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     run = subprocess.run([sys.executable, '-c', _TRACE_KERNELS], cwd=root,
@@ -1198,11 +1334,15 @@ def test_stft_and_tcn_backward_launch_no_library_kernel(device):
                           ('400', 'stft_basis_kernel')):
         assert names[n_fft] and all(kernel in n for n in names[n_fft]), \
             names[n_fft]
-    own = [n for n in names['k2'] if 'tcn_bwd_' in n]
-    other = [n for n in names['k2'] if 'tcn_bwd_' not in n]
-    assert len(own) == 3 * 11, names['k2']
-    assert len(other) == 3 and all('direct_copy_kernel_cuda' in n
-                                   for n in other), other
+    assert len(names['k2']) == 3 * 11 and all(
+        'tcn_bwd_' in n for n in names['k2']), names['k2']
+    k1 = ('tcn_in_gemm', 'row_stats', 'dw_prelu_stats', 'tcn_out_gemm')
+    assert len(names['k1']) == 3 * 5 and all(
+        any(k in n for k in k1) for n in names['k1']), names['k1']
+    for kernel, count in zip(k1, (3, 6, 3, 3)):
+        assert sum(kernel in n for n in names['k1']) == count, names['k1']
+    assert len(names['k3']) == 3 and all(
+        'lstm_fwd_ring' in n for n in names['k3']), names['k3']
 
 
 def test_manner_runs_every_batch_norm_through_the_kernels(device,
