@@ -16,10 +16,13 @@ whose forward saves only x and the per-(b, g) mean and rstd (as
 ``_make_gn_act_pallas`` does) and whose backward returns dx, dscale and
 dbias; otherwise (serving) it is the forward alone. A tensor on the CPU
 takes the plain versions; a CUDA tensor launches the kernels
-(``csrc/groupnorm.cu``: K7, the forward, replaces ``_fwd_kernel``; K8, the
-backward, ``_bwd_kernel``) or raises. There is no channel-count gate: the
-Pallas path's ``C % 128`` is the TPU's lane rule, and the kernels take any
-C that the group count divides.
+(``csrc/groupnorm.cu``: K7, the forward, one launch, replaces
+``_fwd_kernel``; K8, the backward, two launches, ``_bwd_kernel``) or
+raises. Both run one thread-block cluster a (b, g) group that holds the
+group's slab of x in shared memory; :func:`gn_plan` mirrors the library's plan
+of it, which :func:`plan_info` checks once a shape. There is no
+channel-count gate: the Pallas path's ``C % 128`` is the TPU's lane rule,
+and the kernels take any C that the group count divides.
 
 The plain versions: :func:`group_norm_act_reference`, the twin of
 ``_make_gn_silu`` without the external affine (f32 statistics, then the
@@ -38,6 +41,7 @@ and returns the five gradients.
 """
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -349,23 +353,125 @@ def _check(x, scale, bias, num_groups, act):
     return batch, channels, n
 
 
+#: csrc/groupnorm.cu's constants of K7/K8's cluster plan: floats of a row
+#: one task (a warp) takes, threads a block, shared memory a block may have
+#: and the bytes of it ahead of the slab, the largest cluster
+_TASK, _THREADS, _SMEM_MOST, _SCRATCH, _MOST_CLUSTER = 1024, 512, 232448, \
+    2048, 16
+
+
+def _task_start(task, n, segs):
+    """The first float of a task (row ``task // segs``, segment ``task %
+    segs``) in its group's slab."""
+    return task // segs * n + task % segs * _TASK
+
+
+def group_shares(channels, n, num_groups, cluster):
+    """``(first float, floats)`` of each block's share of a group's slab at
+    ``cluster`` blocks a cluster: block r takes tasks ``[r T / n, (r + 1) T
+    / n)`` of the group's T (rows of N floats cut into segments of
+    ``_TASK``)."""
+    segs = -(-n // _TASK)
+    tasks = channels // num_groups * segs
+    starts = [_task_start(r * tasks // cluster, n, segs)
+              for r in range(cluster + 1)]
+    return [(a, b - a) for a, b in zip(starts, starts[1:])]
+
+
+def _plan_at(batch, channels, n, num_groups, cluster):
+    segs = -(-n // _TASK)
+    widths = [w for _, w in group_shares(channels, n, num_groups, cluster)]
+    cap = (_SMEM_MOST - _SCRATCH) // 4 // 4 * 4
+    held = min(-(-max(widths) // 4) * 4, cap)
+    remainder = sum(max(w - held, 0) for w in widths)
+    return {'cluster': cluster, 'resident': held,
+            'smem': _SCRATCH + 4 * held, 'threads': _THREADS,
+            'tasks': channels // num_groups * segs, 'remainder': remainder,
+            'blocks': batch * num_groups * cluster,
+            'route': ('partial' if remainder else
+                      'cluster' if cluster > 1 else 'block')}
+
+
+def gn_plan(batch, channels, n, num_groups, most=_MOST_CLUSTER):
+    """K7's and K8's cluster plan at ``(B, C, N)`` in G groups, as
+    ``gn_plan`` of csrc/groupnorm.cu gives it: the smallest cluster (1, 2,
+    4, ... ``most`` blocks) whose blocks' shared memory holds each block's
+    share of the group's slab of x, else ``most`` with the rest of each
+    share (``remainder`` floats a group) read from device memory in both
+    passes; floats a block holds (``resident``), shared memory a block,
+    threads, tasks a group, blocks (a cluster a group) and the ``route``:
+    one ``block``, a ``cluster`` that holds the slab, or ``partial``."""
+    cluster = 1
+    while cluster < most and _plan_at(batch, channels, n, num_groups,
+                                      cluster)['remainder']:
+        cluster *= 2
+    return _plan_at(batch, channels, n, num_groups, cluster)
+
+
+#: the library's plan at each (B, C, N, G) checked so far
+_plans = {}
+
+_PLAN_KEYS = ('cluster', 'resident', 'smem', 'threads', 'tasks', 'remainder',
+              'blocks', 'clusters')
+
+
+def plan_info(batch, channels, n, num_groups):
+    """The library's plan (``gn_plan``, with ``clusters``: how many
+    clusters of its size the card holds at once, of K7's and K8's kernels
+    alike); raises where it is not the wrapper's mirror :func:`gn_plan`.
+    Where the card cannot place a cluster of the plan's size, the plan at
+    half that size, and so on."""
+    key = (batch, channels, n, num_groups)
+    if key not in _plans:
+        lib = build.load_library()
+        most = _MOST_CLUSTER
+        while True:
+            info = (ctypes.c_longlong * len(_PLAN_KEYS))()
+            build.check(lib, lib.gn_plan(*key, most, info), f'gn_plan{key}')
+            out = dict(zip(_PLAN_KEYS, info))
+            want = gn_plan(*key, most)
+            out['route'] = want['route']
+            if {k: v for k, v in out.items() if k != 'clusters'} != want:
+                raise RuntimeError(
+                    f'group_norm: the library\'s plan at {key} is {out}, '
+                    f'the wrapper\'s {want}')
+            if out['clusters'] or out['cluster'] == 1:
+                break
+            most = out['cluster'] // 2
+        if not out['clusters']:
+            raise RuntimeError(f'group_norm: the card places no block of '
+                               f'{out["smem"]} bytes of shared memory')
+        _plans[key] = out
+    return _plans[key]
+
+
+def _launch_plan(batch, channels, n, num_groups):
+    """``(cluster, clusters)``: the plan's blocks a cluster, and the
+    clusters to launch: as many as the card holds at once, at most one a
+    group (each walks the groups that many apart)."""
+    plan = plan_info(batch, channels, n, num_groups)
+    return plan['cluster'], min(batch * num_groups, plan['clusters'])
+
+
+#: gn_bwd_workspace's bytes at each (B, C, N, G) so far
+_workspaces = {}
+
+
 def _launch_fwd(x, scale, bias, num_groups, eps, act):
     lib = build.load_library()
     batch, channels, n = _check(x, scale, bias, num_groups, act)
     device = x.device
     with torch.cuda.device(device):
+        cluster, clusters = _launch_plan(batch, channels, n, num_groups)
         y = torch.empty_like(x)
-        mean = torch.empty(batch, num_groups, dtype=torch.float32,
-                           device=device)
-        rstd = torch.empty_like(mean)
-        work = torch.empty(lib.gn_workspace(batch, channels, n, num_groups),
-                           dtype=torch.uint8, device=device)
+        stats = torch.empty(2, batch, num_groups, dtype=torch.float32,
+                            device=device)
         build.check(lib, lib.gn_fwd(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), work.data_ptr(), batch,
-            channels, n, num_groups, eps, ACTS[act],
+            stats[0].data_ptr(), stats[1].data_ptr(), batch, channels, n,
+            num_groups, eps, ACTS[act], cluster, clusters,
             torch.cuda.current_stream(device).cuda_stream), 'gn_fwd')
-    return y, mean, rstd
+    return y, stats[0], stats[1]
 
 
 def _launch_bwd(x, dy, scale, bias, mean, rstd, num_groups, act):
@@ -375,16 +481,19 @@ def _launch_bwd(x, dy, scale, bias, mean, rstd, num_groups, act):
     _tensor(dy, 'dy', device, tuple(x.shape))
     _tensor(mean, 'mean', device, (batch, num_groups))
     _tensor(rstd, 'rstd', device, (batch, num_groups))
+    key = (batch, channels, n, num_groups)
+    if key not in _workspaces:
+        _workspaces[key] = lib.gn_bwd_workspace(*key)
     with torch.cuda.device(device):
+        cluster, clusters = _launch_plan(batch, channels, n, num_groups)
         dx = torch.empty_like(x)
-        dscale = torch.empty(channels, dtype=torch.float32, device=device)
-        dbias = torch.empty_like(dscale)
-        work = torch.empty(lib.gn_workspace(batch, channels, n, num_groups),
-                           dtype=torch.uint8, device=device)
+        grads = torch.empty(2, channels, dtype=torch.float32, device=device)
+        work = torch.empty(_workspaces[key], dtype=torch.uint8,
+                           device=device)
         build.check(lib, lib.gn_bwd(
             x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), work.data_ptr(), batch,
-            channels, n, num_groups, ACTS[act],
+            grads[0].data_ptr(), grads[1].data_ptr(), work.data_ptr(), batch,
+            channels, n, num_groups, ACTS[act], cluster, clusters,
             torch.cuda.current_stream(device).cuda_stream), 'gn_bwd')
-    return dx, dscale, dbias
+    return dx, grads[0], grads[1]

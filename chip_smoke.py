@@ -52,9 +52,10 @@ each print one line, with the seconds since the start:
     launches (gates GEMM, reverse scan, dx GEMM, weight GEMM, sums) from a
     trace and its plan (blocks, shared memory, chunks), enhance and the
     train step with kernel and with plain LSTMs, peak memory;
-16. the GroupNorm kernels (K7 forward, K8 backward) against their plain
-    versions at the U-Net's shapes and ragged ones (odd N, C = 384, B = 1,
-    G = C), SiLU, none and ReLU; the backward in float64, twice bitwise;
+16. the GroupNorm kernels (K7 forward, one launch; K8 backward, two)
+    against their plain versions at the U-Net's shapes and ragged ones (odd
+    N, C = 384, B = 1, G = C, unaligned), on every route of their cluster
+    plan, SiLU, none and ReLU; the backward in float64; both twice bitwise;
 17. SGMSE+'s denoiser (2 x 4 s) and ``enhance`` (1 x 2 s, 32 U-Net
     evaluations, one generator seed) against the plain path in float64,
     beside the plain float32 path's; K7 launches per evaluation;
@@ -64,11 +65,13 @@ each print one line, with the seconds since the start:
     fixed-generator validation loss falls, last.ckpt (with ``aux``, the
     Fourier frequencies, and the generator's state) resumes bitwise;
 20. the HTTP service over that model directory's checkpoint;
-21. timings: K7 and K8 at the largest shape and summed over one U-Net
-    evaluation at 4 x 4 s, beside their plain versions and
-    ``F.group_norm`` + ``F.silu``; the denoiser at 4 x 4 s, ``enhance``
-    of 1 x 4 s, the train step at 4 x 4 s (kernel and plain GroupNorms)
-    and at 16 x 4 s, peak memory;
+21. timings: K7 and K8 at the largest shape (and there with clusters of
+    at most 8 blocks) and summed over one U-Net evaluation at 4 x 4 s (the
+    card's time, calls queued behind a sleep kernel; as issued; the host's
+    time a call; each shape's route and cluster), beside their plain
+    versions and ``F.group_norm`` + ``F.silu``; the denoiser at 4 x 4 s,
+    ``enhance`` of 1 x 4 s, the train step at 4 x 4 s (kernel and plain
+    GroupNorms) and at 16 x 4 s, peak memory;
 22. the gates-in LSTM scan kernels (K5 forward, K6 backward) against
     their plain versions at DCCRN's two complex-LSTM shapes at 16 x 4 s
     and at B = 1, TF-GridNet's short-request intra shape, H 32..256 at
@@ -1051,11 +1054,16 @@ SGMSE_PARAMS = 65_590_694
 SGMSE_EVAL_LAUNCHES = 109
 #: K7/K8 cases (B, C, F, T) channels first, groups: the U-Net's largest
 #: shapes at 4 x 4 s, then ragged ones (odd N, C = 384 with B = 1, G = C,
-#: a rank-3 odd length)
+#: a rank-3 odd length, odd N past a cluster's shared memory); together
+#: every route of the cluster plan (one block, a cluster holding the slab,
+#: past it) with float4 and with 4-byte copies. GN_UNALIGNED runs with x
+#: and dy one float past a 16-byte boundary
 GN_CASES = [((4, 128, 256, 501), 32), ((4, 256, 256, 501), 32),
             ((4, 384, 128, 251), 32), ((4, 512, 64, 126), 32),
             ((4, 512, 4, 8), 32), ((1, 384, 7, 13), 32),
-            ((2, 64, 33, 17), 64), ((3, 96, 1001), 24)]
+            ((2, 64, 33, 17), 64), ((3, 96, 1001), 24),
+            ((2, 64, 255, 257), 2)]
+GN_UNALIGNED = ((4, 384, 128, 251), 32)
 #: SGMSE+'s bounds against float64 (phases 17-20) are 60 dB for the
 #: denoiser, enhance, /enhance, the whole gradient and each gradient
 #: tensor: the plain float32 path, printed beside, reaches 121 dB on the
@@ -1137,11 +1145,89 @@ def sgmse_grads(model, batch, lengths, t, noise):
             for (k, _), g in zip(model.named_parameters(), grads)}
 
 
+#: Run in a fresh interpreter (the profiler loses events after several
+#: traces in one process): one K7 call and one K8 call at each route of the
+#: plan (one block, a cluster holding the slab, past it), one trace each;
+#: prints the device kernels' names
+GN_TRACE = """
+import json
+import torch
+from brever_tpu_torch.numerics import disable_tf32
+from brever_tpu_torch.ops import groupnorm as gn
+
+disable_tf32()
+dev = torch.device('cuda', 0)
+gen = torch.Generator(device=dev).manual_seed(21)
+cases = []
+for shape in ((4, 256, 16, 32), (4, 384, 128, 251), (4, 256, 256, 501)):
+    x, dy = (torch.randn(*shape, generator=gen, device=dev)
+             for _ in range(2))
+    scale = 1 + 0.1 * torch.randn(shape[1], generator=gen, device=dev)
+    bias = 0.1 * torch.randn(shape[1], generator=gen, device=dev)
+    with torch.no_grad():
+        _, mean, rstd = gn.group_norm_act_fwd(x, scale, bias, 32, 1e-6,
+                                              'silu')
+    cases.append((x, dy, scale, bias, mean, rstd))
+
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+with torch.no_grad():
+    out = {'routes': [gn.plan_info(c[0].shape[0], c[0].shape[1],
+                                   c[0][0, 0].numel(), 32)['route']
+                      for c in cases],
+           'k7': names(lambda: [gn.group_norm_act_fwd(x, s, b, 32, 1e-6,
+                                                      'silu')
+                                for x, _, s, b, _, _ in cases]),
+           'k8': names(lambda: [gn.group_norm_act_bwd(x, d, s, b, m, r, 32,
+                                                      'silu')
+                                for x, d, s, b, m, r in cases])}
+print(json.dumps(out))
+"""
+
+
+def gn_launches_a_call():
+    """``{'k7': n, 'k8': n}``: the kernels one K7 call and one K8 call
+    launch, counted in a trace of one call at each route in a fresh
+    interpreter; fails unless K7 launches ``gn_fwd_cluster`` alone and K8
+    ``gn_bwd_cluster`` and ``gn_bwd_channels``, once a call each."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, '-c', GN_TRACE], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f'K7/K8 trace: {run.stderr[-3000:]}')
+    traced = json.loads(run.stdout.strip().splitlines()[-1])
+    if sorted(traced['routes']) != ['block', 'cluster', 'partial']:
+        raise AssertionError(f'K7/K8 trace routes: {traced["routes"]}')
+    calls = len(traced['routes'])
+    want = {'k7': ['gn_fwd_cluster'],
+            'k8': ['gn_bwd_cluster', 'gn_bwd_channels']}
+    out = {}
+    for key, kernels in want.items():
+        names = traced[key]
+        if len(names) % calls or any(
+                sum(k in n for n in names) != calls for k in kernels) or len(
+                names) != calls * len(kernels):
+            raise AssertionError(f'{key} launched {names} in {calls} calls')
+        out[key] = len(names) // calls
+    return out
+
+
 def sgmse_phases(device, card):
     """Phases 16-21; returns the numbers of the K7/K8 JSON records."""
     from brever_tpu_torch.checkpoint import load_checkpoint
     from brever_tpu_torch.models import ModelRegistry, count_params
-    from brever_tpu_torch.models.sgmse import net
     from brever_tpu_torch.ops import groupnorm as gn
     from brever_tpu_torch.profile_train import make_trainer
     from brever_tpu_torch.serve import EnhanceService
@@ -1153,12 +1239,24 @@ def sgmse_phases(device, card):
     rng = np.random.RandomState(16)
     fwd_worst, fwd_err, bwd_worst, bwd_err, n_cases = (float('inf'), 0.0,
                                                        float('inf'), 0.0, 0)
-    for shape, groups in GN_CASES:
+    routes = set()   # (route, float4 copies) of K7 and K8's one plan
+    cases = [(shape, groups, False) for shape, groups in GN_CASES]
+    for shape, groups, unaligned in cases + [(*GN_UNALIGNED, True)]:
         acts = ('silu', 'none') + (('relu',) if groups == shape[1] else ())
+        n = int(np.prod(shape[2:]))
+        routes.add((gn.plan_info(shape[0], shape[1], n, groups)['route'],
+                    n % 4 == 0 and not unaligned))
         for act in acts:
-            name = f'{shape} G={groups} {act}'
+            name = f'{shape} G={groups} {act}' + (' unaligned' * unaligned)
             x, scale, bias, dy = gn_inputs(rng, shape)
+            if unaligned:
+                x, dy = offset_view(x), offset_view(dy)
             y, mean, rstd = k7(x, scale, bias, groups, 1e-6, act)
+            again = k7(x, scale, bias, groups, 1e-6, act)
+            if not all(torch.equal(a, b)
+                       for a, b in zip((y, mean, rstd), again)):
+                raise AssertionError(f'K7 {name}: two runs differ')
+            del again
             ref = gn.group_norm_act_reference(x, scale, bias, groups, 1e-6,
                                               act)
             worst, err = check_close(f'K7 {name}', ('y', 'mean', 'rstd'),
@@ -1182,14 +1280,20 @@ def sgmse_phases(device, card):
             n_cases += 1
             del x, y, dy, dy64, grads, want
     torch.cuda.empty_cache()
+    every = {(route, vec) for route in ('block', 'cluster', 'partial')
+             for vec in (True, False)}
+    if routes != every:
+        raise AssertionError(f'K7/K8 routes run: {routes}')
     out['k7_err'], out['k8_err'] = fwd_err, bwd_err
     phase(16, f'{n_cases} GroupNorm cases (the U-Net\'s (4, C, F, T) shapes '
-          f'at 4 x 4 s, odd N, C=384 B=1, G=C with ReLU): K7 y, mean, rstd '
-          f'vs the plain version worst {fwd_worst:.1f} dB, max abs err '
-          f'{fwd_err:.3e}; K8 dx, dscale, dbias vs the plain backward in '
-          f'float64 worst {bwd_worst:.1f} dB (>= {MIN_SNR_DB}), max abs err '
-          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two K8 runs '
-          'bitwise equal')
+          f'at 4 x 4 s, odd N, C=384 B=1, G=C with ReLU, unaligned), every '
+          f'route of the cluster plan (one block, a cluster holding the '
+          f'slab, past it) with float4 and 4-byte copies for K7 and K8: K7 '
+          f'y, mean, rstd vs the plain version worst {fwd_worst:.1f} dB, max '
+          f'abs err {fwd_err:.3e}; K8 dx, dscale, dbias vs the plain '
+          f'backward in float64 worst {bwd_worst:.1f} dB (>= {MIN_SNR_DB}), '
+          f'max abs err {bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); '
+          'two K7 runs and two K8 runs bitwise equal')
 
     # ---- phase 17: the denoiser and enhance vs the plain path in float64
     model = ModelRegistry.get('sgmsep')(device='cpu')
@@ -1383,60 +1487,61 @@ def sgmse_phases(device, card):
     torch.cuda.empty_cache()
 
     # ---- phase 21: timings (plain, kernel, kernel, plain in turns)
+    from brever_tpu_torch.bench_alu_dtype import time_calls
+    from brever_tpu_torch.bench_groupnorm import time_unet_calls, unet_calls
     x, scale, bias, dy = gn_inputs(np.random.RandomState(21),
                                    GN_CASES[1][0])
     with torch.no_grad():
         _, mean, rstd = k7(x, scale, bias, 32, 1e-6, 'silu')
+        calls = {
+            'fwd': lambda: k7(x, scale, bias, 32, 1e-6, 'silu'),
+            'bwd': lambda: k8(x, dy, scale, bias, mean, rstd, 32, 'silu')}
         fwd = in_turns({
-            'kernel': lambda: k7(x, scale, bias, 32, 1e-6, 'silu'),
+            'kernel': calls['fwd'],
             'plain': lambda: gn.group_norm_act_reference(
                 x, scale, bias, 32, 1e-6, 'silu')}, 10, 2)[0]
         bwd = in_turns({
-            'kernel': lambda: k8(x, dy, scale, bias, mean, rstd, 32, 'silu'),
+            'kernel': calls['bwd'],
             'plain': lambda: gn.group_norm_act_bwd_plain(
                 x, dy, scale, bias, mean, rstd, 32, 'silu')}, 10, 2)[0]
         fwd['library'] = cuda_ms(lambda: library(x, scale, bias, 32, True),
                                  10, 2)
+        # the card's time (calls queued behind a sleep kernel) and the
+        # host's a call
+        for key, times in (('fwd', fwd), ('bwd', bwd)):
+            times['card'], times['host'] = time_calls(calls[key], device, 20)
     leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
     y_lib = library(*leaves, 32, True)
     bwd['library'] = cuda_ms(lambda: torch.autograd.grad(
         y_lib, leaves, dy, retain_graph=True), 10, 2)
-    del x, dy, mean, rstd, leaves, y_lib
+    del x, dy, mean, rstd, leaves, y_lib, calls
     out['largest'] = {'fwd': fwd, 'bwd': bwd,
                       'bound': gn_bounds(GN_CASES[1][0], 32)}
+    # the kernels a K7 and a K8 call launch at each route, traced in a
+    # fresh interpreter
+    out['launches_a_call'] = gn_launches_a_call()
     # one U-Net evaluation at 4 x 4 s: its GroupNorm calls, each timed
     rng = np.random.RandomState(22)
     xs, ys = (complex_input(rng, (4, 1, 256, 501), device) for _ in range(2))
     t = torch.full((4, 1, 1, 1), 0.5, device=device)
     sigma = gpu.model.sde.sigma(t)
-    calls = {}
-
-    def record(x, scale, bias, groups, eps=1e-6, apply_silu=True, **kw):
-        key = (tuple(x.shape), groups, apply_silu)
-        calls[key] = calls.get(key, 0) + 1
-        return gn.group_norm_silu(x, scale, bias, groups, eps, apply_silu)
-
-    net.group_norm_silu = record
-    try:
-        with torch.no_grad():
-            gpu.model.model(xs, ys, sigma, t)
-    finally:
-        net.group_norm_silu = gn.group_norm_silu
-    per_eval = {k: 0.0 for k in ('k7', 'plain', 'library', 'k8',
-                                 'plain_bwd', 'library_bwd', 'bound_k7',
-                                 'bound_k8')}
+    calls = unet_calls(gpu.model, device)
+    # K7 and K8 on the card, as issued and from the host, then the plain
+    # versions and the library's calls
+    kernels = time_unet_calls(calls, device)
+    per_eval = dict(kernels['sum'], k7=kernels['sum']['k7_paced'],
+                    k8=kernels['sum']['k8_paced'])
+    per_eval.update({k: 0.0 for k in ('plain', 'library', 'plain_bwd',
+                                      'library_bwd')})
     for (shape, groups, silu), count in calls.items():
         act = 'silu' if silu else 'none'
         x, scale, bias, dy = gn_inputs(rng, shape)
         with torch.no_grad():
             _, mean, rstd = k7(x, scale, bias, groups, 1e-6, act)
             times = {
-                'k7': lambda: k7(x, scale, bias, groups, 1e-6, act),
                 'plain': lambda: gn.group_norm_act_reference(
                     x, scale, bias, groups, 1e-6, act),
                 'library': lambda: library(x, scale, bias, groups, silu),
-                'k8': lambda: k8(x, dy, scale, bias, mean, rstd, groups,
-                                 act),
                 'plain_bwd': lambda: gn.group_norm_act_bwd_plain(
                     x, dy, scale, bias, mean, rstd, groups, act)}
             for key, fn in times.items():
@@ -1446,14 +1551,12 @@ def sgmse_phases(device, card):
         per_eval['library_bwd'] += count * cuda_ms(
             lambda: torch.autograd.grad(y_lib, leaves, dy,
                                         retain_graph=True), 5, 1)
-        b7, b8 = gn_bounds(shape, groups)
-        per_eval['bound_k7'] += count * b7[0]
-        per_eval['bound_k8'] += count * b8[0]
         del x, dy, mean, rstd, leaves, y_lib
     n_calls = sum(calls.values())
     if n_calls != SGMSE_EVAL_LAUNCHES:
         raise AssertionError(f'{n_calls} GroupNorm calls an evaluation')
     out['eval'] = per_eval
+    out['eval_rows'] = kernels['rows']
 
     def plain(fn):
         def run():
@@ -1503,18 +1606,31 @@ def sgmse_phases(device, card):
     (s4_ms, s4_peak), (s16_ms, s16_peak) = steps['4'], steps['16']
     big = (f'{s16_ms:.1f} ms, peak {s16_peak / mib:.1f} MiB'
            if s16_ms is not None else f'did not fit ({s16_peak})')
+    shapes = '; '.join(
+        f'{tuple(r["shape"])}{"" if r["act"] == "silu" else " none"} x'
+        f'{r["count"]} {r["route"]}/{r["cluster"]} K7 '
+        f'{r["k7"]["card"]:.4f}, K8 {r["k8"]["card"]:.4f}'
+        for r in out['eval_rows'])
+    launched = out['launches_a_call']
     phase(21, f'[{card}] K7/K8 at (4, 256, 256, 501) kernel/plain/'
           f'F.group_norm+F.silu ms: fwd {fwd["kernel"]:.3f}/'
-          f'{fwd["plain"]:.3f}/{fwd["library"]:.3f} (bound '
+          f'{fwd["plain"]:.3f}/{fwd["library"]:.3f} (card {fwd["card"]:.3f},'
+          f' host {fwd["host"]:.4f} a call; bound '
           f'{out["largest"]["bound"][0][0]:.3f}), bwd {bwd["kernel"]:.3f}/'
-          f'{bwd["plain"]:.3f}/{bwd["library"]:.3f} (bound '
-          f'{out["largest"]["bound"][1][0]:.3f}); summed over the '
-          f'{n_calls} GroupNorms of one evaluation at 4 x 4 s: K7 '
-          f'{per_eval["k7"]:.2f}/{per_eval["plain"]:.2f}/'
-          f'{per_eval["library"]:.2f} (bound {per_eval["bound_k7"]:.2f}), K8 '
-          f'{per_eval["k8"]:.2f}/{per_eval["plain_bwd"]:.2f}/'
-          f'{per_eval["library_bwd"]:.2f} (bound {per_eval["bound_k8"]:.2f});'
-          f' denoiser 4 x 4 s {den_ms["kernel"]:.2f} ms, peak '
+          f'{bwd["plain"]:.3f}/{bwd["library"]:.3f} (card {bwd["card"]:.3f}, '
+          f'host {bwd["host"]:.4f}; bound '
+          f'{out["largest"]["bound"][1][0]:.3f}); kernels a call (a trace '
+          f'in a fresh interpreter, one call at each route): K7 '
+          f'{launched["k7"]}, K8 {launched["k8"]}; summed over the '
+          f'{n_calls} GroupNorms of one evaluation at 4 x 4 s, paced/'
+          f'plain/library: K7 {per_eval["k7"]:.2f}/{per_eval["plain"]:.2f}/'
+          f'{per_eval["library"]:.2f} (card {per_eval["k7_card"]:.2f}, host '
+          f'{per_eval["k7_host"]:.4f} a call; bound '
+          f'{per_eval["bound_k7"]:.2f}), K8 {per_eval["k8"]:.2f}/'
+          f'{per_eval["plain_bwd"]:.2f}/{per_eval["library_bwd"]:.2f} (card '
+          f'{per_eval["k8_card"]:.2f}, host {per_eval["k8_host"]:.4f}; bound '
+          f'{per_eval["bound_k8"]:.2f}); route/cluster and card ms by shape: '
+          f'{shapes}; denoiser 4 x 4 s {den_ms["kernel"]:.2f} ms, peak '
           f'{den_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
           f'{den_ms["plain"]:.2f} ms, {den_peak["plain"] / mib:.1f} MiB); '
           f'enhance 1 x 4 s {enh_ms["kernel"]:.1f} ms, peak '
@@ -3832,10 +3948,21 @@ def main():
         'bound_by': gn_big['bound'][0][1],
         'library_ms': gn_big['fwd']['library'],
         'shape': 'B=4 C=256 F=256 T=501 G=32 SiLU',
+        'launches_a_call': sgm['launches_a_call']['k7'],
+        'card_ms': gn_big['fwd']['card'],
+        'host_ms': gn_big['fwd']['host'],
         'eval_4x4s_ms': sgm['eval']['k7'],
+        'eval_4x4s_card_ms': sgm['eval']['k7_card'],
+        'eval_4x4s_host_ms_a_call': sgm['eval']['k7_host'],
         'eval_4x4s_plain_ms': sgm['eval']['plain'],
         'eval_4x4s_bound_ms': sgm['eval']['bound_k7'],
         'eval_4x4s_library_ms': sgm['eval']['library'],
+        'routes': {str(tuple(r['shape'])): [r['route'], r['cluster']]
+                   for r in sgm['eval_rows']},
+        'timing_note': 'ms, plain_ms, library_ms, eval_4x4s_*: calls as '
+                       'the host issues them (CUDA events); card_ms, '
+                       'eval_4x4s_card_ms: calls queued behind a sleep '
+                       'kernel (the card\'s time)',
         'denoiser_4x4s_ms': sgm['den_ms']['kernel'],
         'denoiser_4x4s_plain_ms': sgm['den_ms']['plain'],
         'enhance_1x4s_ms': sgm['enh_ms']['kernel'],
@@ -3859,10 +3986,17 @@ def main():
         'bound_by': gn_big['bound'][1][1],
         'library_ms': gn_big['bwd']['library'],
         'shape': 'B=4 C=256 F=256 T=501 G=32 SiLU',
+        'launches_a_call': sgm['launches_a_call']['k8'],
+        'card_ms': gn_big['bwd']['card'],
+        'host_ms': gn_big['bwd']['host'],
         'eval_4x4s_ms': sgm['eval']['k8'],
+        'eval_4x4s_card_ms': sgm['eval']['k8_card'],
+        'eval_4x4s_host_ms_a_call': sgm['eval']['k8_host'],
         'eval_4x4s_plain_ms': sgm['eval']['plain_bwd'],
         'eval_4x4s_bound_ms': sgm['eval']['bound_k8'],
         'eval_4x4s_library_ms': sgm['eval']['library_bwd'],
+        'routes': {str(tuple(r['shape'])): [r['route'], r['cluster']]
+                   for r in sgm['eval_rows']},
         'train_step_4x4s_ms': sgm['steps']['4'][0]['kernel'],
         'train_step_4x4s_plain_ms': sgm['steps']['4'][0]['plain'],
         'train_step_16x4s_ms': sgm['steps']['16'][0],

@@ -34,7 +34,12 @@ The GroupNorm kernels (K7, K8) against their plain versions: the forward
 in float32 at atol 1e-5, rtol 1e-4 (normalised values of order 1; the
 kernel sums the statistics in double in another order), the backward
 against the plain backward run in float64 at atol 1e-4 of the tensor's
-largest value, rtol 1e-3; two backward runs are bitwise equal.
+largest value, rtol 1e-3; two backward runs are bitwise equal. The same
+bounds hold on every route of their cluster plan (one block, a cluster
+that holds the slab, past it, odd N, unaligned), where two runs of each
+are bitwise equal, and the library's plan is the wrapper's mirror at the
+U-Net's shapes. A K7 call is one launch and a K8 call two, with no library
+kernel (a trace in a fresh interpreter).
 
 The flash-BN kernels (K7-BN, K8-BN) the same way as K7 and K8, with the
 running statistics' mean and variance at atol 1e-6, rtol 1e-5. The fused
@@ -1028,6 +1033,165 @@ def test_groupnorm_kernels_reject_what_they_do_not_take(device):
         gn.group_norm_act_fwd(x, scale.cpu(), bias, 8, 1e-6, 'silu')
     with pytest.raises(ValueError, match='together'):
         gn.group_norm_silu(x, scale, bias, 8, ext_scale=scale[None])
+
+
+#: K7/K8 cases by the plan's route (one plan for both): one block; a
+#: cluster that holds the slab (the (4, 384, 128, 251) class, and (4, 128,
+#: 256, 501) at 16 blocks); slabs past a cluster's shared memory (the (4,
+#: 256, 256, 501) class); odd N (4-byte copies) in one block, a cluster and
+#: past it; the last element of each case: x and dy one float past a
+#: 16-byte boundary
+GN_ROUTE_CASES = [
+    ((2, 256, 16, 32), 32, 'silu', 'block', False),
+    ((4, 384, 128, 251), 32, 'silu', 'cluster', False),
+    ((4, 128, 256, 501), 32, 'none', 'cluster', False),
+    ((4, 256, 256, 501), 32, 'silu', 'partial', False),
+    ((3, 96, 1001), 24, 'relu', 'block', False),
+    ((2, 32, 101, 103), 4, 'silu', 'cluster', False),
+    ((2, 64, 255, 257), 2, 'silu', 'partial', False),
+    ((4, 384, 128, 251), 32, 'silu', 'cluster', True),
+    ((2, 256, 16, 32), 32, 'none', 'block', True)]
+#: the GroupNorm shapes of one sgmsep U-Net evaluation at 4 x 4 s (G = 32)
+UNET_GN_SHAPES = [
+    (4, 128, 64, 126), (4, 128, 128, 251), (4, 128, 256, 501), (4, 256, 4, 8),
+    (4, 256, 8, 16), (4, 256, 16, 32), (4, 256, 32, 63), (4, 256, 64, 126),
+    (4, 256, 128, 251), (4, 256, 256, 501), (4, 384, 64, 126),
+    (4, 384, 128, 251), (4, 512, 4, 8), (4, 512, 8, 16), (4, 512, 16, 32),
+    (4, 512, 32, 63), (4, 512, 64, 126)]
+
+
+def _offset(t):
+    """``t`` one float into a larger buffer: contiguous, not 16-byte
+    aligned."""
+    buf = t.new_empty(t.numel() + 1)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize('shape,groups,act,route,unaligned', GN_ROUTE_CASES,
+                         ids=lambda v: str(v))
+def test_groupnorm_kernels_match_on_every_route(device, shape, groups, act,
+                                                route, unaligned):
+    """K7 against its plain version and K8 against the plain backward in
+    float64 (the bounds of ``test_groupnorm_kernels_match_plain``) on each
+    route of the cluster plan; two runs of each bitwise equal."""
+    x, scale, bias, dy = _gn_inputs(device, shape, seed=len(shape))
+    if unaligned:
+        x, dy = _offset(x), _offset(dy)
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    n = x.numel() // (shape[0] * shape[1])
+    assert gn.plan_info(shape[0], shape[1], n, groups)['route'] == route
+    out = gn.group_norm_act_fwd(x, scale, bias, groups, 1e-6, act)
+    again = gn.group_norm_act_fwd(x, scale, bias, groups, 1e-6, act)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    del again
+    y, mean, rstd = out
+    ref, ref_mean, ref_rstd = gn.group_norm_act_reference(
+        x, scale, bias, groups, 1e-6, act)
+    torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(mean, ref_mean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, ref_rstd, atol=1e-6, rtol=1e-5)
+    del ref
+    grads = gn.group_norm_act_bwd(x, dy, scale, bias, mean, rstd, groups,
+                                  act)
+    again = gn.group_norm_act_bwd(x, dy, scale, bias, mean, rstd, groups,
+                                  act)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    if act == 'relu':   # the kernel's branches: z near 0 may flip
+        dy, act = dy * (y > 0), 'none'
+    del y
+    want = gn.group_norm_act_bwd_plain(
+        *(t.double() for t in (x, dy, scale, bias, mean, rstd)), groups, act)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got.double(), ref, rtol=1e-3,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+def test_groupnorm_plan_is_the_wrappers(device):
+    """The library's K7/K8 plan at the U-Net's shapes is the wrapper's
+    mirror, and the card places the plan's cluster of both kernels."""
+    for shape in UNET_GN_SHAPES:
+        n = shape[2] * shape[3]
+        plan = gn.plan_info(shape[0], shape[1], n, 32)
+        want = gn.gn_plan(shape[0], shape[1], n, 32)
+        assert {k: v for k, v in plan.items() if k != 'clusters'} == want, \
+            shape
+        assert plan['clusters'] >= 1, (shape, plan)
+
+
+#: Run in a fresh interpreter: the device kernels of three K7 calls and of
+#: three K8 calls at each route, one ``torch.profiler`` trace each.
+_TRACE_GN = """
+import json
+import torch
+from brever_tpu_torch.numerics import disable_tf32
+from brever_tpu_torch.ops import groupnorm as gn
+
+disable_tf32()
+dev = torch.device('cuda', 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+cases = []
+for shape, groups in (((4, 256, 16, 32), 32), ((4, 384, 128, 251), 32),
+                      ((4, 256, 256, 501), 32), ((3, 96, 1001), 24)):
+    x, dy = (torch.randn(*shape, generator=gen, device=dev)
+             for _ in range(2))
+    scale = 1 + 0.1 * torch.randn(shape[1], generator=gen, device=dev)
+    bias = 0.1 * torch.randn(shape[1], generator=gen, device=dev)
+    with torch.no_grad():
+        _, mean, rstd = gn.group_norm_act_fwd(x, scale, bias, groups, 1e-6,
+                                              'silu')
+    cases.append((x, dy, scale, bias, mean, rstd, groups))
+
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def k7():
+    for x, dy, scale, bias, mean, rstd, groups in cases:
+        for _ in range(3):
+            gn.group_norm_act_fwd(x, scale, bias, groups, 1e-6, 'silu')
+
+
+def k8():
+    for x, dy, scale, bias, mean, rstd, groups in cases:
+        for _ in range(3):
+            gn.group_norm_act_bwd(x, dy, scale, bias, mean, rstd, groups,
+                                  'silu')
+
+
+with torch.no_grad():
+    out = {'k7': names(k7), 'k8': names(k8)}
+print(json.dumps(out))
+"""
+
+
+def test_groupnorm_launches_one_and_two_kernels(device):
+    """Twelve K7 calls (three at each route: one block, a cluster that
+    holds the slab, past it, odd N) launch twelve ``gn_fwd_cluster``
+    kernels and nothing else; twelve K8 calls twelve ``gn_bwd_cluster`` and
+    twelve ``gn_bwd_channels``: no library kernel (traced in a fresh
+    interpreter)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    run = subprocess.run([sys.executable, '-c', _TRACE_GN], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(names['k7']) == 12 and all(
+        'gn_fwd_cluster' in n for n in names['k7']), names['k7']
+    assert len(names['k8']) == 24, names['k8']
+    assert sum('gn_bwd_cluster' in n for n in names['k8']) == 12
+    assert sum('gn_bwd_channels' in n for n in names['k8']) == 12
 
 
 def test_sgmse_runs_every_groupnorm_through_the_kernels(device):
