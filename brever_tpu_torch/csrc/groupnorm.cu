@@ -53,8 +53,9 @@
 //   U-Net's (4, 256, 256, 501): 3.91 MiB a group, 16 x 225 KB held), the
 //   first part is held and the rest is read from device memory in both
 //   passes, the second time mostly from L2. Unaligned tensors and N off the
-//   float4 grid take 4-byte loads (kVec = false); their first pass stores
-//   what it reads where held. What a lane reads from device memory or L2 it
+//   float4 grid take 4-byte loads (kVec = false), and each lane copies the
+//   held floats it reads with 4-byte cp.async, ahead as the bulk copies
+//   are. What a lane reads from device memory or L2 it
 //   reads four float4s of a tensor at a time, all four before it uses the
 //   first (in named registers: an array of them spilled), so that the loads
 //   stream.
@@ -80,9 +81,7 @@
 // flash-BN, forward (K7-BN) and backward (K8-BN), replaces the same Pallas
 // kernels as gn_act_stats_pallas launches them for a BatchNorm (num_groups =
 // C over a (1, N, C) view). Here the statistics of channel c span all B rows
-// of x (B, C, N): the (b, c) slabs are B contiguous runs of N floats, so
-// passes split at the merges that span the batch rows serve, with no copy to
-// (C, B N):
+// of x (B, C, N):
 //
 //   mean, var, rstd per c over the B N elements of the channel
 //   y = act(x a + b),  a = scale[c] rstd,  b = bias[c] - mean a
@@ -90,21 +89,44 @@
 //        / (B N),  dscale[c] and dbias[c] the same sums
 //   dx = rstd (dz scale[c] - m1 - xhat m2)
 //
-// A task there is one segment of up to kSeg elements of one (b, c) row,
-// taken by one warp, kWarps tasks a block. bn_fwd: gn_stats (each task's
-// (sum x, sum x^2) in double), bn_merge (one warp a channel, B x segs
-// partials in order, writes mean, var and rstd and the folded affine of
-// every (b, c) row), gn_apply. bn_bwd: gn_bwd_partials with the channel's
-// statistics, bn_bwd_channels (one warp a channel: dscale, dbias and m1, m2
-// from B x segs partials in order), gn_bwd_dx. No channel cap and no byte
-// floor (the Pallas path's are Mosaic's). Bound: bytes, as K7/K8's.
+// A BatchNorm "group" is one channel: B rows of N floats, the first at c N
+// and each next C N further on. K7-BN and K8-BN are K7's and K8's cluster
+// kernels with kBn set: the groups are the C channels, a row of a group
+// sits a row stride of C N after the last (GroupNorm's: N), and scale,
+// bias and the statistics are indexed by the group. bn_plan (mirrored by
+// ops/batchnorm.py) is K7's plan over B rows. K8-BN needs no per-row sums:
+// the channel's (sum dz, sum dz xhat) are its dbias and dscale, so each
+// block's pair is reduced over DSMEM in rank order as K7's statistics are
+// (no gather from L2, no second launch), rank 0 writes dbias and dscale,
+// and every block forms m1 and m2 for its dx. One launch each. Where one
+// block holds a channel (N <= 1000 and the attention's gates at 16 x 4 s:
+// 3,984 to 34,816 floats) a channel's chain of barriers and reductions
+// costs about as much as its bytes: the block skips the cluster barrier
+// (it is the cluster), and where a channel has at most 16 tasks both
+// kernels run blocks of half the threads, two or three an SM (bn_ring),
+// with a ring of two buffers where two such blocks fit (the next channel
+// copied in while this one is reduced and written).
+//
+// By bn_plan's rule a channel past a 16-block cluster's shared memory
+// (MANNER's (16, 60, 64084): 4.1 MB a channel) takes the partial cluster
+// route in K7-BN (the held part on chip, the rest read twice from device
+// memory) and two passes through device memory in K8-BN, the faster of the
+// two for each on an H100 (PERF.md); K8-BN takes the passes off the float4
+// grid too. The passes: a warp a segment of up to kSeg floats of one row,
+// kWarps segments a block; bn_bwd_partials writes each segment's two sums
+// in double, bn_bwd_dx adds the channel's B x segs sums in one fixed order
+// in every warp (so every warp holds the same bits), then writes dx (the
+// channel's first segment's warp dscale and dbias). A lane keeps four
+// float4s of a tensor in flight. Bound: bytes, as K7/K8's; no channel cap
+// and no byte floor (the Pallas path's are Mosaic's).
 //
 // Loads and stores are 16 bytes a lane where N is a multiple of 4 and the
-// tensors are 16-byte aligned (every shape of the U-Net), else 4. No float
-// atomics: two runs give bitwise-equal outputs and gradients. The
-// statistics and every reduction are summed in double. Every pointer is a
-// dense float32 buffer; K8's `work` is gn_bwd_workspace(B, C, N, G) bytes,
-// the flash-BN passes' bn_workspace(B, C, N).
+// tensors are 16-byte aligned, else 4. No float atomics: two runs give
+// bitwise-equal outputs and gradients. The statistics and every reduction
+// are summed in double (K7-BN's and K8-BN's each float's term: a channel's
+// sums cancel, as the C = 1 attention gates' dscale does). Every pointer is a dense float32 buffer; K8's
+// `work` is gn_bwd_workspace(B, C, N, G) bytes, the flash-BN passes' the
+// workspace bn_plan names.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -127,6 +149,8 @@ constexpr int kGnWarps = kGnThreads / 32;
 constexpr int kSmemMost = 232448;       // shared memory a block may have
 constexpr int kScratch = 2048;          // bytes of it ahead of the slabs
 constexpr int kMostCluster = 16;        // blocks of the largest cluster
+constexpr int kSmemSm = 233472;         // shared memory of an SM
+constexpr int kSmemReserved = 1024;     // of it the system's a block
 constexpr int kRowChunk = 64;           // row sums K8 gathers at once
 
 enum Act { kNone = 0, kSilu = 1, kRelu = 2 };
@@ -184,125 +208,8 @@ __device__ __forceinline__ void store(float* p, long long i,
   }
 }
 
-// The task of this warp: its row, and the segment [start, start + len).
-struct Task {
-  long long row, start;
-  int len;
-};
-
-__device__ __forceinline__ bool my_task(int N, int segs, long long tasks,
-                                        Task& t) {
-  const long long task = static_cast<long long>(blockIdx.x) * kWarps
-                         + (threadIdx.x >> 5);
-  if (task >= tasks) return false;
-  t.row = task / segs;
-  const int seg = static_cast<int>(task - t.row * segs);
-  t.start = t.row * N + static_cast<long long>(seg) * kSeg;
-  t.len = min(kSeg, N - seg * kSeg);
-  return true;
-}
-
 // ---------------------------------------------------------------------------
-// K7-BN's passes
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gn_stats(const float* __restrict__ x, int N, int segs, long long tasks,
-         double2* __restrict__ part) {
-  Task t;
-  if (!my_task(N, segs, tasks, t)) return;
-  constexpr int kW = kVec ? 4 : 1;
-  const int lane = threadIdx.x & 31;
-  double s = 0.0, q = 0.0;
-  for (int j = lane * kW; j < t.len; j += 32 * kW) {
-    float v[kW];
-    load<kVec>(x, t.start + j, v);
-#pragma unroll
-    for (int k = 0; k < kW; ++k) {
-      s += v[k];
-      q += static_cast<double>(v[k]) * v[k];
-    }
-  }
-  s = warp_sum(s);
-  q = warp_sum(q);
-  if (lane == 0) part[blockIdx.x * kWarps + (threadIdx.x >> 5)] =
-      make_double2(s, q);
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gn_apply(const float* __restrict__ x, const float2* __restrict__ coef,
-         int N, int segs, long long tasks, int act, float* __restrict__ y) {
-  Task t;
-  if (!my_task(N, segs, tasks, t)) return;
-  constexpr int kW = kVec ? 4 : 1;
-  const float2 ab = coef[t.row];
-  for (int j = (threadIdx.x & 31) * kW; j < t.len; j += 32 * kW) {
-    float v[kW];
-    load<kVec>(x, t.start + j, v);
-#pragma unroll
-    for (int k = 0; k < kW; ++k) v[k] = act_fwd(__fmaf_rn(v[k], ab.x, ab.y),
-                                                act);
-    store<kVec>(y, t.start + j, v);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K8-BN's passes, and K8's second launch (gn_bwd_channels)
-
-// The per-row constants of the backward: the folded affine, mean, rstd and
-// scale of the row's channel.
-struct RowConst {
-  float2 ab;
-  float mean, rstd, scale;
-};
-
-// The constants of a row of x (B, C, N), whose statistics are its
-// channel's.
-__device__ __forceinline__ RowConst row_const(
-    long long row, int C, const float* scale, const float* bias,
-    const float* mean, const float* rstd) {
-  const int c = static_cast<int>(row % C);
-  RowConst k;
-  k.mean = mean[c];
-  k.rstd = rstd[c];
-  k.scale = scale[c];
-  k.ab = fold(k.scale, bias[c], k.mean, k.rstd);
-  return k;
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_partials(const float* __restrict__ x, const float* __restrict__ dy,
-                const float* __restrict__ scale,
-                const float* __restrict__ bias,
-                const float* __restrict__ mean,
-                const float* __restrict__ rstd, int C, int N,
-                int segs, long long tasks, int act,
-                double2* __restrict__ part) {
-  Task t;
-  if (!my_task(N, segs, tasks, t)) return;
-  constexpr int kW = kVec ? 4 : 1;
-  const int lane = threadIdx.x & 31;
-  const RowConst k = row_const(t.row, C, scale, bias, mean, rstd);
-  double s1 = 0.0, s2 = 0.0;
-  for (int j = lane * kW; j < t.len; j += 32 * kW) {
-    float v[kW], d[kW];
-    load<kVec>(x, t.start + j, v);
-    load<kVec>(dy, t.start + j, d);
-#pragma unroll
-    for (int i = 0; i < kW; ++i) {
-      const float dz = act_bwd(__fmaf_rn(v[i], k.ab.x, k.ab.y), d[i], act);
-      const float xhat = __fmul_rn(__fsub_rn(v[i], k.mean), k.rstd);
-      s1 += dz;
-      s2 += static_cast<double>(dz) * xhat;
-    }
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if (lane == 0) part[blockIdx.x * kWarps + (threadIdx.x >> 5)] =
-      make_double2(s1, s2);
-}
+// K8's second launch
 
 // One thread a channel: dscale and dbias summed over the batch in order.
 __global__ void __launch_bounds__(kThreads)
@@ -320,113 +227,19 @@ gn_bwd_channels(const double2* __restrict__ rowsum, int B, int C,
   dscale[c] = static_cast<float>(s2);
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
-          const float* __restrict__ scale, const float* __restrict__ bias,
-          const float* __restrict__ mean, const float* __restrict__ rstd,
-          const float2* __restrict__ m, int C, int N, int segs,
-          long long tasks, int act, float* __restrict__ dx) {
-  Task t;
-  if (!my_task(N, segs, tasks, t)) return;
-  constexpr int kW = kVec ? 4 : 1;
-  const RowConst k = row_const(t.row, C, scale, bias, mean, rstd);
-  const float2 mg = m[t.row % C];
-  for (int j = (threadIdx.x & 31) * kW; j < t.len; j += 32 * kW) {
-    float v[kW], d[kW];
-    load<kVec>(x, t.start + j, v);
-    load<kVec>(dy, t.start + j, d);
-#pragma unroll
-    for (int i = 0; i < kW; ++i) {
-      const float dz = act_bwd(__fmaf_rn(v[i], k.ab.x, k.ab.y), d[i], act);
-      const float xhat = __fmul_rn(__fsub_rn(v[i], k.mean), k.rstd);
-      v[i] = k.rstd * (dz * k.scale - mg.x - xhat * mg.y);
-    }
-    store<kVec>(dx, t.start + j, v);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K7-BN and K8-BN's merges
-
-// One warp a channel c: the partials of its B rows, row by row and segment
-// by segment in a fixed order; the channel's mean, var and rstd, and the
-// folded affine of each of its B rows.
-__global__ void __launch_bounds__(kThreads)
-bn_merge(const double2* __restrict__ part, const float* __restrict__ scale,
-         const float* __restrict__ bias, int B, int C, int segs, double n,
-         float eps, float* __restrict__ mean, float* __restrict__ var,
-         float* __restrict__ rstd, float2* __restrict__ coef) {
-  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (c >= C) return;
-  const int lane = threadIdx.x & 31;
-  double s = 0.0, q = 0.0;
-  for (int b = 0; b < B; ++b) {
-    const double2* row = part + (static_cast<long long>(b) * C + c) * segs;
-    for (int i = lane; i < segs; i += 32) {
-      s += row[i].x;
-      q += row[i].y;
-    }
-  }
-  s = warp_sum(s);
-  q = warp_sum(q);
-  float m = 0.f, r = 0.f;
-  if (lane == 0) {
-    const double md = s / n, vd = q / n - md * md;
-    m = static_cast<float>(md);
-    r = static_cast<float>(1.0 / sqrt(vd + eps));
-    mean[c] = m;
-    var[c] = static_cast<float>(vd);
-    rstd[c] = r;
-  }
-  m = __shfl_sync(kFull, m, 0);
-  r = __shfl_sync(kFull, r, 0);
-  const float2 ab = fold(scale[c], bias[c], m, r);
-  for (int b = lane; b < B; b += 32) coef[static_cast<long long>(b) * C + c] =
-      ab;
-}
-
-// One warp a channel c: sum dz and sum dz xhat over its B rows in a fixed
-// order, as dbias and dscale, and m1, m2 for dx.
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_channels(const double2* __restrict__ part,
-                const float* __restrict__ scale, int B, int C, int segs,
-                double n, float* __restrict__ dscale,
-                float* __restrict__ dbias, float2* __restrict__ m) {
-  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (c >= C) return;
-  const int lane = threadIdx.x & 31;
-  double s1 = 0.0, s2 = 0.0;
-  for (int b = 0; b < B; ++b) {
-    const double2* row = part + (static_cast<long long>(b) * C + c) * segs;
-    for (int i = lane; i < segs; i += 32) {
-      s1 += row[i].x;
-      s2 += row[i].y;
-    }
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    dbias[c] = static_cast<float>(s1);
-    dscale[c] = static_cast<float>(s2);
-    const double sc = scale[c];
-    m[c] = make_float2(static_cast<float>(sc * s1 / n),
-                       static_cast<float>(sc * s2 / n));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K7 and K8's first launch: thread-block clusters that walk the (b, g)
-// groups, one group at a time
+// K7, K8's first launch, K7-BN and K8-BN: thread-block clusters that walk
+// the groups ((b, g), or a BatchNorm's channels), one group at a time
 
 namespace cg = cooperative_groups;
 
 // The scratch ahead of a cluster block's slabs in its dynamic shared memory.
 struct Scratch {
-  unsigned long long bar[kGnWarps];  // each warp's bulk copies of a group
-  double2 warp[kGnWarps];            // K7: each warp's (sum x, sum x^2)
-  double2 block[2];                  // K7: the block's, read over DSMEM, by
-                                     // the parity of the block's group
+  unsigned long long bar[2][kGnWarps];  // each warp's bulk copies of a
+                                        // group, by the ring's buffer
+  double2 warp[kGnWarps];            // K7, K8-BN: each warp's two sums
+  double2 block[2];                  // the block's, read over DSMEM, by the
+                                     // parity of the block's group
   float2 stat;                       // K7: (mean, rstd); K8: (m1, m2)
   double2 rows[kRowChunk];           // K8: a chunk of the group's row sums,
                                      // times the rows' scale
@@ -492,16 +305,55 @@ __host__ __device__ __forceinline__ long long task_start(long long t, int N,
   return t / segs * N + t % segs * kTask;
 }
 
-// This block's share of every group (`chans` rows of N floats): tasks [t0,
-// t1), floats [p0, p0 + len) of the slab, `held` of them in shared memory.
-// The cluster (rank `rank` of n) walks groups grp0, grp0 + step, ...
+// The groups a cluster kernel walks. GroupNorm's: the B G (b, g) groups,
+// each a slab of C/G contiguous rows. A BatchNorm's (kBn): the C channels,
+// each B rows of N floats, one every C N.
+struct Groups {
+  int rows;                // rows of N floats a group
+  long long count;         // groups
+  long long step;          // floats from a group's first float to the next's
+  long long skip;          // floats between a row's end and the next row's
+};
+
+template <bool kBn>
+__device__ __forceinline__ Groups groups(int B, int C, int G, int N) {
+  Groups L;
+  if constexpr (kBn) {
+    L.rows = B;
+    L.count = C;
+    L.step = N;
+    L.skip = static_cast<long long>(C - 1) * N;
+  } else {
+    L.rows = C / G;
+    L.count = static_cast<long long>(B) * G;
+    L.step = static_cast<long long>(L.rows) * N;
+    L.skip = 0;
+  }
+  return L;
+}
+
+// The channel of row k of group grp (G groups a batch row for GroupNorm).
+template <bool kBn>
+__device__ __forceinline__ int channel(long long grp, int k, int G,
+                                       int rows) {
+  if constexpr (kBn) {
+    return static_cast<int>(grp);
+  } else {
+    return static_cast<int>(grp % G) * rows + k;
+  }
+}
+
+// This block's share of every group (`rows` rows of N floats): tasks [t0,
+// t1), floats [p0, p0 + len) of the slab (the group's rows end to end),
+// `held` of them in shared memory. The cluster (rank `rank` of n) walks
+// groups grp0, grp0 + step, ...
 struct Share {
   long long t0, t1, p0, len;
   long long grp0, step;
-  int held, chans, n, rank;
+  int held, n, rank;
 };
 
-__device__ __forceinline__ Share my_share(int C, int G, int N, int segs,
+__device__ __forceinline__ Share my_share(int rows, int N, int segs,
                                           int res) {
   cg::cluster_group cluster = cg::this_cluster();
   Share s;
@@ -509,8 +361,7 @@ __device__ __forceinline__ Share my_share(int C, int G, int N, int segs,
   s.rank = static_cast<int>(cluster.block_rank());
   s.grp0 = blockIdx.x / s.n;
   s.step = gridDim.x / s.n;
-  s.chans = C / G;
-  const long long T = static_cast<long long>(s.chans) * segs;
+  const long long T = static_cast<long long>(rows) * segs;
   s.t0 = s.rank * T / s.n;
   s.t1 = (s.rank + 1) * T / s.n;
   s.p0 = task_start(s.t0, N, segs);
@@ -520,30 +371,38 @@ __device__ __forceinline__ Share my_share(int C, int G, int N, int segs,
 }
 
 // One task of this block: row k of the group, floats [off, off + len) of
-// the share.
+// the share; float i of the share lies at `shift + i` of the group in
+// device memory (GroupNorm's: p0, the slab being contiguous).
 struct Piece {
   int k, len;
-  long long off;
+  long long off, shift;
 };
 
+template <bool kBn>
 __device__ __forceinline__ Piece piece(const Share& s, long long t, int N,
-                                       int segs) {
+                                       int segs, long long skip) {
   Piece p;
   p.k = static_cast<int>(t / segs);
   const int seg = static_cast<int>(t - static_cast<long long>(p.k) * segs);
   p.off = task_start(t, N, segs) - s.p0;
   p.len = min(kTask, N - seg * kTask);
+  if constexpr (kBn) {
+    p.shift = s.p0 + p.k * skip;
+  } else {
+    p.shift = s.p0;
+  }
   return p;
 }
 
 // Lane 0 of a warp sets its mbarrier to expect the held part of the warp's
-// tasks of a group.
+// tasks of a group (kWarps2 warps a block).
+template <int kWarps2>
 __device__ __forceinline__ void expect(const Share& s, int N, int segs,
                                        unsigned long long* bar) {
   if ((threadIdx.x & 31) != 0) return;
   unsigned bytes = 0;
-  for (long long t = s.t0 + (threadIdx.x >> 5); t < s.t1; t += kGnWarps) {
-    const Piece p = piece(s, t, N, segs);
+  for (long long t = s.t0 + (threadIdx.x >> 5); t < s.t1; t += kWarps2) {
+    const Piece p = piece<false>(s, t, N, segs, 0);
     if (p.off < s.held)
       bytes += 4u * static_cast<unsigned>(min(
           static_cast<long long>(p.len), s.held - p.off));
@@ -551,45 +410,100 @@ __device__ __forceinline__ void expect(const Share& s, int N, int segs,
   mbar_expect(bar, bytes);
 }
 
-// Lane 0 copies the held part of one task of a group (of `a`, at the
-// share's first float, to sa) with a bulk copy completing on the warp's
-// mbarrier. A warp owns its tasks' shared memory in every pass, so it
-// copies a task of the next group over one of this group as soon as its
-// lanes are done with it.
+// A 4-byte asynchronous copy from device to shared memory; a thread waits
+// for its own with cp_async_wait.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The held part of one task of a group, of `a` (the group's first float)
+// to sa. With kVec lane 0 issues a TMA bulk copy completing on the warp's
+// mbarrier; else each lane copies the floats it reads in every pass (j =
+// lane + 32 i) with cp.async. A warp owns its tasks' shared memory in every
+// pass, so with one buffer it copies a task of the next group over one of
+// this group as soon as its lanes are done with it.
+template <bool kVec>
 __device__ __forceinline__ void copy_task(const Share& s, const Piece& p,
                                           const float* a, float* sa,
                                           unsigned long long* bar) {
-  if ((threadIdx.x & 31) != 0 || p.off >= s.held) return;
-  // the lanes' reads of these floats (generic proxy) come before the
-  // copy's writes (async proxy)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  const unsigned n = 4u * static_cast<unsigned>(min(
-      static_cast<long long>(p.len), s.held - p.off));
-  bulk_load(sa + p.off, a + p.off, n, bar);
-}
-
-// With kVec thread 0 sets up one mbarrier a warp, and each warp copies its
-// share of the block's first group.
-template <bool kVec>
-__device__ __forceinline__ void start(const Share& s, int N, int segs,
-                                      const float* a, float* sa,
-                                      Scratch& sc) {
+  if (p.off >= s.held) return;
+  const long long held = min(static_cast<long long>(p.len), s.held - p.off);
   if constexpr (kVec) {
-    if (threadIdx.x == 0) {
-      for (int w = 0; w < kGnWarps; ++w) mbar_init(&sc.bar[w]);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    unsigned long long* bar = &sc.bar[threadIdx.x >> 5];
-    expect(s, N, segs, bar);
-    for (long long t = s.t0 + (threadIdx.x >> 5); t < s.t1; t += kGnWarps)
-      copy_task(s, piece(s, t, N, segs), a, sa, bar);
+    if ((threadIdx.x & 31) != 0) return;
+    // the lanes' reads of these floats (generic proxy) come before the
+    // copy's writes (async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bulk_load(sa + p.off, a + p.shift + p.off,
+              4u * static_cast<unsigned>(held), bar);
+  } else {
+    for (long long j = threadIdx.x & 31; j < held; j += 32)
+      cp_async4(sa + p.off + j, a + p.shift + p.off + j);
   }
 }
 
-// Float i of the share of a group: from shared memory where held (with
-// kVec: copied there by bulk copies, which the warp has waited for), else
-// from `g` (the share in device memory).
+// Each warp copies its tasks of a group (whose first float is `a`) into a
+// buffer of the ring (sa), on the buffer's mbarrier `bar` with kVec, else
+// as one group of cp.async copies.
+template <bool kVec, bool kBn, int kWarps2>
+__device__ __forceinline__ void copy_group(const Share& s, int N, int segs,
+                                           long long skip, const float* a,
+                                           float* sa,
+                                           unsigned long long* bar) {
+  __syncwarp();   // the warp's lanes are done with the buffer's last group
+  if constexpr (kVec) expect<kWarps2>(s, N, segs, bar);
+  for (long long t = s.t0 + (threadIdx.x >> 5); t < s.t1; t += kWarps2)
+    copy_task<kVec>(s, piece<kBn>(s, t, N, segs, skip), a, sa, bar);
+  if constexpr (!kVec)
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// With kVec thread 0 sets up one mbarrier a warp and buffer of the ring;
+// then each warp copies its share of the block's first group into the
+// first buffer.
+template <bool kVec, bool kBn, int kWarps2>
+__device__ __forceinline__ void start(const Share& s, int N, int segs,
+                                      long long skip, const float* a,
+                                      float* sa, Scratch& sc) {
+  if constexpr (kVec) {
+    if (threadIdx.x == 0) {
+      for (int w = 0; w < kGnWarps; ++w) {
+        mbar_init(&sc.bar[0][w]);
+        mbar_init(&sc.bar[1][w]);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  copy_group<kVec, kBn, kWarps2>(s, N, segs, skip, a, sa,
+                                 &sc.bar[0][threadIdx.x >> 5]);
+}
+
+// Group k of the block is held in shared memory: with kVec the warp waits
+// for its mbarrier (the buffer's, used once every `stages` groups), else
+// each thread for its own copies (all but the next group's, `ahead`: copied
+// before this group was waited for).
+template <bool kVec>
+__device__ __forceinline__ void wait_held(unsigned long long* bar,
+                                          unsigned k, int stages,
+                                          bool ahead) {
+  if constexpr (kVec) {
+    mbar_wait(bar, (k / stages) & 1);
+  } else if (ahead) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    cp_async_wait();
+  }
+}
+
+// Float i of the share of a group: from shared memory where held (copied
+// there, which the thread has waited for), else from `g` (the share's
+// origin in device memory).
 template <bool kVec>
 __device__ __forceinline__ void fetch(const float* s, const float* g,
                                       int held, long long i,
@@ -601,18 +515,54 @@ __device__ __forceinline__ void fetch(const float* s, const float* g,
   }
 }
 
-// Float i of the share in a group's first pass: with kVec as fetch (the
-// warp has waited for its bulk copies), else from device memory (the pass
-// stores what it reads where held, for the second).
-template <bool kVec>
-__device__ __forceinline__ void fetch_first(const float* s, const float* g,
-                                            int held, long long i,
-                                            float (&v)[kVec ? 4 : 1]) {
-  if constexpr (kVec) {
-    fetch<kVec>(s, g, held, i, v);
-  } else {
-    load<kVec>(g, i, v);
+// fetch, one float
+__device__ __forceinline__ float fetch1(const float* s, const float* g,
+                                        int held, long long i) {
+  return i < held ? s[i] : g[i];
+}
+
+// Warp 0 gets the cluster's sums of a group's (a, q) pairs: each thread's
+// pair, then the lanes', warps' and blocks' in a fixed order (the blocks'
+// read over DSMEM after a cluster barrier, in rank order), so that every
+// block holds the same bits. The block's sums are kept by the parity of
+// the block's group: a block writes them again two groups on, past the
+// next group's barrier, which every block reaches after its reads. A
+// `solo` block (a BatchNorm channel's only one) skips the cluster barrier
+// and adds its own sums alone.
+template <int kWarps2>
+__device__ __forceinline__ double2 cluster_sum(double a, double q,
+                                               Scratch& sc, unsigned parity,
+                                               int n, bool solo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = warp_sum(a);
+  q = warp_sum(q);
+  if (lane == 0) sc.warp[warp] = make_double2(a, q);
+  __syncthreads();
+  double2 out = make_double2(0.0, 0.0);
+  if (warp == 0) {
+    double2 w = lane < kWarps2 ? sc.warp[lane] : make_double2(0.0, 0.0);
+    w.x = warp_sum(w.x);
+    w.y = warp_sum(w.y);
+    if (solo) {
+      out.x += __shfl_sync(kFull, w.x, 0);
+      out.y += __shfl_sync(kFull, w.y, 0);
+      return out;
+    }
+    if (lane == 0) sc.block[parity] = w;
   }
+  if (solo) return out;
+  cluster_sync();  // every block's sums of the group are in its memory
+  if (warp == 0) {
+    // lane r reads block r's sums; every lane adds them in rank order
+    cg::cluster_group cluster = cg::this_cluster();
+    double2 w = make_double2(0.0, 0.0);
+    if (lane < n) w = *cluster.map_shared_rank(&sc.block[parity], lane);
+    for (int r = 0; r < n; ++r) {
+      out.x += __shfl_sync(kFull, w.x, r);
+      out.y += __shfl_sync(kFull, w.y, r);
+    }
+  }
+  return out;
 }
 
 // A lane's float4s that come from device memory are read four at a time,
@@ -655,6 +605,16 @@ __device__ __forceinline__ void add_grad1(float x, float d, float2 ab,
   q = __fmaf_rn(dz, __fmul_rn(__fsub_rn(x, mu), rs), q);
 }
 
+// K8's sums of one float of x and of dy, as the 4-byte loop forms them
+__device__ __forceinline__ void add_grad(float x, float d, float2 ab,
+                                         float mu, float rs, int act,
+                                         double& s1, double& s2) {
+  float a = 0.f, q = 0.f;
+  add_grad1(x, d, ab, mu, rs, act, a, q);
+  s1 += a;
+  s2 += q;
+}
+
 __device__ __forceinline__ void add_grads(float4 x, float4 d, float2 ab,
                                           float mu, float rs, int act,
                                           double& s1, double& s2) {
@@ -665,6 +625,72 @@ __device__ __forceinline__ void add_grads(float4 x, float4 d, float2 ab,
   add_grad1(x.w, d.w, ab, mu, rs, act, a, q);
   s1 += a;
   s2 += q;
+}
+
+// K7-BN's and K8-BN's sums, each float's term in double (products exact),
+// as the flash-BN passes always formed them: a BatchNorm's sums over a
+// channel cancel (the C = 1 attention gates' dscale), so they are not
+// rounded to float on the way
+__device__ __forceinline__ void add_stats_exact(float4 v, double& sum,
+                                                double& sq) {
+  sum += v.x;
+  sq += static_cast<double>(v.x) * v.x;
+  sum += v.y;
+  sq += static_cast<double>(v.y) * v.y;
+  sum += v.z;
+  sq += static_cast<double>(v.z) * v.z;
+  sum += v.w;
+  sq += static_cast<double>(v.w) * v.w;
+}
+
+__device__ __forceinline__ void add_grad_exact(float x, float d, float2 ab,
+                                               float mu, float rs, int act,
+                                               double& s1, double& s2) {
+  const float dz = act_bwd(__fmaf_rn(x, ab.x, ab.y), d, act);
+  s1 += dz;
+  s2 += static_cast<double>(dz) * __fmul_rn(__fsub_rn(x, mu), rs);
+}
+
+__device__ __forceinline__ void add_grads_exact(float4 x, float4 d, float2 ab,
+                                                float mu, float rs, int act,
+                                                double& s1, double& s2) {
+  add_grad_exact(x.x, d.x, ab, mu, rs, act, s1, s2);
+  add_grad_exact(x.y, d.y, ab, mu, rs, act, s1, s2);
+  add_grad_exact(x.z, d.z, ab, mu, rs, act, s1, s2);
+  add_grad_exact(x.w, d.w, ab, mu, rs, act, s1, s2);
+}
+
+// A float4's sums: K7's (kBn false) or K7-BN's
+template <bool kBn>
+__device__ __forceinline__ void stats4(float4 v, double& sum, double& sq) {
+  if constexpr (kBn) {
+    add_stats_exact(v, sum, sq);
+  } else {
+    add_stats(v, sum, sq);
+  }
+}
+
+// A float4's or a float's sums: K8's (kBn false) or K8-BN's
+template <bool kBn>
+__device__ __forceinline__ void grads4(float4 x, float4 d, float2 ab,
+                                       float mu, float rs, int act,
+                                       double& s1, double& s2) {
+  if constexpr (kBn) {
+    add_grads_exact(x, d, ab, mu, rs, act, s1, s2);
+  } else {
+    add_grads(x, d, ab, mu, rs, act, s1, s2);
+  }
+}
+
+template <bool kBn>
+__device__ __forceinline__ void grad1(float x, float d, float2 ab, float mu,
+                                      float rs, int act, double& s1,
+                                      double& s2) {
+  if constexpr (kBn) {
+    add_grad_exact(x, d, ab, mu, rs, act, s1, s2);
+  } else {
+    add_grad(x, d, ab, mu, rs, act, s1, s2);
+  }
 }
 
 __device__ __forceinline__ float dx1(float x, float d, float2 ab, float mu,
@@ -682,32 +708,49 @@ __device__ __forceinline__ float4 dx4(float4 x, float4 d, float2 ab, float mu,
                      dx1(x.w, d.w, ab, mu, rs, w, mg, act));
 }
 
-// K7. B G groups, each taken by one cluster of n blocks; grid: up to B G
-// clusters (as many as the card holds at once), kGnThreads threads,
-// kScratch + 4 res bytes of dynamic shared memory (res: floats a block
-// holds).
-template <bool kVec>
-__global__ void __launch_bounds__(kGnThreads, 1)
+// K7, and K7-BN with kBn. The groups (B G, or C), each taken by one
+// cluster of n blocks; grid: up to one cluster a group (as many as the card
+// holds at once), 32 kWarps2 threads (kGnThreads, or half where up to three
+// blocks share an SM), kScratch + 4 res stages bytes of dynamic shared memory
+// (res: floats a block holds; K7-BN's `stages`, 1 or 2: the buffers of its
+// ring). `var` is written with kBn alone.
+template <bool kVec, bool kBn, int kWarps2>
+__global__ void __launch_bounds__(32 * kWarps2, kWarps2 == kGnWarps ? 1 : 3)
 gn_fwd_cluster(const float* __restrict__ x, const float* __restrict__ scale,
                const float* __restrict__ bias, int B, int C, int G, int N,
-               int segs, int res, float eps, int act, float* __restrict__ y,
-               float* __restrict__ mean, float* __restrict__ rstd) {
+               int segs, int res, int stages, float eps, int act,
+               float* __restrict__ y,
+               float* __restrict__ mean, float* __restrict__ rstd,
+               float* __restrict__ var) {
   extern __shared__ __align__(128) unsigned char smem[];
   Scratch& sc = *reinterpret_cast<Scratch*>(smem);
   float* sx = reinterpret_cast<float*>(smem + kScratch);
   constexpr int kW = kVec ? 4 : 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Share s = my_share(C, G, N, segs, res);
-  const long long slab = static_cast<long long>(s.chans) * N;
-  const long long groups = static_cast<long long>(B) * G;
-  start<kVec>(s, N, segs, x + s.grp0 * slab + s.p0, sx, sc);
-  unsigned parity = 0;
-  for (long long grp = s.grp0; grp < groups; grp += s.step, parity ^= 1) {
-    const float* xs = x + grp * slab + s.p0;
-    if constexpr (kVec) mbar_wait(&sc.bar[warp], parity);
+  const Groups L = groups<kBn>(B, C, G, N);
+  const Share s = my_share(L.rows, N, segs, res);
+  const int ring = kBn ? stages : 1;
+  start<kVec, kBn, kWarps2>(s, N, segs, L.skip, x + s.grp0 * L.step, sx,
+                            sc);
+  unsigned k = 0;   // the block's groups so far
+  for (long long grp = s.grp0; grp < L.count; grp += s.step, ++k) {
+    const unsigned parity = k & 1;
+    const int b = ring == 2 ? parity : 0;   // the ring's buffer of the group
+    float* const bx = sx + b * res;
+    const float* xg = x + grp * L.step;
+    const bool next = grp + s.step < L.count;
+    if (ring == 2 && next)   // the next group into the other buffer
+      copy_group<kVec, kBn, kWarps2>(s, N, segs, L.skip,
+                                     xg + s.step * L.step,
+                                     sx + (b ^ 1) * res,
+                                     &sc.bar[b ^ 1][warp]);
+    // K7-BN's affine: the group's channel's, read ahead of the barriers
+    const float bn_w = kBn ? scale[grp] : 0.f, bn_b = kBn ? bias[grp] : 0.f;
+    wait_held<kVec>(&sc.bar[b][warp], k, ring, ring == 2 && next);
     double sum = 0.0, sq = 0.0;
-    for (long long t = s.t0 + warp; t < s.t1; t += kGnWarps) {
-      const Piece p = piece(s, t, N, segs);
+    for (long long t = s.t0 + warp; t < s.t1; t += kWarps2) {
+      const Piece p = piece<kBn>(s, t, N, segs, L.skip);
+      const float* xs = xg + p.shift;
       if (kVec && p.off >= s.held) {
         for (int j = lane * 4; j < p.len; j += 512) {
           const float* g = xs + p.off + j;
@@ -716,18 +759,25 @@ gn_fwd_cluster(const float* __restrict__ x, const float* __restrict__ scale,
           const float4 v0 = ld4(g), v1 = h1 ? ld4(g + 128) : v0,
                        v2 = h2 ? ld4(g + 256) : v0,
                        v3 = h3 ? ld4(g + 384) : v0;
-          add_stats(v0, sum, sq);
-          if (h1) add_stats(v1, sum, sq);
-          if (h2) add_stats(v2, sum, sq);
-          if (h3) add_stats(v3, sum, sq);
+          stats4<kBn>(v0, sum, sq);
+          if (h1) stats4<kBn>(v1, sum, sq);
+          if (h2) stats4<kBn>(v2, sum, sq);
+          if (h3) stats4<kBn>(v3, sum, sq);
         }
         continue;
       }
 #pragma unroll 4
       for (int j = lane * kW; j < p.len; j += 32 * kW) {
         float v[kW];
-        fetch_first<kVec>(sx, xs, s.held, p.off + j, v);
-        if (!kVec && p.off + j < s.held) store<kVec>(sx, p.off + j, v);
+        fetch<kVec>(bx, xs, s.held, p.off + j, v);
+        if constexpr (kBn) {
+#pragma unroll
+          for (int i = 0; i < kW; ++i) {
+            sum += v[i];
+            sq += static_cast<double>(v[i]) * v[i];
+          }
+          continue;
+        }
         // a lane's kW floats in float, then into the double sums: two
         // conversions to double (a quarter-rate instruction) per kW floats
         float a = v[0], q = __fmul_rn(v[0], v[0]);
@@ -740,48 +790,33 @@ gn_fwd_cluster(const float* __restrict__ x, const float* __restrict__ scale,
         sq += q;
       }
     }
-    sum = warp_sum(sum);
-    sq = warp_sum(sq);
-    if (lane == 0) sc.warp[warp] = make_double2(sum, sq);
-    __syncthreads();
-    if (warp == 0) {
-      double2 w = lane < kGnWarps ? sc.warp[lane] : make_double2(0.0, 0.0);
-      w.x = warp_sum(w.x);
-      w.y = warp_sum(w.y);
-      if (lane == 0) sc.block[parity] = w;
-    }
-    cluster_sync();  // every block's sums of the group are in its memory
-    if (warp == 0) {
-      // lane r reads block r's sums; lane 0 adds them in rank order
-      cg::cluster_group cluster = cg::this_cluster();
-      double2 w = make_double2(0.0, 0.0);
-      if (lane < s.n) w = *cluster.map_shared_rank(&sc.block[parity], lane);
-      double a = 0.0, q = 0.0;
-      for (int r = 0; r < s.n; ++r) {
-        a += __shfl_sync(kFull, w.x, r);
-        q += __shfl_sync(kFull, w.y, r);
-      }
-      const double n = static_cast<double>(slab), md = a / n;
+    const double2 tot = cluster_sum<kWarps2>(sum, sq, sc, parity, s.n,
+                                             kBn && s.n == 1);
+    if (threadIdx.x == 0) {
+      const double n = static_cast<double>(L.rows) * N, md = tot.x / n;
+      const double vd = tot.y / n - md * md;
       const float m = static_cast<float>(md);
-      const float rs = static_cast<float>(1.0 / sqrt(q / n - md * md + eps));
-      if (lane == 0) {
-        sc.stat = make_float2(m, rs);
-        if (s.rank == 0) {
-          mean[grp] = m;
-          rstd[grp] = rs;
-        }
+      const float rs = static_cast<float>(1.0 / sqrt(vd + eps));
+      sc.stat = make_float2(m, rs);
+      if (s.rank == 0) {
+        mean[grp] = m;
+        rstd[grp] = rs;
+        if constexpr (kBn) var[grp] = static_cast<float>(vd);
       }
     }
     __syncthreads();
     const float2 st = sc.stat;
-    const int g = static_cast<int>(grp % G);
-    float* ys = y + grp * slab + s.p0;
-    const bool next = kVec && grp + s.step < groups;
-    if (next) expect(s, N, segs, &sc.bar[warp]);
-    for (long long t = s.t0 + warp; t < s.t1; t += kGnWarps) {
-      const Piece p = piece(s, t, N, segs);
-      const int c = g * s.chans + p.k;
-      const float2 ab = fold(scale[c], bias[c], st.x, st.y);
+    float* yg = y + grp * L.step;
+    // with one buffer, each task of the next group as this one's is done
+    const bool refill = ring == 1 && next;
+    if (kVec && refill) expect<kWarps2>(s, N, segs, &sc.bar[0][warp]);
+    for (long long t = s.t0 + warp; t < s.t1; t += kWarps2) {
+      const Piece p = piece<kBn>(s, t, N, segs, L.skip);
+      const float* xs = xg + p.shift;
+      float* ys = yg + p.shift;
+      const int c = channel<kBn>(grp, p.k, G, L.rows);
+      const float2 ab = kBn ? fold(bn_w, bn_b, st.x, st.y)
+                            : fold(scale[c], bias[c], st.x, st.y);
       if (kVec && p.off >= s.held) {
         for (int j = lane * 4; j < p.len; j += 512) {
           const float* g = xs + p.off + j;
@@ -800,55 +835,74 @@ gn_fwd_cluster(const float* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll 4
       for (int j = lane * kW; j < p.len; j += 32 * kW) {
         float v[kW];
-        fetch<kVec>(sx, xs, s.held, p.off + j, v);
+        fetch<kVec>(bx, xs, s.held, p.off + j, v);
 #pragma unroll
         for (int i = 0; i < kW; ++i) v[i] = act_fwd(__fmaf_rn(v[i], ab.x,
                                                               ab.y), act);
         store<kVec>(ys, p.off + j, v);
       }
       }
-      if (next) {
+      if (refill) {
         __syncwarp();
-        copy_task(s, p, xs + s.step * slab, sx, &sc.bar[warp]);
+        copy_task<kVec>(s, p, xg + s.step * L.step, bx, &sc.bar[0][warp]);
       }
     }
   }
-  cluster_sync();  // no block leaves while another may read its sums
+  // no block leaves while another may read its sums
+  if (!kBn || s.n > 1) cluster_sync();
 }
 
-// K8's first launch: each task's (sum dz, sum dz xhat) to `part` (B C segs),
-// each (b, c) row's to `rowsum` (B C), and dx. The groups, grid, clusters
-// and shared memory as K7's: x is held as there; dy is read from device
-// memory in the first pass and again (mostly from L2) in the second, where
-// dz is recomputed with the first pass's expression.
-template <bool kVec>
-__global__ void __launch_bounds__(kGnThreads, 1)
+// K8's first launch, and K8-BN (one launch) with kBn. The groups, grid,
+// clusters and shared memory as K7's: x is held as there; dy is read from
+// device memory in the first pass and again (mostly from L2) in the
+// second, where dz is recomputed with the first pass's expression. K8
+// writes each task's (sum dz, sum dz xhat) to `part` (B C segs) and reads
+// them back after a cluster barrier, each (b, c) row's to `rowsum` (B C);
+// K8-BN reduces the channel's pair over DSMEM as K7 does its statistics
+// and writes dscale and dbias (rank 0); `stages` buffers of its ring as
+// K7-BN's.
+template <bool kVec, bool kBn, int kWarps2>
+__global__ void __launch_bounds__(32 * kWarps2, kGnWarps / kWarps2)
 gn_bwd_cluster(const float* __restrict__ x, const float* __restrict__ dy,
                const float* __restrict__ scale,
                const float* __restrict__ bias,
                const float* __restrict__ mean,
                const float* __restrict__ rstd, int B, int C, int G, int N,
-               int segs, int res, int act, double2* __restrict__ part,
-               double2* __restrict__ rowsum, float* __restrict__ dx) {
+               int segs, int res, int stages, int act,
+               double2* __restrict__ part,
+               double2* __restrict__ rowsum, float* __restrict__ dx,
+               float* __restrict__ dscale, float* __restrict__ dbias) {
   extern __shared__ __align__(128) unsigned char smem[];
   Scratch& sc = *reinterpret_cast<Scratch*>(smem);
   float* sx = reinterpret_cast<float*>(smem + kScratch);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Share s = my_share(C, G, N, segs, res);
-  const long long slab = static_cast<long long>(s.chans) * N;
-  const long long groups = static_cast<long long>(B) * G;
-  start<kVec>(s, N, segs, x + s.grp0 * slab + s.p0, sx, sc);
-  unsigned parity = 0;
-  for (long long grp = s.grp0; grp < groups; grp += s.step, parity ^= 1) {
-    const float* xs = x + grp * slab + s.p0;
-    const float* ds = dy + grp * slab + s.p0;
+  const Groups L = groups<kBn>(B, C, G, N);
+  const Share s = my_share(L.rows, N, segs, res);
+  const int ring = kBn ? stages : 1;
+  start<kVec, kBn, kWarps2>(s, N, segs, L.skip, x + s.grp0 * L.step, sx,
+                            sc);
+  unsigned k = 0;   // the block's groups so far
+  for (long long grp = s.grp0; grp < L.count; grp += s.step, ++k) {
+    const unsigned parity = k & 1;
+    const int b = ring == 2 ? parity : 0;   // the ring's buffer of the group
+    float* const bx = sx + b * res;
+    const float* xg = x + grp * L.step;
+    const float* dg = dy + grp * L.step;
+    const bool next = grp + s.step < L.count;
+    if (ring == 2 && next)   // the next group into the other buffer
+      copy_group<kVec, kBn, kWarps2>(s, N, segs, L.skip,
+                                     xg + s.step * L.step,
+                                     sx + (b ^ 1) * res,
+                                     &sc.bar[b ^ 1][warp]);
     const float mu = mean[grp], rs = rstd[grp];
-    const int g = static_cast<int>(grp % G);
-    const long long first = grp * s.chans;
-    if constexpr (kVec) mbar_wait(&sc.bar[warp], parity);
-    for (long long t = s.t0 + warp; t < s.t1; t += kGnWarps) {
-      const Piece p = piece(s, t, N, segs);
-      const int c = g * s.chans + p.k;
+    const long long first = grp * L.rows;
+    wait_held<kVec>(&sc.bar[b][warp], k, ring, ring == 2 && next);
+    double w1 = 0.0, w2 = 0.0;   // K8-BN: the lane's sums over its tasks
+    for (long long t = s.t0 + warp; t < s.t1; t += kWarps2) {
+      const Piece p = piece<kBn>(s, t, N, segs, L.skip);
+      const float* xs = xg + p.shift;
+      const float* ds = dg + p.shift;
+      const int c = channel<kBn>(grp, p.k, G, L.rows);
       const float2 ab = fold(scale[c], bias[c], mu, rs);
       double s1 = 0.0, s2 = 0.0;
       if (kVec) {
@@ -860,79 +914,111 @@ gn_bwd_cluster(const float* __restrict__ x, const float* __restrict__ dy,
           const float4 d0 = ld4(e), d1 = h1 ? ld4(e + 128) : d0,
                        d2 = h2 ? ld4(e + 256) : d0,
                        d3 = h3 ? ld4(e + 384) : d0;
-          const float4 v0 = ld4(i < s.held ? sx + i : xs + i);
-          const float4 v1 = h1 ? ld4(i + 128 < s.held ? sx + i + 128
+          const float4 v0 = ld4(i < s.held ? bx + i : xs + i);
+          const float4 v1 = h1 ? ld4(i + 128 < s.held ? bx + i + 128
                                                       : xs + i + 128) : v0;
-          const float4 v2 = h2 ? ld4(i + 256 < s.held ? sx + i + 256
+          const float4 v2 = h2 ? ld4(i + 256 < s.held ? bx + i + 256
                                                       : xs + i + 256) : v0;
-          const float4 v3 = h3 ? ld4(i + 384 < s.held ? sx + i + 384
+          const float4 v3 = h3 ? ld4(i + 384 < s.held ? bx + i + 384
                                                       : xs + i + 384) : v0;
-          add_grads(v0, d0, ab, mu, rs, act, s1, s2);
-          if (h1) add_grads(v1, d1, ab, mu, rs, act, s1, s2);
-          if (h2) add_grads(v2, d2, ab, mu, rs, act, s1, s2);
-          if (h3) add_grads(v3, d3, ab, mu, rs, act, s1, s2);
+          grads4<kBn>(v0, d0, ab, mu, rs, act, s1, s2);
+          if (h1) grads4<kBn>(v1, d1, ab, mu, rs, act, s1, s2);
+          if (h2) grads4<kBn>(v2, d2, ab, mu, rs, act, s1, s2);
+          if (h3) grads4<kBn>(v3, d3, ab, mu, rs, act, s1, s2);
         }
       } else {
-        for (int j = lane; j < p.len; j += 32) {
-          float v[1], dd[1];
-          load<false>(xs, p.off + j, v);
-          load<false>(ds, p.off + j, dd);
-          if (p.off + j < s.held) store<false>(sx, p.off + j, v);
-          float a = 0.f, q = 0.f;
-          add_grad1(v[0], dd[0], ab, mu, rs, act, a, q);
-          s1 += a;
-          s2 += q;
+        // a lane's four floats of dy in flight, then each in order
+        for (int j = lane; j < p.len; j += 128) {
+          const long long i = p.off + j;
+          const bool h1 = j + 32 < p.len, h2 = j + 64 < p.len,
+                     h3 = j + 96 < p.len;
+          const float d0 = ds[i], d1 = h1 ? ds[i + 32] : 0.f,
+                      d2 = h2 ? ds[i + 64] : 0.f, d3 = h3 ? ds[i + 96] : 0.f;
+          grad1<kBn>(fetch1(bx, xs, s.held, i), d0, ab, mu, rs, act, s1,
+                     s2);
+          if (h1) grad1<kBn>(fetch1(bx, xs, s.held, i + 32), d1, ab, mu, rs,
+                             act, s1, s2);
+          if (h2) grad1<kBn>(fetch1(bx, xs, s.held, i + 64), d2, ab, mu, rs,
+                             act, s1, s2);
+          if (h3) grad1<kBn>(fetch1(bx, xs, s.held, i + 96), d3, ab, mu, rs,
+                             act, s1, s2);
         }
       }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) part[first * segs + t] = make_double2(s1, s2);
-    }
-    cluster_sync();  // every task's sums of the group are in `part`
-
-    // m1 and m2: each row's tasks in order (lanes, then the warp's tree),
-    // the rows in order
-    double m1 = 0.0, m2 = 0.0;
-    for (int k0 = 0; k0 < s.chans; k0 += kRowChunk) {
-      const int rows = min(kRowChunk, s.chans - k0);
-      for (int k = warp; k < rows; k += kGnWarps) {
-        const double2* row = part + (first + k0 + k) * segs;
-        double s1 = 0.0, s2 = 0.0;
-        for (int i = lane; i < segs; i += 32) {
-          const double2 q = __ldcg(row + i);
-          s1 += q.x;
-          s2 += q.y;
-        }
+      if constexpr (kBn) {
+        w1 += s1;
+        w2 += s2;
+      } else {
         s1 = warp_sum(s1);
         s2 = warp_sum(s2);
-        if (lane == 0) {
-          const double w = scale[g * s.chans + k0 + k];
-          sc.rows[k] = make_double2(w * s1, w * s2);
-          if (s.rank == 0) rowsum[first + k0 + k] = make_double2(s1, s2);
-        }
+        if (lane == 0) part[first * segs + t] = make_double2(s1, s2);
       }
-      __syncthreads();
+    }
+    if constexpr (kBn) {
+      const double2 tot = cluster_sum<kWarps2>(w1, w2, sc, parity, s.n,
+                                               s.n == 1);
       if (threadIdx.x == 0) {
-        for (int k = 0; k < rows; ++k) {
-          m1 += sc.rows[k].x;
-          m2 += sc.rows[k].y;
+        const double n = static_cast<double>(L.rows) * N;
+        const double w = scale[grp];
+        sc.stat = make_float2(static_cast<float>(w * tot.x / n),
+                              static_cast<float>(w * tot.y / n));
+        if (s.rank == 0) {
+          dbias[grp] = static_cast<float>(tot.x);
+          dscale[grp] = static_cast<float>(tot.y);
         }
       }
       __syncthreads();
+    } else {
+      cluster_sync();  // every task's sums of the group are in `part`
+
+      // m1 and m2: each row's tasks in order (lanes, then the warp's tree),
+      // the rows in order
+      const int g = static_cast<int>(grp % G);
+      double m1 = 0.0, m2 = 0.0;
+      for (int k0 = 0; k0 < L.rows; k0 += kRowChunk) {
+        const int rows = min(kRowChunk, L.rows - k0);
+        for (int k = warp; k < rows; k += kWarps2) {
+          const double2* row = part + (first + k0 + k) * segs;
+          double s1 = 0.0, s2 = 0.0;
+          for (int i = lane; i < segs; i += 32) {
+            const double2 q = __ldcg(row + i);
+            s1 += q.x;
+            s2 += q.y;
+          }
+          s1 = warp_sum(s1);
+          s2 = warp_sum(s2);
+          if (lane == 0) {
+            const double w = scale[g * L.rows + k0 + k];
+            sc.rows[k] = make_double2(w * s1, w * s2);
+            if (s.rank == 0) rowsum[first + k0 + k] = make_double2(s1, s2);
+          }
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          for (int k = 0; k < rows; ++k) {
+            m1 += sc.rows[k].x;
+            m2 += sc.rows[k].y;
+          }
+        }
+        __syncthreads();
+      }
+      if (threadIdx.x == 0) {
+        const double n = static_cast<double>(L.step);
+        sc.stat = make_float2(static_cast<float>(m1 / n),
+                              static_cast<float>(m2 / n));
+      }
+      __syncthreads();
     }
-    if (threadIdx.x == 0) {
-      const double n = static_cast<double>(slab);
-      sc.stat = make_float2(static_cast<float>(m1 / n),
-                            static_cast<float>(m2 / n));
-    }
-    __syncthreads();
     const float2 mg = sc.stat;
-    float* dxs = dx + grp * slab + s.p0;
-    const bool next = kVec && grp + s.step < groups;
-    if (next) expect(s, N, segs, &sc.bar[warp]);
-    for (long long t = s.t0 + warp; t < s.t1; t += kGnWarps) {
-      const Piece p = piece(s, t, N, segs);
-      const int c = g * s.chans + p.k;
+    float* dxg = dx + grp * L.step;
+    // with one buffer, each task of the next group as this one's is done
+    const bool refill = ring == 1 && next;
+    if (kVec && refill) expect<kWarps2>(s, N, segs, &sc.bar[0][warp]);
+    for (long long t = s.t0 + warp; t < s.t1; t += kWarps2) {
+      const Piece p = piece<kBn>(s, t, N, segs, L.skip);
+      const float* xs = xg + p.shift;
+      const float* ds = dg + p.shift;
+      float* dxs = dxg + p.shift;
+      const int c = channel<kBn>(grp, p.k, G, L.rows);
       const float w = scale[c];
       const float2 ab = fold(w, bias[c], mu, rs);
       if (kVec) {
@@ -945,12 +1031,12 @@ gn_bwd_cluster(const float* __restrict__ x, const float* __restrict__ dy,
           const float4 d0 = ld4(e), d1 = h1 ? ld4(e + 128) : d0,
                        d2 = h2 ? ld4(e + 256) : d0,
                        d3 = h3 ? ld4(e + 384) : d0;
-          const float4 v0 = ld4(i < s.held ? sx + i : xs + i);
-          const float4 v1 = h1 ? ld4(i + 128 < s.held ? sx + i + 128
+          const float4 v0 = ld4(i < s.held ? bx + i : xs + i);
+          const float4 v1 = h1 ? ld4(i + 128 < s.held ? bx + i + 128
                                                       : xs + i + 128) : v0;
-          const float4 v2 = h2 ? ld4(i + 256 < s.held ? sx + i + 256
+          const float4 v2 = h2 ? ld4(i + 256 < s.held ? bx + i + 256
                                                       : xs + i + 256) : v0;
-          const float4 v3 = h3 ? ld4(i + 384 < s.held ? sx + i + 384
+          const float4 v3 = h3 ? ld4(i + 384 < s.held ? bx + i + 384
                                                       : xs + i + 384) : v0;
           st4(o, dx4(v0, d0, ab, mu, rs, w, mg, act));
           if (h1) st4(o + 128, dx4(v1, d1, ab, mu, rs, w, mg, act));
@@ -958,40 +1044,171 @@ gn_bwd_cluster(const float* __restrict__ x, const float* __restrict__ dy,
           if (h3) st4(o + 384, dx4(v3, d3, ab, mu, rs, w, mg, act));
         }
       } else {
-        for (int j = lane; j < p.len; j += 32) {
-          float v[1], dd[1];
-          fetch<false>(sx, xs, s.held, p.off + j, v);
-          load<false>(ds, p.off + j, dd);
-          dxs[p.off + j] = dx1(v[0], dd[0], ab, mu, rs, w, mg, act);
+        for (int j = lane; j < p.len; j += 128) {
+          const long long i = p.off + j;
+          const bool h1 = j + 32 < p.len, h2 = j + 64 < p.len,
+                     h3 = j + 96 < p.len;
+          const float d0 = ds[i], d1 = h1 ? ds[i + 32] : 0.f,
+                      d2 = h2 ? ds[i + 64] : 0.f, d3 = h3 ? ds[i + 96] : 0.f;
+          dxs[i] = dx1(fetch1(bx, xs, s.held, i), d0, ab, mu, rs, w, mg, act);
+          if (h1) dxs[i + 32] = dx1(fetch1(bx, xs, s.held, i + 32), d1, ab,
+                                    mu, rs, w, mg, act);
+          if (h2) dxs[i + 64] = dx1(fetch1(bx, xs, s.held, i + 64), d2, ab,
+                                    mu, rs, w, mg, act);
+          if (h3) dxs[i + 96] = dx1(fetch1(bx, xs, s.held, i + 96), d3, ab,
+                                    mu, rs, w, mg, act);
         }
       }
-      if (next) {
+      if (refill) {
         __syncwarp();
-        copy_task(s, p, xs + s.step * slab, sx, &sc.bar[warp]);
+        copy_task<kVec>(s, p, xg + s.step * L.step, bx, &sc.bar[0][warp]);
       }
     }
+  }
+  // no block leaves while another may read its sums
+  if (kBn && s.n > 1) cluster_sync();
+}
+
+// ---------------------------------------------------------------------------
+// K8-BN's passes, for a channel past the largest cluster's shared memory
+
+// The segment of this warp: task blockIdx.x kWarps + warp of the B C segs
+// (row `row` of x, segment `seg`), floats [start, start + len) of x.
+struct Segment {
+  long long row, task, start;
+  int len;
+};
+
+__device__ __forceinline__ bool my_segment(int N, int segs, long long tasks,
+                                           Segment& t) {
+  t.task = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (t.task >= tasks) return false;
+  t.row = t.task / segs;
+  const int seg = static_cast<int>(t.task - t.row * segs);
+  t.start = t.row * N + static_cast<long long>(seg) * kSeg;
+  t.len = min(kSeg, N - seg * kSeg);
+  return true;
+}
+
+// The warp's sums of channel c's B x segs pairs in `part`: lane l adds rows
+// l, l + 32, ... segment by segment, then the lanes' tree; every warp of
+// the channel forms the same bits. Every lane gets them.
+__device__ __forceinline__ double2 channel_sum(const double2* part, int B,
+                                               int C, int segs, int c) {
+  double a = 0.0, q = 0.0;
+  for (int b = threadIdx.x & 31; b < B; b += 32) {
+    const double2* row = part + (static_cast<long long>(b) * C + c) * segs;
+    for (int i = 0; i < segs; ++i) {
+      const double2 v = row[i];
+      a += v.x;
+      q += v.y;
+    }
+  }
+  return make_double2(__shfl_sync(kFull, warp_sum(a), 0),
+                      __shfl_sync(kFull, warp_sum(q), 0));
+}
+
+// K8-BN's first pass: each segment's (sum dz, sum dz xhat) in double.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_partials(const float* __restrict__ x, const float* __restrict__ dy,
+                const float* __restrict__ scale,
+                const float* __restrict__ bias,
+                const float* __restrict__ mean,
+                const float* __restrict__ rstd, int C, int N, int segs,
+                long long tasks, int act, double2* __restrict__ part) {
+  Segment t;
+  if (!my_segment(N, segs, tasks, t)) return;
+  const int lane = threadIdx.x & 31;
+  const int c = static_cast<int>(t.row % C);
+  const float mu = mean[c], rs = rstd[c];
+  const float2 ab = fold(scale[c], bias[c], mu, rs);
+  const float* g = x + t.start;
+  const float* e = dy + t.start;
+  double s1 = 0.0, s2 = 0.0;
+  if constexpr (kVec) {
+    for (int j = lane * 4; j < t.len; j += 512) {
+      const bool h1 = j + 128 < t.len, h2 = j + 256 < t.len,
+                 h3 = j + 384 < t.len;
+      const float4 d0 = ld4(e + j), d1 = h1 ? ld4(e + j + 128) : d0,
+                   d2 = h2 ? ld4(e + j + 256) : d0,
+                   d3 = h3 ? ld4(e + j + 384) : d0;
+      const float4 v0 = ld4(g + j), v1 = h1 ? ld4(g + j + 128) : v0,
+                   v2 = h2 ? ld4(g + j + 256) : v0,
+                   v3 = h3 ? ld4(g + j + 384) : v0;
+      add_grads_exact(v0, d0, ab, mu, rs, act, s1, s2);
+      if (h1) add_grads_exact(v1, d1, ab, mu, rs, act, s1, s2);
+      if (h2) add_grads_exact(v2, d2, ab, mu, rs, act, s1, s2);
+      if (h3) add_grads_exact(v3, d3, ab, mu, rs, act, s1, s2);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = lane; j < t.len; j += 32)
+      add_grad_exact(g[j], e[j], ab, mu, rs, act, s1, s2);
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) part[t.task] = make_double2(s1, s2);
+}
+
+// K8-BN's second pass: the warp's channel's sums from `part` (the warp of
+// the channel's first segment writes dbias and dscale), m1 and m2, then dx.
+// A lane's first four floats (float4s) of x and dy are loaded before the
+// sums are added, the next four as each four are written.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
+          const double2* __restrict__ part, const float* __restrict__ scale,
+          const float* __restrict__ bias, const float* __restrict__ mean,
+          const float* __restrict__ rstd, int B, int C, int N, int segs,
+          long long tasks, int act, float* __restrict__ dx,
+          float* __restrict__ dscale, float* __restrict__ dbias) {
+  Segment t;
+  if (!my_segment(N, segs, tasks, t)) return;
+  constexpr int kW = kVec ? 4 : 1;   // floats a load
+  constexpr int kStep = 128 * kW;    // floats of a lane's four loads
+  const int lane = threadIdx.x & 31;
+  const int c = static_cast<int>(t.row % C);
+  const float* g = x + t.start;
+  const float* e = dy + t.start;
+  float* o = dx + t.start;
+  float v[4][kW], d[4][kW];
+  auto fetch4 = [&](int j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (j + 32 * kW * k < t.len) {
+        load<kVec>(g, j + 32 * kW * k, v[k]);
+        load<kVec>(e, j + 32 * kW * k, d[k]);
+      }
+    }
+  };
+  fetch4(lane * kW);
+  const double2 tot = channel_sum(part, B, C, segs, c);
+  if (t.task == static_cast<long long>(c) * segs && lane == 0) {
+    dbias[c] = static_cast<float>(tot.x);
+    dscale[c] = static_cast<float>(tot.y);
+  }
+  const double r = scale[c] / (static_cast<double>(B) * N);
+  const float2 mg = make_float2(static_cast<float>(r * tot.x),
+                                static_cast<float>(r * tot.y));
+  const float mu = mean[c], rs = rstd[c], w = scale[c];
+  const float2 ab = fold(w, bias[c], mu, rs);
+  for (int j = lane * kW; j < t.len; j += kStep) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (j + 32 * kW * k < t.len) {
+#pragma unroll
+        for (int i = 0; i < kW; ++i)
+          v[k][i] = dx1(v[k][i], d[k][i], ab, mu, rs, w, mg, act);
+        store<kVec>(o, j + 32 * kW * k, v[k]);
+      }
+    }
+    if (j + kStep < t.len) fetch4(j + kStep);
   }
 }
 
 // ---------------------------------------------------------------------------
 // host side
-
-struct Plan {
-  int segs;
-  long long tasks;
-  unsigned blocks;
-  size_t part_bytes;
-};
-
-Plan plan(int B, int C, int N) {
-  Plan p;
-  p.segs = static_cast<int>(cdiv(N, kSeg));
-  p.tasks = static_cast<long long>(B) * C * p.segs;
-  p.blocks = static_cast<unsigned>(cdiv(p.tasks, kWarps));
-  // a whole block's slots, so that a warp past the last task has a slot too
-  p.part_bytes = static_cast<size_t>(p.blocks) * kWarps * sizeof(double2);
-  return p;
-}
 
 bool aligned(const void* p) {
   return reinterpret_cast<size_t>(p) % 16 == 0;
@@ -1005,20 +1222,21 @@ bool bad_shape(int B, int C, int N, int G, int act) {
 // The floats of a group's slab a cluster block can hold.
 constexpr long long kHeldMost = (kSmemMost - kScratch) / 4 / 4 * 4;
 
-// The cluster plan of a group of C/G rows of N floats at n blocks a cluster:
-// the floats a block holds (the widest share, rounded up to whole float4s,
-// at most kHeldMost) and the floats of the group left in device memory.
+// The cluster plan of a group of `rows` rows of N floats at n blocks a
+// cluster: the floats a block holds (the widest share, rounded up to whole
+// float4s, at most kHeldMost) and the floats of the group left in device
+// memory.
 struct GnPlan {
   int n, segs;
   long long tasks, res, remainder;
   size_t smem;
 };
 
-GnPlan gn_plan_at(int C, int N, int G, int n) {
+GnPlan plan_at(long long rows, int N, int n) {
   GnPlan p;
   p.n = n;
   p.segs = static_cast<int>(cdiv(N, kTask));
-  p.tasks = static_cast<long long>(C / G) * p.segs;
+  p.tasks = rows * p.segs;
   long long len[kMostCluster], widest = 0;
   for (int r = 0; r < n; ++r) {
     len[r] = task_start((r + 1) * p.tasks / n, N, p.segs)
@@ -1036,10 +1254,10 @@ GnPlan gn_plan_at(int C, int N, int G, int n) {
 
 // The smallest cluster (1, 2, 4, ... most blocks) whose blocks hold the
 // whole slab; `most` where none does.
-GnPlan gn_choose(int C, int N, int G, int most) {
+GnPlan choose(long long rows, int N, int most) {
   int n = 1;
-  while (n < most && gn_plan_at(C, N, G, n).remainder > 0) n *= 2;
-  return gn_plan_at(C, N, G, n);
+  while (n < most && plan_at(rows, N, n).remainder > 0) n *= 2;
+  return plan_at(rows, N, n);
 }
 
 bool cluster_size_ok(int n) {
@@ -1047,12 +1265,12 @@ bool cluster_size_ok(int n) {
 }
 
 using FwdKernel = void (*)(const float*, const float*, const float*, int,
-                           int, int, int, int, int, float, int, float*,
-                           float*, float*);
+                           int, int, int, int, int, int, float, int, float*,
+                           float*, float*, float*);
 using BwdKernel = void (*)(const float*, const float*, const float*,
                            const float*, const float*, const float*, int, int,
-                           int, int, int, int, int, double2*, double2*,
-                           float*);
+                           int, int, int, int, int, int, double2*, double2*,
+                           float*, float*, float*);
 
 // Set a cluster kernel's attributes (dynamic shared memory up to
 // kSmemMost, the non-portable cluster size) once a device.
@@ -1073,17 +1291,17 @@ int prepare(const void* kernel) {
 }
 
 // The launch of a cluster kernel: `blocks` blocks in clusters of n,
-// kGnThreads threads, `smem` bytes of dynamic shared memory.
+// `threads` threads, `smem` bytes of dynamic shared memory.
 struct GnLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   int err = 0;
 
   GnLaunch(const void* kernel, long long blocks, int n, size_t smem,
-           cudaStream_t s) {
+           cudaStream_t s, int threads = kGnThreads) {
     err = prepare(kernel);
     cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-    cfg.blockDim = dim3(kGnThreads);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1094,6 +1312,85 @@ struct GnLaunch {
     cfg.numAttrs = 1;
   }
 };
+
+// info[0..7] of a cluster plan (see gn_plan) for `groups` groups, blocks
+// of `threads` threads; the clusters the card holds at once of the forward
+// and backward kernels (their blocks with `fwd_smem` and `bwd_smem` bytes
+// of shared memory).
+int plan_info(const GnPlan& p, long long groups, int threads,
+              const void* fwd, size_t fwd_smem, const void* bwd,
+              size_t bwd_smem, long long* info) {
+  info[0] = p.n;
+  info[1] = p.res;
+  info[2] = static_cast<long long>(p.smem);
+  info[3] = threads;
+  info[4] = p.tasks;
+  info[5] = p.remainder;
+  info[6] = groups * p.n;
+  info[7] = 0;
+  const void* kernels[] = {fwd, bwd};
+  const size_t smem[] = {fwd_smem, bwd_smem};
+  for (int k = 0; k < 2; ++k) {
+    const GnLaunch l(kernels[k], p.n, p.n, smem[k], 0, threads);
+    if (l.err) return l.err;
+    int clusters = 0;
+    const int err = static_cast<int>(cudaOccupancyMaxActiveClusters(
+        &clusters, kernels[k], &l.cfg));
+    if (err) return err;
+    info[7] = k == 0 || clusters < info[7] ? clusters : info[7];
+  }
+  return 0;
+}
+
+// flash-BN's routes: one block a channel, a cluster that holds it, a
+// cluster that holds part of it (the rest read twice from device memory),
+// or the two passes through device memory.
+enum Route { kBlock = 0, kCluster = 1, kPartial = 2, kPasses = 3 };
+// The route of a channel past the largest cluster: K7-BN's, and K8-BN's;
+// K8-BN takes the passes off the float4 grid too (N % 4 != 0), where its
+// 4-byte cluster kernel lost to them on an H100 (PERF.md)
+constexpr int kBnFwdPast = kPartial;
+constexpr int kBnBwdPast = kPasses;
+
+// Where one block takes a channel of at most kGnWarps tasks, K7-BN and
+// K8-BN run blocks of kGnThreads / 2 threads, two an SM, so that one
+// block's reduction and barriers overlap the other's loads and writes; and
+// each block keeps a ring of two buffers (the next channel copied in while
+// this one is reduced and written) where two such blocks fit an SM's
+// kSmemSm bytes of shared memory (kSmemReserved of them the system's a
+// block). Elsewhere blocks of kGnThreads, one buffer refilled task by
+// task.
+struct BnRing {
+  int warps, stages;
+  size_t smem;
+};
+
+BnRing bn_ring(const GnPlan& p) {
+  BnRing r = {kGnWarps, 1, p.smem};
+  if (p.n > 1 || p.tasks > kGnWarps) return r;
+  r.warps = kGnWarps / 2;
+  const size_t two = kScratch + 8 * static_cast<size_t>(p.res);
+  if (2 * (two + kSmemReserved) <= kSmemSm) {
+    r.stages = 2;
+    r.smem = two;
+  }
+  return r;
+}
+
+template <bool kVec>
+FwdKernel bn_fwd_kernel(int warps) {
+  return warps == kGnWarps ? gn_fwd_cluster<kVec, true, kGnWarps>
+                           : gn_fwd_cluster<kVec, true, kGnWarps / 2>;
+}
+
+template <bool kVec>
+BwdKernel bn_bwd_kernel(int warps) {
+  return warps == kGnWarps ? gn_bwd_cluster<kVec, true, kGnWarps>
+                           : gn_bwd_cluster<kVec, true, kGnWarps / 2>;
+}
+
+// The passes' segments a row.
+int bn_segs(int N) { return static_cast<int>(cdiv(N, kSeg)); }
 
 }  // namespace
 
@@ -1108,28 +1405,13 @@ extern "C" int gn_plan(int B, int C, int N, int G, int most,
                        long long* info) {
   if (bad_shape(B, C, N, G, kNone) || !cluster_size_ok(most))
     return cudaErrorInvalidValue;
-  const GnPlan p = gn_choose(C, N, G, most);
-  info[0] = p.n;
-  info[1] = p.res;
-  info[2] = static_cast<long long>(p.smem);
-  info[3] = kGnThreads;
-  info[4] = p.tasks;
-  info[5] = p.remainder;
-  info[6] = static_cast<long long>(B) * G * p.n;
-  info[7] = 0;
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(gn_fwd_cluster<true>),
-      reinterpret_cast<const void*>(gn_bwd_cluster<true>)};
-  for (int k = 0; k < 2; ++k) {
-    const GnLaunch l(kernels[k], p.n, p.n, p.smem, 0);
-    if (l.err) return l.err;
-    int clusters = 0;
-    const int err = static_cast<int>(cudaOccupancyMaxActiveClusters(
-        &clusters, kernels[k], &l.cfg));
-    if (err) return err;
-    info[7] = k == 0 || clusters < info[7] ? clusters : info[7];
-  }
-  return 0;
+  const GnPlan p = choose(C / G, N, most);
+  return plan_info(
+      p, static_cast<long long>(B) * G, kGnThreads,
+      reinterpret_cast<const void*>(gn_fwd_cluster<true, false, kGnWarps>),
+      p.smem,
+      reinterpret_cast<const void*>(gn_bwd_cluster<true, false, kGnWarps>),
+      p.smem, info);
 }
 
 // K7: y (B, C, N), mean and rstd (B, G); one launch of `clusters` clusters
@@ -1142,17 +1424,19 @@ extern "C" int gn_fwd(const float* x, const float* scale, const float* bias,
   if (bad_shape(B, C, N, G, act) || !cluster_size_ok(cluster)
       || clusters < 1 || clusters > static_cast<long long>(B) * G)
     return cudaErrorInvalidValue;
-  const GnPlan p = gn_plan_at(C, N, G, cluster);
+  const GnPlan p = plan_at(C / G, N, cluster);
   if (p.tasks < cluster) return cudaErrorInvalidValue;
   const bool vec = N % 4 == 0 && aligned(x) && aligned(y);
-  const FwdKernel kernel = vec ? gn_fwd_cluster<true> : gn_fwd_cluster<false>;
+  const FwdKernel kernel = vec ? gn_fwd_cluster<true, false, kGnWarps>
+                               : gn_fwd_cluster<false, false, kGnWarps>;
   const GnLaunch l(reinterpret_cast<const void*>(kernel),
                    static_cast<long long>(clusters) * cluster, cluster,
                    p.smem, stream);
   if (l.err) return l.err;
   return static_cast<int>(cudaLaunchKernelEx(
       &l.cfg, kernel, x, scale, bias, B, C, G, N, p.segs,
-      static_cast<int>(p.res), eps, act, y, mean, rstd));
+      static_cast<int>(p.res), 1, eps, act, y, mean, rstd,
+      static_cast<float*>(nullptr)));
 }
 
 // Bytes of the `work` buffer gn_bwd takes: each task's and each (b, c)
@@ -1173,92 +1457,131 @@ extern "C" int gn_bwd(const float* x, const float* dy, const float* scale,
   if (bad_shape(B, C, N, G, act) || !cluster_size_ok(cluster)
       || clusters < 1 || clusters > static_cast<long long>(B) * G)
     return cudaErrorInvalidValue;
-  const GnPlan p = gn_plan_at(C, N, G, cluster);
+  const GnPlan p = plan_at(C / G, N, cluster);
   if (p.tasks < cluster) return cudaErrorInvalidValue;
   auto* part = static_cast<double2*>(work);
   auto* rowsum = part + static_cast<size_t>(B) * C * p.segs;
   const bool vec = N % 4 == 0 && aligned(x) && aligned(dy) && aligned(dx);
-  const BwdKernel kernel = vec ? gn_bwd_cluster<true> : gn_bwd_cluster<false>;
+  const BwdKernel kernel = vec ? gn_bwd_cluster<true, false, kGnWarps>
+                               : gn_bwd_cluster<false, false, kGnWarps>;
   const GnLaunch l(reinterpret_cast<const void*>(kernel),
                    static_cast<long long>(clusters) * cluster, cluster,
                    p.smem, stream);
   if (l.err) return l.err;
   int err = static_cast<int>(cudaLaunchKernelEx(
       &l.cfg, kernel, x, dy, scale, bias, mean, rstd, B, C, G, N, p.segs,
-      static_cast<int>(p.res), act, part, rowsum, dx));
+      static_cast<int>(p.res), 1, act, part, rowsum, dx,
+      static_cast<float*>(nullptr), static_cast<float*>(nullptr)));
   if (err) return err;
   gn_bwd_channels<<<static_cast<unsigned>(cdiv(C, kThreads)), kThreads, 0,
                     stream>>>(rowsum, B, C, dscale, dbias);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of the `work` buffer bn_fwd and bn_bwd take.
-extern "C" size_t bn_workspace(int B, int C, int N) {
-  const Plan p = plan(B, C, N);
-  const size_t fwd = static_cast<size_t>(B) * C * sizeof(float2);
-  const size_t bwd = static_cast<size_t>(C) * sizeof(float2);
-  return p.part_bytes + (fwd > bwd ? fwd : bwd);
+// The plan of K7-BN and K8-BN at (B, C, N), the cluster at most `most`
+// blocks: info[0..7] as gn_plan's for the C channels (a group of B rows;
+// threads a block and the clusters the card holds at once as bn_ring sets
+// the blocks), then info[8] and info[9], K7-BN's and K8-BN's route (Route:
+// kBlock where one block holds the channel, kCluster where a cluster of 2
+// to `most` does, past it kBnFwdPast and kBnBwdPast; K8-BN's kPasses off
+// the float4 grid), info[10], the bytes
+// of the `work` buffer the routes take (the passes' segment sums; else 0),
+// and info[11] and info[12], the buffers of a block's ring and its dynamic
+// shared memory in bytes.
+extern "C" int bn_plan(int B, int C, int N, int most, long long* info) {
+  if (bad_shape(B, C, N, 1, kNone) || !cluster_size_ok(most))
+    return cudaErrorInvalidValue;
+  const GnPlan p = choose(B, N, most);
+  const BnRing r = bn_ring(p);
+  const int err = plan_info(
+      p, C, 32 * r.warps,
+      reinterpret_cast<const void*>(bn_fwd_kernel<true>(r.warps)), r.smem,
+      reinterpret_cast<const void*>(bn_bwd_kernel<true>(r.warps)), r.smem,
+      info);
+  if (err) return err;
+  const int held = p.remainder ? -1 : p.n == 1 ? kBlock : kCluster;
+  info[8] = held < 0 ? kBnFwdPast : held;
+  info[9] = held < 0 ? kBnBwdPast : N % 4 ? kPasses : held;
+  info[10] = info[8] == kPasses || info[9] == kPasses
+                 ? static_cast<long long>(B) * C * bn_segs(N)
+                       * static_cast<long long>(sizeof(double2))
+                 : 0;
+  info[11] = r.stages;
+  info[12] = static_cast<long long>(r.smem);
+  return 0;
 }
 
-// K7-BN: y (B, C, N), mean, var and rstd (C): 3 launches.
+// K7-BN: y (B, C, N), mean, var and rstd (C), on `route` (bn_plan's: any
+// but kPasses): one launch of `clusters` clusters (at most C) of `cluster`
+// blocks, each walking the channels clusters apart. Returns a CUDA error
+// code, or 0.
 extern "C" int bn_fwd(const float* x, const float* scale, const float* bias,
                       float* y, float* mean, float* var, float* rstd,
-                      void* work, int B, int C, int N, float eps, int act,
-                      cudaStream_t stream) {
-  if (bad_shape(B, C, N, C, act)) return cudaErrorInvalidValue;
-  const Plan p = plan(B, C, N);
-  auto* part = static_cast<double2*>(work);
-  auto* coef = reinterpret_cast<float2*>(static_cast<char*>(work)
-                                         + p.part_bytes);
+                      int B, int C, int N, float eps, int act, int route,
+                      int cluster, int clusters, cudaStream_t stream) {
+  if (bad_shape(B, C, N, 1, act) || route < kBlock || route >= kPasses)
+    return cudaErrorInvalidValue;
   const bool vec = N % 4 == 0 && aligned(x) && aligned(y);
-  if (vec) {
-    gn_stats<true><<<p.blocks, kThreads, 0, stream>>>(x, N, p.segs, p.tasks,
-                                                      part);
-  } else {
-    gn_stats<false><<<p.blocks, kThreads, 0, stream>>>(x, N, p.segs,
-                                                       p.tasks, part);
-  }
-  bn_merge<<<static_cast<unsigned>(cdiv(C, kWarps)), kThreads, 0, stream>>>(
-      part, scale, bias, B, C, p.segs, static_cast<double>(B) * N, eps, mean,
-      var, rstd, coef);
-  if (vec) {
-    gn_apply<true><<<p.blocks, kThreads, 0, stream>>>(x, coef, N, p.segs,
-                                                      p.tasks, act, y);
-  } else {
-    gn_apply<false><<<p.blocks, kThreads, 0, stream>>>(x, coef, N, p.segs,
-                                                       p.tasks, act, y);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (!cluster_size_ok(cluster) || clusters < 1 || clusters > C)
+    return cudaErrorInvalidValue;
+  const GnPlan p = plan_at(B, N, cluster);
+  if (p.tasks < cluster) return cudaErrorInvalidValue;
+  const BnRing r = bn_ring(p);
+  const FwdKernel kernel = vec ? bn_fwd_kernel<true>(r.warps)
+                               : bn_fwd_kernel<false>(r.warps);
+  const GnLaunch l(reinterpret_cast<const void*>(kernel),
+                   static_cast<long long>(clusters) * cluster, cluster,
+                   r.smem, stream, 32 * r.warps);
+  if (l.err) return l.err;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &l.cfg, kernel, x, scale, bias, B, C, C, N, p.segs,
+      static_cast<int>(p.res), r.stages, eps, act, y, mean, rstd, var));
 }
 
 // K8-BN: dx (B, C, N), dscale and dbias (C) from x, dy and the forward's
-// per-channel mean and rstd: 3 launches.
+// per-channel mean and rstd, on `route` as bn_fwd's: one launch, or two.
 extern "C" int bn_bwd(const float* x, const float* dy, const float* scale,
                       const float* bias, const float* mean, const float* rstd,
                       float* dx, float* dscale, float* dbias, void* work,
-                      int B, int C, int N, int act, cudaStream_t stream) {
-  if (bad_shape(B, C, N, C, act)) return cudaErrorInvalidValue;
-  const Plan p = plan(B, C, N);
-  auto* part = static_cast<double2*>(work);
-  auto* m = reinterpret_cast<float2*>(static_cast<char*>(work)
-                                      + p.part_bytes);
+                      int B, int C, int N, int act, int route, int cluster,
+                      int clusters, cudaStream_t stream) {
+  if (bad_shape(B, C, N, 1, act) || route < kBlock || route > kPasses)
+    return cudaErrorInvalidValue;
   const bool vec = N % 4 == 0 && aligned(x) && aligned(dy) && aligned(dx);
-  if (vec) {
-    gn_bwd_partials<true><<<p.blocks, kThreads, 0, stream>>>(
-        x, dy, scale, bias, mean, rstd, C, N, p.segs, p.tasks, act, part);
-  } else {
-    gn_bwd_partials<false><<<p.blocks, kThreads, 0, stream>>>(
-        x, dy, scale, bias, mean, rstd, C, N, p.segs, p.tasks, act, part);
+  if (route == kPasses) {
+    const int segs = bn_segs(N);
+    const long long tasks = static_cast<long long>(B) * C * segs;
+    const unsigned blocks = static_cast<unsigned>(cdiv(tasks, kWarps));
+    auto* part = static_cast<double2*>(work);
+    if (vec) {
+      bn_bwd_partials<true><<<blocks, kThreads, 0, stream>>>(
+          x, dy, scale, bias, mean, rstd, C, N, segs, tasks, act, part);
+      bn_bwd_dx<true><<<blocks, kThreads, 0, stream>>>(
+          x, dy, part, scale, bias, mean, rstd, B, C, N, segs, tasks, act,
+          dx, dscale, dbias);
+    } else {
+      bn_bwd_partials<false><<<blocks, kThreads, 0, stream>>>(
+          x, dy, scale, bias, mean, rstd, C, N, segs, tasks, act, part);
+      bn_bwd_dx<false><<<blocks, kThreads, 0, stream>>>(
+          x, dy, part, scale, bias, mean, rstd, B, C, N, segs, tasks, act,
+          dx, dscale, dbias);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  bn_bwd_channels<<<static_cast<unsigned>(cdiv(C, kWarps)), kThreads, 0,
-                    stream>>>(part, scale, B, C, p.segs,
-                              static_cast<double>(B) * N, dscale, dbias, m);
-  if (vec) {
-    gn_bwd_dx<true><<<p.blocks, kThreads, 0, stream>>>(
-        x, dy, scale, bias, mean, rstd, m, C, N, p.segs, p.tasks, act, dx);
-  } else {
-    gn_bwd_dx<false><<<p.blocks, kThreads, 0, stream>>>(
-        x, dy, scale, bias, mean, rstd, m, C, N, p.segs, p.tasks, act, dx);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (!cluster_size_ok(cluster) || clusters < 1 || clusters > C)
+    return cudaErrorInvalidValue;
+  const GnPlan p = plan_at(B, N, cluster);
+  if (p.tasks < cluster) return cudaErrorInvalidValue;
+  const BnRing r = bn_ring(p);
+  const BwdKernel kernel = vec ? bn_bwd_kernel<true>(r.warps)
+                               : bn_bwd_kernel<false>(r.warps);
+  const GnLaunch l(reinterpret_cast<const void*>(kernel),
+                   static_cast<long long>(clusters) * cluster, cluster,
+                   r.smem, stream, 32 * r.warps);
+  if (l.err) return l.err;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &l.cfg, kernel, x, dy, scale, bias, mean, rstd, B, C, C, N, p.segs,
+      static_cast<int>(p.res), r.stages, act,
+      static_cast<double2*>(nullptr),
+      static_cast<double2*>(nullptr), dx, dscale, dbias));
 }

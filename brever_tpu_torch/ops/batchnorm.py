@@ -22,7 +22,12 @@ update are detached (``gn_act_stats_pallas`` drops their cotangents without
 saying so). A tensor on the CPU takes the plain versions; a CUDA tensor
 launches the kernels (``csrc/groupnorm.cu`` ``bn_fwd``: K7-BN, replacing
 ``_fwd_kernel``; ``bn_bwd``: K8-BN, replacing ``_bwd_kernel``) or raises.
-There is no channel cap and no byte floor: the JAX package's
+Both are K7's and K8's cluster kernels over the C channels, each channel's
+B rows held in the shared memory of one cluster of 1-16 blocks: one launch
+each. A channel past a 16-block cluster takes the route :func:`bn_plan`
+names for it (part held, or two passes through device memory);
+:func:`plan_info` checks the library's plan against that mirror once a
+shape. There is no channel cap and no byte floor: the JAX package's
 ``_FUSED_BN_MAX_C`` and ``_FUSED_BN_MIN_BYTES`` are Mosaic's.
 
 The plain versions: :func:`batch_norm_act_reference`, the XLA branch's
@@ -34,6 +39,7 @@ x and the statistics.
 import torch
 
 from . import build
+from . import groupnorm as gn
 from .groupnorm import ACTS, _act, _act_grad
 
 
@@ -205,23 +211,118 @@ def _check(x, scale, bias, act):
     return batch, channels, n
 
 
+#: csrc/groupnorm.cu's flash-BN routes (``enum Route``), by code: one
+#: block a channel, a cluster that holds it, a cluster that holds part of
+#: it, two passes through device memory
+ROUTES = ('block', 'cluster', 'partial', 'passes')
+#: the routes of a channel past the largest cluster, K7-BN's and K8-BN's
+#: (``kBnFwdPast``, ``kBnBwdPast``); K8-BN's off the float4 grid too
+_FWD_PAST, _BWD_PAST = 'partial', 'passes'
+#: floats of a row one warp of the passes takes (``kSeg``); the shared
+#: memory of an SM, and of it the system's a block (``kSmemSm``,
+#: ``kSmemReserved``)
+_SEG, _SMEM_SM, _SMEM_RESERVED = 4096, 233472, 1024
+
+
+def channel_shares(batch, n, cluster):
+    """``(first float, floats)`` of each block's share of a channel (its B
+    rows of N floats end to end) at ``cluster`` blocks a cluster: block r
+    takes tasks ``[r T / n, (r + 1) T / n)`` of the channel's T, as K7's
+    blocks take a group's."""
+    return gn.group_shares(batch, n, 1, cluster)
+
+
+def _plan_at(batch, channels, n, cluster):
+    widths = [w for _, w in channel_shares(batch, n, cluster)]
+    cap = (gn._SMEM_MOST - gn._SCRATCH) // 4 // 4 * 4
+    held = min(-(-max(widths) // 4) * 4, cap)
+    remainder = sum(max(w - held, 0) for w in widths)
+    route = 'cluster' if cluster > 1 else 'block'
+    fwd, bwd = (_FWD_PAST, _BWD_PAST) if remainder else (route, route)
+    if n % 4:
+        bwd = 'passes'
+    tasks = batch * -(-n // gn._TASK)
+    smem = gn._SCRATCH + 4 * held
+    two = gn._SCRATCH + 8 * held   # a ring of two buffers
+    half = cluster == 1 and tasks <= gn._THREADS // 32
+    stages = 2 if half and 2 * (two + _SMEM_RESERVED) <= _SMEM_SM else 1
+    return {'cluster': cluster, 'resident': held, 'smem': smem,
+            'threads': gn._THREADS // 2 if half else gn._THREADS,
+            'tasks': tasks, 'remainder': remainder,
+            'blocks': channels * cluster, 'route_fwd': fwd,
+            'route_bwd': bwd,
+            'workspace': (batch * channels * -(-n // _SEG) * 16
+                          if bwd == 'passes' else 0),
+            'stages': stages, 'block_smem': two if stages == 2 else smem}
+
+
+def bn_plan(batch, channels, n, most=gn._MOST_CLUSTER):
+    """K7-BN's and K8-BN's plan at ``(B, C, N)``, as ``bn_plan`` of
+    csrc/groupnorm.cu gives it: K7's cluster plan (:func:`.groupnorm.
+    gn_plan`) over a channel's B rows, the smallest cluster (1, 2, 4, ...
+    ``most`` blocks) whose blocks hold their shares of the channel, a
+    cluster a channel; each kernel's route (``route_fwd``, ``route_bwd``):
+    ``block`` or ``cluster`` where the channel is held, else ``partial``
+    (K7-BN) and ``passes`` (K8-BN), and ``passes`` in K8-BN wherever N is
+    off the float4 grid; the bytes of the passes' workspace
+    (``workspace``, 0 off the passes). Where one block takes a channel of
+    at most 16 tasks (``bn_ring``) its blocks have half the threads (two or
+    three an SM) and a ring of two buffers (``stages``; the next channel
+    copied in while this one is reduced and written) where two such blocks
+    fit an SM's shared memory; ``block_smem``: a block's dynamic shared
+    memory."""
+    cluster = 1
+    while cluster < most and _plan_at(batch, channels, n,
+                                      cluster)['remainder']:
+        cluster *= 2
+    return _plan_at(batch, channels, n, cluster)
+
+
+#: the library's plan at each (B, C, N) checked so far
+_plans = {}
+
+_PLAN_KEYS = ('cluster', 'resident', 'smem', 'threads', 'tasks', 'remainder',
+              'blocks', 'clusters', 'route_fwd', 'route_bwd', 'workspace',
+              'stages', 'block_smem')
+
+
+def plan_info(batch, channels, n):
+    """The library's plan (``bn_plan``, with ``clusters``: how many
+    clusters of its size the card holds at once, of K7-BN's and K8-BN's
+    kernels alike); raises where it is not the wrapper's mirror
+    :func:`bn_plan` (:func:`.groupnorm.library_plan`)."""
+    key = (batch, channels, n)
+    if key not in _plans:
+        _plans[key] = gn.library_plan(
+            'bn_plan', key, bn_plan, _PLAN_KEYS, 'batch_norm_act',
+            {'route_fwd': ROUTES, 'route_bwd': ROUTES})
+    return _plans[key]
+
+
+def _route_args(plan, route, channels):
+    """``(route code, cluster, clusters)`` of a launch: as many clusters as
+    the card holds at once, at most one a channel."""
+    return (ROUTES.index(route), plan['cluster'],
+            min(channels, plan['clusters']))
+
+
 def _launch_fwd(x, scale, bias, eps, act):
     lib = build.load_library()
     batch, channels, n = _check(x, scale, bias, act)
     device = x.device
     with torch.cuda.device(device):
+        plan = plan_info(batch, channels, n)
+        route = plan['route_fwd']
         y = torch.empty_like(x)
-        mean = torch.empty(channels, dtype=torch.float32, device=device)
-        var = torch.empty_like(mean)
-        rstd = torch.empty_like(mean)
-        work = torch.empty(lib.bn_workspace(batch, channels, n),
-                           dtype=torch.uint8, device=device)
+        # mean, var and rstd: the rows of one allocation
+        stats = torch.empty(3, channels, dtype=torch.float32, device=device)
+        ptr = stats.data_ptr()
         build.check(lib, lib.bn_fwd(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), rstd.data_ptr(),
-            work.data_ptr(), batch, channels, n, eps, ACTS[act],
+            ptr, ptr + 4 * channels, ptr + 8 * channels, batch, channels, n,
+            eps, ACTS[act], *_route_args(plan, route, channels),
             torch.cuda.current_stream(device).cuda_stream), 'bn_fwd')
-    return y, mean, var, rstd
+    return (y, *stats.unbind())
 
 
 def _launch_bwd(x, dy, scale, bias, mean, rstd, act):
@@ -232,15 +333,20 @@ def _launch_bwd(x, dy, scale, bias, mean, rstd, act):
     _tensor(mean, 'mean', device, (channels,))
     _tensor(rstd, 'rstd', device, (channels,))
     with torch.cuda.device(device):
+        plan = plan_info(batch, channels, n)
+        route = plan['route_bwd']
         dx = torch.empty_like(x)
-        dscale = torch.empty(channels, dtype=torch.float32, device=device)
-        dbias = torch.empty_like(dscale)
-        work = torch.empty(lib.bn_workspace(batch, channels, n),
-                           dtype=torch.uint8, device=device)
+        # dscale and dbias: the rows of one allocation
+        grads = torch.empty(2, channels, dtype=torch.float32, device=device)
+        ptr = grads.data_ptr()
+        # the passes' segment sums
+        work = (torch.empty(plan['workspace'], dtype=torch.uint8,
+                            device=device) if route == 'passes' else None)
         build.check(lib, lib.bn_bwd(
             x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), work.data_ptr(), batch,
-            channels, n, ACTS[act],
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), ptr,
+            ptr + 4 * channels, None if work is None else work.data_ptr(),
+            batch, channels, n, ACTS[act],
+            *_route_args(plan, route, channels),
             torch.cuda.current_stream(device).cuda_stream), 'bn_bwd')
-    return dx, dscale, dbias
+    return (dx, *grads.unbind())

@@ -408,6 +408,36 @@ def gn_plan(batch, channels, n, num_groups, most=_MOST_CLUSTER):
     return _plan_at(batch, channels, n, num_groups, cluster)
 
 
+def library_plan(entry, key, mirror, keys, what, names=None):
+    """The plan that the library's ``entry`` gives at ``key`` (its values
+    ``keys``; ``names`` turns a key's code into the mirror's name), with
+    the mirror's other keys, and ``clusters``: how many clusters of its
+    size the card holds at once of the forward's and the backward's
+    kernels alike. Raises where it is not the wrapper's ``mirror(*key,
+    most)``. Where the card cannot place a cluster of the plan's size, the
+    plan at half that size, and so on."""
+    lib = build.load_library()
+    most = _MOST_CLUSTER
+    while True:
+        info = (ctypes.c_longlong * len(keys))()
+        build.check(lib, getattr(lib, entry)(*key, most, info),
+                    f'{entry}{key}')
+        want = mirror(*key, most)
+        out = {**want, **dict(zip(keys, info))}
+        for k, table in (names or {}).items():
+            out[k] = table[out[k]]
+        if {k: v for k, v in out.items() if k != 'clusters'} != want:
+            raise RuntimeError(f'{what}: the library\'s plan at {key} is '
+                               f'{out}, the wrapper\'s {want}')
+        if out['clusters'] or out['cluster'] == 1:
+            break
+        most = out['cluster'] // 2
+    if not out['clusters']:
+        raise RuntimeError(f'{what}: the card places no block of '
+                           f'{out["smem"]} bytes of shared memory')
+    return out
+
+
 #: the library's plan at each (B, C, N, G) checked so far
 _plans = {}
 
@@ -418,30 +448,12 @@ _PLAN_KEYS = ('cluster', 'resident', 'smem', 'threads', 'tasks', 'remainder',
 def plan_info(batch, channels, n, num_groups):
     """The library's plan (``gn_plan``, with ``clusters``: how many
     clusters of its size the card holds at once, of K7's and K8's kernels
-    alike); raises where it is not the wrapper's mirror :func:`gn_plan`.
-    Where the card cannot place a cluster of the plan's size, the plan at
-    half that size, and so on."""
+    alike); raises where it is not the wrapper's mirror :func:`gn_plan`
+    (:func:`library_plan`)."""
     key = (batch, channels, n, num_groups)
     if key not in _plans:
-        lib = build.load_library()
-        most = _MOST_CLUSTER
-        while True:
-            info = (ctypes.c_longlong * len(_PLAN_KEYS))()
-            build.check(lib, lib.gn_plan(*key, most, info), f'gn_plan{key}')
-            out = dict(zip(_PLAN_KEYS, info))
-            want = gn_plan(*key, most)
-            out['route'] = want['route']
-            if {k: v for k, v in out.items() if k != 'clusters'} != want:
-                raise RuntimeError(
-                    f'group_norm: the library\'s plan at {key} is {out}, '
-                    f'the wrapper\'s {want}')
-            if out['clusters'] or out['cluster'] == 1:
-                break
-            most = out['cluster'] // 2
-        if not out['clusters']:
-            raise RuntimeError(f'group_norm: the card places no block of '
-                               f'{out["smem"]} bytes of shared memory')
-        _plans[key] = out
+        _plans[key] = library_plan('gn_plan', key, gn_plan, _PLAN_KEYS,
+                                   'group_norm')
     return _plans[key]
 
 

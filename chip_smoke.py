@@ -2052,12 +2052,14 @@ def dccrn_phases(device, card):
 
 
 MANNER_PARAMS = 21_253_921
-#: MANNER's BatchNorm shape classes at 16 x 4 s (padded length 64,084):
-#: the full-resolution level (in_bn, dec_0_up_bn), level 0's ResCon, the
-#: widest (dec_3_rescon pw1_bn, C = 1920 at 249) and the local attention's
-#: C = 1 gate over 160 chunks of 64
-BN_CASES = [(16, 60, 64084), (16, 120, 16020), (16, 1920, 249),
-            (160, 1, 64)]
+#: MANNER's BatchNorm shape classes at 16 x 4 s (padded length 64,084),
+#: one of each route of the flash-BN plan: the full-resolution level
+#: (in_bn, dec_0_up_bn; past a 16-block cluster), level 0's ResCon (an
+#: 8-block cluster), level 1's (a 2-block cluster), a level-2 one (one
+#: block), the widest (dec_3_rescon pw1_bn, C = 1920 at 249: one block,
+#: 4-byte loads) and the local attention's C = 1 gate over 160 chunks of 64
+BN_CASES = [(16, 60, 64084), (16, 120, 16020), (16, 240, 4004),
+            (16, 960, 1000), (16, 1920, 249), (160, 1, 64)]
 #: a short MANNER training run's train loss must end at most at this
 #: fraction of its first epoch's (phase 31)
 MANNER_LOSS_RATIO = 0.95
@@ -2145,6 +2147,9 @@ def manner_phases(device, card):
     from brever_tpu_torch.checkpoint import load_checkpoint
     from brever_tpu_torch.models import ModelRegistry, common, count_params
     from brever_tpu_torch.models import manner
+    from brever_tpu_torch.bench_alu_dtype import time_calls
+    from brever_tpu_torch.bench_batchnorm import (launches_a_call,
+                                                  time_bwd_routes)
     from brever_tpu_torch.ops import batchnorm as bn
     from brever_tpu_torch.profile_train import make_trainer
     from brever_tpu_torch.serve import EnhanceService, build_model
@@ -2156,11 +2161,18 @@ def manner_phases(device, card):
     rng = np.random.RandomState(28)
     fwd_worst, fwd_err, bwd_worst, bwd_err, n_cases = (float('inf'), 0.0,
                                                        float('inf'), 0.0, 0)
+    routes = []
     for shape in BN_CASES:
+        plan = bn.plan_info(*shape)
+        routes.append(f'{shape} {plan["route_fwd"]}/{plan["route_bwd"]}'
+                      f'/{plan["cluster"]}')
         for act in ('none', 'relu', 'silu'):
             name = f'{shape} {act}'
             x, scale, bias, dy = gn_inputs(rng, shape, device)
             y, mean, var, rstd = kf(x, scale, bias, 1e-5, act)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    (y, mean, var, rstd), kf(x, scale, bias, 1e-5, act))):
+                raise AssertionError(f'K7-BN {name}: two runs differ')
             ref = bn.batch_norm_act_reference(x, scale, bias, 1e-5, act)
             worst, err = check_close(f'K7-BN {name}',
                                      ('y', 'mean', 'var', 'rstd'), ref,
@@ -2186,13 +2198,13 @@ def manner_phases(device, card):
     torch.cuda.empty_cache()
     out['fwd_err'], out['bwd_err'] = fwd_err, bwd_err
     phase(28, f'{n_cases} BatchNorm cases (MANNER\'s shape classes at '
-          f'16 x 4 s: {", ".join(str(s) for s in BN_CASES)}; none, ReLU, '
-          f'SiLU): K7-BN y, mean, var, rstd vs the plain version worst '
-          f'{fwd_worst:.1f} dB, max abs err {fwd_err:.3e}; K8-BN dx, '
+          f'16 x 4 s, route K7-BN/K8-BN/cluster: {"; ".join(routes)}; '
+          f'none, ReLU, SiLU): K7-BN y, mean, var, rstd vs the plain version '
+          f'worst {fwd_worst:.1f} dB, max abs err {fwd_err:.3e}; K8-BN dx, '
           f'dscale, dbias vs the plain backward in float64 worst '
           f'{bwd_worst:.1f} dB (>= {MIN_SNR_DB}), max abs err '
-          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two K8-BN '
-          'runs bitwise equal')
+          f'{bwd_err:.3e} (each <= {MAX_REL_ERR} x max|ref|); two runs of '
+          'each bitwise equal')
 
     # ---- phase 29: serving: enhance from EnhanceService(model_dir) and
     # HTTP, the running statistics moved off their initial values by
@@ -2371,24 +2383,35 @@ def manner_phases(device, card):
     x, scale, bias, dy = gn_inputs(rng, BN_CASES[0], device)
     with torch.no_grad():
         _, mean, _, rstd = kf(x, scale, bias, 1e-5, 'relu')
+        calls = {'fwd': lambda: kf(x, scale, bias, 1e-5, 'relu'),
+                 'bwd': lambda: kb(x, dy, scale, bias, mean, rstd, 'relu')}
         fwd = in_turns({
-            'kernel': lambda: kf(x, scale, bias, 1e-5, 'relu'),
+            'kernel': calls['fwd'],
             'plain': lambda: bn.batch_norm_act_reference(x, scale, bias,
                                                          1e-5, 'relu')},
             10, 2)[0]
         bwd = in_turns({
-            'kernel': lambda: kb(x, dy, scale, bias, mean, rstd, 'relu'),
+            'kernel': calls['bwd'],
             'plain': lambda: bn.batch_norm_act_bwd_plain(
                 x, dy, scale, bias, mean, rstd, 'relu')}, 10, 2)[0]
         fwd['library'] = cuda_ms(lambda: bn_library(x, scale, bias, 'relu'),
                                  10, 2)
+        # the card's time (calls queued behind a sleep kernel) and the
+        # host's a call
+        for key, times in (('fwd', fwd), ('bwd', bwd)):
+            times['card'], times['host'] = time_calls(calls[key], device, 20)
     leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
     y_lib = bn_library(*leaves, 'relu')
     bwd['library'] = cuda_ms(lambda: torch.autograd.grad(
         y_lib, leaves, dy, retain_graph=True), 10, 2)
-    del x, dy, mean, rstd, leaves, y_lib
+    del x, dy, mean, rstd, leaves, y_lib, calls
     out['largest'] = {'fwd': fwd, 'bwd': bwd,
                       'bound': bn_bounds(BN_CASES[0])}
+    # K8-BN at the largest shape on the cluster that holds part of a
+    # channel and on the passes, and the kernels a call launches on each
+    # route (a trace in a fresh interpreter)
+    out['candidates'] = time_bwd_routes(BN_CASES[0], 'relu', device)
+    out['launches_a_call'] = launches_a_call()
     torch.cuda.empty_cache()
     batch = torch.from_numpy((0.1 * rng.randn(16, 2, 4 * FS))
                              .astype(np.float32)).to(device)
@@ -2430,11 +2453,17 @@ def manner_phases(device, card):
         raise AssertionError('MANNER 16 x 4 s step: K7-BN {}, K8-BN {} '
                              'launches, {} BatchNorm calls'.format(
                                  *out['launches_step'], sum(calls.values())))
-    # the step's BatchNorms, each timed at its shape: kernel, plain, library
-    per_step = dict.fromkeys(('k7', 'plain', 'library', 'k8', 'plain_bwd',
+    # the step's BatchNorms, each timed at its shape: kernel (as issued,
+    # and on the card with the host's time a call), plain, library
+    per_step = dict.fromkeys(('k7', 'k7_card', 'k7_host', 'plain', 'library',
+                              'k8', 'k8_card', 'k8_host', 'plain_bwd',
                               'library_bwd', 'bound_k7', 'bound_k8'), 0.0)
+    routes = {}
     for (shape, act), count in calls.items():
         x, scale, bias, dy = gn_inputs(rng, shape, device)
+        plan = bn.plan_info(*shape)
+        routes[str(shape)] = [plan['route_fwd'], plan['route_bwd'],
+                              plan['cluster']]
         with torch.no_grad():
             _, mean, _, rstd = kf(x, scale, bias, 1e-5, act)
             times = {
@@ -2447,6 +2476,10 @@ def manner_phases(device, card):
                     x, dy, scale, bias, mean, rstd, act)}
             for key, fn in times.items():
                 per_step[key] += count * cuda_ms(fn, 3, 1)
+            for key in ('k7', 'k8'):
+                card, host = time_calls(times[key], device, 20)
+                per_step[f'{key}_card'] += count * card
+                per_step[f'{key}_host'] += count * host / n_bn
         leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
         y_lib = bn_library(*leaves, act)
         per_step['library_bwd'] += count * cuda_ms(
@@ -2458,19 +2491,29 @@ def manner_phases(device, card):
         del x, dy, mean, rstd, leaves, y_lib
     torch.cuda.empty_cache()
     out.update(step_ms=step_ms, step_peak=step_peak, enhance_ms=enhance_ms,
-               per_step=per_step, n_bn=n_bn)
+               per_step=per_step, n_bn=n_bn, routes=routes)
     mib = 2 ** 20
     b = out['largest']['bound']
+    cand = ', '.join(f'{r} {t:.4f}' for r, t in out['candidates'].items())
+    launched = out['launches_a_call']
     phase(32, f'[{card}] K7-BN/K8-BN at {BN_CASES[0]} ReLU kernel/plain/'
           f'F.batch_norm+act ms: fwd {fwd["kernel"]:.3f}/{fwd["plain"]:.3f}/'
-          f'{fwd["library"]:.3f} (bound {b[0][0]:.3f}), bwd '
+          f'{fwd["library"]:.3f} (card {fwd["card"]:.4f}, host '
+          f'{fwd["host"]:.4f} a call; bound {b[0][0]:.3f}), bwd '
           f'{bwd["kernel"]:.3f}/{bwd["plain"]:.3f}/{bwd["library"]:.3f} '
-          f'(bound {b[1][0]:.3f}); summed over the {n_bn} BatchNorms of a '
-          f'16 x 4 s step ({len(calls)} shapes): K7-BN '
+          f'(card {bwd["card"]:.4f}, host {bwd["host"]:.4f}; bound '
+          f'{b[1][0]:.3f}); K8-BN there on the card by route: {cand}; '
+          f'kernels a call by route (a trace in a fresh interpreter): K7-BN '
+          f'{launched["fwd"]}, K8-BN {launched["bwd"]}; summed over the '
+          f'{n_bn} BatchNorms of a 16 x 4 s step ({len(calls)} shapes), as '
+          f'issued/plain/library: K7-BN '
           f'{per_step["k7"]:.2f}/{per_step["plain"]:.2f}/'
-          f'{per_step["library"]:.2f} (bound {per_step["bound_k7"]:.2f}), '
+          f'{per_step["library"]:.2f} (card {per_step["k7_card"]:.2f}, host '
+          f'{per_step["k7_host"]:.4f} a call; bound '
+          f'{per_step["bound_k7"]:.2f}), '
           f'K8-BN {per_step["k8"]:.2f}/{per_step["plain_bwd"]:.2f}/'
-          f'{per_step["library_bwd"]:.2f} (bound '
+          f'{per_step["library_bwd"]:.2f} (card {per_step["k8_card"]:.2f}, '
+          f'host {per_step["k8_host"]:.4f}; bound '
           f'{per_step["bound_k8"]:.2f}); enhance 16 x 4 s '
           f'{enhance_ms:.2f} ms; train step 16 x 4 s f32 '
           f'{step_ms["kernel"]:.1f} ms, peak '
@@ -4084,7 +4127,13 @@ def main():
         'library_ms': mnr['largest']['fwd']['library'],
         'library_note': 'F.batch_norm(training=True) + F.relu',
         'shape': 'B=16 C=60 T=64084 ReLU (MANNER in_bn at 16 x 4 s)',
+        'card_ms': mnr['largest']['fwd']['card'],
+        'host_ms': mnr['largest']['fwd']['host'],
+        'launches_a_call': mnr['launches_a_call']['fwd'],
+        'routes': {s: [r[0], r[2]] for s, r in mnr['routes'].items()},
         'step_16x4s_sum_ms': mnr['per_step']['k7'],
+        'step_16x4s_sum_card_ms': mnr['per_step']['k7_card'],
+        'step_16x4s_host_ms_a_call': mnr['per_step']['k7_host'],
         'step_16x4s_sum_plain_ms': mnr['per_step']['plain'],
         'step_16x4s_sum_library_ms': mnr['per_step']['library'],
         'step_16x4s_sum_bound_ms': mnr['per_step']['bound_k7'],
@@ -4105,7 +4154,14 @@ def main():
         'library_note': 'the backward of F.batch_norm(training=True) + '
                         'F.relu (data, scale and bias)',
         'shape': 'B=16 C=60 T=64084 ReLU (MANNER in_bn at 16 x 4 s)',
+        'card_ms': mnr['largest']['bwd']['card'],
+        'host_ms': mnr['largest']['bwd']['host'],
+        'card_ms_by_route': mnr['candidates'],
+        'launches_a_call': mnr['launches_a_call']['bwd'],
+        'routes': {s: [r[1], r[2]] for s, r in mnr['routes'].items()},
         'step_16x4s_sum_ms': mnr['per_step']['k8'],
+        'step_16x4s_sum_card_ms': mnr['per_step']['k8_card'],
+        'step_16x4s_host_ms_a_call': mnr['per_step']['k8_host'],
         'step_16x4s_sum_plain_ms': mnr['per_step']['plain_bwd'],
         'step_16x4s_sum_library_ms': mnr['per_step']['library_bwd'],
         'step_16x4s_sum_bound_ms': mnr['per_step']['bound_k8'],

@@ -1332,27 +1332,72 @@ def test_fma_chain_honours_k_and_passes(device, kind, k, passes, dtype):
     assert ((got.double() - want.double()).abs() <= limit).all()
 
 
-# (B, C, T) of MANNER's BatchNorms, cut in length: its full-resolution
-# level, a wide one at an odd length (scalar loads), the local attention's
-# C = 1 gate over 160 chunks, one row
-BN_CASES = [((4, 60, 4004), 'relu'), ((3, 1920, 63), 'none'),
-            ((160, 1, 64), 'none'), ((1, 120, 1000), 'silu'),
-            ((5, 7, 9), 'silu')]
+# (B, C, T) of MANNER's BatchNorms, cut in length, and the route the plan
+# gives K7-BN and K8-BN: one block (its full-resolution level, a wide one
+# at an odd length, the local attention's C = 1 gate over 160 chunks, one
+# row, N = 249 and 1000 as at 16 x 4 s, and 600 channels of 8 x 64: more
+# channels than blocks, with and without the two-buffer ring); a 2-, 4- and
+# 8-block cluster (4004 and 16020 at 16 rows, and odd N: 4-byte loads); a
+# channel past a 16-block cluster (64084 at 16 rows, and off the float4
+# grid); the last element: x and dy one float past a 16-byte boundary
+# (4-byte loads, x copied ahead with cp.async). K8-BN takes the passes
+# wherever N is off the float4 grid.
+BN_CASES = [((4, 60, 4004), 'relu', 'block', False),
+            ((3, 1920, 63), 'none', 'block', False),
+            ((160, 1, 64), 'none', 'block', False),
+            ((1, 120, 1000), 'silu', 'block', False),
+            ((5, 7, 9), 'silu', 'block', False),
+            ((16, 96, 249), 'relu', 'block', False),
+            ((16, 480, 1000), 'silu', 'block', False),
+            ((8, 600, 64), 'relu', 'block', False),
+            ((16, 8, 4004), 'silu', 'cluster', False),
+            ((32, 2, 4001), 'none', 'cluster', False),
+            ((16, 12, 16020), 'relu', 'cluster', False),
+            ((16, 3, 64084), 'relu', 'past', False),
+            ((16, 2, 64085), 'silu', 'past', False),
+            ((16, 12, 16020), 'silu', 'cluster', True),
+            ((1, 120, 1000), 'relu', 'block', True)]
+#: MANNER's 34 (shape, act) BatchNorm classes at 16 x 4 s
+MANNER_BN_SHAPES = [
+    (16, 60, 64084), (16, 60, 16020), (16, 120, 16020), (16, 240, 16020),
+    (16, 120, 4004), (16, 240, 4004), (16, 480, 4004), (16, 160, 1000),
+    (16, 240, 1000), (16, 480, 1000), (16, 960, 1000), (16, 320, 249),
+    (16, 480, 249), (16, 960, 249), (16, 1920, 249), (160, 1, 64),
+    (160, 320, 64), (544, 1, 64), (544, 160, 64)]
 
 
-@pytest.mark.parametrize('shape,act', BN_CASES, ids=lambda v: str(v))
-def test_batchnorm_kernels_match_plain(device, shape, act):
+@pytest.mark.parametrize('shape,act,route,unaligned', BN_CASES,
+                         ids=lambda v: str(v))
+def test_batchnorm_kernels_match_plain(device, shape, act, route, unaligned):
+    """K7-BN against its plain version and K8-BN against the plain
+    backward in float64 on each route of the plan; two runs of each
+    bitwise equal."""
     x, scale, bias, dy = _gn_inputs(device, shape, seed=shape[1])
+    if unaligned:
+        x, dy = _offset(x), _offset(dy)
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    plan = bn.plan_info(shape[0], shape[1], shape[2])
+    if route == 'past':
+        assert (plan['route_fwd'], plan['route_bwd']) == (bn._FWD_PAST,
+                                                          bn._BWD_PAST)
+    else:   # K8-BN off the float4 grid: the passes
+        assert plan['route_fwd'] == route
+        assert plan['route_bwd'] == ('passes' if shape[2] % 4 else route)
     before = bn.batch_norm_act_fwd.launches, bn.batch_norm_act_bwd.launches
-    y, mean, var, rstd = bn.batch_norm_act_fwd(x, scale, bias, 1e-5, act)
+    out = bn.batch_norm_act_fwd(x, scale, bias, 1e-5, act)
+    rerun = bn.batch_norm_act_fwd(x, scale, bias, 1e-5, act)
+    assert all(torch.equal(a, b) for a, b in zip(out, rerun))
+    del rerun
+    y, mean, var, rstd = out
     ref = bn.batch_norm_act_reference(x, scale, bias, 1e-5, act)
     torch.testing.assert_close(y, ref[0], atol=1e-5, rtol=1e-4)
     for got, want in zip((mean, var, rstd), ref[1:]):
         torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    del ref, y
     grads = bn.batch_norm_act_bwd(x, dy, scale, bias, mean, rstd, act)
     again = bn.batch_norm_act_bwd(x, dy, scale, bias, mean, rstd, act)
     assert (bn.batch_norm_act_fwd.launches - before[0],
-            bn.batch_norm_act_bwd.launches - before[1]) == (1, 2)
+            bn.batch_norm_act_bwd.launches - before[1]) == (2, 2)
     f64 = [t.double() for t in (x, dy, scale, bias)]
     _, m64, _, r64 = bn.batch_norm_act_reference(f64[0], f64[2], f64[3],
                                                  1e-5, act)
@@ -1363,6 +1408,37 @@ def test_batchnorm_kernels_match_plain(device, shape, act):
         torch.testing.assert_close(got.double(), w,
                                    atol=1e-4 * w.abs().max().item(),
                                    rtol=1e-3)
+
+
+def test_batchnorm_plan_is_the_wrappers(device):
+    """The library's K7-BN/K8-BN plan at MANNER's classes is the wrapper's
+    mirror (``plan_info`` raises where they differ), and the card places
+    the plan's cluster of both kernels."""
+    for shape in MANNER_BN_SHAPES:
+        plan = bn.plan_info(*shape)
+        want = bn.bn_plan(*shape)
+        assert {k: v for k, v in plan.items() if k != 'clusters'} == want, \
+            shape
+        assert plan['clusters'] >= 1, (shape, plan)
+
+
+def test_batchnorm_launches_a_call(device):
+    """Three K7-BN and three K8-BN calls at each route (one block, N =
+    249, an 8-block cluster, past a 16-block cluster) launch the plan's
+    kernels three times each and nothing else: one launch a call on the
+    block and cluster routes, at most two on the routes past a cluster, no
+    library kernel (``bench_batchnorm.launches_a_call``: traced in a fresh
+    interpreter)."""
+    from brever_tpu_torch.bench_batchnorm import KERNELS, launches_a_call
+    launched = launches_a_call()
+    assert launched['fwd'] == {'block': 1, 'cluster': 1,
+                               bn._FWD_PAST: len(KERNELS['fwd'][
+                                   bn._FWD_PAST])}
+    assert launched['bwd'] == {'block': 1, 'cluster': 1,
+                               bn._BWD_PAST: len(KERNELS['bwd'][
+                                   bn._BWD_PAST])}
+    assert max(launched['fwd'].values()) <= 2
+    assert max(launched['bwd'].values()) <= 2
 
 
 def test_batchnorm_kernels_reject_what_they_do_not_take(device):
