@@ -1,5 +1,6 @@
 """Weight bridge between the JAX package's flax parameter trees and the
-port's ``state_dict``, for Conv-TasNet, TF-GridNet, SGMSE+ and DCCRN.
+port's ``state_dict``, for Conv-TasNet, TF-GridNet, SGMSE+ (and IDMSE),
+DCCRN, MANNER and FFNN.
 
 A flax ``params`` tree is a nested dict of numpy arrays, as
 ``brever_tpu.checkpoint.load_checkpoint`` returns it. The rules:
@@ -48,6 +49,11 @@ out)`` (``transpose_kernel=False``) become ``conv_transpose1d`` weights
 kernels ``Linear`` weights. The BatchNorms' ``scale``/``bias`` keep their
 names, and the ``batch_stats`` collection (``mean``/``var``) maps to and
 from their buffers.
+
+FFNN (``ffnn_*``): the MLP's ``Dense_i`` kernels ``(in, out)`` become
+``module.Dense_i`` ``Linear`` weights ``(out, in)``; the ``stats``
+collection (``mean``/``std``, ``(input_size, 1)``) maps to and from the
+buffers ``mean`` and ``std``.
 """
 
 import numpy as np
@@ -397,3 +403,31 @@ def manner_state_dict_to_flax(state_dict):
         else:
             params.append((tuple(scope) + (leaf,), a))
     return _nest(params), {'batch_stats': _nest(stats)}
+
+
+# ---------------------------------------------------------------------------
+# FFNN
+
+def ffnn_flax_to_state_dict(params, aux=None):
+    """Flax ``params`` tree of FFNN's MLP (``Dense_0`` ... ``Dense_n``) and
+    its ``stats`` collection (``aux = {'stats': {'mean', 'std'}}``) -> the
+    port's ``state_dict`` (float32 CPU tensors: ``module.Dense_i.weight``
+    ``(out, in)``, ``mean``, ``std``); either may be empty, for a partial
+    ``load_state_dict``."""
+    sd = {}
+    for name, tree in params.items():
+        sd.update(_dense_to_torch(f'module.{name}', tree))
+    for name, value in (aux or {}).get('stats', {}).items():
+        sd[name] = _f32(value)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def ffnn_state_dict_to_flax(state_dict):
+    """The port's FFNN ``state_dict`` -> ``(params, aux)``, the flax
+    ``params`` tree and ``{'stats': {'mean', 'std'}}`` (numpy; the stats
+    that ``state_dict`` holds, a gradient's none)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    layers = sorted({k.split('.')[1] for k in sd if k.startswith('module.')},
+                    key=lambda name: int(name.split('_')[1]))
+    params = {name: _dense_to_flax(sd, f'module.{name}') for name in layers}
+    return params, {'stats': {k: sd[k] for k in ('mean', 'std') if k in sd}}

@@ -1,9 +1,13 @@
 """Validation metrics of the port (counterpart of ``brever_tpu/metrics.py``):
 ``snr`` and ``sisnr``, the negated criteria, per item of a padded batch.
 
-``pesq`` and ``estoi`` are not ported yet (ROADMAP.md, Queue 1): the
-trainer refuses them when it is built (:func:`check_metrics`), as the JAX
-trainer fails loudly on a metric it cannot compute.
+``stoi``, ``estoi`` and ``pesq`` have device twins
+(:mod:`brever_tpu_torch.metrics_device`), which the trainer scores with when
+``device_val_metrics`` is true, as the JAX trainer does. Their host twins
+(float64, PESQ with per-utterance realignment) are not ported yet
+(ROADMAP.md, Queue 1): without ``device_val_metrics`` the trainer refuses
+them when it is built (:func:`check_metrics`), as the JAX trainer fails
+loudly on a metric it cannot compute.
 """
 
 import torch
@@ -15,8 +19,13 @@ MetricRegistry = Registry('metric')
 
 
 def _batched(x, y, lengths):
-    x = torch.as_tensor(x, dtype=torch.float32)
-    y = torch.as_tensor(y, dtype=torch.float32, device=x.device)
+    """``(B, T)`` tensors of one dtype on ``x``'s device (float64 stays
+    float64, for reference runs; anything else becomes float32), ``(B,)``
+    int64 lengths and whether the input was one ``(T,)`` item."""
+    x = torch.as_tensor(x)
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x = x.to(dtype)
+    y = torch.as_tensor(y).to(device=x.device, dtype=dtype)
     if x.shape != y.shape:
         raise ValueError(f'inputs must have same shape, got '
                          f'{tuple(x.shape)} and {tuple(y.shape)}')
@@ -28,7 +37,7 @@ def _batched(x, y, lengths):
     if lengths is None:
         lengths = torch.full((x.shape[0],), x.shape[-1], device=x.device)
     else:
-        lengths = torch.as_tensor(lengths, device=x.device)
+        lengths = torch.as_tensor(lengths, device=x.device).to(torch.int64)
         if lengths.shape != (x.shape[0],) or (lengths > x.shape[-1]).any():
             raise ValueError(f'lengths {lengths.tolist()} do not fit a batch '
                              f'of shape {tuple(x.shape)}')
@@ -51,10 +60,17 @@ snr = _metric('snr')
 sisnr = _metric('sisnr')
 
 
-def check_metrics(names):
-    """Raise on the metrics the port cannot compute."""
-    missing = sorted(name for name in names if name not in MetricRegistry)
+def check_metrics(names, device_val_metrics=False):
+    """Raise on the metrics the port cannot compute: the host metrics, and
+    with ``device_val_metrics`` the device twins too."""
+    from .metrics_device import DEVICE_METRICS
+    known = set(MetricRegistry.keys())
+    if device_val_metrics:
+        known |= set(DEVICE_METRICS)
+    missing = sorted(name for name in names if name not in known)
     if missing:
         raise NotImplementedError(
-            f'validation metrics {missing} are not ported yet (ROADMAP.md, '
-            f'Queue 1); the port scores {sorted(MetricRegistry.keys())}')
+            f'validation metrics {missing} need host twins that are not '
+            f'ported yet (ROADMAP.md, Queue 1); the port scores '
+            f'{sorted(MetricRegistry.keys())} on the host and '
+            f'{sorted(DEVICE_METRICS)} with device_val_metrics')

@@ -1,3 +1,3 @@
 from .base import BreverBaseModel, ModelRegistry, count_params  # noqa: F401
 
-from . import convtasnet, dccrn, manner, sgmse, tfgridnet  # noqa: F401
+from . import convtasnet, dccrn, ffnn, manner, sgmse, tfgridnet  # noqa: F401

@@ -24,6 +24,10 @@ package's eligibility), the forward is the fused STFT kernel K9
 windowed basis; its plain version on the CPU), which has no backward, as in
 the JAX package: it raises if the input requires grad. The onesided complex
 spectrum only; ``ConvSTFT`` is not ported.
+
+``MelFilterbank`` (FFNN's) is the JAX package's triangular HTK filterbank,
+built on the host in numpy float32 bit for bit and applied as a matrix
+product.
 """
 
 import math
@@ -192,3 +196,77 @@ class STFT:
         """Frame count before the center padding is applied."""
         return math.ceil(max(samples - self.frame_length, 0)
                          / self.hop_length) + 1
+
+
+def fft_freqs(fs=16e3, n_fft=512):
+    """The centre frequencies of ``np.fft.rfft``'s bins (float64)."""
+    freqs = np.arange(n_fft) * fs / n_fft
+    return freqs[freqs <= fs / 2]
+
+
+class MelFilterbank:
+    """Triangular mel filterbank (HTK formula), area-normalised
+    (counterpart of ``MelFilterbank`` in ``brever_tpu/ops/stft.py``; the
+    filters are built in numpy float32 as there, bit for bit).
+
+    ``forward`` maps ``(..., bins, frames)`` to mel bands, ``filters @ x``;
+    ``backward`` maps bands back to bins through ``(filters * scaling).T``,
+    the filters without their area normalisation (not a pseudo-inverse)."""
+
+    def __init__(self, n_filters=64, n_fft=512, fs=16e3, fmin=50, fmax=8000):
+        self.n_filters = n_filters
+        self.n_fft = n_fft
+        self.fs = fs
+        self.fmin = fmin
+        self.fmax = fmax
+        filters, fc, scaling = self._build()
+        self.filters = filters
+        self.fc = fc
+        self.scaling = scaling
+        self.inverse_filters = (filters * scaling).T
+        self._cache = {}
+
+    def _build(self):
+        mel_lims = [self.freq_to_mel(f) for f in (self.fmin, self.fmax)]
+        mel = np.linspace(*mel_lims, self.n_filters + 2)
+        fc = self.mel_to_freq(mel)
+        f = fft_freqs(self.fs, self.n_fft).astype(np.float32)
+        filters = np.zeros((self.n_filters, len(f)), dtype=np.float32)
+        for i in range(1, self.n_filters + 1):
+            rising = (fc[i - 1] <= f) & (f <= fc[i])
+            filters[i - 1, rising] = \
+                (f[rising] - fc[i - 1]) / (fc[i] - fc[i - 1])
+            falling = (fc[i] <= f) & (f <= fc[i + 1])
+            filters[i - 1, falling] = \
+                (fc[i + 1] - f[falling]) / (fc[i + 1] - fc[i])
+        scaling = filters.sum(axis=1, keepdims=True)
+        filters = filters / scaling
+        return filters, fc, scaling
+
+    @staticmethod
+    def mel_to_freq(mel):
+        return 700 * (10**(mel / 2595) - 1)
+
+    @staticmethod
+    def freq_to_mel(f):
+        return 2595 * math.log10(1 + f / 700)
+
+    def _matrix(self, which, like):
+        """``filters`` or ``inverse_filters`` as a tensor of ``like``'s real
+        dtype on its device (cached)."""
+        dtype = like.real.dtype if like.is_complex() else like.dtype
+        key = (which, dtype, like.device)
+        if key not in self._cache:
+            with torch.inference_mode(False):
+                self._cache[key] = torch.as_tensor(
+                    getattr(self, which)).to(dtype=dtype, device=like.device)
+        return self._cache[key]
+
+    def __call__(self, x):
+        return self.forward(x)
+
+    def forward(self, x):
+        return torch.matmul(self._matrix('filters', x), x)
+
+    def backward(self, x):
+        return torch.matmul(self._matrix('inverse_filters', x), x)

@@ -3,14 +3,15 @@
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
 ``sgmsepm``, 27,756,186; IDMSE ``idmse``, 16,613,378, or ``idmselarge``,
-70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; drawn from
+70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; FFNN, 1,509,440; drawn from
 ``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32 off
 (as ``chip_smoke.py`` runs it), and times ``train_step`` (forward, the
 kernels' backward, global-norm clip where the family clips, Adam) on a
 batch of ``--batch`` x 4 s (default 16; random mixture and target, the
-family's own criterion: ``snr``, ``multiresyu``, SGMSE+'s weighted ``mse``
-and MANNER's L1 + STFT loss; DCCRN's and MANNER's batch norms in train
-mode, MANNER's through the flash-BN kernels):
+family's own criterion: ``snr``, ``multiresyu``, SGMSE+'s weighted ``mse``,
+MANNER's L1 + STFT loss and FFNN's ``mse`` of the mel mask; DCCRN's and
+MANNER's batch norms in train mode, MANNER's through the flash-BN kernels;
+FFNN's dropout on):
 
 * ms per step over ``--steps`` steps (CUDA events) with the profiler off
   and on, and the peak device memory of a step;

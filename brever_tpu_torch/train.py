@@ -9,9 +9,11 @@ datasets, the trainer's run.
 The trainer options are built from ``BreverTrainer.__init__``'s own
 signature; a value given on the command line replaces the config's
 (``fs`` also sets the dataset's, as in the JAX package). Bools take
-true/false, sets and lists comma-separated items. The default config asks
-for what this port does not do yet: pass ``--use_amp false`` and
-``--val_metrics snr`` (or ``snr,sisnr``).
+true/false, sets and lists comma-separated items. The default configs'
+validation metrics (``estoi``, ``pesq``, ``snr``) are scored by the device
+twins (``device_val_metrics: true``), so FFNN's default config trains as it
+is; the other ported keys' configs set ``use_amp: true``, which the port
+refuses: pass ``--use_amp false`` for them.
 """
 
 import argparse

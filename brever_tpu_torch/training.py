@@ -46,11 +46,17 @@ statistics, which its batch norms update in the forward of each train step
 validation reads in eval mode. The EMA covers the parameters only, as the
 JAX trainer's does.
 
+Validation metrics are scored on the device. With ``device_val_metrics``
+(the default) each is its device twin (``metrics_device.DEVICE_METRICS``:
+``stoi``, ``estoi``, ``pesq``, and ``snr``/``sisnr``, the port's metrics),
+as in the JAX trainer, and only the per-item scores leave the card;
+without it ``stoi``/``estoi``/``pesq``, whose host twins are not ported,
+are refused.
+
 Not ported yet, and refused when the trainer is built (ROADMAP.md):
-``use_amp`` (bf16 kernels), ``ddp``, ``profile``, ``use_wandb`` and the
-validation metrics other than ``snr``/``sisnr``. ``compile`` is accepted
-and ignored, as the JAX trainer ignores it; so are ``rank`` and
-``device_val_metrics`` (the metrics are scored on the device).
+``use_amp`` (bf16 kernels), ``ddp``, ``profile``, ``use_wandb`` and, without
+``device_val_metrics``, the metrics above. ``compile`` is accepted and
+ignored, as the JAX trainer ignores it; so is ``rank``.
 """
 
 import contextlib
@@ -66,6 +72,7 @@ from .batching import BatchSamplerRegistry
 from .checkpoint import load_checkpoint, save_checkpoint
 from .data import BreverDataLoader
 from .metrics import MetricRegistry, check_metrics
+from .metrics_device import DEVICE_METRICS
 from .models import count_params
 from .models.base import sample_weighted_mean
 from .numerics import disable_tf32
@@ -154,7 +161,7 @@ class BreverTrainer:
                     'Queue 1')
         if use_wandb:
             _refuse('W&B logging', 'Queue 1')
-        check_metrics(val_metrics)
+        check_metrics(val_metrics, device_val_metrics)
         if preload and workers > 0:
             logging.warning('Cannot use workers > 0 with preload=True. '
                             'Forcing workers=0.')
@@ -171,6 +178,7 @@ class BreverTrainer:
         self.preload = preload
         self.val_metrics = val_metrics
         self.val_period = val_period
+        self.device_val_metrics = device_val_metrics
         self.save_on_epochs = save_on_epochs
         self.seed = seed
 
@@ -388,7 +396,8 @@ class BreverTrainer:
     @torch.no_grad()
     def compute_metrics(self, batch, lengths, n_real):
         """Metrics of the enhanced first source (the mixture) against the
-        channel mean of the second (the target), over the real rows."""
+        channel mean of the second (the target), over the real rows; with
+        ``device_val_metrics`` by the device twins."""
         inputs = batch[:, 0]
         targets = batch[:, 1].mean(dim=-2)
         self.model.eval()
@@ -397,8 +406,10 @@ class BreverTrainer:
         if enhanced.ndim == 3:  # separation models: first source
             enhanced = enhanced[:, 0]
         lengths = lengths[:, 0] if lengths.ndim > 1 else lengths
-        return {name: float(MetricRegistry.get(name)(
-                    enhanced, targets, lengths)[:n_real].mean())
+        lookup = DEVICE_METRICS.get if self.device_val_metrics \
+            else MetricRegistry.get
+        return {name: float(lookup(name)(enhanced, targets, lengths)[:n_real]
+                            .mean())
                 for name in sorted(self.val_metrics)}
 
     # ------------------------------------------------------------------

@@ -15,7 +15,9 @@ parameters from a seed), MANNER (its only width: hidden 60, depth 4,
 (``idmse``, the ADM U-Net: 64 base channels, mults 1, 2, 3, 4, one block
 a level; 16,613,378 random parameters from a seed) and ``idmselarge``
 (SGMSE+'s U-Net geometry with ADM blocks; 70,995,586) on the card, and the
-elementwise-rate probe (K10) in float32 and bfloat16.
+elementwise-rate probe (K10) in float32 and bfloat16, and FFNN (64 mel
+bands, 5 stacks, hidden 1024-1024; 1,509,440 random parameters from a
+seed) with the validation-metric twins on the card.
 Every family is served through ``EnhanceService(model_dir)`` and trained
 through ``train.main([...])`` on a model directory written here, the entry
 points of ``python -m brever_tpu_torch.serve`` and ``.train``. The phases
@@ -145,7 +147,26 @@ each print one line, with the seconds since the start:
     affine GroupNorms of an evaluation on their plain route;
 41. IDMSE-large: the denoiser (2 x 4 s) against the plain path in float64,
     ``enhance`` of 1 x 2 s against the plain float32 path, one timed train
-    step at 4 x 4 s with its peak memory.
+    step at 4 x 4 s with its peak memory;
+42. a Conv-TasNet with 5-tap depthwise convs serves and trains on plain
+    blocks (no K1 or K2 launch) against the CPU path;
+43. FFNN (1,509,440 parameters; no kernel of its own: the STFT, the mel
+    filterbank, the features and the MLP are cuFFT and cuBLAS) from
+    ``EnhanceService(model_dir)`` with flax weights and ``stats``: enhance
+    of (4, 2, 64000), ``transform``'s features and labels, the eval-mode
+    loss and its gradients against the same model in float64 on the CPU;
+    no kernel wrapper launches;
+44. FFNN's ``pre_train`` on the card against float64 on the CPU; train.main
+    from the untouched ``config/models/ffnn.yaml`` (only ``--device``,
+    ``--epochs`` and ``--val_period`` given): the loss falls, ``estoi``,
+    ``pesq`` and ``snr`` are scored by the device twins, last.ckpt (with
+    ``aux['stats']``) resumes bitwise and serves;
+45. the HTTP service over that model directory's checkpoint;
+46. the validation-metric twins (STOI, ESTOI, PESQ wb and nb, SNR) on a
+    batch of 16 x 4 s at ragged lengths on the card against the same twins
+    in float64 on the CPU, the identity PESQ, each one's ms a batch;
+47. timings: FFNN's f32 train step at 8 x 4 s (its config's 32 s of audio a
+    batch) with its peak memory, ``enhance`` of 1 x 4 s and 16 x 4 s.
 
 Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
 comparisons hold the kernels to float32. Any failure raises (non-zero
@@ -2477,8 +2498,8 @@ def manner_phases(device, card):
             for key, fn in times.items():
                 per_step[key] += count * cuda_ms(fn, 3, 1)
             for key in ('k7', 'k8'):
-                card, host = time_calls(times[key], device, 20)
-                per_step[f'{key}_card'] += count * card
+                on_card, host = time_calls(times[key], device, 20)
+                per_step[f'{key}_card'] += count * on_card
                 per_step[f'{key}_host'] += count * host / n_bn
         leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
         y_lib = bn_library(*leaves, act)
@@ -3492,6 +3513,321 @@ def kernel_size_phase(device, card):
     torch.cuda.empty_cache()
 
 
+FFNN_PARAMS = 1_509_440
+#: a short FFNN training run's loss (the mel mask's mse) must end at most
+#: at this fraction of its first epoch's (phase 44)
+FFNN_LOSS_RATIO = 0.9
+#: the metric twins on the card against themselves in float64 on the CPU:
+#: the JAX twin's own bounds against its host metric (phase 46)
+STOI_ATOL, PESQ_ATOL = 2e-3, 5e-3
+#: wideband PESQ of a signal against itself, the published maximum, and
+#: the JAX twin's bound on it
+PESQ_WB_MAX, PESQ_MAX_ATOL = 4.643888749336258, 2e-3
+#: phase 46's validation batch: 16 x 4 s at ragged lengths (0.25 s, both
+#: sides of a 10 kHz frame edge, hop-aligned and not) and SNRs
+METRIC_LENGTHS = (64000, 63999, 60001, 56000, 48000, 40000, 32001, 24000,
+                  16000, 12000, 8192, 6401, 6400, 5000, 4000, 64000)
+METRIC_SNRS = (20, 10, 5, 0, -5)
+
+
+def kernel_counters():
+    """Every kernel wrapper's launch counter, ``(function, attribute)``."""
+    from brever_tpu_torch.ops import (batchnorm, fma_chain, groupnorm,
+                                      lstm_scan, stft_kernel, tcn_block)
+    return [(tcn_block.tcn_block, 'launches'),
+            (tcn_block.tcn_block_bwd, 'launches'),
+            (lstm_scan.lstm_scan_x, 'launches'),
+            (lstm_scan.lstm_scan_x_bwd, 'launches'),
+            (lstm_scan.lstm_scan, 'launches'),
+            (lstm_scan.lstm_scan_bwd, 'launches'),
+            (groupnorm.group_norm_act_fwd, 'launches'),
+            (groupnorm.group_norm_act_bwd, 'launches'),
+            (batchnorm.batch_norm_act_fwd, 'launches'),
+            (batchnorm.batch_norm_act_bwd, 'launches'),
+            (stft_kernel.stft_fused, 'launches'),
+            (stft_kernel.stft_fused, 'dense_launches'),
+            (fma_chain.fma_chain, 'launches')]
+
+
+def ffnn_model(state, device, dtype=torch.float32):
+    """The default ``ffnn`` on ``device`` in ``dtype`` holding a state_dict
+    (``stats`` included), in eval mode."""
+    from brever_tpu_torch.models import ModelRegistry
+    model = ModelRegistry.get('ffnn')(device='cpu')
+    model.load_state_dict(state)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def tone_sources(rng, batch, seconds):
+    """``(batch, 2 sources, 2 channels, n)`` float32: a tone (the target)
+    and the tone in white noise at about 0 dB."""
+    n = int(seconds * FS)
+    t = np.arange(n) / FS
+    clean = 0.5 * np.sin(2 * np.pi * rng.uniform(100, 400, (batch, 1, 1, 1))
+                         * t + rng.uniform(0, 2 * np.pi, (batch, 1, 1, 1)))
+    clean = np.repeat(clean, 2, axis=2)
+    return np.concatenate([clean + 0.35 * rng.randn(batch, 1, 2, n), clean],
+                          axis=1).astype(np.float32)
+
+
+def ffnn_loss_grads(model, batch, lengths):
+    """Per-item loss (eval mode: no dropout) and the parameters' gradients
+    of the weighted mean, in the model's dtype on its device."""
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    model.eval()
+    dtype = model.mean.dtype
+    per_item = model.loss(batch.to(dtype), lengths)
+    grads = torch.autograd.grad(sample_weighted_mean(per_item, lengths),
+                                list(model.parameters()))
+    return per_item.detach(), grads
+
+
+def ffnn_phases(device):
+    """Phases 43-45: FFNN (no kernel of its own) serves and trains on the
+    card, no kernel wrapper launching."""
+    from brever_tpu_torch.batching import BatchSamplerRegistry
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.data import BreverDataLoader, BreverDataset
+    from brever_tpu_torch.models import ModelRegistry, count_params
+    from brever_tpu_torch.serve import EnhanceService, build_model
+    counters = kernel_counters()
+
+    # ---- phase 43: FFNN from flax weights and stats on the card
+    rng = np.random.RandomState(43)
+    model = ModelRegistry.get('ffnn')(device='cpu')
+    model.init_parameters(43)
+    data = tone_sources(rng, 4, 2.0)
+    model.pre_train(None, [(data, np.full(4, 2 * FS))], 1)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    params, aux = model.to_flax(state), model.flax_aux(state)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, 'model'), 'ffnn',
+                                    params=params, aux=aux)
+        gpu = EnhanceService(model_dir, device)
+        cpu = EnhanceService(model_dir, 'cpu')
+    if count_params(gpu.model) != FFNN_PARAMS:
+        raise AssertionError(f'FFNN: {count_params(gpu.model)} parameters')
+    if not torch.equal(gpu.model.std.cpu(), state['std']):
+        raise AssertionError('FFNN: the served model lacks aux[\'stats\']')
+    ref = ffnn_model(state, 'cpu', torch.float64)
+    mix = (0.1 * rng.randn(4, 2, 4 * FS)).astype(np.float32)
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    enhanced = gpu.model.enhance(mix)
+    sources = torch.from_numpy(tone_sources(rng, 4, 4.0))
+    feats = gpu.model.transform(sources.to(device))
+    lengths = torch.tensor([4 * FS, 3 * FS, 2 * FS + 123, 0])
+    items, grads = ffnn_loss_grads(gpu.model, sources.to(device),
+                                   lengths.to(device))
+    torch.cuda.synchronize()
+    launches = sum(getattr(fn, attr) for fn, attr in counters)
+    snr, err = check_output('FFNN enhance (4, 2, 64000)',
+                            ref.enhance(mix).numpy(), enhanced.cpu().numpy())
+    cpu_snr, _ = check_output('FFNN enhance (4, 2, 64000) vs CPU',
+                              cpu.model.enhance(mix).numpy(),
+                              enhanced.cpu().numpy())
+    want = ref.transform(sources.double())
+    n_in = ref.input_size
+    feat_db, feat_err = check_close(
+        'FFNN transform', ['features', 'labels'],
+        [want[:, :n_in], want[:, n_in:]], [feats[:, :n_in].cpu(),
+                                           feats[:, n_in:].cpu()])
+    ref_items, ref_grads = ffnn_loss_grads(ref, sources, lengths)
+    loss_db, _ = check_close('FFNN loss', ['per item'], [ref_items],
+                             [items.cpu()])
+    grad_db, grad_err = check_close(
+        'FFNN gradients', [k for k, _ in ref.named_parameters()], ref_grads,
+        [g.cpu() for g in grads])
+    if launches:
+        raise AssertionError(f'FFNN launched {launches} port kernels')
+    del cpu, ref
+    phase(43, f'FFNN ({FFNN_PARAMS:,} parameters, logfbe x 6 stacks, MLP '
+          f'1024-1024, stats from pre_train) from EnhanceService(model_dir):'
+          f' enhance (4, 2, 64000) SNR {snr:.2f} dB, max abs err {err:.3e} vs'
+          f' the same model in float64 on the CPU ({cpu_snr:.2f} dB vs the '
+          f'CPU service); transform of (4, 2, 2, 64000) {feat_db:.1f} dB, max '
+          f'abs err {feat_err:.3e} (features and IRM labels); eval-mode loss '
+          f'{loss_db:.1f} dB, gradients worst tensor {grad_db:.1f} dB, max abs'
+          f' err {grad_err:.3e} (>= {MIN_SNR_DB} dB, <= {MAX_REL_ERR} of the '
+          f'largest); {launches} kernel launches (STFT, filterbank and MLP '
+          'are cuFFT and cuBLAS)')
+
+    # ---- phase 44: pre_train on the card, train.main from the untouched
+    # default config, resume
+    epochs, val_period = 12, 4
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = tone_model_dir(tmp, 'ffnn', 44)
+        dataset = BreverDataset(path=os.path.join(tmp, 'train'))
+        batches = list(BreverDataLoader(
+            dataset, BatchSamplerRegistry.get('sorted')(
+                dataset=dataset, batch_size=8, shuffle=False),
+            pad_to_multiple=FS // 2))
+        stats = []
+        for dev, dtype in ((device, torch.float32), ('cpu', torch.float64)):
+            model = ModelRegistry.get('ffnn')(device=dev).to(dtype)
+            model.pre_train(None, batches, 1)
+            stats.append([model.mean.cpu(), model.std.cpu()])
+        stats_db, stats_err = check_close('FFNN pre_train', ['mean', 'std'],
+                                          stats[1], stats[0])
+        first, second, train_s, train_launches = train_and_resume(
+            lambda n: [model_dir, '--device', 'cuda', '--epochs', str(n),
+                       '--val_period', str(val_period)], epochs, counters)
+        if first.use_ema or not first.device_val_metrics \
+                or first.val_metrics != {'estoi', 'pesq', 'snr'}:
+            raise AssertionError('the trainer did not take the default '
+                                 'config')
+        losses = first.loss_logger.train_loss
+        last = float(np.mean(losses[-3:]))
+        if not np.isfinite(losses).all() \
+                or last > FFNN_LOSS_RATIO * losses[0]:
+            raise AssertionError(f'FFNN training loss {losses[0]:.4f} -> '
+                                 f'{last:.4f}')
+        metrics = [m for m in first.loss_logger.metrics if m]
+        if len(metrics) != epochs // val_period \
+                or sorted(metrics[-1]) != ['estoi', 'pesq', 'snr'] \
+                or not all(np.isfinite(v) for v in metrics[-1].values()):
+            raise AssertionError(f'FFNN validation metrics {metrics}')
+        ckpt = load_checkpoint(second.last_ckpt_path)
+        if not np.array_equal(ckpt['aux']['stats']['std'],
+                              second.model.std.cpu().numpy()) \
+                or not (ckpt['aux']['stats']['std'] != 1).any():
+            raise AssertionError('last.ckpt lacks the pre_train stats')
+        if any(train_launches):
+            raise AssertionError(f'FFNN training launched {train_launches}')
+        served = build_model('ffnn', {}, ckpt['params'], device, ckpt['aux'])
+        item = second.val_dataset[0][0][None]
+        torch.testing.assert_close(served.enhance(item),
+                                   second.model.enhance(item), atol=1e-6,
+                                   rtol=1e-5)
+        phase(44, f'FFNN pre_train on the card vs float64 on the CPU: '
+              f'{stats_db:.1f} dB, max abs err {stats_err:.3e}; train.main '
+              f'from the untouched config/models/ffnn.yaml (only --device, '
+              f'--epochs, --val_period), 24 x 1 s tone-in-noise WAV items, '
+              f'{epochs} epochs in {train_s:.1f} s: train loss '
+              f'{losses[0]:.4f} -> {last:.4f} (mse; <= {FFNN_LOSS_RATIO} x),'
+              f' val estoi {metrics[-1]["estoi"]:.4f} pesq '
+              f'{metrics[-1]["pesq"]:.3f} snr {metrics[-1]["snr"]:.2f} dB '
+              f'(device twins on the card, {len(metrics)} validations); '
+              f'resumed bitwise (stats from aux[\'stats\']) from last.ckpt '
+              f'to epoch {second.epochs_ran}; the checkpoint serves; 0 kernel'
+              ' launches')
+        del first, second, served
+
+        # ---- phase 45: the HTTP service over the model directory
+        service = EnhanceService(model_dir, device)
+        ref = ffnn_model(service.model.state_dict(), 'cpu', torch.float64)
+        results = []
+        with http_service(service) as (port, health):
+            if health['params'] != FFNN_PARAMS or health['arch'] != 'ffnn':
+                raise AssertionError(f'/health: {health}')
+            for seconds in (0.05, 4):
+                audio = (0.1 * np.random.RandomState(45).randn(
+                    int(seconds * FS))).astype(np.float32)
+                got = post_wav(port, audio)
+                snr, _ = check_output(f'FFNN /enhance {seconds} s',
+                                      ref.enhance(np.stack([audio, audio]))
+                                      .numpy(), got)
+                results.append(f'{seconds} s {snr:.1f} dB')
+        phase(45, f'FFNN /health ok, /enhance {", ".join(results)} from '
+              'EnhanceService(model_dir) on the trained last.ckpt (its '
+              'stats) vs the same model in float64 on the CPU')
+        del service, ref
+
+
+
+def ffnn_times(device, card):
+    """Phase 47: FFNN's f32 train step at 32 s of audio a batch (8 x 4 s,
+    its config's ``batch_size: 32`` with ``dynamic_batch_size``) and its
+    peak memory; ``enhance`` of 1 x 4 s and 16 x 4 s."""
+    from brever_tpu_torch.profile_train import make_trainer
+    out = {}
+    torch.cuda.empty_cache()
+    # what earlier phases still hold stays out of the step's peak
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, data, lengths = make_trainer(device, tmp, 47, batch=8,
+                                              arch='ffnn')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out['step_ms'] = cuda_ms(lambda: trainer.train_step(data, lengths),
+                                 20)
+        out['step_peak'] = torch.cuda.max_memory_allocated() - held
+        model = trainer.model.eval()
+        for batch in (1, 16):
+            x = data[:1, 0].expand(batch, -1, -1).contiguous()
+            out[f'enhance_{batch}'] = cuda_ms(lambda: model.enhance(x), 20)
+        del trainer, data, model
+    torch.cuda.empty_cache()
+    phase(47, f'[{card}] FFNN f32 train step at 8 x 4 s (32 s of audio, the '
+          f'config\'s batch_size): {out["step_ms"]:.3f} ms, peak '
+          f'{out["step_peak"] / 2 ** 20:.1f} MiB above the '
+          f'{held / 2 ** 20:.1f} MiB earlier phases hold; enhance 1 x 4 s '
+          f'{out["enhance_1"]:.3f} ms, 16 x 4 s {out["enhance_16"]:.3f} ms')
+    return out
+
+
+def metric_phase(device, card):
+    """Phase 46: the validation-metric twins on a batch of 16 x 4 s at ragged
+    lengths on the card against the same twins in float64 on the CPU, the
+    identity PESQ, and each metric's ms for that batch."""
+    from brever_tpu_torch import metrics_device as twins
+    rng = np.random.RandomState(46)
+    lengths = np.array(METRIC_LENGTHS)
+    n_max = int(lengths.max())
+    t = np.arange(n_max) / FS
+    env = np.clip(np.sin(2 * np.pi * 2.5 * t), 0, None)
+    ref = np.zeros((len(lengths), n_max))
+    deg = np.zeros((len(lengths), n_max))
+    for i, n in enumerate(lengths):
+        f0 = rng.uniform(120, 260)
+        clean = env[:n] * (np.sin(2 * np.pi * f0 * t[:n])
+                           + 0.5 * np.sin(2 * np.pi * 3.9 * f0 * t[:n])
+                           + 0.2 * np.sin(2 * np.pi * 8.2 * f0 * t[:n]))
+        clean += 0.01 * rng.randn(n)
+        snr = METRIC_SNRS[i % len(METRIC_SNRS)]
+        ref[i, :n] = clean
+        deg[i, :n] = clean + rng.randn(n) * np.sqrt(
+            np.mean(clean ** 2) / 10 ** (snr / 10))
+    x = torch.from_numpy(deg).float().to(device)
+    y = torch.from_numpy(ref).float().to(device)
+    n_dev = torch.from_numpy(lengths).to(device)
+    metrics = {
+        'stoi': (twins.stoi_device, STOI_ATOL),
+        'estoi': (twins.estoi_device, STOI_ATOL),
+        'pesq': (twins.pesq_device, PESQ_ATOL),
+        'pesq_nb': (lambda a, b, n: twins.pesq_device(a, b, n, mode='nb'),
+                    PESQ_ATOL),
+        'snr': (twins.DEVICE_METRICS['snr'], None),
+    }
+    out, notes = {'err': {}, 'ms': {}}, []
+    for name, (fn, atol) in metrics.items():
+        got = fn(x, y, n_dev)
+        want = fn(torch.from_numpy(deg), torch.from_numpy(ref), lengths)
+        got = got.cpu().double()
+        if got.shape != (len(lengths),) or not torch.isfinite(got).all():
+            raise AssertionError(f'{name} on the card: {got}')
+        err = (got - want).abs().max().item()
+        if atol is None:
+            atol = 1e-4 * want.abs().max().item()
+        if err > atol:
+            raise AssertionError(f'{name} on the card: {err:.3e} from float64'
+                                 f' (<= {atol})')
+        out['err'][name] = err
+        out['ms'][name] = cuda_ms(lambda: fn(x, y, n_dev), 5, warmup=1)
+        notes.append(f'{name} {err:.1e} ({got.min():.3f}..{got.max():.3f}) '
+                     f'{out["ms"][name]:.2f} ms')
+    identity = twins.pesq_device(y[:1], y[:1]).item()
+    if abs(identity - PESQ_WB_MAX) > PESQ_MAX_ATOL:
+        raise AssertionError(f'identity PESQ {identity}')
+    phase(46, f'[{card}] metric twins on a validation batch of 16 x 4 s at '
+          f'ragged lengths (0.25-4 s, 20 to -5 dB) on the card vs float64 on '
+          f'the CPU, max abs err (range) and ms a batch: {"; ".join(notes)} '
+          f'(bounds: STOI {STOI_ATOL}, PESQ {PESQ_ATOL} MOS); identity '
+          f'wideband PESQ {identity:.6f} ({PESQ_WB_MAX})')
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -3868,6 +4204,9 @@ def main():
     wide = wide_scan_phase(device, card)
     idm = idmse_phases(device, card)
     kernel_size_phase(device, card)
+    ffnn_phases(device)
+    metric_phase(device, card)
+    ffnn_times(device, card)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):

@@ -48,7 +48,12 @@ largest value (a 512-term float32 product). The elementwise-rate probe
 (K10) against its plain chain: float32 within 1e-5 and bfloat16 within
 2**-6 of the largest value (the kernel's fused multiply-add rounds once a
 step where the plain chain rounds twice), and, also at k and passes off the
-benchmark's, within ``fma_chain_limit`` at every element."""
+benchmark's, within ``fma_chain_limit`` at every element.
+
+FFNN (no kernel of its own) on the card against the CPU path: enhance at
+atol 1e-4, rtol 1e-3, ``pre_train``'s statistics, the loss and its
+gradients; the validation-metric twins on the card against themselves in
+float64 on the CPU: STOI and ESTOI within 2e-3, PESQ within 5e-3 MOS."""
 
 import functools
 import json
@@ -1625,3 +1630,96 @@ def test_manner_runs_every_batch_norm_through_the_kernels(device,
                                    atol=2e-3 * top)
     for a, b in zip(gpu.buffers(), ref.buffers()):
         torch.testing.assert_close(a.double(), b, atol=1e-5, rtol=1e-4)
+
+
+def test_ffnn_enhances_pre_trains_and_trains_on_the_card(device, tmp_path):
+    """The default-width FFNN (features, stats, MLP) on the card against the
+    CPU path: enhance at atol 1e-4, rtol 1e-3; ``pre_train``'s statistics at
+    rtol 1e-5; the eval-mode loss at rtol 1e-5 and its gradients at rtol
+    1e-3 with a floor of 1e-4 of the tensor's largest value; a trainer step
+    on the card (dropout drawn from the trainer's generator on the card)
+    gives a finite loss and moves the parameters."""
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    from brever_tpu_torch.profile_train import _Items
+    from brever_tpu_torch.training import BreverTrainer
+    cpu = ModelRegistry.get('ffnn')(device='cpu')
+    gpu = ModelRegistry.get('ffnn')(device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(14)
+    target = 0.3 * rng.randn(3, 1, 2, 16000)
+    batch = np.concatenate([target + 0.3 * rng.randn(*target.shape), target],
+                           axis=1).astype(np.float32)
+    lengths = np.array([16000, 11000, 0], np.int64)
+    batches = [(batch, lengths)]
+    for model in (cpu, gpu):
+        model.pre_train(None, batches, 1)
+    torch.testing.assert_close(gpu.std.cpu(), cpu.std, rtol=1e-5, atol=0)
+    torch.testing.assert_close(gpu.mean.cpu(), cpu.mean, rtol=1e-5,
+                               atol=1e-6)
+    gpu.load_state_dict(cpu.state_dict())
+    torch.testing.assert_close(gpu.enhance(batch[:, 0]).cpu(),
+                               cpu.enhance(batch[:, 0]), atol=1e-4, rtol=1e-3)
+    losses = []
+    for model, dev in ((cpu, 'cpu'), (gpu, device)):
+        model.eval()
+        n = torch.from_numpy(lengths).to(dev)
+        loss = sample_weighted_mean(
+            model.loss(torch.from_numpy(batch).to(dev), n), n)
+        loss.backward()
+        losses.append(loss.item())
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = p.grad.abs().max().item()
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-3,
+                                   atol=1e-4 * scale, msg=name)
+    items = _Items(2, 0.15)
+    trainer = BreverTrainer(ModelRegistry.get('ffnn')(device='cpu'), items,
+                            items, str(tmp_path), device=device,
+                            val_metrics={'estoi', 'pesq'}, seed=0)
+    trainer.init_state()
+    flat = trainer.flat.clone()
+    loss = trainer.train_step(torch.from_numpy(batch).to(device),
+                              torch.from_numpy(lengths).to(device))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and not torch.equal(flat, trainer.flat)
+
+
+def _speech_like(rng, n, fs=16000):
+    """A multi-tone under a 2.5 Hz on/off envelope plus a little noise:
+    STOI's silent-frame removal keeps and drops frames."""
+    t = np.arange(n) / fs
+    env = np.clip(np.sin(2 * np.pi * 2.5 * t), 0, None)
+    sig = env * (np.sin(2 * np.pi * 220 * t)
+                 + 0.5 * np.sin(2 * np.pi * 870 * t)
+                 + 0.2 * np.sin(2 * np.pi * 1800 * t))
+    return sig + 0.01 * rng.randn(n)
+
+
+@pytest.mark.parametrize('name,bound', [('stoi', 2e-3), ('estoi', 2e-3),
+                                        ('pesq', 5e-3), ('pesq_nb', 5e-3)])
+def test_metric_twins_on_the_card_match_float64(device, name, bound):
+    """The validation-metric twins on the card in float32 against the same
+    twins in float64 on the CPU, on a ragged batch of enhancement-style
+    signals (20 to -5 dB): STOI and ESTOI within 2e-3, PESQ within 5e-3
+    MOS, the JAX twin's bounds against its host metric; the wideband
+    identity score at 4.643888749336258 within 2e-3."""
+    from brever_tpu_torch import metrics_device as twins
+    rng = np.random.RandomState(15)
+    lengths = np.array([24000, 22889, 19904, 4000])
+    deg = np.zeros((4, 24000))
+    ref = np.zeros((4, 24000))
+    for i, (n, snr) in enumerate(zip(lengths, [20, 5, 0, -5])):
+        clean = _speech_like(rng, n)
+        noise = rng.randn(n) * np.sqrt(np.mean(clean ** 2) / 10 ** (snr / 10))
+        ref[i, :n], deg[i, :n] = clean, clean + noise
+    fn = (lambda x, y, lengths: twins.pesq_device(x, y, lengths, mode='nb')) \
+        if name == 'pesq_nb' else twins.DEVICE_METRICS[name]
+    want = fn(torch.from_numpy(deg), torch.from_numpy(ref), lengths)
+    got = fn(torch.from_numpy(deg).float().to(device),
+             torch.from_numpy(ref).float().to(device), lengths)
+    assert got.device.type == 'cuda' and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=bound)
+    if name == 'pesq':
+        x = torch.from_numpy(ref[:1]).float().to(device)
+        np.testing.assert_allclose(twins.pesq_device(x, x).item(),
+                                   4.643888749336258, atol=2e-3)

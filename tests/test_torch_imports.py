@@ -5,8 +5,9 @@ directory's ``config.yaml`` (``python -m brever_tpu_torch.train`` and
 ``EnhanceService(model_dir)``) run in a fresh interpreter without loading
 any module of the JAX package, at import time or at call time: the port
 reads configs through its own ``brever_tpu_torch.config``. The entry
-points are run on a Conv-TasNet, a DCCRN and a (narrowed) MANNER model
-directory."""
+points are run on a Conv-TasNet, a DCCRN, a (narrowed) MANNER, an IDMSE and
+an FFNN model directory (FFNN's from its default config, its validation
+metrics scored by the device twins of ``metrics_device``)."""
 
 import os
 import pkgutil
@@ -15,6 +16,7 @@ import sys
 
 import brever_tpu_torch
 from brever_tpu_torch import train as train_cli
+from test_torch_ffnn import _model_dir as _ffnn_model_dir
 from test_torch_training import _model_dir
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,7 +40,9 @@ def test_port_imports_no_jax():
                  'batching', 'data', 'optim', 'training', 'train',
                  'profile_train', 'models.dccrn', 'ops.lstm_scan',
                  'models.manner', 'ops.batchnorm', 'ops.stft_kernel',
-                 'numerics', 'ops.fma_chain', 'bench_alu_dtype'):
+                 'numerics', 'ops.fma_chain', 'bench_alu_dtype',
+                 'models.ffnn', 'ops.features', 'metrics_device',
+                 'metric_tables'):
         assert f'brever_tpu_torch.{name}' in modules
     env = dict(os.environ, PATH='/usr/bin:/bin', CUDA_HOME='')
     proc = subprocess.run([sys.executable, '-c', _SCRIPT, *modules],
@@ -146,3 +150,24 @@ def test_idmse_entry_points_load_no_jax_package(tmp_path):
             'assert out.shape == (1600,), out.shape\n'
             'print(service.health()["arch"])\n' + _NO_JAX_PACKAGE)
     assert _fresh(code, model_dir, *_TRAIN_ARGS) == ['idmse', 'ok']
+
+
+def test_ffnn_entry_points_load_no_jax_package(tmp_path):
+    """``train.main`` trains an FFNN model directory from the default config
+    (64 hidden units) with no option but the device, scoring ``estoi``,
+    ``pesq`` and ``snr`` with the device twins, and ``EnhanceService`` serves
+    it, in a fresh interpreter that loads nothing of the JAX package."""
+    model_dir = _ffnn_model_dir(tmp_path)
+    code = ('import sys\n'
+            'import numpy as np\n'
+            'from brever_tpu_torch import train\n'
+            'from brever_tpu_torch.serve import EnhanceService\n'
+            'trainer = train.main(sys.argv[1:])\n'
+            'print(sorted(trainer.loss_logger.metrics[-1]))\n'
+            'service = EnhanceService(sys.argv[1], "cpu")\n'
+            'out = service.enhance(np.zeros(1600, np.float32))\n'
+            'assert out.shape == (1600,), out.shape\n'
+            'print(service.health()["arch"])\n' + _NO_JAX_PACKAGE)
+    assert _fresh(code, model_dir, '--device', 'cpu', '--epochs', '1',
+                  '--val_period', '1')[-3:] == [
+        "['estoi', 'pesq', 'snr']", 'ffnn', 'ok']

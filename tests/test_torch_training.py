@@ -230,7 +230,8 @@ def test_refusals(tmp_path):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             make_trainer(tmp_path, **{option: True})
     with pytest.raises(NotImplementedError, match='pesq'):
-        make_trainer(tmp_path, val_metrics={'pesq', 'estoi', 'snr'})
+        make_trainer(tmp_path, val_metrics={'pesq', 'estoi', 'snr'},
+                     device_val_metrics=False)
     assert resolve_device('cpu') == torch.device('cpu')
     if not torch.cuda.is_available():
         for device in ('tpu', 'cuda', 0, '1'):
