@@ -54,6 +54,17 @@ FFNN (``ffnn_*``): the MLP's ``Dense_i`` kernels ``(in, out)`` become
 ``module.Dense_i`` ``Linear`` weights ``(out, in)``; the ``stats``
 collection (``mean``/``std``, ``(input_size, 1)``) maps to and from the
 buffers ``mean`` and ``std``.
+
+MetricGAN (``metricgan_*``): ``generator_i`` is ``generators.i`` (the LSTMs'
+leaves and ``sigmoid_alpha`` keep their names and shapes, ``Dense``
+kernels become ``Linear`` weights); ``discriminator`` keeps its scopes:
+``conv_k`` kernels ``(5, 5, in, out)`` become ``conv2d`` weights ``(out,
+in, 5, 5)``, ``Dense`` kernels ``Linear`` weights, ``norm`` its
+``scale``/``bias``. The ``batch_stats`` collection maps ``discriminator/
+norm/{mean,var}`` to the BatchNorm's buffers and each ``discriminator/
+SpectralNorm_k/<layer>/kernel/{u,sigma}`` (``u`` of shape ``(1, out)``) to
+``discriminator.spectral.k.{u,sigma}``, the k-th layer in the order
+``conv_*``, ``fc_*``, ``fc_out``.
 """
 
 import numpy as np
@@ -431,3 +442,75 @@ def ffnn_state_dict_to_flax(state_dict):
                     key=lambda name: int(name.split('_')[1]))
     params = {name: _dense_to_flax(sd, f'module.{name}') for name in layers}
     return params, {'stats': {k: sd[k] for k in ('mean', 'std') if k in sd}}
+
+
+# ---------------------------------------------------------------------------
+# MetricGAN
+
+def _metricgan_leaf_to_torch(scope, leaf, a):
+    if leaf != 'kernel':
+        return leaf, a
+    return 'weight', a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+
+
+def _disc_layers(names):
+    """The discriminator's layer scopes in ``SpectralNorm_k`` order."""
+    def index(name):
+        return int(name.split('_')[1])
+    convs = sorted((n for n in names if n.startswith('conv_')), key=index)
+    fcs = sorted((n for n in names if n.startswith('fc_') and n != 'fc_out'),
+                 key=index)
+    return convs + fcs + ['fc_out']
+
+
+def metricgan_flax_to_state_dict(params, aux=None):
+    """Flax ``params`` of ``MetricGANOKD`` (``generator_i``,
+    ``discriminator``) and its ``batch_stats`` collection (``aux =
+    {'batch_stats': {'discriminator': ...}}``) -> the port's ``state_dict``
+    (float32 CPU tensors); either may be empty, for a partial
+    ``load_state_dict``."""
+    sd = {}
+    for (top, *scope, leaf), value in _flatten(params):
+        prefix = f'generators.{top.split("_")[1]}' \
+            if top.startswith('generator_') else top
+        leaf, a = _metricgan_leaf_to_torch(scope, leaf, _f32(value))
+        sd['.'.join([prefix, *scope, leaf])] = a
+    stats = (aux or {}).get('batch_stats', {}).get('discriminator', {})
+    for key, value in stats.get('norm', {}).items():
+        sd[f'discriminator.norm.{key}'] = _f32(value)
+    for scope, tree in stats.items():
+        if scope.startswith('SpectralNorm_'):
+            k = scope.split('_')[1]
+            for name, value in tree.items():
+                sd[f'discriminator.spectral.{k}.{name.split("/")[-1]}'] = \
+                    _f32(value)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def metricgan_state_dict_to_flax(state_dict):
+    """The port's MetricGAN ``state_dict`` -> ``(params, aux)``, the flax
+    ``params`` tree and ``{'batch_stats': {'discriminator': ...}}`` (numpy;
+    the state that ``state_dict`` holds)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    layers = _disc_layers({k.split('.')[1] for k in sd
+                           if k.startswith('discriminator.')})
+    params, stats = [], {}
+    for key, a in sd.items():
+        parts = key.split('.')
+        if parts[0] == 'generators':
+            path = [f'generator_{parts[1]}', *parts[2:]]
+        else:
+            path = parts
+        *scope, leaf = path
+        if scope[1:2] == ['spectral']:
+            k = int(scope[2])
+            stats.setdefault(f'SpectralNorm_{k}', {})[
+                f'{layers[k]}/kernel/{leaf}'] = a
+        elif scope[1:2] == ['norm'] and leaf in ('mean', 'var'):
+            stats.setdefault('norm', {})[leaf] = a
+        elif leaf == 'weight':
+            params.append((tuple(scope) + ('kernel',), np.ascontiguousarray(
+                a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0))))
+        else:
+            params.append((tuple(scope) + (leaf,), a))
+    return _nest(params), {'batch_stats': {'discriminator': stats}}

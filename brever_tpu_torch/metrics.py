@@ -1,21 +1,113 @@
-"""Validation metrics of the port (counterpart of ``brever_tpu/metrics.py``):
-``snr`` and ``sisnr``, the negated criteria, per item of a padded batch.
+"""Objective metrics of the port (counterpart of ``brever_tpu/metrics.py``),
+under the JAX registry's names: ``stoi``, ``estoi``, ``pesq`` (also
+``pesq_approx``), ``snr`` and ``sisnr``, per item of a padded batch.
 
-``stoi``, ``estoi`` and ``pesq`` have device twins
-(:mod:`brever_tpu_torch.metrics_device`), which the trainer scores with when
-``device_val_metrics`` is true, as the JAX trainer does. Their host twins
-(float64, PESQ with per-utterance realignment) are not ported yet
-(ROADMAP.md, Queue 1): without ``device_val_metrics`` the trainer refuses
-them when it is built (:func:`check_metrics`), as the JAX trainer fails
-loudly on a metric it cannot compute.
+``stoi``, ``estoi`` and ``pesq`` are the host twins, float64 numpy on the
+CPU (:mod:`brever_tpu_torch.stoi`, :mod:`brever_tpu_torch.pesq`: PESQ with
+its utterance alignment and bad-interval realignment), the authority for
+test-set scores (``python -m brever_tpu_torch.test_model``). They take numpy
+arrays or tensors of any device (copied to the host) and return numpy
+arrays; ``batched`` scores the items through the spawn pool. ``snr`` and
+``sisnr`` are the negated criteria in torch, on the input's device.
+
+The device twins of ``stoi``, ``estoi`` and ``pesq``
+(:mod:`brever_tpu_torch.metrics_device`) score validation batches on the
+card when the trainer's ``device_val_metrics`` is true, as in the JAX
+trainer; the host twins score them otherwise.
 """
 
+import numpy as np
 import torch
 
 from .criterion import CriterionRegistry
 from .registry import Registry
 
 MetricRegistry = Registry('metric')
+
+#: the published hard bounds of MOS-LQO, by mode, that ``normalized`` maps
+#: onto [0, 1]
+PESQ_BOUNDS = {'nb': (1.0, 4.548638319075995),
+               'wb': (1.0, 4.643888749336258)}
+
+
+def _to_numpy(x):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _stoi(x, y, fs, extended, batched, lengths):
+    """STOI or ESTOI of 1-D signals or of the rows of 2-D batches."""
+    from .stoi import stoi_batch, stoi_single
+    x, y, lengths = _to_numpy(x), _to_numpy(y), _to_numpy(lengths)
+    if x.ndim == 1:
+        if lengths is not None and not batched:
+            raise ValueError('Non-batched stoi does not support lengths '
+                             'argument for 1D inputs.')
+        return stoi_single(x, y, fs, extended)
+    if batched:
+        return stoi_batch(x, y, fs, extended, lengths)
+    if lengths is None:
+        lengths = [x.shape[-1]] * x.shape[0]
+    return np.array([
+        stoi_single(xi[:n], yi[:n], fs, extended)
+        for xi, yi, n in zip(x, y, lengths)
+    ])
+
+
+@MetricRegistry.register('stoi')
+def stoi(x, y, fs=16000, batched=True, lengths=None):
+    """Short-time objective intelligibility (x = estimate, y = clean)."""
+    return _stoi(x, y, fs, False, batched, lengths)
+
+
+@MetricRegistry.register('estoi')
+def estoi(x, y, fs=16000, batched=True, lengths=None):
+    """Extended STOI."""
+    return _stoi(x, y, fs, True, batched, lengths)
+
+
+@MetricRegistry.register('pesq')
+@MetricRegistry.register('pesq_approx')
+def pesq(x, y, fs=16000, mode='wb', normalized=False, batched=True,
+         lengths=None):
+    """PESQ MOS-LQO (x = estimate, y = clean reference), by the JAX
+    package's P.862 / P.862.2 implementation (not bit-compatible with the
+    ITU reference code; hence the second name, ``pesq_approx``).
+    ``batched`` scores the items through the spawn pool;
+    ``normalized`` maps MOS-LQO onto [0, 1] by the mode's published bounds
+    and raises ``RuntimeError`` on a score outside them."""
+    from . import pesq as pesq_mod
+
+    x, y, lengths = _to_numpy(x), _to_numpy(y), _to_numpy(lengths)
+    if batched:
+        out = np.array(pesq_mod.pesq_batch(fs, y, x, mode=mode,
+                                           lengths=lengths))
+        if x.ndim == 1:
+            out = out.item()
+    elif x.ndim == 1:
+        if lengths is not None:
+            raise ValueError('Non-batched pesq does not support lengths '
+                             'argument for 1D inputs.')
+        out = pesq_mod.pesq(fs, y, x, mode=mode)
+    else:
+        if lengths is None:
+            lengths = [x.shape[-1]] * x.shape[0]
+        out = np.array([
+            pesq_mod.pesq(fs, yi[:n], xi[:n], mode=mode)
+            for xi, yi, n in zip(x, y, lengths)
+        ])
+    if normalized:
+        if mode not in PESQ_BOUNDS:
+            raise ValueError(f"mode must be 'nb' or 'wb', got '{mode}'")
+        lo, hi = PESQ_BOUNDS[mode]
+        out = (out - lo) / (hi - lo)
+        if np.any(np.asarray(out) < 0) or np.any(np.asarray(out) > 1):
+            raise RuntimeError(
+                f'normalized PESQ score is out of bounds: {out}')
+    return out
 
 
 def _batched(x, y, lengths):
@@ -61,16 +153,14 @@ sisnr = _metric('sisnr')
 
 
 def check_metrics(names, device_val_metrics=False):
-    """Raise on the metrics the port cannot compute: the host metrics, and
-    with ``device_val_metrics`` the device twins too."""
+    """Raise ``KeyError`` on a metric name that the registry (and, with
+    ``device_val_metrics``, the device twins) does not know, as the JAX
+    trainer's registry lookup does."""
     from .metrics_device import DEVICE_METRICS
     known = set(MetricRegistry.keys())
     if device_val_metrics:
         known |= set(DEVICE_METRICS)
     missing = sorted(name for name in names if name not in known)
     if missing:
-        raise NotImplementedError(
-            f'validation metrics {missing} need host twins that are not '
-            f'ported yet (ROADMAP.md, Queue 1); the port scores '
-            f'{sorted(MetricRegistry.keys())} on the host and '
-            f'{sorted(DEVICE_METRICS)} with device_val_metrics')
+        raise KeyError(f'validation metrics {missing} are not in the metric '
+                       f'registry; available: {sorted(known)}')

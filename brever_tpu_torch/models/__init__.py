@@ -1,3 +1,4 @@
 from .base import BreverBaseModel, ModelRegistry, count_params  # noqa: F401
 
-from . import convtasnet, dccrn, ffnn, manner, sgmse, tfgridnet  # noqa: F401
+from . import (convtasnet, dccrn, ffnn, manner, metricgan, sgmse,  # noqa: F401
+               tfgridnet)

@@ -9,8 +9,12 @@ whose loss draws random numbers, SGMSE+'s, draws them from the trainer's
 ``_enhance`` for batched and unbatched input. The trainer reads
 ``optimizer()`` and ``grad_clip``, and calls the hooks
 ``prepare_optimizer``, ``pre_train``, ``on_validate``, ``extra_state`` and
-``load_extra_state``, which do nothing here. The device is explicit:
-every family takes ``device=`` and builds its parameters there.
+``load_extra_state``, which do nothing here. A family with steps of its
+own (MetricGAN's GAN step, as the JAX package's ``make_step_fns``) returns
+them from ``make_step_fns(trainer)``, and a dict of optimizers from
+``optimizer()``, each over one part of the parameters
+(``optimizer_parts()``). The device is explicit: every family takes
+``device=`` and builds its parameters there.
 """
 
 import torch
@@ -43,6 +47,10 @@ class BreverBaseModel(nn.Module):
 
     #: gradient clipping max-norm (0 disables)
     grad_clip = 0.0
+
+    #: a per-item host function the training loader applies to each item
+    #: (MetricGAN's precomputed noisy score); none here
+    loader_transform = None
 
     @property
     def device(self):
@@ -83,6 +91,17 @@ class BreverBaseModel(nn.Module):
         """The optimizer the family trains with (``optim.Adam``); the
         trainer adds the ``grad_clip`` clipping."""
         raise NotImplementedError
+
+    def optimizer_parts(self):
+        """``{flax key: submodule}`` of the parts that a dict of optimizers
+        updates, each optimizer naming its part in ``part``; none here."""
+        return {}
+
+    def make_step_fns(self, trainer):
+        """``(train_step, val_step)``, each ``(batch, lengths) -> loss``, of
+        a family that steps itself on ``trainer``'s buffer, optimizers and
+        generators; None here (the trainer's own steps)."""
+        return None
 
     def prepare_optimizer(self, steps_per_epoch, epochs):
         pass

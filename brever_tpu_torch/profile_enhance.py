@@ -3,7 +3,8 @@
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
 ``sgmsepm``, 27,756,186; IDMSE ``idmse``, 16,613,378, or ``idmselarge``,
-70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; FFNN, 1,509,440; random
+70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; FFNN, 1,509,440;
+MetricGAN ``metricganp``, 1,914,524, or ``metricganokd``, 2,172,329; random
 weights from the family's ``init_parameters(--seed)``) on the device,
 float32 with TF32 off (as ``chip_smoke.py`` runs it), and
 measures:
@@ -50,7 +51,8 @@ from .serve import EnhanceService
 
 FS = 16000
 ARCHS = ('convtasnet', 'tfgridnet', 'sgmsep', 'sgmsepm', 'idmse',
-         'idmselarge', 'dccrn', 'manner', 'ffnn')
+         'idmselarge', 'dccrn', 'manner', 'ffnn', 'metricganp',
+         'metricganokd')
 
 
 def _kernel_name(name):

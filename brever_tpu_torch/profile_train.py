@@ -3,21 +3,28 @@
 Builds a full-width default model of ``--arch`` (Conv-TasNet, 4,935,217
 parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
 ``sgmsepm``, 27,756,186; IDMSE ``idmse``, 16,613,378, or ``idmselarge``,
-70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; FFNN, 1,509,440; drawn from
-``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32 off
+70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; FFNN, 1,509,440;
+MetricGAN ``metricganp``, 1,914,524, or ``metricganokd``, 2,172,329; drawn
+from ``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32 off
 (as ``chip_smoke.py`` runs it), and times ``train_step`` (forward, the
 kernels' backward, global-norm clip where the family clips, Adam) on a
 batch of ``--batch`` x 4 s (default 16; random mixture and target, the
 family's own criterion: ``snr``, ``multiresyu``, SGMSE+'s weighted ``mse``,
 MANNER's L1 + STFT loss and FFNN's ``mse`` of the mel mask; DCCRN's and
 MANNER's batch norms in train mode, MANNER's through the flash-BN kernels;
-FFNN's dropout on):
+FFNN's dropout on; MetricGAN's GAN step on the batch as its loader gives it
+with ``precompute_metric``, the mono pair and the noisy signal's host
+score):
 
 * ms per step over ``--steps`` steps (CUDA events) with the profiler off
   and on, and the peak device memory of a step;
 * from a ``torch.profiler`` trace of those steps: device time per kernel
   per step, and the device's idle share, one minus the device's busy time
-  (the union of its activity) over the steps' wall time.
+  (the union of its activity) over the steps' wall time;
+* for MetricGAN, the step's three parts on the host clock (each ended by a
+  synchronize): the candidates, their scoring (host PESQ of the enhanced
+  and the augmented signals through the spawn pool, whose start-up is paid
+  before the timing), and the generators' and the discriminator's updates.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON
 object; ``--trace`` also writes the Chrome trace.
@@ -27,7 +34,8 @@ object; ``--trace`` also writes the Chrome trace.
         [--trace PATH]
 
 SGMSE+ and IDMSE are profiled at SGMSE+'s reference batch, ``--arch
-sgmsep --batch 4`` (``idmse``, ``idmselarge``).
+sgmsep --batch 4`` (``idmse``, ``idmselarge``); MetricGAN at its config's
+32 s of audio a batch, ``--arch metricganp --batch 8``.
 ``--cudnn-benchmark`` lets cuDNN time its convolution algorithms for each
 new shape and keep the fastest (``torch.backends.cudnn.benchmark``); the
 port's entry points leave it off.
@@ -37,6 +45,7 @@ import argparse
 import json
 import subprocess
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -87,7 +96,35 @@ def make_trainer(device, model_dir, seed=0, batch=16, seconds=4.0,
                             .astype(np.float32)).to(trainer.device)
     lengths = torch.full((batch,), n, dtype=torch.int32,
                          device=trainer.device)
+    if model.loader_transform is not None:
+        # the loader's items: the mono pair and the noisy signal's score
+        items = [model.loader_transform(x) for x in data.cpu().numpy()]
+        data = [torch.from_numpy(np.stack(part)).to(trainer.device)
+                for part in zip(*items)]
+        lengths = torch.tensor([[n, data[1].shape[1]]] * batch,
+                               dtype=torch.int32, device=trainer.device)
     return trainer, data, lengths
+
+
+def gan_step_parts(trainer, data, lengths, steps):
+    """MetricGAN's step in its three parts, ms each on the host clock
+    (each part ended by a synchronize), averaged over ``steps`` steps."""
+    model, parts = trainer.model, {'candidates': 0.0, 'scoring': 0.0,
+                                   'updates': 0.0}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        candidates = model.make_candidates(data, trainer.generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scores = model.score_candidates(data, lengths, candidates)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        model.update(trainer, data, scores, candidates[3])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, ms in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[name] += 1e3 * ms / steps
+    return parts
 
 
 def profile(device, steps=5, seed=0, trace=None, arch='convtasnet',
@@ -109,9 +146,10 @@ def profile(device, steps=5, seed=0, trace=None, arch='convtasnet',
                       torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             ms_on = _cuda_ms(step, steps)
+        parts = gan_step_parts(trainer, data, lengths, steps) \
+            if trainer.model.loader_transform is not None else None
     if trace:
         prof.export_chrome_trace(trace)
-
     busy_us, kernels = _device_time(prof)
     per_step = {name: {'ms': us / 1e3 / steps, 'count': n / steps}
                 for name, (us, n) in sorted(kernels.items(),
@@ -126,6 +164,7 @@ def profile(device, steps=5, seed=0, trace=None, arch='convtasnet',
         'device_busy_ms_per_step': busy_us / 1e3 / steps,
         'device_idle_share': 1 - busy_us / 1e3 / (ms_on * steps),
         'kernels_per_step': per_step,
+        'step_parts_ms': parts,
     }
 
 

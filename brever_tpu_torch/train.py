@@ -11,9 +11,10 @@ signature; a value given on the command line replaces the config's
 (``fs`` also sets the dataset's, as in the JAX package). Bools take
 true/false, sets and lists comma-separated items. The default configs'
 validation metrics (``estoi``, ``pesq``, ``snr``) are scored by the device
-twins (``device_val_metrics: true``), so FFNN's default config trains as it
-is; the other ported keys' configs set ``use_amp: true``, which the port
-refuses: pass ``--use_amp false`` for them.
+twins (``device_val_metrics: true``; the host twins without it), so FFNN's
+and MetricGAN's default configs train as they are; the other ported keys'
+configs set ``use_amp: true``, which the port refuses: pass ``--use_amp
+false`` for them.
 """
 
 import argparse
@@ -110,7 +111,11 @@ def build_trainer(argv=None):
     model = ModelRegistry.get(config.arch)(**config.model.to_dict(),
                                            device='cpu')
     dataset_kwargs = config.dataset.to_dict()
-    train_dataset = BreverDataset(path=config.train_path, **dataset_kwargs)
+    # a host-side per-item precompute (MetricGAN's noisy metric score) runs
+    # in the loader of the train set only, as in the JAX package
+    train_dataset = BreverDataset(path=config.train_path,
+                                  transform=model.loader_transform,
+                                  **dataset_kwargs)
     val_kwargs = dict(dataset_kwargs, dynamic_mixing=False,
                       dynamic_mixing_device=False)
     val_dataset = BreverDataset(path=config.val_path, **val_kwargs)

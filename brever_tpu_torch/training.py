@@ -23,10 +23,15 @@ for a family that declares
 ``injects_hyperparams`` (the JAX package wraps its Adam in
 ``optax.inject_hyperparams``), ``[clip, [count, hyperparams, {}, [adam,
 lr]]]`` with the learning rate in ``hyperparams``; without clipping the
-outer ``[clip, ...]`` is absent. A hyperparameter update that
-``on_validate`` returns (TF-GridNet's plateau halving) sets the learning
-rate in place and keeps Adam's moments, as the JAX trainer's
-``_apply_hyper_update`` does, and a checkpoint resumes with it.
+outer ``[clip, ...]`` is absent. A family with steps of its own and a dict
+of optimizers (MetricGAN: ``make_step_fns``, ``optimizer_parts``) keeps
+that dict's layout, ``{'generators': [state, ...], 'discriminator':
+state}``, each state over its part of the flat buffer, and its losses are
+dicts, averaged key by key over an epoch as the JAX ``routine`` does. A
+hyperparameter update that ``on_validate`` returns (TF-GridNet's plateau
+halving) sets the learning rate in place and keeps Adam's moments, as the
+JAX trainer's ``_apply_hyper_update`` does, and a checkpoint resumes with
+it.
 
 Randomness in the loss (SGMSE+ draws t and its noise) comes from a
 ``torch.Generator`` on the trainer's device, seeded from ``seed`` and
@@ -46,17 +51,18 @@ statistics, which its batch norms update in the forward of each train step
 validation reads in eval mode. The EMA covers the parameters only, as the
 JAX trainer's does.
 
-Validation metrics are scored on the device. With ``device_val_metrics``
-(the default) each is its device twin (``metrics_device.DEVICE_METRICS``:
-``stoi``, ``estoi``, ``pesq``, and ``snr``/``sisnr``, the port's metrics),
-as in the JAX trainer, and only the per-item scores leave the card;
-without it ``stoi``/``estoi``/``pesq``, whose host twins are not ported,
-are refused.
+Validation metrics: with ``device_val_metrics`` (the default) each that
+has a device twin (``metrics_device.DEVICE_METRICS``: ``stoi``, ``estoi``,
+``pesq``, and ``snr``/``sisnr``, the port's metrics) is scored on the card,
+as in the JAX trainer, and only the per-item scores leave it; without it
+the enhanced rows go to the host once a batch and the host metrics
+(``metrics.MetricRegistry``: float64 STOI, ESTOI and PESQ with its
+realignment) score them.
 
 Not ported yet, and refused when the trainer is built (ROADMAP.md):
-``use_amp`` (bf16 kernels), ``ddp``, ``profile``, ``use_wandb`` and, without
-``device_val_metrics``, the metrics above. ``compile`` is accepted and
-ignored, as the JAX trainer ignores it; so is ``rank``.
+``use_amp`` (bf16 kernels), ``ddp``, ``profile`` and ``use_wandb``.
+``compile`` is accepted and ignored, as the JAX trainer ignores it; so is
+``rank``.
 """
 
 import contextlib
@@ -224,6 +230,8 @@ class BreverTrainer:
         self._names = [name for name, _ in model.named_parameters()]
         self._param_list = list(model.parameters())
         self.flat = flatten_parameters(model)
+        self.parts = self._part_slices(model.optimizer_parts())
+        self._steps = model.make_step_fns(self)
         self.ema = None
         self.step = 0
         self.generator = torch.Generator(device=self.device)
@@ -242,14 +250,53 @@ class BreverTrainer:
         step 0, the EMA a copy of the parameters, the loss's generator
         seeded with ``seed``."""
         self.model.init_parameters(self.seed)
-        self.optimizer.init(self.flat)
+        for _, opt, part in self._optimizers():
+            opt.init(self.flat[self.parts.get(part, slice(None))])
         self.step = 0
         self.ema = self.flat.clone() if self.use_ema else None
         self.generator.manual_seed(self.seed)
 
+    def _part_slices(self, parts):
+        """``{key: slice}`` of the flat buffer for each part of the model's
+        optimizer (``model.optimizer_parts()``: flax key -> submodule),
+        whose parameters must lie next to each other."""
+        index = {id(p): i for i, p in enumerate(self._param_list)}
+        offsets = np.cumsum([0] + [p.numel() for p in self._param_list])
+        slices = {}
+        for key, module in parts.items():
+            ids = sorted(index[id(p)] for p in module.parameters())
+            if ids != list(range(ids[0], ids[-1] + 1)):
+                raise ValueError(f'the parameters of part {key} are not '
+                                 'contiguous')
+            slices[key] = slice(int(offsets[ids[0]]),
+                                int(offsets[ids[-1] + 1]))
+        return slices
+
+    def _optimizers(self):
+        """``(path, optimizer, part)`` of each optimizer: the model's one
+        over the whole buffer (path and part ``None``), or, for a family
+        with a dict of them (MetricGAN's ``generators`` list and
+        ``discriminator``), each with its path in the dict and its part's
+        flax key (``part`` attribute)."""
+        if not isinstance(self.optimizer, dict):
+            return [(None, self.optimizer, None)]
+        out = []
+        for name, value in self.optimizer.items():
+            if isinstance(value, (list, tuple)):
+                out += [((name, i), opt, opt.part)
+                        for i, opt in enumerate(value)]
+            else:
+                out.append(((name,), value, value.part))
+        return out
+
     def train_step(self, batch, lengths):
         """One optimizer step on a padded device batch; returns the loss
-        (a device scalar)."""
+        (a device scalar, or a family's dict of them). A family with its
+        own steps (``model.make_step_fns``) runs them instead."""
+        if self._steps is not None:
+            loss = self._steps[0](batch, lengths)
+            self.step += 1
+            return loss
         self.model.train()
         loss = sample_weighted_mean(
             self.model.loss(batch, lengths, self.generator), lengths)
@@ -269,6 +316,8 @@ class BreverTrainer:
         ``val_generator`` reseeded to ``VAL_SEED``: the loss of a batch
         does not depend on the order the sampler gives the batches."""
         self.val_generator.manual_seed(VAL_SEED)
+        if self._steps is not None:
+            return self._steps[1](batch, lengths)
         self.model.eval()
         with self._eval_params():
             return sample_weighted_mean(
@@ -371,7 +420,10 @@ class BreverTrainer:
         metric_totals, metric_counts = {}, {}
         for batch, lengths in dataloader:
             batch, lengths, n_real = self._pad_batch(batch, lengths)
-            batch = torch.from_numpy(batch).to(self.device)
+            if isinstance(batch, list):
+                batch = [torch.from_numpy(b).to(self.device) for b in batch]
+            else:
+                batch = torch.from_numpy(batch).to(self.device)
             lengths = torch.from_numpy(lengths).to(self.device)
             losses.append(step(batch, lengths))
             weights.append(n_real)
@@ -380,11 +432,15 @@ class BreverTrainer:
                                                  n_real).items():
                     metric_totals[k] = metric_totals.get(k, 0.0) + v * n_real
                     metric_counts[k] = metric_counts.get(k, 0) + n_real
-        if losses:
+        if not losses:
+            mean_loss = 0.0
+        elif isinstance(losses[0], dict):
+            mean_loss = {k: float(np.average(
+                torch.stack([loss[k] for loss in losses]).double().cpu()
+                .numpy(), weights=weights)) for k in losses[0]}
+        else:
             values = torch.stack(losses).double().cpu().numpy()
             mean_loss = float(np.average(values, weights=weights))
-        else:
-            mean_loss = 0.0
         if train:
             return mean_loss
         metrics = None
@@ -396,8 +452,15 @@ class BreverTrainer:
     @torch.no_grad()
     def compute_metrics(self, batch, lengths, n_real):
         """Metrics of the enhanced first source (the mixture) against the
-        channel mean of the second (the target), over the real rows; with
-        ``device_val_metrics`` by the device twins."""
+        channel mean of the second (the target), over the real rows: with
+        ``device_val_metrics`` by the device twins where a metric has one,
+        the others (all of them without it) by the host metrics on the
+        rows copied to the host once; a host metric that raises
+        ``RuntimeError`` is skipped with a warning, as in the JAX trainer.
+        A batch that the loader transformed into a list (MetricGAN's
+        training items) has no metrics."""
+        if isinstance(batch, (list, tuple)):
+            return {}
         inputs = batch[:, 0]
         targets = batch[:, 1].mean(dim=-2)
         self.model.eval()
@@ -406,11 +469,24 @@ class BreverTrainer:
         if enhanced.ndim == 3:  # separation models: first source
             enhanced = enhanced[:, 0]
         lengths = lengths[:, 0] if lengths.ndim > 1 else lengths
-        lookup = DEVICE_METRICS.get if self.device_val_metrics \
-            else MetricRegistry.get
-        return {name: float(lookup(name)(enhanced, targets, lengths)[:n_real]
-                            .mean())
-                for name in sorted(self.val_metrics)}
+        out, host = {}, None
+        for name in sorted(self.val_metrics):
+            device_fn = self.device_val_metrics and DEVICE_METRICS.get(name)
+            if device_fn:
+                out[name] = float(device_fn(enhanced, targets,
+                                            lengths)[:n_real].mean())
+                continue
+            if host is None:
+                host = [t[:n_real].cpu().numpy()
+                        for t in (enhanced, targets, lengths)]
+            try:
+                values = MetricRegistry.get(name)(host[0], host[1],
+                                                  lengths=host[2])
+            except RuntimeError as e:
+                logging.warning(f'skipping metric {name}: {e}')
+                continue
+            out[name] = float(np.mean(np.asarray(values)))
+        return out
 
     # ------------------------------------------------------------------
     # helpers
@@ -418,12 +494,17 @@ class BreverTrainer:
     @staticmethod
     def _pad_batch(batch, lengths, quantum=8):
         """Round the batch axis up to a multiple of 8 with copies of the
-        first row, of length 0."""
+        first row, of length 0; a list batch (a loader transform's items)
+        element by element."""
         n_real = lengths.shape[0]
         pad = (-n_real) % quantum
+
+        def pad_rows(x):
+            return np.concatenate([x, np.repeat(x[:1], pad, axis=0)])
+
         if pad:
-            batch = np.concatenate(
-                [batch, np.repeat(batch[:1], pad, axis=0)])
+            batch = [pad_rows(x) for x in batch] \
+                if isinstance(batch, list) else pad_rows(batch)
             lengths = np.concatenate(
                 [lengths, np.zeros((pad,) + lengths.shape[1:],
                                    lengths.dtype)])
@@ -463,37 +544,75 @@ class BreverTrainer:
         return torch.cat([torch.as_tensor(sd[name]).reshape(-1)
                           for name in self._names]).to(self.device)
 
+    def _flax_part(self, vec, part):
+        """A vector over a part's slice as that part's flax tree (the
+        whole buffer's tree for ``part`` None)."""
+        if part is None:
+            return self._flax(vec)
+        full = torch.zeros_like(self.flat)
+        full[self.parts[part]] = vec
+        return self._flax(full)[part]
+
+    def _flat_part(self, tree, part):
+        """The inverse of :meth:`_flax_part`."""
+        if part is None:
+            return self._flat_from_flax(tree)
+        full = self._flax(torch.zeros_like(self.flat))
+        full[part] = tree
+        return self._flat_from_flax(full)[self.parts[part]]
+
     def _opt_state_tree(self):
-        """The optimizer state in optax's layout (module docstring)."""
-        opt = self.optimizer.state_dict()
-        count = np.asarray(opt['count'].cpu())
+        """The optimizer state in optax's layout (module docstring); for a
+        dict of optimizers, that dict of their states, a list of them where
+        the dict has a list."""
+        trees = {}
+        for path, opt, part in self._optimizers():
+            tree = self._adam_tree(opt, part)
+            if path is None:
+                return tree
+            if len(path) == 1:
+                trees[path[0]] = tree
+            else:
+                trees.setdefault(path[0], []).append(tree)
+        return trees
+
+    def _adam_tree(self, optimizer, part):
+        state = optimizer.state_dict()
+        count = np.asarray(state['count'].cpu())
         # optax.adam's second transform: scale_by_learning_rate's state, a
         # schedule's own count (none for a constant rate)
-        rate_state = [np.asarray(opt['schedule_count'], np.int32)] \
-            if 'schedule_count' in opt else []
-        inner = [[count, self._flax(opt['mu']), self._flax(opt['nu'])],
-                 rate_state]
+        rate_state = [np.asarray(state['schedule_count'], np.int32)] \
+            if 'schedule_count' in state else []
+        inner = [[count, self._flax_part(state['mu'], part),
+                  self._flax_part(state['nu'], part)], rate_state]
         if getattr(self.model, 'injects_hyperparams', False):
-            hyper = {key: np.asarray(getattr(self.optimizer, key), np.float32)
+            hyper = {key: np.asarray(getattr(optimizer, key), np.float32)
                      for key in _HYPERPARAMS}
             hyper['eps_root'] = np.asarray(0.0, np.float32)
             inner = [count, hyper, {}, inner]
         return [[], inner] if self.grad_clip else inner
 
     def _load_opt_state_tree(self, tree):
+        for path, opt, part in self._optimizers():
+            node = tree
+            for key in path or ():
+                node = node[key]
+            self._load_adam_tree(opt, part, node)
+
+    def _load_adam_tree(self, optimizer, part, tree):
         """Adam's state and, where the layout has it, the learning rate."""
         inner = tree[1] if self.grad_clip else tree
         if getattr(self.model, 'injects_hyperparams', False):
             _, hyper, _, inner = inner
             for key in _HYPERPARAMS:
-                setattr(self.optimizer, key, float(hyper[key]))
+                setattr(optimizer, key, float(hyper[key]))
         count, mu, nu = inner[0]
         state = {'count': torch.from_numpy(np.array(count)),
-                 'mu': self._flat_from_flax(mu),
-                 'nu': self._flat_from_flax(nu)}
+                 'mu': self._flat_part(mu, part),
+                 'nu': self._flat_part(nu, part)}
         if inner[1]:
             state['schedule_count'] = int(np.asarray(inner[1][0]))
-        self.optimizer.load_state_dict(state)
+        optimizer.load_state_dict(state)
 
     def save_checkpoint(self, path):
         state = {

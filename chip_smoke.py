@@ -15,9 +15,12 @@ parameters from a seed), MANNER (its only width: hidden 60, depth 4,
 (``idmse``, the ADM U-Net: 64 base channels, mults 1, 2, 3, 4, one block
 a level; 16,613,378 random parameters from a seed) and ``idmselarge``
 (SGMSE+'s U-Net geometry with ADM blocks; 70,995,586) on the card, and the
-elementwise-rate probe (K10) in float32 and bfloat16, and FFNN (64 mel
+elementwise-rate probe (K10) in float32 and bfloat16, FFNN (64 mel
 bands, 5 stacks, hidden 1024-1024; 1,509,440 random parameters from a
-seed) with the validation-metric twins on the card.
+seed) with the validation-metric twins on the card, the host metric twins,
+MetricGAN+ and MetricGAN-OKD (two BLSTMs of 200 units and a spectrally
+normalised CNN discriminator; 1,914,524 and 2,172,329 random parameters
+from a seed) and ``test_model``.
 Every family is served through ``EnhanceService(model_dir)`` and trained
 through ``train.main([...])`` on a model directory written here, the entry
 points of ``python -m brever_tpu_torch.serve`` and ``.train``. The phases
@@ -166,7 +169,32 @@ each print one line, with the seconds since the start:
     batch of 16 x 4 s at ragged lengths on the card against the same twins
     in float64 on the CPU, the identity PESQ, each one's ms a batch;
 47. timings: FFNN's f32 train step at 8 x 4 s (its config's 32 s of audio a
-    batch) with its peak memory, ``enhance`` of 1 x 4 s and 16 x 4 s.
+    batch) with its peak memory, ``enhance`` of 1 x 4 s and 16 x 4 s;
+48. the host metric twins (float64 STOI, ESTOI, PESQ wb and nb with its
+    realignment) on phase 46's batch: ms a batch serially and through the
+    spawn pool, the pool's size and start-up, and the device twins on the
+    card within their bounds of them;
+49. MetricGAN+ and MetricGAN-OKD from ``EnhanceService(model_dir)`` (flax
+    params and ``batch_stats``): enhance of (4, 2, 64000) against the same
+    model in float64 on the CPU, two K5 launches a call, HTTP requests of
+    0.05 and 4 s;
+50. one GAN update at 4 x 4 s with given scores and augmented signal on
+    the card against float64 on the CPU (losses, the clipped gradients,
+    BatchNorm statistics, every ``u``/``sigma``; K5/K6 launches; the
+    update lowers the discriminator's loss on its batch), and a step with
+    ``device_metric_scoring`` that never calls the host scorer;
+51. MetricGAN+ trained through train.main from its untouched default
+    config (host PESQ targets: one call an item in the loader, two batched
+    calls a step): finite losses, their course printed, validation by the
+    device twins, last.ckpt (both optimizers, ``aux['batch_stats']``) resumes
+    bitwise and serves; one epoch of MetricGAN-OKD's default config;
+52. ``test_model`` over phase 51's directory and phase 8's Conv-TasNet
+    (K1 launches): input-side scores equal to the host twins run directly,
+    output-side ones against the float64 CPU model's, ``--device_metrics``,
+    ``scores.hdf5`` where h5py imports;
+53. timings: MetricGAN+'s step at 8 x 4 s (its config's 32 s a batch) in
+    its three parts with the card's idle share and peak memory, enhance of
+    1 x 4 s and 16 x 4 s, test_model's audio seconds a second.
 
 Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
 comparisons hold the kernels to float32. Any failure raises (non-zero
@@ -182,12 +210,14 @@ function where there is one. The last line is ``{"ok": true, "device":
 """
 
 import contextlib
+import copy
 import http.client
 import io
 import json
 import math
 import os
 import platform
+import shutil
 import subprocess
 import sys
 import tarfile
@@ -449,7 +479,7 @@ def train_args(model_dir, epochs, val_period, metrics='snr,sisnr'):
             '--val_period', str(val_period), '--use_amp', 'false']
 
 
-def train_and_resume(args, epochs, counters):
+def train_and_resume(args, epochs, counters, after_first=None):
     """``train.main(args(epochs))`` with every launch counter of
     ``counters`` set to 0 just before and read just after; then a trainer
     built from the same command line restores last.ckpt and is held
@@ -457,7 +487,8 @@ def train_and_resume(args, epochs, counters):
     learning rate or a schedule's count, the loss's generator, the
     buffers), and
     ``train.main`` resumes to ``epochs + 2``. Returns the first and the
-    resumed trainer, the first run's seconds and launch counts."""
+    resumed trainer, the first run's seconds and launch counts;
+    ``after_first`` (optional) runs right after the first run."""
     from brever_tpu_torch import train
     for fn, attr in counters:
         setattr(fn, attr, 0)
@@ -466,18 +497,24 @@ def train_and_resume(args, epochs, counters):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = [getattr(fn, attr) for fn, attr in counters]
+    if after_first is not None:
+        after_first()
     probe = train.build_trainer(args(epochs + 2) + ['--force'])
     probe.init_state()
     probe.load_checkpoint()
     buffers = [(a, b) for a, b in zip(probe.model.buffers(),
                                       first.model.buffers())]
+
     def rate(opt):   # a schedule's own count, or the constant rate
         return opt.schedule_count if opt.scheduled else opt.learning_rate
 
+    # every optimizer: the family's one, or MetricGAN's dict of them
+    optimizers = [(a, b) for (_, a, _), (_, b, _) in zip(
+        probe._optimizers(), first._optimizers())]
     if not torch.equal(probe.flat, first.flat) \
-            or not torch.equal(probe.optimizer.mu, first.optimizer.mu) \
-            or not torch.equal(probe.optimizer.nu, first.optimizer.nu) \
-            or rate(probe.optimizer) != rate(first.optimizer) \
+            or not all(torch.equal(a.mu, b.mu) and torch.equal(a.nu, b.nu)
+                       and torch.equal(a.count, b.count)
+                       and rate(a) == rate(b) for a, b in optimizers) \
             or not torch.equal(probe.generator.get_state(),
                                first.generator.get_state()) \
             or not all(torch.equal(a, b) for a, b in buffers) \
@@ -3767,12 +3804,10 @@ def ffnn_times(device, card):
     return out
 
 
-def metric_phase(device, card):
-    """Phase 46: the validation-metric twins on a batch of 16 x 4 s at ragged
-    lengths on the card against the same twins in float64 on the CPU, the
-    identity PESQ, and each metric's ms for that batch."""
-    from brever_tpu_torch import metrics_device as twins
-    rng = np.random.RandomState(46)
+def metric_batch(rng):
+    """``(deg, ref, lengths)``: the validation batch of phases 46 and 48,
+    16 voiced tones of ``METRIC_LENGTHS`` in noise at ``METRIC_SNRS``,
+    float64, zero past each length (time-aligned candidates)."""
     lengths = np.array(METRIC_LENGTHS)
     n_max = int(lengths.max())
     t = np.arange(n_max) / FS
@@ -3789,6 +3824,15 @@ def metric_phase(device, card):
         ref[i, :n] = clean
         deg[i, :n] = clean + rng.randn(n) * np.sqrt(
             np.mean(clean ** 2) / 10 ** (snr / 10))
+    return deg, ref, lengths
+
+
+def metric_phase(device, card):
+    """Phase 46: the validation-metric twins on a batch of 16 x 4 s at ragged
+    lengths on the card against the same twins in float64 on the CPU, the
+    identity PESQ, and each metric's ms for that batch."""
+    from brever_tpu_torch import metrics_device as twins
+    deg, ref, lengths = metric_batch(np.random.RandomState(46))
     x = torch.from_numpy(deg).float().to(device)
     y = torch.from_numpy(ref).float().to(device)
     n_dev = torch.from_numpy(lengths).to(device)
@@ -3828,6 +3872,535 @@ def metric_phase(device, card):
     return out
 
 
+METRICGAN_PARAMS = {'metricganp': 1_914_524, 'metricganokd': 2_172_329}
+#: K5 launches of one MetricGAN enhance: the inference generator's two
+#: BLSTMs (B rows each, under the 128-row floor)
+METRICGAN_K5_A_CALL = 2
+#: K5 / K6 launches of one GAN update of one generator: its two BLSTMs in
+#: its loss's forward and again when the updated generator recomputes the
+#: enhanced magnitudes; K6 in the loss's backward
+METRICGAN_K5_AN_UPDATE, METRICGAN_K6_AN_UPDATE = 4, 2
+#: phase 52: a test set's output-side scores of the card's model against
+#: the float64 CPU model's, both scored by the host twins: STOI and ESTOI,
+#: PESQ (MOS) and SNR / SI-SNR (dB). The two outputs differ by ~1e-6 of
+#: the signal (>= 60 dB); PESQ's alignment is a discrete search, so it
+#: gets the widest bound
+TEST_MODEL_ATOL = {'pesq': 1e-2, 'stoi': 1e-3, 'estoi': 1e-3, 'snr': 1e-2,
+                   'sisnr': 1e-2}
+TEST_MODEL_METRICS = ['pesq', 'stoi', 'estoi', 'snr', 'sisnr']
+#: phase 52: ``--device_metrics`` scores against the host twins' on the
+#: same outputs. The device PESQ aligns by one global delay where the host
+#: realigns each utterance and bad interval: on 0 dB tone-in-noise items
+#: (and a random model's output) the two part by more than on phase 48's
+#: voiced items, so PESQ gets 2e-2 MOS; STOI and ESTOI keep the twins' 2e-3
+TEST_MODEL_TWIN_ATOL = {'pesq': 2e-2, 'stoi': 2e-3, 'estoi': 2e-3,
+                        'snr': 1e-3, 'sisnr': 1e-3}
+
+
+def host_metric_phase(device, card):
+    """Phase 48: the host twins (float64, PESQ's realignment) on phase 46's
+    16 x 4 s ragged batch: ms a batch serially and through the spawn pool,
+    the pool's size and start-up; the device twins on the card against
+    them on these time-aligned candidates, within the twins' bounds."""
+    from brever_tpu_torch import metrics as host
+    from brever_tpu_torch import metrics_device as twins
+    from brever_tpu_torch import pesq as pesq_mod
+    deg, ref, lengths = metric_batch(np.random.RandomState(48))
+    pesq_mod.close_pool()
+    size = min(os.cpu_count() or 1, 8)
+    t0 = time.perf_counter()
+    pool = pesq_mod._get_pool(size)
+    if pool is not None:
+        pool.map(abs, range(size))
+    startup = time.perf_counter() - t0
+    x = torch.from_numpy(deg).float().to(device)
+    y = torch.from_numpy(ref).float().to(device)
+    n_dev = torch.from_numpy(lengths).to(device)
+    cases = {
+        'stoi': (host.stoi, {}, twins.stoi_device, STOI_ATOL),
+        'estoi': (host.estoi, {}, twins.estoi_device, STOI_ATOL),
+        'pesq': (host.pesq, {'mode': 'wb'}, twins.pesq_device, PESQ_ATOL),
+        'pesq_nb': (host.pesq, {'mode': 'nb'},
+                    lambda a, b, n: twins.pesq_device(a, b, n, mode='nb'),
+                    PESQ_ATOL),
+    }
+    out = {'pool_size': size if pool is not None else 0,
+           'pool_startup_s': startup, 'first_pool_ms': {}, 'pool_ms': {},
+           'serial_ms': {}, 'gap': {}}
+    notes = []
+    for name, (fn, kwargs, twin, atol) in cases.items():
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pooled = fn(deg, ref, lengths=lengths, **kwargs)
+            times.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        serial = fn(deg, ref, batched=False, lengths=lengths, **kwargs)
+        out['serial_ms'][name] = 1e3 * (time.perf_counter() - t0)
+        out['first_pool_ms'][name], out['pool_ms'][name] = times
+        if not np.array_equal(serial, pooled, equal_nan=True):
+            raise AssertionError(f'{name}: the pool and the serial path '
+                                 'differ')
+        on_card = twin(x, y, n_dev).double().cpu().numpy()
+        gap = float(np.max(np.abs(on_card - pooled)))
+        if not gap <= atol:
+            raise AssertionError(f'{name}: the device twin is {gap:.3e} '
+                                 f'from the host twin (<= {atol})')
+        out['gap'][name] = gap
+        notes.append(f'{name} {out["serial_ms"][name]:.0f} ms serial, '
+                     f'{times[1]:.0f} pooled (first {times[0]:.0f}), twin '
+                     f'gap {gap:.1e}')
+    phase(48, f'[{card}] host twins on 16 x 4 s at ragged lengths (0.25-4 s,'
+          f' 20 to -5 dB), float64 on the host: {"; ".join(notes)} (bounds:'
+          f' STOI {STOI_ATOL}, PESQ {PESQ_ATOL} MOS); spawn pool of '
+          f'{out["pool_size"]} workers started in {startup:.2f} s')
+    return out
+
+
+def gan_descent(before, after, args, loss_d):
+    """``(loss_d, after's)``: the discriminator's loss that a GAN update
+    took its gradient of, and the same loss at the updated parameters
+    from the same starting state (``before``'s BatchNorm statistics and
+    spectral-norm ``u``, the updated generators' enhanced magnitudes)."""
+    model = copy.deepcopy(before)
+    names = dict(model.named_parameters())
+    model.load_state_dict({k: v for k, v in after.state_dict().items()
+                           if k in names}, strict=False)
+    batch, scores, aug = args
+    with torch.no_grad():
+        noisy, clean = model._split_batch(batch)
+        noisy_mag = model._stft_mag_phase(noisy)[0]
+        clean_mag = model._stft_mag_phase(clean)[0]
+        enh = [g(noisy_mag) for g in model.generators]
+        updated = model._discriminator_loss(noisy_mag, clean_mag, enh, aug,
+                                            scores, True)
+    return loss_d, float(updated)
+
+
+def metricgan_state(arch, seed):
+    """A default ``arch`` drawn from ``seed`` on the CPU, its discriminator
+    state moved off its initial values by one train-mode call: ``(model,
+    state_dict)``."""
+    from brever_tpu_torch.models import ModelRegistry
+    model = ModelRegistry.get(arch)(device='cpu')
+    model.init_parameters(seed)
+    mag = torch.rand(2, 257, 40, generator=torch.Generator().manual_seed(
+        seed))
+    model.discriminator(mag, mag.flip(-1), train=True)
+    return model, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def metricgan_phases(device, card):
+    """Phases 49-51: MetricGAN+ and MetricGAN-OKD served, one GAN update
+    against float64, and MetricGAN+ trained from its untouched config."""
+    from brever_tpu_torch import train
+    from brever_tpu_torch.checkpoint import load_checkpoint
+    from brever_tpu_torch.models import ModelRegistry, count_params
+    from brever_tpu_torch.models import metricgan
+    from brever_tpu_torch.ops import lstm_scan as lstm
+    from brever_tpu_torch.profile_train import _Items
+    from brever_tpu_torch.serve import EnhanceService, build_model
+    from brever_tpu_torch.training import BreverTrainer
+    counters = kernel_counters()
+    out = {'launches_serve': 0, 'launches_train': 0,
+           'launches_train_bwd': 0}
+
+    # ---- phase 49: both keys from EnhanceService(model_dir)
+    rng = np.random.RandomState(49)
+    notes = []
+    for k, arch in enumerate(('metricganp', 'metricganokd')):
+        model, state = metricgan_state(arch, 49 + k)
+        params, aux = model.to_flax(state), model.flax_aux(state)
+        del model
+        with tempfile.TemporaryDirectory() as tmp:
+            model_dir = write_model_dir(os.path.join(tmp, 'model'), arch,
+                                        params=params, aux=aux)
+            gpu = EnhanceService(model_dir, device)
+        if count_params(gpu.model) != METRICGAN_PARAMS[arch]:
+            raise AssertionError(f'{arch}: {count_params(gpu.model)} '
+                                 'parameters')
+        if not all(torch.equal(v.cpu(), state[key]) for key, v in
+                   gpu.model.state_dict().items()):
+            raise AssertionError(f'{arch}: the served model lacks its '
+                                 'batch_stats')
+        ref = ModelRegistry.get(arch)(device='cpu')
+        ref.load_state_dict(state)
+        ref = ref.double().eval()
+        mix = (0.1 * rng.randn(4, 2, 4 * FS)).astype(np.float32)
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        enhanced = gpu.model.enhance(mix)
+        torch.cuda.synchronize()
+        launched = [getattr(fn, attr) for fn, attr in counters]
+        k5 = lstm.lstm_scan.launches
+        if k5 != METRICGAN_K5_A_CALL or sum(launched) != k5:
+            raise AssertionError(f'{arch} enhance launched {launched}')
+        out['launches_serve'] += k5
+        snr, err = check_output(f'{arch} enhance (4, 2, 64000)',
+                                ref.enhance(mix).numpy(),
+                                enhanced.cpu().numpy())
+        http = []
+        with http_service(gpu) as (port, health):
+            if health['params'] != METRICGAN_PARAMS[arch] \
+                    or health['arch'] != arch:
+                raise AssertionError(f'/health: {health}')
+            for seconds in (0.05, 4):
+                audio = (0.1 * rng.randn(int(seconds * FS))) \
+                    .astype(np.float32)
+                before = lstm.lstm_scan.launches
+                got = post_wav(port, audio)
+                if lstm.lstm_scan.launches - before != METRICGAN_K5_A_CALL:
+                    raise AssertionError(f'{arch} /enhance {seconds} s: '
+                                         f'{lstm.lstm_scan.launches - before}'
+                                         ' K5 launches')
+                out['launches_serve'] += METRICGAN_K5_A_CALL
+                http_snr, _ = check_output(
+                    f'{arch} /enhance {seconds} s',
+                    ref.enhance(np.stack([audio, audio])).numpy(), got)
+                http.append(f'{seconds} s {http_snr:.1f} dB')
+        notes.append(f'{arch} ({METRICGAN_PARAMS[arch]:,} parameters) '
+                     f'{snr:.2f} dB, max abs err {err:.3e}, {k5} K5 launches;'
+                     f' /enhance {", ".join(http)}')
+        if arch == 'metricganp':
+            out['enhance_1'] = cuda_ms(lambda: gpu.model.enhance(mix[:1]),
+                                       10)
+            batch16 = np.concatenate([mix] * 4)
+            out['enhance_16'] = cuda_ms(lambda: gpu.model.enhance(batch16),
+                                        5)
+        del gpu, ref
+    phase(49, f'MetricGAN from EnhanceService(model_dir) (flax params and '
+          f'batch_stats; two BLSTMs of 200 units, 224 in K5): enhance (4, 2, '
+          f'64000) vs the same model in float64 on the CPU: '
+          f'{"; ".join(notes)}')
+
+    # ---- phase 50: one GAN update at 4 x 4 s on the card vs float64
+    sources = tone_sources(np.random.RandomState(50), 4, 4.0)
+    scores = {'noisy': rng.rand(4, 1), 'enh': rng.rand(1, 4, 1),
+              'aug': rng.rand(4, 1)}
+    aug = sources[:, 1].mean(-2) + 0.01 * rng.randn(4, 4 * FS)
+    items = _Items(4, 4.0)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, dev, dtype in (('card', device, torch.float32),
+                                 ('f64', 'cpu', torch.float64)):
+            model = ModelRegistry.get('metricganp')(device='cpu').to(dtype)
+            trainer = BreverTrainer(model, items, items,
+                                    os.path.join(tmp, name), device=dev,
+                                    val_metrics={'snr'}, seed=50)
+            trainer.init_state()
+            before = copy.deepcopy(trainer.model)
+            args = (torch.from_numpy(sources).to(dev, dtype),
+                    {k: torch.from_numpy(v).to(dev, dtype)
+                     for k, v in scores.items()},
+                    torch.from_numpy(aug).to(dev, dtype))
+            for fn, attr in counters:
+                setattr(fn, attr, 0)
+            loss = trainer.model.update(trainer, *args)
+            if dev == device:
+                torch.cuda.synchronize()
+                launched = [getattr(fn, attr) for fn, attr in counters]
+                step_k5, step_k6 = (lstm.lstm_scan.launches,
+                                    lstm.lstm_scan_bwd.launches)
+                descent = gan_descent(before, trainer.model, args,
+                                      float(loss['loss_d']))
+            runs[name] = (trainer, loss)
+    (card_tr, card_loss), (ref_tr, ref_loss) = runs['card'], runs['f64']
+    if (step_k5, step_k6) != (METRICGAN_K5_AN_UPDATE,
+                              METRICGAN_K6_AN_UPDATE) \
+            or sum(launched) != step_k5 + step_k6:
+        raise AssertionError(f'a GAN update launched {launched}')
+    out['launches_train'] += step_k5
+    out['launches_train_bwd'] += step_k6
+    loss_db, _ = check_close('GAN losses', list(ref_loss),
+                             [ref_loss[k].reshape(1) for k in ref_loss],
+                             [card_loss[k].reshape(1).cpu()
+                              for k in ref_loss])
+    parts = [('generator', card_tr.optimizer['generators'][0],
+              ref_tr.optimizer['generators'][0]),
+             ('discriminator', card_tr.optimizer['discriminator'],
+              ref_tr.optimizer['discriminator'])]
+    grad_db, grad_err = check_close(
+        'GAN gradients (Adam first moments)', [p[0] for p in parts],
+        [p[2].mu for p in parts], [p[1].mu.cpu() for p in parts])
+    ref_sd, card_sd = ref_tr.model.state_dict(), card_tr.model.state_dict()
+    state_keys = [k for k in ref_sd if '.spectral.' in k
+                  or k.endswith(('norm.mean', 'norm.var'))]
+    state_db, state_err = check_close(
+        'discriminator state', state_keys, [ref_sd[k] for k in state_keys],
+        [card_sd[k].cpu() for k in state_keys])
+    del runs, card_tr, ref_tr
+    if not descent[1] < descent[0]:
+        raise AssertionError(f'the discriminator\'s update raised its loss '
+                             f'{descent[0]:.6f} -> {descent[1]:.6f}')
+    # device_metric_scoring: the whole step on the card, no host scorer
+    model = ModelRegistry.get('metricganp')(device_metric_scoring=True,
+                                            device='cpu')
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError('the host scorer ran with device scoring on')
+
+    model._score = forbidden
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = BreverTrainer(model, items, items, tmp, device=device,
+                                val_metrics={'snr'}, seed=50)
+        trainer.init_state()
+        data = torch.from_numpy(sources).to(device)
+        n = torch.full((4,), 4 * FS, device=device)
+        before = lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches
+        dev_loss = trainer.train_step(data, n)
+        torch.cuda.synchronize()
+        out['launches_train'] += lstm.lstm_scan.launches - before[0]
+        out['launches_train_bwd'] += lstm.lstm_scan_bwd.launches - before[1]
+    if not all(torch.isfinite(v) for v in dev_loss.values()):
+        raise AssertionError(f'device-scored step: {dev_loss}')
+    del trainer, model
+    phase(50, f'one GAN update of MetricGAN+ at 4 x 4 s (given scores and '
+          f'augmented signal) on the card vs float64 on the CPU: losses '
+          f'{loss_db:.1f} dB (loss_g {float(card_loss["loss_g"]):.4f}, loss_d'
+          f' {float(card_loss["loss_d"]):.4f}), clipped gradients (Adam\'s '
+          f'first moments) of the generator and the discriminator worst '
+          f'{grad_db:.1f} dB, max abs err {grad_err:.3e}, BatchNorm '
+          f'statistics and {len(state_keys) - 2} spectral-norm u/sigma '
+          f'{state_db:.1f} dB, max abs err {state_err:.3e} (>= {MIN_SNR_DB} '
+          f'dB, <= {MAX_REL_ERR} of the largest); the update lowers the '
+          f'discriminator\'s loss on its batch {descent[0]:.6f} -> '
+          f'{descent[1]:.6f}; {step_k5} K5 / {step_k6} K6 launches, no '
+          f'K3/K4; a train step with device_metric_scoring '
+          f'(candidates, PESQ targets by the device twin) never called the '
+          f'host scorer: loss_g {float(dev_loss["loss_g"]):.4f}, loss_d '
+          f'{float(dev_loss["loss_d"]):.4f}')
+
+    # ---- phase 51: train.main from the untouched metricganp.yaml
+    epochs, val_period = 16, 8
+    calls = []
+    host_metrics = metricgan._host_metrics
+
+    def counting(names, fs):
+        score = host_metrics(names, fs)
+
+        def wrapped(deg, ref, lengths):
+            calls.append(np.asarray(deg).shape[0])
+            return score(deg, ref, lengths)
+        return wrapped
+
+    first_calls = []
+    metricgan._host_metrics = counting
+    tmp = tempfile.mkdtemp()
+    try:
+        model_dir = tone_model_dir(tmp, 'metricganp', 51)
+        first, second, train_s, launched = train_and_resume(
+            lambda n: [model_dir, '--device', 'cuda', '--epochs', str(n),
+                       '--val_period', str(val_period)], epochs, counters,
+            after_first=lambda: first_calls.extend(calls))
+    finally:
+        metricgan._host_metrics = host_metrics
+    k5, k6 = (launched[[fn for fn, _ in counters].index(f)]
+              for f in (lstm.lstm_scan, lstm.lstm_scan_bwd))
+    if k5 == 0 or k6 == 0 or sum(launched) != k5 + k6:
+        raise AssertionError(f'MetricGAN training launched {launched}')
+    out['launches_train'] += k5
+    out['launches_train_bwd'] += k6
+    if first.use_ema or not first.device_val_metrics \
+            or first.val_metrics != {'estoi', 'pesq', 'snr'} \
+            or not first.model.precompute_metric \
+            or first.model.device_metric_scoring \
+            or first.model.target_metrics != ['pesq']:
+        raise AssertionError('the trainer did not take the default config')
+    steps = len(first.train_batch_sampler)
+    val_steps = len(first.val_batch_sampler) * (epochs // val_period)
+    singles = sum(1 for c in first_calls if c == 1)
+    batched = sum(1 for c in first_calls if c > 1)
+    if singles != epochs * len(first.train_dataset) \
+            or batched != 2 * steps * epochs + 3 * val_steps:
+        raise AssertionError(f'host scorer calls: {singles} single, '
+                             f'{batched} batched')
+    losses = first.loss_logger.train_loss
+    loss_d = [x['loss_d'] for x in losses]
+    loss_g = [x['loss_g'] for x in losses]
+    last_d = float(np.mean(loss_d[-3:]))
+    if not np.isfinite(loss_d + loss_g).all():
+        raise AssertionError(f'MetricGAN losses {losses}')
+    metrics = [m for m in first.loss_logger.metrics if m]
+    if len(metrics) != epochs // val_period \
+            or sorted(metrics[-1]) != ['estoi', 'pesq', 'snr'] \
+            or not all(np.isfinite(v) for v in metrics[-1].values()):
+        raise AssertionError(f'MetricGAN validation metrics {metrics}')
+    ckpt = load_checkpoint(second.last_ckpt_path)
+    stats = ckpt['aux']['batch_stats']['discriminator']
+    if sorted(ckpt['opt_state']) != ['discriminator', 'generators'] \
+            or len(ckpt['opt_state']['generators']) != 1 \
+            or stats['SpectralNorm_0']['conv_0/kernel/u'].shape != (1, 15):
+        raise AssertionError('last.ckpt lacks the GAN state')
+    served = build_model('metricganp', {}, ckpt['params'], device,
+                         ckpt['aux'])
+    item = second.val_dataset[0][0][None]
+    torch.testing.assert_close(served.enhance(item),
+                               second.model.enhance(item), atol=1e-6,
+                               rtol=1e-5)
+    out['model_dir'] = model_dir
+    out['tmp'] = tmp
+    del first, second, served
+    with tempfile.TemporaryDirectory() as okd_tmp:
+        okd_dir = tone_model_dir(okd_tmp, 'metricganokd', 52)
+        okd = train.main([okd_dir, '--device', 'cuda', '--epochs', '1',
+                          '--val_period', '1'])
+        okd_loss = okd.loss_logger.train_loss[0]
+        if not all(np.isfinite(v) for v in okd_loss.values()) \
+                or okd.model.n_generators != 1:
+            raise AssertionError(f'MetricGAN-OKD: {okd_loss}')
+        del okd
+    phase(51, f'train.main from the untouched config/models/metricganp.yaml '
+          f'(only --device, --epochs, --val_period), 24 x 1 s tone-in-noise '
+          f'WAV items, {steps} GAN step(s) an epoch, {epochs} epochs in '
+          f'{train_s:.1f} s: loss_d {loss_d[0]:.4f} -> {last_d:.4f} (min '
+          f'{min(loss_d):.4f}, max {max(loss_d):.4f}: one step an epoch at lr'
+          f' 1e-4 under a new augmentation SNR each step; phase 50 holds the'
+          f' fall on a fixed batch), loss_g {loss_g[0]:.4f} -> '
+          f'{float(np.mean(loss_g[-3:])):.4f}; host PESQ targets: {singles} '
+          f'single-item calls in the loader (one an item an epoch), '
+          f'{batched} batched calls (two a train step, three a validation '
+          f'step); val estoi {metrics[-1]["estoi"]:.4f} pesq '
+          f'{metrics[-1]["pesq"]:.3f} snr {metrics[-1]["snr"]:.2f} dB (device '
+          f'twins); K5 {k5} / K6 {k6} launches; resumed bitwise (both '
+          f'optimizers, aux[\'batch_stats\']) from last.ckpt to epoch '
+          f'{epochs + 2}; the checkpoint serves; metricganokd\'s default '
+          f'config one epoch: loss_g {okd_loss["loss_g"]:.4f}, loss_d '
+          f'{okd_loss["loss_d"]:.4f}')
+    return out
+
+
+def test_model_phase(device, card, dirs):
+    """Phase 52: ``test_model`` over MetricGAN+'s trained directory and
+    Conv-TasNet's (K1 launches), host twins and ``--device_metrics``."""
+    import importlib.util
+    from brever_tpu_torch import metrics as host
+    from brever_tpu_torch import test_model as tm
+    from brever_tpu_torch.config import get_config
+    from brever_tpu_torch.data import BreverDataLoader, BreverDataset
+    from brever_tpu_torch.batching import SortedBatchSampler
+    from brever_tpu_torch.ops import lstm_scan as lstm
+    from brever_tpu_torch.ops import tcn_block as tcn
+    write = importlib.util.find_spec('h5py') is not None
+    out, notes = {'audio_s_per_s': {}}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        test_set = os.path.join(tmp, 'test_set')
+        write_tone_dataset(test_set, 6, 2.0, 52)
+        for arch, model_dir in dirs:
+            cfg = get_config(os.path.join(model_dir, 'config.yaml'))
+            ckpt = os.path.join(model_dir, 'checkpoints', 'last.ckpt')
+            model = tm.load_model(model_dir, ckpt, cfg, device)
+            ref = tm.load_model(model_dir, ckpt, cfg, 'cpu').double()
+            scores, seconds = {}, {}
+            for device_metrics in (False, True):
+                args = tm.parse_args(
+                    ['-i', model_dir, '-t', test_set, '--force']
+                    + (['--device_metrics'] if device_metrics else []))
+                before = (tcn.tcn_block.launches, lstm.lstm_scan.launches)
+                t0 = time.perf_counter()
+                scores[device_metrics] = tm.test_model(
+                    args, model, cfg, test_set,
+                    os.path.join(model_dir, 'scores.hdf5'), ckpt,
+                    TEST_MODEL_METRICS, write=write and not device_metrics)
+                torch.cuda.synchronize()
+                seconds[device_metrics] = time.perf_counter() - t0
+                launched = (tcn.tcn_block.launches - before[0],
+                            lstm.lstm_scan.launches - before[1])
+            # the host twins run directly on the same items, and on the
+            # float64 CPU model's output
+            dataset = BreverDataset(test_set, fs=FS)
+            batch, lengths = next(iter(BreverDataLoader(
+                dataset, SortedBatchSampler(dataset, batch_size=20,
+                                            shuffle=False, dynamic=True,
+                                            reverse=True))))
+            inputs, target = batch[:, 0].mean(-2), batch[:, 1].mean(-2)
+            with torch.no_grad():
+                want_out = ref._enhance(torch.from_numpy(
+                    batch[:, 0]).double()).numpy()
+            if want_out.ndim == 3:
+                want_out = want_out[:, 0]
+            gaps, twin_gaps = {}, {}
+            for i, name in enumerate(TEST_MODEL_METRICS):
+                fn = host.MetricRegistry.get(name)
+                want_in = np.asarray(fn(inputs, target, lengths=lengths))
+                got = scores[False][:, i]
+                exact = name not in ('snr', 'sisnr')
+                if (exact and not np.array_equal(got[:, 0], want_in)) or \
+                        not np.allclose(got[:, 0], want_in, rtol=0,
+                                        atol=1e-5):
+                    raise AssertionError(f'{arch} {name}: input scores '
+                                         f'{got[:, 0]} vs {want_in}')
+                want = np.asarray(fn(want_out, target, lengths=lengths))
+                gaps[name] = float(np.max(np.abs(got[:, 1] - want)))
+                if not gaps[name] <= TEST_MODEL_ATOL[name]:
+                    raise AssertionError(f'{arch} {name}: output scores '
+                                         f'{gaps[name]:.3e} from float64')
+                twin_gap = float(np.max(np.abs(scores[True][:, i]
+                                               - scores[False][:, i])))
+                twin_gaps[name] = twin_gap
+                if not twin_gap <= TEST_MODEL_TWIN_ATOL[name]:
+                    raise AssertionError(f'{arch} {name}: --device_metrics '
+                                         f'{twin_gap:.3e} from the host')
+            expected = (24 if arch == 'convtasnet' else 0,
+                        METRICGAN_K5_A_CALL if arch == 'metricganp' else 0)
+            if launched != expected:
+                raise AssertionError(f'{arch} test_model launched '
+                                     f'{launched}, not {expected}')
+            if write:
+                import h5py
+                with h5py.File(os.path.join(model_dir, 'scores.hdf5'),
+                               'r') as f:
+                    shape = f['last.ckpt/test_set'].shape
+                if shape != (6, len(TEST_MODEL_METRICS), 2):
+                    raise AssertionError(f'scores.hdf5 holds {shape}')
+            out['audio_s_per_s'][arch] = 12.0 / seconds[False]
+            out['audio_s_per_s'][arch + '_device_metrics'] = \
+                12.0 / seconds[True]
+            notes.append(
+                f'{arch} ({launched[0]} K1 / {launched[1]} K5 launches a '
+                f'call) output vs float64: ' + ', '.join(
+                    f'{k} {v:.1e}' for k, v in gaps.items())
+                + '; --device_metrics vs the host: ' + ', '.join(
+                    f'{k} {v:.1e}' for k, v in twin_gaps.items())
+                + f'; {12.0 / seconds[False]:.1f} audio s/s (host twins), '
+                f'{12.0 / seconds[True]:.1f} (--device_metrics)')
+            del model, ref
+    out['written'] = write
+    phase(52, f'[{card}] test_model over 6 x 2 s tone-in-noise mixtures with '
+          f'{" ".join(TEST_MODEL_METRICS)}: input-side scores equal to the '
+          f'host twins run directly (bitwise; snr/sisnr within 1e-5 dB); '
+          f'{"; ".join(notes)} (bounds: ' + ', '.join(
+              f'{k} {v}' for k, v in TEST_MODEL_ATOL.items())
+          + '; --device_metrics: ' + ', '.join(
+              f'{k} {v}' for k, v in TEST_MODEL_TWIN_ATOL.items()) + '); '
+          + ('scores.hdf5 written and read back' if write else
+             'h5py is not installed here: the scores stop before '
+             'scores.hdf5, whose write a CPU test holds'))
+    return out
+
+
+def metricgan_times(device, card, served, tested):
+    """Phase 53: MetricGAN+'s step at its config's 32 s a batch (8 x 4 s)
+    in three parts with the card's idle share and peak memory; enhance of
+    1 x 4 s and 16 x 4 s; test_model's audio seconds a second."""
+    from brever_tpu_torch import profile_train
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    prof = profile_train.profile(device, steps=3, arch='metricganp', batch=8)
+    torch.cuda.empty_cache()
+    parts = prof['step_parts_ms']
+    phase(53, f'[{card}] MetricGAN+ GAN step at 8 x 4 s (32 s of audio, the '
+          f'config\'s batch_size): {prof["train_step_batch_x4s_ms"]:.1f} ms '
+          f'(candidates {parts["candidates"]:.1f}, host PESQ scoring '
+          f'{parts["scoring"]:.1f}, the two updates {parts["updates"]:.1f} ms'
+          f' on the host clock), card idle '
+          f'{100 * prof["device_idle_share"]:.1f} %, peak {prof["peak_memory_mib"]:.1f} MiB (earlier phases hold '
+          f'{held / 2 ** 20:.1f}); enhance 1 x 4 s {served["enhance_1"]:.2f} '
+          f'ms, 16 x 4 s {served["enhance_16"]:.2f} ms; test_model '
+          + ', '.join(f'{k} {v:.1f}' for k, v in
+                      tested['audio_s_per_s'].items()) + ' audio s/s')
+    return prof
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -3852,7 +4425,7 @@ def main():
     nvcc = subprocess.run([build.find_nvcc(), '--version'], check=True,
                           capture_output=True, text=True).stdout
     optional = []
-    for name in ('yaml', 'msgpack'):
+    for name in ('yaml', 'msgpack', 'h5py'):
         try:
             __import__(name)
             optional.append(f'{name} importable')
@@ -4121,6 +4694,7 @@ def main():
           f'magnitude (<= 1e-5); {launches_bwd} backward launches')
 
     # ---- phase 8: training through train.main on the card
+    keep = tempfile.mkdtemp()
     epochs = 24
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = tone_model_dir(tmp, 'convtasnet', 10)
@@ -4137,6 +4711,8 @@ def main():
             raise AssertionError(f'training loss {losses[0]:.2f} -> '
                                  f'{np.mean(losses[-3:]):.2f} dB')
         ckpt = second.last_ckpt_path
+        # phase 52 scores a test set with this directory
+        shutil.copytree(model_dir, os.path.join(keep, 'convtasnet'))
         served = build_model('convtasnet', {},
                              load_checkpoint(ckpt)['params'], device)
         mix = second.val_dataset[0][0][None]
@@ -4207,6 +4783,19 @@ def main():
     ffnn_phases(device)
     metric_phase(device, card)
     ffnn_times(device, card)
+    try:
+        host_metric_phase(device, card)
+        mg = metricgan_phases(device, card)
+        tested = test_model_phase(
+            device, card, [('metricganp', mg['model_dir']),
+                           ('convtasnet', os.path.join(keep, 'convtasnet'))])
+        metricgan_times(device, card, mg, tested)
+    finally:
+        from brever_tpu_torch.pesq import close_pool
+        close_pool()
+        shutil.rmtree(keep, ignore_errors=True)
+        if 'mg' in locals():
+            shutil.rmtree(mg['tmp'], ignore_errors=True)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
@@ -4393,10 +4982,13 @@ def main():
         'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:155',
         'launches': dcc['launches_serve'] + dcc['launches_train']
-        + dcc['launches_http'] + grid['k5_launches_http'],
+        + dcc['launches_http'] + grid['k5_launches_http']
+        + mg['launches_serve'] + mg['launches_train'],
         'launches_serve': dcc['launches_serve'] + dcc['launches_http']
-        + grid['k5_launches_http'],
-        'launches_train': dcc['launches_train'],
+        + grid['k5_launches_http'] + mg['launches_serve'],
+        'launches_train': dcc['launches_train'] + mg['launches_train'],
+        'launches_metricgan_serve': mg['launches_serve'],
+        'launches_metricgan_train': mg['launches_train'],
         'launches_per_eval': dcc['launches_eval'],
         'max_abs_err': dcc['k5_err'],
         'ms': scan_t['fwd']['kernel'],
@@ -4429,7 +5021,8 @@ def main():
         'route': 'cuda',
         'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:235',
-        'launches': dcc['launches_train_bwd'],
+        'launches': dcc['launches_train_bwd'] + mg['launches_train_bwd'],
+        'launches_metricgan_train': mg['launches_train_bwd'],
         'launches_per_backward': dcc['launches_bwd_step'],
         'max_abs_err': dcc['k6_err'],
         'ms': scan_t['bwd']['kernel'],

@@ -9,8 +9,10 @@ TF32 off: atol 1e-4, rtol 1e-3 — the kernel sums the GEMMs in another
 order and merges the global-norm moments per tile; its statistics at atol
 1e-6, rtol 1e-5. Two forward runs are bitwise equal, and the backward's
 recomputed z1 is bitwise the forward's. A Conv-TasNet whose kernel size is
-not 3 runs plain blocks on the card and matches the CPU path at atol 1e-4,
-rtol 1e-3 (gradients at atol 1e-4 of the tensor's largest value). The backward kernel
+not 3 (its model drawn from a seed) runs plain blocks on the card and
+matches the CPU path at atol 1e-4, rtol 1e-3; its gradients match float64
+within eight times the plain float32 path's error (floors: 1e-5 of a PReLU
+slope's terms' magnitudes, of another tensor's largest value). The backward kernel
 is held against its plain version in float64 (float32 rounding can flip
 a PReLU branch at a pre-activation near 0, and the slopes' gradients are
 sums that cancel): atol 1e-4 of the tensor's largest value, rtol 1e-3,
@@ -53,7 +55,10 @@ benchmark's, within ``fma_chain_limit`` at every element.
 FFNN (no kernel of its own) on the card against the CPU path: enhance at
 atol 1e-4, rtol 1e-3, ``pre_train``'s statistics, the loss and its
 gradients; the validation-metric twins on the card against themselves in
-float64 on the CPU: STOI and ESTOI within 2e-3, PESQ within 5e-3 MOS."""
+float64 on the CPU: STOI and ESTOI within 2e-3, PESQ within 5e-3 MOS.
+MetricGAN+ (no kernel of its own; its BLSTMs on K5/K6) on the card: enhance
+against the CPU path at atol 1e-4, rtol 1e-3, and one GAN update against
+the same update in float64 on the CPU (its bounds in the test)."""
 
 import functools
 import json
@@ -223,34 +228,31 @@ def test_kernel_size_off_three_serves_and_trains_on_the_card(device,
                                                               kernel_size,
                                                               tmp_path):
     """A Conv-TasNet whose depthwise convs have 5 (or 2) taps runs plain
-    blocks on the card (no K1 or K2 launch): enhance and the loss's
-    gradients match the CPU path, and a trainer step on the card gives a
-    finite loss and moves every parameter. ``tcn_block`` itself still
+    blocks on the card (no K1 or K2 launch): enhance matches the CPU path,
+    the loss's gradients match the float64 CPU path within eight times the
+    plain float32 path's own error (a PReLU slope's at least 1e-5 of the
+    sum of its terms' magnitudes, a cancelling sum; any other tensor's at
+    least 1e-5 of its largest value: ``probe_conv_grads.gradient_bounds``),
+    and a trainer step on the card gives a finite loss and moves every
+    parameter. The model is drawn from a seed. ``tcn_block`` itself still
     refuses such a block on CUDA."""
-    from brever_tpu_torch.models.base import sample_weighted_mean
+    from brever_tpu_torch import probe_conv_grads as probe
     from brever_tpu_torch.profile_train import _Items
     from brever_tpu_torch.training import BreverTrainer
     kwargs = dict(SMALL, kernel_size=kernel_size)
-    cpu = ModelRegistry.get('convtasnet')(**kwargs, device='cpu')
-    gpu = ModelRegistry.get('convtasnet')(**kwargs, device=device)
-    gpu.load_state_dict(cpu.state_dict())
-    rng = np.random.RandomState(kernel_size)
-    x = rng.randn(2, 2, 4000).astype(np.float32)
+    cpu, f64, gpu = probe.seeded_models(kernel_size, device,
+                                        seed=kernel_size)
+    x, batch, lengths = probe.batch_of(kernel_size)
     before = tcn.tcn_block.launches, tcn.tcn_block_bwd.launches
     out = gpu.enhance(x).cpu()
     torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
-    target = 0.3 * rng.randn(2, 1, 2, 2400)
-    batch = np.concatenate([target + 0.3 * rng.randn(2, 1, 2, 2400), target],
-                           axis=1).astype(np.float32)
-    lengths = np.array([2400, 1700], np.int32)
-    for model, dev in ((cpu, 'cpu'), (gpu, device)):
-        n = torch.from_numpy(lengths).to(dev)
-        sample_weighted_mean(model.loss(torch.from_numpy(batch).to(dev), n),
-                             n).backward()
-    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
-        scale = p.grad.abs().max().item()
-        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-3,
-                                   atol=1e-4 * scale, msg=name)
+    got = probe.grads(gpu, batch, lengths)
+    ref, scales, _ = probe.reference(f64, batch, lengths)
+    bounds = probe.gradient_bounds(ref, probe.grads(cpu, batch, lengths),
+                                   scales)
+    for name, r in ref.items():
+        err = (got[name] - r).abs().max().item()
+        assert err <= bounds[name], (name, err, bounds[name])
     items = _Items(2, 0.15)
     trainer = BreverTrainer(ModelRegistry.get('convtasnet')(
         **kwargs, device='cpu'), items, items, str(tmp_path), device=device,
@@ -1723,3 +1725,77 @@ def test_metric_twins_on_the_card_match_float64(device, name, bound):
         x = torch.from_numpy(ref[:1]).float().to(device)
         np.testing.assert_allclose(twins.pesq_device(x, x).item(),
                                    4.643888749336258, atol=2e-3)
+
+
+def test_metricgan_enhances_on_the_card(device):
+    """MetricGAN+ at its default width (two BLSTMs of 200 units, 224 in
+    the kernels) on the card against the same weights on the CPU: enhance
+    at atol 1e-4, rtol 1e-3; one K5 launch a BLSTM (B rows, under the
+    128-row floor), no K3."""
+    cpu = ModelRegistry.get('metricganp')(device='cpu')
+    gpu = ModelRegistry.get('metricganp')(device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    x = np.random.RandomState(16).randn(3, 2, 16000).astype(np.float32) * 0.1
+    before = lstm.lstm_scan.launches, lstm.lstm_scan_x.launches
+    out = gpu.enhance(x).cpu()
+    torch.cuda.synchronize()
+    assert (lstm.lstm_scan.launches - before[0],
+            lstm.lstm_scan_x.launches - before[1]) == (2, 0)
+    torch.testing.assert_close(out, cpu.enhance(x), atol=1e-4, rtol=1e-3)
+
+
+def test_metricgan_step_on_the_card_matches_float64(device, tmp_path):
+    """One GAN update of MetricGAN+ at its default width (4 x 1 s, given
+    scores and augmented signal) on the card against the same update in
+    float64 on the CPU: both losses within 1e-4 relative, Adam's first
+    moments (the clipped gradients) of the generator and the discriminator
+    within 1e-3 of their largest value, the BatchNorm statistics and every
+    ``u``/``sigma`` within 1e-5; K5 and K6 launch, K3 and K4 do not."""
+    from brever_tpu_torch.profile_train import _Items
+    from brever_tpu_torch.training import BreverTrainer
+    rng = np.random.RandomState(17)
+    clean = 0.3 * rng.randn(4, 1, 2, 16000)
+    batch = np.concatenate([clean + 0.2 * rng.randn(*clean.shape), clean],
+                           1).astype(np.float32)
+    scores = {'noisy': rng.rand(4, 1), 'enh': rng.rand(1, 4, 1),
+              'aug': rng.rand(4, 1)}
+    aug = batch[:, 1].mean(-2) + 0.05 * rng.randn(4, 16000)
+    items = _Items(4, 1.0)
+    runs = {}
+    for name, dev, dtype in (('gpu', device, torch.float32),
+                             ('f64', 'cpu', torch.float64)):
+        model = ModelRegistry.get('metricganp')(device='cpu').to(dtype)
+        trainer = BreverTrainer(model, items, items, str(tmp_path / name),
+                                device=dev, val_metrics={'snr'}, seed=0)
+        trainer.init_state()
+        launches = (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches,
+                    lstm.lstm_scan_x.launches, lstm.lstm_scan_x_bwd.launches)
+        loss = trainer.model.update(
+            trainer, torch.from_numpy(batch).to(dev, dtype),
+            {k: torch.from_numpy(v).to(dev, dtype) for k, v in
+             scores.items()}, torch.from_numpy(aug).to(dev, dtype))
+        if torch.device(dev).type == 'cuda':
+            torch.cuda.synchronize()
+            launched = [a - b for a, b in zip(
+                (lstm.lstm_scan.launches, lstm.lstm_scan_bwd.launches,
+                 lstm.lstm_scan_x.launches, lstm.lstm_scan_x_bwd.launches),
+                launches)]
+            assert launched[0] > 0 and launched[1] > 0, launched
+            assert launched[2:] == [0, 0], launched
+        runs[name] = (trainer, {k: float(v) for k, v in loss.items()},
+                      {k: v.double().cpu()
+                       for k, v in trainer.model.state_dict().items()})
+    (gpu, loss_gpu, sd_gpu), (f64, loss_ref, sd_ref) = runs['gpu'], \
+        runs['f64']
+    for key in loss_ref:
+        assert abs(loss_gpu[key] - loss_ref[key]) <= 1e-4 * abs(loss_ref[key])
+    for name in ('generators', 'discriminator'):
+        opts = gpu.optimizer[name], f64.optimizer[name]
+        if name == 'generators':
+            opts = opts[0][0], opts[1][0]
+        got, want = (o.mu.double().cpu() for o in opts)
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max(), name
+    for key, want in sd_ref.items():
+        if '.spectral.' in key or key.endswith(('norm.mean', 'norm.var')):
+            torch.testing.assert_close(sd_gpu[key], want, rtol=0, atol=1e-5,
+                                       msg=key)

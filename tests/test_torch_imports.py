@@ -7,7 +7,9 @@ any module of the JAX package, at import time or at call time: the port
 reads configs through its own ``brever_tpu_torch.config``. The entry
 points are run on a Conv-TasNet, a DCCRN, a (narrowed) MANNER, an IDMSE and
 an FFNN model directory (FFNN's from its default config, its validation
-metrics scored by the device twins of ``metrics_device``)."""
+metrics scored by the device twins of ``metrics_device``), and a MetricGAN+
+one (from its default config: host PESQ targets through the spawn pool),
+which ``python -m brever_tpu_torch.test_model`` then scores."""
 
 import os
 import pkgutil
@@ -16,7 +18,9 @@ import sys
 
 import brever_tpu_torch
 from brever_tpu_torch import train as train_cli
+from test_torch_data import write_wav_dataset
 from test_torch_ffnn import _model_dir as _ffnn_model_dir
+from test_torch_metricgan import _model_dir as _metricgan_model_dir
 from test_torch_training import _model_dir
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,7 +46,8 @@ def test_port_imports_no_jax():
                  'models.manner', 'ops.batchnorm', 'ops.stft_kernel',
                  'numerics', 'ops.fma_chain', 'bench_alu_dtype',
                  'models.ffnn', 'ops.features', 'metrics_device',
-                 'metric_tables'):
+                 'metric_tables', 'stoi', 'pesq', 'evaluate', 'test_model',
+                 'models.metricgan', 'probe_conv_grads'):
         assert f'brever_tpu_torch.{name}' in modules
     env = dict(os.environ, PATH='/usr/bin:/bin', CUDA_HOME='')
     proc = subprocess.run([sys.executable, '-c', _SCRIPT, *modules],
@@ -171,3 +176,35 @@ def test_ffnn_entry_points_load_no_jax_package(tmp_path):
     assert _fresh(code, model_dir, '--device', 'cpu', '--epochs', '1',
                   '--val_period', '1')[-3:] == [
         "['estoi', 'pesq', 'snr']", 'ffnn', 'ok']
+
+
+def test_metricgan_and_test_model_load_no_jax_package(tmp_path):
+    """``train.main`` trains a MetricGAN+ model directory from its default
+    config (widths cut) with its host PESQ targets, ``EnhanceService``
+    serves it and ``test_model.main`` scores a test set with the host
+    twins, in a fresh interpreter that loads nothing of the JAX
+    package."""
+    model_dir = _metricgan_model_dir(tmp_path)
+    test_set = write_wav_dataset(str(tmp_path / 'test'), [9000, 6000],
+                                 seed=3)
+    code = ('import sys\n'
+            'import numpy as np\n'
+            'from brever_tpu_torch import test_model, train\n'
+            'from brever_tpu_torch.pesq import close_pool\n'
+            'from brever_tpu_torch.serve import EnhanceService\n'
+            'trainer = train.main(sys.argv[1:6])\n'
+            'print(sorted(trainer.loss_logger.train_loss[-1]))\n'
+            'service = EnhanceService(sys.argv[1], "cpu")\n'
+            'out = service.enhance(np.zeros(1600, np.float32))\n'
+            'assert out.shape == (1600,), out.shape\n'
+            'print(service.health()["arch"])\n'
+            'test_model.main(["-i", sys.argv[1], "-t", sys.argv[6],\n'
+            '                 "--device", "cpu", "--metrics", "pesq",\n'
+            '                 "stoi", "snr"])\n'
+            'close_pool()\n' + _NO_JAX_PACKAGE)
+    out = _fresh(code, model_dir, '--device', 'cpu', '--epochs', '1',
+                 test_set)
+    assert [line for line in out if line.startswith(("['", 'metricgan'))] \
+        == ["['loss_d', 'loss_g']", 'metricganp']
+    assert out[-1] == 'ok'
+    assert os.path.exists(os.path.join(model_dir, 'scores.hdf5'))
