@@ -8,6 +8,9 @@ PESQ's 0.25 s (NaN), and a silent one (PESQ: no utterances).
 Tolerance: bitwise. The port's twins are the JAX package's float64 numpy
 code on the same tables (``metric_tables.py``, held bit for bit since the
 device twins' slice), so every score, NaN included, is the same float.
+The device twins against these host twins: STOI and ESTOI within 2e-3,
+PESQ within 5e-3 MOS (their own bounds; PESQ's device twin aligns by one
+global delay).
 """
 
 import subprocess
@@ -242,3 +245,25 @@ def test_host_twins_import_no_torch():
     out = subprocess.run([sys.executable, '-c', code], check=True,
                          capture_output=True, text=True).stdout
     assert out.strip() == '[]'
+
+
+@pytest.mark.parametrize('name,atol', [('stoi', 2e-3), ('estoi', 2e-3),
+                                       ('pesq', 5e-3)])
+def test_device_twins_are_within_their_bounds_of_the_host_twins(name,
+                                                                 atol):
+    """The device twins (float32, here on the CPU) against the host twins
+    on the batch's time-aligned items, where the host scores them: STOI and
+    ESTOI within 2e-3, PESQ within 5e-3 MOS, the twins' bounds (the smoke
+    holds the card's to the same)."""
+    from brever_tpu_torch import metrics_device as twins
+    deg, ref, lengths = _batch(6)
+    with np.errstate(all='ignore'), warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        host = metrics.MetricRegistry.get(name)(deg, ref, lengths=lengths)
+    device = twins.DEVICE_METRICS[name](
+        torch.from_numpy(deg), torch.from_numpy(ref),
+        torch.from_numpy(lengths)).double().numpy()
+    scored = np.isfinite(host)
+    assert scored.sum() >= len(LENGTHS) - 2
+    np.testing.assert_allclose(device[scored], host[scored], rtol=0,
+                               atol=atol)
