@@ -1,15 +1,22 @@
-"""RIFF/WAV codec over numpy (counterpart of the WAV half of
-``brever_tpu/audio.py``): what the HTTP service reads and writes and the
-datasets are read from.
+"""Audio files over numpy (counterpart of ``brever_tpu/audio.py``): what
+the HTTP service reads and writes and the datasets are read from.
 
-Reads PCM16/PCM24/PCM32 and 32-bit float WAV (also WAVE_FORMAT_EXTENSIBLE)
-as float32; writes 32-bit float WAV, lossless for float32 pipelines.
+WAV: reads PCM16/PCM24/PCM32 and 32-bit float WAV (also
+WAVE_FORMAT_EXTENSIBLE) as float32; writes 32-bit float WAV, lossless for
+float32 pipelines. FLAC (``scripts/create_dataset.py``'s default): the
+port's own codec, :mod:`.flac`, read as float32 in [-1, 1) and written as
+16-bit. :func:`read_audio`, :func:`write_audio` and :func:`audio_frames`
+pick the codec from the file name's extension, as the JAX package's
+``read_audio``/``write_audio``/``audio_info`` do without ``soundfile``.
 """
 
 import io
+import os
 import struct
 
 import numpy as np
+
+from . import flac
 
 _PCM = 0x0001
 _IEEE_FLOAT = 0x0003
@@ -103,3 +110,70 @@ def write_wav(f, data, samplerate):
         int(samplerate) * block_align, block_align, 32, b'data',
         len(payload)))
     f.write(payload)
+
+
+def read_flac(f, always_2d=False):
+    """A FLAC file object -> ``(data, samplerate)``: float32 in [-1, 1),
+    the samples over ``2 ** (bps - 1)``, shaped as :func:`read_wav`'s."""
+    samples, info = flac.decode(f.read())
+    data = samples.astype(np.float32) / float(1 << (info['bps'] - 1))
+    if data.shape[1] == 1 and not always_2d:
+        data = data[:, 0]
+    return data, info['sample_rate']
+
+
+def write_flac(f, data, samplerate):
+    """Write ``(n,)`` or ``(n, channels)`` float or int16 data to a binary
+    file object as 16-bit FLAC (floats rounded from [-1, 1) and clipped)."""
+    data = np.asarray(data)
+    if data.dtype.kind == 'f':
+        data = np.clip(np.round(data * 32768.0), -32768, 32767) \
+            .astype(np.int16)
+    f.write(flac.encode(data, int(samplerate)))
+
+
+def flac_frames(f):
+    """Number of frames of a FLAC file object, from its STREAMINFO (read
+    through a window that grows until the metadata chain fits)."""
+    n = 64 * 1024
+    while True:
+        pos = f.tell()
+        buf = f.read(n)
+        f.seek(pos)
+        try:
+            return flac.parse_header(buf)[0]['total_samples']
+        except flac.FlacError as e:
+            if 'truncated' in str(e) and len(buf) == n:
+                n *= 4
+                continue
+            raise
+
+
+_CODECS = {'.wav': (read_wav, write_wav, wav_frames),
+           '.flac': (read_flac, write_flac, flac_frames)}
+
+
+def _codec(name):
+    ext = os.path.splitext(str(name))[1].lower()
+    if ext not in _CODECS:
+        raise RuntimeError(f"cannot read or write '{ext}' audio: only .wav "
+                           'and .flac are supported')
+    return _CODECS[ext]
+
+
+def read_audio(f, name, always_2d=False):
+    """:func:`read_wav` or :func:`read_flac` of a file object, by the
+    extension of ``name``."""
+    return _codec(name)[0](f, always_2d=always_2d)
+
+
+def write_audio(f, data, samplerate, name):
+    """:func:`write_wav` or :func:`write_flac` into a file object, by the
+    extension of ``name``."""
+    _codec(name)[1](f, data, samplerate)
+
+
+def audio_frames(f, name):
+    """Number of frames of a WAV or FLAC file object, by the extension of
+    ``name``."""
+    return _codec(name)[2](f)

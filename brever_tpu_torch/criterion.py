@@ -3,7 +3,9 @@
 Every criterion takes ``(x, y, lengths)`` with zero-padded batches and
 returns a ``(batch,)`` loss; padding is neutralised by masking before and
 after any mean subtraction, so a padded batch gives each item's loss as
-if it stood alone.
+if it stood alone. A bfloat16 input (the trainer's amp) gives a
+bfloat16 loss, as in the JAX package: masks and sums in the input's dtype,
+each sum accumulated in float32 and rounded.
 """
 
 import inspect as _inspect

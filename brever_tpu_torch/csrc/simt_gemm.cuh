@@ -5,14 +5,54 @@
 // which these products reach about 30-36 TFLOP/s (PERF.md); the block tile
 // of 8 x 8 outputs a thread keeps four shared-memory wavefronts to 64
 // FFMAs a k, and the two-stage ring hides the loads of slice s + 1 behind
-// the multiply of slice s.
+// the multiply of slice s. An operand stored as bfloat16 (K1's and K2's
+// bf16 route) is converted to float32 as it is loaded, through registers,
+// and multiplied and summed in float32 like any other: the product of two
+// bf16 values is exact in float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace simt {
+
+using bf16 = __nv_bfloat16;
+
+// Loads and stores of float32 or bfloat16 storage as float32 values: one
+// element, or four neighbours (16 bytes of float32, 8 of bfloat16; p aligned
+// to that).
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldgf(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldgf(const bf16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void st4(bf16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&lo);
+  u.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+// v rounded to bfloat16 (nearest even), as float32
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 template <int kBytes>
 __device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
@@ -114,28 +154,71 @@ __device__ __forceinline__ void stage_direct(float* S, Src src, const float* any
   }
 }
 
+// A (kGK, 128) slice whose rows are k (stage_direct's pieces and src) from
+// float32 or bfloat16 storage: float32 by cp.async straight into shared
+// memory in fetch (store does nothing); bfloat16 through registers,
+// converted in fetch and written in store.
+template <bool kVec, class S>
+struct DirectSlice {
+  float4 v[2];
+
+  template <class Src>
+  __device__ __forceinline__ void fetch(float* dst, Src src, const S* any) {
+    if constexpr (std::is_same_v<S, float>) {
+      stage_direct<kVec>(dst, src, any);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = threadIdx.x + q * kGemmThreads, k = i / 32, c = i % 32 * 4;
+        if constexpr (kVec) {
+          const S* p = src(k, c);
+          v[q] = p ? ldg4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          float e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const S* p = src(k, c + j);
+            e[j] = p ? ldgf(p) : 0.f;
+          }
+          v[q] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* dst) const {
+    if constexpr (!std::is_same_v<S, float>) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = threadIdx.x + q * kGemmThreads;
+        *reinterpret_cast<float4*>(dst + (i / 32) * kGLd + i % 32 * 4) = v[q];
+      }
+    }
+  }
+};
+
 // A (128, kGK) slice of 128 rows stored with k contiguous, through
 // registers: the thread stages row tid % 128 at k groups 4 (tid / 128) and
 // 8 + that, loading them before the block multiplies the previous slice
 // and storing them transposed after. kVec: a group is one float4 load
-// (rows 16-byte aligned, kmax % 4 == 0); else four float loads.
-template <bool kVec = true>
+// (rows 16-byte aligned, kmax % 4 == 0), or one 8-byte load of 4 bfloat16
+// (T = bf16: rows 8-byte aligned); else four single loads.
+template <bool kVec = true, class T = float>
 struct RowStage {
   float4 v[2];
 
   // from row (null: zeros) at k0; columns k >= kmax are zeros
-  __device__ __forceinline__ void load(const float* row, int k0, int kmax) {
+  __device__ __forceinline__ void load(const T* row, int k0, int kmax) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int k = k0 + (threadIdx.x / kGM) * 4 + 8 * q;
       if constexpr (kVec) {
-        v[q] = row && k < kmax ? __ldg(reinterpret_cast<const float4*>(row + k))
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[q] = row && k < kmax ? ldg4(row + k) : make_float4(0.f, 0.f, 0.f, 0.f);
       } else {
         float e[4] = {};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (row && k + j < kmax) e[j] = __ldg(row + k + j);
+          if (row && k + j < kmax) e[j] = ldgf(row + k + j);
         v[q] = make_float4(e[0], e[1], e[2], e[3]);
       }
     }
@@ -179,26 +262,27 @@ __device__ __forceinline__ void gemm_loop(Op& op, float (&acc)[8][8], int n, flo
 
 // acc's rows into out: the output row of tile row m (null: none), column
 // groups of 4 at column n0 + frag_col(0) and n0 + frag_col(4), columns at
-// or past n_max left out. kVec: a group is one float4 store (rows 16-byte
-// aligned, n_max % 4 == 0); else four float stores.
+// or past n_max left out. The rows are float32, or bfloat16 (each value
+// rounded to nearest even). kVec: a group is one float4 store (rows 16-byte
+// aligned, n_max % 4 == 0), or one 8-byte store of 4 bfloat16; else four
+// single stores.
 template <bool kVec = true, class RowOf>
 __device__ __forceinline__ void store_tile(const float (&acc)[8][8], RowOf row_of, int n0,
                                            int n_max) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* out = row_of(frag_row(i));
+    auto* out = row_of(frag_row(i));
     if (!out) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + frag_col(4 * h);
       if constexpr (kVec) {
         if (n < n_max)
-          *reinterpret_cast<float4*>(out + n) = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
-                                                            acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          st4(out + n, acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (n + e < n_max) out[n + e] = acc[i][4 * h + e];
+          if (n + e < n_max) stf(out + n + e, acc[i][4 * h + e]);
       }
     }
   }

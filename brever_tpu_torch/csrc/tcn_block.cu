@@ -1,4 +1,5 @@
-// Conv-TasNet TCN block forward (flash-TCN) for NVIDIA Hopper, float32.
+// Conv-TasNet TCN block forward (flash-TCN) for NVIDIA Hopper, float32 or
+// bfloat16 I/O.
 //
 // Replaces the Pallas TPU kernel brever_tpu/ops/pallas/tcn_block.py
 // (_fwd_kernel, launched by _fwd_pallas, public tcn_block_fused). One
@@ -51,12 +52,26 @@
 // the gLN affines into the weights, bf16 and wgmma/TMA tiles are later
 // work.
 //
-// Every pointer is a dense float32 buffer, 16-byte aligned (the wrapper
+// The bf16 route (bf16_io = 1: x, every parameter, res and skip bfloat16;
+// h1, h2, the partials and stats float32) is the TPU kernel's own under
+// amp, which the reference engages only in bf16, at its rounding points:
+// z1 from bf16 operands summed in float32 (z1_tile converts on load), h1,
+// the statistics, the depthwise taps and h2 in float32, the PReLU slopes
+// float32 (bf16 values); then the output product takes the gLN2 affine
+// folded into the weights as the TPU kernel does, w_f = bf16(W hs2) (hs2 =
+// g2 rstd2, per batch row, folded on load) against bf16(h2), plus the
+// float32 bias cv2 W^T + b (cv2 = be2 - mean2 hs2, summed by the block on
+// the way), and res/skip are rounded to bf16 on store. Every product is of
+// two bf16 values, exact in float32, summed with SIMT fmaf like the float32
+// route (tensor-core bf16 tiles are later work).
+//
+// Every pointer is a dense buffer, 16-byte aligned (the wrapper
 // copies one that is not). 2-D weights are in the storage of a torch Linear
 // weight, (N, K) = (out, in) row-major, which the model passes as it is.
 // Where C, H and Cs are multiples of 4 the GEMMs move float4s (kVec); at
 // any other width the same kernels with kVec = false move single floats,
-// with the same sums in the same order.
+// with the same sums in the same order; on the bf16 route kVec moves 4
+// bfloat16 (8 bytes) where float32 moves a float4.
 
 #include "tcn_common.cuh"
 
@@ -115,18 +130,18 @@ __global__ void row_stats(const float* __restrict__ part, int n_part, float eps,
 }
 
 // grid (cdiv(T, 128), cdiv(H, 128), B)
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_in_gemm(const float* __restrict__ x, const float* __restrict__ w_in,
-            const float* __restrict__ bias, const float* __restrict__ alpha,
-            float* __restrict__ h1, float* __restrict__ part, int T, int C, int H) {
+tcn_in_gemm(const S* __restrict__ x, const S* __restrict__ w_in, const S* __restrict__ bias,
+            const S* __restrict__ alpha, float* __restrict__ h1, float* __restrict__ part, int T,
+            int C, int H) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   __shared__ float red[kThreads / 32];
   const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(blockIdx.z) * T;
   float acc[8][8];
   z1_tile<kVec>(acc, x, w_in, bias, T, C, H, sm);
-  const float a1 = *alpha;
+  const float a1 = ldf(alpha);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -144,11 +159,11 @@ tcn_in_gemm(const float* __restrict__ x, const float* __restrict__ w_in,
 }
 
 // grid (cdiv(T, kDwRows), cdiv(H, kDwCols), B)
+template <class S>
 __global__ void __launch_bounds__(kThreads)
 dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ stats,
-               const float* __restrict__ g1, const float* __restrict__ be1,
-               const float* __restrict__ w_dw, const float* __restrict__ b_dw,
-               const float* __restrict__ alpha, float* __restrict__ h2,
+               const S* __restrict__ g1, const S* __restrict__ be1, const S* __restrict__ w_dw,
+               const S* __restrict__ b_dw, const S* __restrict__ alpha, float* __restrict__ h2,
                float* __restrict__ part2, int T, int H, int d) {
   __shared__ float red[kThreads / 32];
   const int b = blockIdx.z;
@@ -159,14 +174,14 @@ dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ stats,
   const bool c_ok = c < H;
   float g = 0.f, be = 0.f, w0 = 0.f, w1 = 0.f, w2 = 0.f, bd = 0.f;
   if (c_ok) {
-    g = g1[c];
-    be = be1[c];
-    w0 = w_dw[c];
-    w1 = w_dw[H + c];
-    w2 = w_dw[2 * H + c];
-    bd = b_dw[c];
+    g = ldf(g1 + c);
+    be = ldf(be1 + c);
+    w0 = ldf(w_dw + c);
+    w1 = ldf(w_dw + H + c);
+    w2 = ldf(w_dw + 2 * H + c);
+    bd = ldf(b_dw + c);
   }
-  const float a2 = *alpha;
+  const float a2 = ldf(alpha);
   const float* hb = h1 + static_cast<size_t>(b) * T * H;
   // y1 is zero outside [0, T): the conv pads the normalized signal
   auto y1 = [&](int t) {
@@ -228,40 +243,110 @@ struct OutOp {
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-// grid (cdiv(T, 128), cdiv(n_res, 128) + cdiv(Cs, 128), B); n_res is C,
-// or 0 on the last block (no residual output).
+// The bf16 route's output k loop: A is bf16(h2) of the staged row of h2
+// (float32), B the staged row of W_res or W_skip (bfloat16, (out, H)) with
+// the gLN2 affine folded in, bf16(w hs2[k]) (hs2 = g2 rstd2), as the TPU
+// kernel multiplies bf16(h2) by its bf16(W * hs2). On the way the thread
+// sums cv2[k] w[k] (cv2 = be2 - mean2 hs2) over its k, its half of the
+// folded bias of its row of W. Past H, and for rows past T, A is 0.
 template <bool kVec>
+struct OutOpBf16 {
+  const float* hrow;
+  const bf16 *wrow, *g2, *be2;
+  float mean, rstd, cvw = 0.f;
+  int H, k0 = 0;
+  RowStage<kVec> a;
+  RowStage<kVec, bf16> b;
+
+  __device__ __forceinline__ void fetch(int s, float*, float*) {
+    k0 = s * kGK;
+    a.load(hrow, k0, H);
+    b.load(wrow, k0, H);
+  }
+  __device__ __forceinline__ void store(float* As) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int k = k0 + (threadIdx.x / kGM) * 4 + 8 * q;
+      float e[4] = {a.v[q].x, a.v[q].y, a.v[q].z, a.v[q].w};
+      float w[4] = {b.v[q].x, b.v[q].y, b.v[q].z, b.v[q].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        e[j] = hrow && k + j < H ? round_bf16(e[j]) : 0.f;
+        if (wrow && k + j < H) {
+          const float hs = ldgf(g2 + k + j) * rstd;
+          cvw += (ldgf(be2 + k + j) - mean * hs) * w[j];
+          w[j] = round_bf16(w[j] * hs);
+        } else {
+          w[j] = 0.f;
+        }
+      }
+      a.v[q] = make_float4(e[0], e[1], e[2], e[3]);
+      b.v[q] = make_float4(w[0], w[1], w[2], w[3]);
+    }
+    a.store(As);
+    b.store(As + kGSlice);
+  }
+  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
+};
+
+// grid (cdiv(T, 128), cdiv(n_res, 128) + cdiv(Cs, 128), B); n_res is C,
+// or 0 on the last block (no residual output). S: the storage of x, the
+// parameters and the outputs; float32 normalises y2 on load (OutOp), bf16
+// folds the affine into the weights (OutOpBf16).
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 tcn_out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
-             const float* __restrict__ g2, const float* __restrict__ be2,
-             const float* __restrict__ w_res, const float* __restrict__ b_res,
-             const float* __restrict__ w_skip, const float* __restrict__ b_skip,
-             const float* __restrict__ x, float* __restrict__ res, float* __restrict__ skip,
-             int T, int H, int C, int Cs, int n_res) {
+             const S* __restrict__ g2, const S* __restrict__ be2, const S* __restrict__ w_res,
+             const S* __restrict__ b_res, const S* __restrict__ w_skip,
+             const S* __restrict__ b_skip, const S* __restrict__ x, S* __restrict__ res,
+             S* __restrict__ skip, int T, int H, int C, int Cs, int n_res) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z, m0 = blockIdx.x * kGM, mr = cdiv(n_res, kGM);
   const bool is_res = static_cast<int>(blockIdx.y) < mr;
   const int n0 = (is_res ? blockIdx.y : blockIdx.y - mr) * kGM, N = is_res ? n_res : Cs;
-  const float* w = is_res ? w_res : w_skip;
-  const float* bias = is_res ? b_res : b_skip;
-  float* out = is_res ? res : skip;
+  const S* w = is_res ? w_res : w_skip;
+  const S* bias = is_res ? b_res : b_skip;
+  S* out = is_res ? res : skip;
   const size_t row0 = static_cast<size_t>(b) * T;
-  OutOp<kVec> op;
   const int m = m0 + threadIdx.x % kGM, n = n0 + threadIdx.x % kGM;
-  op.hrow = m < T ? h2 + (row0 + m) * H : nullptr;
-  op.wrow = n < N ? w + static_cast<size_t>(n) * H : nullptr;
-  op.g2 = g2;
-  op.be2 = be2;
-  op.mean = stats[4 * b + 2];
-  op.rstd = stats[4 * b + 3];
-  op.H = H;
   float acc[8][8] = {};
-  gemm_loop(op, acc, cdiv(H, kGK), sm);
-  // the sum, then the bias, then (res) x + that
+  // the bf16 route's cv2 W^T a column, [2 halves of k][128 columns], in sm
+  // once the k loop is done
+  const float* fold = sm;
+  if constexpr (std::is_same_v<S, float>) {
+    OutOp<kVec> op;
+    op.hrow = m < T ? h2 + (row0 + m) * H : nullptr;
+    op.wrow = n < N ? w + static_cast<size_t>(n) * H : nullptr;
+    op.g2 = g2;
+    op.be2 = be2;
+    op.mean = stats[4 * b + 2];
+    op.rstd = stats[4 * b + 3];
+    op.H = H;
+    gemm_loop(op, acc, cdiv(H, kGK), sm);
+  } else {
+    OutOpBf16<kVec> op;
+    op.hrow = m < T ? h2 + (row0 + m) * H : nullptr;
+    op.wrow = n < N ? w + static_cast<size_t>(n) * H : nullptr;
+    op.g2 = g2;
+    op.be2 = be2;
+    op.mean = stats[4 * b + 2];
+    op.rstd = stats[4 * b + 3];
+    op.H = H;
+    gemm_loop(op, acc, cdiv(H, kGK), sm);
+    sm[threadIdx.x] = op.cvw;  // sm is free after the loop's last barrier
+    __syncthreads();
+  }
+  // the sum, then the bias (b, or on the bf16 route cv2 W^T + b), then
+  // (res) x + that
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = n0 + frag_col(j);
-    const float bn = col < N ? bias[col] : 0.f;
+    float bn = 0.f;
+    if (col < N) {
+      bn = ldf(bias + col);
+      if constexpr (!std::is_same_v<S, float>)
+        bn = (fold[frag_col(j)] + fold[kGM + frag_col(j)]) + bn;
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i][j] = acc[i][j] + bn;
   }
@@ -270,26 +355,26 @@ tcn_out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
     for (int i = 0; i < 8; ++i) {
       const int t = m0 + frag_row(i);
       if (t >= T) continue;
-      const float* xr = x + (row0 + t) * C;
+      const S* xr = x + (row0 + t) * C;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + frag_col(4 * h);
         if (col >= N) continue;
         float e[4] = {};
         if constexpr (kVec) {
-          const float4 q = *reinterpret_cast<const float4*>(xr + col);
+          const float4 q = ldg4(xr + col);
           e[0] = q.x, e[1] = q.y, e[2] = q.z, e[3] = q.w;
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (col + j < N) e[j] = xr[col + j];
+            if (col + j < N) e[j] = ldf(xr + col + j);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][4 * h + j] = e[j] + acc[i][4 * h + j];
       }
     }
   }
-  store_tile<kVec>(acc, [&](int i) -> float* {
+  store_tile<kVec>(acc, [&](int i) -> S* {
     return m0 + i < T ? out + (row0 + m0 + i) * N : nullptr;
   }, n0, N);
 }
@@ -305,15 +390,23 @@ extern "C" {
 int tcn_in_partials(int T, int H) { return cdiv(T, kGM) * cdiv(H, kGM); }
 int tcn_dw_partials(int T, int H) { return cdiv(T, kDwRows) * cdiv(H, kDwCols); }
 
-int tcn_in_gemm_prelu_stats(const float* x, const float* w, const float* bias,
-                            const float* alpha, float* h1, float* part, int B, int T, int C,
-                            int H, void* stream) {
+// bf16 = 0: every S pointer float32; 1: bfloat16 (the bf16 route).
+int tcn_in_gemm_prelu_stats(const void* x, const void* w, const void* bias, const void* alpha,
+                            float* h1, float* part, int B, int T, int C, int H, int bf16_io,
+                            void* stream) {
   const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_widths(C, H, 4))
-    tcn_in_gemm<true><<<grid, kGemmThreads, 0, s>>>(x, w, bias, alpha, h1, part, T, C, H);
+  auto go = [&](auto tag, auto vec) {
+    using S = decltype(tag);
+    tcn_in_gemm<decltype(vec)::value, S><<<grid, kGemmThreads, 0, s>>>(
+        static_cast<const S*>(x), static_cast<const S*>(w), static_cast<const S*>(bias),
+        static_cast<const S*>(alpha), h1, part, T, C, H);
+  };
+  const bool vec = vec_widths(C, H, 4);
+  if (bf16_io)
+    vec ? go(bf16{}, std::true_type{}) : go(bf16{}, std::false_type{});
   else
-    tcn_in_gemm<false><<<grid, kGemmThreads, 0, s>>>(x, w, bias, alpha, h1, part, T, C, H);
+    vec ? go(float{}, std::true_type{}) : go(float{}, std::false_type{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,28 +416,43 @@ int tcn_row_stats(const float* part, int n_part, float* stats, int slot, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
-int tcn_dw_prelu_stats(const float* h1, const float* stats, const float* g1, const float* be1,
-                       const float* w_dw, const float* b_dw, const float* alpha, float* h2,
-                       float* part2, int B, int T, int H, int dilation, void* stream) {
+int tcn_dw_prelu_stats(const float* h1, const float* stats, const void* g1, const void* be1,
+                       const void* w_dw, const void* b_dw, const void* alpha, float* h2,
+                       float* part2, int B, int T, int H, int dilation, int bf16_io,
+                       void* stream) {
   const dim3 grid(cdiv(T, kDwRows), cdiv(H, kDwCols), B);
-  dw_prelu_stats<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      h1, stats, g1, be1, w_dw, b_dw, alpha, h2, part2, T, H, dilation);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto tag) {
+    using S = decltype(tag);
+    dw_prelu_stats<S><<<grid, kThreads, 0, s>>>(
+        h1, stats, static_cast<const S*>(g1), static_cast<const S*>(be1),
+        static_cast<const S*>(w_dw), static_cast<const S*>(b_dw), static_cast<const S*>(alpha),
+        h2, part2, T, H, dilation);
+  };
+  bf16_io ? go(bf16{}) : go(float{});
   return static_cast<int>(cudaGetLastError());
 }
 
-int tcn_out_gemm(const float* h2, const float* stats, const float* g2, const float* be2,
-                 const float* w_res, const float* b_res, const float* w_skip,
-                 const float* b_skip, const float* x, float* res, float* skip, int B, int T,
-                 int H, int C, int Cs, int last, void* stream) {
+int tcn_out_gemm(const float* h2, const float* stats, const void* g2, const void* be2,
+                 const void* w_res, const void* b_res, const void* w_skip, const void* b_skip,
+                 const void* x, void* res, void* skip, int B, int T, int H, int C, int Cs,
+                 int last, int bf16_io, void* stream) {
   const int n_res = last ? 0 : C;
   const dim3 grid(cdiv(T, kGM), cdiv(n_res, kGM) + cdiv(Cs, kGM), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_widths(C, H, Cs))
-    tcn_out_gemm<true><<<grid, kGemmThreads, 0, s>>>(h2, stats, g2, be2, w_res, b_res, w_skip,
-                                                     b_skip, x, res, skip, T, H, C, Cs, n_res);
+  auto go = [&](auto tag, auto vec) {
+    using S = decltype(tag);
+    tcn_out_gemm<decltype(vec)::value, S><<<grid, kGemmThreads, 0, s>>>(
+        h2, stats, static_cast<const S*>(g2), static_cast<const S*>(be2),
+        static_cast<const S*>(w_res), static_cast<const S*>(b_res),
+        static_cast<const S*>(w_skip), static_cast<const S*>(b_skip), static_cast<const S*>(x),
+        static_cast<S*>(res), static_cast<S*>(skip), T, H, C, Cs, n_res);
+  };
+  const bool vec = vec_widths(C, H, Cs);
+  if (bf16_io)
+    vec ? go(bf16{}, std::true_type{}) : go(bf16{}, std::false_type{});
   else
-    tcn_out_gemm<false><<<grid, kGemmThreads, 0, s>>>(h2, stats, g2, be2, w_res, b_res, w_skip,
-                                                      b_skip, x, res, skip, T, H, C, Cs, n_res);
+    vec ? go(float{}, std::true_type{}) : go(float{}, std::false_type{});
   return static_cast<int>(cudaGetLastError());
 }
 

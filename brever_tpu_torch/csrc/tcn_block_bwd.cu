@@ -1,4 +1,5 @@
-// Conv-TasNet TCN block backward (flash-TCN VJP) for NVIDIA Hopper, float32.
+// Conv-TasNet TCN block backward (flash-TCN VJP) for NVIDIA Hopper, float32
+// or bfloat16 I/O.
 //
 // Replaces the Pallas TPU kernels brever_tpu/ops/pallas/tcn_block.py
 // _bwd_kernel and _bwd_kernel_rc (launched by _bwd_pallas; the _rc variant
@@ -67,6 +68,17 @@
 // fold hs gy + b_s h + c_s (_gh_fold) subtracts two large terms whose
 // rounding, the same on every element, adds up in that sum.
 //
+// The bf16 route (bf16_io = 1 in TcnBwdArgs: x, g_res, g_skip, every parameter,
+// dx and the 14 parameter gradients bfloat16; stats, the workspace and every
+// sum float32) is the TPU kernel's VJP under amp, at its rounding points:
+// every stage runs in float32 from the bf16 values (converted on load;
+// products of two bf16 values are exact in float32); the output weight
+// GEMM takes bf16(h2) in y2 (the TPU kernel's dW = hs2 (bf16(h2)^T g) + cv2
+// sum g); gz1 is rounded to bf16 where it is written, so dx = gz1 W_in and
+// dW_in = gz1^T x multiply bf16 values (db_in sums it unrounded); dx and,
+// in the last launch, every parameter gradient summed in float32 are
+// rounded to bf16 on store. Same eleven launches, same plan.
+//
 // Scratch is one float32 workspace (tcn_bwd_workspace floats) that the
 // caller allocates: z1, z2, gy2 and gy1 of (B, T, H) each and the partials.
 // Every pointer is a dense float32 buffer, 16-byte aligned; 2-D weights are
@@ -103,21 +115,22 @@ extern "C" {
 
 // Everything one backward call reads and writes. Outputs and the
 // workspace are written whole; nothing needs zeroing.
+// stats and work are float32; the others float32 or, with bf16, bfloat16.
 struct TcnBwdArgs {
-  const float *x, *g_res, *g_skip, *stats;
-  const float *w_in, *b_in, *a1, *g1, *be1, *w_dw, *b_dw, *a2, *g2, *be2, *w_res,
-      *w_skip;
-  float* dx;      // (B, T, C)
-  float* dw_in;   // (H, C)
-  float* db_in;   // (H)
-  float* da;      // (2): da1, da2
-  float* dgb1;    // (2, H): dg1, dbe1
-  float* dwb_dw;  // (4, H): dw_dw taps 0..2, db_dw
-  float* dgb2;    // (2, H): dg2, dbe2
-  float* dw_out;  // (n_res + Cs, H): dW_res rows, then dW_skip rows
-  float* db_out;  // (n_res + Cs): db_res, then db_skip
-  float* work;    // tcn_bwd_workspace(B, T, C, H, Cs, last) floats
-  int B, T, C, H, Cs, last, dilation;
+  const void *x, *g_res, *g_skip;
+  const float* stats;
+  const void *w_in, *b_in, *a1, *g1, *be1, *w_dw, *b_dw, *a2, *g2, *be2, *w_res, *w_skip;
+  void* dx;      // (B, T, C)
+  void* dw_in;   // (H, C)
+  void* db_in;   // (H)
+  void* da;      // (2): da1, da2
+  void* dgb1;    // (2, H): dg1, dbe1
+  void* dwb_dw;  // (4, H): dw_dw taps 0..2, db_dw
+  void* dgb2;    // (2, H): dg2, dbe2
+  void* dw_out;  // (n_res + Cs, H): dW_res rows, then dW_skip rows
+  void* db_out;  // (n_res + Cs): db_res, then db_skip
+  float* work;   // tcn_bwd_workspace(B, T, C, H, Cs, last) floats
+  int B, T, C, H, Cs, last, dilation, bf16_io;
 };
 
 }  // extern "C"
@@ -144,10 +157,10 @@ struct Split {
 // 1. z1 = x W_in^T + b_in (tcn_common.cuh's z1_tile, which K1 runs too).
 // grid (cdiv(T, 128), cdiv(H, 128), B)
 
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_z1_gemm(const float* __restrict__ x, const float* __restrict__ w_in,
-                const float* __restrict__ bias, float* __restrict__ z1, int T, int C, int H) {
+tcn_bwd_z1_gemm(const S* __restrict__ x, const S* __restrict__ w_in, const S* __restrict__ bias,
+                float* __restrict__ z1, int T, int C, int H) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int m0 = blockIdx.x * kGM;
   const size_t row0 = static_cast<size_t>(blockIdx.z) * T;
@@ -180,6 +193,20 @@ __device__ __forceinline__ F4 ld4(const float* p, int n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (e < n) a.v[e] = p[e];
+    return a;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ F4 ld4(const bf16* p, int n) {
+  if constexpr (kVec) {
+    const float4 q = ldg4(p);
+    return {{q.x, q.y, q.z, q.w}};
+  } else {
+    F4 a = {};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) a.v[e] = ldf(p + e);
     return a;
   }
 }
@@ -245,17 +272,16 @@ __device__ void tile_sums(const float (&s)[N][4], float* red, Out out) {
 }
 
 // grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kThreads)
-tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats,
-           const float* __restrict__ a1, const float* __restrict__ g1,
-           const float* __restrict__ be1, const float* __restrict__ w_dw,
-           const float* __restrict__ b_dw, float* __restrict__ z2, int T, int H, int d) {
+tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats, const S* __restrict__ a1,
+           const S* __restrict__ g1, const S* __restrict__ be1, const S* __restrict__ w_dw,
+           const S* __restrict__ b_dw, float* __restrict__ z2, int T, int H, int d) {
   const int b = blockIdx.z, c = ew_channel();
   if (c >= H) return;  // no barrier in this kernel
   const size_t base = static_cast<size_t>(b) * T * H + c;
   const int ne = ew_width<kVec>(c, H);
-  const NormOnLoad<kVec> y1{z1 + base, T, H, ne, *a1, stats[4 * b], stats[4 * b + 1],
+  const NormOnLoad<kVec> y1{z1 + base, T, H, ne, ldf(a1), stats[4 * b], stats[4 * b + 1],
                             ld4<kVec>(g1 + c, ne), ld4<kVec>(be1 + c, ne)};
   const F4 w0 = ld4<kVec>(w_dw + c, ne), w1 = ld4<kVec>(w_dw + H + c, ne),
            w2 = ld4<kVec>(w_dw + 2 * H + c, ne), bd = ld4<kVec>(b_dw + c, ne);
@@ -276,37 +302,40 @@ tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats,
 // past C) then those of g_skip. Column sums of gy2 h2 and gy2 over the
 // tile's rows into part[b][tile][2][H]. grid (cdiv(T, 128), cdiv(H, 128), B)
 
-template <bool kVec>
+template <bool kVec, class S>
 struct Gy2Op {
-  const float *rrow, *srow, *w_res, *w_skip;  // staged rows of g_res, g_skip
-  int n_res, Cs, H, nr;                       // nr: slices of g_res
-  RowStage<kVec> a;
+  const S *rrow, *srow, *w_res, *w_skip;  // staged rows of g_res, g_skip
+  int n_res, Cs, H, nr;                   // nr: slices of g_res
+  RowStage<kVec, S> a;
+  DirectSlice<kVec, S> w;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int n0 = blockIdx.y * kGM;
     const bool res = s < nr;
     const int k0 = (res ? s : s - nr) * kGK, K = res ? n_res : Cs;
-    const float* w = res ? w_res : w_skip;
+    const S* wm = res ? w_res : w_skip;
     a.load(res ? rrow : srow, k0, K);
-    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
-      return k0 + k < K && n0 + c < H ? w + static_cast<size_t>(k0 + k) * H + n0 + c : nullptr;
+    w.fetch(Bs, [&](int k, int c) -> const S* {
+      return k0 + k < K && n0 + c < H ? wm + static_cast<size_t>(k0 + k) * H + n0 + c : nullptr;
     }, w_skip);
   }
-  __device__ __forceinline__ void store(float* As) { a.store(As); }
+  __device__ __forceinline__ void store(float* As) {
+    a.store(As);
+    w.store(As + kGSlice);
+  }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_gy2_gemm(const float* __restrict__ g_res, const float* __restrict__ g_skip,
-                 const float* __restrict__ w_res, const float* __restrict__ w_skip,
-                 const float* __restrict__ z2, const float* __restrict__ a2,
-                 float* __restrict__ gy2, float* __restrict__ part, int T, int H, int C, int Cs,
-                 int n_res) {
+tcn_bwd_gy2_gemm(const S* __restrict__ g_res, const S* __restrict__ g_skip,
+                 const S* __restrict__ w_res, const S* __restrict__ w_skip,
+                 const float* __restrict__ z2, const S* __restrict__ a2, float* __restrict__ gy2,
+                 float* __restrict__ part, int T, int H, int C, int Cs, int n_res) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(b) * T;
-  Gy2Op<kVec> op;
+  Gy2Op<kVec, S> op;
   const int m = m0 + threadIdx.x % kGM;
   op.rrow = n_res && m < T ? g_res + (row0 + m) * C : nullptr;
   op.srow = m < T ? g_skip + (row0 + m) * Cs : nullptr;
@@ -323,7 +352,7 @@ tcn_bwd_gy2_gemm(const float* __restrict__ g_res, const float* __restrict__ g_sk
   }, n0, H);
   // the column sums: the thread's 8 rows, then the 16 threads that share
   // its columns in a fixed order (sm is free after the loop's last barrier)
-  const float alpha = *a2;
+  const float alpha = ldf(a2);
   float s_gh[8] = {}, s_g[8] = {};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -364,9 +393,10 @@ tcn_bwd_gy2_gemm(const float* __restrict__ g_res, const float* __restrict__ g_sk
 // 4 and 7. Per batch row: merge the tile partials (sum gy h, sum gy) of a
 // gLN backward into dgb[b] = (dg, dbe) (H each) and the scalars fold[b] =
 // (A, B) of gh = hs gy - A - B (h - mean). grid (B)
+template <class S>
 __global__ void __launch_bounds__(kThreads)
 tcn_bwd_row_merge(const float* __restrict__ part, int n_tiles, const float* __restrict__ stats,
-                  int slot, const float* __restrict__ gamma, float* __restrict__ dgb,
+                  int slot, const S* __restrict__ gamma, float* __restrict__ dgb,
                   float* __restrict__ fold, int H, float inv_n) {
   __shared__ float red[kThreads / 32];
   const int b = blockIdx.x;
@@ -382,8 +412,8 @@ tcn_bwd_row_merge(const float* __restrict__ part, int n_tiles, const float* __re
     const float dg = rstd * (gh - mean * g);
     dgb[(2 * static_cast<size_t>(b)) * H + h] = dg;
     dgb[(2 * static_cast<size_t>(b) + 1) * H + h] = g;
-    sa += gamma[h] * g;
-    sb += gamma[h] * dg;
+    sa += ldf(gamma + h) * g;
+    sb += ldf(gamma + h) * dg;
   }
   sa = block_sum(sa, red);
   sb = block_sum(sb, red);
@@ -402,8 +432,9 @@ tcn_bwd_row_merge(const float* __restrict__ part, int n_tiles, const float* __re
 
 // The thread's two float4 pieces of y2's (kGK, 128) slice (stage_direct's
 // pieces), normalised from z2 through registers; rows past the chunk and
-// columns past H are 0.
-template <bool kVec>
+// columns past H are 0. kRound (the bf16 route): h2 = PReLU(z2) rounded to
+// bf16 before the affine, the TPU kernel's bf16(h2) in its dW.
+template <bool kVec, bool kRound = false>
 struct Y2Stage {
   float4 v[2];
   F4 g, be;  // g2 and be2 of the thread's four columns
@@ -427,8 +458,11 @@ struct Y2Stage {
             if (e < ne) z.v[e] = __ldg(p + e);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (e < ne) y.v[e] = (prelu(z.v[e], alpha) - mean) * rstd * g.v[e] + be.v[e];
+        for (int e = 0; e < 4; ++e) {
+          float h = prelu(z.v[e], alpha);
+          if constexpr (kRound) h = round_bf16(h);
+          if (e < ne) y.v[e] = (h - mean) * rstd * g.v[e] + be.v[e];
+        }
       }
       v[q] = make_float4(y.v[0], y.v[1], y.v[2], y.v[3]);
     }
@@ -443,21 +477,26 @@ struct Y2Stage {
   }
 };
 
-template <bool kVec>
+template <bool kVec, class S>
 struct WoutOp {
-  const float *g, *zrow0;  // g_res or g_skip and z2 at the chunk's first step
+  const S* g;              // g_res or g_skip at the chunk's first step
+  const float* zrow0;      // z2 there
   int ld, m_max, kc, H;    // g's row stride and columns; the chunk's steps
   float alpha, mean, rstd, db = 0.f;
-  Y2Stage<kVec> y;
+  DirectSlice<kVec, S> gs;
+  Y2Stage<kVec, !std::is_same_v<S, float>> y;
 
   __device__ __forceinline__ void fetch(int s, float* As, float*) {
     const int k0 = s * kGK, n0 = blockIdx.y * kGM;
-    stage_direct<kVec>(As, [&](int k, int c) -> const float* {
+    gs.fetch(As, [&](int k, int c) -> const S* {
       return k0 + k < kc && c < m_max ? g + static_cast<size_t>(k0 + k) * ld + c : nullptr;
     }, g);
     y.load(zrow0, k0, kc, H, n0, alpha, mean, rstd);
   }
-  __device__ __forceinline__ void store(float* As) { y.store(As + kGSlice); }
+  __device__ __forceinline__ void store(float* As) {
+    gs.store(As);
+    y.store(As + kGSlice);
+  }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float* Bs) {
     if (blockIdx.y != 0 || threadIdx.x >= kGM) return;
     const float* As = Bs - kGSlice;
@@ -466,14 +505,13 @@ struct WoutOp {
   }
 };
 
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_wout_gemm(const float* __restrict__ g_res, const float* __restrict__ g_skip,
+tcn_bwd_wout_gemm(const S* __restrict__ g_res, const S* __restrict__ g_skip,
                   const float* __restrict__ z2, const float* __restrict__ stats,
-                  const float* __restrict__ a2, const float* __restrict__ g2,
-                  const float* __restrict__ be2, float* __restrict__ part,
-                  float* __restrict__ part_db, int T, int H, int C, int Cs, int n_res,
-                  int chunks, int chunk) {
+                  const S* __restrict__ a2, const S* __restrict__ g2, const S* __restrict__ be2,
+                  float* __restrict__ part, float* __restrict__ part_db, int T, int H, int C,
+                  int Cs, int n_res, int chunks, int chunk) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * chunk;
   const int mr = cdiv(n_res, kGM), M = n_res + Cs;
@@ -481,14 +519,14 @@ tcn_bwd_wout_gemm(const float* __restrict__ g_res, const float* __restrict__ g_s
   const int m0 = (res ? blockIdx.x : blockIdx.x - mr) * kGM, n0 = blockIdx.y * kGM;
   const int row_off = res ? 0 : n_res;  // the output rows of this source
   const size_t row0 = static_cast<size_t>(b) * T + tc;
-  WoutOp<kVec> op;
+  WoutOp<kVec, S> op;
   op.ld = res ? C : Cs;
   op.m_max = (res ? n_res : Cs) - m0;
   op.g = (res ? g_res : g_skip) + row0 * op.ld + m0;
   op.zrow0 = z2 + row0 * H;
   op.kc = min(chunk, T - tc);
   op.H = H;
-  op.alpha = *a2;
+  op.alpha = ldf(a2);
   op.mean = stats[4 * b + 2];
   op.rstd = stats[4 * b + 3];
   const int c = n0 + threadIdx.x % 32 * 4;
@@ -511,14 +549,13 @@ tcn_bwd_wout_gemm(const float* __restrict__ g_res, const float* __restrict__ g_s
 // sum gz2; part_a[b][tile][ctile] = sum gh2 min(z2, 0), in double;
 // part1[b][tile][2][H] = sum gy1 h1, sum gy1.
 // grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kThreads)
 tcn_bwd_gz2_gy1(const float* __restrict__ z1, const float* __restrict__ z2,
                 const float* __restrict__ gy2, float* __restrict__ gy1,
                 const float* __restrict__ stats, const float* __restrict__ fold2,
-                const float* __restrict__ a1, const float* __restrict__ g1,
-                const float* __restrict__ be1, const float* __restrict__ w_dw,
-                const float* __restrict__ a2, const float* __restrict__ g2,
+                const S* __restrict__ a1, const S* __restrict__ g1, const S* __restrict__ be1,
+                const S* __restrict__ w_dw, const S* __restrict__ a2, const S* __restrict__ g2,
                 float* __restrict__ part2, double* __restrict__ part_a,
                 float* __restrict__ part1, int T, int H, int d) {
   __shared__ double red[kThreads / 32];
@@ -527,7 +564,7 @@ tcn_bwd_gz2_gy1(const float* __restrict__ z1, const float* __restrict__ z2,
   const bool c_ok = c < H;
   const int ne = c_ok ? ew_width<kVec>(c, H) : 0;
   const size_t base = static_cast<size_t>(b) * T * H + c;
-  const float alpha1 = *a1, alpha = *a2, fa = fold2[2 * b], fb = fold2[2 * b + 1],
+  const float alpha1 = ldf(a1), alpha = ldf(a2), fa = fold2[2 * b], fb = fold2[2 * b + 1],
               mean2 = stats[4 * b + 2], rstd2 = stats[4 * b + 3];
   F4 g = {}, be = {}, hs2 = {}, w0 = {}, w1 = {}, w2 = {};
   if (c_ok) {
@@ -603,14 +640,15 @@ tcn_bwd_gz2_gy1(const float* __restrict__ z1, const float* __restrict__ z2,
 }
 
 // ---------------------------------------------------------------------------
-// 8. gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), written over z1.
+// 8. gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), written over z1
+// (rounded to bf16 on the bf16 route, after its sums).
 // Partials: part[b][tile][H] = sum gz1 (db_in); part_a[b][tile][ctile] =
 // sum gh1 min(z1, 0) in double. grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kThreads)
 tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
             const float* __restrict__ stats, const float* __restrict__ fold1,
-            const float* __restrict__ a1, const float* __restrict__ g1, float* __restrict__ part,
+            const S* __restrict__ a1, const S* __restrict__ g1, float* __restrict__ part,
             double* __restrict__ part_a, int T, int H) {
   __shared__ double red[kThreads / 32];
   __shared__ float cred[kEwGroups * kEwCols];
@@ -618,7 +656,7 @@ tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
   const bool c_ok = c < H;
   const int ne = c_ok ? ew_width<kVec>(c, H) : 0;
   const size_t base = static_cast<size_t>(b) * T * H + c;
-  const float alpha = *a1, fa = fold1[2 * b], fb = fold1[2 * b + 1], mean1 = stats[4 * b];
+  const float alpha = ldf(a1), fa = fold1[2 * b], fb = fold1[2 * b + 1], mean1 = stats[4 * b];
   F4 hs1 = {};
   if (c_ok) {
     hs1 = ld4<kVec>(g1 + c, ne);
@@ -640,6 +678,7 @@ tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
         gz.v[e] = z.v[e] >= 0.f ? gh : alpha * gh;
         sa += gh * fminf(z.v[e], 0.f);
         s[0][e] += gz.v[e];
+        if constexpr (!std::is_same_v<S, float>) gz.v[e] = round_bf16(gz.v[e]);
       }
       st4<kVec>(z1 + o, gz, ne);
     }
@@ -656,31 +695,36 @@ tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
 // ---------------------------------------------------------------------------
 // 9. dx = gz1 W_in (+ g_res). grid (cdiv(T, 128), cdiv(C, 128), B)
 
-template <bool kVec>
+template <bool kVec, class S>
 struct DxOp {
-  const float *grow, *w;  // the staged row of gz1; W_in (H, C), rows k
+  const float* grow;  // the staged row of gz1
+  const S* w;         // W_in (H, C), rows k
   int H, C;
   RowStage<kVec> a;
+  DirectSlice<kVec, S> ws;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int k0 = s * kGK, n0 = blockIdx.y * kGM;
     a.load(grow, k0, H);
-    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
+    ws.fetch(Bs, [&](int k, int c) -> const S* {
       return k0 + k < H && n0 + c < C ? w + static_cast<size_t>(k0 + k) * C + n0 + c : nullptr;
     }, w);
   }
-  __device__ __forceinline__ void store(float* As) { a.store(As); }
+  __device__ __forceinline__ void store(float* As) {
+    a.store(As);
+    ws.store(As + kGSlice);
+  }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_dx_gemm(const float* __restrict__ gz1, const float* __restrict__ w_in,
-                const float* __restrict__ g_res, float* __restrict__ dx, int T, int H, int C) {
+tcn_bwd_dx_gemm(const float* __restrict__ gz1, const S* __restrict__ w_in,
+                const S* __restrict__ g_res, S* __restrict__ dx, int T, int H, int C) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(b) * T;
-  DxOp<kVec> op;
+  DxOp<kVec, S> op;
   const int m = m0 + threadIdx.x % kGM;
   op.grow = m < T ? gz1 + (row0 + m) * H : nullptr;
   op.w = w_in;
@@ -703,7 +747,7 @@ tcn_bwd_dx_gemm(const float* __restrict__ gz1, const float* __restrict__ w_in,
       }
     }
   }
-  store_tile<kVec>(acc, [&](int i) -> float* {
+  store_tile<kVec>(acc, [&](int i) -> S* {
     return m0 + i < T ? dx + (row0 + m0 + i) * C : nullptr;
   }, n0, C);
 }
@@ -712,33 +756,35 @@ tcn_bwd_dx_gemm(const float* __restrict__ gz1, const float* __restrict__ w_in,
 // 10. dW_in partials: part[z][h][c] = sum_t gz1[t][h] x[t][c] over one (row,
 // chunk) z. grid (cdiv(H, 128), cdiv(C, 128), B chunks)
 
-template <bool kVec>
+template <bool kVec, class S>
 struct WinOp {
-  const float *g, *x;  // gz1 and x at the chunk's first step
+  const float* g;  // gz1 at the chunk's first step
+  const S* x;      // x there
   int H, C, kc;
+  DirectSlice<kVec, S> xs;
 
   __device__ __forceinline__ void fetch(int s, float* As, float* Bs) {
     const int k0 = s * kGK, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
     stage_direct<kVec>(As, [&](int k, int c) -> const float* {
       return k0 + k < kc && m0 + c < H ? g + static_cast<size_t>(k0 + k) * H + m0 + c : nullptr;
     }, g);
-    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
+    xs.fetch(Bs, [&](int k, int c) -> const S* {
       return k0 + k < kc && n0 + c < C ? x + static_cast<size_t>(k0 + k) * C + n0 + c : nullptr;
     }, x);
   }
-  __device__ __forceinline__ void store(float*) {}
+  __device__ __forceinline__ void store(float* As) { xs.store(As + kGSlice); }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-template <bool kVec>
+template <bool kVec, class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_win_gemm(const float* __restrict__ gz1, const float* __restrict__ x,
+tcn_bwd_win_gemm(const float* __restrict__ gz1, const S* __restrict__ x,
                  float* __restrict__ part, int T, int H, int C, int chunks, int chunk) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * chunk;
   const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(b) * T + tc;
-  WinOp<kVec> op;
+  WinOp<kVec, S> op;
   op.g = gz1 + row0 * H;
   op.x = x + row0 * C;
   op.H = H;
@@ -756,11 +802,12 @@ tcn_bwd_win_gemm(const float* __restrict__ gz1, const float* __restrict__ x,
 // 11. Every parameter gradient from its partials, one task a grid row:
 // out[i] = sum over p < n_part of part[p][i], i < n, in float (each of the
 // groups of threads of a column sums every groups-th partial, then one
-// thread adds the groups in order), or a sum of n_part doubles into out[0].
+// thread adds the groups in order), or a sum of n_part doubles into out[0];
+// out is float32, or bfloat16 (the sum rounded on store).
 
 struct SumTask {
   const void* part;
-  float* out;
+  void* out;
   int n_part, n, f64;
 };
 
@@ -771,6 +818,7 @@ struct SumTasks {
 };
 
 // grid (the most blocks a task needs, tasks)
+template <class S>
 __global__ void __launch_bounds__(kThreads)
 tcn_bwd_sums(const SumTasks tasks) {
   __shared__ float red[kThreads];
@@ -782,7 +830,7 @@ tcn_bwd_sums(const SumTasks tasks) {
     double s = 0.0;
     for (int p = threadIdx.x; p < task.n_part; p += kThreads) s += part[p];
     s = block_sum(s, dred);
-    if (threadIdx.x == 0) task.out[0] = static_cast<float>(s);
+    if (threadIdx.x == 0) stf(static_cast<S*>(task.out), static_cast<float>(s));
     return;
   }
   const int cols = task.n >= 32 ? 32 : 1;
@@ -798,7 +846,7 @@ tcn_bwd_sums(const SumTasks tasks) {
   if (grp == 0 && i < task.n) {
     float tot = 0.f;
     for (int g = 0; g < groups; ++g) tot += red[g * cols + col];
-    task.out[i] = tot;
+    stf(static_cast<S*>(task.out) + i, tot);
   }
 }
 
@@ -857,58 +905,65 @@ bool vec_widths(int C, int H, int Cs) { return C % 4 == 0 && H % 4 == 0 && Cs % 
     return err;                                       \
   }
 
-// The whole backward on s; the first launch's CUDA error code, or 0.
-template <bool kVec>
+// The whole backward on s; the first launch's CUDA error code, or 0. S:
+// the storage of x, the cotangents, the parameters, dx and the gradients.
+template <bool kVec, class S>
 int launch_bwd(const TcnBwdArgs* a, cudaStream_t s) {
   const int B = a->B, T = a->T, C = a->C, H = a->H, Cs = a->Cs, d = a->dilation;
   const int n_res = a->last ? 0 : C;
   const Layout L(B, T, C, H, Cs, a->last);
   float* w = a->work;
   const float inv_n = 1.f / (static_cast<float>(T) * static_cast<float>(H));
-  const float* g_res = a->last ? nullptr : a->g_res;
+  auto in = [](const void* p) { return static_cast<const S*>(p); };
+  const S* x = in(a->x);
+  const S* g_res = a->last ? nullptr : in(a->g_res);
+  const S* g_skip = in(a->g_skip);
+  const S *w_in = in(a->w_in), *b_in = in(a->b_in), *a1 = in(a->a1), *g1 = in(a->g1),
+          *be1 = in(a->be1), *w_dw = in(a->w_dw), *b_dw = in(a->b_dw), *a2 = in(a->a2),
+          *g2 = in(a->g2), *be2 = in(a->be2), *w_res = in(a->w_res), *w_skip = in(a->w_skip);
   const dim3 ew(L.tiles, L.ctiles, B);
   double* pa1 = reinterpret_cast<double*>(w + L.pa1);  // 128-byte aligned
   double* pa2 = reinterpret_cast<double*>(w + L.pa2);
   int err = 0;
 
-  tcn_bwd_z1_gemm<kVec><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
-      a->x, a->w_in, a->b_in, w + L.z1, T, C, H);
+  tcn_bwd_z1_gemm<kVec, S><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
+      x, w_in, b_in, w + L.z1, T, C, H);
   TCN_LAUNCHED();
-  tcn_bwd_z2<kVec><<<ew, kThreads, 0, s>>>(w + L.z1, a->stats, a->a1, a->g1, a->be1, a->w_dw,
-                                           a->b_dw, w + L.z2, T, H, d);
+  tcn_bwd_z2<kVec, S><<<ew, kThreads, 0, s>>>(w + L.z1, a->stats, a1, g1, be1, w_dw, b_dw,
+                                              w + L.z2, T, H, d);
   TCN_LAUNCHED();
-  tcn_bwd_gy2_gemm<kVec><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
-      g_res, a->g_skip, a->w_res, a->w_skip, w + L.z2, a->a2, w + L.gy2, w + L.p_gy2, T, H, C,
-      Cs, n_res);
+  tcn_bwd_gy2_gemm<kVec, S><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
+      g_res, g_skip, w_res, w_skip, w + L.z2, a2, w + L.gy2, w + L.p_gy2, T, H, C, Cs, n_res);
   TCN_LAUNCHED();
-  tcn_bwd_row_merge<<<B, kThreads, 0, s>>>(w + L.p_gy2, L.gtiles, a->stats, 1, a->g2,
-                                           w + L.dgb2_rows, w + L.fold2, H, inv_n);
+  tcn_bwd_row_merge<S><<<B, kThreads, 0, s>>>(w + L.p_gy2, L.gtiles, a->stats, 1, g2,
+                                              w + L.dgb2_rows, w + L.fold2, H, inv_n);
   TCN_LAUNCHED();
-  tcn_bwd_wout_gemm<kVec>
+  tcn_bwd_wout_gemm<kVec, S>
       <<<dim3(cdiv(n_res, kGM) + cdiv(Cs, kGM), cdiv(H, kGM), B * L.wout.chunks), kGemmThreads,
-         0, s>>>(g_res, a->g_skip, w + L.z2, a->stats, a->a2, a->g2, a->be2, w + L.p_wout,
-                 w + L.p_dbout, T, H, C, Cs, n_res, L.wout.chunks, L.wout.chunk);
+         0, s>>>(g_res, g_skip, w + L.z2, a->stats, a2, g2, be2, w + L.p_wout, w + L.p_dbout, T,
+                 H, C, Cs, n_res, L.wout.chunks, L.wout.chunk);
   TCN_LAUNCHED();
-  tcn_bwd_gz2_gy1<kVec><<<ew, kThreads, 0, s>>>(
-      w + L.z1, w + L.z2, w + L.gy2, w + L.gy1, a->stats, w + L.fold2, a->a1, a->g1, a->be1,
-      a->w_dw, a->a2, a->g2, w + L.p_gz2, pa2, w + L.p_gy1, T, H, d);
+  tcn_bwd_gz2_gy1<kVec, S><<<ew, kThreads, 0, s>>>(w + L.z1, w + L.z2, w + L.gy2, w + L.gy1,
+                                                   a->stats, w + L.fold2, a1, g1, be1, w_dw, a2,
+                                                   g2, w + L.p_gz2, pa2, w + L.p_gy1, T, H, d);
   TCN_LAUNCHED();
-  tcn_bwd_row_merge<<<B, kThreads, 0, s>>>(w + L.p_gy1, L.tiles, a->stats, 0, a->g1,
-                                           w + L.dgb1_rows, w + L.fold1, H, inv_n);
+  tcn_bwd_row_merge<S><<<B, kThreads, 0, s>>>(w + L.p_gy1, L.tiles, a->stats, 0, g1,
+                                              w + L.dgb1_rows, w + L.fold1, H, inv_n);
   TCN_LAUNCHED();
   // z1 becomes gz1
-  tcn_bwd_gz1<kVec><<<ew, kThreads, 0, s>>>(w + L.gy1, w + L.z1, a->stats, w + L.fold1, a->a1,
-                                            a->g1, w + L.p_gz1, pa1, T, H);
+  tcn_bwd_gz1<kVec, S><<<ew, kThreads, 0, s>>>(w + L.gy1, w + L.z1, a->stats, w + L.fold1, a1,
+                                               g1, w + L.p_gz1, pa1, T, H);
   TCN_LAUNCHED();
-  tcn_bwd_dx_gemm<kVec><<<dim3(L.gtiles, cdiv(C, kGM), B), kGemmThreads, 0, s>>>(
-      w + L.z1, a->w_in, g_res, a->dx, T, H, C);
+  tcn_bwd_dx_gemm<kVec, S><<<dim3(L.gtiles, cdiv(C, kGM), B), kGemmThreads, 0, s>>>(
+      w + L.z1, w_in, g_res, static_cast<S*>(a->dx), T, H, C);
   TCN_LAUNCHED();
-  tcn_bwd_win_gemm<kVec><<<dim3(cdiv(H, kGM), cdiv(C, kGM), B * L.win.chunks), kGemmThreads, 0,
-                           s>>>(w + L.z1, a->x, w + L.p_win, T, H, C, L.win.chunks,
-                                L.win.chunk);
+  tcn_bwd_win_gemm<kVec, S><<<dim3(cdiv(H, kGM), cdiv(C, kGM), B * L.win.chunks), kGemmThreads,
+                              0, s>>>(w + L.z1, x, w + L.p_win, T, H, C, L.win.chunks,
+                                      L.win.chunk);
   TCN_LAUNCHED();
 
   const int bt = B * L.tiles, bta = B * L.tiles * L.ctiles;
+  S* da = static_cast<S*>(a->da);
   const SumTasks tasks = {{
       {w + L.p_win, a->dw_in, B * L.win.chunks, H * C, 0},
       {w + L.p_gz1, a->db_in, bt, H, 0},
@@ -917,13 +972,13 @@ int launch_bwd(const TcnBwdArgs* a, cudaStream_t s) {
       {w + L.dgb2_rows, a->dgb2, B, 2 * H, 0},
       {w + L.p_wout, a->dw_out, B * L.wout.chunks, L.M * H, 0},
       {w + L.p_dbout, a->db_out, B * L.wout.chunks, L.M, 0},
-      {pa1, a->da, bta, 1, 1},
-      {pa2, a->da + 1, bta, 1, 1},
+      {pa1, da, bta, 1, 1},
+      {pa2, da + 1, bta, 1, 1},
   }};
   int blocks = 1;
   for (const SumTask& t : tasks.task)
     if (!t.f64) blocks = std::max(blocks, cdiv(t.n, t.n >= 32 ? 32 : 1));
-  tcn_bwd_sums<<<dim3(blocks, kMaxSums), kThreads, 0, s>>>(tasks);
+  tcn_bwd_sums<S><<<dim3(blocks, kMaxSums), kThreads, 0, s>>>(tasks);
   TCN_LAUNCHED();
   return 0;
 }
@@ -956,21 +1011,30 @@ int tcn_bwd_plan(int B, int T, int C, int H, int Cs, int last, int* info) {
 int tcn_block_bwd(const TcnBwdArgs* a, void* stream) {
   if (!shape_ok(a->B, a->T, a->C, a->H, a->Cs)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec_widths(a->C, a->H, a->Cs) ? launch_bwd<true>(a, s) : launch_bwd<false>(a, s);
+  const bool vec = vec_widths(a->C, a->H, a->Cs);
+  if (a->bf16_io) return vec ? launch_bwd<true, bf16>(a, s) : launch_bwd<false, bf16>(a, s);
+  return vec ? launch_bwd<true, float>(a, s) : launch_bwd<false, float>(a, s);
 }
 
 // K2's first launch alone: z1 (B, T, H) = x W_in^T + b_in, the bits K2
 // recomputes (for the check that they are the forward's). Returns a CUDA
 // error code, or 0.
-int tcn_bwd_z1(const float* x, const float* w_in, const float* b_in, float* z1, int B, int T,
-               int C, int H, void* stream) {
+int tcn_bwd_z1(const void* x, const void* w_in, const void* b_in, float* z1, int B, int T,
+               int C, int H, int bf16_io, void* stream) {
   if (!shape_ok(B, T, C, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_widths(C, H, 4))
-    tcn_bwd_z1_gemm<true><<<grid, kGemmThreads, 0, s>>>(x, w_in, b_in, z1, T, C, H);
+  auto go = [&](auto tag, auto vec) {
+    using S = decltype(tag);
+    tcn_bwd_z1_gemm<decltype(vec)::value, S><<<grid, kGemmThreads, 0, s>>>(
+        static_cast<const S*>(x), static_cast<const S*>(w_in), static_cast<const S*>(b_in), z1,
+        T, C, H);
+  };
+  const bool vec = vec_widths(C, H, 4);
+  if (bf16_io)
+    vec ? go(bf16{}, std::true_type{}) : go(bf16{}, std::false_type{});
   else
-    tcn_bwd_z1_gemm<false><<<grid, kGemmThreads, 0, s>>>(x, w_in, b_in, z1, T, C, H);
+    vec ? go(float{}, std::true_type{}) : go(float{}, std::false_type{});
   return static_cast<int>(cudaGetLastError());
 }
 

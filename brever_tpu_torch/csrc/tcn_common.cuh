@@ -54,11 +54,12 @@ __device__ inline float prelu(float z, float a) { return z >= 0.f ? z : a * z; }
 // z1's k loop: both operands are stored with k contiguous (x (T, C) and the
 // torch Linear weight W_in (H, C)), so both are staged through registers
 // and transposed into the (k, 128) slices; no copy of W_in^T is needed.
-template <bool kVec>
+// S: float32, or bfloat16 (the bf16 route), converted as it is loaded.
+template <bool kVec, class S>
 struct Z1Op {
-  const float *xrow, *wrow;  // the staged rows of x (null past T) and W_in (null past H)
+  const S *xrow, *wrow;  // the staged rows of x (null past T) and W_in (null past H)
   int C;
-  simt::RowStage<kVec> a, b;
+  simt::RowStage<kVec, S> a, b;
 
   __device__ __forceinline__ void fetch(int s, float*, float*) {
     a.load(xrow, s * simt::kGK, C);
@@ -73,16 +74,16 @@ struct Z1Op {
 
 // The block's 128 x 128 tile of z1 = x W_in^T + b_in for batch row b (grid
 // (cdiv(T, 128), cdiv(H, 128), B), 256 threads, sm: 4 kGSlice floats):
-// every output an fmaf chain from 0 over k ascending, then + the bias.
-// K1 and K2 both call this, so their z1 are the same bits.
-template <bool kVec>
-__device__ __forceinline__ void z1_tile(float (&acc)[8][8], const float* __restrict__ x,
-                                        const float* __restrict__ w_in,
-                                        const float* __restrict__ bias, int T, int C, int H,
-                                        float* sm) {
+// every output an fmaf chain from 0 over k ascending, then + the bias, in
+// float32 from float32 or bfloat16 x, W_in and b_in. K1 and K2 both call
+// this, so their z1 are the same bits, on either route.
+template <bool kVec, class S>
+__device__ __forceinline__ void z1_tile(float (&acc)[8][8], const S* __restrict__ x,
+                                        const S* __restrict__ w_in, const S* __restrict__ bias,
+                                        int T, int C, int H, float* sm) {
   using namespace simt;
   const int m = blockIdx.x * kGM + threadIdx.x % kGM, n = blockIdx.y * kGM + threadIdx.x % kGM;
-  Z1Op<kVec> op;
+  Z1Op<kVec, S> op;
   op.xrow = m < T ? x + (static_cast<size_t>(blockIdx.z) * T + m) * C : nullptr;
   op.wrow = n < H ? w_in + static_cast<size_t>(n) * C : nullptr;
   op.C = C;
@@ -94,7 +95,7 @@ __device__ __forceinline__ void z1_tile(float (&acc)[8][8], const float* __restr
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = blockIdx.y * kGM + frag_col(j);
-    const float bn = col < H ? bias[col] : 0.f;
+    const float bn = col < H ? ldf(bias + col) : 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i][j] = acc[i][j] + bn;
   }

@@ -1,11 +1,11 @@
 """Host-side data pipeline: datasets, tar access, padded collation
 (counterpart of ``brever_tpu/data.py``).
 
-Dataset layout as the JAX package writes it: ``audio/{i:05d}_{source}.wav``
-inside a directory or an ``audio.tar`` archive. The port reads WAV
-(``scripts/create_dataset.py --format wav``); FLAC items, dynamic mixing
-and preloading onto a device raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1). Batches are numpy ``(batch, lengths)`` pairs padded to the batch
+Dataset layout as the JAX package writes it: ``audio/{i:05d}_{source}.flac``
+(``scripts/create_dataset.py``'s default) or ``.wav`` (``--format wav``)
+inside a directory or an ``audio.tar`` archive, read through
+``audio.read_audio``. Dynamic mixing and preloading onto a device raise
+``NotImplementedError`` (ROADMAP.md, Queue 1). Batches are numpy ``(batch, lengths)`` pairs padded to the batch
 maximum, rounded up to ``pad_to_multiple``; moving them to the device is
 the trainer's job.
 """
@@ -19,7 +19,7 @@ import threading
 
 import numpy as np
 
-from .audio import read_wav, wav_frames
+from .audio import audio_frames, read_audio
 
 
 def _not_ported(what):
@@ -129,7 +129,7 @@ class BreverDataset:
             lengths = []
             for p in self.build_paths(file_idx):
                 with self.get_file(p) as f:
-                    lengths.append(wav_frames(f))
+                    lengths.append(audio_frames(f, p))
             if len(set(lengths)) > 1:
                 raise ValueError(
                     f'sources {file_idx} do not all have the same length')
@@ -148,8 +148,6 @@ class BreverDataset:
         if not matches:
             raise ValueError(f'no audio files found in {self.path}')
         self._ext = matches[0].group(3)
-        if self._ext != '.wav':
-            raise _not_ported(f'reading {self._ext} items')
         return max(int(m.group(1)) for m in matches) + 1
 
     def build_paths(self, file_idx):
@@ -195,7 +193,7 @@ class BreverDataset:
 
     def load_file(self, path):
         with self.get_file(path) as f:
-            x, fs = read_wav(f)
+            x, fs = read_audio(f, path)
         if fs != self.fs:
             raise ValueError(
                 'file sampling rate does not match dataset fs attribute, '

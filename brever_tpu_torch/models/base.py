@@ -15,6 +15,12 @@ them from ``make_step_fns(trainer)``, and a dict of optimizers from
 ``optimizer()``, each over one part of the parameters
 (``optimizer_parts()``). The device is explicit: every family takes
 ``device=`` and builds its parameters there.
+
+Under the trainer's bf16 amp (``use_amp``) the loss runs with every
+floating parameter cast to bfloat16 (``param_dtype`` then says so) and
+the batch cast too; a family whose path has a kernel with no bf16 route
+yet names the ROADMAP item in ``amp_refused``, and the trainer refuses
+``use_amp`` for it.
 """
 
 import torch
@@ -32,13 +38,30 @@ def count_params(module):
 
 def sample_weighted_mean(per_item, lengths):
     """Mean over real samples only: rows with length 0 pad the batch
-    and drop out."""
+    and drop out. In per_item's dtype, as the JAX package's: a bfloat16
+    loss (amp) gives a bfloat16 mean, its sums accumulated in float32 and
+    rounded, as ``jnp.sum`` upcasts bfloat16."""
     if per_item.ndim == 0:
         return per_item
     weights = (lengths > 0).to(per_item.dtype)
     if weights.ndim > 1:
         weights = weights[:, 0]
     return (per_item * weights).sum() / weights.sum().clamp_min(1)
+
+
+def param_dtype(module):
+    """Floating dtype of a module's (possibly amp-cast) parameters, float32
+    where it has none (``brever_tpu/models/base.py`` ``param_dtype``).
+
+    Under amp the trainer casts the parameters to bfloat16 inside the loss,
+    but an STFT front-end computes in float32 (complex FFTs), so a spectral
+    family casts its network input to this dtype at the STFT-to-network
+    boundary, and its trunk then runs in bfloat16. With float32
+    parameters this is the identity."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            return p.dtype
+    return torch.float32
 
 
 class BreverBaseModel(nn.Module):
@@ -51,6 +74,12 @@ class BreverBaseModel(nn.Module):
     #: a per-item host function the training loader applies to each item
     #: (MetricGAN's precomputed noisy score); none here
     loader_transform = None
+
+    #: why the trainer refuses bf16 amp for the family: the kernels on its
+    #: path with no bf16 route yet and their ROADMAP item; None where it
+    #: trains under amp (or, with steps of its own, ignores ``use_amp`` as
+    #: the JAX trainer does)
+    amp_refused = None
 
     @property
     def device(self):

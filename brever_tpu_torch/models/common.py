@@ -9,6 +9,12 @@ layout of the port's 2-D convolutions, and keep their running statistics
 as buffers, the JAX package's ``batch_stats`` collection. MANNER's
 :class:`BatchNormAct` (flash-BN) runs its train-mode statistics through
 ``ops/batchnorm.py``: the CUDA kernels K7-BN and K8-BN on the card.
+
+bf16 (the trainer's amp casts the parameters): as flax's modules, PReLU
+casts ``alpha`` to the activation's dtype, the gLN takes float32
+statistics and casts its output back to the input's dtype, and the
+depthwise conv multiplies and adds in the activation's dtype with its
+kernel and bias cast to it.
 """
 
 import torch

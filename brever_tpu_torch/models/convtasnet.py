@@ -11,6 +11,13 @@ tcn_block_plain` under autograd on every device, as the JAX package
 engages its fused kernel for kernel_size 3 only and leaves the others to
 XLA. Encoder, bottleneck, mask and decoder are plain torch, as the JAX
 package leaves them to XLA.
+
+Under the trainer's bf16 amp the parameters and the input arrive in
+bfloat16 and the whole trunk runs in it, as flax runs the JAX model: the
+encoder, the first gLN (float32 statistics, output cast back), the
+bottleneck, the blocks (K1/K2's bf16 route on CUDA, their bf16 twins on
+the CPU), the skip sum in bf16, ``prelu_out``, the mask layer, the
+sigmoid and the transposed-conv decoder.
 """
 
 import torch

@@ -118,6 +118,9 @@ class DCCRN(BreverBaseModel):
     ``criterion``, ``optimizer`` and ``learning_rate`` are the training
     settings of the model's config; the gradient is clipped at 5."""
 
+    amp_refused = ('the bf16 route of its LSTM scan kernels K5/K6'
+                   ' (ROADMAP.md Queue 1 item 2.2)')
+
     grad_clip = 5.0
 
     def __init__(

@@ -24,7 +24,7 @@ from ..criterion import init_criterion
 from ..ops.features import FeatureExtractor, eps
 from ..ops.stft import STFT, MelFilterbank
 from ..optim import Adam
-from .base import BreverBaseModel, ModelRegistry
+from .base import BreverBaseModel, ModelRegistry, param_dtype
 
 
 class _MLP(nn.Module):
@@ -52,9 +52,10 @@ class _MLP(nn.Module):
                 break
             x = torch.relu(x)
             if self.training and self.dropout > 0:
+                # drawn in float32 whatever x's dtype: under amp the mask
+                # is the float32 step's
                 keep = torch.rand(x.shape, generator=generator,
-                                  device=x.device, dtype=x.dtype) \
-                    < 1 - self.dropout
+                                  device=x.device) < 1 - self.dropout
                 x = torch.where(keep, x / (1 - self.dropout), 0.0)
         return torch.sigmoid(x).transpose(-1, -2)
 
@@ -182,11 +183,16 @@ class FFNN(BreverBaseModel):
     def loss(self, batch, lengths, generator=None):
         """Per-item MSE of the predicted mask against the IRM labels over
         each item's frames (0 for an item of length 0); dropout in train
-        mode draws from ``generator``."""
-        data = self.transform(batch)
+        mode draws from ``generator``. Under amp (a bfloat16 batch and
+        parameters) the features are computed in float32 from the bf16
+        batch, as the JAX package's complex STFT promotes them, and cast to
+        :func:`param_dtype` at the STFT-to-network boundary, so the MLP runs
+        in bfloat16; its mask is cast back to float32 for the loss."""
+        data = self.transform(batch.float())
         inputs = self.normalize(data[:, :self.input_size])
         labels = data[:, self.input_size:]
-        outputs = self.module(inputs, generator)
+        inputs = inputs.to(param_dtype(self.module))
+        outputs = self.module(inputs, generator).float()
         frames = torch.where(lengths > 0, self.frame_lengths(lengths), 0)
         return self.criterion(outputs, labels, frames)
 

@@ -341,6 +341,9 @@ class MANNER(BreverBaseModel):
     schedule peaking at 1e-3, sized by ``prepare_optimizer`` (1e-5 without
     it); no gradient clipping."""
 
+    amp_refused = ('the bf16 route of its flash-BN kernels K7-BN/K8-BN'
+                   ' (ROADMAP.md Queue 1 item 2.3)')
+
     def __init__(self, *, device):
         super().__init__()
         self.hparams = {}

@@ -29,6 +29,9 @@ from .solvers import SolverRegistry
 @ModelRegistry.register('sgmsep')
 class SGMSEp(BreverBaseModel):
 
+    amp_refused = ('the bf16 route of its GroupNorm kernels K7/K8'
+                   ' (ROADMAP.md Queue 1 item 2.3)')
+
     def __init__(
         self,
         stft_frame_length: int = 512,

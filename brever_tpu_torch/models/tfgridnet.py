@@ -189,6 +189,9 @@ class TFGridNet(BreverBaseModel):
     model's config; the learning rate halves on a validation plateau
     (``ReduceLROnPlateau``, factor 0.5, patience 3)."""
 
+    amp_refused = ('the bf16 route of its LSTM kernels K3/K4'
+                   ' (ROADMAP.md Queue 1 item 2.2)')
+
     #: the JAX package wraps this family's Adam in optax.inject_hyperparams,
     #: so its checkpoints carry the learning rate (training.py)
     injects_hyperparams = True

@@ -35,7 +35,7 @@ class TcnBwdArgs(ctypes.Structure):
         'w_dw', 'b_dw', 'a2', 'g2', 'be2', 'w_res', 'w_skip', 'dx', 'dw_in',
         'db_in', 'da', 'dgb1', 'dwb_dw', 'dgb2', 'dw_out', 'db_out',
         'work')] + [(name, _I) for name in (
-            'B', 'T', 'C', 'H', 'Cs', 'last', 'dilation')]
+            'B', 'T', 'C', 'H', 'Cs', 'last', 'dilation', 'bf16_io')]
 
 
 #: C entry points of csrc/*.cu: name -> (restype, argtypes)
@@ -43,14 +43,14 @@ SIGNATURES = {
     'tcn_in_partials': (_I, [_I, _I]),
     'tcn_dw_partials': (_I, [_I, _I]),
     'brever_error_string': (ctypes.c_char_p, [_I]),
-    'tcn_in_gemm_prelu_stats': (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    'tcn_in_gemm_prelu_stats': (_I, [_P] * 6 + [_I] * 5 + [_P]),
     'tcn_row_stats': (_I, [_P, _I, _P, _I, _I, _F, _P]),
-    'tcn_dw_prelu_stats': (_I, [_P] * 9 + [_I] * 4 + [_P]),
-    'tcn_out_gemm': (_I, [_P] * 11 + [_I] * 6 + [_P]),
+    'tcn_dw_prelu_stats': (_I, [_P] * 9 + [_I] * 5 + [_P]),
+    'tcn_out_gemm': (_I, [_P] * 11 + [_I] * 7 + [_P]),
     'tcn_bwd_workspace': (ctypes.c_size_t, [_I] * 6),
     'tcn_bwd_plan': (_I, [_I] * 6 + [ctypes.POINTER(_I)]),
     'tcn_block_bwd': (_I, [ctypes.POINTER(TcnBwdArgs), _P]),
-    'tcn_bwd_z1': (_I, [_P] * 4 + [_I] * 4 + [_P]),
+    'tcn_bwd_z1': (_I, [_P] * 4 + [_I] * 5 + [_P]),
     'lstm_fwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),

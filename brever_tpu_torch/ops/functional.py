@@ -30,8 +30,9 @@ def global_layer_norm(x, scale, bias, eps=1e-8):
 def depthwise_conv1d(x, weight, bias, dilation, padding):
     """Depthwise conv along time as ``k`` shifted multiply-adds.
 
-    weight: (k, channels); padding: the (lo, hi) zeros added to the
-    time axis."""
+    weight: (k, channels), cast to x's dtype as flax's module casts its
+    kernel; padding: the (lo, hi) zeros added to the time axis."""
+    weight = weight.to(x.dtype)
     k = weight.shape[0]
     lo, hi = padding
     pad = torch.nn.functional.pad(x, (0, 0, lo, hi))

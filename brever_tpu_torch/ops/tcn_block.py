@@ -40,6 +40,19 @@ tiles (the plan: :func:`bwd_plan`, checked against the library's by
 :func:`plan_info` before a shape's first launch). Both move float4s where
 C, H and Cs are multiples of 4, and single floats through the same
 kernels at any other width.
+
+Both kernels have a bf16 route, the one the JAX package's TPU path takes
+(it engages the fused kernel only in bf16, under amp): x, the parameters,
+the cotangents and every output but the float32 statistics in bfloat16,
+every sum in float32 at the Pallas kernel's rounding points (its forward
+and backward kernels': bf16 matmul operands, float32 intermediates and
+statistics, the gLN2 affine folded into bf16 output weights, bf16 h2 in
+the output products, gz1 rounded before dW_in and dx, parameter
+gradients summed in float32 and rounded at the end). Its plain twins,
+:func:`_fwd_plain_bf16` and :func:`_bwd_plain_bf16`, compute the same in
+float32 on the bf16 values on any device; a bfloat16 tensor on CUDA
+launches the bf16 kernels (never the float32 ones), and x, the
+parameters and the cotangents must share one dtype.
 """
 
 import ctypes
@@ -118,7 +131,10 @@ def fwd_partials(t_total, hidden):
 
 def tcn_block_fwd_plain(x, params, dilation, last):
     """Plain twin of the forward kernel with its statistics: ``(res or
-    None, skip, stats (B, 4))``."""
+    None, skip, stats (B, 4))``. A bfloat16 x (with bfloat16 parameters)
+    takes :func:`_fwd_plain_bf16`, the kernels' bf16 route."""
+    if x.dtype == torch.bfloat16:
+        return _fwd_plain_bf16(x, params, dilation, last)
     (w_in, b_in, a1, g1, be1, w_dw, b_dw, a2, g2, be2,
      w_res, b_res, w_skip, b_skip) = params
     h1 = prelu(linear(x, w_in, b_in), a1)
@@ -136,6 +152,65 @@ def tcn_block_fwd_plain(x, params, dilation, last):
     return res, skip, stats
 
 
+def _f32(tensors):
+    return [None if t is None else t.float() for t in tensors]
+
+
+def _bf16_round(t):
+    """t rounded to bfloat16, kept as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _trunk_bf16(xf, params, dilation):
+    """The bf16 route's recompute in float32 arithmetic on bf16-rounded
+    operands (float32 x and parameters): ``(z1, h1, y1, z2, h2, stats
+    (mean1, rstd1, mean2, rstd2) each (B, 1, 1))``. The products of two
+    bf16 values are exact in float32, so this is the Pallas kernel's
+    float32-accumulated bf16 matmul up to the order of the sums."""
+    w_in, b_in, a1, g1, be1, w_dw, b_dw, a2 = params[:8]
+    z1 = linear(xf, w_in, b_in)
+    h1 = prelu(z1, a1)
+    mean1, rstd1 = gln_stats(h1, _EPS)
+    y1 = (h1 - mean1) * rstd1 * g1 + be1
+    pad = (w_dw.shape[0] - 1) * dilation
+    z2 = depthwise_conv1d(y1, w_dw, b_dw, dilation,
+                          (pad // 2, pad - pad // 2))
+    h2 = prelu(z2, a2)
+    mean2, rstd2 = gln_stats(h2, _EPS)
+    return z1, h1, y1, z2, h2, (mean1, rstd1, mean2, rstd2)
+
+
+def _fwd_plain_bf16(x, params, dilation, last):
+    """The forward's bf16 route, at the Pallas kernel's rounding points
+    (``brever_tpu/ops/pallas/tcn_block.py`` ``_fwd_kernel``), not at
+    ``tcn_block_reference``'s: z1 from bf16 operands with a float32 sum;
+    h1, the gLN statistics, the depthwise taps and h2 in float32; the
+    gLN2 affine folded into the output weights in float32 (``w_f = W
+    hs2``, ``hs2 = g2 rstd2``, and the bias ``cv2 W^T + b``, ``cv2 = be2 -
+    mean2 hs2``), w_f and h2 rounded to bf16 for the output products, and
+    res/skip stored in bf16. The PReLU slopes stay float32, as the kernel
+    keeps ``alphas`` (they hold bf16 values). Any kernel size; the
+    statistics are float32."""
+    f = _f32(params)
+    w_res, b_res, w_skip, b_skip = f[10:]
+    xf = x.float()
+    _, _, _, _, h2, (mean1, rstd1, mean2, rstd2) = _trunk_bf16(xf, f,
+                                                               dilation)
+    hs2 = f[8] * rstd2                        # (B, 1, H)
+    cv2 = f[9] - mean2 * hs2
+    h2c = _bf16_round(h2)
+
+    def out(w, b):
+        w_f = _bf16_round(w * hs2)            # (B, N, H)
+        return torch.matmul(h2c, w_f.transpose(1, 2)) \
+            + (torch.matmul(cv2, w.t()) + b)
+
+    skip = out(w_skip, b_skip).to(torch.bfloat16)
+    res = None if last else (xf + out(w_res, b_res)).to(torch.bfloat16)
+    stats = torch.cat([mean1, rstd1, mean2, rstd2], dim=1)[:, :, 0]
+    return res, skip, stats
+
+
 def tcn_block_plain(x, params, dilation, last):
     """Plain PyTorch twin of the forward kernel; x is channels-last
     (B, T, C)."""
@@ -145,7 +220,10 @@ def tcn_block_plain(x, params, dilation, last):
 def tcn_block_bwd_plain(x, params, g_res, g_skip, dilation, last):
     """Plain twin of the backward kernel: ``(dx, dparams)``, the VJP of
     :func:`tcn_block_plain` by autograd (``dparams`` None for the unused
-    ``w_res``/``b_res`` of the last block)."""
+    ``w_res``/``b_res`` of the last block). A bfloat16 x takes
+    :func:`_bwd_plain_bf16`, the kernels' bf16 route."""
+    if x.dtype == torch.bfloat16:
+        return _bwd_plain_bf16(x, params, g_res, g_skip, dilation, last)
     used = [p is not None and not (last and i in (10, 11))
             for i, p in enumerate(params)]
     with torch.enable_grad():
@@ -163,6 +241,84 @@ def tcn_block_bwd_plain(x, params, g_res, g_skip, dilation, last):
     return got[0], tuple(next(it) if u else None for u in used)
 
 
+def _bwd_plain_bf16(x, params, g_res, g_skip, dilation, last):
+    """The backward's bf16 route, at the Pallas kernel's rounding points
+    (``_bwd_kernel``): every pass in float32 from bf16 x, cotangents and
+    parameters; h2 rounded to bf16 in the output weight products (``dW =
+    hs2 (h2_bf16^T g) + cv2 (sum g)``), gz1 rounded to bf16 before dW_in =
+    gz1^T x and dx = gz1 W_in, dx stored in bf16, and every parameter
+    gradient summed in float32 and rounded to bf16 (the parameters'
+    dtype) at the end. The gLN backward keeps K2's centred form ``gh = hs
+    gy - A - B (h - mean)``; the PReLU slopes' gradients are summed in
+    float64, as K2 sums them. Any kernel size, padded as the forward
+    pads."""
+    f = _f32(params)
+    (w_in, b_in, a1, g1, be1, w_dw, b_dw, a2, g2, be2,
+     w_res, b_res, w_skip, b_skip) = f
+    xf, gs = x.float(), g_skip.float()
+    gr = None if last else g_res.float()
+    z1, h1, y1, z2, h2, (mean1, rstd1, mean2, rstd2) = _trunk_bf16(
+        xf, f, dilation)
+    inv_n = 1.0 / (h1.shape[1] * h1.shape[2])
+
+    def gln_bwd(gy, h, mean, rstd, gamma):
+        """(gh, dgamma, dbeta) of a gLN with its float32 sums a row."""
+        acc_gh, acc_g = (gy * h).sum(1), gy.sum(1)           # (B, H)
+        dg_rows = rstd[:, 0] * (acc_gh - mean[:, 0] * acc_g)
+        sa = (gamma * acc_g).sum(1)[:, None, None]
+        sb = (gamma * dg_rows).sum(1)[:, None, None]
+        gh = gamma * rstd * gy - rstd * inv_n * sa \
+            - rstd * rstd * inv_n * sb * (h - mean)
+        return gh, dg_rows.sum(0), acc_g.sum(0)
+
+    def slope_grad(gh, z):
+        return (gh.double() * z.clamp_max(0).double()).sum().float()
+
+    gy2 = torch.matmul(gs, w_skip)
+    if not last:
+        gy2 = gy2 + torch.matmul(gr, w_res)
+    hs2 = g2 * rstd2
+    cv2 = be2 - mean2 * hs2
+    h2c = _bf16_round(h2)
+
+    def out_grads(g):
+        m = torch.matmul(g.transpose(1, 2), h2c)           # (B, N, H)
+        v = g.sum(1)                                       # (B, N)
+        return (m * hs2 + v[:, :, None] * cv2).sum(0), v.sum(0)
+
+    dw_skip, db_skip = out_grads(gs)
+    dw_res, db_res = (None, None) if last else out_grads(gr)
+    gh2, dg2, dbe2 = gln_bwd(gy2, h2, mean2, rstd2, g2)
+    da2 = slope_grad(gh2, z2)
+    gz2 = torch.where(z2 >= 0, gh2, a2 * gh2)
+    k = w_dw.shape[0]
+    lo = (k - 1) * dilation // 2
+    hi = (k - 1) * dilation - lo
+    t_total = x.shape[1]
+    y1p = torch.nn.functional.pad(y1, (0, 0, lo, hi))
+    gz2p = torch.nn.functional.pad(gz2, (0, 0, hi, lo))
+    dw_dw = torch.stack([
+        (gz2 * y1p[:, j * dilation:j * dilation + t_total]).sum((0, 1))
+        for j in range(k)])
+    gy1 = sum(w_dw[j] * gz2p[:, (k - 1 - j) * dilation:
+                             (k - 1 - j) * dilation + t_total]
+              for j in range(k))
+    gh1, dg1, dbe1 = gln_bwd(gy1, h1, mean1, rstd1, g1)
+    da1 = slope_grad(gh1, z1)
+    gz1 = torch.where(z1 >= 0, gh1, a1 * gh1)
+    gz1c = _bf16_round(gz1)
+    dx = torch.matmul(gz1c, w_in)
+    if not last:
+        dx = dx + gr
+    dw_in = torch.matmul(gz1c.reshape(-1, gz1.shape[2]).t(),
+                         xf.reshape(-1, xf.shape[2]))
+    grads = (dw_in, gz1.sum((0, 1)), da1.reshape(1), dg1, dbe1, dw_dw,
+             gz2.sum((0, 1)), da2.reshape(1), dg2, dbe2, dw_res, db_res,
+             dw_skip, db_skip)
+    return dx.to(torch.bfloat16), tuple(
+        None if g is None else g.to(torch.bfloat16) for g in grads)
+
+
 def _on_kernel_device(x):
     """Whether x's device takes the CUDA kernels (anything but the CPU,
     which takes the plain versions; a device without kernels raises in
@@ -178,6 +334,7 @@ def tcn_block_fwd(x, params, dilation, last):
         return tcn_block_fwd_plain(x, params, dilation, last)
     out, _ = _launch(x, params, dilation, last)
     tcn_block.launches += 1
+    tcn_block.launches_bf16 += x.dtype == torch.bfloat16
     return out
 
 
@@ -211,7 +368,8 @@ def tcn_block(x, params, dilation, last):
     and x or a parameter requires grad; otherwise the forward alone. A
     tensor on the CPU takes :func:`tcn_block_plain`; a CUDA tensor
     launches the kernel or raises. ``tcn_block.launches`` counts the
-    forward kernel's block calls."""
+    forward kernel's block calls, ``tcn_block.launches_bf16`` those of them
+    on the bf16 route."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, *params)):
         out = TCNBlockFunction.apply(x, dilation, last, *params)
@@ -219,7 +377,7 @@ def tcn_block(x, params, dilation, last):
     return tcn_block_fwd(x, params, dilation, last)[:2]
 
 
-tcn_block.launches = 0
+tcn_block.launches = tcn_block.launches_bf16 = 0
 
 
 def tcn_block_bwd(x, params, stats, g_res, g_skip, dilation, last):
@@ -229,28 +387,30 @@ def tcn_block_bwd(x, params, stats, g_res, g_skip, dilation, last):
 
     A tensor on the CPU takes :func:`tcn_block_bwd_plain` (which
     recomputes the statistics); a CUDA tensor launches the kernel or
-    raises. ``tcn_block_bwd.launches`` counts its calls."""
+    raises. ``tcn_block_bwd.launches`` counts its calls,
+    ``tcn_block_bwd.launches_bf16`` those on the bf16 route."""
     if not _on_kernel_device(x):
         return tcn_block_bwd_plain(x, params, g_res, g_skip, dilation, last)
     out = _launch_bwd(x, params, stats, g_res, g_skip, dilation, last)
     tcn_block_bwd.launches += 1
+    tcn_block_bwd.launches_bf16 += x.dtype == torch.bfloat16
     return out
 
 
-tcn_block_bwd.launches = 0
+tcn_block_bwd.launches = tcn_block_bwd.launches_bf16 = 0
 
 
-def _vector(t, n, name, device):
-    _check_tensor(t, name, device)
+def _vector(t, n, name, device, dtype):
+    _check_tensor(t, name, device, dtype)
     if t.shape != (n,) or not t.is_contiguous():
         raise ValueError(f'tcn_block: {name} must be a contiguous ({n},) '
                          f'tensor, got {tuple(t.shape)}')
     return t.data_ptr()
 
 
-def _matrix(t, n, k, name, device):
+def _matrix(t, n, k, name, device, dtype):
     """Pointer of a contiguous (out, in) = (n, k) Linear weight."""
-    _check_tensor(t, name, device)
+    _check_tensor(t, name, device, dtype)
     if t.shape != (n, k) or not t.is_contiguous():
         raise ValueError(f'tcn_block: {name} must be a contiguous ({n}, '
                          f'{k}) tensor, got {tuple(t.shape)} with strides '
@@ -260,14 +420,21 @@ def _matrix(t, n, k, name, device):
     return t.data_ptr()
 
 
-def _check_tensor(t, name, device):
+#: the kernels' routes: float32, and bfloat16 I/O (``bf16_io``)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_tensor(t, name, device, dtype=torch.float32):
+    """t is a tensor on device of dtype: x's on the kernels' route (float32
+    or bfloat16, one dtype for x, the parameters and the cotangents; a mix
+    raises), float32 for the statistics."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f'tcn_block: {name} must be a tensor')
     if t.device != device:
         raise ValueError(f'tcn_block: {name} is on {t.device}, x on '
                          f'{device}')
-    if t.dtype != torch.float32:
-        raise TypeError(f'tcn_block: {name} must be float32, got {t.dtype}')
+    if t.dtype != dtype:
+        raise TypeError(f'tcn_block: {name} must be {dtype}, got {t.dtype}')
 
 
 def _block_pointers(x, params, dilation, last):
@@ -279,7 +446,10 @@ def _block_pointers(x, params, dilation, last):
     device = x.device
     if device.type != 'cuda':
         raise ValueError(f'tcn_block: no kernel for device {device}')
-    _check_tensor(x, 'x', device)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f'tcn_block: x must be float32 or bfloat16, got '
+                        f'{x.dtype}')
+    dtype = x.dtype
     if x.ndim != 3 or not x.is_contiguous() or 0 in x.shape:
         raise ValueError('tcn_block: x must be a contiguous non-empty '
                          f'(B, T, C) tensor, got {tuple(x.shape)}')
@@ -292,26 +462,27 @@ def _block_pointers(x, params, dilation, last):
     batch, t_total, c_in = x.shape
     hidden = w_in.shape[0]
     c_skip = w_skip.shape[0]
-    _check_tensor(w_dw, 'w_dw', device)
+    _check_tensor(w_dw, 'w_dw', device, dtype)
     if w_dw.shape != (3, hidden) or not w_dw.is_contiguous():
         raise ValueError(f'tcn_block: w_dw must be a contiguous (3, '
                          f'{hidden}) tensor, got {tuple(w_dw.shape)}')
+    on = (device, dtype)
     ptr = {
-        'w_in': _matrix(w_in, hidden, c_in, 'w_in', device),
-        'b_in': _vector(b_in, hidden, 'b_in', device),
-        'a1': _vector(a1, 1, 'a1', device),
-        'g1': _vector(g1, hidden, 'g1', device),
-        'be1': _vector(be1, hidden, 'be1', device),
+        'w_in': _matrix(w_in, hidden, c_in, 'w_in', *on),
+        'b_in': _vector(b_in, hidden, 'b_in', *on),
+        'a1': _vector(a1, 1, 'a1', *on),
+        'g1': _vector(g1, hidden, 'g1', *on),
+        'be1': _vector(be1, hidden, 'be1', *on),
         'w_dw': w_dw.data_ptr(),
-        'b_dw': _vector(b_dw, hidden, 'b_dw', device),
-        'a2': _vector(a2, 1, 'a2', device),
-        'g2': _vector(g2, hidden, 'g2', device),
-        'be2': _vector(be2, hidden, 'be2', device),
-        'w_skip': _matrix(w_skip, c_skip, hidden, 'w_skip', device),
-        'b_skip': _vector(b_skip, c_skip, 'b_skip', device),
+        'b_dw': _vector(b_dw, hidden, 'b_dw', *on),
+        'a2': _vector(a2, 1, 'a2', *on),
+        'g2': _vector(g2, hidden, 'g2', *on),
+        'be2': _vector(be2, hidden, 'be2', *on),
+        'w_skip': _matrix(w_skip, c_skip, hidden, 'w_skip', *on),
+        'b_skip': _vector(b_skip, c_skip, 'b_skip', *on),
         'w_res': None if last else _matrix(w_res, c_in, hidden, 'w_res',
-                                           device),
-        'b_res': None if last else _vector(b_res, c_in, 'b_res', device),
+                                           *on),
+        'b_res': None if last else _vector(b_res, c_in, 'b_res', *on),
     }
     return (batch, t_total, c_in, hidden, c_skip), ptr
 
@@ -340,26 +511,28 @@ def partials_info(t_total, hidden):
 def _launch(x, params, dilation, last):
     """The forward kernel: ``(res or None, skip, stats (B, 4))`` and the
     activations ``(h1, h2)`` it kept in device memory between its
-    launches."""
+    launches (float32 on both routes; res and skip in x's dtype)."""
     x, *params = (_aligned(t) for t in (x, *params))
     (batch, t_total, c_in, hidden, c_skip), p = _block_pointers(
         x, params, dilation, last)
     device = x.device
     lib = build.load_library()
     n_part1, n_part2 = partials_info(t_total, hidden)
+    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         f32 = dict(dtype=torch.float32, device=device)
+        io = dict(dtype=x.dtype, device=device)
         h1 = torch.empty(batch, t_total, hidden, **f32)
         h2 = torch.empty(batch, t_total, hidden, **f32)
         part1 = torch.empty(batch, n_part1, 3, **f32)
         part2 = torch.empty(batch, n_part2, 3, **f32)
         stats = torch.empty(batch, 4, **f32)
-        skip = torch.empty(batch, t_total, c_skip, **f32)
-        res = None if last else torch.empty(batch, t_total, c_in, **f32)
+        skip = torch.empty(batch, t_total, c_skip, **io)
+        res = None if last else torch.empty(batch, t_total, c_in, **io)
         build.check(lib, lib.tcn_in_gemm_prelu_stats(
             x.data_ptr(), p['w_in'], p['b_in'], p['a1'], h1.data_ptr(),
-            part1.data_ptr(), batch, t_total, c_in, hidden, stream),
+            part1.data_ptr(), batch, t_total, c_in, hidden, bf16, stream),
             'tcn_in_gemm_prelu_stats')
         build.check(lib, lib.tcn_row_stats(
             part1.data_ptr(), n_part1, stats.data_ptr(), 0, batch, _EPS,
@@ -367,7 +540,7 @@ def _launch(x, params, dilation, last):
         build.check(lib, lib.tcn_dw_prelu_stats(
             h1.data_ptr(), stats.data_ptr(), p['g1'], p['be1'], p['w_dw'],
             p['b_dw'], p['a2'], h2.data_ptr(), part2.data_ptr(), batch,
-            t_total, hidden, dilation, stream), 'tcn_dw_prelu_stats')
+            t_total, hidden, dilation, bf16, stream), 'tcn_dw_prelu_stats')
         build.check(lib, lib.tcn_row_stats(
             part2.data_ptr(), n_part2, stats.data_ptr(), 1, batch, _EPS,
             stream), 'tcn_row_stats')
@@ -375,7 +548,7 @@ def _launch(x, params, dilation, last):
             h2.data_ptr(), stats.data_ptr(), p['g2'], p['be2'], p['w_res'],
             p['b_res'], p['w_skip'], p['b_skip'], x.data_ptr(),
             None if last else res.data_ptr(), skip.data_ptr(), batch,
-            t_total, hidden, c_in, c_skip, int(last), stream),
+            t_total, hidden, c_in, c_skip, int(last), bf16, stream),
             'tcn_out_gemm')
     return (res, skip, stats), (h1, h2)
 
@@ -405,9 +578,9 @@ def plan_info(batch, t_total, c_in, hidden, c_skip, last):
 
 def _aligned(t):
     """t, or a copy of it where its storage is not 16-byte aligned (K1 and
-    K2 stage float4s; a parameter may be a view at any float of the
-    trainer's flat buffer). Anything but a tensor is returned for the
-    checks to refuse."""
+    K2 stage float4s, or groups of 4 bfloat16 in 8 bytes; a parameter may
+    be a view at any float of the trainer's flat buffer). Anything but a
+    tensor is returned for the checks to refuse."""
     return t if not isinstance(t, torch.Tensor) or t.data_ptr() % 16 == 0 \
         else t.clone()
 
@@ -415,14 +588,17 @@ def _aligned(t):
 def recompute_z1(x, params):
     """K2's first launch alone on a CUDA tensor: z1 = x W_in^T + b_in
     ``(B, T, H)``, the bits K2 recomputes (PReLU of it is the forward's
-    h1, bitwise). Not counted as a K2 launch."""
+    h1, bitwise), float32 from a float32 or bfloat16 x and parameters. Not
+    counted as a K2 launch."""
     w_in, b_in = params[0], params[1]
     device = x.device
-    _check_tensor(x, 'x', device)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f'tcn_block: x must be float32 or bfloat16, got '
+                        f'{x.dtype}')
     batch, t_total, c_in = x.shape
     hidden = w_in.shape[0]
-    _matrix(w_in, hidden, c_in, 'w_in', device)
-    _vector(b_in, hidden, 'b_in', device)
+    _matrix(w_in, hidden, c_in, 'w_in', device, x.dtype)
+    _vector(b_in, hidden, 'b_in', device, x.dtype)
     lib = build.load_library()
     with torch.cuda.device(device):
         x, w_in, b_in = (_aligned(t) for t in (x.contiguous(), w_in, b_in))
@@ -430,13 +606,14 @@ def recompute_z1(x, params):
                          device=device)
         build.check(lib, lib.tcn_bwd_z1(
             x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(), z1.data_ptr(),
-            batch, t_total, c_in, hidden,
+            batch, t_total, c_in, hidden, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream), 'tcn_bwd_z1')
     return z1
 
 
 def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
-    """The backward kernel: ``(dx, dparams)``."""
+    """The backward kernel: ``(dx, dparams)``, in x's dtype (on the bf16
+    route each parameter gradient is summed in float32 and rounded)."""
     x, g_res, g_skip, *params = (_aligned(t) for t in (x, g_res, g_skip,
                                                        *params))
     (batch, t_total, c_in, hidden, c_skip), p = _block_pointers(
@@ -444,8 +621,8 @@ def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
     plan = plan_info(batch, t_total, c_in, hidden, c_skip, last)
     device = x.device
 
-    def dense(t, shape, name):
-        _check_tensor(t, name, device)
+    def dense(t, shape, name, dtype=x.dtype):
+        _check_tensor(t, name, device, dtype)
         if t.shape != shape or not t.is_contiguous():
             raise ValueError(f'tcn_block_bwd: {name} must be a contiguous '
                              f'{shape} tensor, got {tuple(t.shape)}')
@@ -456,24 +633,25 @@ def _launch_bwd(x, params, stats, g_res, g_skip, dilation, last):
         g_res=None if last else dense(g_res, (batch, t_total, c_in),
                                       'g_res'),
         g_skip=dense(g_skip, (batch, t_total, c_skip), 'g_skip'),
-        stats=dense(stats, (batch, 4), 'stats'),
+        stats=dense(stats, (batch, 4), 'stats', torch.float32),
         B=batch, T=t_total, C=c_in, H=hidden, Cs=c_skip, last=int(last),
-        dilation=dilation,
+        dilation=dilation, bf16_io=int(x.dtype == torch.bfloat16),
         **{k: v for k, v in p.items() if k not in ('b_res', 'b_skip')})
     n_out = (0 if last else c_in) + c_skip
     lib = build.load_library()
     with torch.cuda.device(device):
-        f32 = dict(dtype=torch.float32, device=device)
-        dx = torch.empty(batch, t_total, c_in, **f32)
-        dw_in = torch.empty(hidden, c_in, **f32)
-        db_in = torch.empty(hidden, **f32)
-        da = torch.empty(2, **f32)
-        dgb1 = torch.empty(2, hidden, **f32)
-        dwb_dw = torch.empty(4, hidden, **f32)
-        dgb2 = torch.empty(2, hidden, **f32)
-        dw_out = torch.empty(n_out, hidden, **f32)
-        db_out = torch.empty(n_out, **f32)
-        work = torch.empty(plan['workspace'], **f32)
+        io = dict(dtype=x.dtype, device=device)
+        dx = torch.empty(batch, t_total, c_in, **io)
+        dw_in = torch.empty(hidden, c_in, **io)
+        db_in = torch.empty(hidden, **io)
+        da = torch.empty(2, **io)
+        dgb1 = torch.empty(2, hidden, **io)
+        dwb_dw = torch.empty(4, hidden, **io)
+        dgb2 = torch.empty(2, hidden, **io)
+        dw_out = torch.empty(n_out, hidden, **io)
+        db_out = torch.empty(n_out, **io)
+        work = torch.empty(plan['workspace'], dtype=torch.float32,
+                           device=device)
         for name, t in (('dx', dx), ('dw_in', dw_in), ('db_in', db_in),
                         ('da', da), ('dgb1', dgb1), ('dwb_dw', dwb_dw),
                         ('dgb2', dgb2), ('dw_out', dw_out),

@@ -3,7 +3,8 @@ launch by launch, on one CUDA device.
 
 At Conv-TasNet's block shape (B=16, T=3999, C=Cs=128, H=512; ``--batch``
 and ``--steps`` change B and T), for each dilation of ``--dilations``
-(default 1 and 128), float32 with TF32 off:
+(default 1 and 128), float32 with TF32 off, or on the bf16 route with
+``--bf16`` (x, parameters and cotangents rounded to bfloat16):
 
 * the kernel's time a call: CUDA events around ``--calls`` calls after
   two warm-up calls, the mean;
@@ -15,7 +16,7 @@ makes them. Prints the card (``nvidia-smi`` name and power limit), a table
 and one JSON object.
 
     python -m brever_tpu_torch.profile_tcn_bwd [--dilations 1,128]
-        [--batch 16] [--steps 3999] [--calls 5] [--forward]
+        [--batch 16] [--steps 3999] [--calls 5] [--forward] [--bf16]
 
 It calls only ``ops.tcn_block.tcn_block_fwd`` and ``tcn_block_bwd``, so it
 runs unchanged in a checkout of an earlier commit of the port: copy it into
@@ -52,12 +53,15 @@ def block_inputs(rng, batch, t_total, device, c=128, h=512, cs=128):
 
 
 def profile(dilation, batch=16, t_total=3999, calls=5, device='cuda',
-            forward=False):
+            forward=False, dtype=torch.float32):
     """``{'ms', 'launches', 'parts'}`` of K2 (with ``forward``, K1) at one
-    dilation: the mean ms a call, the device launches a call, and
+    dilation, its inputs in ``dtype`` (float32, or bfloat16 for the bf16
+    route): the mean ms a call, the device launches a call, and
     ``{kernel: ms a call}``."""
     x, params, g_res, g_skip = block_inputs(
         np.random.RandomState(dilation), batch, t_total, device)
+    x, g_res, g_skip = (t.to(dtype) for t in (x, g_res, g_skip))
+    params = tuple(p.to(dtype) for p in params)
     with torch.no_grad():
         _, _, stats = tcn.tcn_block_fwd(x, params, dilation, False)
 
@@ -100,6 +104,8 @@ def main():
     parser.add_argument('--calls', type=int, default=5)
     parser.add_argument('--forward', action='store_true',
                         help='profile K1, the forward, instead')
+    parser.add_argument('--bf16', action='store_true',
+                        help='the bf16 route')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_tcn_bwd: needs a CUDA device')
@@ -110,10 +116,12 @@ def main():
         check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     out = {'card': card, 'batch': args.batch, 'steps': args.steps,
-           'kernel': 'K1' if args.forward else 'K2'}
+           'kernel': ('K1' if args.forward else 'K2')
+           + ('-bf16' if args.bf16 else '')}
     for dilation in map(int, args.dilations.split(',')):
         run = profile(dilation, args.batch, args.steps, args.calls,
-                      forward=args.forward)
+                      forward=args.forward, dtype=torch.bfloat16 if args.bf16
+                      else torch.float32)
         out[f'd{dilation}'] = run
         print(f'd={dilation}: {run["ms"]:.3f} ms a call (CUDA events), '
               f'{run["launches"]:g} launches a call; device ms a call:',

@@ -6,7 +6,9 @@ parameters; TF-GridNet, 3,735,344; SGMSE+ ``sgmsep``, 65,590,694, or
 70,995,586; DCCRN, 3,671,053; MANNER, 21,253,921; FFNN, 1,509,440;
 MetricGAN ``metricganp``, 1,914,524, or ``metricganokd``, 2,172,329; drawn
 from ``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32 off
-(as ``chip_smoke.py`` runs it), and times ``train_step`` (forward, the
+(as ``chip_smoke.py`` runs it), or with the trainer's bf16 amp
+(``--use_amp true``, the option of the trainer and of the default configs
+that set it; Conv-TasNet's blocks then take K1/K2's bf16 route), and times ``train_step`` (forward, the
 kernels' backward, global-norm clip where the family clips, Adam) on a
 batch of ``--batch`` x 4 s (default 16; random mixture and target, the
 family's own criterion: ``snr``, ``multiresyu``, SGMSE+'s weighted ``mse``,
@@ -30,8 +32,8 @@ Prints the card (``nvidia-smi`` name and power limit) and one JSON
 object; ``--trace`` also writes the Chrome trace.
 
     python -m brever_tpu_torch.profile_train [--arch convtasnet]
-        [--device cuda] [--batch 16] [--steps 5] [--cudnn-benchmark]
-        [--trace PATH]
+        [--device cuda] [--batch 16] [--steps 5] [--use_amp true|false]
+        [--cudnn-benchmark] [--trace PATH]
 
 SGMSE+ and IDMSE are profiled at SGMSE+'s reference batch, ``--arch
 sgmsep --batch 4`` (``idmse``, ``idmselarge``); MetricGAN at its config's
@@ -52,6 +54,7 @@ import torch
 
 from .models import ModelRegistry
 from .profile_enhance import ARCHS, _cuda_ms, _device_time, _setup
+from .train import _bool
 from .training import BreverTrainer
 
 FS = 16000
@@ -79,14 +82,14 @@ class _Items:
 
 
 def make_trainer(device, model_dir, seed=0, batch=16, seconds=4.0,
-                 arch='convtasnet'):
+                 arch='convtasnet', use_amp=False):
     """A trainer of the default model of ``arch`` on ``device`` (state
-    drawn from ``seed``) and one padded batch ``(batch, lengths)`` on the
-    device."""
+    drawn from ``seed``; bf16 amp with ``use_amp``) and one padded batch
+    ``(batch, lengths)`` on the device."""
     model = ModelRegistry.get(arch)(device='cpu')
     items = _Items(batch, seconds)
     trainer = BreverTrainer(model, items, items, model_dir, device=device,
-                            val_metrics={'snr'}, seed=seed)
+                            val_metrics={'snr'}, seed=seed, use_amp=use_amp)
     trainer.init_state()
     rng = np.random.RandomState(seed)
     n = int(seconds * FS)
@@ -128,11 +131,12 @@ def gan_step_parts(trainer, data, lengths, steps):
 
 
 def profile(device, steps=5, seed=0, trace=None, arch='convtasnet',
-            batch=16, cudnn_benchmark=False):
+            batch=16, cudnn_benchmark=False, use_amp=False):
     _setup(cudnn_benchmark)
     with tempfile.TemporaryDirectory() as model_dir:
         trainer, data, lengths = make_trainer(device, model_dir, seed,
-                                              batch=batch, arch=arch)
+                                              batch=batch, arch=arch,
+                                              use_amp=use_amp)
 
         def step():
             return trainer.train_step(data, lengths)
@@ -157,6 +161,7 @@ def profile(device, steps=5, seed=0, trace=None, arch='convtasnet',
     return {
         'arch': arch,
         'batch': batch,
+        'use_amp': use_amp,
         'cudnn_benchmark': cudnn_benchmark,
         'train_step_batch_x4s_ms': ms_off,
         'train_step_batch_x4s_ms_profiled': ms_on,
@@ -175,6 +180,7 @@ def main():
     parser.add_argument('--batch', type=int, default=16)
     parser.add_argument('--steps', type=int, default=5)
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--use_amp', type=_bool, default=False)
     parser.add_argument('--cudnn-benchmark', action='store_true')
     parser.add_argument('--trace', default=None)
     args = parser.parse_args()
@@ -186,8 +192,8 @@ def main():
          '--format=csv,noheader'], check=True, capture_output=True,
         text=True).stdout.strip(), flush=True)
     print(json.dumps(profile(device, args.steps, args.seed, args.trace,
-                             args.arch, args.batch, args.cudnn_benchmark)),
-          flush=True)
+                             args.arch, args.batch, args.cudnn_benchmark,
+                             args.use_amp)), flush=True)
 
 
 if __name__ == '__main__':

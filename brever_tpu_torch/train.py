@@ -11,10 +11,14 @@ signature; a value given on the command line replaces the config's
 (``fs`` also sets the dataset's, as in the JAX package). Bools take
 true/false, sets and lists comma-separated items. The default configs'
 validation metrics (``estoi``, ``pesq``, ``snr``) are scored by the device
-twins (``device_val_metrics: true``; the host twins without it), so FFNN's
-and MetricGAN's default configs train as they are; the other ported keys'
-configs set ``use_amp: true``, which the port refuses: pass ``--use_amp
-false`` for them.
+twins (``device_val_metrics: true``; the host twins without it). Datasets
+are read as ``scripts/create_dataset.py`` writes them, FLAC (its default)
+or WAV. The default configs train as they are where the trainer takes
+their ``use_amp``: Conv-TasNet's ``use_amp: true`` runs bf16 amp (its TCN
+blocks through K1/K2's bf16 route on CUDA), FFNN's and MetricGAN's are
+float32; TF-GridNet, DCCRN, SGMSE+, IDMSE and MANNER refuse bf16 amp until
+their kernels have a bf16 route (ROADMAP.md Queue 1 item 2): pass
+``--use_amp false`` for them.
 """
 
 import argparse

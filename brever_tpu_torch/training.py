@@ -9,7 +9,21 @@ One process, one device, float32 with TF32 off
 (``optim.flatten_parameters``): a step is the model's loss, one
 ``torch.autograd.grad`` (the TCN blocks' backward is the hand-written
 kernel on CUDA), optax's global-norm clip and Adam over that buffer, and
-the EMA. Batches are padded to a multiple of 8 rows with rows of length 0,
+the EMA.
+
+bf16 amp (``use_amp``), as the JAX trainer's ``loss_fn`` does it: the
+train and validation steps run the loss with every floating parameter cast
+to bfloat16 (one differentiable cast of the float32 master views, gathered
+into one buffer, that the modules read in their parameters' place) and the
+batch cast to bfloat16; the gradients reach the float32 masters through
+the cast, and clipping, Adam, the EMA and the checkpoints stay float32. No
+loss scaling: bf16 has float32's exponent range, and the JAX trainer has
+none. Validation metrics enhance with the float32 parameters. A family
+with steps of its own (MetricGAN) ignores ``use_amp``, as the JAX
+``build_steps`` returns before it; a family with a kernel on its path that
+has no bf16 route yet (``amp_refused``: TF-GridNet, DCCRN, SGMSE+, IDMSE,
+MANNER) refuses it when the trainer is built, before any launch. Conv-TasNet
+runs its TCN blocks through K1/K2's bf16 route on CUDA. Batches are padded to a multiple of 8 rows with rows of length 0,
 which the loss mean drops, as the JAX trainer pads to its mesh.
 
 Checkpoints are the JAX trainer's msgpack layout (``training.py``
@@ -60,7 +74,8 @@ the enhanced rows go to the host once a batch and the host metrics
 realignment) score them.
 
 Not ported yet, and refused when the trainer is built (ROADMAP.md):
-``use_amp`` (bf16 kernels), ``ddp``, ``profile`` and ``use_wandb``.
+``ddp``, ``profile`` and ``use_wandb``, and ``use_amp`` for the families
+above.
 ``compile`` is accepted and ignored, as the JAX trainer ignores it; so is
 ``rank``.
 """
@@ -118,6 +133,39 @@ def _refuse(what, where):
                               f'{where})')
 
 
+class _BF16Cast(torch.autograd.Function):
+    """The amp cast of the float32 masters: ``apply(parts, *params)`` returns
+    each parameter in bfloat16, all views of one buffer cast from ``parts``
+    (the masters' storage, each followed by the zeros that start the next
+    on 16 bytes, as the kernels load them) in one ``cat`` and one cast; the
+    backward gathers the bfloat16 gradients and casts them to float32 in
+    one launch each. A cast or a slice per parameter costs a few launches
+    each (a slice's backward zero-fills the whole buffer)."""
+
+    @staticmethod
+    def forward(ctx, parts, *params):
+        ctx.shapes, ctx.device = [p.shape for p in params], params[0].device
+        cast = torch.cat(parts).to(torch.bfloat16)
+        out, at = [], 0
+        for p in params:
+            out.append(cast[at:at + p.numel()].view(p.shape))
+            at += p.numel() + -p.numel() % 8
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([
+            g.reshape(-1) if g is not None
+            else torch.zeros(shape.numel(), dtype=torch.bfloat16,
+                             device=ctx.device)
+            for g, shape in zip(grads, ctx.shapes)]).float()
+        out, at = [None], 0
+        for shape in ctx.shapes:
+            out.append(flat[at:at + shape.numel()].view(shape))
+            at += shape.numel()
+        return tuple(out)
+
+
 class BreverTrainer:
     """Trains a model family on one device.
 
@@ -157,9 +205,10 @@ class BreverTrainer:
         seed: int = 0,
         pad_quantum: float = 0.5,
     ):
-        if use_amp:
-            _refuse('bf16 amp (use_amp; it needs bf16 TCN kernels)',
-                    'Queue 1')
+        if use_amp and model.amp_refused:
+            raise NotImplementedError(
+                f'bf16 amp (use_amp) for {type(model).__name__} needs '
+                f'{model.amp_refused}, which is not ported yet')
         if ddp:
             _refuse('ddp', 'Queue 1')
         if profile:
@@ -225,6 +274,8 @@ class BreverTrainer:
         self.grad_clip = model.grad_clip
         self.use_ema = ema
         self.ema_decay = ema_decay
+        self.use_amp = use_amp
+        self._amp_layout = None
 
         # every parameter becomes a view into one flat buffer
         self._names = [name for name, _ in model.named_parameters()]
@@ -298,9 +349,11 @@ class BreverTrainer:
             self.step += 1
             return loss
         self.model.train()
-        loss = sample_weighted_mean(
-            self.model.loss(batch, lengths, self.generator), lengths)
-        grads = torch.autograd.grad(loss, self._param_list)
+        with self._amp_params():
+            loss = sample_weighted_mean(
+                self.model.loss(self._amp_batch(batch), lengths,
+                                self.generator), lengths)
+            grads = torch.autograd.grad(loss, self._param_list)
         grads = torch.cat([g.reshape(-1) for g in grads])
         if self.grad_clip:
             grads = clip_by_global_norm(grads, self.grad_clip)
@@ -319,9 +372,41 @@ class BreverTrainer:
         if self._steps is not None:
             return self._steps[1](batch, lengths)
         self.model.eval()
-        with self._eval_params():
+        with self._eval_params(), self._amp_params():
             return sample_weighted_mean(
-                self.model.loss(batch, lengths, self.val_generator), lengths)
+                self.model.loss(self._amp_batch(batch), lengths,
+                                self.val_generator), lengths)
+
+    def _amp_batch(self, batch):
+        """The batch as the loss takes it: cast to bfloat16 under amp."""
+        return batch.to(torch.bfloat16) if self.use_amp \
+            and batch.is_floating_point() else batch
+
+    @contextlib.contextmanager
+    def _amp_params(self):
+        """Under amp, every floating parameter of the model reads as its
+        bfloat16 cast for the block (:class:`_BF16Cast`, over the slots and
+        storage views found at first use). Without amp, nothing."""
+        if not self.use_amp:
+            yield
+            return
+        if self._amp_layout is None:
+            slots = [(m, name, p) for m in self.model.modules()
+                     for name, p in m._parameters.items()
+                     if p is not None and p.is_floating_point()]
+            pad = self.flat.new_zeros(7)
+            parts = [t for _, _, p in slots
+                     for t in (p.detach().reshape(-1), pad[:-p.numel() % 8])]
+            self._amp_layout = slots, parts
+        slots, parts = self._amp_layout
+        cast = _BF16Cast.apply(parts, *(p for _, _, p in slots))
+        try:
+            for (module, name, _), view in zip(slots, cast):
+                module._parameters[name] = view
+            yield
+        finally:
+            for module, name, p in slots:
+                module._parameters[name] = p
 
     @contextlib.contextmanager
     def _eval_params(self):

@@ -20,7 +20,8 @@ bands, 5 stacks, hidden 1024-1024; 1,509,440 random parameters from a
 seed) with the validation-metric twins on the card, the host metric twins,
 MetricGAN+ and MetricGAN-OKD (two BLSTMs of 200 units and a spectrally
 normalised CNN discriminator; 1,914,524 and 2,172,329 random parameters
-from a seed) and ``test_model``.
+from a seed) and ``test_model``; and the default Conv-TasNet under bf16 amp, its TCN
+blocks on K1's and K2's bf16 route.
 Every family is served through ``EnhanceService(model_dir)`` and trained
 through ``train.main([...])`` on a model directory written here, the entry
 points of ``python -m brever_tpu_torch.serve`` and ``.train``. The phases
@@ -75,7 +76,7 @@ each print one line, with the seconds since the start:
     card's time, calls queued behind a sleep kernel; as issued; the host's
     time a call; each shape's route and cluster), beside their plain
     versions and ``F.group_norm`` + ``F.silu``; the denoiser at 4 x 4 s,
-    ``enhance`` of 1 x 4 s, the train step at 4 x 4 s (kernel and plain
+    ``enhance`` of 1 x 2 s, the train step at 4 x 4 s (kernel and plain
     GroupNorms) and at 16 x 4 s, peak memory;
 22. the gates-in LSTM scan kernels (K5 forward, K6 backward) against
     their plain versions at DCCRN's two complex-LSTM shapes at 16 x 4 s
@@ -146,7 +147,7 @@ each print one line, with the seconds since the start:
     fixed-generator validation loss falls, last.ckpt (``aux`` and the
     generator's state) resumes bitwise, the checkpoint serves;
 40. IDMSE timings: the denoiser and the train step at 4 x 4 s with kernel
-    and with plain GroupNorms, ``enhance`` of 1 x 4 s, and the external-
+    and with plain GroupNorms, ``enhance`` of 1 x 2 s, and the external-
     affine GroupNorms of an evaluation on their plain route;
 41. IDMSE-large: the denoiser (2 x 4 s) against the plain path in float64,
     ``enhance`` of 1 x 2 s against the plain float32 path, one timed train
@@ -194,15 +195,31 @@ each print one line, with the seconds since the start:
     ``scores.hdf5`` where h5py imports;
 53. timings: MetricGAN+'s step at 8 x 4 s (its config's 32 s a batch) in
     its three parts with the card's idle share and peak memory, enhance of
-    1 x 4 s and 16 x 4 s, test_model's audio seconds a second.
+    1 x 4 s and 16 x 4 s, test_model's audio seconds a second;
+54. the TCN block's bf16 route (K1-bf16, K2-bf16) at B=16 T=3999 C/H/Cs
+    128/512/128, every dilation 1..128 and the last block, against its
+    bf16 plain twin on the card (SNR >= 40 dB) and float64 (no farther than
+    the twin), twice bitwise, K2's z1 bitwise K1's; times against the twin
+    and each launch's device time;
+55. the default Conv-TasNet (4,935,217 parameters) trained through
+    train.main from the untouched ``config/models/convtasnet.yaml``
+    (``use_amp: true``) on FLAC tars written with the port's encoder: the
+    loss falls, K1-bf16 and K2-bf16 launch and no bf16 tensor reaches a
+    plain twin on the card, last.ckpt resumes bitwise;
+56. a K1-bf16 call and a K2-bf16 call traced in a fresh interpreter (run
+    during phase 55): each launches only its own kernels;
+57. the amp train step at 16 x 4 s against the float32 step in turns, with
+    the bf16 kernels' device time a step and the card's idle share.
 
-Float32 throughout, with TF32 off for cuDNN and cuBLAS so that the
-comparisons hold the kernels to float32. Any failure raises (non-zero
+Float32 through phase 53, with TF32 off for cuDNN and cuBLAS so that the
+comparisons hold the kernels to float32; phases 54-57, which run after
+phase 9, take the bf16 route. Any failure raises (non-zero
 exit). The line before the last is a JSON record of each kernel: its
 launches on the main paths, error, time, plain time, the bound (the
 least time of its bytes at 3.35 TB/s or its flops at the f32 rate of 67
-TFLOP/s, K10's bfloat16 at the probe's 133.8 TFLOP/s, whichever is larger,
-from this run's shapes) and the time of one PyTorch call of the same
+TFLOP/s, K10's bfloat16 at the probe's 133.8 TFLOP/s, K1-bf16's and
+K2-bf16's at the bf16 tensor-core rate of 989 TFLOP/s, whichever is
+larger, from this run's shapes) and the time of one PyTorch call of the same
 function where there is one. The last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -401,11 +418,12 @@ def post_wav(port, audio):
     return out[:, 0]
 
 
-def write_tone_dataset(path, n_items, seconds, seed):
-    """A WAV dataset in the layout BreverDataset reads (``audio.tar``
-    with ``audio/{i:05d}_{mixture,foreground}.wav``, two channels): a
+def write_tone_dataset(path, n_items, seconds, seed, ext='.wav'):
+    """A WAV (or, with ``ext='.flac'``, FLAC: the port's encoder, 16-bit)
+    dataset in the layout BreverDataset reads (``audio.tar`` with
+    ``audio/{i:05d}_{mixture,foreground}.wav``, two channels): a
     low-frequency tone in white noise at about 0 dB."""
-    from brever_tpu_torch.audio import write_wav
+    from brever_tpu_torch.audio import write_audio
     rng = np.random.RandomState(seed)
     n = int(seconds * FS)
     t = np.arange(n) / FS
@@ -417,9 +435,10 @@ def write_tone_dataset(path, n_items, seconds, seed):
             mix = clean + 0.35 * rng.randn(n)
             for name, x in (('mixture', mix), ('foreground', clean)):
                 buf = io.BytesIO()
-                write_wav(buf, np.stack([x, x], axis=1).astype(np.float32),
-                          FS)
-                info = tarfile.TarInfo(f'audio/{i:05d}_{name}.wav')
+                item = f'audio/{i:05d}_{name}{ext}'
+                write_audio(buf, np.stack([x, x], axis=1).astype(np.float32),
+                            FS, item)
+                info = tarfile.TarInfo(item)
                 info.size = buf.tell()
                 buf.seek(0)
                 tar.addfile(info, buf)
@@ -1470,7 +1489,7 @@ def sgmse_phases(device, card):
 
     # ---- phase 19: training through train.main on the card
     from brever_tpu_torch import train
-    epochs = 6
+    epochs = 4   # the smoke's time limit: 6 before the bf16 phases
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = tone_model_dir(tmp, 'sgmsep', 30)
 
@@ -1633,20 +1652,21 @@ def sgmse_phases(device, card):
             gpu.model.model(xs, ys, sigma, t)
 
     den_ms, den_peak = in_turns({'kernel': denoise, 'plain': plain(denoise)},
-                                3, 1)
-    mix = torch.from_numpy((0.1 * rng.randn(1, 2, 4 * FS))
+                                2, 1)
+    # 1 x 2 s (the smoke's time limit: 1 x 4 s before the bf16 phases)
+    mix = torch.from_numpy((0.1 * rng.randn(1, 2, 2 * FS))
                            .astype(np.float32)).to(device)
 
-    def enhance_4s():
+    def enhance_2s():
         gpu.model.enhance(mix)
 
-    # one call each (32 U-Net evaluations, ~18 s with the plain
+    # one call each (32 U-Net evaluations, ~9 s with the plain
     # GroupNorms): turns would double the smoke's longest phase
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    enh_ms = {'kernel': cuda_ms(enhance_4s, 1, 0)}
+    enh_ms = {'kernel': cuda_ms(enhance_2s, 1, 0)}
     enh_peak = {'kernel': torch.cuda.max_memory_allocated()}
-    enh_ms['plain'] = cuda_ms(plain(enhance_4s), 1, 0)
+    enh_ms['plain'] = cuda_ms(plain(enhance_2s), 1, 0)
     del gpu, xs, ys, mix
     torch.cuda.empty_cache()
     steps = {}
@@ -1657,7 +1677,7 @@ def sgmse_phases(device, card):
         def step():
             step_trainer.train_step(data, n)
 
-        steps['4'] = in_turns({'kernel': step, 'plain': plain(step)}, 2, 1)
+        steps['4'] = in_turns({'kernel': step, 'plain': plain(step)}, 1, 1)
         del step_trainer, data, n
         torch.cuda.empty_cache()
         try:
@@ -1702,7 +1722,7 @@ def sgmse_phases(device, card):
           f'{shapes}; denoiser 4 x 4 s {den_ms["kernel"]:.2f} ms, peak '
           f'{den_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
           f'{den_ms["plain"]:.2f} ms, {den_peak["plain"] / mib:.1f} MiB); '
-          f'enhance 1 x 4 s {enh_ms["kernel"]:.1f} ms, peak '
+          f'enhance 1 x 2 s {enh_ms["kernel"]:.1f} ms, peak '
           f'{enh_peak["kernel"] / mib:.1f} MiB (plain {enh_ms["plain"]:.1f} '
           f'ms); train step 4 x 4 s f32 {s4_ms["kernel"]:.1f} ms, peak '
           f'{s4_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
@@ -3371,14 +3391,15 @@ def idmse_phases(device, card):
     if ext['calls'] != 20:
         raise AssertionError(f'idmse: {ext["calls"]} external-affine '
                              'GroupNorms an evaluation')
-    mix4 = torch.from_numpy((0.1 * rng.randn(1, 2, 4 * FS))
+    # 1 x 2 s (the smoke's time limit: 1 x 4 s before the bf16 phases)
+    mix2 = torch.from_numpy((0.1 * rng.randn(1, 2, 2 * FS))
                             .astype(np.float32)).to(device)
 
     # 31 evaluations at cuDNN's default algorithm choice: one call
     torch.cuda.reset_peak_memory_stats()
-    enh_ms = cuda_ms(lambda: gpu.model.enhance(mix4), 1, 0)
+    enh_ms = cuda_ms(lambda: gpu.model.enhance(mix2), 1, 0)
     enh_peak = torch.cuda.max_memory_allocated()
-    del gpu, xs, ys, mix4
+    del gpu, xs, ys, mix2
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         trainer, data, n = make_trainer(device, tmp, batch=4, arch='idmse')
@@ -3395,7 +3416,7 @@ def idmse_phases(device, card):
     mib = 2 ** 20
     phase(40, f'[{card}] IDMSE denoiser 4 x 4 s {den_ms["kernel"]:.2f} ms, '
           f'peak {den_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
-          f'{den_ms["plain"]:.2f} ms); enhance 1 x 4 s '
+          f'{den_ms["plain"]:.2f} ms); enhance 1 x 2 s '
           f'{enh_ms:.1f} ms, peak {enh_peak / mib:.1f} MiB; train step 4 x 4 '
           f's f32 '
           f'{step_ms["kernel"]:.1f} ms, peak {step_peak["kernel"] / mib:.1f} '
@@ -4411,6 +4432,417 @@ def metricgan_times(device, card, served, tested):
                       tested['audio_s_per_s'].items()) + ' audio s/s')
     return prof
 
+#: K1-bf16/K2-bf16 against their plain twin on the card (phase 54): the SNR
+#: of each output and gradient in dB. bf16 keeps 8 significant bits, so one
+#: rounding of an output costs about 50 dB against float64 (the kernels and
+#: the twin reach 50-56 dB); kernel and twin round at the same points but
+#: sum in other float32 orders, which moves a rounding by one ulp at some
+#: elements (66-94 dB between them in the first run on the card), while a
+#: wrong fold, tap or rounding point costs tens of dB. An elementwise ulp
+#: bound does not hold: an output near 0 is a cancelling float32 sum, off
+#: by thousands of its own ulps where it is ~1e-5 of the tensor's scale
+BF16_TWIN_DB = 40.0
+#: no farther from float64 than the twin: each tensor's SNR against float64
+#: at most this far under the twin's; a PReLU slope's gradient (one
+#: number, whose one rounding is its whole error) within one bf16 ulp of
+#: float64 more than the twin's
+BF16_F64_SLACK_DB = 0.5
+#: phase 54's cases: every dilation of the default model, and the last
+#: block (no residual) at 128
+BF16_CASES = [(2 ** i, False) for i in range(8)] + [(128, True)]
+#: the default Conv-TasNet trained from its untouched config (phase 55):
+#: FLAC items of 1 s (train, val), epochs, validation period
+AMP_TRAIN = (8, 2, 8, 4)
+#: K1's and K2's kernels (names as the profiler gives them), and the
+#: launches of each in one call
+K1_KERNELS = {'tcn_in_gemm': 1, 'row_stats': 2, 'dw_prelu_stats': 1,
+              'tcn_out_gemm': 1}
+K2_KERNELS = 11
+#: the card's dense bf16 tensor-core rate (H100 SXM, NVIDIA's data sheet),
+#: against which the bf16 route's bound is taken
+BF16_FLOPS = 989e12
+
+TCN_BF16_TRACE = """
+import json
+import torch
+from brever_tpu_torch.numerics import disable_tf32
+from brever_tpu_torch.ops import tcn_block as tcn
+
+disable_tf32()
+dev = torch.device('cuda', 0)
+gen = torch.Generator(device=dev).manual_seed(55)
+
+
+def rand(*shape, scale=0.1, center=0.0):
+    return (center + scale * torch.randn(*shape, generator=gen, device=dev)
+            ).to(torch.bfloat16)
+
+
+c, h = 128, 512
+x = rand(2, 400, c, scale=1.0)
+params = (rand(h, c), rand(h), rand(1, center=0.25), rand(h, center=1.0),
+          rand(h), rand(3, h, scale=0.5), rand(h), rand(1, center=0.25),
+          rand(h, center=1.0), rand(h), rand(c, h), rand(c), rand(c, h),
+          rand(c))
+g_res, g_skip = rand(2, 400, c, scale=1.0), rand(2, 400, c, scale=1.0)
+with torch.no_grad():
+    _, _, stats = tcn.tcn_block_fwd(x, params, 4, False)
+
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if got:
+            break
+    return got
+
+
+with torch.no_grad():
+    out = {'k1': names(lambda: tcn.tcn_block_fwd(x, params, 4, False)),
+           'k2': names(lambda: tcn.tcn_block_bwd(x, params, stats, g_res,
+                                                 g_skip, 4, False))}
+print(json.dumps(out))
+"""
+
+
+def bf16_trace():
+    """Starts tracing one K1-bf16 call and one K2-bf16 call in a fresh
+    interpreter (the process: :func:`traced_kernels` waits for it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, '-c', TCN_BF16_TRACE],
+                            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def traced_kernels(run):
+    """The kernels the traced K1-bf16 and K2-bf16 calls of ``run`` launched;
+    fails unless each launched only its own kernels, K1's five and K2's
+    eleven ``tcn_bwd_*``, the templated ones at ``__nv_bfloat16`` where the
+    profiler gives template arguments. Stops the process in any case."""
+    try:
+        stdout, stderr = run.communicate(timeout=600)
+    finally:
+        run.kill()
+    if run.returncode:
+        raise AssertionError(f'K1/K2-bf16 trace: {stderr[-3000:]}')
+    traced = json.loads(stdout.strip().splitlines()[-1])
+    k1, k2 = traced['k1'], traced['k2']
+    counts = {k: sum(k in n for n in k1) for k in K1_KERNELS}
+    wrong = [n for n in k1 + k2 if '<' in n and 'bfloat16' not in n
+             and 'row_stats' not in n and 'row_merge' not in n]
+    if counts != K1_KERNELS or len(k1) != sum(K1_KERNELS.values()) \
+            or len(k2) != K2_KERNELS or not all('tcn_bwd_' in n for n in k2) \
+            or wrong:
+        raise AssertionError(f'K1-bf16 launched {k1}; K2-bf16 {k2}')
+    return traced
+
+
+def trace_or_none(fn, tries=3):
+    """``fn()``, a breakdown read from a profiler trace, or None where the
+    profiler recorded no device activity in ``tries`` traces (seen after
+    many traces in one process; the numbers it gives are extras, the checks
+    of phases 54-57 do not read a trace)."""
+    for _ in range(tries):
+        try:
+            return fn()
+        except RuntimeError as e:
+            if 'no device activity' not in str(e) \
+                    and 'lost device events' not in str(e):
+                raise
+    return None
+
+
+def bf16_check(name, got, twin, exact):
+    """``got`` (bf16) against its twin's ``twin`` (bf16) and float64
+    ``exact``: finite, SNR against the twin >= BF16_TWIN_DB, and no
+    farther from float64 than the twin (BF16_F64_SLACK_DB; one ulp for a
+    single number). Returns (SNR vs twin, SNR vs float64, twin's)."""
+    if got.dtype != torch.bfloat16 or got.shape != twin.shape:
+        raise AssertionError(f'{name}: {got.dtype} {tuple(got.shape)}')
+    got, twin, exact = (t.detach().double() for t in (got, twin, exact))
+    if not torch.isfinite(got).all():
+        raise AssertionError(f'{name}: not finite')
+
+    def db(a, b):
+        return snr_db(b.cpu().numpy(), a.cpu().numpy())
+
+    vs_twin, vs_exact, twin_exact = db(got, twin), db(got, exact), \
+        db(twin, exact)
+    if got.numel() == 1:
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(exact.item()), 1e-30)))
+                      - 7)
+        farther = abs(got.item() - exact.item()) > abs(
+            twin.item() - exact.item()) + ulp
+    else:
+        farther = vs_exact < twin_exact - BF16_F64_SLACK_DB
+    if vs_twin < BF16_TWIN_DB or farther:
+        raise AssertionError(f'{name}: SNR vs twin {vs_twin:.2f} dB (>= '
+                             f'{BF16_TWIN_DB}), vs float64 {vs_exact:.2f} '
+                             f'dB, the twin\'s {twin_exact:.2f} dB')
+    return vs_twin, vs_exact, twin_exact
+
+
+def amp_phases(device, card):
+    """Phases 54-57: K1-bf16 and K2-bf16 against their twin and float64,
+    their launches traced, the default Conv-TasNet trained under bf16 amp
+    from its untouched config on FLAC, and the amp step timed against the
+    float32 step. Returns what the kernels' JSON record reads."""
+    import brever_tpu_torch.ops.tcn_block as tcn
+    from brever_tpu_torch import profile_tcn_bwd, profile_train
+    from brever_tpu_torch.models import count_params
+    from brever_tpu_torch.profile_train import make_trainer
+    bf = torch.bfloat16
+
+    def cast(t, dtype=bf):
+        return None if t is None else t.to(dtype)
+
+    # ---- phase 54: K1-bf16/K2-bf16 vs the twin and float64
+    rng = np.random.RandomState(54)
+    gen = torch.Generator(device=device).manual_seed(54)
+    worst_twin, worst_gap = float('inf'), -float('inf')
+    out_err = bwd_err = 0.0
+    for dilation, last in BF16_CASES:
+        x, params = block_inputs(rng, 16, 3999)
+        x, params = cast(x), [cast(p) for p in params]
+        if last:
+            params[10] = params[11] = None
+        g_skip = cast(torch.randn(16, 3999, 128, generator=gen,
+                                  device=device))
+        g_res = None if last else cast(torch.randn(
+            16, 3999, 128, generator=gen, device=device))
+        wide = [cast(p, torch.float64) for p in params]
+        label = f'K1-bf16 d={dilation} last={last}'
+        with torch.no_grad():
+            (res, skip, stats), act = tcn._launch(x, params, dilation, last)
+            (res2, skip2, _), _ = tcn._launch(x, params, dilation, last)
+            twin = tcn.tcn_block_fwd_plain(x, params, dilation, last)
+            exact = tcn.tcn_block_fwd_plain(cast(x, torch.float64), wide,
+                                            dilation, last)
+            z1 = tcn.recompute_z1(x, params)
+        if not torch.equal(skip, skip2) or (not last
+                                            and not torch.equal(res, res2)):
+            raise AssertionError(f'{label}: two runs differ')
+        if not torch.equal(torch.where(z1 >= 0, z1, params[2].float() * z1),
+                           act[0]):
+            raise AssertionError(f'{label}: K2\'s z1 is not K1\'s')
+        del z1, act
+        outs = [('skip', skip, twin[1], exact[1])]
+        if not last:
+            outs.append(('res', res, twin[0], exact[0]))
+        for part, got, want, ref in outs:
+            vs_twin, vs_exact, twin_exact = bf16_check(
+                f'{label} {part}', got, want, ref)
+            worst_twin = min(worst_twin, vs_twin)
+            worst_gap = max(worst_gap, twin_exact - vs_exact)
+            out_err = max(out_err, (got.double() - want.double()).abs()
+                          .max().item())
+        del res2, skip2, twin, exact
+        label = f'K2-bf16 d={dilation} last={last}'
+        dx, dparams = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip,
+                                        dilation, last)
+        again = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation,
+                                  last)
+        for got, rerun in zip((dx,) + dparams, (again[0],) + again[1]):
+            if got is not None and not torch.equal(got, rerun):
+                raise AssertionError(f'{label}: two runs differ')
+        del again
+        twin = tcn.tcn_block_bwd_plain(x, params, g_res, g_skip, dilation,
+                                       last)
+        exact = tcn.tcn_block_bwd_plain(cast(x, torch.float64), wide,
+                                        cast(g_res, torch.float64),
+                                        cast(g_skip, torch.float64),
+                                        dilation, last)
+        for part, got, want, ref in zip(GRAD_NAMES, (dx,) + dparams,
+                                        (twin[0],) + twin[1],
+                                        (exact[0],) + exact[1]):
+            if got is None:
+                continue
+            vs_twin, vs_exact, twin_exact = bf16_check(
+                f'{label} {part}', got, want, ref)
+            worst_twin = min(worst_twin, vs_twin)
+            worst_gap = max(worst_gap, twin_exact - vs_exact)
+            bwd_err = max(bwd_err, (got.double() - want.double()).abs()
+                          .max().item())
+        del dx, dparams, twin, exact
+    torch.cuda.empty_cache()
+    # times at B=16 T=3999 d=1, kernel and twin in turns, and each launch
+    x, params = block_inputs(np.random.RandomState(4), 16, 3999)
+    x, params = cast(x), [cast(p) for p in params]
+    g_res = cast(torch.randn(16, 3999, 128, generator=gen, device=device))
+    g_skip = cast(torch.randn(16, 3999, 128, generator=gen, device=device))
+    with torch.no_grad():
+        _, _, stats = tcn.tcn_block_fwd(x, params, 1, False)
+        fwd_ms = in_turns({
+            'kernel': lambda: tcn.tcn_block_fwd(x, params, 1, False),
+            'plain': lambda: tcn.tcn_block_fwd_plain(x, params, 1, False)},
+            5, 2)[0]
+    bwd_ms = in_turns({
+        'kernel': lambda: tcn.tcn_block_bwd(x, params, stats, g_res, g_skip,
+                                            1, False),
+        'plain': lambda: tcn.tcn_block_bwd_plain(x, params, g_res, g_skip,
+                                                 1, False)}, 5, 2)[0]
+    del x, params, g_res, g_skip, stats
+    parts = {'k1': trace_or_none(lambda: profile_tcn_bwd.profile(
+                 1, calls=3, forward=True, dtype=bf)),
+             'k2': trace_or_none(lambda: profile_tcn_bwd.profile(
+                 1, calls=3, dtype=bf))}
+    torch.cuda.empty_cache()
+
+    def parts_line(key):
+        run = parts[key]
+        if run is None:
+            return 'launches not traced (the profiler recorded nothing)'
+        return (f'{run["ms"]:.3f} ms, {run["launches"]:g} launches: '
+                + ', '.join(f'{n.split("(")[0].split("::")[-1]} {ms:.3f}'
+                            for n, ms in sorted(run['parts'].items(),
+                                                key=lambda kv: -kv[1])))
+
+    phase(54, f'{len(BF16_CASES)} bf16 block cases at B=16 T=3999 '
+          f'C/H/Cs 128/512/128 (d 1..128, the last block at 128): K1-bf16 '
+          f'res/skip and K2-bf16 dx and every bf16 parameter gradient agree '
+          f'with the bf16 plain twin on the card (worst SNR '
+          f'{worst_twin:.1f} dB >= {BF16_TWIN_DB}; max abs err outputs '
+          f'{out_err:.3e}, gradients {bwd_err:.3e}) and are no farther from float64 than the twin '
+          f'(at most {worst_gap:.2f} dB under it, <= {BF16_F64_SLACK_DB}); '
+          f'two runs bitwise equal; K2\'s z1 bitwise K1\'s; [{card}] d=1 '
+          f'kernel/twin ms: K1-bf16 {fwd_ms["kernel"]:.3f}/'
+          f'{fwd_ms["plain"]:.3f}, K2-bf16 {bwd_ms["kernel"]:.3f}/'
+          f'{bwd_ms["plain"]:.3f}; K1-bf16 {parts_line("k1")}; K2-bf16 '
+          f'{parts_line("k2")}')
+
+    # ---- phase 55: train.main from the untouched default config on FLAC,
+    # while a fresh interpreter traces a K1-bf16 and a K2-bf16 call
+    tracer = bf16_trace()
+    try:
+        train = amp_training(tcn, count_params)
+    except BaseException:
+        tracer.kill()
+        raise
+    traced = traced_kernels(tracer)
+    phase(55, 'train.main from the untouched config/models/convtasnet.yaml '
+          f'(use_amp: true; {N_PARAMS:,} parameters; only --device, --epochs '
+          f'{train["epochs"]} and --val_period {train["val_period"]} given) '
+          f'on FLAC tars ({train["items"]} tone-in-noise items of 1 s, the '
+          f'port\'s encoder) in {train["seconds"]:.1f} s: train loss '
+          f'{train["losses"][0]:.2f} -> {np.mean(train["losses"][-3:]):.2f} '
+          f'dB, val snr {train["metrics"]["snr"]:.2f} dB, estoi '
+          f'{train["metrics"]["estoi"]:.3f}, pesq '
+          f'{train["metrics"]["pesq"]:.2f}; K1-bf16 {train["k1_bf16"]} / '
+          f'K2-bf16 {train["k2_bf16"]} launches (K1 float32 '
+          f'{train["k1_f32"]}: validation enhances with the float32 '
+          'masters), no bf16 tensor in a plain twin on the card; resumed '
+          f'bitwise from last.ckpt to epoch {train["resumed_to"]}')
+    phase(56, f'a K1-bf16 call launches {len(traced["k1"])} kernels, all '
+          f'K1\'s, a K2-bf16 call {len(traced["k2"])}, all tcn_bwd_* '
+          '(traced in a fresh interpreter during phase 55): no library '
+          'kernel')
+
+    # ---- phase 57: the amp step against the float32 step, in turns
+    with tempfile.TemporaryDirectory() as tmp:
+        trainers = {key: make_trainer(device, os.path.join(tmp, key),
+                                      use_amp=key == 'kernel')
+                    for key in ('plain', 'kernel')}
+        step_ms, step_peak = in_turns(
+            {key: (lambda t=t: t[0].train_step(t[1], t[2]))
+             for key, t in trainers.items()}, 3, 1)
+        del trainers
+    torch.cuda.empty_cache()
+    prof = trace_or_none(lambda: profile_train.profile(device, steps=3,
+                                                       use_amp=True))
+    if prof is None:
+        k1_step = k2_step = idle = None
+        traced_step = 'not traced (the profiler recorded nothing)'
+    else:
+        per_step = prof['kernels_per_step'].items()
+        k1_step = sum(v['ms'] for n, v in per_step
+                      if any(k in n for k in K1_KERNELS))
+        k2_step = sum(v['ms'] for n, v in per_step if 'tcn_bwd_' in n)
+        idle = prof['device_idle_share']
+        traced_step = (f'traced: K1-bf16 {k1_step:.2f} ms and K2-bf16 '
+                       f'{k2_step:.2f} ms a step, device idle '
+                       f'{100 * idle:.1f} %')
+    phase(57, f'[{card}] Conv-TasNet train step 16 x 4 s, bf16 amp '
+          f'{step_ms["kernel"]:.2f} ms (peak {step_peak["kernel"] / 2 ** 20:.0f}'
+          f' MiB) vs float32 {step_ms["plain"]:.2f} ms (peak '
+          f'{step_peak["plain"] / 2 ** 20:.0f} MiB), in turns; amp step '
+          f'{traced_step}')
+    return {'launches': (train['k1_bf16'], train['k2_bf16']),
+            'fwd_ms': fwd_ms, 'bwd_ms': bwd_ms, 'parts': parts,
+            'out_err': out_err, 'bwd_err': bwd_err,
+            'worst_twin_db': worst_twin, 'step_ms': step_ms,
+            'step_peak': step_peak, 'k1_step': k1_step, 'k2_step': k2_step,
+            'idle': idle}
+
+
+def amp_training(tcn, count_params):
+    """Phase 55's run: the default Conv-TasNet trained by ``train.main``
+    from its untouched config under bf16 amp on FLAC tars, and resumed;
+    checks the launches, the loss and that no bf16 tensor reaches a plain
+    twin on the card. Returns what the phase prints."""
+    n_train, n_val, epochs, val_period = AMP_TRAIN
+    seen = []
+
+    def refuse(plain):
+        def run(x, *args):
+            if x.device.type == 'cuda':
+                seen.append(plain.__name__)
+            return plain(x, *args)
+        return run
+
+    saved = tcn._fwd_plain_bf16, tcn._bwd_plain_bf16
+    tcn._fwd_plain_bf16, tcn._bwd_plain_bf16 = (refuse(f) for f in saved)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for split, n_items, seed in (('train', n_train, 56),
+                                     ('val', n_val, 57)):
+            paths.append(os.path.join(tmp, split))
+            write_tone_dataset(paths[-1], n_items, 1.0, seed, ext='.flac')
+        model_dir = write_model_dir(os.path.join(tmp, 'model'),
+                                    'convtasnet', *paths)
+        with open(os.path.join(CONFIG_DIR, 'convtasnet.yaml')) as f:
+            untouched = f.read()
+        if 'use_amp: true' not in untouched:
+            raise AssertionError('convtasnet.yaml no longer sets use_amp')
+        try:
+            first, second, train_s, launches = train_and_resume(
+                lambda n: [model_dir, '--device', 'cuda', '--epochs', str(n),
+                           '--val_period', str(val_period)], epochs,
+                [(tcn.tcn_block, 'launches'),
+                 (tcn.tcn_block, 'launches_bf16'),
+                 (tcn.tcn_block_bwd, 'launches'),
+                 (tcn.tcn_block_bwd, 'launches_bf16')])
+        finally:
+            tcn._fwd_plain_bf16, tcn._bwd_plain_bf16 = saved
+        k1_all, k1_bf16, k2_all, k2_bf16 = launches
+        if not first.use_amp or count_params(first.model) != N_PARAMS \
+                or first.flat.dtype != torch.float32:
+            raise AssertionError('phase 55 did not train the default '
+                                 'model under amp')
+        if k1_bf16 == 0 or k2_bf16 == 0 or k2_all != k2_bf16 or seen:
+            raise AssertionError(f'amp training launched K1 {k1_all} '
+                                 f'({k1_bf16} bf16) and K2 {k2_all} '
+                                 f'({k2_bf16} bf16); bf16 plain twin calls '
+                                 f'on the card: {seen}')
+        losses = first.loss_logger.train_loss
+        if not np.isfinite(losses).all() \
+                or np.mean(losses[-3:]) >= losses[0]:
+            raise AssertionError(f'amp training loss {losses}')
+        metrics = [m for m in first.loss_logger.metrics if m][-1]
+    return {'epochs': epochs, 'val_period': val_period,
+            'items': f'{n_train} + {n_val}', 'seconds': train_s,
+            'losses': losses, 'metrics': metrics, 'k1_bf16': k1_bf16,
+            'k2_bf16': k2_bf16, 'k1_f32': k1_all - k1_bf16,
+            'resumed_to': second.epochs_ran}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4781,6 +5213,9 @@ def main():
           f'{step_ms["plain"]:.2f} ms, peak '
           f'{step_peak["plain"] / 2 ** 20:.1f} MiB)')
 
+    # Conv-TasNet's bf16 route next to its float32 phases, while the
+    # process has taken few profiler traces
+    amp = amp_phases(device, card)
     grid = tfgridnet_phases(device, card)
     sgm = sgmse_phases(device, card)
     dcc = dccrn_phases(device, card)
@@ -4821,6 +5256,12 @@ def main():
     k1_bound = bound(tcn_flops, 4 * (rows * (2 * c + cs) + tcn_weights))
     k2_bound = bound(3 * tcn_flops, 4 * (rows * (3 * c + cs)
                                          + 2 * tcn_weights))
+    # the bf16 route: the same operations at the card's bf16 tensor-core
+    # rate, 2 bytes an element (the parameter gradients too)
+    k1_bf16_bound = bound(tcn_flops, 2 * (rows * (2 * c + cs) + tcn_weights),
+                          BF16_FLOPS)
+    k2_bf16_bound = bound(3 * tcn_flops, 2 * (rows * (3 * c + cs)
+                                              + 2 * tcn_weights), BF16_FLOPS)
     lstm_t = grid['timing']['intra']
     gn_big = sgm['largest']
     scan_t, scan_t1 = dcc['timing']['layer0'], dcc['timing']['layer1']
@@ -4862,6 +5303,49 @@ def main():
         'parts_ms': k2[1]['parts'],
         'parts_ms_d128': k2[128]['parts'],
         'launches_a_call': k2[1]['launches'],
+    }, {
+        'name': 'tcn_block_fwd_bf16',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/tcn_block.cu',
+        'replaces': 'brever_tpu/ops/pallas/tcn_block.py:481',
+        'launches': amp['launches'][0],
+        'max_abs_err': amp['out_err'],
+        'ms': amp['fwd_ms']['kernel'],
+        'plain_ms': amp['fwd_ms']['plain'],
+        'plain_note': 'the bf16 plain twin (float32 arithmetic on the bf16 '
+                      'values, the TPU kernel\'s rounding points)',
+        'parts_ms': amp['parts']['k1'] and amp['parts']['k1']['parts'],
+        'launches_a_call': amp['parts']['k1']
+        and amp['parts']['k1']['launches'],
+        'bound_ms': k1_bf16_bound[0],
+        'bound_by': k1_bf16_bound[1],
+        'bound_note': 'bytes at 3.35 TB/s, operations at the bf16 '
+                      'tensor-core rate of 989 TFLOP/s',
+        'library_ms': None,
+        'shape': shape + ' bf16',
+        'amp_step_k1_ms': amp['k1_step'],
+    }, {
+        'name': 'tcn_block_bwd_bf16',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/tcn_block_bwd.cu',
+        'replaces': 'brever_tpu/ops/pallas/tcn_block.py:665',
+        'launches': amp['launches'][1],
+        'max_abs_err': amp['bwd_err'],
+        'worst_snr_vs_twin_db': amp['worst_twin_db'],
+        'ms': amp['bwd_ms']['kernel'],
+        'plain_ms': amp['bwd_ms']['plain'],
+        'parts_ms': amp['parts']['k2'] and amp['parts']['k2']['parts'],
+        'launches_a_call': amp['parts']['k2']
+        and amp['parts']['k2']['launches'],
+        'bound_ms': k2_bf16_bound[0],
+        'bound_by': k2_bf16_bound[1],
+        'library_ms': None,
+        'shape': shape + ' bf16',
+        'amp_step_k2_ms': amp['k2_step'],
+        'amp_train_step_ms': amp['step_ms']['kernel'],
+        'f32_train_step_ms': amp['step_ms']['plain'],
+        'amp_train_step_peak_mib': amp['step_peak']['kernel'] / 2 ** 20,
+        'amp_step_device_idle_share': amp['idle'],
     }, {
         'name': 'lstm_scan_x_fwd',
         'route': 'cuda',
@@ -4947,11 +5431,11 @@ def main():
                        'kernel (the card\'s time)',
         'denoiser_4x4s_ms': sgm['den_ms']['kernel'],
         'denoiser_4x4s_plain_ms': sgm['den_ms']['plain'],
-        'enhance_1x4s_ms': sgm['enh_ms']['kernel'],
-        'enhance_1x4s_plain_ms': sgm['enh_ms']['plain'],
+        'enhance_1x2s_ms': sgm['enh_ms']['kernel'],
+        'enhance_1x2s_plain_ms': sgm['enh_ms']['plain'],
         'idmse_denoiser_4x4s_ms': idm['den_ms']['kernel'],
         'idmse_denoiser_4x4s_plain_ms': idm['den_ms']['plain'],
-        'idmse_enhance_1x4s_ms': idm['enh_ms'],
+        'idmse_enhance_1x2s_ms': idm['enh_ms'],
         'idmselarge_enhance_1x2s_s': idm['large']['enhance_s'],
         'launches_idmselarge': idm['launches_large'],
     }, {

@@ -1,0 +1,301 @@
+"""bf16 amp in the port's trainer (brever_tpu_torch.training), mirroring
+tests/test_amp.py and the JAX trainer's ``loss_fn``:
+
+* the amp per-item loss is finite and within rel 0.1 of the float32 loss
+  (FFNN, whose MLP is cast at the STFT-to-network boundary, and a small
+  Conv-TasNet, ``tests/test_tcn_fused.py``'s width);
+* Conv-TasNet's amp loss and float32 master gradients, on weights carried
+  across by ``convert.py``, against the JAX amp loss with its TCN blocks
+  through the Pallas kernels in interpret mode (``FORCE_INTERPRET``), and
+  both against float64 on the same bf16-rounded weights and batch: the
+  port's relative error is at most twice the JAX path's (with a floor of
+  1e-3 of relative error for the loss), and the two agree to 2e-2;
+* the trunk runs in bf16 while masters, gradients, Adam's moments, the
+  EMA and the checkpoint stay float32;
+* ``python -m brever_tpu_torch.train`` with ``use_amp: true`` (the default
+  config's) on FLAC tars, and a bitwise resume from ``last.ckpt``;
+* a family whose kernels have no bf16 route refuses ``use_amp`` when its
+  trainer is built.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import brever_tpu.ops.pallas.tcn_block as jax_tcn
+from brever_tpu.checkpoint import load_checkpoint as jax_load_checkpoint
+from brever_tpu.models import ModelRegistry as JaxModels
+from brever_tpu.models.base import sample_weighted_mean as jax_mean
+from brever_tpu_torch import train as train_cli
+from brever_tpu_torch.checkpoint import load_checkpoint
+from brever_tpu_torch.convert import flax_to_state_dict
+from brever_tpu_torch.models import ModelRegistry
+from brever_tpu_torch.models.base import param_dtype, sample_weighted_mean
+from brever_tpu_torch.ops import tcn_block
+from brever_tpu_torch.training import BreverTrainer
+from test_torch_flac import write_flac_dataset
+from test_torch_training import DCC, GRID, IDM, NARROW_MANNER, SGM
+from utils import DummyDataset
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONVTASNET = dict(filters=64, filter_length=16, bottleneck_channels=32,
+                  hidden_channels=64, skip_channels=32, layers=2, repeats=2)
+FFNN = dict(hidden_layers=[64])
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _trainer(tmp_path, model, **kwargs):
+    options = dict(
+        train_dataset=DummyDataset(n_items=4, min_length=0.2,
+                                   max_length=0.3),
+        val_dataset=DummyDataset(n_items=2, min_length=0.2, max_length=0.3,
+                                 seed=7),
+        model_dirpath=str(tmp_path), epochs=1, device='cpu',
+        batch_size=0.8, val_metrics={'snr'}, val_period=1, seed=0)
+    options.update(kwargs)
+    return BreverTrainer(model, **options)
+
+
+def _step_loss(trainer, batch, lengths, seed=1):
+    """The train step's loss and float32 master gradients, as
+    ``train_step`` forms them, without the update."""
+    trainer.model.train()
+    trainer.generator.manual_seed(seed)
+    with trainer._amp_params():
+        loss = sample_weighted_mean(trainer.model.loss(
+            trainer._amp_batch(batch), lengths, trainer.generator), lengths)
+        grads = torch.autograd.grad(loss, trainer._param_list)
+    return loss, grads
+
+
+@pytest.mark.parametrize('arch,kwargs', [('ffnn', FFNN),
+                                         ('convtasnet', CONVTASNET)])
+def test_amp_loss_finite_and_close(tmp_path, arch, kwargs):
+    model = ModelRegistry.get(arch)(**kwargs, device='cpu')
+    trainers = [_trainer(tmp_path / str(amp), model, use_amp=amp)
+                for amp in (True, False)]
+    trainers[0].init_state()
+    batch = torch.from_numpy(np.random.RandomState(0).randn(
+        2, 2, 2, 8192).astype('float32'))
+    lengths = torch.full((2,), 8192)
+    amp, ref = (float(_step_loss(t, batch, lengths)[0].detach())
+                for t in trainers)
+    assert np.isfinite(amp) and np.isfinite(ref)
+    # a bf16 trunk: ~3 significant digits through the model
+    assert amp == pytest.approx(ref, rel=0.1), (amp, ref)
+
+
+@pytest.fixture(scope='module')
+def twins():
+    jax_model = JaxModels.get('convtasnet')(**CONVTASNET)
+    variables = jax_model.init_variables(jax.random.PRNGKey(0))
+    params = jax.tree.map(np.asarray, variables['params'])
+    rng = np.random.RandomState(0)
+    target = 0.3 * rng.randn(3, 1, 2, 2400)
+    mix = target + 0.3 * rng.randn(3, 1, 2, 2400)
+    batch = np.concatenate([mix, target], axis=1).astype(np.float32)
+    lengths = np.array([2400, 1700, 0], np.int32)
+    return jax_model, params, batch, lengths
+
+
+def _bf16_tree(tree):
+    return jax.tree.map(lambda x: jnp.asarray(x).astype(jnp.bfloat16), tree)
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want)
+                 / np.linalg.norm(want))
+
+
+def test_convtasnet_amp_matches_jax_and_float64(twins, monkeypatch,
+                                                tmp_path):
+    jax_model, params, batch, lengths = twins
+    monkeypatch.setattr(jax_tcn, 'FORCE_INTERPRET', True)
+
+    def jax_loss(p):
+        per_item = jax_model.loss({'params': _bf16_tree(p)},
+                                  jnp.asarray(batch).astype(jnp.bfloat16),
+                                  jnp.asarray(lengths), None)
+        return jax_mean(per_item.astype(jnp.float32), jnp.asarray(lengths))
+
+    jloss, jgrads = jax.value_and_grad(jax_loss)(params)
+    jgrads = flax_to_state_dict(jax.tree.map(np.asarray, jgrads))
+
+    model = ModelRegistry.get('convtasnet')(**CONVTASNET, device='cpu')
+    model.load_state_dict(flax_to_state_dict(params))
+    trainer = _trainer(tmp_path, model, use_amp=True)
+    n = torch.from_numpy(lengths)
+    tcn_block.tcn_block.launches = tcn_block.tcn_block_bwd.launches = 0
+    loss, grads = _step_loss(trainer, torch.from_numpy(batch), n)
+    assert loss.dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in grads)
+    assert tcn_block.tcn_block.launches == 0   # the CPU takes the twins
+
+    # float64 on the same bf16-rounded weights and batch
+    exact = ModelRegistry.get('convtasnet')(**CONVTASNET, device='cpu')
+    exact.load_state_dict({k: torch.as_tensor(v).bfloat16().double()
+                           for k, v in flax_to_state_dict(params).items()})
+    exact.double()
+    ref = sample_weighted_mean(exact.loss(
+        torch.from_numpy(batch).bfloat16().double(), n), n)
+    ref_grads = torch.autograd.grad(ref, list(exact.parameters()))
+    ref = float(ref)
+
+    names = [name for name, _ in model.named_parameters()]
+    got = np.concatenate([g.numpy().ravel() for g in grads])
+    want = np.concatenate([jgrads[k].numpy().ravel() for k in names])
+    exact_g = np.concatenate([g.numpy().ravel() for g in ref_grads])
+    port_err, jax_err = _rel(got, exact_g), _rel(want, exact_g)
+    print('gradients: relative error against float64, port', port_err,
+          'JAX', jax_err, 'port against JAX', _rel(got, want))
+    print('loss', float(loss), 'JAX', float(jloss), 'float64', ref)
+    assert port_err <= 2 * jax_err, (port_err, jax_err)
+    assert abs(float(loss) - ref) <= 2 * max(abs(float(jloss) - ref),
+                                             1e-3 * abs(ref))
+    assert _rel(got, want.astype(np.float64)) < 2e-2
+    assert float(loss) == pytest.approx(float(jloss), rel=2e-2)
+
+
+def test_trunk_runs_bf16_and_the_state_stays_float32(tmp_path):
+    model = ModelRegistry.get('convtasnet')(**CONVTASNET, device='cpu')
+    trainer = _trainer(tmp_path, model, use_amp=True, ema=True)
+    trainer.init_state()
+    seen = {}
+
+    def record(name):
+        def hook(module, args, out):
+            outs = out if isinstance(out, tuple) else (out,)
+            seen[name] = {t.dtype for t in outs if t is not None}
+        return hook
+
+    for name, module in model.named_modules():
+        if name:
+            module.register_forward_hook(record(name))
+    batch = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 2, 2, 4000).astype('float32'))
+    lengths = torch.tensor([4000, 3000])
+    with trainer._amp_params():
+        assert param_dtype(model) == torch.bfloat16
+    assert param_dtype(model) == torch.float32
+    trainer.train_step(batch, lengths)
+    for name in ('encoder', 'tcn.norm', 'tcn.bottleneck', 'tcn.blocks.0',
+                 'tcn.blocks.3', 'tcn.prelu_out', 'tcn.mask', 'tcn',
+                 'decoder'):
+        assert seen[name] == {torch.bfloat16}, name
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    opt = trainer.optimizer
+    for t in (trainer.flat, trainer.ema, opt.mu, opt.nu):
+        assert t.dtype == torch.float32
+    trainer.save_checkpoint(str(tmp_path / 'a.ckpt'))
+    # the JAX package's loader keeps the stored dtypes
+    state = jax_load_checkpoint(str(tmp_path / 'a.ckpt'))
+    leaves = jax.tree.leaves((state['params'], state['ema'],
+                              state['opt_state']))
+    assert {np.asarray(x).dtype for x in leaves} <= {np.dtype(np.float32),
+                                                     np.dtype(np.int32)}
+    assert any(np.asarray(x).dtype == np.float32 for x in leaves)
+    # validation enhances with the float32 parameters
+    with torch.no_grad():
+        assert model.enhance(batch[0, 0]).dtype == torch.float32
+
+
+def _amp_model_dir(tmp_path):
+    """The untouched default Conv-TasNet config (``use_amp: true``) cut to
+    a small model, on FLAC tars written with the port's encoder."""
+    with open(os.path.join(ROOT, 'config', 'models', 'convtasnet.yaml')) as f:
+        config = yaml.load(f, Loader=yaml.Loader)
+    assert config['trainer']['use_amp'] is True
+    config['model'].update(CONVTASNET)
+    config['train_path'] = write_flac_dataset(str(tmp_path / 'train'),
+                                              [4000, 5000, 6000, 3000])
+    config['val_path'] = write_flac_dataset(str(tmp_path / 'val'),
+                                            [4000, 3500], seed=1)
+    model_dir = tmp_path / 'model'
+    model_dir.mkdir()
+    with open(model_dir / 'config.yaml', 'w') as f:
+        yaml.dump(config, f)
+    return str(model_dir)
+
+
+def test_amp_train_main_on_flac_resumes_bitwise(tmp_path):
+    model_dir = _amp_model_dir(tmp_path)
+    common = ['--device', 'cpu', '--val_metrics', 'snr', '--batch_size',
+              '2', '--dynamic_batch_size', 'false', '--val_period', '1']
+    whole = os.path.join(str(tmp_path), 'whole')
+    os.makedirs(whole)
+    os.symlink(os.path.join(model_dir, 'config.yaml'),
+               os.path.join(whole, 'config.yaml'))
+    train_cli.main([whole, '--epochs', '2'] + common)
+    train_cli.main([model_dir, '--epochs', '1'] + common)
+    ckpt = os.path.join(model_dir, 'checkpoints', 'last.ckpt')
+    assert os.path.exists(ckpt)
+    assert load_checkpoint(ckpt)['step'] > 0
+    train_cli.main([model_dir, '--epochs', '2', '--force'] + common)
+    a = load_checkpoint(ckpt)
+    b = load_checkpoint(os.path.join(whole, 'checkpoints', 'last.ckpt'))
+    for x, y in zip(jax.tree.leaves((a['params'], a['opt_state'])),
+                    jax.tree.leaves((b['params'], b['opt_state']))):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    losses = np.load(os.path.join(model_dir, 'losses.npz'),
+                     allow_pickle=True)
+    assert np.isfinite(losses['train'].astype(float)).all()
+
+
+@pytest.mark.parametrize('arch,kwargs', [
+    ('tfgridnet', GRID), ('dccrn', DCC), ('sgmsep', SGM), ('idmse', IDM),
+    ('manner', {})])
+def test_amp_refused_where_a_kernel_has_no_bf16_route(tmp_path, monkeypatch,
+                                                      arch, kwargs):
+    if arch == 'manner':
+        import functools
+
+        from brever_tpu_torch.models import manner
+        monkeypatch.setattr(manner, '_MannerModule', functools.partial(
+            manner._MannerModule, **NARROW_MANNER))
+    model = ModelRegistry.get(arch)(**kwargs, device='cpu')
+    with pytest.raises(NotImplementedError,
+                       match=r'ROADMAP\.md Queue 1 item 2\.[23]'):
+        _trainer(tmp_path, model, use_amp=True)
+    assert _trainer(tmp_path, model, use_amp=False).use_amp is False
+
+
+@pytest.mark.parametrize('name,last', [('snr', 0), ('sisnr', 300)])
+def test_criterion_and_mean_stay_bf16_as_the_jax_ones(name, last):
+    """The amp loss's last steps: a bf16 criterion and ``sample_weighted_mean``
+    stay in bf16 (their sums accumulated in float32 and rounded, as
+    ``jnp.sum`` upcasts), as the JAX package's; snr's row of length 0
+    drops out (sisnr's is NaN in both packages). Within 2 bf16 ulps (rtol
+    2^-7) of the JAX values."""
+    from brever_tpu.criterion import CriterionRegistry as JaxCriteria
+    from brever_tpu_torch.criterion import CriterionRegistry
+    rng = np.random.RandomState(3)
+    y = rng.randn(3, 1, 800).astype(np.float32)
+    x = (y + 0.5 * rng.randn(3, 1, 800)).astype(np.float32)
+    lengths = np.array([800, 555, last], np.int32)
+    want = JaxCriteria.get(name)(jnp.asarray(x, jnp.bfloat16),
+                                 jnp.asarray(y, jnp.bfloat16),
+                                 jnp.asarray(lengths))
+    want_mean = jax_mean(want, jnp.asarray(lengths))
+    n = torch.from_numpy(lengths)
+    got = CriterionRegistry.get(name)(torch.from_numpy(x).bfloat16(),
+                                      torch.from_numpy(y).bfloat16(), n)
+    got_mean = sample_weighted_mean(got, n)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert got_mean.dtype == torch.bfloat16
+    rows = 3 if last else 2
+    np.testing.assert_allclose(got[:rows].float().numpy(),
+                               np.asarray(want[:rows], np.float32),
+                               rtol=2 ** -7)
+    assert float(got_mean) == pytest.approx(float(want_mean), rel=2 ** -7)

@@ -124,12 +124,21 @@ def test_samplers_match_jax(dataset_dir, name, kwargs):
 
 
 def test_what_the_port_refuses(tmp_path):
+    """FLAC items load (tests/test_torch_flac.py holds them against the
+    JAX package); an item in any other format, dynamic mixing and
+    preloading onto a device are refused."""
     path = str(tmp_path / 'flac')
     os.makedirs(os.path.join(path, 'audio'))
     write_audio(os.path.join(path, 'audio', '00000_mixture.flac'),
                 np.zeros((160, 2), np.float32), FS,
                 name='00000_mixture.flac')
-    with pytest.raises(NotImplementedError, match='flac'):
+    ds = data.BreverDataset(path, tar=False, sources=['mixture'])
+    assert ds[0].shape == (1, 2, 160)
+    path = str(tmp_path / 'ogg')
+    os.makedirs(os.path.join(path, 'audio'))
+    with open(os.path.join(path, 'audio', '00000_mixture.ogg'), 'wb') as f:
+        f.write(b'OggS')
+    with pytest.raises(RuntimeError, match='.ogg'):
         data.BreverDataset(path, tar=False)
     wav = write_wav_dataset(str(tmp_path / 'wav'), [800])
     with pytest.raises(NotImplementedError, match='dynamic mixing'):

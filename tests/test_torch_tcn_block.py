@@ -83,3 +83,67 @@ def test_wrapper_off_cuda_raises():
     with pytest.raises(ValueError, match='no kernel for device cpu'):
         port._launch(x, params, 1, False)
     assert port.tcn_block.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The bf16 route (K1-bf16's plain twin): x and the parameters bfloat16, the
+# Pallas kernel's rounding points (bf16 matmul operands, float32 sums and
+# statistics, the gLN2 affine folded into bf16 output weights, bf16 h2 and
+# outputs). Held against ``tcn_block_fused`` at bf16 in interpret mode
+# within 2 bf16 ulps elementwise (rtol 2^-7) with an atol of 1e-3 of the
+# tensor's largest value (an output near 0 is a cancelling float32 sum,
+# whose order moves it by more ulps of its own), tighter than the JAX
+# tests' own bf16 bound of 5e-2 (tests/test_tcn_fused.py); and against
+# float64 on the same bf16 values: the twin's SNR within 0.1 dB of the
+# kernel's.
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+def _snr_db(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return 10 * np.log10((want ** 2).sum() / ((got - want) ** 2).sum())
+
+
+def _close_bf16(got, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize('last', [False, True])
+@pytest.mark.parametrize('t_total,dilation', [(192, 1), (200, 4), (200, 8),
+                                              (130, 64), (100, 250)])
+def test_bf16_plain_matches_pallas(dilation, t_total, last):
+    """T=200 and 130 are off the tile grid (tile 64), d=250 >= T."""
+    rng = np.random.RandomState(5)
+    x = _bf16(rng.randn(2, t_total, 64))
+    params = [_bf16(p) for p in _params(rng, 64, 96, 48)]
+    res_j, skip_j = tcn.tcn_block_fused(
+        jnp.asarray(x, jnp.bfloat16),
+        tuple(jnp.asarray(p, jnp.bfloat16) for p in params), dilation, last,
+        tile=64, interpret=True)
+    pt = _port_params(params)
+    if last:
+        pt = pt[:10] + (None, None) + pt[12:]
+    port.tcn_block.launches = 0
+    res, skip, stats = port.tcn_block_fwd(
+        torch.from_numpy(x).bfloat16(),
+        [None if p is None else p.bfloat16() for p in pt], dilation, last)
+    assert port.tcn_block.launches == 0
+    assert skip.dtype == torch.bfloat16 and stats.dtype == torch.float32
+    exact = port.tcn_block_fwd_plain(
+        torch.from_numpy(x).double(),
+        [None if p is None else p.double() for p in pt], dilation, last)
+    pairs = [(skip, skip_j, exact[1])]
+    if not last:
+        assert res.dtype == torch.bfloat16
+        pairs.append((res, res_j, exact[0]))
+    else:
+        assert res is None
+    for got, want, ref in pairs:
+        _close_bf16(got, want)
+        assert _snr_db(got.float(), ref) >= _snr_db(
+            np.asarray(want, np.float32), ref.numpy()) - 0.1

@@ -229,3 +229,70 @@ def test_backward_plan_at_ragged_lengths(t_total, batch, c, h, cs, last):
         assert chunks <= -(-t_total // 256)
         assert chunks == 1 or tiles * batch * chunks <= 4 * 132
     assert plan['workspace'] >= 4 * batch * t_total * h
+
+
+# ---------------------------------------------------------------------------
+# The bf16 route's backward (K2-bf16's plain twin) against the VJP of the
+# Pallas kernel at bf16 in interpret mode, at the dilations of both JAX
+# backward variants' tests (4, 8; tests/test_tcn_fused.py), ``last`` both
+# ways and T off the tile grid: dx (bf16) and the bf16 parameter gradients
+# within rtol 2e-2 and an atol of 2e-2 of each tensor's largest value,
+# tighter than the JAX tests' own bf16 bound of 5e-2, the PReLU slopes
+# included; and against float64 on the same bf16 values, each within 0.5 dB
+# of the kernel's SNR.
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+def _snr_db(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return 10 * np.log10((want ** 2).sum() / ((got - want) ** 2).sum())
+
+
+@pytest.mark.parametrize('t_total', [192, 200])
+@pytest.mark.parametrize('last', [False, True])
+@pytest.mark.parametrize('dilation', [4, 8])
+def test_bf16_backward_matches_pallas(dilation, last, t_total):
+    rng = np.random.RandomState(5)
+    x = _bf16(rng.randn(1, t_total, 64))
+    params = [_bf16(p) for p in _params(rng, 64, 96, 48)]
+    g_skip = _bf16(rng.randn(1, t_total, 48))
+    g_res = _bf16(rng.randn(1, t_total, 64))
+    bf = jnp.bfloat16
+    _, vjp = jax.vjp(lambda x, p: tcn.tcn_block_fused(
+        x, p, dilation, last, tile=64, interpret=True),
+        jnp.asarray(x, bf), tuple(jnp.asarray(p, bf) for p in params))
+    gx_j, gp_j = vjp((None if last else jnp.asarray(g_res, bf),
+                      jnp.asarray(g_skip, bf)))
+
+    def run(dtype):
+        pt = [None if p is None else p.detach().to(dtype)
+              for p in _port_params(params, last)]
+        return port.tcn_block_bwd(
+            torch.from_numpy(x).to(dtype), pt, None,
+            None if last else torch.from_numpy(g_res).to(dtype),
+            torch.from_numpy(g_skip).to(dtype), dilation, last)
+
+    port.tcn_block_bwd.launches = 0
+    dx, dparams = run(torch.bfloat16)
+    assert port.tcn_block_bwd.launches == 0
+    dx_64, dparams_64 = run(torch.float64)
+    assert dx.dtype == torch.bfloat16
+    pairs = [('x', dx, gx_j, dx_64)]
+    for i, (p, g, e) in enumerate(zip(dparams, gp_j, dparams_64)):
+        if p is None:
+            assert last and i in (10, 11)
+            continue
+        assert p.dtype == torch.bfloat16, NAMES[i]
+        want = np.asarray(g, np.float32)
+        pairs.append((NAMES[i], p, want.T if i in LINEAR
+                      else want.reshape(p.shape), e))
+    for name, got, want, exact in pairs:
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(
+            got.float().numpy(), want, rtol=2e-2,
+            atol=2e-2 * np.abs(want).max(), err_msg=name)
+        assert _snr_db(got.float(), exact) >= _snr_db(
+            want, exact.numpy()) - 0.5, name

@@ -226,9 +226,14 @@ def test_pad_batch_rounds_to_eight():
 
 
 def test_refusals(tmp_path):
-    for option in ('use_amp', 'ddp', 'profile', 'use_wandb'):
+    for option in ('ddp', 'profile', 'use_wandb'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             make_trainer(tmp_path, **{option: True})
+    # bf16 amp is refused for a family whose kernels have no bf16 route
+    # yet (tests/test_torch_amp.py covers each), accepted for Conv-TasNet
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        make_trainer(tmp_path, arch='tfgridnet', use_amp=True)
+    assert make_trainer(tmp_path, use_amp=True).use_amp
     # the host twins score pesq/estoi without device_val_metrics; a name
     # that no registry knows is refused when the trainer is built
     trainer = make_trainer(tmp_path, val_metrics={'pesq', 'estoi', 'snr'},
