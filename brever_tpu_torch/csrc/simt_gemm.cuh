@@ -1,6 +1,6 @@
 // A float32 SIMT GEMM body for NVIDIA Hopper, shared by K1's two products
 // (tcn_block.cu), K2's five (tcn_block_bwd.cu) and K4's and K6's
-// (lstm_scan.cu), and the cp.async copies it and K3's ring stage their
+// (lstm_scan.cuh), and the cp.async copies it and K3's ring stage their
 // operands with. Bound on this card: float32 FFMA at 67 TFLOP/s, against
 // which these products reach about 30-36 TFLOP/s (PERF.md); the block tile
 // of 8 x 8 outputs a thread keeps four shared-memory wavefronts to 64

@@ -14,7 +14,12 @@ bf16 (the trainer's amp casts the parameters): as flax's modules, PReLU
 casts ``alpha`` to the activation's dtype, the gLN takes float32
 statistics and casts its output back to the input's dtype, and the
 depthwise conv multiplies and adds in the activation's dtype with its
-kernel and bias cast to it.
+kernel and bias cast to it. DCCRN's :class:`BatchNorm` takes flax's batch
+statistics in float32 from a bfloat16 input, normalises in float32 and casts
+back (the JAX package's ``batch_norm``); its running ``mean``/``var`` stay
+float32 and are only ever written from float32 statistics.
+:class:`ComplexBatchNorm` whitens in float32 and casts back, as the JAX
+package's does.
 """
 
 import torch
@@ -24,6 +29,13 @@ from ..ops.functional import depthwise_conv1d, global_layer_norm, prelu
 from ..ops.groupnorm import _act
 # looked up at call time: a run may put batch_norm_act_plain in its place
 from ..ops.batchnorm import batch_norm_act
+
+
+def stats_input(x):
+    """``x`` as flax's norms (and the JAX package's, which follow them) take
+    their statistics and affine: float32 for a bfloat16 input, the input
+    itself otherwise; the norm casts its output back to ``x``'s dtype."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 class PReLU(nn.Module):
@@ -76,7 +88,8 @@ class BatchNorm(nn.Module):
     variance kept biased, where ``F.batch_norm`` keeps it unbiased, and
     flax's ``momentum``, where torch's would be ``1 - momentum``); in eval
     mode the running statistics. ``y = (x - mean) rsqrt(var + eps) scale +
-    bias``."""
+    bias``. A bfloat16 input: statistics and ``y`` in float32 (flax's
+    ``_compute_stats`` and ``_normalize``), ``y`` cast back to bfloat16."""
 
     def __init__(self, channels, momentum=0.99, eps=1e-5):
         super().__init__()
@@ -87,14 +100,15 @@ class BatchNorm(nn.Module):
         self.register_buffer('var', torch.ones(channels))
 
     def forward(self, x):
+        xs = stats_input(x)
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean = x.mean(dim=dims)
-            var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0)
+            mean = xs.mean(dim=dims)
+            var = ((xs * xs).mean(dim=dims) - mean * mean).clamp_min(0)
             self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
-        return self.affine(x, mean, var)
+        return self.affine(xs, mean, var).to(x.dtype)
 
     def update_running(self, mean, var):
         """flax's running update from a batch's statistics."""
@@ -145,7 +159,8 @@ class ComplexBatchNorm(nn.Module):
     C channels: statistics per complex channel over the batch and spatial
     axes, running ``mean (2, C)`` and ``cov (2, 2, C)`` updated as ``r +=
     momentum (stat - r)``, an affine of ``weight (3, C)`` (W_rr, W_ri, W_ii,
-    the identity at init) and ``bias (2, C)``."""
+    the identity at init) and ``bias (2, C)``. A bfloat16 input is whitened
+    in float32 and the output cast back, as the JAX package's is."""
 
     def __init__(self, channels, momentum=0.1, eps=1e-5):
         super().__init__()
@@ -158,6 +173,8 @@ class ComplexBatchNorm(nn.Module):
                              .repeat(1, 1, channels))
 
     def forward(self, x):
+        in_dtype = x.dtype
+        x = stats_input(x)
         n = x.shape[1] // 2
         z = torch.stack([x[:, :n], x[:, n:]])           # (2, B, C, ...)
         dims = (1,) + tuple(range(3, z.ndim))
@@ -196,4 +213,4 @@ class ComplexBatchNorm(nn.Module):
             + bc(self.bias[0])
         out_i = white_r * bc(self.weight[1]) + white_i * bc(self.weight[2]) \
             + bc(self.bias[1])
-        return torch.cat([out_r, out_i], dim=1)
+        return torch.cat([out_r, out_i], dim=1).to(in_dtype)

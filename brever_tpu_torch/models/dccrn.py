@@ -23,6 +23,14 @@ run forward in time), one scan through ``rnn._dispatch_scan_x``: under the
 128-row floor, as at any batch up to 63, the projection is one product and
 the scan is K5/K6 on CUDA. Convolutions, norms and the STFT are plain
 torch, as the JAX package leaves them to XLA.
+
+bf16 amp (the trainer casts the parameters): as the JAX model, the STFT
+stays float32 and its features are cast to the parameters' dtype at the
+STFT-to-network boundary (``param_dtype``), so the encoder, the complex
+LSTM (K5/K6's bf16 route, its projection a bf16 cuBLAS product) and the
+decoder run in bfloat16; the batch norms take float32 statistics and keep
+float32 running statistics; the mask is applied in float32 to the
+bf16-rounded features, and the inverse STFT runs in float32.
 """
 
 import torch
@@ -33,7 +41,7 @@ from ..convert import dccrn_flax_to_state_dict, dccrn_state_dict_to_flax
 from ..criterion import init_criterion
 from ..ops.stft import STFT
 from ..optim import Adam
-from .base import BreverBaseModel, ModelRegistry
+from .base import BreverBaseModel, ModelRegistry, param_dtype
 from .common import BatchNorm, ComplexBatchNorm, PReLU
 from .rnn import _dispatch_scan_x, _uniform
 
@@ -117,9 +125,6 @@ class DCCRN(BreverBaseModel):
     """DCCRN on binaural input (the channel mean is enhanced).
     ``criterion``, ``optimizer`` and ``learning_rate`` are the training
     settings of the model's config; the gradient is clipped at 5."""
-
-    amp_refused = ('the bf16 route of its LSTM scan kernels K5/K6'
-                   ' (ROADMAP.md Queue 1 item 2.2)')
 
     grad_clip = 5.0
 
@@ -258,11 +263,15 @@ class DCCRN(BreverBaseModel):
         return out_mag * torch.cos(out_phase), out_mag * torch.sin(out_phase)
 
     def forward(self, x):
-        """Mono ``(B, n)`` -> enhanced ``(B, n)``."""
+        """Mono ``(B, n)`` -> enhanced ``(B, n)``: the STFT, the mask's
+        application and the inverse STFT in float32 (float64 in
+        references), the network in the parameters' dtype."""
         length = x.shape[-1]
-        x = x.to(self.lstm_proj_real.weight.dtype)  # float64 in references
-        spec = self._to_input(x)
-        real, imag = self._apply_mask(spec, self._mask(spec))
+        dtype = param_dtype(self)
+        x = x.to(torch.promote_types(dtype, torch.float32))
+        spec = self._to_input(x).to(dtype)
+        mask = self._mask(spec)
+        real, imag = self._apply_mask(spec.to(x.dtype), mask.to(x.dtype))
         # the DC bin back in, as 0
         out = torch.complex(F.pad(real, (0, 0, 1, 0)),
                             F.pad(imag, (0, 0, 1, 0)))

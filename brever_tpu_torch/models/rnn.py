@@ -18,6 +18,11 @@ off their grid of multiples of 32 is zero-padded to it), so that condition
 is dropped. In its place, an (E, H) whose projection-fused kernels would
 pass the card's shared memory takes the projection outside the scan, decided
 from the shape before any launch (``ops.lstm_scan.fused_x_fits``).
+
+Under bf16 amp the parameters and inputs are bfloat16 and the scans take
+the kernels' bf16 route; the unfused route's projection is a bfloat16
+product, then ``+ bias`` in bfloat16 (two roundings, as the JAX package's
+einsum fallback), where K3 rounds ``x w_ih + bias`` once.
 """
 
 import torch

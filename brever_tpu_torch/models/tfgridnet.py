@@ -9,6 +9,16 @@ JAX package. Every BLSTM goes through
 The STFT (``torch.fft``), convolutions, norms and attention (a plain
 matmul softmax) are plain torch, as the JAX package leaves them to XLA.
 
+bf16 amp (the trainer casts the parameters): as the JAX model, the
+waveform, its normalisation and the STFT stay float32, the STFT features
+are cast to the parameters' dtype at the STFT-to-network boundary
+(``param_dtype``), and the output back to float32 before the inverse STFT,
+so the whole trunk runs in bfloat16: the BLSTMs through K3/K4's bf16 route
+(K5/K6's under the 128-row floor), every norm with float32 statistics and
+its output cast back (flax's LayerNorm/GroupNorm, the JAX package's
+all-head and (F, C) layer norms), PReLU's slope cast to the activation's
+dtype, and the attention's products and softmax in bfloat16.
+
 The JAX model scans its identical grid blocks under one ``nn.scan`` scope
 (a leading axis of ``n_layers`` on every block parameter) and
 rematerialises them; neither changes a number, and here the blocks are a
@@ -25,19 +35,21 @@ from ..convert import (tfgridnet_flax_to_state_dict,
 from ..criterion import init_criterion
 from ..ops.stft import STFT
 from ..optim import Adam
-from .base import BreverBaseModel, ModelRegistry
-from .common import PReLU
+from .base import BreverBaseModel, ModelRegistry, param_dtype
+from .common import PReLU, stats_input
 from .rnn import BLSTM
 from .schedulers import ReduceLROnPlateau
 
 
-def _fast_norm(x, dims, eps):
-    """flax's normalisation statistics: mean and ``E[x^2] - mean^2``
-    (clipped at 0) over ``dims``; returns ``(x - mean, rsqrt(var + eps))``.
-    """
-    mean = x.mean(dim=dims, keepdim=True)
-    var = ((x * x).mean(dim=dims, keepdim=True) - mean * mean).clamp_min(0)
-    return x - mean, torch.rsqrt(var + eps)
+def _fast_norm(x, dims, eps, scale, bias):
+    """flax's normalisation (``_compute_stats``, ``_normalize``): mean and
+    ``E[x^2] - mean^2`` (clipped at 0) over ``dims``, then ``(x - mean)
+    (rsqrt(var + eps) scale) + bias``; for a bfloat16 input the statistics
+    and the affine in float32 and the output cast back."""
+    xs = stats_input(x)
+    mean = xs.mean(dim=dims, keepdim=True)
+    var = ((xs * xs).mean(dim=dims, keepdim=True) - mean * mean).clamp_min(0)
+    return ((xs - mean) * (torch.rsqrt(var + eps) * scale) + bias).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -51,8 +63,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        centred, rstd = _fast_norm(x, (-1,), self.eps)
-        return centred * (rstd * self.scale) + self.bias
+        return _fast_norm(x, (-1,), self.eps, self.scale, self.bias)
 
 
 class GroupNorm1(nn.Module):
@@ -66,14 +77,15 @@ class GroupNorm1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        centred, rstd = _fast_norm(x, tuple(range(1, x.ndim)), self.eps)
-        return centred * (rstd * self.scale) + self.bias
+        return _fast_norm(x, tuple(range(1, x.ndim)), self.eps, self.scale,
+                          self.bias)
 
 
 class AllHeadPReLULayerNorm(nn.Module):
-    """Per-head PReLU, then a layer norm over (frequency, embedding) with a
-    per-(head, frequency, embedding) affine. ``(B, T, F, heads * E)`` ->
-    ``(B, heads, T, F, E)``."""
+    """Per-head PReLU (its slope cast to the activation's dtype), then a
+    layer norm over (frequency, embedding) with a per-(head, frequency,
+    embedding) affine, in float32 for a bfloat16 input and cast back.
+    ``(B, T, F, heads * E)`` -> ``(B, heads, T, F, E)``."""
 
     def __init__(self, n_head, emb, n_freqs, eps=1e-5):
         super().__init__()
@@ -86,16 +98,18 @@ class AllHeadPReLULayerNorm(nn.Module):
         batch, frames, freqs, _ = x.shape
         x = x.reshape(batch, frames, freqs, self.n_head, self.emb)
         x = x.permute(0, 3, 1, 2, 4)
-        x = torch.where(x >= 0, x, self.alpha * x)
-        mean = x.mean(dim=(3, 4), keepdim=True)
-        var = ((x - mean) ** 2).mean(dim=(3, 4), keepdim=True)
-        return (x - mean) / torch.sqrt(var + self.eps) * self.gamma \
-            + self.beta
+        x = torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+        xs = stats_input(x)
+        mean = xs.mean(dim=(3, 4), keepdim=True)
+        var = ((xs - mean) ** 2).mean(dim=(3, 4), keepdim=True)
+        return ((xs - mean) / torch.sqrt(var + self.eps) * self.gamma
+                + self.beta).to(x.dtype)
 
 
 class LayerNormCF(nn.Module):
     """Layer norm over (frequency, channel) of ``(B, T, F, C)`` with a
-    per-(frequency, channel) affine."""
+    per-(frequency, channel) affine, in float32 for a bfloat16 input and
+    cast back."""
 
     def __init__(self, channels, n_freqs, eps=1e-5):
         super().__init__()
@@ -104,10 +118,11 @@ class LayerNormCF(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, 1, n_freqs, channels))
 
     def forward(self, x):
-        mean = x.mean(dim=(2, 3), keepdim=True)
-        var = ((x - mean) ** 2).mean(dim=(2, 3), keepdim=True)
-        return (x - mean) / torch.sqrt(var + self.eps) * self.gamma \
-            + self.beta
+        xs = stats_input(x)
+        mean = xs.mean(dim=(2, 3), keepdim=True)
+        var = ((xs - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+        return ((xs - mean) / torch.sqrt(var + self.eps) * self.gamma
+                + self.beta).to(x.dtype)
 
 
 class GridBlock(nn.Module):
@@ -189,9 +204,6 @@ class TFGridNet(BreverBaseModel):
     model's config; the learning rate halves on a validation plateau
     (``ReduceLROnPlateau``, factor 0.5, patience 3)."""
 
-    amp_refused = ('the bf16 route of its LSTM kernels K3/K4'
-                   ' (ROADMAP.md Queue 1 item 2.2)')
-
     #: the JAX package wraps this family's Adam in optax.inject_hyperparams,
     #: so its checkpoints carry the learning rate (training.py)
     injects_hyperparams = True
@@ -265,15 +277,19 @@ class TFGridNet(BreverBaseModel):
         return parts.permute(0, 2, 3, 1)
 
     def forward(self, x):
-        """(B, 2, samples) -> (B, sources, samples)."""
+        """(B, 2, samples) -> (B, sources, samples). The trunk runs in the
+        parameters' dtype (bfloat16 under amp), the waveform and the STFT
+        in float32 (float64 in references)."""
         n_samples = x.shape[-1]
-        x = x.to(self.embed.weight.dtype)   # float32 (float64 in references)
+        dtype = param_dtype(self)
+        x = x.to(torch.promote_types(dtype, torch.float32))
         std = x.std(dim=(1, 2), keepdim=True, correction=0)
         x = x / std.clamp_min(1e-8)
-        h = self.embed_norm(self._conv(self.embed, self._to_input(x)))
+        spec = self._to_input(x).to(dtype)
+        h = self.embed_norm(self._conv(self.embed, spec))
         for block in self.blocks:
             h = block(h)
-        out = self._conv(self.deconv, h)                  # (B, T, F, 2 S)
+        out = self._conv(self.deconv, h).to(x.dtype)      # (B, T, F, 2 S)
         batch, frames, freqs, _ = out.shape
         out = out.reshape(batch, frames, freqs, self.n_srcs, 2)
         out = out.permute(0, 3, 2, 1, 4)                  # (B, S, F, T, 2)

@@ -54,15 +54,15 @@ SIGNATURES = {
     'lstm_fwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
-    'lstm_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    'lstm_fwd_gates': (_I, [_P] * 7 + [_I] * 5 + [_P]),
-    'lstm_bwd_gates': (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    'lstm_bwd': (_I, [_P] * 13 + [_I] * 5 + [_P]),
+    'lstm_fwd': (_I, [_P] * 6 + [_I] * 6 + [_P]),
+    'lstm_fwd_gates': (_I, [_P] * 7 + [_I] * 6 + [_P]),
+    'lstm_bwd_gates': (_I, [_P] * 6 + [_I] * 6 + [_P]),
+    'lstm_bwd': (_I, [_P] * 13 + [_I] * 6 + [_P]),
     'lstm_scan_bwd_workspace': (ctypes.c_size_t, [_I] * 4),
     'lstm_scan_tile_smem': (ctypes.c_size_t, [_I]),
     'lstm_scan_cluster_info': (_I, [_I, ctypes.POINTER(_I)]),
-    'lstm_scan_fwd': (_I, [_P] * 4 + [_I] * 4 + [_P]),
-    'lstm_scan_bwd': (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    'lstm_scan_fwd': (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    'lstm_scan_bwd': (_I, [_P] * 9 + [_I] * 5 + [_P]),
     'gn_plan': (_I, [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
     'gn_fwd': (_I, [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _P]),
     'gn_bwd_workspace': (ctypes.c_size_t, [_I] * 4),

@@ -19,7 +19,7 @@ that requires grad it goes through :class:`LSTMScanXFunction`, whose
 forward saves x, h and c (as ``_fused_x_fwd`` does) and whose backward
 returns dx, dW_ih, db and dW_hh; otherwise (serving) it is the forward
 alone. A tensor on the CPU takes the plain versions; a CUDA tensor
-launches the kernels (``csrc/lstm_scan.cu``: K3, the forward, replaces
+launches the kernels (``csrc/lstm_scan.cuh``: K3, the forward, replaces
 ``_fwd_x_kernel``; K4, the backward, ``_bwd_x_kernel``) or raises. K3 is
 one launch: a block scans a row tile over all steps, streaming the rows of
 ``[w_ih; w_hh]`` through a shared-memory ring (its plan: :func:`fwd_plan`,
@@ -56,6 +56,19 @@ The kernels take every shape the JAX package's scans run, up to H = 8192
   and every H above 256, is routed by ``models/rnn.py`` to the projection
   and K5/K6 before any launch (:func:`fused_x_fits`).
 
+bf16 (amp): every entry point also takes bfloat16 tensors (all of a call's
+operands in one dtype). The plain versions then compute what the Pallas
+kernels compute with bf16 operands, at their rounding points
+(``_fwd_x_kernel`` ``:414-428``, ``_bwd_x_kernel`` ``:527-560``, and the
+gates-in ``_fwd_kernel`` / ``_bwd_kernel``): ``gx = bf16(x w_ih + bias)``
+summed in float32, ``gates = gx + bf16(h w_hh)`` added in bf16, each
+nonlinearity in float32 rounded to bf16, every product and sum of the cell
+and of the backward's do/dc/di/df/dg chain rounded (c carried in bf16),
+``dh_rec = bf16(dgates w_hh^T)``, ``dx = bf16(dgates w_ih^T)``, and the
+weight gradients summed in float32 and cast to the weights' dtype. A CUDA
+bf16 tensor launches the bf16 route of the same kernels (same plans and
+launches: K3 1, K4 5, K5 1, K6 2; K5/K6 up to H = 256) or raises.
+
 K5/K6 run up to H = 256 on a thread-block cluster of :data:`CLUSTER_BLOCKS`
 blocks per 32-row tile and direction, each block holding its slice of
 ``w_hh`` in shared memory (:func:`cluster_smem`, checked against the
@@ -75,21 +88,21 @@ from . import build
 #: the kernels' int range: no tensor of a launch may hold this many floats
 _INT_RANGE = 2 ** 31
 #: the largest hidden size the kernels take (K5/K6, ``kMaxHidden`` of
-#: csrc/lstm_scan.cu), the largest K3/K4 take (``kMaxHiddenWide``), and
+#: csrc/lstm_scan.cuh), the largest K3/K4 take (``kMaxHiddenWide``), and
 #: their grid of sizes
 _MAX_HIDDEN, _MAX_HIDDEN_X, _HIDDEN_STEP = 8192, 256, 32
 #: rows of a 32-row scan tile (the routing rule's, :func:`fused_x_fits`)
 _TILE_ROWS = 32
-#: K3's ring (``kFwdRing`` of csrc/lstm_scan.cu): its stages
+#: K3's ring (``kFwdRing`` of csrc/lstm_scan.cuh): its stages
 _FWD_RING = 4
 #: shared memory a block may take on the H100 (bytes)
 _MAX_SMEM = 227 * 1024
-#: K5/K6 up to H = 256 (csrc/lstm_scan.cu): rows of a cluster's tile, and
+#: K5/K6 up to H = 256 (csrc/lstm_scan.cuh): rows of a cluster's tile, and
 #: the floats that pad a shared row of H
 _CLUSTER_ROWS, _CLUSTER_PAD = 32, 4
 #: blocks of a K5/K6 cluster at every H <= 256 (``kClusterBlocks``)
 CLUSTER_BLOCKS = 16
-#: K4's plan (``BwdPlan`` of csrc/lstm_scan.cu): the H100 SXM's SMs, the
+#: K4's plan (``BwdPlan`` of csrc/lstm_scan.cuh): the H100 SXM's SMs, the
 #: weight GEMM's least chunk of (t, r) pairs, the GEMMs' block tile and k
 #: slice, and the chunks of w_hh^T in the reverse scan's ring
 _SMS, _WG_MIN_CHUNK, _GEMM_TILE, _GEMM_SLICE = 132, 1024, 128, 16
@@ -154,7 +167,7 @@ def fused_x_fits(feat, hidden):
 def cluster_smem(hidden):
     """``(K5's, K6's)`` shared memory a block, in bytes, at ``hidden`` <= 256:
     the formulas ``cluster_fwd_floats`` and ``cluster_bwd_floats`` of
-    csrc/lstm_scan.cu. Block b of a cluster holds its ``(H, 4U)`` slice of
+    csrc/lstm_scan.cuh. Block b of a cluster holds its ``(H, 4U)`` slice of
     w_hh (U = H / :data:`CLUSTER_BLOCKS` units, rows of H padded by 4
     floats); K5 h of the 32-row tile twice (by step parity) and its gates_x
     columns twice; K6 h[t-1], its gates_x columns, c[t], c[t-1], dh and
@@ -170,7 +183,7 @@ def cluster_smem(hidden):
 
 def scan_tile_rows(hidden):
     """``(rows, threads)`` of a K5/K6 row tile at 256 < ``hidden`` <= 8192
-    (``tile_rows`` and ``Split`` of csrc/lstm_scan.cu): 16 rows up to 512,
+    (``tile_rows`` and ``Split`` of csrc/lstm_scan.cuh): 16 rows up to 512,
     then half as many each time H doubles, down to 1 row past 4096; a
     thread owns 8 rows and 2 units on tiles of 8 rows or more, else all
     the rows and 16 / rows units, so a block has at most 512 threads."""
@@ -184,7 +197,7 @@ def scan_tile_rows(hidden):
 def scan_tile_smem(hidden):
     """``(K5's, K6's)`` shared memory a block, in bytes, at 256 < ``hidden``
     <= 8192, where they scan row tiles (``lstm_scan_tile_smem`` of
-    csrc/lstm_scan.cu for K6): K5 holds h of the tile, K6 h, dgates and
+    csrc/lstm_scan.cuh for K6): K5 holds h of the tile, K6 h, dgates and
     dh_rec (6H floats a row), 196,608 bytes at H = 512, 1024, 2048, 4096
     and 8192."""
     rows = scan_tile_rows(hidden)[0]
@@ -247,19 +260,73 @@ def _cell(gates, c_prev):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
+def _is_bf16(t):
+    return t.dtype == torch.bfloat16
+
+
+def _nonlin(fn, z):
+    """``fn`` of a bfloat16 ``z`` in float32, rounded back to bfloat16
+    (``_sig`` / ``_tanh`` of the Pallas kernels)."""
+    return fn(z.float()).to(torch.bfloat16)
+
+
+def _gates_bf16(pre):
+    """``(i, f, g, o)`` of bfloat16 pre-activations, each nonlinearity in
+    float32 and rounded."""
+    i, f, g, o = pre.chunk(4, dim=-1)
+    return (_nonlin(torch.sigmoid, i), _nonlin(torch.sigmoid, f),
+            _nonlin(torch.tanh, g), _nonlin(torch.sigmoid, o))
+
+
+def _cell_bf16(gates, c_prev):
+    """The cell at the Pallas kernel's bfloat16 rounding points: every
+    product and sum of ``c = f c_prev + i g`` and ``h = o tanh(c)`` rounded
+    to bfloat16 (c carried in bfloat16)."""
+    i, f, g, o = _gates_bf16(gates)
+    c = f * c_prev + i * g
+    return o * _nonlin(torch.tanh, c), c
+
+
+def _product(a, w):
+    """``a w``: float32 as is; bfloat16 operands multiplied and summed in
+    float32 and rounded once (``jnp.dot(..., preferred_element_type=f32)
+    .astype(bf16)``)."""
+    if _is_bf16(a):
+        return torch.matmul(a.float(), w.float()).to(torch.bfloat16)
+    return torch.matmul(a, w)
+
+
 def _projection(x_seq, w_ih, bias):
-    """``x w_ih + bias`` for every step at once: ``(T, D, R, 4H)``."""
+    """``x w_ih + bias`` for every step at once: ``(T, D, R, 4H)``. In
+    bfloat16 as the projection-fused kernel forms it: the product summed
+    in float32, the bias added in float32, one rounding."""
+    if _is_bf16(x_seq):
+        gx = torch.einsum('tdre,dek->tdrk', x_seq.float(), w_ih.float()) \
+            + bias.float()[None, :, None, :]
+        return gx.to(torch.bfloat16)
     return torch.einsum('tdre,dek->tdrk', x_seq, w_ih) + bias[None, :, None, :]
+
+
+def _wsum(spec, a, b, dtype):
+    """``einsum(spec, a, b)``: float32 as is; from bfloat16 operands summed
+    in float32 and cast to ``dtype`` at the end, as the Pallas kernels'
+    float32 accumulators (weight gradients) and products (dx) are."""
+    if _is_bf16(a):
+        return torch.einsum(spec, a.float(), b.float()).to(dtype)
+    return torch.einsum(spec, a, b)
 
 
 def lstm_scan_reference(gates_x, w_hh):
     """Plain forward of the gates-in scan, in ``rnn._lstm_scan_impl``'s
-    order: ``(h_seq, c_seq)``, each ``(T, D, R, H)``."""
+    order: ``(h_seq, c_seq)``, each ``(T, D, R, H)``. bfloat16 inputs take
+    the Pallas kernel's rounding points (``_fwd_kernel``): ``gates =
+    gates_x + bf16(h w_hh)`` added in bfloat16, then :func:`_cell_bf16`."""
     h = gates_x.new_zeros(w_hh.shape[0], gates_x.shape[2], w_hh.shape[1])
     c = torch.zeros_like(h)
+    cell = _cell_bf16 if _is_bf16(gates_x) else _cell
     hs, cs = [], []
     for gx in gates_x:
-        h, c = _cell(gx + torch.matmul(h, w_hh), c)
+        h, c = cell(gx + _product(h, w_hh), c)
         hs.append(h)
         cs.append(c)
     return torch.stack(hs), torch.stack(cs)
@@ -269,15 +336,23 @@ def lstm_scan_bwd_plain(gates_x, w_hh, h_seq, c_seq, dh_seq):
     """Plain backward of the gates-in scan from the saved h and c, as
     ``rnn._lstm_scan_bwd``: ``(dgates, dw_hh)``. The gates of every step are
     recomputed in one product from ``h[t-1]``; a reverse loop carries (dh,
-    dc)."""
+    dc). bfloat16 inputs take the Pallas kernel's rounding points
+    (``_bwd_kernel``): the forward's gates, every product and sum of the
+    do/dc/di/df/dg chain rounded, ``dh_rec = bf16(dgates w_hh^T)``, dW_hh
+    summed in float32 and cast to w_hh's dtype."""
+    bf16 = _is_bf16(gates_x)
     zero = torch.zeros_like(h_seq[:1])
     h_prev = torch.cat([zero, h_seq[:-1]])
     c_prev = torch.cat([zero, c_seq[:-1]])
-    pre = gates_x + torch.matmul(h_prev, w_hh)
-    i, f, g, o = pre.chunk(4, dim=-1)
-    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), \
-        torch.sigmoid(o)
-    tc = torch.tanh(c_seq)
+    pre = gates_x + _product(h_prev, w_hh)
+    if bf16:
+        i, f, g, o = _gates_bf16(pre)
+        tc = _nonlin(torch.tanh, c_seq)
+    else:
+        i, f, g, o = pre.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), \
+            torch.sigmoid(o)
+        tc = torch.tanh(c_seq)
     del pre
     w_hh_t = w_hh.transpose(-1, -2)
     dgates = dh_seq.new_empty(dh_seq.shape[:-1] + (w_hh.shape[-1],))
@@ -291,24 +366,30 @@ def lstm_scan_bwd_plain(gates_x, w_hh, h_seq, c_seq, dh_seq):
         df = dc * c_prev[t] * f[t] * (1 - f[t])
         dg = dc * i[t] * (1 - g[t] * g[t])
         dgates[t] = torch.cat([di, df, dg, do], dim=-1)
-        dh_rec = torch.matmul(dgates[t], w_hh_t)
+        dh_rec = _product(dgates[t], w_hh_t)
         dc_rec = dc * f[t]
-    return dgates, torch.einsum('tdrh,tdrk->dhk', h_prev, dgates)
+    return dgates, _wsum('tdrh,tdrk->dhk', h_prev, dgates, w_hh.dtype)
 
 
 def lstm_scan_x_reference(x_seq, w_ih, bias, w_hh):
-    """Plain forward: ``(h_seq, c_seq)``, each ``(T, D, R, H)``."""
+    """Plain forward: ``(h_seq, c_seq)``, each ``(T, D, R, H)``; bfloat16
+    inputs at the rounding points of ``_fwd_x_kernel``."""
     return lstm_scan_reference(_projection(x_seq, w_ih, bias), w_hh)
 
 
 def lstm_scan_x_bwd_plain(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
     """Plain backward from the saved h and c: ``(dx, dw_ih, db, dw_hh)``:
-    :func:`lstm_scan_bwd_plain` through the projection."""
+    :func:`lstm_scan_bwd_plain` through the projection; bfloat16 inputs at
+    the rounding points of ``_bwd_x_kernel`` (``dx = bf16(dgates
+    w_ih^T)``, dW_ih and db summed in float32 and cast to the weights'
+    dtype)."""
     dgates, dw_hh = lstm_scan_bwd_plain(_projection(x_seq, w_ih, bias), w_hh,
                                         h_seq, c_seq, dh_seq)
-    dx = torch.einsum('tdrk,dek->tdre', dgates, w_ih)
-    dw_ih = torch.einsum('tdre,tdrk->dek', x_seq, dgates)
-    return dx, dw_ih, dgates.sum(dim=(0, 2)), dw_hh
+    dx = _wsum('tdrk,dek->tdre', dgates, w_ih, x_seq.dtype)
+    dw_ih = _wsum('tdre,tdrk->dek', x_seq, dgates, w_ih.dtype)
+    db = dgates.float().sum(dim=(0, 2)).to(bias.dtype) if _is_bf16(dgates) \
+        else dgates.sum(dim=(0, 2))
+    return dx, dw_ih, db, dw_hh
 
 
 def _on_kernel_device(x):
@@ -348,10 +429,11 @@ def _join(parts, n_row_outputs):
         if i < n_row_outputs:
             out.append(torch.cat(chunk_outs, dim=2))
         else:
-            total = chunk_outs[0]
+            # summed in float32 (the kernels' accumulators), in chunk order
+            total = chunk_outs[0].float()
             for t in chunk_outs[1:]:
-                total = total + t
-            out.append(total)
+                total = total + t.float()
+            out.append(total.to(chunk_outs[0].dtype))
     return tuple(out)
 
 
@@ -364,6 +446,7 @@ def lstm_scan_x_fwd(x_seq, w_ih, bias, w_hh):
     for rows in _chunks(x_seq, w_hh):
         parts.append(_launch_fwd(_rows(x_seq, rows), w_ih, bias, w_hh))
         lstm_scan_x.launches += 1
+        lstm_scan_x.launches_bf16 += _is_bf16(x_seq)
     return _join(parts, 2)
 
 
@@ -379,10 +462,11 @@ def lstm_scan_x_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
                                  *(_rows(t, rows)
                                    for t in (h_seq, c_seq, dh_seq))))
         lstm_scan_x_bwd.launches += 1
+        lstm_scan_x_bwd.launches_bf16 += _is_bf16(x_seq)
     return _join(parts, 1)
 
 
-lstm_scan_x_bwd.launches = 0
+lstm_scan_x_bwd.launches = lstm_scan_x_bwd.launches_bf16 = 0
 
 
 class LSTMScanXFunction(torch.autograd.Function):
@@ -415,7 +499,8 @@ def lstm_scan_x(x_seq, w_ih, bias, w_hh):
     :class:`LSTMScanXFunction` when grad mode is on and an input requires
     grad, else the forward alone. A tensor on the CPU takes the plain
     versions; a CUDA tensor launches K3 (and K4 in the backward) or
-    raises. ``lstm_scan_x.launches`` counts K3's calls. On CUDA a hidden
+    raises. ``lstm_scan_x.launches`` counts K3's calls (``launches_bf16``
+    those on the bf16 route). On CUDA a hidden
     size off the kernels' grid is zero-padded to it (:func:`pad_hidden`)."""
     hidden = w_hh.shape[-2]
     if _on_kernel_device(x_seq) and hidden % _HIDDEN_STEP:
@@ -426,7 +511,7 @@ def lstm_scan_x(x_seq, w_ih, bias, w_hh):
     return lstm_scan_x_fwd(x_seq, w_ih, bias, w_hh)[0]
 
 
-lstm_scan_x.launches = 0
+lstm_scan_x.launches = lstm_scan_x.launches_bf16 = 0
 
 
 def lstm_scan_x_plain(x_seq, w_ih, bias, w_hh):
@@ -446,6 +531,7 @@ def lstm_scan_fwd(gates_x, w_hh):
     for rows in _chunks(gates_x, w_hh):
         parts.append(_launch_scan_fwd(_rows(gates_x, rows), w_hh))
         lstm_scan.launches += 1
+        lstm_scan.launches_bf16 += _is_bf16(gates_x)
     return _join(parts, 2)
 
 
@@ -460,10 +546,11 @@ def lstm_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
             _rows(gates_x, rows), w_hh,
             *(_rows(t, rows) for t in (h_seq, c_seq, dh_seq))))
         lstm_scan_bwd.launches += 1
+        lstm_scan_bwd.launches_bf16 += _is_bf16(gates_x)
     return _join(parts, 1)
 
 
-lstm_scan_bwd.launches = 0
+lstm_scan_bwd.launches = lstm_scan_bwd.launches_bf16 = 0
 
 
 class LSTMScanFunction(torch.autograd.Function):
@@ -492,7 +579,8 @@ def lstm_scan(gates_x, w_hh):
     through :class:`LSTMScanFunction` when grad mode is on and an input
     requires grad, else the forward alone. A tensor on the CPU takes the
     plain versions; a CUDA tensor launches K5 (and K6 in the backward) or
-    raises. ``lstm_scan.launches`` counts K5's calls. On CUDA a hidden size
+    raises. ``lstm_scan.launches`` counts K5's calls (``launches_bf16``
+    those on the bf16 route). On CUDA a hidden size
     off the kernels' grid is zero-padded to it (:func:`pad_hidden`)."""
     hidden = w_hh.shape[-2]
     if _on_kernel_device(gates_x) and hidden % _HIDDEN_STEP:
@@ -503,7 +591,7 @@ def lstm_scan(gates_x, w_hh):
     return lstm_scan_fwd(gates_x, w_hh)[0]
 
 
-lstm_scan.launches = 0
+lstm_scan.launches = lstm_scan.launches_bf16 = 0
 
 
 def lstm_scan_plain(gates_x, w_hh):
@@ -518,14 +606,25 @@ def lstm_scan_plain(gates_x, w_hh):
 # the kernels
 
 
-def _tensor(t, name, device, shape, what='lstm_scan_x'):
+#: the kernels' routes: float32, and bfloat16 I/O
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _tensor(t, name, device, shape, what='lstm_scan_x', dtype=torch.float32):
+    """Check one operand of a launch: on ``device``, of ``dtype`` (a call's
+    operands share the input's dtype, float32 or bfloat16), contiguous, of
+    ``shape``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f'{what}: {name} must be a tensor')
     if t.device != device:
         raise ValueError(f'{what}: {name} is on {t.device}, the input on '
                          f'{device}')
-    if t.dtype != torch.float32:
-        raise TypeError(f'{what}: {name} must be float32, got {t.dtype}')
+    if dtype not in _DTYPES:
+        raise TypeError(f'{what}: the kernels take float32 or bfloat16, got '
+                        f'{dtype}')
+    if t.dtype != dtype:
+        raise TypeError(f'{what}: {name} must be {dtype} as the input is, '
+                        f'got {t.dtype}')
     if tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f'{what}: {name} must be a contiguous {shape} '
                          f'tensor, got {tuple(t.shape)} with strides '
@@ -558,14 +657,15 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
         raise ValueError('lstm_scan_x: x must be a non-empty (T, D, R, E) '
                          f'tensor, got {tuple(x_seq.shape)}')
     steps, n_dir, rows, feat = x_seq.shape
-    _tensor(x_seq, 'x', device, tuple(x_seq.shape))
+    dtype = x_seq.dtype
+    _tensor(x_seq, 'x', device, tuple(x_seq.shape), dtype=dtype)
     if w_hh.ndim != 3:
         raise ValueError('lstm_scan_x: w_hh must be (D, H, 4H), got '
                          f'{tuple(w_hh.shape)}')
     hidden = w_hh.shape[1]
-    _tensor(w_hh, 'w_hh', device, (n_dir, hidden, 4 * hidden))
-    _tensor(w_ih, 'w_ih', device, (n_dir, feat, 4 * hidden))
-    _tensor(bias, 'bias', device, (n_dir, 4 * hidden))
+    _tensor(w_hh, 'w_hh', device, (n_dir, hidden, 4 * hidden), dtype=dtype)
+    _tensor(w_ih, 'w_ih', device, (n_dir, feat, 4 * hidden), dtype=dtype)
+    _tensor(bias, 'bias', device, (n_dir, 4 * hidden), dtype=dtype)
     _check_hidden(hidden, 'lstm_scan_x', _MAX_HIDDEN_X)
     e_pad = feat + (-feat % 4)
     info = plan_info if backward else fwd_plan_info
@@ -657,17 +757,18 @@ def _launch_fwd(x_seq, w_ih, bias, w_hh, keep_gates=False):
     device = x_seq.device
     entry = 'lstm_fwd_gates' if keep_gates else 'lstm_fwd'
     with torch.cuda.device(device):
-        h_seq = torch.empty(steps, n_dir, rows, hidden, dtype=torch.float32,
+        h_seq = torch.empty(steps, n_dir, rows, hidden, dtype=x_seq.dtype,
                             device=device)
         c_seq = torch.empty_like(h_seq)
         args = [x_seq.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
                 w_hh.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr()]
         if keep_gates:
             gates = torch.empty(steps, n_dir, rows, 4 * hidden,
-                                dtype=torch.float32, device=device)
+                                dtype=x_seq.dtype, device=device)
             args.append(gates.data_ptr())
         build.check(lib, getattr(lib, entry)(
             *args, steps, n_dir, rows, x_seq.shape[-1], hidden,
+            int(_is_bf16(x_seq)),
             torch.cuda.current_stream(device).cuda_stream), entry)
     return (h_seq, c_seq, gates) if keep_gates else (h_seq, c_seq)
 
@@ -687,16 +788,17 @@ def recompute_gates(x_seq, w_ih, bias, w_hh, h_seq):
     steps, n_dir, rows, _, hidden = _check(x_seq, w_ih, bias, w_hh, lib,
                                            True)
     device = x_seq.device
-    _tensor(h_seq, 'h_seq', device, (steps, n_dir, rows, hidden))
+    _tensor(h_seq, 'h_seq', device, (steps, n_dir, rows, hidden),
+            dtype=x_seq.dtype)
     x_seq, w_ih = _pad_feature(x_seq, w_ih)
     x_seq, w_ih, bias, w_hh, h_seq = _aligned(x_seq, w_ih, bias, w_hh, h_seq)
     with torch.cuda.device(device):
         gates = torch.empty(steps, n_dir, rows, 4 * hidden,
-                            dtype=torch.float32, device=device)
+                            dtype=x_seq.dtype, device=device)
         build.check(lib, lib.lstm_bwd_gates(
             x_seq.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
             w_hh.data_ptr(), h_seq.data_ptr(), gates.data_ptr(), steps,
-            n_dir, rows, x_seq.shape[-1], hidden,
+            n_dir, rows, x_seq.shape[-1], hidden, int(_is_bf16(x_seq)),
             torch.cuda.current_stream(device).cuda_stream), 'lstm_bwd_gates')
     return gates
 
@@ -705,18 +807,20 @@ def _launch_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
     lib = build.load_library()
     steps, n_dir, rows, feat, hidden = _check(x_seq, w_ih, bias, w_hh, lib,
                                               True)
-    device = x_seq.device
+    device, dtype = x_seq.device, x_seq.dtype
     for name, t in (('h_seq', h_seq), ('c_seq', c_seq), ('dh', dh_seq)):
-        _tensor(t, name, device, (steps, n_dir, rows, hidden))
+        _tensor(t, name, device, (steps, n_dir, rows, hidden), dtype=dtype)
     x_seq, w_ih = _pad_feature(x_seq, w_ih)
     x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq = _aligned(
         x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq)
     e_pad = x_seq.shape[-1]
     with torch.cuda.device(device):
+        # the weight gradients are float32 sums on both routes, cast to
+        # the weights' dtype at the end (the Pallas kernel's accumulators)
         f32 = dict(dtype=torch.float32, device=device)
         w_ih_t = w_ih.transpose(1, 2).contiguous()   # (D, 4H, E)
         w_hh_t = w_hh.transpose(1, 2).contiguous()   # (D, 4H, H)
-        dx = torch.empty(steps, n_dir, rows, e_pad, **f32)
+        dx = torch.empty(steps, n_dir, rows, e_pad, dtype=dtype, device=device)
         dw = torch.empty(n_dir, e_pad + hidden, 4 * hidden, **f32)
         db = torch.empty(n_dir, 4 * hidden, **f32)
         work = torch.empty(lib.lstm_bwd_workspace(steps, n_dir, rows, e_pad,
@@ -727,9 +831,10 @@ def _launch_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
             h_seq.data_ptr(),
             c_seq.data_ptr(), dh_seq.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), db.data_ptr(), work.data_ptr(), steps, n_dir,
-            rows, e_pad, hidden,
+            rows, e_pad, hidden, int(_is_bf16(x_seq)),
             torch.cuda.current_stream(device).cuda_stream), 'lstm_bwd')
-    return (dx[..., :feat], dw[:, :feat], db, dw[:, e_pad:])
+    return (dx[..., :feat], dw[:, :feat].to(dtype), db.to(dtype),
+            dw[:, e_pad:].to(dtype))
 
 
 def _check_scan(gates_x, w_hh):
@@ -741,16 +846,23 @@ def _check_scan(gates_x, w_hh):
         raise ValueError('lstm_scan: gates_x must be a non-empty (T, D, R, '
                          f'4H) tensor, got {tuple(gates_x.shape)}')
     steps, n_dir, rows, gdim = gates_x.shape
-    _tensor(gates_x, 'gates_x', device, tuple(gates_x.shape), 'lstm_scan')
+    dtype = gates_x.dtype
+    _tensor(gates_x, 'gates_x', device, tuple(gates_x.shape), 'lstm_scan',
+            dtype)
     if w_hh.ndim != 3:
         raise ValueError('lstm_scan: w_hh must be (D, H, 4H), got '
                          f'{tuple(w_hh.shape)}')
     hidden = w_hh.shape[1]
-    _tensor(w_hh, 'w_hh', device, (n_dir, hidden, 4 * hidden), 'lstm_scan')
+    _tensor(w_hh, 'w_hh', device, (n_dir, hidden, 4 * hidden), 'lstm_scan',
+            dtype)
     if gdim != 4 * hidden:
         raise ValueError(f'lstm_scan: gates_x has {gdim} gate columns, w_hh '
                          f'{4 * hidden}')
     _check_hidden(hidden, 'lstm_scan')
+    if _is_bf16(gates_x) and hidden > _MAX_HIDDEN_X:
+        raise NotImplementedError(
+            f'lstm_scan: the bfloat16 route of K5/K6 runs on the clusters, '
+            f'up to H = {_MAX_HIDDEN_X}, got {hidden}')
     if steps * n_dir * rows * 4 * hidden >= _INT_RANGE:
         raise ValueError(f'lstm_scan: {tuple(gates_x.shape)} passes the '
                          'kernels\' int range')
@@ -808,12 +920,13 @@ def _launch_scan_fwd(gates_x, w_hh):
     gates_x, w_hh = _aligned(gates_x, w_hh)
     device = gates_x.device
     with torch.cuda.device(device):
-        h_seq = torch.empty(steps, n_dir, rows, hidden, dtype=torch.float32,
+        h_seq = torch.empty(steps, n_dir, rows, hidden, dtype=gates_x.dtype,
                             device=device)
         c_seq = torch.empty_like(h_seq)
         build.check(lib, lib.lstm_scan_fwd(
             gates_x.data_ptr(), w_hh.data_ptr(), h_seq.data_ptr(),
             c_seq.data_ptr(), steps, n_dir, rows, hidden,
+            int(_is_bf16(gates_x)),
             torch.cuda.current_stream(device).cuda_stream), 'lstm_scan_fwd')
     return h_seq, c_seq
 
@@ -823,9 +936,10 @@ def _launch_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
     steps, n_dir, rows, hidden = _check_scan(gates_x, w_hh)
     if hidden <= _MAX_HIDDEN_X:
         cluster_info(hidden)
-    device = gates_x.device
+    device, dtype = gates_x.device, gates_x.dtype
     for name, t in (('h_seq', h_seq), ('c_seq', c_seq), ('dh', dh_seq)):
-        _tensor(t, name, device, (steps, n_dir, rows, hidden), 'lstm_scan')
+        _tensor(t, name, device, (steps, n_dir, rows, hidden), 'lstm_scan',
+                dtype)
     gates_x, w_hh, h_seq, c_seq, dh_seq = _aligned(gates_x, w_hh, h_seq,
                                                    c_seq, dh_seq)
     with torch.cuda.device(device):
@@ -834,7 +948,9 @@ def _launch_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
         # hold their slices of w_hh itself
         w_hh_t = (w_hh.transpose(1, 2).contiguous() if hidden > _MAX_HIDDEN_X
                   else None)
-        dgates = torch.empty(steps, n_dir, rows, 4 * hidden, **f32)
+        dgates = torch.empty(steps, n_dir, rows, 4 * hidden, dtype=dtype,
+                             device=device)
+        # a float32 sum on both routes, cast to w_hh's dtype at the end
         dw_hh = torch.empty(n_dir, hidden, 4 * hidden, **f32)
         work = torch.empty(lib.lstm_scan_bwd_workspace(steps, n_dir, rows,
                                                        hidden), **f32)
@@ -843,6 +959,6 @@ def _launch_scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq):
             None if w_hh_t is None else w_hh_t.data_ptr(),
             h_seq.data_ptr(), c_seq.data_ptr(), dh_seq.data_ptr(),
             dgates.data_ptr(), dw_hh.data_ptr(), work.data_ptr(), steps,
-            n_dir, rows, hidden,
+            n_dir, rows, hidden, int(_is_bf16(gates_x)),
             torch.cuda.current_stream(device).cuda_stream), 'lstm_scan_bwd')
-    return dgates, dw_hh
+    return dgates, dw_hh.to(dtype)

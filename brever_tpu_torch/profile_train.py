@@ -8,7 +8,8 @@ MetricGAN ``metricganp``, 1,914,524, or ``metricganokd``, 2,172,329; drawn
 from ``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32 off
 (as ``chip_smoke.py`` runs it), or with the trainer's bf16 amp
 (``--use_amp true``, the option of the trainer and of the default configs
-that set it; Conv-TasNet's blocks then take K1/K2's bf16 route), and times ``train_step`` (forward, the
+that set it; Conv-TasNet's blocks then take K1/K2's bf16 route,
+TF-GridNet's BLSTMs K3/K4's, DCCRN's complex LSTM K5/K6's), and times ``train_step`` (forward, the
 kernels' backward, global-norm clip where the family clips, Adam) on a
 batch of ``--batch`` x 4 s (default 16; random mixture and target, the
 family's own criterion: ``snr``, ``multiresyu``, SGMSE+'s weighted ``mse``,

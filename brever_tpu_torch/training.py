@@ -21,9 +21,12 @@ loss scaling: bf16 has float32's exponent range, and the JAX trainer has
 none. Validation metrics enhance with the float32 parameters. A family
 with steps of its own (MetricGAN) ignores ``use_amp``, as the JAX
 ``build_steps`` returns before it; a family with a kernel on its path that
-has no bf16 route yet (``amp_refused``: TF-GridNet, DCCRN, SGMSE+, IDMSE,
-MANNER) refuses it when the trainer is built, before any launch. Conv-TasNet
-runs its TCN blocks through K1/K2's bf16 route on CUDA. Batches are padded to a multiple of 8 rows with rows of length 0,
+has no bf16 route yet (``amp_refused``: SGMSE+, IDMSE, MANNER) refuses it
+when the trainer is built, before any launch. Conv-TasNet runs its TCN
+blocks through K1/K2's bf16 route on CUDA, TF-GridNet its BLSTMs through
+K3/K4's (K5/K6's under the 128-row floor) and DCCRN its complex LSTM
+through K5/K6's; DCCRN's running statistics stay float32 (its batch norms
+take float32 statistics). Batches are padded to a multiple of 8 rows with rows of length 0,
 which the loss mean drops, as the JAX trainer pads to its mesh.
 
 Checkpoints are the JAX trainer's msgpack layout (``training.py``

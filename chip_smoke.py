@@ -21,7 +21,8 @@ seed) with the validation-metric twins on the card, the host metric twins,
 MetricGAN+ and MetricGAN-OKD (two BLSTMs of 200 units and a spectrally
 normalised CNN discriminator; 1,914,524 and 2,172,329 random parameters
 from a seed) and ``test_model``; and the default Conv-TasNet under bf16 amp, its TCN
-blocks on K1's and K2's bf16 route.
+blocks on K1's and K2's bf16 route, and the default TF-GridNet and DCCRN
+under bf16 amp, their LSTMs on the bf16 route of K3/K4 and K5/K6.
 Every family is served through ``EnhanceService(model_dir)`` and trained
 through ``train.main([...])`` on a model directory written here, the entry
 points of ``python -m brever_tpu_torch.serve`` and ``.train``. The phases
@@ -209,16 +210,35 @@ each print one line, with the seconds since the start:
 56. a K1-bf16 call and a K2-bf16 call traced in a fresh interpreter (run
     during phase 55): each launches only its own kernels;
 57. the amp train step at 16 x 4 s against the float32 step in turns, with
-    the bf16 kernels' device time a step and the card's idle share.
+    the bf16 kernels' device time a step and the card's idle share;
+58. the LSTM kernels' bf16 route (K3-bf16, K4-bf16 at TF-GridNet's intra
+    and inter BLSTMs and H = 32, 256; K5-bf16, K6-bf16 at DCCRN's two
+    layers, 8 rows and H = 224) against the bf16 twin on the card (SNR >= 35
+    dB for h, c and every gradient over the full scan) and float64 (no
+    farther than the twin), twice bitwise, K4-bf16's recomputed gates
+    bitwise K3-bf16's; times against the twin and cuDNN's LSTM in bf16;
+59. a call of each of K3-bf16, K4-bf16, K5-bf16 and K6-bf16 traced in a
+    fresh interpreter (run during phases 58-61): each launches only its own
+    kernels;
+60. the default TF-GridNet (3,735,344 parameters) trained through
+    train.main from the untouched ``config/models/tfgridnet.yaml``
+    (``use_amp: true``) on FLAC tars: K3-bf16 and K4-bf16 launch, no bf16
+    tensor reaches an LSTM twin on the card, last.ckpt resumes bitwise;
+61. the same for the default DCCRN (3,671,053) from ``dccrn.yaml``: K5-bf16
+    and K6-bf16, its running statistics float32;
+62. TF-GridNet's and DCCRN's amp train steps at 16 x 4 s against their
+    float32 steps in turns, with peak memory, the LSTM kernels' device time
+    a step and the card's idle share.
 
 Float32 through phase 53, with TF32 off for cuDNN and cuBLAS so that the
-comparisons hold the kernels to float32; phases 54-57, which run after
+comparisons hold the kernels to float32; phases 54-62, which run after
 phase 9, take the bf16 route. Any failure raises (non-zero
 exit). The line before the last is a JSON record of each kernel: its
 launches on the main paths, error, time, plain time, the bound (the
 least time of its bytes at 3.35 TB/s or its flops at the f32 rate of 67
-TFLOP/s, K10's bfloat16 at the probe's 133.8 TFLOP/s, K1-bf16's and
-K2-bf16's at the bf16 tensor-core rate of 989 TFLOP/s, whichever is
+TFLOP/s, K10's bfloat16 at the probe's 133.8 TFLOP/s, the bf16 routes'
+(K1-K6) at the bf16 tensor-core rate of 989 TFLOP/s and 2 bytes an
+element, whichever is
 larger, from this run's shapes) and the time of one PyTorch call of the same
 function where there is one. The last line is ``{"ok": true, "device":
 {...}}``.
@@ -4844,6 +4864,483 @@ def amp_training(tcn, count_params):
             'resumed_to': second.epochs_ran}
 
 
+#: K3-K6's bf16 route against its bf16 twin on the card: each tensor's SNR
+#: at least this (dB), over the full scan
+LSTM_BF16_TWIN_DB = 35.0
+#: phase 58's K3/K4 cases: TF-GridNet's intra and inter BLSTMs at 16 x 4 s
+#: and K4's hidden-size ends at ragged R; K5/K6 cases: DCCRN's two layers at
+#: 16 x 4 s (gates projected from E), a short request's 8 rows, and H = 224
+#: (MetricGAN's 200 on the kernels' grid): (T, D, R, E, H)
+LSTM_BF16_X_CASES = [LSTM_INTRA, LSTM_INTER, *LSTM_EDGE_CASES]
+LSTM_BF16_SCAN_CASES = [DCCRN_LSTM[0], DCCRN_LSTM[1], (33, 2, 8, 128, 128),
+                        (20, 2, 40, 64, 224)]
+#: the default TF-GridNet and DCCRN trained from their untouched configs
+#: (phases 60, 61): FLAC items of 1 s (train, val), epochs, validation period
+RNN_AMP_TRAIN = (8, 2, 2, 2)
+#: the kernels of one call of each bf16 LSTM entry (names as the profiler
+#: gives them) and their launches: K4's five steps are six launches (the
+#: partial sums of dW and of db), K6's scan, weight GEMM and its sum three
+LSTM_BF16_KERNELS = {
+    'k3': {'lstm_fwd_ring_bf16': 1},
+    'k4': {'lstm_bwd_gates_gemm': 1, 'lstm_bwd_rscan': 1,
+           'lstm_bwd_dx_gemm': 1, 'lstm_bwd_wgrad_gemm': 1,
+           'sum_partials': 2},
+    'k5': {'lstm_scan_fwd_cluster': 1},
+    'k6': {'lstm_scan_bwd_cluster': 1, 'lstm_bwd_wgrad_gemm': 1,
+           'sum_partials': 1}}
+
+LSTM_BF16_TRACE = """
+import json
+import torch
+from brever_tpu_torch.numerics import disable_tf32
+from brever_tpu_torch.ops import lstm_scan as L
+
+disable_tf32()
+dev = torch.device('cuda', 0)
+gen = torch.Generator(device=dev).manual_seed(59)
+
+
+def rand(*shape, scale=1.0):
+    return (scale * torch.randn(*shape, generator=gen, device=dev)
+            ).to(torch.bfloat16)
+
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if got:
+            break
+    return got
+
+
+x, wi, b = rand(6, 2, 300, 128), rand(2, 128, 512, scale=0.09), rand(2, 512)
+wh, dh = rand(2, 128, 512, scale=0.09), rand(6, 2, 300, 128)
+gx, dhs = rand(33, 2, 32, 512), rand(33, 2, 32, 128)
+with torch.no_grad():
+    h, c = L.lstm_scan_x_fwd(x, wi, b, wh)
+    hs, cs = L.lstm_scan_fwd(gx, wh)
+    out = {'k3': names(lambda: L.lstm_scan_x_fwd(x, wi, b, wh)),
+           'k4': names(lambda: L.lstm_scan_x_bwd(x, wi, b, wh, h, c, dh)),
+           'k5': names(lambda: L.lstm_scan_fwd(gx, wh)),
+           'k6': names(lambda: L.lstm_scan_bwd(gx, wh, hs, cs, dhs))}
+print(json.dumps(out))
+"""
+
+
+def lstm_bf16_trace():
+    """Starts tracing one call of each of K3-bf16, K4-bf16, K5-bf16 and
+    K6-bf16 in a fresh interpreter (:func:`lstm_traced_kernels` waits)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, '-c', LSTM_BF16_TRACE],
+                            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def lstm_traced_kernels(run):
+    """The kernels each traced bf16 LSTM call of ``run`` launched; fails
+    unless each launched its own kernels in ``LSTM_BF16_KERNELS``' counts,
+    the templated ones at ``__nv_bfloat16`` where the profiler gives
+    template arguments, and besides them only PyTorch's elementwise kernels
+    (the wrapper's transposed weight copies and its casts of the float32
+    weight gradients): no cuBLAS or cuDNN kernel. Stops the process in any
+    case."""
+    try:
+        stdout, stderr = run.communicate(timeout=600)
+    finally:
+        run.kill()
+    if run.returncode:
+        raise AssertionError(f'bf16 LSTM trace: {stderr[-3000:]}')
+    traced = json.loads(stdout.strip().splitlines()[-1])
+    for key, want in LSTM_BF16_KERNELS.items():
+        got = traced[key]
+        ours = [n for n in got if any(k in n for k in want)]
+        counts = {k: sum(k in n for n in got) for k in want}
+        wrong = [n for n in ours if '<' in n and 'bfloat16' not in n
+                 and 'ring_bf16' not in n]
+        other = [n for n in got if n not in ours and 'at::native' not in n]
+        if counts != want or wrong or other:
+            raise AssertionError(f'{key.upper()}-bf16 launched {got}')
+    return traced
+
+
+def lstm_check(name, got, twin, exact, min_db=LSTM_BF16_TWIN_DB):
+    """``got`` (bf16) against its twin's ``twin`` (bf16) and float64
+    ``exact``, on the card: finite, SNR against the twin >= ``min_db`` and
+    no farther from float64 than the twin (BF16_F64_SLACK_DB). Returns (SNR
+    vs twin, SNR vs float64, twin's, max abs err vs the twin)."""
+    if got.dtype != torch.bfloat16 or got.shape != twin.shape:
+        raise AssertionError(f'{name}: {got.dtype} {tuple(got.shape)}')
+    got, twin, exact = (t.detach().double() for t in (got, twin, exact))
+    if not torch.isfinite(got).all():
+        raise AssertionError(f'{name}: not finite')
+
+    def db(a, b):
+        err = ((a - b) ** 2).sum().clamp_min(1e-300)
+        return 10 * math.log10((b ** 2).sum().item() / err.item())
+
+    vs_twin, vs_exact, twin_exact = db(got, twin), db(got, exact), \
+        db(twin, exact)
+    if vs_twin < min_db or vs_exact < twin_exact - BF16_F64_SLACK_DB:
+        raise AssertionError(f'{name}: SNR vs twin {vs_twin:.2f} dB (>= '
+                             f'{min_db}), vs float64 {vs_exact:.2f} dB, the '
+                             f'twin\'s {twin_exact:.2f} dB')
+    return vs_twin, vs_exact, twin_exact, (got - twin).abs().max().item()
+
+
+def bf16_lstm_inputs(gen, steps, n_dir, rows, feat, hidden, device):
+    """``lstm_inputs``' tensors in bfloat16, drawn on the card from ``gen``
+    (a numpy draw of TF-GridNet's 68 M-element scans takes seconds)."""
+    def arr(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=device)
+                ).to(torch.bfloat16)
+
+    return (arr(steps, n_dir, rows, feat),
+            arr(n_dir, feat, 4 * hidden, scale=hidden ** -0.5),
+            arr(n_dir, 4 * hidden, scale=0.1),
+            arr(n_dir, hidden, 4 * hidden, scale=hidden ** -0.5),
+            arr(steps, n_dir, rows, hidden))
+
+
+def bf16_lstm(feat, hidden, device):
+    """cuDNN's bidirectional LSTM in bfloat16, or None where this PyTorch
+    does not run one."""
+    try:
+        lstm = torch.nn.LSTM(feat, hidden, bidirectional=True).to(
+            device, torch.bfloat16)
+        with torch.no_grad():
+            lstm(torch.zeros(2, 3, feat, device=device, dtype=torch.bfloat16))
+        return lstm
+    except RuntimeError:
+        return None
+
+
+def lstm_amp_phases(device, card):
+    """Phases 58-62: K3-K6's bf16 route against its twin and float64 on the
+    card, their launches traced, the default TF-GridNet and DCCRN trained
+    under bf16 amp from their untouched configs on FLAC, and their amp
+    steps timed against the float32 steps. Returns what the kernels' JSON
+    records read."""
+    from brever_tpu_torch import profile_train
+    from brever_tpu_torch.ops import lstm_scan as L
+    from brever_tpu_torch.profile_train import make_trainer
+    bf = torch.bfloat16
+    out = {'worst_db': {}, 'err': {}, 'timing': {}}
+    tracer = lstm_bf16_trace()
+    try:
+        # ---- phase 58: the bf16 kernels vs their twin and float64, and
+        # their times at the main path's shapes (TF-GridNet's intra and
+        # inter BLSTMs, DCCRN's first layer), kernel and twin in turns, with
+        # cuDNN's bidirectional LSTM in bf16 as the library's yardstick
+        gen = torch.Generator(device=device).manual_seed(58)
+        worst = {k: float('inf') for k in ('k3', 'k4', 'k5', 'k6')}
+        err = {k: 0.0 for k in worst}
+        gap = -float('inf')
+        timing = out['timing']
+
+        def held(key, label, names, gots, twins, exacts):
+            nonlocal gap
+            for part, got, twin, exact in zip(names, gots, twins, exacts):
+                vs_twin, vs_exact, twin_exact, e = lstm_check(
+                    f'{key.upper()}-bf16 {label} {part}', got, twin, exact)
+                worst[key] = min(worst[key], vs_twin)
+                err[key] = max(err[key], e)
+                gap = max(gap, twin_exact - vs_exact)
+
+        def library(x, feat, hidden):
+            """(forward, backward) ms of cuDNN's bf16 LSTM over x[:, 0]."""
+            lstm = bf16_lstm(feat, hidden, device)
+            if lstm is None:
+                return None, None
+            xl = x[:, 0].clone().requires_grad_()
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: lstm(xl), 3, 1)
+            out_l, _ = lstm(xl)
+            dout = torch.randn_like(out_l)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                out_l, [xl, *lstm.parameters()], dout, retain_graph=True),
+                2, 1)
+            return fwd_ms, bwd_ms
+
+        for case in LSTM_BF16_X_CASES:
+            label = 'T={} D={} R={} E={} H={}'.format(*case)
+            x, w_ih, bias, w_hh, dh = bf16_lstm_inputs(gen, *case, device)
+            h, c = L.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+            with torch.no_grad():
+                h2, c2, gates = L.forward_gates(x, w_ih, bias, w_hh)
+                gates4 = L.recompute_gates(x, w_ih, bias, w_hh, h)
+            if not (torch.equal(h, h2) and torch.equal(c, c2)):
+                raise AssertionError(f'K3-bf16 {label}: two runs differ')
+            if not torch.equal(gates, gates4):
+                raise AssertionError(f'K3-bf16 {label}: K4\'s recomputed '
+                                     'gates are not K3\'s')
+            del h2, c2, gates, gates4
+            twin = L.lstm_scan_x_reference(x, w_ih, bias, w_hh)
+            wide = [t.double() for t in (x, w_ih, bias, w_hh)]
+            exact = L.lstm_scan_x_reference(*wide)
+            held('k3', label, ('h', 'c'), (h, c), twin, exact)
+            grads = L.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+            again = L.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f'K4-bf16 {label}: two runs differ')
+            del again
+            twin_g = L.lstm_scan_x_bwd_plain(x, w_ih, bias, w_hh, *twin, dh)
+            del twin
+            exact_g = L.lstm_scan_x_bwd_plain(*wide, *exact, dh.double())
+            del exact, wide
+            held('k4', label, LSTM_NAMES, grads, twin_g, exact_g)
+            del grads, twin_g, exact_g
+            torch.cuda.empty_cache()
+            which = {LSTM_INTRA: 'intra', LSTM_INTER: 'inter'}.get(case)
+            if which is not None:
+                steps, n_dir, rows, feat, hidden = case
+                with torch.no_grad():
+                    fwd = in_turns({
+                        'kernel': lambda: L.lstm_scan_x_fwd(x, w_ih, bias,
+                                                            w_hh),
+                        'plain': lambda: L.lstm_scan_x_reference(
+                            x, w_ih, bias, w_hh)}, 3, 1)[0]
+                    bwd = in_turns({
+                        'kernel': lambda: L.lstm_scan_x_bwd(
+                            x, w_ih, bias, w_hh, h, c, dh),
+                        'plain': lambda: L.lstm_scan_x_bwd_plain(
+                            x, w_ih, bias, w_hh, h, c, dh)}, 2, 1)[0]
+                lib_fwd, lib_bwd = library(x, feat, hidden)
+                # bf16 bounds: the float32 route's operations at the bf16
+                # tensor-core rate, 2 bytes an element (the weight
+                # gradients too)
+                seq = steps * n_dir * rows
+                flops = 2 * seq * 4 * hidden * (feat + hidden)
+                weights = n_dir * 4 * hidden * (feat + hidden + 1)
+                timing[which] = {
+                    'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd,
+                    'lib_bwd': lib_bwd,
+                    'bound_fwd': bound(flops, 2 * (seq * (feat + 2 * hidden)
+                                                   + weights), BF16_FLOPS),
+                    'bound_bwd': bound(3 * flops, 2 * (
+                        seq * (2 * feat + 3 * hidden) + 2 * weights),
+                        BF16_FLOPS)}
+            del x, w_ih, bias, w_hh, dh, h, c
+            torch.cuda.empty_cache()
+        for case in LSTM_BF16_SCAN_CASES:
+            steps, n_dir, rows, feat, hidden = case
+            label = f'T={steps} D={n_dir} R={rows} H={hidden} (gates from ' \
+                f'E={feat})'
+            x, w_ih, bias, w_hh, dh = bf16_lstm_inputs(gen, *case, device)
+            gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
+                       + bias[None, :, None]).contiguous()
+            h, c = L.lstm_scan_fwd(gates_x, w_hh)
+            h2, c2 = L.lstm_scan_fwd(gates_x, w_hh)
+            if not (torch.equal(h, h2) and torch.equal(c, c2)):
+                raise AssertionError(f'K5-bf16 {label}: two runs differ')
+            twin = L.lstm_scan_reference(gates_x, w_hh)
+            wide = [t.double() for t in (gates_x, w_hh)]
+            exact = L.lstm_scan_reference(*wide)
+            held('k5', label, ('h', 'c'), (h, c), twin, exact)
+            grads = L.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+            again = L.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f'K6-bf16 {label}: two runs differ')
+            twin_g = L.lstm_scan_bwd_plain(gates_x, w_hh, *twin, dh)
+            exact_g = L.lstm_scan_bwd_plain(*wide, *exact, dh.double())
+            held('k6', label, ('dgates', 'dw_hh'), grads, twin_g, exact_g)
+            del h2, c2, twin, wide, exact, grads, again, twin_g, exact_g
+            if case == DCCRN_LSTM[0]:
+                with torch.no_grad():
+                    fwd = in_turns({
+                        'kernel': lambda: L.lstm_scan_fwd(gates_x, w_hh),
+                        'plain': lambda: L.lstm_scan_reference(gates_x,
+                                                               w_hh)},
+                        3, 1)[0]
+                    bwd = in_turns({
+                        'kernel': lambda: L.lstm_scan_bwd(gates_x, w_hh, h,
+                                                          c, dh),
+                        'plain': lambda: L.lstm_scan_bwd_plain(
+                            gates_x, w_hh, h, c, dh)}, 2, 1)[0]
+                lib_fwd, lib_bwd = library(x, feat, hidden)
+                seq = steps * n_dir * rows
+                flops = 2 * seq * 4 * hidden * hidden
+                weights = n_dir * 4 * hidden * hidden
+                timing['dccrn'] = {
+                    'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd,
+                    'lib_bwd': lib_bwd,
+                    'bound_fwd': bound(flops, 2 * (seq * 6 * hidden
+                                                   + weights), BF16_FLOPS),
+                    'bound_bwd': bound(3 * flops, 2 * (
+                        seq * 11 * hidden + 2 * weights), BF16_FLOPS)}
+            del x, w_ih, bias, w_hh, dh, gates_x, h, c
+        torch.cuda.empty_cache()
+        out['worst_db'], out['err'] = worst, err
+
+        def lib(t, key):
+            return 'n/a' if t[key] is None else f'{t[key]:.3f}'
+
+        t3, t5 = timing['intra'], timing['dccrn']
+        phase(58, f'{len(LSTM_BF16_X_CASES)} K3/K4 and '
+              f'{len(LSTM_BF16_SCAN_CASES)} K5/K6 bf16 cases (TF-GridNet '
+              f'intra {LSTM_INTRA} and inter {LSTM_INTER}, H=32 and 256 at '
+              f'ragged R; DCCRN\'s layers {DCCRN_LSTM}, 8 rows, H=224): h, c '
+              f'and every gradient agree with the bf16 twin on the card '
+              f'over the full scan (worst SNR K3 {worst["k3"]:.1f}, K4 '
+              f'{worst["k4"]:.1f}, K5 {worst["k5"]:.1f}, K6 '
+              f'{worst["k6"]:.1f} dB >= {LSTM_BF16_TWIN_DB}) and are no '
+              f'farther from float64 than the twin (at most {gap:.2f} dB '
+              f'under it, <= {BF16_F64_SLACK_DB}); two runs bitwise equal; '
+              f'K4-bf16\'s recomputed gates bitwise K3-bf16\'s; [{card}] '
+              f'kernel/twin/nn.LSTM-bf16 ms: intra K3 '
+              f'{t3["fwd"]["kernel"]:.3f}/{t3["fwd"]["plain"]:.3f}/'
+              f'{lib(t3, "lib_fwd")} K4 {t3["bwd"]["kernel"]:.3f}/'
+              f'{t3["bwd"]["plain"]:.3f}/{lib(t3, "lib_bwd")}, inter K3 '
+              f'{timing["inter"]["fwd"]["kernel"]:.3f} K4 '
+              f'{timing["inter"]["bwd"]["kernel"]:.3f}; DCCRN layer 0 K5 '
+              f'{t5["fwd"]["kernel"]:.3f}/{t5["fwd"]["plain"]:.3f}/'
+              f'{lib(t5, "lib_fwd")} K6 {t5["bwd"]["kernel"]:.3f}/'
+              f'{t5["bwd"]["plain"]:.3f}/{lib(t5, "lib_bwd")}')
+
+        # ---- phases 60-61: train.main from the untouched configs, while
+        # the fresh interpreter traces the bf16 calls
+        out['train'] = {arch: rnn_amp_training(arch, L)
+                        for arch in ('tfgridnet', 'dccrn')}
+    except BaseException:
+        tracer.kill()
+        raise
+    traced = lstm_traced_kernels(tracer)
+    phase(59, 'one call each of K3-bf16, K4-bf16, K5-bf16 and K6-bf16 '
+          'traced in a fresh interpreter (run during phases 58-61) launches '
+          + ', '.join(f'{len([n for n in traced[k] if "at::native" not in n])}'
+                      f' ({k.upper()})' for k in LSTM_BF16_KERNELS)
+          + ' of its own kernels, at __nv_bfloat16, and no cuBLAS or cuDNN '
+          'kernel (besides them only PyTorch\'s copies of the transposed '
+          'weights and its casts of the float32 weight gradients)')
+
+    # ---- phase 62: the amp steps against the float32 steps, in turns
+    steps = {}
+    for arch in ('tfgridnet', 'dccrn'):
+        with tempfile.TemporaryDirectory() as tmp:
+            trainers = {key: make_trainer(device, os.path.join(tmp, key),
+                                          arch=arch,
+                                          use_amp=key == 'kernel')
+                        for key in ('plain', 'kernel')}
+            step_ms, step_peak = in_turns(
+                {key: (lambda t=t: t[0].train_step(t[1], t[2]))
+                 for key, t in trainers.items()}, 2, 1)
+            del trainers
+        torch.cuda.empty_cache()
+        prof = trace_or_none(lambda: profile_train.profile(
+            device, steps=2, arch=arch, use_amp=True))
+        lstm_ms = idle = None
+        if prof is not None:
+            lstm_ms = sum(v['ms'] for n, v in prof['kernels_per_step'].items()
+                          if 'lstm_' in n or 'sum_partials' in n)
+            idle = prof['device_idle_share']
+        steps[arch] = {'ms': step_ms, 'peak': step_peak, 'lstm_ms': lstm_ms,
+                       'idle': idle}
+        torch.cuda.empty_cache()
+    out['steps'] = steps
+
+    def step_line(arch):
+        st = steps[arch]
+        traced_step = ('not traced (the profiler recorded nothing)'
+                       if st['lstm_ms'] is None else
+                       f'its LSTM kernels {st["lstm_ms"]:.2f} ms a step, '
+                       f'device idle {100 * st["idle"]:.1f} %')
+        return (f'{arch} bf16 amp {st["ms"]["kernel"]:.2f} ms (peak '
+                f'{st["peak"]["kernel"] / 2 ** 20:.0f} MiB) vs float32 '
+                f'{st["ms"]["plain"]:.2f} ms (peak '
+                f'{st["peak"]["plain"] / 2 ** 20:.0f} MiB), amp step '
+                f'{traced_step}')
+
+    phase(62, f'[{card}] train step 16 x 4 s, in turns: '
+          f'{step_line("tfgridnet")}; {step_line("dccrn")}')
+    return out
+
+
+def rnn_amp_training(arch, L):
+    """Phase 60 (TF-GridNet) or 61 (DCCRN): the default model trained by
+    ``train.main`` from its untouched config under bf16 amp on FLAC tars,
+    and resumed; checks its parameters, the bf16 launches of its LSTM
+    kernels, finite losses and that no bf16 tensor reaches an LSTM twin on
+    the card. Returns what the phase prints."""
+    from brever_tpu_torch.models import count_params
+    n_train, n_val, epochs, val_period = RNN_AMP_TRAIN
+    n_params = {'tfgridnet': GRID_PARAMS, 'dccrn': DCCRN_PARAMS}[arch]
+    seen = []
+
+    def refuse(plain):
+        def run(x, *args):
+            if x.device.type == 'cuda' and x.dtype == torch.bfloat16:
+                seen.append(plain.__name__)
+            return plain(x, *args)
+        return run
+
+    saved = L.lstm_scan_reference, L.lstm_scan_bwd_plain
+    L.lstm_scan_reference, L.lstm_scan_bwd_plain = (refuse(f) for f in saved)
+    counters = [(L.lstm_scan_x, 'launches_bf16'),
+                (L.lstm_scan_x_bwd, 'launches_bf16'),
+                (L.lstm_scan, 'launches_bf16'),
+                (L.lstm_scan_bwd, 'launches_bf16'),
+                (L.lstm_scan_x_bwd, 'launches'),
+                (L.lstm_scan_bwd, 'launches')]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for split, n_items, seed in (('train', n_train, 60),
+                                     ('val', n_val, 61)):
+            paths.append(os.path.join(tmp, split))
+            write_tone_dataset(paths[-1], n_items, 1.0, seed, ext='.flac')
+        model_dir = write_model_dir(os.path.join(tmp, 'model'), arch, *paths)
+        with open(os.path.join(CONFIG_DIR, f'{arch}.yaml')) as f:
+            if 'use_amp: true' not in f.read():
+                raise AssertionError(f'{arch}.yaml no longer sets use_amp')
+        try:
+            first, second, train_s, launches = train_and_resume(
+                lambda n: [model_dir, '--device', 'cuda', '--epochs', str(n),
+                           '--val_period', str(val_period)], epochs,
+                counters)
+        finally:
+            L.lstm_scan_reference, L.lstm_scan_bwd_plain = saved
+    k3, k4, k5, k6, k4_all, k6_all = launches
+    if not first.use_amp or count_params(first.model) != n_params \
+            or first.flat.dtype != torch.float32:
+        raise AssertionError(f'{arch}: not the default model under amp')
+    if arch == 'dccrn' and not all(b.dtype == torch.float32
+                                   for b in first.model.buffers()):
+        raise AssertionError('DCCRN\'s running statistics left float32')
+    # the backward runs in training only, always under amp
+    fwd, bwd = (k3, k4) if arch == 'tfgridnet' else (k5, k6)
+    if fwd == 0 or bwd == 0 or (k4_all, k6_all) != (k4, k6) or seen:
+        raise AssertionError(f'{arch} amp training launched K3/K4/K5/K6 '
+                             f'bf16 {launches[:4]} (all backward: K4 '
+                             f'{k4_all}, K6 {k6_all}); bf16 twin calls on '
+                             f'the card: {seen}')
+    # the first run's epochs and the resumed run's
+    losses = second.loss_logger.train_loss
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'{arch} amp training loss {losses}')
+    metrics = [m for m in second.loss_logger.metrics if m][-1]
+    number = {'tfgridnet': 60, 'dccrn': 61}[arch]
+    lstm = ('K3-bf16 {} / K4-bf16 {}'.format(k3, k4) if arch == 'tfgridnet'
+            else 'K5-bf16 {} / K6-bf16 {}'.format(k5, k6))
+    phase(number, f'train.main from the untouched config/models/{arch}.yaml '
+          f'(use_amp: true; {n_params:,} parameters; only --device, '
+          f'--epochs {epochs} and --val_period {val_period} given) on FLAC '
+          f'tars ({n_train} + {n_val} tone-in-noise items of 1 s) in '
+          f'{train_s:.1f} s, resumed to {second.epochs_ran}: train loss '
+          + ' -> '.join(f'{v:.4f}' for v in losses)
+          + f', val snr {metrics["snr"]:.2f} dB, estoi '
+          f'{metrics["estoi"]:.3f}, pesq {metrics["pesq"]:.2f}; {lstm} '
+          'launches, no bf16 tensor in an LSTM twin on the card; resumed '
+          f'bitwise from last.ckpt to epoch {second.epochs_ran}')
+    return {'launches': launches[:4], 'seconds': train_s, 'losses': losses}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -5216,6 +5713,7 @@ def main():
     # Conv-TasNet's bf16 route next to its float32 phases, while the
     # process has taken few profiler traces
     amp = amp_phases(device, card)
+    lamp = lstm_amp_phases(device, card)
     grid = tfgridnet_phases(device, card)
     sgm = sgmse_phases(device, card)
     dcc = dccrn_phases(device, card)
@@ -5349,7 +5847,7 @@ def main():
     }, {
         'name': 'lstm_scan_x_fwd',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:401',
         'launches': grid['launches_serve'] + grid['launches_train']
         + grid['launches_http'],
@@ -5372,7 +5870,7 @@ def main():
     }, {
         'name': 'lstm_scan_x_bwd',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:503',
         'launches': grid['launches_train_bwd'],
         'max_abs_err': grid['k4_err'],
@@ -5394,6 +5892,104 @@ def main():
         'shape': 'intra T=33 D=2 R=8064 E=H=128; inter T=126 R=2112',
         'train_step_ms': grid['step_ms']['kernel'],
         'train_step_plain_ms': grid['step_ms']['plain'],
+    }, {
+        'name': 'lstm_scan_x_fwd_bf16',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:401',
+        'launches': lamp['train']['tfgridnet']['launches'][0]
+        + lamp['train']['dccrn']['launches'][0],
+        'launches_tfgridnet_train': lamp['train']['tfgridnet']['launches'][0],
+        'max_abs_err': lamp['err']['k3'],
+        'worst_snr_vs_twin_db': lamp['worst_db']['k3'],
+        'ms': lamp['timing']['intra']['fwd']['kernel'],
+        'plain_ms': lamp['timing']['intra']['fwd']['plain'],
+        'plain_note': 'the bf16 plain twin (the TPU kernel\'s rounding '
+                      'points), on the card',
+        'ms_inter': lamp['timing']['inter']['fwd']['kernel'],
+        'plain_ms_inter': lamp['timing']['inter']['fwd']['plain'],
+        'bound_ms': lamp['timing']['intra']['bound_fwd'][0],
+        'bound_by': lamp['timing']['intra']['bound_fwd'][1],
+        'bound_note': 'bytes at 2 an element and 3.35 TB/s, operations at '
+                      'the bf16 tensor-core rate of 989 TFLOP/s',
+        'library_ms': lamp['timing']['intra']['lib_fwd'],
+        'library_ms_inter': lamp['timing']['inter']['lib_fwd'],
+        'library_note': 'nn.LSTM (cuDNN) in bf16, bidirectional, over the '
+                        'same (T, R, E) input',
+        'shape': 'intra T=33 D=2 R=8064 E=H=128 bf16; inter T=126 R=2112',
+        'amp_train_step_ms': lamp['steps']['tfgridnet']['ms']['kernel'],
+        'f32_train_step_ms': lamp['steps']['tfgridnet']['ms']['plain'],
+        'amp_train_step_peak_mib':
+            lamp['steps']['tfgridnet']['peak']['kernel'] / 2 ** 20,
+        'f32_train_step_peak_mib':
+            lamp['steps']['tfgridnet']['peak']['plain'] / 2 ** 20,
+        'amp_step_lstm_ms': lamp['steps']['tfgridnet']['lstm_ms'],
+        'amp_step_device_idle_share': lamp['steps']['tfgridnet']['idle'],
+    }, {
+        'name': 'lstm_scan_x_bwd_bf16',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:503',
+        'launches': lamp['train']['tfgridnet']['launches'][1]
+        + lamp['train']['dccrn']['launches'][1],
+        'max_abs_err': lamp['err']['k4'],
+        'worst_snr_vs_twin_db': lamp['worst_db']['k4'],
+        'ms': lamp['timing']['intra']['bwd']['kernel'],
+        'plain_ms': lamp['timing']['intra']['bwd']['plain'],
+        'ms_inter': lamp['timing']['inter']['bwd']['kernel'],
+        'plain_ms_inter': lamp['timing']['inter']['bwd']['plain'],
+        'bound_ms': lamp['timing']['intra']['bound_bwd'][0],
+        'bound_by': lamp['timing']['intra']['bound_bwd'][1],
+        'library_ms': lamp['timing']['intra']['lib_bwd'],
+        'library_ms_inter': lamp['timing']['inter']['lib_bwd'],
+        'library_note': 'the backward of that bf16 nn.LSTM (data and both '
+                        'weight sets)',
+        'shape': 'intra T=33 D=2 R=8064 E=H=128 bf16; inter T=126 R=2112',
+    }, {
+        'name': 'lstm_scan_fwd_bf16',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:155',
+        'launches': lamp['train']['tfgridnet']['launches'][2]
+        + lamp['train']['dccrn']['launches'][2],
+        'launches_dccrn_train': lamp['train']['dccrn']['launches'][2],
+        'max_abs_err': lamp['err']['k5'],
+        'worst_snr_vs_twin_db': lamp['worst_db']['k5'],
+        'ms': lamp['timing']['dccrn']['fwd']['kernel'],
+        'plain_ms': lamp['timing']['dccrn']['fwd']['plain'],
+        'bound_ms': lamp['timing']['dccrn']['bound_fwd'][0],
+        'bound_by': lamp['timing']['dccrn']['bound_fwd'][1],
+        'library_ms': lamp['timing']['dccrn']['lib_fwd'],
+        'library_note': 'nn.LSTM (cuDNN) in bf16 over (T=495, 32, E=512), '
+                        'bidirectional: both weight sets, the input '
+                        'projection inside',
+        'shape': 'T=495 D=2 R=32 H=128 bf16 (DCCRN at 16 x 4 s, gates from '
+                 'E=512)',
+        'amp_train_step_ms': lamp['steps']['dccrn']['ms']['kernel'],
+        'f32_train_step_ms': lamp['steps']['dccrn']['ms']['plain'],
+        'amp_train_step_peak_mib':
+            lamp['steps']['dccrn']['peak']['kernel'] / 2 ** 20,
+        'f32_train_step_peak_mib':
+            lamp['steps']['dccrn']['peak']['plain'] / 2 ** 20,
+        'amp_step_lstm_ms': lamp['steps']['dccrn']['lstm_ms'],
+        'amp_step_device_idle_share': lamp['steps']['dccrn']['idle'],
+    }, {
+        'name': 'lstm_scan_bwd_bf16',
+        'route': 'cuda',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
+        'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:235',
+        'launches': lamp['train']['tfgridnet']['launches'][3]
+        + lamp['train']['dccrn']['launches'][3],
+        'max_abs_err': lamp['err']['k6'],
+        'worst_snr_vs_twin_db': lamp['worst_db']['k6'],
+        'ms': lamp['timing']['dccrn']['bwd']['kernel'],
+        'plain_ms': lamp['timing']['dccrn']['bwd']['plain'],
+        'bound_ms': lamp['timing']['dccrn']['bound_bwd'][0],
+        'bound_by': lamp['timing']['dccrn']['bound_bwd'][1],
+        'library_ms': lamp['timing']['dccrn']['lib_bwd'],
+        'library_note': 'the backward of that bf16 nn.LSTM (data and '
+                        'weights)',
+        'shape': 'T=495 D=2 R=32 H=128 bf16 (DCCRN at 16 x 4 s)',
     }, {
         'name': 'group_norm_act_fwd',
         'route': 'cuda',
@@ -5474,7 +6070,7 @@ def main():
     }, {
         'name': 'lstm_scan_fwd',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:155',
         'launches': dcc['launches_serve'] + dcc['launches_train']
         + dcc['launches_http'] + grid['k5_launches_http']
@@ -5514,7 +6110,7 @@ def main():
     }, {
         'name': 'lstm_scan_bwd',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/lstm_scan.cu',
+        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:235',
         'launches': dcc['launches_train_bwd'] + mg['launches_train_bwd'],
         'launches_metricgan_train': mg['launches_train_bwd'],

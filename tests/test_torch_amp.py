@@ -3,19 +3,24 @@ tests/test_amp.py and the JAX trainer's ``loss_fn``:
 
 * the amp per-item loss is finite and within rel 0.1 of the float32 loss
   (FFNN, whose MLP is cast at the STFT-to-network boundary, and a small
-  Conv-TasNet, ``tests/test_tcn_fused.py``'s width);
+  Conv-TasNet, ``tests/test_tcn_fused.py``'s width, TF-GridNet and DCCRN);
 * Conv-TasNet's amp loss and float32 master gradients, on weights carried
   across by ``convert.py``, against the JAX amp loss with its TCN blocks
   through the Pallas kernels in interpret mode (``FORCE_INTERPRET``), and
   both against float64 on the same bf16-rounded weights and batch: the
   port's relative error is at most twice the JAX path's (with a floor of
   1e-3 of relative error for the loss), and the two agree to 2e-2;
+* TF-GridNet's and DCCRN's amp loss and float32 master gradients (their
+  LSTMs through the bf16 twins of K3/K4 and K5/K6) against the JAX amp
+  path on the same weights and batch and against float64 on the same
+  bf16-rounded weights and batch: within 2e-2 relative of both;
 * the trunk runs in bf16 while masters, gradients, Adam's moments, the
-  EMA and the checkpoint stay float32;
+  EMA, DCCRN's running statistics and the checkpoint stay float32;
 * ``python -m brever_tpu_torch.train`` with ``use_amp: true`` (the default
-  config's) on FLAC tars, and a bitwise resume from ``last.ckpt``;
+  config's) on FLAC tars, and a bitwise resume from ``last.ckpt``
+  (Conv-TasNet, TF-GridNet, DCCRN);
 * a family whose kernels have no bf16 route refuses ``use_amp`` when its
-  trainer is built.
+  trainer is built (SGMSE+, IDMSE, MANNER).
 """
 
 import os
@@ -81,7 +86,9 @@ def _step_loss(trainer, batch, lengths, seed=1):
 
 
 @pytest.mark.parametrize('arch,kwargs', [('ffnn', FFNN),
-                                         ('convtasnet', CONVTASNET)])
+                                         ('convtasnet', CONVTASNET),
+                                         ('tfgridnet', GRID),
+                                         ('dccrn', DCC)])
 def test_amp_loss_finite_and_close(tmp_path, arch, kwargs):
     model = ModelRegistry.get(arch)(**kwargs, device='cpu')
     trainers = [_trainer(tmp_path / str(amp), model, use_amp=amp)
@@ -211,13 +218,13 @@ def test_trunk_runs_bf16_and_the_state_stays_float32(tmp_path):
         assert model.enhance(batch[0, 0]).dtype == torch.float32
 
 
-def _amp_model_dir(tmp_path):
-    """The untouched default Conv-TasNet config (``use_amp: true``) cut to
+def _amp_model_dir(tmp_path, arch='convtasnet', model=CONVTASNET):
+    """The untouched default config of ``arch`` (``use_amp: true``) cut to
     a small model, on FLAC tars written with the port's encoder."""
-    with open(os.path.join(ROOT, 'config', 'models', 'convtasnet.yaml')) as f:
+    with open(os.path.join(ROOT, 'config', 'models', f'{arch}.yaml')) as f:
         config = yaml.load(f, Loader=yaml.Loader)
     assert config['trainer']['use_amp'] is True
-    config['model'].update(CONVTASNET)
+    config['model'].update(model)
     config['train_path'] = write_flac_dataset(str(tmp_path / 'train'),
                                               [4000, 5000, 6000, 3000])
     config['val_path'] = write_flac_dataset(str(tmp_path / 'val'),
@@ -254,8 +261,7 @@ def test_amp_train_main_on_flac_resumes_bitwise(tmp_path):
 
 
 @pytest.mark.parametrize('arch,kwargs', [
-    ('tfgridnet', GRID), ('dccrn', DCC), ('sgmsep', SGM), ('idmse', IDM),
-    ('manner', {})])
+    ('sgmsep', SGM), ('idmse', IDM), ('manner', {})])
 def test_amp_refused_where_a_kernel_has_no_bf16_route(tmp_path, monkeypatch,
                                                       arch, kwargs):
     if arch == 'manner':
@@ -299,3 +305,164 @@ def test_criterion_and_mean_stay_bf16_as_the_jax_ones(name, last):
                                np.asarray(want[:rows], np.float32),
                                rtol=2 ** -7)
     assert float(got_mean) == pytest.approx(float(want_mean), rel=2 ** -7)
+
+
+# ---------------------------------------------------------------------------
+# TF-GridNet and DCCRN under amp (their LSTMs' bf16 route)
+
+RNN_FAMILIES = {'tfgridnet': GRID, 'dccrn': DCC}
+
+
+def _rnn_twins(arch):
+    """The JAX model's variables, numpy (DCCRN's running statistics moved
+    off their initial values), and a batch with a row of length 0."""
+    jax_model = JaxModels.get(arch)(**RNN_FAMILIES[arch])
+    variables = jax.tree.map(np.asarray, jax_model.init_variables(
+        jax.random.PRNGKey(0)))
+    rng = np.random.RandomState(17)
+    if 'batch_stats' in variables:
+        variables['batch_stats'] = jax.tree.map(
+            lambda a: (a + 0.1 * np.abs(rng.randn(*a.shape)))
+            .astype(np.float32), variables['batch_stats'])
+    target = 0.3 * rng.randn(3, 1, 2, 2100)
+    mix = target + 0.3 * rng.randn(3, 1, 2, 2100)
+    batch = np.concatenate([mix, target], axis=1).astype(np.float32)
+    return jax_model, dict(variables), batch, np.array([2100, 1500, 0],
+                                                        np.int32)
+
+
+@pytest.mark.parametrize('arch', sorted(RNN_FAMILIES))
+def test_rnn_family_amp_matches_jax_and_float64(arch, tmp_path):
+    """The amp loss and float32 master gradients against the JAX amp path
+    (parameters and batch cast to bfloat16, the running statistics float32,
+    as the JAX trainer's ``loss_fn`` gives them) and against float64 on the
+    same bf16-rounded weights and batch: the port's gradients within 2e-2
+    relative of float64 and no farther from it than twice the JAX path's,
+    the loss within 2e-2 of both. (The JAX path's own gradients can sit
+    further from float64: XLA reduces some of DCCRN's bias and PReLU
+    gradients in bfloat16, 10-12 % off float64 for a last-layer bias; the
+    port's reductions accumulate in float32.)"""
+    jax_model, variables, batch, lengths = _rnn_twins(arch)
+
+    def jax_loss(p):
+        tree = dict(variables, params=_bf16_tree(p))
+        out = jax_model.loss(tree, jnp.asarray(batch).astype(jnp.bfloat16),
+                             jnp.asarray(lengths), None)
+        per_item = out[0] if isinstance(out, tuple) else out
+        return jax_mean(per_item.astype(jnp.float32), jnp.asarray(lengths))
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(jax_loss))(variables['params'])
+
+    def port(dtype=None):
+        model = ModelRegistry.get(arch)(**RNN_FAMILIES[arch], device='cpu')
+        state = model.from_flax(variables['params'], variables)
+        if dtype is not None:
+            names = {n for n, _ in model.named_parameters()}
+            state = {k: (v.bfloat16() if k in names else v).to(dtype)
+                     for k, v in state.items()}
+        model.load_state_dict(state)
+        return model.to(dtype) if dtype is not None else model
+
+    model = port()
+    trainer = _trainer(tmp_path, model, use_amp=True)
+    n = torch.from_numpy(lengths)
+    loss, grads = _step_loss(trainer, torch.from_numpy(batch), n)
+    # the output leaves the inverse STFT in float32, in both packages
+    assert loss.dtype == torch.float32
+    assert all(g.dtype == torch.float32 for g in grads)
+
+    exact = port(torch.float64).train()
+    ref = sample_weighted_mean(exact.loss(
+        torch.from_numpy(batch).bfloat16().double(), n), n)
+    ref_grads = torch.autograd.grad(ref, list(exact.parameters()))
+    ref = float(ref)
+
+    names = [name for name, _ in model.named_parameters()]
+    want_tree = model.from_flax(jax.tree.map(np.asarray, jgrads))
+    got = np.concatenate([g.numpy().ravel() for g in grads])
+    want = np.concatenate([want_tree[k].numpy().ravel() for k in names])
+    exact_g = np.concatenate([g.numpy().ravel() for g in ref_grads])
+    port_err, jax_err = _rel(got, exact_g), _rel(want, exact_g)
+    print(f'{arch} gradients: relative error against float64, port',
+          port_err, 'JAX', jax_err, 'port against JAX',
+          _rel(got, want.astype(np.float64)))
+    print('loss', float(loss), 'JAX', float(jloss), 'float64', ref)
+    assert port_err < 2e-2, (port_err, jax_err)
+    assert port_err <= 2 * jax_err, (port_err, jax_err)
+    assert float(loss) == pytest.approx(ref, rel=2e-2)
+    assert float(loss) == pytest.approx(float(jloss), rel=2e-2)
+
+
+@pytest.mark.parametrize('arch', sorted(RNN_FAMILIES))
+def test_rnn_family_trunk_runs_bf16_and_the_state_stays_float32(arch,
+                                                                 tmp_path):
+    model = ModelRegistry.get(arch)(**RNN_FAMILIES[arch], device='cpu')
+    trainer = _trainer(tmp_path, model, use_amp=True, ema=True)
+    trainer.init_state()
+    seen = {}
+
+    def record(name):
+        def hook(module, args, out):
+            outs = out if isinstance(out, tuple) else (out,)
+            seen[name] = {t.dtype for t in outs if t is not None}
+        return hook
+
+    for name, module in model.named_modules():
+        if name:
+            module.register_forward_hook(record(name))
+    batch = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 2, 2, 4000).astype('float32'))
+    lengths = torch.tensor([4000, 3000])
+    trainer.train_step(batch, lengths)
+    trunk = {'tfgridnet': ('embed', 'embed_norm', 'blocks.0.intra_norm',
+                           'blocks.0.intra_rnn', 'blocks.0.inter_rnn',
+                           'blocks.0.attn_q_norm', 'blocks.0.attn_out_norm',
+                           'blocks.0', 'deconv'),
+             'dccrn': ('enc_conv_0', 'enc_norm_0', 'enc_prelu_1', 'lstm_0',
+                       'lstm_proj_real', 'dec_conv_0', 'dec_norm_0',
+                       'dec_conv_1')}[arch]
+    for name in trunk:
+        assert seen[name] == {torch.bfloat16}, (name, seen[name])
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    buffers = dict(model.named_buffers())
+    if arch == 'dccrn':
+        assert buffers and all(b.dtype == torch.float32
+                               for b in buffers.values())
+        # the train step moved the running statistics
+        assert not torch.equal(buffers['enc_norm_0.mean'],
+                               torch.zeros_like(buffers['enc_norm_0.mean']))
+    opt = trainer.optimizer
+    for t in (trainer.flat, trainer.ema, opt.mu, opt.nu):
+        assert t.dtype == torch.float32
+    with torch.no_grad():
+        assert model.enhance(batch[0, 0]).dtype == torch.float32
+
+
+@pytest.mark.parametrize('arch', sorted(RNN_FAMILIES))
+def test_rnn_family_amp_train_main_on_flac_resumes_bitwise(arch, tmp_path):
+    """``train.main`` from the family's untouched default config
+    (``use_amp: true``), narrowed, on FLAC tars: two epochs at once and one
+    then a resumed second give the same bits."""
+    model_dir = _amp_model_dir(tmp_path, arch, RNN_FAMILIES[arch])
+    common = ['--device', 'cpu', '--val_metrics', 'snr', '--batch_size',
+              '2', '--dynamic_batch_size', 'false', '--val_period', '1']
+    whole = os.path.join(str(tmp_path), 'whole')
+    os.makedirs(whole)
+    os.symlink(os.path.join(model_dir, 'config.yaml'),
+               os.path.join(whole, 'config.yaml'))
+    train_cli.main([whole, '--epochs', '2'] + common)
+    train_cli.main([model_dir, '--epochs', '1'] + common)
+    ckpt = os.path.join(model_dir, 'checkpoints', 'last.ckpt')
+    train_cli.main([model_dir, '--epochs', '2', '--force'] + common)
+    a = load_checkpoint(ckpt)
+    b = load_checkpoint(os.path.join(whole, 'checkpoints', 'last.ckpt'))
+    assert a['step'] == b['step'] > 0
+    for x, y in zip(jax.tree.leaves((a['params'], a['opt_state'],
+                                     a.get('aux'))),
+                    jax.tree.leaves((b['params'], b['opt_state'],
+                                     b.get('aux')))):
+        assert np.asarray(x).dtype != np.dtype('bfloat16')
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    losses = np.load(os.path.join(model_dir, 'losses.npz'),
+                     allow_pickle=True)
+    assert np.isfinite(losses['train'].astype(float)).all()

@@ -1,7 +1,7 @@
 """The wrappers' mirrors of the forward kernels' launch figures, on the
 CPU: K1's partial moments a batch row (``ops.tcn_block.fwd_partials``) at
 the tiles the sources name, and K3's plan (``ops.lstm_scan.fwd_plan``)
-against the constants of csrc/lstm_scan.cu and what the card allows a
+against the constants of csrc/lstm_scan.cuh and what the card allows a
 block. The card tests hold the built library's own figures to the same
 mirrors."""
 
@@ -58,7 +58,7 @@ def test_k3_plan_is_the_sources(hidden):
     groups x 8 unit groups, at most 512 threads and 232,448 bytes a block,
     room for h[t-1] of the tile and ``kFwdRing`` stages of a weight slice,
     tiles covering R, and a slice's weights whole float4s a thread."""
-    src = _source('lstm_scan.cu')
+    src = _source('lstm_scan.cuh')
     ring, units = _constant(src, 'kFwdRing'), _constant(src, 'kFwdUnits')
     sms = _constant(src, 'kSMs')
     assert (ring, units, sms) == (4, 4, 132)
