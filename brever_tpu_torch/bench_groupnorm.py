@@ -80,17 +80,20 @@ def time_unet_calls(calls, device, seed=22, reps=20):
     """Each call's K7 and K8 times (card, host, paced), bounds and plan,
     and their sums over the calls' counts: ``{'rows': [...], 'sum':
     {...}}``; ``host`` in the sum is the mean a call."""
-    rng = np.random.RandomState(seed)
+    # drawn on the device: a numpy draw of the largest shapes takes
+    # seconds on the host
+    gen = torch.Generator(device=device).manual_seed(seed)
     rows, total = [], {}
     for (shape, groups, silu), count in sorted(calls.items()):
         act = 'silu' if silu else 'none'
-        x = torch.from_numpy((0.3 + 2 * rng.randn(*shape))
-                             .astype(np.float32)).to(device)
-        dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)
-        scale = torch.from_numpy((1 + 0.1 * rng.randn(shape[1]))
-                                 .astype(np.float32)).to(device)
-        bias = torch.from_numpy((0.1 * rng.randn(shape[1]))
-                                .astype(np.float32)).to(device)
+
+        def arr(*s, scale=1.0, center=0.0):
+            return center + scale * torch.randn(*s, generator=gen,
+                                                device=device)
+
+        x, dy = arr(*shape, scale=2.0, center=0.3), arr(*shape)
+        scale, bias = arr(shape[1], scale=0.1, center=1.0), \
+            arr(shape[1], scale=0.1)
         with torch.no_grad():
             _, mean, rstd = gn.group_norm_act_fwd(x, scale, bias, groups,
                                                   1e-6, act)

@@ -18,9 +18,8 @@ them from ``make_step_fns(trainer)``, and a dict of optimizers from
 
 Under the trainer's bf16 amp (``use_amp``) the loss runs with every
 floating parameter cast to bfloat16 (``param_dtype`` then says so) and
-the batch cast too; a family whose path has a kernel with no bf16 route
-yet names the ROADMAP item in ``amp_refused``, and the trainer refuses
-``use_amp`` for it.
+the batch cast too; every family trains under it (MetricGAN, with steps
+of its own, ignores it, as the JAX trainer does).
 """
 
 import torch
@@ -74,12 +73,6 @@ class BreverBaseModel(nn.Module):
     #: a per-item host function the training loader applies to each item
     #: (MetricGAN's precomputed noisy score); none here
     loader_transform = None
-
-    #: why the trainer refuses bf16 amp for the family: the kernels on its
-    #: path with no bf16 route yet and their ROADMAP item; None where it
-    #: trains under amp (or, with steps of its own, ignores ``use_amp`` as
-    #: the JAX trainer does)
-    amp_refused = None
 
     @property
     def device(self):

@@ -14,10 +14,12 @@ bf16 (the trainer's amp casts the parameters): as flax's modules, PReLU
 casts ``alpha`` to the activation's dtype, the gLN takes float32
 statistics and casts its output back to the input's dtype, and the
 depthwise conv multiplies and adds in the activation's dtype with its
-kernel and bias cast to it. DCCRN's :class:`BatchNorm` takes flax's batch
-statistics in float32 from a bfloat16 input, normalises in float32 and casts
-back (the JAX package's ``batch_norm``); its running ``mean``/``var`` stay
-float32 and are only ever written from float32 statistics.
+kernel and bias cast to it. MANNER's :class:`BatchNormAct` takes a
+bfloat16 input through K7-BN/K8-BN's bf16 route. DCCRN's :class:`BatchNorm`
+takes flax's batch statistics in float32 from a bfloat16 input, normalises
+in float32 and casts back (the JAX package's ``batch_norm``); its running
+``mean``/``var`` stay float32 and are only ever written from float32
+statistics.
 :class:`ComplexBatchNorm` whitens in float32 and casts back, as the JAX
 package's does.
 """
@@ -137,7 +139,12 @@ class BatchNormAct(BatchNorm):
     ``batch_norm_act`` (K7-BN and K8-BN on CUDA), and the running update
     takes the detached statistics; in eval mode the running statistics'
     affine in plain torch, as the JAX package never takes the kernel in
-    eval."""
+    eval. A bfloat16 input (amp): train mode takes the kernels' bf16 route
+    with the affine cast to the input's dtype, as the JAX package's
+    ``batch_norm_act`` casts it before its kernel, and the statistics and
+    running buffers stay float32; eval mode normalises in float32 from the
+    running statistics, casts to bfloat16 and applies the activation there,
+    as the JAX package's XLA branch does."""
 
     def __init__(self, channels, act='none', momentum=0.99, eps=1e-5):
         super().__init__(channels, momentum, eps)
@@ -145,11 +152,13 @@ class BatchNormAct(BatchNorm):
 
     def forward(self, x):
         if self.training:
-            y, mean, var = batch_norm_act(x, self.scale, self.bias, self.eps,
+            y, mean, var = batch_norm_act(x, self.scale.to(x.dtype),
+                                          self.bias.to(x.dtype), self.eps,
                                           self.act)
             self.update_running(mean, var)
             return y
-        return _act(self.affine(x, self.mean, self.var), self.act)
+        return _act(self.affine(stats_input(x), self.mean, self.var)
+                    .to(x.dtype), self.act)
 
 
 class ComplexBatchNorm(nn.Module):

@@ -16,7 +16,15 @@ package keeps channels last); the JAX package's space-to-depth packing
 (``BREVER_MANNER_PACK``, off by default) is a TPU layout and is not ported.
 Every BatchNorm is :class:`..common.BatchNormAct` (69 in a forward): in
 train mode its statistics go through flash-BN, the CUDA kernels K7-BN and
-K8-BN on the card; in eval mode the running statistics' affine. Convolutions
+K8-BN on the card; in eval mode the running statistics' affine.
+
+bf16 (amp): the trunk runs in the parameters' dtype, the convolutions with
+their weights cast to the input's dtype and every train-mode BatchNorm
+through K7-BN/K8-BN's bf16 route; the input's std is taken in float32 and
+cast for the division, and the output, rescaled by that float32 std, leaves
+the network in float32, as the JAX package's does, so the loss's STFTs and
+sums run in float32 (the JAX package's ``loss``; the batch's energies stay
+bfloat16). Convolutions
 are cuDNN's, the attention's products ``torch.matmul``, as the JAX package
 leaves them to XLA. Module and parameter names follow the flax scopes
 (``enc_0_rescon.pw1_bn``, ``dec_3_attn.global.wq``), so the weight bridge
@@ -33,7 +41,7 @@ from ..convert import manner_flax_to_state_dict, manner_state_dict_to_flax
 from ..ops.stft import STFT, overlap_add
 from ..optim import Adam, cosine_onecycle_schedule
 from .base import BreverBaseModel, ModelRegistry
-from .common import BatchNormAct
+from .common import BatchNormAct, stats_input
 
 
 def _lecun(shape, fan_in):
@@ -57,8 +65,9 @@ class _Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return F.conv1d(x, self.weight, self.bias, self.stride, self.padding,
-                        groups=self.groups)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv1d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, groups=self.groups)
 
 
 class _ConvTranspose(nn.Module):
@@ -73,7 +82,8 @@ class _ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return F.conv_transpose1d(x, self.weight, self.bias, self.stride)
+        return F.conv_transpose1d(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype), self.stride)
 
 
 class _BasicConv(nn.Module):
@@ -286,10 +296,11 @@ class _MannerModule(nn.Module):
         return int(math.ceil(length))
 
     def forward(self, x):
-        # the input's std over time, of the channel mean, in float32
-        std = x.mean(dim=1, keepdim=True).std(dim=-1, keepdim=True,
-                                              correction=0)
-        x = x / (self.eps + std)
+        # the input's std over time, of the channel mean, in float32 (a
+        # bfloat16 input widened), cast for the division
+        std = stats_input(x).mean(dim=1, keepdim=True).std(
+            dim=-1, keepdim=True, correction=0)
+        x = x / (self.eps + std.to(x.dtype))
         length = x.shape[-1]
         x = F.pad(x, (0, self._padded_length(length) - length))
         h = self.in_bn(self.in_conv(x))
@@ -340,9 +351,6 @@ class MANNER(BreverBaseModel):
     hyperparameters, as in the JAX package. Adam over a one-cycle cosine
     schedule peaking at 1e-3, sized by ``prepare_optimizer`` (1e-5 without
     it); no gradient clipping."""
-
-    amp_refused = ('the bf16 route of its flash-BN kernels K7-BN/K8-BN'
-                   ' (ROADMAP.md Queue 1 item 2.3)')
 
     def __init__(self, *, device):
         super().__init__()

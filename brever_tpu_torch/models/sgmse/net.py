@@ -24,6 +24,14 @@ GroupNorm applies after its own affine (the external affine of
 the block's other GroupNorms run K7/K8), and puts attention in every
 decoder block of an attention level.
 
+bf16 (amp): the trunk runs in the parameters' dtype (the preconditioning
+casts its input), every GroupNorm through K7/K8's bf16 route on CUDA and
+``adm``'s ``norm_2`` through the plain route in float32, cast back; the noise
+embedding forms its angles, sines and cosines in float32 (the Fourier
+frequencies are a float32 buffer) and casts the features to the input's
+dtype; attention's softmax runs on the bf16 logits, as the JAX package's
+does.
+
 Training rematerialises every block that does not resample, as the JAX
 package's ``remat=True`` does (``torch.utils.checkpoint``, non-reentrant);
 a rematerialised block's GroupNorms run K7 a second time in the backward,
@@ -92,7 +100,8 @@ class NoiseEmbedding(nn.Module):
         freqs = self.fourier_freqs
         angles = 2 * math.pi * x.reshape(-1).to(freqs.dtype)[:, None] \
             * freqs[None, :]
-        h = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+        h = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1) \
+            .to(x.dtype)
         h = F.silu(self.linear_1(h))
         return F.silu(self.linear_2(h))
 

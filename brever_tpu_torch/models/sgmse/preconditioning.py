@@ -3,9 +3,17 @@
 cshift/cnoise scalings that make the U-Net a denoiser ``D(x, y, sigma,
 t)``, the score the solvers take, and the loss weight; ``richter``, ``edm``
 and the ``edm-scaled-shift`` shift.
+
+The U-Net runs in its parameters' dtype (bfloat16 under amp: its input
+and noise conditioning are cast to it and its output back to the
+spectrogram's real dtype), while the complex algebra around it and the
+scalings stay float32, as ``brever_tpu/models/sgmse/preconditioning.py``
+does it.
 """
 
 import torch
+
+from ..base import param_dtype
 
 
 def _make_rules(sigma_data):
@@ -59,10 +67,12 @@ class Preconditioning:
         scaling = self.sde.s(t)
         cin = self.cin(sigma, scaling)
         x_in = cin * x + self.cshift(y, cin, scaling)
+        net_dtype = param_dtype(self.net)
         net_in = torch.stack([x_in[:, 0].real, x_in[:, 0].imag,
                               y[:, 0].real, y[:, 0].imag], dim=-1)
-        net_out = self.net(net_in, self.cnoise(sigma, t),
-                           generator=generator)
+        net_out = self.net(net_in.to(net_dtype),
+                           self.cnoise(sigma, t).to(net_dtype),
+                           generator=generator).to(net_in.dtype)
         denoised = torch.complex(net_out[..., 0], net_out[..., 1])[:, None]
         return self.cskip(sigma) * x + self.cout(sigma, scaling, t) * denoised
 

@@ -10,6 +10,12 @@ frames. Inference runs the reverse-SDE solver (PC or EDM-Heun) from the
 prior around the mixture. The default NCSN++ geometry (``sgmsep``) has
 65,590,694 parameters, ``sgmsepm`` 27,756,186; ``idmse`` (the ADM
 U-Net) 16,613,378 and ``idmselarge`` 70,995,586.
+
+Under the trainer's bf16 amp the batch arrives in bfloat16: the mixture's
+peak normalisation runs in it, the STFT widens to float32 (its window is
+float32), t and the noise are drawn in float32, and the U-Net alone runs in
+bfloat16 (:class:`.preconditioning.Preconditioning`), so the loss is
+float32, as the JAX package's ``loss`` under its trainer's ``loss_fn``.
 """
 
 import torch
@@ -28,9 +34,6 @@ from .solvers import SolverRegistry
 
 @ModelRegistry.register('sgmsep')
 class SGMSEp(BreverBaseModel):
-
-    amp_refused = ('the bf16 route of its GroupNorm kernels K7/K8'
-                   ' (ROADMAP.md Queue 1 item 2.3)')
 
     def __init__(
         self,

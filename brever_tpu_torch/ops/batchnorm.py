@@ -34,13 +34,25 @@ The plain versions: :func:`batch_norm_act_reference`, the XLA branch's
 arithmetic, and :func:`batch_norm_act_bwd_plain`, its memory-lean backward,
 which recomputes the normalised tensor and the activation's derivative from
 x and the statistics.
+
+bf16 (amp): x of bfloat16 takes the kernels' bf16 route (``csrc/
+groupnorm_bf16.cu``). Its twins, the bf16 mode of the plain versions, are
+the Pallas kernels at bf16 I/O (the JAX package's ``BREVER_BN_FUSED=1``
+branch, the affine cast to the trunk's dtype): x and dy widened to float32,
+float32 statistics, ``y = act(x a + b)`` with the affine folded as
+``_fwd_kernel`` folds it and rounded to bf16 once, after the activation
+(the XLA branch rounds before the activation: ReLU gives the same bits,
+SiLU may differ by a bf16 ulp); dx rounded once; dscale and dbias float32,
+cast at the autograd boundary to the affine's dtype. The statistics (mean,
+var, rstd) are float32 on both routes, for the float32 running update. The
+bf16 launches are counted apart as well, in ``launches_bf16``.
 """
 
 import torch
 
 from . import build
 from . import groupnorm as gn
-from .groupnorm import ACTS, _act, _act_grad
+from .groupnorm import ACTS, _act, _act_grad, _wide, affine32
 
 
 def _channel(v, x):
@@ -60,54 +72,85 @@ def _pre_activation(x, scale, bias, mean, rstd):
             centred * _channel(scale * rstd, x) + _channel(bias, x))
 
 
+def _folded(x, scale, bias, mean, rstd):
+    """``z = x a + b``, ``a = scale rstd``, ``b = bias - mean a``: the
+    Pallas kernel's (and the bf16 route's) fold of the affine, one rounding
+    of ``x a + b`` (:func:`.groupnorm.fma`)."""
+    a = scale * rstd
+    return gn.fma(x, _channel(a, x), _channel(bias - mean * a, x))
+
+
 def batch_norm_act_reference(x, scale, bias, eps, act):
-    """Plain forward: ``(y, mean, var, rstd)``, the statistics ``(C,)``."""
+    """Plain forward: ``(y, mean, var, rstd)``, the statistics ``(C,)``. A
+    bfloat16 x: the bf16 route's twin (module docstring), y bfloat16 and
+    the statistics float32."""
+    xs = _wide(x)
     dims = _dims(x)
-    mean = x.mean(dim=dims)
-    var = (x * x).mean(dim=dims) - mean * mean
+    mean = xs.mean(dim=dims)
+    var = (xs * xs).mean(dim=dims) - mean * mean
     rstd = torch.rsqrt(var + eps)
+    if x.dtype == torch.bfloat16:
+        z = _folded(xs, _wide(scale), _wide(bias), mean, rstd)
+        return _act(z, act).to(x.dtype), mean, var, rstd
     _, z = _pre_activation(x, scale, bias, mean, rstd)
     return _act(z, act), mean, var, rstd
 
 
 def batch_norm_act_bwd_plain(x, dy, scale, bias, mean, rstd, act):
-    """Plain backward from x and the statistics: ``(dx, dscale, dbias)``."""
-    xhat, z = _pre_activation(x, scale, bias, mean, rstd)
+    """Plain backward from x and the statistics: ``(dx, dscale, dbias)``.
+    A bfloat16 x: the bf16 route's twin, dx bfloat16 and dscale, dbias
+    float32."""
+    bf16 = x.dtype == torch.bfloat16
+    xs, scale, dy = _wide(x), _wide(scale), _wide(dy)
+    if bf16:
+        xhat = (xs - _channel(mean, xs)) * _channel(rstd, xs)
+        z = _folded(xs, scale, _wide(bias), mean, rstd)
+    else:
+        xhat, z = _pre_activation(x, scale, bias, mean, rstd)
     dz = _act_grad(z, dy, act)
     dims = _dims(x)
     dbias = dz.sum(dim=dims)
     dscale = (dz * xhat).sum(dim=dims)
     n = x.numel() // x.shape[1]
-    dx = _channel(rstd, x) * (dz * _channel(scale, x)
-                              - _channel(scale * dbias / n, x)
-                              - xhat * _channel(scale * dscale / n, x))
-    return dx, dscale, dbias
+    dx = _channel(rstd, xs) * (dz * _channel(scale, xs)
+                               - _channel(scale * dbias / n, xs)
+                               - xhat * _channel(scale * dscale / n, xs))
+    return dx.to(x.dtype), dscale, dbias
 
 
 def batch_norm_act_fwd(x, scale, bias, eps, act):
     """``(y, mean, var, rstd)``: the plain version on the CPU, else K7-BN
-    (counted in ``batch_norm_act_fwd.launches``)."""
+    (its bf16 route for a bfloat16 x; counted in
+    ``batch_norm_act_fwd.launches``, the bf16 route's also in
+    ``.launches_bf16``)."""
     if x.device.type == 'cpu':
         return batch_norm_act_reference(x, scale, bias, eps, act)
     out = _launch_fwd(x, scale, bias, eps, act)
     batch_norm_act_fwd.launches += 1
+    if x.dtype == torch.bfloat16:
+        batch_norm_act_fwd.launches_bf16 += 1
     return out
 
 
 batch_norm_act_fwd.launches = 0
+batch_norm_act_fwd.launches_bf16 = 0
 
 
 def batch_norm_act_bwd(x, dy, scale, bias, mean, rstd, act):
     """The VJP ``(dx, dscale, dbias)``: the plain version on the CPU, else
-    K8-BN (counted in ``batch_norm_act_bwd.launches``)."""
+    K8-BN (counted in ``batch_norm_act_bwd.launches``, the bf16 route's
+    also in ``.launches_bf16``)."""
     if x.device.type == 'cpu':
         return batch_norm_act_bwd_plain(x, dy, scale, bias, mean, rstd, act)
     out = _launch_bwd(x, dy, scale, bias, mean, rstd, act)
     batch_norm_act_bwd.launches += 1
+    if x.dtype == torch.bfloat16:
+        batch_norm_act_bwd.launches_bf16 += 1
     return out
 
 
 batch_norm_act_bwd.launches = 0
+batch_norm_act_bwd.launches_bf16 = 0
 
 
 class BatchNormActFunction(torch.autograd.Function):
@@ -132,7 +175,8 @@ class BatchNormActFunction(torch.autograd.Function):
         bwd = batch_norm_act_bwd_plain if ctx.plain else batch_norm_act_bwd
         dx, dscale, dbias = bwd(x, dy.contiguous(), scale, bias, mean, rstd,
                                 ctx.act)
-        return dx, dscale, dbias, None, None, None
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,
+                None)
 
 
 def _batch_norm_act(x, scale, bias, eps, act, plain):
@@ -173,15 +217,15 @@ def batch_norm_act_plain(x, scale, bias, eps=1e-5, act='none'):
 # ---------------------------------------------------------------------------
 # the kernels
 
-def _tensor(t, name, device, shape):
+def _tensor(t, name, device, shape, dtypes=(torch.float32,)):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f'batch_norm_act: {name} must be a tensor')
     if t.device != device:
         raise ValueError(f'batch_norm_act: {name} is on {t.device}, x on '
                          f'{device}')
-    if t.dtype != torch.float32:
-        raise TypeError(f'batch_norm_act: {name} must be float32, got '
-                        f'{t.dtype}')
+    if t.dtype not in dtypes:
+        raise TypeError(f'batch_norm_act: {name} must be one of {dtypes}, '
+                        f'got {t.dtype}')
     if tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f'batch_norm_act: {name} must be a contiguous '
                          f'{shape} tensor (channels first), got '
@@ -190,18 +234,19 @@ def _tensor(t, name, device, shape):
 
 
 def _check(x, scale, bias, act):
-    """Check what the kernels take; returns ``(B, C, N)``."""
+    """Check what the kernels take (x float32, or bfloat16 for the bf16
+    route, the affine float32 or bfloat16); returns ``(B, C, N)``."""
     device = x.device
     if device.type != 'cuda':
         raise ValueError(f'batch_norm_act: no kernel for device {device}')
     if x.ndim < 2 or 0 in x.shape:
         raise ValueError('batch_norm_act: x must be a non-empty (B, C, ...) '
                          f'tensor, got {tuple(x.shape)}')
-    _tensor(x, 'x', device, tuple(x.shape))
+    _tensor(x, 'x', device, tuple(x.shape), gn.DTYPES)
     batch, channels = x.shape[:2]
     n = x.numel() // (batch * channels)
-    _tensor(scale, 'scale', device, (channels,))
-    _tensor(bias, 'bias', device, (channels,))
+    _tensor(scale, 'scale', device, (channels,), gn.DTYPES)
+    _tensor(bias, 'bias', device, (channels,), gn.DTYPES)
     if act not in ACTS:
         raise ValueError(f'batch_norm_act: activation {act!r}, not one of '
                          f'{sorted(ACTS)}')
@@ -216,7 +261,7 @@ def _check(x, scale, bias, act):
 #: it, two passes through device memory
 ROUTES = ('block', 'cluster', 'partial', 'passes')
 #: the routes of a channel past the largest cluster, K7-BN's and K8-BN's
-#: (``kBnFwdPast``, ``kBnBwdPast``); K8-BN's off the float4 grid too
+#: (``kBnFwdPast``, ``kBnBwdPast``); K8-BN's off the vector grid too
 _FWD_PAST, _BWD_PAST = 'partial', 'passes'
 #: floats of a row one warp of the passes takes (``kSeg``); the shared
 #: memory of an SM, and of it the system's a block (``kSmemSm``,
@@ -225,25 +270,25 @@ _SEG, _SMEM_SM, _SMEM_RESERVED = 4096, 233472, 1024
 
 
 def channel_shares(batch, n, cluster):
-    """``(first float, floats)`` of each block's share of a channel (its B
-    rows of N floats end to end) at ``cluster`` blocks a cluster: block r
+    """``(first element, elements)`` of each block's share of a channel
+    (its B rows of N elements end to end) at ``cluster`` blocks a cluster:
+    block r
     takes tasks ``[r T / n, (r + 1) T / n)`` of the channel's T, as K7's
     blocks take a group's."""
     return gn.group_shares(batch, n, 1, cluster)
 
 
-def _plan_at(batch, channels, n, cluster):
+def _plan_at(batch, channels, n, cluster, itemsize):
     widths = [w for _, w in channel_shares(batch, n, cluster)]
-    cap = (gn._SMEM_MOST - gn._SCRATCH) // 4 // 4 * 4
-    held = min(-(-max(widths) // 4) * 4, cap)
+    held = min(-(-max(widths) // 4) * 4, gn.held_most(itemsize))
     remainder = sum(max(w - held, 0) for w in widths)
     route = 'cluster' if cluster > 1 else 'block'
     fwd, bwd = (_FWD_PAST, _BWD_PAST) if remainder else (route, route)
-    if n % 4:
+    if n % 4 or (itemsize == 2 and cluster == gn._MOST_CLUSTER):
         bwd = 'passes'
     tasks = batch * -(-n // gn._TASK)
-    smem = gn._SCRATCH + 4 * held
-    two = gn._SCRATCH + 8 * held   # a ring of two buffers
+    smem = gn._SCRATCH + itemsize * held
+    two = gn._SCRATCH + 2 * itemsize * held   # a ring of two buffers
     half = cluster == 1 and tasks <= gn._THREADS // 32
     stages = 2 if half and 2 * (two + _SMEM_RESERVED) <= _SMEM_SM else 1
     return {'cluster': cluster, 'resident': held, 'smem': smem,
@@ -256,15 +301,17 @@ def _plan_at(batch, channels, n, cluster):
             'stages': stages, 'block_smem': two if stages == 2 else smem}
 
 
-def bn_plan(batch, channels, n, most=gn._MOST_CLUSTER):
-    """K7-BN's and K8-BN's plan at ``(B, C, N)``, as ``bn_plan`` of
+def bn_plan(batch, channels, n, most=gn._MOST_CLUSTER, itemsize=4):
+    """K7-BN's and K8-BN's plan at ``(B, C, N)`` for x of ``itemsize``
+    bytes an element (4, or 2 on the bf16 route), as ``bn_plan`` of
     csrc/groupnorm.cu gives it: K7's cluster plan (:func:`.groupnorm.
     gn_plan`) over a channel's B rows, the smallest cluster (1, 2, 4, ...
     ``most`` blocks) whose blocks hold their shares of the channel, a
     cluster a channel; each kernel's route (``route_fwd``, ``route_bwd``):
     ``block`` or ``cluster`` where the channel is held, else ``partial``
     (K7-BN) and ``passes`` (K8-BN), and ``passes`` in K8-BN wherever N is
-    off the float4 grid; the bytes of the passes' workspace
+    off the vector grid and, on the bf16 route, where only the largest
+    cluster (16 blocks) holds the channel; the bytes of the passes' workspace
     (``workspace``, 0 off the passes). Where one block takes a channel of
     at most 16 tasks (``bn_ring``) its blocks have half the threads (two or
     three an SM) and a ring of two buffers (``stages``; the next channel
@@ -272,10 +319,10 @@ def bn_plan(batch, channels, n, most=gn._MOST_CLUSTER):
     fit an SM's shared memory; ``block_smem``: a block's dynamic shared
     memory."""
     cluster = 1
-    while cluster < most and _plan_at(batch, channels, n,
-                                      cluster)['remainder']:
+    while cluster < most and _plan_at(batch, channels, n, cluster,
+                                      itemsize)['remainder']:
         cluster *= 2
-    return _plan_at(batch, channels, n, cluster)
+    return _plan_at(batch, channels, n, cluster, itemsize)
 
 
 #: the library's plan at each (B, C, N) checked so far
@@ -286,16 +333,17 @@ _PLAN_KEYS = ('cluster', 'resident', 'smem', 'threads', 'tasks', 'remainder',
               'stages', 'block_smem')
 
 
-def plan_info(batch, channels, n):
+def plan_info(batch, channels, n, itemsize=4):
     """The library's plan (``bn_plan``, with ``clusters``: how many
     clusters of its size the card holds at once, of K7-BN's and K8-BN's
-    kernels alike); raises where it is not the wrapper's mirror
-    :func:`bn_plan` (:func:`.groupnorm.library_plan`)."""
-    key = (batch, channels, n)
+    kernels alike) for x of ``itemsize`` bytes an element; raises where it
+    is not the wrapper's mirror :func:`bn_plan`
+    (:func:`.groupnorm.library_plan`)."""
+    key = (batch, channels, n, itemsize)
     if key not in _plans:
         _plans[key] = gn.library_plan(
-            'bn_plan', key, bn_plan, _PLAN_KEYS, 'batch_norm_act',
-            {'route_fwd': ROUTES, 'route_bwd': ROUTES})
+            'bn_plan', key[:3], bn_plan, _PLAN_KEYS, 'batch_norm_act',
+            {'route_fwd': ROUTES, 'route_bwd': ROUTES}, itemsize)
     return _plans[key]
 
 
@@ -310,8 +358,9 @@ def _launch_fwd(x, scale, bias, eps, act):
     lib = build.load_library()
     batch, channels, n = _check(x, scale, bias, act)
     device = x.device
+    scale, bias = affine32(scale), affine32(bias)
     with torch.cuda.device(device):
-        plan = plan_info(batch, channels, n)
+        plan = plan_info(batch, channels, n, x.element_size())
         route = plan['route_fwd']
         y = torch.empty_like(x)
         # mean, var and rstd: the rows of one allocation
@@ -321,6 +370,7 @@ def _launch_fwd(x, scale, bias, eps, act):
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             ptr, ptr + 4 * channels, ptr + 8 * channels, batch, channels, n,
             eps, ACTS[act], *_route_args(plan, route, channels),
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream), 'bn_fwd')
     return (y, *stats.unbind())
 
@@ -329,11 +379,12 @@ def _launch_bwd(x, dy, scale, bias, mean, rstd, act):
     lib = build.load_library()
     batch, channels, n = _check(x, scale, bias, act)
     device = x.device
-    _tensor(dy, 'dy', device, tuple(x.shape))
+    _tensor(dy, 'dy', device, tuple(x.shape), (x.dtype,))
     _tensor(mean, 'mean', device, (channels,))
     _tensor(rstd, 'rstd', device, (channels,))
+    scale, bias = affine32(scale), affine32(bias)
     with torch.cuda.device(device):
-        plan = plan_info(batch, channels, n)
+        plan = plan_info(batch, channels, n, x.element_size())
         route = plan['route_bwd']
         dx = torch.empty_like(x)
         # dscale and dbias: the rows of one allocation
@@ -348,5 +399,6 @@ def _launch_bwd(x, dy, scale, bias, mean, rstd, act):
             ptr + 4 * channels, None if work is None else work.data_ptr(),
             batch, channels, n, ACTS[act],
             *_route_args(plan, route, channels),
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream), 'bn_bwd')
     return (dx, *grads.unbind())

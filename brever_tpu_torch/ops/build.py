@@ -63,13 +63,13 @@ SIGNATURES = {
     'lstm_scan_cluster_info': (_I, [_I, ctypes.POINTER(_I)]),
     'lstm_scan_fwd': (_I, [_P] * 4 + [_I] * 5 + [_P]),
     'lstm_scan_bwd': (_I, [_P] * 9 + [_I] * 5 + [_P]),
-    'gn_plan': (_I, [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
-    'gn_fwd': (_I, [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _P]),
+    'gn_plan': (_I, [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)]),
+    'gn_fwd': (_I, [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _I, _P]),
     'gn_bwd_workspace': (ctypes.c_size_t, [_I] * 4),
-    'gn_bwd': (_I, [_P] * 10 + [_I] * 7 + [_P]),
-    'bn_plan': (_I, [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
-    'bn_fwd': (_I, [_P] * 7 + [_I] * 3 + [_F] + [_I] * 4 + [_P]),
-    'bn_bwd': (_I, [_P] * 10 + [_I] * 7 + [_P]),
+    'gn_bwd': (_I, [_P] * 10 + [_I] * 8 + [_P]),
+    'bn_plan': (_I, [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
+    'bn_fwd': (_I, [_P] * 7 + [_I] * 3 + [_F] + [_I] * 5 + [_P]),
+    'bn_bwd': (_I, [_P] * 10 + [_I] * 8 + [_P]),
     'stft_basis': (_I, [_P] * 3 + [_I] * 5 + [_P]),
     'stft_fft': (_I, [_P] * 4 + [_I] * 4 + [_P]),
     'fma_chain': (_I, [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]),

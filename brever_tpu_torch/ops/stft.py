@@ -98,8 +98,12 @@ class STFT:
 
     def _cached(self, cache, make, like):
         """The array ``make()`` returns, as a tensor of ``like``'s real dtype
-        and device; ``make`` runs only when the cache lacks that pair."""
+        (float32 for bfloat16, as the JAX package's float32 window widens a
+        bfloat16 signal's frames) and device; ``make`` runs only when the
+        cache lacks that pair."""
         dtype = like.real.dtype if like.is_complex() else like.dtype
+        if dtype == torch.bfloat16:
+            dtype = torch.float32
         key = (dtype, like.device)
         if key not in cache:
             # a normal tensor even when first made under inference mode,

@@ -9,7 +9,9 @@ from ``--seed``) and its ``BreverTrainer`` on the device, float32 with TF32 off
 (as ``chip_smoke.py`` runs it), or with the trainer's bf16 amp
 (``--use_amp true``, the option of the trainer and of the default configs
 that set it; Conv-TasNet's blocks then take K1/K2's bf16 route,
-TF-GridNet's BLSTMs K3/K4's, DCCRN's complex LSTM K5/K6's), and times ``train_step`` (forward, the
+TF-GridNet's BLSTMs K3/K4's, DCCRN's complex LSTM K5/K6's, SGMSE+'s and
+IDMSE's GroupNorms K7/K8's, MANNER's BatchNorms K7-BN/K8-BN's), and times
+``train_step`` (forward, the
 kernels' backward, global-norm clip where the family clips, Adam) on a
 batch of ``--batch`` x 4 s (default 16; random mixture and target, the
 family's own criterion: ``snr``, ``multiresyu``, SGMSE+'s weighted ``mse``,
@@ -22,8 +24,9 @@ score):
 * ms per step over ``--steps`` steps (CUDA events) with the profiler off
   and on, and the peak device memory of a step;
 * from a ``torch.profiler`` trace of those steps: device time per kernel
-  per step, and the device's idle share, one minus the device's busy time
-  (the union of its activity) over the steps' wall time;
+  per step, the norm kernels' (K7/K8, K7-BN/K8-BN) sum a step, and the
+  device's idle share, one minus the device's busy time (the union of its
+  activity) over the steps' wall time;
 * for MetricGAN, the step's three parts on the host clock (each ended by a
   synchronize): the candidates, their scoring (host PESQ of the enhanced
   and the augmented signals through the spawn pool, whose start-up is paid
@@ -59,6 +62,9 @@ from .train import _bool
 from .training import BreverTrainer
 
 FS = 16000
+#: the norm kernels' names (K7/K8 and K7-BN/K8-BN, either route)
+NORM_KERNELS = ('gn_fwd_cluster', 'gn_bwd_cluster', 'gn_bwd_channels',
+                'bn_bwd_partials', 'bn_bwd_dx')
 
 
 class _Items:
@@ -170,6 +176,9 @@ def profile(device, steps=5, seed=0, trace=None, arch='convtasnet',
         'device_busy_ms_per_step': busy_us / 1e3 / steps,
         'device_idle_share': 1 - busy_us / 1e3 / (ms_on * steps),
         'kernels_per_step': per_step,
+        'norm_kernels_ms_per_step': sum(
+            v['ms'] for name, v in per_step.items()
+            if any(k in name for k in NORM_KERNELS)),
         'step_parts_ms': parts,
     }
 

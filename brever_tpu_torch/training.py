@@ -20,14 +20,16 @@ the cast, and clipping, Adam, the EMA and the checkpoints stay float32. No
 loss scaling: bf16 has float32's exponent range, and the JAX trainer has
 none. Validation metrics enhance with the float32 parameters. A family
 with steps of its own (MetricGAN) ignores ``use_amp``, as the JAX
-``build_steps`` returns before it; a family with a kernel on its path that
-has no bf16 route yet (``amp_refused``: SGMSE+, IDMSE, MANNER) refuses it
-when the trainer is built, before any launch. Conv-TasNet runs its TCN
-blocks through K1/K2's bf16 route on CUDA, TF-GridNet its BLSTMs through
-K3/K4's (K5/K6's under the 128-row floor) and DCCRN its complex LSTM
-through K5/K6's; DCCRN's running statistics stay float32 (its batch norms
-take float32 statistics). Batches are padded to a multiple of 8 rows with rows of length 0,
-which the loss mean drops, as the JAX trainer pads to its mesh.
+``build_steps`` returns before it. On CUDA every other family's kernels
+take their bf16 route: Conv-TasNet runs its TCN blocks through K1/K2's,
+TF-GridNet its BLSTMs through K3/K4's (K5/K6's under the 128-row floor),
+DCCRN its complex LSTM through K5/K6's, SGMSE+ and IDMSE their U-Net's
+GroupNorms through K7/K8's (IDMSE's external-affine ``norm_2`` through the
+plain route in float32, as the JAX package's) and MANNER its train-mode
+BatchNorms through K7-BN/K8-BN's; DCCRN's and MANNER's running statistics
+stay float32 (their batch norms take float32 statistics). Batches are
+padded to a multiple of 8 rows with rows of length 0, which the loss mean
+drops, as the JAX trainer pads to its mesh.
 
 Checkpoints are the JAX trainer's msgpack layout (``training.py``
 ``save_checkpoint``): flax parameter trees, optax's optimizer state (below),
@@ -77,8 +79,7 @@ the enhanced rows go to the host once a batch and the host metrics
 realignment) score them.
 
 Not ported yet, and refused when the trainer is built (ROADMAP.md):
-``ddp``, ``profile`` and ``use_wandb``, and ``use_amp`` for the families
-above.
+``ddp``, ``profile`` and ``use_wandb``.
 ``compile`` is accepted and ignored, as the JAX trainer ignores it; so is
 ``rank``.
 """
@@ -208,10 +209,6 @@ class BreverTrainer:
         seed: int = 0,
         pad_quantum: float = 0.5,
     ):
-        if use_amp and model.amp_refused:
-            raise NotImplementedError(
-                f'bf16 amp (use_amp) for {type(model).__name__} needs '
-                f'{model.amp_refused}, which is not ported yet')
         if ddp:
             _refuse('ddp', 'Queue 1')
         if profile:

@@ -78,7 +78,7 @@ each print one line, with the seconds since the start:
     time a call; each shape's route and cluster), beside their plain
     versions and ``F.group_norm`` + ``F.silu``; the denoiser at 4 x 4 s,
     ``enhance`` of 1 x 2 s, the train step at 4 x 4 s (kernel and plain
-    GroupNorms) and at 16 x 4 s, peak memory;
+    GroupNorms) and at 8 x 4 s, peak memory;
 22. the gates-in LSTM scan kernels (K5 forward, K6 backward) against
     their plain versions at DCCRN's two complex-LSTM shapes at 16 x 4 s
     and at B = 1, TF-GridNet's short-request intra shape, H 32..256 at
@@ -140,8 +140,8 @@ each print one line, with the seconds since the start:
     the backward in float64, twice bitwise; a 128-row BLSTM at H = 384
     routed to the projection + K5; times at H = 512;
 37. IDMSE from ``EnhanceService(model_dir)``: the denoiser (2 x 4 s) and
-    ``enhance`` (1 x 4 s, one generator seed) against the plain path in
-    float64, K7 launches per evaluation, HTTP requests of 0.05 and 4 s;
+    ``enhance`` (1 x 2 s, one generator seed) against the plain path in
+    float64, K7 launches per evaluation, HTTP requests of 0.05 and 2 s;
 38. IDMSE's gradients (2 x 2 s) against the plain path in float64, beside
     the plain float32 path's;
 39. IDMSE trained through train.main on a WAV dataset written here: the
@@ -169,7 +169,7 @@ each print one line, with the seconds since the start:
 45. the HTTP service over that model directory's checkpoint;
 46. the validation-metric twins (STOI, ESTOI, PESQ wb and nb, SNR) on a
     batch of 16 x 4 s at ragged lengths on the card against the same twins
-    in float64 on the CPU, the identity PESQ, each one's ms a batch;
+    in float64 on the card, the identity PESQ, each one's ms a batch;
 47. timings: FFNN's f32 train step at 8 x 4 s (its config's 32 s of audio a
     batch) with its peak memory, ``enhance`` of 1 x 4 s and 16 x 4 s;
 48. the host metric twins (float64 STOI, ESTOI, PESQ wb and nb with its
@@ -228,10 +228,32 @@ each print one line, with the seconds since the start:
     and K6-bf16, its running statistics float32;
 62. TF-GridNet's and DCCRN's amp train steps at 16 x 4 s against their
     float32 steps in turns, with peak memory, the LSTM kernels' device time
-    a step and the card's idle share.
+    a step and the card's idle share;
+63. K7-, K8-, K7-BN- and K8-BN-bf16 against their bf16 twins and float64
+    at every GroupNorm class of an ``sgmsep`` and an ``idmse`` evaluation
+    at 4 x 4 s, ragged and unaligned shapes, and every BatchNorm class of a
+    MANNER step at 16 x 4 s (every route of the bf16 plans), reruns
+    bitwise; their times at the largest shapes against the float32 route,
+    the twin and the library in bf16, K8-BN-bf16 on both routes; the
+    launches of a call from a fresh-interpreter trace (their own kernels
+    at ``__nv_bfloat16``, no cuDNN);
+64. the default ``sgmsep`` (65,590,694 parameters) under bf16 amp: one
+    step's loss and gradients against float64, the same amp step through
+    the norms' bf16 twins and the float32 plain path; ``train.main`` from
+    the untouched ``sgmsep.yaml`` on FLAC tars (K7-bf16 and K8-bf16
+    launch, no bf16 tensor reaches a norm twin on the card, last.ckpt
+    resumes bitwise); one amp enhance;
+65. the same for ``idmse`` (16,613,378) from ``idmse.yaml``, and one amp
+    step each of ``idmselarge`` and ``sgmsepmheun``;
+66. the same for MANNER (21,253,921) from ``manner.yaml``: K7-BN-bf16 and
+    K8-BN-bf16, its running statistics float32;
+67. the amp train steps of ``sgmsep`` and ``idmse`` at 4 x 4 s and MANNER
+    at 16 x 4 s against their float32 steps in turns, with peak memory, the
+    bf16 norm kernels' device time a step and the card's idle share (a
+    trace in a fresh interpreter).
 
 Float32 through phase 53, with TF32 off for cuDNN and cuBLAS so that the
-comparisons hold the kernels to float32; phases 54-62, which run after
+comparisons hold the kernels to float32; phases 54-67, which run after
 phase 9, take the bf16 route. Any failure raises (non-zero
 exit). The line before the last is a JSON record of each kernel: its
 launches on the main paths, error, time, plain time, the bound (the
@@ -518,14 +540,14 @@ def train_args(model_dir, epochs, val_period, metrics='snr,sisnr'):
             '--val_period', str(val_period), '--use_amp', 'false']
 
 
-def train_and_resume(args, epochs, counters, after_first=None):
+def train_and_resume(args, epochs, counters, after_first=None, more=2):
     """``train.main(args(epochs))`` with every launch counter of
     ``counters`` set to 0 just before and read just after; then a trainer
     built from the same command line restores last.ckpt and is held
     bitwise against the first run's state (parameters, Adam's moments,
     learning rate or a schedule's count, the loss's generator, the
     buffers), and
-    ``train.main`` resumes to ``epochs + 2``. Returns the first and the
+    ``train.main`` resumes to ``epochs + more``. Returns the first and the
     resumed trainer, the first run's seconds and launch counts;
     ``after_first`` (optional) runs right after the first run."""
     from brever_tpu_torch import train
@@ -538,7 +560,7 @@ def train_and_resume(args, epochs, counters, after_first=None):
     launches = [getattr(fn, attr) for fn, attr in counters]
     if after_first is not None:
         after_first()
-    probe = train.build_trainer(args(epochs + 2) + ['--force'])
+    probe = train.build_trainer(args(epochs + more) + ['--force'])
     probe.init_state()
     probe.load_checkpoint()
     buffers = [(a, b) for a, b in zip(probe.model.buffers(),
@@ -560,9 +582,9 @@ def train_and_resume(args, epochs, counters, after_first=None):
             or probe.epochs_ran != epochs:
         raise AssertionError('resume did not restore the state')
     del probe
-    second = train.main(args(epochs + 2) + ['--force'])
-    if second.epochs_ran != epochs + 2 \
-            or len(second.loss_logger.train_loss) != epochs + 2:
+    second = train.main(args(epochs + more) + ['--force'])
+    if second.epochs_ran != epochs + more \
+            or len(second.loss_logger.train_loss) != epochs + more:
         raise AssertionError(f'resumed run ended at epoch '
                              f'{second.epochs_ran}')
     return first, second, seconds, launches
@@ -702,7 +724,13 @@ def check_grads(name, ref, got):
 
 def in_turns(fns, iters, warmup):
     """Mean ms of each named function over the turns plain, kernel,
-    kernel, plain, and the peak device memory of each."""
+    kernel, plain, and the peak device memory of each. ``warmup`` calls
+    precede each turn; ``warmup=None``: one call of each before the first
+    turn instead (for steps of seconds)."""
+    if warmup is None:
+        for fn in fns.values():
+            fn()
+        warmup = 0
     runs = {name: [] for name in fns}
     peak = {name: 0 for name in fns}
     for name in ('plain', 'kernel', 'kernel', 'plain'):
@@ -766,9 +794,7 @@ def plain_lstms():
 
 
 def lstm_inputs(rng, steps, n_dir, rows, feat, hidden, device='cuda'):
-    def arr(*s, scale=1.0):
-        return torch.from_numpy((scale * rng.randn(*s)).astype(np.float32)) \
-            .to(device)
+    arr = device_draws(rng, device)
 
     return (arr(steps, n_dir, rows, feat),
             arr(n_dir, feat, 4 * hidden, scale=hidden ** -0.5),
@@ -1188,10 +1214,20 @@ def plain_groupnorms():
         net.group_norm_silu = groupnorm.group_norm_silu
 
 
-def gn_inputs(rng, shape, device='cuda'):
+def device_draws(rng, device):
+    """``arr(*shape, scale=1.0, center=0.0)``: float32 normal draws made on
+    ``device`` from a generator seeded by ``rng`` (a numpy draw of the
+    U-Net's and MANNER's largest tensors takes seconds on the host)."""
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.randint(2 ** 31)))
+
     def arr(*s, scale=1.0, center=0.0):
-        return torch.from_numpy((center + scale * rng.randn(*s))
-                                .astype(np.float32)).to(device)
+        return center + scale * torch.randn(*s, generator=gen, device=device)
+    return arr
+
+
+def gn_inputs(rng, shape, device='cuda'):
+    arr = device_draws(rng, device)
 
     return (arr(*shape, scale=2.0, center=0.3), arr(shape[1], scale=0.1,
                                                     center=1.0),
@@ -1672,7 +1708,7 @@ def sgmse_phases(device, card):
             gpu.model.model(xs, ys, sigma, t)
 
     den_ms, den_peak = in_turns({'kernel': denoise, 'plain': plain(denoise)},
-                                2, 1)
+                                1, None)
     # 1 x 2 s (the smoke's time limit: 1 x 4 s before the bf16 phases)
     mix = torch.from_numpy((0.1 * rng.randn(1, 2, 2 * FS))
                            .astype(np.float32)).to(device)
@@ -1697,24 +1733,27 @@ def sgmse_phases(device, card):
         def step():
             step_trainer.train_step(data, n)
 
-        steps['4'] = in_turns({'kernel': step, 'plain': plain(step)}, 1, 1)
+        steps['4'] = in_turns({'kernel': step, 'plain': plain(step)}, 1,
+                              None)
         del step_trainer, data, n
         torch.cuda.empty_cache()
+        # 8 x 4 s (the smoke's time limit: 16 x 4 s before the norms'
+        # bf16 phases)
         try:
-            step_trainer, data, n = make_trainer(device, tmp, batch=16,
+            step_trainer, data, n = make_trainer(device, tmp, batch=8,
                                                  arch='sgmsep')
             torch.cuda.reset_peak_memory_stats()
-            ms16 = cuda_ms(step, 1, 1)
-            steps['16'] = (ms16, torch.cuda.max_memory_allocated())
+            ms8 = cuda_ms(step, 1, 1)
+            steps['8'] = (ms8, torch.cuda.max_memory_allocated())
         except torch.cuda.OutOfMemoryError as e:
-            steps['16'] = (None, str(e).splitlines()[0])
+            steps['8'] = (None, str(e).splitlines()[0])
         step_trainer = data = n = None
     torch.cuda.empty_cache()
     out.update(den_ms=den_ms, enh_ms=enh_ms, steps=steps)
     mib = 2 ** 20
-    (s4_ms, s4_peak), (s16_ms, s16_peak) = steps['4'], steps['16']
-    big = (f'{s16_ms:.1f} ms, peak {s16_peak / mib:.1f} MiB'
-           if s16_ms is not None else f'did not fit ({s16_peak})')
+    (s4_ms, s4_peak), (s8_ms, s8_peak) = steps['4'], steps['8']
+    big = (f'{s8_ms:.1f} ms, peak {s8_peak / mib:.1f} MiB'
+           if s8_ms is not None else f'did not fit ({s8_peak})')
     shapes = '; '.join(
         f'{tuple(r["shape"])}{"" if r["act"] == "silu" else " none"} x'
         f'{r["count"]} {r["route"]}/{r["cluster"]} K7 '
@@ -1747,7 +1786,7 @@ def sgmse_phases(device, card):
           f'ms); train step 4 x 4 s f32 {s4_ms["kernel"]:.1f} ms, peak '
           f'{s4_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
           f'{s4_ms["plain"]:.1f} ms, {s4_peak["plain"] / mib:.1f} MiB); '
-          f'train step 16 x 4 s {big}')
+          f'train step 8 x 4 s {big}')
     return out
 
 
@@ -3206,7 +3245,9 @@ def idmse_phases(device, card):
     den_db, den_err, den_plain_db = denoiser_check('idmse', gpu, state,
                                                    device, 37)
     ref64 = sgmse_model(state, device, torch.float64, 'idmse')
-    mix = (0.3 * np.random.RandomState(38).randn(1, 2, 4 * FS)) \
+    # 1 x 2 s (the smoke's time limit: 1 x 4 s before the norms' bf16
+    # phases; each is a float64 solve)
+    mix = (0.3 * np.random.RandomState(38).randn(1, 2, 2 * FS)) \
         .astype(np.float32)
 
     def enhance(model, audio=mix):
@@ -3219,7 +3260,7 @@ def idmse_phases(device, card):
     enh_launches = k7.launches
     with plain_groupnorms():
         want = enhance(ref64)
-    enh_db, enh_err = check_close('idmse enhance (1, 2, 64000)', ('wav',),
+    enh_db, enh_err = check_close('idmse enhance (1, 2, 32000)', ('wav',),
                                   (want,), (got,))
     evals = gpu.model.solver.evaluations
     if enh_launches != evals * per_eval:
@@ -3232,7 +3273,7 @@ def idmse_phases(device, card):
         if health['params'] != IDMSE_PARAMS['idmse'] \
                 or health['arch'] != 'idmse':
             raise AssertionError(f'/health: {health}')
-        for seconds in (0.05, 4):
+        for seconds in (0.05, 2):
             audio = (0.1 * np.random.RandomState(39).randn(
                 int(seconds * FS))).astype(np.float32)
             before = k7.launches
@@ -3255,7 +3296,7 @@ def idmse_phases(device, card):
           f'max abs err {den_err:.3e} vs the plain path in float64 (plain '
           f'float32 {den_plain_db:.1f} dB), {per_eval} K7 launches an '
           f'evaluation (its 20 external-affine GroupNorms on the plain '
-          f'route); enhance (1 x 4 s, {evals} evaluations, generator seed 0 '
+          f'route); enhance (1 x 2 s, {evals} evaluations, generator seed 0 '
           f'on both paths) {enh_db:.1f} dB (>= {MIN_SNR_DB}), max abs err '
           f'{enh_err:.3e}, {enh_launches} K7 '
           f'launches; /health ok, /enhance {", ".join(results)} vs the '
@@ -3428,7 +3469,7 @@ def idmse_phases(device, card):
             trainer.train_step(data, n)
 
         step_ms, step_peak = in_turns({'kernel': step,
-                                       'plain': plain_gn(step)}, 1, 1)
+                                       'plain': plain_gn(step)}, 1, None)
         del trainer, data, n
     torch.cuda.empty_cache()
     out.update(den_ms=den_ms, enh_ms=enh_ms, step_ms=step_ms,
@@ -3881,8 +3922,9 @@ def metric_batch(rng):
 
 def metric_phase(device, card):
     """Phase 46: the validation-metric twins on a batch of 16 x 4 s at ragged
-    lengths on the card against the same twins in float64 on the CPU, the
-    identity PESQ, and each metric's ms for that batch."""
+    lengths on the card against the same twins in float64 (on the card: on
+    the host they took 35-57 s of the smoke), the identity PESQ, and each
+    metric's ms for that batch."""
     from brever_tpu_torch import metrics_device as twins
     deg, ref, lengths = metric_batch(np.random.RandomState(46))
     x = torch.from_numpy(deg).float().to(device)
@@ -3899,7 +3941,8 @@ def metric_phase(device, card):
     out, notes = {'err': {}, 'ms': {}}, []
     for name, (fn, atol) in metrics.items():
         got = fn(x, y, n_dev)
-        want = fn(torch.from_numpy(deg), torch.from_numpy(ref), lengths)
+        want = fn(torch.from_numpy(deg).to(device),
+                  torch.from_numpy(ref).to(device), n_dev).cpu()
         got = got.cpu().double()
         if got.shape != (len(lengths),) or not torch.isfinite(got).all():
             raise AssertionError(f'{name} on the card: {got}')
@@ -3917,8 +3960,9 @@ def metric_phase(device, card):
     if abs(identity - PESQ_WB_MAX) > PESQ_MAX_ATOL:
         raise AssertionError(f'identity PESQ {identity}')
     phase(46, f'[{card}] metric twins on a validation batch of 16 x 4 s at '
-          f'ragged lengths (0.25-4 s, 20 to -5 dB) on the card vs float64 on '
-          f'the CPU, max abs err (range) and ms a batch: {"; ".join(notes)} '
+          f'ragged lengths (0.25-4 s, 20 to -5 dB) on the card vs float64 '
+          f'(on the card), max abs err (range) and ms a batch: '
+          f'{"; ".join(notes)} '
           f'(bounds: STOI {STOI_ATOL}, PESQ {PESQ_ATOL} MOS); identity '
           f'wideband PESQ {identity:.6f} ({PESQ_WB_MAX})')
     return out
@@ -4977,23 +5021,9 @@ def lstm_check(name, got, twin, exact, min_db=LSTM_BF16_TWIN_DB):
     ``exact``, on the card: finite, SNR against the twin >= ``min_db`` and
     no farther from float64 than the twin (BF16_F64_SLACK_DB). Returns (SNR
     vs twin, SNR vs float64, twin's, max abs err vs the twin)."""
-    if got.dtype != torch.bfloat16 or got.shape != twin.shape:
+    if got.dtype != torch.bfloat16:
         raise AssertionError(f'{name}: {got.dtype} {tuple(got.shape)}')
-    got, twin, exact = (t.detach().double() for t in (got, twin, exact))
-    if not torch.isfinite(got).all():
-        raise AssertionError(f'{name}: not finite')
-
-    def db(a, b):
-        err = ((a - b) ** 2).sum().clamp_min(1e-300)
-        return 10 * math.log10((b ** 2).sum().item() / err.item())
-
-    vs_twin, vs_exact, twin_exact = db(got, twin), db(got, exact), \
-        db(twin, exact)
-    if vs_twin < min_db or vs_exact < twin_exact - BF16_F64_SLACK_DB:
-        raise AssertionError(f'{name}: SNR vs twin {vs_twin:.2f} dB (>= '
-                             f'{min_db}), vs float64 {vs_exact:.2f} dB, the '
-                             f'twin\'s {twin_exact:.2f} dB')
-    return vs_twin, vs_exact, twin_exact, (got - twin).abs().max().item()
+    return twin_check(name, got, twin, exact, min_db)
 
 
 def bf16_lstm_inputs(gen, steps, n_dir, rows, feat, hidden, device):
@@ -5339,6 +5369,856 @@ def rnn_amp_training(arch, L):
           'launches, no bf16 tensor in an LSTM twin on the card; resumed '
           f'bitwise from last.ckpt to epoch {second.epochs_ran}')
     return {'launches': launches[:4], 'seconds': train_s, 'losses': losses}
+
+
+# ---------------------------------------------------------------------------
+# SGMSE+, IDMSE and MANNER under bf16 amp (K7/K8's and K7-BN/K8-BN's bf16
+# route)
+
+#: K7/K8-bf16 and K7-BN/K8-BN-bf16 against their bf16 twin on the card:
+#: each tensor's SNR at least this (dB)
+NORM_BF16_TWIN_DB = 40.0
+#: a float32 output (statistics, the affine's gradients) this close to
+#: float64 (dB) passes however close the twin is: both are then at float32
+#: rounding (a C = 1 gate's dscale is one number: the kernel's double sum
+#: of float32 terms read 140.0 dB, the twin's float32 sum 144.1)
+NORM_F32_EXACT_DB = 100.0
+#: phase 63's GroupNorm cases past the U-Nets' classes, (shape, groups):
+#: odd N, B = 1, G = C, a rank-3 odd length, a slab past a 16-block
+#: cluster on the vector grid and off it (odd N); GN_UNALIGNED's x and dy
+#: also run one element past an 8-byte boundary
+GN_BF16_RAGGED = [((1, 384, 7, 13), 32), ((2, 64, 33, 17), 64),
+                  ((3, 96, 1001), 24), ((1, 64, 256, 256), 2),
+                  ((2, 64, 255, 257), 2)]
+#: the bf16 route's shapes for the launches of one call: K7/K8 on each
+#: route of the bf16 plan (one block, a cluster that holds the slab, past
+#: it), K7-BN/K8-BN at bench_batchnorm's TRACE_SHAPES
+GN_BF16_TRACE_SHAPES = (((4, 256, 16, 32), 32), ((4, 256, 256, 501), 32),
+                        ((1, 64, 256, 256), 2))
+#: phase 63's timed shapes: SGMSE+'s largest GroupNorm, (shape, groups)
+GN_BF16_TIMED = ((4, 256, 256, 501), 32)
+#: the default models trained from their untouched configs under amp
+#: (phases 64-66), then resumed to one epoch more, where the validation
+#: falls: FLAC items (train, val), their seconds, epochs, validation
+#: period. MANNER's one-cycle schedule spans the run's steps and has no
+#: finite rate over fewer than 4 (optax's as the port's): its config's
+#: batches of up to 32 s take 4 items of 4 s in one step an epoch
+NORM_AMP_TRAIN = {'sgmsep': (8, 1, 1.0, 1, 2), 'idmse': (8, 1, 1.0, 1, 2),
+                  'manner': (4, 1, 4.0, 4, 5)}
+#: the amp gradients of one full-width step (2 x 2 s) against float64: the
+#: relative error of the whole gradient at most this (a bf16 trunk keeps
+#: ~3 significant digits; the float32 plain path's is printed beside)
+NORM_AMP_GRAD_REL = 0.1
+#: the kernels each bf16 norm call launches, by route
+NORM_BF16_KERNELS = {
+    'k7': ['gn_fwd_cluster'], 'k8': ['gn_bwd_cluster', 'gn_bwd_channels'],
+    'k7bn': ['gn_fwd_cluster'], 'k8bn': ['gn_bwd_cluster'],
+    'k8bn_passes': ['bn_bwd_partials', 'bn_bwd_dx']}
+
+NORM_BF16_TRACE = """
+import json
+import torch
+from brever_tpu_torch.bench_batchnorm import TRACE_SHAPES
+from brever_tpu_torch.numerics import disable_tf32
+from brever_tpu_torch.ops import batchnorm as bn
+from brever_tpu_torch.ops import groupnorm as gn
+import chip_smoke
+
+disable_tf32()
+dev = torch.device('cuda', 0)
+gen = torch.Generator(device=dev).manual_seed(63)
+bf = torch.bfloat16
+
+
+def rand(*shape, scale=1.0, center=0.0):
+    return (center + scale * torch.randn(*shape, generator=gen, device=dev)
+            ).to(bf)
+
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if got:
+            break
+    return got
+
+
+out = []
+with torch.no_grad():
+    for shape, groups in chip_smoke.GN_BF16_TRACE_SHAPES:
+        x, dy = rand(*shape), rand(*shape)
+        scale, bias = rand(shape[1], scale=0.1, center=1.0), rand(shape[1])
+        _, mean, rstd = gn.group_norm_act_fwd(x, scale, bias, groups, 1e-6,
+                                              'silu')
+        n = x[0, 0].numel()
+        out.append({
+            'shape': shape, 'route': gn.plan_info(shape[0], shape[1], n,
+                                                  groups, 2)['route'],
+            'k7': names(lambda: gn.group_norm_act_fwd(
+                x, scale, bias, groups, 1e-6, 'silu')),
+            'k8': names(lambda: gn.group_norm_act_bwd(
+                x, dy, scale, bias, mean, rstd, groups, 'silu'))})
+    for shape in TRACE_SHAPES:
+        x, dy = rand(*shape), rand(*shape)
+        scale, bias = rand(shape[1], scale=0.1, center=1.0), rand(shape[1])
+        _, mean, _, rstd = bn.batch_norm_act_fwd(x, scale, bias, 1e-5,
+                                                 'relu')
+        plan = bn.plan_info(*shape, 2)
+        out.append({
+            'shape': shape, 'route': plan['route_fwd'],
+            'route_bwd': plan['route_bwd'],
+            'k7bn': names(lambda: bn.batch_norm_act_fwd(
+                x, scale, bias, 1e-5, 'relu')),
+            'k8bn': names(lambda: bn.batch_norm_act_bwd(
+                x, dy, scale, bias, mean, rstd, 'relu'))})
+print(json.dumps(out))
+"""
+
+
+def norm_bf16_trace():
+    """Starts tracing one call of each bf16 norm kernel on each route in a
+    fresh interpreter (:func:`norm_traced_kernels` waits)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, '-c', NORM_BF16_TRACE],
+                            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def norm_traced_kernels(run):
+    """The kernels each traced bf16 norm call of ``run`` launched; fails
+    unless each launched its route's kernels once each
+    (``NORM_BF16_KERNELS``), the templated ones at ``__nv_bfloat16``, and
+    besides them
+    only PyTorch's elementwise kernels (the wrapper's widening of the bf16
+    affine to float32): no cuDNN kernel. Returns ``{key: launches a
+    call}``. Stops the process in any case."""
+    try:
+        stdout, stderr = run.communicate(timeout=600)
+    finally:
+        run.kill()
+    if run.returncode:
+        raise AssertionError(f'bf16 norm trace: {stderr[-3000:]}')
+    counts = {}
+    for case in json.loads(stdout.strip().splitlines()[-1]):
+        for key in ('k7', 'k8', 'k7bn', 'k8bn'):
+            if key not in case:
+                continue
+            got = case[key]
+            want = NORM_BF16_KERNELS[
+                'k8bn_passes' if key == 'k8bn'
+                and case['route_bwd'] == 'passes' else key]
+            ours = [n for n in got if any(k in n for k in want)]
+            other = [n for n in got if n not in ours
+                     and 'at::native' not in n]
+            # (gn_bwd_channels sums float32 partials: not a template)
+            if len(ours) != len(want) or any(
+                    sum(k in n for n in ours) != 1 for k in want) \
+                    or any('<' in n and 'bfloat16' not in n
+                           for n in ours) or other:
+                raise AssertionError(f'{key.upper()}-bf16 at {case["shape"]}'
+                                     f' ({case["route"]}) launched {got}')
+            counts[key] = len(ours)
+    return counts
+
+
+def twin_check(name, got, twin, exact, min_db=NORM_BF16_TWIN_DB):
+    """``got`` (a bf16 output, or a float32 statistic or affine gradient)
+    against its twin's ``twin`` (the same dtype) and float64 ``exact``, on
+    the card: finite, SNR against the twin >= ``min_db`` and no farther
+    from float64 than the twin (BF16_F64_SLACK_DB; a float32 output may
+    instead be NORM_F32_EXACT_DB from it). Returns (SNR vs twin,
+    SNR vs float64, twin's, max abs err vs the twin)."""
+    if got.dtype != twin.dtype or got.shape != twin.shape:
+        raise AssertionError(f'{name}: {got.dtype} {tuple(got.shape)}, the '
+                             f'twin\'s {twin.dtype} {tuple(twin.shape)}')
+    dtype = got.dtype
+    got, twin, exact = (t.detach().double() for t in (got, twin, exact))
+    if not torch.isfinite(got).all():
+        raise AssertionError(f'{name}: not finite')
+
+    def db(a, b):
+        err = ((a - b) ** 2).sum().clamp_min(1e-300)
+        return 10 * math.log10(max((b ** 2).sum().item(), 1e-300)
+                               / err.item())
+
+    vs_twin, vs_exact, twin_exact = db(got, twin), db(got, exact), \
+        db(twin, exact)
+    floor = twin_exact - BF16_F64_SLACK_DB
+    if dtype == torch.float32:
+        floor = min(floor, NORM_F32_EXACT_DB)
+    if vs_twin < min_db or vs_exact < floor:
+        raise AssertionError(f'{name}: SNR vs twin {vs_twin:.2f} dB (>= '
+                             f'{min_db}), vs float64 {vs_exact:.2f} dB, the '
+                             f'twin\'s {twin_exact:.2f} dB')
+    return vs_twin, vs_exact, twin_exact, (got - twin).abs().max().item()
+
+
+def meta_calls(arch):
+    """The norm calls of one ``arch`` forward at its reference shape,
+    recorded on the meta device (no arithmetic): ``{(shape, groups, silu):
+    count}`` of an SGMSE+/IDMSE U-Net evaluation at 4 x 4 s
+    (``bench_groupnorm.unet_calls``), ``{(shape, act): count}`` of a MANNER
+    train-mode forward at 16 x 4 s (``bench_batchnorm.manner_calls``)."""
+    from brever_tpu_torch.models import ModelRegistry, common
+    from brever_tpu_torch.models.sgmse import net
+    model = ModelRegistry.get(arch)(device='meta')
+    if arch == 'manner':
+        from brever_tpu_torch.bench_batchnorm import manner_calls
+        inner = common.batch_norm_act
+        common.batch_norm_act = lambda x, scale, *a, **k: (x, scale, scale)
+        try:
+            return manner_calls(model, 'meta')
+        finally:
+            common.batch_norm_act = inner
+    from brever_tpu_torch.bench_groupnorm import unet_calls
+    inner = net.group_norm_silu
+    net.group_norm_silu = lambda x, *a, **k: x
+    try:
+        return unet_calls(model, 'meta')
+    finally:
+        net.group_norm_silu = inner
+
+
+def norm_bf16_phase(device, card):
+    """Phase 63: K7-, K8-, K7-BN- and K8-BN-bf16 against their bf16 twins
+    and float64 at every GroupNorm class of one ``sgmsep`` and one
+    ``idmse`` evaluation at 4 x 4 s (and ragged shapes) and every
+    BatchNorm class of a MANNER step at 16 x 4 s (every route of the bf16
+    plans), reruns bitwise; their times at the largest shapes against the
+    float32 route, the twin and the library in bf16; the launches of a
+    call from a trace in a fresh interpreter. Returns what the kernels'
+    JSON records read."""
+    from brever_tpu_torch.ops import batchnorm as bn
+    from brever_tpu_torch.ops import groupnorm as gn
+    bf = torch.bfloat16
+    tracer = norm_bf16_trace()
+    try:
+        gen = torch.Generator(device=device).manual_seed(63)
+
+        def rand(*shape, scale=1.0, center=0.0, dtype=bf):
+            return (center + scale * torch.randn(*shape, generator=gen,
+                                                 device=device)).to(dtype)
+
+        worst = {k: float('inf') for k in ('k7', 'k8', 'k7bn', 'k8bn')}
+        err = {k: 0.0 for k in worst}
+        gap = -float('inf')
+        routes = {'gn': set(), 'bn_fwd': set(), 'bn_bwd': set()}
+
+        def held(key, label, names, gots, twins, exacts):
+            nonlocal gap
+            for part, got, twin, exact in zip(names, gots, twins, exacts):
+                vs_twin, vs_exact, twin_exact, e = twin_check(
+                    f'{key.upper()}-bf16 {label} {part}', got, twin, exact)
+                worst[key] = min(worst[key], vs_twin)
+                err[key] = max(err[key], e)
+                gap = max(gap, twin_exact - vs_exact)
+
+        def unaligned(t):
+            """``t`` one element past an 8-byte boundary (the 2-byte
+            route)."""
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+            out = flat[1:].view(t.shape)
+            out.copy_(t)
+            return out
+
+        gn_cases = {}
+        for arch in ('sgmsep', 'idmse'):
+            for (shape, groups, silu), _ in meta_calls(arch).items():
+                gn_cases[(shape, groups)] = gn_cases.get(
+                    (shape, groups), set()) | {silu}
+        n_classes = len(gn_cases)
+        for shape, groups in GN_BF16_RAGGED:
+            gn_cases[(tuple(shape), groups)] = {True}
+        gn_cases[(GN_UNALIGNED[0], GN_UNALIGNED[1], 'unaligned')] = {True}
+        for key, acts in gn_cases.items():
+            shape, groups = key[0], key[1]
+            for silu in sorted(acts):
+                act = 'silu' if silu else 'none'
+                x, dy = rand(*shape, scale=2.0, center=0.3), rand(*shape)
+                scale = rand(shape[1], scale=0.1, center=1.0)
+                bias = rand(shape[1], scale=0.1)
+                if len(key) == 3:
+                    x, dy = unaligned(x), unaligned(dy)
+                label = (f'{shape} G={groups} {act}'
+                         + ' unaligned' * (len(key) == 3))
+                n = x[0, 0].numel()
+                routes['gn'].add(gn.plan_info(shape[0], shape[1], n, groups,
+                                              2)['route'])
+                with torch.no_grad():
+                    y, mean, rstd = gn.group_norm_act_fwd(x, scale, bias,
+                                                          groups, 1e-6, act)
+                    again = gn.group_norm_act_fwd(x, scale, bias, groups,
+                                                  1e-6, act)
+                    if not all(torch.equal(a, b) for a, b in zip(
+                            (y, mean, rstd), again)):
+                        raise AssertionError(f'K7-bf16 {label}: two runs '
+                                             'differ')
+                    twin = gn.group_norm_act_reference(x, scale, bias,
+                                                       groups, 1e-6, act)
+                    wide = [t.double() for t in (x, scale, bias)]
+                    exact = gn.group_norm_act_reference(*wide, groups, 1e-6,
+                                                        act)
+                    held('k7', label, ('y', 'mean', 'rstd'),
+                         (y, mean, rstd), twin, exact)
+                    grads = gn.group_norm_act_bwd(x, dy, scale, bias, mean,
+                                                  rstd, groups, act)
+                    again = gn.group_norm_act_bwd(x, dy, scale, bias, mean,
+                                                  rstd, groups, act)
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(grads, again)):
+                        raise AssertionError(f'K8-bf16 {label}: two runs '
+                                             'differ')
+                    twin_g = gn.group_norm_act_bwd_plain(
+                        x, dy, scale, bias, *twin[1:], groups, act)
+                    exact_g = gn.group_norm_act_bwd_plain(
+                        wide[0], dy.double(), *wide[1:], *exact[1:], groups,
+                        act)
+                    held('k8', label, ('dx', 'dscale', 'dbias'), grads,
+                         twin_g, exact_g)
+                del x, dy, y, mean, rstd, again, twin, wide, exact, grads
+                del twin_g, exact_g
+        torch.cuda.empty_cache()
+        bn_cases = dict.fromkeys(meta_calls('manner'))
+        n_bn_classes = len(bn_cases)
+        for shape in BN_CASES:
+            bn_cases[(shape, 'relu')] = None
+        for shape, act in bn_cases:
+            x, dy = rand(*shape, scale=2.0, center=0.5), rand(*shape)
+            scale = rand(shape[1], scale=0.1, center=1.0)
+            bias = rand(shape[1], scale=0.1)
+            label = f'{shape} {act}'
+            plan = bn.plan_info(*shape, 2)
+            routes['bn_fwd'].add(plan['route_fwd'])
+            routes['bn_bwd'].add(plan['route_bwd'])
+            with torch.no_grad():
+                out = bn.batch_norm_act_fwd(x, scale, bias, 1e-5, act)
+                again = bn.batch_norm_act_fwd(x, scale, bias, 1e-5, act)
+                if not all(torch.equal(a, b) for a, b in zip(out, again)):
+                    raise AssertionError(f'K7-BN-bf16 {label}: two runs '
+                                         'differ')
+                twin = bn.batch_norm_act_reference(x, scale, bias, 1e-5, act)
+                wide = [t.double() for t in (x, scale, bias)]
+                exact = bn.batch_norm_act_reference(*wide, 1e-5, act)
+                held('k7bn', label, ('y', 'mean', 'var', 'rstd'), out, twin,
+                     exact)
+                y, mean, var, rstd = out
+                grads = bn.batch_norm_act_bwd(x, dy, scale, bias, mean, rstd,
+                                              act)
+                again = bn.batch_norm_act_bwd(x, dy, scale, bias, mean, rstd,
+                                              act)
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise AssertionError(f'K8-BN-bf16 {label}: two runs '
+                                         'differ')
+                twin_g = bn.batch_norm_act_bwd_plain(
+                    x, dy, scale, bias, twin[1], twin[3], act)
+                exact_g = bn.batch_norm_act_bwd_plain(
+                    wide[0], dy.double(), *wide[1:], exact[1], exact[3], act)
+                held('k8bn', label, ('dx', 'dscale', 'dbias'), grads, twin_g,
+                     exact_g)
+            del x, dy, out, again, twin, wide, exact, grads, twin_g, exact_g
+        torch.cuda.empty_cache()
+
+        # times at the largest shapes: the bf16 route, the float32 route,
+        # the bf16 twin and the library in bf16, in turns
+        import torch.nn.functional as F
+        timing = {}
+        for key, shape, groups, act in (
+                ('gn', *GN_BF16_TIMED, 'silu'), ('bn', BN_CASES[0], None,
+                                                 'relu')):
+            x32 = rand(*shape, scale=2.0, center=0.3, dtype=torch.float32)
+            dy32 = rand(*shape, dtype=torch.float32)
+            s32 = rand(shape[1], scale=0.1, center=1.0, dtype=torch.float32)
+            b32 = rand(shape[1], scale=0.1, dtype=torch.float32)
+            x, dy, scale, bias = (t.to(bf) for t in (x32, dy32, s32, b32))
+            if key == 'gn':
+                def fwd(x, s, b, plain=False):
+                    f = gn.group_norm_act_reference if plain \
+                        else gn.group_norm_act_fwd
+                    return f(x, s, b, groups, 1e-6, act)
+
+                def bwd(x, dy, s, b, st, plain=False):
+                    f = gn.group_norm_act_bwd_plain if plain \
+                        else gn.group_norm_act_bwd
+                    return f(x, dy, s, b, *st, groups, act)
+
+                def lib(x, s, b):
+                    return F.silu(F.group_norm(x, groups, s, b, 1e-6))
+                stats = lambda out: out[1:]   # noqa: E731
+            else:
+                def fwd(x, s, b, plain=False):
+                    f = bn.batch_norm_act_reference if plain \
+                        else bn.batch_norm_act_fwd
+                    return f(x, s, b, 1e-5, act)
+
+                def bwd(x, dy, s, b, st, plain=False):
+                    f = bn.batch_norm_act_bwd_plain if plain \
+                        else bn.batch_norm_act_bwd
+                    return f(x, dy, s, b, *st, act)
+
+                def lib(x, s, b):
+                    return F.relu(F.batch_norm(x, None, None, s, b, True,
+                                               0.0, 1e-5))
+                stats = lambda out: (out[1], out[3])   # noqa: E731
+            with torch.no_grad():
+                st, st32 = stats(fwd(x, scale, bias)), \
+                    stats(fwd(x32, s32, b32))
+                fwd_ms = in_turns({
+                    'kernel': lambda: fwd(x, scale, bias),
+                    'plain': lambda: fwd(x, scale, bias, True)}, 5, 2)[0]
+                fwd_ms['f32'] = cuda_ms(lambda: fwd(x32, s32, b32), 5, 2)
+                fwd_ms['library'] = cuda_ms(lambda: lib(x, scale, bias), 5,
+                                            2)
+                bwd_ms = in_turns({
+                    'kernel': lambda: bwd(x, dy, scale, bias, st),
+                    'plain': lambda: bwd(x, dy, scale, bias, st, True)},
+                    5, 2)[0]
+                bwd_ms['f32'] = cuda_ms(
+                    lambda: bwd(x32, dy32, s32, b32, st32), 5, 2)
+            xl, sl, bl = (t.clone().requires_grad_() for t in (x, scale,
+                                                              bias))
+            yl = lib(xl, sl, bl)
+            bwd_ms['library'] = cuda_ms(lambda: torch.autograd.grad(
+                yl, (xl, sl, bl), dy, retain_graph=True), 5, 2)
+            n = x.numel()
+            timing[key] = {
+                'fwd': fwd_ms, 'bwd': bwd_ms, 'shape': list(shape),
+                'bound': (bound(10 * n, 2 * 2 * n, BF16_FLOPS),
+                          bound(20 * n, 2 * 3 * n, BF16_FLOPS))}
+            del x32, dy32, x, dy, xl, yl, st, st32
+            torch.cuda.empty_cache()
+        # K8-BN-bf16 on both routes at the largest shape (its plan takes
+        # the passes where only a 16-block cluster holds the channel)
+        from brever_tpu_torch.bench_batchnorm import time_bwd_routes
+        timing['bn']['bwd_routes'] = time_bwd_routes(BN_CASES[0], 'relu',
+                                                     device, dtype=bf)
+    except BaseException:
+        tracer.kill()
+        raise
+    launches = norm_traced_kernels(tracer)
+    g, b = timing['gn'], timing['bn']
+
+    def times(t, d):
+        return (f'{t[d]["kernel"]:.3f}/{t[d]["f32"]:.3f}/{t[d]["plain"]:.3f}'
+                f'/{t[d]["library"]:.3f}')
+
+    phase(63, f'K7/K8-bf16 at {n_classes} GroupNorm classes of an sgmsep and '
+          f'an idmse evaluation at 4 x 4 s, {len(GN_BF16_RAGGED)} ragged and '
+          f'one unaligned (routes {sorted(routes["gn"])}); K7-BN/K8-BN-bf16 '
+          f'at {n_bn_classes} MANNER classes at 16 x 4 s and {BN_CASES} '
+          f'(routes {sorted(routes["bn_fwd"])}/{sorted(routes["bn_bwd"])}): '
+          f'every output and gradient agrees with the bf16 twin on the card '
+          f'(worst SNR K7 {worst["k7"]:.1f}, K8 {worst["k8"]:.1f}, K7-BN '
+          f'{worst["k7bn"]:.1f}, K8-BN {worst["k8bn"]:.1f} dB >= '
+          f'{NORM_BF16_TWIN_DB}) and is no farther from float64 than the '
+          f'twin (at most {gap:.2f} dB under it, <= {BF16_F64_SLACK_DB}); '
+          f'two runs bitwise equal; a call launches only its own kernels at '
+          f'__nv_bfloat16 ({launches}), no cuDNN (fresh-interpreter trace); '
+          f'[{card}] bf16/f32/twin/library-bf16 ms: K7 {GN_BF16_TIMED[0]} '
+          f'{times(g, "fwd")} K8 {times(g, "bwd")}; K7-BN {BN_CASES[0]} '
+          f'{times(b, "fwd")} K8-BN {times(b, "bwd")} (card ms by route: '
+          + ', '.join(f'{k} {v:.3f}' for k, v in b['bwd_routes'].items())
+          + ')')
+    return {'worst_db': worst, 'err': err, 'timing': timing,
+            'launches_a_call': launches}
+
+
+#: the amp gradients of one full-width step against float64 (phases
+#: 64-66): the whole gradient's SNR at most this many dB under that of the
+#: same amp step through the norms' bf16 twins (both bf16 trunks; the
+#: float32 plain path's SNR is printed beside)
+NORM_AMP_SLACK_DB = 3.0
+#: the amp loss of that step within this relative error of float64's
+NORM_AMP_LOSS_REL = 2e-2
+#: phase 67's steps: (arch, batch of 4 s items)
+NORM_AMP_STEPS = (('sgmsep', 4), ('idmse', 4), ('manner', 16))
+#: the keys that take one amp step each in phase 65: IDMSE-large, and the
+#: lighter U-Net under the EDM preconditioning and the cosine SDE (the
+#: other two SGMSE+ keys run these nets and those rules)
+NORM_AMP_ONE_STEP = ('idmselarge', 'sgmsepmheun')
+
+
+NORM_AMP_STEPS_RUN = """
+import json
+import tempfile
+import torch
+import chip_smoke
+from brever_tpu_torch.numerics import disable_tf32
+from brever_tpu_torch.profile_enhance import _device_time
+from brever_tpu_torch.profile_train import NORM_KERNELS, make_trainer
+
+disable_tf32()
+device = torch.device('cuda', 0)
+out = {}
+for arch, batch in chip_smoke.NORM_AMP_STEPS:
+    with tempfile.TemporaryDirectory() as tmp:
+        trainers = {key: make_trainer(device, f'{tmp}/{key}', arch=arch,
+                                      batch=batch, use_amp=key == 'kernel')
+                    for key in ('plain', 'kernel')}
+        steps = {key: (lambda t=t: t[0].train_step(t[1], t[2]))
+                 for key, t in trainers.items()}
+        ms, peak = chip_smoke.in_turns(steps, 1, None)
+        del trainers['plain']
+        torch.cuda.empty_cache()
+
+        def traced():
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                step_ms = chip_smoke.cuda_ms(steps['kernel'], 1, 0)
+            busy_us, kernels = _device_time(prof)
+            return {'norm_ms': sum(us for name, (us, _) in kernels.items()
+                                   if any(k in name for k in NORM_KERNELS))
+                    / 1e3,
+                    'idle': 1 - busy_us / 1e3 / step_ms}
+
+        prof = chip_smoke.trace_or_none(traced) or {'norm_ms': None,
+                                                    'idle': None}
+        out[arch] = {'ms': ms, 'peak': peak, 'batch': batch, **prof}
+        del trainers, steps
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def norm_amp_steps():
+    """Phase 67 in a fresh interpreter (the profiler loses device events
+    after several traces in one process): each arch's amp train step
+    against its float32 step in turns at ``NORM_AMP_STEPS``, peak memory,
+    and one traced amp step's norm kernels (ms) and idle share: ``{arch:
+    {ms, peak, batch, norm_ms, idle}}``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, '-c', NORM_AMP_STEPS_RUN],
+                         cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=900)
+    if run.returncode:
+        raise AssertionError(f'amp steps: {run.stderr[-3000:]}')
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def norm_counters():
+    """The launch counters of the norm kernels: K7, K8, K7-BN, K8-BN, each
+    all launches and the bf16 route's."""
+    from brever_tpu_torch.ops import batchnorm as bn
+    from brever_tpu_torch.ops import groupnorm as gn
+    return [(f, attr) for f in (gn.group_norm_act_fwd, gn.group_norm_act_bwd,
+                                bn.batch_norm_act_fwd, bn.batch_norm_act_bwd)
+            for attr in ('launches_bf16', 'launches')]
+
+
+@contextlib.contextmanager
+def twins_refused_in_bf16():
+    """Records every call of a norm's plain forward or backward with a
+    bf16 tensor on the card (the bf16 route must launch its kernel there);
+    yields the list of such calls."""
+    from brever_tpu_torch.ops import batchnorm as bn
+    from brever_tpu_torch.ops import groupnorm as gn
+    seen = []
+    names = [(gn, 'group_norm_act_reference'),
+             (gn, 'group_norm_act_bwd_plain'),
+             (bn, 'batch_norm_act_reference'),
+             (bn, 'batch_norm_act_bwd_plain')]
+    saved = [getattr(mod, name) for mod, name in names]
+
+    def watch(plain):
+        def run(x, *args):
+            if x.device.type == 'cuda' and x.dtype == torch.bfloat16:
+                seen.append(plain.__name__)
+            return plain(x, *args)
+        return run
+
+    for (mod, name), plain in zip(names, saved):
+        setattr(mod, name, watch(plain))
+    try:
+        yield seen
+    finally:
+        for (mod, name), plain in zip(names, saved):
+            setattr(mod, name, plain)
+
+
+def amp_step_grads(trainer, batch, lengths, draws, plain=False):
+    """The amp step's loss and master gradients (numpy float64, by name),
+    as ``train_step`` forms them without the update, t and the noise fixed
+    for SGMSE+/IDMSE (``draws``); with ``plain`` the norms take their bf16
+    twins on the card."""
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    model = trainer.model
+    model.train()
+    ctx = (plain_batchnorms() if plain and draws is None else
+           plain_groupnorms() if plain else contextlib.nullcontext())
+    with ctx, trainer._amp_params():
+        b = trainer._amp_batch(batch)
+        if draws is None:
+            items = model.loss(b, lengths)
+        else:
+            items = model.loss_at(b, lengths, *draws)
+        loss = sample_weighted_mean(items, lengths)
+        grads = torch.autograd.grad(loss, trainer._param_list)
+    model.eval()
+    return float(loss), {k: g.double().cpu().numpy() for (k, _), g in
+                         zip(model.named_parameters(), grads)}
+
+
+def reference_grads(trainer, batch, lengths, draws, dtype):
+    """The same step's loss and gradients of a copy of the model in
+    ``dtype`` (float64, or float32) on the bf16-rounded parameters and
+    batch, the norms on their plain versions."""
+    from brever_tpu_torch.models.base import sample_weighted_mean
+    model = copy.deepcopy(trainer.model)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.bfloat16())
+    model = model.to(dtype).train()
+    ctx = plain_batchnorms() if draws is None else plain_groupnorms()
+    with ctx:
+        b = batch.bfloat16().to(dtype)
+        if draws is None:
+            items = model.loss(b, lengths)
+        else:
+            cdtype = torch.complex128 if dtype == torch.float64 \
+                else torch.complex64
+            items = model.loss_at(b, lengths, draws[0].to(dtype),
+                                  draws[1].to(cdtype))
+        loss = sample_weighted_mean(items, lengths)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    out = {k: g.double().cpu().numpy()
+           for (k, _), g in zip(model.named_parameters(), grads)}
+    del model, grads
+    torch.cuda.empty_cache()
+    return float(loss), out
+
+
+def norm_amp_training(arch, number):
+    """Phase 64 (sgmsep), 65 (idmse) or 66 (manner): the default model
+    trained by ``train.main`` from its untouched config under bf16 amp on
+    FLAC tars and resumed bitwise (``train_and_resume``); checks its
+    parameters, the bf16 launches of its norm kernels (every backward one
+    bf16), finite losses and that no bf16 tensor reaches a norm twin on the
+    card. Returns what the phase prints."""
+    from brever_tpu_torch.models import count_params
+    n_train, n_val, seconds, epochs, val_period = NORM_AMP_TRAIN[arch]
+    n_params = {'sgmsep': SGMSE_PARAMS, 'idmse': IDMSE_PARAMS['idmse'],
+                'manner': MANNER_PARAMS}[arch]
+    with tempfile.TemporaryDirectory() as tmp, \
+            twins_refused_in_bf16() as seen:
+        paths = []
+        for split, n_items, seed in (('train', n_train, number),
+                                     ('val', n_val, number + 100)):
+            paths.append(os.path.join(tmp, split))
+            write_tone_dataset(paths[-1], n_items, seconds, seed,
+                               ext='.flac')
+        model_dir = write_model_dir(os.path.join(tmp, 'model'), arch, *paths)
+        with open(os.path.join(CONFIG_DIR, f'{arch}.yaml')) as f:
+            if 'use_amp: true' not in f.read():
+                raise AssertionError(f'{arch}.yaml no longer sets use_amp')
+        first, second, train_s, launches = train_and_resume(
+            lambda n: [model_dir, '--device', 'cuda', '--epochs', str(n),
+                       '--val_period', str(val_period)], epochs,
+            norm_counters(), more=1)
+    k7b, k7, k8b, k8, k7bnb, k7bn, k8bnb, k8bn = launches
+    if not first.use_amp or count_params(first.model) != n_params \
+            or first.flat.dtype != torch.float32 \
+            or not all(b.dtype == torch.float32
+                       for b in first.model.buffers()):
+        raise AssertionError(f'{arch}: not the default model under amp')
+    fwd, bwd, bwd_all = ((k7bnb, k8bnb, k8bn) if arch == 'manner'
+                         else (k7b, k8b, k8))
+    if fwd == 0 or bwd == 0 or bwd != bwd_all or seen:
+        raise AssertionError(f'{arch} amp training launched {launches} '
+                             f'(bf16, all: K7, K8, K7-BN, K8-BN); bf16 twin'
+                             f' calls on the card: {sorted(set(seen))}')
+    losses = second.loss_logger.train_loss
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'{arch} amp training loss {losses}')
+    metrics = [m for m in second.loss_logger.metrics if m][-1]
+    kernels = (f'K7-BN-bf16 {k7bnb} / K8-BN-bf16 {k8bnb}' if arch == 'manner'
+               else f'K7-bf16 {k7b} / K8-bf16 {k8b}')
+    return {'launches': launches, 'seconds': train_s, 'losses': losses,
+            'metrics': metrics, 'kernels': kernels,
+            'resumed_to': second.epochs_ran, 'n_params': n_params,
+            'data': f'{n_train} + {n_val} items of {seconds:g} s',
+            'epochs': epochs, 'val_period': val_period}
+
+
+def norm_amp_phases(device, card):
+    """Phases 64-67: SGMSE+, IDMSE (and IDMSE-large, the other SGMSE+ keys)
+    and MANNER under bf16 amp: one full-width step's loss and gradients
+    against float64, the same step through the norms' bf16 twins and the
+    float32 plain path; ``train.main`` from each untouched config on FLAC,
+    resumed bitwise; one amp enhance; then the amp steps against float32 in
+    turns, their peak memory, the bf16 norm kernels' device time a step and
+    the idle share. Returns what the kernels' JSON records read."""
+    from brever_tpu_torch.profile_train import make_trainer
+    out = {'train': {}, 'steps': {}}
+    for number, arch in ((64, 'sgmsep'), (65, 'idmse'), (66, 'manner')):
+        # ---- one full-width step at 1 x 1 s against float64
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, batch, lengths = make_trainer(
+                device, tmp, seed=number, batch=1, seconds=1.0, arch=arch,
+                use_amp=True)
+            draws = None
+            if arch != 'manner':
+                rng = np.random.RandomState(number)
+                grid = trainer.model.transform(batch).shape[2:]
+                draws = (torch.full((1, 1, 1, 1), 0.6, device=device),
+                         complex_input(rng, (1, 1, *grid), device, 1.0))
+            for f, attr in norm_counters():
+                setattr(f, attr, 0)
+            loss, got = amp_step_grads(trainer, batch, lengths, draws)
+            bf16_bwd = norm_counters()[2 if arch != 'manner' else 6]
+            launched = getattr(*bf16_bwd)
+            _, twin = amp_step_grads(trainer, batch, lengths, draws, True)
+            ref_loss, ref = reference_grads(trainer, batch, lengths, draws,
+                                            torch.float64)
+            _, f32 = reference_grads(trainer, batch, lengths, draws,
+                                     torch.float32)
+            # ---- one amp enhance (the float32 one beside it)
+            x = batch[:1, 0]
+            gen = torch.Generator(device=device)
+
+            def enhance():   # SGMSE+'s solver noise from one seed
+                if draws is None:
+                    return trainer.model.enhance(x)
+                return trainer.model.enhance(x, generator=gen.manual_seed(0))
+
+            with torch.no_grad():
+                trainer.model.eval()
+                with trainer._amp_params():
+                    amp_out = enhance()
+            del trainer, batch
+            torch.cuda.empty_cache()
+        step_s = time.perf_counter() - t0
+        k = grad_report(ref, got)
+        t = grad_report(ref, twin)
+        p = grad_report(ref, f32)
+        del got, twin, ref, f32
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        enh_ok = (amp_out.dtype == torch.float32
+                  and amp_out.shape == (1, FS)
+                  and bool(torch.isfinite(amp_out).all()))
+        if not launched or k[0] < t[0] - NORM_AMP_SLACK_DB \
+                or loss_rel > NORM_AMP_LOSS_REL or not enh_ok \
+                or not np.isfinite(k[0]):
+            raise AssertionError(
+                f'{arch} amp step: {launched} bf16 backward launches, '
+                f'gradient SNR vs float64 {k[0]:.2f} dB (twins {t[0]:.2f}), '
+                f'loss {loss} vs {ref_loss}, enhance {amp_out.dtype} '
+                f'{tuple(amp_out.shape)}')
+        train = norm_amp_training(arch, number)
+        extra = ''
+        if arch == 'idmse':
+            # the other keys of the families: one amp step each
+            steps = []
+            for key in NORM_AMP_ONE_STEP:
+                with tempfile.TemporaryDirectory() as tmp:
+                    tr, b, n = make_trainer(device, tmp, batch=1,
+                                            seconds=1.0, arch=key,
+                                            use_amp=True)
+                    step_loss = float(tr.train_step(b, n))
+                    del tr, b
+                torch.cuda.empty_cache()
+                if not np.isfinite(step_loss):
+                    raise AssertionError(f'{key} amp step loss {step_loss}')
+                steps.append(f'{key} {step_loss:.4f}')
+            extra = '; one amp step each (1 x 1 s): ' + ', '.join(steps)
+        out['train'][arch] = dict(train, grad_db=k[0], twin_db=t[0],
+                                  f32_db=p[0], loss_rel=loss_rel,
+                                  step_s=step_s)
+        phase(number, f'{arch} ({train["n_params"]:,} parameters) under bf16 '
+              f'amp: one step at 1 x 1 s (t and noise fixed) vs float64 on '
+              f'the bf16-rounded weights: whole gradient {k[0]:.1f} dB '
+              f'(worst tensor {k[1]:.1f} dB, {k[2]}), the same amp step '
+              f'through the norms\' bf16 twins {t[0]:.1f} dB (>= it less '
+              f'{NORM_AMP_SLACK_DB}), the float32 plain path {p[0]:.1f} dB; '
+              f'loss {loss:.5f} vs float64 {ref_loss:.5f} (rel '
+              f'{loss_rel:.1e} <= {NORM_AMP_LOSS_REL}); {launched} bf16 '
+              f'backward launches. train.main from the untouched '
+              f'config/models/{arch}.yaml (use_amp: true; only --device, '
+              f'--epochs {train["epochs"]} and --val_period '
+              f'{train["val_period"]} given) on FLAC tars ({train["data"]}) '
+              f'in {train["seconds"]:.1f} s:'
+              f' train loss ' + ' -> '.join(f'{v:.4f}' for v in
+                                             train['losses'])
+              + f', val snr {train["metrics"]["snr"]:.2f} dB; '
+              f'{train["kernels"]} launches, every backward on the bf16 route,'
+              f' no bf16 tensor in a norm twin on the card; resumed bitwise '
+              f'from last.ckpt to epoch {train["resumed_to"]}; one amp '
+              f'enhance (1 x 1 s) finite float32 of the mixture\'s length '
+              f'(the step, its references and the enhance {step_s:.1f} s)'
+              f'{extra}')
+
+    # ---- phase 67: the amp steps against the float32 steps, in turns
+    torch.cuda.empty_cache()
+    steps = out['steps'] = norm_amp_steps()
+
+    def step_line(arch):
+        st = steps[arch]
+        traced = ('not traced (the profiler recorded nothing)'
+                  if st['norm_ms'] is None else
+                  f'its bf16 norm kernels {st["norm_ms"]:.2f} ms a step, '
+                  f'device idle {100 * st["idle"]:.1f} %')
+        return (f'{arch} {st["batch"]} x 4 s bf16 amp '
+                f'{st["ms"]["kernel"]:.2f} ms (peak '
+                f'{st["peak"]["kernel"] / 2 ** 20:.0f} MiB) vs float32 '
+                f'{st["ms"]["plain"]:.2f} ms (peak '
+                f'{st["peak"]["plain"] / 2 ** 20:.0f} MiB), amp step '
+                f'{traced}')
+
+    phase(67, f'[{card}] train steps, in turns: '
+          + '; '.join(step_line(a) for a, _ in NORM_AMP_STEPS))
+    return out
+
+
+def norm_bf16_records(nbf, namp):
+    """The ``kernels`` line's records of K7-, K8-, K7-BN- and K8-BN-bf16:
+    phase 63's errors and times at the largest shapes, the launches of
+    phases 64-66's amp ``train.main`` runs (SGMSE+ and IDMSE for K7/K8,
+    MANNER for K7-BN/K8-BN)."""
+    train, timing = namp['train'], nbf['timing']
+    gn_runs = [train[a]['launches'] for a in ('sgmsep', 'idmse')]
+    bn_run = train['manner']['launches']
+    records = []
+    for name, key, which, launches, pallas, shape, lib in (
+            ('group_norm_act_fwd_bf16', 'k7', ('gn', 'fwd'),
+             sum(r[0] for r in gn_runs), 134,
+             'B=4 C=256 F=256 T=501 G=32 SiLU bf16', 'F.group_norm + '
+             'F.silu in bf16'),
+            ('group_norm_act_bwd_bf16', 'k8', ('gn', 'bwd'),
+             sum(r[2] for r in gn_runs), 263,
+             'B=4 C=256 F=256 T=501 G=32 SiLU bf16', 'the backward of '
+             'F.group_norm + F.silu in bf16 (data, scale and bias)'),
+            ('bn_act_fwd_bf16', 'k7bn', ('bn', 'fwd'), bn_run[4], 134,
+             'B=16 C=60 T=64084 ReLU bf16 (MANNER in_bn at 16 x 4 s)',
+             'F.batch_norm(training=True) + F.relu in bf16'),
+            ('bn_act_bwd_bf16', 'k8bn', ('bn', 'bwd'), bn_run[6], 263,
+             'B=16 C=60 T=64084 ReLU bf16 (MANNER in_bn at 16 x 4 s)',
+             'the backward of F.batch_norm(training=True) + F.relu in '
+             'bf16')):
+        t = timing[which[0]]
+        d = t[which[1]]
+        b = t['bound'][0 if which[1] == 'fwd' else 1]
+        records.append({
+            'name': name, 'route': 'cuda',
+            'source': 'brever_tpu_torch/csrc/groupnorm_bf16.cu',
+            'replaces': f'brever_tpu/ops/pallas/groupnorm.py:{pallas}',
+            'launches': launches, 'max_abs_err': nbf['err'][key],
+            'ms': d['kernel'], 'plain_ms': d['plain'], 'bound_ms': b[0],
+            'bound_by': b[1], 'library_ms': d['library'],
+            'library_note': lib, 'shape': shape, 'f32_route_ms': d['f32'],
+            'worst_snr_vs_twin_db': nbf['worst_db'][key],
+            **({'card_ms_by_route': t['bwd_routes']} if key == 'k8bn'
+               else {}),
+            'launches_a_call': nbf['launches_a_call'].get(key)})
+    return records
 
 
 def main():
@@ -5740,6 +6620,11 @@ def main():
         shutil.rmtree(keep, ignore_errors=True)
         if 'mg' in locals():
             shutil.rmtree(mg['tmp'], ignore_errors=True)
+    # SGMSE+, IDMSE and MANNER under amp (their norms' bf16 route), last:
+    # their traces run in fresh interpreters, and the earlier phases' own
+    # traces lost their device events after these phases' work
+    nbf = norm_bf16_phase(device, card)
+    namp = norm_amp_phases(device, card)
 
     if any(m in sys.modules for m in ('jax', 'flax', 'optax',
                                       'brever_tpu')):
@@ -6061,7 +6946,7 @@ def main():
                    for r in sgm['eval_rows']},
         'train_step_4x4s_ms': sgm['steps']['4'][0]['kernel'],
         'train_step_4x4s_plain_ms': sgm['steps']['4'][0]['plain'],
-        'train_step_16x4s_ms': sgm['steps']['16'][0],
+        'train_step_8x4s_ms': sgm['steps']['8'][0],
         'idmse_train_step_4x4s_ms': idm['step_ms']['kernel'],
         'idmse_train_step_4x4s_plain_ms': idm['step_ms']['plain'],
         'idmselarge_train_step_4x4s_ms': idm['large']['step_ms'],
@@ -6228,7 +7113,7 @@ def main():
         'dense_route_library_ms_400': stf['400/100']['library'],
         'dense_product_bound_ms': stf['512/128']['dense_bound'][0],
         'module_forward_ms': stf['module_ms'],
-    }, fma]}), flush=True)
+    }, *norm_bf16_records(nbf, namp), fma]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -18,9 +18,16 @@ tests/test_amp.py and the JAX trainer's ``loss_fn``:
   EMA, DCCRN's running statistics and the checkpoint stay float32;
 * ``python -m brever_tpu_torch.train`` with ``use_amp: true`` (the default
   config's) on FLAC tars, and a bitwise resume from ``last.ckpt``
-  (Conv-TasNet, TF-GridNet, DCCRN);
-* a family whose kernels have no bf16 route refuses ``use_amp`` when its
-  trainer is built (SGMSE+, IDMSE, MANNER).
+  (Conv-TasNet, TF-GridNet, DCCRN, SGMSE+, IDMSE, MANNER);
+* SGMSE+'s, IDMSE's and MANNER's amp loss and float32 master gradients
+  (their GroupNorms and BatchNorms through the bf16 twins of K7/K8 and
+  K7-BN/K8-BN) against the JAX amp path on the same weights and batch (t
+  and the noise fixed on both sides) and against float64 on the same
+  bf16-rounded weights and batch: the port no farther from float64 than
+  the JAX amp path, with 25 % slack (and a floor of 1e-3 of relative error
+  for the loss); their trunk runs bf16 while the state stays float32;
+* every family trains under amp: SGMSE+, IDMSE and MANNER, which refused it
+  before their norms' bf16 route, build an amp trainer that steps.
 """
 
 import os
@@ -43,7 +50,9 @@ from brever_tpu_torch.models import ModelRegistry
 from brever_tpu_torch.models.base import param_dtype, sample_weighted_mean
 from brever_tpu_torch.ops import tcn_block
 from brever_tpu_torch.training import BreverTrainer
+import brever_tpu.models.sgmse.sgmse as jax_sgmse
 from test_torch_flac import write_flac_dataset
+from test_torch_manner import _narrow_families, _random_variables
 from test_torch_training import DCC, GRID, IDM, NARROW_MANNER, SGM
 from utils import DummyDataset
 
@@ -260,20 +269,33 @@ def test_amp_train_main_on_flac_resumes_bitwise(tmp_path):
     assert np.isfinite(losses['train'].astype(float)).all()
 
 
+def _narrow_manner(monkeypatch):
+    import functools
+
+    from brever_tpu_torch.models import manner
+    monkeypatch.setattr(manner, '_MannerModule', functools.partial(
+        manner._MannerModule, **NARROW_MANNER))
+
+
 @pytest.mark.parametrize('arch,kwargs', [
     ('sgmsep', SGM), ('idmse', IDM), ('manner', {})])
-def test_amp_refused_where_a_kernel_has_no_bf16_route(tmp_path, monkeypatch,
-                                                      arch, kwargs):
+def test_amp_accepted_for_every_family(tmp_path, monkeypatch, arch, kwargs):
+    """The families that refused amp before their norms' bf16 route build
+    an amp trainer whose step runs the bf16 trunk and leaves float32
+    masters; without amp, the float32 trainer as before."""
     if arch == 'manner':
-        import functools
-
-        from brever_tpu_torch.models import manner
-        monkeypatch.setattr(manner, '_MannerModule', functools.partial(
-            manner._MannerModule, **NARROW_MANNER))
+        _narrow_manner(monkeypatch)
     model = ModelRegistry.get(arch)(**kwargs, device='cpu')
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP\.md Queue 1 item 2\.[23]'):
-        _trainer(tmp_path, model, use_amp=True)
+    trainer = _trainer(tmp_path, model, use_amp=True)
+    assert trainer.use_amp is True
+    trainer.init_state()
+    with trainer._amp_params():
+        assert param_dtype(model) == torch.bfloat16
+    batch = torch.from_numpy(np.random.RandomState(2).randn(
+        2, 2, 2, 4000).astype('float32'))
+    loss = trainer.train_step(batch, torch.tensor([4000, 3000]))
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert trainer.flat.dtype == torch.float32
     assert _trainer(tmp_path, model, use_amp=False).use_amp is False
 
 
@@ -453,6 +475,249 @@ def test_rnn_family_amp_train_main_on_flac_resumes_bitwise(arch, tmp_path):
     train_cli.main([whole, '--epochs', '2'] + common)
     train_cli.main([model_dir, '--epochs', '1'] + common)
     ckpt = os.path.join(model_dir, 'checkpoints', 'last.ckpt')
+    train_cli.main([model_dir, '--epochs', '2', '--force'] + common)
+    a = load_checkpoint(ckpt)
+    b = load_checkpoint(os.path.join(whole, 'checkpoints', 'last.ckpt'))
+    assert a['step'] == b['step'] > 0
+    for x, y in zip(jax.tree.leaves((a['params'], a['opt_state'],
+                                     a.get('aux'))),
+                    jax.tree.leaves((b['params'], b['opt_state'],
+                                     b.get('aux')))):
+        assert np.asarray(x).dtype != np.dtype('bfloat16')
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    losses = np.load(os.path.join(model_dir, 'losses.npz'),
+                     allow_pickle=True)
+    assert np.isfinite(losses['train'].astype(float)).all()
+
+
+# ---------------------------------------------------------------------------
+# SGMSE+, IDMSE and MANNER under amp (their norms' bf16 route)
+
+NORM_FAMILIES = {'sgmsep': SGM, 'idmse': IDM, 'manner': {}}
+
+
+def _norm_twins(arch, monkeypatch):
+    """The JAX model and its numpy variables, the port's float32 model on
+    them, a batch with a row of length 0 (MANNER's rows all real: its loss
+    ignores the lengths), and for SGMSE+/IDMSE fixed draws ``(u, noise)``
+    of t and the complex noise."""
+    rng = np.random.RandomState(23)
+    if arch == 'manner':
+        jax_model, model = _narrow_families(monkeypatch)
+        variables = _random_variables(jax_model.module, 2000, seed=3)
+        model.load_state_dict(model.from_flax(variables['params'],
+                                              variables))
+        length, lengths = 2000, np.array([2000, 2000], np.int32)
+    else:
+        jax_model = JaxModels.get(arch)(**NORM_FAMILIES[arch])
+        variables = jax.tree.map(np.asarray, jax_model.init_variables(
+            jax.random.PRNGKey(0)))
+        model = ModelRegistry.get(arch)(**NORM_FAMILIES[arch], device='cpu')
+        model.load_state_dict(model.from_flax(
+            variables['params'], {'buffers': variables['buffers']}))
+        length, lengths = 2100, np.array([2100, 1500, 0], np.int32)
+    target = 0.3 * rng.randn(len(lengths), 1, 2, length)
+    mix = target + 0.3 * rng.randn(len(lengths), 1, 2, length)
+    batch = np.concatenate([mix, target], axis=1).astype(np.float32)
+    draws = None
+    if arch != 'manner':
+        frames = model.transform(torch.from_numpy(batch)).shape[2:]
+        u = rng.uniform(size=(len(lengths), 1, 1, 1)).astype(np.float32)
+        noise = (rng.randn(len(lengths), 1, *frames)
+                 + 1j * rng.randn(len(lengths), 1, *frames)) \
+            .astype(np.complex64)
+        draws = u, noise
+    return jax_model, dict(variables), model, batch, lengths, draws
+
+
+def _port_loss(model, batch, lengths, draws):
+    """The family's mean loss of a batch (t and the noise from ``draws``
+    for SGMSE+/IDMSE), in the model's current dtype."""
+    n = torch.from_numpy(lengths)
+    if draws is None:
+        return sample_weighted_mean(model.loss(batch, n), n)
+    u, noise = draws
+    real = batch.float().dtype if batch.dtype == torch.bfloat16 \
+        else batch.dtype
+    t = torch.from_numpy(u).to(real) * (1 - model.t_eps) + model.t_eps
+    noise = torch.from_numpy(noise).to(
+        torch.complex128 if real == torch.float64 else torch.complex64)
+    return sample_weighted_mean(model.loss_at(batch, n, t, noise), n)
+
+
+@pytest.mark.parametrize('arch', sorted(NORM_FAMILIES))
+def test_norm_family_amp_matches_jax_and_float64(arch, tmp_path,
+                                                 monkeypatch):
+    """The amp loss and float32 master gradients against the JAX amp path
+    (parameters and batch cast to bfloat16; the buffers and running
+    statistics float32, as the JAX trainer's ``loss_fn`` gives them; its
+    GroupNorms on the jnp path and its BatchNorms on the XLA branch, which
+    the CPU takes) and against float64 on the same bf16-rounded weights and
+    batch: the port's gradients no farther from float64 than the JAX
+    path's with 25 % slack, the loss likewise with a floor of 1e-3 of
+    relative error. The port's step runs PyTorch's native CPU convolutions
+    (oneDNN off): oneDNN's bfloat16 convolution rounds its partial sums to
+    bfloat16 (a MANNER downsampling convolution's output 107 % off float64
+    on these inputs, where float32 accumulation of the same bf16 operands
+    is 10 % off), while the card's cuDNN and the JAX package's XLA
+    accumulate in float32."""
+    jax_model, variables, model, batch, lengths, draws = _norm_twins(
+        arch, monkeypatch)
+    if draws is not None:
+        u, noise = draws
+        monkeypatch.setattr(jax_sgmse, '_randn_like', lambda key, x: noise)
+        monkeypatch.setattr(jax_sgmse.jax.random, 'uniform',
+                            lambda key, shape: jnp.asarray(u))
+
+    def jax_loss(p):
+        tree = dict(variables, params=_bf16_tree(p))
+        out = jax_model.loss(tree, jnp.asarray(batch).astype(jnp.bfloat16),
+                             jnp.asarray(lengths), jax.random.PRNGKey(0),
+                             train=True)
+        per_item = out[0] if isinstance(out, tuple) else out
+        return jax_mean(per_item.astype(jnp.float32), jnp.asarray(lengths))
+
+    jloss, jgrads = jax.value_and_grad(jax_loss)(variables['params'])
+
+    trainer = _trainer(tmp_path, model, use_amp=True)
+    model.train()
+    with trainer._amp_params(), torch.backends.mkldnn.flags(enabled=False):
+        loss = _port_loss(model, trainer._amp_batch(torch.from_numpy(batch)),
+                          lengths, draws)
+        grads = torch.autograd.grad(loss, trainer._param_list)
+    assert loss.dtype == torch.float32
+    assert all(g.dtype == torch.float32 for g in grads)
+
+    names = [name for name, _ in model.named_parameters()]
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    exact = type(model)(**model.hparams, device='cpu') \
+        if arch != 'manner' else type(model)(device='cpu')
+    exact.load_state_dict({k: (v.bfloat16() if k in names else v).double()
+                           for k, v in state.items()})
+    exact.double().train()
+    ref = _port_loss(exact, torch.from_numpy(batch).bfloat16().double(),
+                     lengths, draws)
+    ref_grads = torch.autograd.grad(ref, list(exact.parameters()))
+    ref = float(ref)
+
+    want_tree = model.from_flax(jax.tree.map(np.asarray, jgrads))
+    got = np.concatenate([g.numpy().ravel() for g in grads])
+    want = np.concatenate([want_tree[k].numpy().ravel() for k in names])
+    exact_g = np.concatenate([g.numpy().ravel() for g in ref_grads])
+    port_err, jax_err = _rel(got, exact_g), _rel(want, exact_g)
+    print(f'{arch} gradients: relative error against float64, port',
+          port_err, 'JAX', jax_err, 'port against JAX',
+          _rel(got, want.astype(np.float64)))
+    print('loss', float(loss), 'JAX', float(jloss), 'float64', ref)
+    assert port_err <= 1.25 * jax_err, (port_err, jax_err)
+    assert abs(float(loss) - ref) <= 1.25 * max(abs(float(jloss) - ref),
+                                                1e-3 * abs(ref))
+
+
+@pytest.mark.parametrize('arch', sorted(NORM_FAMILIES))
+def test_norm_family_trunk_runs_bf16_and_the_state_stays_float32(
+        arch, tmp_path, monkeypatch):
+    """Under amp the U-Net's blocks and GroupNorms (SGMSE+, IDMSE) or
+    MANNER's convolutions and BatchNorms run bfloat16, while the masters,
+    Adam's moments, the EMA, the running statistics and the buffers (the
+    Fourier frequencies) stay float32; a train step moves MANNER's running
+    statistics; the float32 parameters enhance."""
+    if arch == 'manner':
+        _narrow_manner(monkeypatch)
+    model = ModelRegistry.get(arch)(**NORM_FAMILIES[arch], device='cpu')
+    # (MANNER's one-cycle schedule over one step has no finite rate, in
+    # optax as here: size it for a few)
+    trainer = _trainer(tmp_path, model, use_amp=True, ema=True, epochs=8)
+    trainer.init_state()
+    seen = {}
+
+    def record(name):
+        def hook(module, args, out):
+            outs = out if isinstance(out, tuple) else (out,)
+            seen[name] = {t.dtype for t in outs
+                          if isinstance(t, torch.Tensor)}
+        return hook
+
+    for name, module in model.named_modules():
+        if name:
+            module.register_forward_hook(record(name))
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
+    batch = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 2, 2, 4000).astype('float32'))
+    lengths = torch.tensor([4000, 3000])
+    trainer.train_step(batch, lengths)
+    trunk = {'sgmsep': ('net.emb', 'net.input_conv', 'net.enc_0_0.norm_1',
+                        'net.enc_0_0', 'net.enc_0_1', 'net.dec_0_0.norm_2',
+                        'net.aux_up_norm_0'),
+             'idmse': ('net.emb', 'net.enc_0_0.norm_1', 'net.enc_0_0.norm_2',
+                       'net.enc_0_0', 'net.dec_0_0', 'net.output_norm'),
+             'manner': ('net.in_conv', 'net.in_bn', 'net.enc_0_rescon',
+                        'net.enc_1_attn', 'net.dec_0_up_bn',
+                        'net.out_conv')}[arch]
+    for name in trunk:
+        assert seen[name] == {torch.bfloat16}, (name, seen[name])
+    if arch == 'manner':
+        assert seen['net'] == {torch.float32}   # rescaled by the f32 std
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    for k, b in model.named_buffers():
+        assert b.dtype == torch.float32, k
+    if arch == 'manner':
+        assert not torch.equal(buffers['net.in_bn.mean'],
+                               model.net.in_bn.mean)
+    opt = trainer.optimizer
+    for t in (trainer.flat, trainer.ema, opt.mu, opt.nu):
+        assert t.dtype == torch.float32
+    with torch.no_grad():
+        out = model.enhance(batch[0, 0])
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize('arch', sorted(NORM_FAMILIES))
+def test_norm_family_amp_train_main_on_flac_resumes_bitwise(
+        arch, tmp_path, monkeypatch):
+    """``train.main`` from the family's untouched default config
+    (``use_amp: true``), narrowed, on FLAC tars. SGMSE+ and IDMSE: two
+    epochs at once and one then a resumed second give the same bits
+    (parameters, Adam, the loss's generator, the buffers in ``aux``).
+    MANNER's one-cycle schedule spans the epochs of the command line, so a
+    one-epoch run is another schedule: a trainer built from the same
+    command line restores its last.ckpt bitwise (parameters, Adam's moments
+    and count, the schedule's count, the running statistics), and the run
+    resumes to two epochs."""
+    from brever_tpu_torch import train as train_mod
+    if arch == 'manner':
+        _narrow_manner(monkeypatch)
+    model_dir = _amp_model_dir(tmp_path, arch, NORM_FAMILIES[arch])
+    common = ['--device', 'cpu', '--val_metrics', 'snr', '--batch_size',
+              '2', '--dynamic_batch_size', 'false', '--val_period', '1']
+    ckpt = os.path.join(model_dir, 'checkpoints', 'last.ckpt')
+    if arch == 'manner':
+        first = train_cli.main([model_dir, '--epochs', '1'] + common)
+        assert first.use_amp and first.step > 0
+        probe = train_mod.build_trainer([model_dir, '--epochs', '1',
+                                         '--force'] + common)
+        probe.init_state()
+        probe.load_checkpoint()
+        a, b = probe.optimizer, first.optimizer
+        assert torch.equal(probe.flat, first.flat)
+        assert torch.equal(a.mu, b.mu) and torch.equal(a.nu, b.nu)
+        assert torch.equal(a.count, b.count)
+        assert a.schedule_count == b.schedule_count == first.step
+        assert all(torch.equal(x, y) for x, y in zip(
+            probe.model.buffers(), first.model.buffers()))
+        second = train_cli.main([model_dir, '--epochs', '2', '--force']
+                                + common)
+        assert second.epochs_ran == 2
+        assert all(b.dtype == torch.float32 for b in second.model.buffers())
+        losses = second.loss_logger.train_loss
+        assert np.isfinite(np.asarray(losses, float)).all()
+        return
+    whole = os.path.join(str(tmp_path), 'whole')
+    os.makedirs(whole)
+    os.symlink(os.path.join(model_dir, 'config.yaml'),
+               os.path.join(whole, 'config.yaml'))
+    train_cli.main([whole, '--epochs', '2'] + common)
+    train_cli.main([model_dir, '--epochs', '1'] + common)
     train_cli.main([model_dir, '--epochs', '2', '--force'] + common)
     a = load_checkpoint(ckpt)
     b = load_checkpoint(os.path.join(whole, 'checkpoints', 'last.ckpt'))

@@ -1,8 +1,8 @@
 """K7-BN's and K8-BN's plan on the CPU: the wrapper's mirror
-(``ops.batchnorm.bn_plan``) against the constants of csrc/groupnorm.cu and
+(``ops.batchnorm.bn_plan``) against the constants of csrc/groupnorm.cuh and
 what the card allows a block, at the BatchNorm classes of one MANNER train
-step at 16 x 4 s and at ragged shapes; and ``bench_batchnorm``'s call
-recorder. The card tests hold the built library's own plan to the same
+step at 16 x 4 s and at ragged shapes, on the float32 route and the bf16
+one (2 bytes an element); and ``bench_batchnorm``'s call recorder. The card tests hold the built library's own plan to the same
 mirror."""
 
 import os
@@ -15,7 +15,7 @@ from brever_tpu_torch.ops import batchnorm as bn
 from brever_tpu_torch.ops import groupnorm as gn
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), 'brever_tpu_torch', 'csrc', 'groupnorm.cu')
+    __file__))), 'brever_tpu_torch', 'csrc', 'groupnorm.cuh')
 
 #: the 34 ((B, C, N), act) train-mode BatchNorm classes of one ``manner``
 #: forward at 16 x 4 s (69 calls), recorded from the model on the meta
@@ -75,20 +75,21 @@ def test_plan_constants_are_the_sources():
                                             past['Bwd'].lower())
 
 
+@pytest.mark.parametrize('itemsize', [4, 2])
 @pytest.mark.parametrize('most', [16, 8])
 @pytest.mark.parametrize('shape', SHAPES, ids=str)
-def test_plan_covers_the_channel(shape, most):
+def test_plan_covers_the_channel(shape, most, itemsize):
     """A cluster of 1-16 blocks (a power of two) a channel, the smallest
     whose blocks hold their shares, else the largest allowed with the rest
     named as the remainder; the shares cover each of the channel's B N
-    floats exactly once; the shared memory is the scratch and the held
-    floats (whole float4s); one block a channel of at most 16 tasks runs
+    elements exactly once; the shared memory is the scratch and the held
+    elements (whole vectors of four, ``itemsize`` bytes each); one block a channel of at most 16 tasks runs
     half the threads, and a ring of two buffers where two such blocks fit
     an SM; the routes
     follow the plan's rule and the passes' workspace holds a pair of
     doubles a segment of each row."""
     batch, channels, n = shape
-    plan = bn.bn_plan(batch, channels, n, most)
+    plan = bn.bn_plan(batch, channels, n, most, itemsize)
     cluster, held = plan['cluster'], plan['resident']
     assert cluster in (1, 2, 4, 8, 16) and cluster <= most
     shares = bn.channel_shares(batch, n, cluster)
@@ -98,7 +99,8 @@ def test_plan_covers_the_channel(shape, most):
         covered[start:start + width] += 1
     assert (covered == 1).all()
     assert plan['remainder'] == sum(max(w - held, 0) for _, w in shares)
-    cap = (gn._SMEM_MOST - gn._SCRATCH) // 4 // 4 * 4
+    cap = (gn._SMEM_MOST - gn._SCRATCH) // itemsize // 4 * 4
+    assert gn.held_most(itemsize) == cap
     if plan['remainder']:
         assert cluster == most
         assert held == cap
@@ -108,17 +110,21 @@ def test_plan_covers_the_channel(shape, most):
         assert held * cluster >= batch * n
         route = 'cluster' if cluster > 1 else 'block'
         assert plan['route_fwd'] == route
-        assert plan['route_bwd'] == ('passes' if n % 4 else route)
+        bf16_wide = itemsize == 2 and cluster == 16
+        assert plan['route_bwd'] == ('passes' if n % 4 or bf16_wide
+                                     else route)
     if cluster > 1:   # the smallest cluster that holds the channel
-        assert bn.bn_plan(batch, channels, n, cluster // 2)['remainder'] > 0
+        assert bn.bn_plan(batch, channels, n, cluster // 2,
+                          itemsize)['remainder'] > 0
     assert held % 4 == 0
-    assert plan['smem'] == gn._SCRATCH + 4 * held <= gn._SMEM_MOST
+    assert plan['smem'] == gn._SCRATCH + itemsize * held <= gn._SMEM_MOST
     assert plan['tasks'] == batch * -(-n // gn._TASK) >= cluster
     assert plan['blocks'] == channels * cluster
     half = cluster == 1 and plan['tasks'] <= 16
     assert plan['threads'] == (256 if half else 512)
-    assert plan['block_smem'] == gn._SCRATCH + 4 * held * plan['stages']
-    pair = 2 * (gn._SCRATCH + 8 * held + bn._SMEM_RESERVED)
+    assert plan['block_smem'] == (gn._SCRATCH
+                                  + itemsize * held * plan['stages'])
+    pair = 2 * (gn._SCRATCH + 2 * itemsize * held + bn._SMEM_RESERVED)
     assert plan['stages'] == (2 if half and pair <= bn._SMEM_SM else 1)
     segs = -(-n // bn._SEG)
     assert plan['workspace'] == (16 * batch * channels * segs
@@ -148,6 +154,27 @@ def test_plan_routes_at_the_manner_shapes():
     held = sum(c for (shape, _), c in MANNER_CALLS.items()
                if not plans[shape]['remainder'])
     assert held == 67 and sum(MANNER_CALLS.values()) == 69
+
+
+def test_plan_routes_at_the_manner_shapes_in_bf16():
+    """On the bf16 route a block holds twice the elements: every class of
+    the step is held, (16, 60, 64084)'s 2.05 MB channels by a 16-block
+    cluster (K7-BN's route; K8-BN takes the passes there, faster on an
+    H100), 16020's by 4 blocks and 4004's by one; K8-BN still takes the
+    passes at N = 249 (off the vector grid). A ring of two channels now
+    fits at N = 1000 as well as at 249."""
+    plans = {shape: bn.bn_plan(*shape, itemsize=2)
+             for shape, _ in MANNER_CALLS}
+    for shape, plan in plans.items():
+        n = shape[2]
+        want = (16 if n == 64084 else 4 if n == 16020 else 1)
+        assert plan['cluster'] == want, shape
+        assert plan['remainder'] == 0, shape
+        assert plan['route_fwd'] == ('block' if want == 1 else 'cluster')
+        assert (plan['route_bwd'] == 'passes') == (n in (249, 64084)), shape
+        assert (plan['stages'] == 2) == (n in (249, 1000)), shape
+    assert plans[(16, 60, 64084)]['resident'] == 64084
+    assert gn.held_most(2) == 2 * gn.held_most(4) == 115200
 
 
 def test_manner_batchnorm_calls_at_16x4s(monkeypatch):

@@ -1,7 +1,8 @@
 """K7/K8's cluster plan on the CPU: the wrapper's mirror
-(``ops.groupnorm.gn_plan``) against the constants of csrc/groupnorm.cu and
+(``ops.groupnorm.gn_plan``) against the constants of csrc/groupnorm.cuh and
 what the card allows a block, at the GroupNorm shapes of one SGMSE+ U-Net
-evaluation at 4 x 4 s and at ragged ones; and ``bench_groupnorm``'s
+evaluation at 4 x 4 s and at ragged ones, on the float32 route and the bf16
+one (2 bytes an element); and ``bench_groupnorm``'s
 bounds and call recorder. The card tests hold the built library's own plan
 to the same mirror."""
 
@@ -39,7 +40,7 @@ CASES = [(shape, 32) for shape, _ in UNET_CALLS] + RAGGED
 
 
 def _constant(name):
-    with open(os.path.join(CSRC, 'groupnorm.cu')) as f:
+    with open(os.path.join(CSRC, 'groupnorm.cuh')) as f:
         text = f.read()
     return int(re.search(rf'constexpr int {name} = (\d+);', text).group(1))
 
@@ -64,16 +65,17 @@ def test_plan_constants_are_the_sources():
     assert gn._SCRATCH % 16 == 0 and gn._TASK % 4 == 0
 
 
+@pytest.mark.parametrize('itemsize', [4, 2])
 @pytest.mark.parametrize('most', [16, 8])
 @pytest.mark.parametrize('shape,groups', CASES, ids=lambda v: str(v))
-def test_plan_covers_the_slab(shape, groups, most):
+def test_plan_covers_the_slab(shape, groups, most, itemsize):
     """A cluster of 1-16 blocks (a power of two), the smallest whose blocks
     hold their shares, else the largest allowed (16, or 8 where the card
     places no 16-block cluster) with the rest of each share named as the
     remainder; the shares tile the slab; the shared memory is the scratch
     and the held floats (whole float4s) and at most 232,448 bytes."""
     batch, channels, n = _bnc(shape)
-    plan = gn.gn_plan(batch, channels, n, groups, most)
+    plan = gn.gn_plan(batch, channels, n, groups, most, itemsize)
     cluster, held = plan['cluster'], plan['resident']
     assert cluster in (1, 2, 4, 8, 16)
     slab = channels // groups * n
@@ -86,15 +88,16 @@ def test_plan_covers_the_slab(shape, groups, most):
     assert cluster <= most
     if plan['remainder']:
         assert plan['route'] == 'partial' and cluster == most
-        assert held == (gn._SMEM_MOST - gn._SCRATCH) // 4 // 4 * 4
+        assert held == (gn._SMEM_MOST - gn._SCRATCH) // itemsize // 4 * 4
     else:
         assert held * cluster >= slab and held >= max(w for _, w in shares)
         assert plan['route'] == ('cluster' if cluster > 1 else 'block')
     if cluster > 1:   # the smallest cluster that holds the slab
-        half = gn.gn_plan(batch, channels, n, groups, cluster // 2)
+        half = gn.gn_plan(batch, channels, n, groups, cluster // 2,
+                          itemsize)
         assert half['remainder'] > 0
     assert held % 4 == 0
-    assert plan['smem'] == gn._SCRATCH + 4 * held <= gn._SMEM_MOST
+    assert plan['smem'] == gn._SCRATCH + itemsize * held <= gn._SMEM_MOST
     assert plan['tasks'] >= cluster
     assert plan['blocks'] == batch * groups * cluster
     assert plan['threads'] == gn._THREADS
@@ -123,6 +126,20 @@ def test_plan_routes_at_the_unet_shapes():
                if fwd[s]['route'] == 'block') == 68
     assert {p['route'] for p in fwd.values()} == {'block', 'cluster',
                                                   'partial'}
+
+
+def test_plan_routes_at_the_unet_shapes_in_bf16():
+    """On the bf16 route a block holds twice the elements: every slab of
+    a U-Net evaluation at 4 x 4 s is held, (4, 256, 256, 501)'s 1.96 MiB
+    groups by 16-block clusters and (4, 128, 256, 501)'s by 8."""
+    plans = {shape: gn.gn_plan(*_bnc(shape), 32, itemsize=2)
+             for shape, _ in UNET_CALLS}
+    assert all(p['remainder'] == 0 for p in plans.values())
+    assert plans[(4, 256, 256, 501)]['cluster'] == 16
+    assert plans[(4, 128, 256, 501)]['cluster'] == 8
+    assert {p['route'] for p in plans.values()} == {'block', 'cluster'}
+    assert all(p['smem'] == gn._SCRATCH + 2 * p['resident']
+               for p in plans.values())
 
 
 def test_a_smaller_cluster_holds_less():

@@ -229,11 +229,9 @@ def test_refusals(tmp_path):
     for option in ('ddp', 'profile', 'use_wandb'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             make_trainer(tmp_path, **{option: True})
-    # bf16 amp is refused for a family whose kernels have no bf16 route
-    # yet (tests/test_torch_amp.py covers each), accepted for Conv-TasNet
-    # and, since their LSTM kernels' bf16 route, TF-GridNet and DCCRN
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        make_trainer(tmp_path, arch='sgmsepm', use_amp=True)
+    # bf16 amp is accepted for every family (tests/test_torch_amp.py
+    # covers each): SGMSE+ since its GroupNorms' bf16 route
+    assert make_trainer(tmp_path, arch='sgmsepm', use_amp=True).use_amp
     for arch in ('convtasnet', 'tfgridnet', 'dccrn'):
         assert make_trainer(tmp_path, arch=arch, use_amp=True).use_amp
     # the host twins score pesq/estoi without device_val_metrics; a name
