@@ -1,6 +1,7 @@
 // LSTM recurrence for NVIDIA Hopper (K3-K6; lstm_scan.cuh has the kernels
 // and their design): the C entry points, with the float32 route compiled
-// here and the bf16 route (bf16 = 1) in lstm_scan_bf16.cu.
+// here and the bf16 route (bf16 = 1) in lstm_scan_bf16.cu (K3-bf16 and
+// K4-bf16 on the bf16 tensor cores; their plans' entries are there too).
 
 #include "lstm_scan.cuh"
 
@@ -72,7 +73,7 @@ int lstm_bwd_gates(const void* x, const void* w_ih, const void* bias, const void
   const dim3 grid(cdiv(T * R, kGM), 4 * H / kGM, D);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return lstm_bf16::bwd_gates(x, w_ih, bias, w_hh, h_seq, gates, T, D, R, E, H, s);
-  lstm_bwd_gates_gemm<float><<<grid, kGemmThreads, 0, s>>>(
+  lstm_bwd_gates_gemm<<<grid, kGemmThreads, 0, s>>>(
       in<float>(x), in<float>(w_ih), in<float>(bias), in<float>(w_hh), in<float>(h_seq),
       out<float>(gates), T, D, R, E, H);
   return last_error();

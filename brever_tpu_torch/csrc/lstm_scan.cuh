@@ -141,16 +141,17 @@
 // one-row tile is the smallest there is, and its threads would own more
 // than 16 units each.
 //
-// SIMT float32 FFMA throughout (no TF32, no bf16: the parity bounds are
-// float32's); wgmma, TMA and bf16 are later work. Every pointer is a dense
-// float32 buffer in the layouts above; w_hh_t is w_hh transposed to
+// SIMT float32 FFMA throughout on the float32 route (no TF32: the parity
+// bounds are float32's). Every pointer is a dense float32 buffer in the
+// layouts above; w_hh_t is w_hh transposed to
 // (D, 4H, H) (the tiled K6 and K4 only), w_ih_t w_ih transposed to (D, 4H,
 // E) (K4 only). E is a multiple of 4 (the wrapper pads), H a multiple of
 // 32, at most 256 for K3/K4 and 8192 for K5/K6.
 
 // This header holds the kernels and their launch helpers; lstm_scan.cu
 // has the C entries and the float32 route, lstm_scan_bf16.cu the bf16
-// route (lstm_bf16::).
+// route (lstm_bf16::): K5/K6's clusters instantiated on bf16 storage, and
+// K3-bf16 and K4-bf16, kernels of its own on the bf16 tensor cores.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -181,13 +182,14 @@ namespace cg = cooperative_groups;
 __device__ __forceinline__ float sigm(float z) { return 1.f / (1.f + expf(-z)); }
 
 // ---------------------------------------------------------------------------
-// The bf16 route. Every kernel is also instantiated on bfloat16 storage (S =
-// bf16: x, the weights, the bias, gates_x, h, c, dh, dgates and dx): loads
+// The bf16 route (bfloat16 storage: x, the weights, the bias, gates_x, h, c,
+// dh, dgates and dx). K5/K6's clusters are templates on the storage S: loads
 // are converted to float32, products are summed in float32 (the product of
-// two bf16 values is exact in float32) and results are rounded to bf16
-// (round_bf16, nearest even) where the Pallas kernels round under bf16, each
-// of their jnp operations landing at the carry dtype (_fwd_x_kernel,
-// _bwd_x_kernel, _fwd_kernel, _bwd_kernel):
+// two bf16 values is exact in float32); K3-bf16 and K4-bf16
+// (lstm_scan_bf16.cu) sum theirs on the bf16 tensor cores in float32. Each
+// result is rounded to bf16 (round_bf16, nearest even) where the Pallas
+// kernels round under bf16, each of their jnp operations landing at the
+// carry dtype (_fwd_x_kernel, _bwd_x_kernel, _fwd_kernel, _bwd_kernel):
 //
 //   gx = bf16(x w_ih + bias)                   (float32 sum, one rounding)
 //   gates = bf16(gx + bf16(h[t-1] w_hh))
@@ -511,36 +513,32 @@ lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
 }
 
 // ---------------------------------------------------------------------------
-// K4's products and K6's weight gradient run on the float32 SIMT GEMM body
-// of simt_gemm.cuh (gemm_loop: 128 x 128 tiles, 8 x 8 outputs a thread).
+// K4's products and K6's weight gradient on the float32 route run on the
+// SIMT GEMM body of simt_gemm.cuh (gemm_loop: 128 x 128 tiles, 8 x 8 outputs
+// a thread); the bf16 route's on mma_bf16.cuh's (lstm_scan_bf16.cu).
 
 // K4's gate pre-activations out of the serial chain: pre[t, d, r] =
 // (x[t, d, r] w_ih[d] + bias[d]) + h[t-1, d, r] w_hh[d] (h[-1] = 0) into
 // pre (T, D, R, 4H), over k ascending: x's slices, the bias, then h's, as
-// K3 (lstm_fwd_ring) sums them, so that these are K3's bits. On the bf16
-// route (S = bf16) x's sum and the bias are rounded into gx when x's last
-// slice is in, h's sum runs from 0, and finish() forms bf16(gx + bf16(h
-// w_hh)), as lstm_fwd_ring_bf16 does.
-template <class S>
+// K3 (lstm_fwd_ring) sums them, so that these are K3's bits.
 struct GatesOp {
-  const S *xrow, *hrow, *wi, *wh, *bias;
+  const float *xrow, *hrow, *wi, *wh, *bias;
   int E, H, nx;
-  RowStage<true, S> a;
-  DirectSlice<true, S> b;
-  unsigned gx[8][4];  // bf16 route: bf16(x w_ih + bias), packed pairs of columns
+  RowStage<true> a;
+  DirectSlice<true, float> b;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int G = 4 * H, n0 = blockIdx.y * kGM;
     if (s < nx) {
       const int k0 = s * kGK;
       a.load(xrow, k0, E);
-      b.fetch(Bs, [&](int k, int c) -> const S* {
+      b.fetch(Bs, [&](int k, int c) -> const float* {
         return k0 + k < E ? wi + static_cast<size_t>(k0 + k) * G + n0 + c : nullptr;
       }, wi);
     } else {
       const int k0 = (s - nx) * kGK;
       a.load(hrow, k0, H);
-      b.fetch(Bs, [&](int k, int c) -> const S* {
+      b.fetch(Bs, [&](int k, int c) -> const float* {
         return wh + static_cast<size_t>(k0 + k) * G + n0 + c;
       }, wh);
     }
@@ -558,41 +556,18 @@ struct GatesOp {
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[i][j] += b;
     }
-    if constexpr (kIsBf16<S>) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          gx[i][j / 2] = pack2(acc[i][j], acc[i][j + 1]);
-          acc[i][j] = acc[i][j + 1] = 0.f;
-        }
-    }
-  }
-  // the gates from the sums, on the bf16 route
-  __device__ __forceinline__ void finish(float (&acc)[8][8]) {
-    if constexpr (kIsBf16<S>) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          const float2 v = unpack2(gx[i][j / 2]);
-          acc[i][j] = round_bf16(v.x + round_bf16(acc[i][j]));
-          acc[i][j + 1] = round_bf16(v.y + round_bf16(acc[i][j + 1]));
-        }
-    }
   }
 };
 
 // grid (cdiv(T R, 128), 4H / 128, D): rows m = t R + r of direction d
-template <class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-lstm_bwd_gates_gemm(const S* __restrict__ x, const S* __restrict__ w_ih,
-                    const S* __restrict__ bias, const S* __restrict__ w_hh,
-                    const S* __restrict__ h_seq, S* __restrict__ pre, int T, int D, int R, int E,
-                    int H) {
+lstm_bwd_gates_gemm(const float* __restrict__ x, const float* __restrict__ w_ih,
+                    const float* __restrict__ bias, const float* __restrict__ w_hh,
+                    const float* __restrict__ h_seq, float* __restrict__ pre, int T, int D, int R,
+                    int E, int H) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int d = blockIdx.z, G = 4 * H, M = T * R, m0 = blockIdx.x * kGM;
-  GatesOp<S> op;
+  GatesOp op;
   op.xrow = op.hrow = nullptr;
   const int m = m0 + threadIdx.x % kGM;  // the row this thread stages
   if (m < M) {
@@ -608,25 +583,23 @@ lstm_bwd_gates_gemm(const S* __restrict__ x, const S* __restrict__ w_ih,
   op.nx = cdiv(E, kGK);
   float acc[8][8] = {};
   gemm_loop(op, acc, op.nx + H / kGK, sm);
-  op.finish(acc);
-  store_tile(acc, [&](int i) -> S* {
+  store_tile(acc, [&](int i) -> float* {
     const int mm = m0 + i;
     return mm < M ? pre + at(mm / R, d, mm % R, D, R) * G : nullptr;
   }, blockIdx.y * kGM, G);
 }
 
 // dx = dgates w_ih^T with w_ih^T (4H, E) stored: its rows are the k slices
-template <class S>
 struct DxOp {
-  const S *grow, *wt;
+  const float *grow, *wt;
   int G, E;
-  RowStage<true, S> a;
-  DirectSlice<true, S> b;
+  RowStage<true> a;
+  DirectSlice<true, float> b;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int k0 = s * kGK, n0 = blockIdx.y * kGM;
     a.load(grow, k0, G);
-    b.fetch(Bs, [&](int k, int c) -> const S* {
+    b.fetch(Bs, [&](int k, int c) -> const float* {
       return n0 + c < E ? wt + static_cast<size_t>(k0 + k) * E + n0 + c : nullptr;
     }, wt);
   }
@@ -638,13 +611,12 @@ struct DxOp {
 };
 
 // grid (cdiv(T R, 128), cdiv(E, 128), D)
-template <class S>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-lstm_bwd_dx_gemm(const S* __restrict__ dgates, const S* __restrict__ w_ih_t,
-                 S* __restrict__ dx, int T, int D, int R, int E, int H) {
+lstm_bwd_dx_gemm(const float* __restrict__ dgates, const float* __restrict__ w_ih_t,
+                 float* __restrict__ dx, int T, int D, int R, int E, int H) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int d = blockIdx.z, G = 4 * H, M = T * R, m0 = blockIdx.x * kGM;
-  DxOp<S> op;
+  DxOp op;
   const int m = m0 + threadIdx.x % kGM;
   op.grow = m < M ? dgates + at(m / R, d, m % R, D, R) * G : nullptr;
   op.wt = w_ih_t + static_cast<size_t>(d) * G * E;
@@ -652,7 +624,7 @@ lstm_bwd_dx_gemm(const S* __restrict__ dgates, const S* __restrict__ w_ih_t,
   op.E = E;
   float acc[8][8] = {};
   gemm_loop(op, acc, G / kGK, sm);
-  store_tile(acc, [&](int i) -> S* {
+  store_tile(acc, [&](int i) -> float* {
     const int mm = m0 + i;
     return mm < M ? dx + at(mm / R, d, mm % R, D, R) * E : nullptr;
   }, blockIdx.y * kGM, E);
@@ -662,14 +634,12 @@ lstm_bwd_dx_gemm(const S* __restrict__ dgates, const S* __restrict__ w_ih_t,
 // t R + r: rows m < E + H of a = [x[t] | h[t-1]] (h[-1] = 0) and columns
 // n of dgates[p], k ascending; with kDb the first row tile's threads
 // tid < 128 also sum dgates' column n0 + tid (the row of ones) in the
-// same order. float32 operands go to shared memory by cp.async; bf16 ones
-// through registers, converted in fetch and written in store.
-template <bool kDb, class S>
+// same order. The operands go to shared memory by cp.async.
+template <bool kDb>
 struct WgradOp {
-  const S *x, *h_seq, *dg;
+  const float *x, *h_seq, *dg;
   int D, R, E, H, d, p0, p1;
   float db = 0.f;
-  float4 va[2], vb[2];  // bf16 route: the thread's pieces of the next slice
 
   __device__ __forceinline__ void fetch(int s, float* As, float* Bs) {
     const int k0 = p0 + s * kGK, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM, G = 4 * H;
@@ -677,7 +647,7 @@ struct WgradOp {
     for (int q = 0; q < 2; ++q) {
       const int i = threadIdx.x + q * kGemmThreads, k = i / 32, c = i % 32 * 4;
       const int p = k0 + k, m = m0 + c;
-      const S *pa = nullptr, *pb = nullptr;
+      const float *pa = nullptr, *pb = nullptr;
       if (p < p1) {
         const int t = p / R;
         const size_t row = at(t, d, p % R, D, R);
@@ -687,26 +657,11 @@ struct WgradOp {
           pa = h_seq + (row - static_cast<size_t>(D) * R) * H + (m - E);
         pb = dg + row * G + n0 + c;
       }
-      if constexpr (kIsBf16<S>) {
-        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-        va[q] = pa ? ldg4(pa) : zero;
-        vb[q] = pb ? ldg4(pb) : zero;
-      } else {
-        cp_async<16>(As + k * kGLd + c, pa ? pa : dg, pa != nullptr);
-        cp_async<16>(Bs + k * kGLd + c, pb ? pb : dg, pb != nullptr);
-      }
+      cp_async<16>(As + k * kGLd + c, pa ? pa : dg, pa != nullptr);
+      cp_async<16>(Bs + k * kGLd + c, pb ? pb : dg, pb != nullptr);
     }
   }
-  __device__ __forceinline__ void store(float* As) {
-    if constexpr (kIsBf16<S>) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = threadIdx.x + q * kGemmThreads, o = (i / 32) * kGLd + i % 32 * 4;
-        *reinterpret_cast<float4*>(As + o) = va[q];
-        *reinterpret_cast<float4*>(As + kGSlice + o) = vb[q];
-      }
-    }
-  }
+  __device__ __forceinline__ void store(float*) {}
   __device__ __forceinline__ void after(int, float (&)[8][8], const float* Bs) {
     if constexpr (kDb) {
       if (blockIdx.x != 0 || threadIdx.x >= kGM) return;
@@ -718,14 +673,14 @@ struct WgradOp {
 
 // part[d][c] (E + H + kDb, 4H) of chunk c of `chunk` pairs; grid
 // (cdiv(E + H, 128), 4H / 128, D chunks). x is not read when E = 0 (K6).
-template <bool kDb, class S>
+template <bool kDb>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-lstm_bwd_wgrad_gemm(const S* __restrict__ x, const S* __restrict__ h_seq,
-                    const S* __restrict__ dgates, float* __restrict__ part, int T, int D,
+lstm_bwd_wgrad_gemm(const float* __restrict__ x, const float* __restrict__ h_seq,
+                    const float* __restrict__ dgates, float* __restrict__ part, int T, int D,
                     int R, int E, int H, int chunks, int chunk) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int G = 4 * H, rows = E + H + (kDb ? 1 : 0);
-  WgradOp<kDb, S> op;
+  WgradOp<kDb> op;
   op.x = x;
   op.h_seq = h_seq;
   op.dg = dgates;
@@ -818,10 +773,8 @@ __device__ __forceinline__ void scan_owner(int tx, int& ry, int& ux) {
 
 // four neighbouring gates or dgates of K4's workspace as float32 (written
 // in place by the reverse scan: a plain load, not __ldg)
-template <class S>
-__device__ __forceinline__ float4 ld4(const S* p) {
-  if constexpr (kIsBf16<S>) return lds4(p);
-  else return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 // g: the gates (T, D, R, 4H) in, dgates out, in place. grid (cdiv(R,
@@ -831,36 +784,32 @@ __device__ __forceinline__ float4 ld4(const S* p) {
 // elementwise phase and as its outputs of dh_rec = dgates w_hh^T (k
 // ascending over the 4H columns), so dc and dh_rec stay in its registers.
 // The product streams w_hh^T from L2 every step (256 KB a direction at
-// H = 128), three chunks ahead; on the bf16 route the ring holds it as
-// bf16 (half of each slot), the step rounds as bwd_cell_bf16 and dh_rec is
-// rounded to bf16.
-template <int kRows, int kRt, class S>
+// H = 128), three chunks ahead.
+template <int kRows, int kRt>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-lstm_bwd_rscan(S* __restrict__ g, const S* __restrict__ w_hh_t, const S* __restrict__ c_seq,
-               const S* __restrict__ dh_seq, int T, int D, int R, int H) {
+lstm_bwd_rscan(float* __restrict__ g, const float* __restrict__ w_hh_t,
+               const float* __restrict__ c_seq, const float* __restrict__ dh_seq, int T, int D,
+               int R, int H) {
   constexpr int ld = kRows + 4;
   // the instantiations: (64, 4) and (32, 2) at H <= 128, (32, 4) above
   constexpr int kChunk = kRows == 64 || kRt == 2 ? chunk_rows(128) : chunk_rows(256);
   extern __shared__ float smem[];
   const int G = 4 * H, half = H / 2, tx = H / 8;
   float* dgs = smem;                                 // (4H, ld): dgates[t]^T
-  // (kRing, kChunk, H) in S
-  S* ring = reinterpret_cast<S*>(smem + static_cast<size_t>(G) * ld);
+  float* ring = smem + static_cast<size_t>(G) * ld;  // (kRing, kChunk, H)
   const int d = blockIdx.y, r0 = blockIdx.x * kRows;
   int ry, ux;
   scan_owner(tx, ry, ux);
-  const S* wt = w_hh_t + static_cast<size_t>(d) * G * H;
+  const float* wt = w_hh_t + static_cast<size_t>(d) * G * H;
   const int per_step = G / kChunk, total = (T - 1) * per_step;
   // chunk s of the product's sequence (step T - 1 - s / per_step, rows
   // s % per_step of w_hh^T) into its ring slot, in 16-byte pieces; one
   // commit group each
   auto issue = [&](int s) {
     if (s < total) {
-      const float* src =
-          reinterpret_cast<const float*>(wt + static_cast<size_t>(s % per_step) * kChunk * H);
-      float* dst = reinterpret_cast<float*>(ring + (s % kRing) * kChunk * H);
-      constexpr int kPerPiece = 16 / sizeof(S);
-      for (int i = threadIdx.x; i < kChunk * H / kPerPiece; i += blockDim.x)
+      const float* src = wt + static_cast<size_t>(s % per_step) * kChunk * H;
+      float* dst = ring + (s % kRing) * kChunk * H;
+      for (int i = threadIdx.x; i < kChunk * H / 4; i += blockDim.x)
         cp_async<16>(dst + 4 * i, src + 4 * i, true);
     }
     cp_async_commit();
@@ -895,26 +844,16 @@ lstm_bwd_rscan(S* __restrict__ g, const S* __restrict__ w_hh_t, const S* __restr
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if constexpr (kIsBf16<S>) {
-            const float z[4] = {lane(pre[0], j), lane(pre[1], j), lane(pre[2], j),
-                                lane(pre[3], j)};
-            float dgj[4];
-            bwd_cell_bf16(z, lane(ct, j), lane(cp, j), lane(dhv, j), rec[i][4 * q + j],
-                          dc[i][4 * q + j], dgj);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) dg[k][j][i] = live ? dgj[k] : 0.f;
-          } else {
-            const float ig = sigm(lane(pre[0], j)), fg = sigm(lane(pre[1], j));
-            const float gg = tanhf(lane(pre[2], j)), og = sigm(lane(pre[3], j));
-            const float tc = tanhf(lane(ct, j));
-            const float dh = lane(dhv, j) + rec[i][4 * q + j];
-            const float dcc = dh * og * (1.f - tc * tc) + dc[i][4 * q + j];
-            dg[0][j][i] = live ? dcc * gg * ig * (1.f - ig) : 0.f;
-            dg[1][j][i] = live ? dcc * lane(cp, j) * fg * (1.f - fg) : 0.f;
-            dg[2][j][i] = live ? dcc * ig * (1.f - gg * gg) : 0.f;
-            dg[3][j][i] = live ? dh * tc * og * (1.f - og) : 0.f;
-            dc[i][4 * q + j] = dcc * fg;
-          }
+          const float ig = sigm(lane(pre[0], j)), fg = sigm(lane(pre[1], j));
+          const float gg = tanhf(lane(pre[2], j)), og = sigm(lane(pre[3], j));
+          const float tc = tanhf(lane(ct, j));
+          const float dh = lane(dhv, j) + rec[i][4 * q + j];
+          const float dcc = dh * og * (1.f - tc * tc) + dc[i][4 * q + j];
+          dg[0][j][i] = live ? dcc * gg * ig * (1.f - ig) : 0.f;
+          dg[1][j][i] = live ? dcc * lane(cp, j) * fg * (1.f - fg) : 0.f;
+          dg[2][j][i] = live ? dcc * ig * (1.f - gg * gg) : 0.f;
+          dg[3][j][i] = live ? dh * tc * og * (1.f - og) : 0.f;
+          dc[i][4 * q + j] = dcc * fg;
         }
         if (live)
 #pragma unroll
@@ -938,7 +877,7 @@ lstm_bwd_rscan(S* __restrict__ g, const S* __restrict__ w_hh_t, const S* __restr
       cp_async_wait<kRing - 2>();
       __syncthreads();  // chunk s in; dgs whole; every thread done with chunk s - 1
       issue(s + kRing - 1);
-      const S* w = ring + (s % kRing) * kChunk * H + ux * 4;
+      const float* w = ring + (s % kRing) * kChunk * H + ux * 4;
       const float* a = dgs + static_cast<size_t>(c) * kChunk * ld + ry * kRt;
 #pragma unroll
       for (int k = 0; k < kChunk; ++k) {
@@ -957,7 +896,7 @@ lstm_bwd_rscan(S* __restrict__ g, const S* __restrict__ w_hh_t, const S* __restr
 #pragma unroll
     for (int i = 0; i < kRt; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) rec[i][j] = kIsBf16<S> ? round_bf16(acc[i][j]) : acc[i][j];
+      for (int j = 0; j < 8; ++j) rec[i][j] = acc[i][j];
   }
 }
 
@@ -1110,165 +1049,6 @@ lstm_fwd_ring(const float* __restrict__ x, const float* __restrict__ w_ih,
         if constexpr (kKeep)
 #pragma unroll
           for (int g = 0; g < 4; ++g) store_vec<kFwdUnits>(gates_out + o * G + g * H + ug * kFwdUnits, acc[i][g]);
-      }
-    }
-  }
-}
-
-// K3 on the bf16 route: lstm_fwd_ring's plan, grid, threads, shared memory
-// and slice order, with bf16 in shared memory. A stage holds its x[t]
-// columns as packed pairs of neighbouring k, (kK / 2, ld) pairs
-// transposed (a thread's 4 rows at a pair of k are one 16-byte load), and
-// its rows of [w_ih; w_hh] as (kK, 4H) bf16, both in the space of the
-// float32 stage; h[t-1] of the tile is kept as (H / 2, ld) pairs. A step
-// sums x's slices and the bias from 0 and rounds them into gx, sums h's
-// slices from 0, and forms each gate as bf16(gx + bf16(h w_hh)): the sums
-// in K4's gates GEMM's order (GatesOp<bf16>). gx waits in shared memory,
-// in the tails of the stages that the bf16 weights leave free (kK 2H words
-// a stage, kRows / kK <= 4 of them: 32 words a thread), not in registers:
-// held there it spilled at the 64-row tile's 128 registers a thread.
-template <int kRows, int kK, bool kKeep>
-__global__ void __launch_bounds__(kRows * (kK == 16 ? 128 : 256) / (4 * kFwdUnits), 1)
-lstm_fwd_ring_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w_ih,
-                   const bf16* __restrict__ bias, const bf16* __restrict__ w_hh,
-                   bf16* __restrict__ h_seq, bf16* __restrict__ c_seq,
-                   bf16* __restrict__ gates_out, int T, int D, int R, int E, int H) {
-  extern __shared__ float smem[];
-  constexpr int ld = kRows + 4, kPairs = kK / 2;
-  const int G = 4 * H, d = blockIdx.y, r0 = blockIdx.x * kRows, nthr = blockDim.x;
-  const int stage = kK * (ld + G);                       // floats, as lstm_fwd_ring's
-  unsigned* hs = reinterpret_cast<unsigned*>(smem);      // (H / 2, ld): h[t-1]^T, pairs
-  float* ring = smem + H * ld;                           // kFwdRing x [x pairs | weights]
-  const int ugs = H / kFwdUnits, wx = ugs / 8, w = threadIdx.x / 32, l = threadIdx.x % 32;
-  const int ug = (w % wx) * 8 + l % 8, rg = (w / wx) * 4 + l / 8;
-  const int nx = cdiv(E, kK), n_step = nx + H / kK;
-  const bf16* wi = w_ih + static_cast<size_t>(d) * E * G;
-  const bf16* wh = w_hh + static_cast<size_t>(d) * H * G;
-  // the thread's gx words: word j of thread t in the tail of stage t / per,
-  // at j per + t % per (per = kK H / 16 threads a stage's tail)
-  const int per = kK * H / 16;
-  unsigned* gxs = reinterpret_cast<unsigned*>(ring + (threadIdx.x / per) * stage + kK * ld) +
-                  kK * 2 * H + threadIdx.x % per;
-  // lstm_fwd_ring's issue on bf16: a slice's weight rows in 16-byte pieces
-  // of 8 (8 kK / kRows a thread), x[t]'s pairs of the tile as 4-byte copies
-  // into their transposed places
-  int it = 0, isl = 0, iq = 0;
-  auto issue = [&]() {
-    if (it < T) {
-      float* st = ring + (iq % kFwdRing) * stage;
-      const bool xs = isl < nx;
-      const int k0 = (xs ? isl : isl - nx) * kK, K = xs ? E : H;
-      const bf16* src = (xs ? wi : wh) + static_cast<size_t>(k0) * G;
-      const int n_ok = (K - k0) * H / 2;  // pieces of the rows k < K
-      bf16* wst = reinterpret_cast<bf16*>(st + kK * ld);
-#pragma unroll
-      for (int m = 0; m < 8 * kK / kRows; ++m) {
-        const int i = threadIdx.x + m * nthr;
-        cp_async<16>(reinterpret_cast<float*>(wst + 8 * i),
-                     reinterpret_cast<const float*>(i < n_ok ? src + 8 * i : wh), i < n_ok);
-      }
-      if (xs) {
-        const bf16* xt = x + at(it, d, 0, D, R) * E;
-        unsigned* xp = reinterpret_cast<unsigned*>(st);
-        for (int i = threadIdx.x; i < kRows * kPairs; i += nthr) {
-          const int row = i / kPairs, p = i % kPairs;
-          const bool ok = r0 + row < R && k0 + 2 * p < E;
-          cp_async<4>(reinterpret_cast<float*>(xp + p * ld + row),
-                      reinterpret_cast<const float*>(
-                          ok ? xt + static_cast<size_t>(r0 + row) * E + k0 + 2 * p : x),
-                      ok);
-        }
-      }
-      if (++isl == n_step) isl = 0, ++it;
-    }
-    ++iq;
-    cp_async_commit();
-  };
-  for (int i = threadIdx.x; i < H * ld; i += nthr) smem[i] = 0.f;  // h[-1]
-  for (int q = 0; q < kFwdRing - 1; ++q) issue();
-  float c[4][kFwdUnits] = {};
-  int q = 0;  // slices consumed
-  for (int t = 0; t < T; ++t) {
-    float acc[4][4][kFwdUnits];  // [row][gate][unit]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int u = 0; u < kFwdUnits; ++u) acc[i][g][u] = 0.f;
-    for (int sl = 0; sl < n_step; ++sl, ++q) {
-      cp_async_wait<kFwdRing - 2>();
-      __syncthreads();  // slice q in; every thread done with slice q - 1 (and, at
-                        // the step's first slice, h[t-1] whole in hs)
-      issue();          // slice q + kFwdRing - 1, into the stage of slice q - 1
-      const float* st = ring + (q % kFwdRing) * stage;
-      const bool xs = sl < nx;
-      const unsigned* a =
-          (xs ? reinterpret_cast<const unsigned*>(st) : hs + (sl - nx) * kPairs * ld) + rg * 4;
-      const bf16* b = reinterpret_cast<const bf16*>(st + kK * ld) + ug * kFwdUnits;
-#pragma unroll
-      for (int p = 0; p < kPairs; ++p) {
-        const uint4 av = *reinterpret_cast<const uint4*>(a + p * ld);
-        const float2 r[4] = {unpack2(av.x), unpack2(av.y), unpack2(av.z), unpack2(av.w)};
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float ar[4] = {e ? r[0].y : r[0].x, e ? r[1].y : r[1].x, e ? r[2].y : r[2].x,
-                               e ? r[3].y : r[3].x};
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            const float4 bq = lds4(b + (2 * p + e) * G + g * H);
-            const float bv[kFwdUnits] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int u = 0; u < kFwdUnits; ++u) acc[i][g][u] = fmaf(ar[i], bv[u], acc[i][g][u]);
-          }
-        }
-      }
-      if (sl == nx - 1) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float4 bq = ldg4(bias + d * G + g * H + ug * kFwdUnits);
-          const float bv[kFwdUnits] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int u = 0; u < kFwdUnits; u += 2) {
-              // bf16(x w_ih + bias), a packed pair of units
-              gxs[((i * 4 + g) * 2 + u / 2) * per] =
-                  pack2(acc[i][g][u] + bv[u], acc[i][g][u + 1] + bv[u + 1]);
-              acc[i][g][u] = acc[i][g][u + 1] = 0.f;
-            }
-        }
-      }
-    }
-    __syncthreads();  // every thread done reading h[t-1]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = rg * 4 + i;
-      const bool live = r0 + row < R;
-      const size_t o = live ? at(t, d, r0 + row, D, R) : 0;
-      float z[4][kFwdUnits], hv[kFwdUnits];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int u = 0; u < kFwdUnits; u += 2) {
-          const float2 v = unpack2(gxs[((i * 4 + g) * 2 + u / 2) * per]);
-          z[g][u] = round_bf16(v.x + round_bf16(acc[i][g][u]));
-          z[g][u + 1] = round_bf16(v.y + round_bf16(acc[i][g][u + 1]));
-        }
-#pragma unroll
-      for (int u = 0; u < kFwdUnits; ++u) cell_bf16(z[0][u], z[1][u], z[2][u], z[3][u], c[i][u], hv[u]);
-#pragma unroll
-      for (int u = 0; u < kFwdUnits; u += 2)
-        hs[(ug * kFwdUnits + u) / 2 * ld + row] = pack2(hv[u], hv[u + 1]);
-      if (live) {
-        st4(h_seq + o * H + ug * kFwdUnits, hv[0], hv[1], hv[2], hv[3]);
-        st4(c_seq + o * H + ug * kFwdUnits, c[i][0], c[i][1], c[i][2], c[i][3]);
-        if constexpr (kKeep)
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            st4(gates_out + o * G + g * H + ug * kFwdUnits, z[g][0], z[g][1], z[g][2], z[g][3]);
       }
     }
   }
@@ -1752,16 +1532,12 @@ struct FwdPlan {
   }
 };
 
-// K3's ring scan on the plan's tile (lstm_fwd_ring, or lstm_fwd_ring_bf16
-// for S = bf16); kKeep: the gates also to gates_out
-template <int kRows, int kK, bool kKeep, class S>
-int ring(const FwdPlan& P, const S* x, const S* w_ih, const S* bias, const S* w_hh, S* h_seq,
-         S* c_seq, S* gates_out, int T, int D, int R, int E, int H, cudaStream_t s) {
-  void (*kernel)(const S*, const S*, const S*, const S*, S*, S*, S*, int, int, int, int, int);
-  if constexpr (kIsBf16<S>)
-    kernel = lstm_fwd_ring_bf16<kRows, kK, kKeep>;
-  else
-    kernel = lstm_fwd_ring<kRows, kK, kKeep>;
+// K3's ring scan on the plan's tile; kKeep: the gates also to gates_out
+template <int kRows, int kK, bool kKeep>
+int ring(const FwdPlan& P, const float* x, const float* w_ih, const float* bias,
+         const float* w_hh, float* h_seq, float* c_seq, float* gates_out, int T, int D, int R,
+         int E, int H, cudaStream_t s) {
+  const auto kernel = lstm_fwd_ring<kRows, kK, kKeep>;
   const int err = set_smem(reinterpret_cast<const void*>(kernel), P.smem);
   if (err) return err;
   kernel<<<dim3(P.tiles, D), P.threads, P.smem, s>>>(x, w_ih, bias, w_hh, h_seq, c_seq,
@@ -1769,10 +1545,10 @@ int ring(const FwdPlan& P, const S* x, const S* w_ih, const S* bias, const S* w_
   return last_error();
 }
 
-template <bool kKeep, class S>
-int launch_ring(const FwdPlan& P, const S* x, const S* w_ih, const S* bias, const S* w_hh,
-                S* h_seq, S* c_seq, S* gates_out, int T, int D, int R, int E, int H,
-                cudaStream_t s) {
+template <bool kKeep>
+int launch_ring(const FwdPlan& P, const float* x, const float* w_ih, const float* bias,
+                const float* w_hh, float* h_seq, float* c_seq, float* gates_out, int T, int D,
+                int R, int E, int H, cudaStream_t s) {
   if (P.rows == 64)
     return ring<64, 16, kKeep>(P, x, w_ih, bias, w_hh, h_seq, c_seq, gates_out, T, D, R, E, H,
                                s);
@@ -1837,59 +1613,69 @@ int scan_bwd_tiles(const float* gates_x, const float* w_hh, const float* w_hh_t,
 }
 
 // K4's reverse scan on the plan's tile
-template <int kRows, int kRt, class S>
-int rscan(const BwdPlan& P, S* g, const S* w_hh_t, const S* c_seq, const S* dh_seq, int T, int D,
-          int R, int H, cudaStream_t s) {
-  const auto kernel = lstm_bwd_rscan<kRows, kRt, S>;
+template <int kRows, int kRt>
+int rscan(const BwdPlan& P, float* g, const float* w_hh_t, const float* c_seq,
+          const float* dh_seq, int T, int D, int R, int H, cudaStream_t s) {
+  const auto kernel = lstm_bwd_rscan<kRows, kRt>;
   const int err = set_smem(reinterpret_cast<const void*>(kernel), P.smem);
   if (err) return err;
   kernel<<<dim3(P.tiles, D), P.threads, P.smem, s>>>(g, w_hh_t, c_seq, dh_seq, T, D, R, H);
   return last_error();
 }
 
-template <class S>
-int launch_rscan(const BwdPlan& P, S* g, const S* w_hh_t, const S* c_seq, const S* dh_seq, int T,
-                 int D, int R, int H, cudaStream_t s) {
+int launch_rscan(const BwdPlan& P, float* g, const float* w_hh_t, const float* c_seq,
+                 const float* dh_seq, int T, int D, int R, int H, cudaStream_t s) {
   if (P.rows == 64) return rscan<64, 4>(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s);
   if (P.rt == 2) return rscan<32, 2>(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s);
   return rscan<32, 4>(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s);
 }
 
-// dW (and, with kDb, db) from dgates by the weight GEMM and its sums: dw
-// (D, E + H, 4H), db (D, 4H), float32 on both routes
-template <bool kDb, class S>
-int weight_grads(const S* x, const S* h_seq, const S* dgates, float* part, float* dw, float* db,
-                 const WgSplit& wg, int T, int D, int R, int E, int H, cudaStream_t s) {
+// The weight GEMM's chunk partials (D x chunks of (E + H + kDb, 4H)) summed
+// in chunk order: dw (D, E + H, 4H) and, with kDb, db (D, 4H), float32 on
+// both routes
+template <bool kDb>
+int sum_weight_partials(const float* part, float* dw, float* db, const WgSplit& wg, int D, int E,
+                        int H, cudaStream_t s) {
   const int G = 4 * H, n_w = (E + H) * G;
   const size_t stride = static_cast<size_t>(E + H + (kDb ? 1 : 0)) * G;
-  lstm_bwd_wgrad_gemm<kDb, S><<<dim3(cdiv(E + H, kGM), G / kGM, D * wg.chunks), kGemmThreads, 0,
-                                s>>>(x, h_seq, dgates, part, T, D, R, E, H, wg.chunks, wg.chunk);
-  int err = last_error();
-  if (err) return err;
   sum_partials<<<dim3(cdiv(n_w, kThreads), D), kThreads, 0, s>>>(part, wg.chunks, stride, n_w,
                                                                   dw, n_w);
-  if ((err = last_error()) || !kDb) return err;
+  int err = last_error();
+  if (err || !kDb) return err;
   sum_partials<<<dim3(cdiv(G, kThreads), D), kThreads, 0, s>>>(part + n_w, wg.chunks, stride, G,
                                                                 db, G);
   return last_error();
 }
 
-// K4 on one route: the five launches over the workspace's gates / dgates
-// (S, in the first T D R 4H elements of its region)
-template <class S>
-int lstm_bwd_route(const S* x, const S* w_ih, const S* w_ih_t, const S* bias, const S* w_hh,
-                   const S* w_hh_t, const S* h_seq, const S* c_seq, const S* dh_seq, S* dx,
-                   float* dw, float* db, float* work, int T, int D, int R, int E, int H,
-                   cudaStream_t s) {
+// dW (and, with kDb, db) from dgates by the weight GEMM and its sums: dw
+// (D, E + H, 4H), db (D, 4H)
+template <bool kDb>
+int weight_grads(const float* x, const float* h_seq, const float* dgates, float* part, float* dw,
+                 float* db, const WgSplit& wg, int T, int D, int R, int E, int H,
+                 cudaStream_t s) {
+  const int G = 4 * H;
+  lstm_bwd_wgrad_gemm<kDb><<<dim3(cdiv(E + H, kGM), G / kGM, D * wg.chunks), kGemmThreads, 0,
+                                s>>>(x, h_seq, dgates, part, T, D, R, E, H, wg.chunks, wg.chunk);
+  const int err = last_error();
+  if (err) return err;
+  return sum_weight_partials<kDb>(part, dw, db, wg, D, E, H, s);
+}
+
+// K4 on the float32 route: the five launches over the workspace's gates /
+// dgates
+int lstm_bwd_route(const float* x, const float* w_ih, const float* w_ih_t, const float* bias,
+                   const float* w_hh, const float* w_hh_t, const float* h_seq,
+                   const float* c_seq, const float* dh_seq, float* dx, float* dw, float* db,
+                   float* work, int T, int D, int R, int E, int H, cudaStream_t s) {
   const BwdPlan P(T, D, R, E, H);
   const Layout L(T, D, R, E, H, P.wg);
   const int G = 4 * H, m_tiles = cdiv(T * R, kGM);
-  S* g = reinterpret_cast<S*>(work + L.dgates);
-  lstm_bwd_gates_gemm<S><<<dim3(m_tiles, G / kGM, D), kGemmThreads, 0, s>>>(
+  float* g = work + L.dgates;
+  lstm_bwd_gates_gemm<<<dim3(m_tiles, G / kGM, D), kGemmThreads, 0, s>>>(
       x, w_ih, bias, w_hh, h_seq, g, T, D, R, E, H);
   int err = last_error();
   if (err || (err = launch_rscan(P, g, w_hh_t, c_seq, dh_seq, T, D, R, H, s))) return err;
-  lstm_bwd_dx_gemm<S><<<dim3(m_tiles, cdiv(E, kGM), D), kGemmThreads, 0, s>>>(g, w_ih_t, dx, T,
+  lstm_bwd_dx_gemm<<<dim3(m_tiles, cdiv(E, kGM), D), kGemmThreads, 0, s>>>(g, w_ih_t, dx, T,
                                                                               D, R, E, H);
   if ((err = last_error())) return err;
   return weight_grads<true>(x, h_seq, g, work + L.wg_part, dw, db, P.wg, T, D, R, E, H, s);
@@ -1938,8 +1724,7 @@ S* out(void* p) {
 // entries', the tensors bfloat16.
 namespace lstm_bf16 {
 int fwd(bool keep_gates, const void* x, const void* w_ih, const void* bias, const void* w_hh,
-        void* h_seq, void* c_seq, void* gates, int T, int D, int R, int E, int H,
-        cudaStream_t s);
+        void* h_seq, void* c_seq, void* gates, int T, int D, int R, int E, int H, cudaStream_t s);
 int bwd_gates(const void* x, const void* w_ih, const void* bias, const void* w_hh,
               const void* h_seq, void* gates, int T, int D, int R, int E, int H, cudaStream_t s);
 int bwd(const void* x, const void* w_ih, const void* w_ih_t, const void* bias, const void* w_hh,

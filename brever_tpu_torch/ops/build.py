@@ -53,6 +53,8 @@ SIGNATURES = {
     'tcn_bwd_z1': (_I, [_P] * 4 + [_I] * 5 + [_P]),
     'lstm_fwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_plan': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
+    'lstm_fwd_plan_bf16': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
+    'lstm_bwd_plan_bf16': (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     'lstm_bwd_workspace': (ctypes.c_size_t, [_I] * 5),
     'lstm_fwd': (_I, [_P] * 6 + [_I] * 6 + [_P]),
     'lstm_fwd_gates': (_I, [_P] * 7 + [_I] * 6 + [_P]),

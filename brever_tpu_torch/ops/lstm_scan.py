@@ -66,8 +66,13 @@ nonlinearity in float32 rounded to bf16, every product and sum of the cell
 and of the backward's do/dc/di/df/dg chain rounded (c carried in bf16),
 ``dh_rec = bf16(dgates w_hh^T)``, ``dx = bf16(dgates w_ih^T)``, and the
 weight gradients summed in float32 and cast to the weights' dtype. A CUDA
-bf16 tensor launches the bf16 route of the same kernels (same plans and
-launches: K3 1, K4 5, K5 1, K6 2; K5/K6 up to H = 256) or raises.
+bf16 tensor launches the bf16 route (K3 1 launch, K4 5, K5 1, K6 2; K5/K6
+up to H = 256) or raises. K3-bf16 and K4-bf16 are kernels of their own
+(``csrc/lstm_scan_bf16.cu``), their products on the bf16 tensor cores
+(``mma.sync`` m16n8k16, ``csrc/mma_bf16.cuh``), E zero-padded to the MMA
+depth of 16 (exact: the padded columns add zero products), with plans of
+their own (``fwd_plan``/``bwd_plan`` with ``bf16=True``); K6-bf16's weight
+gradient is K4-bf16's weight GEMM.
 
 K5/K6 run up to H = 256 on a thread-block cluster of :data:`CLUSTER_BLOCKS`
 blocks per 32-row tile and direction, each block holding its slice of
@@ -107,6 +112,14 @@ CLUSTER_BLOCKS = 16
 #: slice, and the chunks of w_hh^T in the reverse scan's ring
 _SMS, _WG_MIN_CHUNK, _GEMM_TILE, _GEMM_SLICE = 132, 1024, 128, 16
 _RING = 4
+#: K3-bf16 and K4-bf16 (csrc/lstm_scan_bf16.cu): the largest H whose w_hh a
+#: block holds whole (``kResidentMax``), K3-bf16's ring stages and k slice
+#: (``kFwdStagesBf16``, ``kSliceBf16``: the MMA depth, E's padding), the
+#: reverse scan's ring stages and w_hh columns a stage past it
+#: (``kRscanRingBf16``, ``kRscanChunkBf16``), and the bf16 a staged row is
+#: padded by (``kPadBf16`` of csrc/mma_bf16.cuh)
+_RESIDENT_MAX, _FWD_STAGES_BF16, _SLICE_BF16 = 128, 4, 16
+_RSCAN_RING_BF16, _RSCAN_CHUNK_BF16, _PAD_BF16 = 4, 32, 8
 
 
 def kernel_hidden(hidden):
@@ -215,16 +228,37 @@ def wgrad_split(pairs, tiles):
     return -(-pairs // chunk), chunk
 
 
-def fwd_plan(steps, n_dir, rows, feat, hidden):
-    """K3's plan at ``(T, D, R, E, H)`` (E padded to a multiple of 4), as
-    ``lstm_fwd_plan`` of csrc/lstm_scan.cu gives it: the tile rows (64
+def feature_step(dtype):
+    """The multiple of which K3/K4 take E (the wrapper pads with zeros):
+    16 on the bf16 route (the MMA depth), else 4 (float4 loads)."""
+    return _SLICE_BF16 if dtype == torch.bfloat16 else 4
+
+
+def fwd_plan(steps, n_dir, rows, feat, hidden, bf16=False):
+    """K3's plan at ``(T, D, R, E, H)`` (E padded to :func:`feature_step`),
+    as ``lstm_fwd_plan`` of csrc/lstm_scan.cu gives it: the tile rows (64
     where H <= 128 and 64-row tiles give the 132 SMs a block each, else
     32), the ring's k slice (16 rows of ``[w_ih; w_hh]`` at H <= 128, 8
     above), threads a block (4 rows x 4 units a thread), tiles a direction
     and shared memory a block: h of the tile transposed, ``(H, rows + 4)``
     floats, and the ring's 4 stages of ``(slice, rows + 4)`` x columns and
-    ``(slice, 4H)`` weights. ``steps`` and ``feat`` do not change it."""
+    ``(slice, 4H)`` weights. ``steps`` and ``feat`` do not change it.
+
+    ``bf16``: K3-bf16's (``lstm_fwd_plan_bf16`` of csrc/lstm_scan_bf16.cu):
+    the same tile rows, a 16-deep slice, 2H threads, and shared memory in
+    bf16 with rows padded by 8: ``w_hh`` whole ``(H, 4H + 8)`` where H <=
+    128, h of the tile ``(rows, H + 8)``, and 4 stages of ``(16, 4H + 8)``
+    weight rows and ``(rows, 24)`` x columns."""
     tile = 64 if hidden <= 128 and n_dir * -(-rows // 64) >= _SMS else 32
+    if bf16:
+        pad = _PAD_BF16
+        ld = 4 * hidden + pad
+        held = hidden * ld if hidden <= _RESIDENT_MAX else 0
+        stage = _SLICE_BF16 * ld + tile * (_SLICE_BF16 + pad)
+        return {'rows': tile, 'slice': _SLICE_BF16, 'threads': 2 * hidden,
+                'tiles': -(-rows // tile),
+                'smem': 2 * (held + tile * (hidden + pad)
+                             + _FWD_STAGES_BF16 * stage)}
     k = 16 if hidden <= 128 else 8
     ld = tile + 4
     return {'rows': tile, 'slice': k, 'threads': tile * hidden // 16,
@@ -232,25 +266,37 @@ def fwd_plan(steps, n_dir, rows, feat, hidden):
             'smem': 4 * (hidden * ld + _FWD_RING * k * (ld + 4 * hidden))}
 
 
-def bwd_plan(steps, n_dir, rows, feat, hidden):
-    """K4's plan at ``(T, D, R, E, H)`` (E padded to a multiple of 4), as
-    ``lstm_bwd_plan`` of csrc/lstm_scan.cu gives it: the reverse scan's
+def bwd_plan(steps, n_dir, rows, feat, hidden, bf16=False):
+    """K4's plan at ``(T, D, R, E, H)`` (E padded to :func:`feature_step`),
+    as ``lstm_bwd_plan`` of csrc/lstm_scan.cu gives it: the reverse scan's
     tile rows (64 where H <= 128 and 64-row tiles give the 132 SMs a block
     each, else 32), rows a thread (4, or 2 on 32-row tiles at H <= 128),
     threads a block (8 units a thread), tiles a direction and shared
     memory a block (dgates of a step, transposed, with 4 floats of padding
     a column, and the ring of 4 w_hh^T chunks of 32 rows at H <= 128,
-    else 16), and the weight GEMM's chunks and pairs a chunk."""
+    else 16), and the weight GEMM's chunks and pairs a chunk.
+
+    ``bf16``: K4-bf16's (``lstm_bwd_plan_bf16`` of
+    csrc/lstm_scan_bf16.cu): the same but the scan's shared memory, in bf16
+    with rows padded by 8: ``w_hh`` whole ``(H, 4H + 8)`` where H <= 128,
+    else a ring of 4 chunks ``(H, 32 + 8)`` of its columns; dgates of a
+    step ``(rows, 4H + 8)`` and dh_rec ``(rows, H + 8)``."""
     tile = 64 if hidden <= 128 and n_dir * -(-rows // 64) >= _SMS else 32
     per_thread = 4 if tile == 64 or hidden > 128 else 2
-    ring_rows = _RING * (32 if hidden <= 128 else 16)
     gemm_tiles = (-(-(feat + hidden) // _GEMM_TILE) * (4 * hidden // _GEMM_TILE)
                   * n_dir)
     chunks, chunk = wgrad_split(steps * rows, gemm_tiles)
+    if bf16:
+        ld = 4 * hidden + _PAD_BF16
+        held = (hidden * ld if hidden <= _RESIDENT_MAX else
+                _RSCAN_RING_BF16 * hidden * (_RSCAN_CHUNK_BF16 + _PAD_BF16))
+        smem = 2 * (held + tile * ld + tile * (hidden + _PAD_BF16))
+    else:
+        ring_rows = _RING * (32 if hidden <= 128 else 16)
+        smem = 4 * (4 * hidden * (tile + 4) + ring_rows * hidden)
     return {'rows': tile, 'rows_a_thread': per_thread,
             'threads': tile // per_thread * (hidden // 8),
-            'tiles': -(-rows // tile),
-            'smem': 4 * (4 * hidden * (tile + 4) + ring_rows * hidden),
+            'tiles': -(-rows // tile), 'smem': smem,
             'chunks': chunks, 'chunk': chunk}
 
 
@@ -406,7 +452,8 @@ def _chunks(seq, w_hh):
     if seq.ndim != 4 or 0 in seq.shape or w_hh.ndim != 3:
         return [None]
     steps, n_dir, rows, width = seq.shape
-    width = max(width + (-width % 4), 4 * w_hh.shape[-2])
+    width = max(width + (-width % feature_step(seq.dtype)),
+                4 * w_hh.shape[-2])
     return row_chunks(steps, n_dir, rows, width)
 
 
@@ -667,9 +714,9 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
     _tensor(w_ih, 'w_ih', device, (n_dir, feat, 4 * hidden), dtype=dtype)
     _tensor(bias, 'bias', device, (n_dir, 4 * hidden), dtype=dtype)
     _check_hidden(hidden, 'lstm_scan_x', _MAX_HIDDEN_X)
-    e_pad = feat + (-feat % 4)
+    e_pad = feat + (-feat % feature_step(dtype))
     info = plan_info if backward else fwd_plan_info
-    smem = info(steps, n_dir, rows, e_pad, hidden)['smem']
+    smem = info(steps, n_dir, rows, e_pad, hidden, _is_bf16(x_seq))['smem']
     if smem > _MAX_SMEM:
         raise NotImplementedError(
             f'lstm_scan_x: E={feat} with H={hidden} needs {smem} bytes of '
@@ -680,53 +727,56 @@ def _check(x_seq, w_ih, bias, w_hh, lib, backward):
     return steps, n_dir, rows, feat, hidden
 
 
-#: K3's plan at each (D, R, H) checked so far: ``lstm_fwd_plan``'s
+#: K3's plan at each (D, R, H, bf16) checked so far: ``lstm_fwd_plan``'s
+#: (``lstm_fwd_plan_bf16``'s on the bf16 route)
 _fwd_plans = {}
 
 
-def fwd_plan_info(steps, n_dir, rows, feat, hidden):
-    """The library's K3 plan at ``(T, D, R, E, H)`` (E padded to a multiple
-    of 4), keyed as :func:`fwd_plan`'s; raises where it is not the
-    wrapper's mirror."""
-    key = (n_dir, rows, hidden)
+def fwd_plan_info(steps, n_dir, rows, feat, hidden, bf16=False):
+    """The library's K3 plan at ``(T, D, R, E, H)`` (E padded to
+    :func:`feature_step`), keyed as :func:`fwd_plan`'s, on the bf16 route
+    with ``bf16``; raises where it is not the wrapper's mirror."""
+    key = (n_dir, rows, hidden, bf16)
     if key not in _fwd_plans:
         lib = build.load_library()
+        shape = (steps, n_dir, rows, feat, hidden)
+        entry = 'lstm_fwd_plan_bf16' if bf16 else 'lstm_fwd_plan'
         info = (ctypes.c_int * 5)()
-        build.check(lib, lib.lstm_fwd_plan(steps, n_dir, rows, feat, hidden,
-                                           info),
-                    f'lstm_fwd_plan{(steps, n_dir, rows, feat, hidden)}')
+        build.check(lib, getattr(lib, entry)(*shape, info), f'{entry}{shape}')
         out = dict(zip(('rows', 'slice', 'threads', 'tiles', 'smem'), info))
-        want = fwd_plan(steps, n_dir, rows, feat, hidden)
+        want = fwd_plan(*shape, bf16)
         if out != want:
             raise RuntimeError(f'lstm_scan_x: the library\'s K3 plan at '
-                               f'D={n_dir} R={rows} H={hidden} is {out}, the '
-                               f'wrapper\'s {want}')
+                               f'D={n_dir} R={rows} H={hidden} bf16={bf16} '
+                               f'is {out}, the wrapper\'s {want}')
         _fwd_plans[key] = out
     return _fwd_plans[key]
 
 
-#: K4's plan at each (T, D, R, E, H) checked so far: ``lstm_bwd_plan``'s
+#: K4's plan at each (T, D, R, E, H, bf16) checked so far:
+#: ``lstm_bwd_plan``'s (``lstm_bwd_plan_bf16``'s on the bf16 route)
 _plans = {}
 
 
-def plan_info(steps, n_dir, rows, feat, hidden):
-    """The library's K4 plan at ``(T, D, R, E, H)`` (E padded to a multiple
-    of 4), keyed as :func:`bwd_plan`'s; raises where it is not the
-    wrapper's mirror."""
+def plan_info(steps, n_dir, rows, feat, hidden, bf16=False):
+    """The library's K4 plan at ``(T, D, R, E, H)`` (E padded to
+    :func:`feature_step`), keyed as :func:`bwd_plan`'s, on the bf16 route
+    with ``bf16``; raises where it is not the wrapper's mirror."""
     key = (steps, n_dir, rows, feat, hidden)
-    if key not in _plans:
+    if key + (bf16,) not in _plans:
         lib = build.load_library()
         info = (ctypes.c_int * 7)()
-        build.check(lib, lib.lstm_bwd_plan(*key, info),
-                    f'lstm_bwd_plan{key}')
+        entry = 'lstm_bwd_plan_bf16' if bf16 else 'lstm_bwd_plan'
+        build.check(lib, getattr(lib, entry)(*key, info), f'{entry}{key}')
         out = dict(zip(('rows', 'rows_a_thread', 'threads', 'tiles', 'smem',
                         'chunks', 'chunk'), info))
-        if out != bwd_plan(*key):
+        want = bwd_plan(*key, bf16)
+        if out != want:
             raise RuntimeError(f'lstm_scan_x: the library\'s K4 plan at '
-                               f'{key} is {out}, the wrapper\'s '
-                               f'{bwd_plan(*key)}')
-        _plans[key] = out
-    return _plans[key]
+                               f'{key} bf16={bf16} is {out}, the wrapper\'s '
+                               f'{want}')
+        _plans[key + (bf16,)] = out
+    return _plans[key + (bf16,)]
 
 
 def _aligned(*tensors):
@@ -737,9 +787,10 @@ def _aligned(*tensors):
 
 
 def _pad_feature(x_seq, w_ih):
-    """Zero-pad E to a multiple of 4 (the kernels load x as float4);
-    padded columns add nothing to the projection or its gradients."""
-    pad = -x_seq.shape[-1] % 4
+    """Zero-pad E to :func:`feature_step` (float32: a multiple of 4, the
+    kernels load x as float4; bf16: of 16, the MMA depth); padded columns
+    add nothing to the projection or its gradients."""
+    pad = -x_seq.shape[-1] % feature_step(x_seq.dtype)
     if pad:
         x_seq = torch.nn.functional.pad(x_seq, (0, pad))
         w_ih = torch.nn.functional.pad(w_ih, (0, 0, 0, pad))
@@ -818,8 +869,13 @@ def _launch_bwd(x_seq, w_ih, bias, w_hh, h_seq, c_seq, dh_seq):
         # the weight gradients are float32 sums on both routes, cast to
         # the weights' dtype at the end (the Pallas kernel's accumulators)
         f32 = dict(dtype=torch.float32, device=device)
-        w_ih_t = w_ih.transpose(1, 2).contiguous()   # (D, 4H, E)
-        w_hh_t = w_hh.transpose(1, 2).contiguous()   # (D, 4H, H)
+        # the float32 route reads the weights transposed too; the bf16
+        # route's GEMMs read w_ih and w_hh themselves
+        if _is_bf16(x_seq):
+            w_ih_t, w_hh_t = w_ih, w_hh
+        else:
+            w_ih_t = w_ih.transpose(1, 2).contiguous()   # (D, 4H, E)
+            w_hh_t = w_hh.transpose(1, 2).contiguous()   # (D, 4H, H)
         dx = torch.empty(steps, n_dir, rows, e_pad, dtype=dtype, device=device)
         dw = torch.empty(n_dir, e_pad + hidden, 4 * hidden, **f32)
         db = torch.empty(n_dir, 4 * hidden, **f32)

@@ -749,35 +749,6 @@ LSTM_NAMES = ('dx', 'dw_ih', 'db', 'dw_hh')
 #: K3/K4 at the ends of K4's hidden sizes, R off the 32-row tile: (T, D, R,
 #: E, H)
 LSTM_EDGE_CASES = [(6, 2, 45, 36, 32), (4, 2, 300, 128, 256)]
-#: K4's launches, by kernel name, in the order they run
-K4_PARTS = (('gates', 'lstm_bwd_gates_gemm'), ('scan', 'lstm_bwd_rscan'),
-            ('dx', 'lstm_bwd_dx_gemm'), ('weights', 'lstm_bwd_wgrad_gemm'),
-            ('sums', 'sum_partials'))
-
-
-def k4_parts(fn, calls=3):
-    """Device ms a call of each of K4's launches (``K4_PARTS``; ``other``:
-    the wrapper's weight transposes), from a ``torch.profiler`` trace of
-    ``calls`` calls of ``fn``."""
-    from brever_tpu_torch.profile_enhance import _device_time
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    parts = {part: 0.0 for part, _ in K4_PARTS}
-    parts['other'] = 0.0
-    for name, (us, _) in _device_time(prof)[1].items():
-        part = next((p for p, kernel in K4_PARTS if kernel in name), 'other')
-        parts[part] += us / 1e3 / calls
-    if not all(parts[p] > 0 for p, _ in K4_PARTS):
-        raise AssertionError(f'K4\'s trace misses a launch: {parts}')
-    return parts
-
-
 @contextlib.contextmanager
 def plain_lstms():
     """Every LSTM scan of the port runs the plain scan (forward and its
@@ -860,6 +831,7 @@ def tfgridnet_phases(device, card):
     from brever_tpu_torch.checkpoint import load_checkpoint
     from brever_tpu_torch.models import ModelRegistry, count_params
     from brever_tpu_torch.ops import lstm_scan as lstm
+    from brever_tpu_torch.profile_lstm import K4_PARTS, k4_parts
     from brever_tpu_torch.profile_train import make_trainer
     from brever_tpu_torch.serve import EnhanceService
     out = {}
@@ -1136,7 +1108,7 @@ def tfgridnet_phases(device, card):
     for label in ('intra', 'inter'):
         parts, plan = timing[label]['parts'], timing[label]['plan']
         k4.append(f'{label} ' + ' '.join(f'{p} {parts[p]:.3f}'
-                                         for p, _ in K4_PARTS)
+                                         for p, *_ in K4_PARTS)
                   + f' (cuDNN {timing[label]["lib_bwd"]:.3f}); scan '
                   f'{2 * plan["tiles"]} blocks of {plan["threads"]} threads, '
                   f'{plan["rows"]} rows, {plan["smem"]} B; weight GEMM '
@@ -4922,15 +4894,15 @@ LSTM_BF16_SCAN_CASES = [DCCRN_LSTM[0], DCCRN_LSTM[1], (33, 2, 8, 128, 128),
 #: (phases 60, 61): FLAC items of 1 s (train, val), epochs, validation period
 RNN_AMP_TRAIN = (8, 2, 2, 2)
 #: the kernels of one call of each bf16 LSTM entry (names as the profiler
-#: gives them) and their launches: K4's five steps are six launches (the
-#: partial sums of dW and of db), K6's scan, weight GEMM and its sum three
+#: gives them) and their launches: K3-bf16 one, K4's five steps six (the partial sums of
+#: dW and of db), K6's scan, weight GEMM (K4-bf16's) and its sum three
 LSTM_BF16_KERNELS = {
-    'k3': {'lstm_fwd_ring_bf16': 1},
-    'k4': {'lstm_bwd_gates_gemm': 1, 'lstm_bwd_rscan': 1,
-           'lstm_bwd_dx_gemm': 1, 'lstm_bwd_wgrad_gemm': 1,
+    'k3': {'lstm_fwd_ring_mma': 1},
+    'k4': {'lstm_bwd_gates_mma': 1, 'lstm_bwd_rscan_mma': 1,
+           'lstm_bwd_dx_mma': 1, 'lstm_bwd_wgrad_mma': 1,
            'sum_partials': 2},
     'k5': {'lstm_scan_fwd_cluster': 1},
-    'k6': {'lstm_scan_bwd_cluster': 1, 'lstm_bwd_wgrad_gemm': 1,
+    'k6': {'lstm_scan_bwd_cluster': 1, 'lstm_bwd_wgrad_mma': 1,
            'sum_partials': 1}}
 
 LSTM_BF16_TRACE = """
@@ -4992,11 +4964,12 @@ def lstm_bf16_trace():
 def lstm_traced_kernels(run):
     """The kernels each traced bf16 LSTM call of ``run`` launched; fails
     unless each launched its own kernels in ``LSTM_BF16_KERNELS``' counts,
-    the templated ones at ``__nv_bfloat16`` where the profiler gives
-    template arguments, and besides them only PyTorch's elementwise kernels
-    (the wrapper's transposed weight copies and its casts of the float32
-    weight gradients): no cuBLAS or cuDNN kernel. Stops the process in any
-    case."""
+    the ones templated on the storage at ``__nv_bfloat16`` where the
+    profiler gives template arguments (K3-bf16's and K4-bf16's ``*_mma``
+    kernels are bf16 alone), and besides them only PyTorch's elementwise
+    kernels (the wrapper's padding, transposed weight copies and its casts
+    of the float32 weight gradients): no cuBLAS or cuDNN kernel. Stops the
+    process in any case."""
     try:
         stdout, stderr = run.communicate(timeout=600)
     finally:
@@ -5009,7 +4982,7 @@ def lstm_traced_kernels(run):
         ours = [n for n in got if any(k in n for k in want)]
         counts = {k: sum(k in n for n in got) for k in want}
         wrong = [n for n in ours if '<' in n and 'bfloat16' not in n
-                 and 'ring_bf16' not in n]
+                 and '_mma' not in n]
         other = [n for n in got if n not in ours and 'at::native' not in n]
         if counts != want or wrong or other:
             raise AssertionError(f'{key.upper()}-bf16 launched {got}')
@@ -5026,33 +4999,6 @@ def lstm_check(name, got, twin, exact, min_db=LSTM_BF16_TWIN_DB):
     return twin_check(name, got, twin, exact, min_db)
 
 
-def bf16_lstm_inputs(gen, steps, n_dir, rows, feat, hidden, device):
-    """``lstm_inputs``' tensors in bfloat16, drawn on the card from ``gen``
-    (a numpy draw of TF-GridNet's 68 M-element scans takes seconds)."""
-    def arr(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, generator=gen, device=device)
-                ).to(torch.bfloat16)
-
-    return (arr(steps, n_dir, rows, feat),
-            arr(n_dir, feat, 4 * hidden, scale=hidden ** -0.5),
-            arr(n_dir, 4 * hidden, scale=0.1),
-            arr(n_dir, hidden, 4 * hidden, scale=hidden ** -0.5),
-            arr(steps, n_dir, rows, hidden))
-
-
-def bf16_lstm(feat, hidden, device):
-    """cuDNN's bidirectional LSTM in bfloat16, or None where this PyTorch
-    does not run one."""
-    try:
-        lstm = torch.nn.LSTM(feat, hidden, bidirectional=True).to(
-            device, torch.bfloat16)
-        with torch.no_grad():
-            lstm(torch.zeros(2, 3, feat, device=device, dtype=torch.bfloat16))
-        return lstm
-    except RuntimeError:
-        return None
-
-
 def lstm_amp_phases(device, card):
     """Phases 58-62: K3-K6's bf16 route against its twin and float64 on the
     card, their launches traced, the default TF-GridNet and DCCRN trained
@@ -5060,10 +5006,19 @@ def lstm_amp_phases(device, card):
     steps timed against the float32 steps. Returns what the kernels' JSON
     records read."""
     from brever_tpu_torch import profile_train
+    from brever_tpu_torch.ops import build
     from brever_tpu_torch.ops import lstm_scan as L
+    from brever_tpu_torch.profile_lstm import (K4_PARTS, inputs, k4_parts,
+                                               library_ms, mma_sass)
     from brever_tpu_torch.profile_train import make_trainer
     bf = torch.bfloat16
     out = {'worst_db': {}, 'err': {}, 'timing': {}}
+    # K3-bf16's and K4-bf16's products on the bf16 tensor cores: HMMA with
+    # BF16 operands in the SASS of each of their kernels
+    out['hmma'] = mma_sass(build.build())
+    if not all(out['hmma'].values()):
+        raise AssertionError(f'K3-bf16/K4-bf16 SASS without bf16 HMMA: '
+                             f'{out["hmma"]}')
     tracer = lstm_bf16_trace()
     try:
         # ---- phase 58: the bf16 kernels vs their twin and float64, and
@@ -5085,24 +5040,9 @@ def lstm_amp_phases(device, card):
                 err[key] = max(err[key], e)
                 gap = max(gap, twin_exact - vs_exact)
 
-        def library(x, feat, hidden):
-            """(forward, backward) ms of cuDNN's bf16 LSTM over x[:, 0]."""
-            lstm = bf16_lstm(feat, hidden, device)
-            if lstm is None:
-                return None, None
-            xl = x[:, 0].clone().requires_grad_()
-            with torch.no_grad():
-                fwd_ms = cuda_ms(lambda: lstm(xl), 3, 1)
-            out_l, _ = lstm(xl)
-            dout = torch.randn_like(out_l)
-            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-                out_l, [xl, *lstm.parameters()], dout, retain_graph=True),
-                2, 1)
-            return fwd_ms, bwd_ms
-
         for case in LSTM_BF16_X_CASES:
             label = 'T={} D={} R={} E={} H={}'.format(*case)
-            x, w_ih, bias, w_hh, dh = bf16_lstm_inputs(gen, *case, device)
+            x, w_ih, bias, w_hh, dh = inputs(gen, *case, bf, device)
             h, c = L.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
             with torch.no_grad():
                 h2, c2, gates = L.forward_gates(x, w_ih, bias, w_hh)
@@ -5143,7 +5083,10 @@ def lstm_amp_phases(device, card):
                             x, w_ih, bias, w_hh, h, c, dh),
                         'plain': lambda: L.lstm_scan_x_bwd_plain(
                             x, w_ih, bias, w_hh, h, c, dh)}, 2, 1)[0]
-                lib_fwd, lib_bwd = library(x, feat, hidden)
+                    # K4-bf16 launch by launch (a profiler trace)
+                    parts = k4_parts(lambda: L.lstm_scan_x_bwd(
+                        x, w_ih, bias, w_hh, h, c, dh))
+                lib_fwd, lib_bwd = library_ms(x, feat, hidden, 3)
                 # bf16 bounds: the float32 route's operations at the bf16
                 # tensor-core rate, 2 bytes an element (the weight
                 # gradients too)
@@ -5152,7 +5095,7 @@ def lstm_amp_phases(device, card):
                 weights = n_dir * 4 * hidden * (feat + hidden + 1)
                 timing[which] = {
                     'fwd': fwd, 'bwd': bwd, 'lib_fwd': lib_fwd,
-                    'lib_bwd': lib_bwd,
+                    'lib_bwd': lib_bwd, 'parts': parts,
                     'bound_fwd': bound(flops, 2 * (seq * (feat + 2 * hidden)
                                                    + weights), BF16_FLOPS),
                     'bound_bwd': bound(3 * flops, 2 * (
@@ -5164,7 +5107,7 @@ def lstm_amp_phases(device, card):
             steps, n_dir, rows, feat, hidden = case
             label = f'T={steps} D={n_dir} R={rows} H={hidden} (gates from ' \
                 f'E={feat})'
-            x, w_ih, bias, w_hh, dh = bf16_lstm_inputs(gen, *case, device)
+            x, w_ih, bias, w_hh, dh = inputs(gen, *case, bf, device)
             gates_x = (torch.einsum('tdre,dek->tdrk', x, w_ih)
                        + bias[None, :, None]).contiguous()
             h, c = L.lstm_scan_fwd(gates_x, w_hh)
@@ -5195,7 +5138,7 @@ def lstm_amp_phases(device, card):
                                                           c, dh),
                         'plain': lambda: L.lstm_scan_bwd_plain(
                             gates_x, w_hh, h, c, dh)}, 2, 1)[0]
-                lib_fwd, lib_bwd = library(x, feat, hidden)
+                lib_fwd, lib_bwd = library_ms(x, feat, hidden, 3)
                 seq = steps * n_dir * rows
                 flops = 2 * seq * 4 * hidden * hidden
                 weights = n_dir * 4 * hidden * hidden
@@ -5214,6 +5157,10 @@ def lstm_amp_phases(device, card):
             return 'n/a' if t[key] is None else f'{t[key]:.3f}'
 
         t3, t5 = timing['intra'], timing['dccrn']
+        split = '; '.join(
+            f'{w} ' + ' '.join(f'{p} {timing[w]["parts"][p]:.3f}'
+                               for p, *_ in K4_PARTS)
+            for w in ('intra', 'inter'))
         phase(58, f'{len(LSTM_BF16_X_CASES)} K3/K4 and '
               f'{len(LSTM_BF16_SCAN_CASES)} K5/K6 bf16 cases (TF-GridNet '
               f'intra {LSTM_INTRA} and inter {LSTM_INTER}, H=32 and 256 at '
@@ -5233,7 +5180,9 @@ def lstm_amp_phases(device, card):
               f'{timing["inter"]["bwd"]["kernel"]:.3f}; DCCRN layer 0 K5 '
               f'{t5["fwd"]["kernel"]:.3f}/{t5["fwd"]["plain"]:.3f}/'
               f'{lib(t5, "lib_fwd")} K6 {t5["bwd"]["kernel"]:.3f}/'
-              f'{t5["bwd"]["plain"]:.3f}/{lib(t5, "lib_bwd")}')
+              f'{t5["bwd"]["plain"]:.3f}/{lib(t5, "lib_bwd")}; K4-bf16\'s '
+              f'launches ms: {split}; bf16 HMMA in the SASS of '
+              + ', '.join(f'{k} {n}' for k, n in out['hmma'].items()))
 
         # ---- phases 60-61: train.main from the untouched configs, while
         # the fresh interpreter traces the bf16 calls
@@ -5247,9 +5196,10 @@ def lstm_amp_phases(device, card):
           'traced in a fresh interpreter (run during phases 58-61) launches '
           + ', '.join(f'{len([n for n in traced[k] if "at::native" not in n])}'
                       f' ({k.upper()})' for k in LSTM_BF16_KERNELS)
-          + ' of its own kernels, at __nv_bfloat16, and no cuBLAS or cuDNN '
-          'kernel (besides them only PyTorch\'s copies of the transposed '
-          'weights and its casts of the float32 weight gradients)')
+          + ' of its own kernels (K3-bf16 and K4-bf16 the bf16 tensor-core '
+          '*_mma kernels, the others at __nv_bfloat16), and no cuBLAS or '
+          'cuDNN kernel (besides them only PyTorch\'s elementwise copies and '
+          'its casts of the float32 weight gradients)')
 
     # ---- phase 62: the amp steps against the float32 steps, in turns
     steps = {}
@@ -6780,8 +6730,12 @@ def main():
     }, {
         'name': 'lstm_scan_x_fwd_bf16',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
+        'source': 'brever_tpu_torch/csrc/lstm_scan_bf16.cu',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:401',
+        'instruction': 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 '
+                       '(csrc/mma_bf16.cuh)',
+        'hmma_bf16_sass': {k: n for k, n in lamp['hmma'].items()
+                           if k.startswith('lstm_fwd')},
         'launches': lamp['train']['tfgridnet']['launches'][0]
         + lamp['train']['dccrn']['launches'][0],
         'launches_tfgridnet_train': lamp['train']['tfgridnet']['launches'][0],
@@ -6813,8 +6767,14 @@ def main():
     }, {
         'name': 'lstm_scan_x_bwd_bf16',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/lstm_scan.cuh',
+        'source': 'brever_tpu_torch/csrc/lstm_scan_bf16.cu',
         'replaces': 'brever_tpu/ops/pallas/lstm_scan.py:503',
+        'instruction': 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 '
+                       '(csrc/mma_bf16.cuh)',
+        'hmma_bf16_sass': {k: n for k, n in lamp['hmma'].items()
+                           if not k.startswith('lstm_fwd')},
+        'parts_ms': lamp['timing']['intra']['parts'],
+        'parts_ms_inter': lamp['timing']['inter']['parts'],
         'launches': lamp['train']['tfgridnet']['launches'][1]
         + lamp['train']['dccrn']['launches'][1],
         'max_abs_err': lamp['err']['k4'],

@@ -27,6 +27,13 @@ atol 1e-4 of the float64 tensor's largest value, rtol 1e-3; two backward
 runs are bitwise equal. One K4 call launches no cuBLAS or cuDNN kernel
 (a ``torch.profiler`` trace).
 
+K3-bf16 and K4-bf16 (bf16 tensor cores) against their bf16 twins (the
+Pallas kernels' rounding points): every output and gradient at least 35 dB
+from the twin (the kernels sum their products in another order, which may
+flip a bf16 rounding) and no farther from float64 than the twin by more
+than 0.5 dB; two runs, and K4-bf16's recomputed gates and K3-bf16's,
+bitwise equal; the SASS holds bf16 HMMA in each of their kernels.
+
 The gates-in LSTM scan kernels (K5, K6) the same way as K3 and K4: the
 forward in float32 at atol 1e-5, rtol 1e-4, the backward against the plain
 backward run in float64 at atol 1e-4 of the tensor's largest value, rtol
@@ -700,6 +707,118 @@ def test_lstm_kernels_take_unaligned_views(device):
     want = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
     got = lstm.lstm_scan_x_bwd(x, *moved[:3], h, c, moved[3])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# K3-bf16 and K4-bf16 (the tensor-core route) against their bf16 twins:
+# (T, D, R, E, H). K4's hidden-size ends at ragged R (E = 36 and 12 padded
+# to the MMA depth of 16), T = 1, D = 1, H off the powers of two (96, 224:
+# w_hh streamed past 128), 64-row tiles at H = 64 and 128 (D ceil(R / 64)
+# >= 132) and 32-row ones, and a wide input (E = 1616: 101 k16 slices of
+# w_ih through K3-bf16's ring a step)
+BF16_LSTM_CASES = [(6, 2, 45, 36, 32), (4, 2, 300, 128, 256),
+                   (1, 1, 33, 128, 128), (5, 2, 40, 72, 32),
+                   (3, 1, 17, 12, 256), (3, 2, 70, 22, 96),
+                   (3, 1, 130, 64, 224), (2, 2, 4300, 16, 64),
+                   (2, 2, 8300, 128, 128), (9, 2, 70, 128, 128),
+                   (3, 2, 50, 1616, 128)]
+#: each bf16 output and gradient against its twin, SNR at least (dB), and
+#: no farther from float64 than the twin by more than this (dB)
+BF16_TWIN_DB, BF16_F64_SLACK_DB = 35.0, 0.5
+
+
+def _db(got, want):
+    """SNR of ``got`` against ``want`` (dB); infinite where they are equal
+    (an all-zero gradient, as dW_hh at T = 1)."""
+    err = ((got.double() - want.double()) ** 2).sum().item()
+    if err == 0:
+        return float('inf')
+    return 10 * np.log10(max((want.double() ** 2).sum().item(), 1e-300)
+                         / err)
+
+
+def _bf16_lstm_inputs(device, t_steps, n_dir, rows, feat, hidden, seed=0):
+    return [t.bfloat16() for t in _lstm_inputs(device, t_steps, n_dir, rows,
+                                               feat, hidden, seed)]
+
+
+@pytest.mark.parametrize('case', BF16_LSTM_CASES,
+                         ids=['T{}-D{}-R{}-E{}-H{}'.format(*c)
+                              for c in BF16_LSTM_CASES])
+def test_bf16_lstm_kernels_match_their_twins(device, case):
+    """K3-bf16 and K4-bf16 against the bf16 twins (the Pallas kernels'
+    rounding points): every output and gradient >= 35 dB from the twin and
+    no farther from float64 (the float64 plain path on the same bf16
+    inputs) than the twin, two runs bitwise equal, K4-bf16's recomputed
+    gates bitwise K3-bf16's, the plans the wrapper's mirrors."""
+    x, w_ih, bias, w_hh, dh = _bf16_lstm_inputs(device, *case, seed=7)
+    steps, n_dir, rows, feat, hidden = case
+    e_pad = feat + (-feat % 16)
+    assert lstm.fwd_plan_info(steps, n_dir, rows, e_pad, hidden, True) == \
+        lstm.fwd_plan(steps, n_dir, rows, e_pad, hidden, True)
+    assert lstm.plan_info(steps, n_dir, rows, e_pad, hidden, True) == \
+        lstm.bwd_plan(steps, n_dir, rows, e_pad, hidden, True)
+    before = (lstm.lstm_scan_x.launches_bf16,
+              lstm.lstm_scan_x_bwd.launches_bf16)
+    h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+    grads = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    assert (lstm.lstm_scan_x.launches_bf16 - before[0],
+            lstm.lstm_scan_x_bwd.launches_bf16 - before[1]) == (1, 1)
+    with torch.no_grad():
+        h2, c2, gates = lstm.forward_gates(x, w_ih, bias, w_hh)
+        again = lstm.recompute_gates(x, w_ih, bias, w_hh, h)
+    rerun = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    twin = lstm.lstm_scan_x_reference(x, w_ih, bias, w_hh)
+    twin_g = lstm.lstm_scan_x_bwd_plain(x, w_ih, bias, w_hh, *twin, dh)
+    wide = [t.double() for t in (x, w_ih, bias, w_hh)]
+    exact = lstm.lstm_scan_x_reference(*wide)
+    exact_g = lstm.lstm_scan_x_bwd_plain(*wide, *exact, dh.double())
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    assert torch.equal(gates, again)
+    for got, want, ref in zip((h, c, *grads), (*twin, *twin_g),
+                              (*exact, *exact_g)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        assert _db(got, want) >= BF16_TWIN_DB
+        assert _db(got, ref) >= _db(want, ref) - BF16_F64_SLACK_DB
+    for a, b in zip(grads, rerun):
+        assert torch.equal(a, b)
+
+
+def test_bf16_lstm_kernels_take_unaligned_views(device):
+    """bf16 weights and dh at an offset that is not 16-byte aligned give
+    the aligned inputs' bits on K3-bf16 and K4-bf16 (E = 72 padded to 80)."""
+    x, w_ih, bias, w_hh, dh = _bf16_lstm_inputs(device, 4, 2, 40, 72, 64)
+    moved = [_shifted(t) for t in (w_ih, bias, w_hh, dh)]
+    assert all(t.data_ptr() % 16 for t in moved)
+    h, c = lstm.lstm_scan_x_fwd(x, w_ih, bias, w_hh)
+    h2, c2 = lstm.lstm_scan_x_fwd(x, *moved[:3])
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    want = lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)
+    got = lstm.lstm_scan_x_bwd(x, *moved[:3], h, c, moved[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_bf16_lstm_plans_are_the_wrappers(device):
+    """K3-bf16's and K4-bf16's plans in the library are the wrapper's
+    mirrors at every H they take, on TF-GridNet's row counts and ragged
+    ones, within a block's shared memory."""
+    for hidden in range(32, 257, 32):
+        for shape in ((33, 2, 8064, 128), (126, 2, 2112, 128),
+                      (2, 2, 4300, 16), (5, 1, 45, 48)):
+            fwd = lstm.fwd_plan_info(*shape, hidden, True)
+            bwd = lstm.plan_info(*shape, hidden, True)
+            assert fwd == lstm.fwd_plan(*shape, hidden, True)
+            assert bwd == lstm.bwd_plan(*shape, hidden, True)
+            assert max(fwd['smem'], bwd['smem']) <= lstm._MAX_SMEM
+
+
+def test_bf16_lstm_kernels_run_on_the_tensor_cores(device):
+    """The built library's SASS of K3-bf16's and K4-bf16's kernels holds
+    bf16 tensor-core products (HMMA ... BF16)."""
+    from brever_tpu_torch.profile_lstm import mma_sass
+    counts = mma_sass(build.build())
+    assert all(n > 0 for n in counts.values()), counts
 
 
 # (T, D, R, H) of the gates-in scan: DCCRN's complex LSTM at B = 16 and at

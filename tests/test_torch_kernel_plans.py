@@ -1,14 +1,19 @@
-"""The wrappers' mirrors of the forward kernels' launch figures, on the
-CPU: K1's partial moments a batch row (``ops.tcn_block.fwd_partials``) at
-the tiles the sources name, and K3's plan (``ops.lstm_scan.fwd_plan``)
-against the constants of csrc/lstm_scan.cuh and what the card allows a
+"""The wrappers' mirrors of the kernels' launch figures, on the CPU: K1's
+partial moments a batch row (``ops.tcn_block.fwd_partials``) at the tiles
+the sources name, K3's plan (``ops.lstm_scan.fwd_plan``) against the
+constants of csrc/lstm_scan.cuh, and K3-bf16's and K4-bf16's plans
+(``fwd_plan``/``bwd_plan`` with ``bf16=True``) against those of
+csrc/lstm_scan_bf16.cu and csrc/mma_bf16.cuh, within what the card allows a
 block. The card tests hold the built library's own figures to the same
-mirrors."""
+mirrors. Also: zero-padding E to the bf16 route's MMA depth leaves the bf16
+twins' outputs and gradients bitwise unchanged."""
 
 import os
 import re
 
+import numpy as np
 import pytest
+import torch
 
 from brever_tpu_torch.ops import lstm_scan as L
 from brever_tpu_torch.ops import tcn_block as tcn
@@ -103,3 +108,138 @@ def test_every_fused_shape_has_a_k3_plan(hidden):
         < 4 * 32 * (fits[-1] + 4 + 6 * hidden)
     plans = {str(L.fwd_plan(33, 2, 8064, feat, hidden)) for feat in fits}
     assert len(plans) == 1
+
+
+def _bf16_constants():
+    src = _source('lstm_scan_bf16.cu')
+    names = ('kResidentMax', 'kFwdStagesBf16', 'kSliceBf16', 'kRscanRingBf16',
+             'kRscanChunkBf16')
+    return {**{n: _constant(src, n) for n in names},
+            'kPadBf16': _constant(_source('mma_bf16.cuh'), 'kPadBf16'),
+            'kSMs': _constant(_source('lstm_scan.cuh'), 'kSMs')}
+
+
+def test_bf16_plan_constants_are_the_sources():
+    """The wrapper's mirrors of K3-bf16's and K4-bf16's constants are the
+    sources' (w_hh held whole up to H = 128, a 4-stage ring of k16 slices,
+    the scan's 4-stage ring of 32 columns past 128, rows padded by 8
+    bf16)."""
+    got = _bf16_constants()
+    assert got == {'kResidentMax': L._RESIDENT_MAX,
+                   'kFwdStagesBf16': L._FWD_STAGES_BF16,
+                   'kSliceBf16': L._SLICE_BF16,
+                   'kRscanRingBf16': L._RSCAN_RING_BF16,
+                   'kRscanChunkBf16': L._RSCAN_CHUNK_BF16,
+                   'kPadBf16': L._PAD_BF16, 'kSMs': L._SMS}
+    assert (got['kResidentMax'], got['kSliceBf16'], got['kPadBf16']) == \
+        (128, 16, 8)
+
+
+@pytest.mark.parametrize('hidden', range(32, 257, 32))
+def test_bf16_plans_are_the_sources(hidden):
+    """K3-bf16's and K4-bf16's plans at every H on the 32-grid, on
+    TF-GridNet's row counts, a ragged one and one row: the float32 route's
+    tile rule; K3-bf16 2H threads (warps of 16 units), at most 512, shared
+    memory for w_hh whole (H <= kResidentMax), h of the tile and the
+    ring, rows padded by kPadBf16 (odd multiples of 16 bytes, so ldmatrix
+    rows fall in distinct bank groups), the same at every E; K4-bf16's
+    reverse scan with w_hh
+    whole or a ring of kRscanChunkBf16 columns, dgates and dh_rec of the
+    tile, its warps' 8 rt x 32 dh_rec tiles covering the tile; each plan
+    within 232,448 bytes a block; the weight GEMM's split the float32
+    route's."""
+    k = _bf16_constants()
+    pad, slice_, stages = k['kPadBf16'], k['kSliceBf16'], k['kFwdStagesBf16']
+    resident = hidden <= k['kResidentMax']
+    for steps, n_dir, rows in ((33, 2, 8064), (126, 2, 2112), (9, 1, 70),
+                               (1, 1, 1), (2, 2, 4300)):
+        for feat in (16, 128, 1616):
+            fwd = L.fwd_plan(steps, n_dir, rows, feat, hidden, bf16=True)
+            tile = fwd['rows']
+            assert tile == 32 or (tile == 64 and hidden <= 128
+                                  and n_dir * _cdiv(rows, 64) >= k['kSMs'])
+            assert tile == L.fwd_plan(steps, n_dir, rows, feat, hidden)['rows']
+            assert fwd['slice'] == slice_ and fwd['threads'] == 2 * hidden
+            assert fwd['threads'] % 64 == 0 and fwd['threads'] <= 512
+            ld = 4 * hidden + pad
+            assert (2 * ld) % 32 == 16 and (2 * (hidden + pad)) % 32 == 16
+            assert (2 * (slice_ + pad)) % 32 == 16
+            assert fwd['smem'] == 2 * (
+                (hidden * ld if resident else 0) + tile * (hidden + pad)
+                + stages * (slice_ * ld + tile * (slice_ + pad)))
+            assert fwd['smem'] <= L._MAX_SMEM == 232448
+            assert fwd == L.fwd_plan(steps, n_dir, rows, 16, hidden, True)
+            assert (fwd['tiles'] - 1) * tile < rows <= fwd['tiles'] * tile
+            bwd = L.bwd_plan(steps, n_dir, rows, feat, hidden, bf16=True)
+            f32 = L.bwd_plan(steps, n_dir, rows, feat, hidden)
+            assert {n: v for n, v in bwd.items() if n != 'smem'} == \
+                {n: v for n, v in f32.items() if n != 'smem'}
+            held = (hidden * ld if resident else k['kRscanRingBf16'] * hidden
+                    * (k['kRscanChunkBf16'] + pad))
+            assert bwd['smem'] == 2 * (held + bwd['rows'] * ld
+                                       + bwd['rows'] * (hidden + pad))
+            assert bwd['smem'] <= L._MAX_SMEM
+            warps = bwd['threads'] // 32
+            sub = 8 * bwd['rows_a_thread']
+            assert bwd['threads'] % 32 == 0
+            assert warps == bwd['rows'] // sub * (hidden // 32)
+
+
+def test_bf16_plans_at_tfgridnet_shapes():
+    """At 16 x 4 s K3-bf16 takes 64-row tiles at the intra BLSTM (252 tiles
+    of 256 threads) and 32-row ones at the inter (132 tiles), the ring with
+    w_hh resident, 229,376 and 214,528 bytes; K4-bf16's scan 217,088 and
+    175,104 bytes: all within a block's 232,448."""
+    intra = (33, 2, 8064, 128, 128)
+    inter = (126, 2, 2112, 128, 128)
+    f_in = L.fwd_plan(*intra, bf16=True)
+    f_out = L.fwd_plan(*inter, bf16=True)
+    assert (f_in['rows'], f_in['threads'], 2 * f_in['tiles'],
+            f_in['smem']) == (64, 256, 252, 229376)
+    assert (f_out['rows'], f_out['threads'], 2 * f_out['tiles'],
+            f_out['smem']) == (32, 256, 132, 214528)
+    b_in, b_out = L.bwd_plan(*intra, bf16=True), L.bwd_plan(*inter, bf16=True)
+    assert (b_in['rows'], b_in['threads'], b_in['smem']) == (64, 256, 217088)
+    assert (b_out['rows'], b_out['threads'], b_out['smem']) == \
+        (32, 256, 175104)
+    assert max(p['smem'] for p in (b_in, b_out, f_in, f_out)) <= 232448
+
+
+@pytest.mark.parametrize('case', [(5, 2, 9, 36, 32), (4, 1, 7, 12, 64),
+                                  (3, 2, 20, 72, 32), (6, 2, 17, 4, 32),
+                                  (3, 1, 5, 100, 96)])
+def test_padding_e_to_the_mma_depth_leaves_the_bf16_twin_bitwise(case):
+    """The bf16 route pads E with zeros to a multiple of 16
+    (``_pad_feature``): the bf16 twins (``lstm_scan_x_reference``,
+    ``lstm_scan_x_bwd_plain``) give the unpadded scan's h, c, dx, dW_ih, db
+    and dW_hh bit for bit, and zero gradients at the padded columns."""
+    steps, n_dir, rows, feat, hidden = case
+    rng = np.random.RandomState(sum(case))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.randn(*shape)).astype(np.float32)).bfloat16()
+
+    try:
+        x, w_ih = arr(steps, n_dir, rows, feat), \
+            arr(n_dir, feat, 4 * hidden, scale=feat ** -0.5)
+        bias, w_hh = arr(n_dir, 4 * hidden, scale=0.1), \
+            arr(n_dir, hidden, 4 * hidden, scale=hidden ** -0.5)
+        dh = arr(steps, n_dir, rows, hidden)
+        x_pad, w_pad = L._pad_feature(x, w_ih)
+        assert x_pad.shape[-1] == feat + (-feat % 16) > feat
+        assert L.feature_step(torch.bfloat16) == 16
+        h, c = L.lstm_scan_x_reference(x, w_ih, bias, w_hh)
+        h_p, c_p = L.lstm_scan_x_reference(x_pad, w_pad, bias, w_hh)
+        grads = L.lstm_scan_x_bwd_plain(x, w_ih, bias, w_hh, h, c, dh)
+        dx_p, dw_ih_p, db_p, dw_hh_p = L.lstm_scan_x_bwd_plain(
+            x_pad, w_pad, bias, w_hh, h_p, c_p, dh)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(h, h_p) and torch.equal(c, c_p)
+    for got, want in zip((dx_p[..., :feat], dw_ih_p[:, :feat], db_p,
+                          dw_hh_p), grads):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert not dx_p[..., feat:].any() and not dw_ih_p[:, feat:].any()
