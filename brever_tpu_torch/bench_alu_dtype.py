@@ -28,6 +28,7 @@ numbers are the CPU's, never the card's.
 """
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -160,6 +161,15 @@ def cuobjdump():
     return re.sub(r'nvcc$', 'cuobjdump', build.find_nvcc())
 
 
+@functools.lru_cache(maxsize=None)
+def sass(library_path):
+    """``cuobjdump -sass`` of the built library (its name holds its sources'
+    hash), dumped once a process: the whole library takes tens of
+    seconds."""
+    return subprocess.run([cuobjdump(), '-sass', library_path], check=True,
+                          capture_output=True, text=True).stdout
+
+
 #: an instruction line of ``cuobjdump -sass``: its opcode, after the
 #: address comment and an optional predicate
 _OPCODE = r'/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)'
@@ -176,10 +186,8 @@ def sass_report(library_path):
     conversion opcodes it holds. Raises unless the float32 instance chains
     FFMA and the bfloat16 one HFMA2.BF16 with no conversion and no float32
     arithmetic."""
-    sass = subprocess.run([cuobjdump(), '-sass', library_path], check=True,
-                          capture_output=True, text=True).stdout
     found = {}
-    for block in sass.split('Function : ')[1:]:
+    for block in sass(library_path).split('Function : ')[1:]:
         name = block.split()[0]
         if 'fma_chain_kernel' not in name:
             continue

@@ -525,28 +525,24 @@ struct GatesOp {
   const float *xrow, *hrow, *wi, *wh, *bias;
   int E, H, nx;
   RowStage<true> a;
-  DirectSlice<true, float> b;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int G = 4 * H, n0 = blockIdx.y * kGM;
     if (s < nx) {
       const int k0 = s * kGK;
       a.load(xrow, k0, E);
-      b.fetch(Bs, [&](int k, int c) -> const float* {
+      stage_direct(Bs, [&](int k, int c) -> const float* {
         return k0 + k < E ? wi + static_cast<size_t>(k0 + k) * G + n0 + c : nullptr;
       }, wi);
     } else {
       const int k0 = (s - nx) * kGK;
       a.load(hrow, k0, H);
-      b.fetch(Bs, [&](int k, int c) -> const float* {
+      stage_direct(Bs, [&](int k, int c) -> const float* {
         return wh + static_cast<size_t>(k0 + k) * G + n0 + c;
       }, wh);
     }
   }
-  __device__ __forceinline__ void store(float* As) {
-    a.store(As);
-    b.store(As + kGSlice);
-  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
   __device__ __forceinline__ void after(int s, float (&acc)[8][8], const float*) {
     if (s != nx - 1) return;
     const int n0 = blockIdx.y * kGM;
@@ -594,19 +590,15 @@ struct DxOp {
   const float *grow, *wt;
   int G, E;
   RowStage<true> a;
-  DirectSlice<true, float> b;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int k0 = s * kGK, n0 = blockIdx.y * kGM;
     a.load(grow, k0, G);
-    b.fetch(Bs, [&](int k, int c) -> const float* {
+    stage_direct(Bs, [&](int k, int c) -> const float* {
       return n0 + c < E ? wt + static_cast<size_t>(k0 + k) * E + n0 + c : nullptr;
     }, wt);
   }
-  __device__ __forceinline__ void store(float* As) {
-    a.store(As);
-    b.store(As + kGSlice);
-  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 

@@ -46,6 +46,25 @@ __device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool valid) {
   simt::cp_async<16>(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), valid);
 }
 
+// 8 bf16 of a row from element k on into dst (16 bytes of shared memory),
+// columns at and past kmax zeros (all 8 where row is null): one cp.async
+// where the 8 exist and their source is 16-byte aligned, else through
+// registers (a width off the 8-element grid, a ragged tail)
+__device__ __forceinline__ void piece(bf16* dst, const bf16* row, int k, int kmax) {
+  const int n = row ? kmax - k : 0;
+  if (n >= 8 && (reinterpret_cast<size_t>(row + k) & 15) == 0) {
+    cp16(dst, row + k, true);
+    return;
+  }
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  unsigned short* e = reinterpret_cast<unsigned short*>(&v);
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(row + k);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j < n) e[j] = src[j];
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
 __device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -135,8 +154,14 @@ __device__ __forceinline__ int tc_col(int ni, int e) {
 }
 
 // acc += the k16 step at column kk of the staged As and Bs (A [m][k] or,
-// kAT, [k][m]; B [n][k] or, kBT, [k][n])
-template <bool kAT, bool kBT>
+// kAT, [k][m]; B [n][k] or, kBT, [k][n]). kSplit: each m16 x n8 product
+// from a zero accumulator, added to acc in float32 (round to nearest).
+// The tensor cores align a sum to its largest term and cut the bits below
+// (toward zero), so a running accumulator drifts toward zero over K, which
+// a cancelling sum of the results (a bias gradient) turns into lost digits
+// (PERF.md); a product of one k16 chunk from zero errs toward zero of
+// that chunk's sum, whose sign varies.
+template <bool kAT, bool kBT, bool kSplit = false>
 __device__ __forceinline__ void tc_k16(Acc& acc, const bf16* As, const bf16* Bs, int kk) {
   const int w = threadIdx.x / 32, wm = w / 4, wn = w % 4;
   unsigned b[2][4];
@@ -155,8 +180,16 @@ __device__ __forceinline__ void tc_k16(Acc& acc, const bf16* As, const bf16* Bs,
     else
       frag_a(a, As, kTcLdK, wm * 64 + mi * 16, kk);
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      mma(acc[mi][ni], a, b[ni / 2][(ni % 2) * 2], b[ni / 2][(ni % 2) * 2 + 1]);
+    for (int ni = 0; ni < 4; ++ni) {
+      if constexpr (kSplit) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        mma(t, a, b[ni / 2][(ni % 2) * 2], b[ni / 2][(ni % 2) * 2 + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += t[e];
+      } else {
+        mma(acc[mi][ni], a, b[ni / 2][(ni % 2) * 2], b[ni / 2][(ni % 2) * 2 + 1]);
+      }
+    }
   }
 }
 
@@ -164,8 +197,8 @@ __device__ __forceinline__ void tc_k16(Acc& acc, const bf16* As, const bf16* Bs,
 // bytes): op.load(s, As, Bs) issues stage s's cp.async pieces (chunks 2s,
 // 2s + 1; zeros past n16), op.after(c, acc, Bs, kk) runs once chunk c is in
 // acc (Bs, kk: its stage's B and its k column there). Chunks are summed in
-// ascending order from acc.
-template <bool kAT, bool kBT, class Op>
+// ascending order from acc (kSplit: as tc_k16's).
+template <bool kAT, bool kBT, bool kSplit = false, class Op>
 __device__ __forceinline__ void tc_gemm(Op& op, Acc& acc, int n16, bf16* sm) {
   const int n_st = (n16 + 1) / 2;
   auto As = [&](int s) { return sm + (s % kTcStages) * 2 * kTcOperand; };
@@ -185,7 +218,7 @@ __device__ __forceinline__ void tc_gemm(Op& op, Acc& acc, int n16, bf16* sm) {
     for (int kk = 0; kk < 2; ++kk) {
       const int c = 2 * s + kk;
       if (c < n16) {
-        tc_k16<kAT, kBT>(acc, a, a + kTcOperand, kk * 16);
+        tc_k16<kAT, kBT, kSplit>(acc, a, a + kTcOperand, kk * 16);
         op.after(c, acc, a + kTcOperand, kk * 16);
       }
     }
@@ -208,6 +241,27 @@ __device__ __forceinline__ void tc_store(const Acc& acc, RowOf row_of, int n0, i
         const int n = n0 + tc_col(ni, 0);
         if (n < n_max) st2(out + n, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
       }
+    }
+}
+
+// acc into out one value at a time (float32, or bfloat16 rounded to
+// nearest even), for rows whose pairs are not aligned; row_of as
+// tc_store's, columns at or past n_max left out
+template <class T, class RowOf>
+__device__ __forceinline__ void tc_store_any(const Acc& acc, RowOf row_of, int n0, int n_max) {
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      T* out = row_of(tc_row(mi, 2 * h));
+      if (!out) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + tc_col(ni, e);
+          if (n < n_max) simt::stf(out + n, acc[mi][ni][2 * h + e]);
+        }
     }
 }
 

@@ -5,10 +5,8 @@
 // which these products reach about 30-36 TFLOP/s (PERF.md); the block tile
 // of 8 x 8 outputs a thread keeps four shared-memory wavefronts to 64
 // FFMAs a k, and the two-stage ring hides the loads of slice s + 1 behind
-// the multiply of slice s. An operand stored as bfloat16 (K1's and K2's
-// bf16 route) is converted to float32 as it is loaded, through registers,
-// and multiplied and summed in float32 like any other: the product of two
-// bf16 values is exact in float32.
+// the multiply of slice s. (K1's and K2's bf16 route runs its products on
+// the bf16 tensor cores instead: mma_bf16.cuh, tcn_block_bf16.cu.)
 #pragma once
 
 #include <cuda_bf16.h>
@@ -154,61 +152,17 @@ __device__ __forceinline__ void stage_direct(float* S, Src src, const float* any
   }
 }
 
-// A (kGK, 128) slice whose rows are k (stage_direct's pieces and src) from
-// float32 or bfloat16 storage: float32 by cp.async straight into shared
-// memory in fetch (store does nothing); bfloat16 through registers,
-// converted in fetch and written in store.
-template <bool kVec, class S>
-struct DirectSlice {
-  float4 v[2];
-
-  template <class Src>
-  __device__ __forceinline__ void fetch(float* dst, Src src, const S* any) {
-    if constexpr (std::is_same_v<S, float>) {
-      stage_direct<kVec>(dst, src, any);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = threadIdx.x + q * kGemmThreads, k = i / 32, c = i % 32 * 4;
-        if constexpr (kVec) {
-          const S* p = src(k, c);
-          v[q] = p ? ldg4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-        } else {
-          float e[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const S* p = src(k, c + j);
-            e[j] = p ? ldgf(p) : 0.f;
-          }
-          v[q] = make_float4(e[0], e[1], e[2], e[3]);
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* dst) const {
-    if constexpr (!std::is_same_v<S, float>) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = threadIdx.x + q * kGemmThreads;
-        *reinterpret_cast<float4*>(dst + (i / 32) * kGLd + i % 32 * 4) = v[q];
-      }
-    }
-  }
-};
-
 // A (128, kGK) slice of 128 rows stored with k contiguous, through
 // registers: the thread stages row tid % 128 at k groups 4 (tid / 128) and
 // 8 + that, loading them before the block multiplies the previous slice
 // and storing them transposed after. kVec: a group is one float4 load
-// (rows 16-byte aligned, kmax % 4 == 0), or one 8-byte load of 4 bfloat16
-// (T = bf16: rows 8-byte aligned); else four single loads.
-template <bool kVec = true, class T = float>
+// (rows 16-byte aligned, kmax % 4 == 0); else four single loads.
+template <bool kVec = true>
 struct RowStage {
   float4 v[2];
 
   // from row (null: zeros) at k0; columns k >= kmax are zeros
-  __device__ __forceinline__ void load(const T* row, int k0, int kmax) {
+  __device__ __forceinline__ void load(const float* row, int k0, int kmax) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int k = k0 + (threadIdx.x / kGM) * 4 + 8 * q;

@@ -52,26 +52,26 @@
 // the gLN affines into the weights, bf16 and wgmma/TMA tiles are later
 // work.
 //
-// The bf16 route (bf16_io = 1: x, every parameter, res and skip bfloat16;
-// h1, h2, the partials and stats float32) is the TPU kernel's own under
-// amp, which the reference engages only in bf16, at its rounding points:
-// z1 from bf16 operands summed in float32 (z1_tile converts on load), h1,
-// the statistics, the depthwise taps and h2 in float32, the PReLU slopes
-// float32 (bf16 values); then the output product takes the gLN2 affine
-// folded into the weights as the TPU kernel does, w_f = bf16(W hs2) (hs2 =
-// g2 rstd2, per batch row, folded on load) against bf16(h2), plus the
-// float32 bias cv2 W^T + b (cv2 = be2 - mean2 hs2, summed by the block on
-// the way), and res/skip are rounded to bf16 on store. Every product is of
-// two bf16 values, exact in float32, summed with SIMT fmaf like the float32
-// route (tensor-core bf16 tiles are later work).
+// The bf16 route (tcn_block_fwd_bf16: x, every parameter, res and skip
+// bfloat16; h1, the partials and stats float32) is the TPU kernel's own
+// under amp, which the reference engages only in bf16, at its rounding
+// points. Its products run on the bf16 tensor cores (tcn_block_bf16.cu):
+// z1 from bf16 operands summed in float32, then h1, the statistics, the
+// depthwise taps and h2 in float32 (h2 stored rounded to bf16 in rows of
+// tcn_bf16::ld(H)), the PReLU slopes float32 (bf16 values), its depthwise
+// stage tcn_block_bf16.cu's on this file's tile (kDwRows x kDwCols, the
+// same partials) with 4 channels a thread; the output product takes the gLN2
+// affine folded into the weights as the TPU kernel does, w_f = bf16(W hs2)
+// (hs2 = g2 rstd2, per batch row) against bf16(h2), plus the float32 bias
+// cv2 W^T + b (cv2 = be2 - mean2 hs2), and res/skip are rounded to bf16 on
+// store.
 //
 // Every pointer is a dense buffer, 16-byte aligned (the wrapper
 // copies one that is not). 2-D weights are in the storage of a torch Linear
 // weight, (N, K) = (out, in) row-major, which the model passes as it is.
 // Where C, H and Cs are multiples of 4 the GEMMs move float4s (kVec); at
 // any other width the same kernels with kVec = false move single floats,
-// with the same sums in the same order; on the bf16 route kVec moves 4
-// bfloat16 (8 bytes) where float32 moves a float4.
+// with the same sums in the same order.
 
 #include "tcn_common.cuh"
 
@@ -80,32 +80,7 @@ namespace {
 using namespace tcn;
 using namespace simt;
 
-constexpr int kDwRows = 32;   // depthwise tile: time rows
-constexpr int kDwCols = 128;  // depthwise tile: channels
 constexpr int kDwPer = kDwRows / (kThreads / kDwCols);  // rows per thread
-
-// Write the tile's (count, mean, M2) from the N values this thread holds,
-// val(i) where ok(i): two passes over registers, so M2 carries no
-// cancellation.
-template <int N, class Val, class Ok>
-__device__ void tile_moments(Val val, Ok ok, float count, float* red, float* out) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) s += ok(i) ? val(i) : 0.f;
-  const float mean = block_sum(s, red) / count;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const float e = val(i) - mean;
-    q += ok(i) ? e * e : 0.f;
-  }
-  const float m2 = block_sum(q, red);
-  if (threadIdx.x == 0) {
-    out[0] = count;
-    out[1] = mean;
-    out[2] = m2;
-  }
-}
 
 // One block (one warp) per batch row: merge the row's partial moments in a
 // fixed order and write (mean, 1/sqrt(var + eps)) to stats[b][2 slot ..].
@@ -130,18 +105,18 @@ __global__ void row_stats(const float* __restrict__ part, int n_part, float eps,
 }
 
 // grid (cdiv(T, 128), cdiv(H, 128), B)
-template <bool kVec, class S>
+template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_in_gemm(const S* __restrict__ x, const S* __restrict__ w_in, const S* __restrict__ bias,
-            const S* __restrict__ alpha, float* __restrict__ h1, float* __restrict__ part, int T,
-            int C, int H) {
+tcn_in_gemm(const float* __restrict__ x, const float* __restrict__ w_in,
+            const float* __restrict__ bias, const float* __restrict__ alpha,
+            float* __restrict__ h1, float* __restrict__ part, int T, int C, int H) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   __shared__ float red[kThreads / 32];
   const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(blockIdx.z) * T;
   float acc[8][8];
   z1_tile<kVec>(acc, x, w_in, bias, T, C, H, sm);
-  const float a1 = ldf(alpha);
+  const float a1 = *alpha;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -159,11 +134,11 @@ tcn_in_gemm(const S* __restrict__ x, const S* __restrict__ w_in, const S* __rest
 }
 
 // grid (cdiv(T, kDwRows), cdiv(H, kDwCols), B)
-template <class S>
 __global__ void __launch_bounds__(kThreads)
 dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ stats,
-               const S* __restrict__ g1, const S* __restrict__ be1, const S* __restrict__ w_dw,
-               const S* __restrict__ b_dw, const S* __restrict__ alpha, float* __restrict__ h2,
+               const float* __restrict__ g1, const float* __restrict__ be1,
+               const float* __restrict__ w_dw, const float* __restrict__ b_dw,
+               const float* __restrict__ alpha, float* __restrict__ h2,
                float* __restrict__ part2, int T, int H, int d) {
   __shared__ float red[kThreads / 32];
   const int b = blockIdx.z;
@@ -174,14 +149,14 @@ dw_prelu_stats(const float* __restrict__ h1, const float* __restrict__ stats,
   const bool c_ok = c < H;
   float g = 0.f, be = 0.f, w0 = 0.f, w1 = 0.f, w2 = 0.f, bd = 0.f;
   if (c_ok) {
-    g = ldf(g1 + c);
-    be = ldf(be1 + c);
-    w0 = ldf(w_dw + c);
-    w1 = ldf(w_dw + H + c);
-    w2 = ldf(w_dw + 2 * H + c);
-    bd = ldf(b_dw + c);
+    g = g1[c];
+    be = be1[c];
+    w0 = w_dw[c];
+    w1 = w_dw[H + c];
+    w2 = w_dw[2 * H + c];
+    bd = b_dw[c];
   }
-  const float a2 = ldf(alpha);
+  const float a2 = *alpha;
   const float* hb = h1 + static_cast<size_t>(b) * T * H;
   // y1 is zero outside [0, T): the conv pads the normalized signal
   auto y1 = [&](int t) {
@@ -243,110 +218,40 @@ struct OutOp {
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-// The bf16 route's output k loop: A is bf16(h2) of the staged row of h2
-// (float32), B the staged row of W_res or W_skip (bfloat16, (out, H)) with
-// the gLN2 affine folded in, bf16(w hs2[k]) (hs2 = g2 rstd2), as the TPU
-// kernel multiplies bf16(h2) by its bf16(W * hs2). On the way the thread
-// sums cv2[k] w[k] (cv2 = be2 - mean2 hs2) over its k, its half of the
-// folded bias of its row of W. Past H, and for rows past T, A is 0.
-template <bool kVec>
-struct OutOpBf16 {
-  const float* hrow;
-  const bf16 *wrow, *g2, *be2;
-  float mean, rstd, cvw = 0.f;
-  int H, k0 = 0;
-  RowStage<kVec> a;
-  RowStage<kVec, bf16> b;
-
-  __device__ __forceinline__ void fetch(int s, float*, float*) {
-    k0 = s * kGK;
-    a.load(hrow, k0, H);
-    b.load(wrow, k0, H);
-  }
-  __device__ __forceinline__ void store(float* As) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int k = k0 + (threadIdx.x / kGM) * 4 + 8 * q;
-      float e[4] = {a.v[q].x, a.v[q].y, a.v[q].z, a.v[q].w};
-      float w[4] = {b.v[q].x, b.v[q].y, b.v[q].z, b.v[q].w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        e[j] = hrow && k + j < H ? round_bf16(e[j]) : 0.f;
-        if (wrow && k + j < H) {
-          const float hs = ldgf(g2 + k + j) * rstd;
-          cvw += (ldgf(be2 + k + j) - mean * hs) * w[j];
-          w[j] = round_bf16(w[j] * hs);
-        } else {
-          w[j] = 0.f;
-        }
-      }
-      a.v[q] = make_float4(e[0], e[1], e[2], e[3]);
-      b.v[q] = make_float4(w[0], w[1], w[2], w[3]);
-    }
-    a.store(As);
-    b.store(As + kGSlice);
-  }
-  __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
-};
-
 // grid (cdiv(T, 128), cdiv(n_res, 128) + cdiv(Cs, 128), B); n_res is C,
-// or 0 on the last block (no residual output). S: the storage of x, the
-// parameters and the outputs; float32 normalises y2 on load (OutOp), bf16
-// folds the affine into the weights (OutOpBf16).
-template <bool kVec, class S>
+// or 0 on the last block (no residual output)
+template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 tcn_out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
-             const S* __restrict__ g2, const S* __restrict__ be2, const S* __restrict__ w_res,
-             const S* __restrict__ b_res, const S* __restrict__ w_skip,
-             const S* __restrict__ b_skip, const S* __restrict__ x, S* __restrict__ res,
-             S* __restrict__ skip, int T, int H, int C, int Cs, int n_res) {
+             const float* __restrict__ g2, const float* __restrict__ be2,
+             const float* __restrict__ w_res, const float* __restrict__ b_res,
+             const float* __restrict__ w_skip, const float* __restrict__ b_skip,
+             const float* __restrict__ x, float* __restrict__ res, float* __restrict__ skip,
+             int T, int H, int C, int Cs, int n_res) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z, m0 = blockIdx.x * kGM, mr = cdiv(n_res, kGM);
   const bool is_res = static_cast<int>(blockIdx.y) < mr;
   const int n0 = (is_res ? blockIdx.y : blockIdx.y - mr) * kGM, N = is_res ? n_res : Cs;
-  const S* w = is_res ? w_res : w_skip;
-  const S* bias = is_res ? b_res : b_skip;
-  S* out = is_res ? res : skip;
+  const float* w = is_res ? w_res : w_skip;
+  const float* bias = is_res ? b_res : b_skip;
+  float* out = is_res ? res : skip;
   const size_t row0 = static_cast<size_t>(b) * T;
   const int m = m0 + threadIdx.x % kGM, n = n0 + threadIdx.x % kGM;
   float acc[8][8] = {};
-  // the bf16 route's cv2 W^T a column, [2 halves of k][128 columns], in sm
-  // once the k loop is done
-  const float* fold = sm;
-  if constexpr (std::is_same_v<S, float>) {
-    OutOp<kVec> op;
-    op.hrow = m < T ? h2 + (row0 + m) * H : nullptr;
-    op.wrow = n < N ? w + static_cast<size_t>(n) * H : nullptr;
-    op.g2 = g2;
-    op.be2 = be2;
-    op.mean = stats[4 * b + 2];
-    op.rstd = stats[4 * b + 3];
-    op.H = H;
-    gemm_loop(op, acc, cdiv(H, kGK), sm);
-  } else {
-    OutOpBf16<kVec> op;
-    op.hrow = m < T ? h2 + (row0 + m) * H : nullptr;
-    op.wrow = n < N ? w + static_cast<size_t>(n) * H : nullptr;
-    op.g2 = g2;
-    op.be2 = be2;
-    op.mean = stats[4 * b + 2];
-    op.rstd = stats[4 * b + 3];
-    op.H = H;
-    gemm_loop(op, acc, cdiv(H, kGK), sm);
-    sm[threadIdx.x] = op.cvw;  // sm is free after the loop's last barrier
-    __syncthreads();
-  }
-  // the sum, then the bias (b, or on the bf16 route cv2 W^T + b), then
-  // (res) x + that
+  OutOp<kVec> op;
+  op.hrow = m < T ? h2 + (row0 + m) * H : nullptr;
+  op.wrow = n < N ? w + static_cast<size_t>(n) * H : nullptr;
+  op.g2 = g2;
+  op.be2 = be2;
+  op.mean = stats[4 * b + 2];
+  op.rstd = stats[4 * b + 3];
+  op.H = H;
+  gemm_loop(op, acc, cdiv(H, kGK), sm);
+  // the sum, then the bias, then (res) x + that
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = n0 + frag_col(j);
-    float bn = 0.f;
-    if (col < N) {
-      bn = ldf(bias + col);
-      if constexpr (!std::is_same_v<S, float>)
-        bn = (fold[frag_col(j)] + fold[kGM + frag_col(j)]) + bn;
-    }
+    const float bn = col < N ? bias[col] : 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i][j] = acc[i][j] + bn;
   }
@@ -355,7 +260,7 @@ tcn_out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
     for (int i = 0; i < 8; ++i) {
       const int t = m0 + frag_row(i);
       if (t >= T) continue;
-      const S* xr = x + (row0 + t) * C;
+      const float* xr = x + (row0 + t) * C;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + frag_col(4 * h);
@@ -367,14 +272,14 @@ tcn_out_gemm(const float* __restrict__ h2, const float* __restrict__ stats,
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (col + j < N) e[j] = ldf(xr + col + j);
+            if (col + j < N) e[j] = xr[col + j];
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][4 * h + j] = e[j] + acc[i][4 * h + j];
       }
     }
   }
-  store_tile<kVec>(acc, [&](int i) -> S* {
+  store_tile<kVec>(acc, [&](int i) -> float* {
     return m0 + i < T ? out + (row0 + m0 + i) * N : nullptr;
   }, n0, N);
 }
@@ -390,23 +295,16 @@ extern "C" {
 int tcn_in_partials(int T, int H) { return cdiv(T, kGM) * cdiv(H, kGM); }
 int tcn_dw_partials(int T, int H) { return cdiv(T, kDwRows) * cdiv(H, kDwCols); }
 
-// bf16 = 0: every S pointer float32; 1: bfloat16 (the bf16 route).
-int tcn_in_gemm_prelu_stats(const void* x, const void* w, const void* bias, const void* alpha,
-                            float* h1, float* part, int B, int T, int C, int H, int bf16_io,
+// The float32 route's five launches, one entry each; every pointer float32.
+int tcn_in_gemm_prelu_stats(const float* x, const float* w, const float* bias,
+                            const float* alpha, float* h1, float* part, int B, int T, int C, int H,
                             void* stream) {
   const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto tag, auto vec) {
-    using S = decltype(tag);
-    tcn_in_gemm<decltype(vec)::value, S><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const S*>(x), static_cast<const S*>(w), static_cast<const S*>(bias),
-        static_cast<const S*>(alpha), h1, part, T, C, H);
-  };
-  const bool vec = vec_widths(C, H, 4);
-  if (bf16_io)
-    vec ? go(bf16{}, std::true_type{}) : go(bf16{}, std::false_type{});
+  if (vec_widths(C, H, 4))
+    tcn_in_gemm<true><<<grid, kGemmThreads, 0, s>>>(x, w, bias, alpha, h1, part, T, C, H);
   else
-    vec ? go(float{}, std::true_type{}) : go(float{}, std::false_type{});
+    tcn_in_gemm<false><<<grid, kGemmThreads, 0, s>>>(x, w, bias, alpha, h1, part, T, C, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,44 +314,68 @@ int tcn_row_stats(const float* part, int n_part, float* stats, int slot, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
-int tcn_dw_prelu_stats(const float* h1, const float* stats, const void* g1, const void* be1,
-                       const void* w_dw, const void* b_dw, const void* alpha, float* h2,
-                       float* part2, int B, int T, int H, int dilation, int bf16_io,
-                       void* stream) {
-  const dim3 grid(cdiv(T, kDwRows), cdiv(H, kDwCols), B);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto tag) {
-    using S = decltype(tag);
-    dw_prelu_stats<S><<<grid, kThreads, 0, s>>>(
-        h1, stats, static_cast<const S*>(g1), static_cast<const S*>(be1),
-        static_cast<const S*>(w_dw), static_cast<const S*>(b_dw), static_cast<const S*>(alpha),
-        h2, part2, T, H, dilation);
-  };
-  bf16_io ? go(bf16{}) : go(float{});
+int tcn_dw_prelu_stats(const float* h1, const float* stats, const float* g1, const float* be1,
+                       const float* w_dw, const float* b_dw, const float* alpha, float* h2,
+                       float* part2, int B, int T, int H, int dilation, void* stream) {
+  dw_prelu_stats<<<dim3(cdiv(T, kDwRows), cdiv(H, kDwCols), B), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(h1, stats, g1, be1, w_dw, b_dw, alpha,
+                                                        h2, part2, T, H, dilation);
   return static_cast<int>(cudaGetLastError());
 }
 
-int tcn_out_gemm(const float* h2, const float* stats, const void* g2, const void* be2,
-                 const void* w_res, const void* b_res, const void* w_skip, const void* b_skip,
-                 const void* x, void* res, void* skip, int B, int T, int H, int C, int Cs,
-                 int last, int bf16_io, void* stream) {
+int tcn_out_gemm(const float* h2, const float* stats, const float* g2, const float* be2,
+                 const float* w_res, const float* b_res, const float* w_skip,
+                 const float* b_skip, const float* x, float* res, float* skip, int B, int T,
+                 int H, int C, int Cs, int last, void* stream) {
   const int n_res = last ? 0 : C;
   const dim3 grid(cdiv(T, kGM), cdiv(n_res, kGM) + cdiv(Cs, kGM), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto tag, auto vec) {
-    using S = decltype(tag);
-    tcn_out_gemm<decltype(vec)::value, S><<<grid, kGemmThreads, 0, s>>>(
-        h2, stats, static_cast<const S*>(g2), static_cast<const S*>(be2),
-        static_cast<const S*>(w_res), static_cast<const S*>(b_res),
-        static_cast<const S*>(w_skip), static_cast<const S*>(b_skip), static_cast<const S*>(x),
-        static_cast<S*>(res), static_cast<S*>(skip), T, H, C, Cs, n_res);
-  };
-  const bool vec = vec_widths(C, H, Cs);
-  if (bf16_io)
-    vec ? go(bf16{}, std::true_type{}) : go(bf16{}, std::false_type{});
+  if (vec_widths(C, H, Cs))
+    tcn_out_gemm<true><<<grid, kGemmThreads, 0, s>>>(h2, stats, g2, be2, w_res, b_res, w_skip,
+                                                     b_skip, x, res, skip, T, H, C, Cs, n_res);
   else
-    vec ? go(float{}, std::true_type{}) : go(float{}, std::false_type{});
+    tcn_out_gemm<false><<<grid, kGemmThreads, 0, s>>>(h2, stats, g2, be2, w_res, b_res, w_skip,
+                                                      b_skip, x, res, skip, T, H, C, Cs, n_res);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Everything one K1-bf16 call reads and writes: x, the parameters, res and
+// skip bfloat16 (w_res, b_res and res unused on the last block); h1 (B, T,
+// H), the partials (tcn_in_partials, tcn_dw_partials a row, 3 floats each),
+// stats (B, 4) and fb (B, n_res + Cs) float32; h2 (B, T, ld) and wf (B,
+// n_res + Cs, ld) bfloat16, ld = tcn_bf16_ld(H).
+struct TcnFwdBf16Args {
+  const void *x, *w_in, *b_in, *a1, *g1, *be1, *w_dw, *b_dw, *a2, *g2, *be2, *w_res, *b_res,
+      *w_skip, *b_skip;
+  float *h1, *part1, *part2, *stats, *fb;
+  void *h2, *wf, *res, *skip;
+  int B, T, C, H, Cs, last, dilation;
+  float eps;
+};
+
+// K1-bf16's six launches on `stream`: z1 and h1 on the tensor cores, the
+// two statistics, the depthwise stage (bf16 h2), the folded output weights
+// and the output product; returns the first launch's CUDA error code, or 0.
+int tcn_block_fwd_bf16(const TcnFwdBf16Args* a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int B = a->B, T = a->T, C = a->C, H = a->H, Cs = a->Cs, n_res = a->last ? 0 : C;
+  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  int err = tcn_bf16::in_mma(in(a->x), in(a->w_in), in(a->b_in), in(a->a1), a->h1, a->part1, B,
+                             T, C, H, s);
+  if (err || (err = tcn_row_stats(a->part1, tcn_in_partials(T, H), a->stats, 0, B, a->eps, s)))
+    return err;
+  if ((err = tcn_bf16::dw(a->h1, a->stats, in(a->g1), in(a->be1), in(a->w_dw), in(a->b_dw),
+                          in(a->a2), static_cast<bf16*>(a->h2), a->part2, B, T, H, a->dilation,
+                          s)) ||
+      (err = tcn_row_stats(a->part2, tcn_dw_partials(T, H), a->stats, 1, B, a->eps, s)))
+    return err;
+  bf16* wf = static_cast<bf16*>(a->wf);
+  if ((err = tcn_bf16::fold(a->stats, in(a->g2), in(a->be2), in(a->w_res), in(a->b_res),
+                            in(a->w_skip), in(a->b_skip), wf, a->fb, B, H, n_res, Cs, s)))
+    return err;
+  return tcn_bf16::out_mma(static_cast<const bf16*>(a->h2), wf, a->fb, in(a->x),
+                           static_cast<bf16*>(a->res), static_cast<bf16*>(a->skip), B, T, H, C,
+                           Cs, n_res, s);
 }
 
 }  // extern "C"

@@ -70,18 +70,22 @@
 //
 // The bf16 route (bf16_io = 1 in TcnBwdArgs: x, g_res, g_skip, every parameter,
 // dx and the 14 parameter gradients bfloat16; stats, the workspace and every
-// sum float32) is the TPU kernel's VJP under amp, at its rounding points:
-// every stage runs in float32 from the bf16 values (converted on load;
-// products of two bf16 values are exact in float32); the output weight
-// GEMM takes bf16(h2) in y2 (the TPU kernel's dW = hs2 (bf16(h2)^T g) + cv2
-// sum g); gz1 is rounded to bf16 where it is written, so dx = gz1 W_in and
-// dW_in = gz1^T x multiply bf16 values (db_in sums it unrounded); dx and,
-// in the last launch, every parameter gradient summed in float32 are
-// rounded to bf16 on store. Same eleven launches, same plan.
+// sum float32) is the TPU kernel's VJP under amp, at its rounding points.
+// Its five products run on the bf16 tensor cores (tcn_block_bf16.cu, the
+// same eleven launches and plan): z1 by K1-bf16's own routine; the output
+// weight GEMM takes bf16(h2), which launch 2 writes beside z2 (the TPU
+// kernel's dW = hs2 (bf16(h2)^T g) + cv2 sum g); gz1 is rounded to bf16
+// where it is written, so dx = gz1 W_in and dW_in = gz1^T x multiply bf16
+// values (db_in sums it unrounded); dx and, in the last launch, every
+// parameter gradient summed in float32 are rounded to bf16 on store. The
+// elementwise stages are this file's, on bf16 parameters; bf16 h2 lives in
+// gy1's room (written in launch 2, read in 5, before launch 6 writes gy1)
+// and bf16 gz1 in gy2's (gy2's last read is launch 6), in rows of
+// tcn_bf16::ld(H) with zero pads.
 //
 // Scratch is one float32 workspace (tcn_bwd_workspace floats) that the
 // caller allocates: z1, z2, gy2 and gy1 of (B, T, H) each and the partials.
-// Every pointer is a dense float32 buffer, 16-byte aligned; 2-D weights are
+// Every pointer is a dense buffer, 16-byte aligned; 2-D weights are
 // in the torch Linear storage (out, in): W_in (H, C), W_res (C, H), W_skip
 // (Cs, H). Where C, H and Cs are multiples of 4
 // every stage moves float4s (kVec); at any other width the same kernels
@@ -157,10 +161,10 @@ struct Split {
 // 1. z1 = x W_in^T + b_in (tcn_common.cuh's z1_tile, which K1 runs too).
 // grid (cdiv(T, 128), cdiv(H, 128), B)
 
-template <bool kVec, class S>
+template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_z1_gemm(const S* __restrict__ x, const S* __restrict__ w_in, const S* __restrict__ bias,
-                float* __restrict__ z1, int T, int C, int H) {
+tcn_bwd_z1_gemm(const float* __restrict__ x, const float* __restrict__ w_in,
+                const float* __restrict__ bias, float* __restrict__ z1, int T, int C, int H) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int m0 = blockIdx.x * kGM;
   const size_t row0 = static_cast<size_t>(blockIdx.z) * T;
@@ -271,13 +275,23 @@ __device__ void tile_sums(const float (&s)[N][4], float* red, Out out) {
   }
 }
 
+// The bf16 route also writes h2 = bf16(PReLU(z2)) into h2b (rows of ld,
+// the pad columns zeros), the output weight GEMM's operand.
 // grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
 template <bool kVec, class S>
 __global__ void __launch_bounds__(kThreads)
 tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats, const S* __restrict__ a1,
            const S* __restrict__ g1, const S* __restrict__ be1, const S* __restrict__ w_dw,
-           const S* __restrict__ b_dw, float* __restrict__ z2, int T, int H, int d) {
+           const S* __restrict__ b_dw, float* __restrict__ z2, const S* __restrict__ a2,
+           bf16* __restrict__ h2b, int ld, int T, int H, int d) {
+  constexpr bool kBf = !std::is_same_v<S, float>;
   const int b = blockIdx.z, c = ew_channel();
+  const int t0 = blockIdx.x * kEwRows, t_end = min(T, t0 + kEwRows);
+  if constexpr (kBf) {
+    if (c >= H && c < ld)
+      for (int t = t0 + ew_group(); t < t_end; t += kEwGroups)
+        simt::st4(h2b + (static_cast<size_t>(b) * T + t) * ld + c, 0.f, 0.f, 0.f, 0.f);
+  }
   if (c >= H) return;  // no barrier in this kernel
   const size_t base = static_cast<size_t>(b) * T * H + c;
   const int ne = ew_width<kVec>(c, H);
@@ -285,7 +299,8 @@ tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats, const 
                             ld4<kVec>(g1 + c, ne), ld4<kVec>(be1 + c, ne)};
   const F4 w0 = ld4<kVec>(w_dw + c, ne), w1 = ld4<kVec>(w_dw + H + c, ne),
            w2 = ld4<kVec>(w_dw + 2 * H + c, ne), bd = ld4<kVec>(b_dw + c, ne);
-  const int t0 = blockIdx.x * kEwRows, t_end = min(T, t0 + kEwRows);
+  float alpha2 = 0.f;
+  if constexpr (kBf) alpha2 = ldf(a2);
   for (int t = t0 + ew_group(); t < t_end; t += kEwGroups) {
     const F4 ym = y1(t - d), y0 = y1(t), yp = y1(t + d);
     F4 z;
@@ -294,6 +309,12 @@ tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats, const 
     for (int e = 0; e < 4; ++e)
       z.v[e] = ym.v[e] * w0.v[e] + y0.v[e] * w1.v[e] + yp.v[e] * w2.v[e] + bd.v[e];
     st4<kVec>(z2 + base + static_cast<size_t>(t) * H, z, ne);
+    if constexpr (kBf) {
+      float h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[e] = e < ne ? prelu(z.v[e], alpha2) : 0.f;
+      simt::st4(h2b + (static_cast<size_t>(b) * T + t) * ld + c, h[0], h[1], h[2], h[3]);
+    }
   }
 }
 
@@ -302,40 +323,37 @@ tcn_bwd_z2(const float* __restrict__ z1, const float* __restrict__ stats, const 
 // past C) then those of g_skip. Column sums of gy2 h2 and gy2 over the
 // tile's rows into part[b][tile][2][H]. grid (cdiv(T, 128), cdiv(H, 128), B)
 
-template <bool kVec, class S>
+template <bool kVec>
 struct Gy2Op {
-  const S *rrow, *srow, *w_res, *w_skip;  // staged rows of g_res, g_skip
-  int n_res, Cs, H, nr;                   // nr: slices of g_res
-  RowStage<kVec, S> a;
-  DirectSlice<kVec, S> w;
+  const float *rrow, *srow, *w_res, *w_skip;  // staged rows of g_res, g_skip
+  int n_res, Cs, H, nr;                       // nr: slices of g_res
+  RowStage<kVec> a;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int n0 = blockIdx.y * kGM;
     const bool res = s < nr;
     const int k0 = (res ? s : s - nr) * kGK, K = res ? n_res : Cs;
-    const S* wm = res ? w_res : w_skip;
+    const float* wm = res ? w_res : w_skip;
     a.load(res ? rrow : srow, k0, K);
-    w.fetch(Bs, [&](int k, int c) -> const S* {
+    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
       return k0 + k < K && n0 + c < H ? wm + static_cast<size_t>(k0 + k) * H + n0 + c : nullptr;
     }, w_skip);
   }
-  __device__ __forceinline__ void store(float* As) {
-    a.store(As);
-    w.store(As + kGSlice);
-  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-template <bool kVec, class S>
+template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_gy2_gemm(const S* __restrict__ g_res, const S* __restrict__ g_skip,
-                 const S* __restrict__ w_res, const S* __restrict__ w_skip,
-                 const float* __restrict__ z2, const S* __restrict__ a2, float* __restrict__ gy2,
-                 float* __restrict__ part, int T, int H, int C, int Cs, int n_res) {
+tcn_bwd_gy2_gemm(const float* __restrict__ g_res, const float* __restrict__ g_skip,
+                 const float* __restrict__ w_res, const float* __restrict__ w_skip,
+                 const float* __restrict__ z2, const float* __restrict__ a2,
+                 float* __restrict__ gy2, float* __restrict__ part, int T, int H, int C, int Cs,
+                 int n_res) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(b) * T;
-  Gy2Op<kVec, S> op;
+  Gy2Op<kVec> op;
   const int m = m0 + threadIdx.x % kGM;
   op.rrow = n_res && m < T ? g_res + (row0 + m) * C : nullptr;
   op.srow = m < T ? g_skip + (row0 + m) * Cs : nullptr;
@@ -352,7 +370,7 @@ tcn_bwd_gy2_gemm(const S* __restrict__ g_res, const S* __restrict__ g_skip,
   }, n0, H);
   // the column sums: the thread's 8 rows, then the 16 threads that share
   // its columns in a fixed order (sm is free after the loop's last barrier)
-  const float alpha = ldf(a2);
+  const float alpha = *a2;
   float s_gh[8] = {}, s_g[8] = {};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -432,9 +450,8 @@ tcn_bwd_row_merge(const float* __restrict__ part, int n_tiles, const float* __re
 
 // The thread's two float4 pieces of y2's (kGK, 128) slice (stage_direct's
 // pieces), normalised from z2 through registers; rows past the chunk and
-// columns past H are 0. kRound (the bf16 route): h2 = PReLU(z2) rounded to
-// bf16 before the affine, the TPU kernel's bf16(h2) in its dW.
-template <bool kVec, bool kRound = false>
+// columns past H are 0.
+template <bool kVec>
 struct Y2Stage {
   float4 v[2];
   F4 g, be;  // g2 and be2 of the thread's four columns
@@ -458,11 +475,8 @@ struct Y2Stage {
             if (e < ne) z.v[e] = __ldg(p + e);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float h = prelu(z.v[e], alpha);
-          if constexpr (kRound) h = round_bf16(h);
-          if (e < ne) y.v[e] = (h - mean) * rstd * g.v[e] + be.v[e];
-        }
+        for (int e = 0; e < 4; ++e)
+          if (e < ne) y.v[e] = (prelu(z.v[e], alpha) - mean) * rstd * g.v[e] + be.v[e];
       }
       v[q] = make_float4(y.v[0], y.v[1], y.v[2], y.v[3]);
     }
@@ -477,26 +491,22 @@ struct Y2Stage {
   }
 };
 
-template <bool kVec, class S>
+template <bool kVec>
 struct WoutOp {
-  const S* g;              // g_res or g_skip at the chunk's first step
+  const float* g;          // g_res or g_skip at the chunk's first step
   const float* zrow0;      // z2 there
   int ld, m_max, kc, H;    // g's row stride and columns; the chunk's steps
   float alpha, mean, rstd, db = 0.f;
-  DirectSlice<kVec, S> gs;
-  Y2Stage<kVec, !std::is_same_v<S, float>> y;
+  Y2Stage<kVec> y;
 
   __device__ __forceinline__ void fetch(int s, float* As, float*) {
     const int k0 = s * kGK, n0 = blockIdx.y * kGM;
-    gs.fetch(As, [&](int k, int c) -> const S* {
+    stage_direct<kVec>(As, [&](int k, int c) -> const float* {
       return k0 + k < kc && c < m_max ? g + static_cast<size_t>(k0 + k) * ld + c : nullptr;
     }, g);
     y.load(zrow0, k0, kc, H, n0, alpha, mean, rstd);
   }
-  __device__ __forceinline__ void store(float* As) {
-    gs.store(As);
-    y.store(As + kGSlice);
-  }
+  __device__ __forceinline__ void store(float* As) { y.store(As + kGSlice); }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float* Bs) {
     if (blockIdx.y != 0 || threadIdx.x >= kGM) return;
     const float* As = Bs - kGSlice;
@@ -505,13 +515,14 @@ struct WoutOp {
   }
 };
 
-template <bool kVec, class S>
+template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_wout_gemm(const S* __restrict__ g_res, const S* __restrict__ g_skip,
+tcn_bwd_wout_gemm(const float* __restrict__ g_res, const float* __restrict__ g_skip,
                   const float* __restrict__ z2, const float* __restrict__ stats,
-                  const S* __restrict__ a2, const S* __restrict__ g2, const S* __restrict__ be2,
-                  float* __restrict__ part, float* __restrict__ part_db, int T, int H, int C,
-                  int Cs, int n_res, int chunks, int chunk) {
+                  const float* __restrict__ a2, const float* __restrict__ g2,
+                  const float* __restrict__ be2, float* __restrict__ part,
+                  float* __restrict__ part_db, int T, int H, int C, int Cs, int n_res, int chunks,
+                  int chunk) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * chunk;
   const int mr = cdiv(n_res, kGM), M = n_res + Cs;
@@ -519,14 +530,14 @@ tcn_bwd_wout_gemm(const S* __restrict__ g_res, const S* __restrict__ g_skip,
   const int m0 = (res ? blockIdx.x : blockIdx.x - mr) * kGM, n0 = blockIdx.y * kGM;
   const int row_off = res ? 0 : n_res;  // the output rows of this source
   const size_t row0 = static_cast<size_t>(b) * T + tc;
-  WoutOp<kVec, S> op;
+  WoutOp<kVec> op;
   op.ld = res ? C : Cs;
   op.m_max = (res ? n_res : Cs) - m0;
   op.g = (res ? g_res : g_skip) + row0 * op.ld + m0;
   op.zrow0 = z2 + row0 * H;
   op.kc = min(chunk, T - tc);
   op.H = H;
-  op.alpha = ldf(a2);
+  op.alpha = *a2;
   op.mean = stats[4 * b + 2];
   op.rstd = stats[4 * b + 3];
   const int c = n0 + threadIdx.x % 32 * 4;
@@ -640,8 +651,9 @@ tcn_bwd_gz2_gy1(const float* __restrict__ z1, const float* __restrict__ z2,
 }
 
 // ---------------------------------------------------------------------------
-// 8. gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), written over z1
-// (rounded to bf16 on the bf16 route, after its sums).
+// 8. gz1 = PReLU'(z1) (hs1 gy1 - A1 - B1 (h1 - mean1)), written over z1;
+// on the bf16 route rounded to bf16 after its sums, into gz1b (rows of ld,
+// the pad columns zeros) instead.
 // Partials: part[b][tile][H] = sum gz1 (db_in); part_a[b][tile][ctile] =
 // sum gh1 min(z1, 0) in double. grid (cdiv(T, kEwRows), cdiv(H, kEwCols), B)
 template <bool kVec, class S>
@@ -649,7 +661,8 @@ __global__ void __launch_bounds__(kThreads)
 tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
             const float* __restrict__ stats, const float* __restrict__ fold1,
             const S* __restrict__ a1, const S* __restrict__ g1, float* __restrict__ part,
-            double* __restrict__ part_a, int T, int H) {
+            double* __restrict__ part_a, bf16* __restrict__ gz1b, int ld, int T, int H) {
+  constexpr bool kBf = !std::is_same_v<S, float>;
   __shared__ double red[kThreads / 32];
   __shared__ float cred[kEwGroups * kEwCols];
   const int b = blockIdx.z, c = ew_channel();
@@ -678,10 +691,16 @@ tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
         gz.v[e] = z.v[e] >= 0.f ? gh : alpha * gh;
         sa += gh * fminf(z.v[e], 0.f);
         s[0][e] += gz.v[e];
-        if constexpr (!std::is_same_v<S, float>) gz.v[e] = round_bf16(gz.v[e]);
       }
-      st4<kVec>(z1 + o, gz, ne);
+      if constexpr (kBf)
+        simt::st4(gz1b + (static_cast<size_t>(b) * T + t) * ld + c, gz.v[0], gz.v[1], gz.v[2],
+                  gz.v[3]);
+      else
+        st4<kVec>(z1 + o, gz, ne);
     }
+  } else if (kBf && c < ld) {
+    for (int t = t0 + ew_group(); t < t_end; t += kEwGroups)
+      simt::st4(gz1b + (static_cast<size_t>(b) * T + t) * ld + c, 0.f, 0.f, 0.f, 0.f);
   }
   const size_t tile = static_cast<size_t>(b) * gridDim.x + blockIdx.x;
   tile_sums(s, cred, [&](int, int col, float sum) {
@@ -695,36 +714,32 @@ tcn_bwd_gz1(const float* __restrict__ gy1, float* __restrict__ z1,
 // ---------------------------------------------------------------------------
 // 9. dx = gz1 W_in (+ g_res). grid (cdiv(T, 128), cdiv(C, 128), B)
 
-template <bool kVec, class S>
+template <bool kVec>
 struct DxOp {
   const float* grow;  // the staged row of gz1
-  const S* w;         // W_in (H, C), rows k
+  const float* w;     // W_in (H, C), rows k
   int H, C;
   RowStage<kVec> a;
-  DirectSlice<kVec, S> ws;
 
   __device__ __forceinline__ void fetch(int s, float*, float* Bs) {
     const int k0 = s * kGK, n0 = blockIdx.y * kGM;
     a.load(grow, k0, H);
-    ws.fetch(Bs, [&](int k, int c) -> const S* {
+    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
       return k0 + k < H && n0 + c < C ? w + static_cast<size_t>(k0 + k) * C + n0 + c : nullptr;
     }, w);
   }
-  __device__ __forceinline__ void store(float* As) {
-    a.store(As);
-    ws.store(As + kGSlice);
-  }
+  __device__ __forceinline__ void store(float* As) { a.store(As); }
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-template <bool kVec, class S>
+template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_dx_gemm(const float* __restrict__ gz1, const S* __restrict__ w_in,
-                const S* __restrict__ g_res, S* __restrict__ dx, int T, int H, int C) {
+tcn_bwd_dx_gemm(const float* __restrict__ gz1, const float* __restrict__ w_in,
+                const float* __restrict__ g_res, float* __restrict__ dx, int T, int H, int C) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(b) * T;
-  DxOp<kVec, S> op;
+  DxOp<kVec> op;
   const int m = m0 + threadIdx.x % kGM;
   op.grow = m < T ? gz1 + (row0 + m) * H : nullptr;
   op.w = w_in;
@@ -747,7 +762,7 @@ tcn_bwd_dx_gemm(const float* __restrict__ gz1, const S* __restrict__ w_in,
       }
     }
   }
-  store_tile<kVec>(acc, [&](int i) -> S* {
+  store_tile<kVec>(acc, [&](int i) -> float* {
     return m0 + i < T ? dx + (row0 + m0 + i) * C : nullptr;
   }, n0, C);
 }
@@ -756,35 +771,34 @@ tcn_bwd_dx_gemm(const float* __restrict__ gz1, const S* __restrict__ w_in,
 // 10. dW_in partials: part[z][h][c] = sum_t gz1[t][h] x[t][c] over one (row,
 // chunk) z. grid (cdiv(H, 128), cdiv(C, 128), B chunks)
 
-template <bool kVec, class S>
+template <bool kVec>
 struct WinOp {
   const float* g;  // gz1 at the chunk's first step
-  const S* x;      // x there
+  const float* x;  // x there
   int H, C, kc;
-  DirectSlice<kVec, S> xs;
 
   __device__ __forceinline__ void fetch(int s, float* As, float* Bs) {
     const int k0 = s * kGK, m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
     stage_direct<kVec>(As, [&](int k, int c) -> const float* {
       return k0 + k < kc && m0 + c < H ? g + static_cast<size_t>(k0 + k) * H + m0 + c : nullptr;
     }, g);
-    xs.fetch(Bs, [&](int k, int c) -> const S* {
+    stage_direct<kVec>(Bs, [&](int k, int c) -> const float* {
       return k0 + k < kc && n0 + c < C ? x + static_cast<size_t>(k0 + k) * C + n0 + c : nullptr;
     }, x);
   }
-  __device__ __forceinline__ void store(float* As) { xs.store(As + kGSlice); }
+  __device__ __forceinline__ void store(float*) {}
   __device__ __forceinline__ void after(int, float (&)[8][8], const float*) {}
 };
 
-template <bool kVec, class S>
+template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-tcn_bwd_win_gemm(const float* __restrict__ gz1, const S* __restrict__ x,
+tcn_bwd_win_gemm(const float* __restrict__ gz1, const float* __restrict__ x,
                  float* __restrict__ part, int T, int H, int C, int chunks, int chunk) {
   __shared__ __align__(16) float sm[4 * kGSlice];
   const int b = blockIdx.z / chunks, tc = (blockIdx.z % chunks) * chunk;
   const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * kGM;
   const size_t row0 = static_cast<size_t>(b) * T + tc;
-  WinOp<kVec, S> op;
+  WinOp<kVec> op;
   op.g = gz1 + row0 * H;
   op.x = x + row0 * C;
   op.H = H;
@@ -851,7 +865,8 @@ tcn_bwd_sums(const SumTasks tasks) {
 }
 
 // The launch plan and workspace layout (float offsets), shared by
-// tcn_bwd_plan, tcn_bwd_workspace and the launches.
+// tcn_bwd_plan, tcn_bwd_workspace and the launches of both routes: gy2's
+// and gy1's rooms also hold the bf16 route's gz1 and h2, (B, T, ld) bf16.
 struct Layout {
   size_t z1, z2, gy2, gy1, p_gy2, fold2, dgb2_rows, p_gz2, pa2, p_wout, p_dbout, p_gy1, fold1,
       dgb1_rows, p_gz1, pa1, p_win, total;
@@ -866,6 +881,7 @@ struct Layout {
     ctiles = cdiv(H, kEwCols);
     M = (last ? 0 : C) + Cs;
     const size_t bth = static_cast<size_t>(B) * T * H, bt = static_cast<size_t>(B) * tiles;
+    const size_t room = std::max(bth, (static_cast<size_t>(B) * T * tcn_bf16::ld(H) + 1) / 2);
     size_t at = 0;
     auto take = [&](size_t n) {
       const size_t start = at;
@@ -874,8 +890,8 @@ struct Layout {
     };
     z1 = take(bth);
     z2 = take(bth);
-    gy2 = take(bth);
-    gy1 = take(bth);
+    gy2 = take(room);
+    gy1 = take(room);
     p_gy2 = take(static_cast<size_t>(B) * gtiles * 2 * H);
     fold2 = take(2 * static_cast<size_t>(B));
     dgb2_rows = take(static_cast<size_t>(B) * 2 * H);
@@ -925,24 +941,47 @@ int launch_bwd(const TcnBwdArgs* a, cudaStream_t s) {
   double* pa1 = reinterpret_cast<double*>(w + L.pa1);  // 128-byte aligned
   double* pa2 = reinterpret_cast<double*>(w + L.pa2);
   int err = 0;
+  // the bf16 route's products (tcn_block_bf16.cu) and its bf16 h2 and gz1
+  constexpr bool kBf = !std::is_same_v<S, float>;
+  const int ld = tcn_bf16::ld(H);
+  bf16* h2b = kBf ? reinterpret_cast<bf16*>(w + L.gy1) : nullptr;
+  bf16* gz1b = kBf ? reinterpret_cast<bf16*>(w + L.gy2) : nullptr;
 
-  tcn_bwd_z1_gemm<kVec, S><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
-      x, w_in, b_in, w + L.z1, T, C, H);
-  TCN_LAUNCHED();
+  if constexpr (kBf) {
+    err = tcn_bf16::z1(x, w_in, b_in, w + L.z1, B, T, C, H, s);
+  } else {
+    tcn_bwd_z1_gemm<kVec><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
+        x, w_in, b_in, w + L.z1, T, C, H);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err) return err;
   tcn_bwd_z2<kVec, S><<<ew, kThreads, 0, s>>>(w + L.z1, a->stats, a1, g1, be1, w_dw, b_dw,
-                                              w + L.z2, T, H, d);
+                                              w + L.z2, a2, h2b, ld, T, H, d);
   TCN_LAUNCHED();
-  tcn_bwd_gy2_gemm<kVec, S><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
-      g_res, g_skip, w_res, w_skip, w + L.z2, a2, w + L.gy2, w + L.p_gy2, T, H, C, Cs, n_res);
-  TCN_LAUNCHED();
+  if constexpr (kBf) {
+    err = tcn_bf16::gy2(g_res, g_skip, w_res, w_skip, w + L.z2, a2, w + L.gy2, w + L.p_gy2, B,
+                        T, H, C, Cs, n_res, s);
+  } else {
+    tcn_bwd_gy2_gemm<kVec><<<dim3(L.gtiles, cdiv(H, kGM), B), kGemmThreads, 0, s>>>(
+        g_res, g_skip, w_res, w_skip, w + L.z2, a2, w + L.gy2, w + L.p_gy2, T, H, C, Cs, n_res);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err) return err;
   tcn_bwd_row_merge<S><<<B, kThreads, 0, s>>>(w + L.p_gy2, L.gtiles, a->stats, 1, g2,
                                               w + L.dgb2_rows, w + L.fold2, H, inv_n);
   TCN_LAUNCHED();
-  tcn_bwd_wout_gemm<kVec, S>
-      <<<dim3(cdiv(n_res, kGM) + cdiv(Cs, kGM), cdiv(H, kGM), B * L.wout.chunks), kGemmThreads,
-         0, s>>>(g_res, g_skip, w + L.z2, a->stats, a2, g2, be2, w + L.p_wout, w + L.p_dbout, T,
-                 H, C, Cs, n_res, L.wout.chunks, L.wout.chunk);
-  TCN_LAUNCHED();
+  if constexpr (kBf) {
+    err = tcn_bf16::wout(g_res, g_skip, h2b, a->stats, g2, be2, w + L.p_wout, w + L.p_dbout, B,
+                         T, H, C, Cs, n_res, L.wout.chunks, L.wout.chunk, s);
+  } else {
+    tcn_bwd_wout_gemm<kVec>
+        <<<dim3(cdiv(n_res, kGM) + cdiv(Cs, kGM), cdiv(H, kGM), B * L.wout.chunks),
+           kGemmThreads, 0, s>>>(g_res, g_skip, w + L.z2, a->stats, a2, g2, be2, w + L.p_wout,
+                                 w + L.p_dbout, T, H, C, Cs, n_res, L.wout.chunks,
+                                 L.wout.chunk);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err) return err;
   tcn_bwd_gz2_gy1<kVec, S><<<ew, kThreads, 0, s>>>(w + L.z1, w + L.z2, w + L.gy2, w + L.gy1,
                                                    a->stats, w + L.fold2, a1, g1, be1, w_dw, a2,
                                                    g2, w + L.p_gz2, pa2, w + L.p_gy1, T, H, d);
@@ -950,17 +989,24 @@ int launch_bwd(const TcnBwdArgs* a, cudaStream_t s) {
   tcn_bwd_row_merge<S><<<B, kThreads, 0, s>>>(w + L.p_gy1, L.tiles, a->stats, 0, g1,
                                               w + L.dgb1_rows, w + L.fold1, H, inv_n);
   TCN_LAUNCHED();
-  // z1 becomes gz1
+  // z1 becomes gz1 (the bf16 route: bf16 gz1 in gy2's room)
   tcn_bwd_gz1<kVec, S><<<ew, kThreads, 0, s>>>(w + L.gy1, w + L.z1, a->stats, w + L.fold1, a1,
-                                               g1, w + L.p_gz1, pa1, T, H);
+                                               g1, w + L.p_gz1, pa1, gz1b, ld, T, H);
   TCN_LAUNCHED();
-  tcn_bwd_dx_gemm<kVec, S><<<dim3(L.gtiles, cdiv(C, kGM), B), kGemmThreads, 0, s>>>(
-      w + L.z1, w_in, g_res, static_cast<S*>(a->dx), T, H, C);
-  TCN_LAUNCHED();
-  tcn_bwd_win_gemm<kVec, S><<<dim3(cdiv(H, kGM), cdiv(C, kGM), B * L.win.chunks), kGemmThreads,
-                              0, s>>>(w + L.z1, x, w + L.p_win, T, H, C, L.win.chunks,
-                                      L.win.chunk);
-  TCN_LAUNCHED();
+  if constexpr (kBf) {
+    err = tcn_bf16::dx(gz1b, w_in, g_res, static_cast<S*>(a->dx), B, T, H, C, s);
+    if (err || (err = tcn_bf16::win(gz1b, x, w + L.p_win, B, T, H, C, L.win.chunks,
+                                    L.win.chunk, s)))
+      return err;
+  } else {
+    tcn_bwd_dx_gemm<kVec><<<dim3(L.gtiles, cdiv(C, kGM), B), kGemmThreads, 0, s>>>(
+        w + L.z1, w_in, g_res, static_cast<S*>(a->dx), T, H, C);
+    TCN_LAUNCHED();
+    tcn_bwd_win_gemm<kVec>
+        <<<dim3(cdiv(H, kGM), cdiv(C, kGM), B * L.win.chunks), kGemmThreads, 0, s>>>(
+            w + L.z1, x, w + L.p_win, T, H, C, L.win.chunks, L.win.chunk);
+    TCN_LAUNCHED();
+  }
 
   const int bt = B * L.tiles, bta = B * L.tiles * L.ctiles;
   S* da = static_cast<S*>(a->da);
@@ -1022,19 +1068,16 @@ int tcn_block_bwd(const TcnBwdArgs* a, void* stream) {
 int tcn_bwd_z1(const void* x, const void* w_in, const void* b_in, float* z1, int B, int T,
                int C, int H, int bf16_io, void* stream) {
   if (!shape_ok(B, T, C, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto tag, auto vec) {
-    using S = decltype(tag);
-    tcn_bwd_z1_gemm<decltype(vec)::value, S><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const S*>(x), static_cast<const S*>(w_in), static_cast<const S*>(b_in), z1,
-        T, C, H);
-  };
-  const bool vec = vec_widths(C, H, 4);
   if (bf16_io)
-    vec ? go(bf16{}, std::true_type{}) : go(bf16{}, std::false_type{});
+    return tcn_bf16::z1(static_cast<const bf16*>(x), static_cast<const bf16*>(w_in),
+                        static_cast<const bf16*>(b_in), z1, B, T, C, H, s);
+  const dim3 grid(cdiv(T, kGM), cdiv(H, kGM), B);
+  auto in = [](const void* p) { return static_cast<const float*>(p); };
+  if (vec_widths(C, H, 4))
+    tcn_bwd_z1_gemm<true><<<grid, kGemmThreads, 0, s>>>(in(x), in(w_in), in(b_in), z1, T, C, H);
   else
-    vec ? go(float{}, std::true_type{}) : go(float{}, std::false_type{});
+    tcn_bwd_z1_gemm<false><<<grid, kGemmThreads, 0, s>>>(in(x), in(w_in), in(b_in), z1, T, C, H);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,15 +38,26 @@ class TcnBwdArgs(ctypes.Structure):
             'B', 'T', 'C', 'H', 'Cs', 'last', 'dilation', 'bf16_io')]
 
 
+class TcnFwdBf16Args(ctypes.Structure):
+    """``struct TcnFwdBf16Args`` of csrc/tcn_block.cu, field for field."""
+    _fields_ = [(name, _P) for name in (
+        'x', 'w_in', 'b_in', 'a1', 'g1', 'be1', 'w_dw', 'b_dw', 'a2', 'g2',
+        'be2', 'w_res', 'b_res', 'w_skip', 'b_skip', 'h1', 'part1', 'part2',
+        'stats', 'fb', 'h2', 'wf', 'res', 'skip')] + [(name, _I) for name in (
+            'B', 'T', 'C', 'H', 'Cs', 'last', 'dilation')] + [('eps', _F)]
+
+
 #: C entry points of csrc/*.cu: name -> (restype, argtypes)
 SIGNATURES = {
     'tcn_in_partials': (_I, [_I, _I]),
     'tcn_dw_partials': (_I, [_I, _I]),
     'brever_error_string': (ctypes.c_char_p, [_I]),
-    'tcn_in_gemm_prelu_stats': (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    'tcn_in_gemm_prelu_stats': (_I, [_P] * 6 + [_I] * 4 + [_P]),
     'tcn_row_stats': (_I, [_P, _I, _P, _I, _I, _F, _P]),
-    'tcn_dw_prelu_stats': (_I, [_P] * 9 + [_I] * 5 + [_P]),
-    'tcn_out_gemm': (_I, [_P] * 11 + [_I] * 7 + [_P]),
+    'tcn_dw_prelu_stats': (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    'tcn_out_gemm': (_I, [_P] * 11 + [_I] * 6 + [_P]),
+    'tcn_block_fwd_bf16': (_I, [ctypes.POINTER(TcnFwdBf16Args), _P]),
+    'tcn_bf16_ld': (_I, [_I]),
     'tcn_bwd_workspace': (ctypes.c_size_t, [_I] * 6),
     'tcn_bwd_plan': (_I, [_I] * 6 + [ctypes.POINTER(_I)]),
     'tcn_block_bwd': (_I, [ctypes.POINTER(TcnBwdArgs), _P]),

@@ -48,10 +48,15 @@ every sum in float32 at the Pallas kernel's rounding points (its forward
 and backward kernels': bf16 matmul operands, float32 intermediates and
 statistics, the gLN2 affine folded into bf16 output weights, bf16 h2 in
 the output products, gz1 rounded before dW_in and dx, parameter
-gradients summed in float32 and rounded at the end). Its plain twins,
-:func:`_fwd_plain_bf16` and :func:`_bwd_plain_bf16`, compute the same in
-float32 on the bf16 values on any device; a bfloat16 tensor on CUDA
-launches the bf16 kernels (never the float32 ones), and x, the
+gradients summed in float32 and rounded at the end). On the card its
+products run on the bf16 tensor cores (``csrc/tcn_block_bf16.cu``:
+``mma.sync`` with float32 accumulators; K1-bf16's depthwise stage too),
+the statistics and K2's elementwise stages are the float32 route's
+kernels on bf16 parameters, and h2 and gz1 cross device memory as bf16
+rows of :func:`bf16_ld` elements. Its plain
+twins, :func:`_fwd_plain_bf16` and :func:`_bwd_plain_bf16`, compute the
+same in float32 on the bf16 values on any device; a bfloat16 tensor on
+CUDA launches the bf16 kernels (never the float32 ones), and x, the
 parameters and the cotangents must share one dtype.
 """
 
@@ -69,8 +74,11 @@ _EPS = 1e-8
 #: least chunk of time steps
 _GEMM_TILE, _GEMM_SLICE, _EW_ROWS, _EW_COLS = 128, 16, 64, 128
 _SMS, _WG_MIN_CHUNK = 132, 256
-#: K1's depthwise tile (``kDwRows``, ``kDwCols`` of csrc/tcn_block.cu)
+#: K1's depthwise tile (``kDwRows``, ``kDwCols`` of csrc/tcn_common.cuh)
 _DW_ROWS, _DW_COLS = 32, 128
+#: the bf16 route's rows of h2, gz1 and the folded output weights: H
+#: rounded up to a multiple of this (``kLdBf16`` of csrc/tcn_block_bf16.cu)
+_LD_BF16 = 8
 
 
 def _cdiv(a, b):
@@ -90,14 +98,24 @@ def _split(batch, t_total, tiles):
     return _cdiv(t_total, chunk), chunk
 
 
+def bf16_ld(hidden):
+    """The bf16 route's row of h2, gz1 and the folded output weights at
+    hidden width H (elements), as ``tcn_bf16_ld`` gives it: H rounded up to
+    a multiple of 8, so that each row is whole 16-byte pieces."""
+    return _cdiv(hidden, _LD_BF16) * _LD_BF16
+
+
 def bwd_plan(batch, t_total, c_in, hidden, c_skip, last):
     """K2's plan at ``(B, T, C, H, Cs, last)``, as ``tcn_bwd_plan`` and
-    ``tcn_bwd_workspace`` of csrc/tcn_block_bwd.cu give it: the GEMMs' row
-    tiles a batch row (128 steps), the elementwise stages' tiles a batch row
-    (64 steps) and column tiles (128 channels), the output weight GEMM's
-    ([dW_res; dW_skip]) and the input weight GEMM's (dW_in) chunks and
-    steps a chunk, and the workspace in floats (z1, z2, gy2 and gy1 of
-    (B, T, H) and the partials, each buffer rounded up to 32 floats)."""
+    ``tcn_bwd_workspace`` of csrc/tcn_block_bwd.cu give it, on either route
+    (the bf16 route's tensor-core GEMMs take the same 128 x 128 tiles and
+    chunks): the GEMMs' row tiles a batch row (128 steps), the elementwise
+    stages' tiles a batch row (64 steps) and column tiles (128 channels),
+    the output weight GEMM's ([dW_res; dW_skip]) and the input weight GEMM's
+    (dW_in) chunks and steps a chunk, and the workspace in floats (z1, z2,
+    gy2 and gy1 of (B, T, H), gy2's and gy1's rooms also holding the bf16
+    route's (B, T, :func:`bf16_ld`) gz1 and h2, and the partials, each
+    buffer rounded up to 32 floats)."""
     n_res = 0 if last else c_in
     m_out = n_res + c_skip
     h_tiles = _cdiv(hidden, _GEMM_TILE)
@@ -108,7 +126,9 @@ def bwd_plan(batch, t_total, c_in, hidden, c_skip, last):
     gtiles, tiles = _cdiv(t_total, _GEMM_TILE), _cdiv(t_total, _EW_ROWS)
     ctiles = _cdiv(hidden, _EW_COLS)
     bt = batch * tiles
-    buffers = [batch * t_total * hidden] * 4 + [
+    bth = batch * t_total * hidden
+    room = max(bth, _cdiv(batch * t_total * bf16_ld(hidden), 2))
+    buffers = [bth, bth, room, room] + [
         batch * gtiles * 2 * hidden, 2 * batch, batch * 2 * hidden,
         bt * 4 * hidden, 2 * bt * ctiles, batch * out[0] * m_out * hidden,
         batch * out[0] * m_out, bt * 2 * hidden, 2 * batch,
@@ -123,8 +143,8 @@ def bwd_plan(batch, t_total, c_in, hidden, c_skip, last):
 def fwd_partials(t_total, hidden):
     """``(in, dw)``: the (count, mean, M2) partials a batch row that K1's
     input GEMM (one a 128 x 128 tile of (T, H)) and its depthwise stage
-    (one a 32 x 128 tile) write, as ``tcn_in_partials`` and
-    ``tcn_dw_partials`` of csrc/tcn_block.cu count them."""
+    (one a 32 x 128 tile) write on either route, as ``tcn_in_partials``
+    and ``tcn_dw_partials`` of csrc/tcn_block.cu count them."""
     return (_cdiv(t_total, _GEMM_TILE) * _cdiv(hidden, _GEMM_TILE),
             _cdiv(t_total, _DW_ROWS) * _cdiv(hidden, _DW_COLS))
 
@@ -493,7 +513,8 @@ _partials = {}
 
 def partials_info(t_total, hidden):
     """The library's K1 partial counts a batch row at ``(T, H)``; raises
-    where they are not :func:`fwd_partials`."""
+    where they are not :func:`fwd_partials`, or where the library's bf16
+    row at H is not :func:`bf16_ld`."""
     key = (t_total, hidden)
     if key not in _partials:
         lib = build.load_library()
@@ -504,6 +525,11 @@ def partials_info(t_total, hidden):
                 f'tcn_block: the library\'s partials at T={t_total} '
                 f'H={hidden} are {out}, the wrapper\'s '
                 f'{fwd_partials(t_total, hidden)}')
+        if lib.tcn_bf16_ld(hidden) != bf16_ld(hidden):
+            raise RuntimeError(
+                f'tcn_block: the library\'s bf16 row at H={hidden} is '
+                f'{lib.tcn_bf16_ld(hidden)}, the wrapper\'s '
+                f'{bf16_ld(hidden)}')
         _partials[key] = out
     return _partials[key]
 
@@ -511,28 +537,45 @@ def partials_info(t_total, hidden):
 def _launch(x, params, dilation, last):
     """The forward kernel: ``(res or None, skip, stats (B, 4))`` and the
     activations ``(h1, h2)`` it kept in device memory between its
-    launches (float32 on both routes; res and skip in x's dtype)."""
+    launches (h1 float32 on both routes; h2 float32, or on the bf16 route
+    bf16 rows of :func:`bf16_ld`; res and skip in x's dtype)."""
     x, *params = (_aligned(t) for t in (x, *params))
     (batch, t_total, c_in, hidden, c_skip), p = _block_pointers(
         x, params, dilation, last)
     device = x.device
     lib = build.load_library()
     n_part1, n_part2 = partials_info(t_total, hidden)
-    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         f32 = dict(dtype=torch.float32, device=device)
         io = dict(dtype=x.dtype, device=device)
         h1 = torch.empty(batch, t_total, hidden, **f32)
-        h2 = torch.empty(batch, t_total, hidden, **f32)
         part1 = torch.empty(batch, n_part1, 3, **f32)
         part2 = torch.empty(batch, n_part2, 3, **f32)
         stats = torch.empty(batch, 4, **f32)
         skip = torch.empty(batch, t_total, c_skip, **io)
         res = None if last else torch.empty(batch, t_total, c_in, **io)
+        if x.dtype == torch.bfloat16:
+            n_out = (0 if last else c_in) + c_skip
+            ld = bf16_ld(hidden)
+            h2 = torch.empty(batch, t_total, ld, **io)
+            wf = torch.empty(batch, n_out, ld, **io)
+            fb = torch.empty(batch, n_out, **f32)
+            args = build.TcnFwdBf16Args(
+                x=x.data_ptr(), h1=h1.data_ptr(), part1=part1.data_ptr(),
+                part2=part2.data_ptr(), stats=stats.data_ptr(),
+                fb=fb.data_ptr(), h2=h2.data_ptr(), wf=wf.data_ptr(),
+                res=None if last else res.data_ptr(), skip=skip.data_ptr(),
+                B=batch, T=t_total, C=c_in, H=hidden, Cs=c_skip,
+                last=int(last), dilation=dilation, eps=_EPS, **p)
+            build.check(lib, lib.tcn_block_fwd_bf16(ctypes.byref(args),
+                                                    stream),
+                        'tcn_block_fwd_bf16')
+            return (res, skip, stats), (h1, h2)
+        h2 = torch.empty(batch, t_total, hidden, **f32)
         build.check(lib, lib.tcn_in_gemm_prelu_stats(
             x.data_ptr(), p['w_in'], p['b_in'], p['a1'], h1.data_ptr(),
-            part1.data_ptr(), batch, t_total, c_in, hidden, bf16, stream),
+            part1.data_ptr(), batch, t_total, c_in, hidden, stream),
             'tcn_in_gemm_prelu_stats')
         build.check(lib, lib.tcn_row_stats(
             part1.data_ptr(), n_part1, stats.data_ptr(), 0, batch, _EPS,
@@ -540,7 +583,7 @@ def _launch(x, params, dilation, last):
         build.check(lib, lib.tcn_dw_prelu_stats(
             h1.data_ptr(), stats.data_ptr(), p['g1'], p['be1'], p['w_dw'],
             p['b_dw'], p['a2'], h2.data_ptr(), part2.data_ptr(), batch,
-            t_total, hidden, dilation, bf16, stream), 'tcn_dw_prelu_stats')
+            t_total, hidden, dilation, stream), 'tcn_dw_prelu_stats')
         build.check(lib, lib.tcn_row_stats(
             part2.data_ptr(), n_part2, stats.data_ptr(), 1, batch, _EPS,
             stream), 'tcn_row_stats')
@@ -548,7 +591,7 @@ def _launch(x, params, dilation, last):
             h2.data_ptr(), stats.data_ptr(), p['g2'], p['be2'], p['w_res'],
             p['b_res'], p['w_skip'], p['b_skip'], x.data_ptr(),
             None if last else res.data_ptr(), skip.data_ptr(), batch,
-            t_total, hidden, c_in, c_skip, int(last), bf16, stream),
+            t_total, hidden, c_in, c_skip, int(last), stream),
             'tcn_out_gemm')
     return (res, skip, stats), (h1, h2)
 

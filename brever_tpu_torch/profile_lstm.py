@@ -55,36 +55,37 @@ MMA_KERNELS = ('lstm_fwd_ring_mma', 'lstm_bwd_gates_mma', 'lstm_bwd_rscan_mma',
                'lstm_bwd_dx_mma', 'lstm_bwd_wgrad_mma')
 
 
-def mma_sass(library_path):
+def mma_sass(library_path, kernels=MMA_KERNELS):
     """``{kernel: n}``: the bf16 tensor-core instructions (``HMMA`` with
-    ``BF16`` operands) in the SASS of each of ``MMA_KERNELS``' template
-    instances in the built library (``cuobjdump -sass``), summed a kernel.
+    ``BF16`` operands) in the SASS of each of ``kernels``' template
+    instances in the built library (``cuobjdump -sass``), summed a kernel;
+    a kernel is named by a piece of its name (K3-bf16's and K4-bf16's by
+    default; ``profile_tcn_bwd.MMA_KERNELS``: K1-bf16's and K2-bf16's).
     Raises if a kernel is not in the library."""
-    from .bench_alu_dtype import cuobjdump
-    sass = subprocess.run([cuobjdump(), '-sass', library_path], check=True,
-                          capture_output=True, text=True).stdout
+    from .bench_alu_dtype import sass
     counts = {}
-    for block in sass.split('Function : ')[1:]:
+    for block in sass(library_path).split('Function : ')[1:]:
         name = block.split()[0]
-        kernel = next((k for k in MMA_KERNELS if k in name), None)
+        kernel = next((k for k in kernels if k in name), None)
         if kernel is not None:
             counts[kernel] = counts.get(kernel, 0) + sum(
                 op.startswith('HMMA') and 'BF16' in op
                 for op in re.findall(_OPCODE, block))
-    if set(counts) != set(MMA_KERNELS):
+    if set(counts) != set(kernels):
         raise AssertionError(f'{library_path} lacks '
-                             f'{sorted(set(MMA_KERNELS) - set(counts))}')
+                             f'{sorted(set(kernels) - set(counts))}')
     return counts
 
 
 def k4_parts(fn, calls=3):
     """Device ms a call of each of K4's launches (``K4_PARTS``; ``other``:
     the wrapper's copies and casts), from a ``torch.profiler`` trace of
-    ``calls`` calls of ``fn``. A profiler may lose some events in a process
-    that traced before, so a launch's ms is its mean over the launches the
-    trace holds times its launches a call, and ``other`` is the trace's sum
-    of the rest over the calls it holds, the most calls of a part's
-    launches. Raises if a launch is missing."""
+    ``calls`` calls of ``fn``. The profiler drops a trace's first device
+    events, more the longer the process has traced (``profile_trace_loss``),
+    so a launch's ms is its mean over the launches the trace holds times its
+    launches a call, and ``other`` is the trace's sum of the rest over the
+    calls it holds, the most calls of a part's launches. Raises RuntimeError
+    (lost device events) if the trace holds no launch of a part."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -103,7 +104,7 @@ def k4_parts(fn, calls=3):
             seen[part][0] += us / 1e3
             seen[part][1] += count
     if not all(n for _, n in seen.values()):
-        raise AssertionError(f'K4\'s trace misses a launch: {seen}')
+        raise RuntimeError(f'K4\'s trace lost device events: {seen}')
     parts = {part: seen[part][0] / seen[part][1] * per_call
              for part, _, per_call in K4_PARTS}
     parts['other'] = other / max(seen[part][1] / per_call

@@ -12,15 +12,19 @@ and ``--steps`` change B and T), for each dilation of ``--dilations``
   ``torch.profiler`` trace of ``--calls`` calls, and the launches a call.
 
 Random inputs and parameters from a numpy seed, as ``chip_smoke.py``
-makes them. Prints the card (``nvidia-smi`` name and power limit), a table
-and one JSON object.
+makes them. With ``--bf16`` it also counts the bf16 tensor-core products
+(``HMMA ... BF16``) in the SASS of K1-bf16's and K2-bf16's GEMM kernels in
+the built library (``profile_lstm.mma_sass`` over :data:`MMA_KERNELS`).
+Prints the card (``nvidia-smi`` name and power limit), a table and one
+JSON object.
 
     python -m brever_tpu_torch.profile_tcn_bwd [--dilations 1,128]
         [--batch 16] [--steps 3999] [--calls 5] [--forward] [--bf16]
 
-It calls only ``ops.tcn_block.tcn_block_fwd`` and ``tcn_block_bwd``, so it
-runs unchanged in a checkout of an earlier commit of the port: copy it into
-that tree's ``brever_tpu_torch/`` and run the two trees in turns.
+Without ``--bf16`` it calls only ``ops.tcn_block.tcn_block_fwd`` and
+``tcn_block_bwd``, so it runs unchanged in a checkout of an earlier commit
+of the port: copy it into that tree's ``brever_tpu_torch/`` and run the
+two trees in turns.
 """
 
 import argparse
@@ -31,8 +35,15 @@ import numpy as np
 import torch
 
 from .numerics import disable_tf32
+from .ops import build
 from .ops import tcn_block as tcn
 from .profile_enhance import _cuda_ms, _device_time
+
+#: K1-bf16's and K2-bf16's GEMM kernels (csrc/tcn_block_bf16.cu), by a piece
+#: of their names
+MMA_KERNELS = ('tcn_in_mma', 'tcn_out_mma', 'tcn_bwd_z1_mma',
+               'tcn_bwd_gy2_mma', 'tcn_bwd_wout_mma', 'tcn_bwd_dx_mma',
+               'tcn_bwd_win_mma')
 
 
 def block_inputs(rng, batch, t_total, device, c=128, h=512, cs=128):
@@ -129,6 +140,10 @@ def main():
         for name, ms in sorted(run['parts'].items(), key=lambda kv: -kv[1]):
             print(f'  {ms:8.3f}  {100 * ms / run["ms"]:5.1f} %  {name}',
                   flush=True)
+    if args.bf16:
+        from .profile_lstm import mma_sass
+        out['hmma_bf16'] = mma_sass(build.build(), MMA_KERNELS)
+        print(f'bf16 HMMA in the SASS: {out["hmma_bf16"]}', flush=True)
     print(json.dumps(out), flush=True)
 
 

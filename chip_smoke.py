@@ -831,7 +831,7 @@ def tfgridnet_phases(device, card):
     from brever_tpu_torch.checkpoint import load_checkpoint
     from brever_tpu_torch.models import ModelRegistry, count_params
     from brever_tpu_torch.ops import lstm_scan as lstm
-    from brever_tpu_torch.profile_lstm import K4_PARTS, k4_parts
+    from brever_tpu_torch.profile_lstm import k4_parts
     from brever_tpu_torch.profile_train import make_trainer
     from brever_tpu_torch.serve import EnhanceService
     out = {}
@@ -1041,8 +1041,8 @@ def tfgridnet_phases(device, card):
                                                        h, c, dh),
                 'plain': lambda: lstm.lstm_scan_x_bwd_plain(
                     x, w_ih, bias, w_hh, h, c, dh)}, 3, 1)[0]
-            parts = k4_parts(lambda: lstm.lstm_scan_x_bwd(
-                x, w_ih, bias, w_hh, h, c, dh))
+            parts = trace_or_none(lambda: k4_parts(
+                lambda: lstm.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c, dh)))
         # the library's yardstick: cuDNN's LSTM, both directions over the
         # same (T, R, E) input, forward and backward (data and weights)
         steps, n_dir, rows, feat, hidden = case
@@ -1107,8 +1107,7 @@ def tfgridnet_phases(device, card):
     k4 = []
     for label in ('intra', 'inter'):
         parts, plan = timing[label]['parts'], timing[label]['plan']
-        k4.append(f'{label} ' + ' '.join(f'{p} {parts[p]:.3f}'
-                                         for p, *_ in K4_PARTS)
+        k4.append(f'{label} ' + k4_split(parts)
                   + f' (cuDNN {timing[label]["lib_bwd"]:.3f}); scan '
                   f'{2 * plan["tiles"]} blocks of {plan["threads"]} threads, '
                   f'{plan["rows"]} rows, {plan["smem"]} B; weight GEMM '
@@ -4486,14 +4485,29 @@ BF16_F64_SLACK_DB = 0.5
 #: phase 54's cases: every dilation of the default model, and the last
 #: block (no residual) at 128
 BF16_CASES = [(2 ** i, False) for i in range(8)] + [(128, True)]
+#: phase 54's widths off the 128-grid and off the 8-element grid of a
+#: 16-byte bf16 piece (smoke phase 6's float32 widths): (B, T, d, last, C, H,
+#: Cs); and the unaligned-view case: (B, T, d, C, H, Cs)
+BF16_WIDTH_CASES = [(2, 300, 1, False, 36, 100, 20),
+                    (2, 129, 2, True, 32, 64, 32),
+                    (2, 300, 128, False, 36, 102, 20),
+                    (2, 77, 4, True, 130, 257, 21)]
+BF16_UNALIGNED = (2, 300, 4, 36, 102, 20)
 #: the default Conv-TasNet trained from its untouched config (phase 55):
 #: FLAC items of 1 s (train, val), epochs, validation period
 AMP_TRAIN = (8, 2, 8, 4)
-#: K1's and K2's kernels (names as the profiler gives them), and the
-#: launches of each in one call
-K1_KERNELS = {'tcn_in_gemm': 1, 'row_stats': 2, 'dw_prelu_stats': 1,
-              'tcn_out_gemm': 1}
+#: K1-bf16's and K2-bf16's kernels (names as the profiler gives them), and
+#: the launches of each in one call: K1-bf16's six, K2-bf16's eleven
+#: (``tcn_bwd_*``), one of them each of its five tensor-core GEMMs
+K1_KERNELS = {'tcn_in_mma': 1, 'row_stats': 2, 'dw_prelu_stats': 1,
+              'tcn_fold_w': 1, 'tcn_out_mma': 1}
 K2_KERNELS = 11
+K2_MMA = ('tcn_bwd_z1_mma', 'tcn_bwd_gy2_mma', 'tcn_bwd_wout_mma',
+          'tcn_bwd_dx_mma', 'tcn_bwd_win_mma')
+#: K1-bf16's and K2-bf16's times a call at d=1 on the earlier SIMT design
+#: (float32 FMAs on bf16 loads), which phase 54 prints beside this run's
+#: (PERF.md's K1 and K2 rows, NVIDIA H100 80GB HBM3 at 700 W)
+BF16_SIMT_MS = (1.074, 2.363)
 #: the card's dense bf16 tensor-core rate (H100 SXM, NVIDIA's data sheet),
 #: against which the bf16 route's bound is taken
 BF16_FLOPS = 989e12
@@ -4561,9 +4575,10 @@ def bf16_trace():
 
 def traced_kernels(run):
     """The kernels the traced K1-bf16 and K2-bf16 calls of ``run`` launched;
-    fails unless each launched only its own kernels, K1's five and K2's
-    eleven ``tcn_bwd_*``, the templated ones at ``__nv_bfloat16`` where the
-    profiler gives template arguments. Stops the process in any case."""
+    fails unless each launched only its own kernels, K1's six and K2's
+    eleven ``tcn_bwd_*`` (each of its five tensor-core GEMMs once), the
+    templated ones at ``__nv_bfloat16`` where the profiler gives template
+    arguments. Stops the process in any case."""
     try:
         stdout, stderr = run.communicate(timeout=600)
     finally:
@@ -4577,16 +4592,17 @@ def traced_kernels(run):
              and 'row_stats' not in n and 'row_merge' not in n]
     if counts != K1_KERNELS or len(k1) != sum(K1_KERNELS.values()) \
             or len(k2) != K2_KERNELS or not all('tcn_bwd_' in n for n in k2) \
-            or wrong:
+            or any(sum(k in n for n in k2) != 1 for k in K2_MMA) or wrong:
         raise AssertionError(f'K1-bf16 launched {k1}; K2-bf16 {k2}')
     return traced
 
 
 def trace_or_none(fn, tries=3):
     """``fn()``, a breakdown read from a profiler trace, or None where the
-    profiler recorded no device activity in ``tries`` traces (seen after
-    many traces in one process; the numbers it gives are extras, the checks
-    of phases 54-57 do not read a trace)."""
+    profiler dropped the device events it needs in ``tries`` traces (it
+    drops a trace's first milliseconds, a span that grows with the time
+    since the process's first trace: ``profile_trace_loss``; the
+    breakdowns it guards are extras that no check reads)."""
     for _ in range(tries):
         try:
             return fn()
@@ -4595,6 +4611,63 @@ def trace_or_none(fn, tries=3):
                     and 'lost device events' not in str(e):
                 raise
     return None
+
+
+#: phase 54's launch splits (``profile_tcn_bwd.profile``) of K2-bf16 and
+#: K1-bf16 at B=16 T=3999 d=1, traced in a fresh interpreter: the
+#: profiler drops more of a trace's start the longer the process has
+#: traced (``profile_trace_loss``); a split whose traces lost device
+#: events is None
+TCN_BF16_PARTS_RUN = """
+import json
+import torch
+from brever_tpu_torch import profile_tcn_bwd
+from brever_tpu_torch.numerics import disable_tf32
+
+disable_tf32()
+out = {}
+for key in ('k2', 'k1'):
+    try:
+        out[key] = profile_tcn_bwd.profile(1, calls=3, forward=key == 'k1',
+                                           dtype=torch.bfloat16)
+    except RuntimeError as e:
+        if 'lost device events' not in str(e) \\
+                and 'no device activity' not in str(e):
+            raise
+        out[key] = None
+print(json.dumps(out))
+"""
+
+
+def bf16_parts():
+    """Starts :data:`TCN_BF16_PARTS_RUN` (the process:
+    :func:`bf16_parts_read` waits for it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, '-c', TCN_BF16_PARTS_RUN],
+                            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def bf16_parts_read(run):
+    """``{'k1', 'k2'}`` of ``run``: ``profile_tcn_bwd.profile``'s ``{'ms',
+    'launches', 'parts'}``, or None. Stops the process in any case."""
+    try:
+        stdout, stderr = run.communicate(timeout=600)
+    finally:
+        run.kill()
+    if run.returncode:
+        raise AssertionError(f'K1/K2-bf16 splits: {stderr[-3000:]}')
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def k4_split(parts):
+    """K4's launch split (``profile_lstm.k4_parts``) as text, or a note
+    where its traces lost their device events (None)."""
+    from brever_tpu_torch.profile_lstm import K4_PARTS
+    if parts is None:
+        return 'launches not traced (the profiler lost device events)'
+    return ' '.join(f'{p} {parts[p]:.3f}' for p, *_ in K4_PARTS)
 
 
 def bf16_check(name, got, twin, exact):
@@ -4608,8 +4681,9 @@ def bf16_check(name, got, twin, exact):
     if not torch.isfinite(got).all():
         raise AssertionError(f'{name}: not finite')
 
-    def db(a, b):
-        return snr_db(b.cpu().numpy(), a.cpu().numpy())
+    def db(a, b):   # snr_db(b, a), on the card
+        return (10 * torch.log10((b ** 2).sum() / ((b - a) ** 2).sum()
+                                 .clamp_min(1e-300))).item()
 
     vs_twin, vs_exact, twin_exact = db(got, twin), db(got, exact), \
         db(twin, exact)
@@ -4627,6 +4701,112 @@ def bf16_check(name, got, twin, exact):
     return vs_twin, vs_exact, twin_exact
 
 
+def bf16_block_case(tcn, rng, gen, batch, t_total, dilation, last, c, h, cs):
+    """One phase-54 case: K1-bf16 and K2-bf16 at (B, T, d, last, C, H, Cs)
+    against the bf16 twins and float64 (:func:`bf16_check`), two runs of
+    each bitwise equal, K2's recomputed z1 bitwise K1's. Returns (worst SNR
+    vs the twin, worst dB under the twin's SNR vs float64 of a tensor of
+    more than one element, max abs err of the outputs, of the
+    gradients)."""
+    bf = torch.bfloat16
+
+    def cast(t, dtype=bf):
+        return None if t is None else t.to(dtype)
+
+    x, params = block_inputs(rng, batch, t_total, c=c, h=h, cs=cs)
+    x, params = cast(x), [cast(p) for p in params]
+    if last:
+        params[10] = params[11] = None
+    g_skip = cast(torch.randn(batch, t_total, cs, generator=gen,
+                              device=x.device))
+    g_res = None if last else cast(torch.randn(
+        batch, t_total, c, generator=gen, device=x.device))
+    wide = [cast(p, torch.float64) for p in params]
+    worst_twin, worst_gap, out_err, bwd_err = float('inf'), -float('inf'), \
+        0.0, 0.0
+    label = f'K1-bf16 B={batch} T={t_total} C/H/Cs {c}/{h}/{cs} d={dilation} ' \
+        f'last={last}'
+    with torch.no_grad():
+        (res, skip, stats), act = tcn._launch(x, params, dilation, last)
+        (res2, skip2, _), _ = tcn._launch(x, params, dilation, last)
+        twin = tcn.tcn_block_fwd_plain(x, params, dilation, last)
+        exact = tcn.tcn_block_fwd_plain(cast(x, torch.float64), wide,
+                                        dilation, last)
+        z1 = tcn.recompute_z1(x, params)
+    if not torch.equal(skip, skip2) or (not last
+                                        and not torch.equal(res, res2)):
+        raise AssertionError(f'{label}: two runs differ')
+    if not torch.equal(torch.where(z1 >= 0, z1, params[2].float() * z1),
+                       act[0]):
+        raise AssertionError(f'{label}: K2\'s z1 is not K1\'s')
+    del z1, act
+    outs = [('skip', skip, twin[1], exact[1])]
+    if not last:
+        outs.append(('res', res, twin[0], exact[0]))
+    for part, got, want, ref in outs:
+        vs_twin, vs_exact, twin_exact = bf16_check(
+            f'{label} {part}', got, want, ref)
+        worst_twin = min(worst_twin, vs_twin)
+        worst_gap = max(worst_gap, twin_exact - vs_exact)
+        out_err = max(out_err, (got.double() - want.double()).abs()
+                      .max().item())
+    del res2, skip2, twin, exact
+    label = 'K2' + label[2:]
+    dx, dparams = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip,
+                                    dilation, last)
+    again = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation,
+                              last)
+    for got, rerun in zip((dx,) + dparams, (again[0],) + again[1]):
+        if got is not None and not torch.equal(got, rerun):
+            raise AssertionError(f'{label}: two runs differ')
+    del again
+    twin = tcn.tcn_block_bwd_plain(x, params, g_res, g_skip, dilation, last)
+    exact = tcn.tcn_block_bwd_plain(cast(x, torch.float64), wide,
+                                    cast(g_res, torch.float64),
+                                    cast(g_skip, torch.float64),
+                                    dilation, last)
+    for part, got, want, ref in zip(GRAD_NAMES, (dx,) + dparams,
+                                    (twin[0],) + twin[1],
+                                    (exact[0],) + exact[1]):
+        if got is None:
+            continue
+        vs_twin, vs_exact, twin_exact = bf16_check(
+            f'{label} {part}', got, want, ref)
+        worst_twin = min(worst_twin, vs_twin)
+        if got.numel() > 1:  # a single number is held to one ulp instead
+            worst_gap = max(worst_gap, twin_exact - vs_exact)
+        bwd_err = max(bwd_err, (got.double() - want.double()).abs()
+                      .max().item())
+    return worst_twin, worst_gap, out_err, bwd_err
+
+
+def bf16_unaligned(tcn, gen, batch, t_total, dilation, c, h, cs):
+    """K1-bf16 and K2-bf16 with x, the cotangents and every parameter as
+    bf16 views that are not 16-byte aligned (as the amp cast's views of one
+    buffer may be) give the aligned inputs' bits."""
+    bf = torch.bfloat16
+    x, params = block_inputs(np.random.RandomState(541), batch, t_total, c=c,
+                             h=h, cs=cs)
+    x, params = x.to(bf), [p.to(bf) for p in params]
+    g_res, g_skip = (torch.randn(batch, t_total, n, generator=gen,
+                                 device=x.device).to(bf) for n in (c, cs))
+    moved = [offset_view(t) for t in (x, g_res, g_skip, *params)]
+    if not all(t.data_ptr() % 16 for t in moved):
+        raise AssertionError('bf16 offset views are aligned')
+    with torch.no_grad():
+        want = tcn.tcn_block_fwd(x, params, dilation, False)
+        got = tcn.tcn_block_fwd(moved[0], moved[3:], dilation, False)
+    grads = tcn.tcn_block_bwd(x, params, want[2], g_res, g_skip, dilation,
+                              False)
+    moved_grads = tcn.tcn_block_bwd(moved[0], moved[3:], want[2], moved[1],
+                                    moved[2], dilation, False)
+    pairs = list(zip(want, got)) + [(grads[0], moved_grads[0])] \
+        + list(zip(grads[1], moved_grads[1]))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError('K1-bf16/K2-bf16 on unaligned bf16 views differ '
+                             'from the aligned inputs')
+
+
 def amp_phases(device, card):
     """Phases 54-57: K1-bf16 and K2-bf16 against their twin and float64,
     their launches traced, the default Conv-TasNet trained under bf16 amp
@@ -4635,6 +4815,8 @@ def amp_phases(device, card):
     import brever_tpu_torch.ops.tcn_block as tcn
     from brever_tpu_torch import profile_tcn_bwd, profile_train
     from brever_tpu_torch.models import count_params
+    from brever_tpu_torch.ops import build
+    from brever_tpu_torch.profile_lstm import mma_sass
     from brever_tpu_torch.profile_train import make_trainer
     bf = torch.bfloat16
 
@@ -4646,69 +4828,12 @@ def amp_phases(device, card):
     gen = torch.Generator(device=device).manual_seed(54)
     worst_twin, worst_gap = float('inf'), -float('inf')
     out_err = bwd_err = 0.0
-    for dilation, last in BF16_CASES:
-        x, params = block_inputs(rng, 16, 3999)
-        x, params = cast(x), [cast(p) for p in params]
-        if last:
-            params[10] = params[11] = None
-        g_skip = cast(torch.randn(16, 3999, 128, generator=gen,
-                                  device=device))
-        g_res = None if last else cast(torch.randn(
-            16, 3999, 128, generator=gen, device=device))
-        wide = [cast(p, torch.float64) for p in params]
-        label = f'K1-bf16 d={dilation} last={last}'
-        with torch.no_grad():
-            (res, skip, stats), act = tcn._launch(x, params, dilation, last)
-            (res2, skip2, _), _ = tcn._launch(x, params, dilation, last)
-            twin = tcn.tcn_block_fwd_plain(x, params, dilation, last)
-            exact = tcn.tcn_block_fwd_plain(cast(x, torch.float64), wide,
-                                            dilation, last)
-            z1 = tcn.recompute_z1(x, params)
-        if not torch.equal(skip, skip2) or (not last
-                                            and not torch.equal(res, res2)):
-            raise AssertionError(f'{label}: two runs differ')
-        if not torch.equal(torch.where(z1 >= 0, z1, params[2].float() * z1),
-                           act[0]):
-            raise AssertionError(f'{label}: K2\'s z1 is not K1\'s')
-        del z1, act
-        outs = [('skip', skip, twin[1], exact[1])]
-        if not last:
-            outs.append(('res', res, twin[0], exact[0]))
-        for part, got, want, ref in outs:
-            vs_twin, vs_exact, twin_exact = bf16_check(
-                f'{label} {part}', got, want, ref)
-            worst_twin = min(worst_twin, vs_twin)
-            worst_gap = max(worst_gap, twin_exact - vs_exact)
-            out_err = max(out_err, (got.double() - want.double()).abs()
-                          .max().item())
-        del res2, skip2, twin, exact
-        label = f'K2-bf16 d={dilation} last={last}'
-        dx, dparams = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip,
-                                        dilation, last)
-        again = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation,
-                                  last)
-        for got, rerun in zip((dx,) + dparams, (again[0],) + again[1]):
-            if got is not None and not torch.equal(got, rerun):
-                raise AssertionError(f'{label}: two runs differ')
-        del again
-        twin = tcn.tcn_block_bwd_plain(x, params, g_res, g_skip, dilation,
-                                       last)
-        exact = tcn.tcn_block_bwd_plain(cast(x, torch.float64), wide,
-                                        cast(g_res, torch.float64),
-                                        cast(g_skip, torch.float64),
-                                        dilation, last)
-        for part, got, want, ref in zip(GRAD_NAMES, (dx,) + dparams,
-                                        (twin[0],) + twin[1],
-                                        (exact[0],) + exact[1]):
-            if got is None:
-                continue
-            vs_twin, vs_exact, twin_exact = bf16_check(
-                f'{label} {part}', got, want, ref)
-            worst_twin = min(worst_twin, vs_twin)
-            worst_gap = max(worst_gap, twin_exact - vs_exact)
-            bwd_err = max(bwd_err, (got.double() - want.double()).abs()
-                          .max().item())
-        del dx, dparams, twin, exact
+    for case in [(16, 3999, d, last, 128, 512, 128) for d, last in BF16_CASES] \
+            + BF16_WIDTH_CASES:
+        got = bf16_block_case(tcn, rng, gen, *case)
+        worst_twin, worst_gap = min(worst_twin, got[0]), max(worst_gap, got[1])
+        out_err, bwd_err = max(out_err, got[2]), max(bwd_err, got[3])
+    bf16_unaligned(tcn, gen, *BF16_UNALIGNED)
     torch.cuda.empty_cache()
     # times at B=16 T=3999 d=1, kernel and twin in turns, and each launch
     x, params = block_inputs(np.random.RandomState(4), 16, 3999)
@@ -4726,12 +4851,30 @@ def amp_phases(device, card):
                                             1, False),
         'plain': lambda: tcn.tcn_block_bwd_plain(x, params, g_res, g_skip,
                                                  1, False)}, 5, 2)[0]
+    # z1 on the tensor cores and by cuBLAS in float32 (TF32 off) against
+    # float64: the mean error signed by z1, a drift toward zero where < 0
+    with torch.no_grad():
+        z_64 = torch.nn.functional.linear(x.double(), params[0].double(),
+                                          params[1].double())
+        drift = {name: ((z.double() - z_64) * z_64.sign()).mean().item()
+                 for name, z in (
+                     ('tensor cores', tcn.recompute_z1(x, params)),
+                     ('cuBLAS', torch.nn.functional.linear(
+                         x.float(), params[0].float(), params[1].float())))}
+        del z_64
     del x, params, g_res, g_skip, stats
-    parts = {'k1': trace_or_none(lambda: profile_tcn_bwd.profile(
-                 1, calls=3, forward=True, dtype=bf)),
-             'k2': trace_or_none(lambda: profile_tcn_bwd.profile(
-                 1, calls=3, dtype=bf))}
     torch.cuda.empty_cache()
+    # the splits in a fresh interpreter while this one reads the SASS: every
+    # tensor-core GEMM of K1-bf16 and K2-bf16 holds bf16 HMMA
+    tracer = bf16_parts()
+    try:
+        hmma = mma_sass(build.build(), profile_tcn_bwd.MMA_KERNELS)
+    except BaseException:
+        tracer.kill()
+        raise
+    parts = bf16_parts_read(tracer)
+    if not all(hmma.values()):
+        raise AssertionError(f'K1-bf16/K2-bf16 SASS without bf16 HMMA: {hmma}')
 
     def parts_line(key):
         run = parts[key]
@@ -4743,17 +4886,25 @@ def amp_phases(device, card):
                                                 key=lambda kv: -kv[1])))
 
     phase(54, f'{len(BF16_CASES)} bf16 block cases at B=16 T=3999 '
-          f'C/H/Cs 128/512/128 (d 1..128, the last block at 128): K1-bf16 '
-          f'res/skip and K2-bf16 dx and every bf16 parameter gradient agree '
-          f'with the bf16 plain twin on the card (worst SNR '
+          f'C/H/Cs 128/512/128 (d 1..128, the last block at 128) and '
+          f'{len(BF16_WIDTH_CASES)} at C/H/Cs '
+          + ', '.join('{}/{}/{}'.format(*w[4:]) for w in BF16_WIDTH_CASES)
+          + ': K1-bf16 res/skip and K2-bf16 dx and every bf16 parameter '
+          f'gradient agree with the bf16 plain twin on the card (worst SNR '
           f'{worst_twin:.1f} dB >= {BF16_TWIN_DB}; max abs err outputs '
-          f'{out_err:.3e}, gradients {bwd_err:.3e}) and are no farther from float64 than the twin '
-          f'(at most {worst_gap:.2f} dB under it, <= {BF16_F64_SLACK_DB}); '
-          f'two runs bitwise equal; K2\'s z1 bitwise K1\'s; [{card}] d=1 '
-          f'kernel/twin ms: K1-bf16 {fwd_ms["kernel"]:.3f}/'
+          f'{out_err:.3e}, gradients {bwd_err:.3e}) and are no farther from '
+          f'float64 than the twin (a tensor at most {worst_gap:.2f} dB under '
+          f'it, <= {BF16_F64_SLACK_DB}; a PReLU slope within a bf16 ulp); two '
+          f'runs bitwise equal; K2\'s z1 bitwise K1\'s; unaligned bf16 views '
+          f'give the aligned bits; bf16 HMMA in the SASS of each tensor-core '
+          f'GEMM ({", ".join(f"{k} {n}" for k, n in hmma.items())}); [{card}] '
+          f'd=1 kernel/twin ms: K1-bf16 {fwd_ms["kernel"]:.3f}/'
           f'{fwd_ms["plain"]:.3f}, K2-bf16 {bwd_ms["kernel"]:.3f}/'
-          f'{bwd_ms["plain"]:.3f}; K1-bf16 {parts_line("k1")}; K2-bf16 '
-          f'{parts_line("k2")}')
+          f'{bwd_ms["plain"]:.3f} (the SIMT design\'s: '
+          f'{BF16_SIMT_MS[0]}/{BF16_SIMT_MS[1]}); K1-bf16 {parts_line("k1")}; '
+          f'K2-bf16 {parts_line("k2")}; z1\'s mean error signed by z1 '
+          'against float64: ' + ', '.join(f'{k} {v:.2e}'
+                                          for k, v in drift.items()))
 
     # ---- phase 55: train.main from the untouched default config on FLAC,
     # while a fresh interpreter traces a K1-bf16 and a K2-bf16 call
@@ -4812,7 +4963,8 @@ def amp_phases(device, card):
           f'{step_peak["plain"] / 2 ** 20:.0f} MiB), in turns; amp step '
           f'{traced_step}')
     return {'launches': (train['k1_bf16'], train['k2_bf16']),
-            'fwd_ms': fwd_ms, 'bwd_ms': bwd_ms, 'parts': parts,
+            'fwd_ms': fwd_ms, 'bwd_ms': bwd_ms, 'parts': parts, 'hmma': hmma,
+            'z1_drift': drift,
             'out_err': out_err, 'bwd_err': bwd_err,
             'worst_twin_db': worst_twin, 'step_ms': step_ms,
             'step_peak': step_peak, 'k1_step': k1_step, 'k2_step': k2_step,
@@ -5008,7 +5160,7 @@ def lstm_amp_phases(device, card):
     from brever_tpu_torch import profile_train
     from brever_tpu_torch.ops import build
     from brever_tpu_torch.ops import lstm_scan as L
-    from brever_tpu_torch.profile_lstm import (K4_PARTS, inputs, k4_parts,
+    from brever_tpu_torch.profile_lstm import (inputs, k4_parts,
                                                library_ms, mma_sass)
     from brever_tpu_torch.profile_train import make_trainer
     bf = torch.bfloat16
@@ -5084,8 +5236,9 @@ def lstm_amp_phases(device, card):
                         'plain': lambda: L.lstm_scan_x_bwd_plain(
                             x, w_ih, bias, w_hh, h, c, dh)}, 2, 1)[0]
                     # K4-bf16 launch by launch (a profiler trace)
-                    parts = k4_parts(lambda: L.lstm_scan_x_bwd(
-                        x, w_ih, bias, w_hh, h, c, dh))
+                    parts = trace_or_none(lambda: k4_parts(
+                        lambda: L.lstm_scan_x_bwd(x, w_ih, bias, w_hh, h, c,
+                                                  dh)))
                 lib_fwd, lib_bwd = library_ms(x, feat, hidden, 3)
                 # bf16 bounds: the float32 route's operations at the bf16
                 # tensor-core rate, 2 bytes an element (the weight
@@ -5157,10 +5310,8 @@ def lstm_amp_phases(device, card):
             return 'n/a' if t[key] is None else f'{t[key]:.3f}'
 
         t3, t5 = timing['intra'], timing['dccrn']
-        split = '; '.join(
-            f'{w} ' + ' '.join(f'{p} {timing[w]["parts"][p]:.3f}'
-                               for p, *_ in K4_PARTS)
-            for w in ('intra', 'inter'))
+        split = '; '.join(f'{w} ' + k4_split(timing[w]['parts'])
+                          for w in ('intra', 'inter'))
         phase(58, f'{len(LSTM_BF16_X_CASES)} K3/K4 and '
               f'{len(LSTM_BF16_SCAN_CASES)} K5/K6 bf16 cases (TF-GridNet '
               f'intra {LSTM_INTRA} and inter {LSTM_INTER}, H=32 and 256 at '
@@ -6582,19 +6733,33 @@ def main():
     shape = 'B=16 T=3999 C=128 H=512 Cs=128'
     # K1's bound: its three GEMMs (C->H, H->C and H->Cs) and the depthwise
     # taps; bytes of x in, the residual and skip out and the parameters.
-    # K2 recomputes the forward's products and takes dX and dW of each
+    # K2 does not recompute the output product: its products are z1
+    # (C->H), gy2 ((C+Cs)->H), [dW_res; dW_skip], dx and dW_in, beside the
+    # depthwise taps of z2 and of their two gradients
     rows, c, h, cs = 16 * 3999, 128, 512, 128
     tcn_flops = 2 * rows * (c * h + h * (c + cs) + 3 * h)
+    k2_flops = 2 * rows * h * (3 * c + 2 * (c + cs)) + 3 * 2 * rows * 3 * h
     tcn_weights = c * h + h * (c + cs) + 12 * h + c + cs
     k1_bound = bound(tcn_flops, 4 * (rows * (2 * c + cs) + tcn_weights))
-    k2_bound = bound(3 * tcn_flops, 4 * (rows * (3 * c + cs)
-                                         + 2 * tcn_weights))
+    k2_bound = bound(k2_flops, 4 * (rows * (3 * c + cs) + 2 * tcn_weights))
     # the bf16 route: the same operations at the card's bf16 tensor-core
     # rate, 2 bytes an element (the parameter gradients too)
     k1_bf16_bound = bound(tcn_flops, 2 * (rows * (2 * c + cs) + tcn_weights),
                           BF16_FLOPS)
-    k2_bf16_bound = bound(3 * tcn_flops, 2 * (rows * (3 * c + cs)
-                                              + 2 * tcn_weights), BF16_FLOPS)
+    k2_bf16_bound = bound(k2_flops, 2 * (rows * (3 * c + cs)
+                                         + 2 * tcn_weights), BF16_FLOPS)
+    # the bf16 design's own intermediates, each written once and read once
+    # by each launch that takes it: K1-bf16's h1 (float32) and h2 (bf16);
+    # K2-bf16's z1 (read 3 times), z2 (2), gy2, gy1 (float32), h2 (bf16)
+    # and gz1 (bf16, read twice)
+    k1_inter_ms = 1e3 * rows * h * (2 * 4 + 2 * 2) / HBM_BYTES_PER_S
+    k2_inter_ms = 1e3 * rows * h * ((4 + 3 + 2 + 2) * 4
+                                    + (2 + 3) * 2) / HBM_BYTES_PER_S
+    bf16_bound_note = ('bytes at 3.35 TB/s, operations at the bf16 '
+                       'tensor-core rate of 989 TFLOP/s; the design\'s own '
+                       'intermediates (each written once, read once by each '
+                       'launch that takes them) would take {:.4f} ms at '
+                       '3.35 TB/s')
     lstm_t = grid['timing']['intra']
     gn_big = sgm['largest']
     scan_t, scan_t1 = dcc['timing']['layer0'], dcc['timing']['layer1']
@@ -6639,8 +6804,13 @@ def main():
     }, {
         'name': 'tcn_block_fwd_bf16',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/tcn_block.cu',
+        'source': 'brever_tpu_torch/csrc/tcn_block_bf16.cu',
+        'sources': ['brever_tpu_torch/csrc/tcn_block_bf16.cu',
+                    'brever_tpu_torch/csrc/tcn_block.cu'],
         'replaces': 'brever_tpu/ops/pallas/tcn_block.py:481',
+        'instruction': 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32',
+        'hmma_bf16_sass': {k: n for k, n in amp['hmma'].items()
+                           if k in K1_KERNELS},
         'launches': amp['launches'][0],
         'max_abs_err': amp['out_err'],
         'ms': amp['fwd_ms']['kernel'],
@@ -6652,16 +6822,21 @@ def main():
         and amp['parts']['k1']['launches'],
         'bound_ms': k1_bf16_bound[0],
         'bound_by': k1_bf16_bound[1],
-        'bound_note': 'bytes at 3.35 TB/s, operations at the bf16 '
-                      'tensor-core rate of 989 TFLOP/s',
+        'bound_note': bf16_bound_note.format(k1_inter_ms),
+        'z1_signed_err_vs_f64': amp['z1_drift'],
         'library_ms': None,
         'shape': shape + ' bf16',
         'amp_step_k1_ms': amp['k1_step'],
     }, {
         'name': 'tcn_block_bwd_bf16',
         'route': 'cuda',
-        'source': 'brever_tpu_torch/csrc/tcn_block_bwd.cu',
+        'source': 'brever_tpu_torch/csrc/tcn_block_bf16.cu',
+        'sources': ['brever_tpu_torch/csrc/tcn_block_bf16.cu',
+                    'brever_tpu_torch/csrc/tcn_block_bwd.cu'],
         'replaces': 'brever_tpu/ops/pallas/tcn_block.py:665',
+        'instruction': 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32',
+        'hmma_bf16_sass': {k: n for k, n in amp['hmma'].items()
+                           if k in K2_MMA},
         'launches': amp['launches'][1],
         'max_abs_err': amp['bwd_err'],
         'worst_snr_vs_twin_db': amp['worst_twin_db'],
@@ -6672,6 +6847,7 @@ def main():
         and amp['parts']['k2']['launches'],
         'bound_ms': k2_bf16_bound[0],
         'bound_by': k2_bf16_bound[1],
+        'bound_note': bf16_bound_note.format(k2_inter_ms),
         'library_ms': None,
         'shape': shape + ' bf16',
         'amp_step_k2_ms': amp['k2_step'],

@@ -33,6 +33,9 @@ from the twin (the kernels sum their products in another order, which may
 flip a bf16 rounding) and no farther from float64 than the twin by more
 than 0.5 dB; two runs, and K4-bf16's recomputed gates and K3-bf16's,
 bitwise equal; the SASS holds bf16 HMMA in each of their kernels.
+K1-bf16 and K2-bf16 the same way, at least 40 dB from their twins (at
+Conv-TasNet's widths and off the 128- and 8-element grids), K2-bf16's z1
+bitwise K1-bf16's, unaligned bf16 views bitwise the aligned inputs.
 
 The gates-in LSTM scan kernels (K5, K6) the same way as K3 and K4: the
 forward in float32 at atol 1e-5, rtol 1e-4, the backward against the plain
@@ -819,6 +822,150 @@ def test_bf16_lstm_kernels_run_on_the_tensor_cores(device):
     from brever_tpu_torch.profile_lstm import mma_sass
     counts = mma_sass(build.build())
     assert all(n > 0 for n in counts.values()), counts
+
+
+# K1-bf16 and K2-bf16 (the tensor-core route) against their bf16 twins:
+# (B, T, d, last, C, H, Cs) at Conv-TasNet's widths (d = 1, and the last
+# block at d = 128) and at the float32 route's widths off the 128-grid and
+# off the 8-element grid of a bf16 cp.async piece
+BF16_TCN_CASES = [(16, 3999, 1, False, 128, 512, 128),
+                  (16, 3999, 128, True, 128, 512, 128),
+                  (2, 300, 1, False, 36, 100, 20), (2, 129, 2, True, 32, 64, 32),
+                  (2, 300, 128, False, 36, 102, 20),
+                  (2, 77, 4, True, 130, 257, 21)]
+#: each bf16 output and gradient against its twin, SNR at least (dB)
+BF16_TCN_TWIN_DB = 40.0
+
+
+def _bf16_tcn_inputs(device, batch, t_total, last, c, h, cs, seed=0):
+    x, params = _inputs(device, batch, t_total, c, h, cs, seed)
+    params = [p.bfloat16() for p in params]
+    if last:
+        params[10] = params[11] = None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g_res = None if last else torch.randn(batch, t_total, c, generator=gen,
+                                          device=device).bfloat16()
+    g_skip = torch.randn(batch, t_total, cs, generator=gen,
+                         device=device).bfloat16()
+    return x.bfloat16(), params, g_res, g_skip
+
+
+def _bf16_no_farther(got, twin, exact):
+    """got no farther from float64 than the twin: 0.5 dB for a tensor, one
+    bf16 ulp for a single number (a PReLU slope's gradient)."""
+    if got.numel() == 1:
+        ulp = 2.0 ** (np.floor(np.log2(max(abs(exact.item()), 1e-30))) - 7)
+        return abs(got.item() - exact.item()) <= abs(
+            twin.item() - exact.item()) + ulp
+    return _db(got, exact) >= _db(twin, exact) - BF16_F64_SLACK_DB
+
+
+@pytest.mark.parametrize('case', BF16_TCN_CASES,
+                         ids=['B{}-T{}-d{}-last{}-C{}-H{}-Cs{}'.format(*c)
+                              for c in BF16_TCN_CASES])
+def test_bf16_block_kernels_match_their_twins(device, case):
+    """K1-bf16 and K2-bf16 against the bf16 twins (the Pallas kernel's
+    rounding points): res, skip, dx and every parameter gradient >= 40 dB
+    from the twin and no farther from float64 (the float64 plain path on
+    the same bf16 inputs) than the twin; two runs bitwise equal; K2-bf16's
+    recomputed z1 bitwise K1-bf16's (PReLU of it is K1-bf16's h1); the
+    launches counted on the bf16 route."""
+    batch, t_total, dilation, last, c, h, cs = case
+    x, params, g_res, g_skip = _bf16_tcn_inputs(device, batch, t_total, last,
+                                                c, h, cs, seed=11)
+    before = (tcn.tcn_block.launches_bf16, tcn.tcn_block_bwd.launches_bf16)
+    with torch.no_grad():
+        res, skip, stats = tcn.tcn_block_fwd(x, params, dilation, last)
+        (res2, skip2, _), (h1, _) = tcn._launch(x, params, dilation, last)
+        z1 = tcn.recompute_z1(x, params)
+    grads = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation, last)
+    rerun = tcn.tcn_block_bwd(x, params, stats, g_res, g_skip, dilation, last)
+    assert (tcn.tcn_block.launches_bf16 - before[0],
+            tcn.tcn_block_bwd.launches_bf16 - before[1]) == (1, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(skip, skip2) and (last or torch.equal(res, res2))
+    assert torch.equal(torch.where(z1 >= 0, z1, params[2].float() * z1), h1)
+    for a, b in zip((grads[0],) + grads[1], (rerun[0],) + rerun[1]):
+        assert (a is None and b is None) or torch.equal(a, b)
+    wide = [None if p is None else p.double() for p in params]
+    with torch.no_grad():
+        twin = tcn.tcn_block_fwd_plain(x, params, dilation, last)
+        exact = tcn.tcn_block_fwd_plain(x.double(), wide, dilation, last)
+    twin_g = tcn.tcn_block_bwd_plain(x, params, g_res, g_skip, dilation, last)
+    exact_g = tcn.tcn_block_bwd_plain(
+        x.double(), wide, None if last else g_res.double(), g_skip.double(),
+        dilation, last)
+    pairs = [(skip, twin[1], exact[1])] + (
+        [] if last else [(res, twin[0], exact[0])])
+    pairs += [(g, t, e) for g, t, e in zip(
+        (grads[0],) + grads[1], (twin_g[0],) + twin_g[1],
+        (exact_g[0],) + exact_g[1]) if g is not None]
+    for got, want, ref in pairs:
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        assert _db(got, want) >= BF16_TCN_TWIN_DB
+        assert _bf16_no_farther(got, want, ref)
+
+
+def test_bf16_block_kernels_take_unaligned_views(device):
+    """x, the cotangents and every parameter as bf16 views that are not
+    16-byte aligned (as the amp cast's views may be) give the aligned
+    inputs' bits on K1-bf16 and K2-bf16, at widths off the 8-element
+    grid."""
+    x, params, g_res, g_skip = _bf16_tcn_inputs(device, 2, 300, False, 36,
+                                                102, 20)
+    moved = [_shifted(t) for t in (x, g_res, g_skip, *params)]
+    assert all(t.data_ptr() % 16 for t in moved)
+    with torch.no_grad():
+        want = tcn.tcn_block_fwd(x, params, 4, False)
+        got = tcn.tcn_block_fwd(moved[0], moved[3:], 4, False)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    grads = tcn.tcn_block_bwd(x, params, want[2], g_res, g_skip, 4, False)
+    moved_grads = tcn.tcn_block_bwd(moved[0], moved[3:], want[2], moved[1],
+                                    moved[2], 4, False)
+    assert torch.equal(grads[0], moved_grads[0])
+    assert all(torch.equal(a, b) for a, b in zip(grads[1], moved_grads[1]))
+
+
+def test_bf16_block_plans_are_the_wrappers(device):
+    """The library's bf16 row at every H is the wrapper's ``bf16_ld``, and
+    its K1 partials and K2 plan (one for both routes) the wrapper's
+    mirrors, at the Conv-TasNet shape and ragged widths and lengths."""
+    lib = build.load_library()
+    for hidden in (1, 2, 3, 7, 8, 36, 100, 102, 128, 257, 512):
+        assert lib.tcn_bf16_ld(hidden) == tcn.bf16_ld(hidden)
+    for batch, t_total, c, h, cs, last in (
+            (16, 3999, 128, 512, 128, False), (16, 3999, 128, 512, 128, True),
+            (2, 300, 36, 100, 20, False), (2, 77, 130, 257, 21, True),
+            (1, 1, 1, 3, 1, True)):
+        assert tcn.partials_info(t_total, h) == tcn.fwd_partials(t_total, h)
+        assert tcn.plan_info(batch, t_total, c, h, cs, last) == \
+            tcn.bwd_plan(batch, t_total, c, h, cs, last)
+
+
+def test_bf16_block_kernels_run_on_the_tensor_cores(device):
+    """The built library's SASS of each of K1-bf16's and K2-bf16's GEMM
+    kernels holds bf16 tensor-core products (HMMA ... BF16)."""
+    from brever_tpu_torch.profile_lstm import mma_sass
+    from brever_tpu_torch.profile_tcn_bwd import MMA_KERNELS
+    counts = mma_sass(build.build(), MMA_KERNELS)
+    assert all(n > 0 for n in counts.values()), counts
+
+
+def test_convtasnet_amp_step_runs_every_block_through_the_bf16_kernels(
+        device, tmp_path):
+    """One bf16 amp step of BreverTrainer on default Conv-TasNet at 2 x 1 s:
+    a finite loss, and each of its 24 blocks through K1-bf16 and K2-bf16
+    (no float32 block launch)."""
+    trainer, data, lengths = make_trainer(device, str(tmp_path), batch=2,
+                                          seconds=1.0, use_amp=True)
+    counters = (tcn.tcn_block, tcn.tcn_block_bwd)
+    before = [(f.launches, f.launches_bf16) for f in counters]
+    loss = trainer.train_step(data, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    for f, (n, n_bf16) in zip(counters, before):
+        assert (f.launches - n, f.launches_bf16 - n_bf16) == (24, 24)
 
 
 # (T, D, R, H) of the gates-in scan: DCCRN's complex LSTM at B = 16 and at

@@ -1,6 +1,8 @@
 """The wrappers' mirrors of the kernels' launch figures, on the CPU: K1's
 partial moments a batch row (``ops.tcn_block.fwd_partials``) at the tiles
-the sources name, K3's plan (``ops.lstm_scan.fwd_plan``) against the
+the sources name, on both routes, K1-bf16's and K2-bf16's bf16 rows and
+K2's workspace on the bf16 route (``bf16_ld``, ``bwd_plan``) against the
+constants of csrc/tcn_block_bf16.cu and csrc/mma_bf16.cuh, K3's plan (``ops.lstm_scan.fwd_plan``) against the
 constants of csrc/lstm_scan.cuh, and K3-bf16's and K4-bf16's plans
 (``fwd_plan``/``bwd_plan`` with ``bf16=True``) against those of
 csrc/lstm_scan_bf16.cu and csrc/mma_bf16.cuh, within what the card allows a
@@ -39,12 +41,14 @@ def _cdiv(a, b):
 @pytest.mark.parametrize('hidden', [1, 64, 100, 128, 257, 512])
 def test_forward_partials_are_the_sources(t_total, hidden):
     """K1 writes one (count, mean, M2) partial a 128 x 128 tile of its
-    input GEMM (simt_gemm.cuh's block tile) and one a 32 x 128 tile of its
-    depthwise stage, each batch row."""
-    k1 = _source('tcn_block.cu')
+    input GEMM (simt_gemm.cuh's block tile; on the bf16 route
+    mma_bf16.cuh's, the same) and one a 32 x 128 tile of its depthwise
+    stage (tcn_common.cuh's, on both routes), each batch row."""
+    k1 = _source('tcn_common.cuh')
     tile = _constant(_source('simt_gemm.cuh'), 'kGM')
     rows, cols = _constant(k1, 'kDwRows'), _constant(k1, 'kDwCols')
     assert (tile, rows, cols) == (128, 32, 128)
+    assert _constant(_source('mma_bf16.cuh'), 'kTcTile') == tile
     assert tcn.fwd_partials(t_total, hidden) == (
         _cdiv(t_total, tile) * _cdiv(hidden, tile),
         _cdiv(t_total, rows) * _cdiv(hidden, cols))
@@ -53,6 +57,55 @@ def test_forward_partials_are_the_sources(t_total, hidden):
 def test_forward_partials_at_the_convtasnet_shape():
     """T = 3999, H = 512: 32 x 4 GEMM tiles and 125 x 4 depthwise tiles."""
     assert tcn.fwd_partials(3999, 512) == (128, 500)
+
+
+def test_bf16_tcn_constants_are_the_sources():
+    """K1-bf16's and K2-bf16's products run on mma_bf16.cuh's 128 x 128
+    block tile, 32-deep k slices (two k16 mma steps) and its padded rows,
+    the float32 GEMMs' tile, so K2's plan (its tiles and chunks) is one for
+    both routes; their bf16 h2, gz1 and folded weights take rows of H
+    rounded up to kLdBf16 elements: whole 16-byte cp.async pieces."""
+    mma, src = _source('mma_bf16.cuh'), _source('tcn_block_bf16.cu')
+    assert (_constant(mma, 'kTcTile'), _constant(mma, 'kTcSlice'),
+            _constant(mma, 'kTcThreads')) == (128, 32, 256)
+    assert _constant(mma, 'kTcTile') == tcn._GEMM_TILE
+    assert _constant(src, 'kLdBf16') == tcn._LD_BF16 == 8
+
+
+@pytest.mark.parametrize('hidden', [1, 2, 3, 7, 8, 36, 100, 102, 128, 257,
+                                    512])
+def test_bf16_tcn_plans_are_the_sources(hidden):
+    """At every H: the bf16 row is H rounded up to 8 (at least H, less than
+    H + 8, whole 16-byte pieces); K2's workspace on the bf16 route, at the
+    Conv-TasNet shape, ragged lengths and ragged widths, holds z1, z2, gy2
+    and gy1 (float32) and, in gy2's and gy1's rooms, the (B, T, ld) bf16
+    gz1 and h2 (two bf16 a float), each room rounded up to 32 floats."""
+    ld = tcn.bf16_ld(hidden)
+    assert ld % 8 == 0 and hidden <= ld < hidden + 8 and 2 * ld % 16 == 0
+    for batch, t_total, c_in, c_skip, last in (
+            (16, 3999, 128, 128, False), (16, 3999, 128, 128, True),
+            (2, 300, 36, 20, False), (2, 77, 130, 21, True),
+            (1, 1, 1, 1, True), (3, 129, 32, 32, False)):
+        plan = tcn.bwd_plan(batch, t_total, c_in, hidden, c_skip, last)
+        bth = batch * t_total * hidden
+        room = max(bth, _cdiv(batch * t_total * ld, 2))
+        assert plan['workspace'] >= 2 * bth + 2 * room
+        assert plan['workspace'] % 32 == 0
+        assert (plan['gemm_tiles'] - 1) * 128 < t_total \
+            <= plan['gemm_tiles'] * 128
+
+
+def test_bf16_tcn_buffers_at_the_convtasnet_shape():
+    """B=16, T=3999, C=Cs=128, H=512: bf16 rows of 512 (no pad); K1-bf16's
+    bf16 h2 is 65.5 MB and its folded output weights (B, C + Cs, H) 4 MB;
+    K2's workspace is the float32 route's (152,018,752 floats), its bf16 h2
+    and gz1 each filling half of a float32 room."""
+    assert tcn.bf16_ld(512) == 512
+    rows = 16 * 3999
+    assert 2 * rows * tcn.bf16_ld(512) == 65_519_616
+    assert 2 * 16 * (128 + 128) * tcn.bf16_ld(512) == 4_194_304
+    assert tcn.bwd_plan(16, 3999, 128, 512, 128, False)['workspace'] == \
+        152_018_752
 
 
 @pytest.mark.parametrize('hidden', range(32, 257, 32))

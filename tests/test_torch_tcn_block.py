@@ -113,14 +113,27 @@ def _close_bf16(got, want):
                                atol=1e-3 * np.abs(want).max())
 
 
+#: the bf16 twins' widths C/H/Cs: 64/96/48, and the float32 route's widths
+#: off the 128-grid and off the 8-element grid that the bf16 kernels stage
+#: piece by piece (smoke phases 2, 6 and 54)
+BF16_WIDTHS = (64, 96, 48)
+OFF_GRID_WIDTHS = [(150, 1, (36, 100, 20)), (129, 2, (32, 64, 32)),
+                   (150, 128, (36, 102, 20)), (77, 4, (130, 257, 21))]
+
+
 @pytest.mark.parametrize('last', [False, True])
-@pytest.mark.parametrize('t_total,dilation', [(192, 1), (200, 4), (200, 8),
-                                              (130, 64), (100, 250)])
-def test_bf16_plain_matches_pallas(dilation, t_total, last):
-    """T=200 and 130 are off the tile grid (tile 64), d=250 >= T."""
+@pytest.mark.parametrize('t_total,dilation,widths', [
+    pytest.param(t, d, BF16_WIDTHS, id=f'{t}-{d}')
+    for t, d in [(192, 1), (200, 4), (200, 8), (130, 64), (100, 250)]] + [
+    pytest.param(t, d, w, id=f'{t}-{d}-' + 'x'.join(map(str, w)))
+    for t, d, w in OFF_GRID_WIDTHS])
+def test_bf16_plain_matches_pallas(dilation, t_total, widths, last):
+    """T=200 and 130 are off the tile grid (tile 64), d=250 >= T; C, H and
+    Cs off the 128-grid and the 8-element grid."""
+    c, h, cs = widths
     rng = np.random.RandomState(5)
-    x = _bf16(rng.randn(2, t_total, 64))
-    params = [_bf16(p) for p in _params(rng, 64, 96, 48)]
+    x = _bf16(rng.randn(2, t_total, c))
+    params = [_bf16(p) for p in _params(rng, c, h, cs)]
     res_j, skip_j = tcn.tcn_block_fused(
         jnp.asarray(x, jnp.bfloat16),
         tuple(jnp.asarray(p, jnp.bfloat16) for p in params), dilation, last,

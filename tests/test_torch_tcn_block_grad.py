@@ -235,7 +235,7 @@ def test_backward_plan_at_ragged_lengths(t_total, batch, c, h, cs, last):
 # The bf16 route's backward (K2-bf16's plain twin) against the VJP of the
 # Pallas kernel at bf16 in interpret mode, at the dilations of both JAX
 # backward variants' tests (4, 8; tests/test_tcn_fused.py), ``last`` both
-# ways and T off the tile grid: dx (bf16) and the bf16 parameter gradients
+# ways, T off the tile grid and C/H/Cs off the 128- and 8-element grids: dx (bf16) and the bf16 parameter gradients
 # within rtol 2e-2 and an atol of 2e-2 of each tensor's largest value,
 # tighter than the JAX tests' own bf16 bound of 5e-2, the PReLU slopes
 # included; and against float64 on the same bf16 values, each within 0.5 dB
@@ -251,15 +251,25 @@ def _snr_db(got, want):
     return 10 * np.log10((want ** 2).sum() / ((got - want) ** 2).sum())
 
 
-@pytest.mark.parametrize('t_total', [192, 200])
+#: C/H/Cs off the 128-grid and off the 8-element grid that the bf16 kernels
+#: stage piece by piece (smoke phases 2, 6 and 54), at a T each
+OFF_GRID_WIDTHS = [(150, (36, 100, 20)), (129, (32, 64, 32)),
+                   (150, (36, 102, 20)), (77, (130, 257, 21))]
+
+
+@pytest.mark.parametrize('t_total,widths', [
+    pytest.param(t, (64, 96, 48), id=str(t)) for t in (192, 200)] + [
+    pytest.param(t, w, id=f'{t}-' + 'x'.join(map(str, w)))
+    for t, w in OFF_GRID_WIDTHS])
 @pytest.mark.parametrize('last', [False, True])
 @pytest.mark.parametrize('dilation', [4, 8])
-def test_bf16_backward_matches_pallas(dilation, last, t_total):
+def test_bf16_backward_matches_pallas(dilation, last, t_total, widths):
+    c, h, cs = widths
     rng = np.random.RandomState(5)
-    x = _bf16(rng.randn(1, t_total, 64))
-    params = [_bf16(p) for p in _params(rng, 64, 96, 48)]
-    g_skip = _bf16(rng.randn(1, t_total, 48))
-    g_res = _bf16(rng.randn(1, t_total, 64))
+    x = _bf16(rng.randn(1, t_total, c))
+    params = [_bf16(p) for p in _params(rng, c, h, cs)]
+    g_skip = _bf16(rng.randn(1, t_total, cs))
+    g_res = _bf16(rng.randn(1, t_total, c))
     bf = jnp.bfloat16
     _, vjp = jax.vjp(lambda x, p: tcn.tcn_block_fused(
         x, p, dilation, last, tile=64, interpret=True),
