@@ -13,7 +13,10 @@
 // group, elements of a group read from device memory again (0 where the
 // cluster holds the slab), blocks of the launch, and the clusters of that
 // size the card can hold at once of both kernels
-// (cudaOccupancyMaxActiveClusters; 0: it cannot place one).
+// (cudaOccupancyMaxActiveClusters; 0: it cannot place one); info[8] = the
+// elements of dy a block holds (the bf16 route's K8 on the 16-byte grid;
+// 0 on the float32 route). On the bf16 route info[1] and info[2] are its
+// 16-byte route's (groupnorm_bf16.cu plan16).
 extern "C" int gn_plan(int B, int C, int N, int G, int most, int bf16,
                        long long* info) {
   if (bf16) return gn_bf16::gn_plan(B, C, N, G, most, info);

@@ -140,12 +140,17 @@
 // exactly), and the statistics, dscale and dbias stay float32 (the wrapper
 // casts the affine's gradients to its dtype). The slabs are held in shared
 // memory as bf16, so a block holds twice the elements and a group fits a
-// cluster half the size. A lane's vector is four elements either way (8
-// bytes of bf16); the bf16 route copies its held elements with 8-byte
-// cp.async, each lane the vectors it reads (a TMA bulk copy needs 16-byte
-// rows, which MANNER's N = 64084 is not), and off the vector grid with
-// plain loads and stores, one element at a time (cp.async has no 2-byte
-// copy). Its vector grid is N % 4 == 0 and 8-byte aligned tensors.
+// cluster half the size. GroupNorm on the 16-byte grid (N % 8 == 0, every
+// tensor 16-byte aligned: every class of an SGMSE+ or IDMSE evaluation)
+// takes kernels of its own (groupnorm_bf16.cu: gn_fwd16, gn_bwd16): TMA
+// bulk copies of the held slab, and of dy beside it, and 16-byte vectors
+// of 8 elements. These templates at bf16 take the rest: every BatchNorm
+// (MANNER's N = 64084 and 16020 leave 8-byte rows, which a bulk copy's
+// 16-byte granule does not take) and GroupNorm off that grid. There a
+// lane's vector is four elements (8 bytes), copied to shared memory with
+// 8-byte cp.async, each lane the vectors it reads, and off the 8-byte grid
+// (N % 4 != 0, an unaligned view) one element at a time with plain loads
+// and stores (cp.async has no 2-byte copy).
 
 #pragma once
 
@@ -1513,6 +1518,7 @@ int plan_gn(int B, int C, int N, int G, int most, long long* info) {
   if (bad_shape(B, C, N, G, kNone) || !cluster_size_ok(most))
     return cudaErrorInvalidValue;
   const GnPlan p = choose(C / G, N, most, sizeof(S));
+  info[8] = 0;   // dy is not held
   return plan_info(
       p, static_cast<long long>(B) * G, kGnThreads,
       reinterpret_cast<const void*>(gn_fwd_cluster<true, false, kGnWarps, S>),

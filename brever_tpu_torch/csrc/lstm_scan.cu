@@ -129,64 +129,50 @@ size_t lstm_scan_bwd_workspace(int T, int D, int R, int H) {
 }
 
 // K6's shared memory a block at 256 < H <= 8192 (its tile's rows x 6H
-// floats), in bytes; 0 for another H
-size_t lstm_scan_tile_smem(int H) {
-  return H > kMaxHiddenWide && hidden_ok(H, kMaxHidden) ? bwd_smem(tile_rows(H), H) : 0;
+// values, float32, or bf16 where bf16 = 1), in bytes; 0 for another H
+size_t lstm_scan_tile_smem(int H, int bf16) {
+  return H > kMaxHiddenWide && hidden_ok(H, kMaxHidden)
+             ? bwd_smem(tile_rows(H), H, bf16 ? sizeof(simt::bf16) : sizeof(float))
+             : 0;
 }
 
 // K5: h_seq and c_seq (T, D, R, H) from gates_x (T, D, R, 4H) and w_hh
 // (D, H, 4H); H <= 256 on clusters, above on row tiles (tile_rows) up to
-// 8192 (float32 only: the bf16 route takes H <= 256). Returns a CUDA error
-// code, or 0.
+// 8192, on either route. Returns a CUDA error code, or 0.
 int lstm_scan_fwd(const void* gates_x, const void* w_hh, void* h_seq, void* c_seq, int T, int D,
                   int R, int H, int bf16, void* stream) {
-  if (!hidden_ok(H, bf16 ? kMaxHiddenWide : kMaxHidden))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return lstm_bf16::scan_fwd(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
-  if (H > kMaxHiddenWide) {
-    const auto tiles = tile_rows(H) == 16  ? scan_fwd_tiles<16>
-                       : tile_rows(H) == 8 ? scan_fwd_tiles<8>
-                       : tile_rows(H) == 4 ? scan_fwd_tiles<4>
-                       : tile_rows(H) == 2 ? scan_fwd_tiles<2>
-                                           : scan_fwd_tiles<1>;
-    return tiles(in<float>(gates_x), in<float>(w_hh), out<float>(h_seq), out<float>(c_seq), T, D,
-                 R, H, s);
-  }
+  if (H > kMaxHiddenWide)
+    return scan_fwd_rows(in<float>(gates_x), in<float>(w_hh), out<float>(h_seq),
+                         out<float>(c_seq), T, D, R, H, s);
   return scan_fwd_cluster(in<float>(gates_x), in<float>(w_hh), out<float>(h_seq),
                           out<float>(c_seq), T, D, R, H, s);
 }
 
 // K6: dgates (T, D, R, 4H) and dw_hh (D, H, 4H) from the forward's inputs,
 // its h and c, and dh; work holds lstm_scan_bwd_workspace floats; w_hh_t is
-// read above H = 256 only (may be null below; float32 only). Every output is
-// written whole. Returns the first launch's CUDA error code, or 0.
+// read above H = 256 only (may be null below). Every output is written
+// whole. Returns the first launch's CUDA error code, or 0.
 int lstm_scan_bwd(const void* gates_x, const void* w_hh, const void* w_hh_t, const void* h_seq,
                   const void* c_seq, const void* dh_seq, void* dgates, float* dw_hh, float* work,
                   int T, int D, int R, int H, int bf16, void* stream) {
-  if (!hidden_ok(H, bf16 ? kMaxHiddenWide : kMaxHidden))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!hidden_ok(H, kMaxHidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return lstm_bf16::scan_bwd(gates_x, w_hh, h_seq, c_seq, dh_seq, dgates, dw_hh, work, T, D, R,
-                               H, s);
+    return lstm_bf16::scan_bwd(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, dw_hh, work,
+                               T, D, R, H, s);
   const WgSplit wg(T * R, wgrad_tiles(0, H, D));
   const Layout L(T, D, R, 0, H, wg);
-  int err = 0;
-  if (H > kMaxHiddenWide) {
-    if (!w_hh_t) return static_cast<int>(cudaErrorInvalidValue);
-    const auto tiles = tile_rows(H) == 16  ? scan_bwd_tiles<16>
-                       : tile_rows(H) == 8 ? scan_bwd_tiles<8>
-                       : tile_rows(H) == 4 ? scan_bwd_tiles<4>
-                       : tile_rows(H) == 2 ? scan_bwd_tiles<2>
-                                           : scan_bwd_tiles<1>;
-    err = tiles(in<float>(gates_x), in<float>(w_hh), in<float>(w_hh_t), in<float>(h_seq),
-                in<float>(c_seq), in<float>(dh_seq), out<float>(dgates), T, D, R, H, s);
-  } else {
-    err = scan_bwd_cluster(in<float>(gates_x), in<float>(w_hh), in<float>(h_seq),
-                           in<float>(c_seq), in<float>(dh_seq), out<float>(dgates), T, D, R, H,
-                           s);
-  }
+  const int err =
+      H > kMaxHiddenWide
+          ? scan_bwd_rows(in<float>(gates_x), in<float>(w_hh), in<float>(w_hh_t),
+                          in<float>(h_seq), in<float>(c_seq), in<float>(dh_seq),
+                          out<float>(dgates), T, D, R, H, s)
+          : scan_bwd_cluster(in<float>(gates_x), in<float>(w_hh), in<float>(h_seq),
+                             in<float>(c_seq), in<float>(dh_seq), out<float>(dgates), T, D, R, H,
+                             s);
   if (err) return err;
   return weight_grads<false>(static_cast<const float*>(nullptr), in<float>(h_seq),
                              out<float>(dgates), work + L.wg_part, dw_hh, nullptr, wg, T, D, R,

@@ -139,7 +139,9 @@
 // 512 threads and a thread 64 gate sums. K6's shared memory is rows x 6H
 // floats, 196,608 B at H = 512, 1024, 2048, 4096 and 8192: past 8192 a
 // one-row tile is the smallest there is, and its threads would own more
-// than 16 units each.
+// than 16 units each. On the bf16 route the row tiles hold h, dgates and
+// dh_rec as bf16 (the values the rounding points give them), half the
+// shared memory: rows x 6H bf16.
 //
 // SIMT float32 FFMA throughout on the float32 route (no TF32: the parity
 // bounds are float32's). Every pointer is a dense float32 buffer in the
@@ -183,9 +185,9 @@ __device__ __forceinline__ float sigm(float z) { return 1.f / (1.f + expf(-z)); 
 
 // ---------------------------------------------------------------------------
 // The bf16 route (bfloat16 storage: x, the weights, the bias, gates_x, h, c,
-// dh, dgates and dx). K5/K6's clusters are templates on the storage S: loads
-// are converted to float32, products are summed in float32 (the product of
-// two bf16 values is exact in float32); K3-bf16 and K4-bf16
+// dh, dgates and dx). K5/K6's clusters and row tiles are templates on the
+// storage S: loads are converted to float32, products are summed in float32
+// (the product of two bf16 values is exact in float32); K3-bf16 and K4-bf16
 // (lstm_scan_bf16.cu) sum theirs on the bf16 tensor cores in float32. Each
 // result is rounded to bf16 (round_bf16, nearest even) where the Pallas
 // kernels round under bf16, each of their jnp operations landing at the
@@ -261,18 +263,41 @@ __device__ __forceinline__ size_t at(int t, int d, int r, int D, int R) {
   return (static_cast<size_t>(t) * D + d) * R + r;
 }
 
+// Two neighbouring values of float32 or bf16 storage as float32 (8 bytes of
+// float32, 4 of bf16), from shared or device memory (ldg_pair: through the
+// read-only path), and two float32 stored (bf16: each rounded once).
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld_pair(const bf16* p) {
+  return unpack2(*reinterpret_cast<const unsigned*>(p));
+}
+__device__ __forceinline__ float2 ldg_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldg_pair(const bf16* p) {
+  return unpack2(__ldg(reinterpret_cast<const unsigned*>(p)));
+}
+__device__ __forceinline__ void st_pair(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void st_pair(bf16* p, float2 v) {
+  *reinterpret_cast<unsigned*>(p) = pack2(v.x, v.y);
+}
+
 // rows r0 .. r0 + kRows - 1 of a (R, n) slab into dst (kRows, n), zero past
-// R; n is a multiple of 4.
-template <int kRows>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
-                                          int R, int n) {
-  const int q = n / 4;
+// R, in 16-byte pieces; n is a multiple of 16 / sizeof(S).
+template <int kRows, class S>
+__device__ __forceinline__ void load_rows(S* dst, const S* __restrict__ src, int r0, int R,
+                                          int n) {
+  constexpr int kPer = 16 / sizeof(S);
+  const int q = n / kPer;
   for (int i = threadIdx.x; i < kRows * q; i += blockDim.x) {
     const int row = i / q, c4 = i % q;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + row < R)
-      v = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + row) * n) + c4);
-    reinterpret_cast<float4*>(dst + row * n)[c4] = v;
+      v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + row) * n) + c4);
+    reinterpret_cast<uint4*>(dst + row * n)[c4] = v;
   }
 }
 
@@ -293,27 +318,26 @@ struct Split {
 // acc += a (kRows, K) in shared memory times w (K, 4H) in device memory,
 // for the thread's rows rg * kRt + i and columns g H + 2 (ug + p H / 2kP) +
 // u, k ascending.
-template <int kRt, int kU>
-__device__ __forceinline__ void gemm_rows(float (&acc)[kRt][4][kU], const float* a,
-                                          const float* __restrict__ w, int K, int H, int rg,
+template <int kRt, int kU, class S>
+__device__ __forceinline__ void gemm_rows(float (&acc)[kRt][4][kU], const S* a,
+                                          const S* __restrict__ w, int K, int H, int rg,
                                           int ug) {
   constexpr int kP = kU / 2;
   const int G = 4 * H, np = H / kU;
-  const float* arow = a + rg * kRt * K;
+  const S* arow = a + rg * kRt * K;
   for (int k = 0; k < K; k += 2) {
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
-      const float* wcol = w + 2 * (ug + p * np);
+      const S* wcol = w + 2 * (ug + p * np);
       float2 w0[4], w1[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        w0[g] = __ldg(reinterpret_cast<const float2*>(wcol + static_cast<size_t>(k) * G + g * H));
-        w1[g] = __ldg(
-            reinterpret_cast<const float2*>(wcol + static_cast<size_t>(k + 1) * G + g * H));
+        w0[g] = ldg_pair(wcol + static_cast<size_t>(k) * G + g * H);
+        w1[g] = ldg_pair(wcol + static_cast<size_t>(k + 1) * G + g * H);
       }
 #pragma unroll
       for (int i = 0; i < kRt; ++i) {
-        const float2 av = *reinterpret_cast<const float2*>(arow + i * K + k);
+        const float2 av = ld_pair(arow + i * K + k);
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           float* o = acc[i][g] + 2 * p;
@@ -330,45 +354,68 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[kRt][4][kU], const float*
 // The gate pre-activations of the thread's rows and units, gates_x[t] +
 // h_prev w_hh, the h_prev w_hh term skipped at t = 0: gx points at the
 // tile's first row of gates_x[t] and rows_left = R - r0 (rows past R read
-// as 0). K5's and K6's row tiles both call this, so they get the same bits.
-template <int kRt, int kU>
-__device__ __forceinline__ void gates_tile(float (&acc)[kRt][4][kU], const float* hs,
-                                           const float* __restrict__ gx,
-                                           const float* __restrict__ wh, int H, int rg, int ug,
+// as 0). On the bf16 route the product is summed from 0 and each gate is
+// bf16(gx + bf16(h w_hh)), as cluster_gates forms it. K5's and K6's row
+// tiles both call this, so they get the same bits.
+template <int kRt, int kU, class S>
+__device__ __forceinline__ void gates_tile(float (&acc)[kRt][4][kU], const S* hs,
+                                           const S* __restrict__ gx,
+                                           const S* __restrict__ wh, int H, int rg, int ug,
                                            int rows_left, bool has_h) {
   constexpr int kP = kU / 2;
   const int np = H / kU, G = 4 * H;
+  // gates_x of the thread's rows and units (0 past R): into acc first on
+  // the float32 route, added after the product on the bf16 one
+  auto add_gx = [&](bool round) {
 #pragma unroll
-  for (int i = 0; i < kRt; ++i) {
-    const int row = rg * kRt + i;
+    for (int i = 0; i < kRt; ++i) {
+      const int row = rg * kRt + i;
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
+      for (int g = 0; g < 4; ++g)
 #pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        float2 v = make_float2(0.f, 0.f);
-        if (row < rows_left)
-          v = __ldg(reinterpret_cast<const float2*>(gx + static_cast<size_t>(row) * G + g * H +
-                                                    2 * (ug + p * np)));
-        acc[i][g][2 * p] = v.x;
-        acc[i][g][2 * p + 1] = v.y;
-      }
+        for (int p = 0; p < kP; ++p) {
+          float2 v = make_float2(0.f, 0.f);
+          if (row < rows_left)
+            v = ldg_pair(gx + static_cast<size_t>(row) * G + g * H + 2 * (ug + p * np));
+          float* o = acc[i][g] + 2 * p;
+          if (round) {
+            o[0] = round_bf16(v.x + round_bf16(o[0]));
+            o[1] = round_bf16(v.y + round_bf16(o[1]));
+          } else {
+            o[0] = v.x;
+            o[1] = v.y;
+          }
+        }
+    }
+  };
+  if constexpr (kIsBf16<S>) {
+#pragma unroll
+    for (int i = 0; i < kRt; ++i)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int u = 0; u < kU; ++u) acc[i][g][u] = 0.f;
+  } else {
+    add_gx(false);
   }
   if (has_h) gemm_rows<kRt, kU>(acc, hs, wh, H, H, rg, ug);
+  if constexpr (kIsBf16<S>) add_gx(true);
 }
 
-// K5 for 256 < H <= 8192 over gates_x (T, D, R, 4H). grid (cdiv(R, kRows),
-// D), Split<kRows>::threads(H) threads, kRows H floats of dynamic shared
-// memory.
-template <int kRows>
+// K5 for 256 < H <= 8192 over gates_x (T, D, R, 4H), storage S (float, or
+// bf16: the cell of cell_bf16, c carried in bf16). grid (cdiv(R, kRows),
+// D), Split<kRows>::threads(H) threads, kRows H values of S of dynamic
+// shared memory (h of the tile).
+template <int kRows, class S>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_fwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
-              float* __restrict__ h_seq, float* __restrict__ c_seq, int T, int D, int R, int H) {
+lstm_fwd_scan(const S* __restrict__ gates_x, const S* __restrict__ w_hh, S* __restrict__ h_seq,
+              S* __restrict__ c_seq, int T, int D, int R, int H) {
   constexpr int kRt = Split<kRows>::kRt, kP = Split<kRows>::kP;
   extern __shared__ float smem[];
-  float* hs = smem;  // (kRows, H)
+  S* hs = reinterpret_cast<S*>(smem);  // (kRows, H)
   const int d = blockIdx.y, r0 = blockIdx.x * kRows, G = 4 * H, np = H / (2 * kP);
   const int rg = threadIdx.x / np, ug = threadIdx.x % np;
-  const float* wh = w_hh + static_cast<size_t>(d) * H * G;
+  const S* wh = w_hh + static_cast<size_t>(d) * H * G;
   float c[kRt][2 * kP] = {};
   for (int t = 0; t < T; ++t) {
     __syncthreads();  // h[t-1] of the tile in shared memory
@@ -385,19 +432,24 @@ lstm_fwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int q = 2 * p + u;
-          const float cn =
-              sigm(acc[i][1][q]) * c[i][q] + sigm(acc[i][0][q]) * tanhf(acc[i][2][q]);
-          const float hn = sigm(acc[i][3][q]) * tanhf(cn);
-          c[i][q] = cn;
+          float hn;
+          if constexpr (kIsBf16<S>) {
+            cell_bf16(acc[i][0][q], acc[i][1][q], acc[i][2][q], acc[i][3][q], c[i][q], hn);
+          } else {
+            const float cn =
+                sigm(acc[i][1][q]) * c[i][q] + sigm(acc[i][0][q]) * tanhf(acc[i][2][q]);
+            hn = sigm(acc[i][3][q]) * tanhf(cn);
+            c[i][q] = cn;
+          }
           (u ? hv.y : hv.x) = hn;
-          (u ? cv.y : cv.x) = cn;
+          (u ? cv.y : cv.x) = c[i][q];
         }
         const int unit = 2 * (ug + p * np);
-        *reinterpret_cast<float2*>(hs + row * H + unit) = hv;
+        st_pair(hs + row * H + unit, hv);
         if (r0 + row < R) {
           const size_t o = at(t, d, r0 + row, D, R) * H + unit;
-          *reinterpret_cast<float2*>(h_seq + o) = hv;
-          *reinterpret_cast<float2*>(c_seq + o) = cv;
+          st_pair(h_seq + o, hv);
+          st_pair(c_seq + o, cv);
         }
       }
     }
@@ -408,32 +460,33 @@ lstm_fwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
 // recompute the gates from gates_x and the saved h with K5's code (the same
 // bits), form dgates (written to device memory), carry dc in registers and
 // dh_rec = dgates w_hh^T in shared memory slots that only their own thread
-// reads (registers would pass the 128 a thread has at 512 threads).
-// grid (cdiv(R, kRows), D), Split<kRows>::threads(H) threads, kRows 6H
-// floats of dynamic shared memory.
-template <int kRows>
+// reads (registers would pass the 128 a thread has at 512 threads). On the
+// bf16 route (S = bf16) the step is bwd_cell_bf16's and dh_rec is rounded
+// once, where it is stored. grid (cdiv(R, kRows), D),
+// Split<kRows>::threads(H) threads, kRows 6H values of S of dynamic shared
+// memory.
+template <int kRows, class S>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
-              const float* __restrict__ w_hh_t, const float* __restrict__ h_seq,
-              const float* __restrict__ c_seq, const float* __restrict__ dh_seq,
-              float* __restrict__ dgates, int T, int D, int R, int H) {
+lstm_bwd_scan(const S* __restrict__ gates_x, const S* __restrict__ w_hh,
+              const S* __restrict__ w_hh_t, const S* __restrict__ h_seq,
+              const S* __restrict__ c_seq, const S* __restrict__ dh_seq,
+              S* __restrict__ dgates, int T, int D, int R, int H) {
   constexpr int kRt = Split<kRows>::kRt, kP = Split<kRows>::kP;
   extern __shared__ float smem[];
   const int G = 4 * H, np = H / (2 * kP);
-  float* hs = smem;                   // (kRows, H)
-  float* gs = hs + kRows * H;         // (kRows, 4H): dgates of the step
-  float* dhs = gs + kRows * G;        // (kRows, H): dh_rec
+  S* hs = reinterpret_cast<S*>(smem);  // (kRows, H)
+  S* gs = hs + kRows * H;              // (kRows, 4H): dgates of the step
+  S* dhs = gs + kRows * G;             // (kRows, H): dh_rec
   const int d = blockIdx.y, r0 = blockIdx.x * kRows;
   const int rg = threadIdx.x / np, ug = threadIdx.x % np;
-  const float* wh = w_hh + static_cast<size_t>(d) * H * G;
-  const float* wht = w_hh_t + static_cast<size_t>(d) * G * H;
+  const S* wh = w_hh + static_cast<size_t>(d) * H * G;
+  const S* wht = w_hh_t + static_cast<size_t>(d) * G * H;
   float dc[kRt][2 * kP] = {};
 #pragma unroll
   for (int i = 0; i < kRt; ++i)
 #pragma unroll
     for (int p = 0; p < kP; ++p)
-      *reinterpret_cast<float2*>(dhs + (rg * kRt + i) * H + 2 * (ug + p * np)) =
-          make_float2(0.f, 0.f);
+      st_pair(dhs + (rg * kRt + i) * H + 2 * (ug + p * np), make_float2(0.f, 0.f));
   for (int t = T - 1; t >= 0; --t) {
     if (t > 0) load_rows<kRows>(hs, h_seq + at(t - 1, d, 0, D, R) * H, r0, R, H);
     __syncthreads();  // h[t-1] in; the previous step's gs reads done
@@ -450,51 +503,56 @@ lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
         const size_t o = at(t, d, r0 + row, D, R) * H + unit;
         float2 ct = make_float2(0.f, 0.f), cp = ct, dhv = ct;
         if (live) {
-          ct = *reinterpret_cast<const float2*>(c_seq + o);
-          dhv = *reinterpret_cast<const float2*>(dh_seq + o);
-          if (t > 0)
-            cp = *reinterpret_cast<const float2*>(c_seq + o - static_cast<size_t>(D) * R * H);
+          ct = ld_pair(c_seq + o);
+          dhv = ld_pair(dh_seq + o);
+          if (t > 0) cp = ld_pair(c_seq + o - static_cast<size_t>(D) * R * H);
         }
-        const float2 rec = *reinterpret_cast<const float2*>(dhs + row * H + unit);
+        const float2 rec = ld_pair(dhs + row * H + unit);
         float dgt[4][2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int q = 2 * p + u;
-          const float ig = sigm(acc[i][0][q]), fg = sigm(acc[i][1][q]);
-          const float gg = tanhf(acc[i][2][q]), og = sigm(acc[i][3][q]);
-          const float tc = tanhf(u ? ct.y : ct.x);
-          const float dh = (u ? dhv.y : dhv.x) + (u ? rec.y : rec.x);
-          const float dcc = dh * og * (1.f - tc * tc) + dc[i][q];
-          dgt[0][u] = dcc * gg * ig * (1.f - ig);
-          dgt[1][u] = dcc * (u ? cp.y : cp.x) * fg * (1.f - fg);
-          dgt[2][u] = dcc * ig * (1.f - gg * gg);
-          dgt[3][u] = dh * tc * og * (1.f - og);
-          dc[i][q] = dcc * fg;
+          if constexpr (kIsBf16<S>) {
+            const float z[4] = {acc[i][0][q], acc[i][1][q], acc[i][2][q], acc[i][3][q]};
+            float dg[4];
+            bwd_cell_bf16(z, u ? ct.y : ct.x, u ? cp.y : cp.x, u ? dhv.y : dhv.x,
+                          u ? rec.y : rec.x, dc[i][q], dg);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) dgt[g][u] = dg[g];
+          } else {
+            const float ig = sigm(acc[i][0][q]), fg = sigm(acc[i][1][q]);
+            const float gg = tanhf(acc[i][2][q]), og = sigm(acc[i][3][q]);
+            const float tc = tanhf(u ? ct.y : ct.x);
+            const float dh = (u ? dhv.y : dhv.x) + (u ? rec.y : rec.x);
+            const float dcc = dh * og * (1.f - tc * tc) + dc[i][q];
+            dgt[0][u] = dcc * gg * ig * (1.f - ig);
+            dgt[1][u] = dcc * (u ? cp.y : cp.x) * fg * (1.f - fg);
+            dgt[2][u] = dcc * ig * (1.f - gg * gg);
+            dgt[3][u] = dh * tc * og * (1.f - og);
+            dc[i][q] = dcc * fg;
+          }
         }
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           const float2 v = make_float2(dgt[g][0], dgt[g][1]);
-          *reinterpret_cast<float2*>(gs + row * G + g * H + unit) = v;
-          if (live)
-            *reinterpret_cast<float2*>(dgates + at(t, d, r0 + row, D, R) * G + g * H + unit) = v;
+          st_pair(gs + row * G + g * H + unit, v);
+          if (live) st_pair(dgates + at(t, d, r0 + row, D, R) * G + g * H + unit, v);
         }
       }
     }
     __syncthreads();  // gs whole; hs reads done
     // dh_rec = dgates w_hh^T for the thread's rows and units, j ascending
     float dh_rec[kRt][2 * kP] = {};
-    const float* grow = gs + rg * kRt * G;
+    const S* grow = gs + rg * kRt * G;
     for (int j = 0; j < G; j += 2) {
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
         const int unit = 2 * (ug + p * np);
-        const float2 w0 =
-            __ldg(reinterpret_cast<const float2*>(wht + static_cast<size_t>(j) * H + unit));
-        const float2 w1 =
-            __ldg(reinterpret_cast<const float2*>(wht + static_cast<size_t>(j + 1) * H + unit));
+        const float2 w0 = ldg_pair(wht + static_cast<size_t>(j) * H + unit);
+        const float2 w1 = ldg_pair(wht + static_cast<size_t>(j + 1) * H + unit);
 #pragma unroll
         for (int i = 0; i < kRt; ++i) {
-          const float2 gv = *reinterpret_cast<const float2*>(grow + i * G + j);
+          const float2 gv = ld_pair(grow + i * G + j);
           float* r = dh_rec[i] + 2 * p;
           r[0] = fmaf(gv.x, w0.x, r[0]);
           r[1] = fmaf(gv.x, w0.y, r[1]);
@@ -507,8 +565,8 @@ lstm_bwd_scan(const float* __restrict__ gates_x, const float* __restrict__ w_hh,
     for (int i = 0; i < kRt; ++i)
 #pragma unroll
       for (int p = 0; p < kP; ++p)
-        *reinterpret_cast<float2*>(dhs + (rg * kRt + i) * H + 2 * (ug + p * np)) =
-            make_float2(dh_rec[i][2 * p], dh_rec[i][2 * p + 1]);
+        st_pair(dhs + (rg * kRt + i) * H + 2 * (ug + p * np),
+                make_float2(dh_rec[i][2 * p], dh_rec[i][2 * p + 1]));
   }
 }
 
@@ -1572,36 +1630,63 @@ struct Layout {
   }
 };
 
-size_t fwd_smem(int rows, int H) { return sizeof(float) * rows * H; }
-size_t bwd_smem(int rows, int H) { return sizeof(float) * rows * 6 * H; }
+// K5's and K6's shared memory a row tile, in bytes, at esize bytes a value
+size_t fwd_smem(int rows, int H, size_t esize) { return esize * rows * H; }
+size_t bwd_smem(int rows, int H, size_t esize) { return esize * rows * 6 * H; }
 
 // the rows of a K5/K6 tile for 256 < H <= 8192: 16 up to 512, then half
 // as many each time H doubles, down to 1 row past 4096
 int tile_rows(int H) { return H <= 512 ? 16 : H <= 1024 ? 8 : H <= 2048 ? 4 : H <= 4096 ? 2 : 1; }
 
 // K5 for 256 < H <= 8192 on kRows-row tiles (Split<kRows>::threads(H))
-template <int kRows>
-int scan_fwd_tiles(const float* gates_x, const float* w_hh, float* h_seq, float* c_seq, int T,
-                   int D, int R, int H, cudaStream_t s) {
-  const size_t smem = fwd_smem(kRows, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<kRows>), smem);
+template <int kRows, class S>
+int scan_fwd_tiles(const S* gates_x, const S* w_hh, S* h_seq, S* c_seq, int T, int D, int R,
+                   int H, cudaStream_t s) {
+  const size_t smem = fwd_smem(kRows, H, sizeof(S));
+  int err = set_smem(reinterpret_cast<const void*>(lstm_fwd_scan<kRows, S>), smem);
   if (err) return err;
-  lstm_fwd_scan<kRows><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
+  lstm_fwd_scan<kRows, S><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
       gates_x, w_hh, h_seq, c_seq, T, D, R, H);
   return last_error();
 }
 
 // K6's recurrence for 256 < H <= 8192 on kRows-row tiles
-template <int kRows>
-int scan_bwd_tiles(const float* gates_x, const float* w_hh, const float* w_hh_t,
-                   const float* h_seq, const float* c_seq, const float* dh_seq, float* dgates,
-                   int T, int D, int R, int H, cudaStream_t s) {
-  const size_t smem = bwd_smem(kRows, H);
-  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<kRows>), smem);
+template <int kRows, class S>
+int scan_bwd_tiles(const S* gates_x, const S* w_hh, const S* w_hh_t, const S* h_seq,
+                   const S* c_seq, const S* dh_seq, S* dgates, int T, int D, int R, int H,
+                   cudaStream_t s) {
+  const size_t smem = bwd_smem(kRows, H, sizeof(S));
+  int err = set_smem(reinterpret_cast<const void*>(lstm_bwd_scan<kRows, S>), smem);
   if (err) return err;
-  lstm_bwd_scan<kRows><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
+  lstm_bwd_scan<kRows, S><<<dim3(cdiv(R, kRows), D), Split<kRows>::threads(H), smem, s>>>(
       gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H);
   return last_error();
+}
+
+// K5 on the row tiles of H (256 < H <= 8192)
+template <class S>
+int scan_fwd_rows(const S* gates_x, const S* w_hh, S* h_seq, S* c_seq, int T, int D, int R,
+                  int H, cudaStream_t s) {
+  const auto tiles = tile_rows(H) == 16  ? scan_fwd_tiles<16, S>
+                     : tile_rows(H) == 8 ? scan_fwd_tiles<8, S>
+                     : tile_rows(H) == 4 ? scan_fwd_tiles<4, S>
+                     : tile_rows(H) == 2 ? scan_fwd_tiles<2, S>
+                                         : scan_fwd_tiles<1, S>;
+  return tiles(gates_x, w_hh, h_seq, c_seq, T, D, R, H, s);
+}
+
+// K6's recurrence on the row tiles of H (256 < H <= 8192)
+template <class S>
+int scan_bwd_rows(const S* gates_x, const S* w_hh, const S* w_hh_t, const S* h_seq,
+                  const S* c_seq, const S* dh_seq, S* dgates, int T, int D, int R, int H,
+                  cudaStream_t s) {
+  if (!w_hh_t) return static_cast<int>(cudaErrorInvalidValue);
+  const auto tiles = tile_rows(H) == 16  ? scan_bwd_tiles<16, S>
+                     : tile_rows(H) == 8 ? scan_bwd_tiles<8, S>
+                     : tile_rows(H) == 4 ? scan_bwd_tiles<4, S>
+                     : tile_rows(H) == 2 ? scan_bwd_tiles<2, S>
+                                         : scan_bwd_tiles<1, S>;
+  return tiles(gates_x, w_hh, w_hh_t, h_seq, c_seq, dh_seq, dgates, T, D, R, H, s);
 }
 
 // K4's reverse scan on the plan's tile
@@ -1724,7 +1809,7 @@ int bwd(const void* x, const void* w_ih, const void* w_ih_t, const void* bias, c
         float* dw, float* db, float* work, int T, int D, int R, int E, int H, cudaStream_t s);
 int scan_fwd(const void* gates_x, const void* w_hh, void* h_seq, void* c_seq, int T, int D, int R,
              int H, cudaStream_t s);
-int scan_bwd(const void* gates_x, const void* w_hh, const void* h_seq, const void* c_seq,
-             const void* dh_seq, void* dgates, float* dw_hh, float* work, int T, int D, int R,
-             int H, cudaStream_t s);
+int scan_bwd(const void* gates_x, const void* w_hh, const void* w_hh_t, const void* h_seq,
+             const void* c_seq, const void* dh_seq, void* dgates, float* dw_hh, float* work, int T,
+             int D, int R, int H, cudaStream_t s);
 }  // namespace lstm_bf16

@@ -1,6 +1,7 @@
 // The bf16 route of the LSTM kernels K3-K6, in its own translation unit so
 // that nvcc compiles the two routes in parallel. K5-bf16 and K6-bf16's scan
-// are lstm_scan.cuh's clusters instantiated on bf16 storage. K3-bf16 and
+// are lstm_scan.cuh's clusters (H <= 256) and row tiles (256 < H <= 8192)
+// instantiated on bf16 storage. K3-bf16 and
 // K4-bf16 are this file's own kernels, their products on the bf16 tensor
 // cores (mma.sync m16n8k16, mma_bf16.cuh) with float32 accumulators, the
 // float32 route's plans and launches kept where they fit:
@@ -773,20 +774,29 @@ int bwd(const void* x, const void* w_ih, const void*, const void* bias, const vo
                                 R, E, H, s);
 }
 
+// K5-bf16: the clusters up to H = 256, the row tiles above
 int scan_fwd(const void* gates_x, const void* w_hh, void* h_seq, void* c_seq, int T, int D, int R,
              int H, cudaStream_t s) {
+  if (H > kMaxHiddenWide)
+    return scan_fwd_rows(in<B>(gates_x), in<B>(w_hh), out<B>(h_seq), out<B>(c_seq), T, D, R, H,
+                         s);
   return scan_fwd_cluster(in<B>(gates_x), in<B>(w_hh), out<B>(h_seq), out<B>(c_seq), T, D, R, H,
                           s);
 }
 
-// K6-bf16: the cluster scan, then the weight gradient on the tensor cores
-int scan_bwd(const void* gates_x, const void* w_hh, const void* h_seq, const void* c_seq,
-             const void* dh_seq, void* dgates, float* dw_hh, float* work, int T, int D, int R,
-             int H, cudaStream_t s) {
+// K6-bf16: the cluster scan (the row tiles above H = 256, which read
+// w_hh_t), then the weight gradient on the tensor cores
+int scan_bwd(const void* gates_x, const void* w_hh, const void* w_hh_t, const void* h_seq,
+             const void* c_seq, const void* dh_seq, void* dgates, float* dw_hh, float* work, int T,
+             int D, int R, int H, cudaStream_t s) {
   const WgSplit wg(T * R, wgrad_tiles(0, H, D));
   const Layout L(T, D, R, 0, H, wg);
-  const int err = scan_bwd_cluster(in<B>(gates_x), in<B>(w_hh), in<B>(h_seq), in<B>(c_seq),
-                                   in<B>(dh_seq), out<B>(dgates), T, D, R, H, s);
+  const int err =
+      H > kMaxHiddenWide
+          ? scan_bwd_rows(in<B>(gates_x), in<B>(w_hh), in<B>(w_hh_t), in<B>(h_seq), in<B>(c_seq),
+                          in<B>(dh_seq), out<B>(dgates), T, D, R, H, s)
+          : scan_bwd_cluster(in<B>(gates_x), in<B>(w_hh), in<B>(h_seq), in<B>(c_seq),
+                             in<B>(dh_seq), out<B>(dgates), T, D, R, H, s);
   if (err) return err;
   return weight_grads_mma<false>(static_cast<const B*>(nullptr), in<B>(h_seq),
                                  out<B>(dgates), work + L.wg_part, dw_hh, nullptr, wg, T, D, R,

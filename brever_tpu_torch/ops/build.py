@@ -72,7 +72,7 @@ SIGNATURES = {
     'lstm_bwd_gates': (_I, [_P] * 6 + [_I] * 6 + [_P]),
     'lstm_bwd': (_I, [_P] * 13 + [_I] * 6 + [_P]),
     'lstm_scan_bwd_workspace': (ctypes.c_size_t, [_I] * 4),
-    'lstm_scan_tile_smem': (ctypes.c_size_t, [_I]),
+    'lstm_scan_tile_smem': (ctypes.c_size_t, [_I, _I]),
     'lstm_scan_cluster_info': (_I, [_I, ctypes.POINTER(_I)]),
     'lstm_scan_fwd': (_I, [_P] * 4 + [_I] * 5 + [_P]),
     'lstm_scan_bwd': (_I, [_P] * 9 + [_I] * 5 + [_P]),

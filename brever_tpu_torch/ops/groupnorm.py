@@ -32,7 +32,10 @@ memory-lean backward, which recomputes the normalised tensor and the
 activation's derivative from x.
 
 bf16 (amp): x of bfloat16 takes the kernels' bf16 route (``csrc/
-groupnorm_bf16.cu``), whose twins are the bf16 mode of the plain versions,
+groupnorm_bf16.cu``: on the 16-byte grid, N a multiple of 8 and every
+tensor 16-byte aligned, kernels of its own that copy the held slab with
+TMA bulk copies, hold dy beside it in K8 and store through TMA; off it the
+templates at bf16), whose twins are the bf16 mode of the plain versions,
 the Pallas kernels at bf16 I/O as written: x and dy widened to float32,
 float32 statistics, ``y = act(x a + b)`` with the affine folded as
 ``_fwd_kernel`` folds it (``a = scale rstd``, ``b = bias - mean a``) and
@@ -481,19 +484,26 @@ def group_shares(channels, n, num_groups, cluster):
 
 def held_most(itemsize):
     """Elements of a slab a cluster block can hold (``held_most``): whole
-    vectors of four, ``itemsize`` bytes each."""
+    vectors of four, ``itemsize`` bytes each (on the bf16 route 115,200, a
+    whole number of the 16-byte route's vectors of eight as well)."""
     return (_SMEM_MOST - _SCRATCH) // itemsize // 4 * 4
 
 
 def _plan_at(batch, channels, n, num_groups, cluster, itemsize):
     segs = -(-n // _TASK)
     widths = [w for _, w in group_shares(channels, n, num_groups, cluster)]
-    held = min(-(-max(widths) // 4) * 4, held_most(itemsize))
+    # whole vectors: of four elements, of eight on the bf16 route's 16-byte
+    # grid
+    vec = 16 // itemsize
+    held = min(-(-max(widths) // vec) * vec, held_most(itemsize))
     remainder = sum(max(w - held, 0) for w in widths)
+    # the bf16 route's K8 holds dy in the shared memory x leaves
+    held_dy = min(held, held_most(itemsize) - held) if itemsize == 2 else 0
     return {'cluster': cluster, 'resident': held,
-            'smem': _SCRATCH + itemsize * held, 'threads': _THREADS,
+            'smem': _SCRATCH + itemsize * (held + held_dy),
+            'threads': _THREADS,
             'tasks': channels // num_groups * segs, 'remainder': remainder,
-            'blocks': batch * num_groups * cluster,
+            'blocks': batch * num_groups * cluster, 'dy_resident': held_dy,
             'route': ('partial' if remainder else
                       'cluster' if cluster > 1 else 'block')}
 
@@ -505,9 +515,15 @@ def gn_plan(batch, channels, n, num_groups, most=_MOST_CLUSTER, itemsize=4):
     ... ``most`` blocks) whose blocks' shared memory holds each block's
     share of the group's slab of x, else ``most`` with the rest of each
     share (``remainder`` elements a group) read from device memory in both
-    passes; elements a block holds (``resident``), shared memory a block,
-    threads, tasks a group, blocks (a cluster a group) and the ``route``:
-    one ``block``, a ``cluster`` that holds the slab, or ``partial``."""
+    passes; elements a block holds (``resident``: the widest share in
+    whole 16-byte vectors), shared memory a block (K8's), threads, tasks a
+    group, blocks (a cluster a group), the elements of dy a block holds
+    (``dy_resident``: on the bf16 route K8 holds its share of dy in the
+    shared memory x leaves, ``csrc/groupnorm_bf16.cu`` ``plan16``; 0 on
+    the float32 route) and the ``route``: one ``block``, a ``cluster`` that
+    holds the slab, or ``partial``. K7 holds x alone (``smem`` less
+    ``itemsize * dy_resident``). The bf16 route off the 16-byte grid takes
+    the same cluster with its own held elements."""
     cluster = 1
     while cluster < most and _plan_at(batch, channels, n, num_groups,
                                       cluster, itemsize)['remainder']:
@@ -551,7 +567,7 @@ def library_plan(entry, key, mirror, keys, what, names=None, itemsize=4):
 _plans = {}
 
 _PLAN_KEYS = ('cluster', 'resident', 'smem', 'threads', 'tasks', 'remainder',
-              'blocks', 'clusters')
+              'blocks', 'clusters', 'dy_resident')
 
 
 def plan_info(batch, channels, n, num_groups, itemsize=4):

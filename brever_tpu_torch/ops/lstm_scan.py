@@ -67,7 +67,8 @@ and of the backward's do/dc/di/df/dg chain rounded (c carried in bf16),
 ``dh_rec = bf16(dgates w_hh^T)``, ``dx = bf16(dgates w_ih^T)``, and the
 weight gradients summed in float32 and cast to the weights' dtype. A CUDA
 bf16 tensor launches the bf16 route (K3 1 launch, K4 5, K5 1, K6 2; K5/K6
-up to H = 256) or raises. K3-bf16 and K4-bf16 are kernels of their own
+on the clusters up to H = 256 and on the row tiles above, as the float32
+route) or raises. K3-bf16 and K4-bf16 are kernels of their own
 (``csrc/lstm_scan_bf16.cu``), their products on the bf16 tensor cores
 (``mma.sync`` m16n8k16, ``csrc/mma_bf16.cuh``), E zero-padded to the MMA
 depth of 16 (exact: the padded columns add zero products), with plans of
@@ -207,14 +208,15 @@ def scan_tile_rows(hidden):
     return rows, hidden * rows // 16
 
 
-def scan_tile_smem(hidden):
+def scan_tile_smem(hidden, itemsize=4):
     """``(K5's, K6's)`` shared memory a block, in bytes, at 256 < ``hidden``
     <= 8192, where they scan row tiles (``lstm_scan_tile_smem`` of
-    csrc/lstm_scan.cuh for K6): K5 holds h of the tile, K6 h, dgates and
-    dh_rec (6H floats a row), 196,608 bytes at H = 512, 1024, 2048, 4096
-    and 8192."""
+    csrc/lstm_scan.cuh for K6), for values of ``itemsize`` bytes (4, or 2
+    on the bf16 route): K5 holds h of the tile, K6 h, dgates and dh_rec
+    (6H values a row), 196,608 bytes at H = 512, 1024, 2048, 4096 and 8192
+    in float32 (half that in bf16)."""
     rows = scan_tile_rows(hidden)[0]
-    return 4 * rows * hidden, 4 * rows * 6 * hidden
+    return itemsize * rows * hidden, itemsize * rows * 6 * hidden
 
 
 def wgrad_split(pairs, tiles):
@@ -915,20 +917,18 @@ def _check_scan(gates_x, w_hh):
         raise ValueError(f'lstm_scan: gates_x has {gdim} gate columns, w_hh '
                          f'{4 * hidden}')
     _check_hidden(hidden, 'lstm_scan')
-    if _is_bf16(gates_x) and hidden > _MAX_HIDDEN_X:
-        raise NotImplementedError(
-            f'lstm_scan: the bfloat16 route of K5/K6 runs on the clusters, '
-            f'up to H = {_MAX_HIDDEN_X}, got {hidden}')
     if steps * n_dir * rows * 4 * hidden >= _INT_RANGE:
         raise ValueError(f'lstm_scan: {tuple(gates_x.shape)} passes the '
                          'kernels\' int range')
     if hidden > _MAX_HIDDEN_X:
-        smem = build.load_library().lstm_scan_tile_smem(hidden)
-        if smem != scan_tile_smem(hidden)[1] or smem > _MAX_SMEM:
+        bf16 = _is_bf16(gates_x)
+        want = scan_tile_smem(hidden, gates_x.element_size())[1]
+        smem = build.load_library().lstm_scan_tile_smem(hidden, int(bf16))
+        if smem != want or smem > _MAX_SMEM:
             raise RuntimeError(
                 f'lstm_scan: K6\'s shared memory at H={hidden} is {smem} '
-                f'bytes in the library, {scan_tile_smem(hidden)[1]} in the '
-                f'wrapper, against {_MAX_SMEM} a block')
+                f'bytes in the library, {want} in the wrapper, against '
+                f'{_MAX_SMEM} a block')
     return steps, n_dir, rows, hidden
 
 

@@ -64,7 +64,8 @@ from .training import BreverTrainer
 FS = 16000
 #: the norm kernels' names (K7/K8 and K7-BN/K8-BN, either route)
 NORM_KERNELS = ('gn_fwd_cluster', 'gn_bwd_cluster', 'gn_bwd_channels',
-                'bn_bwd_partials', 'bn_bwd_dx')
+                'gn_fwd16', 'gn_bwd16', 'gn_bwd_rows', 'bn_bwd_partials',
+                'bn_bwd_dx')
 
 
 class _Items:

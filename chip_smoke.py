@@ -78,7 +78,7 @@ each print one line, with the seconds since the start:
     time a call; each shape's route and cluster), beside their plain
     versions and ``F.group_norm`` + ``F.silu``; the denoiser at 4 x 4 s,
     ``enhance`` of 1 x 2 s, the train step at 4 x 4 s (kernel and plain
-    GroupNorms) and at 8 x 4 s, peak memory;
+    GroupNorms), peak memory;
 22. the gates-in LSTM scan kernels (K5 forward, K6 backward) against
     their plain versions at DCCRN's two complex-LSTM shapes at 16 x 4 s
     and at B = 1, TF-GridNet's short-request intra shape, H 32..256 at
@@ -213,13 +213,15 @@ each print one line, with the seconds since the start:
     the bf16 kernels' device time a step and the card's idle share;
 58. the LSTM kernels' bf16 route (K3-bf16, K4-bf16 at TF-GridNet's intra
     and inter BLSTMs and H = 32, 256; K5-bf16, K6-bf16 at DCCRN's two
-    layers, 8 rows and H = 224) against the bf16 twin on the card (SNR >= 35
+    layers, 8 rows, H = 224, and on row tiles at H = 288 and 512) against
+    the bf16 twin on the card (SNR >= 35
     dB for h, c and every gradient over the full scan) and float64 (no
     farther than the twin), twice bitwise, K4-bf16's recomputed gates
     bitwise K3-bf16's; times against the twin and cuDNN's LSTM in bf16;
 59. a call of each of K3-bf16, K4-bf16, K5-bf16 and K6-bf16 traced in a
-    fresh interpreter (run during phases 58-61): each launches only its own
-    kernels;
+    fresh interpreter (run during phases 58-61), K5-bf16 and K6-bf16 on
+    their clusters and (H = 288) on their row tiles: each launches only its
+    own kernels;
 60. the default TF-GridNet (3,735,344 parameters) trained through
     train.main from the untouched ``config/models/tfgridnet.yaml``
     (``use_amp: true``) on FLAC tars: K3-bf16 and K4-bf16 launch, no bf16
@@ -231,12 +233,15 @@ each print one line, with the seconds since the start:
     a step and the card's idle share;
 63. K7-, K8-, K7-BN- and K8-BN-bf16 against their bf16 twins and float64
     at every GroupNorm class of an ``sgmsep`` and an ``idmse`` evaluation
-    at 4 x 4 s, ragged and unaligned shapes, and every BatchNorm class of a
-    MANNER step at 16 x 4 s (every route of the bf16 plans), reruns
-    bitwise; their times at the largest shapes against the float32 route,
-    the twin and the library in bf16, K8-BN-bf16 on both routes; the
-    launches of a call from a fresh-interpreter trace (their own kernels
-    at ``__nv_bfloat16``, no cuDNN);
+    at 4 x 4 s (K7/K8-bf16's 16-byte route), ragged shapes and views 2 and
+    8 bytes off the 16-byte grid (the 2- and 8-byte routes), and every
+    BatchNorm class of a MANNER step at 16 x 4 s (every route of the bf16
+    plans), reruns bitwise; their times at the largest shapes against the
+    float32 route, the twin and the library in bf16, K7/K8-bf16 against
+    the parent's design (the 8-byte route) in turns, K8-BN-bf16 on both
+    routes; the launches of a call on each route and K8-bf16's device time
+    launch by launch from a fresh-interpreter trace (their own kernels at
+    ``__nv_bfloat16``, no cuDNN);
 64. the default ``sgmsep`` (65,590,694 parameters) under bf16 amp: one
     step's loss and gradients against float64, the same amp step through
     the norms' bf16 twins and the float32 plain path; ``train.main`` from
@@ -1516,7 +1521,9 @@ def sgmse_phases(device, card):
 
     # ---- phase 19: training through train.main on the card
     from brever_tpu_torch import train
-    epochs = 4   # the smoke's time limit: 6 before the bf16 phases
+    # the smoke's time limit: 6 before the bf16 phases, 4 before the bf16
+    # GroupNorm's redesign (the last epoch's check passed at the third)
+    epochs = 3
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = tone_model_dir(tmp, 'sgmsep', 30)
 
@@ -1704,27 +1711,15 @@ def sgmse_phases(device, card):
         def step():
             step_trainer.train_step(data, n)
 
+        # (a step at 8 x 4 s, a timing only, left for the smoke's time
+        # limit)
         steps['4'] = in_turns({'kernel': step, 'plain': plain(step)}, 1,
                               None)
-        del step_trainer, data, n
-        torch.cuda.empty_cache()
-        # 8 x 4 s (the smoke's time limit: 16 x 4 s before the norms'
-        # bf16 phases)
-        try:
-            step_trainer, data, n = make_trainer(device, tmp, batch=8,
-                                                 arch='sgmsep')
-            torch.cuda.reset_peak_memory_stats()
-            ms8 = cuda_ms(step, 1, 1)
-            steps['8'] = (ms8, torch.cuda.max_memory_allocated())
-        except torch.cuda.OutOfMemoryError as e:
-            steps['8'] = (None, str(e).splitlines()[0])
         step_trainer = data = n = None
     torch.cuda.empty_cache()
     out.update(den_ms=den_ms, enh_ms=enh_ms, steps=steps)
     mib = 2 ** 20
-    (s4_ms, s4_peak), (s8_ms, s8_peak) = steps['4'], steps['8']
-    big = (f'{s8_ms:.1f} ms, peak {s8_peak / mib:.1f} MiB'
-           if s8_ms is not None else f'did not fit ({s8_peak})')
+    s4_ms, s4_peak = steps['4']
     shapes = '; '.join(
         f'{tuple(r["shape"])}{"" if r["act"] == "silu" else " none"} x'
         f'{r["count"]} {r["route"]}/{r["cluster"]} K7 '
@@ -1756,8 +1751,7 @@ def sgmse_phases(device, card):
           f'{enh_peak["kernel"] / mib:.1f} MiB (plain {enh_ms["plain"]:.1f} '
           f'ms); train step 4 x 4 s f32 {s4_ms["kernel"]:.1f} ms, peak '
           f'{s4_peak["kernel"] / mib:.1f} MiB (plain GroupNorms '
-          f'{s4_ms["plain"]:.1f} ms, {s4_peak["plain"] / mib:.1f} MiB); '
-          f'train step 8 x 4 s {big}')
+          f'{s4_ms["plain"]:.1f} ms, {s4_peak["plain"] / mib:.1f} MiB)')
     return out
 
 
@@ -5037,17 +5031,20 @@ def amp_training(tcn, count_params):
 LSTM_BF16_TWIN_DB = 35.0
 #: phase 58's K3/K4 cases: TF-GridNet's intra and inter BLSTMs at 16 x 4 s
 #: and K4's hidden-size ends at ragged R; K5/K6 cases: DCCRN's two layers at
-#: 16 x 4 s (gates projected from E), a short request's 8 rows, and H = 224
-#: (MetricGAN's 200 on the kernels' grid): (T, D, R, E, H)
+#: 16 x 4 s (gates projected from E), a short request's 8 rows, H = 224
+#: (MetricGAN's 200 on the kernels' grid), and the row tiles past H = 256
+#: at a ragged R (H = 288) and at 512: (T, D, R, E, H)
 LSTM_BF16_X_CASES = [LSTM_INTRA, LSTM_INTER, *LSTM_EDGE_CASES]
 LSTM_BF16_SCAN_CASES = [DCCRN_LSTM[0], DCCRN_LSTM[1], (33, 2, 8, 128, 128),
-                        (20, 2, 40, 64, 224)]
+                        (20, 2, 40, 64, 224), (20, 2, 33, 64, 288),
+                        (20, 2, 32, 64, 512)]
 #: the default TF-GridNet and DCCRN trained from their untouched configs
 #: (phases 60, 61): FLAC items of 1 s (train, val), epochs, validation period
 RNN_AMP_TRAIN = (8, 2, 2, 2)
 #: the kernels of one call of each bf16 LSTM entry (names as the profiler
 #: gives them) and their launches: K3-bf16 one, K4's five steps six (the partial sums of
-#: dW and of db), K6's scan, weight GEMM (K4-bf16's) and its sum three
+#: dW and of db), K6's scan, weight GEMM (K4-bf16's) and its sum three; K5
+#: and K6 on their clusters and (``_rows``, H = 288) on their row tiles
 LSTM_BF16_KERNELS = {
     'k3': {'lstm_fwd_ring_mma': 1},
     'k4': {'lstm_bwd_gates_mma': 1, 'lstm_bwd_rscan_mma': 1,
@@ -5055,7 +5052,10 @@ LSTM_BF16_KERNELS = {
            'sum_partials': 2},
     'k5': {'lstm_scan_fwd_cluster': 1},
     'k6': {'lstm_scan_bwd_cluster': 1, 'lstm_bwd_wgrad_mma': 1,
-           'sum_partials': 1}}
+           'sum_partials': 1},
+    'k5_rows': {'lstm_fwd_scan': 1},
+    'k6_rows': {'lstm_bwd_scan': 1, 'lstm_bwd_wgrad_mma': 1,
+                'sum_partials': 1}}
 
 LSTM_BF16_TRACE = """
 import json
@@ -5092,13 +5092,19 @@ def names(fn):
 x, wi, b = rand(6, 2, 300, 128), rand(2, 128, 512, scale=0.09), rand(2, 512)
 wh, dh = rand(2, 128, 512, scale=0.09), rand(6, 2, 300, 128)
 gx, dhs = rand(33, 2, 32, 512), rand(33, 2, 32, 128)
+# the row tiles past H = 256
+gw, ww, dw = rand(6, 2, 33, 1152), rand(2, 288, 1152, scale=0.06), \
+    rand(6, 2, 33, 288)
 with torch.no_grad():
     h, c = L.lstm_scan_x_fwd(x, wi, b, wh)
     hs, cs = L.lstm_scan_fwd(gx, wh)
+    hw, cw = L.lstm_scan_fwd(gw, ww)
     out = {'k3': names(lambda: L.lstm_scan_x_fwd(x, wi, b, wh)),
            'k4': names(lambda: L.lstm_scan_x_bwd(x, wi, b, wh, h, c, dh)),
            'k5': names(lambda: L.lstm_scan_fwd(gx, wh)),
-           'k6': names(lambda: L.lstm_scan_bwd(gx, wh, hs, cs, dhs))}
+           'k6': names(lambda: L.lstm_scan_bwd(gx, wh, hs, cs, dhs)),
+           'k5_rows': names(lambda: L.lstm_scan_fwd(gw, ww)),
+           'k6_rows': names(lambda: L.lstm_scan_bwd(gw, ww, hw, cw, dw))}
 print(json.dumps(out))
 """
 
@@ -5315,7 +5321,8 @@ def lstm_amp_phases(device, card):
         phase(58, f'{len(LSTM_BF16_X_CASES)} K3/K4 and '
               f'{len(LSTM_BF16_SCAN_CASES)} K5/K6 bf16 cases (TF-GridNet '
               f'intra {LSTM_INTRA} and inter {LSTM_INTER}, H=32 and 256 at '
-              f'ragged R; DCCRN\'s layers {DCCRN_LSTM}, 8 rows, H=224): h, c '
+              f'ragged R; DCCRN\'s layers {DCCRN_LSTM}, 8 rows, H=224, row '
+              f'tiles at H=288 and 512): h, c '
               f'and every gradient agree with the bf16 twin on the card '
               f'over the full scan (worst SNR K3 {worst["k3"]:.1f}, K4 '
               f'{worst["k4"]:.1f}, K5 {worst["k5"]:.1f}, K6 '
@@ -5486,16 +5493,18 @@ NORM_BF16_TWIN_DB = 40.0
 NORM_F32_EXACT_DB = 100.0
 #: phase 63's GroupNorm cases past the U-Nets' classes, (shape, groups):
 #: odd N, B = 1, G = C, a rank-3 odd length, a slab past a 16-block
-#: cluster on the vector grid and off it (odd N); GN_UNALIGNED's x and dy
-#: also run one element past an 8-byte boundary
+#: cluster on the 16-byte grid and off it (odd N); GN_UNALIGNED's x and dy
+#: also run one element past an 8-byte boundary (the 2-byte route) and 8
+#: bytes past a 16-byte one (the 8-byte route)
 GN_BF16_RAGGED = [((1, 384, 7, 13), 32), ((2, 64, 33, 17), 64),
                   ((3, 96, 1001), 24), ((1, 64, 256, 256), 2),
                   ((2, 64, 255, 257), 2)]
 #: the bf16 route's shapes for the launches of one call: K7/K8 on each
 #: route of the bf16 plan (one block, a cluster that holds the slab, past
-#: it), K7-BN/K8-BN at bench_batchnorm's TRACE_SHAPES
+#: it) on the 16-byte grid and off it (odd N), K7-BN/K8-BN at
+#: bench_batchnorm's TRACE_SHAPES
 GN_BF16_TRACE_SHAPES = (((4, 256, 16, 32), 32), ((4, 256, 256, 501), 32),
-                        ((1, 64, 256, 256), 2))
+                        ((1, 64, 256, 256), 2), ((2, 64, 255, 257), 2))
 #: phase 63's timed shapes: SGMSE+'s largest GroupNorm, (shape, groups)
 GN_BF16_TIMED = ((4, 256, 256, 501), 32)
 #: the default models trained from their untouched configs under amp
@@ -5510,9 +5519,11 @@ NORM_AMP_TRAIN = {'sgmsep': (8, 1, 1.0, 1, 2), 'idmse': (8, 1, 1.0, 1, 2),
 #: relative error of the whole gradient at most this (a bf16 trunk keeps
 #: ~3 significant digits; the float32 plain path's is printed beside)
 NORM_AMP_GRAD_REL = 0.1
-#: the kernels each bf16 norm call launches, by route
+#: the kernels each bf16 norm call launches, by route: K7/K8 on the
+#: 16-byte grid (``k7_16``, ``k8_16``) and off it
 NORM_BF16_KERNELS = {
     'k7': ['gn_fwd_cluster'], 'k8': ['gn_bwd_cluster', 'gn_bwd_channels'],
+    'k7_16': ['gn_fwd16'], 'k8_16': ['gn_bwd16', 'gn_bwd_rows'],
     'k7bn': ['gn_fwd_cluster'], 'k8bn': ['gn_bwd_cluster'],
     'k8bn_passes': ['bn_bwd_partials', 'bn_bwd_dx']}
 
@@ -5552,6 +5563,27 @@ def names(fn):
     return got
 
 
+def split(fn, calls=5):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.replace('(anonymous namespace)::', '')
+                name = name.split('(')[0].split('::')[-1].split(' ')[-1]
+                ms[name] = ms.get(name, 0.0) + e.device_time / 1e3 / calls
+        if ms:
+            return ms
+    return None
+
+
 out = []
 with torch.no_grad():
     for shape, groups in chip_smoke.GN_BF16_TRACE_SHAPES:
@@ -5563,10 +5595,15 @@ with torch.no_grad():
         out.append({
             'shape': shape, 'route': gn.plan_info(shape[0], shape[1], n,
                                                   groups, 2)['route'],
+            'grid16': n % 8 == 0,
             'k7': names(lambda: gn.group_norm_act_fwd(
                 x, scale, bias, groups, 1e-6, 'silu')),
             'k8': names(lambda: gn.group_norm_act_bwd(
                 x, dy, scale, bias, mean, rstd, groups, 'silu'))})
+        if (shape, groups) == chip_smoke.GN_BF16_TIMED:
+            # K8-bf16's split: each launch's device time, the mean of 5 calls
+            out[-1]['k8_split'] = split(lambda: gn.group_norm_act_bwd(
+                x, dy, scale, bias, mean, rstd, groups, 'silu'))
     for shape in TRACE_SHAPES:
         x, dy = rand(*shape), rand(*shape)
         scale, bias = rand(shape[1], scale=0.1, center=1.0), rand(shape[1])
@@ -5597,26 +5634,30 @@ def norm_bf16_trace():
 def norm_traced_kernels(run):
     """The kernels each traced bf16 norm call of ``run`` launched; fails
     unless each launched its route's kernels once each
-    (``NORM_BF16_KERNELS``), the templated ones at ``__nv_bfloat16``, and
-    besides them
+    (``NORM_BF16_KERNELS``: K7/K8 on the 16-byte grid and off it), the
+    templated ones at ``__nv_bfloat16``, and besides them
     only PyTorch's elementwise kernels (the wrapper's widening of the bf16
-    affine to float32): no cuDNN kernel. Returns ``{key: launches a
-    call}``. Stops the process in any case."""
+    affine to float32): no cuDNN kernel. Returns ``({route: launches a
+    call}, K8-bf16's split at GN_BF16_TIMED: {kernel: device ms a call},
+    or None where the profiler recorded nothing)``. Stops the process in
+    any case."""
     try:
         stdout, stderr = run.communicate(timeout=600)
     finally:
         run.kill()
     if run.returncode:
         raise AssertionError(f'bf16 norm trace: {stderr[-3000:]}')
-    counts = {}
+    counts, split = {}, None
     for case in json.loads(stdout.strip().splitlines()[-1]):
+        split = case.get('k8_split', split)
         for key in ('k7', 'k8', 'k7bn', 'k8bn'):
             if key not in case:
                 continue
             got = case[key]
-            want = NORM_BF16_KERNELS[
-                'k8bn_passes' if key == 'k8bn'
-                and case['route_bwd'] == 'passes' else key]
+            route = ('k8bn_passes' if key == 'k8bn'
+                     and case['route_bwd'] == 'passes' else
+                     f'{key}_16' if case.get('grid16') else key)
+            want = NORM_BF16_KERNELS[route]
             ours = [n for n in got if any(k in n for k in want)]
             other = [n for n in got if n not in ours
                      and 'at::native' not in n]
@@ -5627,8 +5668,8 @@ def norm_traced_kernels(run):
                            for n in ours) or other:
                 raise AssertionError(f'{key.upper()}-bf16 at {case["shape"]}'
                                      f' ({case["route"]}) launched {got}')
-            counts[key] = len(ours)
-    return counts
+            counts[route] = len(ours)
+    return counts, split
 
 
 def twin_check(name, got, twin, exact, min_db=NORM_BF16_TWIN_DB):
@@ -5723,11 +5764,12 @@ def norm_bf16_phase(device, card):
                 err[key] = max(err[key], e)
                 gap = max(gap, twin_exact - vs_exact)
 
-        def unaligned(t):
-            """``t`` one element past an 8-byte boundary (the 2-byte
-            route)."""
-            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
-            out = flat[1:].view(t.shape)
+        def unaligned(t, past=1):
+            """``t`` ``past`` elements past a 16-byte boundary: one, the
+            2-byte route; four (8 bytes), the 8-byte route."""
+            flat = torch.empty(t.numel() + past, dtype=t.dtype,
+                               device=device)
+            out = flat[past:].view(t.shape)
             out.copy_(t)
             return out
 
@@ -5739,7 +5781,8 @@ def norm_bf16_phase(device, card):
         n_classes = len(gn_cases)
         for shape, groups in GN_BF16_RAGGED:
             gn_cases[(tuple(shape), groups)] = {True}
-        gn_cases[(GN_UNALIGNED[0], GN_UNALIGNED[1], 'unaligned')] = {True}
+        for past in (1, 4):
+            gn_cases[(GN_UNALIGNED[0], GN_UNALIGNED[1], past)] = {True}
         for key, acts in gn_cases.items():
             shape, groups = key[0], key[1]
             for silu in sorted(acts):
@@ -5748,9 +5791,10 @@ def norm_bf16_phase(device, card):
                 scale = rand(shape[1], scale=0.1, center=1.0)
                 bias = rand(shape[1], scale=0.1)
                 if len(key) == 3:
-                    x, dy = unaligned(x), unaligned(dy)
-                label = (f'{shape} G={groups} {act}'
-                         + ' unaligned' * (len(key) == 3))
+                    x, dy = unaligned(x, key[2]), unaligned(dy, key[2])
+                label = f'{shape} G={groups} {act}'
+                if len(key) == 3:
+                    label += f' {2 * key[2]} bytes off'
                 n = x[0, 0].numel()
                 routes['gn'].add(gn.plan_info(shape[0], shape[1], n, groups,
                                               2)['route'])
@@ -5884,6 +5928,22 @@ def norm_bf16_phase(device, card):
                     5, 2)[0]
                 bwd_ms['f32'] = cuda_ms(
                     lambda: bwd(x32, dy32, s32, b32, st32), 5, 2)
+                if key == 'gn':
+                    # the parent's design, still the bf16 route off the
+                    # 16-byte grid (8-byte vectors and cp.async, dy read
+                    # twice), on views 8 bytes past a 16-byte boundary,
+                    # against this one in turns (parent, this, this,
+                    # parent)
+                    xo, dyo = unaligned(x, 4), unaligned(dy, 4)
+                    fwd_ms['parent'] = in_turns({
+                        'plain': lambda: fwd(xo, scale, bias),
+                        'kernel': lambda: fwd(x, scale, bias)}, 5, 2)[0][
+                        'plain']
+                    bwd_ms['parent'] = in_turns({
+                        'plain': lambda: bwd(xo, dyo, scale, bias, st),
+                        'kernel': lambda: bwd(x, dy, scale, bias, st)},
+                        5, 2)[0]['plain']
+                    del xo, dyo
             xl, sl, bl = (t.clone().requires_grad_() for t in (x, scale,
                                                               bias))
             yl = lib(xl, sl, bl)
@@ -5904,16 +5964,20 @@ def norm_bf16_phase(device, card):
     except BaseException:
         tracer.kill()
         raise
-    launches = norm_traced_kernels(tracer)
+    launches, split = norm_traced_kernels(tracer)
     g, b = timing['gn'], timing['bn']
 
     def times(t, d):
         return (f'{t[d]["kernel"]:.3f}/{t[d]["f32"]:.3f}/{t[d]["plain"]:.3f}'
                 f'/{t[d]["library"]:.3f}')
 
+    split_text = ('not traced (the profiler recorded nothing)' if not split
+                  else ', '.join(f'{k} {v:.4f}' for k, v in split.items()))
+
     phase(63, f'K7/K8-bf16 at {n_classes} GroupNorm classes of an sgmsep and '
           f'an idmse evaluation at 4 x 4 s, {len(GN_BF16_RAGGED)} ragged and '
-          f'one unaligned (routes {sorted(routes["gn"])}); K7-BN/K8-BN-bf16 '
+          f'two unaligned (2 and 8 bytes off; routes '
+          f'{sorted(routes["gn"])}); K7-BN/K8-BN-bf16 '
           f'at {n_bn_classes} MANNER classes at 16 x 4 s and {BN_CASES} '
           f'(routes {sorted(routes["bn_fwd"])}/{sorted(routes["bn_bwd"])}): '
           f'every output and gradient agrees with the bf16 twin on the card '
@@ -5924,12 +5988,17 @@ def norm_bf16_phase(device, card):
           f'two runs bitwise equal; a call launches only its own kernels at '
           f'__nv_bfloat16 ({launches}), no cuDNN (fresh-interpreter trace); '
           f'[{card}] bf16/f32/twin/library-bf16 ms: K7 {GN_BF16_TIMED[0]} '
-          f'{times(g, "fwd")} K8 {times(g, "bwd")}; K7-BN {BN_CASES[0]} '
+          f'{times(g, "fwd")} K8 {times(g, "bwd")} (the parent\'s 8-byte '
+          f'route in turns: K7 {g["fwd"]["parent"]:.3f}, K8 '
+          f'{g["bwd"]["parent"]:.3f}; bound shares K7 '
+          f'{g["bound"][0][0] / g["fwd"]["kernel"]:.0%}, K8 '
+          f'{g["bound"][1][0] / g["bwd"]["kernel"]:.0%}; K8-bf16 a call by '
+          f'launch, device ms: {split_text}); K7-BN {BN_CASES[0]} '
           f'{times(b, "fwd")} K8-BN {times(b, "bwd")} (card ms by route: '
           + ', '.join(f'{k} {v:.3f}' for k, v in b['bwd_routes'].items())
           + ')')
     return {'worst_db': worst, 'err': err, 'timing': timing,
-            'launches_a_call': launches}
+            'launches_a_call': launches, 'k8_split': split}
 
 
 #: the amp gradients of one full-width step against float64 (phases
@@ -6307,6 +6376,18 @@ def norm_bf16_records(nbf, namp):
         t = timing[which[0]]
         d = t[which[1]]
         b = t['bound'][0 if which[1] == 'fwd' else 1]
+        if 'parent' in d:   # K7/K8-bf16: the parent's design in turns
+            extra = {'parent_ms': d['parent'],
+                     'parent_note': 'the parent\'s kernels (the 8-byte '
+                     'route, still the bf16 route off the 16-byte grid) on '
+                     'views 8 bytes past a 16-byte boundary, in turns with '
+                     'this route in this run',
+                     'bound_share': b[0] / d['kernel'],
+                     'parent_bound_share': b[0] / d['parent']}
+            if key == 'k8':
+                extra['split_ms'] = nbf['k8_split']
+        else:
+            extra = {}
         records.append({
             'name': name, 'route': 'cuda',
             'source': 'brever_tpu_torch/csrc/groupnorm_bf16.cu',
@@ -6317,8 +6398,10 @@ def norm_bf16_records(nbf, namp):
             'library_note': lib, 'shape': shape, 'f32_route_ms': d['f32'],
             'worst_snr_vs_twin_db': nbf['worst_db'][key],
             **({'card_ms_by_route': t['bwd_routes']} if key == 'k8bn'
-               else {}),
-            'launches_a_call': nbf['launches_a_call'].get(key)})
+               else {}), **extra,
+            'launches_a_call': {k: v for k, v in
+                                nbf['launches_a_call'].items()
+                                if k.split('_')[0] == key}})
     return records
 
 
@@ -7082,7 +7165,6 @@ def main():
                    for r in sgm['eval_rows']},
         'train_step_4x4s_ms': sgm['steps']['4'][0]['kernel'],
         'train_step_4x4s_plain_ms': sgm['steps']['4'][0]['plain'],
-        'train_step_8x4s_ms': sgm['steps']['8'][0],
         'idmse_train_step_4x4s_ms': idm['step_ms']['kernel'],
         'idmse_train_step_4x4s_plain_ms': idm['step_ms']['plain'],
         'idmselarge_train_step_4x4s_ms': idm['large']['step_ms'],

@@ -1156,11 +1156,14 @@ def test_fused_x_fits_is_the_kernels_shared_memory(device):
 
 def test_scan_tile_smem_is_the_wrappers(device):
     """K6's shared memory on row tiles (256 < H <= 8192) in the library is
-    the wrapper's ``scan_tile_smem``, within a block's."""
+    the wrapper's ``scan_tile_smem``, within a block's, on the float32
+    route and the bf16 one."""
     lib = build.load_library()
     for hidden in range(288, 8193, 32):
-        bwd = lstm.scan_tile_smem(hidden)[1]
-        assert lib.lstm_scan_tile_smem(hidden) == bwd <= lstm._MAX_SMEM
+        for itemsize in (4, 2):
+            bwd = lstm.scan_tile_smem(hidden, itemsize)[1]
+            assert lib.lstm_scan_tile_smem(hidden, int(itemsize == 2)) \
+                == bwd <= lstm._MAX_SMEM
 
 
 def test_scan_cluster_is_the_wrappers(device):
@@ -1391,6 +1394,96 @@ def test_groupnorm_plan_is_the_wrappers(device):
         assert {k: v for k, v in plan.items() if k != 'clusters'} == want, \
             shape
         assert plan['clusters'] >= 1, (shape, plan)
+
+
+def test_groupnorm_bf16_plan_is_the_wrappers(device):
+    """The library's bf16 plan at the U-Net's shapes is the wrapper's
+    mirror (x held in whole 16-byte vectors, dy in what x leaves), and the
+    card places the plan's cluster of both 16-byte-route kernels."""
+    for shape in UNET_GN_SHAPES:
+        n = shape[2] * shape[3]
+        plan = gn.plan_info(shape[0], shape[1], n, 32, 2)
+        want = gn.gn_plan(shape[0], shape[1], n, 32, itemsize=2)
+        assert {k: v for k, v in plan.items() if k != 'clusters'} == want, \
+            shape
+        assert plan['clusters'] >= 1, (shape, plan)
+
+
+@pytest.mark.parametrize('shape,groups', [((4, 256, 64, 126), 32),
+                                          ((4, 384, 64, 126), 32),
+                                          ((2, 64, 32, 40), 64)])
+def test_groupnorm_bf16_routes_agree(device, shape, groups):
+    """K7/K8-bf16 on the 16-byte grid and off it (the same tensors on views
+    2 and 8 bytes past a 16-byte boundary) against the bf16 twin: 40 dB on
+    every output; two runs of the 16-byte route bitwise equal."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    bf = torch.bfloat16
+
+    def rand(*s, scale=1.0, center=0.0):
+        return (center + scale * torch.randn(*s, generator=gen,
+                                             device=device)).to(bf)
+
+    def off(t, past):
+        flat = torch.empty(t.numel() + past, dtype=bf, device=device)
+        out = flat[past:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    def db(got, want):
+        got, want = got.double(), want.double()
+        err = ((got - want) ** 2).sum().clamp_min(1e-300)
+        return 10 * torch.log10((want ** 2).sum() / err).item()
+
+    x, dy = rand(*shape, scale=2.0, center=0.3), rand(*shape)
+    scale, bias = rand(shape[1], scale=0.1, center=1.0), \
+        rand(shape[1], scale=0.1)
+    with torch.no_grad():
+        twin = gn.group_norm_act_reference(x, scale, bias, groups, 1e-6,
+                                           'silu')
+        twin_g = gn.group_norm_act_bwd_plain(x, dy, scale, bias, *twin[1:],
+                                             groups, 'silu')
+        runs = []
+        for past in (0, 0, 1, 4):
+            xv, dyv = (off(x, past), off(dy, past)) if past else (x, dy)
+            out = gn.group_norm_act_fwd(xv, scale, bias, groups, 1e-6,
+                                        'silu')
+            grads = gn.group_norm_act_bwd(xv, dyv, scale, bias, *out[1:],
+                                          groups, 'silu')
+            runs.append(tuple(out) + tuple(grads))
+            for got, want in zip(runs[-1], tuple(twin) + tuple(twin_g)):
+                assert got.dtype == want.dtype
+                assert db(got, want) >= 40.0, (past, db(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+
+
+@pytest.mark.parametrize('hidden', [288, 512])
+def test_bf16_scan_row_tiles_match_the_twin(device, hidden):
+    """Past H = 256 K5-bf16 and K6-bf16 scan row tiles: h, c, dgates and
+    dw_hh against the bf16 twin at 35 dB, twice bitwise, one launch each
+    on the bf16 route."""
+    gen = torch.Generator(device=device).manual_seed(hidden)
+    bf = torch.bfloat16
+
+    def rand(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=gen, device=device)
+                ).to(bf)
+
+    gates_x = rand(12, 2, 33, 4 * hidden, scale=0.5)
+    w_hh = rand(2, hidden, 4 * hidden, scale=hidden ** -0.5)
+    dh = rand(12, 2, 33, hidden)
+    before = (lstm.lstm_scan.launches_bf16, lstm.lstm_scan_bwd.launches_bf16)
+    h, c = lstm.lstm_scan_fwd(gates_x, w_hh)
+    grads = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+    again = lstm.lstm_scan_bwd(gates_x, w_hh, h, c, dh)
+    assert (lstm.lstm_scan.launches_bf16 - before[0],
+            lstm.lstm_scan_bwd.launches_bf16 - before[1]) == (1, 2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    twin = lstm.lstm_scan_reference(gates_x, w_hh)
+    twin_g = lstm.lstm_scan_bwd_plain(gates_x, w_hh, *twin, dh)
+    for got, want in zip((h, c) + tuple(grads), tuple(twin) + tuple(twin_g)):
+        assert got.dtype == bf
+        err = ((got.double() - want.double()) ** 2).sum().clamp_min(1e-300)
+        assert 10 * torch.log10((want.double() ** 2).sum() / err) >= 35.0
 
 
 #: Run in a fresh interpreter: the device kernels of three K7 calls and of

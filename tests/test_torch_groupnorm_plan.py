@@ -39,8 +39,8 @@ RAGGED = [((1, 384, 7, 13), 32), ((2, 64, 33, 17), 64), ((3, 96, 1001), 24),
 CASES = [(shape, 32) for shape, _ in UNET_CALLS] + RAGGED
 
 
-def _constant(name):
-    with open(os.path.join(CSRC, 'groupnorm.cuh')) as f:
+def _constant(name, source='groupnorm.cuh'):
+    with open(os.path.join(CSRC, source)) as f:
         text = f.read()
     return int(re.search(rf'constexpr int {name} = (\d+);', text).group(1))
 
@@ -63,6 +63,11 @@ def test_plan_constants_are_the_sources():
                                   _constant('kMostCluster'))
     assert gn._SMEM_MOST == 232448
     assert gn._SCRATCH % 16 == 0 and gn._TASK % 4 == 0
+    # the bf16 route's 16-byte vectors (groupnorm_bf16.cu's kV) are the
+    # mirror's whole vectors at 2 bytes an element, and a block's held
+    # elements a whole number of them
+    assert _constant('kV', 'groupnorm_bf16.cu') == 16 // 2
+    assert gn.held_most(2) % 8 == 0
 
 
 @pytest.mark.parametrize('itemsize', [4, 2])
@@ -86,9 +91,10 @@ def test_plan_covers_the_slab(shape, groups, most, itemsize):
     assert shares[-1][0] + shares[-1][1] == slab
     assert plan['remainder'] == sum(max(w - held, 0) for _, w in shares)
     assert cluster <= most
+    most_held = (gn._SMEM_MOST - gn._SCRATCH) // itemsize // 4 * 4
     if plan['remainder']:
         assert plan['route'] == 'partial' and cluster == most
-        assert held == (gn._SMEM_MOST - gn._SCRATCH) // itemsize // 4 * 4
+        assert held == most_held
     else:
         assert held * cluster >= slab and held >= max(w for _, w in shares)
         assert plan['route'] == ('cluster' if cluster > 1 else 'block')
@@ -96,8 +102,13 @@ def test_plan_covers_the_slab(shape, groups, most, itemsize):
         half = gn.gn_plan(batch, channels, n, groups, cluster // 2,
                           itemsize)
         assert half['remainder'] > 0
-    assert held % 4 == 0
-    assert plan['smem'] == gn._SCRATCH + itemsize * held <= gn._SMEM_MOST
+    # whole 16-byte vectors: four float32, eight bf16
+    assert held % (16 // itemsize) == 0
+    # the bf16 route's K8 holds dy in what x leaves of a block's memory
+    held_dy = min(held, most_held - held) if itemsize == 2 else 0
+    assert plan['dy_resident'] == held_dy
+    assert plan['smem'] == gn._SCRATCH + itemsize * (held + held_dy) \
+        <= gn._SMEM_MOST
     assert plan['tasks'] >= cluster
     assert plan['blocks'] == batch * groups * cluster
     assert plan['threads'] == gn._THREADS
@@ -131,15 +142,47 @@ def test_plan_routes_at_the_unet_shapes():
 def test_plan_routes_at_the_unet_shapes_in_bf16():
     """On the bf16 route a block holds twice the elements: every slab of
     a U-Net evaluation at 4 x 4 s is held, (4, 256, 256, 501)'s 1.96 MiB
-    groups by 16-block clusters and (4, 128, 256, 501)'s by 8."""
+    groups by 16-block clusters and (4, 128, 256, 501)'s by 8. K8 holds dy
+    in what x leaves of a block's 232,448 bytes: the whole share at the 9
+    classes of up to 32,256 elements a block, part of it at the 8 wider ones
+    ((4, 256, 256, 501): 50,688 of 64,512; (4, 384, 64, 126): 18,432 of
+    96,768), whose blocks then fill their shared memory."""
     plans = {shape: gn.gn_plan(*_bnc(shape), 32, itemsize=2)
              for shape, _ in UNET_CALLS}
     assert all(p['remainder'] == 0 for p in plans.values())
     assert plans[(4, 256, 256, 501)]['cluster'] == 16
     assert plans[(4, 128, 256, 501)]['cluster'] == 8
     assert {p['route'] for p in plans.values()} == {'block', 'cluster'}
-    assert all(p['smem'] == gn._SCRATCH + 2 * p['resident']
+    assert all(p['smem'] == gn._SCRATCH + 2 * (p['resident']
+                                               + p['dy_resident'])
                for p in plans.values())
+    largest, widest = plans[(4, 256, 256, 501)], plans[(4, 384, 64, 126)]
+    assert (largest['resident'], largest['dy_resident']) == (64512, 50688)
+    assert (widest['resident'], widest['dy_resident']) == (96768, 18432)
+    whole = {s for s, p in plans.items()
+             if p['dy_resident'] == p['resident']}
+    assert len(whole) == 9
+    assert all(plans[s]['resident'] <= 32256 for s in whole)
+    assert all(p['smem'] == gn._SMEM_MOST for s, p in plans.items()
+               if s not in whole)
+    # every class is on the 16-byte grid: whole vectors of eight a row
+    assert all(_bnc(shape)[2] % 8 == 0 for shape, _ in UNET_CALLS)
+
+
+def test_plan_keeps_the_cluster_of_x_in_bf16():
+    """Holding dy never grows the bf16 cluster: at every class the cluster
+    is the smallest whose blocks hold the slab of x alone (the float32
+    plan at half the bytes an element would hold x and dy together only
+    by doubling it at six classes)."""
+    grows = 0
+    for shape, groups in CASES:
+        bf = gn.gn_plan(*_bnc(shape), groups, itemsize=2)
+        both = gn.gn_plan(*_bnc(shape), groups, itemsize=4)
+        widths = [w for _, w in gn.group_shares(
+            shape[1], _bnc(shape)[2], groups, bf['cluster'])]
+        assert max(widths) <= bf['resident'] or bf['remainder']
+        grows += both['cluster'] > bf['cluster']
+    assert grows >= 6
 
 
 def test_a_smaller_cluster_holds_less():

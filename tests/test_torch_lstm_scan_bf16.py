@@ -28,7 +28,8 @@ from brever_tpu_torch.ops import lstm_scan as L
 
 # (T, D, R, E, H) for the projection-fused kernels, (T, D, R, H) gates-in
 X_CASES = [(6, 2, 16, 40, 32), (5, 1, 9, 24, 64), (4, 2, 20, 64, 48)]
-GATE_CASES = [(6, 2, 16, 32), (7, 1, 5, 64), (5, 2, 12, 48)]
+#: (T, D, R, H); H = 288 is a width the card scans on row tiles
+GATE_CASES = [(6, 2, 16, 32), (7, 1, 5, 64), (5, 2, 12, 48), (3, 1, 5, 288)]
 AS_WRITTEN = {'xla_allow_excess_precision': False}
 
 

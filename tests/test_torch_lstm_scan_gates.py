@@ -363,6 +363,8 @@ def test_scan_tile_plan_fits_every_wide_hidden_size(hidden):
     assert bwd <= L._MAX_SMEM
     if hidden in (512, 1024, 2048, 4096, 8192):
         assert bwd == 196608
+    # the bf16 route holds the same values as bf16: half the bytes
+    assert L.scan_tile_smem(hidden, 2) == (fwd // 2, bwd // 2)
 
 
 def _cluster_twin(gates_x, w_hh, dh_seq, blocks):
